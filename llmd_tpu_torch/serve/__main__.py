@@ -1,0 +1,70 @@
+"""`python -m llmd_tpu_torch.serve` — the port's model-server entry point.
+
+Where ``python -m llmd_tpu.serve`` has a flag, the port uses its name
+(``--model``, ``--host``, ``--port``, ``--max-num-seqs``,
+``--max-num-batched-tokens``, ``--seed``). The model's weights are random,
+drawn on the device from ``--seed``; the byte tokenizer keeps the server
+hermetic. Runs on the GPU unless ``--device cpu`` is given.
+"""
+
+from __future__ import annotations
+
+import argparse
+import logging
+
+
+def build_parser() -> argparse.ArgumentParser:
+    p = argparse.ArgumentParser(prog="python -m llmd_tpu_torch.serve")
+    p.add_argument("--model", default="tiny", help="registry name")
+    p.add_argument("--host", default="0.0.0.0")
+    p.add_argument("--port", type=int, default=8000)
+    p.add_argument(
+        "--dtype", default=None,
+        help="weights and KV pool dtype (default: the registry's)",
+    )
+    p.add_argument("--num-blocks", type=int, default=2048, help="KV pool pages")
+    p.add_argument("--max-num-seqs", type=int, default=64)
+    p.add_argument("--max-num-batched-tokens", type=int, default=1024)
+    p.add_argument("--seed", type=int, default=0)
+    p.add_argument("--device", default="cuda")
+    return p
+
+
+def make_engine_config(args):
+    from llmd_tpu_torch.config import CacheConfig, EngineConfig, SchedulerConfig
+    from llmd_tpu_torch.models.registry import get_model_config
+
+    overrides = {} if args.dtype is None else {"dtype": args.dtype}
+    model = get_model_config(args.model, **overrides)
+    return EngineConfig(
+        model=model,
+        cache=CacheConfig(num_blocks=args.num_blocks, dtype=model.dtype),
+        scheduler=SchedulerConfig(
+            max_num_seqs=args.max_num_seqs,
+            max_num_batched_tokens=args.max_num_batched_tokens,
+        ),
+        seed=args.seed,
+    )
+
+
+def main(argv=None) -> None:
+    logging.basicConfig(level=logging.INFO)
+    args = build_parser().parse_args(argv)
+
+    from aiohttp import web
+
+    from llmd_tpu_torch.engine import LLMEngine
+    from llmd_tpu_torch.serve.api import build_app
+    from llmd_tpu_torch.serve.async_engine import AsyncEngine
+    from llmd_tpu_torch.serve.tokenizer import ByteTokenizer
+
+    config = make_engine_config(args)
+    engine = LLMEngine(config, device=args.device)
+    app = build_app(
+        AsyncEngine(engine), ByteTokenizer(), args.model, config.model.max_model_len
+    )
+    web.run_app(app, host=args.host, port=args.port)
+
+
+if __name__ == "__main__":
+    main()

@@ -119,6 +119,13 @@ def leaksan():
             sanitize.disarm_leaksan()
 
 
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers",
+        "cuda: needs an NVIDIA GPU (the port's CUDA kernels); skips without one",
+    )
+
+
 def pytest_sessionfinish(session, exitstatus):
     if _LOCKSAN:
         path = _sanitize.write_report()

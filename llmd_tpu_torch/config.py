@@ -1,4 +1,4 @@
-"""Engine configuration (the fields the flat-step slice reads).
+"""Engine configuration (the fields the port's engines read).
 
 Field names and defaults are those of ``llmd_tpu.config``, so one kwargs
 dict builds a configuration for either package.
@@ -65,6 +65,29 @@ class SchedulerConfig:
     # Per-step token budget; longer prompts prefill in chunks of at most
     # this many tokens, so decodes are never starved.
     max_num_batched_tokens: int = 1024
+    # Shape buckets of the bucketed programs, under the JAX package's names
+    # so one set of keyword arguments builds either package's config; ()
+    # derives powers of two up to the limit (the runner's ``_buckets``).
+    # ``prefill_token_buckets`` groups prompt chunks into programs by width
+    # and ``decode_batch_buckets`` pads the decode batch with pad rows.
+    # ``prefill_batch_buckets`` pads no array here: it only sizes a prefill
+    # group's draw from the seed stream (the runner's ``_seed_rows``).
+    prefill_token_buckets: tuple[int, ...] = ()
+    decode_batch_buckets: tuple[int, ...] = ()
+    prefill_batch_buckets: tuple[int, ...] = ()
+    # Fused decode window: K decode iterations per dispatch with on-device
+    # token feedback and one readback. 1 = one step per token. A larger K
+    # spreads the readback and the scheduling pass over K tokens, at the
+    # cost of K-token streaming granularity and a bounded overrun past
+    # stop tokens.
+    decode_window: int = 1
+    # One program for a whole window-1 step (prefill chunks and decode
+    # rows together, one readback). Off: the split engine, one program per
+    # prefill Q-bucket group plus the decode program.
+    unified_step: bool = True
+    # The unified step runs over the packed token stream (the flat step).
+    # Off: the bucketed [B, Q] unified program.
+    ragged_qlens: bool = True
 
 
 @dataclasses.dataclass

@@ -1,9 +1,14 @@
 """LLMEngine: scheduler + page allocator + model runner, stepped in sync.
 
 Keeps the JAX engine's public API (``add_request``, ``step``,
-``generate``, ``abort_request``, ``has_work``) for the window-1 flat step:
-every step is one flat forward over the packed token stream with one
-host readback.
+``generate``, ``abort_request``, ``has_work``) and its synchronous step
+(``llmd_tpu/engine/engine.py:_step_sync``). A step that is eligible runs as
+one unified program (the flat step over the packed token stream, or the
+bucketed ``[B, Q]`` program without ``ragged_qlens``); otherwise its
+prefill chunks go out as Q-bucket groups and its decode rows as one fused
+window of K iterations (the split engine, and every engine whose
+scheduler picked ``K > 1``). Either way the step ends in one host
+readback, and a decode row's output carries up to K tokens.
 """
 
 from __future__ import annotations
@@ -18,8 +23,17 @@ import torch
 from llmd_tpu_torch.config import EngineConfig
 from llmd_tpu_torch.engine.kv_cache import PageAllocator
 from llmd_tpu_torch.engine.request import Request, RequestOutput, SamplingParams
-from llmd_tpu_torch.engine.runner import ModelRunner, resolve_device
-from llmd_tpu_torch.engine.scheduler import EngineScheduler, ScheduledBatch
+from llmd_tpu_torch.engine.runner import (
+    ModelRunner,
+    PendingDecode,
+    StepResult,
+    resolve_device,
+)
+from llmd_tpu_torch.engine.scheduler import (
+    EngineScheduler,
+    ScheduledBatch,
+    ScheduledSeq,
+)
 
 
 @dataclasses.dataclass
@@ -27,6 +41,13 @@ class EngineStats:
     """Counters of the engine's work, updated every step."""
 
     engine_steps_total: int = 0
+    # Device programs enqueued: one per unified step, per prefill Q-bucket
+    # group and per decode window.
+    step_dispatches_total: int = 0
+    # Programs that carried decode rows.
+    decode_dispatches_total: int = 0
+    # Steps that ran as one unified program.
+    unified_steps_total: int = 0
 
 
 class LLMEngine:
@@ -90,24 +111,71 @@ class LLMEngine:
         if batch.is_empty:
             return []
         now = time.monotonic()
-        pending = self.runner.dispatch_unified(batch.prefills, batch.decodes)
-        pres, dres = self.runner.wait_step(pending)
-        sampled: dict[str, int] = {}
-        logprobs: dict[str, float] = {}
-        for res, seqs in ((pres, batch.prefills), (dres, batch.decodes)):
-            for i, seq in enumerate(seqs):
-                sampled[seq.request.request_id] = int(res.tokens[i, 0])
-                logprobs[seq.request.request_id] = float(res.logprobs[i, 0])
+        pend_p = pend_d = pend_u = None
+        if self._unified_eligible(batch):
+            pend_u = self.runner.dispatch_unified(batch.prefills, batch.decodes)
+            self.stats.unified_steps_total += 1
+            self.stats.step_dispatches_total += 1
+            if batch.decodes:
+                self.stats.decode_dispatches_total += 1
+        else:
+            if batch.prefills:
+                pend_p = self.runner.dispatch_prefill(batch.prefills)
+                self.stats.step_dispatches_total += len(pend_p.entries)
+            if batch.decodes:
+                pend_d = self._dispatch_decodes(batch.decodes)
+        # One readback for the whole step, whatever it dispatched.
+        pres, dres = self.runner.wait_step(pend_p, pend_d, pend_u)
+        sampled, logprobs = self._collect(batch, pres, dres)
         accepted = self.scheduler.update_after_step(batch, sampled)
         outputs = self._assemble_outputs(batch, accepted, logprobs, now)
         self.stats.engine_steps_total += 1
         return outputs
 
+    def _unified_eligible(self, batch: ScheduledBatch) -> bool:
+        """Does this batch ride the unified single-dispatch program?
+        Window-1 steps only: a fused decode window keeps its own dispatch.
+        The flat step takes every such step. The bucketed unified program
+        takes only steps for which the split engine would launch more than
+        one program: mixed prefill + decode steps, and prefill-only steps
+        that span several Q buckets."""
+        if any(s.num_tokens != 1 for s in batch.decodes):
+            return False
+        if self.runner.flat:
+            return True
+        if not self.config.scheduler.unified_step or not batch.prefills:
+            return False
+        if batch.decodes:
+            return True
+        return self.runner.prefill_group_count(batch.prefills) > 1
+
+    def _dispatch_decodes(self, decodes: list[ScheduledSeq]) -> PendingDecode:
+        """The step's decode rows as one fused window; K is uniform across
+        the batch (the scheduler's choice)."""
+        staged = self.runner.stage_decode(decodes, k_steps=decodes[0].num_tokens)
+        pend = self.runner.dispatch_staged_decode(staged)
+        self.stats.decode_dispatches_total += 1
+        self.stats.step_dispatches_total += 1
+        return pend
+
+    @staticmethod
+    def _collect(
+        batch: ScheduledBatch, pres: StepResult | None, dres: StepResult | None
+    ) -> tuple[dict[str, list[int]], dict[str, list[float]]]:
+        """Per request id: the window of sampled tokens and their logprobs."""
+        sampled: dict[str, list[int]] = {}
+        logprobs: dict[str, list[float]] = {}
+        for res, seqs in ((pres, batch.prefills), (dres, batch.decodes)):
+            for i, seq in enumerate(seqs):
+                sampled[seq.request.request_id] = res.tokens[i].tolist()
+                logprobs[seq.request.request_id] = res.logprobs[i].tolist()
+        return sampled, logprobs
+
     def _assemble_outputs(
         self,
         batch: ScheduledBatch,
         accepted: dict[str, list[int]],
-        logprobs: dict[str, float],
+        logprobs: dict[str, list[float]],
         now: float,
     ) -> list[RequestOutput]:
         outputs: list[RequestOutput] = []
@@ -119,7 +187,9 @@ class LLMEngine:
             if req.first_token_time is None:
                 req.first_token_time = now
             if req.sampling.logprobs:
-                req.output_logprobs.append(logprobs[req.request_id])
+                req.output_logprobs.extend(
+                    logprobs[req.request_id][: len(new_tokens)]
+                )
             outputs.append(
                 RequestOutput(
                     request_id=req.request_id,

@@ -1,13 +1,19 @@
 """Continuous-batching scheduler with chunked prefill and prefix caching.
 
 The port of ``llmd_tpu/engine/scheduler.py:EngineScheduler.schedule`` for
-the synchronous window-1 step: every engine step selects a token budget's
-worth of work — one token per running decode sequence, then prompt chunks
-for sequences mid-prefill, then admissions from the waiting queue (chunked
+the synchronous step: every engine step selects a token budget's worth of
+work — one token per running decode sequence, then prompt chunks for
+sequences mid-prefill, then admissions from the waiting queue (chunked
 prefill, so long prompts never starve decodes). Preemption is
 recompute-style: when KV pages run out, the youngest running sequence is
 evicted, its pages freed, and it restarts from the waiting queue with its
 generated tokens folded into the prompt.
+
+With ``decode_window > 1`` a step that cannot make admission progress (no
+admissible waiting request, no prompt chunk in flight) schedules every
+decode row for a fused window of K tokens: pages for all K are claimed
+before dispatch, and ``update_after_step`` appends the window's tokens one
+by one, ending the row at the first stop condition.
 """
 
 from __future__ import annotations
@@ -106,6 +112,18 @@ class EngineScheduler:
         decoding = [r for r in self.running if r.in_decode]
         mid_prefill = [r for r in self.running if not r.in_decode]
 
+        # Fused K-step decode windows apply whenever this step cannot make
+        # admission progress anyway (nothing admissible waiting, no prompt
+        # chunks in flight), in particular in the saturated regime, where
+        # spreading the dispatch over K tokens pays most. Otherwise K = 1
+        # keeps admission latency at one step. K is uniform across the
+        # batch and capped so no sequence runs past max_model_len.
+        can_admit = bool(self.waiting) and len(self.running) < self.config.max_num_seqs
+        k = 1
+        if self.config.decode_window > 1 and decoding and not mid_prefill and not can_admit:
+            room = min(self.max_model_len - r.num_computed_tokens for r in decoding)
+            k = max(1, min(self.config.decode_window, room))
+
         # 1. Decodes claim pages FIRST: a running decode must never be
         #    starved by prefill admission taking the last free pages.
         for req in decoding:
@@ -113,14 +131,14 @@ class EngineScheduler:
                 continue  # reset by a preemption earlier in this loop
             if budget <= 0:
                 break
-            if not self._ensure_pages(req, 1):
+            if not self._ensure_pages(req, k):
                 # Never evict a sequence already placed in this step's
                 # batch: the runner still writes its pages.
                 if not self._preempt_for(req, exclude=scheduled):
                     continue
-                if not self._ensure_pages(req, 1):
+                if not self._ensure_pages(req, k):
                     continue
-            decodes.append(ScheduledSeq(req, 1))
+            decodes.append(ScheduledSeq(req, k))
             scheduled.add(req.request_id)
             budget -= 1
 
@@ -224,17 +242,20 @@ class EngineScheduler:
     # post-step bookkeeping
 
     def update_after_step(
-        self, batch: ScheduledBatch, sampled: dict[str, int]
+        self, batch: ScheduledBatch, sampled: dict[str, list[int]]
     ) -> dict[str, list[int]]:
         """Advance state after the device step. ``sampled`` maps request id
-        -> the token sampled for it. Returns the tokens accepted per
-        request."""
+        -> the window of sampled tokens (length 1 for prefill and one-step
+        rows, K for a fused decode window). Tokens past a stop condition
+        are discarded: their KV sits in pages that are freed with the
+        request and never committed to the prefix cache. Returns the
+        tokens accepted per request."""
         accepted: dict[str, list[int]] = {}
         for seq in batch.prefills:
             req = seq.request
             req.num_computed_tokens += seq.num_tokens
             if req.in_decode:  # this chunk completed the prompt -> 1st token
-                token = sampled[req.request_id]
+                token = sampled[req.request_id][0]
                 req.output_token_ids.append(token)
                 accepted[req.request_id] = [token]
                 reason = self._check_stop(req, token)
@@ -244,11 +265,16 @@ class EngineScheduler:
             self._commit_full_pages(req)
         for seq in batch.decodes:
             req = seq.request
-            token = sampled[req.request_id]
-            req.num_computed_tokens += 1
-            req.output_token_ids.append(token)
-            accepted[req.request_id] = [token]
-            reason = self._check_stop(req, token)
+            acc: list[int] = []
+            reason = None
+            for token in sampled[req.request_id]:
+                req.num_computed_tokens += 1
+                req.output_token_ids.append(token)
+                acc.append(token)
+                reason = self._check_stop(req, token)
+                if reason is not None:
+                    break
+            accepted[req.request_id] = acc
             if reason is not None:
                 self._finish(req, reason)
             else:

@@ -9,10 +9,21 @@ import torch
 
 @dataclasses.dataclass
 class StepInput:
-    """Device inputs of one flattened-token ("flat", ``cu_q_lens``) step.
+    """Device inputs of one forward step, in one of two layouts.
 
-    The batch axis is the packed token stream of T tokens (live tokens
-    first, then pads):
+    Bucketed (``token_rows is None``): one row per sequence, ``Q`` token
+    slots a row.
+
+    token_ids:   [B, Q] input token ids (0 in pad slots)
+    positions:   [B, Q] absolute positions (pad slots repeat the last valid)
+    query_lens:  [B] valid token slots per row (0 for a pad row)
+    kv_lens:     [B] valid kv length per row AFTER this step's writes
+    page_table:  [B, max_pages] physical pages per row
+    live_pages:  the largest live page count of the batch (host int): the
+                 plain ``Q > 1`` attention gathers no more table columns
+
+    Flat (``token_rows`` set, the ``cu_q_lens`` step): the batch axis is
+    the packed token stream of T tokens (live tokens first, then pads).
 
     token_ids:   [T, 1] input token ids (0 for pads)
     positions:   [T, 1] absolute position of each token (0 for pads)
@@ -26,8 +37,16 @@ class StepInput:
     positions: torch.Tensor
     kv_lens: torch.Tensor
     page_table: torch.Tensor
-    token_rows: torch.Tensor
-    num_live: int
+    token_rows: torch.Tensor | None = None
+    num_live: int = 0
+    query_lens: torch.Tensor | None = None
+    live_pages: int | None = None
+
+    @property
+    def valid(self) -> torch.Tensor:  # [B, Q] bool, bucketed layout
+        Q = self.token_ids.shape[1]
+        cols = torch.arange(Q, device=self.token_ids.device)
+        return cols[None, :] < self.query_lens[:, None]
 
 
 def rms_norm(x: torch.Tensor, weight: torch.Tensor, eps: float) -> torch.Tensor:

@@ -1,13 +1,15 @@
-"""Dense Llama-class decoder on the flattened token stream.
+"""Dense Llama-class decoder on the flat or the bucketed step layout.
 
-The port of the dense flat branch of ``llmd_tpu/models/llama.py``: stacked
+The port of the dense branches of ``llmd_tpu/models/llama.py``: stacked
 ``[L, ...]`` weights with ``x @ W`` projections (the JAX leaf names, so a
 parameter tree carries over by copy), fused or unfused q|k|v and gate|up,
 optional QKV bias, Qwen3 QK-norm and tied or untied ``lm_head``. Where JAX
 scans the layers, the port loops over them in Python; each layer writes its
-K|V into the pool in place and then attends over it, through the two flat
-kernels of ``llmd_tpu_torch.ops``. The large projections stay
-``torch.matmul``, as the JAX package leaves them to XLA.
+K|V into the pool in place and then attends over it, through the entries
+of ``llmd_tpu_torch.ops``: the flat pair on the packed ``[T, 1]`` stream,
+the bucketed pair on ``[B, Q]`` rows (the decode kernels at ``Q == 1``). The
+large projections stay ``torch.matmul``, as the JAX package leaves them to
+XLA.
 """
 
 from __future__ import annotations
@@ -111,16 +113,58 @@ def _mlp(h: torch.Tensor, lp: dict) -> torch.Tensor:
     return (F.silu(h @ lp["w_gate"]) * (h @ lp["w_up"])) @ lp["w_down"]
 
 
+def _write_attend(inp: StepInput, page: int):
+    """The layout's (write, attend) pair: ``write(kv_cache, layer, k, v)``
+    and ``attend(q, kv_cache, layer, sm_scale)``, over what the step fixes
+    for every layer."""
+    if inp.token_rows is not None:
+
+        def write(kv_cache, layer, k, v):
+            return ops.write_kv_pages_full_flat(
+                kv_cache, layer, k, v, inp.page_table, inp.token_rows,
+                inp.positions, inp.num_live,
+            )
+
+        def attend(q, kv_cache, layer, sm_scale):
+            return ops.paged_attention_full_flat(
+                q, kv_cache, layer, inp.token_rows, inp.page_table,
+                inp.kv_lens, sm_scale,
+            )
+
+        return write, attend
+
+    valid = inp.valid
+    prep = None
+    if inp.token_ids.shape[1] == 1:
+        prep = ops.decode_write_prep(inp.page_table, inp.positions, valid, page)
+
+    def write(kv_cache, layer, k, v):
+        return ops.write_kv_pages_full(
+            kv_cache, layer, k, v, inp.page_table, inp.positions, valid, prep
+        )
+
+    def attend(q, kv_cache, layer, sm_scale):
+        return ops.paged_attention_full(
+            q, kv_cache, layer, inp.page_table, inp.kv_lens, inp.positions,
+            sm_scale, inp.live_pages,
+        )
+
+    return write, attend
+
+
 def forward_hidden(
     params: dict, kv_cache: torch.Tensor, inp: StepInput, cfg: ModelConfig
 ) -> tuple[torch.Tensor, torch.Tensor]:
-    """Run the decoder stack over the packed stream; returns (hidden
-    [T, 1, H], kv_cache). The pool is updated in place."""
-    T = inp.token_ids.shape[0]
+    """Run the decoder stack over the step; returns (hidden, kv_cache),
+    hidden ``[T, 1, H]`` for the flat layout and ``[B, Q, H]`` for the
+    bucketed one (``inp.token_rows is None``). The pool is updated in
+    place."""
+    B, Q = inp.token_ids.shape
     D, Nq, K = cfg.head_dim, cfg.num_heads, cfg.num_kv_heads
-    x = params["embed"][inp.token_ids]  # [T, 1, H]
+    x = params["embed"][inp.token_ids]  # [B, Q, H]
     cos, sin = rope_tables(inp.positions, D, cfg.rope_theta)
     sm_scale = D**-0.5
+    write, attend = _write_attend(inp, kv_cache.shape[3])
     layers = params["layers"]
     for i in range(cfg.num_layers):
         lp = {name: w[i] for name, w in layers.items()}
@@ -134,23 +178,17 @@ def forward_hidden(
             q, k, v = h @ lp["wq"], h @ lp["wk"], h @ lp["wv"]
         if cfg.attention_bias:
             q, k, v = q + lp["bq"], k + lp["bk"], v + lp["bv"]
-        q = q.reshape(T, 1, Nq, D)
-        k = k.reshape(T, 1, K, D)
+        q = q.reshape(B, Q, Nq, D)
+        k = k.reshape(B, Q, K, D)
         if cfg.qk_norm:  # Qwen3: per-head RMS norm before RoPE
             q = rms_norm(q, lp["attn_q_norm"], cfg.rms_norm_eps)
             k = rms_norm(k, lp["attn_k_norm"], cfg.rms_norm_eps)
         q = apply_rope(q, cos, sin)
         k = apply_rope(k, cos, sin)
-        v = v.reshape(T, 1, K, D)
-        kv_cache = ops.write_kv_pages_full_flat(
-            kv_cache, i, k, v, inp.page_table, inp.token_rows, inp.positions,
-            inp.num_live,
-        )
-        attn = ops.paged_attention_full_flat(
-            q, kv_cache, i, inp.token_rows, inp.page_table, inp.kv_lens,
-            sm_scale,
-        )
-        x = x + attn.reshape(T, 1, Nq * D) @ lp["wo"]
+        v = v.reshape(B, Q, K, D)
+        kv_cache = write(kv_cache, i, k, v)
+        attn = attend(q, kv_cache, i, sm_scale)
+        x = x + attn.reshape(B, Q, Nq * D) @ lp["wo"]
         h2 = rms_norm(x, lp["post_norm"], cfg.rms_norm_eps)
         x = x + _mlp(h2, lp)
     return rms_norm(x, params["final_norm"], cfg.rms_norm_eps), kv_cache

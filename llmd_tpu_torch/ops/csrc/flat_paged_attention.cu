@@ -7,15 +7,8 @@
 // For each packed token t, its H query heads attend over positions
 // [0, kv_lens[t]) of the pages of row rows[t] (kv_len = position + 1 is
 // the causal mask inside a row), with G = H / K query heads per KV head.
-// Grid (T, K): one block per (token, KV head) with G warps, one warp per
-// query head of the group; each lane holds D / 32 elements of q and of
-// the accumulator. The block walks the token's live pages, staging each
-// page's [page, 2D] K|V tile of its KV head in shared memory once for all
-// G warps. A warp scores the tile's live positions with shuffle
-// reductions and folds them into an f32 online softmax (m, l, acc), one
-// rescale per page. Only live positions are read, so uninitialised pool
-// memory never enters a sum. sm_scale folds into q; l == 0 (a pad token,
-// kv_len 0) divides by 1 and writes zeros, as the TPU kernel does.
+// Grid (T, K): one block per (token, KV head) with G warps; the block's
+// work is paged_attention.cuh:attend_row, shared with the decode kernel.
 //
 // Bound: bytes. Decode rows read K|V once per (token, KV head) and do
 // about 4 * G flops per element read. The design reads each page once per
@@ -23,50 +16,12 @@
 // between the tokens of one prefill chunk (each re-reads its prefix, as
 // the TPU kernel does) or split long rows across blocks.
 
-#include <cuda_bf16.h>
-#include <cuda_fp16.h>
-#include <cuda_runtime.h>
-#include <math.h>
-#include <stdint.h>
-
-#include <type_traits>
+#include "paged_attention.cuh"
 
 namespace {
 
-constexpr int kMaxPage = 32;
-
-__device__ __forceinline__ float to_f(float x) { return x; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 x) { return __bfloat162float(x); }
-__device__ __forceinline__ float to_f(__half x) { return __half2float(x); }
-
-template <typename T> __device__ __forceinline__ T from_f(float x);
-template <> __device__ __forceinline__ float from_f<float>(float x) { return x; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
-}
-template <> __device__ __forceinline__ __half from_f<__half>(float x) {
-  return __float2half(x);
-}
-
-// N consecutive elements at p (aligned to their total size) as floats,
-// read with the widest vector load that size allows.
-template <typename T, int N>
-__device__ __forceinline__ void load_f(const T* __restrict__ p, float (&out)[N]) {
-  constexpr int kBytes = N * sizeof(T);
-  static_assert(kBytes % 4 == 0, "lane slice must be a multiple of 4 bytes");
-  using V = typename std::conditional<
-      kBytes % 16 == 0, uint4,
-      typename std::conditional<kBytes % 8 == 0, uint2, uint32_t>::type>::type;
-  constexpr int kVecs = kBytes / sizeof(V);
-  constexpr int kPer = sizeof(V) / sizeof(T);
-#pragma unroll
-  for (int a = 0; a < kVecs; ++a) {
-    V raw = reinterpret_cast<const V*>(p)[a];
-    const T* e = reinterpret_cast<const T*>(&raw);
-#pragma unroll
-    for (int b = 0; b < kPer; ++b) out[a * kPer + b] = to_f(e[b]);
-  }
-}
+using paged_attention::attend_row;
+using paged_attention::kMaxPage;
 
 template <typename T, int DPL>  // DPL = head_dim / 32 elements per lane
 __global__ void flat_paged_attention_kernel(
@@ -78,84 +33,13 @@ __global__ void flat_paged_attention_kernel(
     const int32_t* __restrict__ kv_lens,   // [T]
     int layer, int num_pages, int num_kv_heads, int page, int max_pages,
     int group, float sm_scale) {
-  constexpr int D = DPL * 32;
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  T* tile = reinterpret_cast<T*>(smem_raw);  // [page, 2D]
-
   const int t = blockIdx.x;
-  const int kh = blockIdx.y;
-  const int warp = threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  const int H = num_kv_heads * group;
-  const int h = kh * group + warp;
-  const int kv_len = kv_lens[t];
-  const int row = rows[t];
-
-  float qf[DPL], acc[DPL];
-  load_f<T, DPL>(q + ((int64_t)t * H + h) * D + lane * DPL, qf);
-#pragma unroll
-  for (int i = 0; i < DPL; ++i) {
-    qf[i] *= sm_scale;
-    acc[i] = 0.f;
-  }
-  float m = -INFINITY;
-  float l = 0.f;
-
-  const int64_t slab = (int64_t)page * 2 * D;  // elements of one (page, head)
-  const int nvec = (int)(slab * sizeof(T) / 16);
-  const int n_pages = (kv_len + page - 1) / page;
-  for (int p = 0; p < n_pages; ++p) {
-    const int phys = page_table[(int64_t)row * max_pages + p];
-    const uint4* src = reinterpret_cast<const uint4*>(
-        cache + (((int64_t)layer * num_pages + phys) * num_kv_heads + kh) * slab);
-    __syncthreads();  // every warp is done with the previous tile
-    for (int i = threadIdx.x; i < nvec; i += blockDim.x) {
-      reinterpret_cast<uint4*>(tile)[i] = src[i];
-    }
-    __syncthreads();
-
-    const int n = min(page, kv_len - p * page);  // live positions, >= 1
-    float s[kMaxPage];
-    float m_page = -INFINITY;
-#pragma unroll
-    for (int j = 0; j < kMaxPage; ++j) {
-      if (j < n) {  // warp-uniform
-        float kf[DPL];
-        load_f<T, DPL>(tile + j * 2 * D + lane * DPL, kf);
-        float dot = 0.f;
-#pragma unroll
-        for (int i = 0; i < DPL; ++i) dot += qf[i] * kf[i];
-#pragma unroll
-        for (int off = 16; off > 0; off >>= 1) {
-          dot += __shfl_xor_sync(0xffffffffu, dot, off);
-        }
-        s[j] = dot;
-        m_page = fmaxf(m_page, dot);
-      }
-    }
-    const float m_new = fmaxf(m, m_page);
-    const float alpha = expf(m - m_new);  // 0 on the first page (m = -inf)
-    l *= alpha;
-#pragma unroll
-    for (int i = 0; i < DPL; ++i) acc[i] *= alpha;
-#pragma unroll
-    for (int j = 0; j < kMaxPage; ++j) {
-      if (j < n) {
-        const float pj = expf(s[j] - m_new);
-        l += pj;
-        float vf[DPL];
-        load_f<T, DPL>(tile + j * 2 * D + D + lane * DPL, vf);
-#pragma unroll
-        for (int i = 0; i < DPL; ++i) acc[i] += pj * vf[i];
-      }
-    }
-    m = m_new;
-  }
-
-  const float denom = (l == 0.f) ? 1.f : l;
-  T* op = out + ((int64_t)t * H + h) * D + lane * DPL;
-#pragma unroll
-  for (int i = 0; i < DPL; ++i) op[i] = from_f<T>(acc[i] / denom);
+  const int64_t tok = (int64_t)t * num_kv_heads * group * DPL * 32;
+  attend_row<T, DPL>(
+      out + tok, q + tok, cache, page_table + (int64_t)rows[t] * max_pages,
+      kv_lens[t], blockIdx.y, layer, num_pages, num_kv_heads, page, group,
+      sm_scale, reinterpret_cast<T*>(smem_raw));
 }
 
 template <typename T, int DPL>

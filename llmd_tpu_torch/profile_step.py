@@ -1,19 +1,25 @@
-"""Where a flat step's time goes on the GPU.
+"""Where a step's time goes on the GPU.
 
     python -m llmd_tpu_torch.profile_step [--model llama-3-8b] [--batch 32]
-        [--prompt-len 1000] [--decode-steps 16]
+        [--prompt-len 1000] [--decode-steps 16] [--decode-window 8]
 
 Serves ``--batch`` greedy requests of ``--prompt-len`` random tokens
-through ``LLMEngine`` (random weights from ``--seed``) and traces two
-windows with ``torch.profiler``: the first step (a prefill-heavy step of
-``max_num_batched_tokens`` live tokens) and ``--decode-steps`` steps once
-every request decodes. For each window it prints one JSON line: host
-milliseconds per step (the step ends in its device->host copy), the
-device's busy milliseconds per step (the sum of its CUDA kernels' times;
-one stream, so kernels do not overlap), the device's idle share, kernel
-launches per step, device milliseconds per step by group (the port's two
-kernels, GEMMs, the rest) and the costliest other kernels. Runs on a GPU
-only.
+through ``LLMEngine`` (random weights from ``--seed``) and traces three
+windows with ``torch.profiler``: the first step of the flat engine (a
+prefill-heavy step of ``max_num_batched_tokens`` live tokens),
+``--decode-steps`` flat steps once every request decodes, and, in a second
+engine with ``decode_window = --decode-window``, as many fused decode
+windows as cover the same number of tokens. For each window it prints one
+JSON line: host milliseconds per step (the step ends in its device->host
+copy), the device's busy milliseconds per step (the sum of its CUDA
+kernels' times; one stream, so kernels do not overlap), the device's idle
+share, kernel launches per step, device milliseconds per step by group
+(the port's kernels, GEMMs, the rest), the costliest other kernels, and the
+same host and device times per token of a decode row, so that the fused
+window stands beside the flat decode step. The profiler adds host time to
+every operator, so each window's steps are also timed without it
+(``untraced_host_ms_per_step``), before the profiler first starts. Runs on
+a GPU only.
 """
 
 from __future__ import annotations
@@ -31,23 +37,38 @@ from torch.profiler import ProfilerActivity, profile
 
 from llmd_tpu_torch.config import CacheConfig, EngineConfig, SchedulerConfig
 from llmd_tpu_torch.engine import LLMEngine, SamplingParams
+from llmd_tpu_torch.models import llama
 from llmd_tpu_torch.models.registry import get_model_config
 
 _GEMM_MARKS = ("gemm", "nvjet", "cutlass", "xmma", "cublas")
+_PORT_KERNELS = (
+    "flat_paged_attention", "flat_kv_write", "decode_paged_attention",
+    "decode_kv_write",
+)
 
 
 def _group(kernel: str) -> str:
-    if "flat_paged_attention" in kernel:
-        return "flat_paged_attention"
-    if "flat_kv_write" in kernel:
-        return "flat_kv_write"
+    for name in _PORT_KERNELS:
+        if name in kernel:
+            return name
     if any(m in kernel.lower() for m in _GEMM_MARKS):
         return "gemm"
     return "other"
 
 
-def trace_steps(eng: LLMEngine, n: int) -> dict:
-    """Run ``n`` engine steps under the profiler; per-step averages."""
+def time_steps(eng: LLMEngine, n: int) -> float:
+    """Host milliseconds per step of ``n`` engine steps, profiler off."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        eng.step()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3 / n
+
+
+def trace_steps(eng: LLMEngine, n: int, untraced_ms: float) -> dict:
+    """Run ``n`` engine steps under the profiler; per-step averages beside
+    ``untraced_ms``, the same kind of steps' host time without it."""
     live0 = eng.runner.live_tokens_total
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -55,7 +76,7 @@ def trace_steps(eng: LLMEngine, n: int) -> dict:
         for _ in range(n):
             eng.step()
         torch.cuda.synchronize()
-        host_ms = (time.perf_counter() - t0) * 1e3
+        host_ms = (time.perf_counter() - t0) * 1e3 / n
     by_group: dict[str, float] = collections.defaultdict(float)
     other: dict[str, float] = collections.defaultdict(float)
     launches = 0
@@ -70,17 +91,25 @@ def trace_steps(eng: LLMEngine, n: int) -> dict:
         launches += 1
     if not launches:
         raise RuntimeError("the profiler recorded no CUDA kernel: no device time to report")
-    busy = sum(by_group.values())
+    busy = sum(by_group.values()) / n
     top = sorted(other.items(), key=lambda kv: -kv[1])[:6]
+    live = (eng.runner.live_tokens_total - live0) / n
+    # Tokens one row gains in a step: 1, or K in a fused decode window.
+    row_tokens = max(live / max(len(eng.scheduler.running), 1), 1.0)
     return {
         "steps": n,
-        "live_tokens_per_step": (eng.runner.live_tokens_total - live0) / n,
-        "host_ms_per_step": host_ms / n,
-        "device_busy_ms_per_step": busy / n,
+        "live_tokens_per_step": live,
+        "host_ms_per_step": host_ms,
+        "untraced_host_ms_per_step": untraced_ms,
+        "device_busy_ms_per_step": busy,
         "idle_share": 1.0 - busy / host_ms,
+        "untraced_idle_share": 1.0 - busy / untraced_ms,
         "kernels_per_step": launches / n,
         "device_ms_per_step": {g: ms / n for g, ms in sorted(by_group.items())},
         "top_other_ms_per_step": {k: ms / n for k, ms in top},
+        "tokens_per_row_per_step": row_tokens,
+        "untraced_host_ms_per_row_token": untraced_ms / row_tokens,
+        "device_busy_ms_per_row_token": busy / row_tokens,
     }
 
 
@@ -90,6 +119,7 @@ def main(argv=None) -> None:
     p.add_argument("--batch", type=int, default=32)
     p.add_argument("--prompt-len", type=int, default=1000)
     p.add_argument("--decode-steps", type=int, default=16)
+    p.add_argument("--decode-window", type=int, default=8)
     p.add_argument("--max-num-batched-tokens", type=int, default=1024)
     p.add_argument("--seed", type=int, default=0)
     args = p.parse_args(argv)
@@ -99,35 +129,62 @@ def main(argv=None) -> None:
     cfg = get_model_config(args.model)
     page = 16
     # Requests prefilled early decode while later ones prefill, so each
-    # runs long enough to still be decoding in the traced window.
+    # runs long enough to still be decoding in both passes over its window
+    # (untraced, then traced).
     prefill_steps = -(-args.batch * args.prompt_len // args.max_num_batched_tokens) + 1
-    max_tokens = prefill_steps + args.decode_steps + 8
+    max_tokens = prefill_steps + 2 * args.decode_steps + 2 * args.decode_window + 8
     per_seq = -(-(args.prompt_len + max_tokens) // page)
-    config = EngineConfig(
-        model=cfg,
-        cache=CacheConfig(page_size=page, num_blocks=args.batch * per_seq + 64,
-                          dtype=cfg.dtype, enable_prefix_caching=False),
-        scheduler=SchedulerConfig(max_num_seqs=max(64, args.batch),
-                                  max_num_batched_tokens=args.max_num_batched_tokens),
-        seed=args.seed,
-    )
-    eng = LLMEngine(config, device="cuda")
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60, check=True,
     ).stdout.strip()
-    sp = SamplingParams(temperature=0.0, max_tokens=4, ignore_eos=True)
-    eng.generate([[5] * 64, [7] * 16], sp)  # warm-up: cuBLAS, kernels
-    rng = np.random.default_rng(args.seed)
+    gen = torch.Generator(device="cuda").manual_seed(args.seed)
+    params = llama.fuse_projections(llama.init_params(cfg, gen, "cuda"))
     sp = SamplingParams(temperature=0.0, max_tokens=max_tokens, ignore_eos=True)
-    for _ in range(args.batch):
-        eng.add_request(rng.integers(3, cfg.vocab_size, size=args.prompt_len).tolist(), sp)
-    windows = {"prefill": trace_steps(eng, 1)}
-    sched = eng.scheduler
-    while sched.waiting or not all(r.in_decode for r in sched.running):
-        eng.step()
-    eng.step()  # first all-decode step, untraced
-    windows["decode"] = trace_steps(eng, args.decode_steps)
+
+    def loaded_engine(**sched) -> LLMEngine:
+        """An engine on the shared weights with ``--batch`` requests queued."""
+        config = EngineConfig(
+            model=cfg,
+            cache=CacheConfig(page_size=page, num_blocks=args.batch * per_seq + 64,
+                              dtype=cfg.dtype, enable_prefix_caching=False),
+            scheduler=SchedulerConfig(max_num_seqs=max(64, args.batch),
+                                      max_num_batched_tokens=args.max_num_batched_tokens,
+                                      **sched),
+            seed=args.seed,
+        )
+        eng = LLMEngine(config, params=params, device="cuda")
+        warm = SamplingParams(temperature=0.0, max_tokens=2 + sched.get("decode_window", 1),
+                              ignore_eos=True)
+        eng.generate([[5] * 64, [7] * 16], warm)  # warm-up: cuBLAS, kernels
+        rng = np.random.default_rng(args.seed)
+        for _ in range(args.batch):
+            eng.add_request(rng.integers(3, cfg.vocab_size, size=args.prompt_len).tolist(), sp)
+        return eng
+
+    def decoding(eng: LLMEngine) -> LLMEngine:
+        sched = eng.scheduler
+        while sched.waiting or not all(r.in_decode for r in sched.running):
+            eng.step()
+        eng.step()  # first all-decode step, unmeasured
+        return eng
+
+    # Every untraced time is taken before the profiler first starts: once
+    # its tracing library is loaded, launches stay slower in the process.
+    window = f"decode_window_{args.decode_window}"
+    steps = {
+        "decode": (decoding(loaded_engine()), args.decode_steps),
+        window: (
+            decoding(loaded_engine(decode_window=args.decode_window)),
+            max(1, args.decode_steps // args.decode_window),
+        ),
+    }
+    untraced = {"prefill": time_steps(loaded_engine(), 1)}
+    for name, (eng, n) in steps.items():
+        untraced[name] = time_steps(eng, n)
+    windows = {"prefill": trace_steps(loaded_engine(), 1, untraced["prefill"])}
+    for name, (eng, n) in steps.items():
+        windows[name] = trace_steps(eng, n, untraced[name])
     for name, w in windows.items():
         print(json.dumps({"window": name, "model": args.model, "batch": args.batch,
                           "prompt_len": args.prompt_len, "card": card, **w}), flush=True)

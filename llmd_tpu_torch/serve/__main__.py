@@ -2,7 +2,8 @@
 
 Where ``python -m llmd_tpu.serve`` has a flag, the port uses its name
 (``--model``, ``--host``, ``--port``, ``--max-num-seqs``,
-``--max-num-batched-tokens``, ``--seed``). The model's weights are random,
+``--max-num-batched-tokens``, ``--seed``, ``--decode-window``,
+``--unified-step``, ``--ragged-qlens``). The model's weights are random,
 drawn on the device from ``--seed``; the byte tokenizer keeps the server
 hermetic. Runs on the GPU unless ``--device cpu`` is given.
 """
@@ -26,6 +27,24 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--max-num-seqs", type=int, default=64)
     p.add_argument("--max-num-batched-tokens", type=int, default=1024)
     p.add_argument("--seed", type=int, default=0)
+    p.add_argument(
+        "--decode-window", type=int, default=1,
+        help="fused decode window: K decode iterations per dispatch with "
+             "on-device token feedback and one readback (1 = one step per "
+             "token)",
+    )
+    p.add_argument(
+        "--unified-step", action=argparse.BooleanOptionalAction, default=True,
+        help="run each window-1 engine step as one program with one "
+             "readback; --no-unified-step selects the split engine (prefill "
+             "groups plus the decode program)",
+    )
+    p.add_argument(
+        "--ragged-qlens", action=argparse.BooleanOptionalAction, default=True,
+        help="the unified step runs over the packed token stream (the flat "
+             "step); --no-ragged-qlens selects the bucketed [B, Q] unified "
+             "program",
+    )
     p.add_argument("--device", default="cuda")
     return p
 
@@ -42,6 +61,9 @@ def make_engine_config(args):
         scheduler=SchedulerConfig(
             max_num_seqs=args.max_num_seqs,
             max_num_batched_tokens=args.max_num_batched_tokens,
+            decode_window=args.decode_window,
+            unified_step=args.unified_step,
+            ragged_qlens=args.ragged_qlens,
         ),
         seed=args.seed,
     )

@@ -130,17 +130,24 @@ async def _stream_response(
     n_out = cached = 0
     try:
         async for out in engine.generate(rid, prompt_ids, sampling, priority):
-            delta = detok.feed(out.new_token_ids, final=out.finished)
             n_out = out.num_output_tokens
             cached = out.num_cached_tokens
-            if detok.stopped:
-                engine.abort(rid)
-                finish = "stop"
-            elif out.finished:
-                finish = out.finish_reason.value if out.finish_reason else None
-            if delta or out.new_token_ids:
+            # A fused decode window delivers up to K tokens at once: each
+            # goes out as its own chunk, in order. An empty delta (held
+            # back for UTF-8 or a stop string) still tells the client that
+            # a token exists.
+            for i, token in enumerate(out.new_token_ids):
+                last = out.finished and i == len(out.new_token_ids) - 1
+                delta = detok.feed([token], final=last)
+                if detok.stopped:
+                    engine.abort(rid)
+                    finish = "stop"
+                elif last:
+                    finish = out.finish_reason.value if out.finish_reason else None
                 await resp.write(_sse(P.completion_chunk(rid, model, delta, None)))
-            if finish is not None:
+                if detok.stopped or last:
+                    break
+            if detok.stopped or out.finished:
                 break
     except (RequestFailed, EngineError) as e:
         code = 400 if isinstance(e, RequestFailed) else 500

@@ -1,11 +1,19 @@
-"""The port's LLMEngine against the JAX LLMEngine: identical greedy streams.
+"""The port's LLMEngine against the JAX LLMEngine: identical streams.
 
 Both engines are built from the same configuration on tiny f32 models; the
 port loads the JAX engine's own parameters (``engine.runner.params`` ->
 numpy -> ``params_from_jax``) and runs on the CPU. The cases are those
 ``tests/test_ragged_step.py`` pins for the JAX flat step: a mixed batch,
-a chunked prefill, recompute preemption and a prefix-cache hit.
+a chunked prefill, recompute preemption and a prefix-cache hit, plus a
+stop token inside a fused decode window. Every step layout of the port
+(the flat step, the split engine, the split engine with fused decode
+windows, the bucketed unified step) is held to the JAX engine in the same
+layout and to the port's flat step. Greedy streams are equal because both
+argmaxes return the first maximum; sampled streams because the port
+reproduces JAX's threefry noise and draws its seeds in JAX's order.
 """
+
+import contextlib
 
 import jax
 import numpy as np
@@ -26,10 +34,20 @@ PROMPTS = [
 ]
 
 
-def engines(num_blocks=64, page=4, max_batched=32, max_seqs=8):
+# SchedulerConfig switches of each step layout.
+LAYOUTS = {
+    "flat": {},
+    "split": dict(unified_step=False),
+    "window": dict(unified_step=False, decode_window=4),
+    "bucketed": dict(ragged_qlens=False),
+}
+OTHER_LAYOUTS = ["split", "window", "bucketed"]
+
+
+def engines(num_blocks=64, page=4, max_batched=32, max_seqs=8, **sched):
     kw = dict(
         cache=dict(page_size=page, num_blocks=num_blocks, dtype="float32"),
-        scheduler=dict(max_num_seqs=max_seqs, max_num_batched_tokens=max_batched),
+        scheduler=dict(max_num_seqs=max_seqs, max_num_batched_tokens=max_batched, **sched),
     )
     jax_engine = JaxEngine(jcfg.EngineConfig(
         model=jcfg.tiny_model_config(),
@@ -88,6 +106,175 @@ def test_greedy_prefix_cache_hit():
     assert p.allocator.hit_ratio() == j.allocator.hit_ratio() > 0
 
 
+def port_engine(params, num_blocks=64, page=4, max_batched=32, max_seqs=8, **sched):
+    return LLMEngine(
+        tcfg.EngineConfig(
+            model=tcfg.tiny_model_config(),
+            cache=tcfg.CacheConfig(page_size=page, num_blocks=num_blocks, dtype="float32"),
+            scheduler=tcfg.SchedulerConfig(
+                max_num_seqs=max_seqs, max_num_batched_tokens=max_batched, **sched
+            ),
+        ),
+        params=params,
+        device="cpu",
+    )
+
+
+# name -> (engine sizes, prompts, sampling): the cases every layout runs.
+CASES = {
+    "mixed": ({}, PROMPTS, dict(temperature=0.0, max_tokens=8)),
+    "chunked": (
+        dict(max_batched=16),
+        [[int(x) for x in np.random.default_rng(0).integers(0, 256, size=60)]],
+        dict(temperature=0.0, max_tokens=8),
+    ),
+    "preemption": (
+        dict(num_blocks=14),
+        [list(x) for x in PROMPTS] + [[9, 9, 2, 4, 4, 1, 7]],
+        dict(temperature=0.0, max_tokens=12, ignore_eos=True),
+    ),
+    # A 16-token budget staggers the prompts: later prefill chunks run
+    # beside earlier rows' decodes (the mixed steps of the unified program).
+    "staggered": (
+        dict(max_batched=16),
+        PROMPTS + [[int(x) for x in np.random.default_rng(3).integers(0, 256, size=40)]],
+        dict(temperature=0.0, max_tokens=8, ignore_eos=True),
+    ),
+    # A 100-token chunk beside a 6-token one: two Q buckets in one step,
+    # and in the bucketed unified step sub-rows of 64 + 36 tokens.
+    "subrows": (
+        dict(max_batched=128),
+        [[int(x) for x in np.random.default_rng(4).integers(0, 256, size=100)], PROMPTS[0]],
+        dict(temperature=0.0, max_tokens=8, ignore_eos=True),
+    ),
+    # max_tokens = 11 ends every row inside a window of 4 (1 + 4 + 4 + 2).
+    "length_inside_window": ({}, PROMPTS, dict(temperature=0.0, max_tokens=11, ignore_eos=True)),
+}
+
+
+@pytest.mark.parametrize("case", sorted(CASES))
+@pytest.mark.parametrize("layout", OTHER_LAYOUTS)
+def test_layout_matches_jax_and_the_flat_step(layout, case):
+    sizes, prompts, sp = CASES[case]
+    j, p = engines(**sizes, **LAYOUTS[layout])
+    got = streams(p, prompts, SamplingParams, **sp)
+    assert got == streams(j, prompts, JaxSP, **sp)
+    flat = port_engine(p.runner.params, **sizes)
+    assert got == streams(flat, prompts, SamplingParams, **sp)
+    assert p.scheduler.num_preemptions == j.scheduler.num_preemptions
+    if case == "preemption":
+        assert p.scheduler.num_preemptions > 0
+    # The layout ran the programs it names.
+    st = p.stats
+    assert st.engine_steps_total == j.stats.engine_steps_total
+    assert st.step_dispatches_total == j.stats.step_dispatches_total
+    assert st.decode_dispatches_total == j.stats.decode_dispatches_total
+    assert st.unified_steps_total == j.stats.unified_steps_total
+    if layout != "bucketed":
+        assert st.unified_steps_total == 0
+    elif case in ("staggered", "subrows"):
+        assert st.unified_steps_total > 0
+
+
+@pytest.mark.parametrize("layout", OTHER_LAYOUTS)
+def test_layout_prefix_cache_hit(layout):
+    prompt = [5, 5, 1, 2, 3, 4, 8, 8, 6, 6, 2, 2]
+    j, p = engines(**LAYOUTS[layout])
+    flat = port_engine(p.runner.params)
+    sp = dict(temperature=0.0, max_tokens=8)
+    for _ in range(2):  # the second run starts from the cached prefix
+        got = streams(p, [prompt], SamplingParams, **sp)
+        assert got == streams(j, [prompt], JaxSP, **sp)
+        assert got == streams(flat, [prompt], SamplingParams, **sp)
+    assert p.allocator.hit_ratio() == j.allocator.hit_ratio() > 0
+
+
+@pytest.mark.parametrize("layout", OTHER_LAYOUTS)
+def test_layout_stop_token_inside_a_window(layout):
+    """A stop token that falls inside a fused window ends the row there:
+    the window's later tokens are discarded, in every layout alike."""
+    j, p = engines(**LAYOUTS[layout])
+    flat = port_engine(p.runner.params)
+    free = streams(flat, PROMPTS, SamplingParams, temperature=0.0, max_tokens=12, ignore_eos=True)
+    # Output index 6 of the first prompt: the first token comes from the
+    # prefill, windows of 4 cover indices 1-4 and 5-8.
+    stop = free[0][6]
+    sp = dict(temperature=0.0, max_tokens=12, stop_token_ids=(stop,))
+    got = streams(p, PROMPTS, SamplingParams, **sp)
+    assert got == streams(j, PROMPTS, JaxSP, **sp)
+    assert got == streams(flat, PROMPTS, SamplingParams, **sp)
+    assert got[0] == free[0][: free[0].index(stop) + 1] and len(got[0]) <= 7
+
+
+@pytest.mark.parametrize("layout", sorted(LAYOUTS))
+def test_seeded_sampling_matches_jax(layout):
+    """temperature 0.8 with a request seed: the port's threefry noise and
+    its per-(seed, output index) seeds give the JAX engine's stream."""
+    j, p = engines(**LAYOUTS[layout])
+    sp = dict(temperature=0.8, max_tokens=10, seed=7, ignore_eos=True)
+    got = streams(p, PROMPTS, SamplingParams, **sp)
+    assert got == streams(j, PROMPTS, JaxSP, **sp)
+    greedy = streams(port_engine(p.runner.params), PROMPTS, SamplingParams,
+                     temperature=0.0, max_tokens=10, ignore_eos=True)
+    assert got != greedy, "the noise never changed a token"
+
+
+@pytest.mark.parametrize("layout", sorted(LAYOUTS))
+def test_unseeded_sampling_matches_jax(layout):
+    """Without a request seed the rows draw from the engine's seed stream,
+    which the port advances in JAX's dispatch order and block sizes."""
+    j, p = engines(**LAYOUTS[layout])
+    sp = dict(temperature=0.9, top_k=20, top_p=0.95, max_tokens=10, ignore_eos=True)
+    assert streams(p, PROMPTS, SamplingParams, **sp) == streams(j, PROMPTS, JaxSP, **sp)
+
+
+HOST_READS = ("cpu", "item", "tolist", "numpy", "__bool__", "__int__", "__float__", "__index__")
+
+
+@contextlib.contextmanager
+def counting_host_reads():
+    """Count calls of the tensor methods that read a value back to the
+    host, for as long as the context is open."""
+    calls = []
+    saved = {name: getattr(torch.Tensor, name) for name in HOST_READS}
+
+    def counted(name):
+        def method(self, *args, **kwargs):
+            calls.append(name)
+            return saved[name](self, *args, **kwargs)
+
+        return method
+
+    for name in HOST_READS:
+        setattr(torch.Tensor, name, counted(name))
+    try:
+        yield calls
+    finally:
+        for name, fn in saved.items():
+            setattr(torch.Tensor, name, fn)
+
+
+def test_decode_window_loop_reads_nothing_back():
+    """The K iterations of a fused window are enqueued without one host
+    read: the tokens go round on the device until ``wait_step``."""
+    _, p = engines(**LAYOUTS["window"])
+    windows = []
+    orig = p.runner.dispatch_staged_decode
+
+    def guarded(staged):
+        with counting_host_reads() as calls:
+            pending = orig(staged)
+        windows.append((staged.k, list(calls)))
+        return pending
+
+    p.runner.dispatch_staged_decode = guarded
+    sps = [SamplingParams(temperature=t, max_tokens=9, seed=3, ignore_eos=True)
+           for t in (0.0, 0.8, 0.0)]
+    p.generate(PROMPTS, sps)
+    assert [k for k, _ in windows] == [4, 4]
+    assert all(calls == [] for _, calls in windows)
+
+
 def test_top_k_one_sampling_matches_jax():
     """Sampled rows through temperature, the top-k mask and the noise:
     with top_k = 1 only the argmax survives, so the streams must equal
@@ -118,9 +305,10 @@ def test_one_readback_per_step():
     calls = []
     orig = p.runner.wait_step
 
-    def counting(pending):
-        calls.append(pending.packed.shape)
-        return orig(pending)
+    def counting(prefill, decode, unified):
+        assert prefill is None and decode is None
+        calls.append(unified.packed.shape)
+        return orig(prefill, decode, unified)
 
     p.runner.wait_step = counting
     p.generate(PROMPTS, SamplingParams(temperature=0.0, max_tokens=4))
@@ -128,6 +316,33 @@ def test_one_readback_per_step():
     assert all(shape == (p.runner.flat_rows, 2) for shape in calls)
     # The stream pads only to the 16-token granule.
     assert p.runner.padded_tokens_total < 16 * p.stats.engine_steps_total
+
+
+@pytest.mark.parametrize("layout", OTHER_LAYOUTS)
+def test_one_device_to_host_copy_per_step(layout):
+    """Whatever a step dispatches (prefill groups of several Q buckets, a
+    decode window, the unified program), it is read back in one copy."""
+    _, p = engines(**LAYOUTS[layout])
+    prompts = PROMPTS + [[int(x) for x in np.random.default_rng(1).integers(0, 256, size=25)]]
+    with counting_host_reads() as calls:
+        p.generate(prompts, SamplingParams(temperature=0.0, max_tokens=9, ignore_eos=True))
+    assert calls.count("cpu") == p.stats.engine_steps_total
+    assert set(calls) <= {"cpu", "numpy"}
+    if layout != "bucketed":
+        # The first step prefilled four prompts in more than one group.
+        assert p.stats.step_dispatches_total > p.stats.engine_steps_total
+
+
+def test_a_window_never_runs_past_max_model_len():
+    """K is capped by the room left to max_model_len, so no row's window
+    writes past its last page."""
+    _, p = engines(**LAYOUTS["window"])
+    prompt = [int(x) for x in np.random.default_rng(2).integers(0, 256, size=121)]
+    (got,) = streams(p, [prompt], SamplingParams, temperature=0.0, max_tokens=50, ignore_eos=True)
+    assert len(prompt) + len(got) == 128  # max_model_len of the tiny model
+    flat = port_engine(p.runner.params)
+    assert [got] == streams(flat, [prompt], SamplingParams, temperature=0.0,
+                            max_tokens=50, ignore_eos=True)
 
 
 def test_seeded_sampling_is_reproducible_in_the_port():

@@ -72,4 +72,6 @@ print(json.dumps({{"imported": names, "modules": sorted(sys.modules)}}))
     report = json.loads(out.stdout.strip().splitlines()[-1])
     assert "llmd_tpu_torch.serve.api" in report["imported"]
     assert "llmd_tpu_torch.ops.kv_write" in report["imported"]
+    assert "llmd_tpu_torch.ops.paged_attention" in report["imported"]
+    assert "llmd_tpu_torch.profile_step" in report["imported"]
     assert [m for m in report["modules"] if forbidden(m)] == []

@@ -4,8 +4,9 @@ Greedy picks (and their logprobs) must be identical. The top-k / top-p
 masks must select the same tokens: the JAX sampler does not expose its
 mask, so each candidate token j is probed by replacing the Gumbel noise
 with a spike at j — JAX then samples j exactly when j survives the mask.
-Seeded Gumbel streams differ between the packages (torch vs threefry
-bits) and are checked only for reproducibility within the port.
+Sampled rows draw JAX's own noise: the port's threefry bits must equal
+``jax.random.bits`` exactly, its Gumbel values ``jax.random.gumbel`` to an
+ulp of the two logarithms, and so the sampled tokens are JAX's.
 """
 
 import jax
@@ -16,7 +17,12 @@ import torch
 
 import llmd_tpu.engine.sampler as jsampler
 from llmd_tpu.engine.sampler import SamplingInputs
-from llmd_tpu_torch.engine.sampler import sample_tokens, top_k_top_p_filter
+from llmd_tpu_torch.engine.sampler import (
+    gumbel_noise,
+    sample_tokens,
+    threefry_bits,
+    top_k_top_p_filter,
+)
 
 B, V = 6, 40
 
@@ -116,3 +122,63 @@ def test_seeded_noise_is_reproducible_and_stays_in_the_mask():
         for s in range(1, 9)
     }
     assert len(draws) > 1, "different seeds never changed a draw"
+
+
+NOISE_SEEDS = [0, 1, 2**32 - 1, *np.random.default_rng(9).integers(0, 2**32, size=3).tolist()]
+
+
+@pytest.mark.parametrize("vocab", [256, 128256])
+def test_threefry_bits_equal_jax(vocab):
+    seeds = torch.tensor(NOISE_SEEDS, dtype=torch.int64)
+    got = threefry_bits(seeds, vocab).numpy()
+    assert got.shape == (len(NOISE_SEEDS), vocab) and got.min() >= 0 and got.max() < 2**32
+    for row, seed in zip(got, NOISE_SEEDS):
+        want = jax.random.bits(jax.random.key(np.uint32(seed)), (vocab,), jnp.uint32)
+        np.testing.assert_array_equal(row.astype(np.uint32), np.asarray(want))
+
+
+@pytest.mark.parametrize("vocab", [256, 128256])
+def test_gumbel_noise_matches_jax(vocab):
+    """Within 1e-6 absolute plus two float32 ulps relative: the bits are
+    equal, the two logarithms of either library may each round an ulp
+    apart (an ulp is 9.5e-7 at the largest values, near 12)."""
+    seeds = torch.tensor(NOISE_SEEDS, dtype=torch.int64)
+    got = gumbel_noise(seeds, vocab).numpy()
+    assert got.dtype == np.float32 and np.isfinite(got).all()
+    for row, seed in zip(got, NOISE_SEEDS):
+        want = jax.random.gumbel(jax.random.key(np.uint32(seed)), (vocab,), jnp.float32)
+        np.testing.assert_allclose(row, np.asarray(want), atol=1e-6, rtol=2.4e-7)
+
+
+@pytest.mark.parametrize(
+    "top_k,top_p",
+    [([0] * B, [1.0] * B), ([5, 0, 2, 9, 1, 3], [0.5, 0.8, 0.95, 0.3, 1.0, 0.6])],
+    ids=["off", "both"],
+)
+def test_sampled_tokens_equal_jax(top_k, top_p):
+    """Seeded rows (and greedy rows beside them) with the masks set: the
+    same numpy logits give JAX's tokens and logprobs."""
+    temp, top_k, top_p = knobs([0.7, 1.0, 0.0, 0.8, 2.0, 0.9], top_k, top_p)
+    for trial in range(8):
+        x = logits(10 + trial, scale=1.0)
+        seeds = np.random.default_rng(trial).integers(0, 2**32, size=B, dtype=np.uint32)
+        jt, jl = jax_sample(x, temp, top_k, top_p, seeds)
+        tt, tl = sample_tokens(torch.from_numpy(x), temp, top_k, top_p, seeds)
+        np.testing.assert_array_equal(tt.numpy(), jt)
+        np.testing.assert_allclose(tl.numpy(), jl, atol=1e-5, rtol=0)
+
+
+def test_sample_tokens_takes_tensors_and_any_seed_shape():
+    """The fused window hands over device tensors and one column of its
+    [B, K] seed block: the result equals the arrays' path."""
+    x = torch.from_numpy(logits(4))
+    temp, top_k, top_p = knobs([0.8, 0.0] * 3, [4] * B, [0.9] * B)
+    block = np.random.default_rng(5).integers(0, 2**32, size=(B, 3), dtype=np.uint32)
+    want, want_lp = sample_tokens(x, temp, top_k, top_p, block[:, 1])
+    got, got_lp = sample_tokens(
+        x, torch.from_numpy(temp), torch.from_numpy(top_k), torch.from_numpy(top_p),
+        torch.from_numpy(block.astype(np.int64))[:, 1],
+    )
+    assert torch.equal(got, want) and torch.equal(got_lp, want_lp)
+    again, _ = sample_tokens(x, temp, top_k, top_p, block[:, 1:2])  # [B, 1]
+    assert torch.equal(again, want)

@@ -118,6 +118,57 @@ async def test_invalid_requests_are_refused(client):
     assert r.status == 400  # token id outside the vocabulary
 
 
+async def test_windowed_split_server_streams_each_token_in_order():
+    """``--device cpu --no-unified-step --decode-window 4``: the engine
+    delivers up to 4 tokens a step; the stream carries one chunk per token,
+    in order, and its text equals the unstreamed completion's and the
+    flat engine's."""
+    args = serve_main.build_parser().parse_args([
+        "--model", "tiny", "--device", "cpu", "--num-blocks", "64", "--seed", "3",
+        "--dtype", "float32", "--max-num-seqs", "8", "--max-num-batched-tokens", "32",
+        "--no-unified-step", "--decode-window", "4",
+    ])
+    cfg = serve_main.make_engine_config(args)
+    assert (cfg.scheduler.unified_step, cfg.scheduler.decode_window) == (False, 4)
+    engine = LLMEngine(cfg, device=args.device)
+    windows = []
+    dispatch = engine.runner.dispatch_staged_decode
+    engine.runner.dispatch_staged_decode = lambda st: (windows.append(st.k), dispatch(st))[1]
+    app = build_app(AsyncEngine(engine), ByteTokenizer(), "tiny", cfg.model.max_model_len)
+    client = TestClient(TestServer(app))
+    await client.start_server()
+    try:
+        body = {"prompt": PROMPT, "max_tokens": 11, "temperature": 0.0, "ignore_eos": True}
+        plain = await (await client.post("/v1/completions", json=body)).json()
+        r = await client.post("/v1/completions", json={**body, "stream": True})
+        assert r.status == 200
+        frames = []
+        async for raw in r.content:
+            line = raw.decode().strip()
+            if line.startswith("data: {"):
+                frames.append(json.loads(line[len("data: "):]))
+    finally:
+        await client.close()
+    # 1 token from the prefill, then windows of 4, 4 and 4 (2 kept), twice.
+    assert windows == [4, 4, 4] * 2
+    token_frames, final = frames[:-1], frames[-1]
+    assert len(token_frames) == 11 == final["usage"]["completion_tokens"]
+    assert final["choices"][0]["finish_reason"] == "length"
+    streamed = "".join(f["choices"][0]["text"] for f in frames)
+    assert streamed == plain["choices"][0]["text"]
+    # The flat engine with the same seeded weights gives the same tokens.
+    flat_cfg = serve_main.make_engine_config(serve_main.build_parser().parse_args([
+        "--model", "tiny", "--device", "cpu", "--num-blocks", "64", "--seed", "3",
+        "--dtype", "float32", "--max-num-seqs", "8", "--max-num-batched-tokens", "32",
+    ]))
+    assert flat_cfg.scheduler.unified_step and flat_cfg.scheduler.ragged_qlens
+    sp = SamplingParams(temperature=0.0, max_tokens=11, ignore_eos=True)
+    (tokens,) = LLMEngine(flat_cfg, device="cpu").generate([PROMPT], sp).values()
+    detok = Detokenizer(ByteTokenizer(), [])
+    detok.feed(tokens, final=True)
+    assert detok.emitted == streamed
+
+
 def test_cli_builds_the_engine_configuration():
     args = serve_main.build_parser().parse_args([
         "--model", "llama-3-8b", "--num-blocks", "300", "--max-num-seqs", "16",
@@ -129,6 +180,13 @@ def test_cli_builds_the_engine_configuration():
     assert cfg.cache.num_blocks == 300 and cfg.cache.dtype == "float16"
     assert (cfg.scheduler.max_num_seqs, cfg.scheduler.max_num_batched_tokens) == (16, 512)
     assert cfg.seed == 7 and args.device == "cuda"
+    # The step-layout flags carry the JAX CLI's names and defaults.
+    sched = cfg.scheduler
+    assert (sched.decode_window, sched.unified_step, sched.ragged_qlens) == (1, True, True)
+    args = serve_main.build_parser().parse_args(
+        ["--decode-window", "8", "--no-unified-step", "--no-ragged-qlens"])
+    sched = serve_main.make_engine_config(args).scheduler
+    assert (sched.decode_window, sched.unified_step, sched.ragged_qlens) == (8, False, False)
 
 
 def test_cli_defaults_to_the_gpu():

@@ -4,7 +4,8 @@
     python3 chip_smoke.py
 
 Builds the port's CUDA kernels from ``llmd_tpu_torch/ops/csrc`` and drives
-its main paths at the full width of llama-3-8b (random weights from a seed):
+its main paths at the full width of llama-3-8b and of deepseek-v2-lite
+(random weights from a seed):
 
 1. ``device``  the card's name, and its name and power limit from nvidia-smi.
 2. ``build``   nvcc of every kernel source, all started together.
@@ -30,11 +31,25 @@ its main paths at the full width of llama-3-8b (random weights from a seed):
                engine with windows, the flat step with windows and the
                bucketed unified step give identical greedy and seeded
                streams.
-7. ``serve``   ``python -m llmd_tpu_torch.serve`` answering three
+7. ``moe_mla_kernels`` the grouped GEMM at deepseek-v2-lite's expert
+               shapes (a 48-row decode step and a 1024-token prefill step)
+               and qwen3-30b-a3b's, and the latent decode attention (batch
+               bucket 64: 48 live rows at 1k-4k context, 16 pad rows, a
+               27-layer latent pool), each against its plain version and
+               timed beside its bound, the plain version and a library call.
+8. ``forward`` (deepseek-v2-lite) a bucketed prefill forward and a Q = 1
+               decode forward of the 27-layer model through the kernels and
+               the plain versions; f32 reference on the first 4 layers.
+9. ``engine``  (deepseek-v2-lite) ``LLMEngine`` serving 8 greedy requests
+               on the default engine (the bucketed unified step: MLA has no
+               flat step) and as the split engine with windows of 8; launch
+               counts from a log of every forward's Q, one readback a step,
+               window dispatches under ``set_sync_debug_mode("error")``.
+10. ``serve``  ``python -m llmd_tpu_torch.serve`` answering three
                ``/v1/completions`` requests (one streamed), then a second
                server with ``--no-unified-step --decode-window 4`` whose
                streamed completion carries one chunk per token and the
-               unstreamed completion's text.
+               unstreamed completion's text, then a deepseek-v2-lite server.
 
 Each phase prints one JSON line. Any failure raises and exits non-zero
 without printing a result. On success the line before the last is the
@@ -391,14 +406,16 @@ def _sdpa_yardstick(q, pool, layer, s, page) -> float:
 
 @contextlib.contextmanager
 def plain_ops(live_pages: int | None = None):
-    """Route the model's flat ops and decode kernels to their plain
-    versions (the reference run of the forward phase), restoring the
-    kernels after. ``live_pages`` bounds the plain decode attention's
-    gather."""
+    """Route the model's flat ops, decode kernels, latent decode attention
+    and grouped GEMM to their plain versions (the reference runs of the
+    forward phases), restoring the kernels after. ``live_pages`` bounds the
+    plain decode attentions' gathers."""
     from llmd_tpu_torch import ops
+    from llmd_tpu_torch.ops import grouped_gemm
 
     saved = (ops.write_kv_pages_full_flat, ops.paged_attention_full_flat,
-             ops.write_kv_pages_decode_full, ops.decode_paged_attention_full)
+             ops.write_kv_pages_decode_full, ops.decode_paged_attention_full,
+             ops.mla_decode_paged_attention_full, grouped_gemm.grouped_matmul)
 
     def write(kv_cache, layer, k, v, page_table, rows, positions, total):
         return ops.write_kv_pages_flat_plain(
@@ -415,14 +432,22 @@ def plain_ops(live_pages: int | None = None):
             q, kv_cache, layer, page_table, kv_lens, sm_scale, live_pages
         )
 
+    def latent_attend(q_eff, cache, layer, page_table, kv_lens, rank, sm_scale):
+        return ops.mla_decode_paged_attention_plain(
+            q_eff, cache, layer, page_table, kv_lens, rank, sm_scale, live_pages
+        )
+
     ops.write_kv_pages_full_flat, ops.paged_attention_full_flat = write, attend
     ops.write_kv_pages_decode_full = ops.write_kv_pages_decode_plain
     ops.decode_paged_attention_full = decode_attend
+    ops.mla_decode_paged_attention_full = latent_attend
+    grouped_gemm.grouped_matmul = ops.grouped_matmul_plain
     try:
         yield
     finally:
         (ops.write_kv_pages_full_flat, ops.paged_attention_full_flat,
-         ops.write_kv_pages_decode_full, ops.decode_paged_attention_full) = saved
+         ops.write_kv_pages_decode_full, ops.decode_paged_attention_full,
+         ops.mla_decode_paged_attention_full, grouped_gemm.grouped_matmul) = saved
 
 
 def forward_phase(info: dict, params: dict) -> None:
@@ -660,7 +685,8 @@ def engine_phase(info: dict, params: dict) -> dict:
     want = {"write_kv_pages_flat_full": L * flat_steps,
             "flat_paged_attention_full": L * flat_steps,
             "write_kv_pages_decode_full": L * sum(k_steps),
-            "decode_paged_attention_full": L * sum(k_steps)}
+            "decode_paged_attention_full": L * sum(k_steps),
+            "mla_decode_paged_attention_full": 0, "grouped_matmul": 0}
     if windowed:
         info.update(decode_windows=len(k_steps), window_iterations=sum(k_steps),
                     windows_of_8=k_steps.count(8),
@@ -741,12 +767,12 @@ def _post(url: str, body: dict) -> tuple[int, bytes]:
         return r.status, r.read()
 
 
-def serve_phase(info: dict, layout_args: list[str]) -> None:
-    """Start the server (with ``layout_args`` appended to its command line)
-    and complete a few requests. Every server streams one completion and
-    must deliver one chunk per token and the text of the same completion
-    unstreamed; the default server also answers two plain requests, one
-    with a 600-token prompt."""
+def serve_phase(info: dict, layout_args: list[str], model: str = MODEL) -> None:
+    """Start the server for ``model`` (with ``layout_args`` appended to its
+    command line) and complete a few requests. Every server streams one
+    completion and must deliver one chunk per token and the text of the
+    same completion unstreamed; a server in its default layout also
+    answers two plain requests, one with a 600-token prompt."""
     with socket.socket() as sock:
         sock.bind(("127.0.0.1", 0))
         port = sock.getsockname()[1]
@@ -755,7 +781,7 @@ def serve_phase(info: dict, layout_args: list[str]) -> None:
     log_path = os.path.join(REPO, "build", "chip_smoke_serve.log")
     with open(log_path, "w") as log:
         proc = subprocess.Popen(
-            [sys.executable, "-m", "llmd_tpu_torch.serve", "--model", MODEL,
+            [sys.executable, "-m", "llmd_tpu_torch.serve", "--model", model,
              "--host", "127.0.0.1", "--port", str(port), *layout_args],
             cwd=REPO, stdout=log, stderr=subprocess.STDOUT,
         )
@@ -778,7 +804,7 @@ def serve_phase(info: dict, layout_args: list[str]) -> None:
             bodies = [{"prompt": "Stream this.", "max_tokens": 16}]
             if not layout_args:
                 bodies += [
-                    {"prompt": "The port serves llama-3-8b.", "max_tokens": 16},
+                    {"prompt": f"The port serves {model}.", "max_tokens": 16},
                     {"prompt": [3 + i % 250 for i in range(600)], "max_tokens": 16},
                 ]
             for body in bodies:
@@ -820,6 +846,428 @@ def serve_phase(info: dict, layout_args: list[str]) -> None:
             except subprocess.TimeoutExpired:
                 proc.kill()
                 proc.wait()
+
+DS_MODEL = "deepseek-v2-lite"
+
+
+def routed_group_sizes(tokens: int, experts: int, k: int, gen) -> torch.Tensor:
+    """Group sizes of ``tokens`` tokens each routed to ``k`` distinct
+    experts drawn uniformly: what a router with random weights gives."""
+    ids = torch.rand((tokens, experts), generator=gen).argsort(dim=1)[:, :k]
+    return torch.bincount(ids.reshape(-1), minlength=experts).to(torch.int32)
+
+
+def _grouped_library_ms(x, w, gs) -> tuple[float, str]:
+    """Time of one PyTorch call computing the grouped product:
+    ``torch._grouped_mm`` where this torch has it and takes these inputs,
+    else a host loop of per-expert ``torch.matmul`` (offsets read back
+    before timing). Returns (ms, which call)."""
+    offs = torch.cumsum(gs, 0, dtype=torch.int32)
+    if hasattr(torch, "_grouped_mm"):
+        try:
+            torch._grouped_mm(x, w, offs=offs)
+            torch.cuda.synchronize()
+            return cuda_ms(lambda: torch._grouped_mm(x, w, offs=offs)), "torch._grouped_mm"
+        except (RuntimeError, TypeError) as e:
+            print(f"torch._grouped_mm refused these inputs: {str(e)[:120]}", file=sys.stderr)
+    ends = [0] + offs.tolist()
+    out = torch.empty((x.shape[0], w.shape[2]), dtype=x.dtype, device=x.device)
+
+    def loop():
+        for g in range(w.shape[0]):
+            if ends[g + 1] > ends[g]:
+                torch.matmul(x[ends[g] : ends[g + 1]], w[g], out=out[ends[g] : ends[g + 1]])
+
+    return cuda_ms(loop), "per-expert torch.matmul loop"
+
+
+def moe_mla_kernels_phase(info: dict) -> dict:
+    """K6' at deepseek-v2-lite's expert shapes (a 48-row decode step and a
+    1024-token prefill step, the gate and the down call) and at
+    qwen3-30b-a3b's (one layer's 128 experts, top-8, decode step); K5' on
+    one decode step of the batch bucket 64 (48 live rows at 1k-4k context,
+    16 pad rows) over a 27-layer latent pool. Each is held to its plain
+    version within one bf16 ulp and timed beside its bound, the plain
+    version and one library call."""
+    import torch.nn.functional as F
+
+    from llmd_tpu_torch import ops
+    from llmd_tpu_torch.models.registry import get_model_config
+
+    dev, dt = torch.device("cuda"), torch.bfloat16
+    gen = torch.Generator().manual_seed(2024)
+    g = torch.Generator(device=dev).manual_seed(31)
+    ds, qw = get_model_config(DS_MODEL), get_model_config("qwen3-30b-a3b")
+    H, Fm = ds.hidden_size, ds.moe_intermediate_size
+    cases = {
+        # name: (tokens, experts, top-k, K, N)
+        "deepseek-v2-lite decode 48 rows, gate": (48, ds.num_experts, ds.num_experts_per_tok, H, Fm),
+        "deepseek-v2-lite decode 48 rows, down": (48, ds.num_experts, ds.num_experts_per_tok, Fm, H),
+        "deepseek-v2-lite prefill 1024 tokens, gate": (1024, ds.num_experts, ds.num_experts_per_tok, H, Fm),
+        "deepseek-v2-lite prefill 1024 tokens, down": (1024, ds.num_experts, ds.num_experts_per_tok, Fm, H),
+        "qwen3-30b-a3b decode 48 rows, gate": (
+            48, qw.num_experts, qw.num_experts_per_tok, qw.hidden_size, qw.moe_intermediate_size),
+    }
+    gemm = {}
+    for name, (T, E, k, K, N) in cases.items():
+        gs = routed_group_sizes(T, E, k, gen).to(dev)
+        M = T * k
+        x = torch.randn((M, K), generator=g, device=dev, dtype=dt)
+        w = torch.randn((E, K, N), generator=g, device=dev, dtype=dt).mul_(K**-0.5)
+        got = ops.grouped_matmul(x, w, gs)
+        want = ops.grouped_matmul_plain(x, w, gs)
+        torch.cuda.synchronize()
+        err, bad = outside_one_ulp(got, want)
+        if bad:
+            raise AssertionError(f"grouped_gemm {name}: max abs err {err} vs plain")
+        live = int((gs > 0).sum().item())
+        # Bound: x read, the routed experts' weights read once, out written;
+        # 2 flops per multiply-add of the routed rows.
+        nbytes = (M * K + live * K * N + M * N) * x.element_size() + 4 * E
+        b_ms, b_by = bound(nbytes, 2.0 * M * K * N)
+        lib_ms, lib = _grouped_library_ms(x, w, gs)
+        gemm[name] = {
+            "M": M, "experts": E, "live_experts": live, "K": K, "N": N,
+            "max_abs_err": err,
+            "ms": cuda_ms(lambda: ops.grouped_matmul(x, w, gs)),
+            "plain_ms": cuda_ms(lambda: ops.grouped_matmul_plain(x, w, gs), reps=3, warmup=1),
+            "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms, "library_call": lib,
+        }
+        del x, w, got, want
+        torch.cuda.empty_cache()
+    info["grouped_gemm"] = gemm
+
+    # --- K5': latent decode attention over a 27-layer latent pool.
+    L, Hq, Dl, rank, page = ds.num_layers, ds.num_heads, ds.kv_cache_entry_dim, ds.kv_lora_rank, 16
+    d = decode_batch(ds, page, 1024, 4096, gen, dev)
+    B, n_live, ctx = d["B"], d["n_live"], d["ctx"]
+    pool = torch.randn((L, d["num_pages"], 1, page, Dl), generator=g, device=dev, dtype=dt)
+    q = torch.randn((B, 1, Hq, Dl), generator=g, device=dev, dtype=dt)
+    scale = (ds.qk_nope_head_dim + ds.qk_rope_head_dim) ** -0.5
+    layer = L // 2
+    aargs = (q, pool, layer, d["page_table"], d["kv_lens"], rank, scale)
+    got = ops.mla_decode_paged_attention_full(*aargs)
+    want = ops.mla_decode_paged_attention_plain(*aargs, live_pages=d["live_pages"])
+    torch.cuda.synchronize()
+    err, bad = outside_one_ulp(got, want)
+    if bad:
+        raise AssertionError(f"mla_decode_attention: max abs err {err} vs plain")
+    if got[n_live:].any():
+        raise AssertionError("mla_decode_attention: a pad row is not zero")
+    del want
+    es = pool.element_size()
+    # Bound: each live row's latent rows read once, q read, out written;
+    # operations: scores over Dl and values over rank, per head and position.
+    nbytes = (sum(ctx) * Dl + B * Hq * Dl + B * Hq * rank) * es
+    b_ms, b_by = bound(nbytes, 2.0 * Hq * (Dl + rank) * sum(ctx))
+    # Library yardstick: SDPA on each row's live latent rows gathered to a
+    # dense, padded [B, 1, S, Dl] key (the one latent head shared by every
+    # query head) and its rank slice as the value; the gather is not timed.
+    smax = max(ctx)
+    keys = torch.zeros((n_live, 1, smax, Dl), dtype=dt, device=dev)
+    for r, n in enumerate(ctx):
+        pages = d["page_table"][r, : -(-n // page)].long()
+        keys[r, 0, :n] = pool[layer, pages].reshape(-1, Dl)[:n]
+    mask = (torch.arange(smax, device=dev)[None, :] < d["kv_lens"][:n_live, None])[:, None, None, :]
+    qd = q[:n_live].transpose(1, 2)  # [n, H, 1, Dl]
+    vals = keys[..., :rank]
+    try:
+        lib_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
+            qd, keys, vals, attn_mask=mask, scale=scale, enable_gqa=True))
+        lib = "scaled_dot_product_attention (enable_gqa)"
+    except (RuntimeError, TypeError):
+        kx, vx = keys.expand(-1, Hq, -1, -1), vals.expand(-1, Hq, -1, -1)
+        lib_ms = cuda_ms(lambda: F.scaled_dot_product_attention(qd, kx, vx, attn_mask=mask, scale=scale))
+        lib = "scaled_dot_product_attention (heads expanded)"
+    latent = {
+        "batch": B, "live_rows": n_live, "context_tokens": sum(ctx), "layers": L,
+        "pool_gib": pool.numel() * es / 2**30, "max_abs_err": err,
+        "ms": cuda_ms(lambda: ops.mla_decode_paged_attention_full(*aargs)),
+        "plain_ms": cuda_ms(
+            lambda: ops.mla_decode_paged_attention_plain(*aargs, live_pages=d["live_pages"]), reps=10),
+        "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms, "library_call": lib,
+    }
+    info["mla_decode_attention"] = latent
+    del pool, keys
+    torch.cuda.empty_cache()
+    row = gemm["deepseek-v2-lite decode 48 rows, gate"]
+    keys_ = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+    return {
+        "grouped_gemm": {
+            "name": "grouped_gemm", "route": "cuda",
+            "source": "llmd_tpu_torch/ops/csrc/grouped_gemm.cu",
+            "replaces": "llmd_tpu/ops/grouped_gemm.py:43",
+            **{k: row[k] for k in keys_},
+        },
+        "mla_decode_attention": {
+            "name": "mla_decode_attention", "route": "cuda",
+            "source": "llmd_tpu_torch/ops/csrc/mla_decode_attention.cu",
+            "replaces": "llmd_tpu/ops/mla_decode.py:143",
+            **{k: latent[k] for k in keys_},
+        },
+    }
+
+
+def bucketed_rows(cfg, page, rows, gen, dev) -> dict:
+    """A bucketed [B, Q] prefill step of (start, width) rows, each row on
+    its own physical pages (a random permutation of the pool)."""
+    B, Q = len(rows), max(w for _, w in rows)
+    need = [-(-(p0 + w) // page) for p0, w in rows]
+    num_pages = sum(need) + 8
+    perm = torch.randperm(num_pages, generator=gen).to(torch.int32)
+    page_table = torch.zeros((B, -(-cfg.max_model_len // page)), dtype=torch.int32)
+    tokens = torch.zeros((B, Q), dtype=torch.int64)
+    positions = torch.zeros((B, Q), dtype=torch.int32)
+    off = 0
+    for r, ((p0, w), n) in enumerate(zip(rows, need)):
+        page_table[r, :n] = perm[off : off + n]
+        off += n
+        tokens[r, :w] = torch.randint(0, cfg.vocab_size, (w,), generator=gen)
+        positions[r, :w] = torch.arange(p0, p0 + w)
+        positions[r, w:] = p0 + w - 1
+    qlens = torch.tensor([w for _, w in rows], dtype=torch.int32)
+    kv_lens = torch.tensor([p0 + w for p0, w in rows], dtype=torch.int32)
+    return {
+        "tokens": tokens.to(dev), "positions": positions.to(dev), "query_lens": qlens.to(dev),
+        "kv_lens": kv_lens.to(dev), "page_table": page_table.to(dev),
+        "num_pages": num_pages, "live_pages": max(need),
+        "live": (torch.arange(Q)[None, :] < qlens[:, None]).reshape(-1).to(dev),
+    }
+
+
+def cut_layers(params: dict, n: int, dtype) -> dict:
+    """The first ``n`` layers of a model (its dense prefix first), cast to
+    ``dtype``: the f32 reference of a model too large to upcast whole."""
+    out = {k: v.to(dtype) for k, v in params.items() if not isinstance(v, dict)}
+    dense = params.get("dense_layers", {})
+    n_dense = next(iter(dense.values())).shape[0] if dense else 0
+    if dense:
+        out["dense_layers"] = {k: v[: min(n, n_dense)].to(dtype) for k, v in dense.items()}
+    out["layers"] = {k: v[: n - n_dense].to(dtype) for k, v in params["layers"].items()}
+    return out
+
+
+def ds_forward_phase(info: dict, params: dict) -> None:
+    """deepseek-v2-lite at full width: one bucketed prefill forward (Q > 1:
+    plain latent attention, K6' in every MoE layer) and one Q = 1 decode
+    forward (K4', K5' and K6') of the 27-layer model, through the kernels
+    and through the plain versions. An f32 copy of 27 layers (63 GB) does
+    not fit beside the bf16 weights, so the f32 reference runs the first 4
+    layers (the dense layer and 3 MoE layers) at full width."""
+    import dataclasses
+
+    from llmd_tpu_torch import ops
+    from llmd_tpu_torch.models import llama
+    from llmd_tpu_torch.models.common import StepInput
+    from llmd_tpu_torch.models.registry import get_model_config
+
+    cfg = get_model_config(DS_MODEL)
+    dev, page, L = torch.device("cuda"), 16, cfg.num_layers
+    n_moe = L - cfg.first_dense_layers
+    gen = torch.Generator().manual_seed(17)
+    g = torch.Generator(device=dev).manual_seed(19)
+    p = bucketed_rows(cfg, page, [(0, 256), (512, 200), (0, 128), (1000, 40)], gen, dev)
+    prefill = StepInput(token_ids=p["tokens"], positions=p["positions"], kv_lens=p["kv_lens"],
+                        page_table=p["page_table"], query_lens=p["query_lens"],
+                        live_pages=p["live_pages"])
+    d = decode_batch(cfg, page, 128, 640, gen, dev)
+    ids = torch.randint(0, cfg.vocab_size, (d["B"], 1), generator=g, device=dev)
+    decode = StepInput(token_ids=torch.where(d["valid"][:, None] > 0, ids, 0),
+                       positions=d["positions"], kv_lens=d["kv_lens"],
+                       page_table=d["page_table"], query_lens=d["valid"])
+    steps = {
+        # name: (input, pool pages, live slots of the hidden state, launches
+        # per forward by wrapper, plain gather bound)
+        "prefill": (prefill, p["num_pages"], p["live"],
+                    {"grouped_matmul": 3 * n_moe}, p["live_pages"]),
+        "decode": (decode, d["num_pages"], torch.arange(d["B"], device=dev) < d["n_live"],
+                   {"grouped_matmul": 3 * n_moe, "write_kv_pages_decode_full": L,
+                    "mla_decode_paged_attention_full": L}, d["live_pages"]),
+    }
+    cut = 4
+    cfg4 = dataclasses.replace(cfg, num_layers=cut)
+    params4 = cut_layers(params, cut, torch.bfloat16)
+    params4_32 = cut_layers(params, cut, torch.float32)
+
+    def rel(a: torch.Tensor, b: torch.Tensor) -> float:
+        return ((a - b).norm() / b.norm()).item()
+
+    for name, (inp, num_pages, live, per_forward, live_pages) in steps.items():
+        shape = (L, num_pages, 1, page, cfg.kv_cache_entry_dim)
+        pool = torch.randn(shape, generator=g, device=dev, dtype=torch.bfloat16)
+
+        def run(prm, c, work, plain):
+            ctx = plain_ops(live_pages) if plain else contextlib.nullcontext()
+            with torch.inference_mode(), ctx:
+                h, _ = llama.forward_hidden(prm, work, inp, c)
+            return h.reshape(-1, h.shape[-1])[live].float()
+
+        ops.reset_launch_counts()
+        h_k = run(params, cfg, pool.clone(), plain=False)
+        counts = ops.launch_counts()
+        h_p = run(params, cfg, pool.clone(), plain=True)
+        want = {fn: per_forward.get(fn, 0) for fn in counts}
+        if counts != want:
+            raise AssertionError(f"{name} forward launched {counts}, want {want}")
+        h4_k = run(params4, cfg4, pool[:cut].clone(), plain=False)
+        h4_p = run(params4, cfg4, pool[:cut].clone(), plain=True)
+        h4_k32 = run(params4_32, cfg4, pool[:cut].float(), plain=False)
+        h4_ref = run(params4_32, cfg4, pool[:cut].float(), plain=True)
+        with torch.inference_mode():
+            fwd_ms = cuda_ms(lambda: llama.forward_hidden(params, pool, inp, cfg), reps=3, warmup=1)
+            with plain_ops(live_pages):
+                fwd_plain_ms = cuda_ms(
+                    lambda: llama.forward_hidden(params, pool, inp, cfg), reps=1, warmup=1)
+        torch.cuda.synchronize()
+        r = {
+            "rows": inp.token_ids.shape[0], "Q": inp.token_ids.shape[1],
+            "live_tokens": int(live.sum().item()), "layers": L, "launches": counts,
+            "bf16_rel_err_27_layers": rel(h_k, h_p),
+            "f32_rel_err_4_layers": rel(h4_k32, h4_ref),
+            "bf16_kernels_vs_f32_4_layers": rel(h4_k, h4_ref),
+            "bf16_plain_vs_f32_4_layers": rel(h4_p, h4_ref),
+            "step_ms": fwd_ms, "step_plain_ms": fwd_plain_ms,
+        }
+        info[name] = r
+        if not all(torch.isfinite(h).all() for h in (h_k, h_p, h4_k, h4_p, h4_k32, h4_ref)):
+            raise AssertionError(f"deepseek {name} forward: non-finite hidden states")
+        # f32: the paths differ in summation order only (attention, the
+        # expert products, the combine), about 1e-6 relative per layer.
+        if r["f32_rel_err_4_layers"] > 1e-3:
+            raise AssertionError(f"deepseek {name} forward: f32 relative error {r['f32_rel_err_4_layers']}")
+        # bf16: the kernels' run may be no further from the f32 run than 1.5
+        # times the plain run's distance (a one-ulp difference grows through
+        # the layers, so the two bf16 runs are not held to each other).
+        if r["bf16_kernels_vs_f32_4_layers"] > 1.5 * r["bf16_plain_vs_f32_4_layers"]:
+            raise AssertionError(
+                f"deepseek {name} forward: bf16 kernels {r['bf16_kernels_vs_f32_4_layers']} from f32, "
+                f"plain {r['bf16_plain_vs_f32_4_layers']} (limit 1.5x)")
+        del pool, h_k, h_p, h4_k, h4_p, h4_k32, h4_ref
+        torch.cuda.empty_cache()
+    del params4, params4_32
+    torch.cuda.empty_cache()
+
+
+DS_LAYOUTS = {
+    "default (bucketed unified step)": {},
+    "split engine, decode_window 8": dict(unified_step=False, decode_window=8),
+}
+
+
+def ds_engine_phase(info: dict, params: dict) -> dict:
+    """``LLMEngine`` serving deepseek-v2-lite (8 greedy requests, chunked
+    prefill and a prefix-cache hit) in the layout ``info["layout"]`` names.
+    MLA has no flat step, so the default engine runs the bucketed unified
+    step. Every forward is logged with its Q: K6' must launch 3 x 26 times
+    a forward, K4' and K5' 27 times a Q = 1 forward (each window iteration
+    is one), the GQA kernels never. Each step reads back once, and every
+    decode-window dispatch runs under ``torch.cuda.set_sync_debug_mode
+    ("error")``, so a hidden device sync fails the run. Returns the launch
+    counts."""
+    from llmd_tpu_torch import ops
+    from llmd_tpu_torch.config import CacheConfig, EngineConfig, SchedulerConfig
+    from llmd_tpu_torch.engine import LLMEngine, SamplingParams
+    from llmd_tpu_torch.engine import runner as runner_mod
+    from llmd_tpu_torch.models.registry import get_model_config
+
+    cfg = get_model_config(DS_MODEL)
+    layout = DS_LAYOUTS[info["layout"]]
+    config = EngineConfig(
+        model=cfg,
+        cache=CacheConfig(page_size=16, num_blocks=2048, dtype="bfloat16"),
+        scheduler=SchedulerConfig(max_num_seqs=64, max_num_batched_tokens=1024, **layout),
+        seed=0,
+    )
+    eng = LLMEngine(config, params=params, device="cuda")
+    if eng.runner.flat:
+        raise AssertionError("an MLA engine took the flat step")
+    forwards: list[int] = []  # Q of every forward
+    k_steps: list[int] = []
+    forward = runner_mod.llama.forward_hidden
+    dispatch = eng.runner.dispatch_staged_decode
+
+    def logged_forward(params, kv_cache, inp, c):
+        forwards.append(inp.token_ids.shape[1])
+        return forward(params, kv_cache, inp, c)
+
+    def strict_dispatch(staged):
+        k_steps.append(staged.k)
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            return dispatch(staged)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+
+    runner_mod.llama.forward_hidden = logged_forward
+    eng.runner.dispatch_staged_decode = strict_dispatch
+    gen = torch.Generator().manual_seed(11)
+    lengths = [16, 100, 300, 700, 1500, 64, 900]
+    prompts = [torch.randint(3, cfg.vocab_size, (n,), generator=gen).tolist() for n in lengths]
+    sp = SamplingParams(temperature=0.0, max_tokens=32, ignore_eos=True)
+    tokens: dict[str, list[int]] = {}
+    ttft: dict[str, float] = {}
+    last: dict[str, float] = {}
+    cached: dict[str, int] = {}
+    window_ms: list[float] = []  # host ms per token of each step that is one decode window
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    try:
+        with counting_readbacks() as readbacks:
+            for wave in (prompts, [prompts[3]]):
+                tw = time.perf_counter()
+                for p in wave:
+                    tokens[eng.add_request(p, sp)] = []
+                while eng.has_work():
+                    ts, windows0 = time.perf_counter(), len(k_steps)
+                    dispatches0 = eng.stats.step_dispatches_total
+                    for out in eng.step():
+                        tokens[out.request_id] += out.new_token_ids
+                        ttft.setdefault(out.request_id, time.perf_counter() - tw)
+                        last[out.request_id] = time.perf_counter() - tw
+                        cached[out.request_id] = out.num_cached_tokens
+                    if len(k_steps) > windows0 and eng.stats.step_dispatches_total == dispatches0 + 1:
+                        window_ms.append((time.perf_counter() - ts) * 1e3 / k_steps[-1])
+        torch.cuda.synchronize()
+    finally:
+        runner_mod.llama.forward_hidden = forward
+    wall = time.perf_counter() - t0
+    counts = ops.launch_counts()
+    st = eng.stats
+    rids = list(tokens)
+    tpot = [(last[r] - ttft[r]) / (len(tokens[r]) - 1) for r in rids]
+    decode_forwards = forwards.count(1)
+    info.update(
+        requests=len(rids), steps=st.engine_steps_total, wall_s=wall,
+        output_tok_per_s=sum(len(t) for t in tokens.values()) / wall,
+        ttft_median_s=statistics.median(ttft.values()), ttft_max_s=max(ttft.values()),
+        tpot_median_ms=statistics.median(tpot) * 1e3,
+        prefix_cached_tokens=cached[rids[-1]],
+        step_dispatches=st.step_dispatches_total, decode_dispatches=st.decode_dispatches_total,
+        unified_steps=st.unified_steps_total, readbacks=len(readbacks),
+        forwards=len(forwards), q1_forwards=decode_forwards, decode_windows=len(k_steps),
+        window_iterations=sum(k_steps), decode_ms_per_token_median=statistics.median(window_ms),
+        launches=counts,
+    )
+    if any(len(t) != 32 for t in tokens.values()):
+        raise AssertionError(f"not every request produced 32 tokens: {[len(t) for t in tokens.values()]}")
+    if cached[rids[-1]] <= 0:
+        raise AssertionError("the repeated prompt did not hit the prefix cache")
+    if len(readbacks) != st.engine_steps_total:
+        raise AssertionError(f"{len(readbacks)} device->host copies in {st.engine_steps_total} steps")
+    L, n_moe = cfg.num_layers, cfg.num_layers - cfg.first_dense_layers
+    want = {"write_kv_pages_flat_full": 0, "flat_paged_attention_full": 0,
+            "write_kv_pages_decode_full": L * decode_forwards,
+            "decode_paged_attention_full": 0,
+            "mla_decode_paged_attention_full": L * decode_forwards,
+            "grouped_matmul": 3 * n_moe * len(forwards)}
+    if counts != want:
+        raise AssertionError(f"launch counts {counts}, want {want}")
+    if "decode_window" in layout and 8 not in k_steps:
+        raise AssertionError(f"no decode window ran 8 iterations: {k_steps}")
+    if not layout and st.unified_steps_total == 0:
+        raise AssertionError("the default MLA engine ran no bucketed unified step")
+    del eng
+    return counts
 
 
 def main() -> int:
@@ -872,10 +1320,30 @@ def main() -> int:
         layouts_phase(info)
     gc.collect()
     torch.cuda.empty_cache()
+    with phase("moe_mla_kernels", {}) as info:
+        table.update(moe_mla_kernels_phase(info))
+    gc.collect()
+    torch.cuda.empty_cache()
+    with phase("forward", {"model": DS_MODEL}) as info:
+        ds_cfg = get_model_config(DS_MODEL)
+        gen = torch.Generator(device="cuda").manual_seed(0)
+        params = llama.init_params(ds_cfg, gen, "cuda")
+        ds_forward_phase(info, params)
+    gc.collect()
+    torch.cuda.empty_cache()
+    with phase("engine", {"model": DS_MODEL, "layout": "default (bucketed unified step)"}) as info:
+        ds_counts = ds_engine_phase(info, params)
+    with phase("engine", {"model": DS_MODEL, "layout": "split engine, decode_window 8"}) as info:
+        ds_engine_phase(info, params)
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
     with phase("serve", {"layout": "flat step"}) as info:
         serve_phase(info, [])
     with phase("serve", {"layout": "split engine, decode_window 4"}) as info:
         serve_phase(info, ["--no-unified-step", "--decode-window", "4"])
+    with phase("serve", {"model": DS_MODEL, "layout": "default (bucketed unified step)"}) as info:
+        serve_phase(info, [], DS_MODEL)
     # Each kernel's launches come from the engine run that is its main path.
     emit({"kernels": [
         {**table[name], "launches": counts[fn]}
@@ -884,6 +1352,8 @@ def main() -> int:
             ("flat_paged_attention", "flat_paged_attention_full", flat_counts),
             ("decode_kv_write", "write_kv_pages_decode_full", window_counts),
             ("decode_paged_attention", "decode_paged_attention_full", window_counts),
+            ("mla_decode_attention", "mla_decode_paged_attention_full", ds_counts),
+            ("grouped_gemm", "grouped_matmul", ds_counts),
         )
     ]})
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,

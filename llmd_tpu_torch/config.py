@@ -13,7 +13,13 @@ from typing import Any
 
 @dataclasses.dataclass
 class ModelConfig:
-    """Architecture hyperparameters for a dense Llama-class decoder."""
+    """Architecture hyperparameters of a Llama-class decoder: dense, MoE
+    (``num_experts > 0``) and MLA (``kv_lora_rank > 0``, DeepSeek V2/V3).
+
+    The gpt-oss expert fields of the JAX config (``moe_activation``,
+    ``router_logit_bias``, ``swiglu_limit``) are not fields here: they come
+    with sinks and sliding windows, which the port does not run yet, so
+    passing them raises ``TypeError``."""
 
     name: str = "llama"
     vocab_size: int = 32000
@@ -32,21 +38,81 @@ class ModelConfig:
     attention_bias: bool = False
     # Qwen3-style per-head RMS norm on Q and K (applied before RoPE).
     qk_norm: bool = False
+    # --- MoE (0 experts => dense MLP) ---
+    num_experts: int = 0
+    num_experts_per_tok: int = 2
+    moe_intermediate_size: int | None = None  # defaults to intermediate_size
+    # Router: softmax or sigmoid scores; plain ("greedy") or group-limited
+    # top-k (DeepSeek-V2 max per group, V3 top-2 sum per group).
+    router_scoring: str = "softmax"  # "softmax" | "sigmoid"
+    topk_method: str = "greedy"  # "greedy" | "group_max" | "group_top2"
+    norm_topk_prob: bool = True
+    routed_scaling_factor: float = 1.0
+    n_group: int = 1
+    topk_group: int = 1
+    # DeepSeek-style: the first N layers use a dense MLP, the rest are MoE.
+    first_dense_layers: int = 0
+    # Always-on shared expert (DeepSeek V2/V3); 0 = none.
+    shared_expert_intermediate_size: int = 0
+    # --- MLA (multi-head latent attention, DeepSeek V2/V3/R1) ---
+    # kv_lora_rank > 0 switches attention to MLA: the pool caches one
+    # latent row [rmsnorm(c_kv) | rope(k_pe)] per token. q_lora_rank 0 = a
+    # dense q projection (V2-Lite).
+    kv_lora_rank: int = 0
+    q_lora_rank: int = 0
+    qk_nope_head_dim: int = 128
+    qk_rope_head_dim: int = 64
+    v_head_dim: int = 128
 
     def __post_init__(self) -> None:
         if self.head_dim is None:
             self.head_dim = self.hidden_size // self.num_heads
+        if self.moe_intermediate_size is None:
+            self.moe_intermediate_size = self.intermediate_size
         if self.num_heads % self.num_kv_heads:
             raise ValueError(
                 f"num_heads={self.num_heads} is not a multiple of "
                 f"num_kv_heads={self.num_kv_heads}"
             )
+        if self.kv_lora_rank > 0 and self.attention_bias:
+            raise ValueError(
+                "attention_bias is not supported with MLA (kv_lora_rank > 0): "
+                "no known MLA architecture uses QKV biases"
+            )
+
+    @property
+    def is_moe(self) -> bool:
+        return self.num_experts > 0
+
+    @property
+    def is_mla(self) -> bool:
+        return self.kv_lora_rank > 0
+
+    @property
+    def mla_latent_dim(self) -> int:
+        """Unpadded latent width cached per token."""
+        return self.kv_lora_rank + self.qk_rope_head_dim
+
+    @property
+    def kv_cache_heads(self) -> int:
+        """Head count of the paged pool (MLA: one latent "head")."""
+        return 1 if self.is_mla else self.num_kv_heads
+
+    @property
+    def kv_cache_entry_dim(self) -> int:
+        """Last-axis width of one pool row: 2 * head_dim for K|V pairs, the
+        latent width padded to a multiple of 128 for MLA (the JAX layout,
+        so a pool page is byte-compatible with the reference's)."""
+        if self.is_mla:
+            return ((self.mla_latent_dim + 127) // 128) * 128
+        return 2 * self.head_dim
 
 
 @dataclasses.dataclass
 class CacheConfig:
     """Paged KV cache geometry: ``num_blocks`` pages of ``page_size`` tokens
-    in one pool ``[L, num_blocks, K, page_size, 2D]``."""
+    in one pool ``[L, num_blocks, K, page_size, 2D]`` (MLA:
+    ``[L, num_blocks, 1, page_size, Dl]``, see ``ModelConfig``)."""
 
     page_size: int = 16
     num_blocks: int = 512

@@ -177,15 +177,17 @@ class ModelRunner:
             params = llama.init_params(self.cfg, gen, self.device)
         else:
             params = _to_device(params, self.device)
-        self.params = llama.fuse_projections(params)
-        # [L, pages, K, page, 2D]: the K|V halves side by side on the last axis.
+        # JAX's ``_maybe_fuse`` leaves MLA's projections unfused.
+        self.params = params if self.cfg.is_mla else llama.fuse_projections(params)
+        # [L, pages, K, page, 2D]: the K|V halves side by side on the last
+        # axis; MLA: [L, pages, 1, page, Dl], one latent row per token.
         self.kv_cache = torch.zeros(
             (
                 self.cfg.num_layers,
                 config.cache.num_blocks,
-                self.cfg.num_kv_heads,
+                self.cfg.kv_cache_heads,
                 self.page,
-                2 * self.cfg.head_dim,
+                self.cfg.kv_cache_entry_dim,
             ),
             dtype=getattr(torch, config.cache.dtype),
             device=self.device,
@@ -209,7 +211,8 @@ class ModelRunner:
             ),
         }
         # The unified step runs flat (packed stream) or bucketed ([B, Q]).
-        self.flat = sched.unified_step and sched.ragged_qlens
+        # MLA keeps the bucketed layout, as in JAX.
+        self.flat = sched.unified_step and sched.ragged_qlens and not self.cfg.is_mla
         # Row-metadata width of the flat step: every sequence is one row.
         self.flat_rows = sched.max_num_seqs
         self._np_rng = np.random.default_rng(config.seed ^ 0x5EED)
@@ -272,7 +275,9 @@ class ModelRunner:
         return pt
 
     def _on_device(self, a: np.ndarray) -> torch.Tensor:
-        return torch.as_tensor(a, device=self.device)
+        # Not blocking: a blocking host->device copy synchronises the
+        # stream, and a dispatch must not wait for the device.
+        return torch.from_numpy(np.ascontiguousarray(a)).to(self.device, non_blocking=True)
 
     # ------------------------------------------------------------------ #
     # the flat step

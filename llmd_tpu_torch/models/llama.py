@@ -1,13 +1,18 @@
-"""Dense Llama-class decoder on the flat or the bucketed step layout.
+"""Llama-class decoder (dense, MoE, MLA) on the flat or the bucketed step
+layout.
 
-The port of the dense branches of ``llmd_tpu/models/llama.py``: stacked
-``[L, ...]`` weights with ``x @ W`` projections (the JAX leaf names, so a
-parameter tree carries over by copy), fused or unfused q|k|v and gate|up,
-optional QKV bias, Qwen3 QK-norm and tied or untied ``lm_head``. Where JAX
-scans the layers, the port loops over them in Python; each layer writes its
-K|V into the pool in place and then attends over it, through the entries
-of ``llmd_tpu_torch.ops``: the flat pair on the packed ``[T, 1]`` stream,
-the bucketed pair on ``[B, Q]`` rows (the decode kernels at ``Q == 1``). The
+The port of ``llmd_tpu/models/llama.py``: stacked ``[L, ...]`` weights with
+``x @ W`` projections (the JAX leaf names, so a parameter tree carries over
+by copy), fused or unfused q|k|v and gate|up, optional QKV bias, Qwen3
+QK-norm and tied or untied ``lm_head``. MoE layers run
+``models.moe.moe_block_grouped`` (the grouped GEMM kernel); MLA layers run
+``models.mla`` on a latent pool (bucketed layout only, as in JAX); a
+DeepSeek-style dense prefix (``first_dense_layers``) has its own weights
+under ``dense_layers``. Where JAX scans the layers, the port loops over
+them in Python; each layer writes its K|V (or latent row) into the pool in
+place and then attends over it, through the entries of
+``llmd_tpu_torch.ops``: the flat pair on the packed ``[T, 1]`` stream, the
+bucketed pair on ``[B, Q]`` rows (the decode kernels at ``Q == 1``). The
 large projections stay ``torch.matmul``, as the JAX package leaves them to
 XLA.
 """
@@ -21,15 +26,19 @@ import torch.nn.functional as F
 from llmd_tpu_torch import ops
 from llmd_tpu_torch.config import ModelConfig
 from llmd_tpu_torch.models.common import StepInput, apply_rope, rms_norm, rope_tables
+from llmd_tpu_torch.models.mla import mla_attention
+from llmd_tpu_torch.models.moe import moe_block_grouped
 
 
 def init_params(
     cfg: ModelConfig, generator: torch.Generator, device: str | torch.device
 ) -> dict:
     """Seeded random weights, drawn on ``device`` (``generator`` must live
-    there too): drawing 8B normals on the host would take minutes. Same
-    tree and scales as the JAX ``init_params`` (fan-in scaling, embed 0.02,
-    unit norms, zero biases); the values differ, as the generators do."""
+    there too): drawing billions of normals on the host would take minutes.
+    Same tree and scales as the JAX ``init_params`` (fan-in scaling, embed
+    0.02, router ``H ** -0.5``, unit norms, zero biases); the values differ,
+    as the generators do. Stacked leaves are drawn one layer at a time in
+    the working dtype: one deepseek-v2-lite layer's ``we_gate`` is 369 MB."""
     dt = getattr(torch, cfg.dtype)
     H, D = cfg.hidden_size, cfg.head_dim
     Nq, K, L = cfg.num_heads, cfg.num_kv_heads, cfg.num_layers
@@ -41,49 +50,93 @@ def init_params(
             .mul_(scale)
         )
 
-    def stacked(shape):
-        # One layer at a time keeps the transient draw small.
-        out = torch.empty((L, *shape), dtype=dt, device=device)
-        for i in range(L):
-            out[i] = normal(shape, shape[-2] ** -0.5)
-        return out
+    def layer_stack(n: int, moe: bool) -> dict:
+        """n stacked layers: attention (MLA or GQA) + dense MLP or MoE."""
 
-    layers = {
-        "input_norm": torch.ones((L, H), dtype=dt, device=device),
-        "post_norm": torch.ones((L, H), dtype=dt, device=device),
-        "wq": stacked((H, Nq * D)),
-        "wk": stacked((H, K * D)),
-        "wv": stacked((H, K * D)),
-        "wo": stacked((Nq * D, H)),
-        "w_gate": stacked((H, Fi)),
-        "w_up": stacked((H, Fi)),
-        "w_down": stacked((Fi, H)),
-    }
-    if cfg.attention_bias:
-        for name, n in (("bq", Nq * D), ("bk", K * D), ("bv", K * D)):
-            layers[name] = torch.zeros((L, n), dtype=dt, device=device)
-    if cfg.qk_norm:
-        layers["attn_q_norm"] = torch.ones((L, D), dtype=dt, device=device)
-        layers["attn_k_norm"] = torch.ones((L, D), dtype=dt, device=device)
+        def stacked(shape, scale=None):
+            out = torch.empty((n, *shape), dtype=dt, device=device)
+            for i in range(n):
+                out[i] = normal(shape, shape[-2] ** -0.5 if scale is None else scale)
+            return out
+
+        def const(shape, value, dtype=dt):
+            return torch.full((n, *shape), value, dtype=dtype, device=device)
+
+        layers = {"input_norm": const((H,), 1.0), "post_norm": const((H,), 1.0)}
+        if cfg.is_mla:
+            nope, rope, vd = cfg.qk_nope_head_dim, cfg.qk_rope_head_dim, cfg.v_head_dim
+            rank = cfg.kv_lora_rank
+            layers["wkv_a"] = stacked((H, rank + rope))
+            layers["kv_norm"] = const((rank,), 1.0)
+            layers["wkv_b"] = stacked((rank, Nq * (nope + vd)))
+            layers["wo"] = stacked((Nq * vd, H))
+            if cfg.q_lora_rank > 0:
+                layers["wq_a"] = stacked((H, cfg.q_lora_rank))
+                layers["q_norm"] = const((cfg.q_lora_rank,), 1.0)
+                layers["wq_b"] = stacked((cfg.q_lora_rank, Nq * (nope + rope)))
+            else:
+                layers["wq"] = stacked((H, Nq * (nope + rope)))
+        else:
+            layers["wq"] = stacked((H, Nq * D))
+            layers["wk"] = stacked((H, K * D))
+            layers["wv"] = stacked((H, K * D))
+            layers["wo"] = stacked((Nq * D, H))
+        if cfg.attention_bias:
+            for name, width in (("bq", Nq * D), ("bk", K * D), ("bv", K * D)):
+                layers[name] = const((width,), 0.0)
+        if cfg.qk_norm:
+            layers["attn_q_norm"] = const((D,), 1.0)
+            layers["attn_k_norm"] = const((D,), 1.0)
+        if moe:
+            E, Fm = cfg.num_experts, cfg.moe_intermediate_size
+            layers["router"] = stacked((H, E), H**-0.5)
+            if cfg.router_scoring == "sigmoid":
+                # V3's selection-only correction bias (noaux_tc).
+                layers["router_bias"] = const((E,), 0.0, torch.float32)
+            layers["we_gate"] = stacked((E, H, Fm))
+            layers["we_up"] = stacked((E, H, Fm))
+            layers["we_down"] = stacked((E, Fm, H))
+            if cfg.shared_expert_intermediate_size:
+                Fs = cfg.shared_expert_intermediate_size
+                layers["ws_gate"] = stacked((H, Fs))
+                layers["ws_up"] = stacked((H, Fs))
+                layers["ws_down"] = stacked((Fs, H))
+        else:
+            layers["w_gate"] = stacked((H, Fi))
+            layers["w_up"] = stacked((H, Fi))
+            layers["w_down"] = stacked((Fi, H))
+        return layers
+
+    n_dense = cfg.first_dense_layers if cfg.is_moe else 0
+    layers = layer_stack(L - n_dense, moe=cfg.is_moe)
+    dense_layers = layer_stack(n_dense, moe=False) if n_dense else None
     params = {
         "embed": normal((V, H), 0.02),
         "layers": layers,
         "final_norm": torch.ones((H,), dtype=dt, device=device),
     }
+    if dense_layers is not None:
+        params["dense_layers"] = dense_layers
     if not cfg.tie_word_embeddings:
         params["lm_head"] = normal((H, V), H**-0.5)
     return params
 
 
 def fuse_projections(params: dict) -> dict:
-    """q|k|v -> ``wqkv`` and gate|up -> ``w_gu`` (the JAX runner's
-    ``_fuse_projection_tree``): one matmul where there were three or two.
-    Exact: each output column is the same dot product."""
-    layers = dict(params["layers"])
-    for names, out in ((("wq", "wk", "wv"), "wqkv"), (("w_gate", "w_up"), "w_gu")):
-        if all(n in layers for n in names):
-            layers[out] = torch.cat([layers.pop(n) for n in names], dim=-1)
-    return {**params, "layers": layers}
+    """q|k|v -> ``wqkv`` and gate|up -> ``w_gu`` in ``layers`` and
+    ``dense_layers`` (the JAX runner's ``_fuse_projection_tree``): one
+    matmul where there were three or two. Exact: each output column is the
+    same dot product. The runner skips it for MLA, as JAX does."""
+    out = dict(params)
+    for key in ("layers", "dense_layers"):
+        if key not in out:
+            continue
+        layers = dict(out[key])
+        for names, fused in ((("wq", "wk", "wv"), "wqkv"), (("w_gate", "w_up"), "w_gu")):
+            if all(n in layers for n in names):
+                layers[fused] = torch.cat([layers.pop(n) for n in names], dim=-1)
+        out[key] = layers
+    return out
 
 
 def _to_torch(a) -> torch.Tensor:
@@ -158,39 +211,64 @@ def forward_hidden(
     """Run the decoder stack over the step; returns (hidden, kv_cache),
     hidden ``[T, 1, H]`` for the flat layout and ``[B, Q, H]`` for the
     bucketed one (``inp.token_rows is None``). The pool is updated in
-    place."""
+    place. A ``first_dense_layers`` prefix runs first with its own weights
+    on pool planes ``[0, n)``; the other layers follow on the planes after
+    them."""
     B, Q = inp.token_ids.shape
     D, Nq, K = cfg.head_dim, cfg.num_heads, cfg.num_kv_heads
     x = params["embed"][inp.token_ids]  # [B, Q, H]
-    cos, sin = rope_tables(inp.positions, D, cfg.rope_theta)
+    # MLA rotates only its rope sub-dimension.
+    rope_dim = cfg.qk_rope_head_dim if cfg.is_mla else D
+    cos, sin = rope_tables(inp.positions, rope_dim, cfg.rope_theta)
     sm_scale = D**-0.5
-    write, attend = _write_attend(inp, kv_cache.shape[3])
-    layers = params["layers"]
-    for i in range(cfg.num_layers):
-        lp = {name: w[i] for name, w in layers.items()}
+    if cfg.is_mla:
+        if inp.token_rows is not None:
+            raise ValueError("MLA runs the bucketed layout only (no flat step)")
+        prep = None
+        if Q == 1:
+            prep = ops.decode_write_prep(
+                inp.page_table, inp.positions, inp.valid, kv_cache.shape[3]
+            )
+    else:
+        write, attend = _write_attend(inp, kv_cache.shape[3])
+
+    def layer(x, lp, plane: int, moe: bool):
         h = rms_norm(x, lp["input_norm"], cfg.rms_norm_eps)
-        if "wqkv" in lp:
-            qkv = h @ lp["wqkv"]
-            q = qkv[..., : Nq * D]
-            k = qkv[..., Nq * D : (Nq + K) * D]
-            v = qkv[..., (Nq + K) * D :]
+        if cfg.is_mla:
+            attn_out, _ = mla_attention(h, lp, kv_cache, plane, inp, cfg, cos, sin, prep)
+            x = x + attn_out
         else:
-            q, k, v = h @ lp["wq"], h @ lp["wk"], h @ lp["wv"]
-        if cfg.attention_bias:
-            q, k, v = q + lp["bq"], k + lp["bk"], v + lp["bv"]
-        q = q.reshape(B, Q, Nq, D)
-        k = k.reshape(B, Q, K, D)
-        if cfg.qk_norm:  # Qwen3: per-head RMS norm before RoPE
-            q = rms_norm(q, lp["attn_q_norm"], cfg.rms_norm_eps)
-            k = rms_norm(k, lp["attn_k_norm"], cfg.rms_norm_eps)
-        q = apply_rope(q, cos, sin)
-        k = apply_rope(k, cos, sin)
-        v = v.reshape(B, Q, K, D)
-        kv_cache = write(kv_cache, i, k, v)
-        attn = attend(q, kv_cache, i, sm_scale)
-        x = x + attn.reshape(B, Q, Nq * D) @ lp["wo"]
+            if "wqkv" in lp:
+                qkv = h @ lp["wqkv"]
+                q = qkv[..., : Nq * D]
+                k = qkv[..., Nq * D : (Nq + K) * D]
+                v = qkv[..., (Nq + K) * D :]
+            else:
+                q, k, v = h @ lp["wq"], h @ lp["wk"], h @ lp["wv"]
+            if cfg.attention_bias:
+                q, k, v = q + lp["bq"], k + lp["bk"], v + lp["bv"]
+            q = q.reshape(B, Q, Nq, D)
+            k = k.reshape(B, Q, K, D)
+            if cfg.qk_norm:  # Qwen3: per-head RMS norm before RoPE
+                q = rms_norm(q, lp["attn_q_norm"], cfg.rms_norm_eps)
+                k = rms_norm(k, lp["attn_k_norm"], cfg.rms_norm_eps)
+            q = apply_rope(q, cos, sin)
+            k = apply_rope(k, cos, sin)
+            v = v.reshape(B, Q, K, D)
+            write(kv_cache, plane, k, v)
+            attn = attend(q, kv_cache, plane, sm_scale)
+            x = x + attn.reshape(B, Q, Nq * D) @ lp["wo"]
         h2 = rms_norm(x, lp["post_norm"], cfg.rms_norm_eps)
-        x = x + _mlp(h2, lp)
+        return x + (moe_block_grouped(h2, lp, cfg) if moe else _mlp(h2, lp))
+
+    plane = 0
+    for key, moe in (("dense_layers", False), ("layers", cfg.is_moe)):
+        stack = params.get(key)
+        if stack is None:
+            continue
+        for i in range(stack["input_norm"].shape[0]):
+            x = layer(x, {name: w[i] for name, w in stack.items()}, plane, moe)
+            plane += 1
     return rms_norm(x, params["final_norm"], cfg.rms_norm_eps), kv_cache
 
 

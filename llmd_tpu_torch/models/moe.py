@@ -1,0 +1,92 @@
+"""Mixture-of-experts block: router, shared expert and grouped expert FFNs.
+
+The port of ``llmd_tpu/models/moe.py``'s single-device grouped path
+(``moe_block_grouped``, JAX's default ``moe_backend="grouped"``): tokens
+sorted by expert feed the grouped GEMM (K6′, ``ops.grouped_gemm``), so each
+expert multiplies only its routed rows. The router covers Mixtral/Qwen3
+(softmax, top-k, renormalised) and DeepSeek V2/V3 (softmax or sigmoid
+scores, group-limited selection, optional renormalisation, routed scaling).
+The gpt-oss experts (``router_logit_bias``, clamped SwiGLU, expert biases)
+are not ported yet, nor the dense-combine and expert-parallel blocks.
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+from llmd_tpu_torch.config import ModelConfig
+from llmd_tpu_torch.ops.grouped_gemm import moe_apply_grouped
+
+
+def router_topk(
+    h: torch.Tensor,  # [T, H]
+    w_router: torch.Tensor,  # [H, E]
+    top_k: int,
+    cfg: ModelConfig | None = None,
+    bias: torch.Tensor | None = None,  # [E] selection-only correction (V3)
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Top-k expert routing; returns (weights [T, k] f32, expert ids [T, k]).
+
+    Without ``cfg``: softmax, top-k, renormalised (Mixtral). With it: the
+    scoring, the group-limited selection (DeepSeek V2 max per group, V3
+    top-2 sum per group), renormalisation and routed scaling the config
+    names. Logits are computed in f32."""
+    logits = h.float() @ w_router.float()  # [T, E]
+    if cfg is None:
+        probs = torch.softmax(logits, dim=-1)
+        weights, ids = torch.topk(probs, top_k, dim=-1)
+        return weights / weights.sum(dim=-1, keepdim=True), ids
+    T, E = logits.shape
+    if cfg.router_scoring == "sigmoid":
+        scores = torch.sigmoid(logits)
+    else:
+        scores = torch.softmax(logits, dim=-1)
+    # Selection scores may differ from the combine weights: V3's correction
+    # bias steers the selection only.
+    choice = scores if bias is None else scores + bias.float()
+    if cfg.topk_method in ("group_max", "group_top2") and cfg.n_group > 1:
+        g = cfg.n_group
+        grouped = choice.reshape(T, g, E // g)
+        if cfg.topk_method == "group_max":
+            group_scores = grouped.amax(dim=-1)
+        else:  # top-2 sum per group (V3 noaux_tc)
+            group_scores = torch.topk(grouped, 2, dim=-1).values.sum(dim=-1)
+        group_idx = torch.topk(group_scores, cfg.topk_group, dim=-1).indices
+        group_mask = torch.zeros((T, g), dtype=torch.bool, device=h.device)
+        group_mask.scatter_(1, group_idx, True)
+        mask = group_mask.repeat_interleave(E // g, dim=-1)
+        fill = 0.0 if cfg.router_scoring == "sigmoid" else float("-inf")
+        choice = torch.where(mask, choice, fill)
+    ids = torch.topk(choice, top_k, dim=-1).indices
+    weights = torch.gather(scores, -1, ids)
+    if cfg.norm_topk_prob:
+        weights = weights / (weights.sum(dim=-1, keepdim=True) + 1e-20)
+    return weights * cfg.routed_scaling_factor, ids
+
+
+def expert_glu(gate: torch.Tensor, up: torch.Tensor) -> torch.Tensor:
+    """The experts' gated unit before the down projection: silu(gate) * up
+    (Mixtral, Qwen, DeepSeek)."""
+    return F.silu(gate) * up
+
+
+def shared_expert_ffn(ht: torch.Tensor, lp: dict) -> torch.Tensor:
+    """DeepSeek's always-on shared expert, a dense SwiGLU MLP."""
+    return (F.silu(ht @ lp["ws_gate"]) * (ht @ lp["ws_up"])) @ lp["ws_down"]
+
+
+def moe_block_grouped(h: torch.Tensor, lp: dict, cfg: ModelConfig) -> torch.Tensor:
+    """MoE FFN on ``[B, Q, H]``: route, run each routed row through its
+    expert by grouped GEMM, combine in f32, add the shared expert."""
+    B, Q, H = h.shape
+    ht = h.reshape(B * Q, H)
+    weights, ids = router_topk(
+        ht, lp["router"], cfg.num_experts_per_tok, cfg, lp.get("router_bias")
+    )
+    out = moe_apply_grouped(
+        ht, weights, ids, lp["we_gate"], lp["we_up"], lp["we_down"]
+    ).to(h.dtype)
+    if cfg.shared_expert_intermediate_size:
+        out = out + shared_expert_ffn(ht, lp)
+    return out.reshape(B, Q, H)

@@ -13,18 +13,29 @@ A kernel wrapper dispatches by the pool's device alone: a CUDA pool
 launches the hand-written kernel (or the call raises), a CPU pool runs the
 plain version. There is no switch that sends CUDA tensors to the plain
 version.
+
+MLA and MoE: ``mla_paged_attention_full`` follows the JAX rule as well
+(``Q == 1`` → the latent decode kernel, ``Q > 1`` → the plain dense form of
+``ops.mla_attention``), and ``grouped_matmul`` is the MoE experts' grouped
+GEMM. The latent rows are written through ``write_kv_pages_full``.
 """
 
 from __future__ import annotations
 
 import torch
 
+from llmd_tpu_torch.ops.grouped_gemm import grouped_matmul, grouped_matmul_plain
 from llmd_tpu_torch.ops.kv_write import (
     write_kv_pages_decode,
     write_kv_pages_decode_full,
     write_kv_pages_decode_plain,
     write_kv_pages_flat_full,
     write_kv_pages_flat_plain,
+)
+from llmd_tpu_torch.ops.mla_attention import mla_paged_attention_xla
+from llmd_tpu_torch.ops.mla_decode import (
+    mla_decode_paged_attention_full,
+    mla_decode_paged_attention_plain,
 )
 from llmd_tpu_torch.ops.paged_attention import (
     paged_attention_xla,
@@ -45,6 +56,8 @@ KERNELS = (
     flat_paged_attention_full,
     write_kv_pages_decode_full,
     decode_paged_attention_full,
+    mla_decode_paged_attention_full,
+    grouped_matmul,
 )
 
 # Above this many gathered positions the dense attention's [B, Q, .., S]
@@ -165,6 +178,33 @@ def paged_attention_full(
     return attend(q, sl, page_table, kv_lens, positions, sm_scale)
 
 
+def mla_paged_attention_full(
+    q_eff: torch.Tensor,  # [B, Q, H, Dl]
+    latent_cache_full: torch.Tensor,  # [L, pages, 1, page, Dl]
+    layer: int,
+    page_table: torch.Tensor,  # [B, max_pages]
+    kv_lens: torch.Tensor,  # [B]
+    positions: torch.Tensor,  # [B, Q]
+    rank: int,
+    sm_scale: float,
+    live_pages: int | None = None,
+) -> torch.Tensor:
+    """Layer-indexed MLA latent attention; returns ``[B, Q, H, rank]``.
+    ``Q == 1``: the latent decode kernel; ``Q > 1``: the plain dense form,
+    over the first ``live_pages`` table columns where the caller knows that
+    bound (the columns beyond hold no live position: the same result)."""
+    if q_eff.shape[1] == 1:
+        return mla_decode_paged_attention_full(
+            q_eff.contiguous(), latent_cache_full, layer, page_table, kv_lens,
+            rank, sm_scale,
+        )
+    if live_pages is not None:
+        page_table = page_table[:, :live_pages]
+    return mla_paged_attention_xla(
+        q_eff, latent_cache_full[layer], page_table, kv_lens, positions, rank, sm_scale
+    )
+
+
 __all__ = [
     "KERNELS",
     "decode_paged_attention",
@@ -173,7 +213,13 @@ __all__ = [
     "decode_write_prep",
     "flat_paged_attention_full",
     "flat_paged_attention_plain",
+    "grouped_matmul",
+    "grouped_matmul_plain",
     "launch_counts",
+    "mla_decode_paged_attention_full",
+    "mla_decode_paged_attention_plain",
+    "mla_paged_attention_full",
+    "mla_paged_attention_xla",
     "paged_attention_full",
     "paged_attention_full_flat",
     "paged_attention_xla",

@@ -5,11 +5,13 @@
 
 Serves ``--batch`` greedy requests of ``--prompt-len`` random tokens
 through ``LLMEngine`` (random weights from ``--seed``) and traces three
-windows with ``torch.profiler``: the first step of the flat engine (a
+windows with ``torch.profiler``: the first step of the default engine (a
 prefill-heavy step of ``max_num_batched_tokens`` live tokens),
-``--decode-steps`` flat steps once every request decodes, and, in a second
+``--decode-steps`` steps of it once every request decodes, and, in a second
 engine with ``decode_window = --decode-window``, as many fused decode
-windows as cover the same number of tokens. For each window it prints one
+windows as cover the same number of tokens. The default engine runs the
+flat step, or for an MLA model (``--model deepseek-v2-lite``) the bucketed
+unified step and one-iteration decode windows. For each window it prints one
 JSON line: host milliseconds per step (the step ends in its device->host
 copy), the device's busy milliseconds per step (the sum of its CUDA
 kernels' times; one stream, so kernels do not overlap), the device's idle
@@ -43,7 +45,7 @@ from llmd_tpu_torch.models.registry import get_model_config
 _GEMM_MARKS = ("gemm", "nvjet", "cutlass", "xmma", "cublas")
 _PORT_KERNELS = (
     "flat_paged_attention", "flat_kv_write", "decode_paged_attention",
-    "decode_kv_write",
+    "decode_kv_write", "mla_decode_attention", "grouped_gemm",
 )
 
 
@@ -139,7 +141,9 @@ def main(argv=None) -> None:
         capture_output=True, text=True, timeout=60, check=True,
     ).stdout.strip()
     gen = torch.Generator(device="cuda").manual_seed(args.seed)
-    params = llama.fuse_projections(llama.init_params(cfg, gen, "cuda"))
+    params = llama.init_params(cfg, gen, "cuda")
+    if not cfg.is_mla:  # the runner fuses no MLA projections, as JAX does
+        params = llama.fuse_projections(params)
     sp = SamplingParams(temperature=0.0, max_tokens=max_tokens, ignore_eos=True)
 
     def loaded_engine(**sched) -> LLMEngine:

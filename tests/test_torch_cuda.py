@@ -297,7 +297,179 @@ def test_engine_on_the_card_matches_the_cpu_engine(dev, layout):
         "flat_paged_attention_full": L * flat_steps,
         "write_kv_pages_decode_full": L * sum(ks),
         "decode_paged_attention_full": L * sum(ks),
+        "mla_decode_paged_attention_full": 0,
+        "grouped_matmul": 0,
     }
     assert (flat_steps > 0) == (layout in ("flat", "flat_window"))
     assert (sum(ks) > 0) == (layout != "flat")
     assert (max(ks, default=1) == 4) == (layout in ("window", "flat_window"))
+
+
+# Group layouts of the grouped GEMM: (rows per group), K, N. Empty groups,
+# one group holding every row, fewer rows than a tile, row counts that are
+# not tile multiples, K and N that are not multiples of 128 (or of a tile).
+GROUPS = {
+    "spread": ((5, 0, 70, 1, 0, 33, 64, 2), 256, 192),
+    "one_group": ((0, 0, 300, 0), 128, 128),
+    "below_a_tile": ((3, 0, 2, 1), 64, 64),
+    "ragged_k_n": ((17, 0, 40, 9), 200, 72),
+    "many_groups": (tuple(int(x) for x in np.random.default_rng(0).integers(0, 12, 64)), 128, 88),
+}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("layout", sorted(GROUPS))
+def test_grouped_gemm_kernel_matches_plain(dev, dtype, layout):
+    """K6': each row's product with its own group's weights. Both sides sum
+    in f32 and round once: in bf16/f16 an output may land one ulp apart;
+    in f32 the sums run in another order (atol 1e-5 at |x| ~ 1, K <= 256
+    terms scaled by K ** -0.5)."""
+    sizes, K, N = GROUPS[layout]
+    rng = np.random.default_rng(7)
+    M, G = sum(sizes), len(sizes)
+    x = torch.from_numpy(rng.normal(size=(M, K)).astype(np.float32)).to(dev, dtype)
+    w = torch.from_numpy((rng.normal(size=(G, K, N)) * K**-0.5).astype(np.float32)).to(dev, dtype)
+    gs = torch.tensor(sizes, dtype=torch.int32, device=dev)
+    ops.reset_launch_counts()
+    got = ops.grouped_matmul(x, w, gs)
+    want = ops.grouped_matmul_plain(x, w, gs)
+    torch.cuda.synchronize()
+    assert got.dtype == dtype and got.shape == (M, N)
+    atol, rtol = TOL[dtype]
+    torch.testing.assert_close(got.float(), want.float(), atol=atol, rtol=rtol)
+    assert ops.launch_counts()["grouped_matmul"] == 1
+
+
+def latent_step(rng, page, kv_lens, L, Dl):
+    """A decode batch over a latent pool [L, P, 1, page, Dl]: distinct pages
+    per row, NaN at every position past a row's kv_len (a position that
+    entered a sum would poison the row)."""
+    kv_lens = np.asarray(kv_lens, np.int32)
+    need = -(-kv_lens // page)
+    max_pages = int(need.max()) + 1
+    P = int(need.sum()) + 4
+    perm = rng.permutation(P)
+    pt = np.zeros((len(kv_lens), max_pages), np.int32)
+    off = 0
+    for b, n in enumerate(need):
+        pt[b, :n] = perm[off : off + n]
+        off += n
+    pool = rng.normal(size=(L, P, 1, page, Dl)).astype(np.float32)
+    clean = pool.copy()
+    for b, n in enumerate(kv_lens):
+        for i in range(n, max_pages * page):
+            if i // page < need[b]:  # the live pages' dead tail
+                pool[:, pt[b, i // page], 0, i % page] = np.nan
+    return pt, kv_lens, pool, clean
+
+
+# kv_len 1, page boundaries, partial last pages and pad rows.
+LATENT_LENS = (1, 0, 16, 17, 300, 0, 1000, 33)
+
+
+@pytest.mark.parametrize("spans", ["auto", 1, 3])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.float16])
+@pytest.mark.parametrize(
+    "page,H,rank,Dl", [(16, 16, 512, 640), (8, 4, 32, 128), (32, 32, 128, 256), (16, 5, 64, 64)]
+)
+def test_mla_decode_kernel_matches_plain(dev, dtype, page, H, rank, Dl, spans, monkeypatch):
+    """K5': within the f32 tolerance or one ulp of the plain version, pad
+    rows exactly zero, NaN past kv_len never read; with each row in one
+    block (no merge), in three spans, and in the wrapper's own choice."""
+    from llmd_tpu_torch.ops import mla_decode
+
+    if spans != "auto":
+        monkeypatch.setattr(mla_decode, "spans_for", lambda *args: spans)
+    rng = np.random.default_rng(8)
+    L = 2
+    pt, kv_lens, pool, clean = latent_step(rng, page, LATENT_LENS, L, Dl)
+    B = len(kv_lens)
+    q = torch.from_numpy(rng.normal(size=(B, 1, H, Dl)).astype(np.float32)).to(dev, dtype)
+    pool = torch.from_numpy(pool).to(dev, dtype)
+    clean = torch.from_numpy(clean).to(dev, dtype)
+    pt, kv_lens = on(dev, pt, kv_lens)
+    scale = (Dl // 2) ** -0.5
+    ops.reset_launch_counts()
+    got = ops.mla_decode_paged_attention_full(q, pool, 1, pt, kv_lens, rank, scale)
+    want = ops.mla_decode_paged_attention_plain(q, clean, 1, pt, kv_lens, rank, scale)
+    torch.cuda.synchronize()
+    assert got.dtype == dtype and got.shape == (B, 1, H, rank)
+    assert torch.isfinite(got).all()
+    atol, rtol = TOL[dtype]
+    torch.testing.assert_close(got.float(), want.float(), atol=atol, rtol=rtol)
+    assert not got[kv_lens == 0].any()  # pad rows come out as zeros
+    assert ops.launch_counts()["mla_decode_paged_attention_full"] == 1
+
+
+def test_moe_and_mla_wrappers_refuse_what_the_kernels_do_not_take(dev):
+    x = torch.zeros((10, 64), device=dev, dtype=torch.bfloat16)
+    w = torch.zeros((2, 64, 64), device=dev, dtype=torch.bfloat16)
+    gs = torch.tensor([4, 6], device=dev, dtype=torch.int32)
+    with pytest.raises(ValueError, match="int32"):
+        ops.grouped_matmul(x, w, gs.long())
+    with pytest.raises(ValueError, match="dtype"):
+        ops.grouped_matmul(x.float(), w, gs)
+    with pytest.raises(ValueError, match="multiples of 8"):
+        ops.grouped_matmul(x[:, :60].contiguous(), w[:, :60].contiguous(), gs)
+    with pytest.raises(ValueError, match="is on cpu"):
+        ops.grouped_matmul(x, w, gs.cpu())
+    pool = torch.zeros((2, 8, 1, 16, 640), device=dev, dtype=torch.bfloat16)
+    q = torch.zeros((3, 1, 16, 640), device=dev, dtype=torch.bfloat16)
+    pt = torch.zeros((3, 4), device=dev, dtype=torch.int32)
+    lens = torch.ones((3,), device=dev, dtype=torch.int32)
+    with pytest.raises(ValueError, match="int32"):
+        ops.mla_decode_paged_attention_full(q, pool, 0, pt, lens.long(), 512, 0.1)
+    with pytest.raises(ValueError, match="multiples of 32"):
+        ops.mla_decode_paged_attention_full(q, pool, 0, pt, lens, 500, 0.1)
+    with pytest.raises(ValueError, match="layer"):
+        ops.mla_decode_paged_attention_full(q, pool, 2, pt, lens, 512, 0.1)
+    with pytest.raises(ValueError, match="does not fit"):
+        ops.mla_decode_paged_attention_full(q[..., :512], pool, 0, pt, lens, 512, 0.1)
+
+
+@pytest.mark.parametrize("model,layout", [
+    ("tiny-moe", "flat"), ("tiny-moe", "window"), ("tiny-mla", "flat"), ("tiny-mla", "window"),
+])
+def test_moe_mla_engine_on_the_card_matches_the_cpu_engine(dev, model, layout, monkeypatch):
+    """tiny-moe and tiny-mla (f32): the card's streams equal the CPU's.
+    Every forward is logged with its Q: K6' launches 3 times a MoE layer
+    a forward, K5' and K4' once a layer a Q = 1 forward of the MLA model
+    (which takes the bucketed unified step where the layout asks for the
+    flat one)."""
+    from llmd_tpu_torch.engine import runner as runner_mod
+    from llmd_tpu_torch.models.registry import get_model_config
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    # The GQA kernels take head_dim 64, 128 or 256 (tiny-moe's is 16).
+    mcfg = get_model_config(model, **({} if model == "tiny-mla" else {"head_dim": 64}))
+    cfg = EngineConfig(
+        model=mcfg,
+        cache=CacheConfig(page_size=8, num_blocks=64, dtype="float32"),
+        scheduler=SchedulerConfig(max_num_seqs=8, max_num_batched_tokens=32, **LAYOUTS[layout]),
+    )
+    params = llama.init_params(mcfg, torch.Generator().manual_seed(0), "cpu")
+    rng = np.random.default_rng(3)
+    prompts = [rng.integers(0, 256, size=n).tolist() for n in (5, 40, 17, 70)]
+    sps = [SamplingParams(temperature=t, max_tokens=12, ignore_eos=True, seed=9)
+           for t in (0.0, 0.8, 0.0, 0.8)]
+    cpu = LLMEngine(cfg, params=params, device="cpu").generate(prompts, sps)
+    gpu_engine = LLMEngine(cfg, params=params, device="cuda")
+    forwards = []
+    forward = runner_mod.llama.forward_hidden
+
+    def logged(p, cache, inp, c):
+        forwards.append(inp.token_ids.shape[1])
+        return forward(p, cache, inp, c)
+
+    monkeypatch.setattr(runner_mod.llama, "forward_hidden", logged)
+    ops.reset_launch_counts()
+    gpu = gpu_engine.generate(prompts, sps)
+    assert list(gpu.values()) == list(cpu.values())
+    counts = ops.launch_counts()
+    L, n_moe = mcfg.num_layers, mcfg.num_layers - mcfg.first_dense_layers
+    assert counts["grouped_matmul"] == 3 * n_moe * len(forwards) > 0
+    if mcfg.is_mla:
+        assert not gpu_engine.runner.flat
+        assert counts["mla_decode_paged_attention_full"] == L * forwards.count(1) > 0
+        assert counts["write_kv_pages_decode_full"] == L * forwards.count(1)
+        assert counts["flat_paged_attention_full"] == counts["decode_paged_attention_full"] == 0

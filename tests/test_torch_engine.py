@@ -14,6 +14,7 @@ reproduces JAX's threefry noise and draws its seeds in JAX's order.
 """
 
 import contextlib
+import dataclasses
 
 import jax
 import numpy as np
@@ -25,7 +26,10 @@ import llmd_tpu_torch.config as tcfg
 from llmd_tpu.engine import LLMEngine as JaxEngine
 from llmd_tpu.engine import SamplingParams as JaxSP
 from llmd_tpu_torch.engine import LLMEngine, SamplingParams
+from llmd_tpu.models.registry import get_model_config as jax_model_config
+from llmd_tpu_torch.models import registry
 from llmd_tpu_torch.models.llama import params_from_jax
+from llmd_tpu_torch.models.registry import get_model_config
 
 PROMPTS = [
     [1, 5, 9, 13, 2, 8],
@@ -44,13 +48,13 @@ LAYOUTS = {
 OTHER_LAYOUTS = ["split", "window", "bucketed"]
 
 
-def engines(num_blocks=64, page=4, max_batched=32, max_seqs=8, **sched):
+def engines(num_blocks=64, page=4, max_batched=32, max_seqs=8, model="tiny", **sched):
     kw = dict(
         cache=dict(page_size=page, num_blocks=num_blocks, dtype="float32"),
         scheduler=dict(max_num_seqs=max_seqs, max_num_batched_tokens=max_batched, **sched),
     )
     jax_engine = JaxEngine(jcfg.EngineConfig(
-        model=jcfg.tiny_model_config(),
+        model=jax_model_config(model),
         cache=jcfg.CacheConfig(**kw["cache"]),
         scheduler=jcfg.SchedulerConfig(**kw["scheduler"]),
         parallel=jcfg.ParallelConfig(tensor_parallel_size=1),
@@ -58,7 +62,7 @@ def engines(num_blocks=64, page=4, max_batched=32, max_seqs=8, **sched):
     params = params_from_jax(jax.tree.map(np.asarray, jax_engine.runner.params))
     port = LLMEngine(
         tcfg.EngineConfig(
-            model=tcfg.tiny_model_config(),
+            model=get_model_config(model),
             cache=tcfg.CacheConfig(**kw["cache"]),
             scheduler=tcfg.SchedulerConfig(**kw["scheduler"]),
         ),
@@ -254,10 +258,13 @@ def counting_host_reads():
             setattr(torch.Tensor, name, fn)
 
 
-def test_decode_window_loop_reads_nothing_back():
+@pytest.mark.parametrize("model", ["tiny", "tiny-moe", "tiny-mla"])
+def test_decode_window_loop_reads_nothing_back(model):
     """The K iterations of a fused window are enqueued without one host
-    read: the tokens go round on the device until ``wait_step``."""
-    _, p = engines(**LAYOUTS["window"])
+    read: the tokens go round on the device until ``wait_step``. The MoE
+    layers count their groups on the device and the plain grouped matmul
+    loops over the static expert count, so they read nothing either."""
+    _, p = engines(model=model, **LAYOUTS["window"])
     windows = []
     orig = p.runner.dispatch_staged_decode
 
@@ -374,3 +381,57 @@ def test_add_request_validates_prompt():
         p.add_request([1, 2, 256])
     with pytest.raises(ValueError, match="max_model_len"):
         p.add_request([1] * 128)
+
+
+# MoE and MLA models in the layouts their JAX engine runs: tiny-moe in all
+# four; tiny-mla has no flat step (MLA keeps the bucketed layout, as in
+# JAX), so its default engine runs the bucketed unified step.
+MOE_MLA_LAYOUTS = [("tiny-moe", name) for name in sorted(LAYOUTS)] + [
+    ("tiny-mla", "default"), ("tiny-mla", "split"), ("tiny-mla", "window"),
+]
+
+
+@pytest.mark.parametrize("model,layout", MOE_MLA_LAYOUTS)
+def test_moe_and_mla_streams_match_jax(model, layout):
+    """Greedy and seeded streams equal the JAX engine's; a 16-token budget
+    staggers the prompts so later chunks run beside earlier decodes; the
+    second pass over one prompt starts from a prefix-cache hit."""
+    j, p = engines(model=model, max_batched=16, **LAYOUTS.get(layout, {}))
+    prompts = CASES["staggered"][1]
+    for sp in (dict(temperature=0.0, max_tokens=8, ignore_eos=True),
+               dict(temperature=0.8, max_tokens=8, seed=7, ignore_eos=True)):
+        assert streams(p, prompts, SamplingParams, **sp) == streams(j, prompts, JaxSP, **sp)
+    prompt = [5, 5, 1, 2, 3, 4, 8, 8, 6, 6, 2, 2]
+    for _ in range(2):
+        sp = dict(temperature=0.0, max_tokens=6)
+        assert streams(p, [prompt], SamplingParams, **sp) == streams(j, [prompt], JaxSP, **sp)
+    assert p.allocator.hit_ratio() == j.allocator.hit_ratio() > 0
+    st = p.stats
+    assert st.engine_steps_total == j.stats.engine_steps_total
+    assert st.step_dispatches_total == j.stats.step_dispatches_total
+    assert st.decode_dispatches_total == j.stats.decode_dispatches_total
+    assert st.unified_steps_total == j.stats.unified_steps_total
+    assert p.runner.flat == (model == "tiny-moe" and layout == "flat")
+    if model == "tiny-mla":
+        assert tuple(p.runner.kv_cache.shape[2:]) == (1, 4, 128)  # one latent row per token
+        if layout == "default":
+            assert st.unified_steps_total > 0
+
+
+@pytest.mark.parametrize("name", sorted(registry._REGISTRY))
+def test_registry_entry_matches_jax(name):
+    """Every entry of the port's registry is the JAX entry, field for field
+    (over the port's fields), and derives its defaults alike."""
+    port, ref = get_model_config(name), jax_model_config(name)
+    for f in dataclasses.fields(port):
+        assert getattr(port, f.name) == getattr(ref, f.name), f.name
+    over = dict(intermediate_size=96, hidden_size=256)
+    port, ref = get_model_config(name, **over), jax_model_config(name, **over)
+    assert (port.head_dim, port.moe_intermediate_size) == (ref.head_dim, ref.moe_intermediate_size)
+
+
+def test_gpt_oss_expert_fields_raise():
+    """The gpt-oss experts are not ported: their config fields raise."""
+    for field, value in (("moe_activation", "swiglu_oss"), ("router_logit_bias", True)):
+        with pytest.raises(TypeError):
+            tcfg.ModelConfig(**{field: value})

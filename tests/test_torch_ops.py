@@ -408,10 +408,21 @@ def test_cpu_entry_points_run_the_plain_versions():
         ops.decode_paged_attention_full(qd, cache, 1, t(d.pt), t(d.kv_lens)),
         ops.decode_paged_attention_plain(qd, cache, 1, t(d.pt), t(d.kv_lens)),
     )
+    x = t(rng.normal(size=(9, 16)).astype(np.float32))
+    w = t(rng.normal(size=(3, 16, 8)).astype(np.float32))
+    sizes = t(np.asarray([4, 0, 5], np.int32))
+    assert torch.equal(ops.grouped_matmul(x, w, sizes), ops.grouped_matmul_plain(x, w, sizes))
+    latent = t(rng.normal(size=(2, P, 1, PAGE, 64)).astype(np.float32))
+    q_eff = t(rng.normal(size=(d.B, 1, 4, 64)).astype(np.float32))
+    assert torch.equal(
+        ops.mla_decode_paged_attention_full(q_eff, latent, 1, t(d.pt), t(d.kv_lens), 32, 0.1),
+        ops.mla_decode_paged_attention_plain(q_eff, latent, 1, t(d.pt), t(d.kv_lens), 32, 0.1),
+    )
     # The plain versions are not kernel launches.
     assert ops.launch_counts() == {
         "write_kv_pages_flat_full": 0, "flat_paged_attention_full": 0,
         "write_kv_pages_decode_full": 0, "decode_paged_attention_full": 0,
+        "mla_decode_paged_attention_full": 0, "grouped_matmul": 0,
     }
 
 
@@ -453,7 +464,7 @@ def test_kernel_sources_are_built_from_the_package(tmp_path, monkeypatch):
 
     assert _build.sources() == [
         "decode_kv_write", "decode_paged_attention", "flat_kv_write",
-        "flat_paged_attention",
+        "flat_paged_attention", "grouped_gemm", "mla_decode_attention",
     ]
     assert "arch=compute_90a,code=sm_90a" in _build.NVCC_FLAGS
     # The header both attention kernels include is part of each library's
@@ -467,3 +478,22 @@ def test_kernel_sources_are_built_from_the_package(tmp_path, monkeypatch):
         f.write("// touched\n")
     assert _build._library_path("decode_paged_attention") != before
     assert _build._library_path("flat_paged_attention").name.startswith("libflat_paged_attention-")
+
+
+def test_moe_and_mla_wrappers_never_take_the_plain_version_off_the_cpu():
+    """K5' and K6' dispatch by device like the others: a meta tensor
+    raises, through the wrappers and through the MLA entry at Q == 1."""
+    meta = dict(device="meta")
+    x = torch.empty((10, 64), **meta)
+    w = torch.empty((2, 64, 64), **meta)
+    sizes = torch.empty((2,), dtype=torch.int32, **meta)
+    with pytest.raises(ValueError, match="unsupported device"):
+        ops.grouped_matmul(x, w, sizes)
+    latent = torch.empty((2, 8, 1, 16, 640), **meta)
+    q_eff = torch.empty((3, 1, 16, 640), **meta)
+    idx = torch.empty((3,), dtype=torch.int32, **meta)
+    pt = torch.empty((3, 4), dtype=torch.int32, **meta)
+    with pytest.raises(ValueError, match="unsupported device"):
+        ops.mla_decode_paged_attention_full(q_eff, latent, 0, pt, idx, 512, 0.1)
+    with pytest.raises(ValueError, match="unsupported device"):
+        ops.mla_paged_attention_full(q_eff, latent, 0, pt, idx, idx[:, None], 512, 0.1)

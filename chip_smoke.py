@@ -4,8 +4,8 @@
     python3 chip_smoke.py
 
 Builds the port's CUDA kernels from ``llmd_tpu_torch/ops/csrc`` and drives
-its main paths at the full width of llama-3-8b and of deepseek-v2-lite
-(random weights from a seed):
+its main paths at the full width of llama-3-8b, deepseek-v2-lite and
+gpt-oss-20b (random weights from a seed):
 
 1. ``device``  the card's name, and its name and power limit from nvidia-smi.
 2. ``build``   nvcc of every kernel source, all started together.
@@ -19,14 +19,31 @@ its main paths at the full width of llama-3-8b and of deepseek-v2-lite
 4. ``forward`` one mixed flat step and one bucketed decode step (Q = 1, 64
                rows) of the 32-layer model through the kernels and through
                the plain versions on the card, both held to an f32 run.
+3b. ``oss_kernels`` the window, sink and int8 branches: K1' on the mixed
+               flat step and K3' on the decode step at gpt-oss-20b shapes
+               (H 64, K 8, D 64, 24-layer pool), on a sliding layer (window
+               128, sinks) and a full layer (sinks), on a bf16 and an int8
+               pool, K2' and K4' on both pools at those shapes; K1'-K4' on
+               an int8 pool at llama-3-8b shapes. Each is held to its plain
+               version (one bf16 ulp; writes bit-equal) and timed beside its
+               bound (the live, in-window positions; int8 at half the bytes
+               plus the scales), the plain version and a library call.
 5. ``engine``  ``LLMEngine`` serving 8 greedy requests (chunked prefill and
-               a prefix-cache hit included), three times: on the flat step
+               a prefix-cache hit included), four times: on the flat step
                (the flat pair must launch layers x steps times each); as
                the split engine with fused decode windows of 8 (the decode
                pair must launch layers x the windows' iterations, the flat
-               pair not at all); and on the flat step with windows of 8
-               (the flat pair layers x flat steps, the decode pair layers x
-               the windows' iterations). Every step must read back once.
+               pair not at all); on the flat step with windows of 8 (the
+               flat pair layers x flat steps, the decode pair layers x the
+               windows' iterations); and the same on the int8 pool, whose
+               greedy tokens are compared with the bf16 pool's, with a
+               first-token witness: one flat prefill of the prompts on a
+               bf16 pool, and on an int8 pool through the kernels and the
+               plain versions (the kernels must pick the plain path's
+               first tokens but at a tie). Launches
+               are checked per kernel branch from a log of every forward;
+               window dispatches run under ``set_sync_debug_mode
+               ("error")``. Every step must read back once.
 6. ``layouts`` the tiny f32 model on the card: the flat step, the split
                engine with windows, the flat step with windows and the
                bucketed unified step give identical greedy and seeded
@@ -45,15 +62,27 @@ its main paths at the full width of llama-3-8b and of deepseek-v2-lite
                flat step) and as the split engine with windows of 8; launch
                counts from a log of every forward's Q, one readback a step,
                window dispatches under ``set_sync_debug_mode("error")``.
-10. ``serve``  ``python -m llmd_tpu_torch.serve`` answering three
+10. ``forward`` (gpt-oss-20b) a mixed flat step and a Q = 1 decode
+               forward of the 24-layer model (bias leaves filled with small
+               seeded values) through the kernels and the plain versions,
+               on a bf16 and an int8 pool, launches checked per branch,
+               layer 0's pool bytes equal; f32 reference on 4 layers.
+11. ``engine`` (gpt-oss-20b) as in 5, on the flat step, as the split
+               engine with windows of 8, and on the int8 pool with windows
+               of 8 (window, sinks and int8 in one kernel call; its tokens
+               beside the flat bf16 run's, and the first-token witness).
+12. ``serve``  ``python -m llmd_tpu_torch.serve`` answering three
                ``/v1/completions`` requests (one streamed), then a second
                server with ``--no-unified-step --decode-window 4`` whose
                streamed completion carries one chunk per token and the
-               unstreamed completion's text, then a deepseek-v2-lite server.
+               unstreamed completion's text, then deepseek-v2-lite,
+               gpt-oss-20b and llama-3-8b with ``--kv-cache-dtype int8``
+               servers.
 
 Each phase prints one JSON line. Any failure raises and exits non-zero
 without printing a result. On success the line before the last is the
-kernel table and the last line is ``{"ok": true, "device": {...}}``.
+kernel table, one row per kernel and branch with its launches on its main
+path, and the last line is ``{"ok": true, "device": {...}}``.
 Imports nothing of JAX or of ``llmd_tpu``.
 """
 
@@ -367,41 +396,58 @@ def decode_kernels_phase(info: dict) -> dict:
     return {e["name"]: e for e in out}
 
 
-def _sdpa_yardstick(q, pool, layer, s, page) -> float:
+def _sdpa_yardstick(q, pool, layer, s, page, window: int = 0, sinks=None,
+                    max_q: int | None = None) -> float:
     """Time of one ``scaled_dot_product_attention`` call on the same step,
     with each row's live context gathered to a dense, padded layout
-    beforehand (the gather is not timed)."""
+    beforehand (the gather is not timed). A sliding ``window`` is part of
+    the mask; ``sinks`` ([H]) append one zero key and zero value whose mask
+    bias is the head's sink logit (a per-head float mask, so ``max_q``
+    splits long prefill rows into sub-rows of that many queries to keep it
+    small). ``pool`` is a float pool (an int8 pool is dequantized first)."""
     import torch.nn.functional as F
 
     T, _, H, D = q.shape
     K = pool.shape[2]
-    spec = s["rows_spec"]
-    R = len(spec)
-    qmax = max(w for _, w in spec)
-    smax = max(p0 + w for p0, w in spec)
+    segs, t = [], 0  # (table row, first position, queries, first token)
+    for r, (p0, w) in enumerate(s["rows_spec"]):
+        step = max_q or w
+        for off in range(0, w, step):
+            segs.append((r, p0 + off, min(step, w - off), t + off))
+        t += w
+    R = len(segs)
+    qmax = max(w for _, _, w, _ in segs)
+    smax = max(p0 + w for _, p0, w, _ in segs)
     dev = q.device
     Qd = torch.zeros((R, H, qmax, D), dtype=q.dtype, device=dev)
-    Kd = torch.zeros((R, K, smax, D), dtype=q.dtype, device=dev)
+    Kd = torch.zeros((R, K, smax + 1, D), dtype=q.dtype, device=dev)
     Vd = torch.zeros_like(Kd)
-    mask = torch.zeros((R, 1, qmax, smax), dtype=torch.bool, device=dev)
+    mask = torch.zeros((R, 1, qmax, smax + 1), dtype=torch.bool, device=dev)
     mask[..., 0] = True  # pad query slots: keep one key so no row is empty
-    t = 0
-    for r, (p0, w) in enumerate(spec):
+    for i, (r, p0, w, t0) in enumerate(segs):
         n = p0 + w
         pages = s["page_table"][r, : -(-n // page)].long()
         kv = pool[layer, pages].permute(1, 0, 2, 3).reshape(K, -1, 2 * D)[:, :n]
-        Kd[r, :, :n] = kv[..., :D]
-        Vd[r, :, :n] = kv[..., D:]
-        Qd[r, :, :w] = q[t : t + w, 0].transpose(0, 1)
-        mask[r, 0, :w, :n] = (
-            torch.arange(n, device=dev)[None, :]
-            <= torch.arange(p0, p0 + w, device=dev)[:, None]
-        )
-        t += w
+        Kd[i, :, :n] = kv[..., :D]
+        Vd[i, :, :n] = kv[..., D:]
+        Qd[i, :, :w] = q[t0 : t0 + w, 0].transpose(0, 1)
+        key = torch.arange(n, device=dev)[None, :]
+        qpos = torch.arange(p0, p0 + w, device=dev)[:, None]
+        live = key <= qpos
+        if window:
+            live &= key > qpos - window
+        mask[i, 0, :w, :n] = live
     G = H // K
     Kd = Kd.repeat_interleave(G, dim=1)
     Vd = Vd.repeat_interleave(G, dim=1)
-    return cuda_ms(lambda: F.scaled_dot_product_attention(Qd, Kd, Vd, attn_mask=mask))
+    if sinks is None:
+        Kd, Vd, mask = Kd[:, :, :smax], Vd[:, :, :smax], mask[..., :smax]
+        return cuda_ms(lambda: F.scaled_dot_product_attention(Qd, Kd, Vd, attn_mask=mask))
+    # The last key column is the zero key: its score is the bias alone.
+    bias = torch.where(mask, 0.0, float("-inf")).to(q.dtype).expand(R, H, qmax, smax + 1).clone()
+    bias[..., smax] = sinks.to(q.dtype)[None, :, None]
+    del mask
+    return cuda_ms(lambda: F.scaled_dot_product_attention(Qd, Kd, Vd, attn_mask=bias))
 
 
 @contextlib.contextmanager
@@ -418,18 +464,24 @@ def plain_ops(live_pages: int | None = None):
              ops.mla_decode_paged_attention_full, grouped_gemm.grouped_matmul)
 
     def write(kv_cache, layer, k, v, page_table, rows, positions, total):
-        return ops.write_kv_pages_flat_plain(
-            kv_cache, layer, k, v, page_table, rows, positions.reshape(-1), total
+        data, scales = ops._split_cache(kv_cache)
+        ops.write_kv_pages_flat_plain(
+            data, layer, k, v, page_table, rows, positions.reshape(-1), total, scales
         )
+        return kv_cache
 
-    def attend(q, kv_cache, layer, rows, page_table, kv_lens, sm_scale=None):
+    def attend(q, kv_cache, layer, rows, page_table, kv_lens, sm_scale=None,
+               window=0, sinks=None):
+        data, scales = ops._split_cache(kv_cache)
         return ops.flat_paged_attention_plain(
-            q, kv_cache, layer, rows, page_table, kv_lens, sm_scale
+            q, data, layer, rows, page_table, kv_lens, sm_scale, window, sinks, scales
         )
 
-    def decode_attend(q, kv_cache, layer, page_table, kv_lens, sm_scale=None):
+    def decode_attend(q, kv_cache, layer, page_table, kv_lens, sm_scale=None,
+                      window=0, sinks=None, scales=None):
         return ops.decode_paged_attention_plain(
-            q, kv_cache, layer, page_table, kv_lens, sm_scale, live_pages
+            q, kv_cache, layer, page_table, kv_lens, sm_scale, live_pages, window,
+            sinks, scales,
         )
 
     def latent_attend(q_eff, cache, layer, page_table, kv_lens, rank, sm_scale):
@@ -591,39 +643,88 @@ ENGINE_LAYOUTS = {
 }
 
 
-def engine_phase(info: dict, params: dict) -> dict:
+def expected_branches(cfg, flat_forwards: int, q1_forwards: int, int8: bool) -> dict:
+    """Launches per kernel branch (``ops.branch_launch_counts``) of a GQA
+    model's run: every flat forward launches the flat pair once a layer,
+    every bucketed Q = 1 forward the decode pair; layer i's attention takes
+    its window (``cfg.layer_windows``), the sinks and the int8 pool as the
+    model has them."""
+    from llmd_tpu_torch.ops.ragged_paged_attention import branch_key
+
+    want: dict[str, int] = {}
+
+    def add(key: str, n: int) -> None:
+        if n:
+            want[key] = want.get(key, 0) + n
+
+    for w in cfg.layer_windows:
+        key = branch_key(w, True if cfg.attention_sinks else None, True if int8 else None)
+        add(f"flat_paged_attention_full[{key}]", flat_forwards)
+        add(f"decode_paged_attention_full[{key}]", q1_forwards)
+        add(f"write_kv_pages_flat_full[{'int8' if int8 else 'plain'}]", flat_forwards)
+        add(f"write_kv_pages_decode_full[{'int8' if int8 else 'plain'}]", q1_forwards)
+    return want
+
+
+def engine_prompts(cfg) -> list[list[int]]:
+    """The engine phases' 7 distinct prompts, 16-1,500 tokens. 1,500 >
+    max_num_batched_tokens: that prompt prefills in chunks."""
+    gen = torch.Generator().manual_seed(11)
+    lengths = [16, 100, 300, 700, 1500, 64, 900]
+    return [torch.randint(3, cfg.vocab_size, (n,), generator=gen).tolist() for n in lengths]
+
+
+def engine_phase(info: dict, params: dict, model: str = MODEL,
+                 kv_dtype: str = "bfloat16") -> tuple[dict, dict, list]:
     """``LLMEngine`` at full width serving 8 greedy requests in the step
     layout ``info["layout"]`` names: on the flat step; as the split engine
     with fused decode windows of 8; or on the flat step with windows of 8
     (steps that hold a prefill run flat, pure-decode steps run as windows).
-    Returns the launch counts of the run."""
+    Every forward is logged (flat, bucketed Q = 1, or a prefill group):
+    the flat pair must launch once a layer a flat forward, the decode pair
+    once a layer a Q = 1 forward, K6' three times a MoE layer a forward,
+    each in the branches the layer takes (window, sinks, int8 pool). Every
+    decode-window dispatch runs under ``torch.cuda.set_sync_debug_mode
+    ("error")``. Returns (launch counts, branch launch counts, the
+    requests' tokens)."""
     from llmd_tpu_torch import ops
     from llmd_tpu_torch.config import CacheConfig, EngineConfig, SchedulerConfig
     from llmd_tpu_torch.engine import LLMEngine, SamplingParams
+    from llmd_tpu_torch.engine import runner as runner_mod
     from llmd_tpu_torch.models.registry import get_model_config
 
-    cfg = get_model_config(MODEL)
+    cfg = get_model_config(model)
     layout = ENGINE_LAYOUTS[info["layout"]]
     windowed = "decode_window" in layout
     config = EngineConfig(
         model=cfg,
-        cache=CacheConfig(page_size=16, num_blocks=2048, dtype="bfloat16"),
+        cache=CacheConfig(page_size=16, num_blocks=2048, dtype=kv_dtype),
         scheduler=SchedulerConfig(max_num_seqs=64, max_num_batched_tokens=1024, **layout),
         seed=0,
     )
     eng = LLMEngine(config, params=params, device="cuda")
     k_steps: list[int] = []  # iterations of each decode window dispatched
+    forwards: list[str] = []  # "flat", "q1" or "prefill" for every forward
     dispatch = eng.runner.dispatch_staged_decode
+    forward = runner_mod.llama.forward_hidden
 
-    def logged(staged):
+    def logged_forward(p, kv_cache, inp, c):
+        kind = "flat" if inp.token_rows is not None else (
+            "q1" if inp.token_ids.shape[1] == 1 else "prefill")
+        forwards.append(kind)
+        return forward(p, kv_cache, inp, c)
+
+    def strict_dispatch(staged):
         k_steps.append(staged.k)
-        return dispatch(staged)
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            return dispatch(staged)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
 
-    eng.runner.dispatch_staged_decode = logged
-    gen = torch.Generator().manual_seed(11)
-    # 1500 > max_num_batched_tokens: that prompt prefills in chunks.
-    lengths = [16, 100, 300, 700, 1500, 64, 900]
-    prompts = [torch.randint(3, cfg.vocab_size, (n,), generator=gen).tolist() for n in lengths]
+    eng.runner.dispatch_staged_decode = strict_dispatch
+    runner_mod.llama.forward_hidden = logged_forward
+    prompts = engine_prompts(cfg)
     sp = SamplingParams(temperature=0.0, max_tokens=32, ignore_eos=True)
     ops.reset_launch_counts()
     tokens: dict[str, list[int]] = {}
@@ -635,34 +736,38 @@ def engine_phase(info: dict, params: dict) -> dict:
     # committed its pages: its prefill starts from a prefix-cache hit.
     step_log: list[tuple[int, float]] = []  # (live tokens, host ms) per step
     window_ms: list[float] = []  # host ms per token of each pure decode-window step
-    with counting_readbacks() as readbacks:
-        for wave in (prompts, [prompts[3]]):
-            tw = time.perf_counter()
-            for p in wave:
-                tokens[eng.add_request(p, sp)] = []
-            while eng.has_work():
-                live0, ts = eng.runner.live_tokens_total, time.perf_counter()
-                windows0, dispatches0 = len(k_steps), eng.stats.step_dispatches_total
-                # step() ends in the step's one device->host copy, so the
-                # host clock spans the device work.
-                for out in eng.step():
-                    tokens[out.request_id] += out.new_token_ids
-                    ttft.setdefault(out.request_id, time.perf_counter() - tw)
-                    last[out.request_id] = time.perf_counter() - tw
-                    cached[out.request_id] = out.num_cached_tokens
-                ms = (time.perf_counter() - ts) * 1e3
-                step_log.append((eng.runner.live_tokens_total - live0, ms))
-                if len(k_steps) > windows0 and eng.stats.step_dispatches_total == dispatches0 + 1:
-                    window_ms.append(ms / k_steps[-1])
-    torch.cuda.synchronize()
+    try:
+        with counting_readbacks() as readbacks:
+            for wave in (prompts, [prompts[3]]):
+                tw = time.perf_counter()
+                for p in wave:
+                    tokens[eng.add_request(p, sp)] = []
+                while eng.has_work():
+                    live0, ts = eng.runner.live_tokens_total, time.perf_counter()
+                    windows0, dispatches0 = len(k_steps), eng.stats.step_dispatches_total
+                    # step() ends in the step's one device->host copy, so the
+                    # host clock spans the device work.
+                    for out in eng.step():
+                        tokens[out.request_id] += out.new_token_ids
+                        ttft.setdefault(out.request_id, time.perf_counter() - tw)
+                        last[out.request_id] = time.perf_counter() - tw
+                        cached[out.request_id] = out.num_cached_tokens
+                    ms = (time.perf_counter() - ts) * 1e3
+                    step_log.append((eng.runner.live_tokens_total - live0, ms))
+                    if len(k_steps) > windows0 and eng.stats.step_dispatches_total == dispatches0 + 1:
+                        window_ms.append(ms / k_steps[-1])
+        torch.cuda.synchronize()
+    finally:
+        runner_mod.llama.forward_hidden = forward
     wall = time.perf_counter() - t0
     st = eng.stats
     steps = st.engine_steps_total
-    counts = ops.launch_counts()
+    counts, branches = ops.launch_counts(), ops.branch_launch_counts()
     rids = list(tokens)
     # Time per output token of a request: from its first token to its last.
     tpot = [(last[r] - ttft[r]) / (len(tokens[r]) - 1) for r in rids]
     info.update(
+        model=model, kv_cache_dtype=kv_dtype,
         requests=len(rids), steps=steps, wall_s=wall,
         output_tok_per_s=sum(len(t) for t in tokens.values()) / wall,
         ttft_median_s=statistics.median(ttft.values()), ttft_max_s=max(ttft.values()),
@@ -670,7 +775,8 @@ def engine_phase(info: dict, params: dict) -> dict:
         prefix_cached_tokens=cached[rids[-1]], repeat_matches_first=tokens[rids[-1]] == tokens[rids[3]],
         step_dispatches=st.step_dispatches_total, decode_dispatches=st.decode_dispatches_total,
         unified_steps=st.unified_steps_total, readbacks=len(readbacks),
-        launches=counts,
+        forwards={k: forwards.count(k) for k in ("flat", "q1", "prefill")},
+        launches=counts, branch_launches=branches,
     )
     if any(len(t) != 32 for t in tokens.values()):
         raise AssertionError(f"not every request produced 32 tokens: {[len(t) for t in tokens.values()]}")
@@ -679,14 +785,20 @@ def engine_phase(info: dict, params: dict) -> dict:
     if len(readbacks) != steps:
         raise AssertionError(f"{len(readbacks)} device->host copies in {steps} steps")
     L = cfg.num_layers
+    n_moe = L - cfg.first_dense_layers if cfg.is_moe else 0
+    flat_fw, q1_fw = forwards.count("flat"), forwards.count("q1")
     # The flat pair runs once a layer in every flat step, the decode pair
     # once a layer in every iteration of every decode window.
     flat_steps = st.unified_steps_total if eng.runner.flat else 0
-    want = {"write_kv_pages_flat_full": L * flat_steps,
-            "flat_paged_attention_full": L * flat_steps,
-            "write_kv_pages_decode_full": L * sum(k_steps),
-            "decode_paged_attention_full": L * sum(k_steps),
-            "mla_decode_paged_attention_full": 0, "grouped_matmul": 0}
+    if flat_fw != flat_steps or q1_fw != sum(k_steps):
+        raise AssertionError(f"{flat_fw} flat forwards in {flat_steps} flat steps, "
+                             f"{q1_fw} Q = 1 forwards in windows of {sum(k_steps)} iterations")
+    want = {"write_kv_pages_flat_full": L * flat_fw,
+            "flat_paged_attention_full": L * flat_fw,
+            "write_kv_pages_decode_full": L * q1_fw,
+            "decode_paged_attention_full": L * q1_fw,
+            "mla_decode_paged_attention_full": 0,
+            "grouped_matmul": 3 * n_moe * len(forwards)}
     if windowed:
         info.update(decode_windows=len(k_steps), window_iterations=sum(k_steps),
                     windows_of_8=k_steps.count(8),
@@ -709,8 +821,11 @@ def engine_phase(info: dict, params: dict) -> dict:
             raise AssertionError(f"{flat_steps} flat steps, {len(k_steps)} windows in {steps} steps")
     if counts != want:
         raise AssertionError(f"launch counts {counts}, want {want}")
+    want_b = expected_branches(cfg, flat_fw, q1_fw, kv_dtype == "int8")
+    if branches != want_b:
+        raise AssertionError(f"branch launch counts {branches}, want {want_b}")
     del eng
-    return counts
+    return counts, branches, [tokens[r] for r in rids]
 
 
 def layouts_phase(info: dict) -> None:
@@ -1037,13 +1152,18 @@ def bucketed_rows(cfg, page, rows, gen, dev) -> dict:
 
 def cut_layers(params: dict, n: int, dtype) -> dict:
     """The first ``n`` layers of a model (its dense prefix first), cast to
-    ``dtype``: the f32 reference of a model too large to upcast whole."""
-    out = {k: v.to(dtype) for k, v in params.items() if not isinstance(v, dict)}
+    ``dtype`` where that widens or keeps a leaf (f32 leaves such as the
+    sinks and the router bias stay f32): the f32 reference of a model too
+    large to upcast whole."""
+    def cast(v):
+        return v.to(torch.promote_types(v.dtype, dtype))
+
+    out = {k: cast(v) for k, v in params.items() if not isinstance(v, dict)}
     dense = params.get("dense_layers", {})
     n_dense = next(iter(dense.values())).shape[0] if dense else 0
     if dense:
-        out["dense_layers"] = {k: v[: min(n, n_dense)].to(dtype) for k, v in dense.items()}
-    out["layers"] = {k: v[: n - n_dense].to(dtype) for k, v in params["layers"].items()}
+        out["dense_layers"] = {k: cast(v[: min(n, n_dense)]) for k, v in dense.items()}
+    out["layers"] = {k: cast(v[: n - n_dense]) for k, v in params["layers"].items()}
     return out
 
 
@@ -1270,6 +1390,481 @@ def ds_engine_phase(info: dict, params: dict) -> dict:
     return counts
 
 
+def compare_greedy(info: dict, got: list, want: list, gate: bool) -> None:
+    """The int8 pool's greedy tokens beside the bf16 pool's, request by
+    request: the leading tokens both agree on, and the share of all tokens
+    before the first disagreement. Quantizing K|V perturbs the logits, so
+    the streams may part; with ``gate`` the check is that most requests (5
+    of 8) agree on their first 4 tokens, not that they are equal.
+    ``first_token_witness`` shows where a first token parts, and why."""
+    lead = []
+    for a, b in zip(got, want):
+        n = 0
+        while n < min(len(a), len(b)) and a[n] == b[n]:
+            n += 1
+        lead.append(n)
+    info.update(agreeing_leading_tokens=lead,
+                agreeing_share=sum(lead) / sum(len(b) for b in want))
+    if gate and sum(n >= 4 for n in lead) < 5:
+        raise AssertionError(f"int8 pool's greedy tokens part from the bf16 pool's early: {lead}")
+
+
+def first_token_witness(info: dict, params: dict, model: str, engine_int8: list,
+                        engine_bf16: list) -> None:
+    """Each engine prompt's first greedy token from one flat prefill of
+    all 7 prompts, on a bf16 pool through the kernels, and on an int8 pool
+    through the kernels and through the plain versions. The int8 kernels
+    must pick the plain int8 path's token wherever that path's top-1 /
+    top-2 logit gap is wider than the two paths' largest logit difference
+    for that prompt (their summation orders differ, so a narrower gap is a
+    tie). Reports, per prompt, the tokens, the gaps and the bf16 pool's
+    margin over the int8 pool's token: where the int8 pool's first token
+    parts from the bf16 pool's, that margin says how close the bf16 pool
+    was to choosing it."""
+    import itertools
+
+    from llmd_tpu_torch.models import llama
+    from llmd_tpu_torch.models.common import StepInput
+    from llmd_tpu_torch.models.registry import get_model_config
+
+    cfg = get_model_config(model)
+    dev, page = torch.device("cuda"), 16
+    prompts = engine_prompts(cfg)
+    lens = [len(p) for p in prompts]
+    s = mixed_step(cfg, page, -(-cfg.max_model_len // page), [(0, n) for n in lens], [],
+                   torch.Generator().manual_seed(5), dev)
+    ids = torch.zeros(s["T"], dtype=torch.long)
+    ids[: s["total"]] = torch.tensor(sum(prompts, []))
+    inp = StepInput(token_ids=ids[:, None].to(dev), positions=s["positions"][:, None],
+                    kv_lens=s["kv_lens"], page_table=s["page_table"], token_rows=s["rows"],
+                    num_live=s["total"])
+    last = torch.tensor([n - 1 for n in itertools.accumulate(lens)], device=dev)
+    shape = (cfg.num_layers, s["num_pages"], cfg.num_kv_heads, page, 2 * cfg.head_dim)
+
+    def logits(int8: bool, plain: bool) -> torch.Tensor:
+        pool = ((torch.zeros(shape, dtype=torch.int8, device=dev),
+                 torch.ones((*shape[:4], 2), device=dev)) if int8 else
+                torch.zeros(shape, dtype=torch.bfloat16, device=dev))
+        with torch.inference_mode(), plain_ops() if plain else contextlib.nullcontext():
+            h, _ = llama.forward_hidden(params, pool, inp, cfg)
+            return llama.compute_logits(params, h.reshape(-1, h.shape[-1])[last], cfg)
+
+    bf16, int8, int8_plain = logits(False, False), logits(True, False), logits(True, True)
+    tok = {k: v.argmax(-1) for k, v in (("bf16", bf16), ("int8", int8), ("int8_plain", int8_plain))}
+    top2 = int8_plain.topk(2, dim=-1).values
+    gap_plain = top2[:, 0] - top2[:, 1]
+    noise = (int8 - int8_plain).abs().amax(-1)
+    bf16_top2 = bf16.topk(2, dim=-1).values
+    bf16_margin = bf16_top2[:, 0] - bf16.gather(1, tok["int8"][:, None])[:, 0]
+    w = {
+        "prompt_tokens": lens,
+        "first_token_bf16": tok["bf16"].tolist(), "first_token_int8": tok["int8"].tolist(),
+        "first_token_int8_plain": tok["int8_plain"].tolist(),
+        "int8_plain_top2_gap": gap_plain.tolist(), "int8_kernels_vs_plain_max_logit_diff": noise.tolist(),
+        "bf16_top2_gap": (bf16_top2[:, 0] - bf16_top2[:, 1]).tolist(),
+        "bf16_margin_over_int8_token": bf16_margin.tolist(),
+        # The engine chunks the 1,500-token prompt and batches the prompts
+        # otherwise, so its first tokens may differ from this one step's
+        # at a near-tie.
+        "engine_int8_first_equal": [a[0] == b for a, b in zip(engine_int8, tok["int8"].tolist())],
+        "engine_bf16_first_equal": [a[0] == b for a, b in zip(engine_bf16, tok["bf16"].tolist())],
+    }
+    info["first_token_witness"] = w
+    bad = [i for i in range(len(lens))
+           if tok["int8"][i] != tok["int8_plain"][i] and gap_plain[i] > 2 * noise[i]]
+    if bad:
+        raise AssertionError(f"{model}: int8 kernels' first tokens part from the plain int8 path's "
+                             f"at prompts {bad}: {w}")
+
+
+OSS_MODEL = "gpt-oss-20b"
+ATTN_SOURCES = {
+    "flat": ("llmd_tpu_torch/ops/csrc/flat_paged_attention.cu",
+             "llmd_tpu/ops/ragged_paged_attention.py:344"),
+    "decode": ("llmd_tpu_torch/ops/csrc/decode_paged_attention.cu",
+               "llmd_tpu/ops/ragged_paged_attention.py:463"),
+}
+
+
+def attention_branch_case(kind: str, q, data, scales, layer, step, page, window, sinks) -> dict:
+    """One branch of K1' (``kind`` "flat", on a mixed flat step) or K3'
+    ("decode", on a decode batch) held to its plain version within one
+    bf16 ulp (pad rows exactly zero) and timed beside its bound, the plain
+    version and SDPA on the dense gather (the window in the mask, the sink
+    as a zero key whose bias is its logit, an int8 pool dequantized
+    first). The bound counts each row's live, in-window positions once: K|V
+    in the pool's bytes (int8: half of bf16, plus 8 bytes of scales a
+    position and head), q read and the output written."""
+    from llmd_tpu_torch import ops
+    from llmd_tpu_torch.ops.ragged_paged_attention import branch_key
+
+    T, _, H, D = q.shape
+    K = data.shape[2]
+    kw = dict(window=window, sinks=sinks, scales=scales)
+    if kind == "flat":
+        args = (q, data, layer, step["rows"], step["page_table"], step["kv_lens"])
+        kernel = lambda: ops.flat_paged_attention_full(*args, **kw)  # noqa: E731
+        plain = lambda: ops.flat_paged_attention_plain(*args, **kw)  # noqa: E731
+        rows_spec, n_live, dead = step["rows_spec"], step["total"], slice(step["total"], None)
+        plain_reps = 10
+    else:
+        args = (q, data, layer, step["page_table"], step["kv_lens"])
+        kernel = lambda: ops.decode_paged_attention_full(*args, **kw)  # noqa: E731
+        plain = lambda: ops.decode_paged_attention_plain(  # noqa: E731
+            *args, live_pages=step["live_pages"], **kw)
+        rows_spec = [(c - 1, 1) for c in step["ctx"]]
+        n_live, dead = step["n_live"], slice(step["n_live"], None)
+        plain_reps = 5
+    got, want = kernel(), plain()
+    torch.cuda.synchronize()
+    err, bad = outside_one_ulp(got[:n_live], want[:n_live])
+    key = branch_key(window, sinks, scales)
+    if bad:
+        raise AssertionError(f"{kind}_paged_attention[{key}]: max abs err {err} vs plain")
+    if got[dead].any():
+        raise AssertionError(f"{kind}_paged_attention[{key}]: a pad row is not zero")
+    del got, want
+    # Needed positions per row: [first query's window start, last kv_len).
+    positions = flops_pos = 0
+    for p0, w in rows_spec:
+        lo = max(p0 + 1 - window, 0) if window else 0
+        positions += p0 + w - lo
+        flops_pos += sum(p - max(p + 1 - window, 0) + 1 if window else p + 1
+                         for p in range(p0, p0 + w))
+    per_pos = K * 2 * D * data.element_size() + (K * 8 if scales is not None else 0)
+    b_ms, b_by = bound(positions * per_pos + 2 * n_live * H * D * q.element_size(),
+                       4.0 * H * D * flops_pos)
+    pool_f = (data if scales is None else
+              ops.dequantize_pages(data[layer], scales[layer], q.dtype)[None])
+    lay = layer if scales is None else 0
+    spec = {"rows_spec": rows_spec, "page_table": step["page_table"]}
+    lib_ms = _sdpa_yardstick(q[:n_live] if kind == "decode" else q, pool_f, lay, spec, page,
+                             window, sinks, max_q=None if sinks is None else 64)
+    del pool_f
+    source, replaces = ATTN_SOURCES[kind]
+    return {
+        "name": f"{kind}_paged_attention[{key}]", "route": "cuda", "source": source,
+        "replaces": replaces, "max_abs_err": err,
+        "ms": cuda_ms(kernel), "plain_ms": cuda_ms(plain, reps=plain_reps, warmup=1),
+        "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms,
+        "wrapper": f"{kind}_paged_attention_full", "branch": key,
+    }
+
+
+def write_case(kind: str, data, scales, layer, rows_in, step) -> dict:
+    """K2' ("flat") or K4' ("decode") on a float pool (``scales`` None) or
+    an int8 pool: the pool bytes (and the int8 pool's scales) must equal
+    the plain version's exactly (for int8: ``quantize_kv_rows``, the plain
+    store and scatter); timed beside the bound (float rows in, the rows in
+    the pool's type and an int8 row's scale pair out), the plain version
+    and ``index_put_`` of the rows (for int8: the plainly quantized rows
+    and scales, the quantize itself not timed)."""
+    from llmd_tpu_torch import ops
+
+    K = data.shape[2]
+    ref = (data.clone(), None if scales is None else scales.clone())
+    if kind == "flat":
+        k, v = rows_in
+        total = step["total"]
+        args = (layer, k, v, step["page_table"], step["rows"], step["positions"], total)
+        kernel = lambda: ops.write_kv_pages_flat_full(data, *args, scales)  # noqa: E731
+        plain = lambda: ops.write_kv_pages_flat_plain(data, *args, scales)  # noqa: E731
+        ops.write_kv_pages_flat_plain(ref[0], *args, ref[1])
+        pos = step["positions"][:total].long()
+        phys = step["page_table"][step["rows"][:total].long(), pos // data.shape[3]].long()
+        slot = pos % data.shape[3]
+        k_live, v_live = k[:total, 0], v[:total, 0]
+        n, in_bytes = total, 2 * k[:total].numel() * k.element_size()
+        source, replaces = "llmd_tpu_torch/ops/csrc/flat_kv_write.cu", "llmd_tpu/ops/kv_write.py:212"
+    else:
+        kv_new = rows_in
+        args = (kv_new, layer, step["phys"], step["offset"], step["valid"])
+        kernel = lambda: ops.write_kv_pages_decode_full(data, *args, scales)  # noqa: E731
+        plain = lambda: ops.write_kv_pages_decode_plain(data, *args, scales)  # noqa: E731
+        ops.write_kv_pages_decode_plain(ref[0], *args, ref[1])
+        n = step["n_live"]
+        phys, slot = step["phys"][:n].long(), step["offset"][:n].long()
+        D = kv_new.shape[-1] // 2
+        k_live, v_live = kv_new[:n, :, :D], kv_new[:n, :, D:]
+        in_bytes = kv_new[:n].numel() * kv_new.element_size()
+        source, replaces = "llmd_tpu_torch/ops/csrc/decode_kv_write.cu", "llmd_tpu/ops/kv_write.py:298"
+    kernel()
+    torch.cuda.synchronize()
+    key = "plain" if scales is None else "int8"
+    if not (torch.equal(data, ref[0]) and (scales is None or torch.equal(scales, ref[1]))):
+        raise AssertionError(f"{kind}_kv_write[{key}]: pool bytes differ from the plain version")
+    del ref
+    heads = torch.arange(K, device=data.device)
+    idx = (phys[:, None], heads[None, :], slot[:, None])
+    dl = data[layer]
+    if scales is None:
+        kv = torch.cat([k_live, v_live], dim=-1).reshape(n, K, -1)
+        out_bytes = kv.numel() * kv.element_size()
+        library = lambda: dl.index_put_(idx, kv)  # noqa: E731
+    else:
+        k8, v8, srow = ops.quantize_kv_rows(k_live, v_live)
+        kv = torch.cat([k8, v8], dim=-1).reshape(n, K, -1)
+        srow = srow.reshape(n, K, 2)
+        sl = scales[layer]
+        out_bytes = kv.numel() + srow.numel() * 4
+        library = lambda: (dl.index_put_(idx, kv), sl.index_put_(idx, srow))  # noqa: E731
+    b_ms, b_by = bound(in_bytes + out_bytes + 3 * 4 * n, 0.0)
+    return {
+        "name": f"{kind}_kv_write[{key}]", "route": "cuda", "source": source,
+        "replaces": replaces, "max_abs_err": 0.0,
+        "ms": cuda_ms(kernel), "plain_ms": cuda_ms(plain),
+        "bound_ms": b_ms, "bound_by": b_by, "library_ms": cuda_ms(library),
+        "wrapper": f"write_kv_pages_{kind}_full", "branch": key,
+    }
+
+
+def random_int8_pool(shape, g, dev):
+    """An int8 pool (data, f32 scales on the f16 grid) of random rows whose
+    dequantized values are about unit size."""
+    data = torch.randint(-127, 128, shape, generator=g, device=dev, dtype=torch.int8)
+    scales = torch.empty((*shape[:4], 2), device=dev).uniform_(0.004, 0.016, generator=g)
+    return data, scales.half().float()
+
+
+def oss_kernels_phase(info: dict) -> dict:
+    """The window, sink and int8 branches of K1'-K4' on the card, each held
+    to its plain version and timed beside its bound, the plain version and
+    a library call. gpt-oss-20b shapes (H 64, K 8, D 64, page 16, a
+    24-layer pool): K1' on one mixed flat step (3 prefill chunks and 32
+    decode rows at 1k-4k context) and K3' on a decode step (bucket 64: 48
+    live rows at 1k-4k, 16 pad rows), on a sliding layer (window 128 and
+    sinks) and a full layer (sinks), on a bf16 and on an int8 pool, with
+    K2' and K4' on both pools at head_dim 64. llama-3-8b shapes (32-layer
+    pool, head_dim 128): K1', K2', K3' and K4' on an int8 pool."""
+    from llmd_tpu_torch.models.registry import get_model_config
+
+    dev, dt, page = torch.device("cuda"), torch.bfloat16, 16
+    gen = torch.Generator().manual_seed(4040)
+    g = torch.Generator(device=dev).manual_seed(41)
+    out = {}
+    for model, cases in ((OSS_MODEL, ("bf16", "int8")), (MODEL, ("int8",))):
+        cfg = get_model_config(model)
+        L, K, H, D = cfg.num_layers, cfg.num_kv_heads, cfg.num_heads, cfg.head_dim
+        max_pages = -(-cfg.max_model_len // page)
+        decode_ctx = torch.randint(1024, 4097, (32,), generator=gen).tolist()
+        flat = mixed_step(cfg, page, max_pages, [(0, 512), (1024, 256), (2000, 128)],
+                          decode_ctx, gen, dev)
+        dec = decode_batch(cfg, page, 1024, 4096, gen, dev)
+        sinks = (torch.randn((H,), generator=g, device=dev) if cfg.attention_sinks else None)
+        layers = [(0, cfg.layer_windows[0]), (1, cfg.layer_windows[1])] if cfg.sliding_window else [(L // 2, 0)]
+        for pool_kind in cases:
+            for kind, step in (("flat", flat), ("decode", dec)):
+                shape = (L, step["num_pages"], K, page, 2 * D)
+                if pool_kind == "int8":
+                    data, scales = random_int8_pool(shape, g, dev)
+                else:
+                    data, scales = torch.randn(shape, generator=g, device=dev, dtype=dt), None
+                rows = step["T"] if kind == "flat" else step["B"]
+                q = torch.randn((rows, 1, H, D), generator=g, device=dev, dtype=dt)
+                for layer, window in layers:
+                    e = attention_branch_case(kind, q, data, scales, layer, step, page, window, sinks)
+                    e["model"] = model
+                    out[e["name"]] = e
+                # The writes: an int8 pool at both models' shapes, a bf16
+                # pool at gpt-oss-20b's (llama-3-8b's is in the kernels and
+                # decode_kernels phases).
+                if kind == "flat":
+                    rows_in = tuple(torch.randn((step["T"], 1, K, D), generator=g, device=dev,
+                                                dtype=dt) for _ in range(2))
+                else:
+                    rows_in = torch.randn((step["B"], K, 2 * D), generator=g, device=dev, dtype=dt)
+                e = write_case(kind, data, scales, L // 2, rows_in, step)
+                e["model"] = model
+                if model != MODEL:
+                    e["name"] += f"@{model}"
+                out[e["name"]] = e
+                del data, scales, q, rows_in
+                torch.cuda.empty_cache()
+    for name, e in out.items():
+        info[name] = {k: e[k] for k in ("model", "max_abs_err", "ms", "plain_ms", "bound_ms",
+                                        "bound_by", "library_ms")}
+    return out
+
+
+def fill_biases(params: dict, seed: int) -> None:
+    """Small seeded values in the bias leaves the init leaves at zero
+    (q|k|v, o, router, experts), so that their branches do work."""
+    layers = params["layers"]
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    for name in ("bq", "bk", "bv", "bo", "router_bias", "we_gate_b", "we_up_b", "we_down_b"):
+        w = layers[name]
+        w.copy_(torch.randn(w.shape, generator=g, device="cuda", dtype=torch.float32) * 0.02)
+
+
+def oss_forward_phase(info: dict, params: dict) -> None:
+    """gpt-oss-20b at full width: one mixed flat step (K1', K2', K6') and
+    one Q = 1 decode forward (K3', K4', K6') of the 24-layer model through
+    the kernels and the plain versions, each layer in its branches
+    (sliding layers window 128 and sinks, full layers sinks), on a bf16 and
+    on an int8 pool; layer 0's written pool bytes (and scales) must equal
+    the plain version's. An f32 copy
+    of 24 layers does not fit beside the bf16 weights, so the f32
+    reference runs the first 4 layers (2 sliding, 2 full) at full width."""
+    import dataclasses
+
+    from llmd_tpu_torch import ops
+    from llmd_tpu_torch.models import llama
+    from llmd_tpu_torch.models.common import StepInput
+    from llmd_tpu_torch.models.registry import get_model_config
+
+    cfg = get_model_config(OSS_MODEL)
+    dev, page, L = torch.device("cuda"), 16, cfg.num_layers
+    gen = torch.Generator().manual_seed(23)
+    g = torch.Generator(device=dev).manual_seed(29)
+    decode_ctx = torch.randint(200, 1001, (16,), generator=gen).tolist()
+    s = mixed_step(cfg, page, -(-cfg.max_model_len // page), [(0, 300), (600, 200)],
+                   decode_ctx, gen, dev)
+    live = torch.arange(s["T"], device=dev) < s["total"]
+    ids = torch.randint(0, cfg.vocab_size, (s["T"],), generator=g, device=dev)
+    flat_inp = StepInput(token_ids=torch.where(live, ids, 0)[:, None],
+                         positions=s["positions"][:, None], kv_lens=s["kv_lens"],
+                         page_table=s["page_table"], token_rows=s["rows"], num_live=s["total"])
+    d = decode_batch(cfg, page, 128, 640, gen, dev)
+    ids = torch.randint(0, cfg.vocab_size, (d["B"], 1), generator=g, device=dev)
+    decode_inp = StepInput(token_ids=torch.where(d["valid"][:, None] > 0, ids, 0),
+                           positions=d["positions"], kv_lens=d["kv_lens"],
+                           page_table=d["page_table"], query_lens=d["valid"])
+    per_forward = 3 * L  # K6': gate, up and down in every MoE layer
+    steps = {
+        # name: (input, pool pages, live slots, launches per forward, gather bound)
+        "flat": (flat_inp, s["num_pages"], live,
+                 {"write_kv_pages_flat_full": L, "flat_paged_attention_full": L,
+                  "grouped_matmul": per_forward}, None, (1, 0)),
+        "decode": (decode_inp, d["num_pages"], torch.arange(d["B"], device=dev) < d["n_live"],
+                   {"write_kv_pages_decode_full": L, "decode_paged_attention_full": L,
+                    "grouped_matmul": per_forward}, d["live_pages"], (0, 1)),
+    }
+    cut = 4
+    cfg4 = dataclasses.replace(cfg, num_layers=cut, layer_types=cfg.layer_types[:cut])
+    params4 = cut_layers(params, cut, torch.bfloat16)
+    params4_32 = cut_layers(params, cut, torch.float32)
+
+    def rel(a: torch.Tensor, b: torch.Tensor) -> float:
+        return ((a - b).norm() / b.norm()).item()
+
+    def cut_pool(pool, n: int | None = None, f32: bool = False):
+        """A fresh copy of the pool's first ``n`` layers (all if None); a
+        bf16 pool upcast to f32 with ``f32``. The int8 pair stays int8."""
+        if isinstance(pool, tuple):
+            return tuple(t[:n].clone() for t in pool)
+        return pool[:n].float() if f32 else pool[:n].clone()
+
+    def layer0(pool) -> tuple:
+        return tuple(t[0].clone() for t in pool) if isinstance(pool, tuple) else (pool[0].clone(),)
+
+    for name, (inp, num_pages, live_slots, per_fw, live_pages, (nf, nq)) in steps.items():
+        shape = (L, num_pages, cfg.num_kv_heads, page, 2 * cfg.head_dim)
+        for int8 in (False, True):
+            pool = (random_int8_pool(shape, g, dev) if int8 else
+                    torch.randn(shape, generator=g, device=dev, dtype=torch.bfloat16))
+
+            def run(prm, c, work, plain):
+                """One forward writing into ``work``; returns the live
+                hidden states in f32 and the written pool."""
+                ctx = plain_ops(live_pages) if plain else contextlib.nullcontext()
+                with torch.inference_mode(), ctx:
+                    h, _ = llama.forward_hidden(prm, work, inp, c)
+                return h.reshape(-1, h.shape[-1])[live_slots].float(), work
+
+            ops.reset_launch_counts()
+            h_k, work = run(params, cfg, cut_pool(pool), plain=False)
+            counts, branches = ops.launch_counts(), ops.branch_launch_counts()
+            pool0_k = layer0(work)
+            h_p, work = run(params, cfg, cut_pool(pool), plain=True)
+            pool0_p = layer0(work)
+            del work
+            want = {fn: per_fw.get(fn, 0) for fn in counts}
+            if counts != want:
+                raise AssertionError(f"gpt-oss {name} forward launched {counts}, want {want}")
+            want_b = expected_branches(cfg, nf, nq, int8)
+            if branches != want_b:
+                raise AssertionError(f"gpt-oss {name} forward branches {branches}, want {want_b}")
+            h4_k, _ = run(params4, cfg4, cut_pool(pool, cut), plain=False)
+            h4_p, _ = run(params4, cfg4, cut_pool(pool, cut), plain=True)
+            h4_k32, w4_k = run(params4_32, cfg4, cut_pool(pool, cut, f32=True), plain=False)
+            h4_ref, w4_p = run(params4_32, cfg4, cut_pool(pool, cut, f32=True), plain=True)
+            with torch.inference_mode():
+                fwd_ms = cuda_ms(lambda: llama.forward_hidden(params, pool, inp, cfg), reps=3, warmup=1)
+                with plain_ops(live_pages):
+                    fwd_plain_ms = cuda_ms(
+                        lambda: llama.forward_hidden(params, pool, inp, cfg), reps=1, warmup=1)
+            torch.cuda.synchronize()
+            r = {
+                "kv_cache_dtype": "int8" if int8 else "bfloat16",
+                "rows": inp.token_ids.shape[0], "live_tokens": int(live_slots.sum().item()),
+                "layers": L, "launches": counts, "branch_launches": branches,
+                "layer0_pool_equal": all(torch.equal(a, b) for a, b in zip(pool0_k, pool0_p)),
+                "bf16_rel_err_24_layers": rel(h_k, h_p),
+                "f32_rel_err_4_layers": rel(h4_k32, h4_ref),
+                "bf16_kernels_vs_f32_4_layers": rel(h4_k, h4_ref),
+                "bf16_plain_vs_f32_4_layers": rel(h4_p, h4_ref),
+                "step_ms": fwd_ms, "step_plain_ms": fwd_plain_ms,
+            }
+            tag = f"{name}_int8" if int8 else name
+            info[tag] = r
+            if int8:
+                # The 4-layer f32 runs on the int8 pool: how far their
+                # written int8 rows and scales, and each token's hidden
+                # state, are apart.
+                step = (w4_k[0].int() - w4_p[0].int()).abs().flatten(1)
+                tok = (h4_k32 - h4_ref).norm(dim=-1) / h4_ref.norm(dim=-1)
+                r.update(
+                    f32_int8_written_elements_per_layer=(
+                        r["live_tokens"] * cfg.num_kv_heads * 2 * cfg.head_dim),
+                    f32_int8_elements_differing_per_layer=(step > 0).sum(1).tolist(),
+                    f32_int8_max_step_per_layer=step.amax(1).tolist(),
+                    f32_scales_differing_per_layer=(w4_k[1] != w4_p[1]).flatten(1).sum(1).tolist(),
+                    f32_token_rel_err_median=tok.median().item(),
+                    f32_token_rel_err_max=tok.max().item(),
+                    f32_tokens_over_1e_3=int((tok > 1e-3).sum().item()),
+                )
+            del w4_k, w4_p
+            if not all(torch.isfinite(h).all() for h in (h_k, h_p, h4_k, h4_p, h4_k32, h4_ref)):
+                raise AssertionError(f"gpt-oss {tag} forward: non-finite hidden states")
+            # Layer 0 writes K|V computed from the same inputs on both paths:
+            # the kernel's pool bytes (and an int8 pool's scales) must equal
+            # the plain version's.
+            if not r["layer0_pool_equal"]:
+                raise AssertionError(f"gpt-oss {tag} forward: layer-0 pool bytes differ between the paths")
+            # f32: the paths differ in summation order only (attention, the
+            # expert products, the combine), about 1e-6 relative per layer.
+            # On the int8 pool that difference moves a value across a
+            # rounding boundary now and then from layer 1 on: the element is
+            # stored one quantization step (1/127 of its row's amax) apart,
+            # every later token of the row attends to it, and a token whose
+            # router sat at a near-tie picks another expert, so the hidden
+            # states part by more each layer (reported, not gated). What
+            # holds the kernels to plain there: layer 0's rows and scales
+            # are equal, and layer 1's rows, computed from layer 0's int8
+            # attention, differ only by such flips: one step, in at most a
+            # thousandth of the elements.
+            if int8:
+                steps = r["f32_int8_max_step_per_layer"]
+                flips = r["f32_int8_elements_differing_per_layer"][1]
+                if (steps[0] != 0 or r["f32_scales_differing_per_layer"][0] or steps[1] > 1
+                        or flips > 1e-3 * r["f32_int8_written_elements_per_layer"]):
+                    raise AssertionError(
+                        f"gpt-oss {tag} forward: written int8 rows of layers 0/1 differ by "
+                        f"{steps[:2]} quantization steps in {flips} elements of layer 1")
+            elif r["f32_rel_err_4_layers"] > 1e-3:
+                raise AssertionError(f"gpt-oss {tag} forward: f32 relative error {r['f32_rel_err_4_layers']}")
+            # bf16: the kernels' run may be no further from the f32 run than
+            # 1.5 times the plain run's distance.
+            if r["bf16_kernels_vs_f32_4_layers"] > 1.5 * r["bf16_plain_vs_f32_4_layers"]:
+                raise AssertionError(
+                    f"gpt-oss {tag} forward: bf16 kernels {r['bf16_kernels_vs_f32_4_layers']} from f32, "
+                    f"plain {r['bf16_plain_vs_f32_4_layers']} (limit 1.5x)")
+            del pool, pool0_k, pool0_p, h_k, h_p, h4_k, h4_p, h4_k32, h4_ref
+            torch.cuda.empty_cache()
+    del params4, params4_32
+    torch.cuda.empty_cache()
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false", file=sys.stderr)
@@ -1300,6 +1895,10 @@ def main() -> int:
         table.update(decode_kernels_phase(info))
     gc.collect()
     torch.cuda.empty_cache()
+    with phase("oss_kernels", {}) as info:
+        table.update(oss_kernels_phase(info))
+    gc.collect()
+    torch.cuda.empty_cache()
     with phase("forward", {}) as info:
         cfg = get_model_config(MODEL)
         gen = torch.Generator(device="cuda").manual_seed(0)
@@ -1308,11 +1907,15 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     with phase("engine", {"layout": "flat step"}) as info:
-        flat_counts = engine_phase(info, params)
+        flat_counts, _, _ = engine_phase(info, params)
     with phase("engine", {"layout": "split engine, decode_window 8"}) as info:
-        window_counts = engine_phase(info, params)
+        window_counts, _, _ = engine_phase(info, params)
     with phase("engine", {"layout": "flat step, decode_window 8"}) as info:
-        engine_phase(info, params)
+        _, _, bf16_tokens = engine_phase(info, params)
+    with phase("engine", {"layout": "flat step, decode_window 8", "kv_cache_dtype": "int8"}) as info:
+        _, int8_branches, int8_tokens = engine_phase(info, params, kv_dtype="int8")
+        compare_greedy(info, int8_tokens, bf16_tokens, gate=True)
+        first_token_witness(info, params, MODEL, int8_tokens, bf16_tokens)
     del params
     gc.collect()
     torch.cuda.empty_cache()
@@ -1338,24 +1941,66 @@ def main() -> int:
     del params
     gc.collect()
     torch.cuda.empty_cache()
+    with phase("forward", {"model": OSS_MODEL}) as info:
+        oss_cfg = get_model_config(OSS_MODEL)
+        gen = torch.Generator(device="cuda").manual_seed(0)
+        params = llama.fuse_projections(llama.init_params(oss_cfg, gen, "cuda"))
+        fill_biases(params, seed=3)
+        oss_forward_phase(info, params)
+    gc.collect()
+    torch.cuda.empty_cache()
+    oss_runs, oss_tokens = {}, {}
+    for layout, kv_dtype in (("flat step", "bfloat16"), ("split engine, decode_window 8", "bfloat16"),
+                             ("flat step, decode_window 8", "int8")):
+        with phase("engine", {"model": OSS_MODEL, "layout": layout, "kv_cache_dtype": kv_dtype}) as info:
+            _, oss_runs[layout], oss_tokens[layout] = engine_phase(info, params, OSS_MODEL, kv_dtype)
+            if kv_dtype == "int8":
+                # Reported, not gated: the witness below is the check.
+                compare_greedy(info, oss_tokens[layout], oss_tokens["flat step"], gate=False)
+                first_token_witness(info, params, OSS_MODEL, oss_tokens[layout],
+                                    oss_tokens["flat step"])
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
     with phase("serve", {"layout": "flat step"}) as info:
         serve_phase(info, [])
     with phase("serve", {"layout": "split engine, decode_window 4"}) as info:
         serve_phase(info, ["--no-unified-step", "--decode-window", "4"])
     with phase("serve", {"model": DS_MODEL, "layout": "default (bucketed unified step)"}) as info:
         serve_phase(info, [], DS_MODEL)
-    # Each kernel's launches come from the engine run that is its main path.
-    emit({"kernels": [
-        {**table[name], "launches": counts[fn]}
-        for name, fn, counts in (
-            ("flat_kv_write", "write_kv_pages_flat_full", flat_counts),
-            ("flat_paged_attention", "flat_paged_attention_full", flat_counts),
-            ("decode_kv_write", "write_kv_pages_decode_full", window_counts),
-            ("decode_paged_attention", "decode_paged_attention_full", window_counts),
-            ("mla_decode_attention", "mla_decode_paged_attention_full", ds_counts),
-            ("grouped_gemm", "grouped_matmul", ds_counts),
-        )
-    ]})
+    with phase("serve", {"model": OSS_MODEL, "layout": "flat step"}) as info:
+        serve_phase(info, [], OSS_MODEL)
+    with phase("serve", {"layout": "flat step", "kv_cache_dtype": "int8"}) as info:
+        serve_phase(info, ["--kv-cache-dtype", "int8"])
+    # Each kernel's launches come from the engine run that is its main path:
+    # the plain branches from llama-3-8b's flat and split-window runs, the
+    # window and sink branches from gpt-oss-20b's, the int8 branches from
+    # the int8-pool runs, K5' and K6' from deepseek-v2-lite's.
+    main_path = {
+        "flat_kv_write": ("write_kv_pages_flat_full", flat_counts),
+        "flat_paged_attention": ("flat_paged_attention_full", flat_counts),
+        "decode_kv_write": ("write_kv_pages_decode_full", window_counts),
+        "decode_paged_attention": ("decode_paged_attention_full", window_counts),
+        "mla_decode_attention": ("mla_decode_paged_attention_full", ds_counts),
+        "grouped_gemm": ("grouped_matmul", ds_counts),
+    }
+    rows = []
+    for name, entry in table.items():
+        if name in main_path:
+            fn, counts = main_path[name]
+            launches = counts[fn]
+        else:
+            branch = entry["branch"]
+            runs = (int8_branches if entry["model"] == MODEL else
+                    oss_runs["flat step, decode_window 8"] if branch.startswith("int8") else
+                    oss_runs["flat step" if entry["wrapper"].startswith(("flat", "write_kv_pages_flat"))
+                             else "split engine, decode_window 8"])
+            launches = runs.get(f"{entry['wrapper']}[{branch}]", 0)
+            if launches == 0:
+                raise AssertionError(f"{name} never launched on its main path")
+        rows.append({**{k: v for k, v in entry.items() if k not in ("model", "wrapper", "branch")},
+                     "launches": launches})
+    emit({"kernels": rows})
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                  "count": torch.cuda.device_count()}})
     return 0

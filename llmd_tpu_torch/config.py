@@ -14,12 +14,9 @@ from typing import Any
 @dataclasses.dataclass
 class ModelConfig:
     """Architecture hyperparameters of a Llama-class decoder: dense, MoE
-    (``num_experts > 0``) and MLA (``kv_lora_rank > 0``, DeepSeek V2/V3).
-
-    The gpt-oss expert fields of the JAX config (``moe_activation``,
-    ``router_logit_bias``, ``swiglu_limit``) are not fields here: they come
-    with sinks and sliding windows, which the port does not run yet, so
-    passing them raises ``TypeError``."""
+    (``num_experts > 0``), MLA (``kv_lora_rank > 0``, DeepSeek V2/V3) and
+    gpt-oss (sliding windows, attention sinks, biased clamped-SwiGLU
+    experts)."""
 
     name: str = "llama"
     vocab_size: int = 32000
@@ -29,15 +26,30 @@ class ModelConfig:
     num_heads: int = 32
     num_kv_heads: int = 8
     head_dim: int | None = None  # defaults to hidden_size // num_heads
-    rope_theta: float = 500000.0  # default (unscaled) rope only
+    rope_theta: float = 500000.0
+    # HF-style rope_scaling dict (rope_type: default | linear | llama3 |
+    # yarn); None is the unscaled rope.
+    rope_scaling: dict | None = None
     rms_norm_eps: float = 1e-5
     max_model_len: int = 8192
     dtype: str = "bfloat16"
     tie_word_embeddings: bool = False
     # Qwen2-style attention bias on QKV projections.
     attention_bias: bool = False
+    # gpt-oss: a bias on the o projection too, and per-q-head attention
+    # sinks (a learned logit of one extra key whose value is zero).
+    attention_out_bias: bool = False
+    attention_sinks: bool = False
     # Qwen3-style per-head RMS norm on Q and K (applied before RoPE).
     qk_norm: bool = False
+    # Sliding-window attention: sliding_window > 0 limits a layer to the
+    # trailing N positions. Which layers slide follows the HF conventions:
+    # layer_types names each layer "sliding_attention" or "full_attention"
+    # (gpt-oss); else max_window_layers >= 0 slides the layers from it up
+    # (Qwen2); else every layer slides (Mistral).
+    sliding_window: int = 0
+    layer_types: tuple | None = None
+    max_window_layers: int | None = None
     # --- MoE (0 experts => dense MLP) ---
     num_experts: int = 0
     num_experts_per_tok: int = 2
@@ -46,6 +58,14 @@ class ModelConfig:
     # top-k (DeepSeek-V2 max per group, V3 top-2 sum per group).
     router_scoring: str = "softmax"  # "softmax" | "sigmoid"
     topk_method: str = "greedy"  # "greedy" | "group_max" | "group_top2"
+    # gpt-oss: the router bias is part of the logits (selection and weights
+    # both), unlike V3's selection-only correction bias.
+    router_logit_bias: bool = False
+    # Expert GLU: "silu" (Mixtral, Qwen, DeepSeek) or "swiglu_oss" (gpt-oss:
+    # biased gate/up, gate clamped above at swiglu_limit, up to
+    # [-limit, limit], out = (up + 1) * gate * sigmoid(1.702 * gate)).
+    moe_activation: str = "silu"
+    swiglu_limit: float = 7.0
     norm_topk_prob: bool = True
     routed_scaling_factor: float = 1.0
     n_group: int = 1
@@ -74,11 +94,42 @@ class ModelConfig:
                 f"num_heads={self.num_heads} is not a multiple of "
                 f"num_kv_heads={self.num_kv_heads}"
             )
+        if self.layer_types is not None:
+            self.layer_types = tuple(self.layer_types)
+            if len(self.layer_types) != self.num_layers:
+                raise ValueError(
+                    f"layer_types has {len(self.layer_types)} entries for "
+                    f"{self.num_layers} layers"
+                )
+        if self.sliding_window > 0 and self.kv_lora_rank > 0:
+            raise ValueError(
+                "sliding_window is not supported with MLA (no known MLA "
+                "architecture slides; the latent path would attend past the "
+                "window)"
+            )
         if self.kv_lora_rank > 0 and self.attention_bias:
             raise ValueError(
                 "attention_bias is not supported with MLA (kv_lora_rank > 0): "
                 "no known MLA architecture uses QKV biases"
             )
+
+    def window_for_layer(self, i: int) -> int:
+        """Attention window of layer ``i`` (0 = full attention)."""
+        if self.sliding_window <= 0:
+            return 0
+        if self.layer_types is not None:
+            return (
+                self.sliding_window
+                if self.layer_types[i] == "sliding_attention"
+                else 0
+            )
+        if self.max_window_layers is not None:
+            return self.sliding_window if i >= self.max_window_layers else 0
+        return self.sliding_window
+
+    @property
+    def layer_windows(self) -> tuple[int, ...]:
+        return tuple(self.window_for_layer(i) for i in range(self.num_layers))
 
     @property
     def is_moe(self) -> bool:
@@ -112,12 +163,21 @@ class ModelConfig:
 class CacheConfig:
     """Paged KV cache geometry: ``num_blocks`` pages of ``page_size`` tokens
     in one pool ``[L, num_blocks, K, page_size, 2D]`` (MLA:
-    ``[L, num_blocks, 1, page_size, Dl]``, see ``ModelConfig``)."""
+    ``[L, num_blocks, 1, page_size, Dl]``, see ``ModelConfig``).
+
+    ``dtype="int8"`` is the quantized pool (``ops/quant_kv.py``): the pool
+    is a pair (int8 data of that shape, f32 scales ``[L, num_blocks, K,
+    page_size, 2]``, one per row and K|V half, valued on the f16 grid).
+    It halves the bytes a decode step reads; MLA pools refuse it."""
 
     page_size: int = 16
     num_blocks: int = 512
     dtype: str = "bfloat16"
     enable_prefix_caching: bool = True
+
+    @property
+    def quantized(self) -> bool:
+        return self.dtype == "int8"
 
     def max_pages_per_seq(self, max_model_len: int) -> int:
         return math.ceil(max_model_len / self.page_size)

@@ -179,19 +179,7 @@ class ModelRunner:
             params = _to_device(params, self.device)
         # JAX's ``_maybe_fuse`` leaves MLA's projections unfused.
         self.params = params if self.cfg.is_mla else llama.fuse_projections(params)
-        # [L, pages, K, page, 2D]: the K|V halves side by side on the last
-        # axis; MLA: [L, pages, 1, page, Dl], one latent row per token.
-        self.kv_cache = torch.zeros(
-            (
-                self.cfg.num_layers,
-                config.cache.num_blocks,
-                self.cfg.kv_cache_heads,
-                self.page,
-                self.cfg.kv_cache_entry_dim,
-            ),
-            dtype=getattr(torch, config.cache.dtype),
-            device=self.device,
-        )
+        self.kv_cache = self._alloc_pool()
         sched = config.scheduler
         self.batch_buckets = sched.decode_batch_buckets or _buckets(sched.max_num_seqs)
         self.prefill_buckets = sched.prefill_token_buckets or _buckets(
@@ -219,6 +207,28 @@ class ModelRunner:
         # Padding accounting: live tokens and the pads the shapes added.
         self.live_tokens_total = 0
         self.padded_tokens_total = 0
+
+    def _alloc_pool(self):
+        """The KV pool: [L, pages, K, page, 2D], the K|V halves side by side
+        on the last axis (MLA: [L, pages, 1, page, Dl], one latent row per
+        token); for ``CacheConfig.dtype="int8"`` the pair (int8 data of that
+        shape in zeros, f32 scales [L, pages, K, page, 2] in ones), as the
+        JAX runner allocates it (``ops/quant_kv.py``)."""
+        c = self.config.cache
+        shape = (
+            self.cfg.num_layers, c.num_blocks, self.cfg.kv_cache_heads,
+            self.page, self.cfg.kv_cache_entry_dim,
+        )
+        if c.quantized and self.cfg.is_mla:
+            # Latent rows need their own scale layout; the K|V midpoint
+            # split is wrong for them: refuse, as the JAX runner does.
+            raise ValueError("kv cache dtype 'int8' is not supported for MLA models")
+        if c.quantized:
+            return (
+                torch.zeros(shape, dtype=torch.int8, device=self.device),
+                torch.ones((*shape[:4], 2), dtype=torch.float32, device=self.device),
+            )
+        return torch.zeros(shape, dtype=getattr(torch, c.dtype), device=self.device)
 
     # ------------------------------------------------------------------ #
     # host-side input prep

@@ -3,6 +3,7 @@
 from __future__ import annotations
 
 import dataclasses
+import math
 
 import torch
 
@@ -56,17 +57,88 @@ def rms_norm(x: torch.Tensor, weight: torch.Tensor, eps: float) -> torch.Tensor:
     return (xf * torch.rsqrt(var + eps)).to(dtype) * weight
 
 
-def rope_tables(
-    positions: torch.Tensor, head_dim: int, theta: float
-) -> tuple[torch.Tensor, torch.Tensor]:
-    """cos/sin tables for rotary embedding: [..., head_dim // 2], f32.
+def rope_type(scaling: dict | None) -> str:
+    if not scaling:
+        return "default"
+    return scaling.get("rope_type") or scaling.get("type") or "default"
 
-    The default (unscaled) rope, which the models of this slice use."""
+
+def _yarn_mscale(scale: float, mscale: float = 1.0) -> float:
+    if scale <= 1.0:
+        return 1.0
+    return 0.1 * mscale * math.log(scale) + 1.0
+
+
+def _inv_freq_and_factor(
+    head_dim: int, theta: float, scaling: dict | None, device=None
+) -> tuple[torch.Tensor, float]:
+    """Inverse frequencies and the cos/sin post-factor of an HF
+    ``rope_scaling``, as the JAX package computes them.
+
+    linear: every frequency divided by ``factor``. llama3 (Llama-3.1+):
+    low-frequency bands divided by ``factor``, high ones kept, a smooth
+    interpolation between. yarn (gpt-oss, DeepSeek, long-context Qwen):
+    NTK-by-parts interpolation with a linear ramp between the beta_fast and
+    beta_slow correction dimensions, and an attention factor on cos/sin."""
     half = head_dim // 2
-    exponent = torch.arange(half, dtype=torch.float32, device=positions.device) / half
-    inv_freq = 1.0 / (theta ** exponent)
+    idx = torch.arange(half, dtype=torch.float32, device=device)
+    inv_freq = 1.0 / (theta ** (idx / half))
+    rt = rope_type(scaling)
+    if rt == "default":
+        return inv_freq, 1.0
+    factor = float(scaling["factor"])
+    if rt == "linear":
+        return inv_freq / factor, 1.0
+    if rt == "llama3":
+        low = float(scaling["low_freq_factor"])
+        high = float(scaling["high_freq_factor"])
+        orig = float(scaling["original_max_position_embeddings"])
+        wavelen = 2.0 * math.pi / inv_freq
+        scaled = torch.where(wavelen > orig / low, inv_freq / factor, inv_freq)
+        smooth = (orig / wavelen - low) / (high - low)
+        smoothed = (1.0 - smooth) / factor * inv_freq + smooth * inv_freq
+        is_medium = (wavelen >= orig / high) & (wavelen <= orig / low)
+        return torch.where(is_medium, smoothed, scaled), 1.0
+    if rt == "yarn":
+        orig = float(scaling.get("original_max_position_embeddings") or 0.0) or None
+        if orig is None:
+            raise ValueError("yarn rope_scaling needs original_max_position_embeddings")
+        attention_factor = scaling.get("attention_factor")
+        if attention_factor is None:
+            mscale = scaling.get("mscale")
+            m_all = scaling.get("mscale_all_dim")
+            if mscale and m_all:
+                attention_factor = _yarn_mscale(factor, float(mscale)) / _yarn_mscale(
+                    factor, float(m_all)
+                )
+            else:
+                attention_factor = _yarn_mscale(factor)
+        beta_fast = float(scaling.get("beta_fast") or 32)
+        beta_slow = float(scaling.get("beta_slow") or 1)
+
+        def correction_dim(rot: float) -> float:
+            return (head_dim * math.log(orig / (rot * 2 * math.pi))) / (2 * math.log(theta))
+
+        low = max(math.floor(correction_dim(beta_fast)), 0)
+        high = min(math.ceil(correction_dim(beta_slow)), head_dim - 1)
+        ramp = ((idx - low) / max(high - low, 1e-3)).clamp(0.0, 1.0)
+        inv_freq = inv_freq / factor * ramp + inv_freq * (1.0 - ramp)
+        return inv_freq, float(attention_factor)
+    raise NotImplementedError(f"rope_scaling type {rt!r} not supported")
+
+
+def rope_tables(
+    positions: torch.Tensor, head_dim: int, theta: float,
+    scaling: dict | None = None,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """cos/sin tables for rotary embedding: [..., head_dim // 2], f32, with
+    the ``rope_scaling`` of ``_inv_freq_and_factor``."""
+    inv_freq, factor = _inv_freq_and_factor(head_dim, theta, scaling, positions.device)
     angles = positions.float()[..., None] * inv_freq
-    return torch.cos(angles), torch.sin(angles)
+    cos, sin = torch.cos(angles), torch.sin(angles)
+    if factor != 1.0:
+        cos, sin = cos * factor, sin * factor
+    return cos, sin
 
 
 def apply_rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -> torch.Tensor:

@@ -3,7 +3,8 @@ layout.
 
 The port of ``llmd_tpu/models/llama.py``: stacked ``[L, ...]`` weights with
 ``x @ W`` projections (the JAX leaf names, so a parameter tree carries over
-by copy), fused or unfused q|k|v and gate|up, optional QKV bias, Qwen3
+by copy), fused or unfused q|k|v and gate|up, optional QKV and o biases,
+attention sinks, per-layer sliding windows (``cfg.layer_windows``), Qwen3
 QK-norm and tied or untied ``lm_head``. MoE layers run
 ``models.moe.moe_block_grouped`` (the grouped GEMM kernel); MLA layers run
 ``models.mla`` on a latent pool (bucketed layout only, as in JAX); a
@@ -36,9 +37,10 @@ def init_params(
     """Seeded random weights, drawn on ``device`` (``generator`` must live
     there too): drawing billions of normals on the host would take minutes.
     Same tree and scales as the JAX ``init_params`` (fan-in scaling, embed
-    0.02, router ``H ** -0.5``, unit norms, zero biases); the values differ,
-    as the generators do. Stacked leaves are drawn one layer at a time in
-    the working dtype: one deepseek-v2-lite layer's ``we_gate`` is 369 MB."""
+    0.02, router ``H ** -0.5``, sinks 1.0, unit norms, zero biases); the
+    values differ, as the generators do. Stacked leaves are drawn one layer
+    at a time in the working dtype: one deepseek-v2-lite layer's
+    ``we_gate`` is 369 MB."""
     dt = getattr(torch, cfg.dtype)
     H, D = cfg.hidden_size, cfg.head_dim
     Nq, K, L = cfg.num_heads, cfg.num_kv_heads, cfg.num_layers
@@ -84,18 +86,27 @@ def init_params(
         if cfg.attention_bias:
             for name, width in (("bq", Nq * D), ("bk", K * D), ("bv", K * D)):
                 layers[name] = const((width,), 0.0)
+        if cfg.attention_out_bias:
+            layers["bo"] = const((H,), 0.0)
+        if cfg.attention_sinks:
+            layers["sinks"] = stacked((Nq,), 1.0)
         if cfg.qk_norm:
             layers["attn_q_norm"] = const((D,), 1.0)
             layers["attn_k_norm"] = const((D,), 1.0)
         if moe:
             E, Fm = cfg.num_experts, cfg.moe_intermediate_size
             layers["router"] = stacked((H, E), H**-0.5)
-            if cfg.router_scoring == "sigmoid":
-                # V3's selection-only correction bias (noaux_tc).
+            if cfg.router_scoring == "sigmoid" or cfg.router_logit_bias:
+                # V3's selection-only correction bias (noaux_tc), or
+                # gpt-oss's logit bias.
                 layers["router_bias"] = const((E,), 0.0, torch.float32)
             layers["we_gate"] = stacked((E, H, Fm))
             layers["we_up"] = stacked((E, H, Fm))
             layers["we_down"] = stacked((E, Fm, H))
+            if cfg.moe_activation == "swiglu_oss":
+                layers["we_gate_b"] = const((E, Fm), 0.0)
+                layers["we_up_b"] = const((E, Fm), 0.0)
+                layers["we_down_b"] = const((E, H), 0.0)
             if cfg.shared_expert_intermediate_size:
                 Fs = cfg.shared_expert_intermediate_size
                 layers["ws_gate"] = stacked((H, Fs))
@@ -126,7 +137,10 @@ def fuse_projections(params: dict) -> dict:
     """q|k|v -> ``wqkv`` and gate|up -> ``w_gu`` in ``layers`` and
     ``dense_layers`` (the JAX runner's ``_fuse_projection_tree``): one
     matmul where there were three or two. Exact: each output column is the
-    same dot product. The runner skips it for MLA, as JAX does."""
+    same dot product. The biases ``bq``, ``bk``, ``bv`` stay separate
+    leaves, as in JAX. The ``sinks`` leaf becomes f32 once here, the type
+    the attention kernels read, rather than on every attention call. The
+    runner skips it for MLA, as JAX does."""
     out = dict(params)
     for key in ("layers", "dense_layers"):
         if key not in out:
@@ -135,6 +149,8 @@ def fuse_projections(params: dict) -> dict:
         for names, fused in ((("wq", "wk", "wv"), "wqkv"), (("w_gate", "w_up"), "w_gu")):
             if all(n in layers for n in names):
                 layers[fused] = torch.cat([layers.pop(n) for n in names], dim=-1)
+        if "sinks" in layers:
+            layers["sinks"] = layers["sinks"].float()
         out[key] = layers
     return out
 
@@ -168,8 +184,8 @@ def _mlp(h: torch.Tensor, lp: dict) -> torch.Tensor:
 
 def _write_attend(inp: StepInput, page: int):
     """The layout's (write, attend) pair: ``write(kv_cache, layer, k, v)``
-    and ``attend(q, kv_cache, layer, sm_scale)``, over what the step fixes
-    for every layer."""
+    and ``attend(q, kv_cache, layer, sm_scale, window, sinks)``, over what
+    the step fixes for every layer."""
     if inp.token_rows is not None:
 
         def write(kv_cache, layer, k, v):
@@ -178,10 +194,10 @@ def _write_attend(inp: StepInput, page: int):
                 inp.positions, inp.num_live,
             )
 
-        def attend(q, kv_cache, layer, sm_scale):
+        def attend(q, kv_cache, layer, sm_scale, window, sinks):
             return ops.paged_attention_full_flat(
                 q, kv_cache, layer, inp.token_rows, inp.page_table,
-                inp.kv_lens, sm_scale,
+                inp.kv_lens, sm_scale, window, sinks,
             )
 
         return write, attend
@@ -196,41 +212,46 @@ def _write_attend(inp: StepInput, page: int):
             kv_cache, layer, k, v, inp.page_table, inp.positions, valid, prep
         )
 
-    def attend(q, kv_cache, layer, sm_scale):
+    def attend(q, kv_cache, layer, sm_scale, window, sinks):
         return ops.paged_attention_full(
             q, kv_cache, layer, inp.page_table, inp.kv_lens, inp.positions,
-            sm_scale, inp.live_pages,
+            sm_scale, inp.live_pages, window, sinks,
         )
 
     return write, attend
 
 
-def forward_hidden(
-    params: dict, kv_cache: torch.Tensor, inp: StepInput, cfg: ModelConfig
-) -> tuple[torch.Tensor, torch.Tensor]:
+def forward_hidden(params: dict, kv_cache, inp: StepInput, cfg: ModelConfig):
     """Run the decoder stack over the step; returns (hidden, kv_cache),
     hidden ``[T, 1, H]`` for the flat layout and ``[B, Q, H]`` for the
-    bucketed one (``inp.token_rows is None``). The pool is updated in
-    place. A ``first_dense_layers`` prefix runs first with its own weights
-    on pool planes ``[0, n)``; the other layers follow on the planes after
-    them."""
+    bucketed one (``inp.token_rows is None``). The pool (a tensor, or the
+    int8 pair) is updated in place. A ``first_dense_layers`` prefix runs
+    first with its own weights on pool planes ``[0, n)``; the other layers
+    follow on the planes after them. Layer i attends within
+    ``cfg.layer_windows[i]`` (0 = full) and with its ``sinks`` leaf."""
     B, Q = inp.token_ids.shape
     D, Nq, K = cfg.head_dim, cfg.num_heads, cfg.num_kv_heads
     x = params["embed"][inp.token_ids]  # [B, Q, H]
     # MLA rotates only its rope sub-dimension.
     rope_dim = cfg.qk_rope_head_dim if cfg.is_mla else D
-    cos, sin = rope_tables(inp.positions, rope_dim, cfg.rope_theta)
+    cos, sin = rope_tables(inp.positions, rope_dim, cfg.rope_theta, cfg.rope_scaling)
     sm_scale = D**-0.5
+    windows = cfg.layer_windows
     if cfg.is_mla:
         if inp.token_rows is not None:
             raise ValueError("MLA runs the bucketed layout only (no flat step)")
+        if (cfg.rope_scaling or {}).get("mscale_all_dim"):
+            raise NotImplementedError("yarn mscale in MLA's sm_scale is not ported")
+        if isinstance(kv_cache, tuple):
+            raise ValueError("an int8 pool is not supported for MLA models")
         prep = None
         if Q == 1:
             prep = ops.decode_write_prep(
                 inp.page_table, inp.positions, inp.valid, kv_cache.shape[3]
             )
     else:
-        write, attend = _write_attend(inp, kv_cache.shape[3])
+        page = (kv_cache[0] if isinstance(kv_cache, tuple) else kv_cache).shape[3]
+        write, attend = _write_attend(inp, page)
 
     def layer(x, lp, plane: int, moe: bool):
         h = rms_norm(x, lp["input_norm"], cfg.rms_norm_eps)
@@ -256,8 +277,11 @@ def forward_hidden(
             k = apply_rope(k, cos, sin)
             v = v.reshape(B, Q, K, D)
             write(kv_cache, plane, k, v)
-            attn = attend(q, kv_cache, plane, sm_scale)
-            x = x + attn.reshape(B, Q, Nq * D) @ lp["wo"]
+            attn = attend(q, kv_cache, plane, sm_scale, windows[plane], lp.get("sinks"))
+            out = attn.reshape(B, Q, Nq * D) @ lp["wo"]
+            if "bo" in lp:
+                out = out + lp["bo"]
+            x = x + out
         h2 = rms_norm(x, lp["post_norm"], cfg.rms_norm_eps)
         return x + (moe_block_grouped(h2, lp, cfg) if moe else _mlp(h2, lp))
 

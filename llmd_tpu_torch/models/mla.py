@@ -16,7 +16,9 @@ goes into the pool through ``ops.write_kv_pages_full`` as two halves posing
 as K and V (the decode write kernel at ``Q == 1``); the attention is
 ``ops.mla_paged_attention_full`` (the latent decode kernel at ``Q == 1``).
 The absorption products stay ``torch.einsum``, as JAX leaves them to XLA.
-Rope is the default (unscaled) one: no yarn temperature in ``sm_scale``.
+The yarn temperature DeepSeek's configs put in ``sm_scale``
+(``rope_scaling`` with ``mscale_all_dim``) is not ported: such a config
+raises.
 """
 
 from __future__ import annotations

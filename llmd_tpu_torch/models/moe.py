@@ -4,10 +4,11 @@ The port of ``llmd_tpu/models/moe.py``'s single-device grouped path
 (``moe_block_grouped``, JAX's default ``moe_backend="grouped"``): tokens
 sorted by expert feed the grouped GEMM (K6′, ``ops.grouped_gemm``), so each
 expert multiplies only its routed rows. The router covers Mixtral/Qwen3
-(softmax, top-k, renormalised) and DeepSeek V2/V3 (softmax or sigmoid
-scores, group-limited selection, optional renormalisation, routed scaling).
-The gpt-oss experts (``router_logit_bias``, clamped SwiGLU, expert biases)
-are not ported yet, nor the dense-combine and expert-parallel blocks.
+(softmax, top-k, renormalised), DeepSeek V2/V3 (softmax or sigmoid scores,
+group-limited selection, optional renormalisation, routed scaling) and
+gpt-oss (a router bias folded into the logits); the experts' GLU is SwiGLU
+or gpt-oss's clamped one with per-expert biases. The dense-combine and
+expert-parallel blocks are not ported.
 """
 
 from __future__ import annotations
@@ -24,15 +25,22 @@ def router_topk(
     w_router: torch.Tensor,  # [H, E]
     top_k: int,
     cfg: ModelConfig | None = None,
-    bias: torch.Tensor | None = None,  # [E] selection-only correction (V3)
+    bias: torch.Tensor | None = None,  # [E] V3 correction or gpt-oss logit bias
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Top-k expert routing; returns (weights [T, k] f32, expert ids [T, k]).
 
     Without ``cfg``: softmax, top-k, renormalised (Mixtral). With it: the
     scoring, the group-limited selection (DeepSeek V2 max per group, V3
     top-2 sum per group), renormalisation and routed scaling the config
-    names. Logits are computed in f32."""
+    names. Logits are computed in f32. ``router_logit_bias`` (gpt-oss)
+    adds ``bias`` to the logits: softmax, top-k and renormalisation of the
+    biased logits are then softmax over the selected biased logits, so it
+    is folded in and cleared; otherwise ``bias`` steers the selection only
+    (V3)."""
     logits = h.float() @ w_router.float()  # [T, E]
+    if cfg is not None and cfg.router_logit_bias and bias is not None:
+        logits = logits + bias.float()
+        bias = None
     if cfg is None:
         probs = torch.softmax(logits, dim=-1)
         weights, ids = torch.topk(probs, top_k, dim=-1)
@@ -65,9 +73,26 @@ def router_topk(
     return weights * cfg.routed_scaling_factor, ids
 
 
-def expert_glu(gate: torch.Tensor, up: torch.Tensor) -> torch.Tensor:
-    """The experts' gated unit before the down projection: silu(gate) * up
-    (Mixtral, Qwen, DeepSeek)."""
+def _expert_biases(lp: dict) -> tuple | None:
+    """(gate, up, down) per-expert biases (gpt-oss experts carry them)."""
+    if "we_gate_b" not in lp:
+        return None
+    return (lp["we_gate_b"], lp["we_up_b"], lp["we_down_b"])
+
+
+def expert_glu(
+    gate: torch.Tensor, up: torch.Tensor, cfg: ModelConfig | None = None
+) -> torch.Tensor:
+    """The experts' gated unit before the down projection. silu (Mixtral,
+    Qwen, DeepSeek; also without ``cfg``): silu(gate) * up. swiglu_oss
+    (gpt-oss): gate clamped above at ``swiglu_limit``, up clamped to
+    [-limit, limit], glu = gate * sigmoid(1.702 * gate), out = (up + 1) *
+    glu."""
+    if cfg is not None and cfg.moe_activation == "swiglu_oss":
+        gate = gate.clamp(max=cfg.swiglu_limit)
+        up = up.clamp(-cfg.swiglu_limit, cfg.swiglu_limit)
+        glu = gate * torch.sigmoid(1.702 * gate)
+        return (up + 1.0) * glu
     return F.silu(gate) * up
 
 
@@ -85,7 +110,8 @@ def moe_block_grouped(h: torch.Tensor, lp: dict, cfg: ModelConfig) -> torch.Tens
         ht, lp["router"], cfg.num_experts_per_tok, cfg, lp.get("router_bias")
     )
     out = moe_apply_grouped(
-        ht, weights, ids, lp["we_gate"], lp["we_up"], lp["we_down"]
+        ht, weights, ids, lp["we_gate"], lp["we_up"], lp["we_down"],
+        biases=_expert_biases(lp), cfg=cfg,
     ).to(h.dtype)
     if cfg.shared_expert_intermediate_size:
         out = out + shared_expert_ffn(ht, lp)

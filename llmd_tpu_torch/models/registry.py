@@ -1,5 +1,5 @@
 """Named model configurations: the entries of the JAX registry that the
-port runs (dense, MoE and MLA), copied field for field.
+port runs (dense, MoE, MLA and gpt-oss), copied field for field.
 
 Hyperparameters follow the public HF configs of each model, as the JAX
 entries do. One known difference from the HF config, kept for parity with
@@ -19,6 +19,11 @@ _REGISTRY: dict[str, Callable[[], ModelConfig]] = {
     "tiny-moe": lambda: tiny_model_config(
         name="tiny-moe", num_experts=8, num_experts_per_tok=2,
         moe_intermediate_size=64,
+    ),
+    # Alternating sliding and full layers in miniature (gpt-oss's layout).
+    "tiny-swa": lambda: tiny_model_config(
+        name="tiny-swa", sliding_window=64,
+        layer_types=("sliding_attention", "full_attention"),
     ),
     # DeepSeek architecture in miniature: MLA, MoE, a shared expert and a
     # dense first layer.
@@ -59,6 +64,28 @@ _REGISTRY: dict[str, Callable[[], ModelConfig]] = {
         intermediate_size=16384, num_layers=56, num_heads=48, num_kv_heads=8,
         rope_theta=1000000.0, max_model_len=65536,
         num_experts=8, num_experts_per_tok=2, moe_intermediate_size=16384,
+    ),
+    # gpt-oss-20b (HF openai/gpt-oss-20b): alternating sliding (window 128)
+    # and full attention with per-head sinks and o bias, 32 experts top-4
+    # with clamped-SwiGLU biased experts and a router logit bias, yarn rope.
+    "gpt-oss-20b": lambda: ModelConfig(
+        name="gpt-oss-20b", vocab_size=201088, hidden_size=2880,
+        intermediate_size=2880, num_layers=24, num_heads=64,
+        num_kv_heads=8, head_dim=64, rope_theta=150000.0,
+        max_model_len=131072,
+        sliding_window=128,
+        layer_types=tuple(
+            "sliding_attention" if i % 2 == 0 else "full_attention"
+            for i in range(24)
+        ),
+        attention_bias=True, attention_out_bias=True, attention_sinks=True,
+        num_experts=32, num_experts_per_tok=4, moe_intermediate_size=2880,
+        moe_activation="swiglu_oss", router_logit_bias=True,
+        norm_topk_prob=True,
+        rope_scaling={
+            "rope_type": "yarn", "factor": 32.0, "beta_fast": 32.0,
+            "beta_slow": 1.0, "original_max_position_embeddings": 4096,
+        },
     ),
     # DeepSeek-V2-Lite (HF deepseek-ai/DeepSeek-V2-Lite): MLA without a
     # query LoRA, 64 routed + 2 shared experts, first layer dense.

@@ -12,7 +12,15 @@ gate: they take what their ``_check`` accepts and raise otherwise.
 A kernel wrapper dispatches by the pool's device alone: a CUDA pool
 launches the hand-written kernel (or the call raises), a CPU pool runs the
 plain version. There is no switch that sends CUDA tensors to the plain
-version.
+version, and no geometry gate: JAX's TPU gate sends head_dim 64 to XLA for
+a lane constraint the card does not have, so gpt-oss attention runs on the
+kernels here.
+
+The pool is one tensor, or for ``CacheConfig.dtype="int8"`` the pair
+``(data int8, scales f32)`` of ``ops/quant_kv.py`` (``_split_cache``, as in
+JAX). The attention entries take the layer's sliding ``window`` (0 = full)
+and per-head ``sinks``; an int8 pool's scales ride along to the kernels,
+whose writes quantize the float K|V rows themselves.
 
 MLA and MoE: ``mla_paged_attention_full`` follows the JAX rule as well
 (``Q == 1`` → the latent decode kernel, ``Q > 1`` → the plain dense form of
@@ -40,7 +48,14 @@ from llmd_tpu_torch.ops.mla_decode import (
 from llmd_tpu_torch.ops.paged_attention import (
     paged_attention_xla,
     paged_attention_xla_blocked,
+    scatter_kv_scales,
+    scatter_kv_scales_flat,
     write_kv_pages,
+)
+from llmd_tpu_torch.ops.quant_kv import (
+    dequantize_pages,
+    quantize_kv_rows,
+    quantize_pages,
 )
 from llmd_tpu_torch.ops.ragged_paged_attention import (
     decode_paged_attention,
@@ -65,13 +80,55 @@ KERNELS = (
 _DENSE_XLA_MAX_S = 4096
 
 
+# The wrappers whose kernels carry the window, sink and int8 branches;
+# each counts its launches per combination of branches too
+# (``branch_launches``, keyed as ``ragged_paged_attention.branch_key``).
+BRANCHED = (
+    write_kv_pages_flat_full,
+    flat_paged_attention_full,
+    write_kv_pages_decode_full,
+    decode_paged_attention_full,
+)
+
+
 def reset_launch_counts() -> None:
     for fn in KERNELS:
         fn.launches = 0
+    for fn in BRANCHED:
+        fn.branch_launches.clear()
 
 
 def launch_counts() -> dict[str, int]:
     return {fn.__name__: fn.launches for fn in KERNELS}
+
+
+def branch_launch_counts() -> dict[str, int]:
+    """Launches per kernel and combination of branches taken, as
+    ``"<wrapper>[<branches>]"`` (e.g. ``flat_paged_attention_full
+    [int8+window+sinks]``, ``write_kv_pages_decode_full[plain]``); only
+    combinations that launched appear."""
+    return {
+        f"{fn.__name__}[{key}]": n
+        for fn in BRANCHED
+        for key, n in sorted(fn.branch_launches.items())
+        if n
+    }
+
+
+def _split_cache(kv_cache):
+    """(data, scales) of a pool: an int8 pool travels as the pair (data
+    int8, scales f32, ``ops/quant_kv.py``), a float pool as one tensor with
+    scales None."""
+    if isinstance(kv_cache, tuple):
+        return kv_cache
+    return kv_cache, None
+
+
+def _sinks(sinks):
+    """The kernels' f32 ``[H]`` sinks. The runner's parameters already hold
+    them in f32 (``llama.fuse_projections``), so there this launches
+    nothing."""
+    return None if sinks is None else sinks.float().contiguous()
 
 
 def write_kv_pages_full_flat(
@@ -83,13 +140,17 @@ def write_kv_pages_full_flat(
     rows: torch.Tensor,  # [T] token -> row
     positions: torch.Tensor,  # [T, 1]
     total: int,  # live tokens; the rest of the stream is padding
-) -> torch.Tensor:
-    """Flattened-token layer-indexed KV write, in place; returns the pool."""
-    dt = kv_cache_full.dtype
-    return write_kv_pages_flat_full(
-        kv_cache_full, layer, k.to(dt).contiguous(), v.to(dt).contiguous(),
-        page_table, rows, positions.reshape(-1), total,
+):
+    """Flattened-token layer-indexed KV write, in place; returns the pool.
+    An int8 pool takes the float rows and quantizes them in the kernel."""
+    data, scales = _split_cache(kv_cache_full)
+    if scales is None:
+        k, v = k.to(data.dtype), v.to(data.dtype)
+    write_kv_pages_flat_full(
+        data, layer, k.contiguous(), v.contiguous(), page_table, rows,
+        positions.reshape(-1), total, scales,
     )
+    return kv_cache_full
 
 
 def paged_attention_full_flat(
@@ -100,11 +161,15 @@ def paged_attention_full_flat(
     page_table: torch.Tensor,
     kv_lens: torch.Tensor,  # [T] per token: position + 1
     sm_scale: float | None = None,
+    window: int = 0,
+    sinks: torch.Tensor | None = None,  # [H]
 ) -> torch.Tensor:
-    """Flattened-token layer-indexed attention over the pool."""
+    """Flattened-token layer-indexed attention over the pool, with the
+    layer's sliding ``window`` (0 = full) and ``sinks``."""
+    data, scales = _split_cache(kv_cache_full)
     return flat_paged_attention_full(
-        q.contiguous(), kv_cache_full, layer, rows, page_table, kv_lens,
-        sm_scale,
+        q.contiguous(), data, layer, rows, page_table, kv_lens, sm_scale,
+        window, _sinks(sinks), scales,
     )
 
 
@@ -136,17 +201,26 @@ def write_kv_pages_full(
     positions: torch.Tensor,  # [B, Q]
     valid: torch.Tensor,  # [B, Q] bool
     prep: tuple[torch.Tensor, torch.Tensor, torch.Tensor] | None = None,
-) -> torch.Tensor:
+):
     """Bucketed layer-indexed KV write, in place; returns the pool.
-    ``Q == 1``: the decode write kernel; ``Q > 1``: the plain scatter."""
+    ``Q == 1``: the decode write kernel; ``Q > 1``: the plain scatter, for
+    an int8 pool after ``quantize_kv_rows`` and with the scales' own
+    scatter."""
+    data, scales = _split_cache(kv_cache_full)
     B, Q, K, D = k.shape
     if Q != 1:
-        write_kv_pages(kv_cache_full[layer], k, v, page_table, positions, valid)
+        if scales is not None:
+            k, v, srow = quantize_kv_rows(k, v)
+            scatter_kv_scales(scales[layer], srow, page_table, positions, valid)
+        write_kv_pages(data[layer], k, v, page_table, positions, valid)
         return kv_cache_full
     if prep is None:
-        prep = decode_write_prep(page_table, positions, valid, kv_cache_full.shape[3])
-    kv_new = torch.cat([k, v], dim=-1).reshape(B, K, 2 * D).to(kv_cache_full.dtype)
-    return write_kv_pages_decode_full(kv_cache_full, kv_new, layer, *prep)
+        prep = decode_write_prep(page_table, positions, valid, data.shape[3])
+    kv_new = torch.cat([k, v], dim=-1).reshape(B, K, 2 * D)
+    if scales is None:
+        kv_new = kv_new.to(data.dtype)
+    write_kv_pages_decode_full(data, kv_new, layer, *prep, scales=scales)
+    return kv_cache_full
 
 
 def paged_attention_full(
@@ -158,24 +232,32 @@ def paged_attention_full(
     positions: torch.Tensor,  # [B, Q]
     sm_scale: float | None = None,
     live_pages: int | None = None,
+    window: int = 0,
+    sinks: torch.Tensor | None = None,  # [H]
 ) -> torch.Tensor:
-    """Bucketed layer-indexed attention over the pool. ``Q == 1``: the
-    decode attention kernel; ``Q > 1``: the plain dense or blocked form.
+    """Bucketed layer-indexed attention over the pool, with the layer's
+    sliding ``window`` (0 = full) and ``sinks``. ``Q == 1``: the decode
+    attention kernel; ``Q > 1``: the plain dense or blocked form.
     ``live_pages`` (the batch's largest live page count, known on the host)
     lets the plain forms gather that many table columns instead of all:
     the columns beyond hold no live position, so the result is the same."""
+    data, scales = _split_cache(kv_cache_full)
     if q.shape[1] == 1:
         return decode_paged_attention_full(
-            q.contiguous(), kv_cache_full, layer, page_table, kv_lens, sm_scale
+            q.contiguous(), data, layer, page_table, kv_lens, sm_scale, window,
+            _sinks(sinks), scales,
         )
-    sl = kv_cache_full[layer]
+    sl = data[layer]
     # The form follows the table's full width, as in the JAX package, so
     # both packages run the same arithmetic on the same configuration.
     blocked = page_table.shape[1] * sl.shape[2] > _DENSE_XLA_MAX_S
     if live_pages is not None:
         page_table = page_table[:, :live_pages]
     attend = paged_attention_xla_blocked if blocked else paged_attention_xla
-    return attend(q, sl, page_table, kv_lens, positions, sm_scale)
+    return attend(
+        q, sl, page_table, kv_lens, positions, sm_scale, window=window,
+        sinks=sinks, scales=None if scales is None else scales[layer],
+    )
 
 
 def mla_paged_attention_full(
@@ -206,7 +288,14 @@ def mla_paged_attention_full(
 
 
 __all__ = [
+    "BRANCHED",
     "KERNELS",
+    "branch_launch_counts",
+    "dequantize_pages",
+    "quantize_kv_rows",
+    "quantize_pages",
+    "scatter_kv_scales",
+    "scatter_kv_scales_flat",
     "decode_paged_attention",
     "decode_paged_attention_full",
     "decode_paged_attention_plain",

@@ -17,9 +17,20 @@
 // Bound: bytes, B * K * 2D elements in and out once, no arithmetic. At a
 // decode batch (tens of rows, 4 KB each) that is a fraction of a
 // microsecond, so the kernel's time is its launch.
+//
+// The int8 pool (scales given) fuses what the JAX package
+// runs as three XLA steps around the TPU kernel (llmd_tpu/ops/__init__.py:
+// write_kv_pages_full: quantize_kv_rows, the data write and
+// scatter_kv_scales) into one launch: one warp per (row, KV head) quantizes
+// the K and V halves of kv_new[b] (kv_quant.cuh, bit for bit the
+// reference's bytes), stores the int8 row and lane 0 the (ks, vs) pair. A
+// row with valid[b] == 0 returns before it reads phys[b] and writes neither
+// data nor scales.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "kv_quant.cuh"
 
 namespace {
 
@@ -49,18 +60,97 @@ __global__ void decode_kv_write_kernel(
   }
 }
 
+template <typename T, int DPL>  // DPL = head_dim / 32 per lane
+__global__ void decode_kv_write_int8_kernel(
+    int8_t* __restrict__ cache,         // [L, P, K, page, 2D]
+    float* __restrict__ scales,         // [L, P, K, page, 2]
+    const T* __restrict__ kv_new,       // [B, K, 2D]
+    const int32_t* __restrict__ phys,   // [B]
+    const int32_t* __restrict__ offset, // [B]
+    const int32_t* __restrict__ valid,  // [B]
+    int batch, int layer, int num_pages, int num_kv_heads, int page) {
+  constexpr int D = DPL * 32;
+  const int w = (blockIdx.x * blockDim.x + threadIdx.x) / 32;  // (row, head)
+  if (w >= batch * num_kv_heads) return;  // warp-uniform
+  const int b = w / num_kv_heads;
+  const int h = w - b * num_kv_heads;
+  if (valid[b] == 0) return;
+  const int p = phys[b];
+  const int slot = offset[b];
+  if (p < 0 || p >= num_pages || slot < 0 || slot >= page) return;
+  const int64_t row = (((int64_t)layer * num_pages + p) * num_kv_heads + h) * page + slot;
+  const T* src = kv_new + ((int64_t)b * num_kv_heads + h) * 2 * D;
+  const float ks = kv_quant::quantize_row<T, DPL>(src, cache + row * 2 * D);
+  const float vs = kv_quant::quantize_row<T, DPL>(src + D, cache + row * 2 * D + D);
+  if (threadIdx.x % 32 == 0) reinterpret_cast<float2*>(scales)[row] = make_float2(ks, vs);
+}
+
+template <typename T, int DPL>
+cudaError_t launch_int8(void* cache, void* scales, const void* kv_new,
+                        const void* phys, const void* offset, const void* valid,
+                        int batch, int layer, int num_pages, int num_kv_heads,
+                        int page, cudaStream_t stream) {
+  const int warps = batch * num_kv_heads;
+  decode_kv_write_int8_kernel<T, DPL><<<(warps + 3) / 4, 128, 0, stream>>>(
+      (int8_t*)cache, (float*)scales, (const T*)kv_new, (const int32_t*)phys,
+      (const int32_t*)offset, (const int32_t*)valid, batch, layer, num_pages,
+      num_kv_heads, page);
+  return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t launch_int8_d(int head_dim, void* cache, void* scales,
+                          const void* kv_new, const void* phys,
+                          const void* offset, const void* valid, int batch,
+                          int layer, int num_pages, int num_kv_heads, int page,
+                          cudaStream_t s) {
+  switch (head_dim) {
+    case 64:
+      return launch_int8<T, 2>(cache, scales, kv_new, phys, offset, valid, batch,
+                               layer, num_pages, num_kv_heads, page, s);
+    case 128:
+      return launch_int8<T, 4>(cache, scales, kv_new, phys, offset, valid, batch,
+                               layer, num_pages, num_kv_heads, page, s);
+    case 256:
+      return launch_int8<T, 8>(cache, scales, kv_new, phys, offset, valid, batch,
+                               layer, num_pages, num_kv_heads, page, s);
+    default:
+      return cudaErrorInvalidValue;
+  }
+}
+
 }  // namespace
 
-// row_bytes: bytes of one (row, head) K|V slab, 2D * itemsize, a multiple
-// of 16.
+// One entry for both pools. kv_new is [B, K, 2D] of dtype 0 = float32,
+// 1 = bfloat16, 2 = float16. scales == nullptr: a float pool of kv_new's
+// dtype, copied. Otherwise an int8 pool: kv_new is quantized into cache
+// (int8) and scales (f32, [L, P, K, page, 2]).
 extern "C" int decode_kv_write(
-    void* cache, const void* kv_new, const void* phys, const void* offset,
-    const void* valid, int batch, int layer, int num_pages, int num_kv_heads,
-    int page, int row_bytes, void* stream) {
+    void* cache, void* scales, const void* kv_new, const void* phys,
+    const void* offset, const void* valid, int batch, int layer,
+    int num_pages, int num_kv_heads, int page, int head_dim, int dtype,
+    void* stream) {
+  if (dtype < 0 || dtype > 2) return (int)cudaErrorInvalidValue;
   if (batch == 0) return (int)cudaGetLastError();
-  decode_kv_write_kernel<<<batch, 128, 0, (cudaStream_t)stream>>>(
-      (char*)cache, (const char*)kv_new, (const int32_t*)phys,
-      (const int32_t*)offset, (const int32_t*)valid, layer, num_pages,
-      num_kv_heads, page, row_bytes);
-  return (int)cudaGetLastError();
+  cudaStream_t s = (cudaStream_t)stream;
+  if (scales == nullptr) {
+    const int row_bytes = 2 * head_dim * (dtype == 0 ? 4 : 2);
+    decode_kv_write_kernel<<<batch, 128, 0, s>>>(
+        (char*)cache, (const char*)kv_new, (const int32_t*)phys,
+        (const int32_t*)offset, (const int32_t*)valid, layer, num_pages,
+        num_kv_heads, page, row_bytes);
+    return (int)cudaGetLastError();
+  }
+  switch (dtype) {
+    case 0:
+      return (int)launch_int8_d<float>(head_dim, cache, scales, kv_new, phys, offset,
+                                       valid, batch, layer, num_pages, num_kv_heads, page, s);
+    case 1:
+      return (int)launch_int8_d<__nv_bfloat16>(head_dim, cache, scales, kv_new, phys,
+                                               offset, valid, batch, layer, num_pages,
+                                               num_kv_heads, page, s);
+    default:
+      return (int)launch_int8_d<__half>(head_dim, cache, scales, kv_new, phys, offset,
+                                        valid, batch, layer, num_pages, num_kv_heads, page, s);
+  }
 }

@@ -16,9 +16,21 @@
 // Bound: bytes. It moves 2 * T * K * D elements in and out once; there is
 // no arithmetic. The design keeps it a single pass with full 16-byte
 // accesses and no pool-sized copy.
+//
+// The int8 pool (scales given) fuses what the JAX package runs
+// as three XLA steps around the TPU kernel (llmd_tpu/ops/__init__.py:
+// write_kv_pages_full_flat: quantize_kv_rows, the data write and
+// scatter_kv_scales_flat) into one launch. One warp per (live token, KV
+// head) reads the float K and V rows, quantizes each half against its own
+// f16-grid scale (kv_quant.cuh, bit for bit the reference's bytes), stores
+// the int8 row at (phys, slot) and lane 0 stores the (ks, vs) pair into the
+// f32 scale pool. Bound: bytes, 2D float elements in, 2D bytes and 8 bytes
+// of scales out per (token, head).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "kv_quant.cuh"
 
 namespace {
 
@@ -54,17 +66,103 @@ __global__ void flat_kv_write_kernel(
   }
 }
 
+template <typename T, int DPL>  // DPL = head_dim / 32 per lane
+__global__ void flat_kv_write_int8_kernel(
+    int8_t* __restrict__ cache,          // [L, P, K, page, 2D]
+    float* __restrict__ scales,          // [L, P, K, page, 2]
+    const T* __restrict__ k,             // [T, K, D]
+    const T* __restrict__ v,             // [T, K, D]
+    const int32_t* __restrict__ page_table,  // [R, max_pages]
+    const int32_t* __restrict__ rows,    // [T]
+    const int32_t* __restrict__ positions,   // [T]
+    int total, int layer, int num_pages, int num_kv_heads, int page,
+    int max_pages) {
+  constexpr int D = DPL * 32;
+  const int w = (blockIdx.x * blockDim.x + threadIdx.x) / 32;  // (token, head)
+  if (w >= total * num_kv_heads) return;  // warp-uniform
+  const int t = w / num_kv_heads;
+  const int h = w - t * num_kv_heads;
+  const int pos = positions[t];
+  const int phys = page_table[(int64_t)rows[t] * max_pages + pos / page];
+  const int64_t row =
+      (((int64_t)layer * num_pages + phys) * num_kv_heads + h) * page + pos % page;
+  const int64_t src = ((int64_t)t * num_kv_heads + h) * D;
+  const float ks = kv_quant::quantize_row<T, DPL>(k + src, cache + row * 2 * D);
+  const float vs = kv_quant::quantize_row<T, DPL>(v + src, cache + row * 2 * D + D);
+  if (threadIdx.x % 32 == 0) reinterpret_cast<float2*>(scales)[row] = make_float2(ks, vs);
+}
+
+template <typename T, int DPL>
+cudaError_t launch_int8(void* cache, void* scales, const void* k, const void* v,
+                        const void* page_table, const void* rows,
+                        const void* positions, int total, int layer,
+                        int num_pages, int num_kv_heads, int page,
+                        int max_pages, cudaStream_t stream) {
+  const int warps = total * num_kv_heads;
+  flat_kv_write_int8_kernel<T, DPL><<<(warps + 3) / 4, 128, 0, stream>>>(
+      (int8_t*)cache, (float*)scales, (const T*)k, (const T*)v,
+      (const int32_t*)page_table, (const int32_t*)rows,
+      (const int32_t*)positions, total, layer, num_pages, num_kv_heads, page,
+      max_pages);
+  return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t launch_int8_d(int head_dim, void* cache, void* scales,
+                          const void* k, const void* v, const void* page_table,
+                          const void* rows, const void* positions, int total,
+                          int layer, int num_pages, int num_kv_heads, int page,
+                          int max_pages, cudaStream_t s) {
+  switch (head_dim) {
+    case 64:
+      return launch_int8<T, 2>(cache, scales, k, v, page_table, rows, positions,
+                               total, layer, num_pages, num_kv_heads, page, max_pages, s);
+    case 128:
+      return launch_int8<T, 4>(cache, scales, k, v, page_table, rows, positions,
+                               total, layer, num_pages, num_kv_heads, page, max_pages, s);
+    case 256:
+      return launch_int8<T, 8>(cache, scales, k, v, page_table, rows, positions,
+                               total, layer, num_pages, num_kv_heads, page, max_pages, s);
+    default:
+      return cudaErrorInvalidValue;
+  }
+}
+
 }  // namespace
 
+// One entry for both pools. k/v are [T, K, D] of dtype 0 = float32,
+// 1 = bfloat16, 2 = float16. scales == nullptr: a float pool of k's dtype,
+// copied. Otherwise an int8 pool: k/v are quantized into cache (int8) and
+// scales (f32, [L, P, K, page, 2]).
 extern "C" int flat_kv_write(
-    void* cache, const void* k, const void* v, const void* page_table,
-    const void* rows, const void* positions, int total, int layer,
-    int num_pages, int num_kv_heads, int page, int max_pages, int row_bytes,
-    void* stream) {
-  flat_kv_write_kernel<<<total, 128, 0, (cudaStream_t)stream>>>(
-      (char*)cache, (const char*)k, (const char*)v,
-      (const int32_t*)page_table, (const int32_t*)rows,
-      (const int32_t*)positions, total, layer, num_pages, num_kv_heads,
-      page, max_pages, row_bytes);
-  return (int)cudaGetLastError();
+    void* cache, void* scales, const void* k, const void* v,
+    const void* page_table, const void* rows, const void* positions,
+    int total, int layer, int num_pages, int num_kv_heads, int page,
+    int max_pages, int head_dim, int dtype, void* stream) {
+  if (dtype < 0 || dtype > 2) return (int)cudaErrorInvalidValue;
+  if (total == 0) return (int)cudaGetLastError();
+  cudaStream_t s = (cudaStream_t)stream;
+  if (scales == nullptr) {
+    const int row_bytes = head_dim * (dtype == 0 ? 4 : 2);
+    flat_kv_write_kernel<<<total, 128, 0, s>>>(
+        (char*)cache, (const char*)k, (const char*)v,
+        (const int32_t*)page_table, (const int32_t*)rows,
+        (const int32_t*)positions, total, layer, num_pages, num_kv_heads,
+        page, max_pages, row_bytes);
+    return (int)cudaGetLastError();
+  }
+  switch (dtype) {
+    case 0:
+      return (int)launch_int8_d<float>(head_dim, cache, scales, k, v, page_table, rows,
+                                       positions, total, layer, num_pages, num_kv_heads,
+                                       page, max_pages, s);
+    case 1:
+      return (int)launch_int8_d<__nv_bfloat16>(head_dim, cache, scales, k, v, page_table,
+                                               rows, positions, total, layer, num_pages,
+                                               num_kv_heads, page, max_pages, s);
+    default:
+      return (int)launch_int8_d<__half>(head_dim, cache, scales, k, v, page_table, rows,
+                                        positions, total, layer, num_pages, num_kv_heads,
+                                        page, max_pages, s);
+  }
 }

@@ -40,6 +40,8 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "convert.cuh"
+
 namespace {
 
 constexpr int kWarps = 8;
@@ -49,16 +51,8 @@ constexpr int kMaxR = 16;   // rank <= 512
 constexpr int kMaxSpans = 32;  // spans a row is cut into (one merge warp)
 constexpr unsigned kAll = 0xffffffffu;
 
-__device__ __forceinline__ float to_f(float x) { return x; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 x) { return __bfloat162float(x); }
-__device__ __forceinline__ float to_f(__half x) { return __half2float(x); }
-
-template <typename T> __device__ __forceinline__ T from_f(float x);
-template <> __device__ __forceinline__ float from_f<float>(float x) { return x; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
-}
-template <> __device__ __forceinline__ __half from_f<__half>(float x) { return __float2half(x); }
+using convert::from_f;
+using convert::to_f;
 
 __device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
   const unsigned s = (unsigned)__cvta_generic_to_shared(smem);

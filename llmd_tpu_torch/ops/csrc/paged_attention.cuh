@@ -4,16 +4,34 @@
 // row-lookup (flat) and batch-grid (decode) entries.
 //
 // attend_row: the G = H / K query heads of one KV head of one query token
-// attend over positions [0, kv_len) of one page-table row. One block with
-// G warps, one warp per query head; each lane holds D / 32 elements of q
-// and of the accumulator. The block walks the live pages, staging each
-// page's [page, 2D] K|V tile of its KV head in shared memory once for all
-// G warps. A warp scores the tile's live positions with shuffle reductions
-// and folds them into an f32 online softmax (m, l, acc), one rescale per
-// page. Only live positions are read, so uninitialised pool memory never
-// enters a sum. sm_scale folds into q; l == 0 (kv_len 0, a pad) divides by
-// 1 and writes zeros, as the TPU kernel does. Pool offsets are 64-bit: a
-// 32-layer pool of 8,192 pages exceeds 2^31 elements.
+// attend over positions [win_start, kv_len) of one page-table row. One
+// block with G warps, one warp per query head; each lane holds D / 32
+// elements of q and of the accumulator. The block walks the live pages,
+// staging each page's [page, 2D] K|V tile of its KV head in shared memory
+// once for all G warps. A warp scores the tile's live positions with
+// shuffle reductions and folds them into an f32 online softmax (m, l, acc),
+// one rescale per page. Only live positions are read, so uninitialised pool
+// memory never enters a sum. sm_scale folds into q; l == 0 (kv_len 0, a
+// pad) divides by 1 and writes zeros, as the TPU kernel does. Pool offsets
+// are 64-bit: a 32-layer pool of 8,192 pages exceeds 2^31 elements.
+//
+// The TPU kernel's three further branches, each as it computes them:
+// - Sliding window (window > 0): win_start = max(kv_len - window, 0). The
+//   walk starts at page win_start / page, so the pages before the window
+//   are never read, and the first page's positions below win_start are
+//   skipped.
+// - Attention sinks (sinks != nullptr, [H] f32): after the walk, one key
+//   without a value joins the softmax: m2 = max(m, sink),
+//   l = l * exp(m - m2) + exp(sink - m2), acc *= exp(m - m2). m starts at
+//   -inf here (the TPU kernel starts at -2^30), so exp(m - m2) is taken
+//   only for a finite m: a pad row with a sink gets l = 1, acc = 0 and
+//   writes exact zeros, and nothing computes -inf - -inf.
+// - int8 pool (C = int8_t, scales [L, P, K, page, 2] f32 on the f16 grid):
+//   the tile holds int8 (half the bytes of bf16), widened to f32 in
+//   registers; each live position's (ks, vs) pair is staged beside it. The
+//   scales fold as on the TPU: the score is (q . k_i8) * ks, the value
+//   weight (p * vs) and l sums p. Dead slots' scales are never read (they
+//   may be an f16-overflow inf).
 
 #pragma once
 
@@ -25,32 +43,27 @@
 
 #include <type_traits>
 
+#include "convert.cuh"
+
 namespace paged_attention {
 
 constexpr int kMaxPage = 32;
 
-__device__ __forceinline__ float to_f(float x) { return x; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 x) { return __bfloat162float(x); }
-__device__ __forceinline__ float to_f(__half x) { return __half2float(x); }
-
-template <typename T> __device__ __forceinline__ T from_f(float x);
-template <> __device__ __forceinline__ float from_f<float>(float x) { return x; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
-}
-template <> __device__ __forceinline__ __half from_f<__half>(float x) {
-  return __float2half(x);
-}
+using convert::from_f;
+using convert::to_f;
 
 // N consecutive elements at p (aligned to their total size) as floats,
 // read with the widest vector load that size allows.
 template <typename T, int N>
 __device__ __forceinline__ void load_f(const T* __restrict__ p, float (&out)[N]) {
   constexpr int kBytes = N * sizeof(T);
-  static_assert(kBytes % 4 == 0, "lane slice must be a multiple of 4 bytes");
+  static_assert(kBytes % 2 == 0, "lane slice must be a multiple of 2 bytes");
   using V = typename std::conditional<
       kBytes % 16 == 0, uint4,
-      typename std::conditional<kBytes % 8 == 0, uint2, uint32_t>::type>::type;
+      typename std::conditional<
+          kBytes % 8 == 0, uint2,
+          typename std::conditional<kBytes % 4 == 0, uint32_t,
+                                    uint16_t>::type>::type>::type;
   constexpr int kVecs = kBytes / sizeof(V);
   constexpr int kPer = sizeof(V) / sizeof(T);
 #pragma unroll
@@ -64,15 +77,19 @@ __device__ __forceinline__ void load_f(const T* __restrict__ p, float (&out)[N])
 
 // blockDim.x = group * 32. q_tok and out_tok point at the token's [H, D]
 // slab, table_row at its row of the page table, tile at page * 2D
-// elements of shared memory.
-template <typename T, int DPL>  // DPL = head_dim / 32 elements per lane
+// elements of C in shared memory, sc at 2 * page floats of shared memory.
+// T is q's and the output's type, C the pool's (T, or int8_t with scales).
+template <typename T, typename C, int DPL>  // DPL = head_dim / 32 per lane
 __device__ __forceinline__ void attend_row(
     T* __restrict__ out_tok, const T* __restrict__ q_tok,
-    const T* __restrict__ cache,  // [L, P, K, page, 2D]
+    const C* __restrict__ cache,            // [L, P, K, page, 2D]
+    const float* __restrict__ scales,       // [L, P, K, page, 2] or null
+    const float* __restrict__ sinks,        // [H] or null
     const int32_t* __restrict__ table_row, int kv_len, int kh, int layer,
-    int num_pages, int num_kv_heads, int page, int group, float sm_scale,
-    T* __restrict__ tile) {
+    int num_pages, int num_kv_heads, int page, int group, int window,
+    float sm_scale, C* __restrict__ tile, float* __restrict__ sc) {
   constexpr int D = DPL * 32;
+  constexpr bool kQuant = std::is_same<C, int8_t>::value;
   const int warp = threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
   const int h = kh * group + warp;
@@ -87,27 +104,33 @@ __device__ __forceinline__ void attend_row(
   float m = -INFINITY;
   float l = 0.f;
 
+  const int win_start = window > 0 ? max(kv_len - window, 0) : 0;
   const int64_t slab = (int64_t)page * 2 * D;  // elements of one (page, head)
-  const int nvec = (int)(slab * sizeof(T) / 16);
+  const int nvec = (int)(slab * sizeof(C) / 16);
   const int n_pages = (kv_len + page - 1) / page;
-  for (int p = 0; p < n_pages; ++p) {
+  for (int p = win_start / page; p < n_pages; ++p) {
     const int phys = table_row[p];
-    const uint4* src = reinterpret_cast<const uint4*>(
-        cache + (((int64_t)layer * num_pages + phys) * num_kv_heads + kh) * slab);
+    const int64_t head_page = ((int64_t)layer * num_pages + phys) * num_kv_heads + kh;
+    const uint4* src = reinterpret_cast<const uint4*>(cache + head_page * slab);
+    const int lo = max(win_start - p * page, 0);   // first live position
+    const int n = min(page, kv_len - p * page);    // live positions end, > lo
     __syncthreads();  // every warp is done with the previous tile
     for (int i = threadIdx.x; i < nvec; i += blockDim.x) {
       reinterpret_cast<uint4*>(tile)[i] = src[i];
     }
+    if constexpr (kQuant) {
+      const float* s_src = scales + head_page * page * 2;
+      for (int i = lo * 2 + threadIdx.x; i < n * 2; i += blockDim.x) sc[i] = s_src[i];
+    }
     __syncthreads();
 
-    const int n = min(page, kv_len - p * page);  // live positions, >= 1
     float s[kMaxPage];
     float m_page = -INFINITY;
 #pragma unroll
     for (int j = 0; j < kMaxPage; ++j) {
-      if (j < n) {  // warp-uniform
+      if (j >= lo && j < n) {  // warp-uniform
         float kf[DPL];
-        load_f<T, DPL>(tile + j * 2 * D + lane * DPL, kf);
+        load_f<C, DPL>(tile + j * 2 * D + lane * DPL, kf);
         float dot = 0.f;
 #pragma unroll
         for (int i = 0; i < DPL; ++i) dot += qf[i] * kf[i];
@@ -115,6 +138,7 @@ __device__ __forceinline__ void attend_row(
         for (int off = 16; off > 0; off >>= 1) {
           dot += __shfl_xor_sync(0xffffffffu, dot, off);
         }
+        if constexpr (kQuant) dot *= sc[2 * j];
         s[j] = dot;
         m_page = fmaxf(m_page, dot);
       }
@@ -126,16 +150,27 @@ __device__ __forceinline__ void attend_row(
     for (int i = 0; i < DPL; ++i) acc[i] *= alpha;
 #pragma unroll
     for (int j = 0; j < kMaxPage; ++j) {
-      if (j < n) {
+      if (j >= lo && j < n) {
         const float pj = expf(s[j] - m_new);
         l += pj;
+        float wj = pj;
+        if constexpr (kQuant) wj *= sc[2 * j + 1];
         float vf[DPL];
-        load_f<T, DPL>(tile + j * 2 * D + D + lane * DPL, vf);
+        load_f<C, DPL>(tile + j * 2 * D + D + lane * DPL, vf);
 #pragma unroll
-        for (int i = 0; i < DPL; ++i) acc[i] += pj * vf[i];
+        for (int i = 0; i < DPL; ++i) acc[i] += wj * vf[i];
       }
     }
     m = m_new;
+  }
+
+  if (sinks != nullptr) {
+    const float sk = sinks[h];
+    const float m2 = fmaxf(m, sk);
+    const float alpha = (m == -INFINITY) ? 0.f : expf(m - m2);
+    l = l * alpha + ((sk == -INFINITY) ? 0.f : expf(sk - m2));
+#pragma unroll
+    for (int i = 0; i < DPL; ++i) acc[i] *= alpha;
   }
 
   const float denom = (l == 0.f) ? 1.f : l;

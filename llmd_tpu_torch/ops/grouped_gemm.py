@@ -13,8 +13,9 @@ masked product per group over the static group count, so it reads nothing
 back to the host; the wrapper takes it for CPU tensors only.
 
 Around the kernel, in plain PyTorch as JAX leaves them to XLA:
-``expert_mlp_grouped`` (gate, up, GLU, down) and ``moe_apply_grouped``
-(stable sort by expert, gather, grouped MLP, weighted combine). The group
+``expert_mlp_grouped`` (gate, up, the config's GLU, down, and gpt-oss's
+per-expert biases) and ``moe_apply_grouped`` (stable sort by expert,
+gather, grouped MLP, weighted combine). The group
 sizes are counted with ``scatter_add_`` (``torch.bincount`` on CUDA reads
 its input's maximum back to size its output) and the combine sums each
 token's rows in ascending sorted position, the order of JAX's scatter-add
@@ -125,14 +126,25 @@ def expert_mlp_grouped(
     we_gate: torch.Tensor,  # [E, H, F]
     we_up: torch.Tensor,  # [E, H, F]
     we_down: torch.Tensor,  # [E, F, H]
+    biases: tuple | None = None,  # gpt-oss: (b_gate [E, F], b_up [E, F], b_down [E, H])
+    cfg=None,  # ModelConfig naming the GLU; None = SwiGLU
+    expert_ids: torch.Tensor | None = None,  # [M] expert of each sorted row
 ) -> torch.Tensor:  # [M, H]
-    """The routed rows' expert MLP: three grouped products around the GLU."""
+    """The routed rows' expert MLP: three grouped products around the GLU,
+    each row's expert biases added after its products (``expert_ids``
+    says whose they are; required with ``biases``)."""
     from llmd_tpu_torch.models.moe import expert_glu
 
     gate = grouped_matmul(x_sorted, we_gate, group_sizes)
     up = grouped_matmul(x_sorted, we_up, group_sizes)
-    act = expert_glu(gate, up).to(x_sorted.dtype)
-    return grouped_matmul(act.contiguous(), we_down, group_sizes)
+    if biases is not None:
+        gate = gate + biases[0][expert_ids]
+        up = up + biases[1][expert_ids]
+    act = expert_glu(gate, up, cfg).to(x_sorted.dtype)
+    out = grouped_matmul(act.contiguous(), we_down, group_sizes)
+    if biases is not None:
+        out = out + biases[2][expert_ids].to(out.dtype)
+    return out
 
 
 def moe_apply_grouped(
@@ -142,8 +154,12 @@ def moe_apply_grouped(
     we_gate: torch.Tensor,
     we_up: torch.Tensor,
     we_down: torch.Tensor,
+    biases: tuple | None = None,
+    cfg=None,
 ) -> torch.Tensor:  # [T, H] f32
-    """Route -> stable sort by expert -> grouped MLP -> weighted combine."""
+    """Route -> stable sort by expert -> grouped MLP -> weighted combine.
+    A sorted row's expert is ``flat_ids[order]`` (JAX's ``repeat(arange(E),
+    group_sizes)``, without the host read ``repeat_interleave`` makes)."""
     T, H = ht.shape
     k = ids.shape[1]
     E = we_gate.shape[0]
@@ -156,7 +172,10 @@ def moe_apply_grouped(
     group_sizes = torch.zeros(E, dtype=torch.int32, device=ht.device).scatter_add_(
         0, flat_ids, torch.ones_like(flat_ids, dtype=torch.int32)
     )
-    ys = expert_mlp_grouped(xs, group_sizes, we_gate, we_up, we_down)
+    ys = expert_mlp_grouped(
+        xs, group_sizes, we_gate, we_up, we_down, biases=biases, cfg=cfg,
+        expert_ids=flat_ids[order] if biases is not None else None,
+    )
     contrib = ys.float() * weights.reshape(-1)[order][:, None]
     # Each token's k sorted positions, ascending: JAX's scatter-add adds
     # the updates to a token in that order, starting from zero.

@@ -3,31 +3,39 @@
 ``flat_paged_attention_full`` launches the CUDA kernel
 ``csrc/flat_paged_attention.cu``, which replaces the TPU kernel
 ``llmd_tpu/ops/ragged_paged_attention.py:_decode_kernel`` in its
-row-lookup form (entry ``flat_paged_attention_full``), plain form: no
-sliding window, sinks or int8 pool. Each packed token t attends with its H
-query heads over positions ``[0, kv_lens[t])`` of row ``rows[t]``'s pages
-(``kv_len = position + 1`` is the causal mask within a row), G = H / K
-query heads per KV head, online softmax in f32. It is bound by bytes: the
-live K|V pages it reads. See the kernel source for its design.
+row-lookup form (entry ``flat_paged_attention_full``). Each packed token t
+attends with its H query heads over positions ``[win_start, kv_lens[t])``
+of row ``rows[t]``'s pages (``kv_len = position + 1`` is the causal mask
+within a row; ``win_start = max(kv_len - window, 0)`` on a sliding layer,
+else 0), G = H / K query heads per KV head, online softmax in f32. It is
+bound by bytes: the live, in-window K|V pages it reads. See the kernel
+source for its design.
 
 ``decode_paged_attention_full`` (and ``decode_paged_attention`` on a
 single-layer pool) launches ``csrc/decode_paged_attention.cu``, which
 replaces the same TPU kernel without row lookup (``_decode_call``): row b of
 the decode batch attends with its one query token over positions
-``[0, kv_lens[b])`` of its own table row; a pad row (``kv_len`` 0) gets
-zeros. It is bound by bytes too. Its ``(B, K)`` grid is small for the card
-(64 blocks at 8 rows) and each block walks its row's pages in series; the
-kernel source says what the redesign would do. Both kernels share their
+``[win_start, kv_lens[b])`` of its own table row; a pad row (``kv_len`` 0)
+gets zeros. It is bound by bytes too. Its ``(B, K)`` grid is small for the
+card (64 blocks at 8 rows) and each block walks its row's pages in series;
+the kernel source says what the redesign would do. Both kernels share their
 device code (``csrc/paged_attention.cuh``), as the TPU entries share
-``_decode_kernel``.
+``_decode_kernel``, with all of its branches: the sliding ``window``, the
+per-head attention ``sinks`` (one key without a value) and the int8 pool
+(``scales``, ``ops/quant_kv.py``), each as the TPU kernel computes it.
+Each wrapper counts its launches, and per combination of branches taken
+(``branch_launches``, keyed by ``branch_key``).
 
 ``flat_paged_attention_plain`` and ``decode_paged_attention_plain`` are the
 plain PyTorch versions: they gather each row's live context once and run a
-masked softmax over it in f32. The wrappers take them for CPU tensors only.
+masked softmax over it in f32, the sinks as one extra value-less key, an
+int8 pool's scales folded as the kernel folds them. The wrappers take them
+for CPU tensors only.
 """
 
 from __future__ import annotations
 
+import collections
 import ctypes
 
 import torch
@@ -47,7 +55,7 @@ def _decode_kernel():
     if _decode_lib is None:
         lib = _build.load("decode_paged_attention")
         lib.decode_paged_attention.argtypes = (
-            [ctypes.c_void_p] * 5 + [ctypes.c_int] * 9
+            [ctypes.c_void_p] * 7 + [ctypes.c_int] * 11
             + [ctypes.c_float, ctypes.c_void_p]
         )
         lib.decode_paged_attention.restype = ctypes.c_int
@@ -60,12 +68,38 @@ def _kernel():
     if _lib is None:
         lib = _build.load("flat_paged_attention")
         lib.flat_paged_attention.argtypes = (
-            [ctypes.c_void_p] * 6 + [ctypes.c_int] * 9
+            [ctypes.c_void_p] * 8 + [ctypes.c_int] * 11
             + [ctypes.c_float, ctypes.c_void_p]
         )
         lib.flat_paged_attention.restype = ctypes.c_int
         _lib = lib
     return _lib.flat_paged_attention
+
+
+def _window_starts(kv_lens: torch.Tensor, window: int) -> torch.Tensor:
+    """First attended position of each query (its kv_len - 1 is its own
+    position): ``max(kv_len - window, 0)`` for a sliding window, else 0."""
+    if window > 0:
+        return (kv_lens.long() - window).clamp(min=0)
+    return torch.zeros_like(kv_lens, dtype=torch.long)
+
+
+def _softmax_rows(s, live, sinks2d):
+    """Masked softmax numerators over the last axis of scores ``s`` [.., K,
+    G, S] with ``live`` broadcast to it, and the denominator: the sum of
+    the live numerators plus, with sinks ([K, G] f32), the sink's own
+    ``exp(sink - m)`` (a key without a value). A row with no live key and
+    no sink gets a zero numerator and denominator 1."""
+    s = s.masked_fill(~live, float("-inf"))
+    m = s.amax(dim=-1, keepdim=True)
+    if sinks2d is not None:
+        m = torch.maximum(m, sinks2d[..., None])
+    m = torch.where(torch.isfinite(m), m, 0.0)
+    p = torch.exp(s - m)
+    l = p.sum(dim=-1, keepdim=True)
+    if sinks2d is not None:
+        l = l + torch.exp(sinks2d[..., None] - m)
+    return p, torch.where(l == 0.0, 1.0, l)
 
 
 def flat_paged_attention_plain(
@@ -76,16 +110,25 @@ def flat_paged_attention_plain(
     page_table: torch.Tensor,  # [R, max_pages]
     kv_lens: torch.Tensor,  # [T] position + 1 (0 for pads)
     sm_scale: float | None = None,
+    window: int = 0,
+    sinks: torch.Tensor | None = None,  # [H]
+    scales: torch.Tensor | None = None,  # [L, num_pages, K, page, 2]
 ) -> torch.Tensor:
     """Plain PyTorch version: per row, gather the live context once and run
     a masked softmax for the row's tokens, all in f32. Tokens with
-    ``kv_len == 0`` (pads) get zeros."""
+    ``kv_len == 0`` (pads) get zeros. A token attends positions
+    ``[win_start, kv_len)``; sinks add one value-less key per head; an int8
+    pool folds its scales as the kernel does: the score is
+    ``(q . k_i8) * ks`` and the value weight ``p * vs``, zeroed off the live
+    positions."""
     T, _, H, D = q.shape
     _, _, K, page, D2 = kv_cache.shape
     G = H // K
     if sm_scale is None:
         sm_scale = D**-0.5
     lens = kv_lens.tolist()
+    starts = _window_starts(kv_lens, window)
+    sinks2d = None if sinks is None else sinks.float().reshape(K, G)
     by_row: dict[int, list[int]] = {}
     for t, (r, n) in enumerate(zip(rows.tolist(), lens)):
         if n > 0:
@@ -96,20 +139,25 @@ def flat_paged_attention_plain(
         idx = torch.tensor(toks, device=q.device)
         n = max(lens[t] for t in toks)
         pages = page_table[r, : -(-n // page)].long()
-        kv = kv_cache[layer, pages].permute(0, 2, 1, 3).reshape(-1, K, D2)[:n]
-        kv = kv.float()
+        kv = kv_cache[layer, pages].permute(0, 2, 1, 3).reshape(-1, K, D2)[:n].float()
         s = torch.einsum("tkgd,skd->tkgs", qf[idx], kv[..., :D]) * sm_scale
-        live = torch.arange(n, device=q.device)[None, :] < kv_lens[idx, None]
-        s = s.masked_fill(~live[:, None, None, :], float("-inf"))
-        p = torch.exp(s - s.amax(dim=-1, keepdim=True))
-        o = torch.einsum("tkgs,skd->tkgd", p, kv[..., D:])
-        out[idx] = o / p.sum(dim=-1, keepdim=True)
+        pos = torch.arange(n, device=q.device)[None, :]
+        live = (pos < kv_lens[idx, None]) & (pos >= starts[idx, None])  # [t, n]
+        live = live[:, None, None, :]
+        if scales is not None:
+            sc = scales[layer, pages].permute(0, 2, 1, 3).reshape(-1, K, 2)[:n].float()
+            s = s * sc[:, :, 0].t()[None, :, None, :]
+        p, l = _softmax_rows(s, live, sinks2d)
+        if scales is not None:
+            p = torch.where(live, p * sc[:, :, 1].t()[None, :, None, :], 0.0)
+        out[idx] = torch.einsum("tkgs,skd->tkgd", p, kv[..., D:]) / l
     return out.reshape(T, 1, H, D).to(q.dtype)
 
 
-def _check_common(q, kv_cache, layer, index_tensors):
-    """What both kernels require of q, the pool and their int32 index
-    tensors (``index_tensors``: (name, tensor) pairs)."""
+def _check_common(q, kv_cache, layer, index_tensors, sinks, scales):
+    """What both kernels require of q, the pool, the sinks, the int8
+    pool's scales and their int32 index tensors (``index_tensors``: (name,
+    tensor) pairs)."""
     T, Q, H, D = q.shape
     L, P, K, page, D2 = kv_cache.shape
     if Q != 1 or D2 != 2 * D or H % K:
@@ -119,13 +167,25 @@ def _check_common(q, kv_cache, layer, index_tensors):
             f"kernel takes head_dim in {_HEAD_DIMS}, <= 32 query heads per "
             f"KV head and page <= {_MAX_PAGE}; got D={D}, G={H // K}, page={page}"
         )
-    if q.dtype != kv_cache.dtype or q.dtype not in _DTYPE_CODES:
-        raise ValueError(f"q {q.dtype} and pool {kv_cache.dtype} must share a float dtype")
+    # q is the working dtype; the pool holds it too, or int8 with scales.
+    if q.dtype not in _DTYPE_CODES or kv_cache.dtype not in (q.dtype, torch.int8):
+        raise ValueError(f"q {q.dtype} and pool {kv_cache.dtype}: the pool must hold "
+                         "q's float dtype or int8")
+    if (kv_cache.dtype == torch.int8) != (scales is not None):
+        raise ValueError("an int8 pool needs its scales, and only an int8 pool takes them")
+    if scales is not None and (
+        scales.shape != (L, P, K, page, 2) or scales.dtype != torch.float32
+    ):
+        raise ValueError(f"scales must be f32 [L, P, K, page, 2], got "
+                         f"{scales.dtype} {tuple(scales.shape)}")
+    if sinks is not None and (sinks.shape != (H,) or sinks.dtype != torch.float32):
+        raise ValueError(f"sinks must be f32 [H] = [{H}], got {sinks.dtype} {tuple(sinks.shape)}")
     if page * D2 * kv_cache.element_size() > _MAX_SMEM:
         raise ValueError("one page of K|V exceeds the kernel's shared-memory tile")
     if not 0 <= layer < L:
         raise ValueError(f"layer {layer} out of range [0, {L})")
-    for name, t in (("q", q), ("kv_cache", kv_cache), *index_tensors):
+    extra = [(n, t) for n, t in (("sinks", sinks), ("scales", scales)) if t is not None]
+    for name, t in (("q", q), ("kv_cache", kv_cache), *index_tensors, *extra):
         if t.device != kv_cache.device:
             raise ValueError(f"{name} is on {t.device}, the pool on {kv_cache.device}")
         if not t.is_contiguous():
@@ -137,20 +197,38 @@ def _check_common(q, kv_cache, layer, index_tensors):
         raise ValueError("q and the pool must be 16-byte aligned")
 
 
-def _check(q, kv_cache, layer, rows, page_table, kv_lens):
+def _check(q, kv_cache, layer, rows, page_table, kv_lens, sinks, scales):
     T = q.shape[0]
     if rows.shape != (T,) or kv_lens.shape != (T,) or page_table.dim() != 2:
         raise ValueError("rows/kv_lens must be [T] and page_table [R, max_pages]")
     _check_common(q, kv_cache, layer, (
-        ("rows", rows), ("page_table", page_table), ("kv_lens", kv_lens)))
+        ("rows", rows), ("page_table", page_table), ("kv_lens", kv_lens)), sinks, scales)
 
 
-def _check_decode(q, kv_cache, layer, page_table, kv_lens):
+def _check_decode(q, kv_cache, layer, page_table, kv_lens, sinks, scales):
     B = q.shape[0]
     if kv_lens.shape != (B,) or page_table.dim() != 2 or page_table.shape[0] != B:
         raise ValueError("kv_lens must be [B] and page_table [B, max_pages]")
     _check_common(q, kv_cache, layer, (
-        ("page_table", page_table), ("kv_lens", kv_lens)))
+        ("page_table", page_table), ("kv_lens", kv_lens)), sinks, scales)
+
+
+def branch_key(window: int, sinks, scales) -> str:
+    """The kernel branches a launch takes, as ``"int8+window+sinks"``
+    (each part only when taken), or ``"plain"``."""
+    taken = [name for name, on in (("int8", scales is not None), ("window", window > 0),
+                                   ("sinks", sinks is not None)) if on]
+    return "+".join(taken) or "plain"
+
+
+def _count(fn, window: int, sinks, scales) -> None:
+    """One launch of ``fn``'s kernel, counted under the branches it took."""
+    fn.launches += 1
+    fn.branch_launches[branch_key(window, sinks, scales)] += 1
+
+
+def _ptr(t: torch.Tensor | None) -> int | None:
+    return None if t is None else t.data_ptr()
 
 
 def flat_paged_attention_full(
@@ -161,38 +239,46 @@ def flat_paged_attention_full(
     page_table: torch.Tensor,
     kv_lens: torch.Tensor,
     sm_scale: float | None = None,
+    window: int = 0,
+    sinks: torch.Tensor | None = None,
+    scales: torch.Tensor | None = None,
 ) -> torch.Tensor:
     """Attention of the packed ``[T, 1, H, D]`` query stream over
-    ``kv_cache[layer]``; returns ``[T, 1, H, D]`` in q's dtype.
+    ``kv_cache[layer]``; returns ``[T, 1, H, D]`` in q's dtype. ``window``
+    > 0 is the layer's sliding window, ``sinks`` ([H] f32) its attention
+    sinks, ``scales`` the int8 pool's ``[L, P, K, page, 2]`` scales.
 
     CUDA tensors launch the kernel on the current stream; CPU tensors take
     the plain version."""
     if kv_cache.device.type == "cpu":
         return flat_paged_attention_plain(
-            q, kv_cache, layer, rows, page_table, kv_lens, sm_scale
+            q, kv_cache, layer, rows, page_table, kv_lens, sm_scale, window,
+            sinks, scales,
         )
     if kv_cache.device.type != "cuda":
         raise ValueError(f"unsupported device {kv_cache.device}")
-    _check(q, kv_cache, layer, rows, page_table, kv_lens)
+    _check(q, kv_cache, layer, rows, page_table, kv_lens, sinks, scales)
     T, _, H, D = q.shape
     L, P, K, page, _ = kv_cache.shape
     out = torch.empty_like(q)
     if T == 0:
         return out
     err = _kernel()(
-        out.data_ptr(), q.data_ptr(), kv_cache.data_ptr(), rows.data_ptr(),
-        page_table.data_ptr(), kv_lens.data_ptr(), T, layer, P, K, page,
-        page_table.shape[1], H // K, D, _DTYPE_CODES[q.dtype],
+        out.data_ptr(), q.data_ptr(), kv_cache.data_ptr(), _ptr(scales),
+        _ptr(sinks), rows.data_ptr(), page_table.data_ptr(), kv_lens.data_ptr(),
+        T, layer, P, K, page, page_table.shape[1], H // K, D,
+        _DTYPE_CODES[q.dtype], int(scales is not None), max(int(window), 0),
         D**-0.5 if sm_scale is None else sm_scale,
         torch.cuda.current_stream(kv_cache.device).cuda_stream,
     )
     if err:
         raise RuntimeError(f"flat_paged_attention launch failed: CUDA error {err}")
-    flat_paged_attention_full.launches += 1
+    _count(flat_paged_attention_full, window, sinks, scales)
     return out
 
 
 flat_paged_attention_full.launches = 0
+flat_paged_attention_full.branch_launches = collections.Counter()
 
 
 def decode_paged_attention_plain(
@@ -203,14 +289,19 @@ def decode_paged_attention_plain(
     kv_lens: torch.Tensor,  # [B] (0 for a pad row)
     sm_scale: float | None = None,
     live_pages: int | None = None,
+    window: int = 0,
+    sinks: torch.Tensor | None = None,  # [H]
+    scales: torch.Tensor | None = None,  # [L, num_pages, K, page, 2]
 ) -> torch.Tensor:
     """Plain PyTorch version: gather every row's pages once and run a
-    masked softmax over positions ``[0, kv_len)`` in f32. Pad rows get
-    zeros. Positions past ``kv_len`` are masked out of the scores and
-    zeroed in the values, so uninitialised pool memory never enters a sum.
-    It reads nothing back to the host; ``live_pages`` (the batch's largest
-    live page count, where the caller knows it on the host) bounds the
-    gather, which otherwise spans the table's width."""
+    masked softmax over positions ``[win_start, kv_len)`` in f32, with the
+    sinks as value-less keys and an int8 pool's scales folded as in
+    ``flat_paged_attention_plain``. Pad rows get zeros. Positions off the
+    live range are masked out of the scores and zeroed in the values, so
+    uninitialised pool memory never enters a sum. It reads nothing back to
+    the host; ``live_pages`` (the batch's largest live page count, where
+    the caller knows it on the host) bounds the gather, which otherwise
+    spans the table's width."""
     B, _, H, D = q.shape
     _, _, K, page, D2 = kv_cache.shape
     G = H // K
@@ -220,16 +311,19 @@ def decode_paged_attention_plain(
     S = pages.shape[1] * page
     kv = kv_cache[layer][pages]  # [B, n, K, page, 2D]
     kv = kv.permute(0, 1, 3, 2, 4).reshape(B, S, K, D2).float()
-    live = torch.arange(S, device=q.device)[None, :] < kv_lens[:, None]  # [B, S]
+    pos = torch.arange(S, device=q.device)[None, :]
+    live = (pos < kv_lens[:, None]) & (pos >= _window_starts(kv_lens, window)[:, None])
     qf = q[:, 0].float().reshape(B, K, G, D)
     s = torch.einsum("bkgd,bskd->bkgs", qf, kv[..., :D]) * sm_scale
-    s = s.masked_fill(~live[:, None, None, :], float("-inf"))
-    m = s.amax(dim=-1, keepdim=True)
-    m = torch.where(torch.isfinite(m), m, 0.0)  # a pad row: every score -inf
-    p = torch.exp(s - m)
+    mask = live[:, None, None, :]
+    if scales is not None:
+        sc = scales[layer][pages].permute(0, 1, 3, 2, 4).reshape(B, S, K, 2).float()
+        s = s * sc[..., 0].transpose(1, 2)[:, :, None, :]
+    p, l = _softmax_rows(s, mask, None if sinks is None else sinks.float().reshape(K, G))
+    if scales is not None:
+        p = torch.where(mask, p * sc[..., 1].transpose(1, 2)[:, :, None, :], 0.0)
     v = torch.where(live[:, :, None, None], kv[..., D:], 0.0)
-    l = p.sum(dim=-1, keepdim=True)
-    o = torch.einsum("bkgs,bskd->bkgd", p, v) / torch.where(l == 0.0, 1.0, l)
+    o = torch.einsum("bkgs,bskd->bkgd", p, v) / l
     return o.reshape(B, 1, H, D).to(q.dtype)
 
 
@@ -240,38 +334,46 @@ def decode_paged_attention_full(
     page_table: torch.Tensor,
     kv_lens: torch.Tensor,
     sm_scale: float | None = None,
+    window: int = 0,
+    sinks: torch.Tensor | None = None,
+    scales: torch.Tensor | None = None,
 ) -> torch.Tensor:
     """Attention of the decode batch's ``[B, 1, H, D]`` queries over
     ``kv_cache[layer]``, row b over its own table row; returns
-    ``[B, 1, H, D]`` in q's dtype.
+    ``[B, 1, H, D]`` in q's dtype. ``window``, ``sinks`` and ``scales`` as
+    in ``flat_paged_attention_full``.
 
     CUDA tensors launch the kernel on the current stream; CPU tensors take
     the plain version."""
     if kv_cache.device.type == "cpu":
         return decode_paged_attention_plain(
-            q, kv_cache, layer, page_table, kv_lens, sm_scale
+            q, kv_cache, layer, page_table, kv_lens, sm_scale, None, window,
+            sinks, scales,
         )
     if kv_cache.device.type != "cuda":
         raise ValueError(f"unsupported device {kv_cache.device}")
-    _check_decode(q, kv_cache, layer, page_table, kv_lens)
+    _check_decode(q, kv_cache, layer, page_table, kv_lens, sinks, scales)
     B, _, H, D = q.shape
     _, P, K, page, _ = kv_cache.shape
     out = torch.empty_like(q)
     if B == 0:
         return out
     err = _decode_kernel()(
-        out.data_ptr(), q.data_ptr(), kv_cache.data_ptr(), page_table.data_ptr(),
-        kv_lens.data_ptr(), B, layer, P, K, page, page_table.shape[1], H // K, D,
-        _DTYPE_CODES[q.dtype], D**-0.5 if sm_scale is None else sm_scale,
+        out.data_ptr(), q.data_ptr(), kv_cache.data_ptr(), _ptr(scales),
+        _ptr(sinks), page_table.data_ptr(), kv_lens.data_ptr(), B, layer, P, K,
+        page, page_table.shape[1], H // K, D, _DTYPE_CODES[q.dtype],
+        int(scales is not None), max(int(window), 0),
+        D**-0.5 if sm_scale is None else sm_scale,
         torch.cuda.current_stream(kv_cache.device).cuda_stream,
     )
     if err:
         raise RuntimeError(f"decode_paged_attention launch failed: CUDA error {err}")
-    decode_paged_attention_full.launches += 1
+    _count(decode_paged_attention_full, window, sinks, scales)
     return out
 
 
 decode_paged_attention_full.launches = 0
+decode_paged_attention_full.branch_launches = collections.Counter()
 
 
 def decode_paged_attention(

@@ -2,6 +2,7 @@
 
     python -m llmd_tpu_torch.profile_step [--model llama-3-8b] [--batch 32]
         [--prompt-len 1000] [--decode-steps 16] [--decode-window 8]
+        [--kv-cache-dtype int8]
 
 Serves ``--batch`` greedy requests of ``--prompt-len`` random tokens
 through ``LLMEngine`` (random weights from ``--seed``) and traces three
@@ -11,7 +12,9 @@ prefill-heavy step of ``max_num_batched_tokens`` live tokens),
 engine with ``decode_window = --decode-window``, as many fused decode
 windows as cover the same number of tokens. The default engine runs the
 flat step, or for an MLA model (``--model deepseek-v2-lite``) the bucketed
-unified step and one-iteration decode windows. For each window it prints one
+unified step and one-iteration decode windows; ``--model gpt-oss-20b`` runs
+its sliding and full layers on the flat step, and ``--kv-cache-dtype int8``
+puts any GQA model's KV in the int8 pool. For each window it prints one
 JSON line: host milliseconds per step (the step ends in its device->host
 copy), the device's busy milliseconds per step (the sum of its CUDA
 kernels' times; one stream, so kernels do not overlap), the device's idle
@@ -124,6 +127,8 @@ def main(argv=None) -> None:
     p.add_argument("--decode-window", type=int, default=8)
     p.add_argument("--max-num-batched-tokens", type=int, default=1024)
     p.add_argument("--seed", type=int, default=0)
+    p.add_argument("--kv-cache-dtype", default=None,
+                   help="KV pool dtype: the weights' (default) or int8")
     args = p.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("profile_step needs a CUDA device")
@@ -151,7 +156,8 @@ def main(argv=None) -> None:
         config = EngineConfig(
             model=cfg,
             cache=CacheConfig(page_size=page, num_blocks=args.batch * per_seq + 64,
-                              dtype=cfg.dtype, enable_prefix_caching=False),
+                              dtype=args.kv_cache_dtype or cfg.dtype,
+                              enable_prefix_caching=False),
             scheduler=SchedulerConfig(max_num_seqs=max(64, args.batch),
                                       max_num_batched_tokens=args.max_num_batched_tokens,
                                       **sched),
@@ -191,6 +197,7 @@ def main(argv=None) -> None:
         windows[name] = trace_steps(eng, n, untraced[name])
     for name, w in windows.items():
         print(json.dumps({"window": name, "model": args.model, "batch": args.batch,
+                          "kv_cache_dtype": args.kv_cache_dtype or cfg.dtype,
                           "prompt_len": args.prompt_len, "card": card, **w}), flush=True)
 
 

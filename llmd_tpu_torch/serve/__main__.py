@@ -3,7 +3,7 @@
 Where ``python -m llmd_tpu.serve`` has a flag, the port uses its name
 (``--model``, ``--host``, ``--port``, ``--max-num-seqs``,
 ``--max-num-batched-tokens``, ``--seed``, ``--decode-window``,
-``--unified-step``, ``--ragged-qlens``). The model's weights are random,
+``--unified-step``, ``--ragged-qlens``, ``--kv-cache-dtype``). The model's weights are random,
 drawn on the device from ``--seed``; the byte tokenizer keeps the server
 hermetic. Runs on the GPU unless ``--device cpu`` is given.
 """
@@ -24,6 +24,12 @@ def build_parser() -> argparse.ArgumentParser:
         help="weights and KV pool dtype (default: the registry's)",
     )
     p.add_argument("--num-blocks", type=int, default=2048, help="KV pool pages")
+    p.add_argument(
+        "--kv-cache-dtype", default=None,
+        help="KV pool dtype: the weights' dtype (default), or int8 for the "
+             "quantized pool (per-row int8 K|V with f32 scales; not for MLA "
+             "models)",
+    )
     p.add_argument("--max-num-seqs", type=int, default=64)
     p.add_argument("--max-num-batched-tokens", type=int, default=1024)
     p.add_argument("--seed", type=int, default=0)
@@ -57,7 +63,8 @@ def make_engine_config(args):
     model = get_model_config(args.model, **overrides)
     return EngineConfig(
         model=model,
-        cache=CacheConfig(num_blocks=args.num_blocks, dtype=model.dtype),
+        cache=CacheConfig(num_blocks=args.num_blocks,
+                          dtype=args.kv_cache_dtype or model.dtype),
         scheduler=SchedulerConfig(
             max_num_seqs=args.max_num_seqs,
             max_num_batched_tokens=args.max_num_batched_tokens,

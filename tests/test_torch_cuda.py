@@ -473,3 +473,229 @@ def test_moe_mla_engine_on_the_card_matches_the_cpu_engine(dev, model, layout, m
         assert counts["mla_decode_paged_attention_full"] == L * forwards.count(1) > 0
         assert counts["write_kv_pages_decode_full"] == L * forwards.count(1)
         assert counts["flat_paged_attention_full"] == counts["decode_paged_attention_full"] == 0
+
+
+# --------------------------------------------------------------------- #
+# The window, sink and int8 branches of K1'-K4'
+
+# name -> (sliding window, sinks, int8 pool)
+BRANCHES = {
+    "window": (40, False, False),
+    "sinks": (0, True, False),
+    "int8": (0, False, True),
+    "int8+window+sinks": (40, True, True),
+}
+
+
+def branch_pool(rng, dev, dtype, L, P, K, page, D, int8):
+    """A float pool in ``dtype``, or (int8 data, f32 scales on the f16
+    grid); with them the sinks' inputs."""
+    if not int8:
+        pool = torch.from_numpy(rng.normal(size=(L, P, K, page, 2 * D)).astype(np.float32))
+        return pool.to(dev, dtype), None
+    data = torch.from_numpy(rng.integers(-127, 128, size=(L, P, K, page, 2 * D)).astype(np.int8))
+    scales = rng.uniform(0.004, 0.016, size=(L, P, K, page, 2)).astype(np.float16)
+    return data.to(dev), torch.from_numpy(scales.astype(np.float32)).to(dev)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("page,D,K,G", [(16, 64, 8, 8), (16, 128, 8, 4), (8, 64, 2, 1), (32, 128, 4, 2)])
+@pytest.mark.parametrize("branch", sorted(BRANCHES))
+def test_flat_attention_branches_match_plain(dev, branch, page, D, K, G, dtype):
+    rng = np.random.default_rng(21)
+    window, with_sinks, int8 = BRANCHES[branch]
+    pt, rows, _, kv_lens, total, P = flat_step(rng, page)
+    T = len(rows)
+    pool, scales = branch_pool(rng, dev, dtype, 2, P, K, page, D, int8)
+    q = torch.from_numpy(rng.normal(size=(T, 1, K * G, D))).to(dev, dtype)
+    sinks = torch.from_numpy(rng.normal(size=(K * G,)).astype(np.float32)).to(dev) if with_sinks else None
+    pt, rows, kv_lens = on(dev, pt, rows, kv_lens)
+    ops.reset_launch_counts()
+    args = (q, pool, 1, rows, pt, kv_lens, None, window, sinks, scales)
+    got = ops.flat_paged_attention_full(*args)
+    want = ops.flat_paged_attention_plain(*args)
+    torch.cuda.synchronize()
+    atol, rtol = TOL[dtype]
+    torch.testing.assert_close(got[:total].float(), want[:total].float(), atol=atol, rtol=rtol)
+    assert not got[total:].any()
+    key = ops.ragged_paged_attention.branch_key(window, sinks, scales)
+    assert key == branch
+    assert ops.branch_launch_counts() == {f"flat_paged_attention_full[{key}]": 1}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("page,D,K,G", [(16, 64, 8, 8), (16, 128, 8, 4), (8, 64, 2, 1), (32, 128, 4, 2)])
+@pytest.mark.parametrize("branch", sorted(BRANCHES))
+def test_decode_attention_branches_match_plain(dev, branch, page, D, K, G, dtype):
+    """Rows shorter and longer than the window, and pad rows, which come
+    out as zeros with sinks too."""
+    rng = np.random.default_rng(22)
+    window, with_sinks, int8 = BRANCHES[branch]
+    pt, kv_lens, _, _, _, P = decode_step(rng, page, DECODE_LENS)
+    B = len(kv_lens)
+    pool, scales = branch_pool(rng, dev, dtype, 2, P, K, page, D, int8)
+    q = torch.from_numpy(rng.normal(size=(B, 1, K * G, D))).to(dev, dtype)
+    sinks = torch.from_numpy(rng.normal(size=(K * G,)).astype(np.float32)).to(dev) if with_sinks else None
+    pt, kv_lens = on(dev, pt, kv_lens)
+    ops.reset_launch_counts()
+    kw = dict(window=window, sinks=sinks, scales=scales)
+    got = ops.decode_paged_attention_full(q, pool, 1, pt, kv_lens, **kw)
+    want = ops.decode_paged_attention_plain(q, pool, 1, pt, kv_lens, **kw)
+    torch.cuda.synchronize()
+    atol, rtol = TOL[dtype]
+    torch.testing.assert_close(got.float(), want.float(), atol=atol, rtol=rtol)
+    assert not got[kv_lens == 0].any()
+    key = ops.ragged_paged_attention.branch_key(window, sinks, scales)
+    assert ops.branch_launch_counts() == {f"decode_paged_attention_full[{key}]": 1}
+
+
+def test_branches_never_read_dead_positions(dev):
+    """Positions before the window and past kv_len hold NaN data and an
+    f16-overflow inf scale: the kernels read neither (pages wholly before
+    the window are not fetched), so the result is finite and equals the
+    plain version on a clean pool."""
+    rng = np.random.default_rng(23)
+    page, D, K, G, window = 16, 64, 8, 8, 40
+    pt, kv_lens, _, _, _, P = decode_step(rng, page, DECODE_LENS)
+    B = len(kv_lens)
+    sinks = torch.from_numpy(rng.normal(size=(K * G,)).astype(np.float32)).to(dev)
+    q = torch.from_numpy(rng.normal(size=(B, 1, K * G, D)).astype(np.float32)).to(dev)
+    for int8 in (False, True):
+        pool, scales = branch_pool(rng, dev, torch.float32, 1, P, K, page, D, int8)
+        dirty_pool, dirty_scales = pool.clone(), None if scales is None else scales.clone()
+        for b, n in enumerate(kv_lens):
+            for i in [*range(max(int(n) - window, 0)), *range(n, pt.shape[1] * page)]:
+                if int8:
+                    dirty_scales[:, pt[b, i // page], :, i % page] = float("inf")
+                else:
+                    dirty_pool[:, pt[b, i // page], :, i % page] = float("nan")
+        tpt, tkv = on(dev, pt, kv_lens)
+        got = ops.decode_paged_attention_full(q, dirty_pool, 0, tpt, tkv, None, window, sinks, dirty_scales)
+        want = ops.decode_paged_attention_plain(q, pool, 0, tpt, tkv, None, None, window, sinks, scales)
+        torch.cuda.synchronize()
+        assert torch.isfinite(got).all()
+        torch.testing.assert_close(got, want, atol=1e-5, rtol=0)
+
+
+def edge_rows(x):
+    """Row 0 all zeros; row 1 so large that amax / 127 overflows f16."""
+    x = x.clone()
+    x[0] = 0.0
+    x[1] = torch.where(x[1] >= 0, 1e7, -1e7)
+    return x
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("page,D,K", [(16, 128, 8), (16, 64, 8), (8, 256, 1)])
+def test_int8_writes_are_bit_exact(dev, dtype, page, D, K):
+    """K2' and K4' on an int8 pool store ``quantize_kv_rows``'s bytes and
+    scales exactly, the all-zero and the f16-overflow rows included; pad
+    rows write nothing."""
+    rng = np.random.default_rng(24)
+    L = 3
+    pt, rows, positions, _, total, P = flat_step(rng, page)
+    T = len(rows)
+    data = torch.from_numpy(rng.integers(-127, 128, size=(L, P, K, page, 2 * D)).astype(np.int8)).to(dev)
+    scales = torch.ones((L, P, K, page, 2), device=dev)
+    # (In f16 the overflow row's 1e7 is inf: scale inf, data 0 as well.)
+    k = edge_rows(torch.from_numpy(rng.normal(size=(T, 1, K, D)).astype(np.float32))).to(dev, dtype)
+    v = edge_rows(torch.from_numpy(rng.normal(size=(T, 1, K, D)).astype(np.float32) * 4)).to(dev, dtype)
+    pt, rows, positions = on(dev, pt, rows, positions)
+    ref = (data.clone(), scales.clone())
+    ops.reset_launch_counts()
+    ops.write_kv_pages_flat_full(data, 1, k, v, pt, rows, positions, total, scales)
+    ops.write_kv_pages_flat_plain(ref[0], 1, k, v, pt, rows, positions, total, ref[1])
+    torch.cuda.synchronize()
+    assert torch.equal(data, ref[0]) and torch.equal(scales, ref[1])
+    assert ops.branch_launch_counts() == {"write_kv_pages_flat_full[int8]": 1}
+    # The decode write, with pad rows whose targets are garbage.
+    pt2, kv_lens, phys, offset, valid, P2 = decode_step(rng, page, DECODE_LENS)
+    B = len(kv_lens)
+    data2 = torch.zeros((L, P2, K, page, 2 * D), dtype=torch.int8, device=dev)
+    scales2 = torch.ones((L, P2, K, page, 2), device=dev)
+    kv_new = edge_rows(torch.from_numpy(rng.normal(size=(B, K, 2 * D)).astype(np.float32))).to(dev, dtype)
+    phys, offset, valid = on(dev, phys, offset, valid)
+    ref2 = (data2.clone(), scales2.clone())
+    ops.write_kv_pages_decode_full(data2, kv_new, 2, phys, offset, valid, scales2)
+    ops.write_kv_pages_decode_plain(ref2[0], kv_new, 2, phys, offset, valid, ref2[1])
+    torch.cuda.synchronize()
+    assert torch.equal(data2, ref2[0]) and torch.equal(scales2, ref2[1])
+    assert ops.branch_launch_counts() == {"write_kv_pages_flat_full[int8]": 1,
+                                          "write_kv_pages_decode_full[int8]": 1}
+
+
+def test_int8_and_sink_wrappers_refuse_what_the_kernels_do_not_take(dev):
+    rng = np.random.default_rng(25)
+    pt, rows, positions, kv_lens, total, P = flat_step(rng, 16)
+    T = len(rows)
+    data = torch.zeros((2, P, 2, 16, 128), device=dev, dtype=torch.int8)
+    scales = torch.ones((2, P, 2, 16, 2), device=dev)
+    q = torch.zeros((T, 1, 4, 64), device=dev, dtype=torch.bfloat16)
+    k = torch.zeros((T, 1, 2, 64), device=dev, dtype=torch.bfloat16)
+    pt, rows, positions, kv_lens = on(dev, pt, rows, positions, kv_lens)
+    with pytest.raises(ValueError, match="scales"):
+        ops.flat_paged_attention_full(q, data, 0, rows, pt, kv_lens)
+    with pytest.raises(ValueError, match="scales"):
+        ops.flat_paged_attention_full(q, data, 0, rows, pt, kv_lens, scales=scales.half())
+    with pytest.raises(ValueError, match="sinks"):
+        ops.flat_paged_attention_full(q, data, 0, rows, pt, kv_lens, scales=scales,
+                                      sinks=torch.zeros(4, device=dev, dtype=torch.bfloat16))
+    with pytest.raises(ValueError, match="sinks"):
+        ops.flat_paged_attention_full(q, data, 0, rows, pt, kv_lens, scales=scales,
+                                      sinks=torch.zeros(3, device=dev))
+    with pytest.raises(ValueError, match="int8"):
+        ops.write_kv_pages_flat_full(data.float(), 0, k, k, pt, rows, positions, total, scales)
+    with pytest.raises(ValueError, match="float rows"):
+        ops.write_kv_pages_flat_full(data, 0, k.to(torch.int8), k.to(torch.int8), pt, rows,
+                                     positions, total, scales)
+
+
+OSS_TINY = dict(
+    name="tiny-oss", head_dim=64, num_layers=2, sliding_window=24,
+    layer_types=("sliding_attention", "full_attention"),
+    attention_bias=True, attention_out_bias=True, attention_sinks=True,
+    rope_scaling={"rope_type": "yarn", "factor": 4.0, "beta_fast": 32.0,
+                  "beta_slow": 1.0, "original_max_position_embeddings": 32},
+    num_experts=4, num_experts_per_tok=2, moe_intermediate_size=64,
+    moe_activation="swiglu_oss", router_logit_bias=True,
+)
+
+
+@pytest.mark.parametrize("kv_dtype", ["float32", "int8"])
+@pytest.mark.parametrize("layout", ["flat", "window", "bucketed"])
+def test_oss_engine_on_the_card_matches_the_cpu_engine(dev, layout, kv_dtype):
+    """A tiny gpt-oss model (windows, sinks, biases, yarn, biased experts;
+    f32, seeded random biases) on a float and an int8 pool: the card's
+    greedy and seeded streams equal the CPU's, and every launch of the
+    attention kernels took the sink branch, half of them the window one."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    mcfg = tiny_model_config(**OSS_TINY)
+    cfg = EngineConfig(
+        model=mcfg,
+        cache=CacheConfig(page_size=8, num_blocks=64, dtype=kv_dtype),
+        scheduler=SchedulerConfig(max_num_seqs=8, max_num_batched_tokens=32, **LAYOUTS[layout]),
+    )
+    params = llama.init_params(mcfg, torch.Generator().manual_seed(0), "cpu")
+    gen = torch.Generator().manual_seed(1)
+    for name in ("bq", "bk", "bv", "bo", "router_bias", "we_gate_b", "we_up_b", "we_down_b"):
+        w = params["layers"][name]
+        params["layers"][name] = 0.1 * torch.randn(w.shape, generator=gen, dtype=w.dtype)
+    rng = np.random.default_rng(3)
+    prompts = [rng.integers(0, 256, size=n).tolist() for n in (5, 40, 17, 70)]
+    sps = [SamplingParams(temperature=t, max_tokens=12, ignore_eos=True, seed=9)
+           for t in (0.0, 0.8, 0.0, 0.8)]
+    cpu = LLMEngine(cfg, params=params, device="cpu").generate(prompts, sps)
+    gpu_engine = LLMEngine(cfg, params=params, device="cuda")
+    ops.reset_launch_counts()
+    gpu = gpu_engine.generate(prompts, sps)
+    assert list(gpu.values()) == list(cpu.values())
+    counts, branches = ops.launch_counts(), ops.branch_launch_counts()
+    q8 = "int8+" if kv_dtype == "int8" else ""
+    for fn in ("flat_paged_attention_full", "decode_paged_attention_full"):
+        # The sliding layer takes window + sinks, the full one sinks.
+        n = counts[fn] // 2
+        assert branches.get(f"{fn}[{q8}window+sinks]", 0) == branches.get(f"{fn}[{q8}sinks]", 0) == n
+    for fn in ("write_kv_pages_flat_full", "write_kv_pages_decode_full"):
+        assert branches.get(f"{fn}[{'int8' if q8 else 'plain'}]", 0) == counts[fn]
+    assert counts["grouped_matmul"] > 0
+    assert counts["flat_paged_attention_full"] + counts["decode_paged_attention_full"] > 0

@@ -48,13 +48,20 @@ LAYOUTS = {
 OTHER_LAYOUTS = ["split", "window", "bucketed"]
 
 
-def engines(num_blocks=64, page=4, max_batched=32, max_seqs=8, model="tiny", **sched):
+def engines(num_blocks=64, page=4, max_batched=32, max_seqs=8, model="tiny",
+            kv_dtype="float32", **sched):
+    """The JAX engine and the port's on its parameters. ``model`` is a
+    registry name or a dict of ``tiny_model_config`` kwargs."""
     kw = dict(
-        cache=dict(page_size=page, num_blocks=num_blocks, dtype="float32"),
+        cache=dict(page_size=page, num_blocks=num_blocks, dtype=kv_dtype),
         scheduler=dict(max_num_seqs=max_seqs, max_num_batched_tokens=max_batched, **sched),
     )
+    if isinstance(model, dict):
+        jmodel, tmodel = jcfg.tiny_model_config(**model), tcfg.tiny_model_config(**model)
+    else:
+        jmodel, tmodel = jax_model_config(model), get_model_config(model)
     jax_engine = JaxEngine(jcfg.EngineConfig(
-        model=jax_model_config(model),
+        model=jmodel,
         cache=jcfg.CacheConfig(**kw["cache"]),
         scheduler=jcfg.SchedulerConfig(**kw["scheduler"]),
         parallel=jcfg.ParallelConfig(tensor_parallel_size=1),
@@ -62,7 +69,7 @@ def engines(num_blocks=64, page=4, max_batched=32, max_seqs=8, model="tiny", **s
     params = params_from_jax(jax.tree.map(np.asarray, jax_engine.runner.params))
     port = LLMEngine(
         tcfg.EngineConfig(
-            model=get_model_config(model),
+            model=tmodel,
             cache=tcfg.CacheConfig(**kw["cache"]),
             scheduler=tcfg.SchedulerConfig(**kw["scheduler"]),
         ),
@@ -258,7 +265,7 @@ def counting_host_reads():
             setattr(torch.Tensor, name, fn)
 
 
-@pytest.mark.parametrize("model", ["tiny", "tiny-moe", "tiny-mla"])
+@pytest.mark.parametrize("model", ["tiny", "tiny-moe", "tiny-mla", "tiny-swa"])
 def test_decode_window_loop_reads_nothing_back(model):
     """The K iterations of a fused window are enqueued without one host
     read: the tokens go round on the device until ``wait_step``. The MoE
@@ -431,7 +438,35 @@ def test_registry_entry_matches_jax(name):
 
 
 def test_gpt_oss_expert_fields_raise():
-    """The gpt-oss experts are not ported: their config fields raise."""
-    for field, value in (("moe_activation", "swiglu_oss"), ("router_logit_bias", True)):
-        with pytest.raises(TypeError):
-            tcfg.ModelConfig(**{field: value})
+    """The gpt-oss expert fields are ported (the JAX values and defaults);
+    what the JAX config refuses with them raises alike: a sliding window on
+    an MLA model, and layer_types of the wrong length."""
+    for field, value in (("moe_activation", "swiglu_oss"), ("router_logit_bias", True),
+                         ("swiglu_limit", 5.0)):
+        port, ref = tcfg.ModelConfig(**{field: value}), jcfg.ModelConfig(**{field: value})
+        assert getattr(port, field) == getattr(ref, field) == value
+    for bad in (dict(sliding_window=64, kv_lora_rank=32),
+                dict(layer_types=("full_attention",), num_layers=2)):
+        with pytest.raises(ValueError):
+            jcfg.ModelConfig(**bad)
+        with pytest.raises(ValueError):
+            tcfg.ModelConfig(**bad)
+
+
+def long_prompts(window):
+    """Prompts around and well past ``window`` tokens, staggered by a
+    16-token budget so that later chunks run beside earlier decodes."""
+    rng = np.random.default_rng(5)
+    return [rng.integers(0, 256, size=n).tolist()
+            for n in (window + 9, 5, min(2 * window + 3, 100), window - 1)]
+
+
+def layout_streams_match(j, p, prompts):
+    """Greedy and seeded streams equal the JAX engine's, and so do the
+    engines' step counters."""
+    for sp in (dict(temperature=0.0, max_tokens=10, ignore_eos=True),
+               dict(temperature=0.8, max_tokens=10, seed=7, ignore_eos=True)):
+        assert streams(p, prompts, SamplingParams, **sp) == streams(j, prompts, JaxSP, **sp)
+    for name in ("engine_steps_total", "step_dispatches_total", "decode_dispatches_total",
+                 "unified_steps_total"):
+        assert getattr(p.stats, name) == getattr(j.stats, name), name

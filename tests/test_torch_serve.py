@@ -195,3 +195,37 @@ def test_cli_defaults_to_the_gpu():
         pytest.skip("a CUDA device is present")
     with pytest.raises(RuntimeError, match="no CUDA device"):
         serve_main.main(["--model", "tiny", "--num-blocks", "8"])
+
+
+async def test_int8_pool_server_answers_a_completion():
+    """``--device cpu --kv-cache-dtype int8``: the server's engine keeps its
+    KV in the int8 pool, and its completion carries the tokens a twin
+    engine on the same flags generates directly."""
+    argv = ["--model", "tiny", "--device", "cpu", "--num-blocks", "64", "--seed", "3",
+            "--dtype", "float32", "--max-num-seqs", "8", "--max-num-batched-tokens", "32",
+            "--kv-cache-dtype", "int8"]
+    cfg = serve_main.make_engine_config(serve_main.build_parser().parse_args(argv))
+    assert cfg.cache.quantized and cfg.model.dtype == "float32"
+    engine = LLMEngine(cfg, device="cpu")
+    data, scales = engine.runner.kv_cache
+    assert data.dtype == torch.int8 and scales.shape[-1] == 2
+    app = build_app(AsyncEngine(engine), ByteTokenizer(), "tiny", cfg.model.max_model_len)
+    client = TestClient(TestServer(app))
+    await client.start_server()
+    try:
+        r = await client.post("/v1/completions", json={
+            "prompt": PROMPT, "max_tokens": 8, "temperature": 0.0, "ignore_eos": True})
+        data_json = await r.json()
+    finally:
+        await client.close()
+    assert r.status == 200 and data_json["usage"]["completion_tokens"] == 8
+    sp = SamplingParams(temperature=0.0, max_tokens=8, ignore_eos=True)
+    (tokens,) = LLMEngine(cfg, device="cpu").generate([PROMPT], sp).values()
+    detok = Detokenizer(ByteTokenizer(), [])
+    detok.feed(tokens, final=True)
+    assert data_json["choices"][0]["text"] == detok.emitted
+    # The default pool holds the weights' dtype; gpt-oss-20b is served by name.
+    args = serve_main.build_parser().parse_args(["--model", "gpt-oss-20b"])
+    cfg = serve_main.make_engine_config(args)
+    assert cfg.cache.dtype == cfg.model.dtype == "bfloat16" and not cfg.cache.quantized
+    assert cfg.model.layer_windows[:2] == (128, 0) and cfg.model.attention_sinks

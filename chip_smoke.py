@@ -13,9 +13,14 @@ gpt-oss-20b (random weights from a seed):
                against its plain PyTorch version on the same inputs, and
                timed beside its bound, the plain version and one PyTorch
                library call computing the same function: the flat pair on
-               one mixed flat step (3 prefill chunks + 32 decode rows), the
-               decode pair on one decode step (batch bucket 64: 48 live
-               rows at 1k-4k context, 16 pad rows).
+               one mixed flat step (3 prefill chunks + 32 decode rows), K1'
+               also on a prefill-only step (one 1,024-token chunk over a
+               3,072-token prefix, bound by operations), the decode pair on
+               one decode step (batch bucket 64: 48 live rows at 1k-4k
+               context, 16 pad rows). K1' is timed with the step's query
+               tiles built once, as a forward builds them for all layers;
+               the K1'/K3' rows carry their tiles ("items"), spans a row
+               ("spans") and share of the bound ("bound_share").
 4. ``forward`` one mixed flat step and one bucketed decode step (Q = 1, 64
                rows) of the 32-layer model through the kernels and through
                the plain versions on the card, both held to an f32 run.
@@ -190,6 +195,62 @@ def mixed_step(cfg, page, max_pages, prefills, decode_ctx, gen, dev):
     }
 
 
+def attention_plan(kind: str, step: dict, H: int, K: int, page: int, window: int = 0) -> dict:
+    """How K1' ("flat") or K3' ("decode") cuts this step, as the wrappers
+    cut it: the flat step's query tiles (built once, as a forward builds
+    them for all its layers, and passed to every timed call), the tiles'
+    count and the spans a row's pages are cut into."""
+    from llmd_tpu_torch.ops import ragged_paged_attention as rpa
+
+    live = rpa.live_pages_bound(step["page_table"].shape[1], page, window)
+    sms = rpa._sm_count(0)
+    if kind == "decode":
+        return {"items": step["B"], "spans": rpa.spans_for(step["B"] * K, live, sms)}
+    items = rpa.flat_work_items(step["rows"], step["kv_lens"], H // K)
+    grid = rpa.flat_grid(step["T"], step["page_table"].shape[0], H // K)
+    return {"tiles": items, "items": int((items[:, 1] > 0).sum().item()),
+            "spans": rpa.spans_for(grid * K, live, sms)}
+
+
+def flat_attention_row(name: str, q, pool, layer: int, s: dict, page: int) -> dict:
+    """K1' on the flat step ``s`` (llama-3-8b shapes): within one bf16 ulp
+    of the plain version (outside_one_ulp), pads zero; timed with the
+    step's query tiles built once, beside its bound, the plain version and
+    SDPA. The bound: every row's distinct live K|V read once, q read, out
+    written; operations: QK and PV, 2 flops per multiply-add, per (token,
+    position) pair."""
+    from llmd_tpu_torch import ops
+
+    H, K = q.shape[2], pool.shape[2]
+    plan = attention_plan("flat", s, H, K, page)
+    aargs = (q, pool, layer, s["rows"], s["page_table"], s["kv_lens"])
+    got = ops.flat_paged_attention_full(*aargs)
+    want = ops.flat_paged_attention_plain(*aargs)
+    torch.cuda.synchronize()
+    err, bad = outside_one_ulp(got[: s["total"]], want[: s["total"]])
+    if bad or got[s["total"]:].any():
+        raise AssertionError(f"{name}: max abs err {err} vs plain, or a pad is not zero")
+    del got, want
+    es, D = pool.element_size(), q.shape[3]
+    ctx = [p0 + w for p0, w in s["rows_spec"]]
+    kv_bytes = sum(ctx) * K * 2 * D * es
+    qo_bytes = 2 * s["total"] * H * D * es
+    b_ms, b_by = bound(kv_bytes + qo_bytes, 4.0 * H * D * s["kv_lens"].sum().item())
+    tiles = plan["tiles"]
+    ms = cuda_ms(lambda: ops.flat_paged_attention_full(*aargs, items=tiles))
+    return {
+        "name": name, "route": "cuda",
+        "source": "llmd_tpu_torch/ops/csrc/flat_paged_attention.cu",
+        "replaces": "llmd_tpu/ops/ragged_paged_attention.py:344",
+        "max_abs_err": err, "ms": ms,
+        "plain_ms": cuda_ms(lambda: ops.flat_paged_attention_plain(*aargs), reps=10, warmup=1),
+        "bound_ms": b_ms, "bound_by": b_by,
+        "library_ms": _sdpa_yardstick(q, pool, layer, s, page),
+        "bound_share": b_ms / ms, "items": plan["items"], "spans": plan["spans"],
+        "items_ms": cuda_ms(lambda: ops.flat_work_items(s["rows"], s["kv_lens"], H // K)),
+    }
+
+
 def kernels_phase(info: dict) -> dict:
     from llmd_tpu_torch import ops
     from llmd_tpu_torch.models.registry import get_model_config
@@ -247,34 +308,21 @@ def kernels_phase(info: dict) -> dict:
             (phys[:, None], heads[None, :], slot[:, None]), kv_live)),
     })
 
-    # --- K1': flat paged attention, within one bf16 ulp of the plain
-    # version (outside_one_ulp).
-    aargs = (q, pool, layer, s["rows"], s["page_table"], s["kv_lens"])
-    got = ops.flat_paged_attention_full(*aargs)
-    want = ops.flat_paged_attention_plain(*aargs)
-    torch.cuda.synchronize()
-    err, bad = outside_one_ulp(got, want)
-    if bad:
-        raise AssertionError(f"flat_paged_attention: max abs err {err} vs plain")
-    # Bound: every row's distinct live K|V read once, q read, out written;
-    # operations: QK and PV, 2 flops per multiply-add, per live token.
-    ctx = [p0 + w for p0, w in s["rows_spec"]]
-    kv_bytes = sum(ctx) * K * 2 * D * es
-    qo_bytes = 2 * total * H * D * es
-    flops = 4.0 * H * D * s["kv_lens"].sum().item()
-    b_ms, b_by = bound(kv_bytes + qo_bytes, flops)
-    lib_ms = _sdpa_yardstick(q, pool, layer, s, page)
-    out.append({
-        "name": "flat_paged_attention", "route": "cuda",
-        "source": "llmd_tpu_torch/ops/csrc/flat_paged_attention.cu",
-        "replaces": "llmd_tpu/ops/ragged_paged_attention.py:344",
-        "max_abs_err": err,
-        "ms": cuda_ms(lambda: ops.flat_paged_attention_full(*aargs)),
-        "plain_ms": cuda_ms(lambda: ops.flat_paged_attention_plain(*aargs), reps=20),
-        "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms,
-    })
+    # --- K1': flat paged attention on the mixed step, and on a prefill-only
+    # step (one 1,024-token chunk over a 3,072-token prefix: 3.67 M
+    # (token, position) pairs, bound by operations) that shows the tensor
+    # cores the mixed step hides behind its decode rows' bytes.
+    out.append(flat_attention_row("flat_paged_attention", q, pool, layer, s, page))
+    del pool
+    torch.cuda.empty_cache()
+    pre = mixed_step(cfg, page, max_pages, [(3072, 1024)], [], gen, dev)
+    pool = torch.randn((L, pre["num_pages"], K, page, 2 * D), generator=g, device=dev, dtype=dt)
+    qp = torch.randn((pre["T"], 1, H, D), generator=g, device=dev, dtype=dt)
+    out.append(flat_attention_row("flat_paged_attention@prefill", qp, pool, layer, pre, page))
     for e in out:
-        info[e["name"]] = {key: e[key] for key in ("max_abs_err", "ms", "plain_ms", "bound_ms", "library_ms")}
+        info[e["name"]] = {key: e[key] for key in (
+            "max_abs_err", "ms", "plain_ms", "bound_ms", "library_ms", "bound_share", "items", "spans",
+            "items_ms") if key in e}
     return {e["name"]: e for e in out}
 
 
@@ -381,18 +429,22 @@ def decode_kernels_phase(info: dict) -> dict:
     b_ms, b_by = bound(kv_bytes + qo_bytes, 4.0 * H * D * sum(ctx))
     spec = {"rows_spec": [(c - 1, 1) for c in ctx], "page_table": page_table}
     lib_ms = _sdpa_yardstick(q[:n_live], pool, layer, spec, page)
+    ms = cuda_ms(lambda: ops.decode_paged_attention_full(*aargs))
+    plan = attention_plan("decode", d, H, K, page)
     out.append({
         "name": "decode_paged_attention", "route": "cuda",
         "source": "llmd_tpu_torch/ops/csrc/decode_paged_attention.cu",
         "replaces": "llmd_tpu/ops/ragged_paged_attention.py:463",
-        "max_abs_err": err,
-        "ms": cuda_ms(lambda: ops.decode_paged_attention_full(*aargs)),
+        "max_abs_err": err, "ms": ms,
         "plain_ms": cuda_ms(
             lambda: ops.decode_paged_attention_plain(*aargs, live_pages=live_pages), reps=10),
         "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms,
+        "bound_share": b_ms / ms, "items": plan["items"], "spans": plan["spans"],
     })
     for e in out:
-        info[e["name"]] = {key: e[key] for key in ("max_abs_err", "ms", "plain_ms", "bound_ms", "library_ms")}
+        info[e["name"]] = {key: e[key] for key in (
+            "max_abs_err", "ms", "plain_ms", "bound_ms", "library_ms", "bound_share", "items",
+            "spans") if key in e}
     return {e["name"]: e for e in out}
 
 
@@ -471,7 +523,7 @@ def plain_ops(live_pages: int | None = None):
         return kv_cache
 
     def attend(q, kv_cache, layer, rows, page_table, kv_lens, sm_scale=None,
-               window=0, sinks=None):
+               window=0, sinks=None, items=None):  # the plain version needs no tiles
         data, scales = ops._split_cache(kv_cache)
         return ops.flat_paged_attention_plain(
             q, data, layer, rows, page_table, kv_lens, sm_scale, window, sinks, scales
@@ -1501,9 +1553,10 @@ def attention_branch_case(kind: str, q, data, scales, layer, step, page, window,
     T, _, H, D = q.shape
     K = data.shape[2]
     kw = dict(window=window, sinks=sinks, scales=scales)
+    plan = attention_plan(kind, step, H, data.shape[2], page, window)
     if kind == "flat":
         args = (q, data, layer, step["rows"], step["page_table"], step["kv_lens"])
-        kernel = lambda: ops.flat_paged_attention_full(*args, **kw)  # noqa: E731
+        kernel = lambda: ops.flat_paged_attention_full(*args, **kw, items=plan["tiles"])  # noqa: E731
         plain = lambda: ops.flat_paged_attention_plain(*args, **kw)  # noqa: E731
         rows_spec, n_live, dead = step["rows_spec"], step["total"], slice(step["total"], None)
         plain_reps = 10
@@ -1542,11 +1595,13 @@ def attention_branch_case(kind: str, q, data, scales, layer, step, page, window,
                              window, sinks, max_q=None if sinks is None else 64)
     del pool_f
     source, replaces = ATTN_SOURCES[kind]
+    ms = cuda_ms(kernel)
     return {
         "name": f"{kind}_paged_attention[{key}]", "route": "cuda", "source": source,
         "replaces": replaces, "max_abs_err": err,
-        "ms": cuda_ms(kernel), "plain_ms": cuda_ms(plain, reps=plain_reps, warmup=1),
+        "ms": ms, "plain_ms": cuda_ms(plain, reps=plain_reps, warmup=1),
         "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms,
+        "bound_share": b_ms / ms, "items": plan["items"], "spans": plan["spans"],
         "wrapper": f"{kind}_paged_attention_full", "branch": key,
     }
 
@@ -1682,7 +1737,8 @@ def oss_kernels_phase(info: dict) -> dict:
                 torch.cuda.empty_cache()
     for name, e in out.items():
         info[name] = {k: e[k] for k in ("model", "max_abs_err", "ms", "plain_ms", "bound_ms",
-                                        "bound_by", "library_ms")}
+                                        "bound_by", "library_ms", "bound_share", "items", "spans")
+                      if k in e}
     return out
 
 
@@ -1979,6 +2035,7 @@ def main() -> int:
     main_path = {
         "flat_kv_write": ("write_kv_pages_flat_full", flat_counts),
         "flat_paged_attention": ("flat_paged_attention_full", flat_counts),
+        "flat_paged_attention@prefill": ("flat_paged_attention_full", flat_counts),
         "decode_kv_write": ("write_kv_pages_decode_full", window_counts),
         "decode_paged_attention": ("decode_paged_attention_full", window_counts),
         "mla_decode_attention": ("mla_decode_paged_attention_full", ds_counts),

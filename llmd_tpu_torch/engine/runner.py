@@ -55,6 +55,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
+from llmd_tpu_torch import ops
 from llmd_tpu_torch.config import EngineConfig
 from llmd_tpu_torch.engine.request import Request
 from llmd_tpu_torch.engine.sampler import sample_tokens, spec_seed
@@ -361,13 +362,17 @@ class ModelRunner:
         row_of = torch.searchsorted(ends, t, right=True).clamp_(0, B - 1)
         live = t < ends[-1]
         positions = torch.where(live, pos0[row_of] + (t - row_start[row_of]), 0)
+        kv_lens = torch.where(live, positions + 1, 0).int()
+        group = self.cfg.num_heads // self.cfg.num_kv_heads
         inp = StepInput(
             token_ids=torch.where(live, stream, 0)[:, None],
             positions=positions.int()[:, None],
-            kv_lens=torch.where(live, positions + 1, 0).int(),
+            kv_lens=kv_lens,
             page_table=page_table,
             token_rows=row_of.int(),
             num_live=num_live,
+            # The attention kernel's query tiles, once for every layer.
+            flat_items=ops.flat_work_items(row_of, kv_lens, group),
         )
         hidden, self.kv_cache = llama.forward_hidden(
             self.params, self.kv_cache, inp, self.cfg

@@ -32,6 +32,9 @@ class StepInput:
     page_table:  [R, max_pages] compact per-row table of physical pages
     token_rows:  [T] token -> row of ``page_table``
     num_live:    number of live tokens (host int; tokens [0, num_live))
+    flat_items:  [T, 2] the flat attention kernel's query tiles
+                 (``ops.flat_work_items``), built once a step for every
+                 layer; None lets each layer's kernel call build them
     """
 
     token_ids: torch.Tensor
@@ -42,6 +45,7 @@ class StepInput:
     num_live: int = 0
     query_lens: torch.Tensor | None = None
     live_pages: int | None = None
+    flat_items: torch.Tensor | None = None
 
     @property
     def valid(self) -> torch.Tensor:  # [B, Q] bool, bucketed layout

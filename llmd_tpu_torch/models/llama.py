@@ -197,7 +197,7 @@ def _write_attend(inp: StepInput, page: int):
         def attend(q, kv_cache, layer, sm_scale, window, sinks):
             return ops.paged_attention_full_flat(
                 q, kv_cache, layer, inp.token_rows, inp.page_table,
-                inp.kv_lens, sm_scale, window, sinks,
+                inp.kv_lens, sm_scale, window, sinks, inp.flat_items,
             )
 
         return write, attend

@@ -63,6 +63,7 @@ from llmd_tpu_torch.ops.ragged_paged_attention import (
     decode_paged_attention_plain,
     flat_paged_attention_full,
     flat_paged_attention_plain,
+    flat_work_items,
 )
 
 # The kernel wrappers of the engine's paths; each counts its launches.
@@ -163,13 +164,15 @@ def paged_attention_full_flat(
     sm_scale: float | None = None,
     window: int = 0,
     sinks: torch.Tensor | None = None,  # [H]
+    items: torch.Tensor | None = None,  # [T, 2] flat_work_items
 ) -> torch.Tensor:
     """Flattened-token layer-indexed attention over the pool, with the
-    layer's sliding ``window`` (0 = full) and ``sinks``."""
+    layer's sliding ``window`` (0 = full) and ``sinks``; ``items`` is the
+    step's query tiles (``flat_work_items``), built once for all layers."""
     data, scales = _split_cache(kv_cache_full)
     return flat_paged_attention_full(
         q.contiguous(), data, layer, rows, page_table, kv_lens, sm_scale,
-        window, _sinks(sinks), scales,
+        window, _sinks(sinks), scales, items,
     )
 
 
@@ -302,6 +305,7 @@ __all__ = [
     "decode_write_prep",
     "flat_paged_attention_full",
     "flat_paged_attention_plain",
+    "flat_work_items",
     "grouped_matmul",
     "grouped_matmul_plain",
     "launch_counts",

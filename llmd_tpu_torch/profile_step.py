@@ -46,6 +46,8 @@ from llmd_tpu_torch.models import llama
 from llmd_tpu_torch.models.registry import get_model_config
 
 _GEMM_MARKS = ("gemm", "nvjet", "cutlass", "xmma", "cublas")
+# Kernel names hold these (K1'/K3' bf16 kernels and their span merges carry
+# their library's tag type, e.g. tile_attention_kernel<flat_paged_attention_kernel, ...>).
 _PORT_KERNELS = (
     "flat_paged_attention", "flat_kv_write", "decode_paged_attention",
     "decode_kv_write", "mla_decode_attention", "grouped_gemm",

@@ -90,8 +90,6 @@ def test_flat_kv_write_kernel_is_exact(dev, dtype, page, D, K):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.float16])
 @pytest.mark.parametrize("page,D,K,G", [(16, 128, 8, 4), (8, 64, 2, 1), (16, 256, 1, 8), (32, 128, 4, 2)])
 def test_flat_attention_kernel_matches_plain(dev, dtype, page, D, K, G):
-    if page * 2 * D * torch.tensor([], dtype=dtype).element_size() > 48 * 1024:
-        pytest.skip("one page of K|V exceeds the kernel's shared-memory tile")
     rng = np.random.default_rng(1)
     L = 2
     pt, rows, positions, kv_lens, total, P = flat_step(rng, page)
@@ -165,8 +163,6 @@ def test_decode_kv_write_kernel_is_exact(dev, dtype, page, D, K):
     "page,D,K,G", [(16, 128, 8, 4), (8, 64, 2, 1), (16, 256, 1, 8), (32, 128, 4, 8), (32, 64, 2, 4)]
 )
 def test_decode_attention_kernel_matches_plain(dev, dtype, page, D, K, G):
-    if page * 2 * D * torch.tensor([], dtype=dtype).element_size() > 48 * 1024:
-        pytest.skip("one page of K|V exceeds the kernel's shared-memory tile")
     rng = np.random.default_rng(5)
     L = 2
     pt, kv_lens, _, _, _, P = decode_step(rng, page, DECODE_LENS)
@@ -207,6 +203,170 @@ def test_decode_attention_never_reads_past_kv_len(dev):
     torch.cuda.synchronize()
     assert torch.isfinite(got).all()
     torch.testing.assert_close(got, want, atol=1e-5, rtol=0)
+
+
+def packed_rows(rng, rows_spec, page, pad=3):
+    """A flat step of (pos0, qlen) rows (each row's tokens contiguous) and
+    ``pad`` pads, distinct pages per row: (page table, rows, kv_lens,
+    live tokens, pool pages)."""
+    need = [-(-(p0 + w) // page) for p0, w in rows_spec]
+    num_pages = sum(need) + 4
+    perm = rng.permutation(num_pages)
+    pt = np.zeros((len(rows_spec), max(need) + 1), np.int32)
+    rows, kv, off = [], [], 0
+    for r, ((p0, w), n) in enumerate(zip(rows_spec, need)):
+        pt[r, :n] = perm[off : off + n]
+        off += n
+        rows += [r] * w
+        kv += range(p0 + 1, p0 + w + 1)
+    total = len(rows)
+    rows += [len(rows_spec) - 1] * pad
+    kv += [0] * pad
+    return pt, np.asarray(rows, np.int32), np.asarray(kv, np.int32), total, num_pages
+
+
+# Runs longer than a tile and not a multiple of it (Tq = 16 at G = 4, 8 at
+# G = 8), tiles whose tokens have different horizons (every prefill tile;
+# with a window, different window starts too), rows of 8,192 positions cut
+# into several spans, and decode rows beside them.
+FLAT_CASES = {
+    "long_runs": ((0, 100), (37, 50), (500, 17), (3, 1)),
+    "long_rows": ((8000, 100), (8191, 1), (4095, 1), (0, 9)),
+}
+
+
+@pytest.mark.parametrize("spans", ["auto", 1, 3])
+@pytest.mark.parametrize("case", sorted(FLAT_CASES))
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("G,window", [(4, 0), (8, 0), (4, 300)])
+def test_flat_attention_tiles_and_spans(dev, dtype, case, spans, G, window, monkeypatch):
+    """K1' on tiles longer than Tq and rows longer than a span, with the
+    wrapper's span count and with 1 and 3 spans forced; pads zero."""
+    from llmd_tpu_torch.ops import ragged_paged_attention as rpa
+
+    if spans != "auto":
+        monkeypatch.setattr(rpa, "spans_for", lambda *args: spans)
+    rng = np.random.default_rng(41)
+    page, D, K = 16, 128, 2
+    pt, rows, kv_lens, total, P = packed_rows(rng, FLAT_CASES[case], page)
+    pool = torch.from_numpy(rng.normal(size=(1, P, K, page, 2 * D)).astype(np.float32)).to(dev, dtype)
+    q = torch.from_numpy(rng.normal(size=(len(rows), 1, K * G, D)).astype(np.float32)).to(dev, dtype)
+    pt, rows, kv_lens = on(dev, pt, rows, kv_lens)
+    args = (q, pool, 0, rows, pt, kv_lens, None, window)
+    got = ops.flat_paged_attention_full(*args)
+    want = ops.flat_paged_attention_plain(*args)
+    torch.cuda.synchronize()
+    atol, rtol = TOL[dtype]
+    torch.testing.assert_close(got[:total].float(), want[:total].float(), atol=atol, rtol=rtol)
+    assert not got[total:].any()
+    items = ops.flat_work_items(rows, kv_lens, G)
+    torch.testing.assert_close(ops.flat_paged_attention_full(*args, items=items), got, atol=0, rtol=0)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("G", [3, 5, 24, 32])
+def test_attention_tiles_of_odd_groups(dev, dtype, G):
+    """Groups whose tiles are not whole m16 fragments (Tq * G of 63, 60,
+    48 and 64 rows): K1' on the ROWS mix and K3' on DECODE_LENS."""
+    rng = np.random.default_rng(45)
+    page, D, K = 16, 64, 2
+    pt, rows, _, kv_lens, total, P = flat_step(rng, page)
+    pool = torch.from_numpy(rng.normal(size=(1, P, K, page, 2 * D)).astype(np.float32)).to(dev, dtype)
+    q = torch.from_numpy(rng.normal(size=(len(rows), 1, K * G, D)).astype(np.float32)).to(dev, dtype)
+    pt, rows, kv_lens = on(dev, pt, rows, kv_lens)
+    got = ops.flat_paged_attention_full(q, pool, 0, rows, pt, kv_lens)
+    want = ops.flat_paged_attention_plain(q, pool, 0, rows, pt, kv_lens)
+    dpt, dlens, _, _, _, dP = decode_step(rng, page, DECODE_LENS)
+    dpool = torch.from_numpy(rng.normal(size=(1, dP, K, page, 2 * D)).astype(np.float32)).to(dev, dtype)
+    dq = torch.from_numpy(rng.normal(size=(len(dlens), 1, K * G, D)).astype(np.float32)).to(dev, dtype)
+    dpt, dlens = on(dev, dpt, dlens)
+    dgot = ops.decode_paged_attention_full(dq, dpool, 0, dpt, dlens)
+    dwant = ops.decode_paged_attention_plain(dq, dpool, 0, dpt, dlens)
+    torch.cuda.synchronize()
+    atol, rtol = TOL[dtype]
+    torch.testing.assert_close(got[:total].float(), want[:total].float(), atol=atol, rtol=rtol)
+    assert not got[total:].any()
+    torch.testing.assert_close(dgot.float(), dwant.float(), atol=atol, rtol=rtol)
+    assert not dgot[dlens == 0].any()
+
+
+@pytest.mark.parametrize("B", [1, 64])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("G", [4, 8])
+def test_decode_attention_batches_of_1_and_64(dev, dtype, B, G):
+    """K3' on one row (many spans) and on 64 rows up to 8,192 positions."""
+    rng = np.random.default_rng(42)
+    page, D, K = 16, 128, 2
+    lens = [8192] if B == 1 else rng.integers(0, 8193, B).tolist()
+    pt, kv_lens, _, _, _, P = decode_step(rng, page, lens)
+    pool = torch.from_numpy(rng.normal(size=(1, P, K, page, 2 * D)).astype(np.float32)).to(dev, dtype)
+    q = torch.from_numpy(rng.normal(size=(B, 1, K * G, D)).astype(np.float32)).to(dev, dtype)
+    pt, kv_lens = on(dev, pt, kv_lens)
+    got = ops.decode_paged_attention_full(q, pool, 0, pt, kv_lens)
+    want = ops.decode_paged_attention_plain(q, pool, 0, pt, kv_lens)
+    torch.cuda.synchronize()
+    atol, rtol = TOL[dtype]
+    torch.testing.assert_close(got.float(), want.float(), atol=atol, rtol=rtol)
+    assert not got[kv_lens == 0].any()
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+def test_flat_attention_never_reads_dead_positions(dev, dtype):
+    """The flat kernel's counterpart of the decode kernels' test: pool rows
+    past each row's last kv_len and before its first window start hold NaN
+    (a float pool) or an f16-overflow inf scale (an int8 pool); the result
+    is finite and equals the plain version on a clean pool."""
+    rng = np.random.default_rng(43)
+    page, D, K, G, window = 16, 64, 8, 8, 40
+    pt, rows, kv_lens, total, P = packed_rows(rng, ((0, 70), (100, 33), (7, 1), (300, 1)), page)
+    rows_spec_hi = {}
+    for r, n in zip(rows[:total], kv_lens[:total]):
+        lo = max(int(n) - window, 0)
+        a, b = rows_spec_hi.get(r, (lo, int(n)))
+        rows_spec_hi[r] = (min(a, lo), max(b, int(n)))
+    sinks = torch.from_numpy(rng.normal(size=(K * G,)).astype(np.float32)).to(dev)
+    q = torch.from_numpy(rng.normal(size=(len(rows), 1, K * G, D)).astype(np.float32)).to(dev, dtype)
+    tpt, trows, tkv = on(dev, pt, rows, kv_lens)
+    for int8 in (False, True):
+        pool, scales = branch_pool(rng, dev, dtype, 1, P, K, page, D, int8)
+        dirty_pool, dirty_scales = pool.clone(), None if scales is None else scales.clone()
+        for r, (lo, hi) in rows_spec_hi.items():
+            # Before the window, and the dead tail of the last live page
+            # (table columns past it point at other rows' pages).
+            for i in [*range(lo), *range(hi, -(-hi // page) * page)]:
+                if int8:
+                    dirty_scales[:, pt[r, i // page], :, i % page] = float("inf")
+                else:
+                    dirty_pool[:, pt[r, i // page], :, i % page] = float("nan")
+        got = ops.flat_paged_attention_full(q, dirty_pool, 0, trows, tpt, tkv, None, window, sinks,
+                                            dirty_scales)
+        want = ops.flat_paged_attention_plain(q, pool, 0, trows, tpt, tkv, None, window, sinks,
+                                              scales)
+        torch.cuda.synchronize()
+        assert torch.isfinite(got).all()
+        atol, rtol = TOL[dtype]
+        torch.testing.assert_close(got[:total].float(), want[:total].float(), atol=atol, rtol=rtol)
+        assert not got[total:].any()
+
+
+def test_int8_decode_never_reads_inf_scales_past_kv_len(dev):
+    """bf16 queries on an int8 pool whose scales past kv_len are inf."""
+    rng = np.random.default_rng(44)
+    page, D, K, G = 16, 128, 8, 4
+    pt, kv_lens, _, _, _, P = decode_step(rng, page, DECODE_LENS)
+    data, scales = branch_pool(rng, dev, torch.bfloat16, 1, P, K, page, D, True)
+    dirty = scales.clone()
+    for b, n in enumerate(kv_lens):
+        for i in range(n, -(-n // page) * page):  # the last live page's dead tail
+            dirty[:, pt[b, i // page], :, i % page] = float("inf")
+    q = torch.from_numpy(rng.normal(size=(len(kv_lens), 1, K * G, D)).astype(np.float32)).to(dev, torch.bfloat16)
+    tpt, tkv = on(dev, pt, kv_lens)
+    got = ops.decode_paged_attention_full(q, data, 0, tpt, tkv, scales=dirty)
+    want = ops.decode_paged_attention_plain(q, data, 0, tpt, tkv, scales=scales)
+    torch.cuda.synchronize()
+    assert torch.isfinite(got).all()
+    atol, rtol = TOL[torch.bfloat16]
+    torch.testing.assert_close(got.float(), want.float(), atol=atol, rtol=rtol)
 
 
 def test_wrappers_refuse_what_the_kernels_do_not_take(dev):

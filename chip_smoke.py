@@ -141,6 +141,39 @@ def cuda_ms(fn, reps: int = 25, warmup: int = 3) -> float:
     return statistics.median(times)
 
 
+def device_ms(fn, calls: int = 20, reps: int = 7) -> float:
+    """Device time of one call of ``fn``: ``calls`` calls captured in one
+    CUDA graph, the median of ``reps`` replays over ``calls``. Unlike
+    ``cuda_ms`` it leaves out the host's enqueue, which a single-call event
+    pair takes in whenever the card waits for it (a Python wrapper's tens of
+    microseconds); that host time is reported apart (``host_us``)."""
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(calls):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        graph.replay()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / calls)
+    del graph
+    return statistics.median(times)
+
+
 # Attention in bf16: the kernel and its plain version both reduce in f32 and
 # round the output to bf16 once. Their f32 values agree to 1e-5 (the sums
 # run in another order), so the rounded outputs may land one bf16 ulp apart,
@@ -513,7 +546,8 @@ def plain_ops(live_pages: int | None = None):
 
     saved = (ops.write_kv_pages_full_flat, ops.paged_attention_full_flat,
              ops.write_kv_pages_decode_full, ops.decode_paged_attention_full,
-             ops.mla_decode_paged_attention_full, grouped_gemm.grouped_matmul)
+             ops.mla_decode_paged_attention_full, grouped_gemm.grouped_matmul,
+             grouped_gemm.grouped_matmul_pair)
 
     def write(kv_cache, layer, k, v, page_table, rows, positions, total):
         data, scales = ops._split_cache(kv_cache)
@@ -546,12 +580,14 @@ def plain_ops(live_pages: int | None = None):
     ops.decode_paged_attention_full = decode_attend
     ops.mla_decode_paged_attention_full = latent_attend
     grouped_gemm.grouped_matmul = ops.grouped_matmul_plain
+    grouped_gemm.grouped_matmul_pair = ops.grouped_matmul_pair_plain
     try:
         yield
     finally:
         (ops.write_kv_pages_full_flat, ops.paged_attention_full_flat,
          ops.write_kv_pages_decode_full, ops.decode_paged_attention_full,
-         ops.mla_decode_paged_attention_full, grouped_gemm.grouped_matmul) = saved
+         ops.mla_decode_paged_attention_full, grouped_gemm.grouped_matmul,
+         grouped_gemm.grouped_matmul_pair) = saved
 
 
 def forward_phase(info: dict, params: dict) -> None:
@@ -734,9 +770,9 @@ def engine_phase(info: dict, params: dict, model: str = MODEL,
     (steps that hold a prefill run flat, pure-decode steps run as windows).
     Every forward is logged (flat, bucketed Q = 1, or a prefill group):
     the flat pair must launch once a layer a flat forward, the decode pair
-    once a layer a Q = 1 forward, K6' three times a MoE layer a forward,
-    each in the branches the layer takes (window, sinks, int8 pool). Every
-    decode-window dispatch runs under ``torch.cuda.set_sync_debug_mode
+    once a layer a Q = 1 forward, K6' twice a MoE layer a forward (the
+    gate|up pair and the down call), each in the branches the layer takes
+    (window, sinks, int8 pool). Every decode-window dispatch runs under ``torch.cuda.set_sync_debug_mode
     ("error")``. Returns (launch counts, branch launch counts, the
     requests' tokens)."""
     from llmd_tpu_torch import ops
@@ -850,7 +886,8 @@ def engine_phase(info: dict, params: dict, model: str = MODEL,
             "write_kv_pages_decode_full": L * q1_fw,
             "decode_paged_attention_full": L * q1_fw,
             "mla_decode_paged_attention_full": 0,
-            "grouped_matmul": 3 * n_moe * len(forwards)}
+            "grouped_matmul_pair": n_moe * len(forwards),
+            "grouped_matmul": n_moe * len(forwards)}
     if windowed:
         info.update(decode_windows=len(k_steps), window_iterations=sum(k_steps),
                     windows_of_8=k_steps.count(8),
@@ -1024,93 +1061,117 @@ def routed_group_sizes(tokens: int, experts: int, k: int, gen) -> torch.Tensor:
     return torch.bincount(ids.reshape(-1), minlength=experts).to(torch.int32)
 
 
-def _grouped_library_ms(x, w, gs) -> tuple[float, str]:
-    """Time of one PyTorch call computing the grouped product:
-    ``torch._grouped_mm`` where this torch has it and takes these inputs,
-    else a host loop of per-expert ``torch.matmul`` (offsets read back
-    before timing). Returns (ms, which call)."""
+def _grouped_library_ms(x, ws, gs) -> tuple[float, str]:
+    """Device time of the PyTorch calls computing the grouped products of x
+    with each weight tensor in ``ws``: ``torch._grouped_mm`` once a tensor
+    where this torch has it and takes these inputs, else (event-timed) a
+    host loop of per-expert ``torch.matmul`` (offsets read back before
+    timing). Returns (ms, which call)."""
     offs = torch.cumsum(gs, 0, dtype=torch.int32)
     if hasattr(torch, "_grouped_mm"):
         try:
-            torch._grouped_mm(x, w, offs=offs)
+            torch._grouped_mm(x, ws[0], offs=offs)
             torch.cuda.synchronize()
-            return cuda_ms(lambda: torch._grouped_mm(x, w, offs=offs)), "torch._grouped_mm"
+            return (device_ms(lambda: [torch._grouped_mm(x, w, offs=offs) for w in ws]),
+                    "torch._grouped_mm" + (f" x {len(ws)}" if len(ws) > 1 else ""))
         except (RuntimeError, TypeError) as e:
             print(f"torch._grouped_mm refused these inputs: {str(e)[:120]}", file=sys.stderr)
     ends = [0] + offs.tolist()
-    out = torch.empty((x.shape[0], w.shape[2]), dtype=x.dtype, device=x.device)
+    out = torch.empty((x.shape[0], ws[0].shape[2]), dtype=x.dtype, device=x.device)
 
     def loop():
-        for g in range(w.shape[0]):
-            if ends[g + 1] > ends[g]:
-                torch.matmul(x[ends[g] : ends[g + 1]], w[g], out=out[ends[g] : ends[g + 1]])
+        for w in ws:
+            for g in range(w.shape[0]):
+                if ends[g + 1] > ends[g]:
+                    torch.matmul(x[ends[g] : ends[g + 1]], w[g], out=out[ends[g] : ends[g + 1]])
 
     return cuda_ms(loop), "per-expert torch.matmul loop"
 
 
-def moe_mla_kernels_phase(info: dict) -> dict:
-    """K6' at deepseek-v2-lite's expert shapes (a 48-row decode step and a
-    1024-token prefill step, the gate and the down call) and at
-    qwen3-30b-a3b's (one layer's 128 experts, top-8, decode step); K5' on
-    one decode step of the batch bucket 64 (48 live rows at 1k-4k context,
-    16 pad rows) over a 27-layer latent pool. Each is held to its plain
-    version within one bf16 ulp and timed beside its bound, the plain
-    version and one library call."""
+def host_us(fn, n: int = 200) -> float:
+    """Host microseconds a call of ``fn`` takes to return (the enqueue, not
+    the device work), the mean over ``n`` calls after one warm call."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        fn()
+    us = (time.perf_counter() - t0) / n * 1e6
+    torch.cuda.synchronize()
+    return us
+
+
+def grouped_case(T: int, E: int, k: int, K: int, N: int, pair: bool, gen, g, dev) -> dict:
+    """K6' on one routed step: T tokens each routed to k of E experts (the
+    row counts a router with random weights gives), x [T k, K] bf16 against
+    one weight tensor [E, K, N], or two through the pair call. Held to the
+    plain version within one bf16 ulp, timed on the device (``device_ms``;
+    the single-call event time beside it) beside the bound, the plain
+    version and ``torch._grouped_mm`` (once a weight tensor), with the
+    wrapper's host time a call."""
+    from llmd_tpu_torch import ops
+    from llmd_tpu_torch.ops import grouped_gemm
+
+    dt = torch.bfloat16
+    gs = routed_group_sizes(T, E, k, gen).to(dev)
+    M = T * k
+    x = torch.randn((M, K), generator=g, device=dev, dtype=dt)
+    ws = [torch.randn((E, K, N), generator=g, device=dev, dtype=dt).mul_(K**-0.5)
+          for _ in range(2 if pair else 1)]
+    if pair:
+        kernel = lambda: ops.grouped_matmul_pair(x, ws[0], ws[1], gs)  # noqa: E731
+        plain = lambda: ops.grouped_matmul_pair_plain(x, ws[0], ws[1], gs)  # noqa: E731
+    else:
+        kernel = lambda: (ops.grouped_matmul(x, ws[0], gs),)  # noqa: E731
+        plain = lambda: (ops.grouped_matmul_plain(x, ws[0], gs),)  # noqa: E731
+    got, want = kernel(), plain()
+    torch.cuda.synchronize()
+    err = 0.0
+    for a, b in zip(got, want):
+        e, bad = outside_one_ulp(a, b)
+        if bad:
+            raise AssertionError(f"grouped_gemm M={M} K={K} N={N} pair={pair}: max abs err {e} vs plain")
+        err = max(err, e)
+    del got, want
+    live = int((gs > 0).sum().item())
+    # Bound: x read once, the routed experts' weights read once, the
+    # outputs written; 2 flops per multiply-add of the routed rows.
+    nw = len(ws)
+    nbytes = (M * K + nw * (live * K * N + M * N)) * x.element_size() + 4 * E
+    b_ms, b_by = bound(nbytes, 2.0 * nw * M * K * N)
+    lib_ms, lib = _grouped_library_ms(x, ws, gs)
+    ms = device_ms(kernel)
+    row = {
+        "M": M, "experts": E, "live_experts": live, "K": K, "N": N, "weights": nw,
+        "tiles": grouped_gemm.TILES[grouped_gemm.tile_choice(M, E)],
+        "max_abs_err": err, "ms": ms, "event_ms": cuda_ms(kernel),
+        "plain_ms": cuda_ms(plain, reps=3, warmup=1),
+        "bound_ms": b_ms, "bound_by": b_by, "bound_share": b_ms / ms,
+        "library_ms": lib_ms, "library_call": lib, "host_us": host_us(kernel),
+    }
+    del x, ws
+    torch.cuda.empty_cache()
+    return row
+
+
+def latent_case(cfg, H: int, gen, g, dev) -> dict:
+    """K5' on one decode step of the batch bucket 64 (48 live rows at 1k-4k
+    context, 16 pad rows) over a latent pool of ``cfg``'s width and a
+    27-layer depth, with H query heads: held to the plain version within
+    one bf16 ulp, pad rows zero, timed on the device (``device_ms``; the
+    single-call event time beside it) beside the bound, the plain version
+    and SDPA on the gathered rows, with the wrapper's host time a call."""
     import torch.nn.functional as F
 
     from llmd_tpu_torch import ops
-    from llmd_tpu_torch.models.registry import get_model_config
 
-    dev, dt = torch.device("cuda"), torch.bfloat16
-    gen = torch.Generator().manual_seed(2024)
-    g = torch.Generator(device=dev).manual_seed(31)
-    ds, qw = get_model_config(DS_MODEL), get_model_config("qwen3-30b-a3b")
-    H, Fm = ds.hidden_size, ds.moe_intermediate_size
-    cases = {
-        # name: (tokens, experts, top-k, K, N)
-        "deepseek-v2-lite decode 48 rows, gate": (48, ds.num_experts, ds.num_experts_per_tok, H, Fm),
-        "deepseek-v2-lite decode 48 rows, down": (48, ds.num_experts, ds.num_experts_per_tok, Fm, H),
-        "deepseek-v2-lite prefill 1024 tokens, gate": (1024, ds.num_experts, ds.num_experts_per_tok, H, Fm),
-        "deepseek-v2-lite prefill 1024 tokens, down": (1024, ds.num_experts, ds.num_experts_per_tok, Fm, H),
-        "qwen3-30b-a3b decode 48 rows, gate": (
-            48, qw.num_experts, qw.num_experts_per_tok, qw.hidden_size, qw.moe_intermediate_size),
-    }
-    gemm = {}
-    for name, (T, E, k, K, N) in cases.items():
-        gs = routed_group_sizes(T, E, k, gen).to(dev)
-        M = T * k
-        x = torch.randn((M, K), generator=g, device=dev, dtype=dt)
-        w = torch.randn((E, K, N), generator=g, device=dev, dtype=dt).mul_(K**-0.5)
-        got = ops.grouped_matmul(x, w, gs)
-        want = ops.grouped_matmul_plain(x, w, gs)
-        torch.cuda.synchronize()
-        err, bad = outside_one_ulp(got, want)
-        if bad:
-            raise AssertionError(f"grouped_gemm {name}: max abs err {err} vs plain")
-        live = int((gs > 0).sum().item())
-        # Bound: x read, the routed experts' weights read once, out written;
-        # 2 flops per multiply-add of the routed rows.
-        nbytes = (M * K + live * K * N + M * N) * x.element_size() + 4 * E
-        b_ms, b_by = bound(nbytes, 2.0 * M * K * N)
-        lib_ms, lib = _grouped_library_ms(x, w, gs)
-        gemm[name] = {
-            "M": M, "experts": E, "live_experts": live, "K": K, "N": N,
-            "max_abs_err": err,
-            "ms": cuda_ms(lambda: ops.grouped_matmul(x, w, gs)),
-            "plain_ms": cuda_ms(lambda: ops.grouped_matmul_plain(x, w, gs), reps=3, warmup=1),
-            "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms, "library_call": lib,
-        }
-        del x, w, got, want
-        torch.cuda.empty_cache()
-    info["grouped_gemm"] = gemm
-
-    # --- K5': latent decode attention over a 27-layer latent pool.
-    L, Hq, Dl, rank, page = ds.num_layers, ds.num_heads, ds.kv_cache_entry_dim, ds.kv_lora_rank, 16
-    d = decode_batch(ds, page, 1024, 4096, gen, dev)
+    dt = torch.bfloat16
+    L, Dl, rank, page = 27, cfg.kv_cache_entry_dim, cfg.kv_lora_rank, 16
+    d = decode_batch(cfg, page, 1024, 4096, gen, dev)
     B, n_live, ctx = d["B"], d["n_live"], d["ctx"]
     pool = torch.randn((L, d["num_pages"], 1, page, Dl), generator=g, device=dev, dtype=dt)
-    q = torch.randn((B, 1, Hq, Dl), generator=g, device=dev, dtype=dt)
-    scale = (ds.qk_nope_head_dim + ds.qk_rope_head_dim) ** -0.5
+    q = torch.randn((B, 1, H, Dl), generator=g, device=dev, dtype=dt)
+    scale = (cfg.qk_nope_head_dim + cfg.qk_rope_head_dim) ** -0.5
     layer = L // 2
     aargs = (q, pool, layer, d["page_table"], d["kv_lens"], rank, scale)
     got = ops.mla_decode_paged_attention_full(*aargs)
@@ -1118,15 +1179,15 @@ def moe_mla_kernels_phase(info: dict) -> dict:
     torch.cuda.synchronize()
     err, bad = outside_one_ulp(got, want)
     if bad:
-        raise AssertionError(f"mla_decode_attention: max abs err {err} vs plain")
+        raise AssertionError(f"mla_decode_attention H={H}: max abs err {err} vs plain")
     if got[n_live:].any():
-        raise AssertionError("mla_decode_attention: a pad row is not zero")
+        raise AssertionError(f"mla_decode_attention H={H}: a pad row is not zero")
     del want
     es = pool.element_size()
     # Bound: each live row's latent rows read once, q read, out written;
     # operations: scores over Dl and values over rank, per head and position.
-    nbytes = (sum(ctx) * Dl + B * Hq * Dl + B * Hq * rank) * es
-    b_ms, b_by = bound(nbytes, 2.0 * Hq * (Dl + rank) * sum(ctx))
+    nbytes = (sum(ctx) * Dl + B * H * Dl + B * H * rank) * es
+    b_ms, b_by = bound(nbytes, 2.0 * H * (Dl + rank) * sum(ctx))
     # Library yardstick: SDPA on each row's live latent rows gathered to a
     # dense, padded [B, 1, S, Dl] key (the one latent head shared by every
     # query head) and its rank slice as the value; the gather is not timed.
@@ -1139,40 +1200,113 @@ def moe_mla_kernels_phase(info: dict) -> dict:
     qd = q[:n_live].transpose(1, 2)  # [n, H, 1, Dl]
     vals = keys[..., :rank]
     try:
-        lib_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
+        F.scaled_dot_product_attention(qd, keys, vals, attn_mask=mask, scale=scale, enable_gqa=True)
+        lib_ms = device_ms(lambda: F.scaled_dot_product_attention(
             qd, keys, vals, attn_mask=mask, scale=scale, enable_gqa=True))
         lib = "scaled_dot_product_attention (enable_gqa)"
     except (RuntimeError, TypeError):
-        kx, vx = keys.expand(-1, Hq, -1, -1), vals.expand(-1, Hq, -1, -1)
-        lib_ms = cuda_ms(lambda: F.scaled_dot_product_attention(qd, kx, vx, attn_mask=mask, scale=scale))
+        kx, vx = keys.expand(-1, H, -1, -1), vals.expand(-1, H, -1, -1)
+        lib_ms = device_ms(lambda: F.scaled_dot_product_attention(qd, kx, vx, attn_mask=mask, scale=scale))
         lib = "scaled_dot_product_attention (heads expanded)"
-    latent = {
-        "batch": B, "live_rows": n_live, "context_tokens": sum(ctx), "layers": L,
-        "pool_gib": pool.numel() * es / 2**30, "max_abs_err": err,
-        "ms": cuda_ms(lambda: ops.mla_decode_paged_attention_full(*aargs)),
+    kernel = lambda: ops.mla_decode_paged_attention_full(*aargs)  # noqa: E731
+    ms = device_ms(kernel)
+    row = {
+        "batch": B, "live_rows": n_live, "heads": H, "context_tokens": sum(ctx), "layers": L,
+        "pool_gib": pool.numel() * es / 2**30, "max_abs_err": err, "ms": ms,
+        "event_ms": cuda_ms(kernel),
         "plain_ms": cuda_ms(
             lambda: ops.mla_decode_paged_attention_plain(*aargs, live_pages=d["live_pages"]), reps=10),
-        "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms, "library_call": lib,
+        "bound_ms": b_ms, "bound_by": b_by, "bound_share": b_ms / ms,
+        "library_ms": lib_ms, "library_call": lib,
+        "host_us": host_us(kernel),
+    }
+    del pool, keys, q
+    torch.cuda.empty_cache()
+    return row
+
+
+def moe_mla_kernels_phase(info: dict) -> dict:
+    """K6' at deepseek-v2-lite's expert shapes (a 48-row decode step and a
+    1024-token prefill step: the gate|up pair, the gate alone and the down
+    call), at gpt-oss-20b's (32 experts, top-4, K = N = 2,880: a 32-token
+    decode step and a 1,024-token prefill step, the pair and the down call)
+    and at qwen3-30b-a3b's (one layer's 128 experts, top-8, decode step);
+    K5' on one decode step of the batch bucket 64 (48 live rows at 1k-4k
+    context, 16 pad rows) over a 27-layer latent pool, at deepseek-v2-lite's
+    16 heads and deepseek-r1's 128. Each is held to its plain version
+    within one bf16 ulp and timed beside its bound, the plain version and
+    one library call."""
+    from llmd_tpu_torch.models.registry import get_model_config
+
+    dev = torch.device("cuda")
+    gen = torch.Generator().manual_seed(2024)
+    g = torch.Generator(device=dev).manual_seed(31)
+    ds, qw, oss = (get_model_config(n) for n in (DS_MODEL, "qwen3-30b-a3b", OSS_MODEL))
+    H, Fm = ds.hidden_size, ds.moe_intermediate_size
+    dsk = (ds.num_experts, ds.num_experts_per_tok)
+    ossk = (oss.num_experts, oss.num_experts_per_tok)
+    cases = {
+        # name: (tokens, experts, top-k, K, N, pair)
+        "deepseek-v2-lite decode 48 rows, gate": (48, *dsk, H, Fm, False),
+        "deepseek-v2-lite decode 48 rows, gate|up pair": (48, *dsk, H, Fm, True),
+        "deepseek-v2-lite decode 48 rows, down": (48, *dsk, Fm, H, False),
+        "deepseek-v2-lite prefill 1024 tokens, gate": (1024, *dsk, H, Fm, False),
+        "deepseek-v2-lite prefill 1024 tokens, gate|up pair": (1024, *dsk, H, Fm, True),
+        "deepseek-v2-lite prefill 1024 tokens, down": (1024, *dsk, Fm, H, False),
+        "gpt-oss-20b decode 32 tokens, gate|up pair": (
+            32, *ossk, oss.hidden_size, oss.moe_intermediate_size, True),
+        "gpt-oss-20b decode 32 tokens, down": (
+            32, *ossk, oss.moe_intermediate_size, oss.hidden_size, False),
+        "gpt-oss-20b prefill 1024 tokens, gate|up pair": (
+            1024, *ossk, oss.hidden_size, oss.moe_intermediate_size, True),
+        "gpt-oss-20b prefill 1024 tokens, down": (
+            1024, *ossk, oss.moe_intermediate_size, oss.hidden_size, False),
+        "qwen3-30b-a3b decode 48 rows, gate": (
+            48, qw.num_experts, qw.num_experts_per_tok, qw.hidden_size, qw.moe_intermediate_size,
+            False),
+    }
+    gemm = {name: grouped_case(*c, gen, g, dev) for name, c in cases.items()}
+    info["grouped_gemm"] = gemm
+    r1 = get_model_config("deepseek-r1")
+    latent = {  # deepseek-r1's latent is deepseek-v2-lite's (512 + 64, padded to 640)
+        "deepseek-v2-lite, 16 heads": latent_case(ds, ds.num_heads, gen, g, dev),
+        "deepseek-r1, 128 heads": latent_case(r1, r1.num_heads, gen, g, dev),
     }
     info["mla_decode_attention"] = latent
-    del pool, keys
-    torch.cuda.empty_cache()
-    row = gemm["deepseek-v2-lite decode 48 rows, gate"]
-    keys_ = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
-    return {
-        "grouped_gemm": {
-            "name": "grouped_gemm", "route": "cuda",
-            "source": "llmd_tpu_torch/ops/csrc/grouped_gemm.cu",
-            "replaces": "llmd_tpu/ops/grouped_gemm.py:43",
-            **{k: row[k] for k in keys_},
-        },
-        "mla_decode_attention": {
-            "name": "mla_decode_attention", "route": "cuda",
+    keys_ = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "bound_share", "library_ms",
+             "host_us")
+    gg_src = {"route": "cuda", "source": "llmd_tpu_torch/ops/csrc/grouped_gemm.cu",
+              "replaces": "llmd_tpu/ops/grouped_gemm.py:43"}
+    table = {
+        # table name: (case, wrapper, model whose engine run is its main path)
+        "grouped_gemm": ("deepseek-v2-lite decode 48 rows, gate", "grouped_matmul", DS_MODEL),
+        "grouped_gemm@down": ("deepseek-v2-lite decode 48 rows, down", "grouped_matmul", DS_MODEL),
+        "grouped_gemm@prefill": ("deepseek-v2-lite prefill 1024 tokens, gate", "grouped_matmul",
+                                 DS_MODEL),
+        "grouped_gemm_pair": ("deepseek-v2-lite decode 48 rows, gate|up pair",
+                              "grouped_matmul_pair", DS_MODEL),
+        "grouped_gemm_pair@prefill": ("deepseek-v2-lite prefill 1024 tokens, gate|up pair",
+                                      "grouped_matmul_pair", DS_MODEL),
+        "grouped_gemm_pair@gpt-oss decode": ("gpt-oss-20b decode 32 tokens, gate|up pair",
+                                             "grouped_matmul_pair", OSS_MODEL),
+        "grouped_gemm_pair@gpt-oss prefill": ("gpt-oss-20b prefill 1024 tokens, gate|up pair",
+                                              "grouped_matmul_pair", OSS_MODEL),
+        "grouped_gemm@gpt-oss prefill down": ("gpt-oss-20b prefill 1024 tokens, down",
+                                              "grouped_matmul", OSS_MODEL),
+    }
+    out = {name: {"name": name, **gg_src, "wrapper": wrapper, "model": model, "shape": case,
+                  **{k: gemm[case][k] for k in keys_}}
+           for name, (case, wrapper, model) in table.items()}
+    for name, case in (("mla_decode_attention", "deepseek-v2-lite, 16 heads"),
+                       ("mla_decode_attention@128 heads", "deepseek-r1, 128 heads")):
+        out[name] = {
+            "name": name, "route": "cuda",
             "source": "llmd_tpu_torch/ops/csrc/mla_decode_attention.cu",
             "replaces": "llmd_tpu/ops/mla_decode.py:143",
-            **{k: latent[k] for k in keys_},
-        },
-    }
+            "wrapper": "mla_decode_paged_attention_full", "model": DS_MODEL, "shape": case,
+            **{k: latent[case][k] for k in keys_},
+        }
+    return out
 
 
 def bucketed_rows(cfg, page, rows, gen, dev) -> dict:
@@ -1251,9 +1385,10 @@ def ds_forward_phase(info: dict, params: dict) -> None:
         # name: (input, pool pages, live slots of the hidden state, launches
         # per forward by wrapper, plain gather bound)
         "prefill": (prefill, p["num_pages"], p["live"],
-                    {"grouped_matmul": 3 * n_moe}, p["live_pages"]),
+                    {"grouped_matmul_pair": n_moe, "grouped_matmul": n_moe}, p["live_pages"]),
         "decode": (decode, d["num_pages"], torch.arange(d["B"], device=dev) < d["n_live"],
-                   {"grouped_matmul": 3 * n_moe, "write_kv_pages_decode_full": L,
+                   {"grouped_matmul_pair": n_moe, "grouped_matmul": n_moe,
+                    "write_kv_pages_decode_full": L,
                     "mla_decode_paged_attention_full": L}, d["live_pages"]),
     }
     cut = 4
@@ -1330,9 +1465,9 @@ def ds_engine_phase(info: dict, params: dict) -> dict:
     """``LLMEngine`` serving deepseek-v2-lite (8 greedy requests, chunked
     prefill and a prefix-cache hit) in the layout ``info["layout"]`` names.
     MLA has no flat step, so the default engine runs the bucketed unified
-    step. Every forward is logged with its Q: K6' must launch 3 x 26 times
-    a forward, K4' and K5' 27 times a Q = 1 forward (each window iteration
-    is one), the GQA kernels never. Each step reads back once, and every
+    step. Every forward is logged with its Q: the pair and the down call
+    of K6' must launch 26 times each a forward, K4' and K5' 27 times a Q = 1
+    forward (each window iteration is one), the GQA kernels never. Each step reads back once, and every
     decode-window dispatch runs under ``torch.cuda.set_sync_debug_mode
     ("error")``, so a hidden device sync fails the run. Returns the launch
     counts."""
@@ -1431,7 +1566,8 @@ def ds_engine_phase(info: dict, params: dict) -> dict:
             "write_kv_pages_decode_full": L * decode_forwards,
             "decode_paged_attention_full": 0,
             "mla_decode_paged_attention_full": L * decode_forwards,
-            "grouped_matmul": 3 * n_moe * len(forwards)}
+            "grouped_matmul_pair": n_moe * len(forwards),
+            "grouped_matmul": n_moe * len(forwards)}
     if counts != want:
         raise AssertionError(f"launch counts {counts}, want {want}")
     if "decode_window" in layout and 8 not in k_steps:
@@ -1785,15 +1921,17 @@ def oss_forward_phase(info: dict, params: dict) -> None:
     decode_inp = StepInput(token_ids=torch.where(d["valid"][:, None] > 0, ids, 0),
                            positions=d["positions"], kv_lens=d["kv_lens"],
                            page_table=d["page_table"], query_lens=d["valid"])
-    per_forward = 3 * L  # K6': gate, up and down in every MoE layer
+    per_forward = L  # K6': the gate|up pair and the down call, each once a MoE layer
     steps = {
         # name: (input, pool pages, live slots, launches per forward, gather bound)
         "flat": (flat_inp, s["num_pages"], live,
                  {"write_kv_pages_flat_full": L, "flat_paged_attention_full": L,
-                  "grouped_matmul": per_forward}, None, (1, 0)),
+                  "grouped_matmul_pair": per_forward, "grouped_matmul": per_forward},
+                 None, (1, 0)),
         "decode": (decode_inp, d["num_pages"], torch.arange(d["B"], device=dev) < d["n_live"],
                    {"write_kv_pages_decode_full": L, "decode_paged_attention_full": L,
-                    "grouped_matmul": per_forward}, d["live_pages"], (0, 1)),
+                    "grouped_matmul_pair": per_forward, "grouped_matmul": per_forward},
+                   d["live_pages"], (0, 1)),
     }
     cut = 4
     cfg4 = dataclasses.replace(cfg, num_layers=cut, layer_types=cfg.layer_types[:cut])
@@ -2005,11 +2143,12 @@ def main() -> int:
         oss_forward_phase(info, params)
     gc.collect()
     torch.cuda.empty_cache()
-    oss_runs, oss_tokens = {}, {}
+    oss_counts, oss_runs, oss_tokens = {}, {}, {}
     for layout, kv_dtype in (("flat step", "bfloat16"), ("split engine, decode_window 8", "bfloat16"),
                              ("flat step, decode_window 8", "int8")):
         with phase("engine", {"model": OSS_MODEL, "layout": layout, "kv_cache_dtype": kv_dtype}) as info:
-            _, oss_runs[layout], oss_tokens[layout] = engine_phase(info, params, OSS_MODEL, kv_dtype)
+            oss_counts[layout], oss_runs[layout], oss_tokens[layout] = engine_phase(
+                info, params, OSS_MODEL, kv_dtype)
             if kv_dtype == "int8":
                 # Reported, not gated: the witness below is the check.
                 compare_greedy(info, oss_tokens[layout], oss_tokens["flat step"], gate=False)
@@ -2031,21 +2170,27 @@ def main() -> int:
     # Each kernel's launches come from the engine run that is its main path:
     # the plain branches from llama-3-8b's flat and split-window runs, the
     # window and sink branches from gpt-oss-20b's, the int8 branches from
-    # the int8-pool runs, K5' and K6' from deepseek-v2-lite's.
+    # the int8-pool runs; K5' and K6' (their rows name a wrapper and a
+    # model) from deepseek-v2-lite's default engine and gpt-oss-20b's flat
+    # step engine (the 128-head row of K5' is a kernel-level shape: its launches
+    # are the wrapper's on deepseek-v2-lite's path).
     main_path = {
         "flat_kv_write": ("write_kv_pages_flat_full", flat_counts),
         "flat_paged_attention": ("flat_paged_attention_full", flat_counts),
         "flat_paged_attention@prefill": ("flat_paged_attention_full", flat_counts),
         "decode_kv_write": ("write_kv_pages_decode_full", window_counts),
         "decode_paged_attention": ("decode_paged_attention_full", window_counts),
-        "mla_decode_attention": ("mla_decode_paged_attention_full", ds_counts),
-        "grouped_gemm": ("grouped_matmul", ds_counts),
     }
+    model_counts = {DS_MODEL: ds_counts, OSS_MODEL: oss_counts["flat step"]}
     rows = []
     for name, entry in table.items():
         if name in main_path:
             fn, counts = main_path[name]
             launches = counts[fn]
+        elif "branch" not in entry:
+            launches = model_counts[entry["model"]][entry["wrapper"]]
+            if launches == 0:
+                raise AssertionError(f"{name} never launched on its main path")
         else:
             branch = entry["branch"]
             runs = (int8_branches if entry["model"] == MODEL else

@@ -25,14 +25,19 @@ whose writes quantize the float K|V rows themselves.
 MLA and MoE: ``mla_paged_attention_full`` follows the JAX rule as well
 (``Q == 1`` → the latent decode kernel, ``Q > 1`` → the plain dense form of
 ``ops.mla_attention``), and ``grouped_matmul`` is the MoE experts' grouped
-GEMM. The latent rows are written through ``write_kv_pages_full``.
+GEMM (``grouped_matmul_pair``: gate and up in one launch). The latent rows are written through ``write_kv_pages_full``.
 """
 
 from __future__ import annotations
 
 import torch
 
-from llmd_tpu_torch.ops.grouped_gemm import grouped_matmul, grouped_matmul_plain
+from llmd_tpu_torch.ops.grouped_gemm import (
+    grouped_matmul,
+    grouped_matmul_pair,
+    grouped_matmul_pair_plain,
+    grouped_matmul_plain,
+)
 from llmd_tpu_torch.ops.kv_write import (
     write_kv_pages_decode,
     write_kv_pages_decode_full,
@@ -74,6 +79,7 @@ KERNELS = (
     decode_paged_attention_full,
     mla_decode_paged_attention_full,
     grouped_matmul,
+    grouped_matmul_pair,
 )
 
 # Above this many gathered positions the dense attention's [B, Q, .., S]
@@ -307,6 +313,8 @@ __all__ = [
     "flat_paged_attention_plain",
     "flat_work_items",
     "grouped_matmul",
+    "grouped_matmul_pair",
+    "grouped_matmul_pair_plain",
     "grouped_matmul_plain",
     "launch_counts",
     "mla_decode_paged_attention_full",

@@ -7,15 +7,20 @@ replaces the TPU kernel ``llmd_tpu/ops/grouped_gemm.py:grouped_matmul``
 lane-tiled shapes (H and F multiples of 128) and ``lax.ragged_dot``
 elsewhere; the port's kernel has no such gate and takes whatever its
 ``_check`` accepts. It is bound by bytes at both a decode step and a 1k-token
-prefill step: every expert's weights are read once. See the kernel source
-for its design. ``grouped_matmul_plain`` is the plain PyTorch version: one
-masked product per group over the static group count, so it reads nothing
-back to the host; the wrapper takes it for CPU tensors only.
+prefill step: every expert's weights are read once. In bf16/f16 it is a
+persistent ``wgmma`` kernel fed by TMA; ``grouped_tiles`` is its work map in
+plain PyTorch (the kernel walks the same items), and ``tile_choice`` picks
+its tile from M and G alone. See the kernel source for its design.
+``grouped_matmul_pair`` runs two weight tensors of one shape (an MoE layer's
+gate and up) over the same rows in one launch. ``grouped_matmul_plain`` and
+``grouped_matmul_pair_plain`` are the plain PyTorch versions: one masked
+product per group over the static group count, so they read nothing back to
+the host; the wrappers take them for CPU tensors only.
 
 Around the kernel, in plain PyTorch as JAX leaves them to XLA:
-``expert_mlp_grouped`` (gate, up, the config's GLU, down, and gpt-oss's
-per-expert biases) and ``moe_apply_grouped`` (stable sort by expert,
-gather, grouped MLP, weighted combine). The group
+``expert_mlp_grouped`` (gate and up as one pair call, the config's GLU,
+down, and gpt-oss's per-expert biases) and ``moe_apply_grouped`` (stable
+sort by expert, gather, grouped MLP, weighted combine). The group
 sizes are counted with ``scatter_add_`` (``torch.bincount`` on CUDA reads
 its input's maximum back to size its output) and the combine sums each
 token's rows in ascending sorted position, the order of JAX's scatter-add
@@ -31,6 +36,9 @@ import torch
 from llmd_tpu_torch.ops import _build
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
+# The bf16/f16 kernel's tiles (BM rows x BN columns), by the code it takes.
+TILES = {0: (64, 128), 1: (128, 128)}
+_MAX_GROUPS = 1024  # the kernel keeps the groups' prefix sums in shared memory
 _lib = None
 
 
@@ -38,12 +46,49 @@ def _kernel():
     global _lib
     if _lib is None:
         lib = _build.load("grouped_gemm")
-        lib.grouped_gemm.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [
+        lib.grouped_gemm.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 + [
             ctypes.c_void_p
         ]
         lib.grouped_gemm.restype = ctypes.c_int
         _lib = lib
     return _lib.grouped_gemm
+
+
+def tile_choice(M: int, G: int) -> int:
+    """The kernel's tile (a key of ``TILES``) from M and G alone: 64-row
+    tiles when groups average at most 32 rows (a decode step: a few rows an
+    expert), else 128-row tiles, so that a group of up to 128 rows streams
+    its weights once."""
+    return 0 if M <= 32 * G else 1
+
+
+def max_items(M: int, G: int, BM: int, ncols: int) -> int:
+    """The most work items the kernel can have, which the host sizes its
+    grid by: each non-empty group adds at most one partial row tile."""
+    return (-(-M // BM) + min(G, M)) * ncols
+
+
+def grouped_tiles(group_sizes: torch.Tensor, M: int, BM: int, ncols: int) -> torch.Tensor:
+    """The kernel's work map in plain PyTorch: ``[items, 4]`` int64 rows of
+    (group, first row, rows, column tile), in the order the kernel numbers
+    them (row tile major). Group g has ``ceil(size_g / BM)`` row tiles of
+    BM rows, the last one partial, cut at M; items with no rows are left
+    out, as the kernel skips them."""
+    sizes = group_sizes.long().clamp(min=0)
+    nt = (sizes + BM - 1) // BM
+    tstart = torch.cumsum(nt, 0) - nt
+    rstart = torch.cumsum(sizes, 0) - sizes
+    g = torch.repeat_interleave(torch.arange(sizes.numel(), device=sizes.device), nt)
+    local = torch.arange(g.numel(), device=sizes.device) - tstart[g]
+    row0 = rstart[g] + local * BM
+    rows = torch.minimum(torch.minimum(sizes[g] - local * BM, torch.full_like(row0, BM)),
+                         M - row0)
+    keep = rows > 0
+    g, row0, rows = g[keep], row0[keep], rows[keep]
+    R = g.numel()
+    ct = torch.arange(ncols, device=sizes.device).repeat(R)
+    per = lambda t: t.repeat_interleave(ncols)  # noqa: E731
+    return torch.stack([per(g), per(row0), per(rows), ct], dim=1)
 
 
 def grouped_matmul_plain(
@@ -64,25 +109,62 @@ def grouped_matmul_plain(
     return out.to(x.dtype)
 
 
-def _check(x, w, group_sizes):
+def grouped_matmul_pair_plain(
+    x: torch.Tensor, w_a: torch.Tensor, w_b: torch.Tensor, group_sizes: torch.Tensor
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Plain PyTorch version of the pair: two ``grouped_matmul_plain``."""
+    return grouped_matmul_plain(x, w_a, group_sizes), grouped_matmul_plain(x, w_b, group_sizes)
+
+
+def _check(x, ws, group_sizes):
+    """Raise unless the kernel takes x against each weight tensor in ``ws``
+    (all of one shape)."""
+    w = ws[0]
     if x.dim() != 2 or w.dim() != 3 or w.shape[1] != x.shape[1]:
         raise ValueError(f"x {tuple(x.shape)} and w {tuple(w.shape)} do not fit [M, K] x [G, K, N]")
     G, K, N = w.shape
     if group_sizes.shape != (G,):
         raise ValueError(f"group_sizes must be [G] = [{G}], got {tuple(group_sizes.shape)}")
+    if G > _MAX_GROUPS:
+        raise ValueError(f"the kernel takes at most {_MAX_GROUPS} groups, got {G}")
     if group_sizes.dtype != torch.int32:
         raise ValueError(f"group_sizes must be int32, got {group_sizes.dtype}")
-    if x.dtype != w.dtype or x.dtype not in _DTYPE_CODES:
-        raise ValueError(f"x {x.dtype} and w {w.dtype} must share a float dtype")
     if K % 8 or N % 8:
         raise ValueError(f"the kernel takes K and N multiples of 8; got K={K}, N={N}")
-    for name, t in (("x", x), ("w", w), ("group_sizes", group_sizes)):
+    if x.dtype not in _DTYPE_CODES:
+        raise ValueError(f"x {x.dtype} must be a float dtype the kernel takes")
+    for name, t in (("x", x), ("group_sizes", group_sizes), *(("w", w) for w in ws)):
         if t.device != x.device:
             raise ValueError(f"{name} is on {t.device}, x on {x.device}")
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
-    if x.data_ptr() % 16 or w.data_ptr() % 16:
+    for w in ws:
+        if w.shape != ws[0].shape:
+            raise ValueError(f"weights {tuple(ws[0].shape)} and {tuple(w.shape)} must share a shape")
+        if w.dtype != x.dtype:
+            raise ValueError(f"x {x.dtype} and w {w.dtype} must share a float dtype")
+        if w.data_ptr() % 16:
+            raise ValueError("x and w must be 16-byte aligned")
+    if x.data_ptr() % 16:
         raise ValueError("x and w must be 16-byte aligned")
+
+
+def _launch(x, w_a, w_b, group_sizes):
+    M, K = x.shape
+    G, _, N = w_a.shape
+    out_a = torch.empty((M, N), dtype=x.dtype, device=x.device)
+    out_b = None if w_b is None else torch.empty_like(out_a)
+    if M == 0:
+        return out_a, out_b
+    err = _kernel()(
+        out_a.data_ptr(), None if out_b is None else out_b.data_ptr(), x.data_ptr(),
+        w_a.data_ptr(), None if w_b is None else w_b.data_ptr(), group_sizes.data_ptr(),
+        M, K, N, G, _DTYPE_CODES[x.dtype], tile_choice(M, G),
+        torch.cuda.current_stream(x.device).cuda_stream,
+    )
+    if err:
+        raise RuntimeError(f"grouped_gemm launch failed: CUDA error {err}")
+    return out_a, out_b
 
 
 def grouped_matmul(
@@ -100,24 +182,39 @@ def grouped_matmul(
         return grouped_matmul_plain(x, w, group_sizes)
     if x.device.type != "cuda":
         raise ValueError(f"unsupported device {x.device}")
-    _check(x, w, group_sizes)
-    M, K = x.shape
-    G, _, N = w.shape
-    out = torch.empty((M, N), dtype=x.dtype, device=x.device)
-    if M == 0:
-        return out
-    err = _kernel()(
-        out.data_ptr(), x.data_ptr(), w.data_ptr(), group_sizes.data_ptr(),
-        M, K, N, G, _DTYPE_CODES[x.dtype],
-        torch.cuda.current_stream(x.device).cuda_stream,
-    )
-    if err:
-        raise RuntimeError(f"grouped_gemm launch failed: CUDA error {err}")
-    grouped_matmul.launches += 1
+    _check(x, (w,), group_sizes)
+    out, _ = _launch(x, w, None, group_sizes)
+    if x.shape[0]:
+        grouped_matmul.launches += 1
     return out
 
 
 grouped_matmul.launches = 0
+
+
+def grouped_matmul_pair(
+    x: torch.Tensor,
+    w_a: torch.Tensor,  # [G, K, N]
+    w_b: torch.Tensor,  # [G, K, N]
+    group_sizes: torch.Tensor,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """``(x @ w_a[g], x @ w_b[g])`` row by row in one launch: the kernel's
+    column tiles span both weight tensors, and each output is rounded once
+    from f32, as two ``grouped_matmul`` calls would give.
+
+    CUDA tensors launch the kernel; CPU tensors take the plain version."""
+    if x.device.type == "cpu":
+        return grouped_matmul_pair_plain(x, w_a, w_b, group_sizes)
+    if x.device.type != "cuda":
+        raise ValueError(f"unsupported device {x.device}")
+    _check(x, (w_a, w_b), group_sizes)
+    out_a, out_b = _launch(x, w_a, w_b, group_sizes)
+    if x.shape[0]:
+        grouped_matmul_pair.launches += 1
+    return out_a, out_b
+
+
+grouped_matmul_pair.launches = 0
 
 
 def expert_mlp_grouped(
@@ -130,13 +227,13 @@ def expert_mlp_grouped(
     cfg=None,  # ModelConfig naming the GLU; None = SwiGLU
     expert_ids: torch.Tensor | None = None,  # [M] expert of each sorted row
 ) -> torch.Tensor:  # [M, H]
-    """The routed rows' expert MLP: three grouped products around the GLU,
-    each row's expert biases added after its products (``expert_ids``
-    says whose they are; required with ``biases``)."""
+    """The routed rows' expert MLP: gate and up in one pair call, the GLU,
+    down in a second call; each row's expert biases added after its
+    products (``expert_ids`` says whose they are; required with
+    ``biases``)."""
     from llmd_tpu_torch.models.moe import expert_glu
 
-    gate = grouped_matmul(x_sorted, we_gate, group_sizes)
-    up = grouped_matmul(x_sorted, we_up, group_sizes)
+    gate, up = grouped_matmul_pair(x_sorted, we_gate, we_up, group_sizes)
     if biases is not None:
         gate = gate + biases[0][expert_ids]
         up = up + biases[1][expert_ids]

@@ -7,17 +7,23 @@
 its H absorbed query heads over positions ``[0, kv_lens[b])`` of the latent
 pool ``[L, pages, 1, page, Dl]``; scores span the whole latent row, values
 are its first ``rank`` components, softmax in f32; a pad row (``kv_len`` 0)
-gets zeros. One latent tile serves all H heads. It is bound by bytes: the
-live latent rows, read once. Each row's pages are cut into ``spans`` (one
-block each, merged by a second pass) so that a decode batch of a few dozen
-rows fills the card; the wrapper picks the count from the batch and the SM
-count, and allocates the merge's f32 scratch. See the kernel source for
-its design.
+gets zeros. One latent tile serves all H heads: in bf16/f16 the heads are
+the rows of tensor-core products, in head groups of 16 or 32
+(``heads_per_block``; any H). It is bound by bytes: the live latent rows,
+read once. Each row's pages are cut into spans (one block each per head
+group, merged by a second pass) of one size for the batch, so that a decode
+batch of a few dozen rows fills the card with blocks of equal work; the
+wrapper passes the most spans a row may take and the blocks wanted per head
+group (one an SM), and allocates the merge's scratch. See the kernel
+source for its design.
 
 ``mla_decode_paged_attention_plain`` is the plain PyTorch version: one
 masked gather of every row's pages, softmax in f32, positions past
 ``kv_len`` masked out of the scores and zeroed in the values. It reads
 nothing back to the host. The wrapper takes it for CPU tensors only.
+``mla_span_partials_plain`` and ``mla_merge_spans_plain`` are the kernel's
+decomposition in plain PyTorch (head groups x spans, partials, the merge),
+for the tests.
 """
 
 from __future__ import annotations
@@ -30,8 +36,8 @@ import torch
 from llmd_tpu_torch.ops import _build
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
-_MAX_DL, _MAX_RANK, _MAX_PAGE, _MAX_HEADS = 640, 512, 32, 32
-# Spans per row: enough blocks for about two per SM, at most this many.
+_MAX_DL, _MAX_RANK, _MAX_PAGE = 640, 512, 32
+# Spans a row is cut into, at most (the grid's span dimension).
 _MAX_SPANS = 16
 _lib = None
 
@@ -41,10 +47,35 @@ def _sm_count(index: int) -> int:
     return torch.cuda.get_device_properties(index).multi_processor_count
 
 
-def spans_for(batch: int, max_pages: int, sm_count: int) -> int:
-    """How many blocks share a row: about two blocks per SM over the batch,
-    no more than the table has pages or ``_MAX_SPANS``."""
-    return max(1, min(_MAX_SPANS, max_pages, -(-2 * sm_count // max(batch, 1))))
+def spans_for(max_pages: int) -> int:
+    """The most chunks a row is cut into (the grid's span dimension):
+    ``_MAX_SPANS``, or one a page of the table if it is narrower. With one
+    span a block writes its row's output, with more the merge does."""
+    return max(1, min(_MAX_SPANS, max_pages))
+
+
+def heads_per_block(H: int, dtype: torch.dtype) -> int:
+    """The kernel's head group: bf16/f16 take 16 heads a block up to 16,
+    else 32 (m16 fragments; the last group padded); f32 takes 32."""
+    return 16 if H <= 16 and dtype != torch.float32 else 32
+
+
+def span_chunk(kv_lens: torch.Tensor, page: int, spans: int, target: int) -> int:
+    """Pages a span takes (the kernel's ``span_chunk``, read here on the
+    host for the tests): the smallest chunk for which every row's chunks
+    number at most ``target`` in all, and no fewer than the longest row's
+    pages over ``spans``."""
+    n = (kv_lens.long().clamp(min=0) + page - 1) // page
+    total, longest = int(n.sum()), int(n.max()) if n.numel() else 0
+    lo = max(1, -(-total // target), -(-longest // spans))
+    hi = max(lo, longest)
+    while lo < hi:
+        mid = (lo + hi) // 2
+        if int(((n + mid - 1) // mid).sum()) <= target:
+            hi = mid
+        else:
+            lo = mid + 1
+    return lo
 
 
 def _kernel():
@@ -52,8 +83,8 @@ def _kernel():
     if _lib is None:
         lib = _build.load("mla_decode_attention")
         lib.mla_decode_attention.argtypes = (
-            [ctypes.c_void_p] * 7 + [ctypes.c_int] * 10
-            + [ctypes.c_float, ctypes.c_void_p]
+            [ctypes.c_void_p] * 8 + [ctypes.c_int] * 10
+            + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
         )
         lib.mla_decode_attention.restype = ctypes.c_int
         _lib = lib
@@ -98,11 +129,11 @@ def _check(q_eff, latent_cache, layer, page_table, kv_lens, rank):
             f"q_eff {tuple(q_eff.shape)} does not fit the latent pool {tuple(latent_cache.shape)}"
         )
     if (Dl % 32 or rank % 32 or not 0 < rank <= Dl or Dl > _MAX_DL or rank > _MAX_RANK
-            or page > _MAX_PAGE or H > _MAX_HEADS):
+            or page > _MAX_PAGE):
         raise ValueError(
             f"kernel takes Dl and rank multiples of 32 with rank <= Dl <= {_MAX_DL}, "
-            f"rank <= {_MAX_RANK}, page <= {_MAX_PAGE} and <= {_MAX_HEADS} heads; "
-            f"got Dl={Dl}, rank={rank}, page={page}, H={H}"
+            f"rank <= {_MAX_RANK} and page <= {_MAX_PAGE}; "
+            f"got Dl={Dl}, rank={rank}, page={page}"
         )
     if kv_lens.shape != (B,) or page_table.dim() != 2 or page_table.shape[0] != B:
         raise ValueError("kv_lens must be [B] and page_table [B, max_pages]")
@@ -151,17 +182,18 @@ def mla_decode_paged_attention_full(
     out = torch.empty((B, 1, H, rank), dtype=q_eff.dtype, device=dev)
     if B == 0:
         return out
-    spans = spans_for(B, page_table.shape[1], _sm_count(dev.index or 0))
-    part_acc = part_ml = None
-    if spans > 1:
-        part_acc = torch.empty((B, spans, H, rank), dtype=torch.float32, device=dev)
-        part_ml = torch.empty((B, spans, H, 2), dtype=torch.float32, device=dev)
+    sms = _sm_count(dev.index or 0)  # the blocks wanted per head group: one wave
+    spans = spans_for(page_table.shape[1])
+    # One scratch allocation: part_acc [items, H, rank] and part_ml [items,
+    # H, 2] in f32, then row_items [B + 1] int32 (4 bytes each as well).
+    items = max(sms, B)
+    scratch = torch.empty(items * H * (rank + 2) + B + 1, dtype=torch.float32, device=dev)
+    base = scratch.data_ptr()
     err = _kernel()(
-        out.data_ptr(), None if part_acc is None else part_acc.data_ptr(),
-        None if part_ml is None else part_ml.data_ptr(), q_eff.data_ptr(),
-        latent_cache.data_ptr(), page_table.data_ptr(), kv_lens.data_ptr(), B, spans,
-        layer, P, page, page_table.shape[1], H, Dl, rank, _DTYPE_CODES[q_eff.dtype],
-        sm_scale, torch.cuda.current_stream(dev).cuda_stream,
+        out.data_ptr(), base, base + 4 * items * H * rank, base + 4 * items * H * (rank + 2),
+        q_eff.data_ptr(), latent_cache.data_ptr(), page_table.data_ptr(), kv_lens.data_ptr(),
+        B, spans, layer, P, page, page_table.shape[1], H, Dl, rank, _DTYPE_CODES[q_eff.dtype],
+        sm_scale, sms, torch.cuda.current_stream(dev).cuda_stream,
     )
     if err:
         raise RuntimeError(f"mla_decode_attention launch failed: CUDA error {err}")
@@ -170,3 +202,60 @@ def mla_decode_paged_attention_full(
 
 
 mla_decode_paged_attention_full.launches = 0
+
+
+def mla_span_partials_plain(
+    q_eff: torch.Tensor,  # [B, 1, H, Dl]
+    latent_cache: torch.Tensor,  # [L, num_pages, 1, page, Dl]
+    layer: int,
+    page_table: torch.Tensor,  # [B, max_pages]
+    kv_lens: torch.Tensor,  # [B]
+    rank: int,
+    sm_scale: float,
+    spans: int,
+    group: int,
+    target: int,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The kernel's per-block work in plain PyTorch (f32): for each row,
+    head group of ``group`` heads and span of the row's live pages (chunks
+    of ``span_chunk`` pages, the trailing spans possibly empty), each
+    head's softmax partial over the span's live positions.
+    Returns m, l ``[B, spans, H]`` (natural units, as the kernel hands them
+    to the merge) and acc ``[B, spans, H, rank]``; an empty span keeps
+    m = -inf, l = 0, acc = 0."""
+    B, _, H, Dl = q_eff.shape
+    page = latent_cache.shape[3]
+    m = torch.full((B, spans, H), float("-inf"))
+    l = torch.zeros((B, spans, H))
+    acc = torch.zeros((B, spans, H, rank))
+    chunk = span_chunk(kv_lens, page, spans, target)
+    for b, kv_len in enumerate(kv_lens.tolist()):
+        n_pages = -(-kv_len // page)
+        for s in range(spans):
+            pb = min(n_pages, s * chunk)
+            pe = min(n_pages, pb + chunk)
+            hi = min(pe * page, kv_len)
+            if hi <= pb * page:
+                continue
+            lat = latent_cache[layer, page_table[b, pb:pe].long(), 0].reshape(-1, Dl).float()
+            lat = lat[: hi - pb * page]
+            for h0 in range(0, H, group):
+                qg = q_eff[b, 0, h0 : h0 + group].float()  # [<= group, Dl]
+                sc = qg @ lat.T * sm_scale
+                mx = sc.amax(dim=1)
+                p = torch.exp(sc - mx[:, None])
+                m[b, s, h0 : h0 + group] = mx
+                l[b, s, h0 : h0 + group] = p.sum(dim=1)
+                acc[b, s, h0 : h0 + group] = p @ lat[:, :rank]
+    return m, l, acc
+
+
+def mla_merge_spans_plain(m: torch.Tensor, l: torch.Tensor, acc: torch.Tensor) -> torch.Tensor:
+    """The merge kernel in plain PyTorch: fold each row's and head's span
+    partials (``mla_span_partials_plain``) and normalise; ``[B, 1, H,
+    rank]`` f32, a row with every span empty (a pad row) zero."""
+    M = m.amax(dim=1, keepdim=True)  # [B, 1, H]
+    w = torch.where(l > 0, torch.exp(m - torch.where(torch.isfinite(M), M, 0.0)), 0.0)
+    den = (w * l).sum(dim=1)
+    out = (w[..., None] * acc).sum(dim=1) / torch.where(den == 0.0, 1.0, den)[..., None]
+    return out[:, None]

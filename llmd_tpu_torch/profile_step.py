@@ -47,7 +47,9 @@ from llmd_tpu_torch.models.registry import get_model_config
 
 _GEMM_MARKS = ("gemm", "nvjet", "cutlass", "xmma", "cublas")
 # Kernel names hold these (K1'/K3' bf16 kernels and their span merges carry
-# their library's tag type, e.g. tile_attention_kernel<flat_paged_attention_kernel, ...>).
+# their library's tag type, e.g. tile_attention_kernel<flat_paged_attention_kernel, ...>;
+# the kernels of K5' and its merge are mla_decode_attention_*_kernel, those
+# of K6' grouped_gemm_*_kernel).
 _PORT_KERNELS = (
     "flat_paged_attention", "flat_kv_write", "decode_paged_attention",
     "decode_kv_write", "mla_decode_attention", "grouped_gemm",

@@ -22,6 +22,7 @@ from llmd_tpu_torch import ops
 from llmd_tpu_torch.config import CacheConfig, EngineConfig, SchedulerConfig, tiny_model_config
 from llmd_tpu_torch.engine import LLMEngine, SamplingParams
 from llmd_tpu_torch.models import llama
+from llmd_tpu_torch.ops import grouped_gemm
 
 pytestmark = pytest.mark.cuda
 
@@ -459,6 +460,7 @@ def test_engine_on_the_card_matches_the_cpu_engine(dev, layout):
         "decode_paged_attention_full": L * sum(ks),
         "mla_decode_paged_attention_full": 0,
         "grouped_matmul": 0,
+        "grouped_matmul_pair": 0,
     }
     assert (flat_steps > 0) == (layout in ("flat", "flat_window"))
     assert (sum(ks) > 0) == (layout != "flat")
@@ -467,18 +469,39 @@ def test_engine_on_the_card_matches_the_cpu_engine(dev, layout):
 
 # Group layouts of the grouped GEMM: (rows per group), K, N. Empty groups,
 # one group holding every row, fewer rows than a tile, row counts that are
-# not tile multiples, K and N that are not multiples of 128 (or of a tile).
+# not tile multiples, K and N that are not multiples of 128 (or of a tile);
+# groups of exactly a tile's 128 (or 64) rows and one more, one row a group,
+# a last group ending at M in a partial tile, gpt-oss's K = N = 2,880 and a
+# decode-sized layout (128 rows over 32 groups). The bf16/f16 kernel takes
+# 64-row tiles where groups average at most 32 rows and 128-row tiles
+# elsewhere (grouped_gemm.tile_choice): both occur below.
 GROUPS = {
     "spread": ((5, 0, 70, 1, 0, 33, 64, 2), 256, 192),
     "one_group": ((0, 0, 300, 0), 128, 128),
     "below_a_tile": ((3, 0, 2, 1), 64, 64),
     "ragged_k_n": ((17, 0, 40, 9), 200, 72),
     "many_groups": (tuple(int(x) for x in np.random.default_rng(0).integers(0, 12, 64)), 128, 88),
+    "tile_and_tile_plus_one": ((64, 65, 128, 129, 0, 1), 128, 136),
+    "tile64_and_tile64_plus_one": ((64, 65, 0, 0, 1, 0, 2, 0), 128, 136),
+    "one_row_a_group": ((1,) * 24, 64, 128),
+    "last_group_ends_at_m": ((0, 130, 0, 0, 67), 96, 256),
+    "oss_2880": (tuple(int(x) for x in np.random.default_rng(1).integers(0, 40, 32)), 2880, 2880),
+    "decode_128_over_32": (tuple(int(x) for x in np.random.default_rng(2).multinomial(128, [1 / 32] * 32)),
+                           256, 384),
 }
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.float16])
-@pytest.mark.parametrize("layout", sorted(GROUPS))
+def grouped_cases(layouts):
+    """(dtype, layout) pairs: every layout in bf16 and f16, and in f32 the
+    ones with K <= 256, where the f32 tolerance below holds (the f32 kernel
+    and the plain version's cuBLAS product sum K terms in other orders; at
+    gpt-oss's K = 2,880 they differ by about 1.2e-5)."""
+    return [(dtype, name) for name in layouts
+            for dtype in (torch.float32, torch.bfloat16, torch.float16)
+            if dtype != torch.float32 or GROUPS[name][1] <= 256]
+
+
+@pytest.mark.parametrize("dtype,layout", grouped_cases(sorted(GROUPS)))
 def test_grouped_gemm_kernel_matches_plain(dev, dtype, layout):
     """K6': each row's product with its own group's weights. Both sides sum
     in f32 and round once: in bf16/f16 an output may land one ulp apart;
@@ -498,6 +521,32 @@ def test_grouped_gemm_kernel_matches_plain(dev, dtype, layout):
     atol, rtol = TOL[dtype]
     torch.testing.assert_close(got.float(), want.float(), atol=atol, rtol=rtol)
     assert ops.launch_counts()["grouped_matmul"] == 1
+
+
+@pytest.mark.parametrize("dtype,layout", grouped_cases(
+    ["spread", "tile_and_tile_plus_one", "tile64_and_tile64_plus_one", "oss_2880",
+     "decode_128_over_32"]))
+def test_grouped_gemm_pair_matches_two_plain_calls(dev, dtype, layout):
+    """The pair call of K6' (gate and up in one launch) against two plain calls:
+    each output within one ulp (f32: 1e-5), as two kernel calls would be;
+    one launch, counted on the pair's counter."""
+    sizes, K, N = GROUPS[layout]
+    rng = np.random.default_rng(9)
+    M, G = sum(sizes), len(sizes)
+    x = torch.from_numpy(rng.normal(size=(M, K)).astype(np.float32)).to(dev, dtype)
+    wa, wb = (torch.from_numpy((rng.normal(size=(G, K, N)) * K**-0.5).astype(np.float32)).to(dev, dtype)
+              for _ in range(2))
+    gs = torch.tensor(sizes, dtype=torch.int32, device=dev)
+    ops.reset_launch_counts()
+    got = ops.grouped_matmul_pair(x, wa, wb, gs)
+    want = ops.grouped_matmul_pair_plain(x, wa, wb, gs)
+    torch.cuda.synchronize()
+    atol, rtol = TOL[dtype]
+    for g, w in zip(got, want):
+        assert g.dtype == dtype and g.shape == (M, N)
+        torch.testing.assert_close(g.float(), w.float(), atol=atol, rtol=rtol)
+    assert ops.launch_counts()["grouped_matmul_pair"] == 1
+    assert ops.launch_counts()["grouped_matmul"] == 0
 
 
 def latent_step(rng, page, kv_lens, L, Dl):
@@ -561,6 +610,34 @@ def test_mla_decode_kernel_matches_plain(dev, dtype, page, H, rank, Dl, spans, m
     assert ops.launch_counts()["mla_decode_paged_attention_full"] == 1
 
 
+@pytest.mark.parametrize("spans", ["auto", 1, 3])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("page,H,rank,Dl", [(8, 20, 128, 256), (16, 64, 512, 640), (32, 128, 512, 640)])
+def test_mla_decode_kernel_takes_any_head_count(dev, dtype, page, H, rank, Dl, spans, monkeypatch):
+    """K5' at 20 heads (one padded group of 32), 64 (two groups) and
+    deepseek-r1's 128 (four), pages of 8, 16 and 32, one span a row, at
+    most three and the wrapper's choice, NaN past kv_len."""
+    from llmd_tpu_torch.ops import mla_decode
+
+    if spans != "auto":
+        monkeypatch.setattr(mla_decode, "spans_for", lambda *args: spans)
+    rng = np.random.default_rng(10)
+    pt, kv_lens, pool, clean = latent_step(rng, page, LATENT_LENS, 2, Dl)
+    B = len(kv_lens)
+    q = torch.from_numpy(rng.normal(size=(B, 1, H, Dl)).astype(np.float32)).to(dev, dtype)
+    pool = torch.from_numpy(pool).to(dev, dtype)
+    clean = torch.from_numpy(clean).to(dev, dtype)
+    pt, kv_lens = on(dev, pt, kv_lens)
+    scale = (Dl // 2) ** -0.5
+    got = ops.mla_decode_paged_attention_full(q, pool, 1, pt, kv_lens, rank, scale)
+    want = ops.mla_decode_paged_attention_plain(q, clean, 1, pt, kv_lens, rank, scale)
+    torch.cuda.synchronize()
+    assert got.shape == (B, 1, H, rank) and torch.isfinite(got).all()
+    atol, rtol = TOL[dtype]
+    torch.testing.assert_close(got.float(), want.float(), atol=atol, rtol=rtol)
+    assert not got[kv_lens == 0].any()
+
+
 def test_moe_and_mla_wrappers_refuse_what_the_kernels_do_not_take(dev):
     x = torch.zeros((10, 64), device=dev, dtype=torch.bfloat16)
     w = torch.zeros((2, 64, 64), device=dev, dtype=torch.bfloat16)
@@ -592,9 +669,9 @@ def test_moe_and_mla_wrappers_refuse_what_the_kernels_do_not_take(dev):
 ])
 def test_moe_mla_engine_on_the_card_matches_the_cpu_engine(dev, model, layout, monkeypatch):
     """tiny-moe and tiny-mla (f32): the card's streams equal the CPU's.
-    Every forward is logged with its Q: K6' launches 3 times a MoE layer
-    a forward, K5' and K4' once a layer a Q = 1 forward of the MLA model
-    (which takes the bucketed unified step where the layout asks for the
+    Every forward is logged with its Q: K6' launches twice a MoE layer a
+    forward (the gate|up pair and the down call), K5' and K4' once a layer
+    a Q = 1 forward of the MLA model (which takes the bucketed unified step where the layout asks for the
     flat one)."""
     from llmd_tpu_torch.engine import runner as runner_mod
     from llmd_tpu_torch.models.registry import get_model_config
@@ -627,7 +704,7 @@ def test_moe_mla_engine_on_the_card_matches_the_cpu_engine(dev, model, layout, m
     assert list(gpu.values()) == list(cpu.values())
     counts = ops.launch_counts()
     L, n_moe = mcfg.num_layers, mcfg.num_layers - mcfg.first_dense_layers
-    assert counts["grouped_matmul"] == 3 * n_moe * len(forwards) > 0
+    assert counts["grouped_matmul_pair"] == counts["grouped_matmul"] == n_moe * len(forwards) > 0
     if mcfg.is_mla:
         assert not gpu_engine.runner.flat
         assert counts["mla_decode_paged_attention_full"] == L * forwards.count(1) > 0
@@ -857,5 +934,5 @@ def test_oss_engine_on_the_card_matches_the_cpu_engine(dev, layout, kv_dtype):
         assert branches.get(f"{fn}[{q8}window+sinks]", 0) == branches.get(f"{fn}[{q8}sinks]", 0) == n
     for fn in ("write_kv_pages_flat_full", "write_kv_pages_decode_full"):
         assert branches.get(f"{fn}[{'int8' if q8 else 'plain'}]", 0) == counts[fn]
-    assert counts["grouped_matmul"] > 0
+    assert counts["grouped_matmul"] == counts["grouped_matmul_pair"] > 0
     assert counts["flat_paged_attention_full"] + counts["decode_paged_attention_full"] > 0

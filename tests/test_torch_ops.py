@@ -423,6 +423,7 @@ def test_cpu_entry_points_run_the_plain_versions():
         "write_kv_pages_flat_full": 0, "flat_paged_attention_full": 0,
         "write_kv_pages_decode_full": 0, "decode_paged_attention_full": 0,
         "mla_decode_paged_attention_full": 0, "grouped_matmul": 0,
+        "grouped_matmul_pair": 0,
     }
 
 

@@ -20,7 +20,10 @@ gpt-oss-20b (random weights from a seed):
                context, 16 pad rows). K1' is timed with the step's query
                tiles built once, as a forward builds them for all layers;
                the K1'/K3' rows carry their tiles ("items"), spans a row
-               ("spans") and share of the bound ("bound_share").
+               ("spans") and share of the bound ("bound_share"). Every
+               kernel row's "ms" is device time (``device_ms``: 20 calls in
+               a CUDA graph), beside the single-call event time
+               ("event_ms") and the wrapper's host cost ("host_us").
 4. ``forward`` one mixed flat step and one bucketed decode step (Q = 1, 64
                rows) of the 32-layer model through the kernels and through
                the plain versions on the card, both held to an f32 run.
@@ -45,10 +48,18 @@ gpt-oss-20b (random weights from a seed):
                first-token witness: one flat prefill of the prompts on a
                bf16 pool, and on an int8 pool through the kernels and the
                plain versions (the kernels must pick the plain path's
-               first tokens but at a tie). Launches
-               are checked per kernel branch from a log of every forward;
-               window dispatches run under ``set_sync_debug_mode
-               ("error")``. Every step must read back once.
+               first tokens but at a tie). Each engine first runs
+               ``warmup`` on a pool of random bytes, which must keep them;
+               every decode-only step (each decode window, each flat step
+               with no prefill) must then be a CUDA graph replay, its
+               staging and replay under ``set_sync_debug_mode("error")``,
+               the first one held to its body run eagerly on the same
+               inputs and a copy of the pool (tokens, logprobs and pool
+               bytes equal), each graph's launches a replay checked per
+               kernel branch; captures and replays are counted by key.
+               Launches are checked per kernel branch from a log of every
+               eager forward and the replays' keys. Every step must read
+               back once.
 6. ``layouts`` the tiny f32 model on the card: the flat step, the split
                engine with windows, the flat step with windows and the
                bucketed unified step give identical greedy and seeded
@@ -65,8 +76,9 @@ gpt-oss-20b (random weights from a seed):
 9. ``engine``  (deepseek-v2-lite) ``LLMEngine`` serving 8 greedy requests
                on the default engine (the bucketed unified step: MLA has no
                flat step) and as the split engine with windows of 8; launch
-               counts from a log of every forward's Q, one readback a step,
-               window dispatches under ``set_sync_debug_mode("error")``.
+               counts from a log of every eager forward's Q and the graph
+               replays, one readback a step, every decode window a graph
+               replay, checked as in 5.
 10. ``forward`` (gpt-oss-20b) a mixed flat step and a Q = 1 decode
                forward of the 24-layer model (bias leaves filled with small
                seeded values) through the kernels and the plain versions,
@@ -82,7 +94,8 @@ gpt-oss-20b (random weights from a seed):
                streamed completion carries one chunk per token and the
                unstreamed completion's text, then deepseek-v2-lite,
                gpt-oss-20b and llama-3-8b with ``--kv-cache-dtype int8``
-               servers.
+               servers. Each server runs ``warmup`` (its decode steps are
+               graph replays) before it answers.
 
 Each phase prints one JSON line. Any failure raises and exits non-zero
 without printing a result. On success the line before the last is the
@@ -174,6 +187,14 @@ def device_ms(fn, calls: int = 20, reps: int = 7) -> float:
     return statistics.median(times)
 
 
+def kernel_times(fn) -> dict:
+    """A kernel row's times: its device time (``device_ms``, the row's
+    "ms"), the single-call event time (``event_ms``, which takes in the
+    wrapper's enqueue whenever the card waits for it) and the wrapper's
+    host cost a call (``host_us``)."""
+    return {"ms": device_ms(fn), "event_ms": cuda_ms(fn), "host_us": host_us(fn)}
+
+
 # Attention in bf16: the kernel and its plain version both reduce in f32 and
 # round the output to bf16 once. Their f32 values agree to 1e-5 (the sums
 # run in another order), so the rounded outputs may land one bf16 ulp apart,
@@ -201,7 +222,8 @@ def mixed_step(cfg, page, max_pages, prefills, decode_ctx, gen, dev):
     """A packed flat step: prefill chunks (prefix, chunk) then one-token
     decode rows at context lengths ``decode_ctx``; every row gets its own
     physical pages (a random permutation of the pool). Returns the
-    per-token tensors, the page table and the pool size in pages."""
+    per-token tensors, the page table, the live count (``total``, and as
+    the flat KV write takes it, ``num_live``) and the pool size in pages."""
     rows_spec = [(p0, w) for p0, w in prefills] + [(c - 1, 1) for c in decode_ctx]
     need = [-(-(p0 + w) // page) for p0, w in rows_spec]
     num_pages = sum(need) + 8
@@ -224,6 +246,7 @@ def mixed_step(cfg, page, max_pages, prefills, decode_ctx, gen, dev):
     return {
         "rows": rows_t, "positions": pos_t, "kv_lens": kv_lens,
         "page_table": page_table.to(dev), "total": total, "T": T,
+        "num_live": torch.tensor([total], dtype=torch.int32, device=dev),
         "num_pages": num_pages, "rows_spec": rows_spec,
     }
 
@@ -270,12 +293,13 @@ def flat_attention_row(name: str, q, pool, layer: int, s: dict, page: int) -> di
     qo_bytes = 2 * s["total"] * H * D * es
     b_ms, b_by = bound(kv_bytes + qo_bytes, 4.0 * H * D * s["kv_lens"].sum().item())
     tiles = plan["tiles"]
-    ms = cuda_ms(lambda: ops.flat_paged_attention_full(*aargs, items=tiles))
+    times = kernel_times(lambda: ops.flat_paged_attention_full(*aargs, items=tiles))
+    ms = times["ms"]
     return {
         "name": name, "route": "cuda",
         "source": "llmd_tpu_torch/ops/csrc/flat_paged_attention.cu",
         "replaces": "llmd_tpu/ops/ragged_paged_attention.py:344",
-        "max_abs_err": err, "ms": ms,
+        "max_abs_err": err, **times,
         "plain_ms": cuda_ms(lambda: ops.flat_paged_attention_plain(*aargs), reps=10, warmup=1),
         "bound_ms": b_ms, "bound_by": b_by,
         "library_ms": _sdpa_yardstick(q, pool, layer, s, page),
@@ -312,7 +336,7 @@ def kernels_phase(info: dict) -> dict:
     # --- K2': flat KV write. The pool bytes must equal the plain version's
     # exactly: both are pure copies of the same bf16 values.
     ref = pool.clone()
-    args = (layer, k, v, s["page_table"], s["rows"], s["positions"], total)
+    args = (layer, k, v, s["page_table"], s["rows"], s["positions"], s["num_live"])
     ops.write_kv_pages_flat_full(pool, *args)
     ops.write_kv_pages_flat_plain(ref, *args)
     torch.cuda.synchronize()
@@ -333,11 +357,11 @@ def kernels_phase(info: dict) -> dict:
         "source": "llmd_tpu_torch/ops/csrc/flat_kv_write.cu",
         "replaces": "llmd_tpu/ops/kv_write.py:212",
         "max_abs_err": err,
-        "ms": cuda_ms(lambda: ops.write_kv_pages_flat_full(pool, *args)),
+        **kernel_times(lambda: ops.write_kv_pages_flat_full(pool, *args)),
         "plain_ms": cuda_ms(lambda: ops.write_kv_pages_flat_plain(pool, *args)),
         "bound_ms": b_ms, "bound_by": b_by,
         # one index_put_ with the (page, head, slot) indices precomputed
-        "library_ms": cuda_ms(lambda: layer_view.index_put_(
+        "library_ms": device_ms(lambda: layer_view.index_put_(
             (phys[:, None], heads[None, :], slot[:, None]), kv_live)),
     })
 
@@ -354,8 +378,8 @@ def kernels_phase(info: dict) -> dict:
     out.append(flat_attention_row("flat_paged_attention@prefill", qp, pool, layer, pre, page))
     for e in out:
         info[e["name"]] = {key: e[key] for key in (
-            "max_abs_err", "ms", "plain_ms", "bound_ms", "library_ms", "bound_share", "items", "spans",
-            "items_ms") if key in e}
+            "max_abs_err", "ms", "event_ms", "host_us", "plain_ms", "bound_ms", "library_ms",
+            "bound_share", "items", "spans", "items_ms") if key in e}
     return {e["name"]: e for e in out}
 
 
@@ -435,11 +459,11 @@ def decode_kernels_phase(info: dict) -> dict:
         "source": "llmd_tpu_torch/ops/csrc/decode_kv_write.cu",
         "replaces": "llmd_tpu/ops/kv_write.py:298",
         "max_abs_err": err,
-        "ms": cuda_ms(lambda: ops.write_kv_pages_decode_full(pool, *wargs)),
+        **kernel_times(lambda: ops.write_kv_pages_decode_full(pool, *wargs)),
         "plain_ms": cuda_ms(lambda: ops.write_kv_pages_decode_plain(pool, *wargs)),
         "bound_ms": b_ms, "bound_by": b_by,
         # one index_put_ with the live rows' (page, head, slot) precomputed
-        "library_ms": cuda_ms(lambda: layer_view.index_put_(
+        "library_ms": device_ms(lambda: layer_view.index_put_(
             (lp[:, None], heads[None, :], lo[:, None]), kv_live)),
     })
 
@@ -462,13 +486,14 @@ def decode_kernels_phase(info: dict) -> dict:
     b_ms, b_by = bound(kv_bytes + qo_bytes, 4.0 * H * D * sum(ctx))
     spec = {"rows_spec": [(c - 1, 1) for c in ctx], "page_table": page_table}
     lib_ms = _sdpa_yardstick(q[:n_live], pool, layer, spec, page)
-    ms = cuda_ms(lambda: ops.decode_paged_attention_full(*aargs))
+    times = kernel_times(lambda: ops.decode_paged_attention_full(*aargs))
+    ms = times["ms"]
     plan = attention_plan("decode", d, H, K, page)
     out.append({
         "name": "decode_paged_attention", "route": "cuda",
         "source": "llmd_tpu_torch/ops/csrc/decode_paged_attention.cu",
         "replaces": "llmd_tpu/ops/ragged_paged_attention.py:463",
-        "max_abs_err": err, "ms": ms,
+        "max_abs_err": err, **times,
         "plain_ms": cuda_ms(
             lambda: ops.decode_paged_attention_plain(*aargs, live_pages=live_pages), reps=10),
         "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms,
@@ -476,14 +501,14 @@ def decode_kernels_phase(info: dict) -> dict:
     })
     for e in out:
         info[e["name"]] = {key: e[key] for key in (
-            "max_abs_err", "ms", "plain_ms", "bound_ms", "library_ms", "bound_share", "items",
-            "spans") if key in e}
+            "max_abs_err", "ms", "event_ms", "host_us", "plain_ms", "bound_ms", "library_ms",
+            "bound_share", "items", "spans") if key in e}
     return {e["name"]: e for e in out}
 
 
 def _sdpa_yardstick(q, pool, layer, s, page, window: int = 0, sinks=None,
                     max_q: int | None = None) -> float:
-    """Time of one ``scaled_dot_product_attention`` call on the same step,
+    """Device time of one ``scaled_dot_product_attention`` call on the same step,
     with each row's live context gathered to a dense, padded layout
     beforehand (the gather is not timed). A sliding ``window`` is part of
     the mask; ``sinks`` ([H]) append one zero key and zero value whose mask
@@ -527,12 +552,12 @@ def _sdpa_yardstick(q, pool, layer, s, page, window: int = 0, sinks=None,
     Vd = Vd.repeat_interleave(G, dim=1)
     if sinks is None:
         Kd, Vd, mask = Kd[:, :, :smax], Vd[:, :, :smax], mask[..., :smax]
-        return cuda_ms(lambda: F.scaled_dot_product_attention(Qd, Kd, Vd, attn_mask=mask))
+        return device_ms(lambda: F.scaled_dot_product_attention(Qd, Kd, Vd, attn_mask=mask))
     # The last key column is the zero key: its score is the bias alone.
     bias = torch.where(mask, 0.0, float("-inf")).to(q.dtype).expand(R, H, qmax, smax + 1).clone()
     bias[..., smax] = sinks.to(q.dtype)[None, :, None]
     del mask
-    return cuda_ms(lambda: F.scaled_dot_product_attention(Qd, Kd, Vd, attn_mask=bias))
+    return device_ms(lambda: F.scaled_dot_product_attention(Qd, Kd, Vd, attn_mask=bias))
 
 
 @contextlib.contextmanager
@@ -549,10 +574,10 @@ def plain_ops(live_pages: int | None = None):
              ops.mla_decode_paged_attention_full, grouped_gemm.grouped_matmul,
              grouped_gemm.grouped_matmul_pair)
 
-    def write(kv_cache, layer, k, v, page_table, rows, positions, total):
+    def write(kv_cache, layer, k, v, page_table, rows, positions, num_live):
         data, scales = ops._split_cache(kv_cache)
         ops.write_kv_pages_flat_plain(
-            data, layer, k, v, page_table, rows, positions.reshape(-1), total, scales
+            data, layer, k, v, page_table, rows, positions.reshape(-1), num_live, scales
         )
         return kv_cache
 
@@ -614,7 +639,7 @@ def forward_phase(info: dict, params: dict) -> None:
         kv_lens=s["kv_lens"],
         page_table=s["page_table"],
         token_rows=s["rows"],
-        num_live=s["total"],
+        num_live=s["num_live"],
     )
     # The bucketed decode step (Q = 1), at contexts of 128-640 tokens.
     d = decode_batch(cfg, page, 128, 640, gen, dev)
@@ -724,6 +749,162 @@ def counting_readbacks():
         torch.Tensor.cpu = orig
 
 
+def pool_parts(pool) -> tuple:
+    """The tensors of a pool: one, or the int8 pool's (data, scales)."""
+    return pool if isinstance(pool, tuple) else (pool,)
+
+
+def clone_pool(pool):
+    return tuple(t.clone() for t in pool) if isinstance(pool, tuple) else pool.clone()
+
+
+def pools_equal(a, b) -> bool:
+    return all(torch.equal(x, y) for x, y in zip(pool_parts(a), pool_parts(b)))
+
+
+def randomize_pool(pool, seed: int) -> None:
+    """Seeded random values in every slot of an engine's pool (the int8
+    pool's scales on the f16 grid), so that a stray write shows. The
+    engine writes a position's K|V before anything attends to it."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    for t in pool_parts(pool):
+        if t.dtype == torch.int8:
+            t.copy_(torch.randint(-127, 128, t.shape, generator=g, device="cuda", dtype=torch.int8))
+        elif isinstance(pool, tuple):
+            t.uniform_(0.004, 0.016, generator=g)
+            t.copy_(t.half().float())
+        else:
+            t.normal_(generator=g)
+
+
+class GraphWatch:
+    """Watches an engine's decode-step programs (``runner.programs``: one
+    CUDA graph per key) through a run. It counts captures and replays by
+    key and runs every replay (the staging copy and ``graph.replay``)
+    under ``torch.cuda.set_sync_debug_mode("error")``. At the first replay
+    it runs the key's body eagerly on the same inputs, from a copy of the
+    pool taken before, puts the pool back, replays, and holds the replay to
+    the eager run: tokens, logprobs and pool bytes equal. ``quiet`` is true
+    while a program is prepared or compared: the forwards run then are not
+    the engine's steps."""
+
+    def __init__(self, runner) -> None:
+        self.runner, self.progs = runner, runner.programs
+        self.captured: dict = {}
+        self.replays: dict = {}
+        self.quiet = False
+        self.compared: dict | None = None
+        self._prepare, self._replay = self.progs.prepare, self.progs.replay
+        self.progs.prepare, self.progs.replay = self.prepare, self.replay
+
+    def prepare(self, key):
+        self.quiet = True
+        try:
+            new = self._prepare(key)
+        finally:
+            self.quiet = False
+        if new:
+            self.captured[key] = self.captured.get(key, 0) + 1
+        return new
+
+    def replay(self, key, arrays):
+        from llmd_tpu_torch import ops
+
+        pool = self.runner.kv_cache
+        check = self.compared is None
+        if check:
+            saved, state = clone_pool(pool), ops.launch_state()
+            self.quiet = True
+            try:
+                want = self.progs.eager(key, arrays).clone()
+            finally:
+                self.quiet = False
+            want_pool = clone_pool(pool)
+            ops.set_launch_state(state)
+            for t, src in zip(pool_parts(pool), pool_parts(saved)):
+                t.copy_(src)
+            del saved
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            out = self._replay(key, arrays)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        self.replays[key] = self.replays.get(key, 0) + 1
+        if check:
+            torch.cuda.synchronize()
+            self.compared = {"key": list(key), "tokens_and_logprobs_equal": torch.equal(out, want),
+                             "pool_bytes_equal": pools_equal(pool, want_pool)}
+            del want_pool
+            if not (self.compared["tokens_and_logprobs_equal"] and self.compared["pool_bytes_equal"]):
+                raise AssertionError(f"a graph replay differs from its eager body: {self.compared}")
+        return out
+
+    def forwards(self, flat: str = "flat", q1: str = "q1") -> list:
+        """The forwards the replays ran: K one-token forwards a decode
+        window, one flat forward a flat step."""
+        out = []
+        for key, n in self.replays.items():
+            out += ([q1] * key[2] if key[0] == "window" else [flat]) * n
+        return out
+
+    def summary(self) -> dict:
+        return {"captured": {str(k): n for k, n in self.captured.items()},
+                "replays": {str(k): n for k, n in self.replays.items()},
+                "replay_vs_eager": self.compared}
+
+
+def warm_engine(eng, info: dict, watch: GraphWatch, seed: int) -> None:
+    """``eng.warmup()`` on a pool of seeded random values: the pool must
+    keep every byte. Records the graphs it captured, its seconds and the
+    device memory it kept (the graph pool and static inputs), measured
+    after the engines of earlier phases, which their runners and programs
+    keep in reference cycles, are collected."""
+    randomize_pool(eng.runner.kv_cache, seed)
+    before = clone_pool(eng.runner.kv_cache)
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    reserved = torch.cuda.memory_reserved()
+    t0 = time.perf_counter()
+    n = eng.warmup()
+    torch.cuda.synchronize()
+    info.update(warmup_graphs=n, warmup_s=time.perf_counter() - t0)
+    torch.cuda.empty_cache()
+    info["warmup_kept_bytes"] = torch.cuda.memory_reserved() - reserved
+    unchanged = pools_equal(eng.runner.kv_cache, before)
+    del before
+    if n != len(eng.runner.warm_keys()) or set(watch.captured) != set(eng.runner.warm_keys()):
+        raise AssertionError(f"warmup captured {watch.captured}, want {eng.runner.warm_keys()}")
+    if not unchanged:
+        raise AssertionError("warmup changed the KV pool")
+
+
+def check_replay_launches(runner, cfg, int8: bool) -> None:
+    """Each captured program's launches per replay (``Program.launches``):
+    every kernel branch once a layer a forward (K iterations of a window,
+    one flat forward), K6' twice a MoE layer a forward."""
+    L = cfg.num_layers
+    n_moe = L - cfg.first_dense_layers if cfg.is_moe else 0
+    for key, prog in runner.programs.programs.items():
+        flat, q1 = (1, 0) if key[0] == "flat" else (0, key[2])
+        branches = {f"{fn.__name__}[{b}]": n for fn, (_, br) in prog.launches.items()
+                    for b, n in br.items() if n}
+        totals = {fn.__name__: n for fn, (n, _) in prog.launches.items() if n}
+        if cfg.is_mla:
+            want_b = {"write_kv_pages_decode_full[plain]": L * q1}
+            want = {"write_kv_pages_decode_full": L * q1, "mla_decode_paged_attention_full": L * q1}
+        else:
+            want_b = expected_branches(cfg, flat, q1, int8)
+            want = {}
+            for name, n in want_b.items():
+                fn = name.split("[")[0]
+                want[fn] = want.get(fn, 0) + n
+        if n_moe:
+            want.update(grouped_matmul_pair=n_moe * (flat + q1), grouped_matmul=n_moe * (flat + q1))
+        if branches != want_b or totals != want:
+            raise AssertionError(f"graph {key}: {totals} {branches} a replay, want {want} {want_b}")
+
+
 ENGINE_LAYOUTS = {
     "flat step": {},
     "split engine, decode_window 8": dict(unified_step=False, decode_window=8),
@@ -772,9 +953,13 @@ def engine_phase(info: dict, params: dict, model: str = MODEL,
     the flat pair must launch once a layer a flat forward, the decode pair
     once a layer a Q = 1 forward, K6' twice a MoE layer a forward (the
     gate|up pair and the down call), each in the branches the layer takes
-    (window, sinks, int8 pool). Every decode-window dispatch runs under ``torch.cuda.set_sync_debug_mode
-    ("error")``. Returns (launch counts, branch launch counts, the
-    requests' tokens)."""
+    (window, sinks, int8 pool). Every decode-only step (a decode window, or
+    a flat step with no prefill) must be a CUDA graph replay
+    (``GraphWatch``: staging and replays under ``torch.cuda.set_sync_debug_mode
+    ("error")``, the first replay held to its eager body), whose forwards
+    count from its key; each graph's launches a replay are checked per
+    branch; ``warmup`` runs first and must leave the pool as it was.
+    Returns (launch counts, branch launch counts, the requests' tokens)."""
     from llmd_tpu_torch import ops
     from llmd_tpu_torch.config import CacheConfig, EngineConfig, SchedulerConfig
     from llmd_tpu_torch.engine import LLMEngine, SamplingParams
@@ -791,26 +976,31 @@ def engine_phase(info: dict, params: dict, model: str = MODEL,
         seed=0,
     )
     eng = LLMEngine(config, params=params, device="cuda")
+    watch = GraphWatch(eng.runner)
+    warm_engine(eng, info, watch, seed=17)
     k_steps: list[int] = []  # iterations of each decode window dispatched
-    forwards: list[str] = []  # "flat", "q1" or "prefill" for every forward
+    forwards: list[str] = []  # "flat", "q1" or "prefill" for every eager forward
+    decode_only_flat = [0]  # flat steps with no prefill
     dispatch = eng.runner.dispatch_staged_decode
+    dispatch_flat = eng.runner.dispatch_unified
     forward = runner_mod.llama.forward_hidden
 
     def logged_forward(p, kv_cache, inp, c):
-        kind = "flat" if inp.token_rows is not None else (
-            "q1" if inp.token_ids.shape[1] == 1 else "prefill")
-        forwards.append(kind)
+        if not watch.quiet:
+            forwards.append("flat" if inp.token_rows is not None else (
+                "q1" if inp.token_ids.shape[1] == 1 else "prefill"))
         return forward(p, kv_cache, inp, c)
 
-    def strict_dispatch(staged):
+    def logged_dispatch(staged):
         k_steps.append(staged.k)
-        torch.cuda.set_sync_debug_mode("error")
-        try:
-            return dispatch(staged)
-        finally:
-            torch.cuda.set_sync_debug_mode("default")
+        return dispatch(staged)
 
-    eng.runner.dispatch_staged_decode = strict_dispatch
+    def logged_flat(prefills, decodes):
+        decode_only_flat[0] += not prefills
+        return dispatch_flat(prefills, decodes)
+
+    eng.runner.dispatch_staged_decode = logged_dispatch
+    eng.runner.dispatch_unified = logged_flat
     runner_mod.llama.forward_hidden = logged_forward
     prompts = engine_prompts(cfg)
     sp = SamplingParams(temperature=0.0, max_tokens=32, ignore_eos=True)
@@ -851,6 +1041,8 @@ def engine_phase(info: dict, params: dict, model: str = MODEL,
     st = eng.stats
     steps = st.engine_steps_total
     counts, branches = ops.launch_counts(), ops.branch_launch_counts()
+    eager_forwards = {k: forwards.count(k) for k in ("flat", "q1", "prefill")}
+    forwards += watch.forwards()
     rids = list(tokens)
     # Time per output token of a request: from its first token to its last.
     tpot = [(last[r] - ttft[r]) / (len(tokens[r]) - 1) for r in rids]
@@ -864,8 +1056,20 @@ def engine_phase(info: dict, params: dict, model: str = MODEL,
         step_dispatches=st.step_dispatches_total, decode_dispatches=st.decode_dispatches_total,
         unified_steps=st.unified_steps_total, readbacks=len(readbacks),
         forwards={k: forwards.count(k) for k in ("flat", "q1", "prefill")},
+        eager_forwards=eager_forwards, graphs=watch.summary(),
         launches=counts, branch_launches=branches,
     )
+    # Every decode-only step was one graph replay: each decode window, and
+    # each flat step that held no prefill.
+    window_replays = sum(n for key, n in watch.replays.items() if key[0] == "window")
+    flat_replays = sum(n for key, n in watch.replays.items() if key[0] == "flat")
+    if window_replays != len(k_steps) or flat_replays != decode_only_flat[0]:
+        raise AssertionError(f"{window_replays} window replays for {len(k_steps)} windows, "
+                             f"{flat_replays} flat replays for {decode_only_flat[0]} decode-only flat steps")
+    if eager_forwards["q1"] or watch.compared is None:
+        raise AssertionError(f"{eager_forwards['q1']} decode forwards ran outside a graph, "
+                             "or no replay was held to its eager body")
+    check_replay_launches(eng.runner, cfg, kv_dtype == "int8")
     if any(len(t) != 32 for t in tokens.values()):
         raise AssertionError(f"not every request produced 32 tokens: {[len(t) for t in tokens.values()]}")
     if cached[rids[-1]] <= 0:
@@ -913,7 +1117,7 @@ def engine_phase(info: dict, params: dict, model: str = MODEL,
     want_b = expected_branches(cfg, flat_fw, q1_fw, kv_dtype == "int8")
     if branches != want_b:
         raise AssertionError(f"branch launch counts {branches}, want {want_b}")
-    del eng
+    del eng, watch
     return counts, branches, [tokens[r] for r in rids]
 
 
@@ -1467,10 +1671,12 @@ def ds_engine_phase(info: dict, params: dict) -> dict:
     MLA has no flat step, so the default engine runs the bucketed unified
     step. Every forward is logged with its Q: the pair and the down call
     of K6' must launch 26 times each a forward, K4' and K5' 27 times a Q = 1
-    forward (each window iteration is one), the GQA kernels never. Each step reads back once, and every
-    decode-window dispatch runs under ``torch.cuda.set_sync_debug_mode
-    ("error")``, so a hidden device sync fails the run. Returns the launch
-    counts."""
+    forward (each window iteration is one), the GQA kernels never. Each
+    step reads back once. Every decode-only step is a decode window, and
+    every window a CUDA graph replay (``GraphWatch``: staging and replays
+    under ``torch.cuda.set_sync_debug_mode("error")``, so a hidden device
+    sync fails the run; the first replay held to its eager body);
+    ``warmup`` must leave the pool as it was. Returns the launch counts."""
     from llmd_tpu_torch import ops
     from llmd_tpu_torch.config import CacheConfig, EngineConfig, SchedulerConfig
     from llmd_tpu_torch.engine import LLMEngine, SamplingParams
@@ -1488,25 +1694,24 @@ def ds_engine_phase(info: dict, params: dict) -> dict:
     eng = LLMEngine(config, params=params, device="cuda")
     if eng.runner.flat:
         raise AssertionError("an MLA engine took the flat step")
-    forwards: list[int] = []  # Q of every forward
+    watch = GraphWatch(eng.runner)
+    warm_engine(eng, info, watch, seed=19)
+    forwards: list[int] = []  # Q of every eager forward
     k_steps: list[int] = []
     forward = runner_mod.llama.forward_hidden
     dispatch = eng.runner.dispatch_staged_decode
 
     def logged_forward(params, kv_cache, inp, c):
-        forwards.append(inp.token_ids.shape[1])
+        if not watch.quiet:
+            forwards.append(inp.token_ids.shape[1])
         return forward(params, kv_cache, inp, c)
 
-    def strict_dispatch(staged):
+    def logged_dispatch(staged):
         k_steps.append(staged.k)
-        torch.cuda.set_sync_debug_mode("error")
-        try:
-            return dispatch(staged)
-        finally:
-            torch.cuda.set_sync_debug_mode("default")
+        return dispatch(staged)
 
     runner_mod.llama.forward_hidden = logged_forward
-    eng.runner.dispatch_staged_decode = strict_dispatch
+    eng.runner.dispatch_staged_decode = logged_dispatch
     gen = torch.Generator().manual_seed(11)
     lengths = [16, 100, 300, 700, 1500, 64, 900]
     prompts = [torch.randint(3, cfg.vocab_size, (n,), generator=gen).tolist() for n in lengths]
@@ -1542,6 +1747,8 @@ def ds_engine_phase(info: dict, params: dict) -> dict:
     st = eng.stats
     rids = list(tokens)
     tpot = [(last[r] - ttft[r]) / (len(tokens[r]) - 1) for r in rids]
+    eager_decode_forwards = forwards.count(1)
+    forwards += watch.forwards(flat=1, q1=1)
     decode_forwards = forwards.count(1)
     info.update(
         requests=len(rids), steps=st.engine_steps_total, wall_s=wall,
@@ -1553,8 +1760,14 @@ def ds_engine_phase(info: dict, params: dict) -> dict:
         unified_steps=st.unified_steps_total, readbacks=len(readbacks),
         forwards=len(forwards), q1_forwards=decode_forwards, decode_windows=len(k_steps),
         window_iterations=sum(k_steps), decode_ms_per_token_median=statistics.median(window_ms),
-        launches=counts,
+        graphs=watch.summary(), launches=counts,
     )
+    # Every decode window was one graph replay, and no decode forward ran
+    # outside one.
+    if sum(watch.replays.values()) != len(k_steps) or eager_decode_forwards or watch.compared is None:
+        raise AssertionError(f"{watch.replays} replays for {len(k_steps)} windows, "
+                             f"{eager_decode_forwards} decode forwards outside a graph")
+    check_replay_launches(eng.runner, cfg, False)
     if any(len(t) != 32 for t in tokens.values()):
         raise AssertionError(f"not every request produced 32 tokens: {[len(t) for t in tokens.values()]}")
     if cached[rids[-1]] <= 0:
@@ -1574,7 +1787,7 @@ def ds_engine_phase(info: dict, params: dict) -> dict:
         raise AssertionError(f"no decode window ran 8 iterations: {k_steps}")
     if not layout and st.unified_steps_total == 0:
         raise AssertionError("the default MLA engine ran no bucketed unified step")
-    del eng
+    del eng, watch
     return counts
 
 
@@ -1625,7 +1838,7 @@ def first_token_witness(info: dict, params: dict, model: str, engine_int8: list,
     ids[: s["total"]] = torch.tensor(sum(prompts, []))
     inp = StepInput(token_ids=ids[:, None].to(dev), positions=s["positions"][:, None],
                     kv_lens=s["kv_lens"], page_table=s["page_table"], token_rows=s["rows"],
-                    num_live=s["total"])
+                    num_live=s["num_live"])
     last = torch.tensor([n - 1 for n in itertools.accumulate(lens)], device=dev)
     shape = (cfg.num_layers, s["num_pages"], cfg.num_kv_heads, page, 2 * cfg.head_dim)
 
@@ -1731,11 +1944,12 @@ def attention_branch_case(kind: str, q, data, scales, layer, step, page, window,
                              window, sinks, max_q=None if sinks is None else 64)
     del pool_f
     source, replaces = ATTN_SOURCES[kind]
-    ms = cuda_ms(kernel)
+    times = kernel_times(kernel)
+    ms = times["ms"]
     return {
         "name": f"{kind}_paged_attention[{key}]", "route": "cuda", "source": source,
         "replaces": replaces, "max_abs_err": err,
-        "ms": ms, "plain_ms": cuda_ms(plain, reps=plain_reps, warmup=1),
+        **times, "plain_ms": cuda_ms(plain, reps=plain_reps, warmup=1),
         "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms,
         "bound_share": b_ms / ms, "items": plan["items"], "spans": plan["spans"],
         "wrapper": f"{kind}_paged_attention_full", "branch": key,
@@ -1757,7 +1971,7 @@ def write_case(kind: str, data, scales, layer, rows_in, step) -> dict:
     if kind == "flat":
         k, v = rows_in
         total = step["total"]
-        args = (layer, k, v, step["page_table"], step["rows"], step["positions"], total)
+        args = (layer, k, v, step["page_table"], step["rows"], step["positions"], step["num_live"])
         kernel = lambda: ops.write_kv_pages_flat_full(data, *args, scales)  # noqa: E731
         plain = lambda: ops.write_kv_pages_flat_plain(data, *args, scales)  # noqa: E731
         ops.write_kv_pages_flat_plain(ref[0], *args, ref[1])
@@ -1803,8 +2017,8 @@ def write_case(kind: str, data, scales, layer, rows_in, step) -> dict:
     return {
         "name": f"{kind}_kv_write[{key}]", "route": "cuda", "source": source,
         "replaces": replaces, "max_abs_err": 0.0,
-        "ms": cuda_ms(kernel), "plain_ms": cuda_ms(plain),
-        "bound_ms": b_ms, "bound_by": b_by, "library_ms": cuda_ms(library),
+        **kernel_times(kernel), "plain_ms": cuda_ms(plain),
+        "bound_ms": b_ms, "bound_by": b_by, "library_ms": device_ms(library),
         "wrapper": f"write_kv_pages_{kind}_full", "branch": key,
     }
 
@@ -1872,8 +2086,9 @@ def oss_kernels_phase(info: dict) -> dict:
                 del data, scales, q, rows_in
                 torch.cuda.empty_cache()
     for name, e in out.items():
-        info[name] = {k: e[k] for k in ("model", "max_abs_err", "ms", "plain_ms", "bound_ms",
-                                        "bound_by", "library_ms", "bound_share", "items", "spans")
+        info[name] = {k: e[k] for k in ("model", "max_abs_err", "ms", "event_ms", "host_us",
+                                        "plain_ms", "bound_ms", "bound_by", "library_ms",
+                                        "bound_share", "items", "spans")
                       if k in e}
     return out
 
@@ -1915,7 +2130,7 @@ def oss_forward_phase(info: dict, params: dict) -> None:
     ids = torch.randint(0, cfg.vocab_size, (s["T"],), generator=g, device=dev)
     flat_inp = StepInput(token_ids=torch.where(live, ids, 0)[:, None],
                          positions=s["positions"][:, None], kv_lens=s["kv_lens"],
-                         page_table=s["page_table"], token_rows=s["rows"], num_live=s["total"])
+                         page_table=s["page_table"], token_rows=s["rows"], num_live=s["num_live"])
     d = decode_batch(cfg, page, 128, 640, gen, dev)
     ids = torch.randint(0, cfg.vocab_size, (d["B"], 1), generator=g, device=dev)
     decode_inp = StepInput(token_ids=torch.where(d["valid"][:, None] > 0, ids, 0),

@@ -106,6 +106,12 @@ class LLMEngine:
     def has_work(self) -> bool:
         return self.scheduler.has_work()
 
+    def warmup(self) -> int:
+        """Build the kernels and prepare the decode steps' programs (CUDA
+        graphs on the card) before serving; returns how many
+        (``ModelRunner.warmup``)."""
+        return self.runner.warmup()
+
     def step(self) -> list[RequestOutput]:
         batch: ScheduledBatch = self.scheduler.schedule()
         if batch.is_empty:

@@ -34,22 +34,36 @@ token themselves.
   writes the whole step's KV before attention reads it, so a later sub-row
   attends its earlier sub-rows' fresh KV.
 
+**Decode steps as CUDA graphs** (``engine/graphs.py``; JAX ``warmup``).
+Every decode-only step is one program per key, captured as a CUDA graph on
+the card and replayed: the decode window per (batch bucket, K,
+``all_greedy``), which also carries the split engine's and the bucketed
+layouts' one-token decode steps, and the flat step that holds decode rows
+only per (T, ``all_greedy``). Its body (``_multi``, ``_flat_step``) reads
+only the key's static inputs, and the flat step's live count reaches the
+KV write on the device. ``warmup`` captures the keys the scheduler reaches
+at its largest batch; any other key is captured at its first use. A flat
+step that holds a prefill chunk, a prefill group and the bucketed unified
+step run eagerly: they are bound by the device. On the CPU the same bodies
+run eagerly from the same static inputs.
+
 **Buckets.** The JAX runner pads every shape to a bucket so that XLA
-compiles each program once. PyTorch runs eagerly, so the port keeps only
-the buckets that mean something beyond compilation: the decode batch
-bucket (``batch_buckets``), because pad rows (``valid = 0``, ``kv_len = 0``)
-are part of what the decode kernels define and a CUDA graph per bucket is
-the next step; and the prefill Q bucket (``prefill_buckets``) as the
-grouping key, because it decides how many programs a step dispatches and so
-whether the engine takes the unified step. A prefill group and the
-bucketed unified step pad their arrays only to the longest row they hold,
-with no pad rows. The JAX row buckets of those programs survive in one
-place, ``_seed_rows``: the engine's seed stream advances by them, so
-unseeded sampling draws what the JAX engine draws.
+compiles each program once. The port keeps the buckets that key its
+graphs: the decode batch bucket (``batch_buckets``), whose pad rows
+(``valid = 0``, ``kv_len = 0``) the decode kernels skip, and the flat
+step's 16-token stream granule; and the prefill Q bucket
+(``prefill_buckets``) as the grouping key, because it decides how many
+programs a step dispatches and so whether the engine takes the unified
+step. A prefill group and the bucketed unified step pad their arrays only
+to the longest row they hold, with no pad rows. The JAX row buckets of
+those programs survive in one place, ``_seed_rows``: the engine's seed
+stream advances by them, so unseeded sampling draws what the JAX engine
+draws.
 """
 
 from __future__ import annotations
 
+import functools
 from dataclasses import dataclass
 
 import numpy as np
@@ -57,11 +71,13 @@ import torch
 
 from llmd_tpu_torch import ops
 from llmd_tpu_torch.config import EngineConfig
+from llmd_tpu_torch.engine.graphs import Spec, StepPrograms
 from llmd_tpu_torch.engine.request import Request
 from llmd_tpu_torch.engine.sampler import sample_tokens, spec_seed
 from llmd_tpu_torch.engine.scheduler import ScheduledSeq
 from llmd_tpu_torch.models import llama
 from llmd_tpu_torch.models.common import StepInput
+from llmd_tpu_torch.ops import _build
 
 # Packed-stream length granule: T pads up to a multiple of 16 tokens.
 _T_GRANULE = 16
@@ -208,6 +224,9 @@ class ModelRunner:
         # Padding accounting: live tokens and the pads the shapes added.
         self.live_tokens_total = 0
         self.padded_tokens_total = 0
+        # The decode steps' programs (CUDA graphs on the card), by key:
+        # ("window", B, K, all_greedy) or ("flat", T, all_greedy).
+        self.programs = StepPrograms(self.device, self._program)
 
     def _alloc_pool(self):
         """The KV pool: [L, pages, K, page, 2D], the K|V halves side by side
@@ -336,22 +355,39 @@ class ModelRunner:
             return self._dispatch_unified_bucketed(prefills, decodes)
         staged = self.stage_unified(prefills, decodes)
         a = staged.arrays
+        T = len(a["stream"])
         self.live_tokens_total += staged.num_live
-        self.padded_tokens_total += len(a["stream"]) - staged.num_live
-        packed = self._flat_step(a, staged.num_live, staged.all_greedy)
+        self.padded_tokens_total += T - staged.num_live
+        if prefills:
+            x = {name: self._on_device(arr) for name, arr in a.items()}
+            packed = self._flat_step(x, staged.all_greedy)
+        else:
+            packed = self.programs.run(("flat", T, staged.all_greedy), a)
         n_p, n_d = len(prefills), len(decodes)
         return PendingUnified(
             packed, list(range(n_p)), list(range(n_p, n_p + n_d))
         )
 
+    def _flat_spec(self, T: int) -> Spec:
+        """The static inputs of the flat step at stream length T (the
+        arrays of ``stage_unified``)."""
+        R, i64, i32, f32 = self.flat_rows, torch.int64, torch.int32, torch.float32
+        return {
+            "stream": ((T,), i64), "row_start": ((R,), i64), "pos0": ((R,), i64),
+            "qlens": ((R,), i64), "page_table": ((R, self.max_pages), i32),
+            "temp": ((R,), f32), "top_k": ((R,), i32), "top_p": ((R,), f32),
+            "seeds": ((R,), i64),
+        }
+
     @torch.inference_mode()
-    def _flat_step(self, a: dict, num_live: int, all_greedy: bool) -> torch.Tensor:
+    def _flat_step(self, x: dict[str, torch.Tensor], all_greedy: bool) -> torch.Tensor:
+        """The flat step's body on the device arrays ``x`` (the names of
+        ``_flat_spec``); returns the packed [B, 2]. Nothing it computes
+        depends on a host value but the arrays' shapes."""
         dev = self.device
-        stream = torch.as_tensor(a["stream"], device=dev)
-        row_start = torch.as_tensor(a["row_start"], device=dev)
-        pos0 = torch.as_tensor(a["pos0"], device=dev)
-        qlens = torch.as_tensor(a["qlens"], device=dev)
-        page_table = torch.as_tensor(a["page_table"], device=dev)
+        stream, row_start, pos0, qlens, page_table = (
+            x[name] for name in ("stream", "row_start", "pos0", "qlens", "page_table")
+        )
         T, B = stream.shape[0], row_start.shape[0]
         # Per-token view derived on device from the cu_q_lens metadata:
         # token t belongs to the row whose [row_start, row_start + qlen)
@@ -370,7 +406,7 @@ class ModelRunner:
             kv_lens=kv_lens,
             page_table=page_table,
             token_rows=row_of.int(),
-            num_live=num_live,
+            num_live=ends[-1:].int(),
             # The attention kernel's query tiles, once for every layer.
             flat_items=ops.flat_work_items(row_of, kv_lens, group),
         )
@@ -380,7 +416,7 @@ class ModelRunner:
         last = (row_start + (qlens - 1).clamp(min=0)).clamp(0, T - 1)
         logits = llama.compute_logits(self.params, hidden[last, 0], self.cfg)
         tok, logp = sample_tokens(
-            logits, a["temp"], a["top_k"], a["top_p"], a["seeds"], all_greedy
+            logits, x["temp"], x["top_k"], x["top_p"], x["seeds"], all_greedy
         )
         return torch.stack([tok.float(), logp], dim=1)  # [B, 2]
 
@@ -506,21 +542,31 @@ class ModelRunner:
         n = len(requests)
         self.live_tokens_total += n * staged.k
         self.padded_tokens_total += (staged.B - n) * staged.k
-        packed = self._multi(a, staged.k, staged.all_greedy)
+        packed = self.programs.run(("window", staged.B, staged.k, staged.all_greedy), a)
         return PendingDecode(packed, n, staged.k)
 
+    def _window_spec(self, B: int, K: int) -> Spec:
+        """The static inputs of a decode window of K iterations over the
+        batch bucket B (the arrays of ``stage_decode`` with the seeds)."""
+        i64, i32, f32 = torch.int64, torch.int32, torch.float32
+        return {
+            "first": ((B,), i64), "start": ((B,), i32),
+            "page_table": ((B, self.max_pages), i32), "active": ((B,), torch.bool),
+            "temp": ((B,), f32), "top_k": ((B,), i32), "top_p": ((B,), f32),
+            "seeds": ((B, K), i64),
+        }
+
     @torch.inference_mode()
-    def _multi(self, a: dict, k_steps: int, all_greedy: bool) -> torch.Tensor:
-        """K decode iterations with on-device token feedback; returns the
-        packed [B, 2K]. Nothing in the loop reads the device."""
+    def _multi(self, x: dict[str, torch.Tensor], k_steps: int, all_greedy: bool) -> torch.Tensor:
+        """The decode window's body on the device arrays ``x`` (the names
+        of ``_window_spec``): K decode iterations with on-device token
+        feedback; returns the packed [B, 2K]. Nothing in the loop reads
+        the device."""
         dev = self.device
-        tok = self._on_device(a["first"])
-        start = self._on_device(a["start"])
-        page_table = self._on_device(a["page_table"])
-        active = self._on_device(a["active"])
-        temp, top_k, top_p, seeds = (
-            self._on_device(a[name]) for name in ("temp", "top_k", "top_p", "seeds")
+        tok, start, page_table, active = (
+            x[name] for name in ("first", "start", "page_table", "active")
         )
+        temp, top_k, top_p, seeds = (x[name] for name in ("temp", "top_k", "top_p", "seeds"))
         qlens = active.int()
         B = tok.shape[0]
         out_t = torch.zeros((B, k_steps), dtype=torch.float32, device=dev)
@@ -545,6 +591,43 @@ class ModelRunner:
             out_l[:, i] = logp
             tok = nxt.long()
         return torch.cat([out_t, out_l], dim=1)
+
+    # ------------------------------------------------------------------ #
+    # the programs of the decode steps
+
+    def _program(self, key: tuple) -> tuple[Spec, object]:
+        """A program key's static inputs and body (``StepPrograms``)."""
+        if key[0] == "window":
+            _, B, K, greedy = key
+            return self._window_spec(B, K), functools.partial(
+                self._multi, k_steps=K, all_greedy=greedy)
+        _, T, greedy = key
+        return self._flat_spec(T), functools.partial(self._flat_step, all_greedy=greedy)
+
+    def warm_keys(self) -> list[tuple]:
+        """The programs ``warmup`` prepares, as the JAX runner's default
+        warm set: both ``all_greedy`` values of every decode window the
+        scheduler dispatches (K = 1 where window-1 decode steps are not
+        flat, and ``decode_window``) at the largest batch bucket, and of
+        the flat step at the largest decode-only stream length."""
+        sched = self.config.scheduler
+        windows = sorted({k for k in (1, sched.decode_window) if k > 1 or not self.flat})
+        keys = [("window", self.batch_buckets[-1], k, g)
+                for k in windows for g in (True, False)]
+        if self.flat:
+            T = -(-sched.max_num_seqs // _T_GRANULE) * _T_GRANULE
+            keys += [("flat", T, g) for g in (True, False)]
+        return keys
+
+    def warmup(self) -> int:
+        """Build every kernel and prepare ``warm_keys``' programs (on the
+        card: capture them as CUDA graphs); returns the number of programs
+        prepared. Any other key is prepared at its first use. The KV pool
+        is left as it was: a program is prepared on inputs with no live
+        row."""
+        if self.device.type == "cuda":
+            _build.build_all()
+        return sum(self.programs.prepare(key) for key in self.warm_keys())
 
     # ------------------------------------------------------------------ #
 

@@ -21,7 +21,9 @@ class StepInput:
     kv_lens:     [B] valid kv length per row AFTER this step's writes
     page_table:  [B, max_pages] physical pages per row
     live_pages:  the largest live page count of the batch (host int): the
-                 plain ``Q > 1`` attention gathers no more table columns
+                 plain ``Q > 1`` attention gathers no more table columns;
+                 eager steps only (no step captured in a CUDA graph sets
+                 it: a host value would be frozen into the graph)
 
     Flat (``token_rows`` set, the ``cu_q_lens`` step): the batch axis is
     the packed token stream of T tokens (live tokens first, then pads).
@@ -31,7 +33,9 @@ class StepInput:
     kv_lens:     [T] causal horizon per token: position + 1 (0 for pads)
     page_table:  [R, max_pages] compact per-row table of physical pages
     token_rows:  [T] token -> row of ``page_table``
-    num_live:    number of live tokens (host int; tokens [0, num_live))
+    num_live:    [1] int32 number of live tokens (tokens [0, num_live)),
+                 on the device, so that a step captured in a CUDA graph
+                 at one T replays with any count
     flat_items:  [T, 2] the flat attention kernel's query tiles
                  (``ops.flat_work_items``), built once a step for every
                  layer; None lets each layer's kernel call build them
@@ -42,7 +46,7 @@ class StepInput:
     kv_lens: torch.Tensor
     page_table: torch.Tensor
     token_rows: torch.Tensor | None = None
-    num_live: int = 0
+    num_live: torch.Tensor | None = None
     query_lens: torch.Tensor | None = None
     live_pages: int | None = None
     flat_items: torch.Tensor | None = None

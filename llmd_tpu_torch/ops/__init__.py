@@ -30,6 +30,8 @@ GEMM (``grouped_matmul_pair``: gate and up in one launch). The latent rows are w
 
 from __future__ import annotations
 
+import collections
+
 import torch
 
 from llmd_tpu_torch.ops.grouped_gemm import (
@@ -122,6 +124,37 @@ def branch_launch_counts() -> dict[str, int]:
     }
 
 
+def launch_state() -> dict:
+    """Every kernel wrapper's (launches, branch launches), to take back
+    (``set_launch_state``), to diff (``launch_delta``) or to add
+    (``add_launches``): a CUDA graph's replay runs the launches counted
+    while it was captured, and nothing calls the wrappers then."""
+    return {
+        fn: (fn.launches, collections.Counter(getattr(fn, "branch_launches", ())))
+        for fn in KERNELS
+    }
+
+
+def set_launch_state(state: dict) -> None:
+    for fn, (n, branches) in state.items():
+        fn.launches = n
+        if fn in BRANCHED:
+            fn.branch_launches.clear()
+            fn.branch_launches.update(branches)
+
+
+def launch_delta(after: dict, before: dict) -> dict:
+    return {fn: (after[fn][0] - before[fn][0], after[fn][1] - before[fn][1])
+            for fn in KERNELS}
+
+
+def add_launches(delta: dict) -> None:
+    for fn, (n, branches) in delta.items():
+        fn.launches += n
+        if fn in BRANCHED:
+            fn.branch_launches.update(branches)
+
+
 def _split_cache(kv_cache):
     """(data, scales) of a pool: an int8 pool travels as the pair (data
     int8, scales f32, ``ops/quant_kv.py``), a float pool as one tensor with
@@ -146,7 +179,7 @@ def write_kv_pages_full_flat(
     page_table: torch.Tensor,  # [R, max_pages] compact per-row table
     rows: torch.Tensor,  # [T] token -> row
     positions: torch.Tensor,  # [T, 1]
-    total: int,  # live tokens; the rest of the stream is padding
+    num_live: torch.Tensor,  # [1] i32 live tokens; the rest of the stream is padding
 ):
     """Flattened-token layer-indexed KV write, in place; returns the pool.
     An int8 pool takes the float rows and quantizes them in the kernel."""
@@ -155,7 +188,7 @@ def write_kv_pages_full_flat(
         k, v = k.to(data.dtype), v.to(data.dtype)
     write_kv_pages_flat_full(
         data, layer, k.contiguous(), v.contiguous(), page_table, rows,
-        positions.reshape(-1), total, scales,
+        positions.reshape(-1), num_live, scales,
     )
     return kv_cache_full
 
@@ -299,6 +332,7 @@ def mla_paged_attention_full(
 __all__ = [
     "BRANCHED",
     "KERNELS",
+    "add_launches",
     "branch_launch_counts",
     "dequantize_pages",
     "quantize_kv_rows",
@@ -317,6 +351,8 @@ __all__ = [
     "grouped_matmul_pair_plain",
     "grouped_matmul_plain",
     "launch_counts",
+    "launch_delta",
+    "launch_state",
     "mla_decode_paged_attention_full",
     "mla_decode_paged_attention_plain",
     "mla_paged_attention_full",
@@ -326,6 +362,7 @@ __all__ = [
     "paged_attention_xla",
     "paged_attention_xla_blocked",
     "reset_launch_counts",
+    "set_launch_state",
     "write_kv_pages",
     "write_kv_pages_decode",
     "write_kv_pages_decode_full",

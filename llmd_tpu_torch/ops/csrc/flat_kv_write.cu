@@ -6,15 +6,18 @@
 // (page, slot) row; on Hopper a per-token store is legal, so this kernel
 // addresses each token directly and needs no run plan.
 //
-// Grid: one block per packed token t. Tokens t >= total are pads and do
-// nothing. phys = page_table[rows[t], pos_t / page], slot = pos_t % page;
-// the block copies k_t and v_t ([K, D] each, read straight from the
+// Grid: one block per packed token t of the step's T. The live count
+// (num_live, one int32 on the device) is read by every block, so a step
+// captured in a CUDA graph at one T replays with any count of live tokens;
+// tokens t >= num_live are pads and do nothing. For a live token,
+// phys = page_table[rows[t], pos_t / page], slot = pos_t % page; the block
+// copies k_t and v_t ([K, D] each, read straight from the
 // step's k/v tensors, no concatenated slab) into the K and V halves of
 // cache[layer, phys, :, slot, :] with 16-byte vector stores. Live
 // (page, slot) targets are distinct, so blocks never race.
 //
-// Bound: bytes. It moves 2 * T * K * D elements in and out once; there is
-// no arithmetic. The design keeps it a single pass with full 16-byte
+// Bound: bytes. It moves 2 * num_live * K * D elements in and out once;
+// there is no arithmetic. The design keeps it a single pass with full 16-byte
 // accesses and no pool-sized copy.
 //
 // The int8 pool (scales given) fuses what the JAX package runs
@@ -41,10 +44,11 @@ __global__ void flat_kv_write_kernel(
     const int32_t* __restrict__ page_table,  // [R, max_pages]
     const int32_t* __restrict__ rows,    // [T]
     const int32_t* __restrict__ positions,   // [T]
-    int total, int layer, int num_pages, int num_kv_heads, int page,
+    const int32_t* __restrict__ num_live,    // [1]
+    int layer, int num_pages, int num_kv_heads, int page,
     int max_pages, int row_bytes) {
   const int t = blockIdx.x;
-  if (t >= total) return;
+  if (t >= *num_live) return;
   const int row = rows[t];
   const int pos = positions[t];
   const int phys = page_table[(int64_t)row * max_pages + pos / page];
@@ -75,11 +79,12 @@ __global__ void flat_kv_write_int8_kernel(
     const int32_t* __restrict__ page_table,  // [R, max_pages]
     const int32_t* __restrict__ rows,    // [T]
     const int32_t* __restrict__ positions,   // [T]
-    int total, int layer, int num_pages, int num_kv_heads, int page,
+    const int32_t* __restrict__ num_live,    // [1]
+    int layer, int num_pages, int num_kv_heads, int page,
     int max_pages) {
   constexpr int D = DPL * 32;
   const int w = (blockIdx.x * blockDim.x + threadIdx.x) / 32;  // (token, head)
-  if (w >= total * num_kv_heads) return;  // warp-uniform
+  if (w >= *num_live * num_kv_heads) return;  // warp-uniform
   const int t = w / num_kv_heads;
   const int h = w - t * num_kv_heads;
   const int pos = positions[t];
@@ -95,34 +100,38 @@ __global__ void flat_kv_write_int8_kernel(
 template <typename T, int DPL>
 cudaError_t launch_int8(void* cache, void* scales, const void* k, const void* v,
                         const void* page_table, const void* rows,
-                        const void* positions, int total, int layer,
-                        int num_pages, int num_kv_heads, int page,
-                        int max_pages, cudaStream_t stream) {
-  const int warps = total * num_kv_heads;
+                        const void* positions, const void* num_live,
+                        int tokens, int layer, int num_pages, int num_kv_heads,
+                        int page, int max_pages, cudaStream_t stream) {
+  const int warps = tokens * num_kv_heads;
   flat_kv_write_int8_kernel<T, DPL><<<(warps + 3) / 4, 128, 0, stream>>>(
       (int8_t*)cache, (float*)scales, (const T*)k, (const T*)v,
       (const int32_t*)page_table, (const int32_t*)rows,
-      (const int32_t*)positions, total, layer, num_pages, num_kv_heads, page,
-      max_pages);
+      (const int32_t*)positions, (const int32_t*)num_live, layer, num_pages,
+      num_kv_heads, page, max_pages);
   return cudaGetLastError();
 }
 
 template <typename T>
 cudaError_t launch_int8_d(int head_dim, void* cache, void* scales,
                           const void* k, const void* v, const void* page_table,
-                          const void* rows, const void* positions, int total,
-                          int layer, int num_pages, int num_kv_heads, int page,
+                          const void* rows, const void* positions,
+                          const void* num_live, int tokens, int layer,
+                          int num_pages, int num_kv_heads, int page,
                           int max_pages, cudaStream_t s) {
   switch (head_dim) {
     case 64:
       return launch_int8<T, 2>(cache, scales, k, v, page_table, rows, positions,
-                               total, layer, num_pages, num_kv_heads, page, max_pages, s);
+                               num_live, tokens, layer, num_pages, num_kv_heads, page,
+                               max_pages, s);
     case 128:
       return launch_int8<T, 4>(cache, scales, k, v, page_table, rows, positions,
-                               total, layer, num_pages, num_kv_heads, page, max_pages, s);
+                               num_live, tokens, layer, num_pages, num_kv_heads, page,
+                               max_pages, s);
     case 256:
       return launch_int8<T, 8>(cache, scales, k, v, page_table, rows, positions,
-                               total, layer, num_pages, num_kv_heads, page, max_pages, s);
+                               num_live, tokens, layer, num_pages, num_kv_heads, page,
+                               max_pages, s);
     default:
       return cudaErrorInvalidValue;
   }
@@ -131,38 +140,41 @@ cudaError_t launch_int8_d(int head_dim, void* cache, void* scales,
 }  // namespace
 
 // One entry for both pools. k/v are [T, K, D] of dtype 0 = float32,
-// 1 = bfloat16, 2 = float16. scales == nullptr: a float pool of k's dtype,
-// copied. Otherwise an int8 pool: k/v are quantized into cache (int8) and
-// scales (f32, [L, P, K, page, 2]).
+// 1 = bfloat16, 2 = float16; tokens = T. num_live points at one int32 on
+// the device: the live tokens [0, num_live), the rest of the stream pads.
+// scales == nullptr: a float pool of k's dtype, copied. Otherwise an int8
+// pool: k/v are quantized into cache (int8) and scales (f32, [L, P, K,
+// page, 2]).
 extern "C" int flat_kv_write(
     void* cache, void* scales, const void* k, const void* v,
     const void* page_table, const void* rows, const void* positions,
-    int total, int layer, int num_pages, int num_kv_heads, int page,
-    int max_pages, int head_dim, int dtype, void* stream) {
+    const void* num_live, int tokens, int layer, int num_pages,
+    int num_kv_heads, int page, int max_pages, int head_dim, int dtype,
+    void* stream) {
   if (dtype < 0 || dtype > 2) return (int)cudaErrorInvalidValue;
-  if (total == 0) return (int)cudaGetLastError();
+  if (tokens == 0) return (int)cudaGetLastError();
   cudaStream_t s = (cudaStream_t)stream;
   if (scales == nullptr) {
     const int row_bytes = head_dim * (dtype == 0 ? 4 : 2);
-    flat_kv_write_kernel<<<total, 128, 0, s>>>(
+    flat_kv_write_kernel<<<tokens, 128, 0, s>>>(
         (char*)cache, (const char*)k, (const char*)v,
         (const int32_t*)page_table, (const int32_t*)rows,
-        (const int32_t*)positions, total, layer, num_pages, num_kv_heads,
-        page, max_pages, row_bytes);
+        (const int32_t*)positions, (const int32_t*)num_live, layer, num_pages,
+        num_kv_heads, page, max_pages, row_bytes);
     return (int)cudaGetLastError();
   }
   switch (dtype) {
     case 0:
       return (int)launch_int8_d<float>(head_dim, cache, scales, k, v, page_table, rows,
-                                       positions, total, layer, num_pages, num_kv_heads,
-                                       page, max_pages, s);
+                                       positions, num_live, tokens, layer, num_pages,
+                                       num_kv_heads, page, max_pages, s);
     case 1:
       return (int)launch_int8_d<__nv_bfloat16>(head_dim, cache, scales, k, v, page_table,
-                                               rows, positions, total, layer, num_pages,
-                                               num_kv_heads, page, max_pages, s);
+                                               rows, positions, num_live, tokens, layer,
+                                               num_pages, num_kv_heads, page, max_pages, s);
     default:
       return (int)launch_int8_d<__half>(head_dim, cache, scales, k, v, page_table, rows,
-                                        positions, total, layer, num_pages, num_kv_heads,
-                                        page, max_pages, s);
+                                        positions, num_live, tokens, layer, num_pages,
+                                        num_kv_heads, page, max_pages, s);
   }
 }

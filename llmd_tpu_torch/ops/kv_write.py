@@ -6,8 +6,11 @@
 step's tokens through run-addressed page read-modify-writes because Mosaic
 cannot DMA one (page, slot) row; the port's kernel stores each token at
 (phys page, slot) directly, so it takes the per-token addressing
-(``page_table``, ``rows``, ``positions``) and no run plan. It is bound by
-bytes: one read of k/v and one write of the same bytes into the pool.
+(``page_table``, ``rows``, ``positions``) and no run plan. The live count
+is a ``[1]`` int32 tensor on the pool's device that the kernel reads, not a
+host integer, so that a step captured in a CUDA graph at one stream length
+T writes exactly the live tokens of every replay. It is bound by bytes: one
+read of k/v and one write of the same bytes into the pool.
 
 ``write_kv_pages_decode_full`` (and ``write_kv_pages_decode`` on a
 single-layer pool) launches ``csrc/decode_kv_write.cu``, which replaces the
@@ -54,7 +57,7 @@ def _kernel():
     global _lib
     if _lib is None:
         lib = _build.load("flat_kv_write")
-        lib.flat_kv_write.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 8 + [
+        lib.flat_kv_write.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 8 + [
             ctypes.c_void_p
         ]
         lib.flat_kv_write.restype = ctypes.c_int
@@ -82,13 +85,14 @@ def write_kv_pages_flat_plain(
     page_table: torch.Tensor,  # [R, max_pages] i32
     rows: torch.Tensor,  # [T] i32 token -> row
     positions: torch.Tensor,  # [T] i32
-    total: int,  # live tokens [0, total); the rest are pads
+    num_live: torch.Tensor,  # [1] i32: live tokens [0, num_live); the rest are pads
     scales: torch.Tensor | None = None,  # [L, num_pages, K, page, 2] (int8 pool)
 ) -> torch.Tensor:
     """Plain PyTorch version: one indexed assignment of the live tokens;
     for the int8 pool, ``quantize_kv_rows`` first and the scales' own
-    scatter after."""
+    scatter after. It reads the live count back to the host."""
     page = kv_cache.shape[3]
+    total = int(num_live)
     pos = positions[:total].long()
     phys = page_table[rows[:total].long(), pos // page].long()
     if scales is not None:
@@ -124,21 +128,22 @@ def _count(fn, scales) -> None:
     fn.branch_launches["plain" if scales is None else "int8"] += 1
 
 
-def _check(kv_cache, k, v, page_table, rows, positions, total, scales):
+def _check(kv_cache, k, v, page_table, rows, positions, num_live, scales):
     L, P, K, page, D2 = kv_cache.shape
     T = k.shape[0]
     if k.shape != (T, 1, K, D2 // 2) or v.shape != k.shape:
         raise ValueError(f"k/v {tuple(k.shape)}/{tuple(v.shape)} do not fit pool {tuple(kv_cache.shape)}")
-    if rows.shape != (T,) or positions.shape != (T,) or not 0 <= total <= T:
-        raise ValueError("rows/positions must be [T] and 0 <= total <= T")
+    if rows.shape != (T,) or positions.shape != (T,) or num_live.shape != (1,):
+        raise ValueError("rows/positions must be [T] and num_live [1]")
     for name, t in (("kv_cache", kv_cache), ("k", k), ("v", v),
                     ("page_table", page_table), ("rows", rows),
-                    ("positions", positions)):
+                    ("positions", positions), ("num_live", num_live)):
         if t.device != kv_cache.device:
             raise ValueError(f"{name} is on {t.device}, the pool on {kv_cache.device}")
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
-    for name, t in (("page_table", page_table), ("rows", rows), ("positions", positions)):
+    for name, t in (("page_table", page_table), ("rows", rows), ("positions", positions),
+                    ("num_live", num_live)):
         if t.dtype != torch.int32:
             raise ValueError(f"{name} must be int32, got {t.dtype}")
     if scales is not None:
@@ -165,31 +170,35 @@ def write_kv_pages_flat_full(
     page_table: torch.Tensor,
     rows: torch.Tensor,
     positions: torch.Tensor,
-    total: int,
+    num_live: torch.Tensor,
     scales: torch.Tensor | None = None,
 ) -> torch.Tensor:
-    """Write the live tokens' K|V into ``kv_cache[layer]`` in place; with
-    ``scales`` (an int8 pool), quantize them and store their scales too.
+    """Write the live tokens' K|V (tokens ``[0, num_live)``, ``num_live``
+    a ``[1]`` int32 tensor on the pool's device) into ``kv_cache[layer]``
+    in place; with ``scales`` (an int8 pool), quantize them and store their
+    scales too.
 
     CUDA tensors launch the kernel on the current stream; CPU tensors take
     the plain version. Returns ``kv_cache``."""
     if kv_cache.device.type == "cpu":
         return write_kv_pages_flat_plain(
-            kv_cache, layer, k, v, page_table, rows, positions, total, scales
+            kv_cache, layer, k, v, page_table, rows, positions, num_live, scales
         )
     if kv_cache.device.type != "cuda":
         raise ValueError(f"unsupported device {kv_cache.device}")
-    _check(kv_cache, k, v, page_table, rows, positions, total, scales)
+    _check(kv_cache, k, v, page_table, rows, positions, num_live, scales)
     L, P, K, page, D2 = kv_cache.shape
     if not 0 <= layer < L:
         raise ValueError(f"layer {layer} out of range [0, {L})")
-    if total == 0:
+    T = k.shape[0]
+    if T == 0:
         return kv_cache
     stream = torch.cuda.current_stream(kv_cache.device).cuda_stream
     err = _kernel().flat_kv_write(
         kv_cache.data_ptr(), None if scales is None else scales.data_ptr(), k.data_ptr(),
-        v.data_ptr(), page_table.data_ptr(), rows.data_ptr(), positions.data_ptr(), total,
-        layer, P, K, page, page_table.shape[1], D2 // 2, _DTYPE_CODES[k.dtype], stream,
+        v.data_ptr(), page_table.data_ptr(), rows.data_ptr(), positions.data_ptr(),
+        num_live.data_ptr(), T, layer, P, K, page, page_table.shape[1], D2 // 2,
+        _DTYPE_CODES[k.dtype], stream,
     )
     if err:
         raise RuntimeError(f"flat_kv_write launch failed: CUDA error {err}")

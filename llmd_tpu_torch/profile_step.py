@@ -6,31 +6,37 @@
 
 Serves ``--batch`` greedy requests of ``--prompt-len`` random tokens
 through ``LLMEngine`` (random weights from ``--seed``) and traces three
-windows with ``torch.profiler``: the first step of the default engine (a
-prefill-heavy step of ``max_num_batched_tokens`` live tokens),
+windows with ``torch.profiler``: the second step of the default engine (a
+prefill-heavy step of ``max_num_batched_tokens`` live tokens; the first
+allocates the working memory that warmup's captures handed back),
 ``--decode-steps`` steps of it once every request decodes, and, in a second
 engine with ``decode_window = --decode-window``, as many fused decode
 windows as cover the same number of tokens. The default engine runs the
 flat step, or for an MLA model (``--model deepseek-v2-lite``) the bucketed
 unified step and one-iteration decode windows; ``--model gpt-oss-20b`` runs
 its sliding and full layers on the flat step, and ``--kv-cache-dtype int8``
-puts any GQA model's KV in the int8 pool. For each window it prints one
-JSON line: host milliseconds per step (the step ends in its device->host
-copy), the device's busy milliseconds per step (the sum of its CUDA
-kernels' times; one stream, so kernels do not overlap), the device's idle
-share, kernel launches per step, device milliseconds per step by group
-(the port's kernels, GEMMs, the rest), the costliest other kernels, and the
-same host and device times per token of a decode row, so that the fused
-window stands beside the flat decode step. The profiler adds host time to
-every operator, so each window's steps are also timed without it
-(``untraced_host_ms_per_step``), before the profiler first starts. Runs on
-a GPU only.
+puts any GQA model's KV in the int8 pool. Every engine runs ``warmup``
+first, as the server does, so decode-only steps (the flat decode steps and
+every decode window) are CUDA graph replays; each line carries the
+engine's warmup seconds, the graphs it captured, the device memory it kept
+and the replays by key. For each window it prints one JSON line: host
+milliseconds per step (the step ends in its device->host copy), the
+device's busy milliseconds per step (the sum of its CUDA kernels' times;
+one stream, so kernels do not overlap), the device's idle share, kernel
+launches per step, device milliseconds per step by group (the port's
+kernels, GEMMs, the rest), the costliest other kernels, the same host and
+device times per token of a decode row, so that the fused window stands
+beside the flat decode step, and the live tokens a second at the untraced
+step time. The profiler adds host time to every operator, so each
+window's steps are also timed without it (``untraced_host_ms_per_step``),
+before the profiler first starts. Runs on a GPU only.
 """
 
 from __future__ import annotations
 
 import argparse
 import collections
+import gc
 import json
 import subprocess
 import time
@@ -110,6 +116,9 @@ def trace_steps(eng: LLMEngine, n: int, untraced_ms: float) -> dict:
         "live_tokens_per_step": live,
         "host_ms_per_step": host_ms,
         "untraced_host_ms_per_step": untraced_ms,
+        # live tokens a second at the untraced step time (a decode step's:
+        # decode tok/s)
+        "untraced_tok_per_s": live / untraced_ms * 1e3,
         "device_busy_ms_per_step": busy,
         "idle_share": 1.0 - busy / host_ms,
         "untraced_idle_share": 1.0 - busy / untraced_ms,
@@ -155,8 +164,12 @@ def main(argv=None) -> None:
         params = llama.fuse_projections(params)
     sp = SamplingParams(temperature=0.0, max_tokens=max_tokens, ignore_eos=True)
 
-    def loaded_engine(**sched) -> LLMEngine:
-        """An engine on the shared weights with ``--batch`` requests queued."""
+    warmups: dict[str, dict] = {}
+
+    def loaded_engine(name: str, **sched) -> LLMEngine:
+        """An engine on the shared weights, warmed up (its seconds, graphs
+        and kept device memory recorded under ``name``), with ``--batch``
+        requests queued."""
         config = EngineConfig(
             model=cfg,
             cache=CacheConfig(page_size=page, num_blocks=args.batch * per_seq + 64,
@@ -168,12 +181,29 @@ def main(argv=None) -> None:
             seed=args.seed,
         )
         eng = LLMEngine(config, params=params, device="cuda")
+        gc.collect()  # an engine dropped earlier holds its pool until collected
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        reserved = torch.cuda.memory_reserved()
+        t0 = time.perf_counter()
+        graphs = eng.warmup()
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        torch.cuda.empty_cache()
+        warmups[name] = {"warmup_s": seconds, "warmup_graphs": graphs,
+                         "warmup_kept_bytes": torch.cuda.memory_reserved() - reserved}
         warm = SamplingParams(temperature=0.0, max_tokens=2 + sched.get("decode_window", 1),
                               ignore_eos=True)
         eng.generate([[5] * 64, [7] * 16], warm)  # warm-up: cuBLAS, kernels
         rng = np.random.default_rng(args.seed)
         for _ in range(args.batch):
             eng.add_request(rng.integers(3, cfg.vocab_size, size=args.prompt_len).tolist(), sp)
+        return eng
+
+    def prefilling(eng: LLMEngine) -> LLMEngine:
+        """After one untimed step: the first step after warmup allocates
+        its working memory, which the captures handed back."""
+        eng.step()
         return eng
 
     def decoding(eng: LLMEngine) -> LLMEngine:
@@ -187,22 +217,24 @@ def main(argv=None) -> None:
     # its tracing library is loaded, launches stay slower in the process.
     window = f"decode_window_{args.decode_window}"
     steps = {
-        "decode": (decoding(loaded_engine()), args.decode_steps),
+        "decode": (decoding(loaded_engine("decode")), args.decode_steps),
         window: (
-            decoding(loaded_engine(decode_window=args.decode_window)),
+            decoding(loaded_engine(window, decode_window=args.decode_window)),
             max(1, args.decode_steps // args.decode_window),
         ),
     }
-    untraced = {"prefill": time_steps(loaded_engine(), 1)}
+    untraced = {"prefill": time_steps(prefilling(loaded_engine("prefill")), 1)}
     for name, (eng, n) in steps.items():
         untraced[name] = time_steps(eng, n)
-    windows = {"prefill": trace_steps(loaded_engine(), 1, untraced["prefill"])}
+    windows = {"prefill": trace_steps(prefilling(loaded_engine("prefill")), 1, untraced["prefill"])}
     for name, (eng, n) in steps.items():
         windows[name] = trace_steps(eng, n, untraced[name])
     for name, w in windows.items():
+        replays = {str(k): n for k, n in steps[name][0].runner.programs.runs.items()} if name in steps else {}
         print(json.dumps({"window": name, "model": args.model, "batch": args.batch,
                           "kv_cache_dtype": args.kv_cache_dtype or cfg.dtype,
-                          "prompt_len": args.prompt_len, "card": card, **w}), flush=True)
+                          "prompt_len": args.prompt_len, "card": card, **warmups[name],
+                          "graph_replays": replays, **w}), flush=True)
 
 
 if __name__ == "__main__":

@@ -3,9 +3,13 @@
 Where ``python -m llmd_tpu.serve`` has a flag, the port uses its name
 (``--model``, ``--host``, ``--port``, ``--max-num-seqs``,
 ``--max-num-batched-tokens``, ``--seed``, ``--decode-window``,
-``--unified-step``, ``--ragged-qlens``, ``--kv-cache-dtype``). The model's weights are random,
-drawn on the device from ``--seed``; the byte tokenizer keeps the server
-hermetic. Runs on the GPU unless ``--device cpu`` is given.
+``--unified-step``, ``--ragged-qlens``, ``--kv-cache-dtype``,
+``--skip-warmup``). The model's weights are random, drawn on the device
+from ``--seed``; the byte tokenizer keeps the server hermetic. Before it
+serves, the engine builds its kernels and captures its decode steps as
+CUDA graphs (``LLMEngine.warmup``) unless ``--skip-warmup`` is given; a
+step the warmup did not capture is captured at its first use. Runs on the
+GPU unless ``--device cpu`` is given.
 """
 
 from __future__ import annotations
@@ -51,6 +55,11 @@ def build_parser() -> argparse.ArgumentParser:
              "step); --no-ragged-qlens selects the bucketed [B, Q] unified "
              "program",
     )
+    p.add_argument(
+        "--skip-warmup", action="store_true",
+        help="serve without preparing the decode steps' programs first; "
+             "each is then captured at its first use",
+    )
     p.add_argument("--device", default="cuda")
     return p
 
@@ -89,6 +98,9 @@ def main(argv=None) -> None:
 
     config = make_engine_config(args)
     engine = LLMEngine(config, device=args.device)
+    if not args.skip_warmup:
+        n = engine.warmup()
+        logging.info("warmup prepared %d decode programs (CUDA graphs on the card)", n)
     app = build_app(
         AsyncEngine(engine), ByteTokenizer(), args.model, config.model.max_model_len
     )

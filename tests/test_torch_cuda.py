@@ -67,6 +67,11 @@ def on(dev, *arrays):
     return [torch.from_numpy(np.ascontiguousarray(a)).to(dev) for a in arrays]
 
 
+def live(total, dev):
+    """The flat KV write's live count: one int32 on the device."""
+    return torch.tensor([total], dtype=torch.int32, device=dev)
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.float16])
 @pytest.mark.parametrize("page,D,K", [(16, 128, 8), (8, 64, 2), (32, 256, 1)])
 def test_flat_kv_write_kernel_is_exact(dev, dtype, page, D, K):
@@ -80,8 +85,8 @@ def test_flat_kv_write_kernel_is_exact(dev, dtype, page, D, K):
     pt, rows, positions = on(dev, pt, rows, positions)
     ref = pool.clone()
     ops.reset_launch_counts()
-    out = ops.write_kv_pages_flat_full(pool, 1, k, v, pt, rows, positions, total)
-    ops.write_kv_pages_flat_plain(ref, 1, k, v, pt, rows, positions, total)
+    out = ops.write_kv_pages_flat_full(pool, 1, k, v, pt, rows, positions, live(total, dev))
+    ops.write_kv_pages_flat_plain(ref, 1, k, v, pt, rows, positions, live(total, dev))
     torch.cuda.synchronize()
     assert out is pool
     assert torch.equal(pool, ref)
@@ -383,9 +388,9 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(dev):
     with pytest.raises(ValueError, match="int32"):
         ops.flat_paged_attention_full(q, pool, 0, rows.long(), pt, kv_lens)
     with pytest.raises(ValueError, match="contiguous"):
-        ops.write_kv_pages_flat_full(pool, 0, k, k, pt.t().contiguous().t(), rows, positions, total)
+        ops.write_kv_pages_flat_full(pool, 0, k, k, pt.t().contiguous().t(), rows, positions, live(total, dev))
     with pytest.raises(ValueError, match="is on cpu"):
-        ops.write_kv_pages_flat_full(pool, 0, k, k, pt.cpu(), rows, positions, total)
+        ops.write_kv_pages_flat_full(pool, 0, k, k, pt.cpu(), rows, positions, live(total, dev))
     with pytest.raises(ValueError, match="layer"):
         ops.flat_paged_attention_full(q, pool, 2, rows, pt, kv_lens)
     B = pt.shape[0]
@@ -664,6 +669,40 @@ def test_moe_and_mla_wrappers_refuse_what_the_kernels_do_not_take(dev):
         ops.mla_decode_paged_attention_full(q[..., :512], pool, 0, pt, lens, 512, 0.1)
 
 
+def log_forwards(monkeypatch, runner) -> list[int]:
+    """Log the Q of every forward that Python runs, except while a program
+    is prepared (its runs on zero inputs are set-up, and its capture runs
+    nothing); a program's replays are counted by ``program_forwards``."""
+    from llmd_tpu_torch.engine import runner as runner_mod
+
+    forwards, preparing = [], []
+    forward = runner_mod.llama.forward_hidden
+    prepare = runner.programs.prepare
+
+    def logged(p, cache, inp, c):
+        if not preparing:
+            forwards.append(inp.token_ids.shape[1])
+        return forward(p, cache, inp, c)
+
+    def quiet_prepare(key):
+        preparing.append(key)
+        try:
+            return prepare(key)
+        finally:
+            preparing.pop()
+
+    monkeypatch.setattr(runner_mod.llama, "forward_hidden", logged)
+    monkeypatch.setattr(runner.programs, "prepare", quiet_prepare)
+    return forwards
+
+
+def program_forwards(runner) -> list[int]:
+    """The Q of the forwards the programs ran: K one-token forwards a
+    decode window, one flat forward ([T, 1]) a flat step."""
+    return [1] * sum(n * (key[2] if key[0] == "window" else 1)
+                     for key, n in runner.programs.runs.items())
+
+
 @pytest.mark.parametrize("model,layout", [
     ("tiny-moe", "flat"), ("tiny-moe", "window"), ("tiny-mla", "flat"), ("tiny-mla", "window"),
 ])
@@ -672,8 +711,8 @@ def test_moe_mla_engine_on_the_card_matches_the_cpu_engine(dev, model, layout, m
     Every forward is logged with its Q: K6' launches twice a MoE layer a
     forward (the gate|up pair and the down call), K5' and K4' once a layer
     a Q = 1 forward of the MLA model (which takes the bucketed unified step where the layout asks for the
-    flat one)."""
-    from llmd_tpu_torch.engine import runner as runner_mod
+    flat one). Decode-only steps are graph replays: their forwards are
+    counted from the programs' runs."""
     from llmd_tpu_torch.models.registry import get_model_config
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -691,16 +730,10 @@ def test_moe_mla_engine_on_the_card_matches_the_cpu_engine(dev, model, layout, m
            for t in (0.0, 0.8, 0.0, 0.8)]
     cpu = LLMEngine(cfg, params=params, device="cpu").generate(prompts, sps)
     gpu_engine = LLMEngine(cfg, params=params, device="cuda")
-    forwards = []
-    forward = runner_mod.llama.forward_hidden
-
-    def logged(p, cache, inp, c):
-        forwards.append(inp.token_ids.shape[1])
-        return forward(p, cache, inp, c)
-
-    monkeypatch.setattr(runner_mod.llama, "forward_hidden", logged)
+    forwards = log_forwards(monkeypatch, gpu_engine.runner)
     ops.reset_launch_counts()
     gpu = gpu_engine.generate(prompts, sps)
+    forwards += program_forwards(gpu_engine.runner)
     assert list(gpu.values()) == list(cpu.values())
     counts = ops.launch_counts()
     L, n_moe = mcfg.num_layers, mcfg.num_layers - mcfg.first_dense_layers
@@ -710,6 +743,95 @@ def test_moe_mla_engine_on_the_card_matches_the_cpu_engine(dev, model, layout, m
         assert counts["mla_decode_paged_attention_full"] == L * forwards.count(1) > 0
         assert counts["write_kv_pages_decode_full"] == L * forwards.count(1)
         assert counts["flat_paged_attention_full"] == counts["decode_paged_attention_full"] == 0
+
+
+def clone_pool(pool):
+    return tuple(t.clone() for t in pool) if isinstance(pool, tuple) else pool.clone()
+
+
+def pool_parts(pool):
+    return pool if isinstance(pool, tuple) else (pool,)
+
+
+# name -> (registry model, overrides, KV pool dtype)
+GRAPH_MODELS = {
+    "tiny": ("tiny", dict(head_dim=64, num_layers=3, dtype="bfloat16"), "bfloat16"),
+    "tiny-int8": ("tiny", dict(head_dim=64, num_layers=3, dtype="bfloat16"), "int8"),
+    "tiny-moe": ("tiny-moe", dict(head_dim=64, dtype="bfloat16"), "bfloat16"),
+    "tiny-mla": ("tiny-mla", dict(dtype="bfloat16"), "bfloat16"),
+}
+
+
+@pytest.mark.parametrize("model,layout", [
+    ("tiny", "flat"), ("tiny", "window"), ("tiny-int8", "flat_window"),
+    ("tiny-moe", "flat_window"), ("tiny-mla", "window"),
+])
+def test_a_replay_equals_the_eager_body(dev, model, layout):
+    """bf16 on the card: every decode-only step is a graph replay. At each
+    key's first replay, its body first runs eagerly on the same static
+    inputs from the pool as it was, then the pool is put back and the graph
+    replays: tokens, logprobs and pool bytes equal. A replay adds its
+    capture's launches: each kernel once a layer a forward (K4' and K3', or
+    K5', K iterations of a window; K2' and K1' once a flat step; K6' twice
+    a MoE layer a forward). ``warmup`` captured the default keys and left
+    the pool as it was."""
+    from llmd_tpu_torch.models.registry import get_model_config
+
+    name, over, kv_dtype = GRAPH_MODELS[model]
+    mcfg = get_model_config(name, **over)
+    cfg = EngineConfig(
+        model=mcfg,
+        cache=CacheConfig(page_size=8, num_blocks=64, dtype=kv_dtype),
+        scheduler=SchedulerConfig(max_num_seqs=8, max_num_batched_tokens=32, **LAYOUTS[layout]),
+    )
+    eng = LLMEngine(cfg, device="cuda")
+    for t in pool_parts(eng.runner.kv_cache):
+        t.copy_(torch.randint(-100, 100, t.shape, device=dev).to(t.dtype))
+    before = clone_pool(eng.runner.kv_cache)
+    assert eng.warmup() == len(eng.runner.warm_keys()) > 0
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(pool_parts(eng.runner.kv_cache), pool_parts(before)))
+    progs, pool = eng.runner.programs, eng.runner.kv_cache
+    replay, checked = progs.replay, {}
+
+    def checked_replay(key, arrays):
+        if key in checked:
+            return replay(key, arrays)
+        saved, state = clone_pool(pool), ops.launch_state()
+        want = progs.eager(key, arrays).clone()
+        want_pool = clone_pool(pool)
+        ops.set_launch_state(state)
+        for t, s in zip(pool_parts(pool), pool_parts(saved)):
+            t.copy_(s)
+        got = replay(key, arrays)
+        delta = ops.launch_delta(ops.launch_state(), state)
+        torch.cuda.synchronize()
+        checked[key] = (torch.equal(got, want),
+                        all(torch.equal(a, b) for a, b in zip(pool_parts(pool), pool_parts(want_pool))),
+                        {fn.__name__: n for fn, (n, _) in delta.items() if n})
+        return got
+
+    progs.replay = checked_replay
+    rng = np.random.default_rng(4)
+    prompts = [rng.integers(0, 256, size=n).tolist() for n in (5, 40, 17)]
+    for sp in (SamplingParams(temperature=0.0, max_tokens=12, ignore_eos=True),
+               SamplingParams(temperature=0.8, max_tokens=12, ignore_eos=True, seed=9)):
+        eng.generate(prompts, sp)
+    assert {g for _, *_, g in checked} == {True, False}
+    L = mcfg.num_layers
+    n_moe = L - mcfg.first_dense_layers if mcfg.is_moe else 0
+    for key, (tokens_equal, pool_equal, launches) in checked.items():
+        assert tokens_equal and pool_equal, key
+        n = key[2] if key[0] == "window" else 1
+        if key[0] == "flat":
+            want = {"write_kv_pages_flat_full": L, "flat_paged_attention_full": L}
+        elif mcfg.is_mla:
+            want = {"write_kv_pages_decode_full": L * n, "mla_decode_paged_attention_full": L * n}
+        else:
+            want = {"write_kv_pages_decode_full": L * n, "decode_paged_attention_full": L * n}
+        if n_moe:
+            want.update(grouped_matmul_pair=n_moe * n, grouped_matmul=n_moe * n)
+        assert launches == want, key
 
 
 # --------------------------------------------------------------------- #
@@ -840,8 +962,8 @@ def test_int8_writes_are_bit_exact(dev, dtype, page, D, K):
     pt, rows, positions = on(dev, pt, rows, positions)
     ref = (data.clone(), scales.clone())
     ops.reset_launch_counts()
-    ops.write_kv_pages_flat_full(data, 1, k, v, pt, rows, positions, total, scales)
-    ops.write_kv_pages_flat_plain(ref[0], 1, k, v, pt, rows, positions, total, ref[1])
+    ops.write_kv_pages_flat_full(data, 1, k, v, pt, rows, positions, live(total, dev), scales)
+    ops.write_kv_pages_flat_plain(ref[0], 1, k, v, pt, rows, positions, live(total, dev), ref[1])
     torch.cuda.synchronize()
     assert torch.equal(data, ref[0]) and torch.equal(scales, ref[1])
     assert ops.branch_launch_counts() == {"write_kv_pages_flat_full[int8]": 1}
@@ -881,10 +1003,10 @@ def test_int8_and_sink_wrappers_refuse_what_the_kernels_do_not_take(dev):
         ops.flat_paged_attention_full(q, data, 0, rows, pt, kv_lens, scales=scales,
                                       sinks=torch.zeros(3, device=dev))
     with pytest.raises(ValueError, match="int8"):
-        ops.write_kv_pages_flat_full(data.float(), 0, k, k, pt, rows, positions, total, scales)
+        ops.write_kv_pages_flat_full(data.float(), 0, k, k, pt, rows, positions, live(total, dev), scales)
     with pytest.raises(ValueError, match="float rows"):
         ops.write_kv_pages_flat_full(data, 0, k.to(torch.int8), k.to(torch.int8), pt, rows,
-                                     positions, total, scales)
+                                     positions, live(total, dev), scales)
 
 
 OSS_TINY = dict(

@@ -83,7 +83,8 @@ def test_flat_int8_write_is_bit_equal(D, page):
     )
     pair = (t(data), t(scales))
     out = ops.write_kv_pages_full_flat(
-        pair, 1, t(k), t(v), t(s.pt), t(s.rows), t(s.positions[:, None]), s.total
+        pair, 1, t(k), t(v), t(s.pt), t(s.rows), t(s.positions[:, None]),
+        torch.tensor([s.total], dtype=torch.int32),
     )
     assert out is pair
     np.testing.assert_array_equal(pair[0].numpy(), np.asarray(jd))

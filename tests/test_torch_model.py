@@ -139,7 +139,7 @@ def test_forward_and_logits_match_jax(case):
         kv_lens=torch.from_numpy(s["kv_lens"]),
         page_table=torch.from_numpy(s["page_table"]),
         token_rows=torch.from_numpy(s["rows"]),
-        num_live=s["total"],
+        num_live=torch.tensor([s["total"]], dtype=torch.int32),
     )
     th, tpool = llama.forward_hidden(params, torch.from_numpy(pool.copy()), inp, tconfig)
     tlogits = llama.compute_logits(params, th[:, 0], tconfig)
@@ -255,7 +255,7 @@ def test_window_sink_int8_forward_matches_jax(config, pool_dtype):
     inp = StepInput(
         token_ids=torch.from_numpy(s["ids"][:, None]), positions=torch.from_numpy(s["positions"][:, None]),
         kv_lens=torch.from_numpy(s["kv_lens"]), page_table=torch.from_numpy(s["page_table"]),
-        token_rows=torch.from_numpy(s["rows"]), num_live=s["total"],
+        token_rows=torch.from_numpy(s["rows"]), num_live=torch.tensor([s["total"]], dtype=torch.int32),
     )
     # A bucketed decode step: one token a row at contexts 3-20, a pad row.
     kv_lens = np.array([12, 3, 20, 0], np.int32)

@@ -67,7 +67,8 @@ def flat_step(rows_spec, pad=3):
     positions = np.asarray(positions, np.int32)
     live = np.arange(total + pad) < total
     return SimpleNamespace(
-        B=B, T=total + pad, total=total, row_start=row_start, pos0=pos0,
+        B=B, T=total + pad, total=total, num_live=np.asarray([total], np.int32),
+        row_start=row_start, pos0=pos0,
         qlens=qlens, rows=np.asarray(tok_rows, np.int32), positions=positions,
         live=live, kv_lens=np.where(live, positions + 1, 0).astype(np.int32),
     )
@@ -95,7 +96,7 @@ def test_flat_write_matches_jax_xla(layout):
         jnp.asarray(s.live[:, None]), None,
     )
     got = ops.write_kv_pages_flat_plain(
-        t(cache), 1, t(k), t(v), t(pt), t(s.rows), t(s.positions), s.total
+        t(cache), 1, t(k), t(v), t(pt), t(s.rows), t(s.positions), t(s.num_live)
     )
     np.testing.assert_array_equal(got.numpy(), np.asarray(want))
 
@@ -121,7 +122,7 @@ def test_flat_write_matches_pallas_interpret(layout):
         jnp.asarray(a["woff"]), jnp.asarray(a["wcnt"]), interpret=True,
     )
     got = ops.write_kv_pages_flat_plain(
-        t(cache), 0, t(k), t(v), t(pt), t(s.rows), t(s.positions), s.total
+        t(cache), 0, t(k), t(v), t(pt), t(s.rows), t(s.positions), t(s.num_live)
     )
     np.testing.assert_array_equal(got.numpy(), np.asarray(want))
 
@@ -387,10 +388,10 @@ def test_cpu_entry_points_run_the_plain_versions():
     q = t(rng.normal(size=(s.T, 1, 2 * K, D)).astype(np.float32))
     ops.reset_launch_counts()
     ref = ops.write_kv_pages_flat_plain(
-        cache.clone(), 0, k, v, pt, t(s.rows), t(s.positions), s.total
+        cache.clone(), 0, k, v, pt, t(s.rows), t(s.positions), t(s.num_live)
     )
     out = ops.write_kv_pages_full_flat(
-        cache, 0, k, v, pt, t(s.rows), t(s.positions[:, None]), s.total
+        cache, 0, k, v, pt, t(s.rows), t(s.positions[:, None]), t(s.num_live)
     )
     assert out is cache and torch.equal(out, ref)
     attn = ops.paged_attention_full_flat(q, cache, 0, t(s.rows), pt, t(s.kv_lens))
@@ -437,7 +438,7 @@ def test_non_cpu_tensors_never_take_the_plain_version():
     rows = torch.empty((s.T,), dtype=torch.int32, **meta)
     pt = torch.empty((s.B, 4), dtype=torch.int32, **meta)
     with pytest.raises(ValueError, match="unsupported device"):
-        ops.write_kv_pages_flat_full(cache, 0, k, k, pt, rows, rows, s.total)
+        ops.write_kv_pages_flat_full(cache, 0, k, k, pt, rows, rows, rows[:1])
     with pytest.raises(ValueError, match="unsupported device"):
         ops.flat_paged_attention_full(k, cache, 0, rows, pt, rows)
     B = s.B

@@ -229,3 +229,30 @@ async def test_int8_pool_server_answers_a_completion():
     cfg = serve_main.make_engine_config(args)
     assert cfg.cache.dtype == cfg.model.dtype == "bfloat16" and not cfg.cache.quantized
     assert cfg.model.layer_windows[:2] == (128, 0) and cfg.model.attention_sinks
+
+
+@pytest.mark.parametrize("skip", [False, True])
+def test_skip_warmup_flag(monkeypatch, caplog, skip):
+    """The server prepares the engine's decode programs (CUDA graphs on
+    the card) before it serves, and logs how many, unless
+    ``--skip-warmup`` is given, as the reference's server does."""
+    from aiohttp import web
+
+    served = []
+    monkeypatch.setattr(web, "run_app", lambda app, **kw: served.append(app))
+    warmed = []
+    real = LLMEngine.warmup
+    monkeypatch.setattr(LLMEngine, "warmup", lambda self: warmed.append(self) or real(self))
+    argv = ["--model", "tiny", "--device", "cpu", "--num-blocks", "16", "--dtype", "float32",
+            "--max-num-seqs", "8"]
+    with caplog.at_level("INFO"):
+        serve_main.main(argv + ["--skip-warmup"] * skip)
+    assert len(served) == 1
+    if skip:
+        assert not warmed and "warmup" not in caplog.text
+    else:
+        (engine,) = warmed
+        # The flat engine's default warm set: the largest decode-only T.
+        assert set(engine.runner.programs.programs) == {("flat", 16, True), ("flat", 16, False)}
+        assert "warmup prepared 2 decode programs" in caplog.text
+    assert serve_main.build_parser().parse_args([]).skip_warmup is False

@@ -14,10 +14,16 @@ gpt-oss-20b (random weights from a seed):
                timed beside its bound, the plain version and one PyTorch
                library call computing the same function: the flat pair on
                one mixed flat step (3 prefill chunks + 32 decode rows), K1'
-               also on a prefill-only step (one 1,024-token chunk over a
-               3,072-token prefix, bound by operations), the decode pair on
-               one decode step (batch bucket 64: 48 live rows at 1k-4k
-               context, 16 pad rows). K1' is timed with the step's query
+               and K2' also on a prefill-only step (one 1,024-token chunk
+               over a 3,072-token prefix; K1' bound by operations), the
+               decode pair on one decode step (batch bucket 64: 48 live rows
+               at 1k-4k context, 16 pad rows). K2' and K4' run their fused
+               form (q|k|v bias, rope and store in one launch, q, k and v
+               views of one projection output), held bit for bit to the
+               plain version in the rotated q and the pool, and timed beside
+               the unfused path it replaces (plain bias and rope, then the
+               store-only kernel: "unfused_ms") and the store-only kernel
+               alone ("store_only_ms"). K1' is timed with the step's query
                tiles built once, as a forward builds them for all layers;
                the K1'/K3' rows carry their tiles ("items"), spans a row
                ("spans") and share of the bound ("bound_share"). Every
@@ -31,8 +37,9 @@ gpt-oss-20b (random weights from a seed):
                flat step and K3' on the decode step at gpt-oss-20b shapes
                (H 64, K 8, D 64, 24-layer pool), on a sliding layer (window
                128, sinks) and a full layer (sinks), on a bf16 and an int8
-               pool, K2' and K4' on both pools at those shapes; K1'-K4' on
-               an int8 pool at llama-3-8b shapes. Each is held to its plain
+               pool, the fused K2' and K4' with the model's q|k|v biases
+               on both pools at those shapes; K1'-K4' on an int8 pool at
+               llama-3-8b shapes. Each is held to its plain
                version (one bf16 ulp; writes bit-equal) and timed beside its
                bound (the live, in-window positions; int8 at half the bytes
                plus the scales), the plain version and a library call.
@@ -68,7 +75,8 @@ gpt-oss-20b (random weights from a seed):
                shapes (a 48-row decode step and a 1024-token prefill step)
                and qwen3-30b-a3b's, and the latent decode attention (batch
                bucket 64: 48 live rows at 1k-4k context, 16 pad rows, a
-               27-layer latent pool), each against its plain version and
+               27-layer latent pool) and the store-only K4' on the latent
+               rows of such a step, each against its plain version and
                timed beside its bound, the plain version and a library call.
 8. ``forward`` (deepseek-v2-lite) a bucketed prefill forward and a Q = 1
                decode forward of the 27-layer model through the kernels and
@@ -308,8 +316,138 @@ def flat_attention_row(name: str, q, pool, layer: int, s: dict, page: int) -> di
     }
 
 
-def kernels_phase(info: dict) -> dict:
+# The kernel rows' keys a phase's line carries.
+WRITE_KEYS = ("max_abs_err", "ms", "event_ms", "host_us", "plain_ms", "bound_ms", "library_ms",
+              "bound_share", "unfused_ms", "store_only_ms")
+# The fused forms' entries live in these files (their body in
+# rope_kv_write.cuh, which both include).
+WRITE_SOURCES = {
+    "flat": ("llmd_tpu_torch/ops/csrc/flat_kv_write.cu", "llmd_tpu/ops/kv_write.py:212"),
+    "decode": ("llmd_tpu_torch/ops/csrc/decode_kv_write.cu", "llmd_tpu/ops/kv_write.py:298"),
+}
+
+
+def rope_write_case(name: str, kind: str, cfg, data, scales, layer: int, step: dict,
+                    bias: bool, g) -> dict:
+    """The fused K2' ("flat", on a flat step) or K4' ("decode", on a decode
+    batch) at ``cfg``'s widths: q, k and v are views of one bf16 q|k|v
+    projection output, with seeded biases (scale 0.02) where ``bias``, the
+    cos/sin of ``cfg``'s rope at the step's positions. Held bit for bit to
+    its plain version (bias, ``apply_rope``, the plain store) in the rotated
+    q of every row, the pool's bytes and an int8 pool's scales, and so is
+    the unfused path it replaces (plain bias and rope, then the store-only
+    kernel: what the model ran before the fused form). Timed in device time
+    (``device_ms``, 20 calls in a CUDA graph) beside the unfused path's
+    device time ("unfused_ms", the yardstick), the store-only kernel's alone
+    ("store_only_ms"), the plain version and ``index_put_`` of the stored
+    rows (the library column; int8: the plainly quantized rows and their
+    scales). The byte bound counts every row's q in and out, the live rows'
+    k and v in and their pool rows out (int8: a byte an element and 8 bytes
+    of scales a head), the biases, the cos/sin rows and the addressing."""
     from llmd_tpu_torch import ops
+    from llmd_tpu_torch.models.common import apply_rope, rope_tables
+
+    dev, dt = data.device, torch.bfloat16
+    K, page, D = data.shape[2], data.shape[3], data.shape[4] // 2
+    Nq = cfg.num_heads
+    if kind == "flat":
+        N, n_live, positions = step["T"], step["total"], step["positions"]
+        addr = (step["page_table"], step["rows"], positions, step["num_live"])
+        kernel_fn, plain_fn = ops.rope_write_kv_flat_full, ops.rope_write_kv_flat_plain
+    else:
+        N, n_live, positions = step["B"], step["n_live"], step["positions"][:, 0]
+        addr = (step["phys"], step["offset"], step["valid"])
+        kernel_fn, plain_fn = ops.rope_write_kv_decode_full, ops.rope_write_kv_decode_plain
+    qkv = torch.randn((N, (Nq + 2 * K) * D), generator=g, device=dev, dtype=dt)
+    q = qkv[:, : Nq * D].view(N, Nq, D)
+    k = qkv[:, Nq * D : (Nq + K) * D].view(N, K, D)
+    v = qkv[:, (Nq + K) * D :].view(N, K, D)
+    b = (tuple(torch.randn((n * D,), generator=g, device=dev).mul_(0.02).to(dt) for n in (Nq, K, K))
+         if bias else None)
+    cos, sin = rope_tables(positions, D, cfg.rope_theta, cfg.rope_scaling)
+    pool = data if scales is None else (data, scales)
+
+    def kernel():
+        return kernel_fn(data, layer, q, k, v, cos, sin, *addr, b, scales)
+
+    def plain():
+        return plain_fn(data, layer, q, k, v, cos, sin, *addr, b, scales)
+
+    c4, s4 = cos[:, None], sin[:, None]
+
+    def unfused():
+        qb, kb, vb = ops.add_qkv_bias(q[:, None], k[:, None], v[:, None], b)
+        qr, kr = apply_rope(qb, c4, s4), apply_rope(kb, c4, s4)
+        if kind == "flat":
+            ops.write_kv_pages_full_flat(pool, layer, kr, vb, *addr[:2], positions[:, None], addr[3])
+        else:
+            ops.write_kv_pages_full(pool, layer, kr, vb, step["page_table"], step["positions"],
+                                    step["valid"][:, None] > 0, addr)
+        return qr[:, 0]
+
+    # Only the layer's plane is written: it alone is saved and compared.
+    plane = tuple(t[layer] for t in pool_parts(pool))
+    before = tuple(t.clone() for t in plane)
+    outs = []
+    for fn in (kernel, plain, unfused):
+        for t, src in zip(plane, before):
+            t.copy_(src)
+        outs.append((fn(), tuple(t.clone() for t in plane)))
+    torch.cuda.synchronize()
+    (got, got_pool), (want, want_pool), (old, old_pool) = outs
+    if not (torch.equal(got, want) and all(map(torch.equal, got_pool, want_pool))):
+        raise AssertionError(f"{name}: rotated q or pool bytes differ from the plain version")
+    if not (torch.equal(old, want) and all(map(torch.equal, old_pool, want_pool))):
+        raise AssertionError(f"{name}: the unfused path differs from the plain version")
+    if all(map(torch.equal, got_pool, before)):
+        raise AssertionError(f"{name}: the write stored nothing")
+    del outs, got_pool, want_pool, old_pool, before
+    # The stored rows, rotated, for the store-only kernel and index_put_.
+    qb, kb, vb = ops.add_qkv_bias(q, k, v, b)
+    kr = apply_rope(kb[:, None], c4, s4)[:, 0].contiguous()
+    vr = vb.contiguous()
+    if kind == "flat":
+        store_only = lambda: ops.write_kv_pages_flat_full(  # noqa: E731
+            data, layer, kr[:, None], vr[:, None], *addr, scales)
+        pos = positions[:n_live].long()
+        phys = step["page_table"][step["rows"][:n_live].long(), pos // page].long()
+        slot = pos % page
+    else:
+        kv_new = torch.cat([kr, vr], dim=-1)
+        store_only = lambda: ops.write_kv_pages_decode_full(data, kv_new, layer, *addr, scales)  # noqa: E731
+        phys, slot = step["phys"][:n_live].long(), step["offset"][:n_live].long()
+    heads = torch.arange(K, device=dev)
+    idx = (phys[:, None], heads[None, :], slot[:, None])
+    dl = data[layer]
+    if scales is None:
+        kv = torch.cat([kr[:n_live], vr[:n_live]], dim=-1)
+        out_bytes = kv.numel() * kv.element_size()
+        library = lambda: dl.index_put_(idx, kv)  # noqa: E731
+    else:
+        k8, v8, srow = ops.quantize_kv_rows(kr[:n_live], vr[:n_live])
+        kv, sl = torch.cat([k8, v8], dim=-1), scales[layer]
+        out_bytes = kv.numel() + srow.numel() * 4
+        library = lambda: (dl.index_put_(idx, kv), sl.index_put_(idx, srow))  # noqa: E731
+    es = q.element_size()
+    nbytes = (2 * N * Nq * D + 2 * n_live * K * D) * es + out_bytes + 2 * N * (D // 2) * 4
+    nbytes += (Nq + 2 * K) * D * es if bias else 0
+    nbytes += 3 * 4 * (n_live if kind == "flat" else N)
+    b_ms, b_by = bound(nbytes, 0.0)
+    times = kernel_times(kernel)
+    source, replaces = WRITE_SOURCES[kind]
+    key = ops.write_branch(scales is not None, rope=True, bias=bias)
+    return {
+        "name": name, "route": "cuda", "source": source, "replaces": replaces,
+        "max_abs_err": 0.0, **times, "plain_ms": cuda_ms(plain, reps=10, warmup=1),
+        "bound_ms": b_ms, "bound_by": b_by, "library_ms": device_ms(library),
+        "bound_share": b_ms / times["ms"], "unfused_ms": device_ms(unfused),
+        "store_only_ms": device_ms(store_only), "rows": N, "live_rows": n_live,
+        "wrapper": f"write_kv_pages_{kind}_full", "branch": key, "model": cfg.name,
+    }
+
+
+
+def kernels_phase(info: dict) -> dict:
     from llmd_tpu_torch.models.registry import get_model_config
 
     cfg = get_model_config(MODEL)
@@ -327,43 +465,13 @@ def kernels_phase(info: dict) -> dict:
     g = torch.Generator(device=dev).manual_seed(99)
     pool = torch.randn((L, s["num_pages"], K, page, 2 * D), generator=g, device=dev, dtype=dt)
     q = torch.randn((T, 1, H, D), generator=g, device=dev, dtype=dt)
-    k = torch.randn((T, 1, K, D), generator=g, device=dev, dtype=dt)
-    v = torch.randn((T, 1, K, D), generator=g, device=dev, dtype=dt)
-    es = pool.element_size()
     info.update(T=T, live_tokens=total, pool_pages=s["num_pages"], layers=L)
     out = []
 
-    # --- K2': flat KV write. The pool bytes must equal the plain version's
-    # exactly: both are pure copies of the same bf16 values.
-    ref = pool.clone()
-    args = (layer, k, v, s["page_table"], s["rows"], s["positions"], s["num_live"])
-    ops.write_kv_pages_flat_full(pool, *args)
-    ops.write_kv_pages_flat_plain(ref, *args)
-    torch.cuda.synchronize()
-    if not torch.equal(pool, ref):
-        raise AssertionError("flat_kv_write: pool bytes differ from the plain version")
-    err = (pool[layer].float() - ref[layer].float()).abs().max().item()
-    del ref
-    pos_l = s["positions"][:total].long()
-    phys = s["page_table"][s["rows"][:total].long(), pos_l // page].long()
-    slot = pos_l % page
-    heads = torch.arange(K, device=dev)
-    kv_live = torch.cat([k[:total, 0], v[:total, 0]], dim=-1)
-    layer_view = pool[layer]
-    nbytes = 2 * (2 * total * K * D * es) + 3 * 4 * total  # k|v in, pool out, indices
-    b_ms, b_by = bound(nbytes, 0.0)
-    out.append({
-        "name": "flat_kv_write", "route": "cuda",
-        "source": "llmd_tpu_torch/ops/csrc/flat_kv_write.cu",
-        "replaces": "llmd_tpu/ops/kv_write.py:212",
-        "max_abs_err": err,
-        **kernel_times(lambda: ops.write_kv_pages_flat_full(pool, *args)),
-        "plain_ms": cuda_ms(lambda: ops.write_kv_pages_flat_plain(pool, *args)),
-        "bound_ms": b_ms, "bound_by": b_by,
-        # one index_put_ with the (page, head, slot) indices precomputed
-        "library_ms": device_ms(lambda: layer_view.index_put_(
-            (phys[:, None], heads[None, :], slot[:, None]), kv_live)),
-    })
+    # --- K2' in its fused form (bias-free, as llama has no q|k|v bias): the
+    # rotated q and the pool bytes must equal the plain version's exactly.
+    out.append(rope_write_case("flat_kv_write[rope]", "flat", cfg, pool, None, layer, s,
+                               False, g))
 
     # --- K1': flat paged attention on the mixed step, and on a prefill-only
     # step (one 1,024-token chunk over a 3,072-token prefix: 3.67 M
@@ -376,10 +484,12 @@ def kernels_phase(info: dict) -> dict:
     pool = torch.randn((L, pre["num_pages"], K, page, 2 * D), generator=g, device=dev, dtype=dt)
     qp = torch.randn((pre["T"], 1, H, D), generator=g, device=dev, dtype=dt)
     out.append(flat_attention_row("flat_paged_attention@prefill", qp, pool, layer, pre, page))
+    # K2' fused on the same prefill step: 1,024 tokens, bound by bytes.
+    out.append(rope_write_case("flat_kv_write[rope]@prefill", "flat", cfg, pool, None, layer,
+                               pre, False, g))
     for e in out:
-        info[e["name"]] = {key: e[key] for key in (
-            "max_abs_err", "ms", "event_ms", "host_us", "plain_ms", "bound_ms", "library_ms",
-            "bound_share", "items", "spans", "items_ms") if key in e}
+        info[e["name"]] = {key: e[key] for key in WRITE_KEYS + (
+            "items", "spans", "items_ms") if key in e}
     return {e["name"]: e for e in out}
 
 
@@ -424,48 +534,20 @@ def decode_kernels_phase(info: dict) -> dict:
     d = decode_batch(cfg, page, 1024, 4096, torch.Generator().manual_seed(4321), dev)
     B, n_live, ctx, num_pages = d["B"], d["n_live"], d["ctx"], d["num_pages"]
     page_table, kv_lens = d["page_table"], d["kv_lens"]
-    phys, offset, valid = d["phys"], d["offset"], d["valid"]
     layer = L // 2
     g = torch.Generator(device=dev).manual_seed(77)
     pool = torch.randn((L, num_pages, K, page, 2 * D), generator=g, device=dev, dtype=dt)
     q = torch.randn((B, 1, H, D), generator=g, device=dev, dtype=dt)
-    kv_new = torch.randn((B, K, 2 * D), generator=g, device=dev, dtype=dt)
     es = pool.element_size()
     live_pages = d["live_pages"]
     info.update(batch=B, live_rows=n_live, context_tokens=sum(ctx), pool_pages=num_pages,
                 pool_gib=pool.numel() * es / 2**30, layers=L)
     out = []
 
-    # --- K4': decode KV write. Both are pure copies of the same bf16
-    # values, so the pool bytes must equal the plain version's exactly;
-    # that also shows the pad rows' garbage targets were left alone.
-    ref = pool.clone()
-    wargs = (kv_new, layer, phys, offset, valid)
-    ops.write_kv_pages_decode_full(pool, *wargs)
-    ops.write_kv_pages_decode_plain(ref, *wargs)
-    torch.cuda.synchronize()
-    if not torch.equal(pool, ref):
-        raise AssertionError("decode_kv_write: pool bytes differ from the plain version")
-    err = (pool[layer].float() - ref[layer].float()).abs().max().item()
-    del ref
-    heads = torch.arange(K, device=dev)
-    lp, lo = phys[:n_live].long(), offset[:n_live].long()
-    kv_live = kv_new[:n_live]
-    layer_view = pool[layer]
-    nbytes = 2 * (n_live * K * 2 * D * es) + 3 * 4 * B  # kv in, pool out, indices
-    b_ms, b_by = bound(nbytes, 0.0)
-    out.append({
-        "name": "decode_kv_write", "route": "cuda",
-        "source": "llmd_tpu_torch/ops/csrc/decode_kv_write.cu",
-        "replaces": "llmd_tpu/ops/kv_write.py:298",
-        "max_abs_err": err,
-        **kernel_times(lambda: ops.write_kv_pages_decode_full(pool, *wargs)),
-        "plain_ms": cuda_ms(lambda: ops.write_kv_pages_decode_plain(pool, *wargs)),
-        "bound_ms": b_ms, "bound_by": b_by,
-        # one index_put_ with the live rows' (page, head, slot) precomputed
-        "library_ms": device_ms(lambda: layer_view.index_put_(
-            (lp[:, None], heads[None, :], lo[:, None]), kv_live)),
-    })
+    # --- K4' in its fused form: the rotated q, pool bytes equal the plain
+    # version's exactly; the pad rows' garbage targets are left alone.
+    out.append(rope_write_case("decode_kv_write[rope]", "decode", cfg, pool, None, layer, d,
+                               False, g))
 
     # --- K3': decode paged attention, within one bf16 ulp of the plain
     # version (outside_one_ulp). Pad rows are exactly zero.
@@ -500,9 +582,7 @@ def decode_kernels_phase(info: dict) -> dict:
         "bound_share": b_ms / ms, "items": plan["items"], "spans": plan["spans"],
     })
     for e in out:
-        info[e["name"]] = {key: e[key] for key in (
-            "max_abs_err", "ms", "event_ms", "host_us", "plain_ms", "bound_ms", "library_ms",
-            "bound_share", "items", "spans") if key in e}
+        info[e["name"]] = {key: e[key] for key in WRITE_KEYS + ("items", "spans") if key in e}
     return {e["name"]: e for e in out}
 
 
@@ -562,24 +642,18 @@ def _sdpa_yardstick(q, pool, layer, s, page, window: int = 0, sinks=None,
 
 @contextlib.contextmanager
 def plain_ops(live_pages: int | None = None):
-    """Route the model's flat ops, decode kernels, latent decode attention
-    and grouped GEMM to their plain versions (the reference runs of the
-    forward phases), restoring the kernels after. ``live_pages`` bounds the
-    plain decode attentions' gathers."""
+    """Route the model's fused KV writes, flat attention, decode kernels,
+    latent decode attention and grouped GEMM to their plain versions (the
+    reference runs of the forward phases), restoring the kernels after.
+    ``live_pages`` bounds the plain decode attentions' gathers."""
     from llmd_tpu_torch import ops
     from llmd_tpu_torch.ops import grouped_gemm
 
-    saved = (ops.write_kv_pages_full_flat, ops.paged_attention_full_flat,
+    saved = (ops.rope_write_kv_flat_full, ops.rope_write_kv_decode_full,
+             ops.paged_attention_full_flat,
              ops.write_kv_pages_decode_full, ops.decode_paged_attention_full,
              ops.mla_decode_paged_attention_full, grouped_gemm.grouped_matmul,
              grouped_gemm.grouped_matmul_pair)
-
-    def write(kv_cache, layer, k, v, page_table, rows, positions, num_live):
-        data, scales = ops._split_cache(kv_cache)
-        ops.write_kv_pages_flat_plain(
-            data, layer, k, v, page_table, rows, positions.reshape(-1), num_live, scales
-        )
-        return kv_cache
 
     def attend(q, kv_cache, layer, rows, page_table, kv_lens, sm_scale=None,
                window=0, sinks=None, items=None):  # the plain version needs no tiles
@@ -600,7 +674,9 @@ def plain_ops(live_pages: int | None = None):
             q_eff, cache, layer, page_table, kv_lens, rank, sm_scale, live_pages
         )
 
-    ops.write_kv_pages_full_flat, ops.paged_attention_full_flat = write, attend
+    ops.rope_write_kv_flat_full = ops.rope_write_kv_flat_plain
+    ops.rope_write_kv_decode_full = ops.rope_write_kv_decode_plain
+    ops.paged_attention_full_flat = attend
     ops.write_kv_pages_decode_full = ops.write_kv_pages_decode_plain
     ops.decode_paged_attention_full = decode_attend
     ops.mla_decode_paged_attention_full = latent_attend
@@ -609,7 +685,8 @@ def plain_ops(live_pages: int | None = None):
     try:
         yield
     finally:
-        (ops.write_kv_pages_full_flat, ops.paged_attention_full_flat,
+        (ops.rope_write_kv_flat_full, ops.rope_write_kv_decode_full,
+         ops.paged_attention_full_flat,
          ops.write_kv_pages_decode_full, ops.decode_paged_attention_full,
          ops.mla_decode_paged_attention_full, grouped_gemm.grouped_matmul,
          grouped_gemm.grouped_matmul_pair) = saved
@@ -917,7 +994,9 @@ def expected_branches(cfg, flat_forwards: int, q1_forwards: int, int8: bool) -> 
     model's run: every flat forward launches the flat pair once a layer,
     every bucketed Q = 1 forward the decode pair; layer i's attention takes
     its window (``cfg.layer_windows``), the sinks and the int8 pool as the
-    model has them."""
+    model has them; every write takes the fused form (rope, the q|k|v
+    biases where the model has them, the int8 pool)."""
+    from llmd_tpu_torch.ops import write_branch
     from llmd_tpu_torch.ops.ragged_paged_attention import branch_key
 
     want: dict[str, int] = {}
@@ -930,8 +1009,9 @@ def expected_branches(cfg, flat_forwards: int, q1_forwards: int, int8: bool) -> 
         key = branch_key(w, True if cfg.attention_sinks else None, True if int8 else None)
         add(f"flat_paged_attention_full[{key}]", flat_forwards)
         add(f"decode_paged_attention_full[{key}]", q1_forwards)
-        add(f"write_kv_pages_flat_full[{'int8' if int8 else 'plain'}]", flat_forwards)
-        add(f"write_kv_pages_decode_full[{'int8' if int8 else 'plain'}]", q1_forwards)
+        wkey = write_branch(int8, rope=True, bias=cfg.attention_bias and not cfg.qk_norm)
+        add(f"write_kv_pages_flat_full[{wkey}]", flat_forwards)
+        add(f"write_kv_pages_decode_full[{wkey}]", q1_forwards)
     return want
 
 
@@ -1429,6 +1509,53 @@ def latent_case(cfg, H: int, gen, g, dev) -> dict:
     return row
 
 
+def latent_write_case(cfg, gen, g, dev) -> dict:
+    """The store-only K4' as MLA runs it: one latent row (``cfg``'s 640
+    bf16 values, written as the K and V halves of one "head") a row of one
+    decode step of the batch bucket 64 (48 live rows at 1k-4k context, 16
+    pad rows with garbage targets) into a 27-layer latent pool. The pool
+    bytes must equal the plain version's; timed beside its byte bound (the
+    live rows in and out, the addressing), the plain version and one
+    ``index_put_`` of the live rows."""
+    from llmd_tpu_torch import ops
+
+    dt, L, Dl, page = torch.bfloat16, 27, cfg.kv_cache_entry_dim, 16
+    d = decode_batch(cfg, page, 1024, 4096, gen, dev)
+    B, n_live = d["B"], d["n_live"]
+    pool = torch.randn((L, d["num_pages"], 1, page, Dl), generator=g, device=dev, dtype=dt)
+    kv_new = torch.randn((B, 1, Dl), generator=g, device=dev, dtype=dt)
+    layer = L // 2
+    wargs = (kv_new, layer, d["phys"], d["offset"], d["valid"])
+    plane = pool[layer]
+    before = plane.clone()
+    ops.write_kv_pages_decode_full(pool, *wargs)
+    got = plane.clone()
+    plane.copy_(before)
+    ops.write_kv_pages_decode_plain(pool, *wargs)
+    torch.cuda.synchronize()
+    if not torch.equal(got, plane) or torch.equal(got, before):
+        raise AssertionError("decode_kv_write (latent rows): pool bytes differ from the plain version")
+    del got, before
+    es = pool.element_size()
+    b_ms, b_by = bound(2 * n_live * Dl * es + 3 * 4 * B, 0.0)
+    idx = (d["phys"][:n_live].long(), torch.zeros(n_live, dtype=torch.long, device=dev),
+           d["offset"][:n_live].long())
+    live_rows = kv_new[:n_live, 0]
+    times = kernel_times(lambda: ops.write_kv_pages_decode_full(pool, *wargs))
+    row = {
+        "name": f"decode_kv_write@{cfg.name}", "route": "cuda",
+        "source": "llmd_tpu_torch/ops/csrc/decode_kv_write.cu",
+        "replaces": "llmd_tpu/ops/kv_write.py:298", "max_abs_err": 0.0, **times,
+        "plain_ms": cuda_ms(lambda: ops.write_kv_pages_decode_plain(pool, *wargs)),
+        "bound_ms": b_ms, "bound_by": b_by, "bound_share": b_ms / times["ms"],
+        "library_ms": device_ms(lambda: plane.index_put_(idx, live_rows)),
+        "wrapper": "write_kv_pages_decode_full", "model": cfg.name,
+    }
+    del pool, kv_new
+    torch.cuda.empty_cache()
+    return row
+
+
 def moe_mla_kernels_phase(info: dict) -> dict:
     """K6' at deepseek-v2-lite's expert shapes (a 48-row decode step and a
     1024-token prefill step: the gate|up pair, the gate alone and the down
@@ -1437,9 +1564,10 @@ def moe_mla_kernels_phase(info: dict) -> dict:
     and at qwen3-30b-a3b's (one layer's 128 experts, top-8, decode step);
     K5' on one decode step of the batch bucket 64 (48 live rows at 1k-4k
     context, 16 pad rows) over a 27-layer latent pool, at deepseek-v2-lite's
-    16 heads and deepseek-r1's 128. Each is held to its plain version
-    within one bf16 ulp and timed beside its bound, the plain version and
-    one library call."""
+    16 heads and deepseek-r1's 128; the store-only K4' on a decode step's
+    latent rows. Each is held to its plain version (within one bf16
+    ulp; the write bit for bit) and timed beside its bound, the plain
+    version and one library call."""
     from llmd_tpu_torch.models.registry import get_model_config
 
     dev = torch.device("cuda")
@@ -1510,6 +1638,10 @@ def moe_mla_kernels_phase(info: dict) -> dict:
             "wrapper": "mla_decode_paged_attention_full", "model": DS_MODEL, "shape": case,
             **{k: latent[case][k] for k in keys_},
         }
+    # K4' store-only: the latent rows are the one path that still runs it.
+    e = latent_write_case(ds, gen, g, dev)
+    info[e["name"]] = {k: e[k] for k in WRITE_KEYS if k in e}
+    out[e["name"]] = e
     return out
 
 
@@ -1956,73 +2088,6 @@ def attention_branch_case(kind: str, q, data, scales, layer, step, page, window,
     }
 
 
-def write_case(kind: str, data, scales, layer, rows_in, step) -> dict:
-    """K2' ("flat") or K4' ("decode") on a float pool (``scales`` None) or
-    an int8 pool: the pool bytes (and the int8 pool's scales) must equal
-    the plain version's exactly (for int8: ``quantize_kv_rows``, the plain
-    store and scatter); timed beside the bound (float rows in, the rows in
-    the pool's type and an int8 row's scale pair out), the plain version
-    and ``index_put_`` of the rows (for int8: the plainly quantized rows
-    and scales, the quantize itself not timed)."""
-    from llmd_tpu_torch import ops
-
-    K = data.shape[2]
-    ref = (data.clone(), None if scales is None else scales.clone())
-    if kind == "flat":
-        k, v = rows_in
-        total = step["total"]
-        args = (layer, k, v, step["page_table"], step["rows"], step["positions"], step["num_live"])
-        kernel = lambda: ops.write_kv_pages_flat_full(data, *args, scales)  # noqa: E731
-        plain = lambda: ops.write_kv_pages_flat_plain(data, *args, scales)  # noqa: E731
-        ops.write_kv_pages_flat_plain(ref[0], *args, ref[1])
-        pos = step["positions"][:total].long()
-        phys = step["page_table"][step["rows"][:total].long(), pos // data.shape[3]].long()
-        slot = pos % data.shape[3]
-        k_live, v_live = k[:total, 0], v[:total, 0]
-        n, in_bytes = total, 2 * k[:total].numel() * k.element_size()
-        source, replaces = "llmd_tpu_torch/ops/csrc/flat_kv_write.cu", "llmd_tpu/ops/kv_write.py:212"
-    else:
-        kv_new = rows_in
-        args = (kv_new, layer, step["phys"], step["offset"], step["valid"])
-        kernel = lambda: ops.write_kv_pages_decode_full(data, *args, scales)  # noqa: E731
-        plain = lambda: ops.write_kv_pages_decode_plain(data, *args, scales)  # noqa: E731
-        ops.write_kv_pages_decode_plain(ref[0], *args, ref[1])
-        n = step["n_live"]
-        phys, slot = step["phys"][:n].long(), step["offset"][:n].long()
-        D = kv_new.shape[-1] // 2
-        k_live, v_live = kv_new[:n, :, :D], kv_new[:n, :, D:]
-        in_bytes = kv_new[:n].numel() * kv_new.element_size()
-        source, replaces = "llmd_tpu_torch/ops/csrc/decode_kv_write.cu", "llmd_tpu/ops/kv_write.py:298"
-    kernel()
-    torch.cuda.synchronize()
-    key = "plain" if scales is None else "int8"
-    if not (torch.equal(data, ref[0]) and (scales is None or torch.equal(scales, ref[1]))):
-        raise AssertionError(f"{kind}_kv_write[{key}]: pool bytes differ from the plain version")
-    del ref
-    heads = torch.arange(K, device=data.device)
-    idx = (phys[:, None], heads[None, :], slot[:, None])
-    dl = data[layer]
-    if scales is None:
-        kv = torch.cat([k_live, v_live], dim=-1).reshape(n, K, -1)
-        out_bytes = kv.numel() * kv.element_size()
-        library = lambda: dl.index_put_(idx, kv)  # noqa: E731
-    else:
-        k8, v8, srow = ops.quantize_kv_rows(k_live, v_live)
-        kv = torch.cat([k8, v8], dim=-1).reshape(n, K, -1)
-        srow = srow.reshape(n, K, 2)
-        sl = scales[layer]
-        out_bytes = kv.numel() + srow.numel() * 4
-        library = lambda: (dl.index_put_(idx, kv), sl.index_put_(idx, srow))  # noqa: E731
-    b_ms, b_by = bound(in_bytes + out_bytes + 3 * 4 * n, 0.0)
-    return {
-        "name": f"{kind}_kv_write[{key}]", "route": "cuda", "source": source,
-        "replaces": replaces, "max_abs_err": 0.0,
-        **kernel_times(kernel), "plain_ms": cuda_ms(plain),
-        "bound_ms": b_ms, "bound_by": b_by, "library_ms": device_ms(library),
-        "wrapper": f"write_kv_pages_{kind}_full", "branch": key,
-    }
-
-
 def random_int8_pool(shape, g, dev):
     """An int8 pool (data, f32 scales on the f16 grid) of random rows whose
     dequantized values are about unit size."""
@@ -2039,8 +2104,10 @@ def oss_kernels_phase(info: dict) -> dict:
     decode rows at 1k-4k context) and K3' on a decode step (bucket 64: 48
     live rows at 1k-4k, 16 pad rows), on a sliding layer (window 128 and
     sinks) and a full layer (sinks), on a bf16 and on an int8 pool, with
-    K2' and K4' on both pools at head_dim 64. llama-3-8b shapes (32-layer
+    K2' and K4' in their fused form (bias, rope and store) on both pools at
+    head_dim 64 with the model's q|k|v biases. llama-3-8b shapes (32-layer
     pool, head_dim 128): K1', K2', K3' and K4' on an int8 pool."""
+    from llmd_tpu_torch import ops
     from llmd_tpu_torch.models.registry import get_model_config
 
     dev, dt, page = torch.device("cuda"), torch.bfloat16, 16
@@ -2070,25 +2137,18 @@ def oss_kernels_phase(info: dict) -> dict:
                     e = attention_branch_case(kind, q, data, scales, layer, step, page, window, sinks)
                     e["model"] = model
                     out[e["name"]] = e
-                # The writes: an int8 pool at both models' shapes, a bf16
-                # pool at gpt-oss-20b's (llama-3-8b's is in the kernels and
+                # The fused writes: an int8 pool at both models' shapes, a
+                # bf16 pool at gpt-oss-20b's with its q|k|v biases
+                # (llama-3-8b's bf16 rows are in the kernels and
                 # decode_kernels phases).
-                if kind == "flat":
-                    rows_in = tuple(torch.randn((step["T"], 1, K, D), generator=g, device=dev,
-                                                dtype=dt) for _ in range(2))
-                else:
-                    rows_in = torch.randn((step["B"], K, 2 * D), generator=g, device=dev, dtype=dt)
-                e = write_case(kind, data, scales, L // 2, rows_in, step)
-                e["model"] = model
-                if model != MODEL:
-                    e["name"] += f"@{model}"
-                out[e["name"]] = e
-                del data, scales, q, rows_in
+                key = ops.write_branch(scales is not None, rope=True, bias=cfg.attention_bias)
+                name = f"{kind}_kv_write[{key}]" + ("" if model == MODEL else f"@{model}")
+                out[name] = rope_write_case(name, kind, cfg, data, scales, L // 2, step,
+                                            cfg.attention_bias, g)
+                del data, scales, q
                 torch.cuda.empty_cache()
     for name, e in out.items():
-        info[name] = {k: e[k] for k in ("model", "max_abs_err", "ms", "event_ms", "host_us",
-                                        "plain_ms", "bound_ms", "bound_by", "library_ms",
-                                        "bound_share", "items", "spans")
+        info[name] = {k: e[k] for k in ("model", "bound_by", "items", "spans") + WRITE_KEYS
                       if k in e}
     return out
 
@@ -2316,9 +2376,9 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     with phase("engine", {"layout": "flat step"}) as info:
-        flat_counts, _, _ = engine_phase(info, params)
+        flat_counts, flat_branches, _ = engine_phase(info, params)
     with phase("engine", {"layout": "split engine, decode_window 8"}) as info:
-        window_counts, _, _ = engine_phase(info, params)
+        window_counts, window_branches, _ = engine_phase(info, params)
     with phase("engine", {"layout": "flat step, decode_window 8"}) as info:
         _, _, bf16_tokens = engine_phase(info, params)
     with phase("engine", {"layout": "flat step, decode_window 8", "kv_cache_dtype": "int8"}) as info:
@@ -2383,20 +2443,29 @@ def main() -> int:
     with phase("serve", {"layout": "flat step", "kv_cache_dtype": "int8"}) as info:
         serve_phase(info, ["--kv-cache-dtype", "int8"])
     # Each kernel's launches come from the engine run that is its main path:
-    # the plain branches from llama-3-8b's flat and split-window runs, the
-    # window and sink branches from gpt-oss-20b's, the int8 branches from
-    # the int8-pool runs; K5' and K6' (their rows name a wrapper and a
+    # the unbranched K1'/K3' rows from llama-3-8b's flat and split-window
+    # runs; a branched row (the fused writes, the window, sink and int8
+    # branches) from its model's int8-pool run for an int8 branch, else its
+    # flat step run (K1', K2') or split-window run (K3', K4'); K5', K6' and
+    # the store-only K4' of the latent rows (their rows name a wrapper and a
     # model) from deepseek-v2-lite's default engine and gpt-oss-20b's flat
-    # step engine (the 128-head row of K5' is a kernel-level shape: its launches
-    # are the wrapper's on deepseek-v2-lite's path).
+    # step engine (the 128-head row of K5' is a kernel-level shape: its
+    # launches are the wrapper's on deepseek-v2-lite's path).
     main_path = {
-        "flat_kv_write": ("write_kv_pages_flat_full", flat_counts),
         "flat_paged_attention": ("flat_paged_attention_full", flat_counts),
         "flat_paged_attention@prefill": ("flat_paged_attention_full", flat_counts),
-        "decode_kv_write": ("write_kv_pages_decode_full", window_counts),
         "decode_paged_attention": ("decode_paged_attention_full", window_counts),
     }
     model_counts = {DS_MODEL: ds_counts, OSS_MODEL: oss_counts["flat step"]}
+
+    def branch_runs(model: str, wrapper: str, branch: str) -> dict:
+        int8 = "int8" in branch.split("+")
+        flat = wrapper.startswith(("flat", "write_kv_pages_flat"))
+        if model == MODEL:
+            return int8_branches if int8 else flat_branches if flat else window_branches
+        return oss_runs["flat step, decode_window 8" if int8 else
+                        "flat step" if flat else "split engine, decode_window 8"]
+
     rows = []
     for name, entry in table.items():
         if name in main_path:
@@ -2404,17 +2473,11 @@ def main() -> int:
             launches = counts[fn]
         elif "branch" not in entry:
             launches = model_counts[entry["model"]][entry["wrapper"]]
-            if launches == 0:
-                raise AssertionError(f"{name} never launched on its main path")
         else:
-            branch = entry["branch"]
-            runs = (int8_branches if entry["model"] == MODEL else
-                    oss_runs["flat step, decode_window 8"] if branch.startswith("int8") else
-                    oss_runs["flat step" if entry["wrapper"].startswith(("flat", "write_kv_pages_flat"))
-                             else "split engine, decode_window 8"])
-            launches = runs.get(f"{entry['wrapper']}[{branch}]", 0)
-            if launches == 0:
-                raise AssertionError(f"{name} never launched on its main path")
+            runs = branch_runs(entry["model"], entry["wrapper"], entry["branch"])
+            launches = runs.get(f"{entry['wrapper']}[{entry['branch']}]", 0)
+        if launches == 0:
+            raise AssertionError(f"{name} never launched on its main path")
         rows.append({**{k: v for k, v in entry.items() if k not in ("model", "wrapper", "branch")},
                      "launches": launches})
     emit({"kernels": rows})

@@ -13,7 +13,11 @@ under ``dense_layers``. Where JAX scans the layers, the port loops over
 them in Python; each layer writes its K|V (or latent row) into the pool in
 place and then attends over it, through the entries of
 ``llmd_tpu_torch.ops``: the flat pair on the packed ``[T, 1]`` stream, the
-bucketed pair on ``[B, Q]`` rows (the decode kernels at ``Q == 1``). The
+bucketed pair on ``[B, Q]`` rows (the decode kernels at ``Q == 1``). On the
+flat step and at ``Q == 1`` a GQA layer's q|k|v biases, rotary embedding
+and K|V write are one launch of the write kernel's fused form
+(``ops.rope_write_kv_flat``, ``ops.rope_write_kv_decode``), which takes q,
+k and v as views of the projection's output and returns the rotated q. The
 large projections stay ``torch.matmul``, as the JAX package leaves them to
 XLA.
 """
@@ -182,16 +186,21 @@ def _mlp(h: torch.Tensor, lp: dict) -> torch.Tensor:
     return (F.silu(h @ lp["w_gate"]) * (h @ lp["w_up"])) @ lp["w_down"]
 
 
-def _write_attend(inp: StepInput, page: int):
-    """The layout's (write, attend) pair: ``write(kv_cache, layer, k, v)``
-    and ``attend(q, kv_cache, layer, sm_scale, window, sinks)``, over what
-    the step fixes for every layer."""
+def _write_attend(inp: StepInput, page: int, cos: torch.Tensor, sin: torch.Tensor):
+    """The layout's (write, attend) pair over what the step fixes for every
+    layer. ``write(kv_cache, layer, q, k, v, bias)`` adds the q|k|v biases
+    (``bias`` = (bq, bk, bv) or None), rotates q and k by the step's rope
+    tables, stores k|v and returns the rotated q; the flat step and ``Q ==
+    1`` rows do all of it in one launch of the write kernel's fused form,
+    ``Q > 1`` rows in plain PyTorch (``apply_rope``, the plain scatter), as
+    the JAX package leaves those to XLA. ``attend(q, kv_cache, layer,
+    sm_scale, window, sinks)`` is the attention over the pool."""
     if inp.token_rows is not None:
 
-        def write(kv_cache, layer, k, v):
-            return ops.write_kv_pages_full_flat(
-                kv_cache, layer, k, v, inp.page_table, inp.token_rows,
-                inp.positions, inp.num_live,
+        def write(kv_cache, layer, q, k, v, bias):
+            return ops.rope_write_kv_flat(
+                kv_cache, layer, q, k, v, cos, sin, inp.page_table, inp.token_rows,
+                inp.positions, inp.num_live, bias,
             )
 
         def attend(q, kv_cache, layer, sm_scale, window, sinks):
@@ -203,14 +212,19 @@ def _write_attend(inp: StepInput, page: int):
         return write, attend
 
     valid = inp.valid
-    prep = None
     if inp.token_ids.shape[1] == 1:
         prep = ops.decode_write_prep(inp.page_table, inp.positions, valid, page)
 
-    def write(kv_cache, layer, k, v):
-        return ops.write_kv_pages_full(
-            kv_cache, layer, k, v, inp.page_table, inp.positions, valid, prep
-        )
+        def write(kv_cache, layer, q, k, v, bias):
+            return ops.rope_write_kv_decode(kv_cache, layer, q, k, v, cos, sin, prep, bias)
+
+    else:
+
+        def write(kv_cache, layer, q, k, v, bias):
+            q, k, v = ops.add_qkv_bias(q, k, v, bias)
+            q, k = apply_rope(q, cos, sin), apply_rope(k, cos, sin)
+            ops.write_kv_pages_full(kv_cache, layer, k, v, inp.page_table, inp.positions, valid)
+            return q
 
     def attend(q, kv_cache, layer, sm_scale, window, sinks):
         return ops.paged_attention_full(
@@ -251,7 +265,7 @@ def forward_hidden(params: dict, kv_cache, inp: StepInput, cfg: ModelConfig):
             )
     else:
         page = (kv_cache[0] if isinstance(kv_cache, tuple) else kv_cache).shape[3]
-        write, attend = _write_attend(inp, page)
+        write, attend = _write_attend(inp, page, cos, sin)
 
     def layer(x, lp, plane: int, moe: bool):
         h = rms_norm(x, lp["input_norm"], cfg.rms_norm_eps)
@@ -266,17 +280,16 @@ def forward_hidden(params: dict, kv_cache, inp: StepInput, cfg: ModelConfig):
                 v = qkv[..., (Nq + K) * D :]
             else:
                 q, k, v = h @ lp["wq"], h @ lp["wk"], h @ lp["wv"]
-            if cfg.attention_bias:
-                q, k, v = q + lp["bq"], k + lp["bk"], v + lp["bv"]
             q = q.reshape(B, Q, Nq, D)
             k = k.reshape(B, Q, K, D)
-            if cfg.qk_norm:  # Qwen3: per-head RMS norm before RoPE
+            v = v.reshape(B, Q, K, D)
+            bias = (lp["bq"], lp["bk"], lp["bv"]) if cfg.attention_bias else None
+            if cfg.qk_norm:  # Qwen3: per-head RMS norm (after any bias) before RoPE
+                q, k, v = ops.add_qkv_bias(q, k, v, bias)
+                bias = None
                 q = rms_norm(q, lp["attn_q_norm"], cfg.rms_norm_eps)
                 k = rms_norm(k, lp["attn_k_norm"], cfg.rms_norm_eps)
-            q = apply_rope(q, cos, sin)
-            k = apply_rope(k, cos, sin)
-            v = v.reshape(B, Q, K, D)
-            write(kv_cache, plane, k, v)
+            q = write(kv_cache, plane, q, k, v, bias)
             attn = attend(q, kv_cache, plane, sm_scale, windows[plane], lp.get("sinks"))
             out = attn.reshape(B, Q, Nq * D) @ lp["wo"]
             if "bo" in lp:

@@ -26,6 +26,13 @@ MLA and MoE: ``mla_paged_attention_full`` follows the JAX rule as well
 (``Q == 1`` → the latent decode kernel, ``Q > 1`` → the plain dense form of
 ``ops.mla_attention``), and ``grouped_matmul`` is the MoE experts' grouped
 GEMM (``grouped_matmul_pair``: gate and up in one launch). The latent rows are written through ``write_kv_pages_full``.
+
+GQA layers write through the fused entries: ``rope_write_kv_flat`` (the
+flat step) and ``rope_write_kv_decode`` (``Q == 1`` rows) add the q|k|v
+biases, apply the rotary embedding to q and k, store k|v and return the
+rotated q, in one launch of K2's or K4's fused form a layer. ``Q > 1``
+bucketed rows keep ``apply_rope`` and ``write_kv_pages_full``'s plain
+scatter, as the JAX package keeps XLA there.
 """
 
 from __future__ import annotations
@@ -41,6 +48,12 @@ from llmd_tpu_torch.ops.grouped_gemm import (
     grouped_matmul_plain,
 )
 from llmd_tpu_torch.ops.kv_write import (
+    add_qkv_bias,
+    rope_write_kv_decode_full,
+    rope_write_kv_decode_plain,
+    rope_write_kv_flat_full,
+    rope_write_kv_flat_plain,
+    write_branch,
     write_kv_pages_decode,
     write_kv_pages_decode_full,
     write_kv_pages_decode_plain,
@@ -193,6 +206,39 @@ def write_kv_pages_full_flat(
     return kv_cache_full
 
 
+def _by_row(x: torch.Tensor) -> torch.Tensor:
+    """[B, Q, heads, D] -> [B Q, heads, D], a view where the input is one."""
+    return x.reshape(-1, *x.shape[-2:])
+
+
+def rope_write_kv_flat(
+    kv_cache_full,
+    layer: int,
+    q: torch.Tensor,  # [T, 1, Nq, D]
+    k: torch.Tensor,  # [T, 1, K, D]
+    v: torch.Tensor,  # [T, 1, K, D]
+    cos: torch.Tensor,  # [T, 1, D/2] f32 (rope_tables)
+    sin: torch.Tensor,
+    page_table: torch.Tensor,  # [R, max_pages] compact per-row table
+    rows: torch.Tensor,  # [T] token -> row
+    positions: torch.Tensor,  # [T, 1]
+    num_live: torch.Tensor,  # [1] i32 live tokens; the rest of the stream is padding
+    bias: tuple | None = None,  # (bq [Nq D], bk [K D], bv [K D])
+) -> torch.Tensor:
+    """The flat step's q|k|v bias, rotary embedding and layer-indexed KV
+    write in one launch (K2's fused form). q, k and v may be views of the
+    projection's output: only each token's [heads, D] block need be
+    contiguous. Stores the live tokens' rotated k|v in place (an int8 pool
+    quantizes them) and returns every token's rotated q, [T, 1, Nq, D]."""
+    data, scales = _split_cache(kv_cache_full)
+    T = q.shape[0]
+    out = rope_write_kv_flat_full(
+        data, layer, _by_row(q), _by_row(k), _by_row(v), cos.reshape(T, -1),
+        sin.reshape(T, -1), page_table, rows, positions.reshape(-1), num_live, bias, scales,
+    )
+    return out.reshape(q.shape)
+
+
 def paged_attention_full_flat(
     q: torch.Tensor,  # [T, 1, H, D]
     kv_cache_full: torch.Tensor,
@@ -232,6 +278,32 @@ def decode_write_prep(
         (pos % page).to(torch.int32),
         valid[:, 0].to(torch.int32),
     )
+
+
+def rope_write_kv_decode(
+    kv_cache_full,
+    layer: int,
+    q: torch.Tensor,  # [B, 1, Nq, D]
+    k: torch.Tensor,  # [B, 1, K, D]
+    v: torch.Tensor,  # [B, 1, K, D]
+    cos: torch.Tensor,  # [B, 1, D/2] f32 (rope_tables)
+    sin: torch.Tensor,
+    prep: tuple[torch.Tensor, torch.Tensor, torch.Tensor],  # decode_write_prep
+    bias: tuple | None = None,  # (bq [Nq D], bk [K D], bv [K D])
+) -> torch.Tensor:
+    """One-token-per-row (``Q == 1``) q|k|v bias, rotary embedding and
+    layer-indexed KV write in one launch (K4's fused form), at the
+    addressing ``prep`` (``decode_write_prep``). q, k and v may be views of
+    the projection's output. Stores the live rows' rotated k|v in place (an
+    int8 pool quantizes them) and returns every row's rotated q,
+    [B, 1, Nq, D]."""
+    data, scales = _split_cache(kv_cache_full)
+    B = q.shape[0]
+    out = rope_write_kv_decode_full(
+        data, layer, _by_row(q), _by_row(k), _by_row(v), cos.reshape(B, -1),
+        sin.reshape(B, -1), *prep, bias, scales,
+    )
+    return out.reshape(q.shape)
 
 
 def write_kv_pages_full(
@@ -333,6 +405,7 @@ __all__ = [
     "BRANCHED",
     "KERNELS",
     "add_launches",
+    "add_qkv_bias",
     "branch_launch_counts",
     "dequantize_pages",
     "quantize_kv_rows",
@@ -362,7 +435,14 @@ __all__ = [
     "paged_attention_xla",
     "paged_attention_xla_blocked",
     "reset_launch_counts",
+    "rope_write_kv_decode",
+    "rope_write_kv_decode_full",
+    "rope_write_kv_decode_plain",
+    "rope_write_kv_flat",
+    "rope_write_kv_flat_full",
+    "rope_write_kv_flat_plain",
     "set_launch_state",
+    "write_branch",
     "write_kv_pages",
     "write_kv_pages_decode",
     "write_kv_pages_decode_full",

@@ -26,11 +26,20 @@
 // reference's bytes), stores the int8 row and lane 0 the (ks, vs) pair. A
 // row with valid[b] == 0 returns before it reads phys[b] and writes neither
 // data nor scales.
+//
+// The fused form (decode_kv_write_rope, rope_kv_write.cuh) takes each row's
+// q, k and v straight from the q|k|v projection, adds the biases, applies
+// the rotary embedding to q and k, writes the rotated q for the attention
+// kernel and stores k|v (int8: quantized) in the same launch: every Q = 1
+// decode forward of a GQA model runs it, one launch a layer where the
+// unfused chain ran about 22. A pad row's q is rotated all the same; it
+// stores nothing. The store-only entry above stays for MLA's latent rows.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #include "kv_quant.cuh"
+#include "rope_kv_write.cuh"
 
 namespace {
 
@@ -119,6 +128,23 @@ cudaError_t launch_int8_d(int head_dim, void* cache, void* scales,
   }
 }
 
+// The fused form's addressing: row b is live when valid[b] != 0 and its
+// target (phys[b], offset[b]) lies in the pool (pad rows' phys may hold any
+// value and is not read). (The name tags the kernel's profiler name as K4'.)
+struct decode_kv_write_rows {
+  const int32_t* phys;
+  const int32_t* offset;
+  const int32_t* valid;
+  int num_pages, page;
+
+  __device__ __forceinline__ bool operator()(int b, int* p, int* slot) const {
+    if (valid[b] == 0) return false;
+    *p = phys[b];
+    *slot = offset[b];
+    return *p >= 0 && *p < num_pages && *slot >= 0 && *slot < page;
+  }
+};
+
 }  // namespace
 
 // One entry for both pools. kv_new is [B, K, 2D] of dtype 0 = float32,
@@ -153,4 +179,25 @@ extern "C" int decode_kv_write(
       return (int)launch_int8_d<__half>(head_dim, cache, scales, kv_new, phys, offset,
                                         valid, batch, layer, num_pages, num_kv_heads, page, s);
   }
+}
+
+// The fused form: q [B, Nq, D], k and v [B, K, D], each row at its own
+// stride (elements) with a contiguous [heads, D] tail, of dtype 0 = float32,
+// 1 = bfloat16, 2 = float16; bq/bk/bv ([Nq D], [K D], [K D], the same
+// dtype) all given or all nullptr; cos/sin [B, D / 2] f32. Writes the
+// rotated q of every row into q_out ([B, Nq, D], contiguous) and stores the
+// live rows' rotated k | v as decode_kv_write does (scales == nullptr: a
+// float pool of q's dtype; otherwise int8 with its scales).
+extern "C" int decode_kv_write_rope(
+    void* cache, void* scales, void* q_out, const void* q, const void* k, const void* v,
+    long long q_stride, long long k_stride, long long v_stride, const void* bq,
+    const void* bk, const void* bv, const void* cos, const void* sin, const void* phys,
+    const void* offset, const void* valid, int batch, int layer, int num_pages,
+    int num_q_heads, int num_kv_heads, int page, int head_dim, int dtype, void* stream) {
+  const rope_kv::RawParams a{cache, scales, q_out, q, k, v, q_stride, k_stride, v_stride,
+                             bq, bk, bv, cos, sin, layer, num_pages, num_q_heads,
+                             num_kv_heads, page};
+  const decode_kv_write_rows target{(const int32_t*)phys, (const int32_t*)offset,
+                                    (const int32_t*)valid, num_pages, page};
+  return rope_kv::launch(a, target, batch, head_dim, dtype, stream);
 }

@@ -29,11 +29,19 @@
 // the int8 row at (phys, slot) and lane 0 stores the (ks, vs) pair into the
 // f32 scale pool. Bound: bytes, 2D float elements in, 2D bytes and 8 bytes
 // of scales out per (token, head).
+//
+// The fused form (flat_kv_write_rope, rope_kv_write.cuh) takes the step's
+// q, k and v straight from the q|k|v projection, adds the biases, applies
+// the rotary embedding to q and k, writes the rotated q for the attention
+// kernel and stores k|v (int8: quantized) in the same launch: the model's
+// flat step runs it, one launch a layer where the unfused chain ran about
+// 22. Live tokens and pads are as above; a pad's q is rotated all the same.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #include "kv_quant.cuh"
+#include "rope_kv_write.cuh"
 
 namespace {
 
@@ -137,6 +145,25 @@ cudaError_t launch_int8_d(int head_dim, void* cache, void* scales,
   }
 }
 
+// The fused form's addressing: token t of the packed stream is live below
+// the device-side count, at (page_table[rows[t], pos / page], pos % page).
+// (The name tags the kernel's profiler name as K2'.)
+struct flat_kv_write_tokens {
+  const int32_t* page_table;
+  const int32_t* rows;
+  const int32_t* positions;
+  const int32_t* num_live;
+  int max_pages, page;
+
+  __device__ __forceinline__ bool operator()(int t, int* phys, int* slot) const {
+    if (t >= *num_live) return false;
+    const int pos = positions[t];
+    *phys = page_table[(int64_t)rows[t] * max_pages + pos / page];
+    *slot = pos % page;
+    return true;
+  }
+};
+
 }  // namespace
 
 // One entry for both pools. k/v are [T, K, D] of dtype 0 = float32,
@@ -177,4 +204,27 @@ extern "C" int flat_kv_write(
                                         positions, num_live, tokens, layer, num_pages,
                                         num_kv_heads, page, max_pages, s);
   }
+}
+
+// The fused form: q [T, Nq, D], k and v [T, K, D], each row at its own
+// stride (elements) with a contiguous [heads, D] tail, of dtype 0 = float32,
+// 1 = bfloat16, 2 = float16; bq/bk/bv ([Nq D], [K D], [K D], the same
+// dtype) all given or all nullptr; cos/sin [T, D / 2] f32. Writes the
+// rotated q of every token into q_out ([T, Nq, D], contiguous) and stores
+// the live tokens' rotated k | v as flat_kv_write does (scales == nullptr: a
+// float pool of q's dtype; otherwise int8 with its scales).
+extern "C" int flat_kv_write_rope(
+    void* cache, void* scales, void* q_out, const void* q, const void* k, const void* v,
+    long long q_stride, long long k_stride, long long v_stride, const void* bq,
+    const void* bk, const void* bv, const void* cos, const void* sin,
+    const void* page_table, const void* rows, const void* positions,
+    const void* num_live, int tokens, int layer, int num_pages, int num_q_heads,
+    int num_kv_heads, int page, int max_pages, int head_dim, int dtype, void* stream) {
+  const rope_kv::RawParams a{cache, scales, q_out, q, k, v, q_stride, k_stride, v_stride,
+                             bq, bk, bv, cos, sin, layer, num_pages, num_q_heads,
+                             num_kv_heads, page};
+  const flat_kv_write_tokens target{(const int32_t*)page_table, (const int32_t*)rows,
+                                    (const int32_t*)positions, (const int32_t*)num_live,
+                                    max_pages, page};
+  return rope_kv::launch(a, target, tokens, head_dim, dtype, stream);
 }

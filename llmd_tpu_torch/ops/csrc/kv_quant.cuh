@@ -1,6 +1,7 @@
 // Device code shared by the two KV-write kernels' int8 paths
-// (flat_kv_write.cu, decode_kv_write.cu): one warp quantizes one (token,
-// head) row's K or V half and stores it into the int8 pool, bit for bit as
+// (flat_kv_write.cu, decode_kv_write.cu, and their fused forms in
+// rope_kv_write.cuh): one warp quantizes one (token, head) row's K or V
+// half and stores it into the int8 pool, bit for bit as
 // llmd_tpu/ops/quant_kv.py:quantize_kv_rows does on the CPU:
 //
 //   amax  = max |x|                                    (f32)
@@ -29,20 +30,18 @@
 
 namespace kv_quant {
 
-// Quantize the warp's row: each lane holds DPL consecutive elements of x;
-// stores the lane's DPL int8 values at dst (aligned to DPL bytes) and
-// returns the row's scale (the same in every lane).
-template <typename T, int DPL>
-__device__ __forceinline__ float quantize_row(const T* __restrict__ x,
-                                              int8_t* __restrict__ dst) {
+// Quantize the warp's row from registers: each lane holds DPL consecutive
+// elements of the row (in f32, already rounded to the row's dtype); stores
+// the lane's DPL int8 values at dst + lane * DPL (aligned to DPL bytes) and
+// returns the row's scale (the same in every lane). Every lane of the warp
+// must call it.
+template <int DPL>
+__device__ __forceinline__ float quantize_vals(const float (&v)[DPL],
+                                               int8_t* __restrict__ dst) {
   const int lane = threadIdx.x % 32;
-  float v[DPL];
   float amax = 0.f;
 #pragma unroll
-  for (int i = 0; i < DPL; ++i) {
-    v[i] = convert::to_f(x[lane * DPL + i]);
-    amax = fmaxf(amax, fabsf(v[i]));
-  }
+  for (int i = 0; i < DPL; ++i) amax = fmaxf(amax, fabsf(v[i]));
 #pragma unroll
   for (int off = 16; off > 0; off >>= 1) {
     amax = fmaxf(amax, __shfl_xor_sync(0xffffffffu, amax, off));
@@ -61,6 +60,18 @@ __device__ __forceinline__ float quantize_row(const T* __restrict__ x,
   }
   *reinterpret_cast<decltype(out.w)*>(dst + lane * DPL) = out.w;
   return scale;
+}
+
+// Quantize the warp's row read from x: lane l takes elements
+// [l * DPL, (l + 1) * DPL).
+template <typename T, int DPL>
+__device__ __forceinline__ float quantize_row(const T* __restrict__ x,
+                                              int8_t* __restrict__ dst) {
+  const int lane = threadIdx.x % 32;
+  float v[DPL];
+#pragma unroll
+  for (int i = 0; i < DPL; ++i) v[i] = convert::to_f(x[lane * DPL + i]);
+  return quantize_vals<DPL>(v, dst);
 }
 
 }  // namespace kv_quant

@@ -29,10 +29,23 @@ launch, where the JAX package quantizes, writes the data through the TPU
 kernel and scatters the scales in three XLA steps. The stored bytes are
 ``quantize_kv_rows``'s, bit for bit.
 
-``write_kv_pages_flat_plain`` and ``write_kv_pages_decode_plain`` are the
+Both kernels have a fused form (``csrc/rope_kv_write.cuh``):
+``rope_write_kv_flat_full`` and ``rope_write_kv_decode_full`` take the
+step's q, k and v as views of the q|k|v projection's output, add the
+biases, apply the rotary embedding to q and k (``models/common.py:
+apply_rope``'s arithmetic, bit for bit), return the rotated q and store the
+rotated k|v as the store-only forms do, in one launch where the unfused
+chain ran about 22 small kernels. Their launches count under the store-only
+wrapper of the same kernel (``write_kv_pages_flat_full``,
+``write_kv_pages_decode_full``) in branches of their own
+(``write_branch``). The store-only forms stay: MLA's latent rows go through
+``write_kv_pages_decode_full``.
+
+``write_kv_pages_flat_plain``, ``write_kv_pages_decode_plain``,
+``rope_write_kv_flat_plain`` and ``rope_write_kv_decode_plain`` are the
 plain PyTorch versions (for the int8 pool: ``quantize_kv_rows``, the plain
-store and the plain scale scatter); the wrappers take them for CPU tensors
-only.
+store and the plain scale scatter; the fused ones add the biases and call
+``apply_rope`` first); the wrappers take them for CPU tensors only.
 """
 
 from __future__ import annotations
@@ -42,6 +55,7 @@ import ctypes
 
 import torch
 
+from llmd_tpu_torch.models.common import apply_rope
 from llmd_tpu_torch.ops import _build
 from llmd_tpu_torch.ops.paged_attention import scatter_kv_scales_flat
 from llmd_tpu_torch.ops.quant_kv import quantize_kv_rows
@@ -61,6 +75,11 @@ def _kernel():
             ctypes.c_void_p
         ]
         lib.flat_kv_write.restype = ctypes.c_int
+        lib.flat_kv_write_rope.argtypes = (
+            [ctypes.c_void_p] * 6 + [ctypes.c_longlong] * 3 + [ctypes.c_void_p] * 9
+            + [ctypes.c_int] * 9 + [ctypes.c_void_p]
+        )
+        lib.flat_kv_write_rope.restype = ctypes.c_int
         _lib = lib
     return _lib
 
@@ -73,6 +92,11 @@ def _decode_kernel():
             ctypes.c_void_p
         ]
         lib.decode_kv_write.restype = ctypes.c_int
+        lib.decode_kv_write_rope.argtypes = (
+            [ctypes.c_void_p] * 6 + [ctypes.c_longlong] * 3 + [ctypes.c_void_p] * 8
+            + [ctypes.c_int] * 8 + [ctypes.c_void_p]
+        )
+        lib.decode_kv_write_rope.restype = ctypes.c_int
         _decode_lib = lib
     return _decode_lib
 
@@ -122,10 +146,35 @@ def _check_int8(kv_cache, scales, rows_in):
         raise ValueError("scales must be 8-byte aligned")
 
 
-def _count(fn, scales) -> None:
+def write_branch(int8: bool, rope: bool = False, bias: bool = False) -> str:
+    """The branch a KV-write launch counts under: ``plain`` or ``int8`` for
+    the store-only form; ``rope``, ``rope+bias``, ``rope+int8`` or
+    ``rope+bias+int8`` for the fused one."""
+    if not rope:
+        return "int8" if int8 else "plain"
+    return "+".join(["rope"] + ["bias"] * bias + ["int8"] * int8)
+
+
+def _count(fn, scales, rope: bool = False, bias: bool = False) -> None:
     """One launch of ``fn``'s kernel, counted under its branch."""
     fn.launches += 1
-    fn.branch_launches["plain" if scales is None else "int8"] += 1
+    fn.branch_launches[write_branch(scales is not None, rope, bias)] += 1
+
+
+def _check_flat_index(kv_cache, T, page_table, rows, positions, num_live):
+    """What the flat step's addressing must be: [T] int32 rows and
+    positions, a [1] int32 live count, an int32 table, all contiguous on
+    the pool's device."""
+    if rows.shape != (T,) or positions.shape != (T,) or num_live.shape != (1,):
+        raise ValueError("rows/positions must be [T] and num_live [1]")
+    for name, t in (("page_table", page_table), ("rows", rows), ("positions", positions),
+                    ("num_live", num_live)):
+        if t.device != kv_cache.device:
+            raise ValueError(f"{name} is on {t.device}, the pool on {kv_cache.device}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+        if t.dtype != torch.int32:
+            raise ValueError(f"{name} must be int32, got {t.dtype}")
 
 
 def _check(kv_cache, k, v, page_table, rows, positions, num_live, scales):
@@ -133,19 +182,12 @@ def _check(kv_cache, k, v, page_table, rows, positions, num_live, scales):
     T = k.shape[0]
     if k.shape != (T, 1, K, D2 // 2) or v.shape != k.shape:
         raise ValueError(f"k/v {tuple(k.shape)}/{tuple(v.shape)} do not fit pool {tuple(kv_cache.shape)}")
-    if rows.shape != (T,) or positions.shape != (T,) or num_live.shape != (1,):
-        raise ValueError("rows/positions must be [T] and num_live [1]")
-    for name, t in (("kv_cache", kv_cache), ("k", k), ("v", v),
-                    ("page_table", page_table), ("rows", rows),
-                    ("positions", positions), ("num_live", num_live)):
+    _check_flat_index(kv_cache, T, page_table, rows, positions, num_live)
+    for name, t in (("kv_cache", kv_cache), ("k", k), ("v", v)):
         if t.device != kv_cache.device:
             raise ValueError(f"{name} is on {t.device}, the pool on {kv_cache.device}")
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
-    for name, t in (("page_table", page_table), ("rows", rows), ("positions", positions),
-                    ("num_live", num_live)):
-        if t.dtype != torch.int32:
-            raise ValueError(f"{name} must be int32, got {t.dtype}")
     if scales is not None:
         _check_int8(kv_cache, scales, k)
         if v.dtype != k.dtype:
@@ -235,26 +277,35 @@ def write_kv_pages_decode_plain(
     return kv_cache
 
 
+def _check_decode_index(kv_cache, B, layer, phys, offset, valid):
+    """What a decode batch's addressing must be: [B] int32 phys, offset
+    and valid, contiguous on the pool's device, and a layer of the pool."""
+    if not 0 <= layer < kv_cache.shape[0]:
+        raise ValueError(f"layer {layer} out of range [0, {kv_cache.shape[0]})")
+    for name, t in (("phys", phys), ("offset", offset), ("valid", valid)):
+        if t.shape != (B,):
+            raise ValueError(f"{name} must be [B] = [{B}], got {tuple(t.shape)}")
+        if t.dtype != torch.int32:
+            raise ValueError(f"{name} must be int32, got {t.dtype}")
+        if t.device != kv_cache.device:
+            raise ValueError(f"{name} is on {t.device}, the pool on {kv_cache.device}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+
+
 def _check_decode(kv_cache, kv_new, layer, phys, offset, valid, scales):
     L, P, K, page, D2 = kv_cache.shape
     B = kv_new.shape[0]
     if kv_new.shape != (B, K, D2):
         raise ValueError(f"kv_new {tuple(kv_new.shape)} does not fit pool {tuple(kv_cache.shape)}")
-    if not 0 <= layer < L:
-        raise ValueError(f"layer {layer} out of range [0, {L})")
+    _check_decode_index(kv_cache, B, layer, phys, offset, valid)
     if scales is not None:
         _check_int8(kv_cache, scales, kv_new)
     elif kv_new.dtype != kv_cache.dtype:
         raise ValueError(f"kv_new dtype {kv_new.dtype} differs from the pool's {kv_cache.dtype}")
     elif kv_new.dtype not in _DTYPE_CODES:
         raise ValueError(f"unsupported pool dtype {kv_new.dtype}")
-    for name, t in (("phys", phys), ("offset", offset), ("valid", valid)):
-        if t.shape != (B,):
-            raise ValueError(f"{name} must be [B] = [{B}], got {tuple(t.shape)}")
-        if t.dtype != torch.int32:
-            raise ValueError(f"{name} must be int32, got {t.dtype}")
-    for name, t in (("kv_cache", kv_cache), ("kv_new", kv_new), ("phys", phys),
-                    ("offset", offset), ("valid", valid)):
+    for name, t in (("kv_cache", kv_cache), ("kv_new", kv_new)):
         if t.device != kv_cache.device:
             raise ValueError(f"{name} is on {t.device}, the pool on {kv_cache.device}")
         if not t.is_contiguous():
@@ -321,3 +372,230 @@ def write_kv_pages_decode(
     pool; the model's forward calls the ``_full`` entry."""
     write_kv_pages_decode_full(kv_cache[None], kv_new, 0, phys, offset, valid)
     return kv_cache
+
+
+# --------------------------------------------------------------------- #
+# The fused form: q|k|v bias, rotary embedding and the store in one launch.
+
+
+def add_qkv_bias(q, k, v, bias):
+    """``q``, ``k``, ``v`` ([..., heads, D]) plus their biases (``bias`` =
+    (bq [Nq D], bk [K D], bv [K D]), or None), each sum in the tensors'
+    dtype, as the model adds them to the projection's output."""
+    if bias is None:
+        return q, k, v
+    return tuple(x + b.view(x.shape[-2:]) for x, b in zip((q, k, v), bias))
+
+
+def _rope_plain(q, k, v, cos, sin, bias):
+    """The fused kernels' arithmetic in plain PyTorch: the biases, then
+    ``apply_rope`` on q and k with the [N, D/2] tables."""
+    q, k, v = add_qkv_bias(q, k, v, bias)
+    c, s = cos[:, None], sin[:, None]
+    return apply_rope(q[:, None], c, s)[:, 0], apply_rope(k[:, None], c, s)[:, 0], v
+
+
+def _heads_contiguous_rows(name: str, t: torch.Tensor, shape: tuple) -> int:
+    """The row stride (in elements) of ``t`` [N, heads, D], whose rows must
+    each be a contiguous [heads, D] block at a 16-byte aligned address."""
+    if tuple(t.shape) != shape:
+        raise ValueError(f"{name} {tuple(t.shape)} must be {shape}")
+    if t.shape[0] and not t[0].is_contiguous():
+        raise ValueError(f"{name}'s rows must each be a contiguous [heads, D] block")
+    stride = t.stride(0) if t.shape[0] > 1 else 0
+    if (stride * t.element_size()) % 16 or t.data_ptr() % 16:
+        raise ValueError(f"{name}'s rows must be 16-byte aligned")
+    return stride
+
+
+def _check_rope(kv_cache, q, k, v, cos, sin, bias, scales) -> tuple[int, int, int]:
+    """What the fused form requires of q, k, v, the tables, the biases and
+    the pool; returns the row strides of q, k and v."""
+    L, P, K, page, D2 = kv_cache.shape
+    D = D2 // 2
+    if q.dim() != 3 or q.shape[2] != D:
+        raise ValueError(f"q {tuple(q.shape)} must be [N, Nq, {D}]")
+    N, Nq = q.shape[:2]
+    if D not in _HEAD_DIMS:
+        raise ValueError(f"the fused write takes head_dim in {_HEAD_DIMS}, got {D}")
+    dt = q.dtype
+    if dt not in _DTYPE_CODES or k.dtype != dt or v.dtype != dt:
+        raise ValueError(f"q/k/v dtypes {q.dtype}/{k.dtype}/{v.dtype} must be one float dtype")
+    if scales is not None:
+        _check_int8(kv_cache, scales, q)
+    elif kv_cache.dtype != dt:
+        raise ValueError(f"q/k/v dtype {dt} differs from the pool's {kv_cache.dtype}")
+    strides = tuple(_heads_contiguous_rows(name, t, shape) for name, t, shape in (
+        ("q", q, (N, Nq, D)), ("k", k, (N, K, D)), ("v", v, (N, K, D))))
+    for name, t in (("cos", cos), ("sin", sin)):
+        if t.shape != (N, D // 2) or t.dtype != torch.float32 or not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous f32 [N, D/2] = [{N}, {D // 2}]")
+    named = [("kv_cache", kv_cache), ("q", q), ("k", k), ("v", v), ("cos", cos), ("sin", sin)]
+    if bias is not None:
+        for name, b, width in zip(("bq", "bk", "bv"), bias, (Nq * D, K * D, K * D)):
+            if b.shape != (width,) or b.dtype != dt or not b.is_contiguous() or b.data_ptr() % 16:
+                raise ValueError(f"{name} must be contiguous, 16-byte aligned {dt} [{width}]")
+            named.append((name, b))
+    for name, t in named:
+        if t.device != kv_cache.device:
+            raise ValueError(f"{name} is on {t.device}, the pool on {kv_cache.device}")
+    if kv_cache.data_ptr() % 16:
+        raise ValueError("the pool must be 16-byte aligned")
+    return strides
+
+
+def _bias_ptrs(bias) -> list:
+    return [None] * 3 if bias is None else [b.data_ptr() for b in bias]
+
+
+def rope_write_kv_flat_plain(
+    kv_cache: torch.Tensor,  # [L, num_pages, K, page, 2D]
+    layer: int,
+    q: torch.Tensor,  # [T, Nq, D]
+    k: torch.Tensor,  # [T, K, D]
+    v: torch.Tensor,  # [T, K, D]
+    cos: torch.Tensor,  # [T, D/2] f32
+    sin: torch.Tensor,  # [T, D/2] f32
+    page_table: torch.Tensor,
+    rows: torch.Tensor,
+    positions: torch.Tensor,
+    num_live: torch.Tensor,
+    bias: tuple | None = None,  # (bq [Nq D], bk [K D], bv [K D])
+    scales: torch.Tensor | None = None,
+) -> torch.Tensor:
+    """Plain PyTorch version of the fused flat write: the biases,
+    ``apply_rope`` on q and k, then ``write_kv_pages_flat_plain``. Returns
+    the rotated q [T, Nq, D]."""
+    q, k, v = _rope_plain(q, k, v, cos, sin, bias)
+    write_kv_pages_flat_plain(
+        kv_cache, layer, k[:, None], v[:, None], page_table, rows, positions, num_live, scales
+    )
+    return q
+
+
+def rope_write_kv_flat_full(
+    kv_cache: torch.Tensor,
+    layer: int,
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    cos: torch.Tensor,
+    sin: torch.Tensor,
+    page_table: torch.Tensor,
+    rows: torch.Tensor,
+    positions: torch.Tensor,
+    num_live: torch.Tensor,
+    bias: tuple | None = None,
+    scales: torch.Tensor | None = None,
+) -> torch.Tensor:
+    """The flat step's bias, rotary embedding and KV write in one launch of
+    K2's fused form: q [T, Nq, D], k and v [T, K, D] (any row stride; each
+    row a contiguous [heads, D] block), cos/sin [T, D/2] f32. Stores the
+    live tokens' (``[0, num_live)``) rotated k|v into ``kv_cache[layer]``
+    in place (with ``scales``, an int8 pool: quantized, with their scales)
+    and returns every token's rotated q, [T, Nq, D] contiguous.
+
+    CUDA tensors launch the kernel on the current stream; CPU tensors take
+    the plain version."""
+    if kv_cache.device.type == "cpu":
+        return rope_write_kv_flat_plain(
+            kv_cache, layer, q, k, v, cos, sin, page_table, rows, positions, num_live,
+            bias, scales,
+        )
+    if kv_cache.device.type != "cuda":
+        raise ValueError(f"unsupported device {kv_cache.device}")
+    strides = _check_rope(kv_cache, q, k, v, cos, sin, bias, scales)
+    L, P, K, page, D2 = kv_cache.shape
+    if not 0 <= layer < L:
+        raise ValueError(f"layer {layer} out of range [0, {L})")
+    T, Nq = q.shape[:2]
+    _check_flat_index(kv_cache, T, page_table, rows, positions, num_live)
+    q_out = torch.empty((T, Nq, D2 // 2), dtype=q.dtype, device=q.device)
+    if T == 0:
+        return q_out
+    stream = torch.cuda.current_stream(kv_cache.device).cuda_stream
+    err = _kernel().flat_kv_write_rope(
+        kv_cache.data_ptr(), None if scales is None else scales.data_ptr(), q_out.data_ptr(),
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), *strides, *_bias_ptrs(bias),
+        cos.data_ptr(), sin.data_ptr(), page_table.data_ptr(), rows.data_ptr(),
+        positions.data_ptr(), num_live.data_ptr(), T, layer, P, Nq, K, page,
+        page_table.shape[1], D2 // 2, _DTYPE_CODES[q.dtype], stream,
+    )
+    if err:
+        raise RuntimeError(f"flat_kv_write_rope launch failed: CUDA error {err}")
+    _count(write_kv_pages_flat_full, scales, rope=True, bias=bias is not None)
+    return q_out
+
+
+def rope_write_kv_decode_plain(
+    kv_cache: torch.Tensor,  # [L, num_pages, K, page, 2D]
+    layer: int,
+    q: torch.Tensor,  # [B, Nq, D]
+    k: torch.Tensor,  # [B, K, D]
+    v: torch.Tensor,  # [B, K, D]
+    cos: torch.Tensor,  # [B, D/2] f32
+    sin: torch.Tensor,  # [B, D/2] f32
+    phys: torch.Tensor,
+    offset: torch.Tensor,
+    valid: torch.Tensor,
+    bias: tuple | None = None,
+    scales: torch.Tensor | None = None,
+) -> torch.Tensor:
+    """Plain PyTorch version of the fused decode write: the biases,
+    ``apply_rope`` on q and k, then ``write_kv_pages_decode_plain`` of k|v.
+    Returns the rotated q [B, Nq, D]."""
+    q, k, v = _rope_plain(q, k, v, cos, sin, bias)
+    write_kv_pages_decode_plain(
+        kv_cache, torch.cat([k, v], dim=-1), layer, phys, offset, valid, scales
+    )
+    return q
+
+
+def rope_write_kv_decode_full(
+    kv_cache: torch.Tensor,
+    layer: int,
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    cos: torch.Tensor,
+    sin: torch.Tensor,
+    phys: torch.Tensor,
+    offset: torch.Tensor,
+    valid: torch.Tensor,
+    bias: tuple | None = None,
+    scales: torch.Tensor | None = None,
+) -> torch.Tensor:
+    """A decode batch's bias, rotary embedding and KV write in one launch
+    of K4's fused form: q [B, Nq, D], k and v [B, K, D] (any row stride;
+    each row a contiguous [heads, D] block), cos/sin [B, D/2] f32. Stores
+    each live row's (``valid[b] != 0``) rotated k|v at ``kv_cache[layer,
+    phys[b], :, offset[b], :]`` in place (with ``scales``, an int8 pool:
+    quantized, with their scales) and returns every row's rotated q,
+    [B, Nq, D] contiguous. A pad row's ``phys`` may hold any value.
+
+    CUDA tensors launch the kernel on the current stream; CPU tensors take
+    the plain version."""
+    if kv_cache.device.type == "cpu":
+        return rope_write_kv_decode_plain(
+            kv_cache, layer, q, k, v, cos, sin, phys, offset, valid, bias, scales
+        )
+    if kv_cache.device.type != "cuda":
+        raise ValueError(f"unsupported device {kv_cache.device}")
+    strides = _check_rope(kv_cache, q, k, v, cos, sin, bias, scales)
+    _, P, K, page, D2 = kv_cache.shape
+    B, Nq = q.shape[:2]
+    _check_decode_index(kv_cache, B, layer, phys, offset, valid)
+    q_out = torch.empty((B, Nq, D2 // 2), dtype=q.dtype, device=q.device)
+    if B == 0:
+        return q_out
+    stream = torch.cuda.current_stream(kv_cache.device).cuda_stream
+    err = _decode_kernel().decode_kv_write_rope(
+        kv_cache.data_ptr(), None if scales is None else scales.data_ptr(), q_out.data_ptr(),
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), *strides, *_bias_ptrs(bias),
+        cos.data_ptr(), sin.data_ptr(), phys.data_ptr(), offset.data_ptr(), valid.data_ptr(),
+        B, layer, P, Nq, K, page, D2 // 2, _DTYPE_CODES[q.dtype], stream,
+    )
+    if err:
+        raise RuntimeError(f"decode_kv_write_rope launch failed: CUDA error {err}")
+    _count(write_kv_pages_decode_full, scales, rope=True, bias=bias is not None)
+    return q_out

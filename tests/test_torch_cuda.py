@@ -1025,8 +1025,9 @@ OSS_TINY = dict(
 def test_oss_engine_on_the_card_matches_the_cpu_engine(dev, layout, kv_dtype):
     """A tiny gpt-oss model (windows, sinks, biases, yarn, biased experts;
     f32, seeded random biases) on a float and an int8 pool: the card's
-    greedy and seeded streams equal the CPU's, and every launch of the
-    attention kernels took the sink branch, half of them the window one."""
+    greedy and seeded streams equal the CPU's, every launch of the
+    attention kernels took the sink branch, half of them the window one,
+    and every KV write the fused form with the biases."""
     torch.backends.cuda.matmul.allow_tf32 = False
     mcfg = tiny_model_config(**OSS_TINY)
     cfg = EngineConfig(
@@ -1054,7 +1055,222 @@ def test_oss_engine_on_the_card_matches_the_cpu_engine(dev, layout, kv_dtype):
         # The sliding layer takes window + sinks, the full one sinks.
         n = counts[fn] // 2
         assert branches.get(f"{fn}[{q8}window+sinks]", 0) == branches.get(f"{fn}[{q8}sinks]", 0) == n
+    # Every write took the fused form, with the model's q|k|v biases.
+    key = ops.write_branch(kv_dtype == "int8", rope=True, bias=True)
     for fn in ("write_kv_pages_flat_full", "write_kv_pages_decode_full"):
-        assert branches.get(f"{fn}[{'int8' if q8 else 'plain'}]", 0) == counts[fn]
+        assert branches.get(f"{fn}[{key}]", 0) == counts[fn]
     assert counts["grouped_matmul"] == counts["grouped_matmul_pair"] > 0
     assert counts["flat_paged_attention_full"] + counts["decode_paged_attention_full"] > 0
+
+
+# --------------------------------------------------------------------- #
+# The fused form of K2' and K4': q|k|v bias, rope and the store in one launch
+
+# name -> (rope_scaling, theta)
+ROPES = {
+    "default": (None, 10000.0),
+    "llama3": ({"rope_type": "llama3", "factor": 8.0, "low_freq_factor": 1.0,
+                "high_freq_factor": 4.0, "original_max_position_embeddings": 8192}, 500000.0),
+    "yarn": ({"rope_type": "yarn", "factor": 32.0, "beta_fast": 32.0, "beta_slow": 1.0,
+              "original_max_position_embeddings": 4096}, 150000.0),
+}
+
+
+def qkv_rows(rng, dev, dtype, N, Nq, K, D, strided):
+    """q [N, Nq, D] and k, v [N, K, D]: views of one [N, (Nq + 2K) D]
+    projection output (``strided``), or contiguous tensors (a QK-normed
+    model's)."""
+    x = torch.from_numpy(rng.normal(size=(N, (Nq + 2 * K) * D)).astype(np.float32)).to(dev, dtype)
+    q = x[:, : Nq * D].view(N, Nq, D)
+    k = x[:, Nq * D : (Nq + K) * D].view(N, K, D)
+    v = x[:, (Nq + K) * D :].view(N, K, D)
+    return (q, k, v) if strided else tuple(t.contiguous() for t in (q, k, v))
+
+
+def qkv_bias(rng, dev, dtype, Nq, K, D):
+    return tuple(torch.from_numpy(0.3 * rng.normal(size=(n * D,)).astype(np.float32)).to(dev, dtype)
+                 for n in (Nq, K, K))
+
+
+def rope_rows(positions, D, rope):
+    from llmd_tpu_torch.models.common import rope_tables
+
+    scaling, theta = ROPES[rope]
+    return rope_tables(positions, D, theta, scaling)
+
+
+def fused_pool(rng, dev, dtype, L, P, K, page, D, int8):
+    """A random float pool in ``dtype``, or (int8 data, f32 scales on the
+    f16 grid)."""
+    if not int8:
+        return torch.from_numpy(rng.normal(size=(L, P, K, page, 2 * D)).astype(np.float32)).to(dev, dtype), None
+    data = torch.from_numpy(rng.integers(-127, 128, size=(L, P, K, page, 2 * D)).astype(np.int8)).to(dev)
+    scales = rng.uniform(0.004, 0.016, size=(L, P, K, page, 2)).astype(np.float16)
+    return data, torch.from_numpy(scales.astype(np.float32)).to(dev)
+
+
+def same_pool(a, b) -> bool:
+    return all(torch.equal(x, y) for x, y in zip(a, b) if x is not None)
+
+
+# (dtype, D, K, G, page, rope): every dtype and head_dim, GQA groups of 1-8,
+# one head, and each rope table.
+FUSED_CASES = [
+    (torch.bfloat16, 128, 8, 4, 16, "llama3"),
+    (torch.bfloat16, 64, 8, 8, 16, "yarn"),
+    (torch.float16, 128, 2, 2, 8, "default"),
+    (torch.float32, 64, 2, 1, 16, "yarn"),
+    (torch.float32, 256, 1, 8, 32, "default"),
+    (torch.bfloat16, 256, 2, 4, 8, "llama3"),
+]
+
+
+@pytest.mark.parametrize("strided", [True, False], ids=["views", "contiguous"])
+@pytest.mark.parametrize("bias", [False, True], ids=["no_bias", "bias"])
+@pytest.mark.parametrize("int8", [False, True], ids=["float_pool", "int8_pool"])
+@pytest.mark.parametrize("dtype,D,K,G,page,rope", FUSED_CASES)
+def test_fused_flat_write_equals_plain(dev, dtype, D, K, G, page, rope, int8, bias, strided):
+    """K2's fused form against its plain version (bias, ``apply_rope``,
+    the plain store), bit for bit: the rotated q of every token (pads
+    too), the pool's bytes and the int8 pool's scales (pads store
+    nothing). Its launch counts under K2' in its own branch."""
+    rng = np.random.default_rng(31)
+    L, Nq = 3, K * G
+    pt, rows, positions, _, total, P = flat_step(rng, page)
+    T = len(rows)
+    pool = fused_pool(rng, dev, dtype, L, P, K, page, D, int8)
+    ref = tuple(None if t is None else t.clone() for t in pool)
+    q, k, v = qkv_rows(rng, dev, dtype, T, Nq, K, D, strided)
+    b = qkv_bias(rng, dev, dtype, Nq, K, D) if bias else None
+    pt, rows, positions = on(dev, pt, rows, positions)
+    cos, sin = rope_rows(positions, D, rope)
+    ops.reset_launch_counts()
+    got = ops.rope_write_kv_flat_full(pool[0], 1, q, k, v, cos, sin, pt, rows, positions,
+                                      live(total, dev), b, pool[1])
+    want = ops.rope_write_kv_flat_plain(ref[0], 1, q, k, v, cos, sin, pt, rows, positions,
+                                        live(total, dev), b, ref[1])
+    torch.cuda.synchronize()
+    assert got.shape == (T, Nq, D) and got.is_contiguous() and got.dtype == dtype
+    assert torch.equal(got, want)
+    assert same_pool(pool, ref)
+    key = ops.write_branch(int8, rope=True, bias=bias)
+    assert ops.branch_launch_counts() == {f"write_kv_pages_flat_full[{key}]": 1}
+
+
+@pytest.mark.parametrize("strided", [True, False], ids=["views", "contiguous"])
+@pytest.mark.parametrize("bias", [False, True], ids=["no_bias", "bias"])
+@pytest.mark.parametrize("int8", [False, True], ids=["float_pool", "int8_pool"])
+@pytest.mark.parametrize("dtype,D,K,G,page,rope", FUSED_CASES)
+def test_fused_decode_write_equals_plain(dev, dtype, D, K, G, page, rope, int8, bias, strided):
+    """K4's fused form against its plain version, bit for bit: every row's
+    rotated q, the pool's bytes and scales; pad rows (valid == 0, a garbage
+    page) store nothing."""
+    rng = np.random.default_rng(32)
+    L, Nq = 3, K * G
+    pt, kv_lens, phys, offset, valid, P = decode_step(rng, page, DECODE_LENS)
+    B = len(kv_lens)
+    pool = fused_pool(rng, dev, dtype, L, P, K, page, D, int8)
+    ref = tuple(None if t is None else t.clone() for t in pool)
+    q, k, v = qkv_rows(rng, dev, dtype, B, Nq, K, D, strided)
+    b = qkv_bias(rng, dev, dtype, Nq, K, D) if bias else None
+    phys, offset, valid, positions = on(dev, phys, offset, valid, np.maximum(kv_lens - 1, 0))
+    cos, sin = rope_rows(positions, D, rope)
+    ops.reset_launch_counts()
+    got = ops.rope_write_kv_decode_full(pool[0], 2, q, k, v, cos, sin, phys, offset, valid, b, pool[1])
+    want = ops.rope_write_kv_decode_plain(ref[0], 2, q, k, v, cos, sin, phys, offset, valid, b, ref[1])
+    torch.cuda.synchronize()
+    assert got.shape == (B, Nq, D) and torch.equal(got, want)
+    assert same_pool(pool, ref)
+    key = ops.write_branch(int8, rope=True, bias=bias)
+    assert ops.branch_launch_counts() == {f"write_kv_pages_decode_full[{key}]": 1}
+
+
+@pytest.mark.parametrize("int8", [False, True], ids=["float_pool", "int8_pool"])
+@pytest.mark.parametrize("kind", ["flat", "decode"])
+def test_fused_write_in_a_graph_replays_at_another_live_count(dev, kind, int8):
+    """The fused write captured in a CUDA graph at one live count (flat: the
+    device-side num_live; decode: the rows' valid flags) and replayed, with
+    new inputs copied into the captured tensors, at two others: each replay
+    equals the plain version run at that count, bit for bit."""
+    rng = np.random.default_rng(33)
+    dtype, L, K, G, D, page = torch.bfloat16, 2, 2, 4, 128, 16
+    Nq = K * G
+    if kind == "flat":
+        pt, rows, positions, _, total, P = flat_step(rng, page)
+        N = len(rows)
+        pt, rows, positions = on(dev, pt, rows, positions)
+        count = live(total, dev)
+        addr = (pt, rows, positions, count)
+        kernel, plain = ops.rope_write_kv_flat_full, ops.rope_write_kv_flat_plain
+        counts = (total, 3, total - 5)
+    else:
+        pt, kv_lens, phys, offset, valid, P = decode_step(rng, page, DECODE_LENS)
+        N = len(kv_lens)
+        positions, phys, offset, count = on(dev, np.maximum(kv_lens - 1, 0), phys, offset, valid)
+        addr = (phys, offset, count)
+        kernel, plain = ops.rope_write_kv_decode_full, ops.rope_write_kv_decode_plain
+        counts = tuple(on(dev, valid * m)[0] for m in (1, np.arange(N) % 2, np.zeros(N, np.int32)))
+    pool = fused_pool(rng, dev, dtype, L, P, K, page, D, int8)
+    q, k, v = qkv_rows(rng, dev, dtype, N, Nq, K, D, True)
+    b = qkv_bias(rng, dev, dtype, Nq, K, D)
+    cos, sin = rope_rows(positions, D, "llama3")
+    args = (q, k, v, cos, sin, *addr, b, pool[1])
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        kernel(pool[0], 1, *args)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = kernel(pool[0], 1, *args)
+    for n in counts[1:]:
+        for t in (q, k, v):
+            t.copy_(torch.from_numpy(rng.normal(size=t.shape).astype(np.float32)).to(dev, dtype))
+        if kind == "flat":
+            count.fill_(n)
+        else:
+            count.copy_(n)
+        ref = tuple(None if t is None else t.clone() for t in pool)
+        graph.replay()
+        want = plain(ref[0], 1, *args[:-1], ref[1])
+        torch.cuda.synchronize()
+        assert torch.equal(out, want) and same_pool(pool, ref)
+
+
+def test_fused_write_wrappers_refuse_what_the_kernels_do_not_take(dev):
+    rng = np.random.default_rng(34)
+    pt, rows, positions, _, total, P = flat_step(rng, 16)
+    T = len(rows)
+    pool = torch.zeros((2, P, 2, 16, 256), device=dev, dtype=torch.bfloat16)
+    q, k, v = qkv_rows(rng, dev, torch.bfloat16, T, 4, 2, 128, True)
+    pt, rows, positions = on(dev, pt, rows, positions)
+    cos, sin = rope_rows(positions, 128, "default")
+    n = live(total, dev)
+    flat = lambda *a, **kw: ops.rope_write_kv_flat_full(pool, 0, *a, pt, rows, positions, n, **kw)  # noqa: E731
+    with pytest.raises(ValueError, match="dtype"):
+        flat(q.float(), k, v, cos, sin)
+    with pytest.raises(ValueError, match="contiguous"):
+        flat(q.transpose(0, 1).contiguous().transpose(0, 1), k, v, cos, sin)
+    with pytest.raises(ValueError, match="f32"):
+        flat(q, k, v, cos.half(), sin)
+    with pytest.raises(ValueError, match=r"\[N, D/2\]"):
+        flat(q, k, v, cos[:, :32], sin)
+    with pytest.raises(ValueError, match="bq"):
+        flat(q, k, v, cos, sin, bias=(torch.zeros(4 * 128, device=dev), k[0].flatten(), k[0].flatten()))
+    with pytest.raises(ValueError, match="must be"):
+        flat(q, k[:, :1], v, cos, sin)
+    with pytest.raises(ValueError, match="head_dim"):
+        ops.rope_write_kv_flat_full(pool[..., :96], 0, q[..., :48], k[..., :48], v[..., :48],
+                                    cos[:, :24].contiguous(), sin[:, :24].contiguous(), pt, rows,
+                                    positions, n)
+    with pytest.raises(ValueError, match="layer"):
+        ops.rope_write_kv_flat_full(pool, 2, q, k, v, cos, sin, pt, rows, positions, n)
+    idx = torch.zeros((T,), device=dev, dtype=torch.int32)
+    with pytest.raises(ValueError, match="int32"):
+        ops.rope_write_kv_decode_full(pool, 0, q, k, v, cos, sin, idx, idx, idx.bool())
+    with pytest.raises(ValueError, match="is on cpu"):
+        ops.rope_write_kv_decode_full(pool, 0, q, k, v, cos, sin, idx.cpu(), idx, idx)
+    data = torch.zeros((2, P, 2, 16, 256), device=dev, dtype=torch.int8)
+    with pytest.raises(ValueError, match="scales"):
+        ops.rope_write_kv_decode_full(data, 0, q, k, v, cos, sin, idx, idx, idx,
+                                      scales=torch.ones((2, P, 2, 16, 2), device=dev).half())

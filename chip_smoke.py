@@ -96,13 +96,29 @@ gpt-oss-20b (random weights from a seed):
                engine with windows of 8, and on the int8 pool with windows
                of 8 (window, sinks and int8 in one kernel call; its tokens
                beside the flat bf16 run's, and the first-token witness).
+    The SWA ring (``CacheConfig.swa_ring``) on gpt-oss-20b:
+    ``ring_kernels`` K1' on the mixed flat step and K3' on the decode
+               step (window 128, sinks, bf16 and int8 pools) through a ring
+               pool holding each row's latest pages and its ring-view
+               table, bit-equal to the call through the full table;
+    ``engine`` each of the three layouts on the 8 requests and one of
+               8,192 tokens (7 ring wraps), without the ring and then with
+               it, as in 5 (both pools checked at replays): tokens and
+               logprobs equal;
+    ``hybrid_prefix`` a 4,096-token prompt twice: the ring engine's
+               repeat seeds its ring from a retained section (one hit,
+               4,080 tokens skipped) and equals the no-ring engine's
+               repeat, as the cold runs equal each other;
+    ``capacity`` 12 requests of 16,384 + 128 tokens at equal KV bytes
+               (3.27 GB) with and without the ring: more sequences must
+               decode at once with it.
 12. ``serve``  ``python -m llmd_tpu_torch.serve`` answering three
                ``/v1/completions`` requests (one streamed), then a second
                server with ``--no-unified-step --decode-window 4`` whose
                streamed completion carries one chunk per token and the
                unstreamed completion's text, then deepseek-v2-lite,
-               gpt-oss-20b and llama-3-8b with ``--kv-cache-dtype int8``
-               servers. Each server runs ``warmup`` (its decode steps are
+               gpt-oss-20b (and again with ``--kv-swa-ring``) and
+               llama-3-8b with ``--kv-cache-dtype int8`` servers. Each server runs ``warmup`` (its decode steps are
                graph replays) before it answers.
 
 Each phase prints one JSON line. Any failure raises and exits non-zero
@@ -839,6 +855,11 @@ def pools_equal(a, b) -> bool:
     return all(torch.equal(x, y) for x, y in zip(pool_parts(a), pool_parts(b)))
 
 
+def runner_pools(runner) -> tuple:
+    """A runner's pools: the main one, and under the ring the ring pool."""
+    return (runner.kv_cache,) if runner.kv_swa is None else (runner.kv_cache, runner.kv_swa)
+
+
 def randomize_pool(pool, seed: int) -> None:
     """Seeded random values in every slot of an engine's pool (the int8
     pool's scales on the f16 grid), so that a stray write shows. The
@@ -861,7 +882,8 @@ class GraphWatch:
     under ``torch.cuda.set_sync_debug_mode("error")``. At the first replay
     it runs the key's body eagerly on the same inputs, from a copy of the
     pool taken before, puts the pool back, replays, and holds the replay to
-    the eager run: tokens, logprobs and pool bytes equal. ``quiet`` is true
+    the eager run: tokens, logprobs and pool bytes (the ring pool's too)
+    equal. ``quiet`` is true
     while a program is prepared or compared: the forwards run then are not
     the engine's steps."""
 
@@ -887,19 +909,20 @@ class GraphWatch:
     def replay(self, key, arrays):
         from llmd_tpu_torch import ops
 
-        pool = self.runner.kv_cache
+        pools = runner_pools(self.runner)
         check = self.compared is None
         if check:
-            saved, state = clone_pool(pool), ops.launch_state()
+            saved, state = [clone_pool(p) for p in pools], ops.launch_state()
             self.quiet = True
             try:
                 want = self.progs.eager(key, arrays).clone()
             finally:
                 self.quiet = False
-            want_pool = clone_pool(pool)
+            want_pools = [clone_pool(p) for p in pools]
             ops.set_launch_state(state)
-            for t, src in zip(pool_parts(pool), pool_parts(saved)):
-                t.copy_(src)
+            for pool, copy in zip(pools, saved):
+                for t, src in zip(pool_parts(pool), pool_parts(copy)):
+                    t.copy_(src)
             del saved
         torch.cuda.set_sync_debug_mode("error")
         try:
@@ -910,8 +933,9 @@ class GraphWatch:
         if check:
             torch.cuda.synchronize()
             self.compared = {"key": list(key), "tokens_and_logprobs_equal": torch.equal(out, want),
-                             "pool_bytes_equal": pools_equal(pool, want_pool)}
-            del want_pool
+                             "pool_bytes_equal": all(pools_equal(a, b) for a, b in zip(pools, want_pools)),
+                             "pools": len(pools)}
+            del want_pools
             if not (self.compared["tokens_and_logprobs_equal"] and self.compared["pool_bytes_equal"]):
                 raise AssertionError(f"a graph replay differs from its eager body: {self.compared}")
         return out
@@ -936,8 +960,10 @@ def warm_engine(eng, info: dict, watch: GraphWatch, seed: int) -> None:
     device memory it kept (the graph pool and static inputs), measured
     after the engines of earlier phases, which their runners and programs
     keep in reference cycles, are collected."""
-    randomize_pool(eng.runner.kv_cache, seed)
-    before = clone_pool(eng.runner.kv_cache)
+    pools = runner_pools(eng.runner)
+    for i, pool in enumerate(pools):
+        randomize_pool(pool, seed + i)
+    before = [clone_pool(p) for p in pools]
     gc.collect()
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
@@ -948,7 +974,7 @@ def warm_engine(eng, info: dict, watch: GraphWatch, seed: int) -> None:
     info.update(warmup_graphs=n, warmup_s=time.perf_counter() - t0)
     torch.cuda.empty_cache()
     info["warmup_kept_bytes"] = torch.cuda.memory_reserved() - reserved
-    unchanged = pools_equal(eng.runner.kv_cache, before)
+    unchanged = all(pools_equal(a, b) for a, b in zip(pools, before))
     del before
     if n != len(eng.runner.warm_keys()) or set(watch.captured) != set(eng.runner.warm_keys()):
         raise AssertionError(f"warmup captured {watch.captured}, want {eng.runner.warm_keys()}")
@@ -1023,8 +1049,15 @@ def engine_prompts(cfg) -> list[list[int]]:
     return [torch.randint(3, cfg.vocab_size, (n,), generator=gen).tolist() for n in lengths]
 
 
-def engine_phase(info: dict, params: dict, model: str = MODEL,
-                 kv_dtype: str = "bfloat16") -> tuple[dict, dict, list]:
+def ring_prompts(cfg) -> list[list[int]]:
+    """The SWA ring phases' prompts: ``engine_prompts`` and one of 8,192
+    tokens, which wraps gpt-oss-20b's 73-page (1,168-token) ring 7 times."""
+    gen = torch.Generator().manual_seed(12)
+    return engine_prompts(cfg) + [torch.randint(3, cfg.vocab_size, (8192,), generator=gen).tolist()]
+
+
+def engine_phase(info: dict, params: dict, model: str = MODEL, kv_dtype: str = "bfloat16",
+                 prompts: list | None = None, swa_ring: bool = False) -> tuple[dict, dict, list, list]:
     """``LLMEngine`` at full width serving 8 greedy requests in the step
     layout ``info["layout"]`` names: on the flat step; as the split engine
     with fused decode windows of 8; or on the flat step with windows of 8
@@ -1039,7 +1072,10 @@ def engine_phase(info: dict, params: dict, model: str = MODEL,
     ("error")``, the first replay held to its eager body), whose forwards
     count from its key; each graph's launches a replay are checked per
     branch; ``warmup`` runs first and must leave the pool as it was.
-    Returns (launch counts, branch launch counts, the requests' tokens)."""
+    ``prompts`` replaces ``engine_prompts`` (the 8th request repeats the
+    4th prompt either way); ``swa_ring`` puts the sliding layers in the
+    ring pool (``CacheConfig.swa_ring``). Returns (launch counts, branch
+    launch counts, the requests' tokens, their logprobs)."""
     from llmd_tpu_torch import ops
     from llmd_tpu_torch.config import CacheConfig, EngineConfig, SchedulerConfig
     from llmd_tpu_torch.engine import LLMEngine, SamplingParams
@@ -1051,11 +1087,13 @@ def engine_phase(info: dict, params: dict, model: str = MODEL,
     windowed = "decode_window" in layout
     config = EngineConfig(
         model=cfg,
-        cache=CacheConfig(page_size=16, num_blocks=2048, dtype=kv_dtype),
+        cache=CacheConfig(page_size=16, num_blocks=2048, dtype=kv_dtype, swa_ring=swa_ring),
         scheduler=SchedulerConfig(max_num_seqs=64, max_num_batched_tokens=1024, **layout),
         seed=0,
     )
     eng = LLMEngine(config, params=params, device="cuda")
+    if swa_ring != (eng.runner.kv_swa is not None):
+        raise AssertionError(f"swa_ring={swa_ring}, but the runner's ring pool is {eng.runner.kv_swa}")
     watch = GraphWatch(eng.runner)
     warm_engine(eng, info, watch, seed=17)
     k_steps: list[int] = []  # iterations of each decode window dispatched
@@ -1065,11 +1103,11 @@ def engine_phase(info: dict, params: dict, model: str = MODEL,
     dispatch_flat = eng.runner.dispatch_unified
     forward = runner_mod.llama.forward_hidden
 
-    def logged_forward(p, kv_cache, inp, c):
+    def logged_forward(p, kv_cache, inp, c, *swa):
         if not watch.quiet:
             forwards.append("flat" if inp.token_rows is not None else (
                 "q1" if inp.token_ids.shape[1] == 1 else "prefill"))
-        return forward(p, kv_cache, inp, c)
+        return forward(p, kv_cache, inp, c, *swa)
 
     def logged_dispatch(staged):
         k_steps.append(staged.k)
@@ -1082,10 +1120,12 @@ def engine_phase(info: dict, params: dict, model: str = MODEL,
     eng.runner.dispatch_staged_decode = logged_dispatch
     eng.runner.dispatch_unified = logged_flat
     runner_mod.llama.forward_hidden = logged_forward
-    prompts = engine_prompts(cfg)
-    sp = SamplingParams(temperature=0.0, max_tokens=32, ignore_eos=True)
+    prompts = prompts or engine_prompts(cfg)
+    sp = SamplingParams(temperature=0.0, max_tokens=32, ignore_eos=True, logprobs=True)
     ops.reset_launch_counts()
     tokens: dict[str, list[int]] = {}
+    requests = {}
+    ring_usage = []
     ttft: dict[str, float] = {}
     last: dict[str, float] = {}
     cached: dict[str, int] = {}
@@ -1099,7 +1139,9 @@ def engine_phase(info: dict, params: dict, model: str = MODEL,
             for wave in (prompts, [prompts[3]]):
                 tw = time.perf_counter()
                 for p in wave:
-                    tokens[eng.add_request(p, sp)] = []
+                    rid = eng.add_request(p, sp)
+                    tokens[rid] = []
+                    requests[rid] = next(r for r in eng.scheduler.waiting if r.request_id == rid)
                 while eng.has_work():
                     live0, ts = eng.runner.live_tokens_total, time.perf_counter()
                     windows0, dispatches0 = len(k_steps), eng.stats.step_dispatches_total
@@ -1112,6 +1154,7 @@ def engine_phase(info: dict, params: dict, model: str = MODEL,
                         cached[out.request_id] = out.num_cached_tokens
                     ms = (time.perf_counter() - ts) * 1e3
                     step_log.append((eng.runner.live_tokens_total - live0, ms))
+                    ring_usage.append(eng.stats.swa_ring_usage)
                     if len(k_steps) > windows0 and eng.stats.step_dispatches_total == dispatches0 + 1:
                         window_ms.append(ms / k_steps[-1])
         torch.cuda.synchronize()
@@ -1137,8 +1180,14 @@ def engine_phase(info: dict, params: dict, model: str = MODEL,
         unified_steps=st.unified_steps_total, readbacks=len(readbacks),
         forwards={k: forwards.count(k) for k in ("flat", "q1", "prefill")},
         eager_forwards=eager_forwards, graphs=watch.summary(),
-        launches=counts, branch_launches=branches,
+        launches=counts, branch_launches=branches, kv_bytes=eng.runner.kv_bytes(),
     )
+    if swa_ring:
+        spec = eng.runner.swa
+        info.update(swa_ring_pages=st.swa_ring_pages, ring_pages_per_seq=spec.ring_pages,
+                    swa_ring_usage_max=max(ring_usage), swa_section_hits=st.swa_section_hits,
+                    swa_section_captures=st.swa_section_captures,
+                    pool_planes=[len(spec.full_layers), len(spec.swa_layers)])
     # Every decode-only step was one graph replay: each decode window, and
     # each flat step that held no prefill.
     window_replays = sum(n for key, n in watch.replays.items() if key[0] == "window")
@@ -1198,7 +1247,7 @@ def engine_phase(info: dict, params: dict, model: str = MODEL,
     if branches != want_b:
         raise AssertionError(f"branch launch counts {branches}, want {want_b}")
     del eng, watch
-    return counts, branches, [tokens[r] for r in rids]
+    return counts, branches, [tokens[r] for r in rids], [requests[r].output_logprobs for r in rids]
 
 
 def layouts_phase(info: dict) -> None:
@@ -2334,6 +2383,238 @@ def oss_forward_phase(info: dict, params: dict) -> None:
     torch.cuda.empty_cache()
 
 
+OSS_LAYOUTS = (("flat step", "bfloat16"), ("split engine, decode_window 8", "bfloat16"),
+               ("flat step, decode_window 8", "int8"))
+
+
+def ring_copy(pool, pt, lens, R: int, page: int):
+    """The ring pool and ring-view table a ring engine would hold for rows
+    of ``lens`` tokens written through ``pt`` (layer 0 of ``pool``, a
+    tensor or the int8 pair): row r's ring is R pages of its own, and
+    logical page l lands at ``ring[l % R]``; the latest R pages are the
+    ones a ring holds."""
+    B, dev = pt.shape[0], pt.device
+    ring_pt = (torch.arange(B, device=dev)[:, None] * R
+               + torch.arange(pt.shape[1], device=dev)[None] % R).to(pt.dtype)
+    parts = [torch.zeros((1, B * R, *t.shape[2:]), dtype=t.dtype, device=dev)
+             for t in pool_parts(pool)]
+    for r in range(B):
+        n = -(-int(lens[r]) // page)
+        for lp in range(max(0, n - R), n):
+            for dst, src in zip(parts, pool_parts(pool)):
+                dst[0, r * R + lp % R] = src[0, pt[r, lp]]
+    return (tuple(parts) if isinstance(pool, tuple) else parts[0]), ring_pt
+
+
+def ring_kernels_phase(info: dict) -> None:
+    """K1' on the mixed flat step and K3' on the decode step at gpt-oss-20b
+    shapes, window 128 with sinks, on a bf16 and an int8 pool: the call
+    through a ring pool (each row's latest R pages at ``ring[l % R]``) and
+    its ring-view table gives the same bits as the call through the full
+    table. R covers a row's window and its chunk, as ``SwaRingSpec``
+    sizes it."""
+    from llmd_tpu_torch import ops
+    from llmd_tpu_torch.models.registry import get_model_config
+
+    dev, page = torch.device("cuda"), 16
+    cfg = get_model_config(OSS_MODEL)
+    K, H, D, window = cfg.num_kv_heads, cfg.num_heads, cfg.head_dim, cfg.sliding_window
+    gen = torch.Generator().manual_seed(909)
+    g = torch.Generator(device=dev).manual_seed(91)
+    max_pages = -(-cfg.max_model_len // page)
+    decode_ctx = torch.randint(1024, 4097, (32,), generator=gen).tolist()
+    flat = mixed_step(cfg, page, max_pages, [(0, 512), (1024, 256), (2000, 128)], decode_ctx, gen, dev)
+    dec = decode_batch(cfg, page, 1024, 4096, gen, dev)
+    sinks = torch.randn((H,), generator=g, device=dev)
+    for kind, step in (("flat", flat), ("decode", dec)):
+        if kind == "flat":
+            lens = [p0 + w for p0, w in step["rows_spec"]]
+            R = -(-(window + max(w for _, w in step["rows_spec"])) // page) + 1
+            rows = step["T"]
+        else:
+            lens = step["ctx"] + [0] * (step["B"] - step["n_live"])
+            R = -(-(window + 1) // page) + 1
+            rows = step["B"]
+        q = torch.randn((rows, 1, H, D), generator=g, device=dev, dtype=torch.bfloat16)
+        for pool_kind in ("bf16", "int8"):
+            shape = (1, step["num_pages"], K, page, 2 * D)
+            pool = (random_int8_pool(shape, g, dev) if pool_kind == "int8"
+                    else torch.randn(shape, generator=g, device=dev, dtype=torch.bfloat16))
+            ring, ring_pt = ring_copy(pool, step["page_table"], lens, R, page)
+            outs = []
+            for pl, pt in ((pool, step["page_table"]), (ring, ring_pt)):
+                data, scales = pl if isinstance(pl, tuple) else (pl, None)
+                if kind == "flat":
+                    outs.append(ops.flat_paged_attention_full(
+                        q, data, 0, step["rows"], pt, step["kv_lens"], None, window, sinks, scales))
+                else:
+                    outs.append(ops.decode_paged_attention_full(
+                        q, data, 0, pt, step["kv_lens"], None, window, sinks, scales))
+            torch.cuda.synchronize()
+            equal = torch.equal(*outs)
+            info[f"{kind}[{pool_kind}+window+sinks]"] = {"ring_pages": R, "bit_equal": equal}
+            if not equal:
+                diff = (outs[0].float() - outs[1].float()).abs().max().item()
+                raise AssertionError(f"{kind} attention through the ring table differs: {diff}")
+            del pool, ring, outs
+    torch.cuda.empty_cache()
+
+
+def ring_engine_phases(params: dict, layout: str, kv_dtype: str) -> None:
+    """gpt-oss-20b's engine in ``layout`` on ``ring_prompts`` (the engine
+    phases' 8 requests and one of 8,192 tokens), without the ring and then
+    with it, each an ``engine_phase`` (warmup, graph replays held to their
+    eager bodies, launches a kernel branch). The ring run's tokens and
+    logprobs must equal the no-ring run's: both schedule alike (the chunk
+    cap is the budget) and the kernels read the same logical pages."""
+    from llmd_tpu_torch.models.registry import get_model_config
+
+    prompts = ring_prompts(get_model_config(OSS_MODEL))
+    runs = {}
+    for ring in (False, True):
+        with phase("engine", {"model": OSS_MODEL, "layout": layout, "kv_cache_dtype": kv_dtype,
+                              "kv_swa_ring": ring, "prompts": len(prompts) + 1}) as info:
+            _, _, tokens, logprobs = engine_phase(info, params, OSS_MODEL, kv_dtype,
+                                                  prompts=prompts, swa_ring=ring)
+            runs[ring] = (tokens, logprobs, info["kv_bytes"])
+            if ring:
+                info.update(tokens_equal_no_ring=tokens == runs[False][0],
+                            logprobs_equal_no_ring=logprobs == runs[False][1],
+                            kv_bytes_no_ring=runs[False][2])
+                if not (info["tokens_equal_no_ring"] and info["logprobs_equal_no_ring"]):
+                    compare_greedy(info, tokens, runs[False][0], gate=False)
+                    raise AssertionError(f"the ring engine's stream differs from the no-ring engine's: "
+                                         f"{info['agreeing_leading_tokens']}")
+        gc.collect()
+        torch.cuda.empty_cache()
+
+
+def hybrid_prefix_phase(info: dict, params: dict) -> None:
+    """A 4,096-token prompt, then the same prompt again, on gpt-oss-20b's
+    ring engine and on its engine without the ring (flat step). The ring
+    engine's repeat must seed its ring from the section it retained (one
+    hit, n_pre = 255 pages skipped: 4,080 tokens); the no-ring engine's
+    repeat takes the same 255 pages from its prefix cache, so both repeats
+    prefill the same last 16 tokens: their tokens and logprobs must be
+    equal, as must the two cold runs'. A repeat's bf16 arithmetic (a
+    16-token chunk) is not the cold run's (1,024-token chunks), so whether
+    a repeat's tokens equal its cold run's is reported."""
+    from llmd_tpu_torch.config import CacheConfig, EngineConfig, SchedulerConfig
+    from llmd_tpu_torch.engine import LLMEngine, SamplingParams
+    from llmd_tpu_torch.models.registry import get_model_config
+
+    cfg = get_model_config(OSS_MODEL)
+    prompt = torch.randint(3, cfg.vocab_size, (4096,), generator=torch.Generator().manual_seed(13)).tolist()
+    sp = SamplingParams(temperature=0.0, max_tokens=32, ignore_eos=True, logprobs=True)
+    runs = {}
+    for ring in (False, True):
+        eng = LLMEngine(EngineConfig(
+            model=cfg, cache=CacheConfig(page_size=16, num_blocks=2048, swa_ring=ring),
+            scheduler=SchedulerConfig(max_num_seqs=64, max_num_batched_tokens=1024), seed=0,
+        ), params=params, device="cuda")
+        out = []
+        for _ in range(2):
+            rid = eng.add_request(prompt, sp)
+            req = next(r for r in eng.scheduler.waiting if r.request_id == rid)
+            t0 = time.perf_counter()
+            while eng.has_work():
+                eng.step()
+            torch.cuda.synchronize()
+            out.append((req.output_token_ids, req.output_logprobs, req.num_cached_tokens,
+                        time.perf_counter() - t0))
+        runs[ring] = out
+        name = "ring" if ring else "no_ring"
+        info[name] = {"cached_tokens": [o[2] for o in out], "seconds": [o[3] for o in out],
+                      "repeat_tokens_equal_cold": out[1][0] == out[0][0],
+                      "kv_bytes": eng.runner.kv_bytes()}
+        if ring:
+            st = eng.stats
+            n_pre = eng.runner.swa.section(len(prompt), 16)[0]
+            info[name].update(swa_section_hits=st.swa_section_hits,
+                              swa_section_captures=st.swa_section_captures, n_pre=n_pre)
+            if st.swa_section_hits != 1 or st.swa_section_captures < 1 or out[1][2] != n_pre * 16:
+                raise AssertionError(f"hybrid hit: {info[name]}")
+        elif out[1][2] != 4080:
+            raise AssertionError(f"the no-ring repeat cached {out[1][2]} tokens, not 4,080")
+        del eng
+        gc.collect()
+        torch.cuda.empty_cache()
+    for i, what in enumerate(("cold", "repeat")):
+        equal = runs[True][i][:2] == runs[False][i][:2]
+        info[f"{what}_ring_equals_no_ring"] = equal
+        if not equal:
+            raise AssertionError(f"the ring engine's {what} run differs from the no-ring engine's")
+
+
+def capacity_phase(info: dict, params: dict) -> None:
+    """Sequences decoding at once at equal KV bytes: 12 requests of 16,384
+    prompt and 128 output tokens (greedy), max_num_seqs 16, budget 1,024,
+    page 16, on gpt-oss-20b's flat step. Without the ring: 4,160 pages of
+    24 layers (3.27 GB, room for 4 such sequences). With it: the same
+    bytes as 16 rings of 73 pages plus the sections' 72, 12 layers, and a
+    12-layer main pool of the rest (7,080 pages: room for 6). A sequence
+    decodes 128 steps while later prompts prefill 16 steps each, so the
+    pool, not the schedule, caps the sequences decoding at once. Gates:
+    the two engines' KV bytes equal, and more sequences decoding at once
+    with the ring. Streams are reported, not gated: preemption recomputes
+    with other batches."""
+    from llmd_tpu_torch.config import CacheConfig, EngineConfig, SchedulerConfig, swa_ring_spec
+    from llmd_tpu_torch.engine import LLMEngine, SamplingParams
+    from llmd_tpu_torch.models.registry import get_model_config
+
+    cfg = get_model_config(OSS_MODEL)
+    sched = SchedulerConfig(max_num_seqs=16, max_num_batched_tokens=1024)
+    spec = swa_ring_spec(cfg, CacheConfig(page_size=16, swa_ring=True), sched)
+    rings = sched.max_num_seqs * spec.ring_pages
+    retention = 8 * spec.max_section_pages(16)
+    full, swa = len(spec.full_layers), len(spec.swa_layers)
+    main_pages = (4160 * cfg.num_layers - (rings + retention) * swa) // full
+    gen = torch.Generator().manual_seed(14)
+    prompts = [torch.randint(3, cfg.vocab_size, (16384,), generator=gen).tolist() for _ in range(12)]
+    sp = SamplingParams(temperature=0.0, max_tokens=128, ignore_eos=True)
+    res = {}
+    for ring in (False, True):
+        cache = (CacheConfig(page_size=16, num_blocks=main_pages, swa_ring=True, swa_blocks=rings)
+                 if ring else CacheConfig(page_size=16, num_blocks=4160))
+        eng = LLMEngine(EngineConfig(model=cfg, cache=cache, scheduler=sched, seed=0),
+                        params=params, device="cuda")
+        decoding = []
+        schedule = eng.scheduler.schedule
+
+        def logged_schedule():
+            batch = schedule()
+            decoding.append(len(batch.decodes))
+            return batch
+
+        eng.scheduler.schedule = logged_schedule
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        toks = eng.generate(prompts, sp)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        out_tokens = sum(len(t) for t in toks.values())
+        res[ring] = list(toks.values())
+        entry = {"num_blocks": cache.num_blocks, "kv_bytes": eng.runner.kv_bytes(),
+                 "max_decoding_at_once": max(decoding), "preemptions": eng.scheduler.num_preemptions,
+                 "steps": eng.stats.engine_steps_total, "wall_s": wall,
+                 "output_tok_per_s": out_tokens / wall, "output_tokens": out_tokens}
+        if ring:
+            entry.update(swa_ring_pages=eng.stats.swa_ring_pages, ring_pages_per_seq=spec.ring_pages)
+        info["ring" if ring else "no_ring"] = entry
+        if out_tokens != 12 * 128:
+            raise AssertionError(f"{out_tokens} output tokens, want {12 * 128}")
+        del eng, toks
+        gc.collect()
+        torch.cuda.empty_cache()
+    compare_greedy(info, res[True], res[False], gate=False)
+    a, b = info["ring"], info["no_ring"]
+    if a["kv_bytes"] != b["kv_bytes"]:
+        raise AssertionError(f"KV bytes {a['kv_bytes']} with the ring, {b['kv_bytes']} without")
+    if a["max_decoding_at_once"] <= b["max_decoding_at_once"]:
+        raise AssertionError(f"{a['max_decoding_at_once']} sequences decoding at once with the ring, "
+                             f"{b['max_decoding_at_once']} without")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false", file=sys.stderr)
@@ -2376,13 +2657,13 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     with phase("engine", {"layout": "flat step"}) as info:
-        flat_counts, flat_branches, _ = engine_phase(info, params)
+        flat_counts, flat_branches, _, _ = engine_phase(info, params)
     with phase("engine", {"layout": "split engine, decode_window 8"}) as info:
-        window_counts, window_branches, _ = engine_phase(info, params)
+        window_counts, window_branches, _, _ = engine_phase(info, params)
     with phase("engine", {"layout": "flat step, decode_window 8"}) as info:
-        _, _, bf16_tokens = engine_phase(info, params)
+        _, _, bf16_tokens, _ = engine_phase(info, params)
     with phase("engine", {"layout": "flat step, decode_window 8", "kv_cache_dtype": "int8"}) as info:
-        _, int8_branches, int8_tokens = engine_phase(info, params, kv_dtype="int8")
+        _, int8_branches, int8_tokens, _ = engine_phase(info, params, kv_dtype="int8")
         compare_greedy(info, int8_tokens, bf16_tokens, gate=True)
         first_token_witness(info, params, MODEL, int8_tokens, bf16_tokens)
     del params
@@ -2419,16 +2700,25 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     oss_counts, oss_runs, oss_tokens = {}, {}, {}
-    for layout, kv_dtype in (("flat step", "bfloat16"), ("split engine, decode_window 8", "bfloat16"),
-                             ("flat step, decode_window 8", "int8")):
+    for layout, kv_dtype in OSS_LAYOUTS:
         with phase("engine", {"model": OSS_MODEL, "layout": layout, "kv_cache_dtype": kv_dtype}) as info:
-            oss_counts[layout], oss_runs[layout], oss_tokens[layout] = engine_phase(
+            oss_counts[layout], oss_runs[layout], oss_tokens[layout], _ = engine_phase(
                 info, params, OSS_MODEL, kv_dtype)
             if kv_dtype == "int8":
                 # Reported, not gated: the witness below is the check.
                 compare_greedy(info, oss_tokens[layout], oss_tokens["flat step"], gate=False)
                 first_token_witness(info, params, OSS_MODEL, oss_tokens[layout],
                                     oss_tokens["flat step"])
+    gc.collect()
+    torch.cuda.empty_cache()
+    with phase("ring_kernels", {"model": OSS_MODEL}) as info:
+        ring_kernels_phase(info)
+    for layout, kv_dtype in OSS_LAYOUTS:
+        ring_engine_phases(params, layout, kv_dtype)
+    with phase("hybrid_prefix", {"model": OSS_MODEL, "layout": "flat step"}) as info:
+        hybrid_prefix_phase(info, params)
+    with phase("capacity", {"model": OSS_MODEL, "layout": "flat step"}) as info:
+        capacity_phase(info, params)
     del params
     gc.collect()
     torch.cuda.empty_cache()
@@ -2440,6 +2730,8 @@ def main() -> int:
         serve_phase(info, [], DS_MODEL)
     with phase("serve", {"model": OSS_MODEL, "layout": "flat step"}) as info:
         serve_phase(info, [], OSS_MODEL)
+    with phase("serve", {"model": OSS_MODEL, "layout": "flat step", "kv_swa_ring": True}) as info:
+        serve_phase(info, ["--kv-swa-ring"], OSS_MODEL)
     with phase("serve", {"layout": "flat step", "kv_cache_dtype": "int8"}) as info:
         serve_phase(info, ["--kv-cache-dtype", "int8"])
     # Each kernel's launches come from the engine run that is its main path:

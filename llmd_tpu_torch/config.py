@@ -168,12 +168,27 @@ class CacheConfig:
     ``dtype="int8"`` is the quantized pool (``ops/quant_kv.py``): the pool
     is a pair (int8 data of that shape, f32 scales ``[L, num_blocks, K,
     page_size, 2]``, one per row and K|V half, valued on the f16 grid).
-    It halves the bytes a decode step reads; MLA pools refuse it."""
+    It halves the bytes a decode step reads; MLA pools refuse it.
+    ``swa_ring`` adds a second pool for the sliding layers (``swa_ring``
+    below, ``SwaRingSpec``): the main pool then holds the full layers."""
 
     page_size: int = 16
     num_blocks: int = 512
     dtype: str = "bfloat16"
     enable_prefix_caching: bool = True
+    # The sliding-window ring: a model's sliding layers move to a second,
+    # smaller pool where each sequence holds a fixed ring of pages reused
+    # circularly (``swa_ring_spec``), while its full layers keep this
+    # pool; about half the KV bytes of a long sequence on gpt-oss-class
+    # models. Prefix caching becomes hybrid: a hit is taken only where a
+    # retained sliding-window section can seed the fresh ring.
+    swa_ring: bool = False
+    # Sections retained for hybrid prefix hits under the ring (each about
+    # window / page + 1 ring-pool pages, captured when a prompt completes);
+    # 0 retains none, and the ring engine then turns prefix caching off.
+    swa_section_cache: int = 8
+    # Ring-pool pages; 0 sizes it as max_num_seqs rings.
+    swa_blocks: int = 0
 
     @property
     def quantized(self) -> bool:
@@ -223,6 +238,81 @@ class EngineConfig:
     scheduler: SchedulerConfig = dataclasses.field(default_factory=SchedulerConfig)
     # Seed of the random weights and of the engine's sampling stream.
     seed: int = 0
+
+
+@dataclasses.dataclass(frozen=True)
+class SwaRingSpec:
+    """Geometry of the sliding-window ring pool.
+
+    ``ring_pages`` (R) is a sequence's ring length. Within one engine step
+    a sequence's sliding layers must hold every position of ``[first query
+    - window, last write]`` at once (the step writes its whole chunk
+    before attention reads it): at most ``window + chunk`` tokens, so
+    ``R = ceil((window + chunk) / page) + 1`` (the 1 for a span that
+    straddles a page). Older logical pages alias onto overwritten ring
+    slots, and they are the pages the attention kernels' window never
+    reads."""
+
+    windows: tuple[int, ...]      # per layer (0 = full attention)
+    full_layers: tuple[int, ...]  # layer ids on the main pool
+    swa_layers: tuple[int, ...]   # layer ids on the ring pool
+    ring_pages: int               # R
+    num_swa_blocks: int           # ring-pool pages
+    # The prefill chunk cap a sequence keeps under the ring (R is sized
+    # for it; a finer chunk is always correct).
+    chunk_tokens: int
+
+    def section(self, prompt_len: int, page_size: int) -> tuple[int, int, int]:
+        """A prompt's sliding-window section: (n_pre, s0, count). ``n_pre``
+        is the full pages a hit may skip (never the whole prompt: the last
+        token is computed for its logits); the section is logical pages
+        ``[s0, n_pre)``, the window before the continuation point."""
+        n_pre = max(0, (prompt_len - 1) // page_size)
+        wmax = max(self.windows[i] for i in self.swa_layers)
+        s0 = max(0, (n_pre * page_size - wmax) // page_size)
+        return n_pre, s0, n_pre - s0
+
+    def max_section_pages(self, page_size: int) -> int:
+        """The most pages a section holds: the window, plus one page a
+        span may straddle."""
+        wmax = max(self.windows[i] for i in self.swa_layers)
+        return -(-wmax // page_size) + 1
+
+
+# A sequence's prefill chunk cap under the ring, whatever the step's token
+# budget: it bounds the ring's length.
+_SWA_RING_CHUNK = 2048
+
+
+def swa_ring_spec(
+    model: ModelConfig, cache: CacheConfig, sched: SchedulerConfig
+) -> SwaRingSpec | None:
+    """The ring's geometry, or None where ``swa_ring`` changes nothing: off,
+    no sliding layer, MLA, or a ring as long as the full page table. The
+    chunk term is the JAX package's without its speculative-decoding term:
+    the port has no speculative decoding, so a step writes at most the
+    budget's chunk or a decode window a row."""
+    if not cache.swa_ring or model.sliding_window <= 0 or model.is_mla:
+        return None
+    windows = model.layer_windows
+    swa = tuple(i for i, w in enumerate(windows) if w > 0)
+    if not swa:
+        return None
+    full = tuple(i for i, w in enumerate(windows) if w == 0)
+    wmax = max(windows[i] for i in swa)
+    chunk = max(min(_SWA_RING_CHUNK, sched.max_num_batched_tokens), sched.decode_window)
+    ring = math.ceil((wmax + chunk) / cache.page_size) + 1
+    if ring >= cache.max_pages_per_seq(model.max_model_len):
+        return None
+    if cache.swa_blocks and cache.swa_blocks < ring:
+        # A pool smaller than one ring could admit no sequence: admission
+        # would wait forever.
+        raise ValueError(
+            f"cache.swa_blocks={cache.swa_blocks} is smaller than one "
+            f"ring ({ring} pages); no sequence could ever be admitted"
+        )
+    blocks = cache.swa_blocks or sched.max_num_seqs * ring
+    return SwaRingSpec(windows, full, swa, ring, blocks, chunk)
 
 
 def tiny_model_config(**overrides: Any) -> ModelConfig:

@@ -9,19 +9,34 @@ prefill chunks go out as Q-bucket groups and its decode rows as one fused
 window of K iterations (the split engine, and every engine whose
 scheduler picked ``K > 1``). Either way the step ends in one host
 readback, and a decode row's output carries up to K tokens.
+
+Under the sliding-window ring (``CacheConfig.swa_ring``; JAX
+``engine.py:390-518``) the engine owns a second page allocator for the
+ring pool and, with prefix caching on, the retained sliding-window
+sections of ``SwaSectionCache``: prefix caching becomes hybrid, a hit is
+taken at arrival and only where a retained section can seed the fresh
+ring (``_try_hybrid_ring_hit``). The JAX engine refuses the ring beside
+tiered offload and without chunked prefill; the port has neither (it
+always chunks), so it has no such refusal.
 """
 
 from __future__ import annotations
 
+import collections
 import dataclasses
 import itertools
+import logging
 import time
 import uuid
 
 import torch
 
-from llmd_tpu_torch.config import EngineConfig
-from llmd_tpu_torch.engine.kv_cache import PageAllocator
+from llmd_tpu_torch.config import EngineConfig, swa_ring_spec
+from llmd_tpu_torch.engine.kv_cache import (
+    NoFreePagesError,
+    PageAllocator,
+    page_hashes_for_tokens,
+)
 from llmd_tpu_torch.engine.request import Request, RequestOutput, SamplingParams
 from llmd_tpu_torch.engine.runner import (
     ModelRunner,
@@ -36,6 +51,95 @@ from llmd_tpu_torch.engine.scheduler import (
 )
 
 
+class SwaSectionCache:
+    """Retained sliding-window sections: hybrid prefix caching under the
+    ring (JAX ``engine.py:47 SwaSectionCache``).
+
+    A ring's pages belong to one sequence, so a bare main-pool prefix hit
+    would skip sliding-layer KV that no longer exists. This cache keeps,
+    for recently prefilled prefixes, a copy of the ring's in-window
+    section (logical pages ``[s0, n_pre)``, ``SwaRingSpec.section``) in
+    ring-pool pages it holds. A repeated prefix seeds a fresh ring from
+    its section on the device and starts at ``n_pre * page`` tokens.
+    LRU by entries and by a page budget; an entry frees its pages when
+    evicted."""
+
+    def __init__(self, swa_allocator: PageAllocator, runner, capacity: int,
+                 page_budget: int) -> None:
+        self._alloc = swa_allocator
+        self._runner = runner
+        self.capacity = capacity
+        # Retention pages are provisioned beside the rings (the engine adds
+        # them to the ring pool); the budget keeps retention from eating
+        # ring capacity even for a moment.
+        self.page_budget = page_budget
+        self.retained_pages = 0
+        # key -> (s0, n_pre, section page ids)
+        self._entries: collections.OrderedDict[bytes, tuple[int, int, list[int]]] = (
+            collections.OrderedDict())
+        self.hits = 0
+        self.captures = 0
+
+    def capture(self, key: bytes, ring_ids: list[int], s0: int, n_pre: int) -> None:
+        """Copy ring slots ``[s0, n_pre)`` into retained pages on the
+        device. Nothing happens if the key is retained already or the ring
+        pool has no room (a ring allocation must never fail because
+        retention holds pages)."""
+        if key in self._entries or n_pre <= s0:
+            return
+        cnt = n_pre - s0
+        while self._entries and (len(self._entries) >= self.capacity
+                                 or self.retained_pages + cnt > self.page_budget):
+            self.evict_one()
+        if self.retained_pages + cnt > self.page_budget:
+            return  # one section larger than the budget
+        try:
+            dst = self._alloc.allocate(cnt)
+        except NoFreePagesError:
+            return
+        R = len(ring_ids)
+        try:
+            self._runner.copy_ring_pages([ring_ids[l % R] for l in range(s0, n_pre)], dst)
+        except BaseException:
+            self._alloc.free(dst)  # or the pool shrinks at every failed capture
+            raise
+        self.retained_pages += cnt
+        self._entries[key] = (s0, n_pre, dst)
+        self.captures += 1
+
+    def evict_one(self) -> bool:
+        """Free the least recently used section (ring pressure: a live
+        sequence's ring outranks idle retention); whether one was freed."""
+        if not self._entries:
+            return False
+        _, (_, _, ids) = self._entries.popitem(last=False)
+        self._alloc.free(ids)
+        self.retained_pages -= len(ids)
+        return True
+
+    def has(self, key: bytes) -> bool:
+        return key in self._entries
+
+    def __len__(self) -> int:
+        return len(self._entries)
+
+    def candidate_lengths(self, n_pre_max: int) -> list[int]:
+        """The retained spans (``n_pre``) a prompt whose own span is
+        ``n_pre_max`` pages can use, longest first: a section captured at
+        k pages holds the window before token k * page, so a longer
+        prompt with that prefix skips its first k pages too."""
+        return sorted({e[1] for e in self._entries.values() if e[1] <= n_pre_max},
+                      reverse=True)
+
+    def seed(self, key: bytes, ring_ids: list[int]) -> None:
+        """Seed a fresh ring from the retained section ``key``."""
+        s0, n_pre, ids = self._entries[key]
+        self._entries.move_to_end(key)
+        R = len(ring_ids)
+        self._runner.copy_ring_pages(ids, [ring_ids[(s0 + i) % R] for i in range(n_pre - s0)])
+        self.hits += 1
+
+
 @dataclasses.dataclass
 class EngineStats:
     """Counters of the engine's work, updated every step."""
@@ -48,6 +152,13 @@ class EngineStats:
     decode_dispatches_total: int = 0
     # Steps that ran as one unified program.
     unified_steps_total: int = 0
+    # The sliding-window ring: the ring pool's used share and pages, and
+    # the retained sections (entries, hybrid hits, captures).
+    swa_ring_usage: float = 0.0
+    swa_ring_pages: int = 0
+    swa_sections: int = 0
+    swa_section_hits: int = 0
+    swa_section_captures: int = 0
 
 
 class LLMEngine:
@@ -59,16 +170,40 @@ class LLMEngine:
     ) -> None:
         self.config = config
         self.device = resolve_device(device)
+        cache = config.cache
+        spec = swa_ring_spec(config.model, cache, config.scheduler)
+        prefix_caching = cache.enable_prefix_caching
+        if spec is not None and cache.swa_section_cache <= 0:
+            # No retained section, so no usable hit: hash nothing.
+            prefix_caching = False
+        retention = 0
+        if spec is not None and prefix_caching:
+            # Retention pages come on top of the rings, in the same pool.
+            retention = cache.swa_section_cache * spec.max_section_pages(cache.page_size)
+            spec = dataclasses.replace(spec, num_swa_blocks=spec.num_swa_blocks + retention)
+        self._swa = spec
         self.allocator = PageAllocator(
-            num_pages=config.cache.num_blocks,
-            page_size=config.cache.page_size,
-            enable_prefix_caching=config.cache.enable_prefix_caching,
+            num_pages=cache.num_blocks,
+            page_size=cache.page_size,
+            enable_prefix_caching=prefix_caching,
+        )
+        self.swa_allocator = None if spec is None else PageAllocator(
+            num_pages=spec.num_swa_blocks, page_size=cache.page_size,
+            enable_prefix_caching=False,
         )
         self.scheduler = EngineScheduler(
-            config.scheduler, config.cache, self.allocator,
-            config.model.max_model_len,
+            config.scheduler, cache, self.allocator, config.model.max_model_len,
+            swa_allocator=self.swa_allocator,
+            swa_ring_pages=spec.ring_pages if spec else 0,
+            swa_chunk_tokens=spec.chunk_tokens if spec else 0,
         )
-        self.runner = ModelRunner(config, params=params, device=self.device)
+        self.runner = ModelRunner(config, params=params, device=self.device, swa_spec=spec)
+        self._swa_sections = None
+        if retention:
+            self._swa_sections = SwaSectionCache(
+                self.swa_allocator, self.runner, cache.swa_section_cache, retention)
+            self.scheduler.prefill_complete_hook = self._capture_swa_section
+            self.scheduler.ring_pressure_hook = self._swa_sections.evict_one
         self.stats = EngineStats()
         self._counter = itertools.count()
 
@@ -90,15 +225,78 @@ class LLMEngine:
                 f"{self.config.model.max_model_len}"
             )
         rid = request_id or f"req-{next(self._counter)}-{uuid.uuid4().hex[:8]}"
-        self.scheduler.add_request(
-            Request(
-                request_id=rid,
-                prompt_token_ids=list(prompt_token_ids),
-                sampling=sampling or SamplingParams(),
-                priority=priority,
-            )
+        req = Request(
+            request_id=rid,
+            prompt_token_ids=list(prompt_token_ids),
+            sampling=sampling or SamplingParams(),
+            priority=priority,
         )
+        if self._swa_sections is not None:
+            self._try_hybrid_ring_hit(req)
+        self.scheduler.add_request(req)
         return rid
+
+    def _section_key(self, prompt_token_ids: list[int]) -> tuple[bytes | None, int, int]:
+        """(key, n_pre, s0) of a prompt's section: the hash of its page
+        ``n_pre - 1``; the same derivation at capture and at a hit."""
+        page = self.config.cache.page_size
+        n_pre, s0, _ = self._swa.section(len(prompt_token_ids), page)
+        if n_pre <= s0:
+            return None, 0, 0
+        hashes = page_hashes_for_tokens(prompt_token_ids[: n_pre * page], page)
+        return hashes[n_pre - 1], n_pre, s0
+
+    def _capture_swa_section(self, req: Request) -> None:
+        """The scheduler's hook when a prompt completes: its ring still
+        holds the prompt's last window, so retain a copy for later hits
+        (at finish the ring has moved past the prompt)."""
+        key, n_pre, s0 = self._section_key(req.prompt_token_ids)
+        if key is None or not req.swa_block_ids:
+            return
+        try:
+            self._swa_sections.capture(key, req.swa_block_ids, s0, n_pre)
+        except Exception:  # a failed capture costs a later hit, not this request
+            logging.getLogger(__name__).exception("sliding-window section capture failed")
+
+    def _try_hybrid_ring_hit(self, req: Request) -> None:
+        """A hybrid prefix hit under the ring: taken only where a main-pool
+        prefix run and a retained section cover the same span, the longest
+        retained span the prompt covers. The fresh ring is seeded from the
+        section on the device and the request starts past the span. A
+        miss, no free ring or a failed seed leaves it a plain prefill with
+        nothing held."""
+        page = self.config.cache.page_size
+        n_pre, _, _ = self._swa.section(len(req.prompt_token_ids), page)
+        lengths = self._swa_sections.candidate_lengths(n_pre) if n_pre > 0 else []
+        if not lengths:
+            return
+        # One hash walk serves the section keys and the main-pool lookup.
+        hashes = page_hashes_for_tokens(req.prompt_token_ids[: n_pre * page], page)
+        for k in lengths:
+            key = hashes[k - 1]
+            # A probe that touches nothing: a candidate left unused must
+            # not count as a hit or refresh its pages' recency.
+            if not self._swa_sections.has(key) or self.allocator.peek_hash_run(hashes[:k]) < k:
+                continue
+            cached = self.allocator.lookup_and_touch_hashes(hashes[:k])
+            ring: list[int] = []
+            try:
+                ring = self.swa_allocator.allocate(self._swa.ring_pages)
+                self._swa_sections.seed(key, ring)
+            except Exception as e:  # a hit never fails the request
+                self.allocator.free(cached)
+                if ring:
+                    self.swa_allocator.free(ring)
+                if not isinstance(e, NoFreePagesError):
+                    logging.getLogger(__name__).exception("hybrid ring seed failed; prefilling")
+                return
+            req.block_ids = cached
+            req.swa_block_ids = ring
+            req.num_computed_tokens = req.num_cached_tokens = k * page
+            # The chain starts past the hit: the cached prefix is not
+            # committed again.
+            self.scheduler.seed_commit_chain(req, key, k)
+            return
 
     def abort_request(self, request_id: str) -> bool:
         return self.scheduler.abort_request(request_id) is not None
@@ -136,6 +334,14 @@ class LLMEngine:
         accepted = self.scheduler.update_after_step(batch, sampled)
         outputs = self._assemble_outputs(batch, accepted, logprobs, now)
         self.stats.engine_steps_total += 1
+        if self.swa_allocator is not None:
+            self.stats.swa_ring_usage = self.swa_allocator.usage()
+            self.stats.swa_ring_pages = self.swa_allocator.num_pages
+            if self._swa_sections is not None:
+                sec = self._swa_sections
+                self.stats.swa_sections = len(sec)
+                self.stats.swa_section_hits = sec.hits
+                self.stats.swa_section_captures = sec.captures
         return outputs
 
     def _unified_eligible(self, batch: ScheduledBatch) -> bool:

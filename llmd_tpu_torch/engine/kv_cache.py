@@ -19,7 +19,8 @@ _ROOT_HASH = b"llmd-root"
 
 
 def hash_page(parent_hash: bytes, token_ids: Sequence[int]) -> bytes:
-    """Chained content hash of one full page."""
+    """Chained content hash of one full page (the JAX package's with no
+    ``extra``: the port's requests carry no LoRA or other cache salt)."""
     h = hashlib.blake2b(digest_size=16)
     h.update(parent_hash)
     h.update(b"|")
@@ -65,6 +66,13 @@ class PageAllocator:
         self.metrics_hits = 0
         self.metrics_queries = 0
 
+    @property
+    def num_free_pages(self) -> int:
+        return len(self._free)
+
+    def usage(self) -> float:
+        return 1.0 - len(self._free) / self.num_pages
+
     def lookup_and_touch_prefix(
         self, token_ids: Sequence[int], max_pages: int | None = None
     ) -> list[int]:
@@ -75,6 +83,23 @@ class PageAllocator:
         hashes = page_hashes_for_tokens(token_ids, self.page_size)
         if max_pages is not None:
             hashes = hashes[:max_pages]
+        return self.lookup_and_touch_hashes(hashes)
+
+    def peek_hash_run(self, hashes: Sequence[bytes]) -> int:
+        """Length of the leading cached run of a hash chain, touching
+        nothing and counting no query: a probe (the hybrid ring hit's)."""
+        n = 0
+        for h in hashes:
+            if h not in self._cached:
+                break
+            n += 1
+        return n
+
+    def lookup_and_touch_hashes(self, hashes: Sequence[bytes]) -> list[int]:
+        """The leading run of cached pages of a hash chain the caller
+        already holds, referenced."""
+        if not self.enable_prefix_caching:
+            return []
         pages: list[int] = []
         for h in hashes:
             self.metrics_queries += 1

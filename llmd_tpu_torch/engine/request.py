@@ -62,6 +62,11 @@ class Request:
     num_computed_tokens: int = 0
     # Physical page ids allocated to this sequence, in order.
     block_ids: list[int] = dataclasses.field(default_factory=list)
+    # Under the sliding-window ring: the sequence's ring of pages in the
+    # ring pool, and its memoized ring-view table row (``ModelRunner.
+    # _swa_table``), dropped with the ring.
+    swa_block_ids: list[int] = dataclasses.field(default_factory=list)
+    swa_table_row: object = None
     # Number of prompt tokens satisfied from the prefix cache.
     num_cached_tokens: int = 0
     # Outputs generated before a recompute-preemption folded them into the

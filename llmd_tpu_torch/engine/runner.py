@@ -59,6 +59,14 @@ to the longest row they hold, with no pad rows. The JAX row buckets of
 those programs survive in one place, ``_seed_rows``: the engine's seed
 stream advances by them, so unseeded sampling draws what the JAX engine
 draws.
+
+**The sliding-window ring** (``CacheConfig.swa_ring``, ``SwaRingSpec``;
+JAX ``_alloc_swa``, ``_swa_table``). The sliding layers live in a second
+pool, ``kv_swa`` (``len(swa_layers)`` planes of ``num_swa_blocks`` pages),
+the full layers in ``kv_cache``. Every step layout carries a second page
+table, ``swa_table``, of the main table's shape: row i maps logical page l
+to ``ring[l % R]`` of its sequence's ring. The same kernels run both pools
+(their window, sink and int8 branches), each through its own table.
 """
 
 from __future__ import annotations
@@ -70,7 +78,7 @@ import numpy as np
 import torch
 
 from llmd_tpu_torch import ops
-from llmd_tpu_torch.config import EngineConfig
+from llmd_tpu_torch.config import EngineConfig, SwaRingSpec, swa_ring_spec
 from llmd_tpu_torch.engine.graphs import Spec, StepPrograms
 from llmd_tpu_torch.engine.request import Request
 from llmd_tpu_torch.engine.sampler import sample_tokens, spec_seed
@@ -183,6 +191,7 @@ class ModelRunner:
         config: EngineConfig,
         params: dict | None = None,
         device: str | torch.device = "cuda",
+        swa_spec: SwaRingSpec | None = None,
     ) -> None:
         self.config = config
         self.cfg = config.model
@@ -196,7 +205,15 @@ class ModelRunner:
             params = _to_device(params, self.device)
         # JAX's ``_maybe_fuse`` leaves MLA's projections unfused.
         self.params = params if self.cfg.is_mla else llama.fuse_projections(params)
-        self.kv_cache = self._alloc_pool()
+        # The ring's geometry (the engine passes its own: its pool has room
+        # for retained sections too), or None without the ring.
+        self.swa = swa_spec or swa_ring_spec(self.cfg, config.cache, config.scheduler)
+        c = config.cache
+        if self.swa is None:
+            self.kv_cache, self.kv_swa = self._alloc_pool(self.cfg.num_layers, c.num_blocks), None
+        else:
+            self.kv_cache = self._alloc_pool(len(self.swa.full_layers), c.num_blocks)
+            self.kv_swa = self._alloc_pool(len(self.swa.swa_layers), self.swa.num_swa_blocks)
         sched = config.scheduler
         self.batch_buckets = sched.decode_batch_buckets or _buckets(sched.max_num_seqs)
         self.prefill_buckets = sched.prefill_token_buckets or _buckets(
@@ -221,6 +238,8 @@ class ModelRunner:
         # Row-metadata width of the flat step: every sequence is one row.
         self.flat_rows = sched.max_num_seqs
         self._np_rng = np.random.default_rng(config.seed ^ 0x5EED)
+        # The page tables' host buffers by name (``_host_table``).
+        self._table_bufs: dict[str, np.ndarray] = {}
         # Padding accounting: live tokens and the pads the shapes added.
         self.live_tokens_total = 0
         self.padded_tokens_total = 0
@@ -228,15 +247,15 @@ class ModelRunner:
         # ("window", B, K, all_greedy) or ("flat", T, all_greedy).
         self.programs = StepPrograms(self.device, self._program)
 
-    def _alloc_pool(self):
-        """The KV pool: [L, pages, K, page, 2D], the K|V halves side by side
+    def _alloc_pool(self, num_layers: int, num_blocks: int):
+        """A KV pool: [L, pages, K, page, 2D], the K|V halves side by side
         on the last axis (MLA: [L, pages, 1, page, Dl], one latent row per
         token); for ``CacheConfig.dtype="int8"`` the pair (int8 data of that
         shape in zeros, f32 scales [L, pages, K, page, 2] in ones), as the
         JAX runner allocates it (``ops/quant_kv.py``)."""
         c = self.config.cache
         shape = (
-            self.cfg.num_layers, c.num_blocks, self.cfg.kv_cache_heads,
+            num_layers, num_blocks, self.cfg.kv_cache_heads,
             self.page, self.cfg.kv_cache_entry_dim,
         )
         if c.quantized and self.cfg.is_mla:
@@ -298,11 +317,79 @@ class ModelRunner:
         self._overwrite_seeded_rows(seeds, requests, K)
         return seeds
 
+    def _host_table(self, name: str, B: int) -> np.ndarray:
+        """A zeroed [B, max_pages] int32 host table, rows of one buffer a
+        table name that every step reuses. Each step copies its tables to
+        the device before the next builds them (the static inputs' staging
+        copy; an eager step's transfer reads its source before it
+        returns). A fresh table a step costs the host more: on an H100
+        host, building a 64 x 8,192 ring table took 1.2-1.9 ms fresh and
+        0.6-0.7 ms reused (``profile_step.py``'s ``host_staging``)."""
+        buf = self._table_bufs.get(name)
+        if buf is None or buf.shape[0] < B:
+            buf = self._table_bufs[name] = np.zeros((B, self.max_pages), np.int32)
+            return buf
+        buf = buf[:B]
+        buf.fill(0)
+        return buf
+
     def _page_table(self, requests: list[Request], B: int) -> np.ndarray:
-        pt = np.zeros((B, self.max_pages), np.int32)
+        pt = self._host_table("page_table", B)
         for i, req in enumerate(requests):
             pt[i, : len(req.block_ids)] = req.block_ids
         return pt
+
+    def _swa_table(self, requests: list[Request], B: int) -> np.ndarray:
+        """The sliding layers' ring-view table: logical page l of row i is
+        ``ring[l % R]``. The main table's shape, so every kernel path is
+        unchanged; the repeats past the window are the pages the window
+        never reads. A row is fixed once its ring is allocated, so it is
+        memoized on the request (the scheduler drops it with the ring)."""
+        pt = self._host_table("swa_table", B)
+        for i, req in enumerate(requests):
+            ring = req.swa_block_ids
+            if not ring:
+                continue
+            if req.swa_table_row is None:
+                req.swa_table_row = np.asarray(ring, np.int32)[
+                    np.arange(self.max_pages) % len(ring)
+                ]
+            pt[i] = req.swa_table_row
+        return pt
+
+    def _tables(self, requests: list[Request], B: int) -> dict[str, np.ndarray]:
+        """The step's page tables by input name: ``page_table``, and under
+        the ring ``swa_table``."""
+        out = {"page_table": self._page_table(requests, B)}
+        if self.swa is not None:
+            out["swa_table"] = self._swa_table(requests, B)
+        return out
+
+    def _forward(self, inp: StepInput) -> torch.Tensor:
+        """The decoder stack over ``inp`` on the runner's pools (updated in
+        place); returns the hidden states."""
+        if self.kv_swa is None:
+            hidden, self.kv_cache = llama.forward_hidden(
+                self.params, self.kv_cache, inp, self.cfg)
+        else:
+            hidden, self.kv_cache, self.kv_swa = llama.forward_hidden(
+                self.params, self.kv_cache, inp, self.cfg, self.kv_swa)
+        return hidden
+
+    def copy_ring_pages(self, src: list[int], dst: list[int]) -> None:
+        """Copy ring-pool pages ``src`` -> ``dst`` on the device, every plane
+        and both halves of an int8 pool (JAX ``copy_pages_on_device(...,
+        swa=True)``): a retained section's capture and a ring's seeding."""
+        s, d = self._on_device(np.asarray(src, np.int64)), self._on_device(np.asarray(dst, np.int64))
+        for t in self.kv_swa if isinstance(self.kv_swa, tuple) else (self.kv_swa,):
+            t[:, d] = t[:, s]
+
+    def kv_bytes(self) -> int:
+        """Bytes of the KV pools (both halves of an int8 pool, and the
+        ring pool)."""
+        pools = (self.kv_cache,) if self.kv_swa is None else (self.kv_cache, self.kv_swa)
+        return sum(t.numel() * t.element_size() for pool in pools
+                   for t in (pool if isinstance(pool, tuple) else (pool,)))
 
     def _on_device(self, a: np.ndarray) -> torch.Tensor:
         # Not blocking: a blocking host->device copy synchronises the
@@ -329,7 +416,7 @@ class ModelRunner:
             "row_start": np.full(B, total, np.int64),
             "pos0": np.zeros(B, np.int64),
             "qlens": np.zeros(B, np.int64),
-            "page_table": self._page_table(requests, B),
+            **self._tables(requests, B),
             "temp": temp, "top_k": top_k, "top_p": top_p,
             "seeds": self._draw_seeds(requests, self._seed_rows("flat", B), 1)[:B, 0],
         }
@@ -374,10 +461,15 @@ class ModelRunner:
         R, i64, i32, f32 = self.flat_rows, torch.int64, torch.int32, torch.float32
         return {
             "stream": ((T,), i64), "row_start": ((R,), i64), "pos0": ((R,), i64),
-            "qlens": ((R,), i64), "page_table": ((R, self.max_pages), i32),
+            "qlens": ((R,), i64), **self._table_spec(R),
             "temp": ((R,), f32), "top_k": ((R,), i32), "top_p": ((R,), f32),
             "seeds": ((R,), i64),
         }
+
+    def _table_spec(self, B: int) -> Spec:
+        """The page tables' static inputs (``_tables``) at B rows."""
+        names = ("page_table",) if self.swa is None else ("page_table", "swa_table")
+        return {name: ((B, self.max_pages), torch.int32) for name in names}
 
     @torch.inference_mode()
     def _flat_step(self, x: dict[str, torch.Tensor], all_greedy: bool) -> torch.Tensor:
@@ -409,10 +501,9 @@ class ModelRunner:
             num_live=ends[-1:].int(),
             # The attention kernel's query tiles, once for every layer.
             flat_items=ops.flat_work_items(row_of, kv_lens, group),
+            swa_page_table=x.get("swa_table"),
         )
-        hidden, self.kv_cache = llama.forward_hidden(
-            self.params, self.kv_cache, inp, self.cfg
-        )
+        hidden = self._forward(inp)
         last = (row_start + (qlens - 1).clamp(min=0)).clamp(0, T - 1)
         logits = llama.compute_logits(self.params, hidden[last, 0], self.cfg)
         tok, logp = sample_tokens(
@@ -449,17 +540,17 @@ class ModelRunner:
         live = int(qlens.sum())
         self.live_tokens_total += live
         self.padded_tokens_total += n * Q - live
+        tables = {name: self._on_device(t) for name, t in self._tables(requests, n).items()}
         inp = StepInput(
             token_ids=self._on_device(tokens),
             positions=self._on_device(positions),
             kv_lens=self._on_device(kvlens),
-            page_table=self._on_device(self._page_table(requests, n)),
+            page_table=tables["page_table"],
             query_lens=self._on_device(qlens),
             live_pages=-(-int(kvlens.max()) // self.page),
+            swa_page_table=tables.get("swa_table"),
         )
-        hidden, self.kv_cache = llama.forward_hidden(
-            self.params, self.kv_cache, inp, self.cfg
-        )
+        hidden = self._forward(inp)
         last = self._on_device(qlens - 1).long()
         h_last = hidden[torch.arange(n, device=self.device), last]
         logits = llama.compute_logits(self.params, h_last, self.cfg)
@@ -522,7 +613,7 @@ class ModelRunner:
         temp, top_k, top_p = self._sampling_knobs(requests, B)
         arrays = {
             "first": np.zeros(B, np.int64), "start": np.zeros(B, np.int32),
-            "page_table": self._page_table(requests, B), "active": active,
+            **self._tables(requests, B), "active": active,
             "temp": temp, "top_k": top_k, "top_p": top_p,
         }
         all_greedy = all(req.sampling.greedy for req in requests)
@@ -551,7 +642,7 @@ class ModelRunner:
         i64, i32, f32 = torch.int64, torch.int32, torch.float32
         return {
             "first": ((B,), i64), "start": ((B,), i32),
-            "page_table": ((B, self.max_pages), i32), "active": ((B,), torch.bool),
+            **self._table_spec(B), "active": ((B,), torch.bool),
             "temp": ((B,), f32), "top_k": ((B,), i32), "top_p": ((B,), f32),
             "seeds": ((B, K), i64),
         }
@@ -579,10 +670,9 @@ class ModelRunner:
                 kv_lens=torch.where(active, pos + 1, 0).int(),
                 page_table=page_table,
                 query_lens=qlens,
+                swa_page_table=x.get("swa_table"),
             )
-            hidden, self.kv_cache = llama.forward_hidden(
-                self.params, self.kv_cache, inp, self.cfg
-            )
+            hidden = self._forward(inp)
             logits = llama.compute_logits(self.params, hidden[:, 0], self.cfg)
             nxt, logp = sample_tokens(
                 logits, temp, top_k, top_p, seeds[:, i], all_greedy

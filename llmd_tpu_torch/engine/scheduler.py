@@ -14,6 +14,13 @@ admissible waiting request, no prompt chunk in flight) schedules every
 decode row for a fused window of K tokens: pages for all K are claimed
 before dispatch, and ``update_after_step`` appends the window's tokens one
 by one, ending the row at the first stop condition.
+
+Under the sliding-window ring (``CacheConfig.swa_ring``) an admitted
+sequence also holds a ring of ``swa_ring_pages`` pages in the ring pool
+(``_ensure_ring``), a prefill chunk is capped at ``swa_chunk_tokens``
+(the span the ring is sized for), and a bare prefix-cache hit is never
+taken: the engine takes hybrid hits at arrival instead
+(``LLMEngine._try_hybrid_ring_hit``).
 """
 
 from __future__ import annotations
@@ -66,11 +73,25 @@ class EngineScheduler:
         cache_config: CacheConfig,
         allocator: PageAllocator,
         max_model_len: int,
+        swa_allocator: PageAllocator | None = None,
+        swa_ring_pages: int = 0,
+        swa_chunk_tokens: int = 0,
     ) -> None:
         self.config = scheduler_config
         self.cache_config = cache_config
         self.allocator = allocator
         self.max_model_len = max_model_len
+        # The ring pool and a ring's length (0: no ring), and the chunk cap
+        # the ring is sized for (``SwaRingSpec``).
+        self.swa_allocator = swa_allocator
+        self.swa_ring_pages = swa_ring_pages
+        self.swa_chunk_tokens = swa_chunk_tokens
+        # Ring engines with retained sections: called once a request's
+        # prompt completes (its ring still holds the prompt's last window:
+        # the section capture), and when a ring allocation fails (frees
+        # one retained section; returns whether it freed one).
+        self.prefill_complete_hook = None
+        self.ring_pressure_hook = None
         # Ordered by (-priority, arrival_time): higher priority first, FCFS
         # within a priority class.
         self.waiting: list[Request] = []
@@ -103,7 +124,27 @@ class EngineScheduler:
     # scheduling
 
     def schedule(self) -> ScheduledBatch:
-        """Select the next batch."""
+        """Select the next batch. A step that schedules nothing while work
+        remains changes nothing, so the engine would spin: every running
+        sequence waits for pages that waiting requests hold (prefix hits
+        taken by a failed admission, hybrid hits) or other running
+        prefills hold. Then the waiting requests' pages and rings are
+        released (they prefill later), and if that is not enough, the
+        youngest running sequences are preempted one at a time."""
+        batch = self._schedule()
+        if batch.is_empty and self.has_work():
+            held = [r for r in self.waiting if r.block_ids or r.swa_block_ids]
+            for r in held:
+                self._drop_hold(r)
+            if held:
+                batch = self._schedule()
+            for _ in range(len(self.running) - 1):
+                if not batch.is_empty or not self._preempt_for(None):
+                    break
+                batch = self._schedule()
+        return batch
+
+    def _schedule(self) -> ScheduledBatch:
         budget = self.config.max_num_batched_tokens
         decodes: list[ScheduledSeq] = []
         prefills: list[ScheduledSeq] = []
@@ -146,7 +187,7 @@ class EngineScheduler:
         for req in mid_prefill:
             if req.status is not RequestStatus.RUNNING or budget <= 0:
                 continue
-            chunk = min(req.num_prompt_tokens - req.num_computed_tokens, budget)
+            chunk = self._chunk(req, budget)
             if chunk <= 0 or not self._ensure_pages(req, chunk):
                 continue
             prefills.append(ScheduledSeq(req, chunk))
@@ -160,11 +201,21 @@ class EngineScheduler:
                 break
             if req.num_computed_tokens == 0:
                 self._apply_prefix_cache(req)
-            remaining = req.num_prompt_tokens - req.num_computed_tokens
-            chunk = min(remaining, budget)
+            chunk = self._chunk(req, budget)
             if chunk <= 0:
                 break
+            if not self._ensure_ring(req):
+                # Out of ring pages; retry next step. (The JAX scheduler
+                # also takes a waiting preload's ring here; the port has no
+                # preloads, and the rings of waiting hybrid hits go back
+                # when a step would schedule nothing: ``schedule``.)
+                break
             if not self._ensure_pages(req, chunk):
+                # A waiting request keeps no ring it has computed nothing
+                # into: held, it could stall an earlier arrival's
+                # admission. A ring seeded by a hybrid hit stays.
+                if req.swa_block_ids and req.num_computed_tokens == 0:
+                    self._free_ring(req)
                 break  # out of pages; retry next step
             self.waiting.pop(0)
             req.status = RequestStatus.RUNNING
@@ -175,9 +226,20 @@ class EngineScheduler:
 
         return ScheduledBatch(prefills=prefills, decodes=decodes)
 
+    def _chunk(self, req: Request, budget: int) -> int:
+        """The prompt tokens ``req`` computes this step: what is left, at
+        most the budget and, under the ring, ``swa_chunk_tokens``."""
+        chunk = min(req.num_prompt_tokens - req.num_computed_tokens, budget)
+        if self.swa_chunk_tokens:
+            chunk = min(chunk, self.swa_chunk_tokens)
+        return chunk
+
     def _apply_prefix_cache(self, req: Request) -> None:
         """Reuse cached full pages covering the prompt prefix."""
-        if req.block_ids:
+        if req.block_ids or self.swa_ring_pages:
+            # Under the ring a bare hit would skip sliding-layer KV that no
+            # ring holds, and the request would decode garbage: ring
+            # engines take hybrid hits at arrival only.
             return
         # Never satisfy the *entire* prompt from cache: the last token must
         # be computed so the step emits logits for sampling.
@@ -196,6 +258,32 @@ class EngineScheduler:
             parent = hash_page(parent, req.prompt_token_ids[i * page : (i + 1) * page])
         self._chain[req.request_id] = (parent, n)
 
+    def _ensure_ring(self, req: Request) -> bool:
+        """Allocate the request's ring at admission (once). A failed
+        allocation first frees retained sections (``ring_pressure_hook``):
+        live sequences outrank retention."""
+        if self.swa_allocator is None or req.swa_block_ids:
+            return True
+        while True:
+            try:
+                req.swa_block_ids = self.swa_allocator.allocate(self.swa_ring_pages)
+                return True
+            except NoFreePagesError:
+                if self.ring_pressure_hook is None or not self.ring_pressure_hook():
+                    return False
+
+    def _drop_hold(self, req: Request) -> None:
+        """A waiting request gives back what a prefix hit gave it (pages, a
+        seeded ring) and will prefill from its first token."""
+        self._release(req)
+        req.num_computed_tokens = 0
+        req.num_cached_tokens = 0
+
+    def _free_ring(self, req: Request) -> None:
+        self.swa_allocator.free(req.swa_block_ids)
+        req.swa_block_ids = []
+        req.swa_table_row = None
+
     def _ensure_pages(self, req: Request, new_tokens: int) -> bool:
         need_slots = req.num_computed_tokens + new_tokens
         missing = -(-need_slots // self.allocator.page_size) - len(req.block_ids)
@@ -207,9 +295,9 @@ class EngineScheduler:
         except NoFreePagesError:
             return False
 
-    def _preempt_for(self, req: Request, exclude: set[str] = frozenset()) -> bool:
-        """Evict the youngest other running sequence (lowest priority
-        first) to recompute later."""
+    def _preempt_for(self, req: Request | None, exclude: set[str] = frozenset()) -> bool:
+        """Evict the youngest running sequence other than ``req`` (lowest
+        priority first) to recompute later."""
         victims = [
             r for r in self.running
             if r is not req and r.request_id not in exclude
@@ -236,7 +324,15 @@ class EngineScheduler:
         if req.block_ids:
             self.allocator.free(req.block_ids)
             req.block_ids = []
+        if req.swa_block_ids:
+            self._free_ring(req)
         self._chain.pop(req.request_id, None)
+
+    def seed_commit_chain(self, req: Request, parent: bytes, committed: int) -> None:
+        """Mark ``req``'s first ``committed`` pages as already in the prefix
+        index, ``parent`` the chain's tail (a hybrid hit's): they are not
+        hashed and committed again."""
+        self._chain[req.request_id] = (parent, committed)
 
     # ------------------------------------------------------------------ #
     # post-step bookkeeping
@@ -255,6 +351,9 @@ class EngineScheduler:
             req = seq.request
             req.num_computed_tokens += seq.num_tokens
             if req.in_decode:  # this chunk completed the prompt -> 1st token
+                if self.prefill_complete_hook is not None:
+                    # The ring still holds the prompt's last window now.
+                    self.prefill_complete_hook(req)
                 token = sampled[req.request_id][0]
                 req.output_token_ids.append(token)
                 accepted[req.request_id] = [token]

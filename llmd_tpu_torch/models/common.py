@@ -39,6 +39,12 @@ class StepInput:
     flat_items:  [T, 2] the flat attention kernel's query tiles
                  (``ops.flat_work_items``), built once a step for every
                  layer; None lets each layer's kernel call build them
+
+    Either layout, under the sliding-window ring (``CacheConfig.swa_ring``):
+
+    swa_page_table: the ring-view table of the sliding layers, the shape
+                 of ``page_table``: logical page l of a row maps to
+                 ``ring[l % R]`` in the ring pool; None without the ring
     """
 
     token_ids: torch.Tensor
@@ -50,6 +56,7 @@ class StepInput:
     query_lens: torch.Tensor | None = None
     live_pages: int | None = None
     flat_items: torch.Tensor | None = None
+    swa_page_table: torch.Tensor | None = None
 
     @property
     def valid(self) -> torch.Tensor:  # [B, Q] bool, bucketed layout

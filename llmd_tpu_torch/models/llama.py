@@ -186,9 +186,13 @@ def _mlp(h: torch.Tensor, lp: dict) -> torch.Tensor:
     return (F.silu(h @ lp["w_gate"]) * (h @ lp["w_up"])) @ lp["w_down"]
 
 
-def _write_attend(inp: StepInput, page: int, cos: torch.Tensor, sin: torch.Tensor):
+def _write_attend(
+    inp: StepInput, page_table: torch.Tensor, page: int, cos: torch.Tensor, sin: torch.Tensor
+):
     """The layout's (write, attend) pair over what the step fixes for every
-    layer. ``write(kv_cache, layer, q, k, v, bias)`` adds the q|k|v biases
+    layer of one pool, addressed through ``page_table`` (the step's main
+    table, or the ring-view table of the sliding layers' ring pool).
+    ``write(kv_cache, layer, q, k, v, bias)`` adds the q|k|v biases
     (``bias`` = (bq, bk, bv) or None), rotates q and k by the step's rope
     tables, stores k|v and returns the rotated q; the flat step and ``Q ==
     1`` rows do all of it in one launch of the write kernel's fused form,
@@ -199,13 +203,13 @@ def _write_attend(inp: StepInput, page: int, cos: torch.Tensor, sin: torch.Tenso
 
         def write(kv_cache, layer, q, k, v, bias):
             return ops.rope_write_kv_flat(
-                kv_cache, layer, q, k, v, cos, sin, inp.page_table, inp.token_rows,
+                kv_cache, layer, q, k, v, cos, sin, page_table, inp.token_rows,
                 inp.positions, inp.num_live, bias,
             )
 
         def attend(q, kv_cache, layer, sm_scale, window, sinks):
             return ops.paged_attention_full_flat(
-                q, kv_cache, layer, inp.token_rows, inp.page_table,
+                q, kv_cache, layer, inp.token_rows, page_table,
                 inp.kv_lens, sm_scale, window, sinks, inp.flat_items,
             )
 
@@ -213,7 +217,7 @@ def _write_attend(inp: StepInput, page: int, cos: torch.Tensor, sin: torch.Tenso
 
     valid = inp.valid
     if inp.token_ids.shape[1] == 1:
-        prep = ops.decode_write_prep(inp.page_table, inp.positions, valid, page)
+        prep = ops.decode_write_prep(page_table, inp.positions, valid, page)
 
         def write(kv_cache, layer, q, k, v, bias):
             return ops.rope_write_kv_decode(kv_cache, layer, q, k, v, cos, sin, prep, bias)
@@ -223,26 +227,33 @@ def _write_attend(inp: StepInput, page: int, cos: torch.Tensor, sin: torch.Tenso
         def write(kv_cache, layer, q, k, v, bias):
             q, k, v = ops.add_qkv_bias(q, k, v, bias)
             q, k = apply_rope(q, cos, sin), apply_rope(k, cos, sin)
-            ops.write_kv_pages_full(kv_cache, layer, k, v, inp.page_table, inp.positions, valid)
+            ops.write_kv_pages_full(kv_cache, layer, k, v, page_table, inp.positions, valid)
             return q
 
     def attend(q, kv_cache, layer, sm_scale, window, sinks):
         return ops.paged_attention_full(
-            q, kv_cache, layer, inp.page_table, inp.kv_lens, inp.positions,
+            q, kv_cache, layer, page_table, inp.kv_lens, inp.positions,
             sm_scale, inp.live_pages, window, sinks,
         )
 
     return write, attend
 
 
-def forward_hidden(params: dict, kv_cache, inp: StepInput, cfg: ModelConfig):
-    """Run the decoder stack over the step; returns (hidden, kv_cache),
-    hidden ``[T, 1, H]`` for the flat layout and ``[B, Q, H]`` for the
-    bucketed one (``inp.token_rows is None``). The pool (a tensor, or the
-    int8 pair) is updated in place. A ``first_dense_layers`` prefix runs
-    first with its own weights on pool planes ``[0, n)``; the other layers
-    follow on the planes after them. Layer i attends within
-    ``cfg.layer_windows[i]`` (0 = full) and with its ``sinks`` leaf."""
+def forward_hidden(params: dict, kv_cache, inp: StepInput, cfg: ModelConfig, kv_swa=None):
+    """Run the decoder stack over the step; returns (hidden, kv_cache), or
+    (hidden, kv_cache, kv_swa) when ``kv_swa`` is given; hidden ``[T, 1,
+    H]`` for the flat layout and ``[B, Q, H]`` for the bucketed one
+    (``inp.token_rows is None``). The pools (a tensor, or the int8 pair)
+    are updated in place. A ``first_dense_layers`` prefix runs first with
+    its own weights; layer i attends within ``cfg.layer_windows[i]`` (0 =
+    full) and with its ``sinks`` leaf. Without ``kv_swa`` layer i is
+    plane i of ``kv_cache``. ``kv_swa`` is the sliding-window ring pool
+    (``CacheConfig.swa_ring``): the sliding layers are its planes, counted
+    within their group, addressed through ``inp.swa_page_table``, and the
+    full layers are ``kv_cache``'s planes, counted likewise, through
+    ``inp.page_table``. The kernels are the same: a window never reads a
+    logical page older than itself, and those are the ring slots that have
+    been overwritten."""
     B, Q = inp.token_ids.shape
     D, Nq, K = cfg.head_dim, cfg.num_heads, cfg.num_kv_heads
     x = params["embed"][inp.token_ids]  # [B, Q, H]
@@ -263,14 +274,23 @@ def forward_hidden(params: dict, kv_cache, inp: StepInput, cfg: ModelConfig):
             prep = ops.decode_write_prep(
                 inp.page_table, inp.positions, inp.valid, kv_cache.shape[3]
             )
-    else:
+    # Each layer's pool group (0: kv_cache, 1: the ring pool) and plane in
+    # it. The window stays keyed by the layer id, not the plane.
+    kinds = [int(kv_swa is not None and w > 0) for w in windows]
+    planes = [kinds[:i].count(kinds[i]) for i in range(len(kinds))]
+    caches = (kv_cache, kv_swa)
+    if not cfg.is_mla:
         page = (kv_cache[0] if isinstance(kv_cache, tuple) else kv_cache).shape[3]
-        write, attend = _write_attend(inp, page, cos, sin)
+        # One (write, attend) pair a pool group that has layers, each with
+        # its own decode addressing: built once a step, not once a layer.
+        tables = (inp.page_table, inp.swa_page_table)
+        pairs = {g: _write_attend(inp, tables[g], page, cos, sin) for g in set(kinds)}
 
-    def layer(x, lp, plane: int, moe: bool):
+    def layer(x, lp, i: int, moe: bool):
+        kv, plane = caches[kinds[i]], planes[i]
         h = rms_norm(x, lp["input_norm"], cfg.rms_norm_eps)
         if cfg.is_mla:
-            attn_out, _ = mla_attention(h, lp, kv_cache, plane, inp, cfg, cos, sin, prep)
+            attn_out, _ = mla_attention(h, lp, kv, plane, inp, cfg, cos, sin, prep)
             x = x + attn_out
         else:
             if "wqkv" in lp:
@@ -289,8 +309,9 @@ def forward_hidden(params: dict, kv_cache, inp: StepInput, cfg: ModelConfig):
                 bias = None
                 q = rms_norm(q, lp["attn_q_norm"], cfg.rms_norm_eps)
                 k = rms_norm(k, lp["attn_k_norm"], cfg.rms_norm_eps)
-            q = write(kv_cache, plane, q, k, v, bias)
-            attn = attend(q, kv_cache, plane, sm_scale, windows[plane], lp.get("sinks"))
+            write, attend = pairs[kinds[i]]
+            q = write(kv, plane, q, k, v, bias)
+            attn = attend(q, kv, plane, sm_scale, windows[i], lp.get("sinks"))
             out = attn.reshape(B, Q, Nq * D) @ lp["wo"]
             if "bo" in lp:
                 out = out + lp["bo"]
@@ -298,15 +319,16 @@ def forward_hidden(params: dict, kv_cache, inp: StepInput, cfg: ModelConfig):
         h2 = rms_norm(x, lp["post_norm"], cfg.rms_norm_eps)
         return x + (moe_block_grouped(h2, lp, cfg) if moe else _mlp(h2, lp))
 
-    plane = 0
+    i = 0
     for key, moe in (("dense_layers", False), ("layers", cfg.is_moe)):
         stack = params.get(key)
         if stack is None:
             continue
-        for i in range(stack["input_norm"].shape[0]):
-            x = layer(x, {name: w[i] for name, w in stack.items()}, plane, moe)
-            plane += 1
-    return rms_norm(x, params["final_norm"], cfg.rms_norm_eps), kv_cache
+        for j in range(stack["input_norm"].shape[0]):
+            x = layer(x, {name: w[j] for name, w in stack.items()}, i, moe)
+            i += 1
+    hidden = rms_norm(x, params["final_norm"], cfg.rms_norm_eps)
+    return (hidden, kv_cache) if kv_swa is None else (hidden, kv_cache, kv_swa)
 
 
 def compute_logits(params: dict, hidden: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:

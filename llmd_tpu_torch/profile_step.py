@@ -2,7 +2,7 @@
 
     python -m llmd_tpu_torch.profile_step [--model llama-3-8b] [--batch 32]
         [--prompt-len 1000] [--decode-steps 16] [--decode-window 8]
-        [--kv-cache-dtype int8]
+        [--kv-cache-dtype int8] [--kv-swa-ring]
 
 Serves ``--batch`` greedy requests of ``--prompt-len`` random tokens
 through ``LLMEngine`` (random weights from ``--seed``) and traces three
@@ -15,7 +15,9 @@ windows as cover the same number of tokens. The default engine runs the
 flat step, or for an MLA model (``--model deepseek-v2-lite``) the bucketed
 unified step and one-iteration decode windows; ``--model gpt-oss-20b`` runs
 its sliding and full layers on the flat step, and ``--kv-cache-dtype int8``
-puts any GQA model's KV in the int8 pool. Every engine runs ``warmup``
+puts any GQA model's KV in the int8 pool, and ``--kv-swa-ring`` puts a
+sliding-window model's sliding layers in the ring pool (its lines carry the
+pools' bytes, ``kv_bytes``, either way). Every engine runs ``warmup``
 first, as the server does, so decode-only steps (the flat decode steps and
 every decode window) are CUDA graph replays; each line carries the
 engine's warmup seconds, the graphs it captured, the device memory it kept
@@ -27,7 +29,8 @@ launches per step, device milliseconds per step by group (the port's
 kernels, GEMMs, the rest), the costliest other kernels, the same host and
 device times per token of a decode row, so that the fused window stands
 beside the flat decode step, and the live tokens a second at the untraced
-step time. The profiler adds host time to every operator, so each
+step time; the decode line also carries the host cost of building and
+staging a flat decode step's static inputs (``staging_us``). The profiler adds host time to every operator, so each
 window's steps are also timed without it (``untraced_host_ms_per_step``),
 before the profiler first starts. Runs on a GPU only.
 """
@@ -48,6 +51,7 @@ from torch.profiler import ProfilerActivity, profile
 
 from llmd_tpu_torch.config import CacheConfig, EngineConfig, SchedulerConfig
 from llmd_tpu_torch.engine import LLMEngine, SamplingParams
+from llmd_tpu_torch.engine.scheduler import ScheduledSeq
 from llmd_tpu_torch.models import llama
 from llmd_tpu_torch.models.registry import get_model_config
 
@@ -131,6 +135,29 @@ def trace_steps(eng: LLMEngine, n: int, untraced_ms: float) -> dict:
     }
 
 
+def staging_us(eng: LLMEngine, n: int = 200) -> dict:
+    """Host microseconds a flat decode step of the running requests spends
+    building its arrays (``stage_unified``: page tables, and under the ring
+    the ring-view table) and staging them into its program's static
+    inputs (the pinned host buffer and its copy to the device), each the
+    mean of ``n`` calls, profiler off."""
+    runner = eng.runner
+    seqs = [ScheduledSeq(req, 1) for req in eng.scheduler.running]
+    t0 = time.perf_counter()
+    for _ in range(n):
+        staged = runner.stage_unified([], seqs)
+    build = (time.perf_counter() - t0) * 1e6 / n
+    key = ("flat", len(staged.arrays["stream"]), staged.all_greedy)
+    inputs = runner.programs.programs[key].inputs
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        inputs.stage(staged.arrays)
+    torch.cuda.synchronize()
+    return {"build_us": build, "stage_us": (time.perf_counter() - t0) * 1e6 / n,
+            "static_input_bytes": inputs.host.numel()}
+
+
 def main(argv=None) -> None:
     p = argparse.ArgumentParser(prog="python -m llmd_tpu_torch.profile_step")
     p.add_argument("--model", default="llama-3-8b")
@@ -142,6 +169,8 @@ def main(argv=None) -> None:
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--kv-cache-dtype", default=None,
                    help="KV pool dtype: the weights' (default) or int8")
+    p.add_argument("--kv-swa-ring", action="store_true",
+                   help="the sliding layers' KV in the ring pool (CacheConfig.swa_ring)")
     args = p.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("profile_step needs a CUDA device")
@@ -174,7 +203,7 @@ def main(argv=None) -> None:
             model=cfg,
             cache=CacheConfig(page_size=page, num_blocks=args.batch * per_seq + 64,
                               dtype=args.kv_cache_dtype or cfg.dtype,
-                              enable_prefix_caching=False),
+                              enable_prefix_caching=False, swa_ring=args.kv_swa_ring),
             scheduler=SchedulerConfig(max_num_seqs=max(64, args.batch),
                                       max_num_batched_tokens=args.max_num_batched_tokens,
                                       **sched),
@@ -191,7 +220,8 @@ def main(argv=None) -> None:
         seconds = time.perf_counter() - t0
         torch.cuda.empty_cache()
         warmups[name] = {"warmup_s": seconds, "warmup_graphs": graphs,
-                         "warmup_kept_bytes": torch.cuda.memory_reserved() - reserved}
+                         "warmup_kept_bytes": torch.cuda.memory_reserved() - reserved,
+                         "kv_bytes": eng.runner.kv_bytes()}
         warm = SamplingParams(temperature=0.0, max_tokens=2 + sched.get("decode_window", 1),
                               ignore_eos=True)
         eng.generate([[5] * 64, [7] * 16], warm)  # warm-up: cuBLAS, kernels
@@ -226,6 +256,7 @@ def main(argv=None) -> None:
     untraced = {"prefill": time_steps(prefilling(loaded_engine("prefill")), 1)}
     for name, (eng, n) in steps.items():
         untraced[name] = time_steps(eng, n)
+    staging = staging_us(steps["decode"][0])
     windows = {"prefill": trace_steps(prefilling(loaded_engine("prefill")), 1, untraced["prefill"])}
     for name, (eng, n) in steps.items():
         windows[name] = trace_steps(eng, n, untraced[name])
@@ -233,8 +264,11 @@ def main(argv=None) -> None:
         replays = {str(k): n for k, n in steps[name][0].runner.programs.runs.items()} if name in steps else {}
         print(json.dumps({"window": name, "model": args.model, "batch": args.batch,
                           "kv_cache_dtype": args.kv_cache_dtype or cfg.dtype,
+                          "kv_swa_ring": args.kv_swa_ring,
                           "prompt_len": args.prompt_len, "card": card, **warmups[name],
-                          "graph_replays": replays, **w}), flush=True)
+                          "graph_replays": replays,
+                          **({"host_staging": staging} if name == "decode" else {}), **w}),
+              flush=True)
 
 
 if __name__ == "__main__":

@@ -4,7 +4,7 @@ Where ``python -m llmd_tpu.serve`` has a flag, the port uses its name
 (``--model``, ``--host``, ``--port``, ``--max-num-seqs``,
 ``--max-num-batched-tokens``, ``--seed``, ``--decode-window``,
 ``--unified-step``, ``--ragged-qlens``, ``--kv-cache-dtype``,
-``--skip-warmup``). The model's weights are random, drawn on the device
+``--kv-swa-ring``, ``--skip-warmup``). The model's weights are random, drawn on the device
 from ``--seed``; the byte tokenizer keeps the server hermetic. Before it
 serves, the engine builds its kernels and captures its decode steps as
 CUDA graphs (``LLMEngine.warmup``) unless ``--skip-warmup`` is given; a
@@ -33,6 +33,13 @@ def build_parser() -> argparse.ArgumentParser:
         help="KV pool dtype: the weights' dtype (default), or int8 for the "
              "quantized pool (per-row int8 K|V with f32 scales; not for MLA "
              "models)",
+    )
+    p.add_argument(
+        "--kv-swa-ring", action="store_true",
+        help="sliding-window layers keep a fixed ring of pages per sequence "
+             "in a second, smaller pool (about half the KV bytes of a long "
+             "sequence on gpt-oss-class models); prefix caching becomes "
+             "hybrid; no effect on models without sliding layers",
     )
     p.add_argument("--max-num-seqs", type=int, default=64)
     p.add_argument("--max-num-batched-tokens", type=int, default=1024)
@@ -73,7 +80,8 @@ def make_engine_config(args):
     return EngineConfig(
         model=model,
         cache=CacheConfig(num_blocks=args.num_blocks,
-                          dtype=args.kv_cache_dtype or model.dtype),
+                          dtype=args.kv_cache_dtype or model.dtype,
+                          swa_ring=args.kv_swa_ring),
         scheduler=SchedulerConfig(
             max_num_seqs=args.max_num_seqs,
             max_num_batched_tokens=args.max_num_batched_tokens,

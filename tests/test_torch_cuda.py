@@ -679,10 +679,10 @@ def log_forwards(monkeypatch, runner) -> list[int]:
     forward = runner_mod.llama.forward_hidden
     prepare = runner.programs.prepare
 
-    def logged(p, cache, inp, c):
+    def logged(p, cache, inp, c, *swa):
         if not preparing:
             forwards.append(inp.token_ids.shape[1])
-        return forward(p, cache, inp, c)
+        return forward(p, cache, inp, c, *swa)
 
     def quiet_prepare(key):
         preparing.append(key)
@@ -1274,3 +1274,88 @@ def test_fused_write_wrappers_refuse_what_the_kernels_do_not_take(dev):
     with pytest.raises(ValueError, match="scales"):
         ops.rope_write_kv_decode_full(data, 0, q, k, v, cos, sin, idx, idx, idx,
                                       scales=torch.ones((2, P, 2, 16, 2), device=dev).half())
+
+
+# --------------------------------------------------------------------- #
+# the sliding-window ring
+
+
+def ring_copy(pool, scales, pt, lens, R, page):
+    """The ring pool and ring-view table a ring engine would hold for rows
+    of ``lens`` tokens written through ``pt``: row r's ring is R pages of
+    its own, and logical page l of it lands at ``ring[l % R]``, later pages
+    over earlier ones, as the engine writes them."""
+    B = pt.shape[0]
+    ring_pt = torch.zeros_like(pt)
+    rpool = torch.zeros((pool.shape[0], B * R, *pool.shape[2:]), dtype=pool.dtype, device=pool.device)
+    rscales = None if scales is None else torch.ones(
+        (scales.shape[0], B * R, *scales.shape[2:]), dtype=scales.dtype, device=scales.device)
+    for r in range(B):
+        ring = torch.arange(r * R, (r + 1) * R, device=pt.device, dtype=pt.dtype)
+        ring_pt[r] = ring[torch.arange(pt.shape[1], device=pt.device) % R]
+        for lp in range(-(-int(lens[r]) // page)):
+            rpool[:, ring[lp % R]] = pool[:, pt[r, lp]]
+            if scales is not None:
+                rscales[:, ring[lp % R]] = scales[:, pt[r, lp]]
+    return rpool, rscales, ring_pt
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("int8", [False, True])
+def test_attention_through_the_ring_table_is_bit_equal(dev, dtype, int8):
+    """K1' on a flat step and K3' on a decode step, window 40 with sinks:
+    through a ring pool holding each row's latest R pages and its
+    ring-view table, the same bits as through the full table."""
+    rng = np.random.default_rng(31)
+    page, D, K, G, window = 16, 64, 8, 8, 40
+    sinks = torch.from_numpy(rng.normal(size=(K * G,)).astype(np.float32)).to(dev)
+    # The flat step: a row's live span is its window plus its chunk.
+    pt, rows, _, kv_lens, total, P = flat_step(rng, page)
+    pool, scales = branch_pool(rng, dev, dtype, 2, P, K, page, D, int8)
+    q = torch.from_numpy(rng.normal(size=(len(rows), 1, K * G, D))).to(dev, dtype)
+    lens = [p0 + w for p0, w in ROWS]
+    R = -(-(window + max(w for _, w in ROWS)) // page) + 1
+    pt, rows, kv_lens = on(dev, pt, rows, kv_lens)
+    rpool, rscales, rpt = ring_copy(pool, scales, pt, lens, R, page)
+    full = ops.flat_paged_attention_full(q, pool, 1, rows, pt, kv_lens, None, window, sinks, scales)
+    ring = ops.flat_paged_attention_full(q, rpool, 1, rows, rpt, kv_lens, None, window, sinks, rscales)
+    torch.cuda.synchronize()
+    assert torch.equal(full, ring)
+    # The decode step: one query a row, contexts up to 8,192.
+    pt, kv_lens, _, _, _, P = decode_step(rng, page, DECODE_LENS)
+    pool, scales = branch_pool(rng, dev, dtype, 2, P, K, page, D, int8)
+    q = torch.from_numpy(rng.normal(size=(len(kv_lens), 1, K * G, D))).to(dev, dtype)
+    R = -(-(window + 1) // page) + 1
+    pt, kv_lens = on(dev, pt, kv_lens)
+    rpool, rscales, rpt = ring_copy(pool, scales, pt, DECODE_LENS, R, page)
+    full = ops.decode_paged_attention_full(q, pool, 1, pt, kv_lens, None, window, sinks, scales)
+    ring = ops.decode_paged_attention_full(q, rpool, 1, rpt, kv_lens, None, window, sinks, rscales)
+    torch.cuda.synchronize()
+    assert torch.equal(full, ring)
+
+
+@pytest.mark.parametrize("layout", ["flat", "window", "bucketed"])
+def test_ring_engine_on_the_card_matches_the_cpu_engine(dev, layout):
+    """A tiny f32 model with sliding (window 16, sinks) and full layers
+    under ``swa_ring``: the card's ring engine (kernels through the ring
+    table) gives the CPU ring engine's greedy and seeded streams, prompts
+    and generation wrapping the ring, a repeated prompt a hybrid hit."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = EngineConfig(
+        model=tiny_model_config(head_dim=64, num_layers=4, sliding_window=16,
+                                layer_types=("sliding_attention", "full_attention") * 2,
+                                attention_sinks=True, max_model_len=256),
+        cache=CacheConfig(page_size=8, num_blocks=96, dtype="float32", swa_ring=True),
+        scheduler=SchedulerConfig(max_num_seqs=8, max_num_batched_tokens=16, **LAYOUTS[layout]),
+    )
+    params = llama.init_params(cfg.model, torch.Generator().manual_seed(0), "cpu")
+    rng = np.random.default_rng(4)
+    prompts = [rng.integers(0, 256, size=n).tolist() for n in (5, 90, 17, 60)]
+    sps = [SamplingParams(temperature=t, max_tokens=40, ignore_eos=True, seed=9)
+           for t in (0.0, 0.8, 0.0, 0.8)]
+    engines = [LLMEngine(cfg, params=params, device=d) for d in ("cpu", "cuda")]
+    outs = [[list(e.generate(prompts, sps).values()), list(e.generate(prompts[1:2], sps[1]).values())]
+            for e in engines]
+    assert outs[0] == outs[1]
+    for e in engines:
+        assert e.runner.kv_swa is not None and e._swa_sections.hits == 1

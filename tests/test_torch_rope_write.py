@@ -259,8 +259,8 @@ def test_the_model_writes_through_the_fused_entries(kind, qk_norm, monkeypatch):
 
     real = llama._write_attend
 
-    def unfused(inp_, page_, cos, sin):
-        _, attend = real(inp_, page_, cos, sin)
+    def unfused(inp_, table_, page_, cos, sin):
+        _, attend = real(inp_, table_, page_, cos, sin)
         return unfused_write, attend
 
     monkeypatch.setattr(llama, "_write_attend", unfused)

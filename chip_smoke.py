@@ -66,7 +66,9 @@ gpt-oss-20b (random weights from a seed):
                kernel branch; captures and replays are counted by key.
                Launches are checked per kernel branch from a log of every
                eager forward and the replays' keys. Every step must read
-               back once.
+               back once. Then the host µs a step that the engine's stats
+               update costs, on the flat step, alone and with a /metrics
+               page rendered every millisecond (``stats_update_cost``).
 6. ``layouts`` the tiny f32 model on the card: the flat step, the split
                engine with windows, the flat step with windows and the
                bucketed unified step give identical greedy and seeded
@@ -120,6 +122,13 @@ gpt-oss-20b (random weights from a seed):
                gpt-oss-20b (and again with ``--kv-swa-ring``) and
                llama-3-8b with ``--kv-cache-dtype int8`` servers. Each server runs ``warmup`` (its decode steps are
                graph replays) before it answers.
+    ``surface`` on the first llama-3-8b server: the routes llm-d's router
+               and operators drive (``surface_phase``): /metrics, chat
+               completions streamed and not, /v1/cache/probe, the admin
+               pause, resume and drain; it reports the scrape latency, the
+               chat TTFT and the stats update's cost. The gpt-oss ring
+               engine's /metrics page carries the ring's series and the
+               binding pool's usage (``ring_metrics``, hybrid_prefix phase).
 
 Each phase prints one JSON line. Any failure raises and exits non-zero
 without printing a result. On success the line before the last is the
@@ -138,7 +147,9 @@ import socket
 import statistics
 import subprocess
 import sys
+import threading
 import time
+import urllib.error
 import urllib.request
 
 import torch
@@ -1250,6 +1261,137 @@ def engine_phase(info: dict, params: dict, model: str = MODEL, kv_dtype: str = "
     return counts, branches, [tokens[r] for r in rids], [requests[r].output_logprobs for r in rids]
 
 
+def stats_update_cost(params: dict) -> dict:
+    """Host µs a step that the engine's stats update costs
+    (``LLMEngine._finish_step``: the step's counters, its host gap and the
+    gauges) on llama-3-8b's flat step, 16 requests of 256 prompt and 64
+    output tokens a run, four runs in turns: alone, with a /metrics scrape
+    in flight (a thread rendering the page, ``render_metrics``, every
+    millisecond: every step overlaps a scrape), alone, scraped. The update
+    adds no device sync: one readback a step either way."""
+    from llmd_tpu_torch.config import CacheConfig, EngineConfig, SchedulerConfig
+    from llmd_tpu_torch.engine import LLMEngine, SamplingParams
+    from llmd_tpu_torch.models.registry import get_model_config
+    from llmd_tpu_torch.serve.metrics import render_metrics
+
+    cfg = get_model_config(MODEL)
+    eng = LLMEngine(EngineConfig(
+        model=cfg, cache=CacheConfig(page_size=16, num_blocks=2048),
+        scheduler=SchedulerConfig(max_num_seqs=64, max_num_batched_tokens=1024), seed=0,
+    ), params=params, device="cuda")
+    eng.warmup()
+    eng.generate([[5] * 64], SamplingParams(temperature=0.0, max_tokens=4, ignore_eos=True))
+    finish = eng._finish_step
+    update_s: list[float] = []
+
+    def timed_finish(host_gap_s):
+        t = time.perf_counter()
+        finish(host_gap_s)
+        update_s.append(time.perf_counter() - t)
+
+    eng._finish_step = timed_finish
+    sp = SamplingParams(temperature=0.0, max_tokens=64, ignore_eos=True)
+    gen = torch.Generator().manual_seed(21)
+    runs = []
+    for scraped in (False, True, False, True):
+        prompts = torch.randint(3, cfg.vocab_size, (16, 256), generator=gen).tolist()
+        update_s.clear()
+        stop = threading.Event()
+        render_s: list[float] = []
+
+        def scrape():
+            while not stop.is_set():
+                t = time.perf_counter()
+                render_metrics(eng.stats, MODEL)
+                render_s.append(time.perf_counter() - t)
+                time.sleep(0.001)
+
+        scraper = threading.Thread(target=scrape) if scraped else None
+        st = eng.stats
+        steps0, gap0 = st.engine_steps_total, st.step_host_gap_ms_total
+        if scraper:
+            scraper.start()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        try:
+            with counting_readbacks() as readbacks:
+                eng.generate(prompts, sp)
+            torch.cuda.synchronize()
+        finally:
+            stop.set()
+            if scraper:
+                scraper.join()
+        wall = time.perf_counter() - t0
+        steps = st.engine_steps_total - steps0
+        if len(readbacks) != steps or len(update_s) != steps:
+            raise AssertionError(f"{len(readbacks)} readbacks, {len(update_s)} stats updates "
+                                 f"in {steps} steps")
+        us = sorted(x * 1e6 for x in update_s)
+        runs.append({
+            "scrape_in_flight": scraped, "steps": steps, "wall_s": wall,
+            "stats_update_us_median": statistics.median(us), "stats_update_us_mean": sum(us) / steps,
+            "stats_update_us_p99": us[int(0.99 * (steps - 1))],
+            "host_gap_ms_per_step": (st.step_host_gap_ms_total - gap0) / steps,
+            "scrapes": len(render_s),
+            "render_us_median": statistics.median(render_s) * 1e6 if render_s else None,
+        })
+    eng._finish_step = finish
+    paused = pause_resume_replays(eng)
+    del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"stats_update": runs, "pause_resume": paused}
+
+
+def pause_resume_replays(eng) -> dict:
+    """Through ``AsyncEngine`` on a warmed engine: a request paused after
+    its first token takes no step, and stages, replays and captures
+    nothing while paused; after resume its decode steps replay the graphs
+    captured before (no new capture) and it ends with the tokens of an
+    unpaused run (a 12-token prompt fills no page, so both runs prefill
+    alike)."""
+    import asyncio
+
+    from llmd_tpu_torch.engine import SamplingParams
+    from llmd_tpu_torch.serve.async_engine import AsyncEngine
+
+    prompt = list(range(40, 52))
+    sp = SamplingParams(temperature=0.0, max_tokens=48, ignore_eos=True)
+    (want,) = eng.generate([prompt], sp).values()
+    progs = eng.runner.programs
+
+    def state():
+        return eng.stats.engine_steps_total, set(progs.programs), sum(progs.runs.values())
+
+    async def run():
+        aeng = AsyncEngine(eng)
+        aeng.start(asyncio.get_running_loop())
+        try:
+            stream = aeng.generate("paused", prompt, sp)
+            tokens = list((await stream.__anext__()).new_token_ids)
+            aeng.pause()
+            await asyncio.sleep(0.05)
+            while aeng._step_started is not None:  # a step under way ends
+                await asyncio.sleep(0.001)
+            before = state()
+            await asyncio.sleep(0.5)
+            held = state() == before
+            aeng.resume()
+            async for out in stream:
+                tokens += out.new_token_ids
+            return tokens, held, before, state()
+        finally:
+            aeng.stop()
+
+    tokens, held, before, after = asyncio.run(run())
+    info = {"held_while_paused": held, "programs": len(after[1]),
+            "new_programs_after_resume": len(after[1] - before[1]),
+            "replays_after_resume": after[2] - before[2], "tokens_equal_unpaused": tokens == want}
+    if not held or after[1] != before[1] or after[2] <= before[2] or tokens != want:
+        raise AssertionError(f"pause/resume: {info}")
+    return info
+
+
 def layouts_phase(info: dict) -> None:
     """The tiny f32 model on the card: every step layout gives the flat
     step's streams, greedy and seeded (temperature 0.8)."""
@@ -1304,12 +1446,153 @@ def _post(url: str, body: dict) -> tuple[int, bytes]:
         return r.status, r.read()
 
 
-def serve_phase(info: dict, layout_args: list[str], model: str = MODEL) -> None:
+def _call(url: str, body: dict | None = None, method: str | None = None) -> tuple[int, bytes]:
+    """One HTTP call; an error status is returned, not raised."""
+    data = None if body is None else json.dumps(body).encode()
+    req = urllib.request.Request(url, data=data, method=method or ("GET" if body is None else "POST"),
+                                 headers={"Content-Type": "application/json"})
+    try:
+        with urllib.request.urlopen(req, timeout=300) as r:
+            return r.status, r.read()
+    except urllib.error.HTTPError as e:
+        return e.code, e.read()
+
+
+def _scrape(base: str) -> tuple[dict, float]:
+    """The server's /metrics page, parsed, and the scrape's ms."""
+    from llmd_tpu_torch.serve.metrics import parse_prometheus
+
+    t0 = time.perf_counter()
+    status, raw = _call(base + "/metrics")
+    ms = (time.perf_counter() - t0) * 1e3
+    if status != 200:
+        raise AssertionError(f"/metrics returned {status}")
+    return parse_prometheus(raw.decode()), ms
+
+
+def _stream_chat(base: str, body: dict) -> tuple[list[dict], float]:
+    """A streamed chat completion's frames, and the ms from sending it to
+    its first content chunk (the chat TTFT)."""
+    req = urllib.request.Request(base + "/v1/chat/completions",
+                                 data=json.dumps({**body, "stream": True}).encode(),
+                                 headers={"Content-Type": "application/json"})
+    frames, ttft = [], None
+    t0 = time.perf_counter()
+    with urllib.request.urlopen(req, timeout=300) as r:
+        for raw in r:
+            line = raw.decode().strip()
+            if not line.startswith("data: {"):
+                continue
+            frame = json.loads(line[6:])
+            if ttft is None and frame["choices"] and "content" in frame["choices"][0]["delta"]:
+                ttft = (time.perf_counter() - t0) * 1e3
+            frames.append(frame)
+    return frames, ttft
+
+
+def surface_phase(info: dict, base: str, prompt_600: list[int]) -> None:
+    """The routes llm-d's router and operators drive, on the llama-3-8b
+    server in its default layout (after ``serve_phase``'s requests):
+    /metrics (waiting and running 0; scrape latency), a greedy chat
+    completion unstreamed and streamed (equal text, one chunk a token;
+    chat TTFT), the 600-token prompt again and /v1/cache/probe (37 cached
+    full pages of 16), /metrics again (generation tokens risen by the
+    tokens served, a prefix hit rate, steps), then /admin/pause, /ready
+    503, a request submitted while paused finishing after /admin/resume,
+    and /admin/drain."""
+    scrapes = [_scrape(base) for _ in range(20)]
+    m0 = scrapes[-1][0]
+    lat = sorted(ms for _, ms in scrapes)
+    info.update(scrape_ms_median=statistics.median(lat), scrape_ms_max=lat[-1],
+                metric_series=len(m0))
+    if m0["vllm:num_requests_waiting"] != 0 or m0["vllm:num_requests_running"] != 0:
+        raise AssertionError(f"an idle server reports waiting {m0['vllm:num_requests_waiting']}, "
+                             f"running {m0['vllm:num_requests_running']}")
+    body = {"messages": [{"role": "system", "content": "Answer briefly."},
+                         {"role": "user", "content": "What does a router read from a pod?"}],
+            "max_tokens": 16, "temperature": 0.0, "ignore_eos": True}
+    status, raw = _call(base + "/v1/chat/completions", body)
+    reply = json.loads(raw)
+    if status != 200 or reply["usage"]["completion_tokens"] != 16:
+        raise AssertionError(f"chat completion: {status} {reply}")
+    text = reply["choices"][0]["message"]["content"]
+    served = 16
+    ttfts = []
+    for i in range(5):
+        frames, ttft = _stream_chat(base, body)
+        ttfts.append(ttft)
+        served += 16
+        deltas = [f["choices"][0]["delta"] for f in frames if f["choices"]]
+        content = [d["content"] for d in deltas if "content" in d]
+        if deltas[0] != {"role": "assistant"} or len(content) != 16:
+            raise AssertionError(f"streamed chat: {len(content)} content chunks for 16 tokens")
+        if "".join(content) != text:
+            raise AssertionError("the streamed chat text differs from the unstreamed chat's")
+        if frames[-1]["usage"]["completion_tokens"] != 16:
+            raise AssertionError(f"streamed chat usage {frames[-1]['usage']}")
+    info.update(chat_ttft_ms=ttfts, chat_ttft_ms_median=statistics.median(ttfts),
+                chat_prompt_tokens=reply["usage"]["prompt_tokens"])
+    status, raw = _call(base + "/v1/completions",
+                        {"prompt": prompt_600, "max_tokens": 16, "temperature": 0.0, "ignore_eos": True})
+    if status != 200:
+        raise AssertionError(f"/v1/completions returned {status}")
+    served += json.loads(raw)["usage"]["completion_tokens"]
+    status, raw = _call(base + "/v1/cache/probe", {"prompt": prompt_600})
+    probe = json.loads(raw)
+    info["cache_probe"] = probe
+    if status != 200 or probe != {"cached_full_pages": 37, "page_size": 16, "num_full_pages": 37}:
+        raise AssertionError(f"/v1/cache/probe: {status} {probe}")
+    m1, _ = _scrape(base)
+    gen = m1["vllm:generation_tokens_total"] - m0["vllm:generation_tokens_total"]
+    info.update(generation_tokens_served=gen, prefix_cache_hit_rate=m1["vllm:prefix_cache_hit_rate"],
+                engine_steps_total=m1["vllm:engine_steps_total"],
+                gpu_cache_usage_perc=m1["vllm:gpu_cache_usage_perc"],
+                step_host_gap_ms_mean=m1["vllm:step_host_gap_ms_total"] / m1["vllm:engine_steps_total"])
+    if gen != served or m1["vllm:prefix_cache_hit_rate"] <= 0 or m1["vllm:engine_steps_total"] <= 0:
+        raise AssertionError(f"/metrics after serving {served} tokens: generation +{gen}, hit rate "
+                             f"{m1['vllm:prefix_cache_hit_rate']}, steps {m1['vllm:engine_steps_total']}")
+    if _call(base + "/admin/pause", {})[0] != 200:
+        raise AssertionError("/admin/pause refused")
+    status, raw = _call(base + "/ready")
+    if status != 503 or not json.loads(raw)["paused"]:
+        raise AssertionError(f"/ready while paused: {status} {raw!r}")
+    result = {}
+    paused_body = {"prompt": "Submitted while paused.", "max_tokens": 16, "temperature": 0.0,
+                   "ignore_eos": True}
+    worker = threading.Thread(target=lambda: result.update(
+        reply=_call(base + "/v1/completions", paused_body)))
+    worker.start()
+    time.sleep(1.0)
+    steps_paused = _scrape(base)[0]["vllm:engine_steps_total"]
+    time.sleep(0.5)
+    if not worker.is_alive() or _scrape(base)[0]["vllm:engine_steps_total"] != steps_paused:
+        raise AssertionError("the paused server stepped or finished a request")
+    t0 = time.perf_counter()
+    if _call(base + "/admin/resume", {})[0] != 200:
+        raise AssertionError("/admin/resume refused")
+    worker.join(timeout=120)
+    status, raw = result.get("reply", (None, b""))
+    if status != 200 or json.loads(raw)["usage"]["completion_tokens"] != 16:
+        raise AssertionError(f"the request submitted while paused: {status} {raw[:200]!r}")
+    info["paused_request_s_after_resume"] = time.perf_counter() - t0
+    status, raw = _call(base + "/admin/drain?timeout=30", {})
+    if status != 200 or not json.loads(raw)["drained"]:
+        raise AssertionError(f"/admin/drain: {status} {raw!r}")
+    admin = json.loads(_call(base + "/admin/status")[1])
+    info["admin_status"] = admin
+    if _call(base + "/ready")[0] != 503 or admin != {"paused": False, "running": 0, "waiting": 0}:
+        raise AssertionError(f"after drain: /admin/status {admin}")
+
+
+def serve_phase(info: dict, layout_args: list[str], model: str = MODEL,
+                surface: dict | None = None) -> None:
     """Start the server for ``model`` (with ``layout_args`` appended to its
     command line) and complete a few requests. Every server streams one
     completion and must deliver one chunk per token and the text of the
     same completion unstreamed; a server in its default layout also
-    answers two plain requests, one with a 600-token prompt."""
+    answers two plain requests, one with a 600-token prompt. With
+    ``surface`` (a dict of numbers to report with it), ``surface_phase``
+    then runs on this server as a phase of its own."""
     with socket.socket() as sock:
         sock.bind(("127.0.0.1", 0))
         port = sock.getsockname()[1]
@@ -1376,6 +1659,9 @@ def serve_phase(info: dict, layout_args: list[str], model: str = MODEL) -> None:
             streamed = "".join(f["choices"][0]["text"] for f in frames)
             if streamed != unstreamed:
                 raise AssertionError("the streamed text differs from the unstreamed completion's")
+            if surface is not None:
+                with phase("surface", {"model": model, "layout": "flat step", **surface}) as sinfo:
+                    surface_phase(sinfo, base, bodies[2]["prompt"])
         finally:
             proc.terminate()
             try:
@@ -2534,6 +2820,7 @@ def hybrid_prefix_phase(info: dict, params: dict) -> None:
                               swa_section_captures=st.swa_section_captures, n_pre=n_pre)
             if st.swa_section_hits != 1 or st.swa_section_captures < 1 or out[1][2] != n_pre * 16:
                 raise AssertionError(f"hybrid hit: {info[name]}")
+            info[name]["metrics"] = ring_metrics(eng)
         elif out[1][2] != 4080:
             raise AssertionError(f"the no-ring repeat cached {out[1][2]} tokens, not 4,080")
         del eng
@@ -2544,6 +2831,23 @@ def hybrid_prefix_phase(info: dict, params: dict) -> None:
         info[f"{what}_ring_equals_no_ring"] = equal
         if not equal:
             raise AssertionError(f"the ring engine's {what} run differs from the no-ring engine's")
+
+
+def ring_metrics(eng) -> dict:
+    """The ring engine's /metrics page (``render_metrics``): it carries the
+    ring's series, and ``gpu_cache_usage_perc`` is the binding pool's
+    usage, the larger of the main pool's and the ring pool's."""
+    from llmd_tpu_torch.serve.metrics import parse_prometheus, render_metrics
+
+    page = parse_prometheus(render_metrics(eng.stats, OSS_MODEL))
+    got = {k: page.get(f"vllm:{k}") for k in ("swa_ring_usage_perc", "kv_main_usage_perc",
+                                               "gpu_cache_usage_perc", "swa_ring_pages")}
+    if None in got.values():
+        raise AssertionError(f"the ring engine's page lacks a ring series: {got}")
+    want = round(max(eng.allocator.usage(), eng.swa_allocator.usage()), 6)
+    if got["gpu_cache_usage_perc"] != want or got["swa_ring_usage_perc"] <= 0:
+        raise AssertionError(f"gpu_cache_usage_perc {got}, want the larger pool's {want}")
+    return got
 
 
 def capacity_phase(info: dict, params: dict) -> None:
@@ -2666,6 +2970,9 @@ def main() -> int:
         _, int8_branches, int8_tokens, _ = engine_phase(info, params, kv_dtype="int8")
         compare_greedy(info, int8_tokens, bf16_tokens, gate=True)
         first_token_witness(info, params, MODEL, int8_tokens, bf16_tokens)
+    t_stats = time.perf_counter()
+    surface = stats_update_cost(params)
+    surface["stats_update_s"] = time.perf_counter() - t_stats
     del params
     gc.collect()
     torch.cuda.empty_cache()
@@ -2723,7 +3030,7 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     with phase("serve", {"layout": "flat step"}) as info:
-        serve_phase(info, [])
+        serve_phase(info, [], surface=surface)
     with phase("serve", {"layout": "split engine, decode_window 4"}) as info:
         serve_phase(info, ["--no-unified-step", "--decode-window", "4"])
     with phase("serve", {"model": DS_MODEL, "layout": "default (bucketed unified step)"}) as info:

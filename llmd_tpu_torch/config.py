@@ -206,6 +206,10 @@ class SchedulerConfig:
     # Per-step token budget; longer prompts prefill in chunks of at most
     # this many tokens, so decodes are never starved.
     max_num_batched_tokens: int = 1024
+    # Chunked prefill. Off: a prompt is admitted only whole, in one step's
+    # budget (a longer one is refused at arrival), and waits while it does
+    # not fit what is left of the step's budget.
+    enable_chunked_prefill: bool = True
     # Shape buckets of the bucketed programs, under the JAX package's names
     # so one set of keyword arguments builds either package's config; ()
     # derives powers of two up to the limit (the runner's ``_buckets``).

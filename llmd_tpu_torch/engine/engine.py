@@ -16,8 +16,8 @@ ring pool and, with prefix caching on, the retained sliding-window
 sections of ``SwaSectionCache``: prefix caching becomes hybrid, a hit is
 taken at arrival and only where a retained section can seed the fresh
 ring (``_try_hybrid_ring_hit``). The JAX engine refuses the ring beside
-tiered offload and without chunked prefill; the port has neither (it
-always chunks), so it has no such refusal.
+tiered offload and without chunked prefill; the port has no offload, and
+refuses the ring without chunked prefill as JAX does.
 """
 
 from __future__ import annotations
@@ -142,16 +142,21 @@ class SwaSectionCache:
 
 @dataclasses.dataclass
 class EngineStats:
-    """Counters of the engine's work, updated every step."""
+    """What ``serve/metrics.py:render_metrics`` reads: the router's metrics
+    contract (JAX ``engine.py:170 EngineStats``). The engine thread writes
+    these plain ints and floats; a scrape on the event loop reads each
+    atomically, with no lock on the step path. Fields of features the port
+    does not have yet (offload, KV store and federation, P/D transfer, the
+    decode pager, the batch tier, LoRA, speculative decoding, wide EP)
+    stay at 0 or empty, so the page carries the JAX engine's names."""
 
-    engine_steps_total: int = 0
-    # Device programs enqueued: one per unified step, per prefill Q-bucket
-    # group and per decode window.
-    step_dispatches_total: int = 0
-    # Programs that carried decode rows.
-    decode_dispatches_total: int = 0
-    # Steps that ran as one unified program.
-    unified_steps_total: int = 0
+    # Gauges, refreshed once a step (``_refresh_gauges``).
+    num_waiting: int = 0
+    num_running: int = 0
+    kv_usage: float = 0.0
+    prefix_hit_ratio: float = 0.0
+    num_pages: int = 0
+    page_size: int = 0
     # The sliding-window ring: the ring pool's used share and pages, and
     # the retained sections (entries, hybrid hits, captures).
     swa_ring_usage: float = 0.0
@@ -159,6 +164,84 @@ class EngineStats:
     swa_sections: int = 0
     swa_section_hits: int = 0
     swa_section_captures: int = 0
+    # Counters of the engine's work.
+    prompt_tokens: int = 0
+    generation_tokens: int = 0
+    requests_finished: int = 0
+    preemptions: int = 0
+    engine_steps_total: int = 0
+    # Host time of the last step and its running sum: scheduling, staging
+    # and dispatch, then the work after the readback (the time the device
+    # waits on the host); not the wait for the readback itself.
+    step_host_gap_ms: float = 0.0
+    step_host_gap_ms_total: float = 0.0
+    # Device programs enqueued: one per unified step, per prefill Q-bucket
+    # group and per decode window.
+    step_dispatches_total: int = 0
+    # Programs that carried decode rows, and their count per generated token.
+    decode_dispatches_total: int = 0
+    dispatches_per_emitted_token: float = 0.0
+    # Steps that ran as one unified program.
+    unified_steps_total: int = 0
+    # Tokens the programs computed for real, and the pads their shapes added.
+    live_tokens_total: int = 0
+    padded_tokens_total: int = 0
+    # Step watchdog trips (``serve/async_engine.py``).
+    engine_watchdog_stalls_total: int = 0
+    # Features the port does not have yet: always 0 or empty here.
+    offload_pages: int = 0
+    offload_fs_pages: int = 0
+    offload_saves: int = 0
+    offload_restores: int = 0
+    kvstore_pulls: int = 0
+    kvstore_pull_failures: int = 0
+    kvstore_misses: int = 0
+    kv_federation_published: int = 0
+    kv_federation_hits: int = 0
+    recompute_avoided_tokens: int = 0
+    kv_exported_requests: int = 0
+    kv_exported_bytes: int = 0
+    kv_imported_requests: int = 0
+    kv_imported_bytes: int = 0
+    kv_import_failures: int = 0
+    kv_stream_groups_total: int = 0
+    kv_stream_first_group_ms: float = 0.0
+    kv_publish_paced_bytes_total: int = 0
+    kv_transfer_failures: tuple = ()
+    kv_bundle_crc_failures_total: int = 0
+    kv_recompute_fallbacks_total: int = 0
+    kv_paged_out_bytes: int = 0
+    kv_pager_prefetch_late_total: int = 0
+    cp_ring_steps_total: int = 0
+    async_rollbacks_total: int = 0
+    stream_resumes_total: int = 0
+    resume_replayed_tokens_total: int = 0
+    stream_resume_failures_total: int = 0
+    batch_backlog_jobs: int = 0
+    batch_tokens: int = 0
+    batch_preemptions: int = 0
+    batch_backfill_utilization: float = 0.0
+    max_lora: int = 0
+    running_lora_adapters: tuple = ()
+    waiting_lora_adapters: tuple = ()
+    resident_lora_adapters: tuple = ()
+    available_lora_adapters: tuple = ()
+    lora_pool_resident_adapters: int = 0
+    lora_pool_evictions_total: int = 0
+    lora_cold_loads_total: int = 0
+    lora_load_failures_total: int = 0
+    spec_proposed_tokens_total: int = 0
+    spec_accepted_tokens_total: int = 0
+    spec_acceptance_rate: float = 0.0
+    spec_accepted_len_hist: tuple = ()
+    spec_window_iters_total: int = 0
+    spec_window_early_exit_total: int = 0
+    spec_row_depth_hist: tuple = ()
+    moe_expert_tokens: tuple = ()
+    moe_dropped_slots_total: int = 0
+    moe_peak_demand: float = 0.0
+    moe_capacity_factor: float = 0.0
+    moe_rebalances_total: int = 0
 
 
 class LLMEngine:
@@ -172,6 +255,12 @@ class LLMEngine:
         self.device = resolve_device(device)
         cache = config.cache
         spec = swa_ring_spec(config.model, cache, config.scheduler)
+        if spec is not None and not config.scheduler.enable_chunked_prefill:
+            raise ValueError(
+                "kv_swa_ring requires chunked prefill: a whole-prompt chunk "
+                "can exceed the span the ring is sized for "
+                "(SwaRingSpec.chunk_tokens)"
+            )
         prefix_caching = cache.enable_prefix_caching
         if spec is not None and cache.swa_section_cache <= 0:
             # No retained section, so no usable hit: hash nothing.
@@ -204,7 +293,7 @@ class LLMEngine:
                 self.swa_allocator, self.runner, cache.swa_section_cache, retention)
             self.scheduler.prefill_complete_hook = self._capture_swa_section
             self.scheduler.ring_pressure_hook = self._swa_sections.evict_one
-        self.stats = EngineStats()
+        self.stats = EngineStats(num_pages=cache.num_blocks, page_size=cache.page_size)
         self._counter = itertools.count()
 
     def add_request(
@@ -223,6 +312,13 @@ class LLMEngine:
             raise ValueError(
                 f"prompt length {len(prompt_token_ids)} >= max_model_len "
                 f"{self.config.model.max_model_len}"
+            )
+        sched = self.config.scheduler
+        if (not sched.enable_chunked_prefill
+                and len(prompt_token_ids) > sched.max_num_batched_tokens):
+            raise ValueError(
+                f"prompt length {len(prompt_token_ids)} > max_num_batched_tokens "
+                f"{sched.max_num_batched_tokens} and chunked prefill is disabled"
             )
         rid = request_id or f"req-{next(self._counter)}-{uuid.uuid4().hex[:8]}"
         req = Request(
@@ -301,6 +397,21 @@ class LLMEngine:
     def abort_request(self, request_id: str) -> bool:
         return self.scheduler.abort_request(request_id) is not None
 
+    def cached_prefix_pages(self, prompt_token_ids: list[int]) -> int:
+        """Leading full pages of this prompt that the device prefix cache
+        holds (JAX ``engine.py:1033``): the P/D sidecar's probe before a
+        transfer. The port has no host tier yet, so only the device cache
+        counts. Called off the engine thread: each lookup is one dict
+        membership test, which takes no reference and moves nothing, and
+        a probe racing a step sees the cache before or after it."""
+        hashes = page_hashes_for_tokens(list(prompt_token_ids), self.allocator.page_size)
+        n = 0
+        for h in hashes:
+            if not self.allocator.has_cached(h):
+                break
+            n += 1
+        return n
+
     def has_work(self) -> bool:
         return self.scheduler.has_work()
 
@@ -311,6 +422,7 @@ class LLMEngine:
         return self.runner.warmup()
 
     def step(self) -> list[RequestOutput]:
+        t0 = time.perf_counter()
         batch: ScheduledBatch = self.scheduler.schedule()
         if batch.is_empty:
             return []
@@ -328,21 +440,47 @@ class LLMEngine:
                 self.stats.step_dispatches_total += len(pend_p.entries)
             if batch.decodes:
                 pend_d = self._dispatch_decodes(batch.decodes)
+        self.stats.prompt_tokens += sum(s.num_tokens for s in batch.prefills)
+        t_dispatched = time.perf_counter()
         # One readback for the whole step, whatever it dispatched.
         pres, dres = self.runner.wait_step(pend_p, pend_d, pend_u)
+        t_read = time.perf_counter()
         sampled, logprobs = self._collect(batch, pres, dres)
         accepted = self.scheduler.update_after_step(batch, sampled)
         outputs = self._assemble_outputs(batch, accepted, logprobs, now)
+        self._finish_step((t_dispatched - t0) + (time.perf_counter() - t_read))
+        return outputs
+
+    def _finish_step(self, host_gap_s: float) -> None:
+        """Count the step and its host gap (JAX ``engine.py:1891``), then
+        refresh the gauges."""
+        gap_ms = host_gap_s * 1e3
         self.stats.engine_steps_total += 1
+        self.stats.step_host_gap_ms = round(gap_ms, 3)
+        self.stats.step_host_gap_ms_total = round(self.stats.step_host_gap_ms_total + gap_ms, 3)
+        self._refresh_gauges()
+
+    def _refresh_gauges(self) -> None:
+        """The gauges of ``EngineStats`` from the scheduler, the allocators
+        and the runner, once a step (JAX ``engine.py:1947``)."""
+        st = self.stats
+        st.num_waiting = self.scheduler.num_waiting
+        st.num_running = self.scheduler.num_running
+        st.kv_usage = self.allocator.usage()
         if self.swa_allocator is not None:
-            self.stats.swa_ring_usage = self.swa_allocator.usage()
-            self.stats.swa_ring_pages = self.swa_allocator.num_pages
+            st.swa_ring_usage = self.swa_allocator.usage()
+            st.swa_ring_pages = self.swa_allocator.num_pages
             if self._swa_sections is not None:
                 sec = self._swa_sections
-                self.stats.swa_sections = len(sec)
-                self.stats.swa_section_hits = sec.hits
-                self.stats.swa_section_captures = sec.captures
-        return outputs
+                st.swa_sections = len(sec)
+                st.swa_section_hits = sec.hits
+                st.swa_section_captures = sec.captures
+        st.prefix_hit_ratio = self.allocator.hit_ratio()
+        st.preemptions = self.scheduler.num_preemptions
+        st.live_tokens_total = self.runner.live_tokens_total
+        st.padded_tokens_total = self.runner.padded_tokens_total
+        st.dispatches_per_emitted_token = round(
+            st.decode_dispatches_total / max(1, st.generation_tokens), 6)
 
     def _unified_eligible(self, batch: ScheduledBatch) -> bool:
         """Does this batch ride the unified single-dispatch program?
@@ -391,6 +529,7 @@ class LLMEngine:
         now: float,
     ) -> list[RequestOutput]:
         outputs: list[RequestOutput] = []
+        finished = 0
         for seq in batch.seqs:
             req = seq.request
             new_tokens = accepted.get(req.request_id)
@@ -402,6 +541,8 @@ class LLMEngine:
                 req.output_logprobs.extend(
                     logprobs[req.request_id][: len(new_tokens)]
                 )
+            self.stats.generation_tokens += len(new_tokens)
+            finished += int(req.is_finished)
             outputs.append(
                 RequestOutput(
                     request_id=req.request_id,
@@ -413,6 +554,7 @@ class LLMEngine:
                     num_cached_tokens=req.num_cached_tokens,
                 )
             )
+        self.stats.requests_finished += finished
         return outputs
 
     def generate(

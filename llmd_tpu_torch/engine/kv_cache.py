@@ -95,6 +95,11 @@ class PageAllocator:
             n += 1
         return n
 
+    def has_cached(self, content_hash: bytes) -> bool:
+        """Whether a page holds this content: a lookup that takes no
+        reference, counts no query and moves nothing in the LRU."""
+        return content_hash in self._cached
+
     def lookup_and_touch_hashes(self, hashes: Sequence[bytes]) -> list[int]:
         """The leading run of cached pages of a hash chain the caller
         already holds, referenced."""

@@ -4,7 +4,8 @@ The port of ``llmd_tpu/engine/scheduler.py:EngineScheduler.schedule`` for
 the synchronous step: every engine step selects a token budget's worth of
 work — one token per running decode sequence, then prompt chunks for
 sequences mid-prefill, then admissions from the waiting queue (chunked
-prefill, so long prompts never starve decodes). Preemption is
+prefill, so long prompts never starve decodes; with
+``enable_chunked_prefill`` off a prompt is admitted only whole). Preemption is
 recompute-style: when KV pages run out, the youngest running sequence is
 evicted, its pages freed, and it restarts from the waiting queue with its
 generated tokens folded into the prompt.
@@ -117,6 +118,14 @@ class EngineScheduler:
                     return req
         return None
 
+    @property
+    def num_waiting(self) -> int:
+        return len(self.waiting)
+
+    @property
+    def num_running(self) -> int:
+        return len(self.running)
+
     def has_work(self) -> bool:
         return bool(self.waiting or self.running)
 
@@ -204,6 +213,9 @@ class EngineScheduler:
             chunk = self._chunk(req, budget)
             if chunk <= 0:
                 break
+            if (not self.config.enable_chunked_prefill
+                    and chunk < req.num_prompt_tokens - req.num_computed_tokens):
+                break  # whole-prompt admission only
             if not self._ensure_ring(req):
                 # Out of ring pages; retry next step. (The JAX scheduler
                 # also takes a waiting preload's ring here; the port has no

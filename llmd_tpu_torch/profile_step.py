@@ -28,8 +28,9 @@ one stream, so kernels do not overlap), the device's idle share, kernel
 launches per step, device milliseconds per step by group (the port's
 kernels, GEMMs, the rest), the costliest other kernels, the same host and
 device times per token of a decode row, so that the fused window stands
-beside the flat decode step, and the live tokens a second at the untraced
-step time; the decode line also carries the host cost of building and
+beside the flat decode step, the live tokens a second at the untraced
+step time, and the engine's host gap a step (``EngineStats``) beside the
+untraced host time; the decode line also carries the host cost of building and
 staging a flat decode step's static inputs (``staging_us``). The profiler adds host time to every operator, so each
 window's steps are also timed without it (``untraced_host_ms_per_step``),
 before the profiler first starts. Runs on a GPU only.
@@ -75,14 +76,18 @@ def _group(kernel: str) -> str:
     return "other"
 
 
-def time_steps(eng: LLMEngine, n: int) -> float:
-    """Host milliseconds per step of ``n`` engine steps, profiler off."""
+def time_steps(eng: LLMEngine, n: int) -> tuple[float, float]:
+    """Host milliseconds per step of ``n`` engine steps, profiler off, and
+    the engine's own count of their host gap (``EngineStats.step_host_gap_ms``:
+    the step's host work outside the wait for its readback), per step."""
+    gap0 = eng.stats.step_host_gap_ms_total
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     for _ in range(n):
         eng.step()
     torch.cuda.synchronize()
-    return (time.perf_counter() - t0) * 1e3 / n
+    ms = (time.perf_counter() - t0) * 1e3 / n
+    return ms, (eng.stats.step_host_gap_ms_total - gap0) / n
 
 
 def trace_steps(eng: LLMEngine, n: int, untraced_ms: float) -> dict:
@@ -257,9 +262,9 @@ def main(argv=None) -> None:
     for name, (eng, n) in steps.items():
         untraced[name] = time_steps(eng, n)
     staging = staging_us(steps["decode"][0])
-    windows = {"prefill": trace_steps(prefilling(loaded_engine("prefill")), 1, untraced["prefill"])}
+    windows = {"prefill": trace_steps(prefilling(loaded_engine("prefill")), 1, untraced["prefill"][0])}
     for name, (eng, n) in steps.items():
-        windows[name] = trace_steps(eng, n, untraced[name])
+        windows[name] = trace_steps(eng, n, untraced[name][0])
     for name, w in windows.items():
         replays = {str(k): n for k, n in steps[name][0].runner.programs.runs.items()} if name in steps else {}
         print(json.dumps({"window": name, "model": args.model, "batch": args.batch,
@@ -267,6 +272,7 @@ def main(argv=None) -> None:
                           "kv_swa_ring": args.kv_swa_ring,
                           "prompt_len": args.prompt_len, "card": card, **warmups[name],
                           "graph_replays": replays,
+                          "untraced_host_gap_ms_per_step": untraced[name][1],
                           **({"host_staging": staging} if name == "decode" else {}), **w}),
               flush=True)
 

@@ -4,7 +4,7 @@ Where ``python -m llmd_tpu.serve`` has a flag, the port uses its name
 (``--model``, ``--host``, ``--port``, ``--max-num-seqs``,
 ``--max-num-batched-tokens``, ``--seed``, ``--decode-window``,
 ``--unified-step``, ``--ragged-qlens``, ``--kv-cache-dtype``,
-``--kv-swa-ring``, ``--skip-warmup``). The model's weights are random, drawn on the device
+``--kv-swa-ring``, ``--skip-warmup``, ``--step-watchdog-s``). The model's weights are random, drawn on the device
 from ``--seed``; the byte tokenizer keeps the server hermetic. Before it
 serves, the engine builds its kernels and captures its decode steps as
 CUDA graphs (``LLMEngine.warmup``) unless ``--skip-warmup`` is given; a
@@ -67,6 +67,12 @@ def build_parser() -> argparse.ArgumentParser:
         help="serve without preparing the decode steps' programs first; "
              "each is then captured at its first use",
     )
+    p.add_argument(
+        "--step-watchdog-s", type=float, default=0.0,
+        help="fail in-flight streams and turn /health and /ready 503 when "
+             "an engine step runs longer than this many seconds (0 = off; "
+             "armed after the first step)",
+    )
     p.add_argument("--device", default="cuda")
     return p
 
@@ -110,7 +116,7 @@ def main(argv=None) -> None:
         n = engine.warmup()
         logging.info("warmup prepared %d decode programs (CUDA graphs on the card)", n)
     app = build_app(
-        AsyncEngine(engine), ByteTokenizer(), args.model, config.model.max_model_len
+        AsyncEngine(engine, watchdog_s=args.step_watchdog_s), ByteTokenizer(), args.model, config.model.max_model_len
     )
     web.run_app(app, host=args.host, port=args.port)
 

@@ -4,6 +4,11 @@ The engine steps on a dedicated thread; request submission and
 incremental outputs cross the thread boundary through a lock-guarded
 inbox and per-request asyncio queues. The asyncio side never blocks on
 device work.
+
+Besides the requests it carries the engine-coordination surface of the JAX
+package's ``AsyncEngine``: pause, resume and drain (the resilience
+operator's), readiness, and the step watchdog, which fails in-flight
+streams and turns ``/health`` 503 when a step outlives its budget.
 """
 
 from __future__ import annotations
@@ -11,6 +16,7 @@ from __future__ import annotations
 import asyncio
 import logging
 import threading
+import time
 from dataclasses import dataclass
 from typing import AsyncIterator
 
@@ -36,15 +42,34 @@ class EngineError(Exception):
     """Internal engine failure (device fault); maps to HTTP 500."""
 
 
+class WatchdogStalled(EngineError):
+    """A step outlived the watchdog's budget: the device program is
+    wedged. In-flight streams get this as a terminal frame instead of
+    hanging."""
+
+
 class AsyncEngine:
     """Runs an LLMEngine on a background thread with an asyncio surface."""
 
-    def __init__(self, engine: LLMEngine) -> None:
+    def __init__(self, engine: LLMEngine, watchdog_s: float = 0.0) -> None:
         self.engine = engine
+        # Step watchdog budget in seconds (0: off). It arms once a step has
+        # completed: the first step builds kernels, the startup probe's
+        # business.
+        self.watchdog_s = watchdog_s or 0.0
+        self._step_started: float | None = None
+        self._steps_done = 0
+        self._stall_flagged = False
+        self._watchdog_task: asyncio.Task | None = None
+        # Set by drain(): /ready turns 503 before the engine goes away.
+        self.draining = False
         self._lock = threading.Condition()
         self._inbox: list[_Pending] = []  # guarded by _lock
         self._aborts: list[str] = []  # guarded by _lock
         self._stop = False  # guarded by _lock
+        # A paused engine does not step: in-flight sequences keep their KV
+        # and go on after resume.
+        self._paused = False  # guarded by _lock
         # request_id -> asyncio.Queue of RequestOutput | Exception
         self._subs: dict[str, asyncio.Queue] = {}  # guarded by _lock
         self._loop: asyncio.AbstractEventLoop | None = None
@@ -56,8 +81,13 @@ class AsyncEngine:
             target=self._run, name="llmd-torch-engine", daemon=True
         )
         self._thread.start()
+        if self.watchdog_s:
+            self._watchdog_task = loop.create_task(self._watchdog_loop())
 
     def stop(self) -> None:
+        if self._watchdog_task is not None:
+            self._watchdog_task.cancel()
+            self._watchdog_task = None
         with self._lock:
             self._stop = True
             self._lock.notify_all()
@@ -65,8 +95,88 @@ class AsyncEngine:
             self._thread.join(timeout=30)
 
     @property
+    def stats(self):
+        return self.engine.stats
+
+    @property
+    def stalled(self) -> bool:
+        """Whether the current step has outlived the watchdog's budget."""
+        if not self.watchdog_s or not self._steps_done:
+            return False
+        t0 = self._step_started
+        return t0 is not None and time.monotonic() - t0 > self.watchdog_s
+
+    @property
     def ready(self) -> bool:
-        return self._thread is not None and self._thread.is_alive()
+        """Readiness (beside /health's liveness): the engine thread is up,
+        stepping within budget, neither paused nor draining. Each flag is
+        one atomic read: a probe racing pause() reports either state."""
+        return (
+            self._thread is not None
+            and self._thread.is_alive()
+            and not self._paused
+            and not self.draining
+            and not self.stalled
+        )
+
+    async def _watchdog_loop(self) -> None:
+        period = max(self.watchdog_s / 4.0, 0.05)
+        while True:
+            await asyncio.sleep(period)
+            if not self.stalled:
+                continue
+            if not self._stall_flagged:
+                self._stall_flagged = True
+                self.engine.stats.engine_watchdog_stalls_total += 1
+                log.error(
+                    "engine step watchdog: step running > %.1fs; failing "
+                    "in-flight streams and turning /health 503",
+                    self.watchdog_s,
+                )
+            # Terminal frames for every in-flight stream; their sequences
+            # are queued for abort, so a recovering engine does not spend
+            # device time on abandoned requests.
+            with self._lock:
+                subs, self._subs = dict(self._subs), {}
+                self._aborts.extend(subs)
+                self._lock.notify_all()
+            err = WatchdogStalled(
+                f"engine step exceeded the {self.watchdog_s}s watchdog "
+                "budget; the engine is wedged"
+            )
+            for q in subs.values():
+                q.put_nowait(err)
+
+    @property
+    def paused(self) -> bool:
+        return self._paused
+
+    def pause(self) -> None:
+        with self._lock:
+            self._paused = True
+            self._lock.notify_all()
+
+    def resume(self) -> None:
+        with self._lock:
+            self._paused = False
+            self.draining = False  # a resumed engine serves again
+            self._lock.notify_all()
+
+    async def drain(self, timeout_s: float = 60.0) -> bool:
+        """Wait until no request is queued or running; whether it got
+        there within ``timeout_s``. /ready turns 503 here, so the gateway
+        stops routing before the engine goes away; new submissions are
+        still accepted (callers gate them upstream)."""
+        self.draining = True
+        loop = asyncio.get_running_loop()
+        deadline = loop.time() + timeout_s
+        while loop.time() < deadline:
+            with self._lock:
+                idle = not self._inbox and not self.engine.has_work()
+            if idle:
+                return True
+            await asyncio.sleep(0.05)
+        return False
 
     def submit(
         self,
@@ -131,8 +241,9 @@ class AsyncEngine:
     def _run(self) -> None:
         while True:
             with self._lock:
-                while not self._stop and not (
-                    self._inbox or self._aborts or self.engine.has_work()
+                while not self._stop and (
+                    self._paused
+                    or not (self._inbox or self._aborts or self.engine.has_work())
                 ):
                     self._lock.wait()
                 if self._stop:
@@ -152,6 +263,8 @@ class AsyncEngine:
             if not self.engine.has_work():
                 continue
             try:
+                # The watchdog's heartbeat brackets the one blocking call.
+                self._step_started = time.monotonic()
                 outputs = self.engine.step()
             # The loop must survive a failed step: every subscriber gets
             # the failure as a terminal item (HTTP 500) and its request is
@@ -164,5 +277,9 @@ class AsyncEngine:
                     self._deliver(rid, EngineError("engine step failed"))
                     self.engine.abort_request(rid)
                 continue
+            finally:
+                self._step_started = None
+                self._steps_done += 1
+                self._stall_flagged = False
             for out in outputs:
                 self._deliver(out.request_id, out)

@@ -4,8 +4,9 @@
     python3 chip_smoke.py
 
 Builds the port's CUDA kernels from ``llmd_tpu_torch/ops/csrc`` and drives
-its main paths at the full width of llama-3-8b, deepseek-v2-lite and
-gpt-oss-20b (random weights from a seed):
+its main paths at the full width of llama-3-8b, deepseek-v2-lite,
+gpt-oss-20b and qwen3-32b (random weights from a seed; llama-3-8b's also
+through an HF checkpoint):
 
 1. ``device``  the card's name, and its name and power limit from nvidia-smi.
 2. ``build``   nvcc of every kernel source, all started together.
@@ -43,6 +44,11 @@ gpt-oss-20b (random weights from a seed):
                version (one bf16 ulp; writes bit-equal) and timed beside its
                bound (the live, in-window positions; int8 at half the bytes
                plus the scales), the plain version and a library call.
+3c. ``qwen_kernels`` K1'-K4' at qwen3-32b shapes (H 64, K 8, D 128,
+               64-layer pool) on the steps of 3 (K1' and K2' on the mixed and
+               the prefill-only flat step, K3' and K4' on the decode step),
+               q and k of the fused writes coming out of Qwen3's QK norm;
+               held and timed as in 3.
 5. ``engine``  ``LLMEngine`` serving 8 greedy requests (chunked prefill and
                a prefix-cache hit included), four times: on the flat step
                (the flat pair must launch layers x steps times each); as
@@ -69,6 +75,14 @@ gpt-oss-20b (random weights from a seed):
                back once. Then the host µs a step that the engine's stats
                update costs, on the flat step, alone and with a /metrics
                page rendered every millisecond (``stats_update_cost``).
+5b. ``checkpoint`` llama-3-8b's tree written as an HF checkpoint directory
+               (``write_hf_checkpoint``: config.json, safetensors shards of
+               at most 5 GB, under ``build/``) and loaded back with the
+               port's ``load_params(..., device="cuda")``: every leaf
+               bit-equal, write and load seconds, GB/s, the host's peak
+               RSS; a runner built from the directory holds its tree bit
+               for bit, and its peak device memory to the tree and pool
+               plus 2 GB.
 6. ``layouts`` the tiny f32 model on the card: the flat step, the split
                engine with windows, the flat step with windows and the
                bucketed unified step give identical greedy and seeded
@@ -114,14 +128,24 @@ gpt-oss-20b (random weights from a seed):
     ``capacity`` 12 requests of 16,384 + 128 tokens at equal KV bytes
                (3.27 GB) with and without the ring: more sequences must
                decode at once with it.
+    qwen3-32b (64 layers, 65.5 GB of bf16 weights) at full width and
+    depth: ``runner_init`` (peak device memory of a runner drawing the tree
+    from the seed, as in 5b), then ``engine`` on the flat step and as the
+    split engine with windows of 8, as in 5, on a 1,024-page pool.
 12. ``serve``  ``python -m llmd_tpu_torch.serve`` answering three
                ``/v1/completions`` requests (one streamed), then a second
                server with ``--no-unified-step --decode-window 4`` whose
                streamed completion carries one chunk per token and the
                unstreamed completion's text, then deepseek-v2-lite,
                gpt-oss-20b (and again with ``--kv-swa-ring``) and
-               llama-3-8b with ``--kv-cache-dtype int8`` servers. Each server runs ``warmup`` (its decode steps are
-               graph replays) before it answers.
+               llama-3-8b with ``--kv-cache-dtype int8`` servers; the
+               llama-3-8b checkpoint directory served with the chart's
+               flags (``--served-model-name``, ``--max-model-len``,
+               ``--block-size``, ``--tokenizer byte``), whose answers must
+               equal the first llama server's text for text; and
+               qwen3-32b. ``/v1/models`` must report each server's name
+               and 8,192 tokens. Each server runs ``warmup`` (its decode
+               steps are graph replays) before it answers.
     ``surface`` on the first llama-3-8b server: the routes llm-d's router
                and operators drive (``surface_phase``): /metrics, chat
                completions streamed and not, /v1/cache/probe, the admin
@@ -143,8 +167,10 @@ import contextlib
 import gc
 import json
 import os
+import shutil
 import socket
 import statistics
+import struct
 import subprocess
 import sys
 import threading
@@ -304,7 +330,7 @@ def attention_plan(kind: str, step: dict, H: int, K: int, page: int, window: int
 
 
 def flat_attention_row(name: str, q, pool, layer: int, s: dict, page: int) -> dict:
-    """K1' on the flat step ``s`` (llama-3-8b shapes): within one bf16 ulp
+    """K1' on the flat step ``s``: within one bf16 ulp
     of the plain version (outside_one_ulp), pads zero; timed with the
     step's query tiles built once, beside its bound, the plain version and
     SDPA. The bound: every row's distinct live K|V read once, q read, out
@@ -355,11 +381,13 @@ WRITE_SOURCES = {
 
 
 def rope_write_case(name: str, kind: str, cfg, data, scales, layer: int, step: dict,
-                    bias: bool, g) -> dict:
+                    bias: bool, g, qk_norm: bool = False) -> dict:
     """The fused K2' ("flat", on a flat step) or K4' ("decode", on a decode
     batch) at ``cfg``'s widths: q, k and v are views of one bf16 q|k|v
     projection output, with seeded biases (scale 0.02) where ``bias``, the
-    cos/sin of ``cfg``'s rope at the step's positions. Held bit for bit to
+    cos/sin of ``cfg``'s rope at the step's positions; with ``qk_norm``, q
+    and k come out of Qwen3's per-head RMS norm (seeded weights) as tensors
+    of their own, as the model passes them. Held bit for bit to
     its plain version (bias, ``apply_rope``, the plain store) in the rotated
     q of every row, the pool's bytes and an int8 pool's scales, and so is
     the unfused path it replaces (plain bias and rope, then the store-only
@@ -372,7 +400,7 @@ def rope_write_case(name: str, kind: str, cfg, data, scales, layer: int, step: d
     k and v in and their pool rows out (int8: a byte an element and 8 bytes
     of scales a head), the biases, the cos/sin rows and the addressing."""
     from llmd_tpu_torch import ops
-    from llmd_tpu_torch.models.common import apply_rope, rope_tables
+    from llmd_tpu_torch.models.common import apply_rope, rms_norm, rope_tables
 
     dev, dt = data.device, torch.bfloat16
     K, page, D = data.shape[2], data.shape[3], data.shape[4] // 2
@@ -391,6 +419,9 @@ def rope_write_case(name: str, kind: str, cfg, data, scales, layer: int, step: d
     v = qkv[:, (Nq + K) * D :].view(N, K, D)
     b = (tuple(torch.randn((n * D,), generator=g, device=dev).mul_(0.02).to(dt) for n in (Nq, K, K))
          if bias else None)
+    if qk_norm:
+        wq, wk = (1 + 0.1 * torch.randn((2, D), generator=g, device=dev)).to(dt)
+        q, k = rms_norm(q, wq, cfg.rms_norm_eps), rms_norm(k, wk, cfg.rms_norm_eps)
     cos, sin = rope_tables(positions, D, cfg.rope_theta, cfg.rope_scaling)
     pool = data if scales is None else (data, scales)
 
@@ -552,23 +583,19 @@ def decode_kernels_phase(info: dict) -> dict:
     """K3' and K4' on one decode step of the batch bucket 64: 48 live rows
     at contexts spread over 1,024-4,096 tokens, then 16 pad rows
     (valid = 0, kv_len = 0, a garbage physical page)."""
-    from llmd_tpu_torch import ops
     from llmd_tpu_torch.models.registry import get_model_config
 
     cfg = get_model_config(MODEL)
     dev, dt = torch.device("cuda"), torch.bfloat16
     L, K, H, D, page = cfg.num_layers, cfg.num_kv_heads, cfg.num_heads, cfg.head_dim, 16
     d = decode_batch(cfg, page, 1024, 4096, torch.Generator().manual_seed(4321), dev)
-    B, n_live, ctx, num_pages = d["B"], d["n_live"], d["ctx"], d["num_pages"]
-    page_table, kv_lens = d["page_table"], d["kv_lens"]
+    B, num_pages = d["B"], d["num_pages"]
     layer = L // 2
     g = torch.Generator(device=dev).manual_seed(77)
     pool = torch.randn((L, num_pages, K, page, 2 * D), generator=g, device=dev, dtype=dt)
     q = torch.randn((B, 1, H, D), generator=g, device=dev, dtype=dt)
-    es = pool.element_size()
-    live_pages = d["live_pages"]
-    info.update(batch=B, live_rows=n_live, context_tokens=sum(ctx), pool_pages=num_pages,
-                pool_gib=pool.numel() * es / 2**30, layers=L)
+    info.update(batch=B, live_rows=d["n_live"], context_tokens=sum(d["ctx"]), pool_pages=num_pages,
+                pool_gib=pool.numel() * pool.element_size() / 2**30, layers=L)
     out = []
 
     # --- K4' in its fused form: the rotated q, pool bytes equal the plain
@@ -576,41 +603,51 @@ def decode_kernels_phase(info: dict) -> dict:
     out.append(rope_write_case("decode_kv_write[rope]", "decode", cfg, pool, None, layer, d,
                                False, g))
 
-    # --- K3': decode paged attention, within one bf16 ulp of the plain
-    # version (outside_one_ulp). Pad rows are exactly zero.
-    aargs = (q, pool, layer, page_table, kv_lens)
+    # --- K3': decode paged attention.
+    out.append(decode_attention_row("decode_paged_attention", q, pool, layer, d, page))
+    for e in out:
+        info[e["name"]] = {key: e[key] for key in WRITE_KEYS + ("items", "spans") if key in e}
+    return {e["name"]: e for e in out}
+
+
+def decode_attention_row(name: str, q, pool, layer: int, d: dict, page: int) -> dict:
+    """K3' on the decode batch ``d``: within one bf16 ulp of the plain
+    version (outside_one_ulp), pad rows exactly zero; timed beside its
+    bound, the plain version and SDPA. The bound: every live row's K|V
+    read once, q read, out written; operations: QK and PV, 2 flops per
+    multiply-add."""
+    from llmd_tpu_torch import ops
+
+    B, _, H, D = q.shape
+    K, es = pool.shape[2], pool.element_size()
+    n_live, ctx, live_pages = d["n_live"], d["ctx"], d["live_pages"]
+    aargs = (q, pool, layer, d["page_table"], d["kv_lens"])
     got = ops.decode_paged_attention_full(*aargs)
     want = ops.decode_paged_attention_plain(*aargs, live_pages=live_pages)
     torch.cuda.synchronize()
     err, bad = outside_one_ulp(got, want)
     if bad:
-        raise AssertionError(f"decode_paged_attention: max abs err {err} vs plain")
+        raise AssertionError(f"{name}: max abs err {err} vs plain")
     if got[n_live:].any():
-        raise AssertionError("decode_paged_attention: a pad row is not zero")
-    del want
-    # Bound: every live row's K|V read once, q read, out written;
-    # operations: QK and PV, 2 flops per multiply-add.
+        raise AssertionError(f"{name}: a pad row is not zero")
+    del got, want
     kv_bytes = sum(ctx) * K * 2 * D * es
     qo_bytes = 2 * B * H * D * es
     b_ms, b_by = bound(kv_bytes + qo_bytes, 4.0 * H * D * sum(ctx))
-    spec = {"rows_spec": [(c - 1, 1) for c in ctx], "page_table": page_table}
+    spec = {"rows_spec": [(c - 1, 1) for c in ctx], "page_table": d["page_table"]}
     lib_ms = _sdpa_yardstick(q[:n_live], pool, layer, spec, page)
     times = kernel_times(lambda: ops.decode_paged_attention_full(*aargs))
-    ms = times["ms"]
     plan = attention_plan("decode", d, H, K, page)
-    out.append({
-        "name": "decode_paged_attention", "route": "cuda",
+    return {
+        "name": name, "route": "cuda",
         "source": "llmd_tpu_torch/ops/csrc/decode_paged_attention.cu",
         "replaces": "llmd_tpu/ops/ragged_paged_attention.py:463",
         "max_abs_err": err, **times,
         "plain_ms": cuda_ms(
             lambda: ops.decode_paged_attention_plain(*aargs, live_pages=live_pages), reps=10),
         "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms,
-        "bound_share": b_ms / ms, "items": plan["items"], "spans": plan["spans"],
-    })
-    for e in out:
-        info[e["name"]] = {key: e[key] for key in WRITE_KEYS + ("items", "spans") if key in e}
-    return {e["name"]: e for e in out}
+        "bound_share": b_ms / times["ms"], "items": plan["items"], "spans": plan["spans"],
+    }
 
 
 def _sdpa_yardstick(q, pool, layer, s, page, window: int = 0, sinks=None,
@@ -967,8 +1004,9 @@ class GraphWatch:
 
 def warm_engine(eng, info: dict, watch: GraphWatch, seed: int) -> None:
     """``eng.warmup()`` on a pool of seeded random values: the pool must
-    keep every byte. Records the graphs it captured, its seconds and the
-    device memory it kept (the graph pool and static inputs), measured
+    keep every byte. Records the graphs it captured, its seconds, the
+    device's free memory after it, and the device memory it kept (the graph
+    pool and static inputs), measured
     after the engines of earlier phases, which their runners and programs
     keep in reference cycles, are collected."""
     pools = runner_pools(eng.runner)
@@ -987,6 +1025,10 @@ def warm_engine(eng, info: dict, watch: GraphWatch, seed: int) -> None:
     info["warmup_kept_bytes"] = torch.cuda.memory_reserved() - reserved
     unchanged = all(pools_equal(a, b) for a, b in zip(pools, before))
     del before
+    # Free to the next allocation: the CUDA runtime's free memory and the
+    # allocator's cached, unallocated blocks (left cached, as they were).
+    info["device_free_gb_after_warmup"] = (
+        torch.cuda.mem_get_info()[0] + torch.cuda.memory_reserved() - torch.cuda.memory_allocated()) / 1e9
     if n != len(eng.runner.warm_keys()) or set(watch.captured) != set(eng.runner.warm_keys()):
         raise AssertionError(f"warmup captured {watch.captured}, want {eng.runner.warm_keys()}")
     if not unchanged:
@@ -1068,7 +1110,8 @@ def ring_prompts(cfg) -> list[list[int]]:
 
 
 def engine_phase(info: dict, params: dict, model: str = MODEL, kv_dtype: str = "bfloat16",
-                 prompts: list | None = None, swa_ring: bool = False) -> tuple[dict, dict, list, list]:
+                 prompts: list | None = None, swa_ring: bool = False,
+                 num_blocks: int = 2048) -> tuple[dict, dict, list, list]:
     """``LLMEngine`` at full width serving 8 greedy requests in the step
     layout ``info["layout"]`` names: on the flat step; as the split engine
     with fused decode windows of 8; or on the flat step with windows of 8
@@ -1085,8 +1128,9 @@ def engine_phase(info: dict, params: dict, model: str = MODEL, kv_dtype: str = "
     branch; ``warmup`` runs first and must leave the pool as it was.
     ``prompts`` replaces ``engine_prompts`` (the 8th request repeats the
     4th prompt either way); ``swa_ring`` puts the sliding layers in the
-    ring pool (``CacheConfig.swa_ring``). Returns (launch counts, branch
-    launch counts, the requests' tokens, their logprobs)."""
+    ring pool (``CacheConfig.swa_ring``); ``num_blocks`` is the pool's
+    pages. Returns (launch counts, branch launch counts, the requests'
+    tokens, their logprobs)."""
     from llmd_tpu_torch import ops
     from llmd_tpu_torch.config import CacheConfig, EngineConfig, SchedulerConfig
     from llmd_tpu_torch.engine import LLMEngine, SamplingParams
@@ -1098,11 +1142,12 @@ def engine_phase(info: dict, params: dict, model: str = MODEL, kv_dtype: str = "
     windowed = "decode_window" in layout
     config = EngineConfig(
         model=cfg,
-        cache=CacheConfig(page_size=16, num_blocks=2048, dtype=kv_dtype, swa_ring=swa_ring),
+        cache=CacheConfig(page_size=16, num_blocks=num_blocks, dtype=kv_dtype, swa_ring=swa_ring),
         scheduler=SchedulerConfig(max_num_seqs=64, max_num_batched_tokens=1024, **layout),
         seed=0,
     )
     eng = LLMEngine(config, params=params, device="cuda")
+    info["pool_pages"] = num_blocks
     if swa_ring != (eng.runner.kv_swa is not None):
         raise AssertionError(f"swa_ring={swa_ring}, but the runner's ring pool is {eng.runner.kv_swa}")
     watch = GraphWatch(eng.runner)
@@ -1438,6 +1483,230 @@ def layouts_phase(info: dict) -> None:
     info["streams_equal"] = True
 
 
+# ---- HF checkpoints (the loader's path) -----------------------------------
+
+CKPT_DIR = os.path.join(REPO, "build", "llama-3-8b-hf")
+# The shard size transformers' save_pretrained writes.
+SHARD_BYTES = 5 * 10**9
+_ST_DTYPES = {torch.bfloat16: "BF16", torch.float16: "F16", torch.float32: "F32"}
+
+
+def trees_equal(a: dict, b: dict) -> bool:
+    return a.keys() == b.keys() and all(
+        trees_equal(a[k], b[k]) if isinstance(a[k], dict) else torch.equal(a[k], b[k]) for k in a)
+
+
+def tree_nbytes(tree: dict) -> int:
+    return sum(tree_nbytes(v) if isinstance(v, dict) else v.numel() * v.element_size()
+               for v in tree.values())
+
+
+def unfused_leaf(cfg, layers: dict, name: str, i: int) -> torch.Tensor:
+    """Layer i's leaf ``name`` of a dense tree, fused (``wqkv``, ``w_gu``)
+    or not: a view of the fused leaf's columns where it is fused."""
+    if name in layers:
+        return layers[name][i]
+    Nq, K, D = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    cols = {"wq": ("wqkv", 0, Nq * D), "wk": ("wqkv", Nq * D, (Nq + K) * D),
+            "wv": ("wqkv", (Nq + K) * D, (Nq + 2 * K) * D),
+            "w_gate": ("w_gu", 0, cfg.intermediate_size),
+            "w_up": ("w_gu", cfg.intermediate_size, 2 * cfg.intermediate_size)}
+    fused, a, b = cols[name]
+    return layers[fused][i][:, a:b]
+
+
+def hf_entries(cfg, params: dict) -> list[tuple[str, str, int | None, bool]]:
+    """(HF name, leaf, layer or None, transposed) of every tensor of a dense
+    Llama-class checkpoint (HF stores projections [out, in])."""
+    out = [("model.embed_tokens.weight", "embed", None, False)]
+    for i in range(cfg.num_layers):
+        p = f"model.layers.{i}."
+        out += [(p + "input_layernorm.weight", "input_norm", i, False),
+                (p + "post_attention_layernorm.weight", "post_norm", i, False)]
+        out += [(p + f"self_attn.{w}_proj.weight", f"w{w}", i, True) for w in "qkvo"]
+        if cfg.attention_bias:
+            out += [(p + f"self_attn.{w}_proj.bias", f"b{w}", i, False) for w in "qkv"]
+        if cfg.qk_norm:
+            out += [(p + f"self_attn.{w}_norm.weight", f"attn_{w}_norm", i, False) for w in "qk"]
+        out += [(p + f"mlp.{w}_proj.weight", f"w_{w}", i, True) for w in ("gate", "up", "down")]
+    out.append(("model.norm.weight", "final_norm", None, False))
+    if not cfg.tie_word_embeddings:
+        out.append(("lm_head.weight", "lm_head", None, True))
+    return out
+
+
+def hf_tensor(cfg, params: dict, entry) -> torch.Tensor:
+    """An entry's tensor as the checkpoint stores it (a view)."""
+    _, leaf, i, transposed = entry
+    w = params[leaf] if i is None else unfused_leaf(cfg, params["layers"], leaf, i)
+    return w.T if transposed else w
+
+
+def write_hf_checkpoint(cfg, params: dict, out_dir: str) -> dict:
+    """Write a dense model's tree (fused or not) as an HF directory:
+    ``config.json`` for the architecture the config names (Qwen3 for QK
+    norm, Qwen2 for q|k|v biases, else Llama), safetensors shards of at
+    most ``SHARD_BYTES`` in transformers' names, and their index. The
+    safetensors format: a little-endian u64 header length, the JSON header
+    (dtype, shape, data offsets per tensor; padded to 8 bytes), the raw
+    bytes. Returns the shard count and the bytes written."""
+    shutil.rmtree(out_dir, ignore_errors=True)
+    os.makedirs(out_dir)
+    entries = hf_entries(cfg, params)
+    shards, size = [[]], 0
+    for e in entries:
+        t = hf_tensor(cfg, params, e)
+        n = t.numel() * t.element_size()
+        if shards[-1] and size + n > SHARD_BYTES:
+            shards.append([])
+            size = 0
+        shards[-1].append(e)
+        size += n
+    weight_map, total = {}, 0
+    for k, shard in enumerate(shards):
+        fname = f"model-{k + 1:05d}-of-{len(shards):05d}.safetensors"
+        header, offset = {"__metadata__": {"format": "pt"}}, 0
+        for e in shard:
+            t = hf_tensor(cfg, params, e)
+            n = t.numel() * t.element_size()
+            header[e[0]] = {"dtype": _ST_DTYPES[t.dtype], "shape": list(t.shape),
+                            "data_offsets": [offset, offset + n]}
+            offset += n
+            weight_map[e[0]] = fname
+        raw = json.dumps(header).encode()
+        raw += b" " * (-len(raw) % 8)
+        with open(os.path.join(out_dir, fname), "wb") as f:
+            f.write(struct.pack("<Q", len(raw)) + raw)
+            for e in shard:
+                t = hf_tensor(cfg, params, e).contiguous().cpu()
+                f.write(t.reshape(-1).view(torch.uint8).numpy())
+        total += 8 + len(raw) + offset
+    arch = ("Qwen3ForCausalLM" if cfg.qk_norm else
+            "Qwen2ForCausalLM" if cfg.attention_bias else "LlamaForCausalLM")
+    hf = {"architectures": [arch], "vocab_size": cfg.vocab_size,
+          "hidden_size": cfg.hidden_size, "intermediate_size": cfg.intermediate_size,
+          "num_hidden_layers": cfg.num_layers, "num_attention_heads": cfg.num_heads,
+          "num_key_value_heads": cfg.num_kv_heads, "head_dim": cfg.head_dim,
+          "rope_theta": cfg.rope_theta, "rope_scaling": cfg.rope_scaling,
+          "rms_norm_eps": cfg.rms_norm_eps, "max_position_embeddings": cfg.max_model_len,
+          "tie_word_embeddings": cfg.tie_word_embeddings,
+          "attention_bias": cfg.attention_bias, "torch_dtype": cfg.dtype}
+    with open(os.path.join(out_dir, "config.json"), "w") as f:
+        json.dump(hf, f, indent=1)
+    with open(os.path.join(out_dir, "model.safetensors.index.json"), "w") as f:
+        json.dump({"metadata": {"total_size": total}, "weight_map": weight_map}, f)
+    return {"shards": len(shards), "file_bytes": total}
+
+
+def host_rss() -> int:
+    """This process's resident set (``VmRSS``), in bytes."""
+    with open("/proc/self/status") as f:
+        for line in f:
+            if line.startswith("VmRSS:"):
+                return int(line.split()[1]) * 1024
+    raise KeyError("VmRSS")
+
+
+@contextlib.contextmanager
+def peak_host_rss(info: dict, key: str):
+    """The peak of ``host_rss`` while the block runs, sampled every 5 ms by
+    a thread (the loader's copies release the GIL), as ``info[key]`` in GB."""
+    peak, stop = [host_rss()], threading.Event()
+
+    def sample():
+        while not stop.wait(0.005):
+            peak[0] = max(peak[0], host_rss())
+
+    thread = threading.Thread(target=sample, daemon=True)
+    thread.start()
+    try:
+        yield
+    finally:
+        stop.set()
+        thread.join()
+        info[key] = max(peak[0], host_rss()) / 1e9
+
+
+def runner_init_memory(info: dict, config) -> dict:
+    """Build a ``ModelRunner`` for ``config`` (its weights drawn from the
+    seed or loaded from ``config.weights_path``) and report its peak device
+    memory over what it keeps: the tree and the KV pool. Fused trees are
+    built fused, so the peak may pass them by at most one layer's tensor
+    (2 GB allowed). Returns the runner's tree."""
+    from llmd_tpu_torch.engine.runner import ModelRunner
+
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    runner = ModelRunner(config, device="cuda")
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - base
+    tree, pool = tree_nbytes(runner.params), runner.kv_bytes()
+    info.update(runner_init_s=time.perf_counter() - t0, runner_tree_gb=tree / 1e9,
+                pool_pages=config.cache.num_blocks, pool_gb=pool / 1e9,
+                runner_init_peak_gb=peak / 1e9, runner_init_peak_over_tree_and_pool_gb=(peak - tree - pool) / 1e9)
+    if peak - tree - pool > 2e9:
+        raise AssertionError(f"runner init peaked {(peak - tree - pool) / 1e9:.2f} GB over its tree and pool")
+    return runner.params
+
+
+def checkpoint_phase(info: dict, params: dict) -> None:
+    """llama-3-8b's seeded tree (the one the llama phases ran) written as
+    an HF checkpoint under ``build/`` and loaded back with the port's
+    ``load_params(..., device="cuda")``: ``config_from_hf`` gives the
+    registry's config, and every leaf is bit-equal to the tree's. Reports
+    the write and load seconds, the load's GB/s and the host's peak RSS
+    during the load (``peak_host_rss``) and the load's peak device memory
+    over the tree (one tensor's staging copy), then builds a runner from
+    the directory (``EngineConfig.weights_path``: the fused load) and
+    holds its tree to the tree bit for bit and its peak device memory to
+    the tree and pool plus 2 GB."""
+    from llmd_tpu_torch.config import CacheConfig, EngineConfig
+    from llmd_tpu_torch.models.loader import config_from_hf, load_params
+    from llmd_tpu_torch.models.registry import get_model_config
+
+    cfg = get_model_config(MODEL)
+    tree = tree_nbytes(params)
+    free = shutil.disk_usage(os.path.dirname(CKPT_DIR)).free
+    info.update(model=MODEL, tree_gb=tree / 1e9, disk_free_gb=free / 1e9)
+    if free < 1.1 * tree:
+        raise AssertionError(f"{free / 1e9:.1f} GB free on disk for a {tree / 1e9:.1f} GB checkpoint")
+    t0 = time.perf_counter()
+    written = write_hf_checkpoint(cfg, params, CKPT_DIR)
+    info.update(write_s=time.perf_counter() - t0, shards=written["shards"],
+                file_gb=written["file_bytes"] / 1e9)
+    hf_cfg = config_from_hf(CKPT_DIR)
+    diff = [f for f in cfg.__dataclass_fields__ if f != "name"
+            and getattr(hf_cfg, f) != getattr(cfg, f)]
+    if diff:
+        raise AssertionError(f"config_from_hf differs from the registry's config in {diff}")
+    info["host_rss_before_gb"] = host_rss() / 1e9
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    with peak_host_rss(info, "host_rss_peak_gb"):
+        loaded = load_params(hf_cfg, CKPT_DIR, device="cuda")
+        torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    info.update(load_s=load_s, load_gb_per_s=written["file_bytes"] / load_s / 1e9,
+                load_device_peak_over_tree_gb=(torch.cuda.max_memory_allocated() - base - tree) / 1e9)
+    bad = [e[0] for e in hf_entries(cfg, params)
+           if not torch.equal(hf_tensor(cfg, loaded, e), hf_tensor(cfg, params, e))]
+    if bad or tree_nbytes(loaded) != tree:
+        raise AssertionError(f"{len(bad)} loaded tensors differ from the written ones: {bad[:4]}")
+    info["leaves_bit_equal"] = len(hf_entries(cfg, params))
+    del loaded
+    runner_params = runner_init_memory(info, EngineConfig(
+        model=hf_cfg, cache=CacheConfig(page_size=16, num_blocks=2048), weights_path=CKPT_DIR))
+    if not trees_equal(runner_params, params):
+        raise AssertionError("the runner's tree loaded from the checkpoint differs from the tree")
+    info["runner_tree_bit_equal"] = True
+
+
 def _post(url: str, body: dict) -> tuple[int, bytes]:
     req = urllib.request.Request(
         url, data=json.dumps(body).encode(), headers={"Content-Type": "application/json"}
@@ -1585,14 +1854,18 @@ def surface_phase(info: dict, base: str, prompt_600: list[int]) -> None:
 
 
 def serve_phase(info: dict, layout_args: list[str], model: str = MODEL,
-                surface: dict | None = None) -> None:
-    """Start the server for ``model`` (with ``layout_args`` appended to its
-    command line) and complete a few requests. Every server streams one
-    completion and must deliver one chunk per token and the text of the
-    same completion unstreamed; a server in its default layout also
-    answers two plain requests, one with a 600-token prompt. With
-    ``surface`` (a dict of numbers to report with it), ``surface_phase``
-    then runs on this server as a phase of its own."""
+                surface: dict | None = None, flags: tuple = (), name: str | None = None) -> list[str]:
+    """Start the server for ``model`` (a registry name or an HF model
+    directory, with ``flags`` and ``layout_args`` appended to its command
+    line) and complete a few requests. ``/v1/models`` must report the
+    served name ``name`` (default: ``model``) and 8,192 tokens. Every
+    server streams one completion and must deliver one chunk per token and
+    the text of the same completion unstreamed; a server in its default
+    layout also answers two plain requests, one with a 600-token prompt.
+    With ``surface`` (a dict of numbers to report with it),
+    ``surface_phase`` then runs on this server as a phase of its own.
+    Returns the completions' texts, the streamed one last."""
+    name = name or model
     with socket.socket() as sock:
         sock.bind(("127.0.0.1", 0))
         port = sock.getsockname()[1]
@@ -1602,7 +1875,7 @@ def serve_phase(info: dict, layout_args: list[str], model: str = MODEL,
     with open(log_path, "w") as log:
         proc = subprocess.Popen(
             [sys.executable, "-m", "llmd_tpu_torch.serve", "--model", model,
-             "--host", "127.0.0.1", "--port", str(port), *layout_args],
+             "--host", "127.0.0.1", "--port", str(port), *flags, *layout_args],
             cwd=REPO, stdout=log, stderr=subprocess.STDOUT,
         )
         try:
@@ -1620,11 +1893,16 @@ def serve_phase(info: dict, layout_args: list[str], model: str = MODEL,
                     raise TimeoutError("server did not become healthy in 600 s")
                 time.sleep(1.0)
             info["startup_s"] = time.perf_counter() - t0
-            usages = []
+            with urllib.request.urlopen(base + "/v1/models", timeout=30) as r:
+                (entry,) = json.loads(r.read())["data"]
+            info["served"] = [entry["id"], entry["max_model_len"]]
+            if info["served"] != [name, 8192]:
+                raise AssertionError(f"/v1/models reports {info['served']}, want {[name, 8192]}")
+            usages, texts = [], []
             bodies = [{"prompt": "Stream this.", "max_tokens": 16}]
             if not layout_args:
                 bodies += [
-                    {"prompt": f"The port serves {model}.", "max_tokens": 16},
+                    {"prompt": f"The port serves {name}.", "max_tokens": 16},
                     {"prompt": [3 + i % 250 for i in range(600)], "max_tokens": 16},
                 ]
             for body in bodies:
@@ -1634,6 +1912,7 @@ def serve_phase(info: dict, layout_args: list[str], model: str = MODEL,
                     raise AssertionError(f"/v1/completions returned {status}")
                 reply = json.loads(raw)
                 usages.append(reply["usage"]["completion_tokens"])
+                texts.append(reply["choices"][0]["text"])
                 if body is bodies[0]:
                     unstreamed = reply["choices"][0]["text"]
             status, raw = _post(base + "/v1/completions", {
@@ -1659,6 +1938,7 @@ def serve_phase(info: dict, layout_args: list[str], model: str = MODEL,
             streamed = "".join(f["choices"][0]["text"] for f in frames)
             if streamed != unstreamed:
                 raise AssertionError("the streamed text differs from the unstreamed completion's")
+            texts.append(streamed)
             if surface is not None:
                 with phase("surface", {"model": model, "layout": "flat step", **surface}) as sinfo:
                     surface_phase(sinfo, base, bodies[2]["prompt"])
@@ -1669,6 +1949,7 @@ def serve_phase(info: dict, layout_args: list[str], model: str = MODEL,
             except subprocess.TimeoutExpired:
                 proc.kill()
                 proc.wait()
+    return texts
 
 DS_MODEL = "deepseek-v2-lite"
 
@@ -2919,6 +3200,88 @@ def capacity_phase(info: dict, params: dict) -> None:
                              f"{b['max_decoding_at_once']} without")
 
 
+QWEN_MODEL = "qwen3-32b"
+# The in-process qwen3-32b engines' pool: 1,024 pages (4.3 GB). Beside the
+# 65.5 GB tree the engine checks (``warm_engine``, ``GraphWatch``) hold up
+# to three copies of the pool at once, which 2,048 pages (8.6 GB) would
+# not fit on an 80 GB card; the qwen3-32b server keeps the default 2,048.
+QWEN_BLOCKS = 1024
+
+
+def qwen_kernels_phase(info: dict) -> dict:
+    """K1'-K4' at qwen3-32b's shapes (64 query heads, 8 KV heads, head_dim
+    128, a 64-layer pool) on the steps of ``kernels_phase`` and
+    ``decode_kernels_phase``: K1' and the fused K2' on the mixed flat step
+    and on the prefill-only step, K3' and the fused K4' on the decode
+    batch. q and k of the writes come out of Qwen3's QK norm, v stays a view
+    of the q|k|v projection, as in the model. Each is held to its plain
+    version as there (attention within one bf16 ulp, the writes bit for
+    bit) and timed beside its bound, the plain version and a library call;
+    the launches come from qwen3-32b's engine runs."""
+    from llmd_tpu_torch.models.registry import get_model_config
+
+    cfg = get_model_config(QWEN_MODEL)
+    dev, dt, page = torch.device("cuda"), torch.bfloat16, 16
+    L, K, H, D = cfg.num_layers, cfg.num_kv_heads, cfg.num_heads, cfg.head_dim
+    max_pages = -(-cfg.max_model_len // page)
+    gen = torch.Generator().manual_seed(3232)
+    g = torch.Generator(device=dev).manual_seed(32)
+    layer = L // 2
+    decode_ctx = torch.randint(1024, 4097, (32,), generator=gen).tolist()
+    steps = (("", mixed_step(cfg, page, max_pages, [(0, 512), (1024, 256), (2000, 128)],
+                             decode_ctx, gen, dev)),
+             (" prefill", mixed_step(cfg, page, max_pages, [(3072, 1024)], [], gen, dev)))
+    out = []
+    for suffix, s in steps:
+        pool = torch.randn((L, s["num_pages"], K, page, 2 * D), generator=g, device=dev, dtype=dt)
+        q = torch.randn((s["T"], 1, H, D), generator=g, device=dev, dtype=dt)
+        out.append(rope_write_case(f"flat_kv_write[rope]@{QWEN_MODEL}{suffix}", "flat", cfg, pool,
+                                   None, layer, s, False, g, qk_norm=True))
+        out.append({**flat_attention_row(f"flat_paged_attention@{QWEN_MODEL}{suffix}", q, pool,
+                                         layer, s, page),
+                    "wrapper": "flat_paged_attention_full", "branch": "plain"})
+        del pool, q
+        torch.cuda.empty_cache()
+    d = decode_batch(cfg, page, 1024, 4096, gen, dev)
+    pool = torch.randn((L, d["num_pages"], K, page, 2 * D), generator=g, device=dev, dtype=dt)
+    q = torch.randn((d["B"], 1, H, D), generator=g, device=dev, dtype=dt)
+    out.append(rope_write_case(f"decode_kv_write[rope]@{QWEN_MODEL}", "decode", cfg, pool, None,
+                               layer, d, False, g, qk_norm=True))
+    out.append({**decode_attention_row(f"decode_paged_attention@{QWEN_MODEL}", q, pool, layer,
+                                       d, page),
+                "wrapper": "decode_paged_attention_full", "branch": "plain"})
+    del pool, q
+    info.update(layers=L, flat_tokens=[s["total"] for _, s in steps],
+                decode_live_rows=d["n_live"])
+    for e in out:
+        e["model"] = QWEN_MODEL
+        info[e["name"]] = {k: e[k] for k in ("bound_by", "items", "spans") + WRITE_KEYS if k in e}
+    return {e["name"]: e for e in out}
+
+
+def qwen_phases() -> dict:
+    """qwen3-32b at full width and depth (64 layers, 65.5 GB of bf16
+    weights drawn from seed 0) on one card: a runner built from the seed
+    (its peak device memory held to the tree and pool plus 2 GB), then the
+    8 requests on the flat step and as the split engine with windows of 8
+    (``engine_phase``: launches per K1'-K4' branch, graph replays, one
+    readback a step, decode ms). Returns each layout's branch launch
+    counts."""
+    from llmd_tpu_torch.config import CacheConfig, EngineConfig
+    from llmd_tpu_torch.models.registry import get_model_config
+
+    with phase("runner_init", {"model": QWEN_MODEL}) as info:
+        params = runner_init_memory(info, EngineConfig(
+            model=get_model_config(QWEN_MODEL),
+            cache=CacheConfig(page_size=16, num_blocks=QWEN_BLOCKS), seed=0))
+    runs = {}
+    for layout in ("flat step", "split engine, decode_window 8"):
+        with phase("engine", {"model": QWEN_MODEL, "layout": layout}) as info:
+            _, runs[layout], _, _ = engine_phase(info, params, QWEN_MODEL, num_blocks=QWEN_BLOCKS)
+    del params
+    return runs
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false", file=sys.stderr)
@@ -2953,10 +3316,14 @@ def main() -> int:
         table.update(oss_kernels_phase(info))
     gc.collect()
     torch.cuda.empty_cache()
+    with phase("qwen_kernels", {"model": QWEN_MODEL}) as info:
+        table.update(qwen_kernels_phase(info))
+    gc.collect()
+    torch.cuda.empty_cache()
     with phase("forward", {}) as info:
         cfg = get_model_config(MODEL)
         gen = torch.Generator(device="cuda").manual_seed(0)
-        params = llama.fuse_projections(llama.init_params(cfg, gen, "cuda"))
+        params = llama.init_params(cfg, gen, "cuda", fused=True)
         forward_phase(info, params)
     gc.collect()
     torch.cuda.empty_cache()
@@ -2973,6 +3340,8 @@ def main() -> int:
     t_stats = time.perf_counter()
     surface = stats_update_cost(params)
     surface["stats_update_s"] = time.perf_counter() - t_stats
+    with phase("checkpoint", {}) as info:
+        checkpoint_phase(info, params)
     del params
     gc.collect()
     torch.cuda.empty_cache()
@@ -3001,7 +3370,7 @@ def main() -> int:
     with phase("forward", {"model": OSS_MODEL}) as info:
         oss_cfg = get_model_config(OSS_MODEL)
         gen = torch.Generator(device="cuda").manual_seed(0)
-        params = llama.fuse_projections(llama.init_params(oss_cfg, gen, "cuda"))
+        params = llama.init_params(oss_cfg, gen, "cuda", fused=True)
         fill_biases(params, seed=3)
         oss_forward_phase(info, params)
     gc.collect()
@@ -3029,8 +3398,25 @@ def main() -> int:
     del params
     gc.collect()
     torch.cuda.empty_cache()
+    qwen_runs = qwen_phases()
+    gc.collect()
+    torch.cuda.empty_cache()
     with phase("serve", {"layout": "flat step"}) as info:
-        serve_phase(info, [], surface=surface)
+        registry_texts = serve_phase(info, [], surface=surface)
+    with phase("serve", {"layout": "flat step", "from": "HF checkpoint"}) as info:
+        # The chart's flags this port takes, on the directory the checkpoint
+        # phase wrote: the same seed-0 weights, so the same completions.
+        try:
+            texts = serve_phase(info, [], CKPT_DIR, name=MODEL, flags=(
+                "--served-model-name", MODEL, "--max-model-len", "8192", "--block-size", "16",
+                "--tokenizer", "byte"))
+        finally:
+            shutil.rmtree(CKPT_DIR, ignore_errors=True)
+        info["texts_equal_registry_server"] = texts == registry_texts
+        if texts != registry_texts:
+            raise AssertionError(f"the checkpoint server answered {texts}, the registry server {registry_texts}")
+    with phase("serve", {"model": QWEN_MODEL, "layout": "flat step"}) as info:
+        serve_phase(info, [], QWEN_MODEL)
     with phase("serve", {"layout": "split engine, decode_window 4"}) as info:
         serve_phase(info, ["--no-unified-step", "--decode-window", "4"])
     with phase("serve", {"model": DS_MODEL, "layout": "default (bucketed unified step)"}) as info:
@@ -3049,7 +3435,8 @@ def main() -> int:
     # the store-only K4' of the latent rows (their rows name a wrapper and a
     # model) from deepseek-v2-lite's default engine and gpt-oss-20b's flat
     # step engine (the 128-head row of K5' is a kernel-level shape: its
-    # launches are the wrapper's on deepseek-v2-lite's path).
+    # launches are the wrapper's on deepseek-v2-lite's path); qwen3-32b's
+    # rows from its flat step (K1', K2') or split-window (K3', K4') run.
     main_path = {
         "flat_paged_attention": ("flat_paged_attention_full", flat_counts),
         "flat_paged_attention@prefill": ("flat_paged_attention_full", flat_counts),
@@ -3062,6 +3449,8 @@ def main() -> int:
         flat = wrapper.startswith(("flat", "write_kv_pages_flat"))
         if model == MODEL:
             return int8_branches if int8 else flat_branches if flat else window_branches
+        if model == QWEN_MODEL:
+            return qwen_runs["flat step" if flat else "split engine, decode_window 8"]
         return oss_runs["flat step, decode_window 8" if int8 else
                         "flat step" if flat else "split engine, decode_window 8"]
 

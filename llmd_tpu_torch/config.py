@@ -242,6 +242,13 @@ class EngineConfig:
     scheduler: SchedulerConfig = dataclasses.field(default_factory=SchedulerConfig)
     # Seed of the random weights and of the engine's sampling stream.
     seed: int = 0
+    # An HF model directory (config.json + *.safetensors) whose weights the
+    # runner loads (``models/loader.py``); None draws random weights from
+    # ``seed``.
+    weights_path: str | None = None
+    # The server's tokenizer: an HF tokenizer directory or name, or None /
+    # "byte" for the byte tokenizer (``serve/tokenizer.py``).
+    tokenizer_path: str | None = None
 
 
 @dataclasses.dataclass(frozen=True)

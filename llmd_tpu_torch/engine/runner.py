@@ -85,6 +85,7 @@ from llmd_tpu_torch.engine.sampler import sample_tokens, spec_seed
 from llmd_tpu_torch.engine.scheduler import ScheduledSeq
 from llmd_tpu_torch.models import llama
 from llmd_tpu_torch.models.common import StepInput
+from llmd_tpu_torch.models.loader import load_params
 from llmd_tpu_torch.ops import _build
 
 # Packed-stream length granule: T pads up to a multiple of 16 tokens.
@@ -198,13 +199,17 @@ class ModelRunner:
         self.device = resolve_device(device)
         self.page = config.cache.page_size
         self.max_pages = config.cache.max_pages_per_seq(self.cfg.max_model_len)
-        if params is None:
-            gen = torch.Generator(device=self.device).manual_seed(config.seed)
-            params = llama.init_params(self.cfg, gen, self.device)
-        else:
+        # The tree's q|k|v and gate|up fused (JAX's ``_maybe_fuse``; MLA's
+        # projections stay unfused). Loaded and drawn trees are built fused,
+        # so that no unfused stacked leaf is held beside its fused copy.
+        if params is not None:
             params = _to_device(params, self.device)
-        # JAX's ``_maybe_fuse`` leaves MLA's projections unfused.
-        self.params = params if self.cfg.is_mla else llama.fuse_projections(params)
+            self.params = params if self.cfg.is_mla else llama.fuse_projections(params)
+        elif config.weights_path:
+            self.params = load_params(self.cfg, config.weights_path, device=self.device)
+        else:
+            gen = torch.Generator(device=self.device).manual_seed(config.seed)
+            self.params = llama.init_params(self.cfg, gen, self.device, fused=True)
         # The ring's geometry (the engine passes its own: its pool has room
         # for retained sections too), or None without the ring.
         self.swa = swa_spec or swa_ring_spec(self.cfg, config.cache, config.scheduler)

@@ -72,6 +72,9 @@ def rms_norm(x: torch.Tensor, weight: torch.Tensor, eps: float) -> torch.Tensor:
     return (xf * torch.rsqrt(var + eps)).to(dtype) * weight
 
 
+SUPPORTED_ROPE_TYPES = ("default", "linear", "llama3", "yarn")
+
+
 def rope_type(scaling: dict | None) -> str:
     if not scaling:
         return "default"
@@ -82,6 +85,20 @@ def _yarn_mscale(scale: float, mscale: float = 1.0) -> float:
     if scale <= 1.0:
         return 1.0
     return 0.1 * mscale * math.log(scale) + 1.0
+
+
+def yarn_sm_scale_mult(scaling: dict | None) -> float:
+    """DeepSeek-style yarn splits the attention temperature: with
+    ``mscale_all_dim`` set, cos/sin stay (nearly) unscaled and the softmax
+    scale is multiplied by mscale² instead (HF ``DeepseekV3Attention``).
+    1.0 for every other rope config."""
+    if rope_type(scaling) != "yarn":
+        return 1.0
+    m_all = float(scaling.get("mscale_all_dim") or 0.0)
+    if not m_all:
+        return 1.0
+    m = _yarn_mscale(float(scaling["factor"]), m_all)
+    return m * m
 
 
 def _inv_freq_and_factor(

@@ -36,7 +36,8 @@ from llmd_tpu_torch.models.moe import moe_block_grouped
 
 
 def init_params(
-    cfg: ModelConfig, generator: torch.Generator, device: str | torch.device
+    cfg: ModelConfig, generator: torch.Generator, device: str | torch.device,
+    fused: bool = False,
 ) -> dict:
     """Seeded random weights, drawn on ``device`` (``generator`` must live
     there too): drawing billions of normals on the host would take minutes.
@@ -44,7 +45,12 @@ def init_params(
     0.02, router ``H ** -0.5``, sinks 1.0, unit norms, zero biases); the
     values differ, as the generators do. Stacked leaves are drawn one layer
     at a time in the working dtype: one deepseek-v2-lite layer's
-    ``we_gate`` is 369 MB."""
+    ``we_gate`` is 369 MB. ``fused`` draws q|k|v and gate|up straight into
+    the column blocks of ``wqkv`` and ``w_gu`` (``fuse_projections``'s
+    tree, the same values in the same draw order), so that no unfused
+    stacked leaf is ever held beside its fused copy; MLA trees stay
+    unfused, as the runner leaves them."""
+    fused = fused and not cfg.is_mla
     dt = getattr(torch, cfg.dtype)
     H, D = cfg.hidden_size, cfg.head_dim
     Nq, K, L = cfg.num_heads, cfg.num_kv_heads, cfg.num_layers
@@ -59,11 +65,25 @@ def init_params(
     def layer_stack(n: int, moe: bool) -> dict:
         """n stacked layers: attention (MLA or GQA) + dense MLP or MoE."""
 
-        def stacked(shape, scale=None):
-            out = torch.empty((n, *shape), dtype=dt, device=device)
+        def stacked(shape, scale=None, out=None):
+            if out is None:
+                out = torch.empty((n, *shape), dtype=dt, device=device)
             for i in range(n):
                 out[i] = normal(shape, shape[-2] ** -0.5 if scale is None else scale)
             return out
+
+        def stacked_columns(shapes, fused_name):
+            """Leaves of ``shapes`` ([in, out_j] each), drawn in order:
+            apart, or as column blocks of one ``fused_name`` leaf."""
+            if not fused:
+                return {name: stacked(shape) for name, shape in shapes}
+            width = sum(shape[-1] for _, shape in shapes)
+            out = torch.empty((n, shapes[0][1][0], width), dtype=dt, device=device)
+            c = 0
+            for _, shape in shapes:
+                stacked(shape, out=out[..., c : c + shape[-1]])
+                c += shape[-1]
+            return {fused_name: out}
 
         def const(shape, value, dtype=dt):
             return torch.full((n, *shape), value, dtype=dtype, device=device)
@@ -83,9 +103,8 @@ def init_params(
             else:
                 layers["wq"] = stacked((H, Nq * (nope + rope)))
         else:
-            layers["wq"] = stacked((H, Nq * D))
-            layers["wk"] = stacked((H, K * D))
-            layers["wv"] = stacked((H, K * D))
+            layers.update(stacked_columns(
+                [("wq", (H, Nq * D)), ("wk", (H, K * D)), ("wv", (H, K * D))], "wqkv"))
             layers["wo"] = stacked((Nq * D, H))
         if cfg.attention_bias:
             for name, width in (("bq", Nq * D), ("bk", K * D), ("bv", K * D)):
@@ -94,6 +113,8 @@ def init_params(
             layers["bo"] = const((H,), 0.0)
         if cfg.attention_sinks:
             layers["sinks"] = stacked((Nq,), 1.0)
+            if fused:
+                layers["sinks"] = layers["sinks"].float()
         if cfg.qk_norm:
             layers["attn_q_norm"] = const((D,), 1.0)
             layers["attn_k_norm"] = const((D,), 1.0)
@@ -117,8 +138,7 @@ def init_params(
                 layers["ws_up"] = stacked((H, Fs))
                 layers["ws_down"] = stacked((Fs, H))
         else:
-            layers["w_gate"] = stacked((H, Fi))
-            layers["w_up"] = stacked((H, Fi))
+            layers.update(stacked_columns([("w_gate", (H, Fi)), ("w_up", (H, Fi))], "w_gu"))
             layers["w_down"] = stacked((Fi, H))
         return layers
 
@@ -265,8 +285,6 @@ def forward_hidden(params: dict, kv_cache, inp: StepInput, cfg: ModelConfig, kv_
     if cfg.is_mla:
         if inp.token_rows is not None:
             raise ValueError("MLA runs the bucketed layout only (no flat step)")
-        if (cfg.rope_scaling or {}).get("mscale_all_dim"):
-            raise NotImplementedError("yarn mscale in MLA's sm_scale is not ported")
         if isinstance(kv_cache, tuple):
             raise ValueError("an int8 pool is not supported for MLA models")
         prep = None

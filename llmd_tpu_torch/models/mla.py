@@ -16,9 +16,8 @@ goes into the pool through ``ops.write_kv_pages_full`` as two halves posing
 as K and V (the decode write kernel at ``Q == 1``); the attention is
 ``ops.mla_paged_attention_full`` (the latent decode kernel at ``Q == 1``).
 The absorption products stay ``torch.einsum``, as JAX leaves them to XLA.
-The yarn temperature DeepSeek's configs put in ``sm_scale``
-(``rope_scaling`` with ``mscale_all_dim``) is not ported: such a config
-raises.
+DeepSeek's yarn temperature (``rope_scaling`` with ``mscale_all_dim``)
+multiplies ``sm_scale`` (``common.yarn_sm_scale_mult``), as in JAX.
 """
 
 from __future__ import annotations
@@ -28,7 +27,7 @@ import torch.nn.functional as F
 
 from llmd_tpu_torch import ops
 from llmd_tpu_torch.config import ModelConfig
-from llmd_tpu_torch.models.common import StepInput, apply_rope, rms_norm
+from llmd_tpu_torch.models.common import StepInput, apply_rope, rms_norm, yarn_sm_scale_mult
 
 
 def mla_write(
@@ -93,8 +92,9 @@ def mla_read(
     nh = cfg.num_heads
     nope, rope, vd = cfg.qk_nope_head_dim, cfg.qk_rope_head_dim, cfg.v_head_dim
     rank = cfg.kv_lora_rank
-    # MLA scales by the full qk head dim (nope + rope), not the latent's.
-    sm_scale = (nope + rope) ** -0.5
+    # MLA scales by the full qk head dim (nope + rope), not the latent's;
+    # DeepSeek's yarn folds its mscale² temperature in here.
+    sm_scale = (nope + rope) ** -0.5 * yarn_sm_scale_mult(cfg.rope_scaling)
     wkv_b = lp["wkv_b"].reshape(rank, nh, nope + vd)
     w_uv = wkv_b[..., nope:].permute(1, 0, 2)  # [nh, rank, vd]
     out_lat = ops.mla_paged_attention_full(

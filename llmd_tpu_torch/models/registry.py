@@ -45,6 +45,14 @@ _REGISTRY: dict[str, Callable[[], ModelConfig]] = {
         intermediate_size=14336, num_layers=32, num_heads=32, num_kv_heads=8,
         rope_theta=500000.0, max_model_len=8192,
     ),
+    # Qwen3-32B (HF Qwen/Qwen3-32B): QK-norm, no bias; 65.5 GB of bf16
+    # weights, the largest dense entry that one 80 GB card holds.
+    "qwen3-32b": lambda: ModelConfig(
+        name="qwen3-32b", vocab_size=151936, hidden_size=5120,
+        intermediate_size=25600, num_layers=64, num_heads=64, num_kv_heads=8,
+        head_dim=128, rope_theta=1000000.0, max_model_len=40960,
+        qk_norm=True,
+    ),
     # Qwen3-30B-A3B: 128 experts, top-8, QK-norm.
     "qwen3-30b-a3b": lambda: ModelConfig(
         name="qwen3-30b-a3b", vocab_size=151936, hidden_size=2048,

@@ -193,9 +193,7 @@ def main(argv=None) -> None:
         capture_output=True, text=True, timeout=60, check=True,
     ).stdout.strip()
     gen = torch.Generator(device="cuda").manual_seed(args.seed)
-    params = llama.init_params(cfg, gen, "cuda")
-    if not cfg.is_mla:  # the runner fuses no MLA projections, as JAX does
-        params = llama.fuse_projections(params)
+    params = llama.init_params(cfg, gen, "cuda", fused=True)
     sp = SamplingParams(temperature=0.0, max_tokens=max_tokens, ignore_eos=True)
 
     warmups: dict[str, dict] = {}

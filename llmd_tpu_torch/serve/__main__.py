@@ -1,15 +1,25 @@
 """`python -m llmd_tpu_torch.serve` — the port's model-server entry point.
 
-Where ``python -m llmd_tpu.serve`` has a flag, the port uses its name
-(``--model``, ``--host``, ``--port``, ``--max-num-seqs``,
-``--max-num-batched-tokens``, ``--seed``, ``--decode-window``,
-``--unified-step``, ``--ragged-qlens``, ``--kv-cache-dtype``,
-``--kv-swa-ring``, ``--skip-warmup``, ``--step-watchdog-s``). The model's weights are random, drawn on the device
-from ``--seed``; the byte tokenizer keeps the server hermetic. Before it
-serves, the engine builds its kernels and captures its decode steps as
-CUDA graphs (``LLMEngine.warmup``) unless ``--skip-warmup`` is given; a
-step the warmup did not capture is captured at its first use. Runs on the
-GPU unless ``--device cpu`` is given.
+Where ``python -m llmd_tpu.serve`` has a flag, the port uses its name and
+its default (``--model``, ``--served-model-name``, ``--tokenizer``,
+``--weights-path``, ``--host``, ``--port``, ``--max-model-len``,
+``--block-size``, ``--num-gpu-blocks-override``,
+``--no-enable-prefix-caching``, ``--kv-swa-ring``, ``--max-num-seqs``,
+``--max-num-batched-tokens``, ``--decode-window``, ``--unified-step``,
+``--ragged-qlens``, ``--seed``, ``--skip-warmup``). ``--model`` is a
+registry name, whose weights are random, drawn on the device from
+``--seed``, and whose tokenizer is the byte tokenizer unless
+``--tokenizer`` names one; or an HF model directory (``config.json`` and
+``*.safetensors``), from which the architecture, the weights and the
+tokenizer all come, and whose ``max_position_embeddings`` is the default
+``--max-model-len`` (8,192 for a registry name). The port's own flags:
+``--dtype``, ``--num-blocks`` (the same as ``--num-gpu-blocks-override``),
+``--kv-cache-dtype`` (default: the weights' dtype), ``--step-watchdog-s``
+(default: ``LLMD_STEP_WATCHDOG_S``, as the reference's watchdog reads it)
+and ``--device``. Before it serves, the engine builds its kernels and
+captures its decode steps as CUDA graphs (``LLMEngine.warmup``) unless
+``--skip-warmup`` is given; a step the warmup did not capture is captured
+at its first use. Runs on the GPU unless ``--device cpu`` is given.
 """
 
 from __future__ import annotations
@@ -20,14 +30,38 @@ import logging
 
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(prog="python -m llmd_tpu_torch.serve")
-    p.add_argument("--model", default="tiny", help="registry name")
+    p.add_argument("--model", default="tiny", help="registry name or HF model directory")
+    p.add_argument(
+        "--served-model-name", default=None,
+        help="the model's name on the API (default: --model)",
+    )
+    p.add_argument(
+        "--tokenizer", default=None,
+        help="HF tokenizer directory or name, or 'byte' (default: the model "
+             "directory's tokenizer, else the byte tokenizer)",
+    )
+    p.add_argument(
+        "--weights-path", default=None,
+        help="HF checkpoint directory to load the weights from (default: "
+             "the model directory's, else random weights from --seed)",
+    )
     p.add_argument("--host", default="0.0.0.0")
     p.add_argument("--port", type=int, default=8000)
     p.add_argument(
-        "--dtype", default=None,
-        help="weights and KV pool dtype (default: the registry's)",
+        "--max-model-len", type=int, default=None,
+        help="default: the checkpoint's max_position_embeddings (model "
+             "directories) or 8192",
     )
-    p.add_argument("--num-blocks", type=int, default=2048, help="KV pool pages")
+    p.add_argument("--block-size", type=int, default=16, help="KV page size in tokens")
+    p.add_argument(
+        "--num-gpu-blocks-override", "--num-blocks", dest="num_gpu_blocks_override",
+        type=int, default=None, help="KV pool pages (default 2048)",
+    )
+    p.add_argument("--no-enable-prefix-caching", action="store_true")
+    p.add_argument(
+        "--dtype", default=None,
+        help="weights and KV pool dtype (default: the model's)",
+    )
     p.add_argument(
         "--kv-cache-dtype", default=None,
         help="KV pool dtype: the weights' dtype (default), or int8 for the "
@@ -42,7 +76,7 @@ def build_parser() -> argparse.ArgumentParser:
              "hybrid; no effect on models without sliding layers",
     )
     p.add_argument("--max-num-seqs", type=int, default=64)
-    p.add_argument("--max-num-batched-tokens", type=int, default=1024)
+    p.add_argument("--max-num-batched-tokens", type=int, default=2048)
     p.add_argument("--seed", type=int, default=0)
     p.add_argument(
         "--decode-window", type=int, default=1,
@@ -68,10 +102,11 @@ def build_parser() -> argparse.ArgumentParser:
              "each is then captured at its first use",
     )
     p.add_argument(
-        "--step-watchdog-s", type=float, default=0.0,
+        "--step-watchdog-s", type=float, default=None,
         help="fail in-flight streams and turn /health and /ready 503 when "
              "an engine step runs longer than this many seconds (0 = off; "
-             "armed after the first step)",
+             "armed after the first step; default: LLMD_STEP_WATCHDOG_S, "
+             "else off)",
     )
     p.add_argument("--device", default="cuda")
     return p
@@ -79,15 +114,31 @@ def build_parser() -> argparse.ArgumentParser:
 
 def make_engine_config(args):
     from llmd_tpu_torch.config import CacheConfig, EngineConfig, SchedulerConfig
+    from llmd_tpu_torch.models.loader import config_from_hf, is_model_dir
     from llmd_tpu_torch.models.registry import get_model_config
 
-    overrides = {} if args.dtype is None else {"dtype": args.dtype}
-    model = get_model_config(args.model, **overrides)
+    overrides = {}
+    if args.max_model_len is not None:
+        overrides["max_model_len"] = args.max_model_len
+    if args.dtype is not None:
+        overrides["dtype"] = args.dtype
+    weights_path, tokenizer_path = args.weights_path, args.tokenizer
+    if is_model_dir(args.model):
+        model = config_from_hf(args.model, **overrides)
+        weights_path = weights_path or args.model
+        tokenizer_path = tokenizer_path or args.model
+    else:
+        overrides.setdefault("max_model_len", 8192)
+        model = get_model_config(args.model, **overrides)
     return EngineConfig(
         model=model,
-        cache=CacheConfig(num_blocks=args.num_blocks,
-                          dtype=args.kv_cache_dtype or model.dtype,
-                          swa_ring=args.kv_swa_ring),
+        cache=CacheConfig(
+            page_size=args.block_size,
+            num_blocks=args.num_gpu_blocks_override or 2048,
+            dtype=args.kv_cache_dtype or model.dtype,
+            enable_prefix_caching=not args.no_enable_prefix_caching,
+            swa_ring=args.kv_swa_ring,
+        ),
         scheduler=SchedulerConfig(
             max_num_seqs=args.max_num_seqs,
             max_num_batched_tokens=args.max_num_batched_tokens,
@@ -96,6 +147,8 @@ def make_engine_config(args):
             ragged_qlens=args.ragged_qlens,
         ),
         seed=args.seed,
+        weights_path=weights_path,
+        tokenizer_path=tokenizer_path,
     )
 
 
@@ -108,15 +161,18 @@ def main(argv=None) -> None:
     from llmd_tpu_torch.engine import LLMEngine
     from llmd_tpu_torch.serve.api import build_app
     from llmd_tpu_torch.serve.async_engine import AsyncEngine
-    from llmd_tpu_torch.serve.tokenizer import ByteTokenizer
+    from llmd_tpu_torch.serve.tokenizer import load_tokenizer
 
     config = make_engine_config(args)
+    # The tokenizer first: a bad path fails before the weights load.
+    tokenizer = load_tokenizer(config.tokenizer_path)
     engine = LLMEngine(config, device=args.device)
     if not args.skip_warmup:
         n = engine.warmup()
         logging.info("warmup prepared %d decode programs (CUDA graphs on the card)", n)
     app = build_app(
-        AsyncEngine(engine, watchdog_s=args.step_watchdog_s), ByteTokenizer(), args.model, config.model.max_model_len
+        AsyncEngine(engine, watchdog_s=args.step_watchdog_s), tokenizer,
+        args.served_model_name or args.model, config.model.max_model_len,
     )
     web.run_app(app, host=args.host, port=args.port)
 

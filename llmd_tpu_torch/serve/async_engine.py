@@ -15,6 +15,7 @@ from __future__ import annotations
 
 import asyncio
 import logging
+import os
 import threading
 import time
 from dataclasses import dataclass
@@ -51,11 +52,17 @@ class WatchdogStalled(EngineError):
 class AsyncEngine:
     """Runs an LLMEngine on a background thread with an asyncio surface."""
 
-    def __init__(self, engine: LLMEngine, watchdog_s: float = 0.0) -> None:
+    def __init__(self, engine: LLMEngine, watchdog_s: float | None = None) -> None:
         self.engine = engine
-        # Step watchdog budget in seconds (0: off). It arms once a step has
-        # completed: the first step builds kernels, the startup probe's
-        # business.
+        # Step watchdog budget in seconds (0: off); None reads
+        # LLMD_STEP_WATCHDOG_S, as the reference does (a value that is not
+        # a number means off). It arms once a step has completed: the first
+        # step builds kernels, the startup probe's business.
+        if watchdog_s is None:
+            try:
+                watchdog_s = float(os.environ.get("LLMD_STEP_WATCHDOG_S", "0") or 0)
+            except ValueError:
+                watchdog_s = 0.0
         self.watchdog_s = watchdog_s or 0.0
         self._step_started: float | None = None
         self._steps_done = 0

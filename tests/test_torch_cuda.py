@@ -703,21 +703,33 @@ def program_forwards(runner) -> list[int]:
                      for key, n in runner.programs.runs.items())
 
 
+# DeepSeek's yarn: cos/sin scaled by mscale / mscale_all_dim, and the
+# softmax scale that K5' takes multiplied by mscale_all_dim's mscale².
+MLA_YARN = {"rope_type": "yarn", "factor": 4.0, "original_max_position_embeddings": 64,
+            "beta_fast": 32, "beta_slow": 1, "mscale": 0.707, "mscale_all_dim": 0.707}
+
+
 @pytest.mark.parametrize("model,layout", [
     ("tiny-moe", "flat"), ("tiny-moe", "window"), ("tiny-mla", "flat"), ("tiny-mla", "window"),
+    ("tiny-mla-yarn", "window"),
 ])
 def test_moe_mla_engine_on_the_card_matches_the_cpu_engine(dev, model, layout, monkeypatch):
-    """tiny-moe and tiny-mla (f32): the card's streams equal the CPU's.
-    Every forward is logged with its Q: K6' launches twice a MoE layer a
-    forward (the gate|up pair and the down call), K5' and K4' once a layer
-    a Q = 1 forward of the MLA model (which takes the bucketed unified step where the layout asks for the
-    flat one). Decode-only steps are graph replays: their forwards are
-    counted from the programs' runs."""
+    """tiny-moe and tiny-mla (f32; tiny-mla-yarn: tiny-mla with DeepSeek's
+    yarn, ``mscale_all_dim`` in K5''s ``sm_scale``): the card's streams
+    equal the CPU's. Every forward is logged with its Q: K6' launches twice
+    a MoE layer a forward (the gate|up pair and the down call), K5' and K4'
+    once a layer a Q = 1 forward of the MLA model (which takes the bucketed
+    unified step where the layout asks for the flat one). Decode-only steps
+    are graph replays: their forwards are counted from the programs'
+    runs."""
     from llmd_tpu_torch.models.registry import get_model_config
 
     torch.backends.cuda.matmul.allow_tf32 = False
     # The GQA kernels take head_dim 64, 128 or 256 (tiny-moe's is 16).
-    mcfg = get_model_config(model, **({} if model == "tiny-mla" else {"head_dim": 64}))
+    if model == "tiny-mla-yarn":
+        mcfg = get_model_config("tiny-mla", rope_scaling=MLA_YARN)
+    else:
+        mcfg = get_model_config(model, **({} if model == "tiny-mla" else {"head_dim": 64}))
     cfg = EngineConfig(
         model=mcfg,
         cache=CacheConfig(page_size=8, num_blocks=64, dtype="float32"),
@@ -1359,3 +1371,22 @@ def test_ring_engine_on_the_card_matches_the_cpu_engine(dev, layout):
     assert outs[0] == outs[1]
     for e in engines:
         assert e.runner.kv_swa is not None and e._swa_sections.hits == 1
+
+
+@pytest.mark.parametrize("overrides", [dict(dtype="bfloat16"), dict(qk_norm=True, tie_word_embeddings=True)],
+                         ids=["llama-bf16", "qwen3-f32"])
+def test_loader_round_trip_on_the_card(dev, tmp_path, overrides):
+    """A random tiny tree written as an HF checkpoint (``chip_smoke``'s
+    writer) and loaded with ``device="cuda"``: every leaf bit-equal to the
+    tree in the runner's form (``fuse_projections``)."""
+    import chip_smoke as smoke
+    from llmd_tpu_torch.models.loader import config_from_hf, load_params
+
+    cfg = tiny_model_config(head_dim=64, vocab_size=512, **overrides)
+    params = llama.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    smoke.write_hf_checkpoint(cfg, params, str(tmp_path / "ckpt"))
+    hf_cfg = config_from_hf(str(tmp_path / "ckpt"))
+    assert hf_cfg.dtype == cfg.dtype and hf_cfg.qk_norm == cfg.qk_norm
+    got = load_params(hf_cfg, str(tmp_path / "ckpt"), device="cuda")
+    assert smoke.trees_equal(smoke._tree_map(got, lambda t: t.cpu()), llama.fuse_projections(params))
+    assert all(t.is_cuda for t in got["layers"].values())

@@ -1,5 +1,8 @@
 """Import hygiene of the port: ``llmd_tpu_torch`` and ``chip_smoke.py``
-import neither JAX nor the JAX package ``llmd_tpu``.
+import neither JAX nor the JAX package ``llmd_tpu``, nor ``safetensors`` or
+``ml_dtypes`` (the loader reads safetensors files itself), and importing
+them loads no ``transformers`` or ``tokenizers`` (only ``load_tokenizer`` of
+an HF tokenizer imports transformers, when it is called).
 
 Module names are matched exactly or by their dotted prefix:
 ``"llmd_tpu_torch".startswith("llmd_tpu")`` is true, so a bare prefix
@@ -16,11 +19,13 @@ import pytest
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 PACKAGE = ROOT / "llmd_tpu_torch"
-FORBIDDEN = ("jax", "jaxlib", "llmd_tpu")
+FORBIDDEN = ("jax", "jaxlib", "llmd_tpu", "safetensors", "ml_dtypes")
+# Imported lazily where needed, never by importing a module.
+NOT_AT_IMPORT = ("transformers", "tokenizers")
 
 
-def forbidden(module: str) -> bool:
-    return any(module == f or module.startswith(f + ".") for f in FORBIDDEN)
+def forbidden(module: str, names=FORBIDDEN) -> bool:
+    return any(module == f or module.startswith(f + ".") for f in names)
 
 
 def port_files():
@@ -45,6 +50,8 @@ def test_forbidden_matches_by_dotted_prefix_only():
     assert forbidden("llmd_tpu.ops.kv_write")
     assert not forbidden("llmd_tpu_torch") and not forbidden("llmd_tpu_torch.ops")
     assert not forbidden("jaxtyping_like") and not forbidden("numpy")
+    assert forbidden("safetensors.torch") and forbidden("ml_dtypes")
+    assert forbidden("transformers.models", NOT_AT_IMPORT) and not forbidden("transformers")
 
 
 @pytest.mark.parametrize("path", port_files(), ids=lambda p: str(p.relative_to(ROOT)))
@@ -74,4 +81,6 @@ print(json.dumps({{"imported": names, "modules": sorted(sys.modules)}}))
     assert "llmd_tpu_torch.ops.kv_write" in report["imported"]
     assert "llmd_tpu_torch.ops.paged_attention" in report["imported"]
     assert "llmd_tpu_torch.profile_step" in report["imported"]
+    assert "llmd_tpu_torch.models.loader" in report["imported"]
     assert [m for m in report["modules"] if forbidden(m)] == []
+    assert [m for m in report["modules"] if forbidden(m, NOT_AT_IMPORT)] == []

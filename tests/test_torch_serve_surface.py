@@ -452,7 +452,13 @@ async def test_step_watchdog_fails_streams_and_health():
     error frame well before the step ends, /health and /ready are 503
     while it runs, and the trip is counted."""
     eng = port_engine()
-    aeng = AsyncEngine(eng, watchdog_s=0.2)
+    await watchdog_trips(eng, AsyncEngine(eng, watchdog_s=0.2))
+
+
+async def watchdog_trips(eng, aeng):
+    """Wedge one step of ``eng`` for 2 s under ``aeng``, whose watchdog is
+    armed at 0.2 s, and check the trip (``test_step_watchdog_fails_streams_and_health``)."""
+    assert aeng.watchdog_s == 0.2
     client = TestClient(TestServer(tapi.build_app(aeng, ByteTokenizer(), "tiny", MAX_LEN)))
     await client.start_server()
     try:
@@ -491,7 +497,9 @@ def test_serve_flag_sets_the_watchdog():
 
     args = serve_main.build_parser().parse_args(["--step-watchdog-s", "2.5"])
     assert args.step_watchdog_s == 2.5
-    assert serve_main.build_parser().parse_args([]).step_watchdog_s == 0.0
+    # Without the flag the budget is None: AsyncEngine reads
+    # LLMD_STEP_WATCHDOG_S, as the reference's does.
+    assert serve_main.build_parser().parse_args([]).step_watchdog_s is None
 
 
 def test_chunked_prefill_off_matches_jax():

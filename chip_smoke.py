@@ -153,6 +153,28 @@ through an HF checkpoint):
                chat TTFT and the stats update's cost. The gpt-oss ring
                engine's /metrics page carries the ring's series and the
                binding pool's usage (``ring_metrics``, hybrid_prefix phase).
+    The same server runs with ``--otlp-traces-endpoint`` at a stdlib
+    collector thread (``OtlpSink``), ``--trace-sample-ratio 1.0`` and
+    ``LLMD_FAULT_PLAN`` cutting six chosen request ids
+    (``failover_fault_plan``); this script plays llm-d's router:
+    ``failover`` a greedy and a seeded chat stream (about 600 prompt
+               tokens, 64 output tokens) uncut, then cut after 1, 17 and 63
+               frames and resumed with ``resume_token_ids`` and
+               ``x-llmd-resume``: 64 tokens stitched, one role preamble, the
+               history counted in usage, the resume and fault counters on
+               /metrics; reports the tokens agreeing with the uncut stream
+               (the top-2 gap of a prefill at the first disagreement) and
+               the resumed leg's TTFT and prefix hit.
+    ``deadline`` a 0.05 s ``x-request-deadline-s``: 504 ``timeout_error``,
+               a terminal 504 frame streamed, the request aborted (the
+               engine drains); 60 s answers the undeadlined text.
+    ``tracing`` eight requests with sampled ``traceparent``s reach the sink
+               as one span each with the caller's ids and the reply's
+               usage; eight unsampled ones export nothing; both medians.
+    ``responses`` and ``grpc``: /v1/responses (create, retrieve, chain,
+               delete, a conversation, the streamed events; greedy text as
+               the chat route's) and /vllm.Generation/Generate (streamed and
+               not: the completion route's annotated token ids).
 
 Each phase prints one JSON line. Any failure raises and exits non-zero
 without printing a result. On success the line before the last is the
@@ -1853,8 +1875,460 @@ def surface_phase(info: dict, base: str, prompt_600: list[int]) -> None:
         raise AssertionError(f"after drain: /admin/status {admin}")
 
 
+# The router's side of failover, deadlines, tracing, the Responses API and
+# Generate, played by this script against the first llama-3-8b server.
+
+FAILOVER_CUTS = (1, 17, 63)
+FAILOVER_SAMPLING = {"greedy": {"temperature": 0.0}, "seeded": {"temperature": 0.8, "seed": 7}}
+FAILOVER_TOKENS = 64
+
+
+def cut_request_id(name: str, k: int) -> str:
+    """The request id the fault plan cuts after ``k`` frames; no id is a
+    substring of another (a spec's ``match`` is a substring)."""
+    return f"smoke-failover-{name}-cut{k:02d}"
+
+
+def failover_fault_plan() -> str:
+    """``LLMD_FAULT_PLAN`` of the first llama-3-8b server: one
+    ``serve.stream.cut`` spec a cut stream, matching only its request id,
+    so every other request runs uncut."""
+    return json.dumps({"seed": 0, "faults": [
+        {"site": "serve.stream.cut", "match": cut_request_id(name, k), "after": k - 1, "times": 1}
+        for name in FAILOVER_SAMPLING for k in FAILOVER_CUTS]})
+
+
+class OtlpSink:
+    """A stdlib OTLP/HTTP collector on a thread: the spans POSTed to
+    ``/v1/traces``, in arrival order."""
+
+    def __init__(self) -> None:
+        import http.server
+
+        spans = self.spans = []
+        lock = self.lock = threading.Lock()
+
+        class Handler(http.server.BaseHTTPRequestHandler):
+            def do_POST(self):
+                body = json.loads(self.rfile.read(int(self.headers["Content-Length"])))
+                with lock:
+                    for rs in body["resourceSpans"]:
+                        for ss in rs["scopeSpans"]:
+                            spans.extend(ss["spans"])
+                self.send_response(200)
+                self.end_headers()
+
+            def log_message(self, *args):
+                pass
+
+        self.server = http.server.ThreadingHTTPServer(("127.0.0.1", 0), Handler)
+        self.url = f"http://127.0.0.1:{self.server.server_address[1]}"
+        self.thread = threading.Thread(target=self.server.serve_forever, daemon=True)
+        self.thread.start()
+
+    def by_trace(self) -> dict:
+        with self.lock:
+            out = {}
+            for s in self.spans:
+                out.setdefault(s["traceId"], []).append(s)
+            return out
+
+    def close(self) -> None:
+        self.server.shutdown()
+        self.server.server_close()
+        self.thread.join(timeout=10)
+
+
+def _stream(base: str, path: str, body: dict, headers: dict | None = None) -> dict:
+    """A streamed request read frame by frame, surviving a cut: its frames,
+    whether it ended with [DONE], and the ms to its first token frame."""
+    import http.client
+
+    req = urllib.request.Request(base + path, data=json.dumps(body).encode(),
+                                 headers={"Content-Type": "application/json", **(headers or {})})
+    frames, done, first = [], False, None
+    t0 = time.perf_counter()
+    try:
+        with urllib.request.urlopen(req, timeout=300) as r:
+            for raw in r:
+                line = raw.decode().strip()
+                if line == "data: [DONE]":
+                    done = True
+                    break
+                if line.startswith("data: {"):
+                    frame = json.loads(line[6:])
+                    if first is None and (frame.get("token_ids") or any(
+                            c.get("delta", {}).get("content") or c.get("text")
+                            for c in frame.get("choices") or [])):
+                        first = (time.perf_counter() - t0) * 1e3
+                    frames.append(frame)
+    except (http.client.IncompleteRead, ConnectionError):
+        pass  # the server severed the stream: what a dead replica does
+    return {"frames": frames, "done": done, "first_ms": first}
+
+
+def _chat_parts(frames: list) -> tuple[list[int], str, int, dict | None]:
+    """A chat stream's annotated token ids, its text, its role preambles
+    and its usage."""
+    toks, text, roles, usage = [], "", 0, None
+    for f in frames:
+        toks += f.get("token_ids") or []
+        for c in f.get("choices") or []:
+            roles += c.get("delta") == {"role": "assistant"}
+            text += c.get("delta", {}).get("content") or ""
+        usage = f.get("usage") or usage
+    return toks, text, roles, usage
+
+
+def _fault_count(base: str, site: str) -> float:
+    status, raw = _call(base + "/metrics")
+    for line in raw.decode().splitlines():
+        if line.startswith("llmd:faults_injected_total{") and f'site="{site}"' in line:
+            return float(line.rsplit(None, 1)[1])
+    return 0.0
+
+
+class PrefillProbe:
+    """llama-3-8b's next-token log-probabilities after a token sequence,
+    from one flat prefill through the kernels, on the server's seed-0
+    weights drawn again here at the first call."""
+
+    def __init__(self) -> None:
+        self.params = None
+
+    def gap(self, ids: list[int], tokens: tuple[int, int]) -> dict:
+        """The top-2 log-probability gap after ``ids``, and the
+        log-probabilities of ``tokens`` (the uncut stream's next token and
+        the resumed leg's)."""
+        from llmd_tpu_torch.models import llama
+        from llmd_tpu_torch.models.common import StepInput
+        from llmd_tpu_torch.models.registry import get_model_config
+
+        cfg = get_model_config(MODEL)
+        dev, page = torch.device("cuda"), 16
+        if self.params is None:
+            self.params = llama.init_params(cfg, torch.Generator(device=dev).manual_seed(0),
+                                            "cuda", fused=True)
+        s = mixed_step(cfg, page, -(-cfg.max_model_len // page), [(0, len(ids))], [],
+                       torch.Generator().manual_seed(5), dev)
+        tok = torch.zeros(s["T"], dtype=torch.long)
+        tok[: len(ids)] = torch.tensor(ids)
+        inp = StepInput(token_ids=tok[:, None].to(dev), positions=s["positions"][:, None],
+                        kv_lens=s["kv_lens"], page_table=s["page_table"], token_rows=s["rows"],
+                        num_live=s["num_live"])
+        pool = torch.zeros((cfg.num_layers, s["num_pages"], cfg.num_kv_heads, page,
+                            2 * cfg.head_dim), dtype=torch.bfloat16, device=dev)
+        with torch.inference_mode():
+            h, _ = llama.forward_hidden(self.params, pool, inp, cfg)
+            last = h.reshape(-1, h.shape[-1])[len(ids) - 1:len(ids)]
+            logp = torch.log_softmax(llama.compute_logits(self.params, last, cfg).float(), -1)[0]
+        top2 = logp.topk(2)
+        return {"top2_logprob_gap": float(top2.values[0] - top2.values[1]),
+                "top2_tokens": top2.indices.tolist(),
+                "logprob_uncut_token": float(logp[tokens[0]]),
+                "logprob_resumed_token": float(logp[tokens[1]])}
+
+    def close(self) -> None:
+        self.params = None
+        gc.collect()
+        torch.cuda.empty_cache()
+
+
+def leading_agreement(got: list[int], want: list[int]) -> int:
+    n = 0
+    while n < min(len(got), len(want)) and got[n] == want[n]:
+        n += 1
+    return n
+
+
+def failover_phase(info: dict, base: str) -> None:
+    """The router's failover on one server: a greedy and a seeded chat
+    stream of 64 tokens after a prompt of about 600 tokens runs uncut, then
+    is cut by the server's fault plan after k = 1, 17 and 63 frames and
+    resumed with ``resume_token_ids`` (the cut leg's annotated tokens) and
+    ``x-llmd-resume: 1``. Gates: the stitched stream has exactly 64 tokens,
+    one role preamble and the two legs' text with nothing repeated; the
+    resumed leg's usage counts the history; the cut leg ends without [DONE]
+    after k frames; ``stream_resumes_total``, ``resume_replayed_tokens_total``
+    and ``faults_injected_total{site="serve.stream.cut"}`` move by what was
+    sent. Reported: the tokens agreeing with the uncut stream (no gate: a
+    bf16 prefill of the history may part from the decode path at a
+    near-tie; at the first disagreement, the top-2 gap of a prefill of the
+    uncut history), and the resumed leg's TTFT with its prefix hit."""
+    _call(base + "/admin/resume", {})  # the surface phase ended with a drain
+    words = " ".join(f"w{i % 97}" for i in range(150))
+    messages = [{"role": "user", "content": f"Carry on after a failover. {words}"}]
+    prompt_ids = json.loads(_call(base + "/tokenize", {"messages": messages})[1])["tokens"]
+    info["prompt_tokens"] = len(prompt_ids)
+    m0, _ = _scrape(base)
+    cuts0 = _fault_count(base, "serve.stream.cut")
+    tokens_hdr = {"x-llmd-stream-tokens": "1"}
+    runs, probe = {}, PrefillProbe()
+    for name, sampling in FAILOVER_SAMPLING.items():
+        body = {"messages": messages, "max_tokens": FAILOVER_TOKENS, "ignore_eos": True,
+                "stream": True, **sampling}
+        uncut = _stream(base, "/v1/chat/completions", body, tokens_hdr)
+        want, want_text, roles, usage = _chat_parts(uncut["frames"])
+        if not uncut["done"] or len(want) != FAILOVER_TOKENS or roles != 1:
+            raise AssertionError(f"{name}: the uncut stream: {len(want)} tokens, {roles} preambles")
+        legs = []
+        for k in FAILOVER_CUTS:
+            cut = _stream(base, "/v1/chat/completions", body,
+                          {**tokens_hdr, "x-request-id": cut_request_id(name, k)})
+            history, cut_text, cut_roles, _ = _chat_parts(cut["frames"])
+            if cut["done"] or len(history) != k or cut_roles != 1:
+                raise AssertionError(f"{name} cut {k}: {len(history)} tokens, done {cut['done']}")
+            resumed = _stream(base, "/v1/chat/completions", {**body, "resume_token_ids": history},
+                              {**tokens_hdr, "x-llmd-resume": "1",
+                               "x-request-id": cut_request_id(name, k) + "-resume"})
+            rest, rest_text, rest_roles, rusage = _chat_parts(resumed["frames"])
+            stitched = history + rest
+            if not resumed["done"] or rest_roles or len(stitched) != FAILOVER_TOKENS:
+                raise AssertionError(f"{name} cut {k}: stitched {len(stitched)} tokens, "
+                                     f"{rest_roles} preambles on the resume leg")
+            if rusage["completion_tokens"] != FAILOVER_TOKENS or (
+                    rusage["prompt_tokens"] != usage["prompt_tokens"]):
+                raise AssertionError(f"{name} cut {k}: resumed usage {rusage}")
+            lead = leading_agreement(stitched, want)
+            leg = {"cut_after": k, "agreeing_leading_tokens": lead,
+                   # The cut leg alone (no resume): the uncut request
+                   # again, its prompt now a prefix hit.
+                   "cut_leg_agreeing_tokens": leading_agreement(history, want),
+                   "resume_ttft_ms": resumed["first_ms"],
+                   "resume_prefix_hit_tokens": rusage.get("prompt_tokens_details", {}).get(
+                       "cached_tokens", 0),
+                   "text_equal_uncut": cut_text + rest_text == want_text}
+            if lead < FAILOVER_TOKENS:
+                leg["first_disagreement"] = {"at": lead, **probe.gap(
+                    prompt_ids + want[:lead], (want[lead], stitched[lead]))}
+            legs.append(leg)
+        runs[name] = legs
+    probe.close()
+    info["runs"] = runs
+    info["resume_ttft_ms"] = [leg["resume_ttft_ms"] for legs in runs.values() for leg in legs]
+    m1, _ = _scrape(base)
+    sent = len(FAILOVER_SAMPLING) * len(FAILOVER_CUTS)
+    moved = {"stream_resumes_total": m1["llmd:stream_resumes_total"] - m0["llmd:stream_resumes_total"],
+             "resume_replayed_tokens_total": m1["llmd:resume_replayed_tokens_total"]
+             - m0["llmd:resume_replayed_tokens_total"],
+             "faults_injected_total": _fault_count(base, "serve.stream.cut") - cuts0}
+    info["metrics_moved"] = moved
+    want_moved = {"stream_resumes_total": sent,
+                  "resume_replayed_tokens_total": len(FAILOVER_SAMPLING) * sum(FAILOVER_CUTS),
+                  "faults_injected_total": sent}
+    if moved != want_moved:
+        raise AssertionError(f"/metrics moved by {moved}, want {want_moved}")
+
+
+def deadline_phase(info: dict, base: str) -> None:
+    """``x-request-deadline-s: 0.05`` on a 512-token completion: 504
+    ``timeout_error`` unstreamed, a terminal 504 frame streamed, and the
+    engine request aborted (``/admin/drain`` within 5 s, where the 512
+    tokens would take several seconds; the running gauge, which refreshes
+    at a step, reads 0 after the next request). A deadline of 60 s answers
+    200 with the text of the same request without one."""
+    body = {"prompt": "A long answer, please.", "max_tokens": 512, "temperature": 0.0,
+            "ignore_eos": True}
+    hdr = {"x-request-deadline-s": "0.05"}
+    req = urllib.request.Request(base + "/v1/completions", data=json.dumps(body).encode(),
+                                 headers={"Content-Type": "application/json", **hdr})
+    t0 = time.perf_counter()
+    try:
+        with urllib.request.urlopen(req, timeout=60) as r:
+            status, raw = r.status, r.read()
+    except urllib.error.HTTPError as e:
+        status, raw = e.code, e.read()
+    info["deadline_504_ms"] = (time.perf_counter() - t0) * 1e3
+    err = json.loads(raw).get("error", {})
+    if status != 504 or err.get("type") != "timeout_error" or err.get("code") != 504:
+        raise AssertionError(f"a 0.05 s deadline: {status} {raw[:200]!r}")
+    t0 = time.perf_counter()
+    status, raw = _call(base + "/admin/drain?timeout=5", {})
+    info["aborted_drain_ms"] = (time.perf_counter() - t0) * 1e3
+    if status != 200 or not json.loads(raw)["drained"]:
+        raise AssertionError("the deadlined request was not aborted: the engine did not drain")
+    streamed = _stream(base, "/v1/completions", {**body, "stream": True}, hdr)
+    frames = streamed["frames"]
+    if not streamed["done"] or not frames or frames[-1].get("error", {}).get("code") != 504:
+        raise AssertionError(f"a streamed 0.05 s deadline ended with {frames[-1:]}")
+    info["streamed_frames_before_error"] = len(frames) - 1
+    status, raw = _call(base + "/admin/drain?timeout=5", {})
+    if status != 200 or not json.loads(raw)["drained"]:
+        raise AssertionError("the streamed deadlined request was not aborted")
+    _call(base + "/admin/resume", {})
+    body["max_tokens"] = 64
+    status, raw = _post(base + "/v1/completions", body)
+    plain = json.loads(raw)["choices"][0]["text"]
+    req = urllib.request.Request(base + "/v1/completions", data=json.dumps(body).encode(),
+                                 headers={"Content-Type": "application/json",
+                                          "x-request-deadline-s": "60"})
+    with urllib.request.urlopen(req, timeout=120) as r:
+        status, ample = r.status, json.loads(r.read())
+    if status != 200 or ample["choices"][0]["text"] != plain:
+        raise AssertionError(f"a 60 s deadline: {status}, text equal {ample['choices'][0]['text'] == plain}")
+    m, _ = _scrape(base)
+    info["running_after"] = m["vllm:num_requests_running"]
+    if m["vllm:num_requests_running"] != 0:
+        raise AssertionError(f"running {m['vllm:num_requests_running']} after the deadlines")
+
+
+def tracing_phase(info: dict, base: str, sink: OtlpSink) -> None:
+    """The server runs with ``--otlp-traces-endpoint`` at ``sink`` and
+    ``--trace-sample-ratio 1.0``. Eight completions with sampled
+    ``traceparent``s each reach the sink as one ``engine.generate`` span
+    with the caller's trace id and parent span id, whose token attributes
+    equal the reply's usage; the same eight with flags ``00`` export
+    nothing. Reports the median latency of each eight (no gate)."""
+    import secrets
+
+    def send(flags: str) -> tuple[list, list]:
+        sent, ms = [], []
+        for i in range(8):
+            tid, pid = secrets.token_hex(16), secrets.token_hex(8)
+            body = {"prompt": f"Trace request {i}.", "max_tokens": 16, "temperature": 0.0,
+                    "ignore_eos": True, "stream": i % 2 == 1}
+            req = urllib.request.Request(
+                base + "/v1/completions", data=json.dumps(body).encode(),
+                headers={"Content-Type": "application/json",
+                         "traceparent": f"00-{tid}-{pid}-{flags}"})
+            t0 = time.perf_counter()
+            with urllib.request.urlopen(req, timeout=120) as r:
+                raw = r.read().decode()
+            ms.append((time.perf_counter() - t0) * 1e3)
+            if body["stream"]:
+                usage = [json.loads(ln[6:]) for ln in raw.splitlines()
+                         if ln.startswith("data: {")][-1]["usage"]
+            else:
+                usage = json.loads(raw)["usage"]
+            sent.append((tid, pid, usage))
+        return sent, ms
+
+    sampled, sampled_ms = send("01")
+    unsampled, unsampled_ms = send("00")
+    info.update(sampled_ms_median=statistics.median(sampled_ms),
+                unsampled_ms_median=statistics.median(unsampled_ms),
+                sampled_ms=sampled_ms, unsampled_ms=unsampled_ms)
+    t0 = time.perf_counter()
+    while True:
+        traces = sink.by_trace()
+        if all(tid in traces for tid, _, _ in sampled) or time.perf_counter() - t0 > 15:
+            break
+        time.sleep(0.2)
+    time.sleep(2.5)  # one more flush interval (2 s) for spans that must not come
+    traces = sink.by_trace()
+    info["spans_received"] = sum(len(v) for v in traces.values())
+    for tid, pid, usage in sampled:
+        spans = traces.get(tid, [])
+        if len(spans) != 1:
+            raise AssertionError(f"trace {tid}: {len(spans)} spans at the sink")
+        (span,) = spans
+        attrs = {a["key"]: a["value"] for a in span["attributes"]}
+        got = (span["name"], span.get("parentSpanId"),
+               int(attrs["gen_ai.usage.prompt_tokens"]["intValue"]),
+               int(attrs["gen_ai.usage.completion_tokens"]["intValue"]))
+        if got != ("engine.generate", pid, usage["prompt_tokens"], usage["completion_tokens"]):
+            raise AssertionError(f"trace {tid}: span {got}, usage {usage}")
+    leaked = [tid for tid, _, _ in unsampled if tid in traces]
+    if leaked:
+        raise AssertionError(f"{len(leaked)} unsampled requests exported spans")
+
+
+def responses_phase(info: dict, base: str) -> None:
+    """/v1/responses: create (greedy), retrieve, chain through
+    ``previous_response_id``, delete (then 404); a conversation whose
+    response appends its turns; a streamed response whose events come as
+    created, deltas, completed and spell its text. The greedy text equals
+    the chat route's for the same messages."""
+    body = {"model": MODEL, "input": "Name three colours.", "max_output_tokens": 16,
+            "temperature": 0.0}
+    t0 = time.perf_counter()
+    status, raw = _call(base + "/v1/responses", body)
+    info["create_ms"] = (time.perf_counter() - t0) * 1e3
+    first = json.loads(raw)
+    if status != 200 or first["status"] != "completed" or first["usage"]["output_tokens"] < 1:
+        raise AssertionError(f"create: {status} {raw[:200]!r}")
+    text = first["output"][0]["content"][0]["text"]
+    status, raw = _call(base + "/v1/chat/completions", {
+        "messages": [{"role": "user", "content": body["input"]}], "max_tokens": 16,
+        "temperature": 0.0})
+    chat = json.loads(raw)
+    info.update(text_chars=len(text),
+                text_equal_chat=chat["choices"][0]["message"]["content"] == text)
+    if not info["text_equal_chat"] or (
+            chat["usage"]["completion_tokens"] != first["usage"]["output_tokens"]):
+        raise AssertionError("the response's greedy text or length differs from the chat route's")
+    if json.loads(_call(base + f"/v1/responses/{first['id']}")[1]).get("id") != first["id"]:
+        raise AssertionError("retrieve")
+    status, raw = _call(base + "/v1/responses", {**body, "input": "And three more.",
+                                                 "previous_response_id": first["id"]})
+    second = json.loads(raw)
+    if status != 200 or second["usage"]["input_tokens"] <= first["usage"]["input_tokens"]:
+        raise AssertionError(f"chaining: {status} {second.get('usage')}")
+    if _call(base + f"/v1/responses/{first['id']}", method="DELETE")[0] != 200 or (
+            _call(base + f"/v1/responses/{first['id']}")[0] != 404):
+        raise AssertionError("delete")
+    conv = json.loads(_call(base + "/v1/conversations", {"metadata": {"smoke": "1"}})[1])
+    _call(base + f"/v1/conversations/{conv['id']}/items",
+          {"items": [{"type": "message", "role": "user", "content": "Remember blue."}]})
+    status, _ = _call(base + "/v1/responses", {**body, "input": "Which colour?",
+                                               "conversation": conv["id"]})
+    items = json.loads(_call(base + f"/v1/conversations/{conv['id']}/items")[1])["data"]
+    info["conversation_roles"] = [m["role"] for m in items]
+    if status != 200 or info["conversation_roles"] != ["user", "user", "assistant"]:
+        raise AssertionError(f"conversation: {status} {info['conversation_roles']}")
+    req = urllib.request.Request(base + "/v1/responses",
+                                 data=json.dumps({**body, "stream": True}).encode(),
+                                 headers={"Content-Type": "application/json"})
+    events, name = [], None
+    with urllib.request.urlopen(req, timeout=120) as r:
+        for raw in r:
+            line = raw.decode().strip()
+            if line.startswith("event: "):
+                name = line[7:]
+            elif line.startswith("data: "):
+                events.append((name, json.loads(line[6:])))
+    names = [e for e, _ in events]
+    info["stream_events"] = len(names)
+    deltas = "".join(d["delta"] for e, d in events if e == "response.output_text.delta")
+    final = events[-1][1]["response"]
+    # A delta event carries text: random weights mostly pick ids above the
+    # byte tokenizer's 259, which decode to nothing, so there may be none.
+    if (names[0] != "response.created" or names[-1] != "response.completed"
+            or set(names[1:-1]) - {"response.output_text.delta"}
+            or final["output"][0]["content"][0]["text"] != deltas
+            or final["usage"]["output_tokens"] != first["usage"]["output_tokens"]):
+        raise AssertionError(f"streamed response events {names}, usage {final['usage']}")
+
+
+def grpc_phase(info: dict, base: str) -> None:
+    """/vllm.Generation/Generate, unstreamed and streamed, gives the token
+    ids the completion route annotates for the same prompt ids."""
+    prompt = [3 + (13 * i) % 250 for i in range(40)]
+    sampling = {"max_tokens": 16, "temperature": 0.0, "ignore_eos": True}
+    body = {"prompt_token_ids": prompt, "model": MODEL, "sampling_params": sampling}
+    t0 = time.perf_counter()
+    status, raw = _call(base + "/vllm.Generation/Generate", body)
+    info["generate_ms"] = (time.perf_counter() - t0) * 1e3
+    plain = json.loads(raw)
+    streamed = _stream(base, "/vllm.Generation/Generate", {**body, "stream": True})
+    frames = streamed["frames"]
+    ids = [t for f in frames for t in f.get("token_ids", [])]
+    completion = _stream(base, "/v1/completions",
+                         {"prompt": prompt, "stream": True, **sampling},
+                         {"x-llmd-stream-tokens": "1"})
+    annotated = [t for f in completion["frames"] for t in f.get("token_ids", [])]
+    info["token_ids"] = plain["token_ids"]
+    if status != 200 or len(plain["token_ids"]) != 16 or plain["finish_reason"] != "length":
+        raise AssertionError(f"Generate: {status} {raw[:200]!r}")
+    if not streamed["done"] or frames[-1].get("usage", {}).get("completion_tokens") != 16:
+        raise AssertionError(f"streamed Generate ended with {frames[-1:]}")
+    if not (ids == plain["token_ids"] == annotated):
+        raise AssertionError(f"Generate {plain['token_ids']}, streamed {ids}, completion {annotated}")
+
+
 def serve_phase(info: dict, layout_args: list[str], model: str = MODEL,
-                surface: dict | None = None, flags: tuple = (), name: str | None = None) -> list[str]:
+                surface: dict | None = None, flags: tuple = (), name: str | None = None,
+                sink: OtlpSink | None = None) -> list[str]:
     """Start the server for ``model`` (a registry name or an HF model
     directory, with ``flags`` and ``layout_args`` appended to its command
     line) and complete a few requests. ``/v1/models`` must report the
@@ -1863,7 +2337,10 @@ def serve_phase(info: dict, layout_args: list[str], model: str = MODEL,
     the text of the same completion unstreamed; a server in its default
     layout also answers two plain requests, one with a 600-token prompt.
     With ``surface`` (a dict of numbers to report with it),
-    ``surface_phase`` then runs on this server as a phase of its own.
+    ``surface_phase`` then runs on this server as a phase of its own. With
+    ``sink`` the server exports its spans to that collector at ratio 1.0
+    and runs under ``failover_fault_plan``, and the ``failover``,
+    ``deadline``, ``tracing``, ``responses`` and ``grpc`` phases follow.
     Returns the completions' texts, the streamed one last."""
     name = name or model
     with socket.socket() as sock:
@@ -1872,11 +2349,15 @@ def serve_phase(info: dict, layout_args: list[str], model: str = MODEL,
     base = f"http://127.0.0.1:{port}"
     os.makedirs(os.path.join(REPO, "build"), exist_ok=True)
     log_path = os.path.join(REPO, "build", "chip_smoke_serve.log")
+    env = dict(os.environ)
+    if sink is not None:
+        flags = (*flags, "--otlp-traces-endpoint", sink.url, "--trace-sample-ratio", "1.0")
+        env["LLMD_FAULT_PLAN"] = failover_fault_plan()
     with open(log_path, "w") as log:
         proc = subprocess.Popen(
             [sys.executable, "-m", "llmd_tpu_torch.serve", "--model", model,
              "--host", "127.0.0.1", "--port", str(port), *flags, *layout_args],
-            cwd=REPO, stdout=log, stderr=subprocess.STDOUT,
+            cwd=REPO, stdout=log, stderr=subprocess.STDOUT, env=env,
         )
         try:
             t0 = time.perf_counter()
@@ -1942,6 +2423,17 @@ def serve_phase(info: dict, layout_args: list[str], model: str = MODEL,
             if surface is not None:
                 with phase("surface", {"model": model, "layout": "flat step", **surface}) as sinfo:
                     surface_phase(sinfo, base, bodies[2]["prompt"])
+            if sink is not None:
+                with phase("failover", {"model": model, "layout": "flat step"}) as sinfo:
+                    failover_phase(sinfo, base)
+                with phase("deadline", {"model": model, "layout": "flat step"}) as sinfo:
+                    deadline_phase(sinfo, base)
+                with phase("tracing", {"model": model, "layout": "flat step"}) as sinfo:
+                    tracing_phase(sinfo, base, sink)
+                with phase("responses", {"model": model, "layout": "flat step"}) as sinfo:
+                    responses_phase(sinfo, base)
+                with phase("grpc", {"model": model, "layout": "flat step"}) as sinfo:
+                    grpc_phase(sinfo, base)
         finally:
             proc.terminate()
             try:
@@ -3401,8 +3893,12 @@ def main() -> int:
     qwen_runs = qwen_phases()
     gc.collect()
     torch.cuda.empty_cache()
-    with phase("serve", {"layout": "flat step"}) as info:
-        registry_texts = serve_phase(info, [], surface=surface)
+    sink = OtlpSink()
+    try:
+        with phase("serve", {"layout": "flat step"}) as info:
+            registry_texts = serve_phase(info, [], surface=surface, sink=sink)
+    finally:
+        sink.close()
     with phase("serve", {"layout": "flat step", "from": "HF checkpoint"}) as info:
         # The chart's flags this port takes, on the directory the checkpoint
         # phase wrote: the same seed-0 weights, so the same completions.

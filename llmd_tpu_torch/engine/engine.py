@@ -31,6 +31,7 @@ import uuid
 
 import torch
 
+from llmd_tpu_torch import faults
 from llmd_tpu_torch.config import EngineConfig, swa_ring_spec
 from llmd_tpu_torch.engine.kv_cache import (
     NoFreePagesError,
@@ -302,9 +303,20 @@ class LLMEngine:
         sampling: SamplingParams | None = None,
         request_id: str | None = None,
         priority: int = 0,
+        resume_output_tokens: int = 0,
     ) -> str:
+        """Queue a request; returns its id. ``resume_output_tokens`` > 0
+        marks the prompt's last that many tokens as output a replica that
+        died mid-stream already delivered (failover resume): generation
+        continues at that output position."""
         if not prompt_token_ids:
             raise ValueError("empty prompt")
+        if resume_output_tokens and not 0 < resume_output_tokens < len(prompt_token_ids):
+            raise ValueError(
+                f"resume_output_tokens {resume_output_tokens} must leave a "
+                f"non-empty prompt head (prompt carries "
+                f"{len(prompt_token_ids)} tokens)"
+            )
         vocab = self.config.model.vocab_size
         if not all(0 <= t < vocab for t in prompt_token_ids):
             raise ValueError(f"prompt token ids must lie in [0, {vocab})")
@@ -327,6 +339,13 @@ class LLMEngine:
             sampling=sampling or SamplingParams(),
             priority=priority,
         )
+        if resume_output_tokens:
+            # Admitted through the recompute-preemption seam: the history is
+            # prompt, and num_prior_output_tokens carries the output
+            # position, which seeded sampling and the length check count.
+            req.num_prior_output_tokens = resume_output_tokens
+            self.stats.stream_resumes_total += 1
+            self.stats.resume_replayed_tokens_total += resume_output_tokens
         if self._swa_sections is not None:
             self._try_hybrid_ring_hit(req)
         self.scheduler.add_request(req)
@@ -422,6 +441,9 @@ class LLMEngine:
         return self.runner.warmup()
 
     def step(self) -> list[RequestOutput]:
+        # Fault site: a wedged device program stalls the whole step (the
+        # step watchdog's case). Unarmed, one global read.
+        faults.delay("engine.step.stall")
         t0 = time.perf_counter()
         batch: ScheduledBatch = self.scheduler.schedule()
         if batch.is_empty:

@@ -6,7 +6,9 @@ its default (``--model``, ``--served-model-name``, ``--tokenizer``,
 ``--block-size``, ``--num-gpu-blocks-override``,
 ``--no-enable-prefix-caching``, ``--kv-swa-ring``, ``--max-num-seqs``,
 ``--max-num-batched-tokens``, ``--decode-window``, ``--unified-step``,
-``--ragged-qlens``, ``--seed``, ``--skip-warmup``). ``--model`` is a
+``--ragged-qlens``, ``--seed``, ``--skip-warmup``, and the tracing flags
+``--otlp-traces-endpoint``, ``--trace-file`` and ``--trace-sample-ratio``,
+which the chart passes when tracing is on). ``--model`` is a
 registry name, whose weights are random, drawn on the device from
 ``--seed``, and whose tokenizer is the byte tokenizer unless
 ``--tokenizer`` names one; or an HF model directory (``config.json`` and
@@ -20,6 +22,14 @@ and ``--device``. Before it serves, the engine builds its kernels and
 captures its decode steps as CUDA graphs (``LLMEngine.warmup``) unless
 ``--skip-warmup`` is given; a step the warmup did not capture is captured
 at its first use. Runs on the GPU unless ``--device cpu`` is given.
+
+With ``--otlp-traces-endpoint`` (a collector's base URL) or ``--trace-file``
+(a JSONL span log) every generate request continues its caller's
+``traceparent`` in an ``engine.generate`` span, sampled parent-first, else
+at ``--trace-sample-ratio``. ``LLMD_FAULT_PLAN`` (a fault plan's JSON, read
+at import of ``llmd_tpu_torch.faults``) arms the fault sites, and
+``LLMD_REQUEST_DEADLINE_S`` bounds a request that carries no
+``x-request-deadline-s`` header.
 """
 
 from __future__ import annotations
@@ -108,6 +118,12 @@ def build_parser() -> argparse.ArgumentParser:
              "armed after the first step; default: LLMD_STEP_WATCHDOG_S, "
              "else off)",
     )
+    p.add_argument(
+        "--otlp-traces-endpoint", default=None,
+        help="OTLP/HTTP collector base URL (e.g. http://otel:4318)",
+    )
+    p.add_argument("--trace-file", default=None, help="JSONL span log path")
+    p.add_argument("--trace-sample-ratio", type=float, default=0.1)
     p.add_argument("--device", default="cuda")
     return p
 
@@ -163,6 +179,15 @@ def main(argv=None) -> None:
     from llmd_tpu_torch.serve.async_engine import AsyncEngine
     from llmd_tpu_torch.serve.tokenizer import load_tokenizer
 
+    if args.otlp_traces_endpoint or args.trace_file:
+        from llmd_tpu_torch.obs.tracing import configure_tracing
+
+        configure_tracing(
+            "llmd-engine",
+            otlp_endpoint=args.otlp_traces_endpoint,
+            trace_file=args.trace_file,
+            sample_ratio=args.trace_sample_ratio,
+        )
     config = make_engine_config(args)
     # The tokenizer first: a bad path fails before the weights load.
     tokenizer = load_tokenizer(config.tokenizer_path)

@@ -1,18 +1,27 @@
 """OpenAI-compatible HTTP API over the port's engine (aiohttp).
 
-The surface llm-d's router drives (the JAX package's
-``llmd_tpu/serve/api.py``):
+The surface llm-d's router, the P/D sidecar and the RL loop drive (the JAX
+package's ``llmd_tpu/serve/api.py``):
 
   POST /v1/completions, /v1/chat/completions   (streamed and not, n in [1, 16])
+  POST /vllm.Generation/Generate                (JSON-transcoded, token in and out)
+  POST /v1/responses; GET, DELETE /v1/responses/{id}
+  POST /v1/conversations; GET /v1/conversations/{id};
+  POST, GET /v1/conversations/{id}/items        (``serve/responses.py``)
   GET  /v1/models, /health, /ready
   GET  /metrics                                 (the router's scrape)
   POST /tokenize, /v1/completions/render, /v1/chat/completions/render
   POST /v1/cache/probe                          (the P/D sidecar's question)
   POST /admin/pause, /admin/resume, /admin/drain; GET /admin/status
 
-Not ported yet: ``/v1/responses``, ``/v1/embeddings``, the
-``/vllm.Generation`` routes, the LoRA load routes, the request deadline and
-priority headers, and the multimodal encoder parts.
+The generate routes take the router's failover resume (``resume_token_ids``
+with ``x-llmd-stream-tokens`` and ``x-llmd-resume``), the request deadline
+(``x-request-deadline-s``, else ``LLMD_REQUEST_DEADLINE_S``), and continue
+the caller's ``traceparent`` in an ``engine.generate`` span.
+
+Not ported yet: ``/v1/embeddings`` and ``/vllm.Generation/Embed``, the LoRA
+load routes and adapter model ids, ``kv_transfer_params``, the
+``x-llmd-priority`` batch clamp, and the multimodal encoder parts.
 """
 
 from __future__ import annotations
@@ -27,15 +36,31 @@ import time
 import pydantic
 from aiohttp import web
 
+from llmd_tpu_torch import faults
 from llmd_tpu_torch.engine.request import RequestOutput, SamplingParams
+from llmd_tpu_torch.obs.tracing import get_tracer
 from llmd_tpu_torch.serve import protocol as P
-from llmd_tpu_torch.serve.async_engine import AsyncEngine, EngineError, RequestFailed
+from llmd_tpu_torch.serve.async_engine import (
+    AsyncEngine,
+    DeadlineExceeded,
+    EngineError,
+    RequestFailed,
+)
 from llmd_tpu_torch.serve.metrics import render_metrics
+from llmd_tpu_torch.serve.responses import STORE_KEY, ResponsesStore, make_handlers
 
 ENGINE_KEY = web.AppKey("engine", AsyncEngine)
 TOK_KEY = web.AppKey("tokenizer", object)
 MODEL_KEY = web.AppKey("model", str)
 MAXLEN_KEY = web.AppKey("max_model_len", int)
+
+# The router's failover headers (the JAX package's ``llmd_tpu/epp/types.py``
+# names): with HDR_STREAM_TOKENS set, every streamed delta frame carries
+# its raw ``token_ids``, the history the router replays as
+# ``resume_token_ids`` when this stream dies; HDR_RESUME marks such a
+# replay leg, which continues an open client stream (no role preamble).
+HDR_STREAM_TOKENS = "x-llmd-stream-tokens"
+HDR_RESUME = "x-llmd-resume"
 
 
 class Detokenizer:
@@ -107,7 +132,34 @@ def _error(status: int, message: str) -> web.Response:
 
 
 def _error_status(e: BaseException) -> int:
-    return 400 if isinstance(e, RequestFailed) else 500
+    """An engine exception's HTTP status, for bodies and terminal frames."""
+    if isinstance(e, RequestFailed):
+        return 400
+    if isinstance(e, DeadlineExceeded):
+        return 504
+    return 500
+
+
+def _engine_error(e: EngineError) -> web.Response:
+    """An unstreamed request's engine failure: 504 ``timeout_error`` for a
+    passed deadline, else 500 ``internal_error``."""
+    if isinstance(e, DeadlineExceeded):
+        return web.json_response(P.error_body(str(e), etype="timeout_error", code=504), status=504)
+    return web.json_response(P.error_body(str(e), etype="internal_error", code=500), status=500)
+
+
+def _request_deadline_s(request: web.Request) -> float | None:
+    """The request's deadline in seconds: ``x-request-deadline-s``, else
+    ``LLMD_REQUEST_DEADLINE_S``. A malformed or non-positive value means no
+    deadline, the reference's rule: a bad header must not refuse a request
+    the engine could serve."""
+    raw = request.headers.get("x-request-deadline-s") or os.environ.get(
+        "LLMD_REQUEST_DEADLINE_S", "")
+    try:
+        v = float(raw)
+    except ValueError:
+        return None
+    return v if v > 0 else None
 
 
 def _sse(data: dict) -> bytes:
@@ -260,54 +312,85 @@ async def _open_stream(request: web.Request, rid: str) -> web.StreamResponse:
 
 
 async def _token_deltas(engine: AsyncEngine, rid: str, prompt_ids: list[int],
-                        sampling: SamplingParams, detok: Detokenizer, priority: int):
-    """Yields (text delta, finish reason or None, last output) per token.
+                        sampling: SamplingParams, detok: Detokenizer, priority: int,
+                        deadline_s: float | None = None, resume_output_tokens: int = 0):
+    """Yields (token, text delta, finish reason or None, last output) per
+    token.
 
     A fused decode window delivers up to K tokens at once: each is its own
     delta, in order. An empty delta (held back for UTF-8 or a stop string)
     still tells a streaming client that a token exists. A stop string
     aborts the request and finishes the stream with "stop"."""
-    async for out in engine.generate(rid, prompt_ids, sampling, priority):
+    async for out in engine.generate(rid, prompt_ids, sampling, priority, deadline_s,
+                                     resume_output_tokens):
         for i, token in enumerate(out.new_token_ids):
             last = out.finished and i == len(out.new_token_ids) - 1
             delta = detok.feed([token], final=last)
             if detok.stopped:
                 engine.abort(rid)
-                yield delta, "stop", out
+                yield token, delta, "stop", out
                 return
-            yield delta, _finish_reason(out) if last else None, out
+            yield token, delta, _finish_reason(out) if last else None, out
             if last:
                 return
         if out.finished:
             return
 
 
+def _cut(request: web.Request, engine: AsyncEngine, rid: str) -> bool:
+    """The ``serve.stream.cut`` fault site, after a frame: the replica dies
+    mid-stream. Its transport is severed without a terminator, which is what
+    a crashed engine looks like to the router's read loop."""
+    if not faults.fires("serve.stream.cut", rid):
+        return False
+    engine.abort(rid)
+    if request.transport is not None:
+        request.transport.close()
+    return True
+
+
 async def _stream_response(
     request: web.Request, engine: AsyncEngine, rid: str, model: str,
     prompt_ids: list[int], sampling: SamplingParams, detok: Detokenizer,
-    priority: int, chat: bool,
+    priority: int, chat: bool, span, deadline_s: float | None = None,
+    resume_output_tokens: int = 0, stream_token_ids: bool = False,
+    resume_leg: bool = False,
 ) -> web.StreamResponse:
     resp = await _open_stream(request, rid)
-    if chat:
+    if chat and not resume_leg:
+        # A resume leg continues the client stream the first leg opened, even
+        # with an empty history (that leg died between the role preamble and
+        # its first token): the preamble went out with the first leg.
         await resp.write(_sse(P.chat_chunk(rid, model, {"role": "assistant"}, None)))
     finish = None
-    n_out = cached = 0
+    n_out, cached = resume_output_tokens, 0
     try:
-        async for delta, finish, out in _token_deltas(
-            engine, rid, prompt_ids, sampling, detok, priority
+        async for token, delta, finish, out in _token_deltas(
+            engine, rid, prompt_ids, sampling, detok, priority, deadline_s,
+            resume_output_tokens,
         ):
             n_out, cached = out.num_output_tokens, out.num_cached_tokens
-            await resp.write(_sse(_delta_chunk(chat, rid, model, delta)))
+            chunk = _delta_chunk(chat, rid, model, delta)
+            if stream_token_ids:
+                # The router's resume history; it strips the field before
+                # the client sees the frame.
+                chunk["token_ids"] = [token]
+            await resp.write(_sse(chunk))
+            if _cut(request, engine, rid):
+                return resp
     except (RequestFailed, EngineError) as e:
-        # The stream is committed: a terminal error frame, not a hang.
+        # The stream is committed: a terminal error frame (504 deadline,
+        # 500 engine, 400 client), not a hang.
         await resp.write(_sse(P.error_body(str(e), code=_error_status(e))))
         await resp.write(b"data: [DONE]\n\n")
         return resp
     except (asyncio.CancelledError, ConnectionResetError):
         engine.abort(rid)
         raise
+    span.set("gen_ai.usage.completion_tokens", n_out)
+    span.set("llm_d.cache.hit_tokens", cached)
     final = _final_chunk(chat, rid, model, finish)
-    final["usage"] = P.usage_dict(len(prompt_ids), n_out, cached)
+    final["usage"] = P.usage_dict(len(prompt_ids) - resume_output_tokens, n_out, cached)
     await resp.write(_sse(final))
     await resp.write(b"data: [DONE]\n\n")
     await resp.write_eof()
@@ -317,7 +400,7 @@ async def _stream_response(
 async def _stream_response_multi(
     request: web.Request, engine: AsyncEngine, rid: str, model: str,
     prompt_ids: list[int], sampling: SamplingParams, tokenizer, stops: list[str],
-    n: int, priority: int, chat: bool,
+    n: int, priority: int, chat: bool, span, deadline_s: float | None = None,
 ) -> web.StreamResponse:
     """SSE with n > 1: one engine stream per choice, their chunks
     interleaved on the response with their choice index."""
@@ -332,9 +415,9 @@ async def _stream_response_multi(
         detok = Detokenizer(tokenizer, stops)
         try:
             finish = out = None
-            async for delta, finish, out in _token_deltas(
+            async for _, delta, finish, out in _token_deltas(
                 engine, f"{rid}-{i}", prompt_ids, _choice_sampling(sampling, i),
-                detok, priority,
+                detok, priority, deadline_s,
             ):
                 await queue.put(("delta", i, delta))
             if out is not None:
@@ -372,6 +455,8 @@ async def _stream_response_multi(
         for t in tasks:
             t.cancel()
         raise
+    span.set("gen_ai.usage.completion_tokens", totals["out"])
+    span.set("llm_d.cache.hit_tokens", totals["cached"])
     await resp.write(_sse({
         "id": rid,
         "object": "chat.completion.chunk" if chat else "text_completion",
@@ -385,11 +470,13 @@ async def _stream_response_multi(
 
 
 async def _collect(engine: AsyncEngine, rid: str, prompt_ids: list[int],
-                   sampling: SamplingParams, detok: Detokenizer, priority: int):
+                   sampling: SamplingParams, detok: Detokenizer, priority: int,
+                   deadline_s: float | None = None, resume_output_tokens: int = 0):
     """Run to completion; returns (text, finish reason, last output)."""
     finish = None
     final: RequestOutput | None = None
-    async for out in engine.generate(rid, prompt_ids, sampling, priority):
+    async for out in engine.generate(rid, prompt_ids, sampling, priority, deadline_s,
+                                     resume_output_tokens):
         detok.feed(out.new_token_ids, final=out.finished)
         final = out
         if detok.stopped:
@@ -399,6 +486,48 @@ async def _collect(engine: AsyncEngine, rid: str, prompt_ids: list[int],
         if out.finished:
             finish = _finish_reason(out)
     return detok.emitted, finish, final
+
+
+def _validate_resume(resume_ids, max_tokens: int, n: int = 1) -> str | None:
+    """None if a resume history is admissible, else the 400 message; the
+    caller counts ``stream_resume_failures_total`` on a refusal."""
+    if n != 1:
+        return "resume_token_ids requires n == 1"
+    if not (isinstance(resume_ids, list)
+            and all(isinstance(t, int) and 0 <= t for t in resume_ids)):
+        return "resume_token_ids must be non-negative token ids"
+    if len(resume_ids) > max_tokens:
+        return (f"resume history of {len(resume_ids)} tokens exceeds the "
+                f"request's max_tokens {max_tokens}")
+    return None
+
+
+def _resume_finished(prompt_len: int, resume_ids: list[int], sampling: SamplingParams,
+                     max_len: int) -> str | None:
+    """The finish reason the delivered history already reached (the dead
+    replica sent the last token, and its finish frame was lost), checked
+    in the engine's order: stop token, then length."""
+    if not sampling.ignore_eos and resume_ids and resume_ids[-1] in sampling.stop_token_ids:
+        return "stop"
+    if len(resume_ids) >= sampling.max_tokens:
+        return "length"
+    if prompt_len + len(resume_ids) >= max_len:
+        return "length"
+    return None
+
+
+async def _finish_only_stream(request: web.Request, rid: str, model: str, chat: bool,
+                              finish: str, usage: dict) -> web.StreamResponse:
+    """A resume leg with nothing left to generate: only the terminal frame,
+    usage and [DONE] were lost with the dead replica, so only they are
+    sent, and the stitched stream equals an uninterrupted one."""
+    resp = await _open_stream(request, rid)
+    final = _final_chunk(chat, rid, model, finish)
+    final["usage"] = usage
+    await resp.write(_sse(final))
+    await resp.write(b"data: [DONE]\n\n")
+    await resp.write_eof()
+    return resp
 
 
 async def _handle_generate(request: web.Request, chat: bool) -> web.StreamResponse:
@@ -431,26 +560,74 @@ async def _handle_generate(request: web.Request, chat: bool) -> web.StreamRespon
     sampling = P.to_sampling(req, getattr(tokenizer, "eos_token_id", None), max_tokens)
     rid = request.headers.get("x-request-id") or P.request_id("chatcmpl" if chat else "cmpl")
     stops = P.stop_strings(req.stop)
+    # Failover resume: the delivered history becomes committed prefix, and
+    # the response carries only the continuation, from the next output
+    # position (the same bytes as an uncut stream, greedy or seeded).
+    resume_ids = list(req.resume_token_ids or [])
+    if resume_ids:
+        reject = _validate_resume(resume_ids, max_tokens, req.n)
+        if reject is not None:
+            engine.stats.stream_resume_failures_total += 1
+            return _error(400, reject)
+    detok = Detokenizer(tokenizer, stops)
+    # The server's span continues the caller's (the router's) traceparent.
+    span = get_tracer().start_span(
+        "engine.generate", traceparent=request.headers.get("traceparent"),
+        kind="SPAN_KIND_SERVER",
+    )
+    span.set("gen_ai.request.model", model)
+    span.set("gen_ai.usage.prompt_tokens", len(prompt_ids))
+    span.set("llm_d.request.streaming", bool(req.stream))
+    deadline_s = _request_deadline_s(request)
+    stream_token_ids = request.headers.get(HDR_STREAM_TOKENS, "") == "1"
+    resume_leg = bool(resume_ids) or request.headers.get(HDR_RESUME, "") == "1"
+    engine_prompt_ids = prompt_ids
+    resume_text_base = 0
+    if resume_ids:
+        span.set("llm_d.resume.tokens", len(resume_ids))
+        fin = _resume_finished(len(prompt_ids), resume_ids, sampling, max_len)
+        # A fresh detokenizer fed the history emits the first leg's text
+        # exactly, so the deltas continue mid-character and mid-holdback.
+        detok.feed(resume_ids, final=fin is not None)
+        if fin is None and detok.stopped:
+            fin = "stop"  # the history ends on a stop string
+        resume_text_base = len(detok.emitted)
+        if fin is not None:
+            span.end()
+            usage = P.usage_dict(len(prompt_ids), len(resume_ids))
+            if req.stream:
+                return await _finish_only_stream(request, rid, model, chat, fin, usage)
+            make_response = P.chat_response if chat else P.completion_response
+            return web.json_response(make_response(rid, model, "", fin, usage),
+                                     headers={"x-request-id": rid})
+        engine_prompt_ids = prompt_ids + resume_ids
     if req.stream:
-        if req.n > 1:
-            return await _stream_response_multi(
-                request, engine, rid, model, prompt_ids, sampling, tokenizer,
-                stops, req.n, req.priority, chat,
+        try:
+            if req.n > 1:
+                return await _stream_response_multi(
+                    request, engine, rid, model, prompt_ids, sampling, tokenizer,
+                    stops, req.n, req.priority, chat, span, deadline_s,
+                )
+            return await _stream_response(
+                request, engine, rid, model, engine_prompt_ids, sampling, detok,
+                req.priority, chat, span, deadline_s, len(resume_ids),
+                stream_token_ids, resume_leg,
             )
-        return await _stream_response(
-            request, engine, rid, model, prompt_ids, sampling,
-            Detokenizer(tokenizer, stops), req.priority, chat,
-        )
+        except BaseException as e:
+            span.error(str(e))
+            raise
+        finally:
+            span.end()
     try:
         if req.n == 1:
-            choices = [await _collect(engine, rid, prompt_ids, sampling,
-                                      Detokenizer(tokenizer, stops), req.priority)]
+            choices = [await _collect(engine, rid, engine_prompt_ids, sampling, detok,
+                                      req.priority, deadline_s, len(resume_ids))]
         else:
             # n samples share the prompt (and its cached prefix).
             tasks = [
                 asyncio.ensure_future(_collect(
                     engine, f"{rid}-{i}", prompt_ids, _choice_sampling(sampling, i),
-                    Detokenizer(tokenizer, stops), req.priority,
+                    Detokenizer(tokenizer, stops), req.priority, deadline_s,
                 ))
                 for i in range(req.n)
             ]
@@ -464,17 +641,28 @@ async def _handle_generate(request: web.Request, chat: bool) -> web.StreamRespon
                 await asyncio.gather(*tasks, return_exceptions=True)
                 raise
     except RequestFailed as e:
+        span.error(str(e))
+        span.end()
         return _error(400, str(e))
     except EngineError as e:
-        return web.json_response(
-            P.error_body(str(e), etype="internal_error", code=500), status=500
-        )
+        span.error(str(e))
+        span.end()
+        return _engine_error(e)
+    except BaseException as e:
+        # Cancelled on a client disconnect: the span still ends.
+        span.error(str(e) or type(e).__name__)
+        span.end()
+        raise
     text, finish, final = choices[0]
-    usage = P.usage_dict(
-        len(prompt_ids),
-        sum(f.num_output_tokens for _, _, f in choices if f),
-        final.num_cached_tokens if final else 0,
-    )
+    # The body carries only the continuation: the client holds the
+    # history's text.
+    text = text[resume_text_base:]
+    completion_tokens = sum(f.num_output_tokens for _, _, f in choices if f)
+    cached = final.num_cached_tokens if final else 0
+    span.set("gen_ai.usage.completion_tokens", completion_tokens)
+    span.set("llm_d.cache.hit_tokens", cached)
+    span.end()
+    usage = P.usage_dict(len(prompt_ids), completion_tokens, cached)
     make_response = P.chat_response if chat else P.completion_response
     resp = make_response(rid, model, text, finish, usage)
     if req.n > 1:
@@ -490,6 +678,135 @@ async def _handle_generate(request: web.Request, chat: bool) -> web.StreamRespon
             for i, (txt, fin, _) in enumerate(choices)
         ]
     return web.json_response(resp, headers={"x-request-id": rid})
+
+
+def _grpc_sampling(sp: dict, eos: int | None, budget: int) -> tuple[SamplingParams, int]:
+    """A Generate body's ``sampling_params`` as the engine's, and its
+    integer ``priority``; raises TypeError or ValueError on a bad value."""
+    stops = [int(t) for t in (sp.get("stop_token_ids") or [])]
+    if eos is not None and not sp.get("ignore_eos", False):
+        stops.append(int(eos))
+    req_max = sp.get("max_tokens")
+    max_tokens = budget if req_max is None else min(int(req_max), budget)
+    seed = sp.get("seed")
+    sampling = SamplingParams(
+        max_tokens=max_tokens,
+        temperature=float(sp.get("temperature", 1.0)),
+        top_k=int(sp.get("top_k", 0) or 0),
+        top_p=float(sp.get("top_p", 1.0)),
+        stop_token_ids=tuple(stops),
+        ignore_eos=bool(sp.get("ignore_eos", False)),
+        seed=None if seed is None else int(seed),
+    )
+    return sampling, int(sp.get("priority", 0) or 0)
+
+
+def _grpc_usage(ids: list[int], n_resume: int, final: RequestOutput | None) -> dict:
+    """A Generate reply's usage; ``ids`` is the engine's prompt (the
+    request's and the resume history), so the history counts as output."""
+    return P.usage_dict(len(ids) - n_resume,
+                        final.num_output_tokens if final else n_resume,
+                        final.num_cached_tokens if final else 0)
+
+
+async def handle_grpc_generate(request: web.Request) -> web.StreamResponse:
+    """vLLM gRPC Generate, JSON-transcoded: token ids in and out, never
+    detokenized (clients own the tokenizer). Streamed, one SSE frame of
+    ``{"token_ids": [...]}`` an engine output, then a frame with
+    ``finish_reason`` and ``usage``. ``model`` is not checked: with no
+    adapters the base model serves any name, as on the JAX server."""
+    engine = request.app[ENGINE_KEY]
+    max_len = request.app[MAXLEN_KEY]
+    model = request.app[MODEL_KEY]
+    try:
+        body = await request.json()
+    except json.JSONDecodeError as e:
+        return _error(400, f"invalid JSON: {e}")
+    if not isinstance(body, dict):
+        return _error(400, "request body must be a JSON object")
+    ids = body.get("prompt_token_ids") or body.get("token_ids") or []
+    if not isinstance(ids, list) or not all(isinstance(t, int) for t in ids):
+        return _error(400, "prompt_token_ids must be a list of ints")
+    if not ids:
+        return _error(400, "empty prompt_token_ids")
+    if len(ids) >= max_len:
+        return _error(400, f"prompt length {len(ids)} >= max_model_len {max_len}")
+    sp = body.get("sampling_params") or {}
+    if not isinstance(sp, dict):
+        return _error(400, "sampling_params must be an object")
+    try:
+        sampling, priority = _grpc_sampling(
+            sp, getattr(request.app[TOK_KEY], "eos_token_id", None), max_len - len(ids))
+    except (TypeError, ValueError) as e:
+        return _error(400, f"invalid sampling_params: {e}")
+    if sampling.max_tokens < 0:
+        return _error(400, "max_tokens must be >= 0")
+    rid = request.headers.get("x-request-id") or P.request_id("grpcgen")
+    deadline_s = _request_deadline_s(request)
+    stream = bool(body.get("stream", False))
+    resume_ids = body.get("resume_token_ids") or []
+    if resume_ids:
+        reject = _validate_resume(resume_ids, sampling.max_tokens)
+        if reject is not None:
+            engine.stats.stream_resume_failures_total += 1
+            return _error(400, reject)
+        fin = _resume_finished(len(ids), resume_ids, sampling, max_len)
+        if fin is not None:
+            usage = P.usage_dict(len(ids), len(resume_ids))
+            if not stream:
+                return web.json_response(
+                    {"id": rid, "model": model, "token_ids": [], "finish_reason": fin,
+                     "usage": usage, "kv_transfer_params": None},
+                    headers={"x-request-id": rid})
+            resp = await _open_stream(request, rid)
+            await resp.write(_sse({"finish_reason": fin, "usage": usage}))
+            await resp.write(b"data: [DONE]\n\n")
+            await resp.write_eof()
+            return resp
+        ids = ids + resume_ids
+    n_resume = len(resume_ids)
+    final = None
+    if stream:
+        resp = await _open_stream(request, rid)
+        try:
+            async for out in engine.generate(rid, ids, sampling, priority, deadline_s, n_resume):
+                final = out
+                if out.new_token_ids:
+                    await resp.write(_sse({"token_ids": list(out.new_token_ids)}))
+                    if _cut(request, engine, rid):
+                        return resp
+        except (RequestFailed, EngineError) as e:
+            await resp.write(_sse(P.error_body(str(e), code=_error_status(e))))
+            await resp.write(b"data: [DONE]\n\n")
+            return resp
+        except (asyncio.CancelledError, ConnectionResetError):
+            engine.abort(rid)
+            raise
+        await resp.write(_sse({"finish_reason": _finish_reason(final) if final else None,
+                               "usage": _grpc_usage(ids, n_resume, final)}))
+        await resp.write(b"data: [DONE]\n\n")
+        await resp.write_eof()
+        return resp
+    out_ids: list[int] = []
+    try:
+        async for out in engine.generate(rid, ids, sampling, priority, deadline_s, n_resume):
+            final = out
+            out_ids.extend(out.new_token_ids)
+    except RequestFailed as e:
+        return _error(400, str(e))
+    except EngineError as e:
+        return _engine_error(e)
+    return web.json_response(
+        {
+            "id": rid,
+            "model": model,
+            "token_ids": out_ids,
+            "finish_reason": _finish_reason(final) if final else None,
+            "usage": _grpc_usage(ids, n_resume, final),
+            # P/D transfer is not ported: nothing to hand on.
+            "kv_transfer_params": None,
+        },
+        headers={"x-request-id": rid})
 
 
 async def handle_completions(request: web.Request) -> web.StreamResponse:
@@ -574,6 +891,7 @@ def build_app(
     app[TOK_KEY] = tokenizer
     app[MODEL_KEY] = model_name
     app[MAXLEN_KEY] = max_model_len
+    app[STORE_KEY] = ResponsesStore()
     app.add_routes([
         web.get("/health", handle_health),
         web.get("/ready", handle_ready),
@@ -582,9 +900,11 @@ def build_app(
         web.post("/tokenize", handle_tokenize),
         web.post("/v1/completions", handle_completions),
         web.post("/v1/chat/completions", handle_chat),
+        web.post("/vllm.Generation/Generate", handle_grpc_generate),
         web.post("/v1/completions/render", handle_completions_render),
         web.post("/v1/chat/completions/render", handle_chat_render),
         web.post("/v1/cache/probe", handle_cache_probe),
+        *make_handlers(ENGINE_KEY, TOK_KEY, MODEL_KEY, MAXLEN_KEY),
         web.post("/admin/pause", handle_admin_pause),
         web.post("/admin/resume", handle_admin_resume),
         web.post("/admin/drain", handle_admin_drain),

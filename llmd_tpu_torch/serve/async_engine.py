@@ -8,7 +8,10 @@ device work.
 Besides the requests it carries the engine-coordination surface of the JAX
 package's ``AsyncEngine``: pause, resume and drain (the resilience
 operator's), readiness, and the step watchdog, which fails in-flight
-streams and turns ``/health`` 503 when a step outlives its budget.
+streams and turns ``/health`` 503 when a step outlives its budget; and the
+request deadline (``generate(deadline_s=...)``), which ends a stream with
+:class:`DeadlineExceeded` and aborts its engine request. The reference's
+deadline also bounds a P/D KV fetch, which the port does not run yet.
 """
 
 from __future__ import annotations
@@ -33,6 +36,9 @@ class _Pending:
     prompt_token_ids: list[int]
     sampling: SamplingParams
     priority: int = 0
+    # Failover resume: the prompt's last N tokens are output a dead
+    # replica already delivered; generation continues at output position N.
+    resume_output_tokens: int = 0
 
 
 class RequestFailed(Exception):
@@ -41,6 +47,11 @@ class RequestFailed(Exception):
 
 class EngineError(Exception):
     """Internal engine failure (device fault); maps to HTTP 500."""
+
+
+class DeadlineExceeded(EngineError):
+    """The request's deadline passed before its stream finished; maps to
+    HTTP 504 (unstreamed) or a terminal error frame (streamed)."""
 
 
 class WatchdogStalled(EngineError):
@@ -191,6 +202,7 @@ class AsyncEngine:
         prompt_token_ids: list[int],
         sampling: SamplingParams,
         priority: int = 0,
+        resume_output_tokens: int = 0,
     ) -> asyncio.Queue:
         """Queue a request for the engine thread; returns its output queue."""
         q: asyncio.Queue = asyncio.Queue()
@@ -198,9 +210,8 @@ class AsyncEngine:
             if request_id in self._subs:
                 raise RequestFailed(f"duplicate request id {request_id}")
             self._subs[request_id] = q
-            self._inbox.append(
-                _Pending(request_id, prompt_token_ids, sampling, priority)
-            )
+            self._inbox.append(_Pending(
+                request_id, prompt_token_ids, sampling, priority, resume_output_tokens))
             self._lock.notify_all()
         return q
 
@@ -216,12 +227,31 @@ class AsyncEngine:
         prompt_token_ids: list[int],
         sampling: SamplingParams,
         priority: int = 0,
+        deadline_s: float | None = None,
+        resume_output_tokens: int = 0,
     ) -> AsyncIterator[RequestOutput]:
-        """Async stream of incremental outputs until the request finishes."""
-        q = self.submit(request_id, prompt_token_ids, sampling, priority)
+        """Async stream of incremental outputs until the request finishes.
+
+        ``deadline_s`` bounds the whole stream: once it passes, the stream
+        raises :class:`DeadlineExceeded` and the engine request is aborted
+        (the ``finally`` below), so a starved or wedged engine slows a
+        request down but never holds its caller past its budget."""
+        deadline = None if deadline_s is None else time.monotonic() + deadline_s
+        q = self.submit(request_id, prompt_token_ids, sampling, priority,
+                        resume_output_tokens)
         try:
             while True:
-                item = await q.get()
+                if deadline is None:
+                    item = await q.get()
+                else:
+                    remaining = deadline - time.monotonic()
+                    if remaining <= 0:
+                        raise DeadlineExceeded(f"request deadline of {deadline_s}s exceeded")
+                    try:
+                        item = await asyncio.wait_for(q.get(), remaining)
+                    except asyncio.TimeoutError:
+                        raise DeadlineExceeded(
+                            f"request deadline of {deadline_s}s exceeded") from None
                 if isinstance(item, Exception):
                     raise item
                 yield item
@@ -264,6 +294,7 @@ class AsyncEngine:
                     self.engine.add_request(
                         p.prompt_token_ids, p.sampling,
                         request_id=p.request_id, priority=p.priority,
+                        resume_output_tokens=p.resume_output_tokens,
                     )
                 except ValueError as e:  # validation errors -> caller
                     self._deliver(p.request_id, RequestFailed(str(e)))

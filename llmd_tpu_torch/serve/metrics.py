@@ -4,14 +4,14 @@ The router's metrics contract: TotalQueuedRequests, TotalRunningRequests,
 KVCacheUtilization (and BlockSize / NumGPUBlocks), read through a metric-name
 mapping per engine family. The page carries BOTH the vLLM names (a stock
 llm-d EPP scrapes it unchanged under the vllm mapping) and the ``llmd:``
-names. The port's copy of ``llmd_tpu/serve/metrics.py``, without the
-injected-faults series: the port has no fault plan, and that block prints
-nothing while no plan is armed.
+names. The port's copy of ``llmd_tpu/serve/metrics.py``.
 """
 
 from __future__ import annotations
 
 from typing import TYPE_CHECKING
+
+from llmd_tpu_torch import faults
 
 if TYPE_CHECKING:
     from llmd_tpu_torch.engine.engine import EngineStats
@@ -27,7 +27,9 @@ def render_metrics(stats: EngineStats, model_name: str) -> str:
     (offload, KV store and federation, P/D transfer, the pager, the batch
     tier) print 0, as on a JAX page where they are idle; the labelled and
     histogram series (LoRA, speculative decoding, wide EP, transfer
-    failures) print only when their stats are set, as in JAX."""
+    failures) print only when their stats are set, and
+    ``faults_injected_total`` only while a fault plan is armed, as in
+    JAX."""
     label = f'{{model_name="{model_name}"}}'
     gauges = {
         "num_requests_waiting": stats.num_waiting,
@@ -117,6 +119,16 @@ def render_metrics(stats: EngineStats, model_name: str) -> str:
         gauges["moe_peak_demand"] = round(stats.moe_peak_demand, 4)
         counters["moe_dropped_slots_total"] = stats.moe_dropped_slots_total
         counters["moe_rebalances_total"] = stats.moe_rebalances_total
+    injected = faults.injected_counts()
+    if injected:
+        # Only while a fault plan is armed: the injections each site
+        # delivered, read beside the degradation they cause.
+        lines.append("# TYPE llmd:faults_injected_total counter")
+        for site, n in sorted(injected.items()):
+            lines.append(
+                f'llmd:faults_injected_total{{site="{site}",'
+                f'model_name="{model_name}"}} {n}'
+            )
     if stats.max_lora:
         running = ",".join(stats.running_lora_adapters)
         waiting = ",".join(stats.waiting_lora_adapters)

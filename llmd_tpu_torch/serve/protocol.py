@@ -1,8 +1,10 @@
 """OpenAI-compatible API schema: completions and chat completions.
 
-The JAX package's schema (``llmd_tpu/serve/protocol.py``) without
-``kv_transfer_params`` and ``resume_token_ids`` (P/D transfer and stream
-resume are not ported yet).
+The JAX package's schema (``llmd_tpu/serve/protocol.py``) with its
+failover-resume field ``resume_token_ids`` and its error bodies (``type``
+and ``code``: ``invalid_request_error`` 400, ``timeout_error`` 504,
+``internal_error`` 500); without ``kv_transfer_params``, which waits for
+P/D transfer.
 """
 
 from __future__ import annotations
@@ -35,6 +37,11 @@ class CompletionRequest(_Base):
     ignore_eos: bool = False
     priority: int = 0
     stop_token_ids: list[int] | None = None
+    # Failover resume: output tokens a replica that died mid-stream already
+    # delivered for this request. They are admitted as committed prefix,
+    # generation continues at the next output position, and the response
+    # carries only the continuation.
+    resume_token_ids: list[int] | None = None
 
 
 class ChatMessage(_Base):
@@ -58,6 +65,8 @@ class ChatCompletionRequest(_Base):
     ignore_eos: bool = False
     priority: int = 0
     stop_token_ids: list[int] | None = None
+    # Failover resume: see CompletionRequest.resume_token_ids.
+    resume_token_ids: list[int] | None = None
 
 
 def stop_strings(stop: Union[str, list[str], None]) -> list[str]:

@@ -8,8 +8,10 @@ an HF tokenizer (built with ``tokenizers``) from ``--model <dir>`` and
 answers transformers' greedy text under ``--served-model-name``; the port's
 ``load_tokenizer`` equals the JAX one on that tokenizer (ids, decode, chat
 template, special ids, vocabulary), with and without a chat template; and
-``LLMD_STEP_WATCHDOG_S`` arms both servers' watchdogs alike. About 10 s
-serial.
+``LLMD_STEP_WATCHDOG_S`` arms both servers' watchdogs alike. The chart's
+argv with tracing on parses as the JAX server parses it, ``main`` installs
+the tracer its flags name, and the chart's flags of later items are still
+refused. About 12 s serial.
 """
 
 import dataclasses
@@ -236,3 +238,55 @@ async def test_env_armed_watchdog_trips_a_stall(monkeypatch):
     monkeypatch.setenv("LLMD_STEP_WATCHDOG_S", "0.2")
     eng = surface.port_engine()
     await surface.watchdog_trips(eng, AsyncEngine(eng))
+
+
+# The chart's arguments with tracing.enabled (modelserver.yaml:15-18).
+TRACING = ["--otlp-traces-endpoint=http://otel-collector:4318", "--trace-sample-ratio=0.25"]
+
+
+@pytest.mark.parametrize("argv", [
+    ["--model", "llama-3-8b", *CHART, *TRACING],
+    ["--model", "llama-3-8b", "--trace-file", "/tmp/spans.jsonl"],
+    ["--model", "llama-3-8b"],
+], ids=["chart-tracing", "trace-file", "off"])
+def test_tracing_flags_parse_as_the_jax_servers(argv):
+    """The chart's argv with tracing on parses, and both parsers give the
+    same tracing arguments and engine configuration."""
+    port_args, jax_args = serve.build_parser().parse_args(argv), jserve.build_parser().parse_args(argv)
+    for name in ("otlp_traces_endpoint", "trace_file", "trace_sample_ratio"):
+        assert getattr(port_args, name) == getattr(jax_args, name)
+    assert port_args.trace_sample_ratio == (0.25 if TRACING[1] in argv else 0.1)
+    assert_same_fields(serve.make_engine_config(port_args), jserve.make_engine_config(jax_args))
+
+
+@pytest.mark.parametrize("flags,exporter", [
+    (TRACING, "OtlpHttpExporter"),
+    (["--trace-file", "SPANS"], "FileExporter"),
+    ([], None),
+], ids=["otlp", "file", "off"])
+def test_server_configures_tracing_from_its_flags(monkeypatch, tmp_path, flags, exporter):
+    """``main`` installs the ``llmd-engine`` tracer under the reference's
+    condition (an OTLP endpoint or a trace file), at the flag's ratio."""
+    from llmd_tpu_torch.obs import tracing
+
+    monkeypatch.setattr(web, "run_app", lambda app, **kw: None)
+    flags = [str(tmp_path / "spans.jsonl") if f == "SPANS" else f for f in flags]
+    try:
+        serve.main(["--model", "tiny", "--device", "cpu", "--num-blocks", "16", "--dtype",
+                    "float32", "--skip-warmup", *flags])
+        tracer = tracing.get_tracer()
+        if exporter is None:
+            assert tracer is tracing.NOOP_TRACER
+        else:
+            assert type(tracer.exporter).__name__ == exporter
+            assert tracer.service_name == "llmd-engine"
+            assert tracer.sample_ratio == (0.25 if flags == TRACING else 0.1)
+    finally:
+        tracing.reset_tracing()
+
+
+def test_chart_flags_of_later_items_are_still_refused():
+    for flag in ("--quantization=int8", "--tensor-parallel-size=1", "--kv-events-endpoint=tcp://x:1",
+                 "--kv-transfer-config={}", "--advertised-address=10.0.0.1:8000"):
+        with pytest.raises(SystemExit):
+            serve.build_parser().parse_args(["--model", "tiny", flag])

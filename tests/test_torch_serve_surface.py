@@ -93,11 +93,11 @@ class Pair:
         self.clients = (jclient, tclient)
         self.aengines = (jeng, teng)
 
-    async def post(self, path, body):
+    async def post(self, path, body, headers=None):
         """(status, JSON or SSE frames) from each server, in turn."""
         out = []
         for c in self.clients:
-            r = await c.post(path, json=body)
+            r = await c.post(path, json=body, headers=headers or {})
             out.append((r.status, await read_body(r)))
         return out
 
@@ -552,7 +552,8 @@ def test_cached_prefix_pages_touches_nothing():
 
 def test_surface_routes_are_the_jax_routes_but_the_deferred():
     """Every route the port serves, the JAX server serves under the same
-    method and path."""
+    method and path, and the port serves all of the JAX server's but the
+    four that wait for embeddings and LoRA."""
     def routes(app):
         return {(r.method, r.resource.canonical) for r in app.router.routes()
                 if r.method != "HEAD"}
@@ -560,5 +561,154 @@ def test_surface_routes_are_the_jax_routes_but_the_deferred():
     port = routes(tapi.build_app(AsyncEngine(None), ByteTokenizer(), "m", 8))
     ref = routes(japi.build_app(JaxAsyncEngine.__new__(JaxAsyncEngine), JaxByteTokenizer(), "m", 8))
     assert port <= ref
-    assert {("GET", "/metrics"), ("POST", "/v1/chat/completions"), ("POST", "/v1/cache/probe"),
-            ("POST", "/admin/drain"), ("GET", "/admin/status")} <= port
+    # What waits for its item: embeddings and the LoRA routes.
+    assert ref - port == {("POST", "/v1/embeddings"), ("POST", "/vllm.Generation/Embed"),
+                          ("POST", "/v1/load_lora_adapter"), ("POST", "/v1/unload_lora_adapter")}
+
+
+def strip_response(obj):
+    """A Responses API object without its ids and times."""
+    if isinstance(obj, (list, tuple)):
+        return [strip_response(o) for o in obj]
+    if isinstance(obj, dict):
+        return {k: strip_response(v) for k, v in obj.items()
+                if k not in ("id", "created", "created_at")}
+    return obj
+
+
+async def read_events(r):
+    """A Responses stream's (event, data) pairs."""
+    events, name = [], None
+    async for raw in r.content:
+        line = raw.decode().strip()
+        if line.startswith("event: "):
+            name = line[len("event: "):]
+        elif line.startswith("data: ") and name:
+            events.append((name, json.loads(line[len("data: "):])))
+    return events
+
+
+async def each(pair, method, path, body=None, ids=(None, None)):
+    """(status, JSON) from the JAX server, then the port's; ``ids`` fill a
+    ``{}`` in ``path`` with each server's own object id."""
+    out = []
+    for c, oid in zip(pair.clients, ids):
+        r = await c.request(method, path.format(oid), json=body)
+        out.append((r.status, await r.json()))
+    return out
+
+
+def same_response(replies, status=200):
+    (js, jbody), (ts, tbody) = replies
+    assert js == ts == status, (jbody, tbody)
+    assert strip_response(tbody) == strip_response(jbody)
+    return jbody, tbody
+
+
+async def test_responses_create_retrieve_chain_delete_match_jax(pair):
+    """The cases of ``tests/test_serve_api.py``: create, retrieve, chain
+    through ``previous_response_id``, delete, unknown ids; and the greedy
+    text is the chat route's for the same messages."""
+    body = {"model": "tiny", "input": "hello there", "max_output_tokens": 6, "temperature": 0.0}
+    jfirst, tfirst = same_response(await each(pair, "POST", "/v1/responses", body))
+    assert tfirst["object"] == "response" and tfirst["status"] == "completed"
+    assert tfirst["usage"]["output_tokens"] == 6
+    ids = (jfirst["id"], tfirst["id"])
+    got = same_response(await each(pair, "GET", "/v1/responses/{}", ids=ids))
+    assert [g["id"] for g in got] == list(ids)
+    _, (_, chat) = await pair.post("/v1/chat/completions", {
+        "messages": [{"role": "user", "content": "hello there"}], "max_tokens": 6,
+        "temperature": 0.0})
+    assert tfirst["output"][0]["content"][0]["text"] == chat["choices"][0]["message"]["content"]
+    chained = []
+    for c, rid in zip(pair.clients, ids):
+        r = await c.post("/v1/responses", json={**body, "input": "second turn",
+                                                "previous_response_id": rid})
+        chained.append((r.status, await r.json()))
+    _, tsecond = same_response(chained)
+    assert tsecond["usage"]["input_tokens"] > tfirst["usage"]["input_tokens"]
+    same_response(await each(pair, "POST", "/v1/responses",
+                             {**body, "previous_response_id": "resp_nope"}), status=404)
+    same_response(await each(pair, "DELETE", "/v1/responses/{}", ids=ids))
+    same_response(await each(pair, "GET", "/v1/responses/{}", ids=ids), status=404)
+    same_response(await each(pair, "POST", "/v1/responses",
+                             {**body, "max_output_tokens": 0}), status=400)
+
+
+async def test_responses_stream_events_match_jax(pair):
+    body = {"model": "tiny", "input": "stream me", "max_output_tokens": 5,
+            "temperature": 0.0, "stream": True}
+    jevents, tevents = [await read_events(await c.post("/v1/responses", json=body))
+                        for c in pair.clients]
+    assert strip_response(tevents) == strip_response(jevents)
+    names = [e for e, _ in tevents]
+    assert names[0] == "response.created" and names[-1] == "response.completed"
+    assert set(names[1:-1]) == {"response.output_text.delta"}
+    final = tevents[-1][1]["response"]
+    assert final["output"][0]["content"][0]["text"] == "".join(
+        d["delta"] for e, d in tevents if e == "response.output_text.delta")
+
+
+async def test_conversations_match_jax(pair):
+    replies = await each(pair, "POST", "/v1/conversations", {"metadata": {"t": "1"}})
+    jconv, tconv = same_response(replies)
+    assert tconv["object"] == "conversation"
+    ids = (jconv["id"], tconv["id"])
+    same_response(await each(pair, "GET", "/v1/conversations/{}", ids=ids))
+    items = {"items": [{"type": "message", "role": "user", "content": "remember me"}]}
+    same_response(await each(pair, "POST", "/v1/conversations/{}/items", items, ids=ids))
+    replies = []
+    for c, cid in zip(pair.clients, ids):
+        r = await c.post("/v1/responses", json={"model": "tiny", "input": "and this",
+                                                "conversation": cid, "max_output_tokens": 4,
+                                                "temperature": 0.0})
+        replies.append((r.status, await r.json()))
+    same_response(replies)
+    _, listed = same_response(await each(pair, "GET", "/v1/conversations/{}/items", ids=ids))
+    assert [m["role"] for m in listed["data"]] == ["user", "user", "assistant"]
+    same_response(await each(pair, "POST", "/v1/responses", {
+        "model": "tiny", "input": "x", "conversation": "conv_nope"}), status=404)
+    same_response(await each(pair, "GET", "/v1/conversations/{}/items",
+                             ids=("conv_nope", "conv_nope")), status=404)
+
+
+@pytest.mark.parametrize("stream", [False, True], ids=["plain", "streamed"])
+async def test_generate_matches_jax_and_the_completion_routes_tokens(pair, stream):
+    """Generate, token in and token out: the JAX server's token ids,
+    finish reason and usage; and the token ids the completion route
+    annotates for the same prompt."""
+    prompt = [7, 8, 9, 10, 11, 12]
+    body = {"prompt_token_ids": prompt, "model": "any name", "stream": stream,
+            "sampling_params": {"max_tokens": 9, "temperature": 0.8, "seed": 4,
+                                "ignore_eos": True, "priority": 1}}
+    (js, jbody), (ts, tbody) = await pair.post("/vllm.Generation/Generate", body)
+    assert js == ts == 200
+    assert strip(tbody) == strip(jbody)
+    if stream:
+        assert tbody[-1] == "[DONE]"
+        ids = [t for f in tbody[:-2] for t in f["token_ids"]]
+        final = tbody[-2]
+    else:
+        ids, final = tbody["token_ids"], tbody
+        assert tbody["kv_transfer_params"] is None and tbody["model"] == "tiny"
+    assert len(ids) == 9 and final["finish_reason"] == "length"
+    assert final["usage"]["completion_tokens"] == 9 and final["usage"]["prompt_tokens"] == 6
+    r = await pair.clients[1].post("/v1/completions", json={
+        "prompt": prompt, "max_tokens": 9, "temperature": 0.8, "seed": 4, "ignore_eos": True,
+        "stream": True}, headers={"x-llmd-stream-tokens": "1"})
+    frames = await read_body(r)
+    assert [t for f in frames[:-2] for t in f["token_ids"]] == ids
+
+
+@pytest.mark.parametrize("body", [
+    [1, 2],
+    {"prompt_token_ids": []},
+    {"prompt_token_ids": ["a"]},
+    {"prompt_token_ids": [1] * MAX_LEN},
+    {"prompt_token_ids": [1, 2], "sampling_params": [1]},
+    {"prompt_token_ids": [1, 2], "sampling_params": {"max_tokens": -1}},
+    {"prompt_token_ids": [1, 2], "sampling_params": {"temperature": "hot"}},
+], ids=["not-object", "empty", "not-ints", "too-long", "params-list", "negative", "bad-value"])
+async def test_generate_refusals_match_jax(pair, body):
+    (js, jbody), (ts, tbody) = await pair.post("/vllm.Generation/Generate", body)
+    assert js == ts == 400 and tbody == jbody

@@ -49,6 +49,17 @@ through an HF checkpoint):
                the prefill-only flat step, K3' and K4' on the decode step),
                q and k of the fused writes coming out of Qwen3's QK norm;
                held and timed as in 3.
+3d. ``quant_kernels`` int8 weights (W8A8): K6''s int8 branch as llama-3-8b's
+               dense products (q|k|v, o, gate|up, down, lm_head; G = 1) at
+               decode steps of 32 and 64 rows and a 1,024-token prefill,
+               the down projection's split K beside it unsplit, and as the
+               experts of deepseek-v2-lite and gpt-oss-20b (pair and down,
+               decode and prefill); ``quantize_rows`` on the rows before
+               them. Each bit-equal to its plain version, timed beside its
+               bound (bytes, or int8 operations at 1,979 TOP/s), the plain
+               version and, for a dense product, ``torch._int_mm`` plus the
+               plain epilogue (no PyTorch call computes a grouped int8
+               product or quantizes rows).
 5. ``engine``  ``LLMEngine`` serving 8 greedy requests (chunked prefill and
                a prefix-cache hit included), four times: on the flat step
                (the flat pair must launch layers x steps times each); as
@@ -75,6 +86,16 @@ through an HF checkpoint):
                back once. Then the host µs a step that the engine's stats
                update costs, on the flat step, alone and with a /metrics
                page rendered every millisecond (``stats_update_cost``).
+5a. int8 weights on llama-3-8b: ``runner_init`` (the int8 tree drawn one
+               layer at a time; peak device memory at most the int8 tree
+               and pool plus 2 GB), ``forward`` (``q8_forward_phase``: a
+               mixed flat step and a decode step through the kernels and the
+               plain versions, every int8 product on the int8 kernels, layer
+               0's pool bytes equal, held to an f32 run of the int8 tree as
+               the bf16 forwards are, the int8 logits beside the bf16
+               model's, reported), and ``engine`` on the flat step and with
+               windows of 8 (graph replays held to their eager bodies, the
+               int8 kernels' launches counted by ``q8_launches``).
 5b. ``checkpoint`` llama-3-8b's tree written as an HF checkpoint directory
                (``write_hf_checkpoint``: config.json, safetensors shards of
                at most 5 GB, under ``build/``) and loaded back with the
@@ -103,6 +124,8 @@ through an HF checkpoint):
                counts from a log of every eager forward's Q and the graph
                replays, one readback a step, every decode window a graph
                replay, checked as in 5.
+9b. int8 weights on deepseek-v2-lite: ``forward`` (a bucketed prefill and
+               a decode step, as in 5a) and ``engine`` (the default engine).
 10. ``forward`` (gpt-oss-20b) a mixed flat step and a Q = 1 decode
                forward of the 24-layer model (bias leaves filled with small
                seeded values) through the kernels and the plain versions,
@@ -112,6 +135,8 @@ through an HF checkpoint):
                engine with windows of 8, and on the int8 pool with windows
                of 8 (window, sinks and int8 in one kernel call; its tokens
                beside the flat bf16 run's, and the first-token witness).
+11b. int8 weights on gpt-oss-20b: ``runner_init``, ``forward`` and
+               ``engine`` on the flat step, as in 5a.
     The SWA ring (``CacheConfig.swa_ring``) on gpt-oss-20b:
     ``ring_kernels`` K1' on the mixed flat step and K3' on the decode
                step (window 128, sinks, bf16 and int8 pools) through a ring
@@ -142,7 +167,8 @@ through an HF checkpoint):
                llama-3-8b checkpoint directory served with the chart's
                flags (``--served-model-name``, ``--max-model-len``,
                ``--block-size``, ``--tokenizer byte``), whose answers must
-               equal the first llama server's text for text; and
+               equal the first llama server's text for text, and again
+               with ``--quantization int8`` (completions, chat, /metrics); and
                qwen3-32b. ``/v1/models`` must report each server's name
                and 8,192 tokens. Each server runs ``warmup`` (its decode
                steps are graph replays) before it answers.
@@ -729,17 +755,19 @@ def _sdpa_yardstick(q, pool, layer, s, page, window: int = 0, sinks=None,
 @contextlib.contextmanager
 def plain_ops(live_pages: int | None = None):
     """Route the model's fused KV writes, flat attention, decode kernels,
-    latent decode attention and grouped GEMM to their plain versions (the
+    latent decode attention, grouped GEMM and the int8 kernels (K6''s int8
+    branch and ``quantize_rows``) to their plain versions (the
     reference runs of the forward phases), restoring the kernels after.
     ``live_pages`` bounds the plain decode attentions' gathers."""
     from llmd_tpu_torch import ops
-    from llmd_tpu_torch.ops import grouped_gemm
+    from llmd_tpu_torch.ops import grouped_gemm, quant
 
     saved = (ops.rope_write_kv_flat_full, ops.rope_write_kv_decode_full,
              ops.paged_attention_full_flat,
              ops.write_kv_pages_decode_full, ops.decode_paged_attention_full,
              ops.mla_decode_paged_attention_full, grouped_gemm.grouped_matmul,
-             grouped_gemm.grouped_matmul_pair)
+             grouped_gemm.grouped_matmul_pair, quant.quantize_rows, grouped_gemm.matmul_q8,
+             grouped_gemm.grouped_matmul_q8, grouped_gemm.grouped_matmul_q8_pair)
 
     def attend(q, kv_cache, layer, rows, page_table, kv_lens, sm_scale=None,
                window=0, sinks=None, items=None):  # the plain version needs no tiles
@@ -768,6 +796,10 @@ def plain_ops(live_pages: int | None = None):
     ops.mla_decode_paged_attention_full = latent_attend
     grouped_gemm.grouped_matmul = ops.grouped_matmul_plain
     grouped_gemm.grouped_matmul_pair = ops.grouped_matmul_pair_plain
+    quant.quantize_rows = ops.quantize_rows_plain
+    grouped_gemm.matmul_q8 = ops.matmul_q8_plain
+    grouped_gemm.grouped_matmul_q8 = ops.grouped_matmul_q8_plain
+    grouped_gemm.grouped_matmul_q8_pair = ops.grouped_matmul_q8_pair_plain
     try:
         yield
     finally:
@@ -775,7 +807,8 @@ def plain_ops(live_pages: int | None = None):
          ops.paged_attention_full_flat,
          ops.write_kv_pages_decode_full, ops.decode_paged_attention_full,
          ops.mla_decode_paged_attention_full, grouped_gemm.grouped_matmul,
-         grouped_gemm.grouped_matmul_pair) = saved
+         grouped_gemm.grouped_matmul_pair, quant.quantize_rows, grouped_gemm.matmul_q8,
+         grouped_gemm.grouped_matmul_q8, grouped_gemm.grouped_matmul_q8_pair) = saved
 
 
 def forward_phase(info: dict, params: dict) -> None:
@@ -1060,7 +1093,8 @@ def warm_engine(eng, info: dict, watch: GraphWatch, seed: int) -> None:
 def check_replay_launches(runner, cfg, int8: bool) -> None:
     """Each captured program's launches per replay (``Program.launches``):
     every kernel branch once a layer a forward (K iterations of a window,
-    one flat forward), K6' twice a MoE layer a forward."""
+    one flat forward), K6' twice a MoE layer a forward, and under int8
+    weights the int8 kernels as ``q8_launches`` counts them."""
     L = cfg.num_layers
     n_moe = L - cfg.first_dense_layers if cfg.is_moe else 0
     for key, prog in runner.programs.programs.items():
@@ -1077,8 +1111,9 @@ def check_replay_launches(runner, cfg, int8: bool) -> None:
             for name, n in want_b.items():
                 fn = name.split("[")[0]
                 want[fn] = want.get(fn, 0) + n
-        if n_moe:
+        if n_moe and cfg.quantization is None:
             want.update(grouped_matmul_pair=n_moe * (flat + q1), grouped_matmul=n_moe * (flat + q1))
+        want.update({k: n for k, n in q8_launches(cfg, flat + q1).items() if n})
         if branches != want_b or totals != want:
             raise AssertionError(f"graph {key}: {totals} {branches} a replay, want {want} {want_b}")
 
@@ -1133,7 +1168,8 @@ def ring_prompts(cfg) -> list[list[int]]:
 
 def engine_phase(info: dict, params: dict, model: str = MODEL, kv_dtype: str = "bfloat16",
                  prompts: list | None = None, swa_ring: bool = False,
-                 num_blocks: int = 2048) -> tuple[dict, dict, list, list]:
+                 num_blocks: int = 2048, quantization: str | None = None,
+                 ) -> tuple[dict, dict, list, list]:
     """``LLMEngine`` at full width serving 8 greedy requests in the step
     layout ``info["layout"]`` names: on the flat step; as the split engine
     with fused decode windows of 8; or on the flat step with windows of 8
@@ -1151,15 +1187,17 @@ def engine_phase(info: dict, params: dict, model: str = MODEL, kv_dtype: str = "
     ``prompts`` replaces ``engine_prompts`` (the 8th request repeats the
     4th prompt either way); ``swa_ring`` puts the sliding layers in the
     ring pool (``CacheConfig.swa_ring``); ``num_blocks`` is the pool's
-    pages. Returns (launch counts, branch launch counts, the requests'
-    tokens, their logprobs)."""
+    pages; ``quantization="int8"`` runs int8 weights (``params`` their
+    tree), whose products must launch the int8 kernels as ``q8_launches``
+    counts them and K6''s bf16 calls never. Returns (launch counts, branch
+    launch counts, the requests' tokens, their logprobs)."""
     from llmd_tpu_torch import ops
     from llmd_tpu_torch.config import CacheConfig, EngineConfig, SchedulerConfig
     from llmd_tpu_torch.engine import LLMEngine, SamplingParams
     from llmd_tpu_torch.engine import runner as runner_mod
     from llmd_tpu_torch.models.registry import get_model_config
 
-    cfg = get_model_config(model)
+    cfg = get_model_config(model, **({"quantization": quantization} if quantization else {}))
     layout = ENGINE_LAYOUTS[info["layout"]]
     windowed = "decode_window" in layout
     config = EngineConfig(
@@ -1248,7 +1286,7 @@ def engine_phase(info: dict, params: dict, model: str = MODEL, kv_dtype: str = "
     # Time per output token of a request: from its first token to its last.
     tpot = [(last[r] - ttft[r]) / (len(tokens[r]) - 1) for r in rids]
     info.update(
-        model=model, kv_cache_dtype=kv_dtype,
+        model=model, kv_cache_dtype=kv_dtype, quantization=quantization,
         requests=len(rids), steps=steps, wall_s=wall,
         output_tok_per_s=sum(len(t) for t in tokens.values()) / wall,
         ttft_median_s=statistics.median(ttft.values()), ttft_max_s=max(ttft.values()),
@@ -1292,13 +1330,15 @@ def engine_phase(info: dict, params: dict, model: str = MODEL, kv_dtype: str = "
     if flat_fw != flat_steps or q1_fw != sum(k_steps):
         raise AssertionError(f"{flat_fw} flat forwards in {flat_steps} flat steps, "
                              f"{q1_fw} Q = 1 forwards in windows of {sum(k_steps)} iterations")
+    n_moe16 = 0 if quantization else n_moe
     want = {"write_kv_pages_flat_full": L * flat_fw,
             "flat_paged_attention_full": L * flat_fw,
             "write_kv_pages_decode_full": L * q1_fw,
             "decode_paged_attention_full": L * q1_fw,
             "mla_decode_paged_attention_full": 0,
-            "grouped_matmul_pair": n_moe * len(forwards),
-            "grouped_matmul": n_moe * len(forwards)}
+            "grouped_matmul_pair": n_moe16 * len(forwards),
+            "grouped_matmul": n_moe16 * len(forwards),
+            **q8_launches(cfg, len(forwards))}
     if windowed:
         info.update(decode_windows=len(k_steps), window_iterations=sum(k_steps),
                     windows_of_8=k_steps.count(8),
@@ -2328,7 +2368,7 @@ def grpc_phase(info: dict, base: str) -> None:
 
 def serve_phase(info: dict, layout_args: list[str], model: str = MODEL,
                 surface: dict | None = None, flags: tuple = (), name: str | None = None,
-                sink: OtlpSink | None = None) -> list[str]:
+                sink: OtlpSink | None = None, check=None) -> list[str]:
     """Start the server for ``model`` (a registry name or an HF model
     directory, with ``flags`` and ``layout_args`` appended to its command
     line) and complete a few requests. ``/v1/models`` must report the
@@ -2341,7 +2381,8 @@ def serve_phase(info: dict, layout_args: list[str], model: str = MODEL,
     ``sink`` the server exports its spans to that collector at ratio 1.0
     and runs under ``failover_fault_plan``, and the ``failover``,
     ``deadline``, ``tracing``, ``responses`` and ``grpc`` phases follow.
-    Returns the completions' texts, the streamed one last."""
+    ``check(info, base)`` runs last while the server is up. Returns the
+    completions' texts, the streamed one last."""
     name = name or model
     with socket.socket() as sock:
         sock.bind(("127.0.0.1", 0))
@@ -2420,6 +2461,8 @@ def serve_phase(info: dict, layout_args: list[str], model: str = MODEL,
             if streamed != unstreamed:
                 raise AssertionError("the streamed text differs from the unstreamed completion's")
             texts.append(streamed)
+            if check is not None:
+                check(info, base)
             if surface is not None:
                 with phase("surface", {"model": model, "layout": "flat step", **surface}) as sinfo:
                     surface_phase(sinfo, base, bodies[2]["prompt"])
@@ -2905,7 +2948,7 @@ DS_LAYOUTS = {
 }
 
 
-def ds_engine_phase(info: dict, params: dict) -> dict:
+def ds_engine_phase(info: dict, params: dict, quantization: str | None = None) -> dict:
     """``LLMEngine`` serving deepseek-v2-lite (8 greedy requests, chunked
     prefill and a prefix-cache hit) in the layout ``info["layout"]`` names.
     MLA has no flat step, so the default engine runs the bucketed unified
@@ -2916,14 +2959,16 @@ def ds_engine_phase(info: dict, params: dict) -> dict:
     every window a CUDA graph replay (``GraphWatch``: staging and replays
     under ``torch.cuda.set_sync_debug_mode("error")``, so a hidden device
     sync fails the run; the first replay held to its eager body);
-    ``warmup`` must leave the pool as it was. Returns the launch counts."""
+    ``warmup`` must leave the pool as it was. ``quantization="int8"``
+    runs int8 weights: the int8 kernels launch as ``q8_launches`` counts
+    them, K6''s bf16 calls never. Returns the launch counts."""
     from llmd_tpu_torch import ops
     from llmd_tpu_torch.config import CacheConfig, EngineConfig, SchedulerConfig
     from llmd_tpu_torch.engine import LLMEngine, SamplingParams
     from llmd_tpu_torch.engine import runner as runner_mod
     from llmd_tpu_torch.models.registry import get_model_config
 
-    cfg = get_model_config(DS_MODEL)
+    cfg = get_model_config(DS_MODEL, **({"quantization": quantization} if quantization else {}))
     layout = DS_LAYOUTS[info["layout"]]
     config = EngineConfig(
         model=cfg,
@@ -3000,7 +3045,7 @@ def ds_engine_phase(info: dict, params: dict) -> dict:
         unified_steps=st.unified_steps_total, readbacks=len(readbacks),
         forwards=len(forwards), q1_forwards=decode_forwards, decode_windows=len(k_steps),
         window_iterations=sum(k_steps), decode_ms_per_token_median=statistics.median(window_ms),
-        graphs=watch.summary(), launches=counts,
+        graphs=watch.summary(), launches=counts, quantization=quantization,
     )
     # Every decode window was one graph replay, and no decode forward ran
     # outside one.
@@ -3015,12 +3060,14 @@ def ds_engine_phase(info: dict, params: dict) -> dict:
     if len(readbacks) != st.engine_steps_total:
         raise AssertionError(f"{len(readbacks)} device->host copies in {st.engine_steps_total} steps")
     L, n_moe = cfg.num_layers, cfg.num_layers - cfg.first_dense_layers
+    n_moe16 = 0 if quantization else n_moe
     want = {"write_kv_pages_flat_full": 0, "flat_paged_attention_full": 0,
             "write_kv_pages_decode_full": L * decode_forwards,
             "decode_paged_attention_full": 0,
             "mla_decode_paged_attention_full": L * decode_forwards,
-            "grouped_matmul_pair": n_moe * len(forwards),
-            "grouped_matmul": n_moe * len(forwards)}
+            "grouped_matmul_pair": n_moe16 * len(forwards),
+            "grouped_matmul": n_moe16 * len(forwards),
+            **q8_launches(cfg, len(forwards))}
     if counts != want:
         raise AssertionError(f"launch counts {counts}, want {want}")
     if "decode_window" in layout and 8 not in k_steps:
@@ -3774,10 +3821,399 @@ def qwen_phases() -> dict:
     return runs
 
 
+# --------------------------------------------------------------------- #
+# int8 weights (W8A8): K6''s int8 branch and quantize_rows.
+
+INT8_OPS_PER_S = 1979e12  # H100 SXM dense int8 tensor-core peak (NVIDIA data sheet)
+F32_OPS_PER_S = 67e12  # H100 SXM f32 outside the tensor cores (the same sheet)
+Q8_SOURCE = {"route": "cuda", "source": "llmd_tpu_torch/ops/csrc/grouped_gemm.cu",
+             "replaces": "llmd_tpu/ops/grouped_gemm.py:43 (K6'); int8 branch of "
+                         "llmd_tpu/ops/quant.py:125 qdot, :164 grouped_matmul_q (XLA in JAX)"}
+QR_SOURCE = {"route": "cuda", "source": "llmd_tpu_torch/ops/csrc/quantize_rows.cu",
+             "replaces": "none (llmd_tpu/ops/quant.py:116 quantize_activations, XLA in JAX)"}
+Q8_KEYS = ("max_abs_err", "ms", "event_ms", "host_us", "plain_ms", "bound_ms", "bound_by",
+           "bound_share", "bound_bytes_ms", "bound_ops_ms", "library_ms")
+
+
+def q8_launches(cfg, forwards: int) -> dict:
+    """Launches of the int8 wrappers in ``forwards`` forwards of a model
+    with int8 weights, each followed by its logits (one ``lm_head``
+    product unless the head is tied): every dense product (``matmul_q8``:
+    q|k|v and o, or MLA's projections; gate|up and down, or their unfused
+    three in an MLA tree's dense layers; a shared expert's three) after one
+    ``quantize_rows``, and in a MoE layer the experts' pair and down call,
+    each after one. All zeros without int8 weights."""
+    if cfg.quantization != "int8":
+        return {"quantize_rows": 0, "matmul_q8": 0, "grouped_matmul_q8": 0,
+                "grouped_matmul_q8_pair": 0}
+    L = cfg.num_layers
+    n_moe = L - cfg.first_dense_layers if cfg.is_moe else 0
+    attn = (4 if cfg.q_lora_rank > 0 else 3) if cfg.is_mla else 2
+    mlp = 3 if cfg.is_mla else 2  # MLA trees stay unfused
+    shared = 3 if cfg.shared_expert_intermediate_size else 0
+    dense = L * attn + (L - n_moe) * mlp + n_moe * shared + (0 if cfg.tie_word_embeddings else 1)
+    return {"quantize_rows": forwards * (dense + 2 * n_moe), "matmul_q8": forwards * dense,
+            "grouped_matmul_q8": forwards * n_moe, "grouped_matmul_q8_pair": forwards * n_moe}
+
+
+def q8_bound(nbytes: float, ops: float, ops_per_s: float = INT8_OPS_PER_S) -> dict:
+    """The least time for the work: bytes at the HBM rate and operations
+    at their type's peak (int8 products on the tensor cores by default),
+    the larger of the two."""
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / ops_per_s * 1e3
+    return {"bound_ms": max(t_bytes, t_ops), "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "bound_bytes_ms": t_bytes, "bound_ops_ms": t_ops}
+
+
+def rand_q8(shape, g, dev):
+    return torch.randint(-127, 128, shape, generator=g, device=dev, dtype=torch.int8)
+
+
+def q8_row(kernel, plain, nbytes: float, ops: float, library=None,
+           ops_per_s: float = INT8_OPS_PER_S) -> dict:
+    """Run ``kernel`` and ``plain`` (each returning a tuple of outputs) on
+    the same inputs: bit-equal or raise; then the row's times, bound and
+    library time (``library``: (fn, name) or (None, why))."""
+    got, want = kernel(), plain()
+    torch.cuda.synchronize()
+    err = 0.0
+    for a, b in zip(got, want):
+        err = max(err, (a.float() - b.float()).abs().max().item())
+        if not torch.equal(a, b):
+            raise AssertionError(f"int8 kernel differs from its plain version (max abs err {err})")
+    del got, want
+    row = {"max_abs_err": err, **kernel_times(kernel),
+           "plain_ms": cuda_ms(plain, reps=3, warmup=1), **q8_bound(nbytes, ops, ops_per_s)}
+    row["bound_share"] = row["bound_ms"] / row["ms"]
+    fn, lib = library if library is not None else (None, None)
+    row["library_ms"] = device_ms(fn) if fn is not None else None
+    row["library_call"] = lib
+    return row
+
+
+def int_mm_yardstick(xq, a_scale, w, w_scale):
+    """``torch._int_mm`` and the plain epilogue, where this torch takes the
+    shapes (it refuses 16 rows or fewer); (fn, name) or (None, why)."""
+    from llmd_tpu_torch.ops import grouped_gemm
+
+    for b, name in ((w, "torch._int_mm + epilogue"),
+                    (w.t().contiguous().t(), "torch._int_mm (w column-major) + epilogue")):
+        try:
+            torch._int_mm(xq, b)
+            torch.cuda.synchronize()
+        except (RuntimeError, TypeError) as e:
+            why = str(e)[:100]
+            continue
+        return (lambda b=b: grouped_gemm._rescale(torch._int_mm(xq, b), a_scale, w_scale,
+                                                  torch.bfloat16)), name
+    return None, f"torch._int_mm refused M={xq.shape[0]}: {why}"
+
+
+def q8_dense_case(M: int, K: int, N: int, g, dev) -> dict:
+    """K6''s int8 branch as one dense product (G = 1: a projection or
+    lm_head), xq [M, K] and w [K, N] int8, bf16 out."""
+    from llmd_tpu_torch.ops import grouped_gemm
+
+    xq, a_scale = rand_q8((M, K), g, dev), torch.rand(M, generator=g, device=dev) / 127
+    w, w_scale = rand_q8((K, N), g, dev), torch.rand(N, generator=g, device=dev) / 127
+    kernel = lambda: (grouped_gemm.matmul_q8(xq, a_scale, w, w_scale, torch.bfloat16),)  # noqa: E731
+    plain = lambda: (grouped_gemm.matmul_q8_plain(xq, a_scale, w, w_scale, torch.bfloat16),)  # noqa: E731
+    row = q8_row(kernel, plain, M * K + 4 * M + K * N + 4 * N + 2 * M * N, 2.0 * M * K * N,
+                 int_mm_yardstick(xq, a_scale, w, w_scale))
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    items = -(-M // grouped_gemm.TILES[grouped_gemm.tile_choice(M, 1)][0]) * -(-N // 128)
+    row.update(M=M, K=K, N=N, splits=grouped_gemm.q8_splits(items, K, sms))
+    if row["splits"] > 1:  # the same product unsplit, for the split's worth
+        orig = grouped_gemm.q8_splits
+        grouped_gemm.q8_splits = lambda *a: 1
+        try:
+            row["unsplit_ms"] = device_ms(kernel)
+        finally:
+            grouped_gemm.q8_splits = orig
+    del xq, w
+    torch.cuda.empty_cache()
+    return row
+
+
+def q8_grouped_case(T: int, E: int, k: int, K: int, N: int, pair: bool, gen, g, dev) -> dict:
+    """K6''s int8 branch on one routed step (T tokens to k of E experts,
+    the row counts a random router gives), against one weight tensor or
+    two through the pair."""
+    from llmd_tpu_torch.ops import grouped_gemm
+
+    gs = routed_group_sizes(T, E, k, gen).to(dev)
+    M = T * k
+    xq, a_scale = rand_q8((M, K), g, dev), torch.rand(M, generator=g, device=dev) / 127
+    ws = [(rand_q8((E, K, N), g, dev), torch.rand((E, N), generator=g, device=dev) / 127)
+          for _ in range(2 if pair else 1)]
+    if pair:
+        (wa, sa), (wb, sb) = ws
+        kernel = lambda: grouped_gemm.grouped_matmul_q8_pair(  # noqa: E731
+            xq, a_scale, wa, sa, wb, sb, gs, torch.bfloat16)
+        plain = lambda: grouped_gemm.grouped_matmul_q8_pair_plain(  # noqa: E731
+            xq, a_scale, wa, sa, wb, sb, gs, torch.bfloat16)
+    else:
+        (w, sc), = ws
+        kernel = lambda: (grouped_gemm.grouped_matmul_q8(xq, a_scale, w, sc, gs, torch.bfloat16),)  # noqa: E731
+        plain = lambda: (grouped_gemm.grouped_matmul_q8_plain(xq, a_scale, w, sc, gs, torch.bfloat16),)  # noqa: E731
+    live = int((gs > 0).sum().item())
+    nw = len(ws)
+    nbytes = M * K + 4 * M + nw * (live * (K * N + 4 * N) + 2 * M * N) + 4 * E
+    row = q8_row(kernel, plain, nbytes, 2.0 * nw * M * K * N,
+                 (None, "none: no single PyTorch call computes a grouped int8 product"))
+    row.update(M=M, experts=E, live_experts=live, K=K, N=N, weights=nw,
+               tiles=grouped_gemm.TILES[grouped_gemm.tile_choice(M, E)])
+    del xq, ws
+    torch.cuda.empty_cache()
+    return row
+
+
+def quantize_rows_case(M: int, K: int, g, dev) -> dict:
+    from llmd_tpu_torch.ops import quant
+
+    x = torch.randn((M, K), generator=g, device=dev, dtype=torch.bfloat16)
+    # f32 work an element: |x|, the max, the divide, the rounding, the clamp.
+    row = q8_row(lambda: quant.quantize_rows(x), lambda: quant.quantize_rows_plain(x),
+                 M * K * 3 + 4 * M, 5.0 * M * K,
+                 (None, "none: no single PyTorch call quantizes rows to int8"), F32_OPS_PER_S)
+    row.update(M=M, K=K)
+    return row
+
+
+def quant_kernels_phase(info: dict) -> dict:
+    """K6''s int8 branch and ``quantize_rows`` at the int8 models' shapes,
+    each bit-equal to its plain version and timed beside its bound (bytes
+    at 3.35 TB/s, int8 operations at 1,979 TOP/s), the plain version and,
+    for a dense product, ``torch._int_mm`` plus the plain epilogue: llama-3-8b's
+    dense products at decode steps of 32 and 64 rows and a 1,024-token
+    prefill (the down projection's split K beside it unsplit), the experts
+    of deepseek-v2-lite (48-token decode, 1,024-token prefill) and
+    gpt-oss-20b (32-token decode, 1,024-token prefill), and the rows
+    quantized before those products. Returns the kernel table's rows."""
+    from llmd_tpu_torch.models.registry import get_model_config
+
+    dev = torch.device("cuda")
+    gen = torch.Generator().manual_seed(2025)
+    g = torch.Generator(device=dev).manual_seed(37)
+    cfg = get_model_config(MODEL)
+    H, F, V = cfg.hidden_size, cfg.intermediate_size, cfg.vocab_size
+    qkv = (cfg.num_heads + 2 * cfg.num_kv_heads) * cfg.head_dim
+    dense_cases = {
+        "decode 32 rows, wqkv": (32, H, qkv), "decode 32 rows, wo": (32, H, H),
+        "decode 32 rows, w_gu": (32, H, 2 * F), "decode 32 rows, w_down": (32, F, H),
+        "decode 32 rows, lm_head": (32, H, V), "decode 64 rows, wqkv": (64, H, qkv),
+        "decode 64 rows, w_gu": (64, H, 2 * F), "decode 64 rows, w_down": (64, F, H),
+        "prefill 1024 tokens, wqkv": (1024, H, qkv), "prefill 1024 tokens, w_gu": (1024, H, 2 * F),
+        "prefill 1024 tokens, w_down": (1024, F, H),
+    }
+    dense = {name: q8_dense_case(*c, g, dev) for name, c in dense_cases.items()}
+    info["dense"] = dense
+    ds, oss = get_model_config(DS_MODEL), get_model_config(OSS_MODEL)
+    dsk, ossk = (ds.num_experts, ds.num_experts_per_tok), (oss.num_experts, oss.num_experts_per_tok)
+    grouped_cases = {
+        "deepseek-v2-lite decode 48 rows, gate|up pair": (48, *dsk, ds.hidden_size, ds.moe_intermediate_size, True),
+        "deepseek-v2-lite decode 48 rows, down": (48, *dsk, ds.moe_intermediate_size, ds.hidden_size, False),
+        "deepseek-v2-lite prefill 1024 tokens, gate|up pair": (
+            1024, *dsk, ds.hidden_size, ds.moe_intermediate_size, True),
+        "gpt-oss-20b decode 32 tokens, gate|up pair": (
+            32, *ossk, oss.hidden_size, oss.moe_intermediate_size, True),
+        "gpt-oss-20b decode 32 tokens, down": (32, *ossk, oss.moe_intermediate_size, oss.hidden_size, False),
+        "gpt-oss-20b prefill 1024 tokens, gate|up pair": (
+            1024, *ossk, oss.hidden_size, oss.moe_intermediate_size, True),
+    }
+    grouped = {name: q8_grouped_case(*c, gen, g, dev) for name, c in grouped_cases.items()}
+    info["grouped"] = grouped
+    qrows = {"decode 32 rows x 4096": (32, H), "decode 32 rows x 14336": (32, F),
+             "prefill 1024 tokens x 4096": (1024, H)}
+    quantized = {name: quantize_rows_case(*c, g, dev) for name, c in qrows.items()}
+    info["quantize_rows"] = quantized
+    table = {
+        # table name: (cases, case, source, wrapper, model whose int8 engine run is its main path)
+        "grouped_gemm_s8@dense decode 32, wqkv": (dense, "decode 32 rows, wqkv", Q8_SOURCE, "matmul_q8", MODEL),
+        "grouped_gemm_s8@dense decode 32, wo": (dense, "decode 32 rows, wo", Q8_SOURCE, "matmul_q8", MODEL),
+        "grouped_gemm_s8@dense decode 32, w_gu": (dense, "decode 32 rows, w_gu", Q8_SOURCE, "matmul_q8", MODEL),
+        "grouped_gemm_s8@dense decode 32, w_down (split K)": (
+            dense, "decode 32 rows, w_down", Q8_SOURCE, "matmul_q8", MODEL),
+        "grouped_gemm_s8@dense decode 32, lm_head": (
+            dense, "decode 32 rows, lm_head", Q8_SOURCE, "matmul_q8", MODEL),
+        "grouped_gemm_s8@dense decode 64, w_gu": (dense, "decode 64 rows, w_gu", Q8_SOURCE, "matmul_q8", MODEL),
+        "grouped_gemm_s8@dense prefill 1024, w_gu": (
+            dense, "prefill 1024 tokens, w_gu", Q8_SOURCE, "matmul_q8", MODEL),
+        "grouped_gemm_s8@dense prefill 1024, w_down": (
+            dense, "prefill 1024 tokens, w_down", Q8_SOURCE, "matmul_q8", MODEL),
+        "grouped_gemm_s8_pair@deepseek decode": (
+            grouped, "deepseek-v2-lite decode 48 rows, gate|up pair", Q8_SOURCE,
+            "grouped_matmul_q8_pair", DS_MODEL),
+        "grouped_gemm_s8@deepseek decode down": (
+            grouped, "deepseek-v2-lite decode 48 rows, down", Q8_SOURCE, "grouped_matmul_q8", DS_MODEL),
+        "grouped_gemm_s8_pair@deepseek prefill": (
+            grouped, "deepseek-v2-lite prefill 1024 tokens, gate|up pair", Q8_SOURCE,
+            "grouped_matmul_q8_pair", DS_MODEL),
+        "grouped_gemm_s8_pair@gpt-oss decode": (
+            grouped, "gpt-oss-20b decode 32 tokens, gate|up pair", Q8_SOURCE,
+            "grouped_matmul_q8_pair", OSS_MODEL),
+        "grouped_gemm_s8@gpt-oss decode down": (
+            grouped, "gpt-oss-20b decode 32 tokens, down", Q8_SOURCE, "grouped_matmul_q8", OSS_MODEL),
+        "grouped_gemm_s8_pair@gpt-oss prefill": (
+            grouped, "gpt-oss-20b prefill 1024 tokens, gate|up pair", Q8_SOURCE,
+            "grouped_matmul_q8_pair", OSS_MODEL),
+        "quantize_rows@decode 32 x 4096": (quantized, "decode 32 rows x 4096", QR_SOURCE, "quantize_rows", MODEL),
+        "quantize_rows@decode 32 x 14336": (quantized, "decode 32 rows x 14336", QR_SOURCE, "quantize_rows", MODEL),
+        "quantize_rows@prefill 1024 x 4096": (
+            quantized, "prefill 1024 tokens x 4096", QR_SOURCE, "quantize_rows", MODEL),
+    }
+    return {name: {"name": name, **src, "wrapper": wrapper, "model": f"{model} int8", "shape": case,
+                   **{k: cases[case][k] for k in Q8_KEYS}}
+            for name, (cases, case, src, wrapper, model) in table.items()}
+
+
+def q8_steps(cfg, gen, g, dev) -> dict:
+    """The int8 forward phases' steps: a mixed flat step and a Q = 1 decode
+    step (batch bucket 64) for a GQA model, a bucketed prefill step and the
+    decode step for MLA. name -> (input, pool pages, live slots, gather
+    bound)."""
+    from llmd_tpu_torch.models.common import StepInput
+
+    page = 16
+    d = decode_batch(cfg, page, 128, 640, gen, dev)
+    ids = torch.randint(0, cfg.vocab_size, (d["B"], 1), generator=g, device=dev)
+    decode = (StepInput(token_ids=torch.where(d["valid"][:, None] > 0, ids, 0),
+                        positions=d["positions"], kv_lens=d["kv_lens"],
+                        page_table=d["page_table"], query_lens=d["valid"]),
+              d["num_pages"], torch.arange(d["B"], device=dev) < d["n_live"], d["live_pages"])
+    if cfg.is_mla:
+        p = bucketed_rows(cfg, page, [(0, 256), (512, 200), (0, 128), (1000, 40)], gen, dev)
+        return {"prefill": (StepInput(token_ids=p["tokens"], positions=p["positions"],
+                                      kv_lens=p["kv_lens"], page_table=p["page_table"],
+                                      query_lens=p["query_lens"], live_pages=p["live_pages"]),
+                            p["num_pages"], p["live"], p["live_pages"]),
+                "decode": decode}
+    decode_ctx = torch.randint(200, 1001, (16,), generator=gen).tolist()
+    s = mixed_step(cfg, page, -(-cfg.max_model_len // page), [(0, 300), (600, 200)],
+                   decode_ctx, gen, dev)
+    live = torch.arange(s["T"], device=dev) < s["total"]
+    ids = torch.randint(0, cfg.vocab_size, (s["T"],), generator=g, device=dev)
+    flat = StepInput(token_ids=torch.where(live, ids, 0)[:, None], positions=s["positions"][:, None],
+                     kv_lens=s["kv_lens"], page_table=s["page_table"], token_rows=s["rows"],
+                     num_live=s["num_live"])
+    return {"flat": (flat, s["num_pages"], live, None), "decode": decode}
+
+
+def q8_forward_phase(info: dict, model: str, params16: dict, params8: dict) -> None:
+    """One step of each kind (``q8_steps``) of the int8 model at full width
+    through the kernels and through the plain versions (``plain_ops``: K6''s
+    int8 branch and ``quantize_rows`` among them), and of the bf16 model
+    its int8 tree was quantized from. Every int8 product must launch the
+    int8 kernels (``q8_launches``) and K6''s bf16 calls never; layer 0's
+    pool bytes must equal the plain run's (its K|V come from int8
+    products that are bit-equal to theirs); hidden states finite; and, as
+    the bf16 forwards are held, the kernels' bf16 run no further from the
+    f32 run of the same int8 tree (its float leaves upcast, the int8 leaves
+    as they are; plain versions) than 1.5 times the plain bf16 run's
+    distance. Reported, not gated: the two bf16 runs against each other,
+    the two f32 runs (a one-ulp difference in an attention output can move
+    an activation's int8 rounding, so they part more than bf16 weights'
+    do), and the int8 logits against the bf16 model's (relative error,
+    argmax agreement; random weights)."""
+    from llmd_tpu_torch import ops
+    from llmd_tpu_torch.models import llama
+    from llmd_tpu_torch.models.registry import get_model_config
+
+    cfg16 = get_model_config(model)
+    cfg8 = get_model_config(model, quantization="int8")
+    dev = torch.device("cuda")
+    gen = torch.Generator().manual_seed(41)
+    g = torch.Generator(device=dev).manual_seed(43)
+    L = cfg8.num_layers
+    n_moe = L - cfg8.first_dense_layers if cfg8.is_moe else 0
+    steps = q8_steps(cfg8, gen, g, dev)
+    info["tree_gb"] = {"bf16": tree_nbytes(params16) / 1e9, "int8": tree_nbytes(params8) / 1e9}
+    params8_32 = _tree_map(params8, lambda w: w.float() if w.is_floating_point() else w)
+
+    def rel(a, b) -> float:
+        return ((a - b).norm() / b.norm()).item()
+
+    for name, (inp, num_pages, live, live_pages) in steps.items():
+        shape = (L, num_pages, cfg8.kv_cache_heads, 16, cfg8.kv_cache_entry_dim)
+        pool = torch.randn(shape, generator=g, device=dev, dtype=torch.bfloat16)
+
+        def run(prm, cfg, plain, f32=False):
+            work = pool.float() if f32 else pool.clone()
+            ctx = plain_ops(live_pages) if plain else contextlib.nullcontext()
+            with torch.inference_mode(), ctx:
+                h, _ = llama.forward_hidden(prm, work, inp, cfg)
+                h = h.reshape(-1, h.shape[-1])[live]
+                logits = llama.compute_logits(prm, h, cfg)
+            return h.float(), logits, work[0].clone()
+
+        ops.reset_launch_counts()
+        h_k, lg_k, pool0_k = run(params8, cfg8, plain=False)
+        counts = ops.launch_counts()
+        h_p, lg_p, pool0_p = run(params8, cfg8, plain=True)
+        h_k32, _, _ = run(params8_32, cfg8, plain=False, f32=True)
+        h_ref, _, _ = run(params8_32, cfg8, plain=True, f32=True)
+        _, lg_16, _ = run(params16, cfg16, plain=False)
+        with torch.inference_mode():
+            fwd_ms = cuda_ms(lambda: llama.forward_hidden(params8, pool, inp, cfg8), reps=3, warmup=1)
+            fwd16_ms = cuda_ms(lambda: llama.forward_hidden(params16, pool, inp, cfg16), reps=3, warmup=1)
+        torch.cuda.synchronize()
+        attn = ({"write_kv_pages_decode_full": L, "mla_decode_paged_attention_full": L}
+                if cfg8.is_mla and name == "decode" else {} if cfg8.is_mla else
+                {"write_kv_pages_flat_full": L, "flat_paged_attention_full": L} if name == "flat" else
+                {"write_kv_pages_decode_full": L, "decode_paged_attention_full": L})
+        want = {fn: 0 for fn in counts}
+        want.update(attn)
+        want.update(q8_launches(cfg8, 1))
+        r = {
+            "rows": inp.token_ids.shape[0], "live": int(live.sum().item()), "layers": L,
+            "launches": counts, "kernels_vs_plain_rel_err": rel(h_k, h_p),
+            "f32_kernels_vs_plain_rel_err": rel(h_k32, h_ref),
+            "bf16_kernels_vs_f32": rel(h_k, h_ref), "bf16_plain_vs_f32": rel(h_p, h_ref),
+            "layer0_pool_equal": bool(torch.equal(pool0_k, pool0_p)),
+            "int8_vs_bf16_logits_rel_err": rel(lg_k, lg_16),
+            "int8_vs_bf16_argmax_agreement": (lg_k.argmax(-1) == lg_16.argmax(-1)).float().mean().item(),
+            "kernels_vs_plain_argmax_agreement": (lg_k.argmax(-1) == lg_p.argmax(-1)).float().mean().item(),
+            "step_ms": fwd_ms, "bf16_step_ms": fwd16_ms,
+        }
+        info[name] = r
+        if counts != want:
+            raise AssertionError(f"{model} int8 {name} forward launched {counts}, want {want}")
+        if not all(torch.isfinite(t).all() for t in (h_k, h_p, lg_k, lg_16)):
+            raise AssertionError(f"{model} int8 {name} forward: non-finite values")
+        if not r["layer0_pool_equal"]:
+            raise AssertionError(f"{model} int8 {name} forward: layer-0 pool bytes differ from plain")
+        if r["bf16_kernels_vs_f32"] > 1.5 * r["bf16_plain_vs_f32"]:
+            raise AssertionError(
+                f"{model} int8 {name} forward: kernels {r['bf16_kernels_vs_f32']} from f32, "
+                f"plain {r['bf16_plain_vs_f32']} (limit 1.5x)")
+        del pool, h_k, h_p, h_k32, h_ref, lg_k, lg_p, lg_16, pool0_k, pool0_p
+        torch.cuda.empty_cache()
+    del params8_32
+    if n_moe and not counts.get("grouped_matmul_q8_pair"):
+        raise AssertionError("the int8 experts never ran K6''s int8 pair")
+
+
+def q8_serve_check(info: dict, base: str) -> None:
+    """The int8 server's chat route and /metrics answer."""
+    status, raw = _post(base + "/v1/chat/completions", {
+        "messages": [{"role": "user", "content": "Say hello."}], "max_tokens": 16,
+        "temperature": 0.0, "ignore_eos": True})
+    if status != 200:
+        raise AssertionError(f"/v1/chat/completions returned {status}")
+    info["chat_completion_tokens"] = json.loads(raw)["usage"]["completion_tokens"]
+    metrics, scrape_ms = _scrape(base)
+    info["metrics_series"] = len(metrics)
+    info["scrape_ms"] = scrape_ms
+    if info["chat_completion_tokens"] != 16 or not metrics:
+        raise AssertionError(f"chat gave {info['chat_completion_tokens']} tokens, /metrics {len(metrics)} series")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false", file=sys.stderr)
         return 2
+    from llmd_tpu_torch.config import CacheConfig, EngineConfig
     from llmd_tpu_torch.ops import _build
     from llmd_tpu_torch.models import llama
     from llmd_tpu_torch.models.registry import get_model_config
@@ -3812,6 +4248,23 @@ def main() -> int:
         table.update(qwen_kernels_phase(info))
     gc.collect()
     torch.cuda.empty_cache()
+    with phase("quant_kernels", {}) as info:
+        table.update(quant_kernels_phase(info))
+    gc.collect()
+    torch.cuda.empty_cache()
+    q8_counts: dict[str, dict] = {}  # the int8 engine run each int8 row's launches come from
+
+    def q8_runner(model: str) -> dict:
+        """The int8 tree a runner draws from seed 0 (the bf16 tree's draws,
+        quantized), its init's peak device memory held to the int8 tree and
+        the pool plus 2 GB (``runner_init_memory``)."""
+        with phase("runner_init", {"model": model, "quantization": "int8"}) as info:
+            params8 = runner_init_memory(info, EngineConfig(
+                model=get_model_config(model, quantization="int8"),
+                cache=CacheConfig(page_size=16, num_blocks=2048)))
+        gc.collect()
+        torch.cuda.empty_cache()
+        return params8
     with phase("forward", {}) as info:
         cfg = get_model_config(MODEL)
         gen = torch.Generator(device="cuda").manual_seed(0)
@@ -3829,6 +4282,17 @@ def main() -> int:
         _, int8_branches, int8_tokens, _ = engine_phase(info, params, kv_dtype="int8")
         compare_greedy(info, int8_tokens, bf16_tokens, gate=True)
         first_token_witness(info, params, MODEL, int8_tokens, bf16_tokens)
+    params8 = q8_runner(MODEL)
+    with phase("forward", {"model": MODEL, "quantization": "int8"}) as info:
+        q8_forward_phase(info, MODEL, params, params8)
+    with phase("engine", {"layout": "flat step", "quantization": "int8"}) as info:
+        q8_counts[MODEL], _, q8_tokens, _ = engine_phase(info, params8, quantization="int8")
+        compare_greedy(info, q8_tokens, bf16_tokens, gate=False)
+    with phase("engine", {"layout": "flat step, decode_window 8", "quantization": "int8"}) as info:
+        engine_phase(info, params8, quantization="int8")
+    del params8
+    gc.collect()
+    torch.cuda.empty_cache()
     t_stats = time.perf_counter()
     surface = stats_update_cost(params)
     surface["stats_update_s"] = time.perf_counter() - t_stats
@@ -3856,7 +4320,14 @@ def main() -> int:
         ds_counts = ds_engine_phase(info, params)
     with phase("engine", {"model": DS_MODEL, "layout": "split engine, decode_window 8"}) as info:
         ds_engine_phase(info, params)
-    del params
+    params8 = llama.init_params(get_model_config(DS_MODEL, quantization="int8"),
+                                torch.Generator(device="cuda").manual_seed(0), "cuda")
+    with phase("forward", {"model": DS_MODEL, "quantization": "int8"}) as info:
+        q8_forward_phase(info, DS_MODEL, params, params8)
+    with phase("engine", {"model": DS_MODEL, "layout": "default (bucketed unified step)",
+                          "quantization": "int8"}) as info:
+        q8_counts[DS_MODEL] = ds_engine_phase(info, params8, quantization="int8")
+    del params, params8
     gc.collect()
     torch.cuda.empty_cache()
     with phase("forward", {"model": OSS_MODEL}) as info:
@@ -3879,6 +4350,15 @@ def main() -> int:
                                     oss_tokens["flat step"])
     gc.collect()
     torch.cuda.empty_cache()
+    params8 = q8_runner(OSS_MODEL)
+    fill_biases(params8, seed=3)
+    with phase("forward", {"model": OSS_MODEL, "quantization": "int8"}) as info:
+        q8_forward_phase(info, OSS_MODEL, params, params8)
+    with phase("engine", {"model": OSS_MODEL, "layout": "flat step", "quantization": "int8"}) as info:
+        q8_counts[OSS_MODEL], _, _, _ = engine_phase(info, params8, OSS_MODEL, quantization="int8")
+    del params8
+    gc.collect()
+    torch.cuda.empty_cache()
     with phase("ring_kernels", {"model": OSS_MODEL}) as info:
         ring_kernels_phase(info)
     for layout, kv_dtype in OSS_LAYOUTS:
@@ -3899,18 +4379,24 @@ def main() -> int:
             registry_texts = serve_phase(info, [], surface=surface, sink=sink)
     finally:
         sink.close()
-    with phase("serve", {"layout": "flat step", "from": "HF checkpoint"}) as info:
-        # The chart's flags this port takes, on the directory the checkpoint
-        # phase wrote: the same seed-0 weights, so the same completions.
-        try:
-            texts = serve_phase(info, [], CKPT_DIR, name=MODEL, flags=(
-                "--served-model-name", MODEL, "--max-model-len", "8192", "--block-size", "16",
-                "--tokenizer", "byte"))
-        finally:
-            shutil.rmtree(CKPT_DIR, ignore_errors=True)
-        info["texts_equal_registry_server"] = texts == registry_texts
-        if texts != registry_texts:
-            raise AssertionError(f"the checkpoint server answered {texts}, the registry server {registry_texts}")
+    chart = ("--served-model-name", MODEL, "--max-model-len", "8192", "--block-size", "16",
+             "--tokenizer", "byte")
+    try:
+        with phase("serve", {"layout": "flat step", "from": "HF checkpoint"}) as info:
+            # The chart's flags this port takes, on the directory the checkpoint
+            # phase wrote: the same seed-0 weights, so the same completions.
+            texts = serve_phase(info, [], CKPT_DIR, name=MODEL, flags=chart)
+            info["texts_equal_registry_server"] = texts == registry_texts
+            if texts != registry_texts:
+                raise AssertionError(f"the checkpoint server answered {texts}, the registry server {registry_texts}")
+        with phase("serve", {"layout": "flat step", "from": "HF checkpoint",
+                             "quantization": "int8"}) as info:
+            # The chart's int8 flag on the same directory: the loader
+            # quantizes each leaf as it maps it.
+            serve_phase(info, [], CKPT_DIR, name=MODEL, flags=(*chart, "--quantization", "int8"),
+                        check=q8_serve_check)
+    finally:
+        shutil.rmtree(CKPT_DIR, ignore_errors=True)
     with phase("serve", {"model": QWEN_MODEL, "layout": "flat step"}) as info:
         serve_phase(info, [], QWEN_MODEL)
     with phase("serve", {"layout": "split engine, decode_window 4"}) as info:
@@ -3938,7 +4424,8 @@ def main() -> int:
         "flat_paged_attention@prefill": ("flat_paged_attention_full", flat_counts),
         "decode_paged_attention": ("decode_paged_attention_full", window_counts),
     }
-    model_counts = {DS_MODEL: ds_counts, OSS_MODEL: oss_counts["flat step"]}
+    model_counts = {DS_MODEL: ds_counts, OSS_MODEL: oss_counts["flat step"],
+                    **{f"{m} int8": c for m, c in q8_counts.items()}}
 
     def branch_runs(model: str, wrapper: str, branch: str) -> dict:
         int8 = "int8" in branch.split("+")

@@ -33,6 +33,12 @@ class ModelConfig:
     rms_norm_eps: float = 1e-5
     max_model_len: int = 8192
     dtype: str = "bfloat16"
+    # Weight quantization: None (the float dtype) or "int8" (W8A8:
+    # per-output-channel int8 weights with f32 scales, per-token int8
+    # activations, int8 x int8 -> int32 products rescaled in f32;
+    # ``ops/quant.py``). Embeddings, norms, routers, biases, sinks and MLA's
+    # ``wkv_b`` stay in the float dtype.
+    quantization: str | None = None
     tie_word_embeddings: bool = False
     # Qwen2-style attention bias on QKV projections.
     attention_bias: bool = False
@@ -85,6 +91,11 @@ class ModelConfig:
     v_head_dim: int = 128
 
     def __post_init__(self) -> None:
+        if self.quantization not in (None, "int8"):
+            raise ValueError(
+                f"quantization={self.quantization!r} not supported "
+                "(None or 'int8')"
+            )
         if self.head_dim is None:
             self.head_dim = self.hidden_size // self.num_heads
         if self.moe_intermediate_size is None:

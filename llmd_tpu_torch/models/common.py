@@ -65,6 +65,18 @@ class StepInput:
         return cols[None, :] < self.query_lens[:, None]
 
 
+def pdot(x: torch.Tensor, lp: dict, name: str) -> torch.Tensor:
+    """``x @ lp[name]``, or the int8 product (``ops.quant.qdot``) where the
+    tree carries ``<name>_scale``: the weight streams as int8 and
+    multiplies through K6''s int8 branch."""
+    scale = lp.get(name + "_scale")
+    if scale is None:
+        return x @ lp[name]
+    from llmd_tpu_torch.ops.quant import qdot
+
+    return qdot(x, lp[name], scale)
+
+
 def rms_norm(x: torch.Tensor, weight: torch.Tensor, eps: float) -> torch.Tensor:
     dtype = x.dtype
     xf = x.float()

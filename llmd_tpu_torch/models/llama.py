@@ -20,6 +20,12 @@ and K|V write are one launch of the write kernel's fused form
 k and v as views of the projection's output and returns the rotated q. The
 large projections stay ``torch.matmul``, as the JAX package leaves them to
 XLA.
+
+int8 weights (``cfg.quantization == "int8"``, ``ops/quant.py``): the
+``QUANT_NAMES`` leaves are int8 with a ``<name>_scale`` f32 sibling, and
+every projection goes through ``pdot``, which takes the int8 product
+(``qdot``: ``quantize_rows`` and K6''s int8 branch) where the scale is
+there; a tied head stays ``embed.T`` in the float dtype, as in JAX.
 """
 
 from __future__ import annotations
@@ -30,9 +36,10 @@ import torch.nn.functional as F
 
 from llmd_tpu_torch import ops
 from llmd_tpu_torch.config import ModelConfig
-from llmd_tpu_torch.models.common import StepInput, apply_rope, rms_norm, rope_tables
+from llmd_tpu_torch.models.common import StepInput, apply_rope, pdot, rms_norm, rope_tables
 from llmd_tpu_torch.models.mla import mla_attention
 from llmd_tpu_torch.models.moe import moe_block_grouped
+from llmd_tpu_torch.ops.quant import QUANT_NAMES, quantize_weight_into
 
 
 def init_params(
@@ -49,8 +56,13 @@ def init_params(
     the column blocks of ``wqkv`` and ``w_gu`` (``fuse_projections``'s
     tree, the same values in the same draw order), so that no unfused
     stacked leaf is ever held beside its fused copy; MLA trees stay
-    unfused, as the runner leaves them."""
+    unfused, as the runner leaves them. With ``cfg.quantization ==
+    "int8"`` every ``QUANT_NAMES`` leaf is quantized one layer at a time as
+    it is drawn (``ops.quant.quantize_weight_into``, column blocks of a
+    fused leaf apart): the tree is ``quantize_param_tree`` of the float
+    draw, bit for bit, and the float tree is never whole on the device."""
     fused = fused and not cfg.is_mla
+    q8 = cfg.quantization == "int8"
     dt = getattr(torch, cfg.dtype)
     H, D = cfg.hidden_size, cfg.head_dim
     Nq, K, L = cfg.num_heads, cfg.num_kv_heads, cfg.num_layers
@@ -65,25 +77,45 @@ def init_params(
     def layer_stack(n: int, moe: bool) -> dict:
         """n stacked layers: attention (MLA or GQA) + dense MLP or MoE."""
 
-        def stacked(shape, scale=None, out=None):
+        def stacked(shape, scale=None, out=None, scales=None):
+            """n layers of draws into ``out`` ([n, *shape]); with ``scales``
+            (f32) each layer's draw is quantized into int8 ``out``."""
             if out is None:
                 out = torch.empty((n, *shape), dtype=dt, device=device)
             for i in range(n):
-                out[i] = normal(shape, shape[-2] ** -0.5 if scale is None else scale)
+                w = normal(shape, shape[-2] ** -0.5 if scale is None else scale)
+                if scales is None:
+                    out[i] = w
+                else:
+                    quantize_weight_into(w, out[i], scales[i])
             return out
+
+        def empty(shape, name):
+            """(leaf, scales or None) to draw ``name`` [n, *shape] into."""
+            if not (q8 and name in QUANT_NAMES):
+                return torch.empty((n, *shape), dtype=dt, device=device), None
+            return (torch.empty((n, *shape), dtype=torch.int8, device=device),
+                    torch.empty((n, *shape[:-2], shape[-1]), dtype=torch.float32, device=device))
+
+        def weight(name, shape):
+            """The leaf ``name`` (and its scales under int8)."""
+            out, scales = empty(shape, name)
+            stacked(shape, out=out, scales=scales)
+            return {name: out} if scales is None else {name: out, name + "_scale": scales}
 
         def stacked_columns(shapes, fused_name):
             """Leaves of ``shapes`` ([in, out_j] each), drawn in order:
             apart, or as column blocks of one ``fused_name`` leaf."""
             if not fused:
-                return {name: stacked(shape) for name, shape in shapes}
+                return {k: v for name, shape in shapes for k, v in weight(name, shape).items()}
             width = sum(shape[-1] for _, shape in shapes)
-            out = torch.empty((n, shapes[0][1][0], width), dtype=dt, device=device)
+            out, scales = empty((shapes[0][1][0], width), shapes[0][0])
             c = 0
             for _, shape in shapes:
-                stacked(shape, out=out[..., c : c + shape[-1]])
+                cols = slice(c, c + shape[-1])
+                stacked(shape, out=out[..., cols], scales=None if scales is None else scales[..., cols])
                 c += shape[-1]
-            return {fused_name: out}
+            return {fused_name: out} if scales is None else {fused_name: out, fused_name + "_scale": scales}
 
         def const(shape, value, dtype=dt):
             return torch.full((n, *shape), value, dtype=dtype, device=device)
@@ -92,20 +124,20 @@ def init_params(
         if cfg.is_mla:
             nope, rope, vd = cfg.qk_nope_head_dim, cfg.qk_rope_head_dim, cfg.v_head_dim
             rank = cfg.kv_lora_rank
-            layers["wkv_a"] = stacked((H, rank + rope))
+            layers.update(weight("wkv_a", (H, rank + rope)))
             layers["kv_norm"] = const((rank,), 1.0)
             layers["wkv_b"] = stacked((rank, Nq * (nope + vd)))
-            layers["wo"] = stacked((Nq * vd, H))
+            layers.update(weight("wo", (Nq * vd, H)))
             if cfg.q_lora_rank > 0:
-                layers["wq_a"] = stacked((H, cfg.q_lora_rank))
+                layers.update(weight("wq_a", (H, cfg.q_lora_rank)))
                 layers["q_norm"] = const((cfg.q_lora_rank,), 1.0)
-                layers["wq_b"] = stacked((cfg.q_lora_rank, Nq * (nope + rope)))
+                layers.update(weight("wq_b", (cfg.q_lora_rank, Nq * (nope + rope))))
             else:
-                layers["wq"] = stacked((H, Nq * (nope + rope)))
+                layers.update(weight("wq", (H, Nq * (nope + rope))))
         else:
             layers.update(stacked_columns(
                 [("wq", (H, Nq * D)), ("wk", (H, K * D)), ("wv", (H, K * D))], "wqkv"))
-            layers["wo"] = stacked((Nq * D, H))
+            layers.update(weight("wo", (Nq * D, H)))
         if cfg.attention_bias:
             for name, width in (("bq", Nq * D), ("bk", K * D), ("bv", K * D)):
                 layers[name] = const((width,), 0.0)
@@ -125,21 +157,21 @@ def init_params(
                 # V3's selection-only correction bias (noaux_tc), or
                 # gpt-oss's logit bias.
                 layers["router_bias"] = const((E,), 0.0, torch.float32)
-            layers["we_gate"] = stacked((E, H, Fm))
-            layers["we_up"] = stacked((E, H, Fm))
-            layers["we_down"] = stacked((E, Fm, H))
+            layers.update(weight("we_gate", (E, H, Fm)))
+            layers.update(weight("we_up", (E, H, Fm)))
+            layers.update(weight("we_down", (E, Fm, H)))
             if cfg.moe_activation == "swiglu_oss":
                 layers["we_gate_b"] = const((E, Fm), 0.0)
                 layers["we_up_b"] = const((E, Fm), 0.0)
                 layers["we_down_b"] = const((E, H), 0.0)
             if cfg.shared_expert_intermediate_size:
                 Fs = cfg.shared_expert_intermediate_size
-                layers["ws_gate"] = stacked((H, Fs))
-                layers["ws_up"] = stacked((H, Fs))
-                layers["ws_down"] = stacked((Fs, H))
+                layers.update(weight("ws_gate", (H, Fs)))
+                layers.update(weight("ws_up", (H, Fs)))
+                layers.update(weight("ws_down", (Fs, H)))
         else:
             layers.update(stacked_columns([("w_gate", (H, Fi)), ("w_up", (H, Fi))], "w_gu"))
-            layers["w_down"] = stacked((Fi, H))
+            layers.update(weight("w_down", (Fi, H)))
         return layers
 
     n_dense = cfg.first_dense_layers if cfg.is_moe else 0
@@ -153,7 +185,13 @@ def init_params(
     if dense_layers is not None:
         params["dense_layers"] = dense_layers
     if not cfg.tie_word_embeddings:
-        params["lm_head"] = normal((H, V), H**-0.5)
+        head = normal((H, V), H**-0.5)
+        if q8:
+            params["lm_head"] = torch.empty((H, V), dtype=torch.int8, device=device)
+            params["lm_head_scale"] = torch.empty((V,), dtype=torch.float32, device=device)
+            quantize_weight_into(head, params["lm_head"], params["lm_head_scale"])
+        else:
+            params["lm_head"] = head
     return params
 
 
@@ -161,7 +199,9 @@ def fuse_projections(params: dict) -> dict:
     """q|k|v -> ``wqkv`` and gate|up -> ``w_gu`` in ``layers`` and
     ``dense_layers`` (the JAX runner's ``_fuse_projection_tree``): one
     matmul where there were three or two. Exact: each output column is the
-    same dot product. The biases ``bq``, ``bk``, ``bv`` stay separate
+    same dot product; int8 leaves carry their per-column scales along
+    (``wqkv_scale``, ``w_gu_scale``), so the fused int8 product equals the
+    separate ones bit for bit. The biases ``bq``, ``bk``, ``bv`` stay separate
     leaves, as in JAX. The ``sinks`` leaf becomes f32 once here, the type
     the attention kernels read, rather than on every attention call. The
     runner skips it for MLA, as JAX does."""
@@ -173,6 +213,9 @@ def fuse_projections(params: dict) -> dict:
         for names, fused in ((("wq", "wk", "wv"), "wqkv"), (("w_gate", "w_up"), "w_gu")):
             if all(n in layers for n in names):
                 layers[fused] = torch.cat([layers.pop(n) for n in names], dim=-1)
+                if all(f"{n}_scale" in layers for n in names):
+                    layers[f"{fused}_scale"] = torch.cat(
+                        [layers.pop(f"{n}_scale") for n in names], dim=-1)
         if "sinks" in layers:
             layers["sinks"] = layers["sinks"].float()
         out[key] = layers
@@ -187,8 +230,9 @@ def _to_torch(a) -> torch.Tensor:
 
 
 def params_from_jax(tree: dict, device: str | torch.device = "cpu") -> dict:
-    """The JAX parameter tree (leaves as numpy arrays, fused or unfused)
-    as the port's tensors: the layouts are the same, so this is a copy."""
+    """The JAX parameter tree (leaves as numpy arrays, fused or unfused,
+    float or int8 with their scales) as the port's tensors: the layouts are
+    the same, so this is a copy."""
     out = {}
     for name, leaf in tree.items():
         if isinstance(leaf, dict):
@@ -200,10 +244,10 @@ def params_from_jax(tree: dict, device: str | torch.device = "cpu") -> dict:
 
 def _mlp(h: torch.Tensor, lp: dict) -> torch.Tensor:
     if "w_gu" in lp:
-        gu = h @ lp["w_gu"]
+        gu = pdot(h, lp, "w_gu")
         Fi = gu.shape[-1] // 2
-        return (F.silu(gu[..., :Fi]) * gu[..., Fi:]) @ lp["w_down"]
-    return (F.silu(h @ lp["w_gate"]) * (h @ lp["w_up"])) @ lp["w_down"]
+        return pdot(F.silu(gu[..., :Fi]) * gu[..., Fi:], lp, "w_down")
+    return pdot(F.silu(pdot(h, lp, "w_gate")) * pdot(h, lp, "w_up"), lp, "w_down")
 
 
 def _write_attend(
@@ -312,12 +356,12 @@ def forward_hidden(params: dict, kv_cache, inp: StepInput, cfg: ModelConfig, kv_
             x = x + attn_out
         else:
             if "wqkv" in lp:
-                qkv = h @ lp["wqkv"]
+                qkv = pdot(h, lp, "wqkv")
                 q = qkv[..., : Nq * D]
                 k = qkv[..., Nq * D : (Nq + K) * D]
                 v = qkv[..., (Nq + K) * D :]
             else:
-                q, k, v = h @ lp["wq"], h @ lp["wk"], h @ lp["wv"]
+                q, k, v = pdot(h, lp, "wq"), pdot(h, lp, "wk"), pdot(h, lp, "wv")
             q = q.reshape(B, Q, Nq, D)
             k = k.reshape(B, Q, K, D)
             v = v.reshape(B, Q, K, D)
@@ -330,7 +374,7 @@ def forward_hidden(params: dict, kv_cache, inp: StepInput, cfg: ModelConfig, kv_
             write, attend = pairs[kinds[i]]
             q = write(kv, plane, q, k, v, bias)
             attn = attend(q, kv, plane, sm_scale, windows[i], lp.get("sinks"))
-            out = attn.reshape(B, Q, Nq * D) @ lp["wo"]
+            out = pdot(attn.reshape(B, Q, Nq * D), lp, "wo")
             if "bo" in lp:
                 out = out + lp["bo"]
             x = x + out
@@ -353,4 +397,4 @@ def compute_logits(params: dict, hidden: torch.Tensor, cfg: ModelConfig) -> torc
     """Project hidden states [N, H] -> logits [N, V] (f32 for sampling)."""
     if cfg.tie_word_embeddings:
         return (hidden @ params["embed"].T).float()
-    return (hidden @ params["lm_head"]).float()
+    return pdot(hidden, params, "lm_head").float()

@@ -21,7 +21,13 @@ with no copy on the host. The tree is built layer by layer on ``device``:
 each leaf is allocated once and each layer's tensor is copied into it
 (moved to the device as stored, then transposed and converted there), so
 the host maps about one tensor at a time and the device holds no more than
-the tree and one tensor.
+the tree and one tensor. With ``cfg.quantization == "int8"`` each
+``QUANT_NAMES`` leaf is quantized as it is mapped, one layer's tensor at a
+time (``ops.quant.quantize_weight_into``), into int8 with its
+``<name>_scale`` beside it: the JAX loader's post-load
+``quantize_param_tree_host`` of the float tree, bit for bit, without the
+float tree ever being whole (a fused leaf's column blocks quantize apart,
+which gives the bits of quantizing it whole).
 """
 
 from __future__ import annotations
@@ -38,6 +44,7 @@ import torch
 
 from llmd_tpu_torch.config import ModelConfig
 from llmd_tpu_torch.models.common import SUPPORTED_ROPE_TYPES, rope_type
+from llmd_tpu_torch.ops.quant import QUANT_NAMES, quantize_weight_into
 
 log = logging.getLogger(__name__)
 
@@ -54,7 +61,6 @@ SUPPORTED_ARCHS = _DENSE_ARCHS | _MOE_ARCHS | _MLA_ARCHS
 # ModelConfig fields of the JAX package that the port does not have yet,
 # and the ROADMAP.md queue 1 item that brings each.
 _NOT_PORTED = {
-    "quantization": "int8 weights, ROADMAP.md queue 1 item 3",
     "num_lora_adapters": "LoRA, ROADMAP.md queue 1 item 8",
     "lora_rank": "LoRA, ROADMAP.md queue 1 item 8",
     "lora_dynamic": "LoRA, ROADMAP.md queue 1 item 8",
@@ -297,11 +303,13 @@ def load_params(
     (after ``params_from_jax``), bit for bit. q|k|v and gate|up are written
     straight into the column blocks of ``wqkv`` and ``w_gu``, so that no
     unfused leaf is held beside its fused copy; MLA trees stay unfused, as
-    the runner keeps them."""
+    the runner keeps them. Under int8 the ``QUANT_NAMES`` leaves come int8
+    with their scales (``ops.quant``), quantized as they are mapped."""
     ckpt = _Checkpoint(model_dir)
     device = torch.device(device)
     dt = getattr(torch, dtype or cfg.dtype)
     Nq, L = cfg.num_heads, cfg.num_layers
+    q8 = cfg.quantization == "int8"
 
     def put(dst: torch.Tensor, name: str, transpose: bool, fn) -> None:
         w = ckpt.get(name).to(device)
@@ -309,9 +317,18 @@ def load_params(
             w = w.T
         dst.copy_(fn(w) if fn else w)
 
-    def stack(names: list, transpose: bool = False, fn=None, dtype=None) -> torch.Tensor:
+    def put_q8(dst: torch.Tensor, scale: torch.Tensor, name: str, transpose: bool, fn) -> None:
+        """``put`` into a float tensor of dst's shape, quantized into the
+        int8 ``dst`` and its ``scale``."""
+        w = torch.empty(dst.shape, dtype=dt, device=device)
+        put(w, name, transpose, fn)
+        quantize_weight_into(w, dst, scale)
+
+    def stack(names: list, transpose: bool = False, fn=None, dtype=None, leaf: str = ""):
         """One leaf: ``names[j]`` into ``out[j]``, or ``names[j][e]`` into
-        ``out[j, e]``; ``fn`` maps each (transposed) tensor."""
+        ``out[j, e]``; ``fn`` maps each (transposed) tensor. Returns the
+        leaf, or under int8 for a ``QUANT_NAMES`` ``leaf`` the pair (int8
+        leaf, its scales)."""
         nested = isinstance(names[0], list)
         shape = ckpt.shape(names[0][0] if nested else names[0])
         if transpose:
@@ -319,27 +336,47 @@ def load_params(
         if fn:
             shape = fn(torch.empty(shape, device="meta")).shape
         lead = (len(names), len(names[0])) if nested else (len(names),)
-        out = torch.empty((*lead, *shape), dtype=dtype or dt, device=device)
+        quant = q8 and leaf in QUANT_NAMES
+        out = torch.empty((*lead, *shape), dtype=torch.int8 if quant else dtype or dt, device=device)
+        scales = None
+        if quant:
+            scales = torch.empty((*lead, *shape[:-2], shape[-1]), dtype=torch.float32, device=device)
         for j, row in enumerate(names):
             for e, name in enumerate(row) if nested else ((None, row),):
-                put(out[j] if e is None else out[j, e], name, transpose, fn)
-        return out
+                at = j if e is None else (j, e)
+                if quant:
+                    put_q8(out[at], scales[at], name, transpose, fn)
+                else:
+                    put(out[at], name, transpose, fn)
+        return out if scales is None else (out, scales)
+
+    def leaf(name: str, names: list, transpose: bool = False, fn=None) -> dict:
+        """``{name: leaf}``, with ``name + "_scale"`` under int8."""
+        out = stack(names, transpose, fn, leaf=name)
+        return {name: out} if not isinstance(out, tuple) else {name: out[0], name + "_scale": out[1]}
 
     def projections(parts: dict[str, list[str]], fused_name: str) -> dict:
         """Transposed projections side by side in the columns of one
         ``fused_name`` leaf (MLA: stacked apart)."""
         if cfg.is_mla:
-            return {key: stack(names, True) for key, names in parts.items()}
+            return {k: v for key, names in parts.items() for k, v in leaf(key, names, True).items()}
         groups = list(parts.values())
         widths = [ckpt.shape(names[0])[0] for names in groups]  # [out, in] stored
         rows = ckpt.shape(groups[0][0])[1]
-        out = torch.empty((len(groups[0]), rows, sum(widths)), dtype=dt, device=device)
+        quant = q8 and next(iter(parts)) in QUANT_NAMES
+        out = torch.empty((len(groups[0]), rows, sum(widths)),
+                          dtype=torch.int8 if quant else dt, device=device)
+        scales = torch.empty((len(groups[0]), sum(widths)), dtype=torch.float32,
+                             device=device) if quant else None
         for j in range(len(groups[0])):
             c = 0
             for names, w in zip(groups, widths):
-                put(out[j, :, c : c + w], names[j], True, None)
+                if quant:
+                    put_q8(out[j, :, c : c + w], scales[j, c : c + w], names[j], True, None)
+                else:
+                    put(out[j, :, c : c + w], names[j], True, None)
                 c += w
-        return {fused_name: out}
+        return {fused_name: out} if not quant else {fused_name: out, fused_name + "_scale": scales}
 
     def proj(i: int, name: str) -> str:
         return f"model.layers.{i}.{name}"
@@ -360,24 +397,24 @@ def load_params(
                 w = _interleave_to_half(w.reshape(w.shape[0], Nq, nope + rope), rope)
                 return w.reshape(w.shape[0], Nq * (nope + rope))
 
-            layers["wkv_a"] = stack(names("self_attn.kv_a_proj_with_mqa.weight"), True,
-                                    lambda w: _interleave_to_half(w, rope))
+            layers.update(leaf("wkv_a", names("self_attn.kv_a_proj_with_mqa.weight"), True,
+                               lambda w: _interleave_to_half(w, rope)))
             layers["kv_norm"] = stack(names("self_attn.kv_a_layernorm.weight"))
             layers["wkv_b"] = stack(names("self_attn.kv_b_proj.weight"), True)
-            layers["wo"] = stack(names("self_attn.o_proj.weight"), True)
+            layers.update(leaf("wo", names("self_attn.o_proj.weight"), True))
             if cfg.q_lora_rank > 0:
-                layers["wq_a"] = stack(names("self_attn.q_a_proj.weight"), True)
+                layers.update(leaf("wq_a", names("self_attn.q_a_proj.weight"), True))
                 layers["q_norm"] = stack(names("self_attn.q_a_layernorm.weight"))
-                layers["wq_b"] = stack(names("self_attn.q_b_proj.weight"), True, q_rows)
+                layers.update(leaf("wq_b", names("self_attn.q_b_proj.weight"), True, q_rows))
             else:
-                layers["wq"] = stack(names("self_attn.q_proj.weight"), True, q_rows)
+                layers.update(leaf("wq", names("self_attn.q_proj.weight"), True, q_rows))
         else:
             layers.update(projections({
                 "wq": names("self_attn.q_proj.weight"),
                 "wk": names("self_attn.k_proj.weight"),
                 "wv": names("self_attn.v_proj.weight"),
             }, "wqkv"))
-            layers["wo"] = stack(names("self_attn.o_proj.weight"), True)
+            layers.update(leaf("wo", names("self_attn.o_proj.weight"), True))
             if cfg.attention_bias:
                 for key, which in (("bq", "q"), ("bk", "k"), ("bv", "v")):
                     layers[key] = stack(names(f"self_attn.{which}_proj.bias"))
@@ -403,11 +440,11 @@ def load_params(
             layers["router"] = stack(names("mlp.router.weight"), True)
             layers["router_bias"] = stack(names("mlp.router.bias"), dtype=torch.float32)
             gu, gub = names("mlp.experts.gate_up_proj"), names("mlp.experts.gate_up_proj_bias")
-            layers["we_gate"] = stack(gu, fn=gate)
-            layers["we_up"] = stack(gu, fn=up)
+            layers.update(leaf("we_gate", gu, fn=gate))
+            layers.update(leaf("we_up", gu, fn=up))
             layers["we_gate_b"] = stack(gub, fn=gate)
             layers["we_up_b"] = stack(gub, fn=up)
-            layers["we_down"] = stack(names("mlp.experts.down_proj"))
+            layers.update(leaf("we_down", names("mlp.experts.down_proj")))
             layers["we_down_b"] = stack(names("mlp.experts.down_proj_bias"))
         elif moe:
             E = cfg.num_experts
@@ -433,18 +470,18 @@ def load_params(
                     (len(layer_ids), E), dtype=torch.float32, device=device
                 )
             for which, key in (("gate", "we_gate"), ("up", "we_up"), ("down", "we_down")):
-                layers[key] = stack(
-                    [[ename(i, e, which) for e in range(E)] for i in layer_ids], True
-                )
+                layers.update(leaf(
+                    key, [[ename(i, e, which) for e in range(E)] for i in layer_ids], True
+                ))
             if cfg.shared_expert_intermediate_size:
                 for which, key in (("gate", "ws_gate"), ("up", "ws_up"), ("down", "ws_down")):
-                    layers[key] = stack(names(f"mlp.shared_experts.{which}_proj.weight"), True)
+                    layers.update(leaf(key, names(f"mlp.shared_experts.{which}_proj.weight"), True))
         else:
             layers.update(projections({
                 "w_gate": names("mlp.gate_proj.weight"),
                 "w_up": names("mlp.up_proj.weight"),
             }, "w_gu"))
-            layers["w_down"] = stack(names("mlp.down_proj.weight"), True)
+            layers.update(leaf("w_down", names("mlp.down_proj.weight"), True))
         return layers
 
     n_dense = cfg.first_dense_layers if cfg.is_moe else 0
@@ -456,7 +493,8 @@ def load_params(
     if n_dense:
         params["dense_layers"] = layer_stack(list(range(n_dense)), moe=False)
     if not cfg.tie_word_embeddings:
-        params["lm_head"] = stack(["lm_head.weight"], True)[0]
+        head = leaf("lm_head", ["lm_head.weight"], True)
+        params.update({k: v[0] for k, v in head.items()})
 
     unused = {
         n for n in ckpt.names() - ckpt.used
@@ -467,8 +505,7 @@ def load_params(
             "checkpoint tensors not mapped (%d): %s%s",
             len(unused), sorted(unused)[:8], " ..." if len(unused) > 8 else "",
         )
-    # The JAX loader quantizes the tree to int8 here when
-    # ModelConfig.quantization is "int8" (llmd_tpu/models/loader.py:472-479).
-    # That hook comes with int8 weights (ROADMAP.md queue 1 item 3); until
-    # then config_from_hf refuses a quantization override.
+    # The JAX loader quantizes the float tree here when
+    # ModelConfig.quantization is "int8" (llmd_tpu/models/loader.py:472-479);
+    # this one quantized each leaf as it was mapped (``leaf``).
     return params

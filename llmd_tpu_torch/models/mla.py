@@ -15,7 +15,10 @@ into the output, so per-head K and V are never materialised. The latent row
 goes into the pool through ``ops.write_kv_pages_full`` as two halves posing
 as K and V (the decode write kernel at ``Q == 1``); the attention is
 ``ops.mla_paged_attention_full`` (the latent decode kernel at ``Q == 1``).
-The absorption products stay ``torch.einsum``, as JAX leaves them to XLA.
+The absorption products stay ``torch.einsum``, as JAX leaves them to XLA;
+with int8 weights the projections (``wq``/``wq_a``/``wq_b``, ``wkv_a``,
+``wo``) take the int8 product (``pdot``) and ``wkv_b`` stays float, as in
+JAX.
 DeepSeek's yarn temperature (``rope_scaling`` with ``mscale_all_dim``)
 multiplies ``sm_scale`` (``common.yarn_sm_scale_mult``), as in JAX.
 """
@@ -27,7 +30,9 @@ import torch.nn.functional as F
 
 from llmd_tpu_torch import ops
 from llmd_tpu_torch.config import ModelConfig
-from llmd_tpu_torch.models.common import StepInput, apply_rope, rms_norm, yarn_sm_scale_mult
+from llmd_tpu_torch.models.common import (
+    StepInput, apply_rope, pdot, rms_norm, yarn_sm_scale_mult,
+)
 
 
 def mla_write(
@@ -52,14 +57,14 @@ def mla_write(
     Dl = cfg.kv_cache_entry_dim
 
     if cfg.q_lora_rank > 0:
-        q = rms_norm(h @ lp["wq_a"], lp["q_norm"], cfg.rms_norm_eps) @ lp["wq_b"]
+        q = pdot(rms_norm(pdot(h, lp, "wq_a"), lp["q_norm"], cfg.rms_norm_eps), lp, "wq_b")
     else:
-        q = h @ lp["wq"]
+        q = pdot(h, lp, "wq")
     q = q.reshape(B, Q, nh, nope + rope)
     q_nope, q_pe = q[..., :nope], q[..., nope:]
     q_pe = apply_rope(q_pe, cos, sin)
 
-    kv_a = h @ lp["wkv_a"]  # [B, Q, rank + rope]
+    kv_a = pdot(h, lp, "wkv_a")  # [B, Q, rank + rope]
     c_kv = rms_norm(kv_a[..., :rank], lp["kv_norm"], cfg.rms_norm_eps)
     k_pe = apply_rope(kv_a[..., None, rank:], cos, sin)[:, :, 0]  # one shared head
     latent = F.pad(torch.cat([c_kv, k_pe], dim=-1), (0, Dl - rank - rope))
@@ -102,7 +107,7 @@ def mla_read(
         rank, sm_scale, inp.live_pages,
     )  # [B, Q, nh, rank]
     out = torch.einsum("bqhr,hrv->bqhv", out_lat, w_uv)
-    return out.reshape(B, Q, nh * vd) @ lp["wo"]
+    return pdot(out.reshape(B, Q, nh * vd), lp, "wo")
 
 
 def mla_attention(

@@ -7,8 +7,9 @@ expert multiplies only its routed rows. The router covers Mixtral/Qwen3
 (softmax, top-k, renormalised), DeepSeek V2/V3 (softmax or sigmoid scores,
 group-limited selection, optional renormalisation, routed scaling) and
 gpt-oss (a router bias folded into the logits); the experts' GLU is SwiGLU
-or gpt-oss's clamped one with per-expert biases. The dense-combine and
-expert-parallel blocks are not ported.
+or gpt-oss's clamped one with per-expert biases. int8 experts (their
+``we_*_scale`` leaves) run K6''s int8 branch; the router and the biases
+stay float. The dense-combine and expert-parallel blocks are not ported.
 """
 
 from __future__ import annotations
@@ -17,6 +18,7 @@ import torch
 import torch.nn.functional as F
 
 from llmd_tpu_torch.config import ModelConfig
+from llmd_tpu_torch.models.common import pdot
 from llmd_tpu_torch.ops.grouped_gemm import moe_apply_grouped
 
 
@@ -96,9 +98,17 @@ def expert_glu(
     return F.silu(gate) * up
 
 
+def _expert_scales(lp: dict) -> tuple | None:
+    """(gate, up, down) per-(expert, column) scales of int8 experts."""
+    if "we_gate_scale" not in lp:
+        return None
+    return (lp["we_gate_scale"], lp["we_up_scale"], lp["we_down_scale"])
+
+
 def shared_expert_ffn(ht: torch.Tensor, lp: dict) -> torch.Tensor:
-    """DeepSeek's always-on shared expert, a dense SwiGLU MLP."""
-    return (F.silu(ht @ lp["ws_gate"]) * (ht @ lp["ws_up"])) @ lp["ws_down"]
+    """DeepSeek's always-on shared expert, a dense SwiGLU MLP (int8
+    products where the tree is quantized)."""
+    return pdot(F.silu(pdot(ht, lp, "ws_gate")) * pdot(ht, lp, "ws_up"), lp, "ws_down")
 
 
 def moe_block_grouped(h: torch.Tensor, lp: dict, cfg: ModelConfig) -> torch.Tensor:
@@ -111,7 +121,7 @@ def moe_block_grouped(h: torch.Tensor, lp: dict, cfg: ModelConfig) -> torch.Tens
     )
     out = moe_apply_grouped(
         ht, weights, ids, lp["we_gate"], lp["we_up"], lp["we_down"],
-        biases=_expert_biases(lp), cfg=cfg,
+        scales=_expert_scales(lp), biases=_expert_biases(lp), cfg=cfg,
     ).to(h.dtype)
     if cfg.shared_expert_intermediate_size:
         out = out + shared_expert_ffn(ht, lp)

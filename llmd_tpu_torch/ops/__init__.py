@@ -27,6 +27,11 @@ MLA and MoE: ``mla_paged_attention_full`` follows the JAX rule as well
 ``ops.mla_attention``), and ``grouped_matmul`` is the MoE experts' grouped
 GEMM (``grouped_matmul_pair``: gate and up in one launch). The latent rows are written through ``write_kv_pages_full``.
 
+int8 weights (``ModelConfig.quantization="int8"``, ``ops/quant.py``): every
+int8 product runs K6''s int8 branch (``matmul_q8`` for a dense product,
+``grouped_matmul_q8`` and ``grouped_matmul_q8_pair`` for the experts) on
+rows that ``quantize_rows`` quantized.
+
 GQA layers write through the fused entries: ``rope_write_kv_flat`` (the
 flat step) and ``rope_write_kv_decode`` (``Q == 1`` rows) add the q|k|v
 biases, apply the rotary embedding to q and k, store k|v and return the
@@ -46,6 +51,12 @@ from llmd_tpu_torch.ops.grouped_gemm import (
     grouped_matmul_pair,
     grouped_matmul_pair_plain,
     grouped_matmul_plain,
+    grouped_matmul_q8,
+    grouped_matmul_q8_pair,
+    grouped_matmul_q8_pair_plain,
+    grouped_matmul_q8_plain,
+    matmul_q8,
+    matmul_q8_plain,
 )
 from llmd_tpu_torch.ops.kv_write import (
     add_qkv_bias,
@@ -72,6 +83,7 @@ from llmd_tpu_torch.ops.paged_attention import (
     scatter_kv_scales_flat,
     write_kv_pages,
 )
+from llmd_tpu_torch.ops.quant import quantize_rows, quantize_rows_plain
 from llmd_tpu_torch.ops.quant_kv import (
     dequantize_pages,
     quantize_kv_rows,
@@ -95,6 +107,10 @@ KERNELS = (
     mla_decode_paged_attention_full,
     grouped_matmul,
     grouped_matmul_pair,
+    quantize_rows,
+    matmul_q8,
+    grouped_matmul_q8,
+    grouped_matmul_q8_pair,
 )
 
 # Above this many gathered positions the dense attention's [B, Q, .., S]
@@ -410,6 +426,8 @@ __all__ = [
     "dequantize_pages",
     "quantize_kv_rows",
     "quantize_pages",
+    "quantize_rows",
+    "quantize_rows_plain",
     "scatter_kv_scales",
     "scatter_kv_scales_flat",
     "decode_paged_attention",
@@ -423,9 +441,15 @@ __all__ = [
     "grouped_matmul_pair",
     "grouped_matmul_pair_plain",
     "grouped_matmul_plain",
+    "grouped_matmul_q8",
+    "grouped_matmul_q8_pair",
+    "grouped_matmul_q8_pair_plain",
+    "grouped_matmul_q8_plain",
     "launch_counts",
     "launch_delta",
     "launch_state",
+    "matmul_q8",
+    "matmul_q8_plain",
     "mla_decode_paged_attention_full",
     "mla_decode_paged_attention_plain",
     "mla_paged_attention_full",

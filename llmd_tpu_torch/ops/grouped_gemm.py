@@ -25,6 +25,23 @@ sizes are counted with ``scatter_add_`` (``torch.bincount`` on CUDA reads
 its input's maximum back to size its output) and the combine sums each
 token's rows in ascending sorted position, the order of JAX's scatter-add
 on the CPU, without ``index_add_``'s atomics.
+
+The int8 branch (W8A8, ``ops/quant.py``): ``grouped_matmul_q8`` takes rows
+already quantized (int8 x with one f32 scale a row, from ``quantize_rows``)
+against int8 weights with per-(group, column) f32 scales, accumulates in
+s32 and rescales ``(f32(acc) * a_scale) * w_scale`` into the output's
+dtype: bit-equal to ``grouped_matmul_q8_plain``. ``grouped_matmul_q8_pair``
+is its gate|up form (one quantized input, two weight tensors, one launch)
+and ``matmul_q8`` its dense form, one group of M rows and no group sizes:
+every dense int8 product of the models (projections, shared experts,
+MLA's projections, ``lm_head``) runs it. Where the items (``max_items``)
+do not fill the card, as a dense product's at a decode step, the kernel
+splits K (``q8_splits``) and adds the splits' s32 partial sums, in order,
+through a workspace the wrapper allocates. JAX computes these with
+``lax.ragged_dot`` and ``dot_general`` outside any kernel. The plain
+versions multiply in f64, exact for these integers (every partial sum
+stays below 2^31), and round the sums to f32 as the kernel's s32 -> f32
+conversion does.
 """
 
 from __future__ import annotations
@@ -39,6 +56,8 @@ _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 # The bf16/f16 kernel's tiles (BM rows x BN columns), by the code it takes.
 TILES = {0: (64, 128), 1: (128, 128)}
 _MAX_GROUPS = 1024  # the kernel keeps the groups' prefix sums in shared memory
+# The int8 branch's s32 sums stay exact while K * 127^2 < 2^31.
+_MAX_K_S8 = (2**31 - 1) // 127**2
 _lib = None
 
 
@@ -50,8 +69,12 @@ def _kernel():
             ctypes.c_void_p
         ]
         lib.grouped_gemm.restype = ctypes.c_int
+        lib.grouped_gemm_s8.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 7 + [
+            ctypes.c_void_p
+        ]
+        lib.grouped_gemm_s8.restype = ctypes.c_int
         _lib = lib
-    return _lib.grouped_gemm
+    return _lib
 
 
 def tile_choice(M: int, G: int) -> int:
@@ -91,6 +114,12 @@ def grouped_tiles(group_sizes: torch.Tensor, M: int, BM: int, ncols: int) -> tor
     return torch.stack([per(g), per(row0), per(rows), ct], dim=1)
 
 
+def _group_ids(group_sizes: torch.Tensor, M: int, device) -> torch.Tensor:
+    """Each row's group: the group whose running end first exceeds it."""
+    ends = torch.cumsum(group_sizes.long(), 0)
+    return torch.searchsorted(ends, torch.arange(M, device=device), right=True)
+
+
 def grouped_matmul_plain(
     x: torch.Tensor,  # [M, K] rows sorted by group
     w: torch.Tensor,  # [G, K, N]
@@ -100,8 +129,7 @@ def grouped_matmul_plain(
     first exceeds r; each group's product (in f32) is kept on its rows."""
     M = x.shape[0]
     G, _, N = w.shape
-    ends = torch.cumsum(group_sizes.long(), 0)
-    gid = torch.searchsorted(ends, torch.arange(M, device=x.device), right=True)
+    gid = _group_ids(group_sizes, M, x.device)
     xf = x.float()
     out = torch.zeros((M, N), dtype=torch.float32, device=x.device)
     for g in range(G):
@@ -156,7 +184,7 @@ def _launch(x, w_a, w_b, group_sizes):
     out_b = None if w_b is None else torch.empty_like(out_a)
     if M == 0:
         return out_a, out_b
-    err = _kernel()(
+    err = _kernel().grouped_gemm(
         out_a.data_ptr(), None if out_b is None else out_b.data_ptr(), x.data_ptr(),
         w_a.data_ptr(), None if w_b is None else w_b.data_ptr(), group_sizes.data_ptr(),
         M, K, N, G, _DTYPE_CODES[x.dtype], tile_choice(M, G),
@@ -217,12 +245,205 @@ def grouped_matmul_pair(
 grouped_matmul_pair.launches = 0
 
 
+def _rescale(acc: torch.Tensor, a_scale: torch.Tensor, w_scale: torch.Tensor, dtype) -> torch.Tensor:
+    """The int8 branch's epilogue: the exact sums rounded to f32, times the
+    row's scale, times the column's, rounded once to ``dtype``."""
+    return ((acc.float() * a_scale[:, None]) * w_scale).to(dtype)
+
+
+def grouped_matmul_q8_plain(
+    xq: torch.Tensor,  # int8 [M, K] rows sorted by group
+    a_scale: torch.Tensor,  # f32 [M]
+    w: torch.Tensor,  # int8 [G, K, N]
+    w_scale: torch.Tensor,  # f32 [G, N]
+    group_sizes: torch.Tensor,  # [G] int, sums to M
+    dtype: torch.dtype,
+) -> torch.Tensor:  # [M, N] in dtype
+    """Plain PyTorch version of the int8 branch: one masked f64 product a
+    group (exact: the sums are integers below 2^31), then the epilogue."""
+    M = xq.shape[0]
+    G, _, N = w.shape
+    gid = _group_ids(group_sizes, M, xq.device)
+    xd = xq.double()
+    acc = torch.zeros((M, N), dtype=torch.float64, device=xq.device)
+    for g in range(G):
+        acc = torch.where((gid == g)[:, None], xd @ w[g].double(), acc)
+    return _rescale(acc, a_scale, w_scale[gid.clamp(max=G - 1)], dtype)
+
+
+def grouped_matmul_q8_pair_plain(xq, a_scale, w_a, s_a, w_b, s_b, group_sizes, dtype):
+    """Plain PyTorch version of the int8 pair: two ``grouped_matmul_q8_plain``."""
+    return (grouped_matmul_q8_plain(xq, a_scale, w_a, s_a, group_sizes, dtype),
+            grouped_matmul_q8_plain(xq, a_scale, w_b, s_b, group_sizes, dtype))
+
+
+def matmul_q8_plain(xq, a_scale, w, w_scale, dtype):
+    """Plain PyTorch version of the dense int8 product (w int8 [K, N],
+    w_scale f32 [N])."""
+    return _rescale(xq.double() @ w.double(), a_scale, w_scale, dtype)
+
+
+def _check_q8(xq, a_scale, ws, scales, group_sizes, dtype):
+    """Raise unless the int8 branch takes xq against each weight tensor in
+    ``ws`` ([G, K, N], all of one shape) with its ``scales`` ([G, N])."""
+    w = ws[0]
+    if xq.dim() != 2 or w.dim() != 3 or w.shape[1] != xq.shape[1]:
+        raise ValueError(f"xq {tuple(xq.shape)} and w {tuple(w.shape)} do not fit [M, K] x [G, K, N]")
+    G, K, N = w.shape
+    if group_sizes is None:
+        if G != 1:
+            raise ValueError(f"a product without group sizes takes one group, got {G}")
+    else:
+        if group_sizes.shape != (G,) or group_sizes.dtype != torch.int32:
+            raise ValueError(f"group_sizes must be int32 [G] = [{G}], got {group_sizes.dtype} "
+                             f"{tuple(group_sizes.shape)}")
+        if G > _MAX_GROUPS:
+            raise ValueError(f"the kernel takes at most {_MAX_GROUPS} groups, got {G}")
+    if K % 16 or N % 16 or K > _MAX_K_S8:
+        raise ValueError(f"the int8 branch takes K and N multiples of 16 and K <= {_MAX_K_S8}; "
+                         f"got K={K}, N={N}")
+    if dtype not in _DTYPE_CODES:
+        raise ValueError(f"output dtype {dtype} must be a float dtype the kernel takes")
+    if xq.dtype != torch.int8 or a_scale.dtype != torch.float32 or a_scale.shape != (xq.shape[0],):
+        raise ValueError("xq must be int8 [M, K] with a_scale f32 [M]")
+    named = [("xq", xq), ("a_scale", a_scale), *(("w", t) for t in ws), *(("w_scale", t) for t in scales)]
+    if group_sizes is not None:
+        named.append(("group_sizes", group_sizes))
+    for name, t in named:
+        if t.device != xq.device:
+            raise ValueError(f"{name} is on {t.device}, xq on {xq.device}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    for t in (xq, *ws):  # read by TMA
+        if t.data_ptr() % 16:
+            raise ValueError("xq and w must be 16-byte aligned")
+    for t, sc in zip(ws, scales):
+        if t.dtype != torch.int8 or t.shape != w.shape:
+            raise ValueError(f"weights must be int8 {tuple(w.shape)}, got {t.dtype} {tuple(t.shape)}")
+        if sc.dtype != torch.float32 or sc.shape != (G, N):
+            raise ValueError(f"weight scales must be f32 [{G}, {N}], got {sc.dtype} {tuple(sc.shape)}")
+
+
+_S8_SLICE = 128  # K bytes a stage of the int8 branch
+
+
+def q8_splits(items: int, K: int, sms: int) -> int:
+    """K splits of the int8 branch's items: 1 where the items fill the card
+    (one block an SM or more) or K is under 64 slices of 128 bytes, else
+    about one block an SM, each keeping at least four slices. Below 64
+    slices a block's fixed cost outweighs the slices a split saves
+    (``chip_smoke.py``'s quant_kernels rows time both; PERF.md)."""
+    slices = -(-K // _S8_SLICE)
+    if items >= sms or slices < 64:
+        return 1
+    return max(1, min(sms // items, slices // 4, 16))
+
+
+def _launch_q8(xq, a_scale, w_a, s_a, w_b, s_b, group_sizes, dtype):
+    M = xq.shape[0]
+    G, K, N = w_a.shape
+    out_a = torch.empty((M, N), dtype=dtype, device=xq.device)
+    out_b = None if w_b is None else torch.empty_like(out_a)
+    if M == 0:
+        return out_a, out_b
+    tiles = tile_choice(M, G)
+    pair = 1 if w_b is not None else 0
+    ncols = -(-N // 128) * (1 + pair)
+    items = max_items(M, G, TILES[tiles][0], ncols)  # the kernel's bound: its counters
+    # A dense product's items are known: its row tiles times the columns.
+    real = -(-M // TILES[tiles][0]) * ncols if group_sizes is None else items
+    splits = q8_splits(real, K, torch.cuda.get_device_properties(xq.device).multi_processor_count)
+    workspace = None
+    if splits > 1:  # each split's s32 partial sums, then a counter an item
+        workspace = torch.empty((splits * (1 + pair) * M * N + items,), dtype=torch.int32,
+                                device=xq.device)
+    ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
+    err = _kernel().grouped_gemm_s8(
+        out_a.data_ptr(), ptr(out_b), xq.data_ptr(), a_scale.data_ptr(), w_a.data_ptr(),
+        s_a.data_ptr(), ptr(w_b), ptr(s_b), ptr(group_sizes), ptr(workspace), M, K, N, G,
+        _DTYPE_CODES[dtype], tiles, splits, torch.cuda.current_stream(xq.device).cuda_stream,
+    )
+    if err:
+        raise RuntimeError(f"grouped_gemm_s8 launch failed: CUDA error {err}")
+    return out_a, out_b
+
+
+def matmul_q8(
+    xq: torch.Tensor,  # int8 [M, K]
+    a_scale: torch.Tensor,  # f32 [M]
+    w: torch.Tensor,  # int8 [K, N]
+    w_scale: torch.Tensor,  # f32 [N]
+    dtype: torch.dtype,
+) -> torch.Tensor:  # [M, N] in dtype
+    """A dense int8 product: the int8 branch with one group of M rows.
+    CUDA tensors launch the kernel; CPU tensors take the plain version."""
+    if xq.device.type == "cpu":
+        return matmul_q8_plain(xq, a_scale, w, w_scale, dtype)
+    if xq.device.type != "cuda":
+        raise ValueError(f"unsupported device {xq.device}")
+    if w.dim() != 2 or w_scale.dim() != 1:
+        raise ValueError(f"w must be [K, N] with w_scale [N]; got {tuple(w.shape)}, {tuple(w_scale.shape)}")
+    w3, s2 = w[None], w_scale[None]
+    _check_q8(xq, a_scale, (w3,), (s2,), None, dtype)
+    out, _ = _launch_q8(xq, a_scale, w3, s2, None, None, None, dtype)
+    if xq.shape[0]:
+        matmul_q8.launches += 1
+    return out
+
+
+matmul_q8.launches = 0
+
+
+def grouped_matmul_q8(
+    xq: torch.Tensor,  # int8 [M, K] rows sorted by group
+    a_scale: torch.Tensor,  # f32 [M]
+    w: torch.Tensor,  # int8 [G, K, N]
+    w_scale: torch.Tensor,  # f32 [G, N]
+    group_sizes: torch.Tensor,  # [G] int32 on the device
+    dtype: torch.dtype,
+) -> torch.Tensor:  # [M, N] in dtype
+    """``out[r] = (f32(xq[r] @ w[g(r)]) * a_scale[r]) * w_scale[g(r)]`` in
+    ``dtype``, the group sizes read on the device. CUDA tensors launch the
+    kernel; CPU tensors take the plain version."""
+    if xq.device.type == "cpu":
+        return grouped_matmul_q8_plain(xq, a_scale, w, w_scale, group_sizes, dtype)
+    if xq.device.type != "cuda":
+        raise ValueError(f"unsupported device {xq.device}")
+    _check_q8(xq, a_scale, (w,), (w_scale,), group_sizes, dtype)
+    out, _ = _launch_q8(xq, a_scale, w, w_scale, None, None, group_sizes, dtype)
+    if xq.shape[0]:
+        grouped_matmul_q8.launches += 1
+    return out
+
+
+grouped_matmul_q8.launches = 0
+
+
+def grouped_matmul_q8_pair(xq, a_scale, w_a, s_a, w_b, s_b, group_sizes, dtype):
+    """The int8 branch against two weight tensors of one shape (gate and
+    up) in one launch; returns the two outputs. CUDA tensors launch the
+    kernel; CPU tensors take the plain version."""
+    if xq.device.type == "cpu":
+        return grouped_matmul_q8_pair_plain(xq, a_scale, w_a, s_a, w_b, s_b, group_sizes, dtype)
+    if xq.device.type != "cuda":
+        raise ValueError(f"unsupported device {xq.device}")
+    _check_q8(xq, a_scale, (w_a, w_b), (s_a, s_b), group_sizes, dtype)
+    out = _launch_q8(xq, a_scale, w_a, s_a, w_b, s_b, group_sizes, dtype)
+    if xq.shape[0]:
+        grouped_matmul_q8_pair.launches += 1
+    return out
+
+
+grouped_matmul_q8_pair.launches = 0
+
+
 def expert_mlp_grouped(
     x_sorted: torch.Tensor,  # [M, H] rows sorted by expert
     group_sizes: torch.Tensor,  # [E] int32
-    we_gate: torch.Tensor,  # [E, H, F]
+    we_gate: torch.Tensor,  # [E, H, F] (float, or int8 with scales)
     we_up: torch.Tensor,  # [E, H, F]
     we_down: torch.Tensor,  # [E, F, H]
+    scales: tuple | None = None,  # int8 experts: (s_gate [E, F], s_up [E, F], s_down [E, H])
     biases: tuple | None = None,  # gpt-oss: (b_gate [E, F], b_up [E, F], b_down [E, H])
     cfg=None,  # ModelConfig naming the GLU; None = SwiGLU
     expert_ids: torch.Tensor | None = None,  # [M] expert of each sorted row
@@ -230,15 +451,26 @@ def expert_mlp_grouped(
     """The routed rows' expert MLP: gate and up in one pair call, the GLU,
     down in a second call; each row's expert biases added after its
     products (``expert_ids`` says whose they are; required with
-    ``biases``)."""
+    ``biases``). With ``scales`` the experts are int8: the rows are
+    quantized once for the pair (JAX quantizes them once a product, to the
+    same bits) and the GLU's output once for down."""
     from llmd_tpu_torch.models.moe import expert_glu
+    from llmd_tpu_torch.ops import quant
 
-    gate, up = grouped_matmul_pair(x_sorted, we_gate, we_up, group_sizes)
+    if scales is None:
+        gate, up = grouped_matmul_pair(x_sorted, we_gate, we_up, group_sizes)
+    else:
+        xq, a_scale = quant.quantize_rows(x_sorted)
+        gate, up = grouped_matmul_q8_pair(xq, a_scale, we_gate, scales[0], we_up, scales[1],
+                                          group_sizes, x_sorted.dtype)
     if biases is not None:
         gate = gate + biases[0][expert_ids]
         up = up + biases[1][expert_ids]
-    act = expert_glu(gate, up, cfg).to(x_sorted.dtype)
-    out = grouped_matmul(act.contiguous(), we_down, group_sizes)
+    act = expert_glu(gate, up, cfg).to(x_sorted.dtype).contiguous()
+    if scales is None:
+        out = grouped_matmul(act, we_down, group_sizes)
+    else:
+        out = quant.grouped_matmul_q(act, we_down, scales[2], group_sizes)
     if biases is not None:
         out = out + biases[2][expert_ids].to(out.dtype)
     return out
@@ -251,6 +483,7 @@ def moe_apply_grouped(
     we_gate: torch.Tensor,
     we_up: torch.Tensor,
     we_down: torch.Tensor,
+    scales: tuple | None = None,
     biases: tuple | None = None,
     cfg=None,
 ) -> torch.Tensor:  # [T, H] f32
@@ -270,7 +503,7 @@ def moe_apply_grouped(
         0, flat_ids, torch.ones_like(flat_ids, dtype=torch.int32)
     )
     ys = expert_mlp_grouped(
-        xs, group_sizes, we_gate, we_up, we_down, biases=biases, cfg=cfg,
+        xs, group_sizes, we_gate, we_up, we_down, scales=scales, biases=biases, cfg=cfg,
         expert_ids=flat_ids[order] if biases is not None else None,
     )
     contrib = ys.float() * weights.reshape(-1)[order][:, None]

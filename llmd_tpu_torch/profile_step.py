@@ -2,7 +2,7 @@
 
     python -m llmd_tpu_torch.profile_step [--model llama-3-8b] [--batch 32]
         [--prompt-len 1000] [--decode-steps 16] [--decode-window 8]
-        [--kv-cache-dtype int8] [--kv-swa-ring]
+        [--kv-cache-dtype int8] [--kv-swa-ring] [--quantization int8]
 
 Serves ``--batch`` greedy requests of ``--prompt-len`` random tokens
 through ``LLMEngine`` (random weights from ``--seed``) and traces three
@@ -17,7 +17,9 @@ unified step and one-iteration decode windows; ``--model gpt-oss-20b`` runs
 its sliding and full layers on the flat step, and ``--kv-cache-dtype int8``
 puts any GQA model's KV in the int8 pool, and ``--kv-swa-ring`` puts a
 sliding-window model's sliding layers in the ring pool (its lines carry the
-pools' bytes, ``kv_bytes``, either way). Every engine runs ``warmup``
+pools' bytes, ``kv_bytes``, either way), and ``--quantization int8`` runs
+int8 weights (``ops/quant.py``: the ``quantize_rows`` kernel and K6''s int8
+branch, grouped as ``quantize_rows`` and ``grouped_gemm``). Every engine runs ``warmup``
 first, as the server does, so decode-only steps (the flat decode steps and
 every decode window) are CUDA graph replays; each line carries the
 engine's warmup seconds, the graphs it captured, the device memory it kept
@@ -63,7 +65,7 @@ _GEMM_MARKS = ("gemm", "nvjet", "cutlass", "xmma", "cublas")
 # of K6' grouped_gemm_*_kernel).
 _PORT_KERNELS = (
     "flat_paged_attention", "flat_kv_write", "decode_paged_attention",
-    "decode_kv_write", "mla_decode_attention", "grouped_gemm",
+    "decode_kv_write", "mla_decode_attention", "grouped_gemm", "quantize_rows",
 )
 
 
@@ -176,11 +178,13 @@ def main(argv=None) -> None:
                    help="KV pool dtype: the weights' (default) or int8")
     p.add_argument("--kv-swa-ring", action="store_true",
                    help="the sliding layers' KV in the ring pool (CacheConfig.swa_ring)")
+    p.add_argument("--quantization", default=None, choices=["int8"],
+                   help="int8 weights (ModelConfig.quantization)")
     args = p.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("profile_step needs a CUDA device")
     torch.backends.cuda.matmul.allow_tf32 = False
-    cfg = get_model_config(args.model)
+    cfg = get_model_config(args.model, quantization=args.quantization)
     page = 16
     # Requests prefilled early decode while later ones prefill, so each
     # runs long enough to still be decoding in both passes over its window
@@ -259,7 +263,8 @@ def main(argv=None) -> None:
     untraced = {"prefill": time_steps(prefilling(loaded_engine("prefill")), 1)}
     for name, (eng, n) in steps.items():
         untraced[name] = time_steps(eng, n)
-    staging = staging_us(steps["decode"][0])
+    # An MLA engine has no flat step to stage.
+    staging = staging_us(steps["decode"][0]) if steps["decode"][0].runner.flat else None
     windows = {"prefill": trace_steps(prefilling(loaded_engine("prefill")), 1, untraced["prefill"][0])}
     for name, (eng, n) in steps.items():
         windows[name] = trace_steps(eng, n, untraced[name][0])
@@ -267,11 +272,11 @@ def main(argv=None) -> None:
         replays = {str(k): n for k, n in steps[name][0].runner.programs.runs.items()} if name in steps else {}
         print(json.dumps({"window": name, "model": args.model, "batch": args.batch,
                           "kv_cache_dtype": args.kv_cache_dtype or cfg.dtype,
-                          "kv_swa_ring": args.kv_swa_ring,
+                          "kv_swa_ring": args.kv_swa_ring, "quantization": args.quantization,
                           "prompt_len": args.prompt_len, "card": card, **warmups[name],
                           "graph_replays": replays,
                           "untraced_host_gap_ms_per_step": untraced[name][1],
-                          **({"host_staging": staging} if name == "decode" else {}), **w}),
+                          **({"host_staging": staging} if name == "decode" and staging else {}), **w}),
               flush=True)
 
 

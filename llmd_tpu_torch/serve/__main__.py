@@ -6,7 +6,8 @@ its default (``--model``, ``--served-model-name``, ``--tokenizer``,
 ``--block-size``, ``--num-gpu-blocks-override``,
 ``--no-enable-prefix-caching``, ``--kv-swa-ring``, ``--max-num-seqs``,
 ``--max-num-batched-tokens``, ``--decode-window``, ``--unified-step``,
-``--ragged-qlens``, ``--seed``, ``--skip-warmup``, and the tracing flags
+``--ragged-qlens``, ``--seed``, ``--skip-warmup``, ``--quantization int8``
+(int8 weights, ``ops/quant.py``), and the tracing flags
 ``--otlp-traces-endpoint``, ``--trace-file`` and ``--trace-sample-ratio``,
 which the chart passes when tracing is on). ``--model`` is a
 registry name, whose weights are random, drawn on the device from
@@ -71,6 +72,12 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument(
         "--dtype", default=None,
         help="weights and KV pool dtype (default: the model's)",
+    )
+    p.add_argument(
+        "--quantization", default=None, choices=["int8"],
+        help="weight quantization: int8 W8A8 (per-output-channel int8 "
+             "weights, per-token int8 activations, int8 products through "
+             "the int8 branch of the grouped GEMM kernel)",
     )
     p.add_argument(
         "--kv-cache-dtype", default=None,
@@ -138,6 +145,8 @@ def make_engine_config(args):
         overrides["max_model_len"] = args.max_model_len
     if args.dtype is not None:
         overrides["dtype"] = args.dtype
+    if args.quantization:
+        overrides["quantization"] = args.quantization
     weights_path, tokenizer_path = args.weights_path, args.tokenizer
     if is_model_dir(args.model):
         model = config_from_hf(args.model, **overrides)

@@ -466,6 +466,10 @@ def test_engine_on_the_card_matches_the_cpu_engine(dev, layout):
         "mla_decode_paged_attention_full": 0,
         "grouped_matmul": 0,
         "grouped_matmul_pair": 0,
+        "quantize_rows": 0,
+        "matmul_q8": 0,
+        "grouped_matmul_q8": 0,
+        "grouped_matmul_q8_pair": 0,
     }
     assert (flat_steps > 0) == (layout in ("flat", "flat_window"))
     assert (sum(ks) > 0) == (layout != "flat")
@@ -552,6 +556,108 @@ def test_grouped_gemm_pair_matches_two_plain_calls(dev, dtype, layout):
         torch.testing.assert_close(g.float(), w.float(), atol=atol, rtol=rtol)
     assert ops.launch_counts()["grouped_matmul_pair"] == 1
     assert ops.launch_counts()["grouped_matmul"] == 0
+
+
+# int8 branch of K6' (W8A8): the layouts above whose K and N are multiples
+# of 16 (what the branch takes), and N and K that are not multiples of its
+# 128-column tiles and 128-byte K slices (gpt-oss's 2,880), llama-3-8b's
+# down projection's K = 14,336 at a decode step, deepseek's 1,408-wide
+# experts.
+Q8_GROUPS = {
+    **{name: g for name, g in GROUPS.items() if g[1] % 16 == 0 and g[2] % 16 == 0},
+    "k2880_n1408": (tuple(int(x) for x in np.random.default_rng(3).integers(0, 9, 64)), 2880, 1408),
+    "down_14336_decode": ((32,), 14336, 256),
+}
+
+
+def q8_inputs(rng, dev, sizes, K, N, dtype, weights=1):
+    """Rows quantized by the plain version, int8 weights and their scales."""
+    from llmd_tpu_torch.ops import quant
+
+    M, G = sum(sizes), len(sizes)
+    x = torch.from_numpy(rng.normal(size=(M, K)).astype(np.float32)).to(dev, dtype)
+    xq, a_scale = quant.quantize_rows_plain(x)
+    ws = []
+    for _ in range(weights):
+        w = torch.from_numpy(rng.normal(size=(G, K, N)).astype(np.float32)).to(dev)
+        ws += list(quant.quantize_weight(w))
+    gs = torch.tensor(sizes, dtype=torch.int32, device=dev)
+    return xq, a_scale, ws, gs
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("layout", sorted(Q8_GROUPS))
+def test_int8_gemm_kernel_is_bit_equal_to_plain(dev, dtype, layout):
+    """K6''s int8 branch: s32 sums (exact in any order) and the epilogue
+    (f32(acc) * a_scale) * w_scale rounded once, so bit-equal to the plain
+    version in every output type, grouped and as the dense one-group form."""
+    sizes, K, N = Q8_GROUPS[layout]
+    xq, a_scale, (w, ws), gs = q8_inputs(np.random.default_rng(21), dev, sizes, K, N, dtype)
+    ops.reset_launch_counts()
+    got = ops.grouped_matmul_q8(xq, a_scale, w, ws, gs, dtype)
+    want = ops.grouped_matmul_q8_plain(xq, a_scale, w, ws, gs, dtype)
+    torch.cuda.synchronize()
+    assert got.dtype == dtype and got.shape == (sum(sizes), N)
+    assert torch.equal(got, want)
+    assert ops.launch_counts()["grouped_matmul_q8"] == 1
+    dense = ops.matmul_q8(xq, a_scale, w[0], ws[0], dtype)
+    torch.cuda.synchronize()
+    assert torch.equal(dense, ops.matmul_q8_plain(xq, a_scale, w[0], ws[0], dtype))
+    assert ops.launch_counts()["matmul_q8"] == 1
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("layout", ["spread", "k2880_n1408", "decode_128_over_32"])
+def test_int8_gemm_pair_is_bit_equal_to_plain(dev, dtype, layout):
+    sizes, K, N = Q8_GROUPS[layout]
+    xq, a_scale, (wa, sa, wb, sb), gs = q8_inputs(np.random.default_rng(22), dev, sizes, K, N, dtype, 2)
+    ops.reset_launch_counts()
+    got = ops.grouped_matmul_q8_pair(xq, a_scale, wa, sa, wb, sb, gs, dtype)
+    want = ops.grouped_matmul_q8_pair_plain(xq, a_scale, wa, sa, wb, sb, gs, dtype)
+    torch.cuda.synchronize()
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    assert ops.launch_counts()["grouped_matmul_q8_pair"] == 1
+    assert ops.launch_counts()["grouped_matmul_q8"] == 0
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("M,K", [(1, 16), (5, 4096), (300, 2880), (33, 14336)])
+def test_quantize_rows_kernel_is_bit_equal_to_plain(dev, dtype, M, K):
+    """``quantize_rows``: the amax, the IEEE divides and round-half-even
+    equal the plain version's; rows of zeros, ties and the clamp included."""
+    rng = np.random.default_rng(23)
+    x = rng.normal(size=(M, K)).astype(np.float32) * rng.uniform(1e-3, 1e2, size=(M, 1))
+    x[0, :3] = [0.5, -0.5, 2.5]
+    if M > 1:
+        x[1] = 0.0
+    x = torch.from_numpy(x.astype(np.float32)).to(dev, dtype)
+    ops.reset_launch_counts()
+    xq, s = ops.quantize_rows(x)
+    wq, ws = ops.quantize_rows_plain(x)
+    torch.cuda.synchronize()
+    assert torch.equal(xq, wq) and torch.equal(s, ws)
+    assert ops.launch_counts()["quantize_rows"] == 1
+
+
+def test_int8_wrappers_refuse_what_the_kernels_do_not_take(dev):
+    from llmd_tpu_torch.ops import quant
+
+    xq = torch.zeros((4, 24), dtype=torch.int8, device=dev)
+    s = torch.ones(4, device=dev)
+    w, ws = torch.zeros((1, 24, 32), dtype=torch.int8, device=dev), torch.ones((1, 32), device=dev)
+    with pytest.raises(ValueError, match="multiples of 16"):
+        ops.grouped_matmul_q8(xq, s, w, ws, torch.tensor([4], dtype=torch.int32, device=dev),
+                              torch.bfloat16)
+    xq = torch.zeros((4, 32), dtype=torch.int8, device=dev)
+    w = torch.zeros((2, 32, 32), dtype=torch.int8, device=dev)
+    with pytest.raises(ValueError, match="one group"):
+        grouped_gemm._check_q8(xq, s, (w,), (torch.ones((2, 32), device=dev),), None, torch.bfloat16)
+    with pytest.raises(ValueError, match="int8"):
+        ops.matmul_q8(xq, s, w[0].float(), ws[0], torch.bfloat16)
+    with pytest.raises(ValueError, match="multiple of 16"):
+        quant.quantize_rows(torch.zeros((2, 24), device=dev))
+    with pytest.raises(ValueError, match="contiguous"):
+        quant.quantize_rows(torch.zeros((2, 64), device=dev)[:, :32])
 
 
 def latent_step(rng, page, kv_lens, L, Dl):

@@ -266,6 +266,19 @@ def test_config_fields_match_jax_for_each_window_convention(tmp_path):
             assert getattr(port, f.name) == getattr(ref, f.name), (hf, f.name)
 
 
+def test_int8_tree_matches_jax(saved):
+    """``quantization="int8"``: the port's ``load_params`` (each leaf
+    quantized as it is mapped) equals the runner's form of the JAX loader's
+    int8 tree (``quantize_param_tree_host`` of the float tree, then fused
+    with its scales), bit for bit."""
+    port_cfg = loader.config_from_hf(saved.model_dir, dtype="float32", quantization="int8")
+    ref_cfg = jloader.config_from_hf(saved.model_dir, dtype="float32", quantization="int8")
+    want = runner_form(ref_cfg, jloader.load_params(ref_cfg, saved.model_dir))
+    got = loader.load_params(port_cfg, saved.model_dir, device="cpu")
+    assert_trees_equal(got, want)
+    assert got["layers"]["wo"].dtype == torch.int8 and "wo_scale" in got["layers"]
+
+
 def test_missing_tensor_and_unported_fields_raise(tmp_path):
     model = transformers.LlamaForCausalLM(transformers.LlamaConfig(
         vocab_size=64, hidden_size=32, intermediate_size=64, num_hidden_layers=1,
@@ -277,8 +290,6 @@ def test_missing_tensor_and_unported_fields_raise(tmp_path):
         jloader.load_params(jloader.config_from_hf(d, num_layers=2), d)
     with pytest.raises(KeyError, match="model.layers.1"):
         loader.load_params(loader.config_from_hf(d, num_layers=2), d, device="cpu")
-    with pytest.raises(ValueError, match="queue 1 item 3"):
-        loader.config_from_hf(d, quantization="int8")
     with pytest.raises(ValueError, match="queue 1 item 8"):
         loader.config_from_hf(d, num_lora_adapters=2)
     with pytest.raises(FileNotFoundError):

@@ -425,6 +425,8 @@ def test_cpu_entry_points_run_the_plain_versions():
         "write_kv_pages_decode_full": 0, "decode_paged_attention_full": 0,
         "mla_decode_paged_attention_full": 0, "grouped_matmul": 0,
         "grouped_matmul_pair": 0,
+        "quantize_rows": 0, "matmul_q8": 0, "grouped_matmul_q8": 0,
+        "grouped_matmul_q8_pair": 0,
     }
 
 
@@ -466,7 +468,7 @@ def test_kernel_sources_are_built_from_the_package(tmp_path, monkeypatch):
 
     assert _build.sources() == [
         "decode_kv_write", "decode_paged_attention", "flat_kv_write",
-        "flat_paged_attention", "grouped_gemm", "mla_decode_attention",
+        "flat_paged_attention", "grouped_gemm", "mla_decode_attention", "quantize_rows",
     ]
     assert "arch=compute_90a,code=sm_90a" in _build.NVCC_FLAGS
     # The header both attention kernels include is part of each library's

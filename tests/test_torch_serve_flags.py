@@ -96,8 +96,10 @@ def assert_same_fields(port, ref, where=""):
     ["--model", "deepseek-v2-lite", "--no-unified-step", "--decode-window", "4", "--seed", "3"],
     ["--model", "HF_DIR", *CHART],
     ["--model", "HF_DIR", "--tokenizer", "/tok", *GEOMETRY[:-2]],
+    ["--model", "llama-3-8b", *CHART, "--quantization=int8"],
+    ["--model", "HF_DIR", "--quantization", "int8"],
 ], ids=["registry-defaults", "chart", "chart-geometry", "ring", "layout", "hf-dir-chart",
-        "hf-dir-tokenizer"])
+        "hf-dir-tokenizer", "int8", "hf-dir-int8"])
 def test_same_argv_same_engine_config(tmp_path, argv):
     """Both parsers take the argv, and both ``make_engine_config``s give the
     same model, cache, scheduler, seed, weights and tokenizer; the port's
@@ -131,7 +133,7 @@ def test_defaults_and_aliases():
     jcfg = jserve.make_engine_config(jserve.build_parser().parse_args(["--model", "tiny"]))
     assert (cfg.cache.dtype, jcfg.cache.dtype) == ("float32", "bfloat16")
     # The chart's flags that wait for their own items are still refused.
-    for flag in ("--tensor-parallel-size=1", "--kv-events-endpoint=tcp://x:1", "--quantization=int8"):
+    for flag in ("--tensor-parallel-size=1", "--kv-events-endpoint=tcp://x:1"):
         with pytest.raises(SystemExit):
             serve.build_parser().parse_args([flag])
 
@@ -286,7 +288,7 @@ def test_server_configures_tracing_from_its_flags(monkeypatch, tmp_path, flags, 
 
 
 def test_chart_flags_of_later_items_are_still_refused():
-    for flag in ("--quantization=int8", "--tensor-parallel-size=1", "--kv-events-endpoint=tcp://x:1",
+    for flag in ("--tensor-parallel-size=1", "--kv-events-endpoint=tcp://x:1",
                  "--kv-transfer-config={}", "--advertised-address=10.0.0.1:8000"):
         with pytest.raises(SystemExit):
             serve.build_parser().parse_args(["--model", "tiny", flag])

@@ -52,10 +52,12 @@ through an HF checkpoint):
 3d. ``quant_kernels`` int8 weights (W8A8): K6''s int8 branch as llama-3-8b's
                dense products (q|k|v, o, gate|up, down, lm_head; G = 1) at
                decode steps of 32 and 64 rows and a 1,024-token prefill,
-               the down projection's split K beside it unsplit, and as the
-               experts of deepseek-v2-lite and gpt-oss-20b (pair and down,
-               decode and prefill); ``quantize_rows`` on the rows before
-               them. Each bit-equal to its plain version, timed beside its
+               qwen3-32b's at a 32-row decode step, deepseek-v2-lite's
+               dense-layer down at a 128-token step, and as the experts of
+               deepseek-v2-lite and gpt-oss-20b (pair and down, decode and
+               prefill), each row with the form ``q8_plan`` gave it (K-major
+               int8 weights); ``quantize_rows`` on the rows before them.
+               Each bit-equal to its plain version, timed beside its
                bound (bytes, or int8 operations at 1,979 TOP/s), the plain
                version and, for a dense product, ``torch._int_mm`` plus the
                plain epilogue (no PyTorch call computes a grouped int8
@@ -156,7 +158,10 @@ through an HF checkpoint):
     qwen3-32b (64 layers, 65.5 GB of bf16 weights) at full width and
     depth: ``runner_init`` (peak device memory of a runner drawing the tree
     from the seed, as in 5b), then ``engine`` on the flat step and as the
-    split engine with windows of 8, as in 5, on a 1,024-page pool.
+    split engine with windows of 8, as in 5, on a 1,024-page pool; then
+    its int8 tree (32.8 GB, drawn from the same seed a layer at a time)
+    through ``runner_init`` and ``engine`` on the flat step, whose int8
+    launches are the qwen3-32b rows' of 3d.
 12. ``serve``  ``python -m llmd_tpu_torch.serve`` answering three
                ``/v1/completions`` requests (one streamed), then a second
                server with ``--no-unified-step --decode-window 4`` whose
@@ -3804,8 +3809,9 @@ def qwen_phases() -> dict:
     (its peak device memory held to the tree and pool plus 2 GB), then the
     8 requests on the flat step and as the split engine with windows of 8
     (``engine_phase``: launches per K1'-K4' branch, graph replays, one
-    readback a step, decode ms). Returns each layout's branch launch
-    counts."""
+    readback a step, decode ms), then the int8 tree's runner and flat
+    step engine. Returns each layout's branch launch counts and the int8
+    engine's launch counts."""
     from llmd_tpu_torch.config import CacheConfig, EngineConfig
     from llmd_tpu_torch.models.registry import get_model_config
 
@@ -3818,7 +3824,17 @@ def qwen_phases() -> dict:
         with phase("engine", {"model": QWEN_MODEL, "layout": layout}) as info:
             _, runs[layout], _, _ = engine_phase(info, params, QWEN_MODEL, num_blocks=QWEN_BLOCKS)
     del params
-    return runs
+    gc.collect()
+    torch.cuda.empty_cache()
+    with phase("runner_init", {"model": QWEN_MODEL, "quantization": "int8"}) as info:
+        params = runner_init_memory(info, EngineConfig(
+            model=get_model_config(QWEN_MODEL, quantization="int8"),
+            cache=CacheConfig(page_size=16, num_blocks=QWEN_BLOCKS), seed=0))
+    with phase("engine", {"model": QWEN_MODEL, "layout": "flat step", "quantization": "int8"}) as info:
+        q8_counts, _, _, _ = engine_phase(info, params, QWEN_MODEL, num_blocks=QWEN_BLOCKS,
+                                          quantization="int8")
+    del params
+    return runs, q8_counts
 
 
 # --------------------------------------------------------------------- #
@@ -3826,7 +3842,7 @@ def qwen_phases() -> dict:
 
 INT8_OPS_PER_S = 1979e12  # H100 SXM dense int8 tensor-core peak (NVIDIA data sheet)
 F32_OPS_PER_S = 67e12  # H100 SXM f32 outside the tensor cores (the same sheet)
-Q8_SOURCE = {"route": "cuda", "source": "llmd_tpu_torch/ops/csrc/grouped_gemm.cu",
+Q8_SOURCE = {"route": "cuda", "source": "llmd_tpu_torch/ops/csrc/grouped_gemm_s8.cu",
              "replaces": "llmd_tpu/ops/grouped_gemm.py:43 (K6'); int8 branch of "
                          "llmd_tpu/ops/quant.py:125 qdot, :164 grouped_matmul_q (XLA in JAX)"}
 QR_SOURCE = {"route": "cuda", "source": "llmd_tpu_torch/ops/csrc/quantize_rows.cu",
@@ -3893,12 +3909,14 @@ def q8_row(kernel, plain, nbytes: float, ops: float, library=None,
 
 
 def int_mm_yardstick(xq, a_scale, w, w_scale):
-    """``torch._int_mm`` and the plain epilogue, where this torch takes the
-    shapes (it refuses 16 rows or fewer); (fn, name) or (None, why)."""
+    """``torch._int_mm`` and the plain epilogue on the K-major weight w
+    ``[N, K]`` (as its column-major ``[K, N]`` view, else a row-major copy),
+    where this torch takes the shapes (it refuses 16 rows or fewer); (fn,
+    name) or (None, why)."""
     from llmd_tpu_torch.ops import grouped_gemm
 
-    for b, name in ((w, "torch._int_mm + epilogue"),
-                    (w.t().contiguous().t(), "torch._int_mm (w column-major) + epilogue")):
+    for b, name in ((w.t(), "torch._int_mm (w column-major) + epilogue"),
+                    (w.t().contiguous(), "torch._int_mm + epilogue")):
         try:
             torch._int_mm(xq, b)
             torch.cuda.synchronize()
@@ -3910,27 +3928,27 @@ def int_mm_yardstick(xq, a_scale, w, w_scale):
     return None, f"torch._int_mm refused M={xq.shape[0]}: {why}"
 
 
+def q8_plan_of(M: int, G: int, N: int, K: int, pair: bool, dev) -> dict:
+    """The form ``q8_plan`` gives a product, as a row's fields."""
+    from llmd_tpu_torch.ops import grouped_gemm
+
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    plan = grouped_gemm.q8_plan(M, G, N, K, sms, pair)
+    return {"form": "swap-AB" if plan.swap else "prefill", "tile": [plan.rows, plan.cols]}
+
+
 def q8_dense_case(M: int, K: int, N: int, g, dev) -> dict:
     """K6''s int8 branch as one dense product (G = 1: a projection or
-    lm_head), xq [M, K] and w [K, N] int8, bf16 out."""
+    lm_head), xq [M, K] and w [N, K] int8 (K-major), bf16 out."""
     from llmd_tpu_torch.ops import grouped_gemm
 
     xq, a_scale = rand_q8((M, K), g, dev), torch.rand(M, generator=g, device=dev) / 127
-    w, w_scale = rand_q8((K, N), g, dev), torch.rand(N, generator=g, device=dev) / 127
+    w, w_scale = rand_q8((N, K), g, dev), torch.rand(N, generator=g, device=dev) / 127
     kernel = lambda: (grouped_gemm.matmul_q8(xq, a_scale, w, w_scale, torch.bfloat16),)  # noqa: E731
     plain = lambda: (grouped_gemm.matmul_q8_plain(xq, a_scale, w, w_scale, torch.bfloat16),)  # noqa: E731
     row = q8_row(kernel, plain, M * K + 4 * M + K * N + 4 * N + 2 * M * N, 2.0 * M * K * N,
                  int_mm_yardstick(xq, a_scale, w, w_scale))
-    sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    items = -(-M // grouped_gemm.TILES[grouped_gemm.tile_choice(M, 1)][0]) * -(-N // 128)
-    row.update(M=M, K=K, N=N, splits=grouped_gemm.q8_splits(items, K, sms))
-    if row["splits"] > 1:  # the same product unsplit, for the split's worth
-        orig = grouped_gemm.q8_splits
-        grouped_gemm.q8_splits = lambda *a: 1
-        try:
-            row["unsplit_ms"] = device_ms(kernel)
-        finally:
-            grouped_gemm.q8_splits = orig
+    row.update(M=M, K=K, N=N, **q8_plan_of(M, 1, N, K, False, dev))
     del xq, w
     torch.cuda.empty_cache()
     return row
@@ -3945,7 +3963,7 @@ def q8_grouped_case(T: int, E: int, k: int, K: int, N: int, pair: bool, gen, g, 
     gs = routed_group_sizes(T, E, k, gen).to(dev)
     M = T * k
     xq, a_scale = rand_q8((M, K), g, dev), torch.rand(M, generator=g, device=dev) / 127
-    ws = [(rand_q8((E, K, N), g, dev), torch.rand((E, N), generator=g, device=dev) / 127)
+    ws = [(rand_q8((E, N, K), g, dev), torch.rand((E, N), generator=g, device=dev) / 127)
           for _ in range(2 if pair else 1)]
     if pair:
         (wa, sa), (wb, sb) = ws
@@ -3963,7 +3981,7 @@ def q8_grouped_case(T: int, E: int, k: int, K: int, N: int, pair: bool, gen, g, 
     row = q8_row(kernel, plain, nbytes, 2.0 * nw * M * K * N,
                  (None, "none: no single PyTorch call computes a grouped int8 product"))
     row.update(M=M, experts=E, live_experts=live, K=K, N=N, weights=nw,
-               tiles=grouped_gemm.TILES[grouped_gemm.tile_choice(M, E)])
+               **q8_plan_of(M, E, N, K, pair, dev))
     del xq, ws
     torch.cuda.empty_cache()
     return row
@@ -3987,7 +4005,9 @@ def quant_kernels_phase(info: dict) -> dict:
     at 3.35 TB/s, int8 operations at 1,979 TOP/s), the plain version and,
     for a dense product, ``torch._int_mm`` plus the plain epilogue: llama-3-8b's
     dense products at decode steps of 32 and 64 rows and a 1,024-token
-    prefill (the down projection's split K beside it unsplit), the experts
+    prefill, qwen3-32b's at a 32-row decode step, deepseek-v2-lite's
+    dense-layer down (K 10,944) at a 128-token step (16 items: the
+    longest contraction over the fewest items), the experts
     of deepseek-v2-lite (48-token decode, 1,024-token prefill) and
     gpt-oss-20b (32-token decode, 1,024-token prefill), and the rows
     quantized before those products. Returns the kernel table's rows."""
@@ -4007,9 +4027,20 @@ def quant_kernels_phase(info: dict) -> dict:
         "prefill 1024 tokens, wqkv": (1024, H, qkv), "prefill 1024 tokens, w_gu": (1024, H, 2 * F),
         "prefill 1024 tokens, w_down": (1024, F, H),
     }
+    qwen = get_model_config(QWEN_MODEL)
+    qH, qF = qwen.hidden_size, qwen.intermediate_size
+    qq = qwen.num_heads * qwen.head_dim
+    dense_cases.update({
+        "qwen3-32b decode 32 rows, wqkv": (32, qH, qq + 2 * qwen.num_kv_heads * qwen.head_dim),
+        "qwen3-32b decode 32 rows, wo": (32, qq, qH),
+        "qwen3-32b decode 32 rows, w_gu": (32, qH, 2 * qF),
+        "qwen3-32b decode 32 rows, w_down": (32, qF, qH),
+    })
+    ds, oss = get_model_config(DS_MODEL), get_model_config(OSS_MODEL)
+    dense_cases["deepseek-v2-lite dense layer, prefill 128 rows, w_down"] = (
+        128, ds.intermediate_size, ds.hidden_size)
     dense = {name: q8_dense_case(*c, g, dev) for name, c in dense_cases.items()}
     info["dense"] = dense
-    ds, oss = get_model_config(DS_MODEL), get_model_config(OSS_MODEL)
     dsk, ossk = (ds.num_experts, ds.num_experts_per_tok), (oss.num_experts, oss.num_experts_per_tok)
     grouped_cases = {
         "deepseek-v2-lite decode 48 rows, gate|up pair": (48, *dsk, ds.hidden_size, ds.moe_intermediate_size, True),
@@ -4033,7 +4064,7 @@ def quant_kernels_phase(info: dict) -> dict:
         "grouped_gemm_s8@dense decode 32, wqkv": (dense, "decode 32 rows, wqkv", Q8_SOURCE, "matmul_q8", MODEL),
         "grouped_gemm_s8@dense decode 32, wo": (dense, "decode 32 rows, wo", Q8_SOURCE, "matmul_q8", MODEL),
         "grouped_gemm_s8@dense decode 32, w_gu": (dense, "decode 32 rows, w_gu", Q8_SOURCE, "matmul_q8", MODEL),
-        "grouped_gemm_s8@dense decode 32, w_down (split K)": (
+        "grouped_gemm_s8@dense decode 32, w_down": (
             dense, "decode 32 rows, w_down", Q8_SOURCE, "matmul_q8", MODEL),
         "grouped_gemm_s8@dense decode 32, lm_head": (
             dense, "decode 32 rows, lm_head", Q8_SOURCE, "matmul_q8", MODEL),
@@ -4042,6 +4073,12 @@ def quant_kernels_phase(info: dict) -> dict:
             dense, "prefill 1024 tokens, w_gu", Q8_SOURCE, "matmul_q8", MODEL),
         "grouped_gemm_s8@dense prefill 1024, w_down": (
             dense, "prefill 1024 tokens, w_down", Q8_SOURCE, "matmul_q8", MODEL),
+        **{f"grouped_gemm_s8@qwen3-32b dense decode 32, {leaf}": (
+            dense, f"qwen3-32b decode 32 rows, {leaf}", Q8_SOURCE, "matmul_q8", QWEN_MODEL)
+           for leaf in ("wqkv", "wo", "w_gu", "w_down")},
+        "grouped_gemm_s8@deepseek dense prefill 128, w_down": (
+            dense, "deepseek-v2-lite dense layer, prefill 128 rows, w_down", Q8_SOURCE, "matmul_q8",
+            DS_MODEL),
         "grouped_gemm_s8_pair@deepseek decode": (
             grouped, "deepseek-v2-lite decode 48 rows, gate|up pair", Q8_SOURCE,
             "grouped_matmul_q8_pair", DS_MODEL),
@@ -4064,7 +4101,7 @@ def quant_kernels_phase(info: dict) -> dict:
             quantized, "prefill 1024 tokens x 4096", QR_SOURCE, "quantize_rows", MODEL),
     }
     return {name: {"name": name, **src, "wrapper": wrapper, "model": f"{model} int8", "shape": case,
-                   **{k: cases[case][k] for k in Q8_KEYS}}
+                   **{k: cases[case][k] for k in (*Q8_KEYS, "form", "tile") if k in cases[case]}}
             for name, (cases, case, src, wrapper, model) in table.items()}
 
 
@@ -4370,7 +4407,7 @@ def main() -> int:
     del params
     gc.collect()
     torch.cuda.empty_cache()
-    qwen_runs = qwen_phases()
+    qwen_runs, q8_counts[QWEN_MODEL] = qwen_phases()
     gc.collect()
     torch.cuda.empty_cache()
     sink = OtlpSink()

@@ -22,7 +22,9 @@ large projections stay ``torch.matmul``, as the JAX package leaves them to
 XLA.
 
 int8 weights (``cfg.quantization == "int8"``, ``ops/quant.py``): the
-``QUANT_NAMES`` leaves are int8 with a ``<name>_scale`` f32 sibling, and
+``QUANT_NAMES`` leaves are int8, stored K-major (``[..., out, in]``, the
+layout s8 ``wgmma`` reads; the float leaves and JAX's int8 ones are
+``[..., in, out]``), with a ``<name>_scale`` f32 sibling, and
 every projection goes through ``pdot``, which takes the int8 product
 (``qdot``: ``quantize_rows`` and K6''s int8 branch) where the scale is
 there; a tied head stays ``embed.T`` in the float dtype, as in JAX.
@@ -59,8 +61,9 @@ def init_params(
     unfused, as the runner leaves them. With ``cfg.quantization ==
     "int8"`` every ``QUANT_NAMES`` leaf is quantized one layer at a time as
     it is drawn (``ops.quant.quantize_weight_into``, column blocks of a
-    fused leaf apart): the tree is ``quantize_param_tree`` of the float
-    draw, bit for bit, and the float tree is never whole on the device."""
+    fused leaf apart) into a K-major int8 leaf (``[..., out, in]``): the
+    tree is ``quantize_param_tree`` of the float draw, bit for bit, and the
+    float tree is never whole on the device."""
     fused = fused and not cfg.is_mla
     q8 = cfg.quantization == "int8"
     dt = getattr(torch, cfg.dtype)
@@ -91,10 +94,12 @@ def init_params(
             return out
 
         def empty(shape, name):
-            """(leaf, scales or None) to draw ``name`` [n, *shape] into."""
+            """(leaf, scales or None) to draw ``name`` [n, *shape] into;
+            under int8 the leaf is K-major, [n, *shape[:-2], out, in]."""
             if not (q8 and name in QUANT_NAMES):
                 return torch.empty((n, *shape), dtype=dt, device=device), None
-            return (torch.empty((n, *shape), dtype=torch.int8, device=device),
+            kn = (*shape[:-2], shape[-1], shape[-2])
+            return (torch.empty((n, *kn), dtype=torch.int8, device=device),
                     torch.empty((n, *shape[:-2], shape[-1]), dtype=torch.float32, device=device))
 
         def weight(name, shape):
@@ -105,7 +110,8 @@ def init_params(
 
         def stacked_columns(shapes, fused_name):
             """Leaves of ``shapes`` ([in, out_j] each), drawn in order:
-            apart, or as column blocks of one ``fused_name`` leaf."""
+            apart, or as column blocks of one ``fused_name`` leaf (row
+            blocks of a K-major int8 one)."""
             if not fused:
                 return {k: v for name, shape in shapes for k, v in weight(name, shape).items()}
             width = sum(shape[-1] for _, shape in shapes)
@@ -113,7 +119,10 @@ def init_params(
             c = 0
             for _, shape in shapes:
                 cols = slice(c, c + shape[-1])
-                stacked(shape, out=out[..., cols], scales=None if scales is None else scales[..., cols])
+                if scales is None:
+                    stacked(shape, out=out[..., cols])
+                else:
+                    stacked(shape, out=out[..., cols, :], scales=scales[..., cols])
                 c += shape[-1]
             return {fused_name: out} if scales is None else {fused_name: out, fused_name + "_scale": scales}
 
@@ -187,7 +196,7 @@ def init_params(
     if not cfg.tie_word_embeddings:
         head = normal((H, V), H**-0.5)
         if q8:
-            params["lm_head"] = torch.empty((H, V), dtype=torch.int8, device=device)
+            params["lm_head"] = torch.empty((V, H), dtype=torch.int8, device=device)
             params["lm_head_scale"] = torch.empty((V,), dtype=torch.float32, device=device)
             quantize_weight_into(head, params["lm_head"], params["lm_head_scale"])
         else:
@@ -199,12 +208,13 @@ def fuse_projections(params: dict) -> dict:
     """q|k|v -> ``wqkv`` and gate|up -> ``w_gu`` in ``layers`` and
     ``dense_layers`` (the JAX runner's ``_fuse_projection_tree``): one
     matmul where there were three or two. Exact: each output column is the
-    same dot product; int8 leaves carry their per-column scales along
-    (``wqkv_scale``, ``w_gu_scale``), so the fused int8 product equals the
-    separate ones bit for bit. The biases ``bq``, ``bk``, ``bv`` stay separate
-    leaves, as in JAX. The ``sinks`` leaf becomes f32 once here, the type
-    the attention kernels read, rather than on every attention call. The
-    runner skips it for MLA, as JAX does."""
+    same dot product; int8 leaves (K-major: joined as row blocks) carry
+    their per-column scales along (``wqkv_scale``, ``w_gu_scale``), so the
+    fused int8 product equals the separate ones bit for bit. The biases
+    ``bq``, ``bk``, ``bv`` stay separate leaves, as in JAX. The ``sinks``
+    leaf becomes f32 once here, the type the attention kernels read, rather
+    than on every attention call. The runner skips it for MLA, as JAX
+    does."""
     out = dict(params)
     for key in ("layers", "dense_layers"):
         if key not in out:
@@ -212,7 +222,8 @@ def fuse_projections(params: dict) -> dict:
         layers = dict(out[key])
         for names, fused in ((("wq", "wk", "wv"), "wqkv"), (("w_gate", "w_up"), "w_gu")):
             if all(n in layers for n in names):
-                layers[fused] = torch.cat([layers.pop(n) for n in names], dim=-1)
+                parts = [layers.pop(n) for n in names]
+                layers[fused] = torch.cat(parts, dim=-2 if parts[0].dtype == torch.int8 else -1)
                 if all(f"{n}_scale" in layers for n in names):
                     layers[f"{fused}_scale"] = torch.cat(
                         [layers.pop(f"{n}_scale") for n in names], dim=-1)
@@ -231,14 +242,18 @@ def _to_torch(a) -> torch.Tensor:
 
 def params_from_jax(tree: dict, device: str | torch.device = "cpu") -> dict:
     """The JAX parameter tree (leaves as numpy arrays, fused or unfused,
-    float or int8 with their scales) as the port's tensors: the layouts are
-    the same, so this is a copy."""
+    float or int8 with their scales) as the port's tensors: a copy, but for
+    the int8 leaves beside a ``<name>_scale``, which JAX keeps ``[..., in,
+    out]`` and the port K-major, so they are transposed."""
     out = {}
     for name, leaf in tree.items():
         if isinstance(leaf, dict):
             out[name] = params_from_jax(leaf, device)
         else:
-            out[name] = _to_torch(leaf).to(device)
+            t = _to_torch(leaf)
+            if t.dtype == torch.int8 and name + "_scale" in tree:
+                t = t.mT.contiguous()
+            out[name] = t.to(device)
     return out
 
 

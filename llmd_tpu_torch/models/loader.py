@@ -6,8 +6,10 @@ The port of ``llmd_tpu/models/loader.py`` (``config_from_hf``,
 is the JAX package's:
 
   - HF linear weights are ``[out, in]`` and applied as ``x @ W.T``; the
-    tree's are ``[in, out]`` applied as ``x @ W``, so every projection is
-    transposed on load.
+    tree's float ones are ``[in, out]`` applied as ``x @ W``, so every
+    float projection is transposed on load. The port's int8 leaves are
+    K-major, ``[out, in]``: an HF tensor is quantized as it lies, read
+    through its ``.T`` view a block of columns at a time.
   - HF stores one tensor a layer (``model.layers.{i}.*``); the tree's
     leaves are stacked along a leading layer axis.
   - DeepSeek checkpoints store their rope dimensions interleaved (HF
@@ -318,17 +320,19 @@ def load_params(
         dst.copy_(fn(w) if fn else w)
 
     def put_q8(dst: torch.Tensor, scale: torch.Tensor, name: str, transpose: bool, fn) -> None:
-        """``put`` into a float tensor of dst's shape, quantized into the
-        int8 ``dst`` and its ``scale``."""
-        w = torch.empty(dst.shape, dtype=dt, device=device)
-        put(w, name, transpose, fn)
-        quantize_weight_into(w, dst, scale)
+        """What ``put`` would write ([in, out], in the tree's dtype),
+        quantized into the K-major int8 ``dst`` ([out, in]) and its
+        ``scale``: an HF [out, in] tensor is read through its ``.T``."""
+        w = ckpt.get(name).to(device)
+        if transpose:
+            w = w.T
+        quantize_weight_into((fn(w) if fn else w).to(dt), dst, scale)
 
     def stack(names: list, transpose: bool = False, fn=None, dtype=None, leaf: str = ""):
         """One leaf: ``names[j]`` into ``out[j]``, or ``names[j][e]`` into
         ``out[j, e]``; ``fn`` maps each (transposed) tensor. Returns the
-        leaf, or under int8 for a ``QUANT_NAMES`` ``leaf`` the pair (int8
-        leaf, its scales)."""
+        leaf, or under int8 for a ``QUANT_NAMES`` ``leaf`` the pair (K-major
+        int8 leaf, its scales)."""
         nested = isinstance(names[0], list)
         shape = ckpt.shape(names[0][0] if nested else names[0])
         if transpose:
@@ -337,10 +341,12 @@ def load_params(
             shape = fn(torch.empty(shape, device="meta")).shape
         lead = (len(names), len(names[0])) if nested else (len(names),)
         quant = q8 and leaf in QUANT_NAMES
-        out = torch.empty((*lead, *shape), dtype=torch.int8 if quant else dtype or dt, device=device)
         scales = None
         if quant:
+            out = torch.empty((*lead, *shape[:-2], shape[-1], shape[-2]), dtype=torch.int8, device=device)
             scales = torch.empty((*lead, *shape[:-2], shape[-1]), dtype=torch.float32, device=device)
+        else:
+            out = torch.empty((*lead, *shape), dtype=dtype or dt, device=device)
         for j, row in enumerate(names):
             for e, name in enumerate(row) if nested else ((None, row),):
                 at = j if e is None else (j, e)
@@ -357,14 +363,16 @@ def load_params(
 
     def projections(parts: dict[str, list[str]], fused_name: str) -> dict:
         """Transposed projections side by side in the columns of one
-        ``fused_name`` leaf (MLA: stacked apart)."""
+        ``fused_name`` leaf, or under int8 in the row blocks of a K-major
+        one (MLA: stacked apart)."""
         if cfg.is_mla:
             return {k: v for key, names in parts.items() for k, v in leaf(key, names, True).items()}
         groups = list(parts.values())
         widths = [ckpt.shape(names[0])[0] for names in groups]  # [out, in] stored
         rows = ckpt.shape(groups[0][0])[1]
         quant = q8 and next(iter(parts)) in QUANT_NAMES
-        out = torch.empty((len(groups[0]), rows, sum(widths)),
+        out = torch.empty((len(groups[0]), sum(widths), rows) if quant else
+                          (len(groups[0]), rows, sum(widths)),
                           dtype=torch.int8 if quant else dt, device=device)
         scales = torch.empty((len(groups[0]), sum(widths)), dtype=torch.float32,
                              device=device) if quant else None
@@ -372,7 +380,7 @@ def load_params(
             c = 0
             for names, w in zip(groups, widths):
                 if quant:
-                    put_q8(out[j, :, c : c + w], scales[j, c : c + w], names[j], True, None)
+                    put_q8(out[j, c : c + w], scales[j, c : c + w], names[j], True, None)
                 else:
                     put(out[j, :, c : c + w], names[j], True, None)
                 c += w

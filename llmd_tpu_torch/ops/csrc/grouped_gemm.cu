@@ -56,39 +56,7 @@
 // ceil(M / 64) + G row tiles, warp 0 of each block scanning the sizes for
 // its tile, a three-stage cp.async ring; the pair is two launches of it.
 //
-// int8 branch (W8A8; llmd_tpu/ops/quant.py:grouped_matmul_q and qdot, which
-// JAX leaves to XLA's ragged_dot and dot_general):
-// out[r, c] = rescale(xq[r, :] @ wq[g(r)][:, c]) with xq int8 [M, K] (one
-// f32 scale a row), wq int8 [G, K, N] (one f32 scale a group and column),
-// s32 accumulation (exact in any order: K * 127^2 < 2^31) and the epilogue
-// (float(acc) * a_scale[r]) * w_scale[g][c], rounded once to the output's
-// type (bf16, f16 or f32), so the branch is bit-equal to its plain version.
-// Every dense int8 product runs it with G = 1 (no group sizes: one group of
-// M rows). Bound: bytes, like the bf16 branch (the weights at half their
-// bf16 bytes). The design is the simple one:
-// - Work items as the bf16 kernel numbers them (tile_choice picks BM = 64
-//   or 128 rows from M and G, 128-column tiles, the pair's column space
-//   spanning both weight tensors), but one block an item (times the
-//   splits below): the grid is the most items there can be, and a block
-//   with none exits.
-// - Split K where there are too few items to fill the card (a dense
-//   product at a decode step has N / 128 of them: 32 for llama-3-8b's o
-//   and down projections): each of `splits` blocks of an item sums a
-//   range of K slices and stores its s32 partials in its own slice of a
-//   workspace; the item's last block, found by a counter, adds the slices
-//   in order (exact) and runs the epilogue. The launcher zeroes the
-//   counters with one memset (a graph node when captured).
-// - A ring of 128-byte K slices, loaded by one thread with TMA: x's
-//   [BM, 128] box and w's [128, 128] box (N contiguous, as the tree keeps
-//   the weights), both with the 128-byte swizzle, completion on an mbarrier
-//   a stage; the block synchronises once a slice before a stage is reused.
-// - Warps of 64 rows x 32 columns run mma.sync.m16n8k32.s32.s8.s8 (skipping
-//   16-row tiles past the item's rows). The B fragment wants four
-//   consecutive k bytes of one column, while w's rows are N contiguous: a
-//   lane loads four 32-bit words of neighbouring k rows (4 k x 4 columns)
-//   and transposes the 4 x 4 bytes with prmt; the four columns it then
-//   holds belong to four n8 tiles (column 4 n + j of the warp's 32 is
-//   column n of tile j), which the epilogue maps back.
+// The int8 branch (W8A8) is its own source, grouped_gemm_s8.cu.
 
 #include <cuda.h>
 #include <cuda_bf16.h>
@@ -101,8 +69,8 @@
 #include <tuple>
 #include <type_traits>
 
-#include "convert.cuh"
 #include "tma.cuh"
+#include "wgmma.cuh"
 
 namespace {
 
@@ -285,21 +253,11 @@ constexpr int kSmemBudget = 200 * 1024;
 
 using tma::smem_u32;
 
-// A shared-memory matrix descriptor for wgmma with the 128-byte swizzle:
-// start address, leading and stride byte offsets (16-byte units).
-__device__ __forceinline__ uint64_t smem_desc(uint32_t addr, uint32_t lbo, uint32_t sbo) {
-  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)((lbo >> 4) & 0x3FFF) << 16) |
-         ((uint64_t)((sbo >> 4) & 0x3FFF) << 32) | (1ull << 62);
-}
+using hopper::smem_desc;
+using hopper::wgmma_commit;
+using hopper::wgmma_fence;
+using hopper::wgmma_wait;
 
-__device__ __forceinline__ void wgmma_fence() { asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory"); }
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-template <int N>
-__device__ __forceinline__ void wgmma_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
-}
 // Keeps the compiler from moving accumulator registers across an async
 // wgmma (they are read and written by the tensor cores until it retires).
 __device__ __forceinline__ void fence_acc(float (&d)[64]) {
@@ -531,305 +489,10 @@ __global__ void __launch_bounds__(Wg<BM>::kThreads, 1) grouped_gemm_wgmma_kernel
 
 
 // ---------------------------------------------------------------------- //
-// int8 (W8A8): mma.sync.m16n8k32 on a TMA ring.
-
-constexpr int kS8Slice = 128;  // K bytes a stage
-constexpr int kS8TileN = 128;  // output columns an item
-
-template <int BM>
-struct S8 {
-  static constexpr int kWarps = 4 * (BM / 64);  // 64 rows x 32 columns a warp
-  static constexpr int kThreads = 32 * kWarps;
-  static constexpr int kABytes = BM * kS8Slice;
-  static constexpr int kBBytes = kS8Slice * kS8TileN;
-  static constexpr int kStageBytes = kABytes + kBBytes;
-  static constexpr int kStages = BM == 64 ? 4 : 3;  // 96 KB: two blocks an SM
-  static constexpr int kSmem = kStages * kStageBytes + 1024;  // + alignment slack
-};
-
-// Byte offset of 16-byte chunk `ch` of row `r` in a tile of 128-byte rows
-// as TMA's 128-byte swizzle lays it out (1024-byte aligned): chunk ^ (r & 7).
-__device__ __forceinline__ int swz(int r, int ch) { return r * 128 + ((ch ^ (r & 7)) << 4); }
-
-__device__ __forceinline__ void mma_s8(int (&d)[4], const uint32_t (&a)[4], uint32_t b0,
-                                       uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 {%0, %1, %2, %3}, "
-      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// Four 8 x 16-byte matrices of shared memory (lane l gives the address of
-// row l % 8 of matrix l / 8), as 16-bit elements: thread t gets elements
-// 2 (t % 4) and 2 (t % 4) + 1 of row t / 4 of each (.trans: of column t / 4,
-// rows 2 (t % 4) and 2 (t % 4) + 1).
-__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* row) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(tma::smem_u32(row)));
-}
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], const void* row) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(tma::smem_u32(row)));
-}
-
-template <typename OutT, int BM>
-__global__ void __launch_bounds__(S8<BM>::kThreads, 2) grouped_gemm_s8_kernel(
-    const __grid_constant__ CUtensorMap map_x, const __grid_constant__ CUtensorMap map_wa,
-    const __grid_constant__ CUtensorMap map_wb, OutT* __restrict__ out_a,
-    OutT* __restrict__ out_b, const float* __restrict__ a_scale, const float* __restrict__ s_a,
-    const float* __restrict__ s_b, const int32_t* __restrict__ group_sizes,
-    int32_t* __restrict__ workspace, int M, int K, int N, int G, int pair, int splits) {
-  using C = S8<BM>;
-  constexpr int S = C::kStages;
-  extern __shared__ unsigned char s8_raw[];
-  __shared__ __align__(8) uint64_t full[S];
-  __shared__ int tstart[kMaxGroups + 1], rstart[kMaxGroups + 1];
-  __shared__ int last;
-  unsigned char* smem = reinterpret_cast<unsigned char*>(
-      (reinterpret_cast<uintptr_t>(s8_raw) + 1023) & ~(uintptr_t)1023);
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-
-  if (threadIdx.x == 0) {
-    for (int s = 0; s < S; ++s) tma::mbar_init(&full[s], 1);
-    tma::mbar_init_fence();
-  }
-  if (warp == 0) {  // prefix sums of row tiles and rows over the groups
-    const unsigned kAll = 0xffffffffu;
-    int tiles = 0, rows = 0;
-    for (int base = 0; base < G; base += 32) {
-      const int g = base + lane;
-      const int size = g >= G ? 0 : group_sizes == nullptr ? M : max(group_sizes[g], 0);
-      const int nt = (size + BM - 1) / BM;
-      int t_incl = nt, r_incl = size;
-#pragma unroll
-      for (int off = 1; off < 32; off <<= 1) {
-        const int t = __shfl_up_sync(kAll, t_incl, off);
-        const int r = __shfl_up_sync(kAll, r_incl, off);
-        if (lane >= off) {
-          t_incl += t;
-          r_incl += r;
-        }
-      }
-      if (g < G) {
-        tstart[g] = tiles + t_incl - nt;
-        rstart[g] = rows + r_incl - size;
-      }
-      tiles += __shfl_sync(kAll, t_incl, 31);
-      rows += __shfl_sync(kAll, r_incl, 31);
-    }
-    if (lane == 0) {
-      tstart[G] = tiles;
-      rstart[G] = rows;
-    }
-  }
-  __syncthreads();
-
-  const int n_tiles = (N + kS8TileN - 1) / kS8TileN;
-  const int ncols = n_tiles * (pair ? 2 : 1);
-  const int item = blockIdx.x / splits, split = blockIdx.x % splits;
-  if (item >= tstart[G] * ncols) return;
-  const Item t = item_at<BM>(item, ncols, tstart, rstart, G, M);
-  if (t.rows <= 0) return;
-  const bool second = t.ct >= n_tiles;
-  const int n0 = (second ? t.ct - n_tiles : t.ct) * kS8TileN;
-  const CUtensorMap* mw = second ? &map_wb : &map_wa;
-  // This block's K slices: [ks0, ks0 + ksteps).
-  const int kall = (K + kS8Slice - 1) / kS8Slice, kper = (kall + splits - 1) / splits;
-  const int ks0 = min(split * kper, kall), ksteps = min(kall, ks0 + kper) - ks0;
-
-  // One thread loads a stage: x's [BM, 128] box and w's [128 k, 128 n] box
-  // (zero-filled past M, K and N; rows of a tile past its group's end are
-  // computed but never stored).
-  auto fetch = [&](int i) {
-    const int st = i % S;
-    unsigned char* a = smem + st * C::kStageBytes;
-    tma::mbar_expect_tx(&full[st], C::kStageBytes);
-    tma::load_2d(a, &map_x, &full[st], (ks0 + i) * kS8Slice, t.row0);
-    tma::load_3d(a + C::kABytes, mw, &full[st], n0, (ks0 + i) * kS8Slice, t.g);
-  };
-  if (threadIdx.x == 0) {
-    for (int i = 0; i < S - 1 && i < ksteps; ++i) fetch(i);
-  }
-
-  const int wr = warp / 4, wc = warp % 4;  // the warp's 64-row half and 32-column group
-  const int gid = lane / 4, tig = lane % 4;
-  // 16-row tiles of the warp that hold rows of the item.
-  const int mts = min(4, max(0, (t.rows - wr * 64 + 15) / 16));
-  int acc[4][4][4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[i][j][e] = 0;
-
-  for (int ks = 0; ks < ksteps; ++ks) {
-    // Every warp is done with the stage the next load overwrites.
-    __syncthreads();
-    if (threadIdx.x == 0 && ks + S - 1 < ksteps) fetch(ks + S - 1);
-    tma::mbar_wait(&full[ks % S], (ks / S) & 1);
-    if (mts == 0) continue;
-    const unsigned char* a = smem + (ks % S) * C::kStageBytes;
-    const unsigned char* b = a + C::kABytes;
-#pragma unroll
-    for (int kk = 0; kk < kS8Slice / 32; ++kk) {
-      // B: for each of the warp's two 16-column chunks h, matrices of k
-      // rows {4q, 4q + 1} (q = 0..3) and {4q + 2, 4q + 3}, then the same
-      // 16 rows on; transposed, lane (gid, tig) holds k 4 tig .. 4 tig + 3
-      // of columns 2 gid and 2 gid + 1 after one byte permute each.
-      uint32_t bf[4][2];  // n8 tile 2 h + p: its b0, b1
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const int m = lane / 8, i = lane % 8;
-        const int k = kk * 32 + (m >> 1) * 16 + (i >> 1) * 4 + (m & 1) * 2 + (i & 1);
-        uint32_t r[4];
-        ldmatrix_x4_trans(r, b + swz(k, wc * 2 + h));
-#pragma unroll
-        for (int p = 0; p < 2; ++p) {
-          const uint32_t sel = p ? 0x7531 : 0x6420;
-          bf[2 * h + p][0] = __byte_perm(r[0], r[1], sel);
-          bf[2 * h + p][1] = __byte_perm(r[2], r[3], sel);
-        }
-      }
-#pragma unroll
-      for (int mt = 0; mt < 4; ++mt) {
-        if (mt >= mts) break;
-        // A: rows 0-7 and 8-15 of the 16-row tile, K bytes 0-15 then 16-31.
-        uint32_t af[4];
-        const int m = lane / 8;
-        ldmatrix_x4(af, a + swz(wr * 64 + mt * 16 + (m & 1) * 8 + lane % 8, kk * 2 + (m >> 1)));
-#pragma unroll
-        for (int j = 0; j < 4; ++j) mma_s8(acc[mt][j], af, bf[j][0], bf[j][1]);
-      }
-    }
-  }
-
-  // Split K: each split stores its partial sums in its own slice of the
-  // workspace; the item's last block adds the slices in order.
-  const int64_t slice = (int64_t)M * N * (pair ? 2 : 1);
-  const int64_t part = second ? (int64_t)M * N : 0;
-  if (splits > 1) {
-    int32_t* mine = workspace + split * slice + part;
-#pragma unroll
-    for (int mt = 0; mt < 4; ++mt) {
-      if (mt >= mts) break;
-#pragma unroll
-      for (int hr = 0; hr < 2; ++hr) {
-        const int r = wr * 64 + mt * 16 + gid + hr * 8;
-        if (r >= t.rows) continue;
-#pragma unroll
-        for (int j = 0; j < 4; ++j)
-#pragma unroll
-          for (int e = 0; e < 2; ++e) {
-            const int col = n0 + wc * 32 + 16 * (j >> 1) + 2 * (2 * tig + e) + (j & 1);
-            if (col < N) __stcg(mine + (t.row0 + r) * (int64_t)N + col, acc[mt][j][2 * hr + e]);
-          }
-      }
-    }
-    __threadfence();
-    __syncthreads();
-    if (threadIdx.x == 0) last = atomicAdd(workspace + splits * slice + item, 1) == splits - 1;
-    __syncthreads();
-    if (!last) return;
-    __threadfence();
-    // The sums, a slice at a time (every load of a slice in flight at once).
-#pragma unroll
-    for (int mt = 0; mt < 4; ++mt)
-#pragma unroll
-      for (int j = 0; j < 4; ++j)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) acc[mt][j][e] = 0;
-    for (int sp = 0; sp < splits; ++sp) {
-      const int32_t* src = workspace + sp * slice + part;
-#pragma unroll
-      for (int mt = 0; mt < 4; ++mt) {
-        if (mt >= mts) break;
-#pragma unroll
-        for (int hr = 0; hr < 2; ++hr) {
-          const int r = wr * 64 + mt * 16 + gid + hr * 8;
-#pragma unroll
-          for (int j = 0; j < 4; ++j)
-#pragma unroll
-            for (int e = 0; e < 2; ++e) {
-              const int col = n0 + wc * 32 + 16 * (j >> 1) + 2 * (2 * tig + e) + (j & 1);
-              if (r < t.rows && col < N) {
-                acc[mt][j][2 * hr + e] += __ldcg(src + (t.row0 + r) * (int64_t)N + col);
-              }
-            }
-        }
-      }
-    }
-  }
-
-  OutT* out = second ? out_b : out_a;
-  const float* ws = (second ? s_b : s_a) + (int64_t)t.g * N;
-#pragma unroll
-  for (int mt = 0; mt < 4; ++mt) {
-    if (mt >= mts) break;
-#pragma unroll
-    for (int hr = 0; hr < 2; ++hr) {
-      const int r = wr * 64 + mt * 16 + gid + hr * 8;
-      if (r >= t.rows) continue;
-      const int64_t row = t.row0 + r;
-      const float sa = a_scale[row];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-#pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          // Column n = 2 tig + e of n8 tile j = 2 h + p is the warp's column
-          // 16 h + 2 n + p.
-          const int col = n0 + wc * 32 + 16 * (j >> 1) + 2 * (2 * tig + e) + (j & 1);
-          if (col >= N) continue;
-          const float v = __fmul_rn(__fmul_rn(__int2float_rn(acc[mt][j][2 * hr + e]), sa), ws[col]);
-          out[row * N + col] = convert::from_f<OutT>(v);
-        }
-      }
-    }
-  }
-}
-
-// ---------------------------------------------------------------------- //
 // Host side.
 
-typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                                CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-EncodeTiled encode_tiled() {
-  static EncodeTiled fn = nullptr;
-  static std::once_flag once;
-  std::call_once(once, [] {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult q;
-#if CUDART_VERSION >= 12050
-    if (cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault,
-                                         &q) == cudaSuccess &&
-        q == cudaDriverEntryPointSuccess)
-#else
-    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &q) ==
-            cudaSuccess &&
-        q == cudaDriverEntryPointSuccess)
-#endif
-      fn = reinterpret_cast<EncodeTiled>(p);
-  });
-  return fn;
-}
-
-// A 2- or 3-dimensional map of 16-bit elements with the 128-byte swizzle
-// (dims innermost first; strides in bytes, one fewer than dims).
-bool encode(CUtensorMap* map, CUtensorMapDataType type, int rank, const void* ptr,
-            const cuuint64_t* dims, const cuuint64_t* strides, const cuuint32_t* box) {
-  const EncodeTiled fn = encode_tiled();
-  if (fn == nullptr) return false;
-  const cuuint32_t elem[3] = {1, 1, 1};
-  return fn(map, type, rank, const_cast<void*>(ptr), dims, strides, box, elem,
-            CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-            CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
-}
+using hopper::encode;
+using hopper::sm_count;
 
 // w [G, K, N] as boxes of [64 K, 64 N]; cached by (pointer, shape, type).
 bool weight_map(CUtensorMap* map, CUtensorMapDataType type, const void* w, int G, int K, int N) {
@@ -849,15 +512,6 @@ bool weight_map(CUtensorMap* map, CUtensorMapDataType type, const void* w, int G
   if (cache.size() >= 4096) cache.clear();
   cache.emplace(key, *map);
   return true;
-}
-
-int sm_count() {
-  int dev = 0, n = 0;
-  if (cudaGetDevice(&dev) != cudaSuccess ||
-      cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess) {
-    return 0;
-  }
-  return n;
 }
 
 template <typename T, int BM>
@@ -907,71 +561,6 @@ cudaError_t launch_tiles(int tiles, void* out_a, void* out_b, const void* x, con
 }
 
 
-// w int8 [G, K, N] as boxes of [128 K, 128 N] with the 128-byte swizzle;
-// cached by (pointer, shape).
-bool weight_map_s8(CUtensorMap* map, const void* w, int G, int K, int N) {
-  static std::mutex mu;
-  static std::map<std::tuple<const void*, int, int, int>, CUtensorMap> cache;
-  const auto key = std::make_tuple(w, G, K, N);
-  std::lock_guard<std::mutex> lock(mu);
-  const auto hit = cache.find(key);
-  if (hit != cache.end()) {
-    *map = hit->second;
-    return true;
-  }
-  const cuuint64_t dims[3] = {(cuuint64_t)N, (cuuint64_t)K, (cuuint64_t)G};
-  const cuuint64_t strides[2] = {(cuuint64_t)N, (cuuint64_t)K * N};
-  const cuuint32_t box[3] = {kS8TileN, kS8Slice, 1};
-  if (!encode(map, CU_TENSOR_MAP_DATA_TYPE_UINT8, 3, w, dims, strides, box)) return false;
-  if (cache.size() >= 4096) cache.clear();
-  cache.emplace(key, *map);
-  return true;
-}
-
-template <typename OutT>
-cudaError_t launch_s8(int tiles, void* out_a, void* out_b, const void* xq, const void* a_scale,
-                      const void* w_a, const void* s_a, const void* w_b, const void* s_b,
-                      const int32_t* gs, void* workspace, int M, int K, int N, int G, int splits,
-                      cudaStream_t stream) {
-  const int pair = w_b != nullptr ? 1 : 0;
-  const long long cols = (long long)((N + kS8TileN - 1) / kS8TileN) * (1 + pair);
-  auto run = [&](auto bm) -> cudaError_t {
-    constexpr int BM = decltype(bm)::value;
-    using C = S8<BM>;
-    const long long items = ((M + BM - 1) / BM + (G < M ? G : M)) * cols;
-    if (items * splits > 0x7fffffffLL) return cudaErrorInvalidValue;
-    CUtensorMap mx, ma, mb;
-    const cuuint64_t xdims[2] = {(cuuint64_t)K, (cuuint64_t)M};
-    const cuuint64_t xstrides[1] = {(cuuint64_t)K};
-    const cuuint32_t xbox[2] = {kS8Slice, BM};
-    if (!encode(&mx, CU_TENSOR_MAP_DATA_TYPE_UINT8, 2, xq, xdims, xstrides, xbox) ||
-        !weight_map_s8(&ma, w_a, G, K, N) ||
-        !weight_map_s8(&mb, w_b != nullptr ? w_b : w_a, G, K, N)) {
-      return cudaErrorInvalidValue;
-    }
-    if (splits > 1) {  // the items' counters, after the splits' partial sums
-      int32_t* counters = (int32_t*)workspace + (size_t)splits * M * N * (1 + pair);
-      const cudaError_t z = cudaMemsetAsync(counters, 0, (size_t)items * sizeof(int32_t), stream);
-      if (z != cudaSuccess) return z;
-    }
-    auto kernel = grouped_gemm_s8_kernel<OutT, BM>;
-    cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, C::kSmem);
-    if (e != cudaSuccess) return e;
-    kernel<<<(unsigned)(items * splits), C::kThreads, C::kSmem, stream>>>(
-        mx, ma, mb, (OutT*)out_a, (OutT*)out_b, (const float*)a_scale, (const float*)s_a,
-        (const float*)s_b, gs, (int32_t*)workspace, M, K, N, G, pair, splits);
-    return cudaGetLastError();
-  };
-  switch (tiles) {
-    case 0:
-      return run(std::integral_constant<int, 64>{});
-    case 1:
-      return run(std::integral_constant<int, 128>{});
-    default:
-      return cudaErrorInvalidValue;
-  }
-}
-
 }  // namespace
 
 // out_a = x @ w_a[g(r)] and, when w_b is not null, out_b = x @ w_b[g(r)]
@@ -1004,45 +593,6 @@ extern "C" int grouped_gemm(void* out_a, void* out_b, const void* x, const void*
       return (int)launch_tiles<__nv_bfloat16>(tiles, out_a, out_b, x, w_a, w_b, gs, M, K, N, G, s);
     case 2:
       return (int)launch_tiles<__half>(tiles, out_a, out_b, x, w_a, w_b, gs, M, K, N, G, s);
-    default:
-      return (int)cudaErrorInvalidValue;
-  }
-}
-
-// int8 branch: out_a = rescale(xq @ w_a[g(r)]) and, when w_b is not null,
-// out_b = rescale(xq @ w_b[g(r)]) (w_a and w_b int8 [G, K, N], their scales
-// f32 [G, N]; xq int8 [M, K], a_scale f32 [M]). group_sizes null: one group
-// of M rows (G must be 1), a dense product. out_dtype: 0 = float32, 1 =
-// bfloat16, 2 = float16. tiles: 0 = 64 rows, 1 = 128 rows (x 128 columns).
-// splits > 1 splits K into that many ranges an item, summed through
-// `workspace`: s32, splits x (1 + pair) M N partial sums, then one counter
-// a work item (the most items there can be; the launcher zeroes them). K and N must be
-// multiples of 16, K * 127^2 < 2^31, G <= 1024 (the wrapper checks all of
-// it).
-extern "C" int grouped_gemm_s8(void* out_a, void* out_b, const void* xq, const void* a_scale,
-                               const void* w_a, const void* s_a, const void* w_b,
-                               const void* s_b, const void* group_sizes, void* workspace, int M,
-                               int K, int N, int G, int out_dtype, int tiles, int splits,
-                               void* stream) {
-  if (M == 0 || N == 0) return (int)cudaGetLastError();
-  if (K % 16 || N % 16 || K < 16 || (long long)K * 127 * 127 >= (1LL << 31) || G < 1 ||
-      G > kMaxGroups || (group_sizes == nullptr && G != 1) ||
-      (w_b != nullptr && (out_b == nullptr || s_b == nullptr)) || splits < 1 ||
-      (splits > 1 && workspace == nullptr)) {
-    return (int)cudaErrorInvalidValue;
-  }
-  cudaStream_t s = (cudaStream_t)stream;
-  const int32_t* gs = (const int32_t*)group_sizes;
-  switch (out_dtype) {
-    case 0:
-      return (int)launch_s8<float>(tiles, out_a, out_b, xq, a_scale, w_a, s_a, w_b, s_b, gs, workspace, M, K,
-                                   N, G, splits, s);
-    case 1:
-      return (int)launch_s8<__nv_bfloat16>(tiles, out_a, out_b, xq, a_scale, w_a, s_a, w_b, s_b, gs,
-                                           workspace, M, K, N, G, splits, s);
-    case 2:
-      return (int)launch_s8<__half>(tiles, out_a, out_b, xq, a_scale, w_a, s_a, w_b, s_b, gs, workspace, M, K,
-                                    N, G, splits, s);
     default:
       return (int)cudaErrorInvalidValue;
   }

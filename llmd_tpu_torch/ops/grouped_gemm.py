@@ -26,27 +26,33 @@ its input's maximum back to size its output) and the combine sums each
 token's rows in ascending sorted position, the order of JAX's scatter-add
 on the CPU, without ``index_add_``'s atomics.
 
-The int8 branch (W8A8, ``ops/quant.py``): ``grouped_matmul_q8`` takes rows
-already quantized (int8 x with one f32 scale a row, from ``quantize_rows``)
-against int8 weights with per-(group, column) f32 scales, accumulates in
-s32 and rescales ``(f32(acc) * a_scale) * w_scale`` into the output's
-dtype: bit-equal to ``grouped_matmul_q8_plain``. ``grouped_matmul_q8_pair``
-is its gate|up form (one quantized input, two weight tensors, one launch)
-and ``matmul_q8`` its dense form, one group of M rows and no group sizes:
-every dense int8 product of the models (projections, shared experts,
-MLA's projections, ``lm_head``) runs it. Where the items (``max_items``)
-do not fill the card, as a dense product's at a decode step, the kernel
-splits K (``q8_splits``) and adds the splits' s32 partial sums, in order,
-through a workspace the wrapper allocates. JAX computes these with
-``lax.ragged_dot`` and ``dot_general`` outside any kernel. The plain
-versions multiply in f64, exact for these integers (every partial sum
-stays below 2^31), and round the sums to f32 as the kernel's s32 -> f32
-conversion does.
+The int8 branch (W8A8, ``ops/quant.py``; its own source,
+``csrc/grouped_gemm_s8.cu``): ``grouped_matmul_q8`` takes rows already
+quantized (int8 x with one f32 scale a row, from ``quantize_rows``) against
+int8 weights stored K-major, ``[G, N, K]`` (the HF ``[out, in]`` layout;
+s8 ``wgmma`` reads 8-bit operands from shared memory only K-major), with
+per-(group, column) f32 scales; it accumulates in s32 and rescales
+``(f32(acc) * a_scale) * w_scale`` into the output's dtype: bit-equal to
+``grouped_matmul_q8_plain``. ``grouped_matmul_q8_pair`` is its gate|up
+form (one quantized input, two weight tensors, one launch) and
+``matmul_q8`` its dense form (w ``[N, K]``), one group of M rows and no
+group sizes: every dense int8 product of the models (projections, shared
+experts, MLA's projections, ``lm_head``) runs it. ``q8_plan`` picks the
+kernel's form from ``(M, G, N, K, SMs)``: swap-AB at a decode step (the
+weight tile on wgmma's 64-row side, the rows on its N side), the usual
+orientation at prefill, and the column tile; an item sums all of its K
+(no split K: it never paid at the models' shapes). JAX computes
+these products with ``lax.ragged_dot`` and ``dot_general`` outside any
+kernel, on ``[.., K, N]`` leaves. The plain versions multiply in f64,
+exact for these integers (every partial sum stays below 2^31), and round
+the sums to f32 as the kernel's s32 -> f32 conversion does.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
+from typing import NamedTuple
 
 import torch
 
@@ -69,12 +75,23 @@ def _kernel():
             ctypes.c_void_p
         ]
         lib.grouped_gemm.restype = ctypes.c_int
-        lib.grouped_gemm_s8.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 7 + [
+        _lib = lib
+    return _lib
+
+
+_lib_s8 = None
+
+
+def _kernel_s8():
+    global _lib_s8
+    if _lib_s8 is None:
+        lib = _build.load("grouped_gemm_s8")
+        lib.grouped_gemm_s8.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 8 + [
             ctypes.c_void_p
         ]
         lib.grouped_gemm_s8.restype = ctypes.c_int
-        _lib = lib
-    return _lib
+        _lib_s8 = lib
+    return _lib_s8.grouped_gemm_s8
 
 
 def tile_choice(M: int, G: int) -> int:
@@ -254,7 +271,7 @@ def _rescale(acc: torch.Tensor, a_scale: torch.Tensor, w_scale: torch.Tensor, dt
 def grouped_matmul_q8_plain(
     xq: torch.Tensor,  # int8 [M, K] rows sorted by group
     a_scale: torch.Tensor,  # f32 [M]
-    w: torch.Tensor,  # int8 [G, K, N]
+    w: torch.Tensor,  # int8 [G, N, K] (K-major)
     w_scale: torch.Tensor,  # f32 [G, N]
     group_sizes: torch.Tensor,  # [G] int, sums to M
     dtype: torch.dtype,
@@ -262,12 +279,12 @@ def grouped_matmul_q8_plain(
     """Plain PyTorch version of the int8 branch: one masked f64 product a
     group (exact: the sums are integers below 2^31), then the epilogue."""
     M = xq.shape[0]
-    G, _, N = w.shape
+    G, N, _ = w.shape
     gid = _group_ids(group_sizes, M, xq.device)
     xd = xq.double()
     acc = torch.zeros((M, N), dtype=torch.float64, device=xq.device)
     for g in range(G):
-        acc = torch.where((gid == g)[:, None], xd @ w[g].double(), acc)
+        acc = torch.where((gid == g)[:, None], xd @ w[g].double().T, acc)
     return _rescale(acc, a_scale, w_scale[gid.clamp(max=G - 1)], dtype)
 
 
@@ -278,18 +295,24 @@ def grouped_matmul_q8_pair_plain(xq, a_scale, w_a, s_a, w_b, s_b, group_sizes, d
 
 
 def matmul_q8_plain(xq, a_scale, w, w_scale, dtype):
-    """Plain PyTorch version of the dense int8 product (w int8 [K, N],
-    w_scale f32 [N])."""
-    return _rescale(xq.double() @ w.double(), a_scale, w_scale, dtype)
+    """Plain PyTorch version of the dense int8 product (w int8 [N, K],
+    K-major; w_scale f32 [N])."""
+    return _rescale(xq.double() @ w.double().T, a_scale, w_scale, dtype)
 
 
 def _check_q8(xq, a_scale, ws, scales, group_sizes, dtype):
     """Raise unless the int8 branch takes xq against each weight tensor in
-    ``ws`` ([G, K, N], all of one shape) with its ``scales`` ([G, N])."""
+    ``ws`` (K-major ``[G, N, K]``, all of one shape) with its ``scales``
+    (``[G, N]``). A ``[G, K, N]`` weight (JAX's layout) is refused only
+    where K != N: a square one cannot be told apart by its shape, and
+    gives ``x @ w^T``. So the port transposes int8 leaves only where they
+    enter it (``params_from_jax``, the loader, the quantizers), never
+    here."""
     w = ws[0]
-    if xq.dim() != 2 or w.dim() != 3 or w.shape[1] != xq.shape[1]:
-        raise ValueError(f"xq {tuple(xq.shape)} and w {tuple(w.shape)} do not fit [M, K] x [G, K, N]")
-    G, K, N = w.shape
+    if xq.dim() != 2 or w.dim() != 3 or w.shape[2] != xq.shape[1]:
+        raise ValueError(f"xq {tuple(xq.shape)} and w {tuple(w.shape)} do not fit [M, K] x "
+                         "[G, N, K]: int8 weights are K-major")
+    G, N, K = w.shape
     if group_sizes is None:
         if G != 1:
             raise ValueError(f"a product without group sizes takes one group, got {G}")
@@ -324,44 +347,87 @@ def _check_q8(xq, a_scale, ws, scales, group_sizes, dtype):
             raise ValueError(f"weight scales must be f32 [{G}, {N}], got {sc.dtype} {tuple(sc.shape)}")
 
 
+# int8 weight leaves are K-major ([.., N, K]); kernel_ab reads this to feed
+# each checkout its own layout.
+Q8_K_MAJOR = True
 _S8_SLICE = 128  # K bytes a stage of the int8 branch
+# Row tiles of the swap-AB form: the s8 wgmma N's up to 64.
+Q8_SWAP_ROWS = (8, 16, 24, 32, 48, 64)
+# q8_plan's cost model, in seconds, fitted to a sweep of every column tile
+# at the models' decode and prefill shapes on an H100 SXM (700 W): swap-AB
+# products streamed their weights at 2.0-2.9 TB/s however many SMs took
+# part (32 to 132), one SM at up to about 100 GB/s. Prefill: the int8
+# tensor-core rate, 1,979 TOP/s over the SMs.
+_STREAM_BYTES_PER_S = 2.5e12
+_SM_BYTES_PER_S = 100e9
+_INT8_OPS_PER_S = 1979e12
 
 
-def q8_splits(items: int, K: int, sms: int) -> int:
-    """K splits of the int8 branch's items: 1 where the items fill the card
-    (one block an SM or more) or K is under 64 slices of 128 bytes, else
-    about one block an SM, each keeping at least four slices. Below 64
-    slices a block's fixed cost outweighs the slices a split saves
-    (``chip_smoke.py``'s quant_kernels rows time both; PERF.md)."""
+class Q8Plan(NamedTuple):
+    """The int8 branch's form: ``swap`` (decode: the weight tile on wgmma's
+    64-row side, ``rows`` on its N side) or prefill (128-row tiles of x);
+    ``cols`` output columns an item."""
+
+    swap: bool
+    rows: int
+    cols: int
+
+
+@functools.lru_cache(maxsize=4096)  # a pure function called once a product: keep its host cost off
+def q8_plan(M: int, G: int, N: int, K: int, sms: int, pair: bool = False) -> Q8Plan:
+    """The int8 branch's form and tiles from the shapes alone (the group
+    sizes stay on the device). Groups average ``ceil(M / G)`` rows: up to
+    64, swap-AB, its row tile the s8 wgmma N at or above the rows (a dense
+    product's M; grouped, twice the average, so that most groups take one
+    tile); above, the prefill form's 128-row tiles. The column tile (128
+    or 64 swap-AB, 256 or 128 prefill) minimises a modelled time: items
+    run in waves of ``sms`` blocks; a swap-AB product takes the longer of
+    its weights at the card's rate and one SM's items at one SM's rate,
+    plus a fifth of the latter (more, smaller items spread the stream); at
+    prefill each SM's tensor cores do its items' operations (128-column
+    tiles at 0.9 of the rate: they read more shared memory an operation),
+    or streams its weights as swap-AB does, whichever takes longer. Ties
+    go to the wider tile."""
+    avg = -(-M // G)
     slices = -(-K // _S8_SLICE)
-    if items >= sms or slices < 64:
-        return 1
-    return max(1, min(sms // items, slices // 4, 16))
+    swap = avg <= 64
+    if swap:
+        want = M if G == 1 else min(64, 2 * avg)
+        rows = next(r for r in Q8_SWAP_ROWS if r >= want)
+        tiles = (128, 64)
+    else:
+        rows, tiles = 128, (256, 128)
+    row_tiles = -(-M // rows) if G == 1 else max(-(-M // rows), min(G, M))
+    weights = row_tiles * (2 if pair else 1) * N * K  # bytes streamed (TMA reads no padding)
+    best = None
+    for cols in tiles:
+        items = row_tiles * -(-N // cols) * (2 if pair else 1)
+        waves = -(-items // sms)
+        item = slices * _S8_SLICE * cols  # weight bytes an item streams
+        per_sm = waves * item / _SM_BYTES_PER_S
+        t = max(weights / _STREAM_BYTES_PER_S, per_sm) + 0.2 * per_sm
+        if not swap:
+            t = max(t, waves * 2 * rows * item / (_INT8_OPS_PER_S / sms * (1.0 if cols == 256 else 0.9)))
+        if best is None or t < best[0]:
+            best = (t, Q8Plan(swap, rows, cols))
+    return best[1]
 
 
 def _launch_q8(xq, a_scale, w_a, s_a, w_b, s_b, group_sizes, dtype):
     M = xq.shape[0]
-    G, K, N = w_a.shape
+    G, N, K = w_a.shape
     out_a = torch.empty((M, N), dtype=dtype, device=xq.device)
     out_b = None if w_b is None else torch.empty_like(out_a)
     if M == 0:
         return out_a, out_b
-    tiles = tile_choice(M, G)
-    pair = 1 if w_b is not None else 0
-    ncols = -(-N // 128) * (1 + pair)
-    items = max_items(M, G, TILES[tiles][0], ncols)  # the kernel's bound: its counters
-    # A dense product's items are known: its row tiles times the columns.
-    real = -(-M // TILES[tiles][0]) * ncols if group_sizes is None else items
-    splits = q8_splits(real, K, torch.cuda.get_device_properties(xq.device).multi_processor_count)
-    workspace = None
-    if splits > 1:  # each split's s32 partial sums, then a counter an item
-        workspace = torch.empty((splits * (1 + pair) * M * N + items,), dtype=torch.int32,
-                                device=xq.device)
+    sms = torch.cuda.get_device_properties(xq.device).multi_processor_count
+    plan = q8_plan(M, G, N, K, sms, w_b is not None)
     ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
-    err = _kernel().grouped_gemm_s8(
+    err = _kernel_s8()(
         out_a.data_ptr(), ptr(out_b), xq.data_ptr(), a_scale.data_ptr(), w_a.data_ptr(),
-        s_a.data_ptr(), ptr(w_b), ptr(s_b), ptr(group_sizes), ptr(workspace), M, K, N, G,
-        _DTYPE_CODES[dtype], tiles, splits, torch.cuda.current_stream(xq.device).cuda_stream,
+        s_a.data_ptr(), ptr(w_b), ptr(s_b), ptr(group_sizes), M, K, N, G,
+        _DTYPE_CODES[dtype], int(plan.swap), plan.rows, plan.cols,
+        torch.cuda.current_stream(xq.device).cuda_stream,
     )
     if err:
         raise RuntimeError(f"grouped_gemm_s8 launch failed: CUDA error {err}")
@@ -371,7 +437,7 @@ def _launch_q8(xq, a_scale, w_a, s_a, w_b, s_b, group_sizes, dtype):
 def matmul_q8(
     xq: torch.Tensor,  # int8 [M, K]
     a_scale: torch.Tensor,  # f32 [M]
-    w: torch.Tensor,  # int8 [K, N]
+    w: torch.Tensor,  # int8 [N, K] (K-major)
     w_scale: torch.Tensor,  # f32 [N]
     dtype: torch.dtype,
 ) -> torch.Tensor:  # [M, N] in dtype
@@ -382,7 +448,7 @@ def matmul_q8(
     if xq.device.type != "cuda":
         raise ValueError(f"unsupported device {xq.device}")
     if w.dim() != 2 or w_scale.dim() != 1:
-        raise ValueError(f"w must be [K, N] with w_scale [N]; got {tuple(w.shape)}, {tuple(w_scale.shape)}")
+        raise ValueError(f"w must be [N, K] with w_scale [N]; got {tuple(w.shape)}, {tuple(w_scale.shape)}")
     w3, s2 = w[None], w_scale[None]
     _check_q8(xq, a_scale, (w3,), (s2,), None, dtype)
     out, _ = _launch_q8(xq, a_scale, w3, s2, None, None, None, dtype)
@@ -397,7 +463,7 @@ matmul_q8.launches = 0
 def grouped_matmul_q8(
     xq: torch.Tensor,  # int8 [M, K] rows sorted by group
     a_scale: torch.Tensor,  # f32 [M]
-    w: torch.Tensor,  # int8 [G, K, N]
+    w: torch.Tensor,  # int8 [G, N, K] (K-major)
     w_scale: torch.Tensor,  # f32 [G, N]
     group_sizes: torch.Tensor,  # [G] int32 on the device
     dtype: torch.dtype,
@@ -440,9 +506,9 @@ grouped_matmul_q8_pair.launches = 0
 def expert_mlp_grouped(
     x_sorted: torch.Tensor,  # [M, H] rows sorted by expert
     group_sizes: torch.Tensor,  # [E] int32
-    we_gate: torch.Tensor,  # [E, H, F] (float, or int8 with scales)
-    we_up: torch.Tensor,  # [E, H, F]
-    we_down: torch.Tensor,  # [E, F, H]
+    we_gate: torch.Tensor,  # [E, H, F] float, or int8 [E, F, H] (K-major) with scales
+    we_up: torch.Tensor,  # like we_gate
+    we_down: torch.Tensor,  # [E, F, H] float, or int8 [E, H, F]
     scales: tuple | None = None,  # int8 experts: (s_gate [E, F], s_up [E, F], s_down [E, H])
     biases: tuple | None = None,  # gpt-oss: (b_gate [E, F], b_up [E, F], b_down [E, H])
     cfg=None,  # ModelConfig naming the GLU; None = SwiGLU

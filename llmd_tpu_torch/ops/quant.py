@@ -4,10 +4,12 @@ activations, int8 x int8 -> int32 products rescaled in f32.
 The port of ``llmd_tpu/ops/quant.py`` (its own copy: nothing is imported
 from the JAX package). The scheme:
 
-- weights: symmetric per-output-channel int8, ``w_q[..., i, o] =
-  round(w / s_w[..., o])`` with ``s_w = max(max |w|, 1e-30) / 127`` reduced
-  over the contraction axis. The scale lives beside the weight in the tree
-  as ``<name>_scale`` (f32); ``QUANT_NAMES`` are the leaves that quantize.
+- weights: symmetric per-output-channel int8, ``w_q[..., o, i] =
+  round(w[..., i, o] / s_w[..., o])`` with ``s_w = max(max |w|, 1e-30) /
+  127`` reduced over the contraction axis. The int8 leaf is stored K-major
+  (``[..., out, in]``, the HF layout; JAX keeps ``[..., in, out]``), the
+  layout s8 ``wgmma`` reads; the scale lives beside it in the tree as
+  ``<name>_scale`` (f32); ``QUANT_NAMES`` are the leaves that quantize.
 - activations: symmetric per-row int8, quantized on the fly
   (``quantize_activations``), through the ``quantize_rows`` kernel on the
   card (``csrc/quantize_rows.cu``; JAX leaves it to XLA, which fuses it).
@@ -22,7 +24,9 @@ launches the kernel (or the call raises), a CPU tensor runs the plain
 version. There is no dequantize-then-matmul path: ``dequantize`` exists for
 tests alone. The weight quantizers (``quantize_weight``,
 ``quantize_param_tree``, ``quantize_param_tree_host``) run once, at
-initialisation and load time, in plain PyTorch or numpy.
+initialisation and load time, in plain PyTorch or numpy; ``quantize_weight``
+keeps JAX's layout, the trees and ``quantize_weight_into`` write the
+K-major one.
 """
 
 from __future__ import annotations
@@ -70,29 +74,34 @@ def quantize_weight(w: torch.Tensor, contract_axis: int = -2) -> tuple[torch.Ten
 
 def quantize_weight_into(w: torch.Tensor, q: torch.Tensor, scale: torch.Tensor,
                          block: int = 1 << 24) -> None:
-    """``q, scale = quantize_weight(w)`` written into ``q`` (int8, w's
-    shape) and ``scale`` (f32, w's shape without the contraction axis -2),
-    which may be views (a fused leaf's column block): the same bits, a
-    block of columns at a time, so that the f32 temporaries stay about
-    ``block`` elements whatever the leaf's size. Columns quantize apart."""
+    """``q, scale = quantize_weight(w)`` written K-major: ``w`` is
+    ``[..., K, N]`` (any strides: the ``.T`` of an HF ``[out, in]`` tensor
+    is read as it lies), ``q`` int8 ``[..., N, K]`` and ``scale`` f32
+    ``[..., N]``, which may be views (a fused leaf's row block). The same
+    bits, a block of columns at a time, so that the f32 temporaries stay
+    about ``block`` elements whatever the leaf's size. Columns quantize
+    apart."""
     if w.dim() > 2:
         for e in range(w.shape[0]):
             quantize_weight_into(w[e], q[e], scale[e], block)
         return
     cols = max(16, block // max(w.shape[0], 1))
     for c in range(0, w.shape[1], cols):
-        q[:, c : c + cols], scale[c : c + cols] = quantize_weight(w[:, c : c + cols])
+        qc, scale[c : c + cols] = quantize_weight(w[:, c : c + cols])
+        q[c : c + cols] = qc.T
 
 
 def quantize_param_tree(params: dict) -> dict:
-    """Every ``QUANT_NAMES`` leaf quantized, with its ``<name>_scale``
-    sibling beside it; other leaves as they are."""
+    """Every ``QUANT_NAMES`` leaf quantized into a K-major int8 leaf,
+    with its ``<name>_scale`` sibling beside it; other leaves as they
+    are."""
     out: dict = {}
     for k, v in params.items():
         if isinstance(v, dict):
             out[k] = quantize_param_tree(v)
         elif k in QUANT_NAMES:
-            out[k], out[k + "_scale"] = quantize_weight(v)
+            q, out[k + "_scale"] = quantize_weight(v)
+            out[k] = q.mT.contiguous()
         else:
             out[k] = v
     return out
@@ -100,7 +109,7 @@ def quantize_param_tree(params: dict) -> dict:
 
 def quantize_param_tree_host(params: dict) -> dict:
     """``quantize_param_tree`` in numpy, for trees held on the host: the
-    same bits."""
+    same bits, the same K-major leaves."""
     out: dict = {}
     for k, v in params.items():
         if isinstance(v, dict):
@@ -109,7 +118,8 @@ def quantize_param_tree_host(params: dict) -> dict:
             wf = np.asarray(v, dtype=np.float32)
             scale = np.maximum(np.max(np.abs(wf), axis=-2), np.float32(_EPS)) / np.float32(127.0)
             q = np.clip(np.round(wf / np.expand_dims(scale, -2)), -127, 127).astype(np.int8)
-            out[k], out[k + "_scale"] = q, scale.astype(np.float32)
+            out[k] = np.ascontiguousarray(np.swapaxes(q, -1, -2))
+            out[k + "_scale"] = scale.astype(np.float32)
         else:
             out[k] = v
     return out
@@ -184,19 +194,19 @@ def quantize_activations(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
 
 
 def qdot(x: torch.Tensor, w_q: torch.Tensor, w_scale: torch.Tensor) -> torch.Tensor:
-    """``x @ dequantize(w_q, w_scale)`` without the dequantized weight: x
+    """``x @ dequantize(w_q, w_scale, -1).T`` without the dequantized weight: x
     ``[..., I]`` quantized per row, the int8 product (K6''s int8 branch as
     one group), ``(f32(acc) * a_scale) * w_scale`` in x's dtype. w_q is
-    int8 ``[I, O]``, w_scale f32 ``[O]``."""
+    int8 ``[O, I]`` (K-major), w_scale f32 ``[O]``."""
     lead, K = x.shape[:-1], x.shape[-1]
     xq, a_scale = quantize_rows(x.reshape(-1, K).contiguous())
     out = grouped_gemm.matmul_q8(xq, a_scale, w_q, w_scale, x.dtype)
-    return out.reshape(*lead, w_q.shape[-1])
+    return out.reshape(*lead, w_q.shape[-2])
 
 
 def grouped_matmul_q(
     x: torch.Tensor,  # [M, K] rows sorted by group
-    w_q: torch.Tensor,  # int8 [G, K, N]
+    w_q: torch.Tensor,  # int8 [G, N, K] (K-major)
     w_scale: torch.Tensor,  # f32 [G, N]
     group_sizes: torch.Tensor,  # [G] int32, sums to M
 ) -> torch.Tensor:  # [M, N] in x's dtype

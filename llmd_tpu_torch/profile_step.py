@@ -3,6 +3,7 @@
     python -m llmd_tpu_torch.profile_step [--model llama-3-8b] [--batch 32]
         [--prompt-len 1000] [--decode-steps 16] [--decode-window 8]
         [--kv-cache-dtype int8] [--kv-swa-ring] [--quantization int8]
+        [--windows prefill]
 
 Serves ``--batch`` greedy requests of ``--prompt-len`` random tokens
 through ``LLMEngine`` (random weights from ``--seed``) and traces three
@@ -35,14 +36,23 @@ step time, and the engine's host gap a step (``EngineStats``) beside the
 untraced host time; the decode line also carries the host cost of building and
 staging a flat decode step's static inputs (``staging_us``). The profiler adds host time to every operator, so each
 window's steps are also timed without it (``untraced_host_ms_per_step``),
-before the profiler first starts. Runs on a GPU only.
+before the profiler first starts: up to ``PREFILL_STEPS`` prefill steps
+(the per-step times and their median ride along, with the garbage
+collector's passes and milliseconds inside them), the decode windows'
+steps as above. The prefill line also carries the costliest Python
+functions of as many more prefill steps by own time (``cProfile``: a
+second set, so the timed steps stay unprofiled). ``--windows`` keeps only
+the named windows (``prefill``, ``decode``, the decode window). Runs on a
+GPU only.
 """
 
 from __future__ import annotations
 
 import argparse
 import collections
+import cProfile
 import gc
+import pstats
 import json
 import subprocess
 import time
@@ -78,18 +88,60 @@ def _group(kernel: str) -> str:
     return "other"
 
 
-def time_steps(eng: LLMEngine, n: int) -> tuple[float, float]:
-    """Host milliseconds per step of ``n`` engine steps, profiler off, and
-    the engine's own count of their host gap (``EngineStats.step_host_gap_ms``:
-    the step's host work outside the wait for its readback), per step."""
+# Prefill steps timed (and as many profiled), where the prompts give them.
+PREFILL_STEPS = 6
+
+
+def time_steps(eng: LLMEngine, n: int) -> tuple[float, float, dict]:
+    """Host milliseconds per step of ``n`` engine steps, profiler off, the
+    engine's own count of their host gap (``EngineStats.step_host_gap_ms``:
+    the step's host work outside the wait for its readback), per step, and
+    each step's milliseconds with the garbage collector's passes and time
+    among them (a step ends in its readback, so one step's time is its
+    own)."""
     gap0 = eng.stats.step_host_gap_ms_total
+    gcs = {"collections": 0, "ms": 0.0, "start": 0.0}
+
+    def on_gc(phase, info):
+        if phase == "start":
+            gcs["start"] = time.perf_counter()
+        else:
+            gcs["collections"] += 1
+            gcs["ms"] += (time.perf_counter() - gcs["start"]) * 1e3
+
     torch.cuda.synchronize()
-    t0 = time.perf_counter()
+    each = []
+    gc.callbacks.append(on_gc)
+    try:
+        t0 = time.perf_counter()
+        for _ in range(n):
+            t = time.perf_counter()
+            eng.step()
+            each.append((time.perf_counter() - t) * 1e3)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3 / n
+    finally:
+        gc.callbacks.remove(on_gc)
+    steps = {"host_ms_each_step": each, "host_ms_median_step": sorted(each)[n // 2],
+             "gc_collections": gcs["collections"], "gc_ms": gcs["ms"]}
+    return ms, (eng.stats.step_host_gap_ms_total - gap0) / n, steps
+
+
+def host_profile(eng: LLMEngine, n: int, top: int = 25) -> list:
+    """``n`` engine steps under ``cProfile``: the ``top`` functions by own
+    time, as [file:line(function), calls, own ms a step, cumulative ms a
+    step]."""
+    prof = cProfile.Profile()
+    torch.cuda.synchronize()
+    prof.enable()
     for _ in range(n):
         eng.step()
     torch.cuda.synchronize()
-    ms = (time.perf_counter() - t0) * 1e3 / n
-    return ms, (eng.stats.step_host_gap_ms_total - gap0) / n
+    prof.disable()
+    stats = pstats.Stats(prof).stats
+    rows = sorted(stats.items(), key=lambda kv: -kv[1][2])[:top]
+    return [[f"{f.split('/')[-1]}:{line}({fn})", nc, tt * 1e3 / n, ct * 1e3 / n]
+            for (f, line, fn), (_, nc, tt, ct, _) in rows]
 
 
 def trace_steps(eng: LLMEngine, n: int, untraced_ms: float) -> dict:
@@ -180,6 +232,8 @@ def main(argv=None) -> None:
                    help="the sliding layers' KV in the ring pool (CacheConfig.swa_ring)")
     p.add_argument("--quantization", default=None, choices=["int8"],
                    help="int8 weights (ModelConfig.quantization)")
+    p.add_argument("--windows", nargs="+", default=None,
+                   help="only these windows: prefill, decode, decode_window_<K>")
     args = p.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("profile_step needs a CUDA device")
@@ -190,6 +244,8 @@ def main(argv=None) -> None:
     # runs long enough to still be decoding in both passes over its window
     # (untraced, then traced).
     prefill_steps = -(-args.batch * args.prompt_len // args.max_num_batched_tokens) + 1
+    # Timed and profiled steps after the untimed first, and one to spare.
+    n_prefill = max(1, min(PREFILL_STEPS, (prefill_steps - 3) // 2))
     max_tokens = prefill_steps + 2 * args.decode_steps + 2 * args.decode_window + 8
     per_seq = -(-(args.prompt_len + max_tokens) // page)
     card = subprocess.run(
@@ -253,19 +309,27 @@ def main(argv=None) -> None:
     # Every untraced time is taken before the profiler first starts: once
     # its tracing library is loaded, launches stay slower in the process.
     window = f"decode_window_{args.decode_window}"
-    steps = {
-        "decode": (decoding(loaded_engine("decode")), args.decode_steps),
-        window: (
-            decoding(loaded_engine(window, decode_window=args.decode_window)),
-            max(1, args.decode_steps // args.decode_window),
-        ),
-    }
-    untraced = {"prefill": time_steps(prefilling(loaded_engine("prefill")), 1)}
+    wanted = set(args.windows or ("prefill", "decode", window))
+    steps = {}
+    if "decode" in wanted:
+        steps["decode"] = (decoding(loaded_engine("decode")), args.decode_steps)
+    if window in wanted:
+        steps[window] = (decoding(loaded_engine(window, decode_window=args.decode_window)),
+                         max(1, args.decode_steps // args.decode_window))
+    untraced, profiled = {}, None
+    if "prefill" in wanted:
+        eng = prefilling(loaded_engine("prefill"))
+        untraced["prefill"] = time_steps(eng, n_prefill)
+        profiled = host_profile(eng, n_prefill)
+        del eng
     for name, (eng, n) in steps.items():
         untraced[name] = time_steps(eng, n)
     # An MLA engine has no flat step to stage.
-    staging = staging_us(steps["decode"][0]) if steps["decode"][0].runner.flat else None
-    windows = {"prefill": trace_steps(prefilling(loaded_engine("prefill")), 1, untraced["prefill"][0])}
+    staging = (staging_us(steps["decode"][0]) if "decode" in steps and steps["decode"][0].runner.flat
+               else None)
+    windows = {}
+    if "prefill" in wanted:
+        windows["prefill"] = trace_steps(prefilling(loaded_engine("prefill")), 1, untraced["prefill"][0])
     for name, (eng, n) in steps.items():
         windows[name] = trace_steps(eng, n, untraced[name][0])
     for name, w in windows.items():
@@ -276,6 +340,8 @@ def main(argv=None) -> None:
                           "prompt_len": args.prompt_len, "card": card, **warmups[name],
                           "graph_replays": replays,
                           "untraced_host_gap_ms_per_step": untraced[name][1],
+                          "untraced_steps": untraced[name][2],
+                          **({"host_profile": profiled} if name == "prefill" and profiled else {}),
                           **({"host_staging": staging} if name == "decode" and staging else {}), **w}),
               flush=True)
 

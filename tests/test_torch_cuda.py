@@ -560,18 +560,26 @@ def test_grouped_gemm_pair_matches_two_plain_calls(dev, dtype, layout):
 
 # int8 branch of K6' (W8A8): the layouts above whose K and N are multiples
 # of 16 (what the branch takes), and N and K that are not multiples of its
-# 128-column tiles and 128-byte K slices (gpt-oss's 2,880), llama-3-8b's
+# column tiles and 128-byte K slices (gpt-oss's 2,880), llama-3-8b's
 # down projection's K = 14,336 at a decode step, deepseek's 1,408-wide
-# experts.
+# experts; 1, 8, 32, 64 and 65 rows (the swap-AB form's row tiles and the
+# prefill form past them) and groups of 0, 1 and 3 rows.
 Q8_GROUPS = {
     **{name: g for name, g in GROUPS.items() if g[1] % 16 == 0 and g[2] % 16 == 0},
     "k2880_n1408": (tuple(int(x) for x in np.random.default_rng(3).integers(0, 9, 64)), 2880, 1408),
     "down_14336_decode": ((32,), 14336, 256),
+    "rows_1": ((1,), 400, 2880),
+    "rows_8": ((8,), 2880, 400),
+    "rows_32": ((32,), 4096, 1024),
+    "rows_64": ((64,), 1040, 2880),
+    "rows_65": ((65,), 2880, 528),
+    "groups_0_1_3": ((0, 1, 3, 0, 3, 1, 0), 208, 2880),
 }
 
 
 def q8_inputs(rng, dev, sizes, K, N, dtype, weights=1):
-    """Rows quantized by the plain version, int8 weights and their scales."""
+    """Rows quantized by the plain version, K-major int8 weights ([G, N,
+    K]) and their scales."""
     from llmd_tpu_torch.ops import quant
 
     M, G = sum(sizes), len(sizes)
@@ -580,7 +588,8 @@ def q8_inputs(rng, dev, sizes, K, N, dtype, weights=1):
     ws = []
     for _ in range(weights):
         w = torch.from_numpy(rng.normal(size=(G, K, N)).astype(np.float32)).to(dev)
-        ws += list(quant.quantize_weight(w))
+        q, scale = quant.quantize_weight(w)
+        ws += [q.mT.contiguous(), scale]
     gs = torch.tensor(sizes, dtype=torch.int32, device=dev)
     return xq, a_scale, ws, gs
 
@@ -620,6 +629,74 @@ def test_int8_gemm_pair_is_bit_equal_to_plain(dev, dtype, layout):
     assert ops.launch_counts()["grouped_matmul_q8"] == 0
 
 
+# Every kernel form the launcher takes: swap-AB at each row tile and both
+# column tiles, the prefill form at both column tiles.
+Q8_FORMS = ([(True, r, c) for r in grouped_gemm.Q8_SWAP_ROWS for c in (64, 128)]
+            + [(False, 128, 128), (False, 128, 256)])
+
+
+@pytest.mark.parametrize("form", Q8_FORMS, ids=[f"{'swap' if s else 'prefill'}_{r}x{c}" for s, r, c in Q8_FORMS])
+def test_int8_gemm_every_form_is_bit_equal_to_plain(dev, form, monkeypatch):
+    """Each form of K6''s int8 branch, forced through ``q8_plan``, on a
+    grouped step (groups of 0 to 70 rows, N and K off the tiles) and a
+    dense 65-row product, bf16 out, and the pair in f16: bit-equal to the
+    plain version."""
+    plan = grouped_gemm.Q8Plan(*form)
+    monkeypatch.setattr(grouped_gemm, "q8_plan", lambda *a, **k: plan)
+    rng = np.random.default_rng(24)
+    for sizes, K, N in (((5, 0, 70, 1, 0, 33, 3, 2), 400, 2880), ((65,), 2880, 528)):
+        xq, a_scale, (wa, sa, wb, sb), gs = q8_inputs(rng, dev, sizes, K, N, torch.bfloat16, 2)
+        got = ops.grouped_matmul_q8(xq, a_scale, wa, sa, gs, torch.bfloat16)
+        assert torch.equal(got, ops.grouped_matmul_q8_plain(xq, a_scale, wa, sa, gs, torch.bfloat16))
+        pair = ops.grouped_matmul_q8_pair(xq, a_scale, wa, sa, wb, sb, gs, torch.float16)
+        want = ops.grouped_matmul_q8_pair_plain(xq, a_scale, wa, sa, wb, sb, gs, torch.float16)
+        assert torch.equal(pair[0], want[0]) and torch.equal(pair[1], want[1])
+        if len(sizes) == 1:
+            dense = ops.matmul_q8(xq, a_scale, wa[0], sa[0], torch.float32)
+            assert torch.equal(dense, ops.matmul_q8_plain(xq, a_scale, wa[0], sa[0], torch.float32))
+        torch.cuda.synchronize()
+
+
+def test_int8_decode_product_replays_at_other_group_sizes(dev, monkeypatch):
+    """A decode step's int8 products captured in a CUDA graph (the
+    grouped pair and a dense swap-AB product at 128 columns an item)
+    replay with other group sizes and other rows written into the
+    captured inputs, bit-equal to the plain version on those."""
+    chosen = grouped_gemm.q8_plan
+    monkeypatch.setattr(grouped_gemm, "q8_plan", lambda M, G, *a, **k: (
+        grouped_gemm.Q8Plan(True, 32, 128) if G == 1 else chosen(M, G, *a, **k)))
+    rng = np.random.default_rng(25)
+    first = tuple(int(x) for x in rng.multinomial(128, [1 / 32] * 32))
+    second = tuple(int(x) for x in rng.multinomial(128, [1 / 32] * 32))
+    xq, a_scale, (wa, sa, wb, sb), gs = q8_inputs(rng, dev, first, 2880, 2880, torch.bfloat16, 2)
+    dq, d_scale, (dw, dws), _ = q8_inputs(rng, dev, (32,), 4096, 4096, torch.bfloat16)
+
+    def step():
+        return (*ops.grouped_matmul_q8_pair(xq, a_scale, wa, sa, wb, sb, gs, torch.bfloat16),
+                ops.matmul_q8(dq, d_scale, dw[0], dws[0], torch.bfloat16))
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        step()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        outs = step()
+    xn, an, _, gn = q8_inputs(rng, dev, second, 2880, 2880, torch.bfloat16)
+    xq.copy_(xn)
+    a_scale.copy_(an)
+    gs.copy_(gn)
+    dn, dsn, _, _ = q8_inputs(rng, dev, (32,), 4096, 16, torch.bfloat16)
+    dq.copy_(dn)
+    d_scale.copy_(dsn)
+    graph.replay()
+    torch.cuda.synchronize()
+    want = ops.grouped_matmul_q8_pair_plain(xq, a_scale, wa, sa, wb, sb, gs, torch.bfloat16)
+    assert torch.equal(outs[0], want[0]) and torch.equal(outs[1], want[1])
+    assert torch.equal(outs[2], ops.matmul_q8_plain(dq, d_scale, dw[0], dws[0], torch.bfloat16))
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.float16])
 @pytest.mark.parametrize("M,K", [(1, 16), (5, 4096), (300, 2880), (33, 14336)])
 def test_quantize_rows_kernel_is_bit_equal_to_plain(dev, dtype, M, K):
@@ -644,7 +721,7 @@ def test_int8_wrappers_refuse_what_the_kernels_do_not_take(dev):
 
     xq = torch.zeros((4, 24), dtype=torch.int8, device=dev)
     s = torch.ones(4, device=dev)
-    w, ws = torch.zeros((1, 24, 32), dtype=torch.int8, device=dev), torch.ones((1, 32), device=dev)
+    w, ws = torch.zeros((1, 32, 24), dtype=torch.int8, device=dev), torch.ones((1, 32), device=dev)
     with pytest.raises(ValueError, match="multiples of 16"):
         ops.grouped_matmul_q8(xq, s, w, ws, torch.tensor([4], dtype=torch.int32, device=dev),
                               torch.bfloat16)
@@ -654,6 +731,17 @@ def test_int8_wrappers_refuse_what_the_kernels_do_not_take(dev):
         grouped_gemm._check_q8(xq, s, (w,), (torch.ones((2, 32), device=dev),), None, torch.bfloat16)
     with pytest.raises(ValueError, match="int8"):
         ops.matmul_q8(xq, s, w[0].float(), ws[0], torch.bfloat16)
+    # A [.., K, N] int8 weight (JAX's layout) is refused: the branch reads
+    # K-major weights only.
+    xq = torch.zeros((4, 256), dtype=torch.int8, device=dev)
+    kn = torch.zeros((256, 128), dtype=torch.int8, device=dev)
+    with pytest.raises(ValueError, match="K-major"):
+        ops.matmul_q8(xq, s, kn, torch.ones(128, device=dev), torch.bfloat16)
+    with pytest.raises(ValueError, match="K-major"):
+        ops.grouped_matmul_q8(xq, s, kn[None], torch.ones((1, 128), device=dev),
+                              torch.tensor([4], dtype=torch.int32, device=dev), torch.bfloat16)
+    with pytest.raises(ValueError, match="contiguous"):  # a K-major view of it
+        ops.matmul_q8(xq, s, kn.mT, torch.ones(256, device=dev), torch.bfloat16)
     with pytest.raises(ValueError, match="multiple of 16"):
         quant.quantize_rows(torch.zeros((2, 24), device=dev))
     with pytest.raises(ValueError, match="contiguous"):

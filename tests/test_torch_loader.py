@@ -277,6 +277,15 @@ def test_int8_tree_matches_jax(saved):
     got = loader.load_params(port_cfg, saved.model_dir, device="cpu")
     assert_trees_equal(got, want)
     assert got["layers"]["wo"].dtype == torch.int8 and "wo_scale" in got["layers"]
+    # The int8 leaves are K-major: the JAX loader's [.., in, out] leaf
+    # transposed, bit for bit.
+    jtree = dict(flat_tree(jloader.load_params(ref_cfg, saved.model_dir)))
+    flat_got = dict(flat_tree(got))
+    shared = [k for k, leaf in jtree.items() if leaf.dtype == np.int8 and k in flat_got]
+    assert "layers.wo" in shared
+    for key in shared:
+        assert flat_got[key].is_contiguous(), key
+        assert torch.equal(flat_got[key].mT, torch.from_numpy(np.asarray(jtree[key]))), key
 
 
 def test_missing_tensor_and_unported_fields_raise(tmp_path):

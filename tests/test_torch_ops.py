@@ -468,7 +468,8 @@ def test_kernel_sources_are_built_from_the_package(tmp_path, monkeypatch):
 
     assert _build.sources() == [
         "decode_kv_write", "decode_paged_attention", "flat_kv_write",
-        "flat_paged_attention", "grouped_gemm", "mla_decode_attention", "quantize_rows",
+        "flat_paged_attention", "grouped_gemm", "grouped_gemm_s8", "mla_decode_attention",
+        "quantize_rows",
     ]
     assert "arch=compute_90a,code=sm_90a" in _build.NVCC_FLAGS
     # The header both attention kernels include is part of each library's

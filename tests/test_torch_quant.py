@@ -7,7 +7,9 @@ The same numpy inputs from a seed go through both packages. Bit for bit
 included) and ``dequantize``; the host quantizer against the device one;
 the int8 trees (names, shapes, dtypes; the port's ``init_params`` under
 int8 is ``quantize_param_tree`` of its float draw, fused or not) and the
-fused scales against ``_fuse_projection_tree``. The forward of an int8
+fused scales against ``_fuse_projection_tree``. The port keeps its int8
+leaves K-major (``[..., out, in]``), JAX ``[..., in, out]``: every int8
+leaf is held to JAX's through ``.mT`` (``jax_layout``). The forward of an int8
 model from the JAX int8 tree (``params_from_jax``): tiny (flat step),
 tiny-moe and tiny gpt-oss (flat step), tiny-mla (bucketed), logits within
 the forward tests' 1e-4. The greedy and seeded streams of the int8
@@ -79,6 +81,16 @@ def assert_same(got: torch.Tensor, want) -> None:
     assert torch.equal(got, want)
 
 
+def jax_layout(leaves: dict) -> dict:
+    """Flat leaves (tensors or numpy arrays) in JAX's layout: each int8
+    leaf beside a ``_scale`` read through ``.mT``."""
+    def mt(k, v):
+        if str(v.dtype).split(".")[-1] != "int8" or k + "_scale" not in leaves:
+            return v
+        return v.mT if isinstance(v, torch.Tensor) else np.swapaxes(v, -1, -2)
+    return {k: mt(k, v) for k, v in leaves.items()}
+
+
 def activations(rng, shape, dtype):
     """Rows at scales from 1e-3 to 1e2 with exact ties (k + 0.5 times the
     row's scale), an all-zero row and the row maximum at both signs."""
@@ -105,11 +117,13 @@ def test_quantize_weight_matches_jax(shape, dtype):
     assert_same(s, js)
     back = quant.dequantize(q, s, dtype=getattr(torch, dtype))
     assert_same(back, jquant.dequantize(jq, js, dtype=getattr(jnp, dtype)))
-    # Written into (non-contiguous) views a few columns at a time: the same bits.
-    qo = torch.zeros((*shape[:-1], shape[-1] + 16), dtype=torch.int8)[..., 8 : 8 + shape[-1]]
+    # Written K-major into (non-contiguous) views a few columns at a time,
+    # from w as it lies or through the .T of its [out, in] copy: the same bits.
     so = torch.zeros((*shape[:-2], shape[-1]), dtype=torch.float32)
-    quant.quantize_weight_into(from_jax(jw), qo, so, block=5 * shape[-2])
-    assert torch.equal(qo, q) and torch.equal(so, s)
+    for w_in in (from_jax(jw), from_jax(jw).mT.contiguous().mT):
+        qo = torch.zeros((*shape[:-2], shape[-1] + 16, shape[-2]), dtype=torch.int8)[..., 8 : 8 + shape[-1], :]
+        quant.quantize_weight_into(w_in, qo, so, block=5 * shape[-2])
+        assert torch.equal(qo.mT, q) and torch.equal(so, s)
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
@@ -128,7 +142,7 @@ def test_qdot_matches_jax(dtype):
     x = activations(rng, (5, 3, 80), dtype)
     jq, js = jquant.quantize_weight(jnp.asarray(rng.normal(size=(80, 48)), dtype))
     want = jquant.qdot(x, jq, js)
-    got = quant.qdot(from_jax(x), from_jax(jq), from_jax(js))
+    got = quant.qdot(from_jax(x), from_jax(jq).mT.contiguous(), from_jax(js))
     assert_same(got, want)
 
 
@@ -140,16 +154,17 @@ def test_grouped_matmul_q_matches_jax(dtype):
     jq, js = jquant.quantize_weight(jnp.asarray(rng.normal(size=(5, 64, 32)), dtype))
     want = jquant.grouped_matmul_q(x, jq, js, jnp.asarray(sizes))
     gs = t(sizes)
-    got = quant.grouped_matmul_q(from_jax(x), from_jax(jq), from_jax(js), gs)
+    wq = from_jax(jq).mT.contiguous()  # K-major [G, N, K]
+    got = quant.grouped_matmul_q(from_jax(x), wq, from_jax(js), gs)
     assert_same(got, want)
     # The pair: one quantized input, two weight tensors; each as one call.
     xq, a_scale = quant.quantize_rows(from_jax(x))
     pair = quant.grouped_gemm.grouped_matmul_q8_pair(
-        xq, a_scale, from_jax(jq), from_jax(js), from_jax(jq).flip(2).contiguous(),
+        xq, a_scale, wq, from_jax(js), wq.flip(1).contiguous(),
         from_jax(js).flip(1).contiguous(), gs, getattr(torch, dtype))
     assert torch.equal(pair[0], got)
     assert torch.equal(pair[1], quant.grouped_matmul_q(
-        from_jax(x), from_jax(jq).flip(2).contiguous(), from_jax(js).flip(1).contiguous(), gs))
+        from_jax(x), wq.flip(1).contiguous(), from_jax(js).flip(1).contiguous(), gs))
 
 
 def jax_float_tree(model, seed=0):
@@ -186,7 +201,7 @@ def test_quantized_trees_match_jax(model):
         for k, v in flat(ref):
             assert torch.equal(dict(flat(got))[k], v), k
         if not fused:
-            got = dict(flat(got))
+            got = jax_layout(dict(flat(got)))
             assert got.keys() == jtree.keys()
             for k, v in jtree.items():
                 assert (tuple(got[k].shape), str(got[k].dtype).split(".")[-1]) == (v.shape, v.dtype.name), k
@@ -194,9 +209,12 @@ def test_quantized_trees_match_jax(model):
     tree = jax_float_tree(MODELS[model])
     host, jhost = quant.quantize_param_tree_host(tree), jquant.quantize_param_tree_host(tree)
     dev = quant.quantize_param_tree(llama.params_from_jax(tree))
+    host, dev = jax_layout(dict(flat(host))), jax_layout(dict(flat(dev)))
+    assert host.keys() == dev.keys() == dict(flat(jhost)).keys()
     for k, v in flat(jhost):
-        np.testing.assert_array_equal(dict(flat(host))[k], v)
-        assert torch.equal(dict(flat(dev))[k], t(v)), k
+        assert host[k].shape == v.shape and host[k].dtype == v.dtype, k
+        np.testing.assert_array_equal(host[k], v)
+        assert torch.equal(dev[k], t(v)), k
 
 
 def test_fused_scales_match_jax():
@@ -207,14 +225,37 @@ def test_fused_scales_match_jax():
     jfused = jax.tree.map(np.asarray, _fuse_projection_tree(
         jquant.quantize_param_tree(jax.tree.map(jnp.asarray, tree))))
     got = llama.fuse_projections(llama.params_from_jax(jquant.quantize_param_tree_host(tree)))
+    flat_got = jax_layout(dict(flat(got)))
+    assert flat_got.keys() == dict(flat(jfused)).keys()
     for k, v in flat(jfused):
-        assert torch.equal(dict(flat(got))[k], t(v)), k
-    assert "layers.wqkv_scale" in dict(flat(got)) and "layers.w_gu_scale" in dict(flat(got))
+        assert torch.equal(flat_got[k], t(v)), k
+    assert "layers.wqkv_scale" in flat_got and "layers.w_gu_scale" in flat_got
     fused_first = quant.quantize_param_tree(llama.fuse_projections(llama.params_from_jax(tree)))
     for name in ("wqkv", "w_gu"):
         q, s = quant.quantize_weight(llama.fuse_projections(llama.params_from_jax(tree))["layers"][name])
-        assert torch.equal(q, got["layers"][name]) and torch.equal(s, got["layers"][name + "_scale"])
+        assert torch.equal(q.mT, got["layers"][name]) and torch.equal(s, got["layers"][name + "_scale"])
     assert "wqkv" not in quant.QUANT_NAMES and "wqkv_scale" not in fused_first["layers"]
+
+
+def test_square_int8_leaves_cross_from_jax_transposed():
+    """A square int8 leaf (gpt-oss's 2,880 x 2,880 experts, llama's wo)
+    looks the same in both layouts, so the wrappers cannot refuse JAX's:
+    ``params_from_jax`` transposes every int8 leaf beside a ``_scale``,
+    square or not, and leaves an int8 leaf without one as it is."""
+    rng = np.random.default_rng(9)
+    tree = {"layers": {"wo": rng.normal(size=(2, 48, 48)).astype(np.float32),
+                       "w_down": rng.normal(size=(2, 80, 48)).astype(np.float32)},
+            "ids": rng.integers(-127, 128, size=(48, 48)).astype(np.int8)}
+    jtree = jquant.quantize_param_tree_host(tree)
+    got = llama.params_from_jax(jtree)
+    for name in ("wo", "w_down"):
+        jleaf = jtree["layers"][name]
+        assert got["layers"][name].shape == jleaf.shape[:-2] + jleaf.shape[::-1][:2]
+        assert torch.equal(got["layers"][name], t(np.swapaxes(jleaf, -1, -2)))
+        assert torch.equal(got["layers"][name + "_scale"], t(jtree["layers"][name + "_scale"]))
+    assert not torch.equal(got["layers"]["wo"], t(jtree["layers"]["wo"]))  # square, yet transposed
+    assert torch.equal(got["ids"], t(tree["ids"]))
+    assert torch.equal(got["layers"]["wo"], quant.quantize_param_tree(llama.params_from_jax(tree))["layers"]["wo"])
 
 
 def int8_tree(model):
@@ -260,6 +301,12 @@ def test_int8_forward_matches_jax(model):
     jlogits = np.asarray(jlogits)
     params = llama.params_from_jax(tree)
     assert params["layers"]["wo"].dtype == torch.int8 and "lm_head_scale" in params
+    # Every int8 leaf K-major, JAX's leaf transposed bit for bit.
+    got, want = dict(flat(params)), dict(flat(tree))
+    int8 = [k for k, v in want.items() if v.dtype == np.int8]
+    assert int8 and all(k + "_scale" in want for k in int8)
+    for k in int8:
+        assert got[k].is_contiguous() and torch.equal(got[k].mT, t(want[k])), k
     th, _ = llama.forward_hidden(params, t(pool), tinp, tc)
     tlogits = llama.compute_logits(params, th.reshape(-1, tc.hidden_size), tc)
     np.testing.assert_allclose(th.reshape(-1, tc.hidden_size).numpy()[live],

@@ -61,7 +61,17 @@ through an HF checkpoint):
                bound (bytes, or int8 operations at 1,979 TOP/s), the plain
                version and, for a dense product, ``torch._int_mm`` plus the
                plain epilogue (no PyTorch call computes a grouped int8
-               product or quantizes rows).
+               product or quantizes rows). The fused forms of
+               ``quantize_rows`` at the same models' shapes:
+               ``add_rms_norm_quant`` (llama-3-8b's 4,096 at 32, 64 and
+               1,024 rows, qwen3-32b's 5,120, gpt-oss-20b's 2,880 with bo
+               and h written) and ``glu_quant`` (llama-3-8b's 14,336 and
+               qwen3-32b's 25,600 halves of gate|up, gpt-oss-20b's biased
+               clamped SwiGLU over unsorted expert ids at decode and
+               prefill, deepseek-v2-lite's experts and shared expert),
+               each held to its contract (``norm_quant_case``,
+               ``glu_quant_case``) and timed beside the unfused chain it
+               replaces ("unfused_ms").
 5. ``engine``  ``LLMEngine`` serving 8 greedy requests (chunked prefill and
                a prefix-cache hit included), four times: on the flat step
                (the flat pair must launch layers x steps times each); as
@@ -761,7 +771,8 @@ def _sdpa_yardstick(q, pool, layer, s, page, window: int = 0, sinks=None,
 def plain_ops(live_pages: int | None = None):
     """Route the model's fused KV writes, flat attention, decode kernels,
     latent decode attention, grouped GEMM and the int8 kernels (K6''s int8
-    branch and ``quantize_rows``) to their plain versions (the
+    branch, ``quantize_rows`` and its fused forms ``add_rms_norm_quant`` and
+    ``glu_quant``) to their plain versions (the
     reference runs of the forward phases), restoring the kernels after.
     ``live_pages`` bounds the plain decode attentions' gathers."""
     from llmd_tpu_torch import ops
@@ -772,7 +783,8 @@ def plain_ops(live_pages: int | None = None):
              ops.write_kv_pages_decode_full, ops.decode_paged_attention_full,
              ops.mla_decode_paged_attention_full, grouped_gemm.grouped_matmul,
              grouped_gemm.grouped_matmul_pair, quant.quantize_rows, grouped_gemm.matmul_q8,
-             grouped_gemm.grouped_matmul_q8, grouped_gemm.grouped_matmul_q8_pair)
+             grouped_gemm.grouped_matmul_q8, grouped_gemm.grouped_matmul_q8_pair,
+             quant.add_rms_norm_quant, quant.glu_quant)
 
     def attend(q, kv_cache, layer, rows, page_table, kv_lens, sm_scale=None,
                window=0, sinks=None, items=None):  # the plain version needs no tiles
@@ -805,6 +817,8 @@ def plain_ops(live_pages: int | None = None):
     grouped_gemm.matmul_q8 = ops.matmul_q8_plain
     grouped_gemm.grouped_matmul_q8 = ops.grouped_matmul_q8_plain
     grouped_gemm.grouped_matmul_q8_pair = ops.grouped_matmul_q8_pair_plain
+    quant.add_rms_norm_quant = ops.add_rms_norm_quant_plain
+    quant.glu_quant = ops.glu_quant_plain
     try:
         yield
     finally:
@@ -813,7 +827,8 @@ def plain_ops(live_pages: int | None = None):
          ops.write_kv_pages_decode_full, ops.decode_paged_attention_full,
          ops.mla_decode_paged_attention_full, grouped_gemm.grouped_matmul,
          grouped_gemm.grouped_matmul_pair, quant.quantize_rows, grouped_gemm.matmul_q8,
-         grouped_gemm.grouped_matmul_q8, grouped_gemm.grouped_matmul_q8_pair) = saved
+         grouped_gemm.grouped_matmul_q8, grouped_gemm.grouped_matmul_q8_pair,
+         quant.add_rms_norm_quant, quant.glu_quant) = saved
 
 
 def forward_phase(info: dict, params: dict) -> None:
@@ -3838,7 +3853,7 @@ def qwen_phases() -> dict:
 
 
 # --------------------------------------------------------------------- #
-# int8 weights (W8A8): K6''s int8 branch and quantize_rows.
+# int8 weights (W8A8): K6''s int8 branch, quantize_rows and its fused forms.
 
 INT8_OPS_PER_S = 1979e12  # H100 SXM dense int8 tensor-core peak (NVIDIA data sheet)
 F32_OPS_PER_S = 67e12  # H100 SXM f32 outside the tensor cores (the same sheet)
@@ -3854,22 +3869,33 @@ Q8_KEYS = ("max_abs_err", "ms", "event_ms", "host_us", "plain_ms", "bound_ms", "
 def q8_launches(cfg, forwards: int) -> dict:
     """Launches of the int8 wrappers in ``forwards`` forwards of a model
     with int8 weights, each followed by its logits (one ``lm_head``
-    product unless the head is tied): every dense product (``matmul_q8``:
-    q|k|v and o, or MLA's projections; gate|up and down, or their unfused
-    three in an MLA tree's dense layers; a shared expert's three) after one
-    ``quantize_rows``, and in a MoE layer the experts' pair and down call,
-    each after one. All zeros without int8 weights."""
+    product unless the head is tied). Every layer's two norms are one
+    ``add_rms_norm_quant`` each (the input norm taking the previous layer's
+    output, the post norm the attention output), and MLA's ``q_norm``
+    another where ``q_lora_rank > 0``; every gated unit is one ``glu_quant``
+    (a dense MLP's, the experts', a shared expert's); ``quantize_rows`` is
+    left to the attention output (``wo``) and ``lm_head``. Every dense
+    product is one ``matmul_q8`` (q|k|v and o, or MLA's projections;
+    gate|up and down, or their unfused three in an MLA tree's dense layers;
+    a shared expert's three), a MoE layer's experts one pair and one down
+    call. All zeros without int8 weights."""
+    keys = ("quantize_rows", "matmul_q8", "grouped_matmul_q8", "grouped_matmul_q8_pair",
+            "add_rms_norm_quant", "glu_quant")
     if cfg.quantization != "int8":
-        return {"quantize_rows": 0, "matmul_q8": 0, "grouped_matmul_q8": 0,
-                "grouped_matmul_q8_pair": 0}
+        return dict.fromkeys(keys, 0)
     L = cfg.num_layers
     n_moe = L - cfg.first_dense_layers if cfg.is_moe else 0
-    attn = (4 if cfg.q_lora_rank > 0 else 3) if cfg.is_mla else 2
+    q_lora = cfg.is_mla and cfg.q_lora_rank > 0
+    attn = (4 if q_lora else 3) if cfg.is_mla else 2
     mlp = 3 if cfg.is_mla else 2  # MLA trees stay unfused
     shared = 3 if cfg.shared_expert_intermediate_size else 0
-    dense = L * attn + (L - n_moe) * mlp + n_moe * shared + (0 if cfg.tie_word_embeddings else 1)
-    return {"quantize_rows": forwards * (dense + 2 * n_moe), "matmul_q8": forwards * dense,
-            "grouped_matmul_q8": forwards * n_moe, "grouped_matmul_q8_pair": forwards * n_moe}
+    head = 0 if cfg.tie_word_embeddings else 1
+    dense = L * attn + (L - n_moe) * mlp + n_moe * shared + head
+    glus = (L - n_moe) + n_moe * (1 + (shared > 0))
+    return {"quantize_rows": forwards * (L + head), "matmul_q8": forwards * dense,
+            "grouped_matmul_q8": forwards * n_moe, "grouped_matmul_q8_pair": forwards * n_moe,
+            "add_rms_norm_quant": forwards * L * (3 if q_lora else 2),
+            "glu_quant": forwards * glus}
 
 
 def q8_bound(nbytes: float, ops: float, ops_per_s: float = INT8_OPS_PER_S) -> dict:
@@ -3999,6 +4025,132 @@ def quantize_rows_case(M: int, K: int, g, dev) -> dict:
     return row
 
 
+FUSED_SOURCE = {"route": "cuda", "source": "llmd_tpu_torch/ops/csrc/quantize_rows.cu"}
+NORM_REPLACES = ("none (llmd_tpu/models/common.py:62 rms_norm after the residual add, then "
+                 "llmd_tpu/ops/quant.py:116 quantize_activations: XLA in JAX)")
+GLU_REPLACES = ("none (llmd_tpu/models/llama.py:154 silu(gate) * up, llmd_tpu/models/moe.py:112 "
+                "expert_glu, then llmd_tpu/ops/quant.py:116 quantize_activations: XLA in JAX)")
+FUSED_KEYS = (*Q8_KEYS, "unfused_ms")
+# The norm's rsqrt factor: the kernel's within 2^-21 (a few f32 ulps) of
+# the plain chain's, whose sum of squares runs in another order.
+RSTD_REL = 2.0**-21
+
+
+def apart(got: torch.Tensor, want: torch.Tensor) -> dict:
+    """How far a bf16 row lies from the plain chain's: elements apart,
+    elements beyond one ulp (``outside_one_ulp``'s bound), max error."""
+    diff = (got.float() - want.float()).abs()
+    beyond = diff > BF16_ATOL + BF16_ULP * want.float().abs()
+    return {"elements_apart": int((got != want).sum().item()), "beyond_one_ulp": int(beyond.sum().item()),
+            "max_abs_err": diff.max().item()}
+
+
+def fused_times(call, plain, unfused, nbytes: float, ops: float) -> dict:
+    """A fused form's times: the model's call (``kernel_times``), the
+    plain version, the unfused chain it replaces (PyTorch's ops, then the
+    ``quantize_rows`` kernel; device time, as "ms"), and the bound (bytes
+    at 3.35 TB/s, f32 operations at 67 TFLOP/s)."""
+    row = {**kernel_times(call), "plain_ms": cuda_ms(plain, reps=3, warmup=1),
+           "unfused_ms": device_ms(unfused), **q8_bound(nbytes, ops, F32_OPS_PER_S),
+           "library_ms": None,
+           "library_call": "none: no PyTorch call computes a norm or a gated unit with an int8 quantization"}
+    row["bound_share"] = row["bound_ms"] / row["ms"]
+    return row
+
+
+def norm_quant_case(M: int, K: int, g, dev, bias: bool = False, want_h: bool = False) -> dict:
+    """``add_rms_norm_quant`` as a post norm: the residual x plus a branch
+    output (plus ``bo`` where ``bias``), the norm with a random weight, the
+    quantized rows (and h where the model writes it, ``want_h``). Held to
+    the contract: x_new bit-equal to the plain chain's; h bit-equal to the
+    plain chain's arithmetic after its reduction, run with the kernel's
+    rsqrt factor, which is within ``RSTD_REL`` of the plain chain's; (xq,
+    a_scale) bit-equal to ``quantize_rows_plain`` of the kernel's h, and
+    the same without h written. h against the plain chain's h is reported
+    (``apart``): one f32 ulp of the factor can move bf16(x r) by one ulp,
+    which the weight product can make two."""
+    from llmd_tpu_torch.models.common import rms_norm
+    from llmd_tpu_torch.ops import quant
+
+    dt, eps = torch.bfloat16, 1e-5
+    x, d = (torch.randn((M, K), generator=g, device=dev, dtype=dt) for _ in range(2))
+    w = torch.randn((K,), generator=g, device=dev, dtype=dt)
+    b = torch.randn((K,), generator=g, device=dev, dtype=dt) * 0.1 if bias else None
+    rk, rp = torch.empty(M, device=dev), torch.empty(M, device=dev)
+    xk, hk, qk, sk = quant.add_rms_norm_quant(x, d, b, w, eps, True, rk)
+    xp, hp, _, _ = quant.add_rms_norm_quant_plain(x, d, b, w, eps, True, rp)
+    wq, ws = quant.quantize_rows_plain(hk)
+    _, _, q2, s2 = quant.add_rms_norm_quant(x, d, b, w, eps)
+    after = (xk.float() * rk[:, None]).to(dt) * w
+    torch.cuda.synchronize()
+    rel = ((rk - rp).abs() / rp).max().item()
+    checks = {"x_new_bit_equal": torch.equal(xk, xp), "h_bit_equal_given_rstd": torch.equal(hk, after),
+              "rstd_rel_err": rel, "quantized_bit_equal": torch.equal(qk, wq) and torch.equal(sk, ws),
+              "quantized_without_h_bit_equal": torch.equal(q2, qk) and torch.equal(s2, sk)}
+    if not (checks["x_new_bit_equal"] and checks["h_bit_equal_given_rstd"] and rel <= RSTD_REL
+            and checks["quantized_bit_equal"] and checks["quantized_without_h_bit_equal"]):
+        raise AssertionError(f"add_rms_norm_quant {M} x {K} breaks its contract: {checks}")
+    row = {**checks, **apart(hk, hp)}
+    del xk, hk, qk, sk, xp, hp, wq, ws, q2, s2, after
+    args = (x, d, b, w, eps, want_h)
+    # x, delta, x_new (+ h) in bf16, xq, the scales, the weight and bias.
+    nbytes = (6 + 2 * want_h + 1) * M * K + 4 * M + 2 * K * (2 if bias else 1)
+    row.update(fused_times(
+        lambda: quant.add_rms_norm_quant(*args), lambda: quant.add_rms_norm_quant_plain(*args),
+        lambda: quant.quantize_rows(rms_norm(x + (d if b is None else d + b), w, eps)),
+        nbytes, 14.0 * M * K))
+    row.update(M=M, K=K, bias=bias, h_written=want_h)
+    return row
+
+
+def glu_quant_case(M: int, F: int, g, dev, kind: str = "silu", limit: float = 0.0,
+                   experts: int = 0, split: bool = True) -> dict:
+    """``glu_quant`` on a gate|up product: one [M, 2F] output split in two
+    (``split``, the dense w_gu) or two [M, F] outputs (the experts' pair, a
+    shared expert), with the experts' biases picked by unsorted expert ids
+    where ``experts``. Held to the contract: act within one bf16 ulp of the
+    plain chain's (``apart`` reports it), (xq, a_scale) bit-equal to
+    ``quantize_rows_plain`` of the kernel's act, and the same without act
+    written."""
+    from llmd_tpu_torch.ops import quant
+
+    dt = torch.bfloat16
+    if split:
+        gu = torch.randn((M, 2 * F), generator=g, device=dev, dtype=dt) * 3
+        gate, up = gu, None
+    else:
+        gate, up = (torch.randn((M, F), generator=g, device=dev, dtype=dt) * 3 for _ in range(2))
+    biases, ids = None, None
+    if experts:
+        biases = tuple(torch.randn((experts, F), generator=g, device=dev, dtype=dt) for _ in range(2))
+        ids = torch.randint(0, experts, (M,), generator=g, device=dev)
+    args = (gate, up, kind, limit, biases, ids)
+    qk, sk, ak = quant.glu_quant(*args, want_act=True)
+    _, _, ap = quant.glu_quant_plain(*args, want_act=True)
+    wq, ws = quant.quantize_rows_plain(ak)
+    q2, s2, _ = quant.glu_quant(*args)
+    torch.cuda.synchronize()
+    row = {"quantized_bit_equal": torch.equal(qk, wq) and torch.equal(sk, ws),
+           "quantized_without_act_bit_equal": torch.equal(q2, qk) and torch.equal(s2, sk),
+           **apart(ak, ap)}
+    if row["beyond_one_ulp"] or not (row["quantized_bit_equal"] and row["quantized_without_act_bit_equal"]):
+        raise AssertionError(f"glu_quant {kind} {M} x {F} breaks its contract: {row}")
+    del qk, sk, ak, ap, wq, ws, q2, s2
+    live = int(torch.unique(ids).numel()) if experts else 0
+
+    def unfused():
+        g_, u_ = (gate[:, :F], gate[:, F:]) if split else (gate, up)
+        if biases is not None:
+            g_, u_ = g_ + biases[0][ids], u_ + biases[1][ids]
+        return quant.quantize_rows(quant.glu(g_, u_, kind, limit).contiguous())
+
+    nbytes = 5 * M * F + 4 * M + (8 * M + 4 * live * F if experts else 0)
+    row.update(fused_times(lambda: quant.glu_quant(*args), lambda: quant.glu_quant_plain(*args),
+                           unfused, nbytes, 10.0 * M * F))
+    row.update(M=M, F=F, kind=kind, experts=experts, live_experts=live, split=split)
+    return row
+
+
 def quant_kernels_phase(info: dict) -> dict:
     """K6''s int8 branch and ``quantize_rows`` at the int8 models' shapes,
     each bit-equal to its plain version and timed beside its bound (bytes
@@ -4009,8 +4161,10 @@ def quant_kernels_phase(info: dict) -> dict:
     dense-layer down (K 10,944) at a 128-token step (16 items: the
     longest contraction over the fewest items), the experts
     of deepseek-v2-lite (48-token decode, 1,024-token prefill) and
-    gpt-oss-20b (32-token decode, 1,024-token prefill), and the rows
-    quantized before those products. Returns the kernel table's rows."""
+    gpt-oss-20b (32-token decode, 1,024-token prefill), the rows
+    quantized before those products, and the fused forms that quantize
+    the rows out of a norm or a gated unit (``norm_quant_case``,
+    ``glu_quant_case``). Returns the kernel table's rows."""
     from llmd_tpu_torch.models.registry import get_model_config
 
     dev = torch.device("cuda")
@@ -4059,6 +4213,30 @@ def quant_kernels_phase(info: dict) -> dict:
              "prefill 1024 tokens x 4096": (1024, H)}
     quantized = {name: quantize_rows_case(*c, g, dev) for name, c in qrows.items()}
     info["quantize_rows"] = quantized
+    norms = {f"{MODEL} decode 32 rows x {H}": (32, H), f"{MODEL} decode 64 rows x {H}": (64, H),
+             f"{MODEL} prefill 1024 tokens x {H}": (1024, H),
+             f"{QWEN_MODEL} decode 32 rows x {qH}": (32, qH)}
+    normed = {name: norm_quant_case(*c, g, dev) for name, c in norms.items()}
+    # gpt-oss's post norm: the attention output plus bo, h written for the router.
+    normed[f"{OSS_MODEL} decode 32 rows x {oss.hidden_size}, bo, h"] = norm_quant_case(
+        32, oss.hidden_size, g, dev, bias=True, want_h=True)
+    info["add_rms_norm_quant"] = normed
+    oss_kind = ("swiglu_oss", oss.swiglu_limit)
+    glus = {f"{MODEL} decode 32 rows x {F}": dict(M=32, F=F), f"{MODEL} decode 64 rows x {F}": dict(M=64, F=F),
+            f"{MODEL} prefill 1024 tokens x {F}": dict(M=1024, F=F),
+            f"{QWEN_MODEL} decode 32 rows x {qF}": dict(M=32, F=qF),
+            f"{OSS_MODEL} experts decode 32 tokens x {oss.moe_intermediate_size}": dict(
+                M=32 * ossk[1], F=oss.moe_intermediate_size, kind=oss_kind[0], limit=oss_kind[1],
+                experts=ossk[0], split=False),
+            f"{OSS_MODEL} experts prefill 1024 tokens x {oss.moe_intermediate_size}": dict(
+                M=1024 * ossk[1], F=oss.moe_intermediate_size, kind=oss_kind[0], limit=oss_kind[1],
+                experts=ossk[0], split=False),
+            f"{DS_MODEL} experts decode 48 tokens x {ds.moe_intermediate_size}": dict(
+                M=48 * dsk[1], F=ds.moe_intermediate_size, split=False),
+            f"{DS_MODEL} shared expert decode 48 rows x {ds.shared_expert_intermediate_size}": dict(
+                M=48, F=ds.shared_expert_intermediate_size, split=False)}
+    gated = {name: glu_quant_case(g=g, dev=dev, **c) for name, c in glus.items()}
+    info["glu_quant"] = gated
     table = {
         # table name: (cases, case, source, wrapper, model whose int8 engine run is its main path)
         "grouped_gemm_s8@dense decode 32, wqkv": (dense, "decode 32 rows, wqkv", Q8_SOURCE, "matmul_q8", MODEL),
@@ -4100,8 +4278,14 @@ def quant_kernels_phase(info: dict) -> dict:
         "quantize_rows@prefill 1024 x 4096": (
             quantized, "prefill 1024 tokens x 4096", QR_SOURCE, "quantize_rows", MODEL),
     }
+    for cases, wrapper, replaces in ((normed, "add_rms_norm_quant", NORM_REPLACES),
+                                     (gated, "glu_quant", GLU_REPLACES)):
+        for case in cases:
+            model = next(m for m in (QWEN_MODEL, OSS_MODEL, DS_MODEL, MODEL) if case.startswith(m))
+            table[f"{wrapper}@{case}"] = (cases, case, {**FUSED_SOURCE, "replaces": replaces}, wrapper, model)
+    keys = (*FUSED_KEYS, "form", "tile", "elements_apart", "beyond_one_ulp", "rstd_rel_err")
     return {name: {"name": name, **src, "wrapper": wrapper, "model": f"{model} int8", "shape": case,
-                   **{k: cases[case][k] for k in (*Q8_KEYS, "form", "tile") if k in cases[case]}}
+                   **{k: cases[case][k] for k in keys if k in cases[case]}}
             for name, (cases, case, src, wrapper, model) in table.items()}
 
 

@@ -77,6 +77,16 @@ def pdot(x: torch.Tensor, lp: dict, name: str) -> torch.Tensor:
     return qdot(x, lp[name], scale)
 
 
+def qpdot(rows, lp: dict, name: str) -> torch.Tensor:
+    """``lp[name]``'s int8 product on rows already quantized (``rows``: an
+    ``ops.quant.QRows``, from a fused form, one quantization for every
+    product that reads the same rows): K6''s int8 branch, ``[M, N]`` in
+    ``rows.dtype``."""
+    from llmd_tpu_torch.ops import grouped_gemm
+
+    return grouped_gemm.matmul_q8(rows.xq, rows.scale, lp[name], lp[name + "_scale"], rows.dtype)
+
+
 def rms_norm(x: torch.Tensor, weight: torch.Tensor, eps: float) -> torch.Tensor:
     dtype = x.dtype
     xf = x.float()

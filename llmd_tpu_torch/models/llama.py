@@ -25,9 +25,17 @@ int8 weights (``cfg.quantization == "int8"``, ``ops/quant.py``): the
 ``QUANT_NAMES`` leaves are int8, stored K-major (``[..., out, in]``, the
 layout s8 ``wgmma`` reads; the float leaves and JAX's int8 ones are
 ``[..., in, out]``), with a ``<name>_scale`` f32 sibling, and
-every projection goes through ``pdot``, which takes the int8 product
-(``qdot``: ``quantize_rows`` and K6''s int8 branch) where the scale is
-there; a tied head stays ``embed.T`` in the float dtype, as in JAX.
+every projection takes the int8 product (K6''s int8 branch) where the
+scale is there; a tied head stays ``embed.T`` in the float dtype, as in
+JAX. Rows that come out of a norm or a gated unit are quantized by the
+kernel that makes them: each norm takes the residual add pending before it
+(a layer hands its MLP or MoE output to the next layer's input norm, the
+attention output and ``bo`` to its post norm) in one
+``ops.quant.add_rms_norm_quant``, whose quantized rows every product that
+reads them shares (``qpdot``), and the gated unit before a down product is
+``ops.quant.glu_quant``. The attention output's rows (``wo``) and the final
+norm's (``lm_head``) keep ``pdot``: ``quantize_rows`` then the product.
+Float trees run the plain adds and norms, as before.
 """
 
 from __future__ import annotations
@@ -38,9 +46,10 @@ import torch.nn.functional as F
 
 from llmd_tpu_torch import ops
 from llmd_tpu_torch.config import ModelConfig
-from llmd_tpu_torch.models.common import StepInput, apply_rope, pdot, rms_norm, rope_tables
+from llmd_tpu_torch.models.common import StepInput, apply_rope, pdot, qpdot, rms_norm, rope_tables
 from llmd_tpu_torch.models.mla import mla_attention
 from llmd_tpu_torch.models.moe import moe_block_grouped
+from llmd_tpu_torch.ops import quant
 from llmd_tpu_torch.ops.quant import QUANT_NAMES, quantize_weight_into
 
 
@@ -257,7 +266,16 @@ def params_from_jax(tree: dict, device: str | torch.device = "cpu") -> dict:
     return out
 
 
-def _mlp(h: torch.Tensor, lp: dict) -> torch.Tensor:
+def _mlp(h: torch.Tensor | None, lp: dict, hq: quant.QRows | None = None) -> torch.Tensor:
+    """The dense SwiGLU MLP on h, or on its rows quantized (``hq``, int8
+    trees: gate and up share them, ``glu_quant`` quantizes the gated unit
+    for down; returns ``[M, H]``)."""
+    if hq is not None:
+        if "w_gu" in lp:
+            xq, scale, _ = quant.glu_quant(qpdot(hq, lp, "w_gu"))
+        else:
+            xq, scale, _ = quant.glu_quant(qpdot(hq, lp, "w_gate"), qpdot(hq, lp, "w_up"))
+        return qpdot(hq._replace(xq=xq, scale=scale), lp, "w_down")
     if "w_gu" in lp:
         gu = pdot(h, lp, "w_gu")
         Fi = gu.shape[-1] // 2
@@ -335,7 +353,6 @@ def forward_hidden(params: dict, kv_cache, inp: StepInput, cfg: ModelConfig, kv_
     been overwritten."""
     B, Q = inp.token_ids.shape
     D, Nq, K = cfg.head_dim, cfg.num_heads, cfg.num_kv_heads
-    x = params["embed"][inp.token_ids]  # [B, Q, H]
     # MLA rotates only its rope sub-dimension.
     rope_dim = cfg.qk_rope_head_dim if cfg.is_mla else D
     cos, sin = rope_tables(inp.positions, rope_dim, cfg.rope_theta, cfg.rope_scaling)
@@ -363,20 +380,48 @@ def forward_hidden(params: dict, kv_cache, inp: StepInput, cfg: ModelConfig, kv_
         tables = (inp.page_table, inp.swa_page_table)
         pairs = {g: _write_attend(inp, tables[g], page, cos, sin) for g in set(kinds)}
 
-    def layer(x, lp, i: int, moe: bool):
+    eps = cfg.rms_norm_eps
+
+    def norm(x, delta, bias, weight, lp, first: str, want_h: bool = False):
+        """The residual add pending before a norm (``x + (delta + bias)``;
+        none where delta is None) and the norm: (x, h, hq). Where the
+        product that reads h (``lp[first]``) is int8, one fused launch
+        (``quant.add_rms_norm_quant``) gives hq, h's rows quantized, and h
+        only ``want_h``; else the plain add and ``rms_norm``, hq None."""
+        if first + "_scale" not in lp:
+            if delta is not None:
+                x = x + (delta if bias is None else delta + bias)
+            return x, rms_norm(x, weight, eps), None
+        H = x.shape[-1]
+        xn, h, xq, scale = quant.add_rms_norm_quant(
+            x.reshape(-1, H), None if delta is None else delta.reshape(-1, H), bias, weight, eps, want_h)
+        return (xn.reshape(x.shape), None if h is None else h.reshape(x.shape),
+                quant.QRows(xq, scale, x.dtype))
+
+    def layer(x, delta, lp, i: int, moe: bool):
+        """One decoder layer on x with the previous layer's output ``delta``
+        still to add (None at the first): returns (x, its own output)."""
         kv, plane = caches[kinds[i]], planes[i]
-        h = rms_norm(x, lp["input_norm"], cfg.rms_norm_eps)
         if cfg.is_mla:
-            attn_out, _ = mla_attention(h, lp, kv, plane, inp, cfg, cos, sin, prep)
-            x = x + attn_out
+            first = "wq_a" if cfg.q_lora_rank > 0 else "wq"
         else:
+            first = "wqkv" if "wqkv" in lp else "wq"
+        x, h, hq = norm(x, delta, None, lp["input_norm"], lp, first)
+        bo = None
+        if cfg.is_mla:
+            attn_out, _ = mla_attention(h, lp, kv, plane, inp, cfg, cos, sin, prep, hq)
+        else:
+
+            def proj(name):
+                return pdot(h, lp, name) if hq is None else qpdot(hq, lp, name).reshape(B, Q, -1)
+
             if "wqkv" in lp:
-                qkv = pdot(h, lp, "wqkv")
+                qkv = proj("wqkv")
                 q = qkv[..., : Nq * D]
                 k = qkv[..., Nq * D : (Nq + K) * D]
                 v = qkv[..., (Nq + K) * D :]
             else:
-                q, k, v = pdot(h, lp, "wq"), pdot(h, lp, "wk"), pdot(h, lp, "wv")
+                q, k, v = proj("wq"), proj("wk"), proj("wv")
             q = q.reshape(B, Q, Nq, D)
             k = k.reshape(B, Q, K, D)
             v = v.reshape(B, Q, K, D)
@@ -384,27 +429,28 @@ def forward_hidden(params: dict, kv_cache, inp: StepInput, cfg: ModelConfig, kv_
             if cfg.qk_norm:  # Qwen3: per-head RMS norm (after any bias) before RoPE
                 q, k, v = ops.add_qkv_bias(q, k, v, bias)
                 bias = None
-                q = rms_norm(q, lp["attn_q_norm"], cfg.rms_norm_eps)
-                k = rms_norm(k, lp["attn_k_norm"], cfg.rms_norm_eps)
+                q = rms_norm(q, lp["attn_q_norm"], eps)
+                k = rms_norm(k, lp["attn_k_norm"], eps)
             write, attend = pairs[kinds[i]]
             q = write(kv, plane, q, k, v, bias)
             attn = attend(q, kv, plane, sm_scale, windows[i], lp.get("sinks"))
-            out = pdot(attn.reshape(B, Q, Nq * D), lp, "wo")
-            if "bo" in lp:
-                out = out + lp["bo"]
-            x = x + out
-        h2 = rms_norm(x, lp["post_norm"], cfg.rms_norm_eps)
-        return x + (moe_block_grouped(h2, lp, cfg) if moe else _mlp(h2, lp))
+            attn_out = pdot(attn.reshape(B, Q, Nq * D), lp, "wo")
+            bo = lp.get("bo")
+        mlp_first = "we_gate" if moe else "w_gu" if "w_gu" in lp else "w_gate"
+        x, h2, hq2 = norm(x, attn_out, bo, lp["post_norm"], lp, mlp_first, want_h=moe)
+        out = moe_block_grouped(h2, lp, cfg, hq2) if moe else _mlp(h2, lp, hq2)
+        return x, out.reshape(x.shape)
 
     i = 0
+    x, delta = params["embed"][inp.token_ids], None  # [B, Q, H]
     for key, moe in (("dense_layers", False), ("layers", cfg.is_moe)):
         stack = params.get(key)
         if stack is None:
             continue
         for j in range(stack["input_norm"].shape[0]):
-            x = layer(x, {name: w[j] for name, w in stack.items()}, i, moe)
+            x, delta = layer(x, delta, {name: w[j] for name, w in stack.items()}, i, moe)
             i += 1
-    hidden = rms_norm(x, params["final_norm"], cfg.rms_norm_eps)
+    hidden = rms_norm(x + delta, params["final_norm"], eps)
     return (hidden, kv_cache) if kv_swa is None else (hidden, kv_cache, kv_swa)
 
 

@@ -17,8 +17,11 @@ as K and V (the decode write kernel at ``Q == 1``); the attention is
 ``ops.mla_paged_attention_full`` (the latent decode kernel at ``Q == 1``).
 The absorption products stay ``torch.einsum``, as JAX leaves them to XLA;
 with int8 weights the projections (``wq``/``wq_a``/``wq_b``, ``wkv_a``,
-``wo``) take the int8 product (``pdot``) and ``wkv_b`` stays float, as in
-JAX.
+``wo``) take the int8 product and ``wkv_b`` stays float, as in JAX: the
+input norm's fused form quantizes h once for ``wq`` (or ``wq_a``) and
+``wkv_a`` (``hq``), ``q_norm`` and the quantization for ``wq_b`` are one
+``add_rms_norm_quant``, and ``kv_norm`` (its output is cached, not
+quantized) stays ``rms_norm``.
 DeepSeek's yarn temperature (``rope_scaling`` with ``mscale_all_dim``)
 multiplies ``sm_scale`` (``common.yarn_sm_scale_mult``), as in JAX.
 """
@@ -31,12 +34,13 @@ import torch.nn.functional as F
 from llmd_tpu_torch import ops
 from llmd_tpu_torch.config import ModelConfig
 from llmd_tpu_torch.models.common import (
-    StepInput, apply_rope, pdot, rms_norm, yarn_sm_scale_mult,
+    StepInput, apply_rope, pdot, qpdot, rms_norm, yarn_sm_scale_mult,
 )
+from llmd_tpu_torch.ops import quant
 
 
 def mla_write(
-    h: torch.Tensor,  # [B, Q, H] (input-normed)
+    h: torch.Tensor | None,  # [B, Q, H] (input-normed); None with hq
     lp: dict,
     cache: torch.Tensor,  # [L, pages, 1, page, Dl]
     layer: int,
@@ -45,26 +49,36 @@ def mla_write(
     cos: torch.Tensor,
     sin: torch.Tensor,
     prep=None,
+    hq: quant.QRows | None = None,  # int8 trees: h's rows quantized
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Project and cache this step's latent rows; returns (the pool,
     written in place, and the absorbed queries q_eff ``[B, Q, nh, Dl]``).
     ``prep`` is the step's decode-write addressing
     (``ops.decode_write_prep``) where the caller computed it once."""
-    B, Q, _ = h.shape
+    B, Q = inp.token_ids.shape
     nh = cfg.num_heads
     nope, rope = cfg.qk_nope_head_dim, cfg.qk_rope_head_dim
     rank = cfg.kv_lora_rank
     Dl = cfg.kv_cache_entry_dim
 
-    if cfg.q_lora_rank > 0:
-        q = pdot(rms_norm(pdot(h, lp, "wq_a"), lp["q_norm"], cfg.rms_norm_eps), lp, "wq_b")
+    if hq is None:
+        if cfg.q_lora_rank > 0:
+            q = pdot(rms_norm(pdot(h, lp, "wq_a"), lp["q_norm"], cfg.rms_norm_eps), lp, "wq_b")
+        else:
+            q = pdot(h, lp, "wq")
     else:
-        q = pdot(h, lp, "wq")
+        if cfg.q_lora_rank > 0:
+            _, _, xq, scale = quant.add_rms_norm_quant(
+                qpdot(hq, lp, "wq_a"), None, None, lp["q_norm"], cfg.rms_norm_eps)
+            q = qpdot(hq._replace(xq=xq, scale=scale), lp, "wq_b")
+        else:
+            q = qpdot(hq, lp, "wq")
     q = q.reshape(B, Q, nh, nope + rope)
     q_nope, q_pe = q[..., :nope], q[..., nope:]
     q_pe = apply_rope(q_pe, cos, sin)
 
-    kv_a = pdot(h, lp, "wkv_a")  # [B, Q, rank + rope]
+    kv_a = (pdot(h, lp, "wkv_a") if hq is None  # [B, Q, rank + rope]
+            else qpdot(hq, lp, "wkv_a").reshape(B, Q, rank + rope))
     c_kv = rms_norm(kv_a[..., :rank], lp["kv_norm"], cfg.rms_norm_eps)
     k_pe = apply_rope(kv_a[..., None, rank:], cos, sin)[:, :, 0]  # one shared head
     latent = F.pad(torch.cat([c_kv, k_pe], dim=-1), (0, Dl - rank - rope))
@@ -120,7 +134,9 @@ def mla_attention(
     cos: torch.Tensor,
     sin: torch.Tensor,
     prep=None,
+    hq: quant.QRows | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
-    """Returns (attention output ``[B, Q, hidden]``, the pool)."""
-    cache, q_eff = mla_write(h, lp, cache, layer, inp, cfg, cos, sin, prep)
+    """Returns (attention output ``[B, Q, hidden]``, the pool). int8 trees
+    pass h's rows quantized (``hq``) in place of h."""
+    cache, q_eff = mla_write(h, lp, cache, layer, inp, cfg, cos, sin, prep, hq)
     return mla_read(q_eff, lp, cache, layer, inp, cfg), cache

@@ -8,8 +8,11 @@ expert multiplies only its routed rows. The router covers Mixtral/Qwen3
 group-limited selection, optional renormalisation, routed scaling) and
 gpt-oss (a router bias folded into the logits); the experts' GLU is SwiGLU
 or gpt-oss's clamped one with per-expert biases. int8 experts (their
-``we_*_scale`` leaves) run K6''s int8 branch; the router and the biases
-stay float. The dense-combine and expert-parallel blocks are not ported.
+``we_*_scale`` leaves) run K6''s int8 branch on rows quantized once (the
+post-norm's fused form gives them, with h for the router, which stays
+float, as do the biases); the gated units, shared expert's included, run
+``ops.quant.glu_quant``, which quantizes their output for the down
+product. The dense-combine and expert-parallel blocks are not ported.
 """
 
 from __future__ import annotations
@@ -18,7 +21,8 @@ import torch
 import torch.nn.functional as F
 
 from llmd_tpu_torch.config import ModelConfig
-from llmd_tpu_torch.models.common import pdot
+from llmd_tpu_torch.models.common import pdot, qpdot
+from llmd_tpu_torch.ops import quant
 from llmd_tpu_torch.ops.grouped_gemm import moe_apply_grouped
 
 
@@ -82,20 +86,22 @@ def _expert_biases(lp: dict) -> tuple | None:
     return (lp["we_gate_b"], lp["we_up_b"], lp["we_down_b"])
 
 
+def glu_kind(cfg: ModelConfig | None) -> tuple[str, float]:
+    """(``ops.quant.glu``'s kind, its clamp) of a config's experts."""
+    if cfg is not None and cfg.moe_activation == "swiglu_oss":
+        return "swiglu_oss", cfg.swiglu_limit
+    return "silu", 0.0
+
+
 def expert_glu(
     gate: torch.Tensor, up: torch.Tensor, cfg: ModelConfig | None = None
 ) -> torch.Tensor:
-    """The experts' gated unit before the down projection. silu (Mixtral,
-    Qwen, DeepSeek; also without ``cfg``): silu(gate) * up. swiglu_oss
-    (gpt-oss): gate clamped above at ``swiglu_limit``, up clamped to
-    [-limit, limit], glu = gate * sigmoid(1.702 * gate), out = (up + 1) *
+    """The experts' gated unit before the down projection (``ops.quant.glu``).
+    silu (Mixtral, Qwen, DeepSeek; also without ``cfg``): silu(gate) * up.
+    swiglu_oss (gpt-oss): gate clamped above at ``swiglu_limit``, up clamped
+    to [-limit, limit], glu = gate * sigmoid(1.702 * gate), out = (up + 1) *
     glu."""
-    if cfg is not None and cfg.moe_activation == "swiglu_oss":
-        gate = gate.clamp(max=cfg.swiglu_limit)
-        up = up.clamp(-cfg.swiglu_limit, cfg.swiglu_limit)
-        glu = gate * torch.sigmoid(1.702 * gate)
-        return (up + 1.0) * glu
-    return F.silu(gate) * up
+    return quant.glu(gate, up, *glu_kind(cfg))
 
 
 def _expert_scales(lp: dict) -> tuple | None:
@@ -105,15 +111,22 @@ def _expert_scales(lp: dict) -> tuple | None:
     return (lp["we_gate_scale"], lp["we_up_scale"], lp["we_down_scale"])
 
 
-def shared_expert_ffn(ht: torch.Tensor, lp: dict) -> torch.Tensor:
-    """DeepSeek's always-on shared expert, a dense SwiGLU MLP (int8
-    products where the tree is quantized)."""
-    return pdot(F.silu(pdot(ht, lp, "ws_gate")) * pdot(ht, lp, "ws_up"), lp, "ws_down")
+def shared_expert_ffn(ht: torch.Tensor, lp: dict, hq: quant.QRows | None = None) -> torch.Tensor:
+    """DeepSeek's always-on shared expert, a dense SwiGLU MLP. int8: its
+    gate and up read the rows ``hq`` quantized once, and ``glu_quant``
+    quantizes the gated unit for down."""
+    if hq is None:
+        return pdot(F.silu(pdot(ht, lp, "ws_gate")) * pdot(ht, lp, "ws_up"), lp, "ws_down")
+    xq, scale, _ = quant.glu_quant(qpdot(hq, lp, "ws_gate"), qpdot(hq, lp, "ws_up"))
+    return qpdot(quant.QRows(xq, scale, hq.dtype), lp, "ws_down")
 
 
-def moe_block_grouped(h: torch.Tensor, lp: dict, cfg: ModelConfig) -> torch.Tensor:
+def moe_block_grouped(h: torch.Tensor, lp: dict, cfg: ModelConfig,
+                      hq: quant.QRows | None = None) -> torch.Tensor:
     """MoE FFN on ``[B, Q, H]``: route, run each routed row through its
-    expert by grouped GEMM, combine in f32, add the shared expert."""
+    expert by grouped GEMM, combine in f32, add the shared expert. int8
+    experts (and an int8 shared expert) read ``hq``, h's rows quantized by
+    the post norm's fused form."""
     B, Q, H = h.shape
     ht = h.reshape(B * Q, H)
     weights, ids = router_topk(
@@ -121,8 +134,8 @@ def moe_block_grouped(h: torch.Tensor, lp: dict, cfg: ModelConfig) -> torch.Tens
     )
     out = moe_apply_grouped(
         ht, weights, ids, lp["we_gate"], lp["we_up"], lp["we_down"],
-        scales=_expert_scales(lp), biases=_expert_biases(lp), cfg=cfg,
+        scales=_expert_scales(lp), biases=_expert_biases(lp), cfg=cfg, hq=hq,
     ).to(h.dtype)
     if cfg.shared_expert_intermediate_size:
-        out = out + shared_expert_ffn(ht, lp)
+        out = out + shared_expert_ffn(ht, lp, hq)
     return out.reshape(B, Q, H)

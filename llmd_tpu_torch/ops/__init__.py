@@ -30,7 +30,9 @@ GEMM (``grouped_matmul_pair``: gate and up in one launch). The latent rows are w
 int8 weights (``ModelConfig.quantization="int8"``, ``ops/quant.py``): every
 int8 product runs K6''s int8 branch (``matmul_q8`` for a dense product,
 ``grouped_matmul_q8`` and ``grouped_matmul_q8_pair`` for the experts) on
-rows that ``quantize_rows`` quantized.
+rows that ``quantize_rows`` quantized, or that the kernel making them
+quantized: ``add_rms_norm_quant`` (residual add, RMSNorm, quantization)
+and ``glu_quant`` (gated unit, quantization).
 
 GQA layers write through the fused entries: ``rope_write_kv_flat`` (the
 flat step) and ``rope_write_kv_decode`` (``Q == 1`` rows) add the q|k|v
@@ -83,7 +85,14 @@ from llmd_tpu_torch.ops.paged_attention import (
     scatter_kv_scales_flat,
     write_kv_pages,
 )
-from llmd_tpu_torch.ops.quant import quantize_rows, quantize_rows_plain
+from llmd_tpu_torch.ops.quant import (
+    add_rms_norm_quant,
+    add_rms_norm_quant_plain,
+    glu_quant,
+    glu_quant_plain,
+    quantize_rows,
+    quantize_rows_plain,
+)
 from llmd_tpu_torch.ops.quant_kv import (
     dequantize_pages,
     quantize_kv_rows,
@@ -111,6 +120,8 @@ KERNELS = (
     matmul_q8,
     grouped_matmul_q8,
     grouped_matmul_q8_pair,
+    add_rms_norm_quant,
+    glu_quant,
 )
 
 # Above this many gathered positions the dense attention's [B, Q, .., S]
@@ -421,6 +432,8 @@ __all__ = [
     "BRANCHED",
     "KERNELS",
     "add_launches",
+    "add_rms_norm_quant",
+    "add_rms_norm_quant_plain",
     "add_qkv_bias",
     "branch_launch_counts",
     "dequantize_pages",
@@ -437,6 +450,8 @@ __all__ = [
     "flat_paged_attention_full",
     "flat_paged_attention_plain",
     "flat_work_items",
+    "glu_quant",
+    "glu_quant_plain",
     "grouped_matmul",
     "grouped_matmul_pair",
     "grouped_matmul_pair_plain",

@@ -504,7 +504,7 @@ grouped_matmul_q8_pair.launches = 0
 
 
 def expert_mlp_grouped(
-    x_sorted: torch.Tensor,  # [M, H] rows sorted by expert
+    x_sorted,  # [M, H] rows sorted by expert; int8 experts: a quant.QRows of them
     group_sizes: torch.Tensor,  # [E] int32
     we_gate: torch.Tensor,  # [E, H, F] float, or int8 [E, F, H] (K-major) with scales
     we_up: torch.Tensor,  # like we_gate
@@ -517,26 +517,28 @@ def expert_mlp_grouped(
     """The routed rows' expert MLP: gate and up in one pair call, the GLU,
     down in a second call; each row's expert biases added after its
     products (``expert_ids`` says whose they are; required with
-    ``biases``). With ``scales`` the experts are int8: the rows are
-    quantized once for the pair (JAX quantizes them once a product, to the
-    same bits) and the GLU's output once for down."""
-    from llmd_tpu_torch.models.moe import expert_glu
+    ``biases``). With ``scales`` the experts are int8 and ``x_sorted`` is a
+    ``quant.QRows``: the rows quantized once for the pair (JAX quantizes
+    them once a product, to the same bits); ``quant.glu_quant`` adds the
+    gate and up biases, runs the GLU and quantizes its output for down in
+    one launch."""
+    from llmd_tpu_torch.models.moe import expert_glu, glu_kind
     from llmd_tpu_torch.ops import quant
 
     if scales is None:
         gate, up = grouped_matmul_pair(x_sorted, we_gate, we_up, group_sizes)
-    else:
-        xq, a_scale = quant.quantize_rows(x_sorted)
-        gate, up = grouped_matmul_q8_pair(xq, a_scale, we_gate, scales[0], we_up, scales[1],
-                                          group_sizes, x_sorted.dtype)
-    if biases is not None:
-        gate = gate + biases[0][expert_ids]
-        up = up + biases[1][expert_ids]
-    act = expert_glu(gate, up, cfg).to(x_sorted.dtype).contiguous()
-    if scales is None:
+        if biases is not None:
+            gate = gate + biases[0][expert_ids]
+            up = up + biases[1][expert_ids]
+        act = expert_glu(gate, up, cfg).to(x_sorted.dtype).contiguous()
         out = grouped_matmul(act, we_down, group_sizes)
     else:
-        out = quant.grouped_matmul_q(act, we_down, scales[2], group_sizes)
+        xq, a_scale, dtype = x_sorted
+        gate, up = grouped_matmul_q8_pair(xq, a_scale, we_gate, scales[0], we_up, scales[1],
+                                          group_sizes, dtype)
+        aq, act_scale, _ = quant.glu_quant(gate, up, *glu_kind(cfg),
+                                           None if biases is None else biases[:2], expert_ids)
+        out = grouped_matmul_q8(aq, act_scale, we_down, scales[2], group_sizes, dtype)
     if biases is not None:
         out = out + biases[2][expert_ids].to(out.dtype)
     return out
@@ -552,10 +554,14 @@ def moe_apply_grouped(
     scales: tuple | None = None,
     biases: tuple | None = None,
     cfg=None,
+    hq=None,  # int8 experts: ht's rows quantized (a quant.QRows)
 ) -> torch.Tensor:  # [T, H] f32
     """Route -> stable sort by expert -> grouped MLP -> weighted combine.
     A sorted row's expert is ``flat_ids[order]`` (JAX's ``repeat(arange(E),
-    group_sizes)``, without the host read ``repeat_interleave`` makes)."""
+    group_sizes)``, without the host read ``repeat_interleave`` makes).
+    int8 experts gather ``hq``'s rows and scales (per-row quantization
+    commutes with a row gather bit for bit, and int8 rows are half the
+    bytes)."""
     T, H = ht.shape
     k = ids.shape[1]
     E = we_gate.shape[0]
@@ -564,7 +570,10 @@ def moe_apply_grouped(
     # the combine's summation order are deterministic.
     order = torch.argsort(flat_ids, stable=True)
     tok = order // k  # source token of each sorted row
-    xs = ht[tok].contiguous()
+    if scales is None:
+        xs = ht[tok].contiguous()
+    else:
+        xs = hq._replace(xq=hq.xq[tok], scale=hq.scale[tok])
     group_sizes = torch.zeros(E, dtype=torch.int32, device=ht.device).scatter_add_(
         0, flat_ids, torch.ones_like(flat_ids, dtype=torch.int32)
     )

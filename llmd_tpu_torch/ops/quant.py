@@ -13,6 +13,13 @@ from the JAX package). The scheme:
 - activations: symmetric per-row int8, quantized on the fly
   (``quantize_activations``), through the ``quantize_rows`` kernel on the
   card (``csrc/quantize_rows.cu``; JAX leaves it to XLA, which fuses it).
+  Where the rows come out of a norm or a gated unit, the quantization is
+  fused into the kernel that makes them (same source): ``add_rms_norm_quant``
+  (the residual add, its bias, ``models.common.rms_norm`` and the
+  quantization) and ``glu_quant`` (the gated unit, with the experts' biases
+  by expert id, and the quantization). They return the rows as ``QRows``
+  parts, which the int8 products read (``models.common.qpdot``): one
+  quantization for every product that reads the same rows.
 - products: ``qdot`` (a dense ``x @ W``) and ``grouped_matmul_q`` (the MoE
   experts) run the int8 branch of K6' (``ops/grouped_gemm.py``,
   ``grouped_matmul_q8``; a dense product is its one-group form), which
@@ -32,9 +39,11 @@ K-major one.
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from llmd_tpu_torch.ops import _build, grouped_gemm
 
@@ -134,14 +143,29 @@ def dequantize(w_q: torch.Tensor, scale: torch.Tensor, contract_axis: int = -2,
 _lib = None
 
 
-def _kernel():
+def _library():
     global _lib
     if _lib is None:
         lib = _build.load("quantize_rows")
-        lib.quantize_rows.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
-        lib.quantize_rows.restype = ctypes.c_int
+        P, I = ctypes.c_void_p, ctypes.c_int
+        lib.quantize_rows.argtypes = [P] * 3 + [I] * 3 + [P]
+        lib.add_rms_norm_quant.argtypes = [P] * 9 + [ctypes.c_float] + [I] * 3 + [P]
+        lib.glu_quant.argtypes = ([P] * 5 + [ctypes.c_longlong] * 2 + [P] * 3 + [I, ctypes.c_float]
+                                  + [I] * 3 + [P])
+        for fn in (lib.quantize_rows, lib.add_rms_norm_quant, lib.glu_quant):
+            fn.restype = I
         _lib = lib
-    return _lib.quantize_rows
+    return _lib
+
+
+class QRows(NamedTuple):
+    """Rows already quantized for the int8 products that read them: int8
+    ``[M, K]``, one f32 scale a row ``[M]``, and the float dtype those
+    products write."""
+
+    xq: torch.Tensor
+    scale: torch.Tensor
+    dtype: torch.dtype
 
 
 def quantize_rows_plain(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
@@ -174,8 +198,8 @@ def quantize_rows(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     scale = torch.empty((M,), dtype=torch.float32, device=x.device)
     if M == 0:
         return xq, scale
-    err = _kernel()(xq.data_ptr(), scale.data_ptr(), x.data_ptr(), M, K, _DTYPE_CODES[x.dtype],
-                    torch.cuda.current_stream(x.device).cuda_stream)
+    err = _library().quantize_rows(xq.data_ptr(), scale.data_ptr(), x.data_ptr(), M, K,
+                                   _DTYPE_CODES[x.dtype], torch.cuda.current_stream(x.device).cuda_stream)
     if err:
         raise RuntimeError(f"quantize_rows launch failed: CUDA error {err}")
     quantize_rows.launches += 1
@@ -183,6 +207,191 @@ def quantize_rows(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
 
 
 quantize_rows.launches = 0
+
+
+def _check_rows(name: str, t: torch.Tensor, shape: tuple, dtype: torch.dtype) -> None:
+    """A kernel input: ``shape`` and ``dtype``, on the card, 16-byte
+    aligned with unit stride in its last dim (rows may be apart)."""
+    if tuple(t.shape) != shape or t.dtype != dtype:
+        raise ValueError(f"{name} must be {list(shape)} {dtype}; got {tuple(t.shape)} {t.dtype}")
+    if t.device.type != "cuda":
+        raise ValueError(f"{name} must be on the card, got {t.device}")
+    if t.data_ptr() % 16 or t.stride(-1) != 1 or (t.dim() == 2 and (t.stride(0) * t.element_size()) % 16):
+        raise ValueError(f"{name} must be 16-byte aligned with unit stride in its last dim")
+
+
+def _check_width(x: torch.Tensor) -> None:
+    if x.dim() != 2 or x.dtype not in _DTYPE_CODES:
+        raise ValueError(f"rows must be [M, K] float32, bfloat16 or float16; got {tuple(x.shape)} {x.dtype}")
+    if x.shape[1] % 16:
+        raise ValueError(f"the kernel takes K a multiple of 16, got {x.shape[1]}")
+
+
+def _ptr(t: torch.Tensor | None) -> int | None:
+    return None if t is None else t.data_ptr()
+
+
+def add_rms_norm_quant_plain(x, delta, bias, weight, eps: float, want_h: bool = False, rstd=None):
+    """Plain PyTorch version of ``add_rms_norm_quant``: the residual add and
+    its bias as the layers write them, ``models.common.rms_norm`` and
+    ``quantize_rows_plain`` of its output."""
+    from llmd_tpu_torch.models.common import rms_norm
+
+    if delta is not None:
+        x = x + (delta if bias is None else delta + bias)
+    h = rms_norm(x, weight, eps)
+    if rstd is not None:
+        xf = x.float()
+        rstd.copy_(torch.rsqrt((xf * xf).mean(dim=-1) + eps))
+    xq, scale = quantize_rows_plain(h)
+    return x, (h if want_h else None), xq, scale
+
+
+def add_rms_norm_quant(
+    x: torch.Tensor,  # [M, K] the residual stream
+    delta: torch.Tensor | None,  # [M, K] a branch's output to add, or None: no add
+    bias: torch.Tensor | None,  # [K] added to delta first (gpt-oss's bo), or None
+    weight: torch.Tensor,  # [K] the norm's weight
+    eps: float,
+    want_h: bool = False,
+    rstd: torch.Tensor | None = None,  # f32 [M]: filled with each row's rsqrt(mean(x_new^2) + eps)
+) -> tuple[torch.Tensor, torch.Tensor | None, torch.Tensor, torch.Tensor]:
+    """The residual add, the RMSNorm and the per-row int8 of its output in
+    one launch (``csrc/quantize_rows.cu``): ``x_new = x + (delta + bias)``
+    (x itself without delta), ``h = rms_norm(x_new, weight, eps)``, and
+    returns ``(x_new, h if want_h else None, xq int8 [M, K], a_scale f32
+    [M])``; (xq, a_scale) are ``quantize_rows`` of h. Outputs come from
+    ``torch.empty``; ``rstd``, where given (checks of the kernel's
+    arithmetic), gets the norm's per-row factor. CUDA tensors launch the
+    kernel; CPU tensors take the plain version."""
+    if x.device.type == "cpu":
+        return add_rms_norm_quant_plain(x, delta, bias, weight, eps, want_h, rstd)
+    if x.device.type != "cuda":
+        raise ValueError(f"unsupported device {x.device}")
+    _check_width(x)
+    M, K = x.shape
+    _check_rows("x", x, (M, K), x.dtype)
+    if not x.is_contiguous():
+        raise ValueError("x must be contiguous")
+    if delta is not None:
+        _check_rows("delta", delta, (M, K), x.dtype)
+        if not delta.is_contiguous():
+            raise ValueError("delta must be contiguous")
+    elif bias is not None:
+        raise ValueError("a bias needs a delta to add it to")
+    for name, t in (("weight", weight), ("bias", bias)):
+        if t is not None:
+            _check_rows(name, t, (K,), x.dtype)
+    if rstd is not None:
+        _check_rows("rstd", rstd, (M,), torch.float32)
+    x_new = x if delta is None else torch.empty_like(x)
+    h = torch.empty_like(x) if want_h else None
+    xq = torch.empty((M, K), dtype=torch.int8, device=x.device)
+    scale = torch.empty((M,), dtype=torch.float32, device=x.device)
+    if M == 0:
+        return x_new, h, xq, scale
+    err = _library().add_rms_norm_quant(
+        None if delta is None else x_new.data_ptr(), _ptr(h), xq.data_ptr(), scale.data_ptr(),
+        _ptr(rstd), x.data_ptr(), _ptr(delta), _ptr(bias), weight.data_ptr(), float(eps), M, K,
+        _DTYPE_CODES[x.dtype], torch.cuda.current_stream(x.device).cuda_stream)
+    if err:
+        raise RuntimeError(f"add_rms_norm_quant launch failed: CUDA error {err}")
+    add_rms_norm_quant.launches += 1
+    return x_new, h, xq, scale
+
+
+add_rms_norm_quant.launches = 0
+
+GLU_KINDS = {"silu": 0, "swiglu_oss": 1}
+
+
+def glu(gate: torch.Tensor, up: torch.Tensor, kind: str = "silu", limit: float = 0.0) -> torch.Tensor:
+    """The gated unit before a down projection. silu: silu(gate) * up.
+    swiglu_oss (gpt-oss): gate clamped above at ``limit``, up clamped to
+    [-limit, limit], glu = gate * sigmoid(1.702 * gate), out = (up + 1) *
+    glu."""
+    if kind == "swiglu_oss":
+        gate = gate.clamp(max=limit)
+        up = up.clamp(-limit, limit)
+        glu = gate * torch.sigmoid(1.702 * gate)
+        return (up + 1.0) * glu
+    return F.silu(gate) * up
+
+
+def glu_quant_plain(gate, up=None, kind: str = "silu", limit: float = 0.0, biases=None,
+                    expert_ids=None, want_act: bool = False):
+    """Plain PyTorch version of ``glu_quant``: the biases by expert id, then
+    ``glu`` and ``quantize_rows_plain`` of its output."""
+    if up is None:
+        half = gate.shape[-1] // 2
+        gate, up = gate[..., :half], gate[..., half:]
+    if biases is not None:
+        gate = gate + biases[0][expert_ids]
+        up = up + biases[1][expert_ids]
+    act = glu(gate, up, kind, limit).contiguous()
+    xq, scale = quantize_rows_plain(act)
+    return xq, scale, (act if want_act else None)
+
+
+def glu_quant(
+    gate: torch.Tensor,  # [M, F], or [M, 2F] = gate | up when up is None
+    up: torch.Tensor | None = None,  # [M, F]
+    kind: str = "silu",  # or "swiglu_oss" (gpt-oss), clamped at limit
+    limit: float = 0.0,
+    biases: tuple | None = None,  # (b_gate [E, F], b_up [E, F]) picked by expert_ids
+    expert_ids: torch.Tensor | None = None,  # int64 [M], each row's expert
+    want_act: bool = False,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor | None]:
+    """The gated unit (``glu``, after the experts' biases where given) and
+    the per-row int8 of its output in one launch (``csrc/quantize_rows.cu``):
+    returns ``(xq int8 [M, F], a_scale f32 [M], act if want_act else
+    None)``; (xq, a_scale) are ``quantize_rows`` of act. gate and up may be
+    views with rows apart (the halves of one ``[M, 2F]`` product). Outputs
+    come from ``torch.empty``. CUDA tensors launch the kernel; CPU tensors
+    take the plain version."""
+    if gate.device.type == "cpu":
+        return glu_quant_plain(gate, up, kind, limit, biases, expert_ids, want_act)
+    if gate.device.type != "cuda":
+        raise ValueError(f"unsupported device {gate.device}")
+    if kind not in GLU_KINDS:
+        raise ValueError(f"unknown gated unit {kind!r}")
+    if up is None:
+        if gate.dim() != 2 or gate.shape[1] % 2:
+            raise ValueError(f"gate|up must be [M, 2F]; got {tuple(gate.shape)}")
+        half = gate.shape[1] // 2
+        gate, up = gate[:, :half], gate[:, half:]
+    _check_width(gate)
+    M, Fw = gate.shape
+    _check_rows("gate", gate, (M, Fw), gate.dtype)
+    _check_rows("up", up, (M, Fw), gate.dtype)
+    if (biases is None) != (expert_ids is None):
+        raise ValueError("the experts' biases need each row's expert id, and only they do")
+    if biases is not None:
+        for name, b in zip(("b_gate", "b_up"), biases):
+            _check_rows(name, b, (b.shape[0], Fw), gate.dtype)
+            if not b.is_contiguous():
+                raise ValueError(f"{name} must be contiguous")
+        if expert_ids.shape != (M,) or expert_ids.dtype != torch.int64 or not expert_ids.is_contiguous():
+            raise ValueError(f"expert_ids must be contiguous int64 [M]; got {tuple(expert_ids.shape)} "
+                             f"{expert_ids.dtype}")
+    xq = torch.empty((M, Fw), dtype=torch.int8, device=gate.device)
+    scale = torch.empty((M,), dtype=torch.float32, device=gate.device)
+    act = torch.empty((M, Fw), dtype=gate.dtype, device=gate.device) if want_act else None
+    if M == 0:
+        return xq, scale, act
+    b_gate, b_up = (None, None) if biases is None else biases
+    err = _library().glu_quant(
+        xq.data_ptr(), scale.data_ptr(), _ptr(act), gate.data_ptr(), up.data_ptr(),
+        gate.stride(0), up.stride(0), _ptr(b_gate), _ptr(b_up), _ptr(expert_ids),
+        GLU_KINDS[kind], float(limit), M, Fw, _DTYPE_CODES[gate.dtype],
+        torch.cuda.current_stream(gate.device).cuda_stream)
+    if err:
+        raise RuntimeError(f"glu_quant launch failed: CUDA error {err}")
+    glu_quant.launches += 1
+    return xq, scale, act
+
+
+glu_quant.launches = 0
 
 
 def quantize_activations(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:

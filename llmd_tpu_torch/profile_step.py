@@ -19,8 +19,9 @@ its sliding and full layers on the flat step, and ``--kv-cache-dtype int8``
 puts any GQA model's KV in the int8 pool, and ``--kv-swa-ring`` puts a
 sliding-window model's sliding layers in the ring pool (its lines carry the
 pools' bytes, ``kv_bytes``, either way), and ``--quantization int8`` runs
-int8 weights (``ops/quant.py``: the ``quantize_rows`` kernel and K6''s int8
-branch, grouped as ``quantize_rows`` and ``grouped_gemm``). Every engine runs ``warmup``
+int8 weights (``ops/quant.py``: the ``quantize_rows`` kernel, its fused
+forms and K6''s int8 branch, grouped as ``quantize_rows``,
+``add_rms_norm_quant``, ``glu_quant`` and ``grouped_gemm``). Every engine runs ``warmup``
 first, as the server does, so decode-only steps (the flat decode steps and
 every decode window) are CUDA graph replays; each line carries the
 engine's warmup seconds, the graphs it captured, the device memory it kept
@@ -76,6 +77,7 @@ _GEMM_MARKS = ("gemm", "nvjet", "cutlass", "xmma", "cublas")
 _PORT_KERNELS = (
     "flat_paged_attention", "flat_kv_write", "decode_paged_attention",
     "decode_kv_write", "mla_decode_attention", "grouped_gemm", "quantize_rows",
+    "add_rms_norm_quant", "glu_quant",
 )
 
 

@@ -470,6 +470,8 @@ def test_engine_on_the_card_matches_the_cpu_engine(dev, layout):
         "matmul_q8": 0,
         "grouped_matmul_q8": 0,
         "grouped_matmul_q8_pair": 0,
+        "add_rms_norm_quant": 0,
+        "glu_quant": 0,
     }
     assert (flat_steps > 0) == (layout in ("flat", "flat_window"))
     assert (sum(ks) > 0) == (layout != "flat")
@@ -714,6 +716,167 @@ def test_quantize_rows_kernel_is_bit_equal_to_plain(dev, dtype, M, K):
     torch.cuda.synchronize()
     assert torch.equal(xq, wq) and torch.equal(s, ws)
     assert ops.launch_counts()["quantize_rows"] == 1
+
+
+# Every width a registry model gives the fused forms of quantize_rows: its
+# hidden sizes (norms) and intermediate sizes (gated units).
+FUSED_WIDTHS = (768, 1408, 1536, 2048, 2816, 2880, 3072, 4096, 5120, 6144, 7168, 8192, 10944,
+                14336, 16384, 18432, 25600)
+# The norm's rsqrt factor: the kernel's within a few f32 ulps of the plain
+# chain's, whose sum of squares runs in another order.
+RSTD_REL = 2.0**-21
+
+
+def check_norm_quant(dev, dtype, x, d, b, w):
+    """``add_rms_norm_quant`` against the plain chain: x_new bit-equal; the
+    rsqrt factor within RSTD_REL; h bit-equal to the chain's arithmetic
+    after its reduction, run with the kernel's factor (one f32 ulp of the
+    factor can move bf16(x r) by one ulp, which the weight product can
+    make two, so h is not held to one ulp of the plain h); (xq, a_scale)
+    bit-equal to ``quantize_rows_plain`` of the kernel's h, and the same
+    without h written."""
+    M = x.shape[0]
+    rk, rp = torch.empty(M, device=dev), torch.empty(M, device=dev)
+    xk, hk, qk, sk = ops.add_rms_norm_quant(x, d, b, w, 1e-5, True, rk)
+    xp, _, _, _ = ops.add_rms_norm_quant_plain(x, d, b, w, 1e-5, True, rp)
+    _, none, q2, s2 = ops.add_rms_norm_quant(x, d, b, w, 1e-5)
+    wq, ws = ops.quantize_rows_plain(hk)
+    torch.cuda.synchronize()
+    assert torch.equal(xk, xp) and (d is not None or xk is x)
+    assert ((rk - rp).abs() / rp).max().item() <= RSTD_REL
+    assert torch.equal(hk, (xk.float() * rk[:, None]).to(dtype) * w)
+    assert torch.equal(qk, wq) and torch.equal(sk, ws)
+    assert none is None and torch.equal(q2, qk) and torch.equal(s2, sk)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("M", [1, 32, 64, 1024])
+def test_add_rms_norm_quant_kernel_meets_its_contract(dev, dtype, M):
+    """At every registry width: the norm alone (a first layer), after the
+    residual add, and after the add with a bias (gpt-oss's bo); a zero row
+    among them."""
+    rng = np.random.default_rng(26)
+    for K in FUSED_WIDTHS:
+        x, d = (torch.from_numpy(rng.normal(size=(M, K)).astype(np.float32)).to(dev, dtype) for _ in range(2))
+        d[0] = -x[0]
+        b, w = (torch.from_numpy(rng.normal(size=(K,)).astype(np.float32)).to(dev, dtype) for _ in range(2))
+        ops.reset_launch_counts()
+        for delta, bias in ((None, None), (d, None), (d, b)):
+            check_norm_quant(dev, dtype, x, delta, bias, w)
+        assert ops.launch_counts()["add_rms_norm_quant"] == 6
+
+
+def check_glu_quant(dtype, args, kind, limit, biases, ids):
+    """``glu_quant`` against the plain chain: act within one ulp (TOL),
+    (xq, a_scale) bit-equal to ``quantize_rows_plain`` of the kernel's act,
+    and the same without act written."""
+    qk, sk, ak = ops.glu_quant(*args, kind, limit, biases, ids, want_act=True)
+    _, _, ap = ops.glu_quant_plain(*args, kind, limit, biases, ids, want_act=True)
+    q2, s2, none = ops.glu_quant(*args, kind, limit, biases, ids)
+    wq, ws = ops.quantize_rows_plain(ak)
+    torch.cuda.synchronize()
+    atol, rtol = TOL[dtype]
+    torch.testing.assert_close(ak, ap, atol=atol, rtol=rtol)
+    assert torch.equal(qk, wq) and torch.equal(sk, ws)
+    assert none is None and torch.equal(q2, qk) and torch.equal(s2, sk)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("M", [1, 32, 64, 1024])
+def test_glu_quant_kernel_meets_its_contract(dev, dtype, M):
+    """At every registry width: silu on the halves of one [M, 2F] product
+    (views, rows 2F apart) and on two [M, F] tensors; silu and gpt-oss's
+    clamped SwiGLU after the experts' biases picked by unsorted expert
+    ids."""
+    rng = np.random.default_rng(27)
+    E = 32
+    for Fw in FUSED_WIDTHS:
+        gu = torch.from_numpy(rng.normal(size=(M, 2 * Fw)).astype(np.float32) * 4).to(dev, dtype)
+        gate, up = (torch.from_numpy(rng.normal(size=(M, Fw)).astype(np.float32) * 4).to(dev, dtype)
+                    for _ in range(2))
+        biases = tuple(torch.from_numpy(rng.normal(size=(E, Fw)).astype(np.float32)).to(dev, dtype)
+                       for _ in range(2))
+        ids = torch.from_numpy(rng.integers(0, E, size=M)).to(dev)
+        assert M < 32 or not torch.equal(ids, ids.sort().values)
+        ops.reset_launch_counts()
+        check_glu_quant(dtype, (gu, None), "silu", 0.0, None, None)
+        check_glu_quant(dtype, (gate, up), "silu", 0.0, None, None)
+        check_glu_quant(dtype, (gate, up), "silu", 0.0, biases, ids)
+        check_glu_quant(dtype, (gate, up), "swiglu_oss", 7.0, biases, ids)
+        assert ops.launch_counts()["glu_quant"] == 8
+
+
+def test_fused_quant_forms_replay_in_a_graph_at_other_row_counts(dev):
+    """Both forms captured in CUDA graphs at 32 and at 64 rows (a decode
+    program's batch), gpt-oss's biased SwiGLU included, replay with other
+    rows and other expert ids written into the captured inputs, each
+    output held to its contract on those."""
+    rng = np.random.default_rng(28)
+    K, Fw, E, dt = 2880, 2880, 32, torch.bfloat16
+
+    def rand(*shape, scale=1.0):
+        return torch.from_numpy(rng.normal(size=shape).astype(np.float32) * scale).to(dev, dt)
+
+    for M in (32, 64):
+        x, d, b, w = rand(M, K), rand(M, K), rand(K), rand(K)
+        gate, up = rand(M, Fw, scale=4.0), rand(M, Fw, scale=4.0)
+        biases = (rand(E, Fw), rand(E, Fw))
+        ids = torch.from_numpy(rng.integers(0, E, size=M)).to(dev)
+        rstd = torch.empty(M, device=dev)
+
+        def step():
+            return (*ops.add_rms_norm_quant(x, d, b, w, 1e-5, True, rstd),
+                    *ops.glu_quant(gate, up, "swiglu_oss", 7.0, biases, ids, want_act=True))
+
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            step()
+        torch.cuda.current_stream().wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        ops.reset_launch_counts()
+        with torch.cuda.graph(graph):
+            xk, hk, qk, sk, gq, gs, act = step()
+        for t, new in ((x, rand(M, K)), (d, rand(M, K)), (gate, rand(M, Fw, scale=4.0)),
+                       (up, rand(M, Fw, scale=4.0))):
+            t.copy_(new)
+        ids.copy_(torch.from_numpy(rng.integers(0, E, size=M)))
+        graph.replay()
+        torch.cuda.synchronize()
+        rp = torch.empty(M, device=dev)
+        xp, _, _, _ = ops.add_rms_norm_quant_plain(x, d, b, w, 1e-5, True, rp)
+        assert torch.equal(xk, xp) and ((rstd - rp).abs() / rp).max().item() <= RSTD_REL
+        assert torch.equal(hk, (xk.float() * rstd[:, None]).to(dt) * w)
+        assert torch.equal(qk, ops.quantize_rows_plain(hk)[0]) and torch.equal(sk, ops.quantize_rows_plain(hk)[1])
+        _, _, ap = ops.glu_quant_plain(gate, up, "swiglu_oss", 7.0, biases, ids, want_act=True)
+        torch.testing.assert_close(act, ap, atol=TOL[dt][0], rtol=TOL[dt][1])
+        assert torch.equal(gq, ops.quantize_rows_plain(act)[0]) and torch.equal(gs, ops.quantize_rows_plain(act)[1])
+        del graph
+
+
+def test_fused_quant_wrappers_refuse_what_the_kernels_do_not_take(dev):
+    x = torch.zeros((4, 64), dtype=torch.bfloat16, device=dev)
+    w = torch.ones(64, dtype=torch.bfloat16, device=dev)
+    with pytest.raises(ValueError, match="multiple of 16"):
+        ops.add_rms_norm_quant(x[:, :24].contiguous(), None, None, w[:24], 1e-5)
+    with pytest.raises(ValueError, match="a bias needs a delta"):
+        ops.add_rms_norm_quant(x, None, w, w, 1e-5)
+    with pytest.raises(ValueError, match="weight must be"):
+        ops.add_rms_norm_quant(x, x, None, w.float(), 1e-5)
+    with pytest.raises(ValueError, match="contiguous"):
+        ops.add_rms_norm_quant(torch.zeros((4, 128), dtype=torch.bfloat16, device=dev)[:, :64], None, None, w,
+                               1e-5)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        ops.glu_quant(torch.zeros((4, 72), dtype=torch.bfloat16, device=dev)[:, 4:68],
+                      torch.zeros((4, 64), dtype=torch.bfloat16, device=dev))
+    with pytest.raises(ValueError, match="expert id"):
+        ops.glu_quant(x, x, "silu", 0.0, (x, x), None)
+    with pytest.raises(ValueError, match="int64"):
+        ops.glu_quant(x, x, "silu", 0.0, (x, x), torch.zeros(4, dtype=torch.int32, device=dev))
+    with pytest.raises(ValueError, match="unknown gated unit"):
+        ops.glu_quant(x, x, "gelu")
+    with pytest.raises(ValueError, match="2F"):
+        ops.glu_quant(torch.zeros((4, 63), dtype=torch.bfloat16, device=dev))
 
 
 def test_int8_wrappers_refuse_what_the_kernels_do_not_take(dev):

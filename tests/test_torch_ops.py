@@ -419,6 +419,13 @@ def test_cpu_entry_points_run_the_plain_versions():
         ops.mla_decode_paged_attention_full(q_eff, latent, 1, t(d.pt), t(d.kv_lens), 32, 0.1),
         ops.mla_decode_paged_attention_plain(q_eff, latent, 1, t(d.pt), t(d.kv_lens), 32, 0.1),
     )
+    res = t(rng.normal(size=(9, 16)).astype(np.float32))
+    nw = t(rng.normal(size=(16,)).astype(np.float32))
+    for got, want in zip(ops.add_rms_norm_quant(res, x, nw, nw, 1e-5, True),
+                         ops.add_rms_norm_quant_plain(res, x, nw, nw, 1e-5, True)):
+        assert torch.equal(got, want)
+    for got, want in zip(ops.glu_quant(x, res, "swiglu_oss", 7.0), ops.glu_quant_plain(x, res, "swiglu_oss", 7.0)):
+        assert (got is None and want is None) or torch.equal(got, want)
     # The plain versions are not kernel launches.
     assert ops.launch_counts() == {
         "write_kv_pages_flat_full": 0, "flat_paged_attention_full": 0,
@@ -426,7 +433,7 @@ def test_cpu_entry_points_run_the_plain_versions():
         "mla_decode_paged_attention_full": 0, "grouped_matmul": 0,
         "grouped_matmul_pair": 0,
         "quantize_rows": 0, "matmul_q8": 0, "grouped_matmul_q8": 0,
-        "grouped_matmul_q8_pair": 0,
+        "grouped_matmul_q8_pair": 0, "add_rms_norm_quant": 0, "glu_quant": 0,
     }
 
 

@@ -769,7 +769,8 @@ def _sdpa_yardstick(q, pool, layer, s, page, window: int = 0, sinks=None,
 
 @contextlib.contextmanager
 def plain_ops(live_pages: int | None = None):
-    """Route the model's fused KV writes, flat attention, decode kernels,
+    """Route the model's fused KV writes (MLA's latent form too), flat
+    attention, decode kernels,
     latent decode attention, grouped GEMM and the int8 kernels (K6''s int8
     branch, ``quantize_rows`` and its fused forms ``add_rms_norm_quant`` and
     ``glu_quant``) to their plain versions (the
@@ -779,7 +780,7 @@ def plain_ops(live_pages: int | None = None):
     from llmd_tpu_torch.ops import grouped_gemm, quant
 
     saved = (ops.rope_write_kv_flat_full, ops.rope_write_kv_decode_full,
-             ops.paged_attention_full_flat,
+             ops.rope_write_latent_full, ops.paged_attention_full_flat,
              ops.write_kv_pages_decode_full, ops.decode_paged_attention_full,
              ops.mla_decode_paged_attention_full, grouped_gemm.grouped_matmul,
              grouped_gemm.grouped_matmul_pair, quant.quantize_rows, grouped_gemm.matmul_q8,
@@ -807,6 +808,7 @@ def plain_ops(live_pages: int | None = None):
 
     ops.rope_write_kv_flat_full = ops.rope_write_kv_flat_plain
     ops.rope_write_kv_decode_full = ops.rope_write_kv_decode_plain
+    ops.rope_write_latent_full = ops.rope_write_latent_plain
     ops.paged_attention_full_flat = attend
     ops.write_kv_pages_decode_full = ops.write_kv_pages_decode_plain
     ops.decode_paged_attention_full = decode_attend
@@ -823,7 +825,7 @@ def plain_ops(live_pages: int | None = None):
         yield
     finally:
         (ops.rope_write_kv_flat_full, ops.rope_write_kv_decode_full,
-         ops.paged_attention_full_flat,
+         ops.rope_write_latent_full, ops.paged_attention_full_flat,
          ops.write_kv_pages_decode_full, ops.decode_paged_attention_full,
          ops.mla_decode_paged_attention_full, grouped_gemm.grouped_matmul,
          grouped_gemm.grouped_matmul_pair, quant.quantize_rows, grouped_gemm.matmul_q8,
@@ -1123,7 +1125,7 @@ def check_replay_launches(runner, cfg, int8: bool) -> None:
                     for b, n in br.items() if n}
         totals = {fn.__name__: n for fn, (n, _) in prog.launches.items() if n}
         if cfg.is_mla:
-            want_b = {"write_kv_pages_decode_full[plain]": L * q1}
+            want_b = {"write_kv_pages_decode_full[latent]": L * q1}
             want = {"write_kv_pages_decode_full": L * q1, "mla_decode_paged_attention_full": L * q1}
         else:
             want_b = expected_branches(cfg, flat, q1, int8)
@@ -2681,13 +2683,15 @@ def latent_case(cfg, H: int, gen, g, dev) -> dict:
 
 
 def latent_write_case(cfg, gen, g, dev) -> dict:
-    """The store-only K4' as MLA runs it: one latent row (``cfg``'s 640
-    bf16 values, written as the K and V halves of one "head") a row of one
-    decode step of the batch bucket 64 (48 live rows at 1k-4k context, 16
-    pad rows with garbage targets) into a 27-layer latent pool. The pool
+    """The store-only K4' (the TPU kernel's own function) on MLA's latent
+    rows, as MLA ran it before the latent form: one latent row (``cfg``'s
+    640 bf16 values, written as the K and V halves of one "head") a row of
+    one decode step of the batch bucket 64 (48 live rows at 1k-4k context,
+    16 pad rows with garbage targets) into a 27-layer latent pool. The pool
     bytes must equal the plain version's; timed beside its byte bound (the
     live rows in and out, the addressing), the plain version and one
-    ``index_put_`` of the live rows."""
+    ``index_put_`` of the live rows. No model's path runs it since the
+    latent form, so its row says so (``on_path`` false, no launches)."""
     from llmd_tpu_torch import ops
 
     dt, L, Dl, page = torch.bfloat16, 27, cfg.kv_cache_entry_dim, 16
@@ -2720,9 +2724,140 @@ def latent_write_case(cfg, gen, g, dev) -> dict:
         "plain_ms": cuda_ms(lambda: ops.write_kv_pages_decode_plain(pool, *wargs)),
         "bound_ms": b_ms, "bound_by": b_by, "bound_share": b_ms / times["ms"],
         "library_ms": device_ms(lambda: plane.index_put_(idx, live_rows)),
-        "wrapper": "write_kv_pages_decode_full", "model": cfg.name,
+        "on_path": False, "launches": 0,
     }
     del pool, kv_new
+    torch.cuda.empty_cache()
+    return row
+
+
+def latent_rows_apart(got: torch.Tensor, want: torch.Tensor, rank: int) -> dict:
+    """Latent rows [..., Dl] written by K4''s latent form against the plain
+    version's: their rope and pad columns equal, and the largest distance
+    of their c_kv columns (``[..., :rank]``) in bf16 ulps of the plain
+    value (the form's norm sums its squares in another order)."""
+    g, w = got[..., :rank].double(), want[..., :rank].double()
+    ulp = torch.exp2(torch.floor(torch.log2(w.abs().clamp(min=2.0**-100))) - 7)
+    return {"rope_and_pad_equal": bool(torch.equal(got[..., rank:], want[..., rank:])),
+            "c_kv_max_ulps": ((g - w).abs() / ulp).max().item() if g.numel() else 0.0}
+
+
+LATENT_SOURCE = {"route": "cuda", "source": "llmd_tpu_torch/ops/csrc/decode_kv_write.cu",
+                 "replaces": "llmd_tpu/ops/kv_write.py:298"}
+
+
+def latent_fused_case(cfg, kind: str, gen, g, dev) -> dict:
+    """K4''s latent form (``ops.rope_write_latent_full``) at ``cfg``'s
+    widths on a 27-layer latent pool: "decode", one step of the batch
+    bucket 64 (48 live rows at 1k-4k context, 16 pad rows with garbage
+    targets); "prefill", a bucket of 4 rows x 256 = 1,024 tokens (624
+    live, 400 pad tokens); both addressed by page table and positions. kv_a is a bf16 [B, Q, rank + rope] product output, q_pe
+    the rope heads of a q projection (a strided view), q_eff_nope the
+    absorption einsum's output. Held to the plain version: q_eff (every
+    row) and the stored rows' rope and pad parts bit-equal, c_kv bit-equal
+    to the plain arithmetic run with the kernel's norm factor and within
+    two bf16 ulps of the plain chain, the factor within RSTD_REL, nothing
+    stored for a pad (the pool equals the plain version's elsewhere, and
+    only the live tokens' rows changed). Timed in device time beside the
+    byte bound (kv_a, q_pe, q_eff_nope, the cos/sin rows and the weight in;
+    the live rows and q_eff out; 4 bytes of addressing a row), the plain
+    version, the unfused chain it replaces (the body of ``mla_write``
+    between the projections and the einsum before the fused form:
+    ``rms_norm``, ``apply_rope`` twice, the concatenations and pads and
+    ``ops.write_kv_pages_full``: the store-only K4' at Q = 1, the plain
+    scatter at Q > 1) and ``index_put_`` of the finished live rows (the
+    nearest library call: no PyTorch call computes the whole function)."""
+    import torch.nn.functional as F
+
+    from llmd_tpu_torch import ops
+    from llmd_tpu_torch.models.common import apply_rope, rms_norm, rope_tables
+
+    dt, L, page = torch.bfloat16, 27, 16
+    rank, rope, Dl, nh = cfg.kv_lora_rank, cfg.qk_rope_head_dim, cfg.kv_cache_entry_dim, cfg.num_heads
+    nope = cfg.qk_nope_head_dim
+    if kind == "decode":
+        d = decode_batch(cfg, page, 1024, 4096, gen, dev)
+        B, Q, num_pages = d["B"], 1, d["num_pages"]
+        page_table, positions = d["page_table"].clone(), d["positions"]
+        page_table[d["n_live"]:] = 2**30  # pad rows: garbage targets
+        valid = d["valid"][:, None] > 0
+        prep = (d["phys"], d["offset"], d["valid"])  # the unfused chain's store only
+    else:
+        rows = [(0, 256), (512, 200), (0, 128), (1000, 40)]
+        p = bucketed_rows(cfg, page, rows, gen, dev)
+        B, Q, num_pages = len(rows), 256, p["num_pages"]
+        page_table, positions = p["page_table"], p["positions"]
+        valid = p["live"].view(B, Q)
+        prep = None
+    N = B * Q
+    pool = torch.randn((L, num_pages, 1, page, Dl), generator=g, device=dev, dtype=dt)
+    kv_a = torch.randn((B, Q, rank + rope), generator=g, device=dev, dtype=dt).mul_(3)
+    q = torch.randn((B, Q, nh, nope + rope), generator=g, device=dev, dtype=dt)
+    w_uk = torch.randn((nh, rank, nope), generator=g, device=dev, dtype=dt).mul_(nope**-0.5)
+    q_pe = q[..., nope:]
+    q_eff_nope = torch.einsum("bqhn,hrn->bqhr", q[..., :nope], w_uk)
+    w = (1 + 0.1 * torch.randn((rank,), generator=g, device=dev)).to(dt)
+    cos, sin = rope_tables(positions, rope, cfg.rope_theta, cfg.rope_scaling)
+    eps, layer = cfg.rms_norm_eps, L // 2
+    args = (kv_a, w, eps, cos, sin, q_pe, q_eff_nope, page_table, positions, valid)
+    plane = pool[layer]
+    before = plane.clone()
+    rk, rp = torch.empty(N, device=dev), torch.empty(N, device=dev)
+    got = ops.rope_write_latent_full(pool, layer, *args, rstd=rk)
+    got_plane = plane.clone()
+    plane.copy_(before)
+    want = ops.rope_write_latent_plain(pool, layer, *args, rstd=rp)
+    torch.cuda.synchronize()
+    pos = positions.long()
+    phys = torch.gather(page_table.long(), 1, pos // page)[valid]
+    slot = (pos % page)[valid]
+    n_live = int(valid.sum().item())
+    exact = (kv_a[..., :rank].float() * rk.view(B, Q, 1)).to(dt) * w
+    held = plane.clone()
+    held[phys, 0, slot, :rank] = exact[valid]
+    apart = latent_rows_apart(got_plane[phys, 0, slot], plane[phys, 0, slot], rank)
+    changed = int((got_plane != before).any(dim=-1).sum().item())
+    rstd_rel = ((rk - rp).abs() / rp).max().item()
+    name = f"decode_kv_write[latent]@{cfg.name} {kind}"
+    if not torch.equal(got, want):
+        raise AssertionError(f"{name}: q_eff differs from the plain version")
+    if not torch.equal(got_plane, held):
+        raise AssertionError(f"{name}: the pool differs from the plain version beyond c_kv's "
+                             "factor, or a pad stored")
+    if apart["c_kv_max_ulps"] > 2 or rstd_rel > RSTD_REL or changed > n_live or changed == 0:
+        raise AssertionError(f"{name}: c_kv {apart}, factor {rstd_rel}, {changed} rows changed "
+                             f"for {n_live} live tokens")
+    err = (got_plane[phys, 0, slot].float() - plane[phys, 0, slot].float()).abs().max().item()
+    del got, want, got_plane, held, before
+
+    def unfused():  # mla_write's body around the store before the fused form
+        c_kv = rms_norm(kv_a[..., :rank], w, eps)
+        k_pe = apply_rope(kv_a[..., None, rank:], cos, sin)[:, :, 0]
+        lat4 = F.pad(torch.cat([c_kv, k_pe], dim=-1), (0, Dl - rank - rope))[:, :, None, :]
+        ops.write_kv_pages_full(pool, layer, lat4[..., : Dl // 2], lat4[..., Dl // 2 :],
+                                page_table, positions, valid, prep)
+        return F.pad(torch.cat([q_eff_nope, apply_rope(q_pe, cos, sin)], dim=-1),
+                     (0, Dl - rank - rope))
+
+    latent = F.pad(torch.cat([exact, apply_rope(kv_a[..., None, rank:], cos, sin)[:, :, 0]], -1),
+                   (0, Dl - rank - rope))[valid]
+    idx = (phys, torch.zeros_like(phys), slot)
+    es = pool.element_size()
+    nbytes = (N * (rank + rope) + N * nh * (rope + rank) + rank + n_live * Dl + N * nh * Dl) * es
+    nbytes += N * rope * 4 + 4 * N
+    b_ms, b_by = bound(nbytes, 0.0)
+    times = kernel_times(lambda: ops.rope_write_latent_full(pool, layer, *args))
+    row = {
+        "name": name, **LATENT_SOURCE, "max_abs_err": err, **times,
+        "plain_ms": cuda_ms(lambda: ops.rope_write_latent_plain(pool, layer, *args), reps=10, warmup=1),
+        "bound_ms": b_ms, "bound_by": b_by, "bound_share": b_ms / times["ms"],
+        "library_ms": device_ms(lambda: plane.index_put_(idx, latent)),
+        "library_call": "index_put_ of the finished live rows",
+        "unfused_ms": device_ms(unfused), "rows": N, "live_rows": n_live,
+        "c_kv_max_ulps": apart["c_kv_max_ulps"], "rstd_max_rel": rstd_rel,
+        "wrapper": "write_kv_pages_decode_full", "model": cfg.name,
+    }
+    del pool, kv_a, q, q_eff_nope, latent
     torch.cuda.empty_cache()
     return row
 
@@ -2735,10 +2870,12 @@ def moe_mla_kernels_phase(info: dict) -> dict:
     and at qwen3-30b-a3b's (one layer's 128 experts, top-8, decode step);
     K5' on one decode step of the batch bucket 64 (48 live rows at 1k-4k
     context, 16 pad rows) over a 27-layer latent pool, at deepseek-v2-lite's
-    16 heads and deepseek-r1's 128; the store-only K4' on a decode step's
-    latent rows. Each is held to its plain version (within one bf16
-    ulp; the write bit for bit) and timed beside its bound, the plain
-    version and one library call."""
+    16 heads and deepseek-r1's 128; K4''s latent form on a decode step and
+    a 1,024-token prefill bucket (``latent_fused_case``), and the
+    store-only K4' on a decode step's latent rows. Each is held to its
+    plain version (within one bf16 ulp; the writes bit for bit, c_kv given
+    the norm's factor) and timed beside its bound, the plain version and
+    one library call."""
     from llmd_tpu_torch.models.registry import get_model_config
 
     dev = torch.device("cuda")
@@ -2809,9 +2946,13 @@ def moe_mla_kernels_phase(info: dict) -> dict:
             "wrapper": "mla_decode_paged_attention_full", "model": DS_MODEL, "shape": case,
             **{k: latent[case][k] for k in keys_},
         }
-    # K4' store-only: the latent rows are the one path that still runs it.
+    # K4''s latent form at decode and prefill, then the store-only K4'.
+    for kind in ("decode", "prefill"):
+        e = latent_fused_case(ds, kind, gen, g, dev)
+        info[e["name"]] = {k: e[k] for k in (*WRITE_KEYS, "c_kv_max_ulps", "rstd_max_rel") if k in e}
+        out[e["name"]] = e
     e = latent_write_case(ds, gen, g, dev)
-    info[e["name"]] = {k: e[k] for k in WRITE_KEYS if k in e}
+    info[e["name"]] = {k: e[k] for k in (*WRITE_KEYS, "on_path") if k in e}
     out[e["name"]] = e
     return out
 
@@ -2862,8 +3003,9 @@ def cut_layers(params: dict, n: int, dtype) -> dict:
 
 def ds_forward_phase(info: dict, params: dict) -> None:
     """deepseek-v2-lite at full width: one bucketed prefill forward (Q > 1:
-    plain latent attention, K6' in every MoE layer) and one Q = 1 decode
-    forward (K4', K5' and K6') of the 27-layer model, through the kernels
+    K4''s latent form, plain latent attention, K6' in every MoE layer) and
+    one Q = 1 decode forward (K4''s latent form, K5' and K6') of the
+    27-layer model, through the kernels
     and through the plain versions. An f32 copy of 27 layers (63 GB) does
     not fit beside the bf16 weights, so the f32 reference runs the first 4
     layers (the dense layer and 3 MoE layers) at full width."""
@@ -2892,7 +3034,8 @@ def ds_forward_phase(info: dict, params: dict) -> None:
         # name: (input, pool pages, live slots of the hidden state, launches
         # per forward by wrapper, plain gather bound)
         "prefill": (prefill, p["num_pages"], p["live"],
-                    {"grouped_matmul_pair": n_moe, "grouped_matmul": n_moe}, p["live_pages"]),
+                    {"grouped_matmul_pair": n_moe, "grouped_matmul": n_moe,
+                     "write_kv_pages_decode_full": L}, p["live_pages"]),
         "decode": (decode, d["num_pages"], torch.arange(d["B"], device=dev) < d["n_live"],
                    {"grouped_matmul_pair": n_moe, "grouped_matmul": n_moe,
                     "write_kv_pages_decode_full": L,
@@ -2918,11 +3061,12 @@ def ds_forward_phase(info: dict, params: dict) -> None:
 
         ops.reset_launch_counts()
         h_k = run(params, cfg, pool.clone(), plain=False)
-        counts = ops.launch_counts()
+        counts, branches = ops.launch_counts(), ops.branch_launch_counts()
         h_p = run(params, cfg, pool.clone(), plain=True)
         want = {fn: per_forward.get(fn, 0) for fn in counts}
-        if counts != want:
-            raise AssertionError(f"{name} forward launched {counts}, want {want}")
+        if counts != want or branches != {"write_kv_pages_decode_full[latent]": L}:
+            raise AssertionError(f"{name} forward launched {counts} {branches}, want {want}, "
+                                 f"every write in the latent branch")
         h4_k = run(params4, cfg4, pool[:cut].clone(), plain=False)
         h4_p = run(params4, cfg4, pool[:cut].clone(), plain=True)
         h4_k32 = run(params4_32, cfg4, pool[:cut].float(), plain=False)
@@ -2973,8 +3117,9 @@ def ds_engine_phase(info: dict, params: dict, quantization: str | None = None) -
     prefill and a prefix-cache hit) in the layout ``info["layout"]`` names.
     MLA has no flat step, so the default engine runs the bucketed unified
     step. Every forward is logged with its Q: the pair and the down call
-    of K6' must launch 26 times each a forward, K4' and K5' 27 times a Q = 1
-    forward (each window iteration is one), the GQA kernels never. Each
+    of K6' must launch 26 times each a forward, K4''s latent form 27 times
+    every forward (at any Q), K5' 27 times a Q = 1 forward (each window
+    iteration is one), the GQA kernels never. Each
     step reads back once. Every decode-only step is a decode window, and
     every window a CUDA graph replay (``GraphWatch``: staging and replays
     under ``torch.cuda.set_sync_debug_mode("error")``, so a hidden device
@@ -3082,14 +3227,17 @@ def ds_engine_phase(info: dict, params: dict, quantization: str | None = None) -
     L, n_moe = cfg.num_layers, cfg.num_layers - cfg.first_dense_layers
     n_moe16 = 0 if quantization else n_moe
     want = {"write_kv_pages_flat_full": 0, "flat_paged_attention_full": 0,
-            "write_kv_pages_decode_full": L * decode_forwards,
+            "write_kv_pages_decode_full": L * len(forwards),
             "decode_paged_attention_full": 0,
             "mla_decode_paged_attention_full": L * decode_forwards,
             "grouped_matmul_pair": n_moe16 * len(forwards),
             "grouped_matmul": n_moe16 * len(forwards),
             **q8_launches(cfg, len(forwards))}
-    if counts != want:
-        raise AssertionError(f"launch counts {counts}, want {want}")
+    branches = ops.branch_launch_counts()
+    info["branch_launches"] = branches
+    if counts != want or branches != {"write_kv_pages_decode_full[latent]": L * len(forwards)}:
+        raise AssertionError(f"launch counts {counts} {branches}, want {want}, every write "
+                             "in the latent branch")
     if "decode_window" in layout and 8 not in k_steps:
         raise AssertionError(f"no decode window ran 8 iterations: {k_steps}")
     if not layout and st.unified_steps_total == 0:
@@ -4380,7 +4528,8 @@ def q8_forward_phase(info: dict, model: str, params16: dict, params8: dict) -> N
             fwd16_ms = cuda_ms(lambda: llama.forward_hidden(params16, pool, inp, cfg16), reps=3, warmup=1)
         torch.cuda.synchronize()
         attn = ({"write_kv_pages_decode_full": L, "mla_decode_paged_attention_full": L}
-                if cfg8.is_mla and name == "decode" else {} if cfg8.is_mla else
+                if cfg8.is_mla and name == "decode" else
+                {"write_kv_pages_decode_full": L} if cfg8.is_mla else
                 {"write_kv_pages_flat_full": L, "flat_paged_attention_full": L} if name == "flat" else
                 {"write_kv_pages_decode_full": L, "decode_paged_attention_full": L})
         want = {fn: 0 for fn in counts}
@@ -4402,7 +4551,13 @@ def q8_forward_phase(info: dict, model: str, params16: dict, params8: dict) -> N
             raise AssertionError(f"{model} int8 {name} forward launched {counts}, want {want}")
         if not all(torch.isfinite(t).all() for t in (h_k, h_p, lg_k, lg_16)):
             raise AssertionError(f"{model} int8 {name} forward: non-finite values")
-        if not r["layer0_pool_equal"]:
+        if cfg8.is_mla:
+            # K4''s latent form normalises c_kv with its own sum's order.
+            r["layer0_latent"] = latent_rows_apart(pool0_k, pool0_p, cfg8.kv_lora_rank)
+            if not r["layer0_latent"]["rope_and_pad_equal"] or r["layer0_latent"]["c_kv_max_ulps"] > 2:
+                raise AssertionError(f"{model} int8 {name} forward: layer-0 latent rows "
+                                     f"{r['layer0_latent']} from plain")
+        elif not r["layer0_pool_equal"]:
             raise AssertionError(f"{model} int8 {name} forward: layer-0 pool bytes differ from plain")
         if r["bf16_kernels_vs_f32"] > 1.5 * r["bf16_plain_vs_f32"]:
             raise AssertionError(
@@ -4635,10 +4790,13 @@ def main() -> int:
     # runs; a branched row (the fused writes, the window, sink and int8
     # branches) from its model's int8-pool run for an int8 branch, else its
     # flat step run (K1', K2') or split-window run (K3', K4'); K5', K6' and
-    # the store-only K4' of the latent rows (their rows name a wrapper and a
-    # model) from deepseek-v2-lite's default engine and gpt-oss-20b's flat
-    # step engine (the 128-head row of K5' is a kernel-level shape: its
-    # launches are the wrapper's on deepseek-v2-lite's path); qwen3-32b's
+    # K4''s latent form (their rows name a wrapper and a model) from
+    # deepseek-v2-lite's default engine, where every write of the wrapper
+    # is a latent one, and gpt-oss-20b's flat step engine (the 128-head row
+    # of K5' is a kernel-level shape: its launches are the wrapper's on
+    # deepseek-v2-lite's path); the store-only K4' is on no model's path
+    # (its row says ``on_path`` false; 0 launches, held and timed all the
+    # same); qwen3-32b's
     # rows from its flat step (K1', K2') or split-window (K3', K4') run.
     main_path = {
         "flat_paged_attention": ("flat_paged_attention_full", flat_counts),
@@ -4660,7 +4818,9 @@ def main() -> int:
 
     rows = []
     for name, entry in table.items():
-        if name in main_path:
+        if entry.get("on_path") is False:  # the store-only K4'
+            launches = 0
+        elif name in main_path:
             fn, counts = main_path[name]
             launches = counts[fn]
         elif "branch" not in entry:
@@ -4668,9 +4828,10 @@ def main() -> int:
         else:
             runs = branch_runs(entry["model"], entry["wrapper"], entry["branch"])
             launches = runs.get(f"{entry['wrapper']}[{entry['branch']}]", 0)
-        if launches == 0:
+        if launches == 0 and entry.get("on_path") is not False:
             raise AssertionError(f"{name} never launched on its main path")
-        rows.append({**{k: v for k, v in entry.items() if k not in ("model", "wrapper", "branch")},
+        rows.append({**{k: v for k, v in entry.items()
+                        if k not in ("model", "wrapper", "branch", "launches")},
                      "launches": launches})
     emit({"kernels": rows})
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -363,11 +363,7 @@ def forward_hidden(params: dict, kv_cache, inp: StepInput, cfg: ModelConfig, kv_
             raise ValueError("MLA runs the bucketed layout only (no flat step)")
         if isinstance(kv_cache, tuple):
             raise ValueError("an int8 pool is not supported for MLA models")
-        prep = None
-        if Q == 1:
-            prep = ops.decode_write_prep(
-                inp.page_table, inp.positions, inp.valid, kv_cache.shape[3]
-            )
+        valid = inp.valid  # the latent writes' pads, once a step
     # Each layer's pool group (0: kv_cache, 1: the ring pool) and plane in
     # it. The window stays keyed by the layer id, not the plane.
     kinds = [int(kv_swa is not None and w > 0) for w in windows]
@@ -409,7 +405,7 @@ def forward_hidden(params: dict, kv_cache, inp: StepInput, cfg: ModelConfig, kv_
         x, h, hq = norm(x, delta, None, lp["input_norm"], lp, first)
         bo = None
         if cfg.is_mla:
-            attn_out, _ = mla_attention(h, lp, kv, plane, inp, cfg, cos, sin, prep, hq)
+            attn_out, _ = mla_attention(h, lp, kv, plane, inp, cfg, cos, sin, valid, hq)
         else:
 
             def proj(name):

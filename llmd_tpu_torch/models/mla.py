@@ -11,17 +11,19 @@ The port of ``llmd_tpu/models/mla.py``'s ``mla_write``, ``mla_read`` and
 
 Attention runs on the latent pool with weight absorption: kv_b's key half
 folds into the query (``q_eff = [q_nope @ W_uk, q_pe]``) and its value half
-into the output, so per-head K and V are never materialised. The latent row
-goes into the pool through ``ops.write_kv_pages_full`` as two halves posing
-as K and V (the decode write kernel at ``Q == 1``); the attention is
-``ops.mla_paged_attention_full`` (the latent decode kernel at ``Q == 1``).
+into the output, so per-head K and V are never materialised. ``kv_norm``,
+the rotary embedding of k_pe and q_pe, the latent row's padding and store
+and q_eff's assembly are one launch of K4''s latent form a layer, at every
+Q (``ops.rope_write_latent_full``; on the CPU its plain version, the chain
+JAX runs); the attention is ``ops.mla_paged_attention_full`` (the latent
+decode kernel at ``Q == 1``).
 The absorption products stay ``torch.einsum``, as JAX leaves them to XLA;
 with int8 weights the projections (``wq``/``wq_a``/``wq_b``, ``wkv_a``,
 ``wo``) take the int8 product and ``wkv_b`` stays float, as in JAX: the
 input norm's fused form quantizes h once for ``wq`` (or ``wq_a``) and
 ``wkv_a`` (``hq``), ``q_norm`` and the quantization for ``wq_b`` are one
 ``add_rms_norm_quant``, and ``kv_norm`` (its output is cached, not
-quantized) stays ``rms_norm``.
+quantized) is the latent write's.
 DeepSeek's yarn temperature (``rope_scaling`` with ``mscale_all_dim``)
 multiplies ``sm_scale`` (``common.yarn_sm_scale_mult``), as in JAX.
 """
@@ -29,12 +31,11 @@ multiplies ``sm_scale`` (``common.yarn_sm_scale_mult``), as in JAX.
 from __future__ import annotations
 
 import torch
-import torch.nn.functional as F
 
 from llmd_tpu_torch import ops
 from llmd_tpu_torch.config import ModelConfig
 from llmd_tpu_torch.models.common import (
-    StepInput, apply_rope, pdot, qpdot, rms_norm, yarn_sm_scale_mult,
+    StepInput, pdot, qpdot, rms_norm, yarn_sm_scale_mult,
 )
 from llmd_tpu_torch.ops import quant
 
@@ -48,18 +49,17 @@ def mla_write(
     cfg: ModelConfig,
     cos: torch.Tensor,
     sin: torch.Tensor,
-    prep=None,
+    valid: torch.Tensor | None = None,
     hq: quant.QRows | None = None,  # int8 trees: h's rows quantized
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Project and cache this step's latent rows; returns (the pool,
     written in place, and the absorbed queries q_eff ``[B, Q, nh, Dl]``).
-    ``prep`` is the step's decode-write addressing
-    (``ops.decode_write_prep``) where the caller computed it once."""
+    ``valid`` is the step's ``inp.valid`` where the caller computed it
+    once."""
     B, Q = inp.token_ids.shape
     nh = cfg.num_heads
     nope, rope = cfg.qk_nope_head_dim, cfg.qk_rope_head_dim
     rank = cfg.kv_lora_rank
-    Dl = cfg.kv_cache_entry_dim
 
     if hq is None:
         if cfg.q_lora_rank > 0:
@@ -75,25 +75,19 @@ def mla_write(
             q = qpdot(hq, lp, "wq")
     q = q.reshape(B, Q, nh, nope + rope)
     q_nope, q_pe = q[..., :nope], q[..., nope:]
-    q_pe = apply_rope(q_pe, cos, sin)
-
     kv_a = (pdot(h, lp, "wkv_a") if hq is None  # [B, Q, rank + rope]
             else qpdot(hq, lp, "wkv_a").reshape(B, Q, rank + rope))
-    c_kv = rms_norm(kv_a[..., :rank], lp["kv_norm"], cfg.rms_norm_eps)
-    k_pe = apply_rope(kv_a[..., None, rank:], cos, sin)[:, :, 0]  # one shared head
-    latent = F.pad(torch.cat([c_kv, k_pe], dim=-1), (0, Dl - rank - rope))
-    half = Dl // 2
-    lat4 = latent[:, :, None, :]  # [B, Q, 1, Dl]
-    cache = ops.write_kv_pages_full(
-        cache, layer, lat4[..., :half], lat4[..., half:], inp.page_table,
-        inp.positions, inp.valid, prep,
-    )
 
-    # Absorption, query half: W_uk [nh, rank, nope].
+    # Absorption, query half: W_uk [nh, rank, nope]. Ahead of the write,
+    # whose one launch assembles q_eff from it (both are pure).
     wkv_b = lp["wkv_b"].reshape(rank, nh, nope + cfg.v_head_dim)
     w_uk = wkv_b[..., :nope].permute(1, 0, 2)
     q_eff_nope = torch.einsum("bqhn,hrn->bqhr", q_nope, w_uk)
-    q_eff = F.pad(torch.cat([q_eff_nope, q_pe], dim=-1), (0, Dl - rank - rope))
+    # kv_norm, both ropes, the pads and the latent row's store; q_eff out.
+    q_eff = ops.rope_write_latent_full(
+        cache, layer, kv_a, lp["kv_norm"], cfg.rms_norm_eps, cos, sin, q_pe, q_eff_nope,
+        inp.page_table, inp.positions, inp.valid if valid is None else valid,
+    )
     return cache, q_eff
 
 
@@ -133,10 +127,10 @@ def mla_attention(
     cfg: ModelConfig,
     cos: torch.Tensor,
     sin: torch.Tensor,
-    prep=None,
+    valid: torch.Tensor | None = None,
     hq: quant.QRows | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Returns (attention output ``[B, Q, hidden]``, the pool). int8 trees
     pass h's rows quantized (``hq``) in place of h."""
-    cache, q_eff = mla_write(h, lp, cache, layer, inp, cfg, cos, sin, prep, hq)
+    cache, q_eff = mla_write(h, lp, cache, layer, inp, cfg, cos, sin, valid, hq)
     return mla_read(q_eff, lp, cache, layer, inp, cfg), cache

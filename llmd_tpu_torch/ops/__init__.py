@@ -25,7 +25,11 @@ whose writes quantize the float K|V rows themselves.
 MLA and MoE: ``mla_paged_attention_full`` follows the JAX rule as well
 (``Q == 1`` → the latent decode kernel, ``Q > 1`` → the plain dense form of
 ``ops.mla_attention``), and ``grouped_matmul`` is the MoE experts' grouped
-GEMM (``grouped_matmul_pair``: gate and up in one launch). The latent rows are written through ``write_kv_pages_full``.
+GEMM (``grouped_matmul_pair``: gate and up in one launch). The latent rows
+are written by ``rope_write_latent_full``, K4''s latent form: ``kv_norm``,
+both ropes, the padding, the store and q_eff's assembly in one launch a
+layer at every Q (each token's page and slot from the page table and
+positions), where JAX runs XLA around the store.
 
 int8 weights (``ModelConfig.quantization="int8"``, ``ops/quant.py``): every
 int8 product runs K6''s int8 branch (``matmul_q8`` for a dense product,
@@ -66,6 +70,8 @@ from llmd_tpu_torch.ops.kv_write import (
     rope_write_kv_decode_plain,
     rope_write_kv_flat_full,
     rope_write_kv_flat_plain,
+    rope_write_latent_full,
+    rope_write_latent_plain,
     write_branch,
     write_kv_pages_decode,
     write_kv_pages_decode_full,
@@ -480,6 +486,8 @@ __all__ = [
     "rope_write_kv_flat",
     "rope_write_kv_flat_full",
     "rope_write_kv_flat_plain",
+    "rope_write_latent_full",
+    "rope_write_latent_plain",
     "set_launch_state",
     "write_branch",
     "write_kv_pages",

@@ -33,12 +33,22 @@
 // kernel and stores k|v (int8: quantized) in the same launch: every Q = 1
 // decode forward of a GQA model runs it, one launch a layer where the
 // unfused chain ran about 22. A pad row's q is rotated all the same; it
-// stores nothing. The store-only entry above stays for MLA's latent rows.
+// stores nothing.
+//
+// The latent form (decode_kv_write_latent, latent_kv_write.cuh) is MLA's:
+// each row's kv_norm, the rotary embedding of k_pe and of the query's rope
+// heads, the latent row's padding and its store, and the absorbed query
+// q_eff assembled from the einsum's output, in one launch a layer at any
+// Q (decode rows and the bucketed prefill chunks alike: it computes each
+// token's page and slot from the page table and positions), where the
+// unfused chain ran about 34 kernels a layer. The store-only entry above is the TPU kernel's own
+// function: it stays, on no model's path since.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #include "kv_quant.cuh"
+#include "latent_kv_write.cuh"
 #include "rope_kv_write.cuh"
 
 namespace {
@@ -200,4 +210,28 @@ extern "C" int decode_kv_write_rope(
   const decode_kv_write_rows target{(const int32_t*)phys, (const int32_t*)offset,
                                     (const int32_t*)valid, num_pages, page};
   return rope_kv::launch(a, target, batch, head_dim, dtype, stream);
+}
+
+// The latent form: for each of the step's rows r (N = rows = B q_len),
+// kv_a row r ([rank + rope] at kv_stride), kv_norm's weight [rank],
+// cos/sin [N, rope / 2] f32, q_pe (row r, head h at qp_row / qp_head) and
+// q_nope, the absorbed q_nope (qn_row / qn_head), of dtype 0 = float32,
+// 1 = bfloat16, 2 = float16. Writes q_eff [N, heads, dl] (contiguous) for
+// every row and stores the live rows' latent rows into cache [L, P, 1,
+// page, dl] at the (page, slot) it computes from page_table [B, max_pages]
+// int32, positions [N] int32 and valid [N] bool; rstd (f32 [N], or
+// nullptr) gets each row's norm factor. m: elements a rope / pad vector.
+extern "C" int decode_kv_write_latent(
+    void* cache, void* q_eff, void* rstd, const void* kv_a, const void* weight,
+    const void* cos, const void* sin, const void* q_pe, const void* q_nope,
+    long long kv_stride, long long qp_row, long long qp_head, long long qn_row,
+    long long qn_head, float eps, const void* page_table, const void* positions,
+    const void* valid, int rows, int q_len, int max_pages, int layer, int num_pages, int page,
+    int heads, int rank, int rope, int dl, int m, int dtype, void* stream) {
+  const latent_kv::RawParams a{cache, q_eff, rstd, kv_a, weight, cos, sin, q_pe, q_nope,
+                               kv_stride, qp_row, qp_head, qn_row, qn_head, eps, layer,
+                               num_pages, page, heads, rank, rope, dl};
+  const latent_kv::bucket_rows target{(const int32_t*)page_table, (const int32_t*)positions,
+                                      (const uint8_t*)valid, q_len, max_pages, num_pages, page};
+  return latent_kv::launch(a, target, rows, m, dtype, stream);
 }

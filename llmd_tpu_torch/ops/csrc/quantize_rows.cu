@@ -245,7 +245,9 @@ __global__ void __launch_bounds__(kMaxBlock) add_rms_norm_quant_kernel(
 // after the experts' biases b_gate/b_up [E, F] picked by expert_ids [M]
 // where given; then act's row quantized. kind 0: silu(gate) * up; kind 1:
 // gpt-oss's clamped SwiGLU, (clamp(up, -limit, limit) + 1) * (g *
-// sigmoid(1.702 g)) with g = min(gate, limit). Rows blockDim.x / tpr a
+// sigmoid(1.702 g)) with g = min(gate, limit), each step rounded to T as
+// JAX rounds it (1.702 itself, and the sigmoid's exp and sum). Rows
+// blockDim.x / tpr a
 // block.
 template <typename T>
 __global__ void __launch_bounds__(kMaxBlock) glu_quant_kernel(
@@ -300,8 +302,10 @@ __global__ void __launch_bounds__(kMaxBlock) glu_quant_kernel(
         } else {
           gv = gv > lim ? lim : gv;  // NaN passes, as clamp keeps it
           uv = uv > lim ? lim : uv < -lim ? -lim : uv;
-          const float z = rnd<T>(__fmul_rn(gv, 1.702f));
-          const float sg = rnd<T>(__fdiv_rn(1.0f, __fadd_rn(1.0f, expf(-z))));
+          // JAX's arithmetic: 1.702 in T, and the sigmoid's exp and sum
+          // rounded to T as XLA's 1 / (1 + exp(-z)) rounds them.
+          const float z = rnd<T>(__fmul_rn(gv, rnd<T>(1.702f)));
+          const float sg = rnd<T>(__fdiv_rn(1.0f, rnd<T>(__fadd_rn(1.0f, rnd<T>(expf(-z))))));
           const float glu = rnd<T>(__fmul_rn(gv, sg));
           a = __fmul_rn(rnd<T>(__fadd_rn(uv, 1.0f)), glu);
         }

@@ -38,8 +38,18 @@ rotated k|v as the store-only forms do, in one launch where the unfused
 chain ran about 22 small kernels. Their launches count under the store-only
 wrapper of the same kernel (``write_kv_pages_flat_full``,
 ``write_kv_pages_decode_full``) in branches of their own
-(``write_branch``). The store-only forms stay: MLA's latent rows go through
-``write_kv_pages_decode_full``.
+(``write_branch``). The store-only forms stay: they are the TPU kernels'
+own functions (``ops.write_kv_pages_full`` reaches the decode one at ``Q ==
+1``).
+
+The decode kernel has a latent form too (``csrc/latent_kv_write.cuh``):
+``rope_write_latent_full`` takes an MLA layer's ``kv_a`` (wkv_a's output),
+``kv_norm``'s weight, the rope tables, ``q_pe`` and the absorbed
+``q_eff_nope``, and in one launch at any Q stores each live row's
+``[kv_norm(c_kv), rope(k_pe), 0 ...]`` and returns q_eff ``[q_eff_nope,
+rope(q_pe), 0 ...]``, where ``models/mla.py`` ran about 34 kernels a
+layer. Its launches count under ``write_kv_pages_decode_full``, branch
+``latent``; its plain version ``rope_write_latent_plain`` is that chain.
 
 ``write_kv_pages_flat_plain``, ``write_kv_pages_decode_plain``,
 ``rope_write_kv_flat_plain`` and ``rope_write_kv_decode_plain`` are the
@@ -54,8 +64,9 @@ import collections
 import ctypes
 
 import torch
+import torch.nn.functional as F
 
-from llmd_tpu_torch.models.common import apply_rope
+from llmd_tpu_torch.models.common import apply_rope, rms_norm
 from llmd_tpu_torch.ops import _build
 from llmd_tpu_torch.ops.paged_attention import scatter_kv_scales_flat
 from llmd_tpu_torch.ops.quant_kv import quantize_kv_rows
@@ -97,6 +108,11 @@ def _decode_kernel():
             + [ctypes.c_int] * 8 + [ctypes.c_void_p]
         )
         lib.decode_kv_write_rope.restype = ctypes.c_int
+        lib.decode_kv_write_latent.argtypes = (
+            [ctypes.c_void_p] * 9 + [ctypes.c_longlong] * 5 + [ctypes.c_float]
+            + [ctypes.c_void_p] * 3 + [ctypes.c_int] * 12 + [ctypes.c_void_p]
+        )
+        lib.decode_kv_write_latent.restype = ctypes.c_int
         _decode_lib = lib
     return _decode_lib
 
@@ -149,7 +165,8 @@ def _check_int8(kv_cache, scales, rows_in):
 def write_branch(int8: bool, rope: bool = False, bias: bool = False) -> str:
     """The branch a KV-write launch counts under: ``plain`` or ``int8`` for
     the store-only form; ``rope``, ``rope+bias``, ``rope+int8`` or
-    ``rope+bias+int8`` for the fused one."""
+    ``rope+bias+int8`` for the fused one (MLA's latent form counts as
+    ``latent``)."""
     if not rope:
         return "int8" if int8 else "plain"
     return "+".join(["rope"] + ["bias"] * bias + ["int8"] * int8)
@@ -599,3 +616,210 @@ def rope_write_kv_decode_full(
         raise RuntimeError(f"decode_kv_write_rope launch failed: CUDA error {err}")
     _count(write_kv_pages_decode_full, scales, rope=True, bias=bias is not None)
     return q_out
+
+
+# --------------------------------------------------------------------- #
+# MLA's latent row: kv_norm, both ropes, the padding and the store in one
+# launch (``csrc/latent_kv_write.cuh``), at decode and at prefill.
+
+
+def rope_write_latent_plain(
+    kv_cache: torch.Tensor,  # [L, num_pages, 1, page, Dl]
+    layer: int,
+    kv_a: torch.Tensor,  # [B, Q, rank + rope]: wkv_a's output
+    kv_norm: torch.Tensor,  # [rank]
+    eps: float,
+    cos: torch.Tensor,  # [B, Q, rope/2] f32 (rope_tables)
+    sin: torch.Tensor,
+    q_pe: torch.Tensor,  # [B, Q, nh, rope]
+    q_eff_nope: torch.Tensor,  # [B, Q, nh, rank]: the absorbed q_nope
+    page_table: torch.Tensor,  # [B, max_pages]
+    positions: torch.Tensor,  # [B, Q]
+    valid: torch.Tensor,  # [B, Q] bool
+    rstd: torch.Tensor | None = None,  # f32 [B Q]: gets each row's norm factor
+) -> torch.Tensor:
+    """Plain PyTorch version of ``rope_write_latent_full``: the chain
+    ``models/mla.py:mla_write`` ran around the store before the fused form
+    (``rms_norm`` of c_kv, ``apply_rope`` of k_pe and q_pe, the
+    concatenations and pads), with the store-only form's plain version,
+    which stores the live tokens and drops the pads
+    (``write_kv_pages_decode_plain`` at every token's (page, slot)).
+    Returns q_eff ``[B, Q, nh, Dl]``."""
+    rank = q_eff_nope.shape[-1]
+    rope = q_pe.shape[-1]
+    Dl = kv_cache.shape[-1]
+    xc = kv_a[..., :rank]
+    c_kv = rms_norm(xc, kv_norm, eps)
+    if rstd is not None:
+        xf = xc.float()
+        rstd.copy_(torch.rsqrt((xf * xf).mean(dim=-1) + eps).reshape(-1))
+    k_pe = apply_rope(kv_a[..., None, rank:], cos, sin)[:, :, 0]  # one shared head
+    latent = F.pad(torch.cat([c_kv, k_pe], dim=-1), (0, Dl - rank - rope))
+    pos = positions.long()
+    page = kv_cache.shape[3]
+    phys = torch.gather(page_table.long(), 1, pos // page)
+    write_kv_pages_decode_plain(kv_cache, latent.reshape(-1, 1, Dl), layer, phys.reshape(-1),
+                                (pos % page).reshape(-1), valid.reshape(-1))
+    q_pe = apply_rope(q_pe, cos, sin)
+    return F.pad(torch.cat([q_eff_nope, q_pe], dim=-1), (0, Dl - rank - rope))
+
+
+def _rows_view(name: str, t: torch.Tensor, shape: tuple, align: int) -> tuple[torch.Tensor, tuple]:
+    """``t`` [B, Q, *tail] as a view of its N = B Q rows, [N, *tail], and
+    the strides (elements) of the dims before its last, which must be
+    contiguous; every start a multiple of ``align`` bytes."""
+    if tuple(t.shape) != shape:
+        raise ValueError(f"{name} {tuple(t.shape)} must be {shape}")
+    try:
+        v = t.view(-1, *shape[2:])
+    except RuntimeError as e:
+        raise ValueError(f"{name}'s batch and query axes must merge into one row axis") from e
+    if v.stride(-1) != 1:
+        raise ValueError(f"{name}'s last axis must be contiguous")
+    strides = tuple(v.stride(i) if v.shape[i] > 1 else 0 for i in range(v.dim() - 1))
+    es = v.element_size()
+    if v.data_ptr() % align or any(s * es % align for s in strides):
+        raise ValueError(f"{name}'s rows (and heads) must start {align}-byte aligned")
+    return v, strides
+
+
+def _rope_vector(half: int, pad: int, es: int, q_pe: torch.Tensor) -> int:
+    """Elements a rope and pad vector of the kernel: 8 (16 bytes of bf16 or
+    f16) where they divide a rope half and the pad and align q_pe's heads,
+    else 4 (the widths of tiny-mla, and f32); refuses what 4 does not
+    divide."""
+    for m in (8, 4):
+        if m * es <= 16 and not (half % m or pad % m or q_pe.data_ptr() % (m * es)
+                                 or any(s % m for s in q_pe.stride()[:-1])):
+            return m
+    raise ValueError(f"rope/2 {half}, the pad {pad} and q_pe's head offsets must be "
+                     "multiples of 4 elements")
+
+
+def _check_latent(kv_cache, layer, kv_a, kv_norm, cos, sin, q_pe, q_eff_nope, rstd):
+    """What the fused latent write requires; returns (N-row views of kv_a,
+    cos, sin, q_pe, q_eff_nope; their strides; the rope vector's
+    elements)."""
+    if kv_cache.dim() != 5 or kv_cache.shape[2] != 1:
+        raise ValueError(f"the latent pool must be [L, pages, 1, page, Dl], got {tuple(kv_cache.shape)}")
+    dt = kv_a.dtype
+    if dt not in _DTYPE_CODES:
+        raise ValueError(f"the latent write takes f32, bf16 or f16 rows, got {dt}")
+    if kv_cache.dtype != dt:
+        raise ValueError(f"the latent pool is {kv_cache.dtype}, its rows {dt} "
+                         "(an int8 latent pool is not supported)")
+    if not 0 <= layer < kv_cache.shape[0]:
+        raise ValueError(f"layer {layer} out of range [0, {kv_cache.shape[0]})")
+    B, Q = kv_a.shape[:2]
+    nh, rank = q_eff_nope.shape[2:]
+    rope = q_pe.shape[-1]
+    Dl = kv_cache.shape[-1]
+    es = kv_a.element_size()
+    if rope % 2 or Dl < rank + rope:
+        raise ValueError(f"rope {rope} must be even and rank + rope {rank + rope} <= Dl {Dl}")
+    if (rank * es) % 16 or (Dl * es) % 16:
+        raise ValueError(f"rank {rank} and Dl {Dl} must each be a multiple of 16 bytes")
+    for name, t in (("q_pe", q_pe), ("q_eff_nope", q_eff_nope), ("kv_norm", kv_norm)):
+        if t.dtype != dt:
+            raise ValueError(f"{name} is {t.dtype}, kv_a {dt}")
+    if kv_norm.shape != (rank,) or not kv_norm.is_contiguous() or kv_norm.data_ptr() % 16:
+        raise ValueError(f"kv_norm must be a contiguous, 16-byte aligned [{rank}]")
+    kv, (kv_stride,) = _rows_view("kv_a", kv_a, (B, Q, rank + rope), 16)
+    qn, qn_strides = _rows_view("q_eff_nope", q_eff_nope, (B, Q, nh, rank), 16)
+    qp, qp_strides = _rows_view("q_pe", q_pe, (B, Q, nh, rope), es)
+    tables = []
+    for name, t in (("cos", cos), ("sin", sin)):
+        if t.shape != (B, Q, rope // 2) or t.dtype != torch.float32 or not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous f32 [B, Q, rope/2] = [{B}, {Q}, {rope // 2}]")
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name} must be 16-byte aligned")
+        tables.append(t.view(B * Q, rope // 2))
+    if rstd is not None and (rstd.shape != (B * Q,) or rstd.dtype != torch.float32
+                             or not rstd.is_contiguous()):
+        raise ValueError(f"rstd must be contiguous f32 [B Q] = [{B * Q}]")
+    for name, t in (("kv_a", kv_a), ("kv_norm", kv_norm), ("cos", cos), ("sin", sin),
+                    ("q_pe", q_pe), ("q_eff_nope", q_eff_nope), ("rstd", rstd)):
+        if t is not None and t.device != kv_cache.device:
+            raise ValueError(f"{name} is on {t.device}, the pool on {kv_cache.device}")
+    if kv_cache.data_ptr() % 16 or not kv_cache.is_contiguous():
+        raise ValueError("the pool must be contiguous and 16-byte aligned")
+    m = _rope_vector(rope // 2, Dl - rank - rope, es, qp)
+    return (kv, *tables, qp, qn), (kv_stride, *qp_strides, *qn_strides), m
+
+
+def _check_bucket_index(kv_cache, B, Q, page_table, positions, valid):
+    """What a step's addressing must be: an int32 table [B,
+    max_pages], int32 positions and bool valid [B, Q], contiguous on the
+    pool's device."""
+    if page_table.dim() != 2 or page_table.shape[0] != B:
+        raise ValueError(f"page_table must be [B = {B}, max_pages], got {tuple(page_table.shape)}")
+    for name, t, dtype, shape in (("page_table", page_table, torch.int32, page_table.shape),
+                                  ("positions", positions, torch.int32, (B, Q)),
+                                  ("valid", valid, torch.bool, (B, Q))):
+        if t.shape != shape or t.dtype != dtype or not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous {dtype} {tuple(shape)}, got "
+                             f"{t.dtype} {tuple(t.shape)}")
+        if t.device != kv_cache.device:
+            raise ValueError(f"{name} is on {t.device}, the pool on {kv_cache.device}")
+
+
+def rope_write_latent_full(
+    kv_cache: torch.Tensor,
+    layer: int,
+    kv_a: torch.Tensor,
+    kv_norm: torch.Tensor,
+    eps: float,
+    cos: torch.Tensor,
+    sin: torch.Tensor,
+    q_pe: torch.Tensor,
+    q_eff_nope: torch.Tensor,
+    page_table: torch.Tensor,
+    positions: torch.Tensor,
+    valid: torch.Tensor,
+    rstd: torch.Tensor | None = None,
+) -> torch.Tensor:
+    """MLA's latent write in one launch of K4''s latent form, for the
+    step's ``N = B Q`` rows: stores each live row's ``[bf16(c_kv r) *
+    kv_norm, rope(k_pe), 0 ...]`` (c_kv and k_pe the halves of ``kv_a``
+    [B, Q, rank + rope], ``r`` the RMSNorm's factor) at its (page, slot) of
+    ``kv_cache[layer]`` in place, and returns every row's q_eff [B, Q, nh,
+    Dl] = ``[q_eff_nope, rope(q_pe), 0 ...]``, pad rows included. kv_a,
+    q_pe and q_eff_nope may be views (each row's, or head's, last axis
+    contiguous). The kernel computes each token's (page, slot) from
+    ``page_table`` [B, max_pages], ``positions`` and ``valid`` [B, Q] at
+    every Q; a pad row (valid False) stores nothing. ``rstd`` (f32 [B Q], checks of the arithmetic) gets the
+    norm's factor of every row.
+
+    CUDA tensors launch the kernel on the current stream (launches count
+    under ``write_kv_pages_decode_full``, branch ``latent``); CPU tensors
+    take the plain version."""
+    if kv_cache.device.type == "cpu":
+        return rope_write_latent_plain(
+            kv_cache, layer, kv_a, kv_norm, eps, cos, sin, q_pe, q_eff_nope, page_table,
+            positions, valid, rstd,
+        )
+    if kv_cache.device.type != "cuda":
+        raise ValueError(f"unsupported device {kv_cache.device}")
+    views, strides, m = _check_latent(kv_cache, layer, kv_a, kv_norm, cos, sin, q_pe,
+                                      q_eff_nope, rstd)
+    kv, cos_n, sin_n, qp, qn = views
+    L, P, _, page, Dl = kv_cache.shape
+    B, Q = kv_a.shape[:2]
+    nh, rank = q_eff_nope.shape[2:]
+    _check_bucket_index(kv_cache, B, Q, page_table, positions, valid)
+    q_eff = torch.empty((B, Q, nh, Dl), dtype=kv_a.dtype, device=kv_a.device)
+    if B * Q == 0:
+        return q_eff
+    err = _decode_kernel().decode_kv_write_latent(
+        kv_cache.data_ptr(), q_eff.data_ptr(), None if rstd is None else rstd.data_ptr(),
+        kv.data_ptr(), kv_norm.data_ptr(), cos_n.data_ptr(), sin_n.data_ptr(), qp.data_ptr(),
+        qn.data_ptr(), *strides, float(eps), page_table.data_ptr(), positions.data_ptr(),
+        valid.data_ptr(), B * Q, Q, page_table.shape[1], layer, P, page, nh, rank,
+        q_pe.shape[-1], Dl, m, _DTYPE_CODES[kv_a.dtype],
+        torch.cuda.current_stream(kv_cache.device).cuda_stream,
+    )
+    if err:
+        raise RuntimeError(f"decode_kv_write_latent launch failed: CUDA error {err}")
+    write_kv_pages_decode_full.launches += 1
+    write_kv_pages_decode_full.branch_launches["latent"] += 1
+    return q_eff

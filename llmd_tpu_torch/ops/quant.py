@@ -305,15 +305,29 @@ add_rms_norm_quant.launches = 0
 GLU_KINDS = {"silu": 0, "swiglu_oss": 1}
 
 
+# gpt-oss's 1.702 rounded to a 16-bit gate's dtype: the value JAX's weakly
+# typed constant takes beside it (bf16 1.703125, f16 1.7021484375).
+_OSS_ALPHA16 = {dt: float(torch.tensor(1.702, dtype=dt)) for dt in (torch.bfloat16, torch.float16)}
+
+
 def glu(gate: torch.Tensor, up: torch.Tensor, kind: str = "silu", limit: float = 0.0) -> torch.Tensor:
     """The gated unit before a down projection. silu: silu(gate) * up.
     swiglu_oss (gpt-oss): gate clamped above at ``limit``, up clamped to
     [-limit, limit], glu = gate * sigmoid(1.702 * gate), out = (up + 1) *
-    glu."""
+    glu. In bf16 and f16 each step rounds to gate's dtype where JAX's
+    does: the constant 1.702 first (bf16 1.703125, f16 1.7021484375), and
+    the sigmoid is XLA's ``1 / (1 + exp(-z))`` with the exp, the sum and the
+    quotient each rounded (``torch.sigmoid`` rounds once); f32 keeps
+    ``torch.sigmoid``."""
     if kind == "swiglu_oss":
         gate = gate.clamp(max=limit)
         up = up.clamp(-limit, limit)
-        glu = gate * torch.sigmoid(1.702 * gate)
+        alpha = _OSS_ALPHA16.get(gate.dtype)
+        if alpha is None:
+            sig = torch.sigmoid(1.702 * gate)
+        else:  # -(gate alpha) rounds as gate alpha does, negated
+            sig = torch.reciprocal(torch.exp(gate * -alpha).add_(1.0))
+        glu = gate * sig
         return (up + 1.0) * glu
     return F.silu(gate) * up
 

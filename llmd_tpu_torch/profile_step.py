@@ -34,7 +34,13 @@ kernels, GEMMs, the rest), the costliest other kernels, the same host and
 device times per token of a decode row, so that the fused window stands
 beside the flat decode step, the live tokens a second at the untraced
 step time, and the engine's host gap a step (``EngineStats``) beside the
-untraced host time; the decode line also carries the host cost of building and
+untraced host time; for an MLA model, the "other" group's device ms and
+kernels a step by family (``_FAMILIES``: the latent chain, the absorption
+einsums, the router, the MoE sort, gather and combine, ..., the rest; the
+model's functions run inside ``record_function`` ranges for it: in the
+traced prefill step itself, and for each decode window in one more step
+run as its program's eager body, since a graph replay's kernels carry no
+caller); the decode line also carries the host cost of building and
 staging a flat decode step's static inputs (``staging_us``). The profiler adds host time to every operator, so each
 window's steps are also timed without it (``untraced_host_ms_per_step``),
 before the profiler first starts: up to ``PREFILL_STEPS`` prefill steps
@@ -51,8 +57,11 @@ from __future__ import annotations
 
 import argparse
 import collections
+import contextlib
 import cProfile
+import functools
 import gc
+import importlib
 import pstats
 import json
 import subprocess
@@ -61,7 +70,7 @@ import time
 import numpy as np
 import torch
 from torch.autograd import DeviceType
-from torch.profiler import ProfilerActivity, profile
+from torch.profiler import ProfilerActivity, profile, record_function
 
 from llmd_tpu_torch.config import CacheConfig, EngineConfig, SchedulerConfig
 from llmd_tpu_torch.engine import LLMEngine, SamplingParams
@@ -74,11 +83,61 @@ _GEMM_MARKS = ("gemm", "nvjet", "cutlass", "xmma", "cublas")
 # their library's tag type, e.g. tile_attention_kernel<flat_paged_attention_kernel, ...>;
 # the kernels of K5' and its merge are mla_decode_attention_*_kernel, those
 # of K6' grouped_gemm_*_kernel).
+# K4''s latent form is latent_kv_write_kernel<...>, first: its decode
+# addressing's tag names decode_kv_write.
 _PORT_KERNELS = (
-    "flat_paged_attention", "flat_kv_write", "decode_paged_attention",
+    "latent_kv_write", "flat_paged_attention", "flat_kv_write", "decode_paged_attention",
     "decode_kv_write", "mla_decode_attention", "grouped_gemm", "quantize_rows",
     "add_rms_norm_quant", "glu_quant",
 )
+
+# An MLA model's "other" kernels by family. For the traced steps each
+# function below (module under llmd_tpu_torch, attribute) runs inside a
+# ``record_function`` range of its family; a kernel's family is that of the
+# innermost range around the op that launched it, or the absorption einsums
+# where an aten::einsum encloses the op, else "rest" (the residual adds,
+# the embedding, the step's inputs). The latent chain is what
+# models/mla.py:mla_write runs itself (before K4''s latent form: rms_norm,
+# apply_rope, cat, pad and the store's copies).
+_FAMILIES = {
+    "router": (("models.moe", "router_topk"),),
+    "expert gated units": (("ops.grouped_gemm", "expert_mlp_grouped"),
+                           ("models.moe", "shared_expert_ffn"), ("models.llama", "_mlp")),
+    "moe sort, gather and combine": (("models.moe", "moe_apply_grouped"),
+                                     ("models.llama", "moe_block_grouped")),
+    "projections": (("models.mla", "pdot"), ("models.mla", "qpdot"), ("models.moe", "pdot"),
+                    ("models.moe", "qpdot"), ("models.llama", "pdot"), ("models.llama", "qpdot")),
+    "latent attention": (("ops", "mla_paged_attention_full"),),
+    "latent chain": (("models.mla", "mla_write"),),
+    "mla read": (("models.mla", "mla_read"),),
+    "norms": (("models.llama", "rms_norm"),),
+    "logits and sampler": (("models.llama", "compute_logits"), ("engine.runner", "sample_tokens")),
+}
+_RANGE = "family:"
+
+
+@contextlib.contextmanager
+def family_ranges():
+    """Run each function of ``_FAMILIES`` inside a range of its family."""
+
+    def ranged(family, fn):
+        @functools.wraps(fn)
+        def call(*args, **kwargs):
+            with record_function(_RANGE + family):
+                return fn(*args, **kwargs)
+        return call
+
+    saved = []
+    try:
+        for family, targets in _FAMILIES.items():
+            for module, name in targets:
+                mod = importlib.import_module(f"llmd_tpu_torch.{module}")
+                saved.append((mod, name, getattr(mod, name)))
+                setattr(mod, name, ranged(family, saved[-1][2]))
+        yield
+    finally:
+        for mod, name, fn in reversed(saved):
+            setattr(mod, name, fn)
 
 
 def _group(kernel: str) -> str:
@@ -88,6 +147,53 @@ def _group(kernel: str) -> str:
     if any(m in kernel.lower() for m in _GEMM_MARKS):
         return "gemm"
     return "other"
+
+
+def _family(op) -> str:
+    """The family of a CPU op traced under ``family_ranges``."""
+    while op is not None:
+        if op.name == "aten::einsum":
+            return "absorption einsums"
+        if op.name.startswith(_RANGE):
+            return op.name[len(_RANGE):]
+        op = op.cpu_parent
+    return "rest"
+
+
+def other_by_family(prof, n: int) -> dict:
+    """Device ms a step of the "other" kernels of a trace of ``n`` eager
+    steps under ``family_ranges``, by family, and their launches a step."""
+    ms: dict[str, float] = collections.defaultdict(float)
+    count: dict[str, float] = collections.defaultdict(float)
+    for e in prof.events():
+        if e.device_type != DeviceType.CPU:
+            continue
+        for k in e.kernels:
+            if _group(k.name) == "other" and not k.name.startswith(_RANGE):
+                fam = _family(e)
+                ms[fam] += k.duration / 1e3 / n
+                count[fam] += 1 / n
+    return {"ms_per_step": dict(sorted(ms.items(), key=lambda kv: -kv[1])),
+            "kernels_per_step": dict(sorted(count.items(), key=lambda kv: -kv[1])),
+            "total_ms_per_step": sum(ms.values())}
+
+
+def family_step(eng: LLMEngine) -> dict:
+    """One engine step traced under ``family_ranges``, its decode program
+    run as its eager body (a graph replay's kernels carry no caller): the
+    "other" kernels by family (``other_by_family``). It takes its tokens
+    from the slack of ``main``'s token budget."""
+    progs = eng.runner.programs
+    replay = progs.replay
+    progs.replay = progs.eager
+    try:
+        torch.cuda.synchronize()
+        with family_ranges(), profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            eng.step()
+            torch.cuda.synchronize()
+    finally:
+        progs.replay = replay
+    return other_by_family(prof, 1)
 
 
 # Prefill steps timed (and as many profiled), where the prompts give them.
@@ -146,12 +252,15 @@ def host_profile(eng: LLMEngine, n: int, top: int = 25) -> list:
             for (f, line, fn), (_, nc, tt, ct, _) in rows]
 
 
-def trace_steps(eng: LLMEngine, n: int, untraced_ms: float) -> dict:
+def trace_steps(eng: LLMEngine, n: int, untraced_ms: float, families: bool = False) -> dict:
     """Run ``n`` engine steps under the profiler; per-step averages beside
-    ``untraced_ms``, the same kind of steps' host time without it."""
+    ``untraced_ms``, the same kind of steps' host time without it. With
+    ``families`` (eager steps: prefill) the "other" kernels are split by
+    family too (``family_ranges``, ``other_by_family``)."""
     live0 = eng.runner.live_tokens_total
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    ranges = family_ranges() if families else contextlib.nullcontext()
+    with ranges, profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for _ in range(n):
             eng.step()
@@ -161,7 +270,8 @@ def trace_steps(eng: LLMEngine, n: int, untraced_ms: float) -> dict:
     other: dict[str, float] = collections.defaultdict(float)
     launches = 0
     for e in prof.events():
-        if e.device_type != DeviceType.CUDA:
+        # A family range is on the device's timeline too, spanning kernels.
+        if e.device_type != DeviceType.CUDA or e.name.startswith(_RANGE):
             continue
         ms = e.time_range.elapsed_us() / 1e3
         g = _group(e.name)
@@ -177,6 +287,7 @@ def trace_steps(eng: LLMEngine, n: int, untraced_ms: float) -> dict:
     # Tokens one row gains in a step: 1, or K in a fused decode window.
     row_tokens = max(live / max(len(eng.scheduler.running), 1), 1.0)
     return {
+        **({"other_by_family": other_by_family(prof, n)} if families else {}),
         "steps": n,
         "live_tokens_per_step": live,
         "host_ms_per_step": host_ms,
@@ -331,9 +442,13 @@ def main(argv=None) -> None:
                else None)
     windows = {}
     if "prefill" in wanted:
-        windows["prefill"] = trace_steps(prefilling(loaded_engine("prefill")), 1, untraced["prefill"][0])
+        windows["prefill"] = trace_steps(prefilling(loaded_engine("prefill")), 1, untraced["prefill"][0],
+                                         families=cfg.is_mla)
     for name, (eng, n) in steps.items():
         windows[name] = trace_steps(eng, n, untraced[name][0])
+        if cfg.is_mla:
+            windows[name]["other_by_family"] = {
+                **family_step(eng), "steps": "one eager body (no graph replay)"}
     for name, w in windows.items():
         replays = {str(k): n for k, n in steps[name][0].runner.programs.runs.items()} if name in steps else {}
         print(json.dumps({"window": name, "model": args.model, "batch": args.batch,

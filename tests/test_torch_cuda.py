@@ -1000,6 +1000,117 @@ def test_mla_decode_kernel_takes_any_head_count(dev, dtype, page, H, rank, Dl, s
     assert not got[kv_lens == 0].any()
 
 
+# K4''s latent form: (rank, rope, Dl, heads) of deepseek-v2-lite (16 heads),
+# deepseek-r1 (128) and tiny-mla (rope halves of 4, a pad of 88).
+LATENT_WRITES = ((512, 64, 640, 16), (512, 64, 640, 128), (32, 8, 128, 4))
+MANTISSA = {torch.float32: 23, torch.bfloat16: 7, torch.float16: 10}
+# (start, width) rows of a bucketed Q > 1 step: pad tokens in live rows, a
+# pad row (width 0, a garbage page table), a row across a page boundary.
+LATENT_ROWS = ((0, 5), (37, 3), (100, 0), (14, 5), (60, 1))
+
+
+def latent_write_inputs(rng, dev, dtype, rank, rope, Dl, nh, Q, page=16):
+    """A step's addressing (Q == 1: a decode batch with pad rows; Q > 1:
+    LATENT_ROWS), the pool, and the write's operands as the model
+    passes them: kv_a a row-strided view, q_pe the rope heads of a q
+    projection, q_eff_nope the absorption einsum's output."""
+    from llmd_tpu_torch.models.common import rope_tables
+
+    if Q == 1:
+        pt, kv_lens, _, _, _, P = decode_step(rng, page, DECODE_LENS)
+        positions = np.maximum(kv_lens - 1, 0)[:, None].astype(np.int32)
+        live = (kv_lens > 0)[:, None]
+        pt[kv_lens == 0] = 2**30  # pad rows: garbage targets
+    else:
+        B = len(LATENT_ROWS)
+        need = [-(-(p0 + w) // page) for p0, w in LATENT_ROWS]
+        max_pages, P = max(need) + 1, sum(need) + 8
+        perm = rng.permutation(P)
+        pt = np.zeros((B, max_pages), np.int32)
+        positions = np.zeros((B, Q), np.int32)
+        live = np.zeros((B, Q), bool)
+        off = 0
+        for b, ((p0, w), n) in enumerate(zip(LATENT_ROWS, need)):
+            pt[b, :n] = perm[off : off + n] if w else 2**30
+            off += n
+            positions[b, :w] = np.arange(p0, p0 + w)
+            positions[b, w:] = p0 + w - 1  # pad slots repeat the last
+            live[b, :w] = True
+    B = pt.shape[0]
+    nope = 128
+
+    def t(*shape, scale=1.0):
+        return torch.from_numpy((rng.normal(size=shape) * scale).astype(np.float32)).to(dev, dtype)
+
+    pool = t(3, P, 1, page, Dl)
+    kv_a = t(B, Q, rank + rope + 64, scale=3.0)[..., : rank + rope]
+    q = t(B, Q, nh, nope + rope)
+    q_eff_nope = torch.einsum("bqhn,hrn->bqhr", q[..., :nope], t(nh, rank, nope, scale=0.1))
+    pt_d, pos_d, live_d = on(dev, pt, positions, live)
+    cos, sin = rope_tables(pos_d, rope, 10000.0)
+    return dict(pool=pool, kv_a=kv_a, w=1 + t(rank, scale=0.1), cos=cos, sin=sin,
+                q_pe=q[..., nope:], q_eff_nope=q_eff_nope, addr=(pt_d, pos_d, live_d), live=live_d,
+                page=page)
+
+
+@pytest.mark.parametrize("Q", [1, 5])
+@pytest.mark.parametrize("rank,rope,Dl,nh", LATENT_WRITES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.float16])
+def test_latent_write_kernel_meets_its_contract(dev, dtype, rank, rope, Dl, nh, Q):
+    """``rope_write_latent_full`` against ``rope_write_latent_plain`` on the
+    same inputs: q_eff (every row, pads too) and the stored rows' rope and
+    pad parts bit-equal; c_kv bit-equal to the plain arithmetic run with
+    the kernel's norm factor (``rstd``), that factor within RSTD_REL of the
+    plain chain's and c_kv within two ulps of the plain chain's c_kv (f32:
+    plus the factor's RSTD_REL, which is several f32 ulps); pad
+    rows and pad tokens store nothing (the pool equals the plain version's
+    everywhere else). One launch, counted in the ``latent`` branch."""
+    rng = np.random.default_rng(27)
+    x = latent_write_inputs(rng, dev, dtype, rank, rope, Dl, nh, Q)
+    B = x["kv_a"].shape[0]
+    args = (x["kv_a"], x["w"], 1e-6, x["cos"], x["sin"], x["q_pe"], x["q_eff_nope"], *x["addr"])
+    pk, pp = x["pool"].clone(), x["pool"].clone()
+    rk, rp = torch.empty(B * Q, device=dev), torch.empty(B * Q, device=dev)
+    ops.reset_launch_counts()
+    qk = ops.rope_write_latent_full(pk, 1, *args, rstd=rk)
+    counts, branches = ops.launch_counts(), ops.branch_launch_counts()
+    qp = ops.rope_write_latent_plain(pp, 1, *args, rstd=rp)
+    torch.cuda.synchronize()
+    assert counts["write_kv_pages_decode_full"] == 1
+    assert branches == {"write_kv_pages_decode_full[latent]": 1}
+    assert qk.shape == (B, Q, nh, Dl) and torch.equal(qk, qp)
+    assert ((rk - rp).abs() / rp).max().item() <= RSTD_REL
+    # The live tokens' targets, and c_kv from the kernel's factor.
+    pt, pos, live = x["addr"]
+    pos = pos.long()
+    phys = torch.gather(pt.long().clamp(0, pk.shape[1] - 1), 1, pos // x["page"])[live]
+    slot = (pos % x["page"])[live]
+    xc = x["kv_a"][..., :rank].float()
+    exact = (xc * rk.view(B, Q, 1)).to(dtype) * x["w"]
+    want = pp.clone()
+    want[1, phys, 0, slot, :rank] = exact[live]
+    assert torch.equal(pk, want)
+    got, chain = pk[1, phys, 0, slot, :rank].double(), pp[1, phys, 0, slot, :rank].double()
+    ulp = torch.exp2(torch.floor(torch.log2(chain.abs().clamp(min=2.0**-100))) - MANTISSA[dtype])
+    # Two ulps of the type, and in f32 the factor's own distance on top.
+    assert ((got - chain).abs() <= 2 * ulp + RSTD_REL * chain.abs()).all()
+
+
+def test_latent_write_refuses_what_the_kernel_does_not_take(dev):
+    rng = np.random.default_rng(28)
+    x = latent_write_inputs(rng, dev, torch.bfloat16, 512, 64, 640, 16, 5)
+    args = [x["kv_a"], x["w"], 1e-6, x["cos"], x["sin"], x["q_pe"], x["q_eff_nope"], *x["addr"]]
+    with pytest.raises(ValueError, match="int8"):
+        ops.rope_write_latent_full(x["pool"].to(torch.int8), 1, *args)
+    with pytest.raises(ValueError, match="positions"):
+        ops.rope_write_latent_full(x["pool"], 1, *args[:8], args[8].long(), args[9])
+    with pytest.raises(ValueError, match="valid"):
+        ops.rope_write_latent_full(x["pool"], 1, *args[:9], args[9].int())
+    shifted = torch.zeros((5, 5, 578), dtype=torch.bfloat16, device=dev)[..., 1:577]
+    with pytest.raises(ValueError, match="aligned"):  # rows 2 bytes off 16
+        ops.rope_write_latent_full(x["pool"], 1, shifted, *args[1:])
+
+
 def test_moe_and_mla_wrappers_refuse_what_the_kernels_do_not_take(dev):
     x = torch.zeros((10, 64), device=dev, dtype=torch.bfloat16)
     w = torch.zeros((2, 64, 64), device=dev, dtype=torch.bfloat16)
@@ -1074,9 +1185,10 @@ def test_moe_mla_engine_on_the_card_matches_the_cpu_engine(dev, model, layout, m
     """tiny-moe and tiny-mla (f32; tiny-mla-yarn: tiny-mla with DeepSeek's
     yarn, ``mscale_all_dim`` in K5''s ``sm_scale``): the card's streams
     equal the CPU's. Every forward is logged with its Q: K6' launches twice
-    a MoE layer a forward (the gate|up pair and the down call), K5' and K4'
-    once a layer a Q = 1 forward of the MLA model (which takes the bucketed
-    unified step where the layout asks for the flat one). Decode-only steps
+    a MoE layer a forward (the gate|up pair and the down call), K5' once a
+    layer a Q = 1 forward of the MLA model (which takes the bucketed
+    unified step where the layout asks for the flat one) and K4''s latent
+    form once a layer a forward at any Q. Decode-only steps
     are graph replays: their forwards are counted from the programs'
     runs."""
     from llmd_tpu_torch.models.registry import get_model_config
@@ -1110,7 +1222,9 @@ def test_moe_mla_engine_on_the_card_matches_the_cpu_engine(dev, model, layout, m
     if mcfg.is_mla:
         assert not gpu_engine.runner.flat
         assert counts["mla_decode_paged_attention_full"] == L * forwards.count(1) > 0
-        assert counts["write_kv_pages_decode_full"] == L * forwards.count(1)
+        # K4''s latent form writes every forward's latent rows, at any Q.
+        assert counts["write_kv_pages_decode_full"] == L * len(forwards)
+        assert ops.branch_launch_counts() == {"write_kv_pages_decode_full[latent]": L * len(forwards)}
         assert counts["flat_paged_attention_full"] == counts["decode_paged_attention_full"] == 0
 
 

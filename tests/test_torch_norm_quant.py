@@ -14,9 +14,11 @@ port's plain versions, in f32 and bf16:
   (``llmd_tpu/models/llama.py:154``) and ``llmd_tpu/models/moe.py:112
   expert_glu`` after the experts' biases, within a few ulps in f32 (XLA's
   exp and logistic); in bf16 silu within a few ulps (PyTorch rounds silu's
-  output before the product, XLA need not), gpt-oss's clamped SwiGLU held
-  only to the port's own chain (JAX rounds its 1.702 to bf16, 1.703125);
-  (xq, a_scale) bit-equal to JAX's quantization of the port's act.
+  output before the product, XLA need not), gpt-oss's clamped SwiGLU bit
+  for bit (the port rounds 1.702 to bf16, 1.703125, and the sigmoid's exp
+  and sum, as JAX does; also on 4,097 gates and ups over [-6, 6], where
+  the older arithmetic differed in 1,158); (xq, a_scale) bit-equal to
+  JAX's quantization of the port's act.
 - Both forms bit-equal to the chain the port ran before them (its
   ``rms_norm`` or ``glu`` then ``quantize_rows_plain``), which keeps the
   int8 engines' streams equal to JAX's (``tests/test_torch_quant.py``).
@@ -28,6 +30,8 @@ port's plain versions, in f32 and bf16:
   (the formula the card's launch counts are held to); a float tree calls
   none of them.
 """
+
+import dataclasses
 
 import jax
 import jax.numpy as jnp
@@ -140,13 +144,33 @@ def test_glu_quant_plain_matches_jax(dtype, kind, layout, biased):
         jg, ju = jg + jbg[ids], ju + jbu[ids]
         tg, tu = tg + biases[0][tids], tu + biases[1][tids]
     want = jax.nn.silu(jg) * ju if kind == "silu" else jmoe.expert_glu(jg, ju, cfg)
-    if kind == "silu" or dtype == "float32":
+    if kind == "swiglu_oss" and dtype == "bfloat16":
+        assert torch.equal(act, from_jax(want))  # JAX's roundings, bit for bit
+    else:
         assert ulps(act, from_jax(want), dtype) <= GLU_ULPS[dtype]
     assert_quantized_like_jax(xq, scale, act)
     # The port's chain before the fused form: its GLU, then quantize_rows.
     assert torch.equal(act, moe.expert_glu(tg, tu, cfg))
     assert torch.equal(xq, quant.quantize_rows_plain(act)[0])
     assert quant.glu_quant(*args, *moe.glu_kind(cfg), biases, tids)[2] is None
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "float16"])
+def test_gpt_oss_glu_rounds_as_jax(dtype):
+    """gpt-oss's clamped SwiGLU (limit 7) on 4,097 gates and ups drawn
+    over [-6, 6]: ``glu`` and ``glu_quant_plain``'s act bit-equal to JAX's
+    ``expert_glu``. Tolerance 0: JAX rounds 1.702 to the dtype (bf16
+    1.703125) and its sigmoid's exp and sum to the dtype, and so does the
+    port; multiplying by 1.702 in f32 and rounding the sigmoid once gave
+    1,158 of these bf16 values another result, by up to 0.125."""
+    rng = np.random.default_rng(34)
+    gate, up = (rng.uniform(-6.0, 6.0, size=(1, 4097)).astype(np.float32) for _ in range(2))
+    jg, ju = jnp.asarray(gate, dtype), jnp.asarray(up, dtype)
+    cfg = tiny_model_config(**TINY_OSS)
+    want = from_jax(jmoe.expert_glu(jg, ju, dataclasses.replace(cfg, swiglu_limit=7.0)))
+    tg, tu = from_jax(jg), from_jax(ju)
+    assert torch.equal(quant.glu(tg, tu, "swiglu_oss", 7.0), want)
+    assert torch.equal(quant.glu_quant_plain(tg, tu, "swiglu_oss", 7.0, want_act=True)[2], want)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

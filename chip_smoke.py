@@ -98,6 +98,15 @@ through an HF checkpoint):
                back once. Then the host µs a step that the engine's stats
                update costs, on the flat step, alone and with a /metrics
                page rendered every millisecond (``stats_update_cost``).
+               Async stepping (``async_scheduling=True``) runs again on
+               the flat step, with windows of 8 and on int8 weights (5a),
+               on deepseek-v2-lite's int8 default engine (9b) and on
+               gpt-oss-20b's ring engine: the same checks, greedy tokens
+               beside the same phase's sync tokens (``compare_sync_async``),
+               the overlapped calls (scheduling, staging, output assembly)
+               under ``set_sync_debug_mode("error")`` (``check_overlap``),
+               and at the end nothing in flight, the pool empty and staged
+               rows rolled back (``check_async_end``).
 5a. int8 weights on llama-3-8b: ``runner_init`` (the int8 tree drawn one
                layer at a time; peak device memory at most the int8 tree
                and pool plus 2 GB), ``forward`` (``q8_forward_phase``: a
@@ -176,7 +185,9 @@ through an HF checkpoint):
                ``/v1/completions`` requests (one streamed), then a second
                server with ``--no-unified-step --decode-window 4`` whose
                streamed completion carries one chunk per token and the
-               unstreamed completion's text, then deepseek-v2-lite,
+               unstreamed completion's text, one with
+               ``--async-scheduling`` (its texts the first server's, its
+               ``llmd:async_rollbacks_total`` positive), then deepseek-v2-lite,
                gpt-oss-20b (and again with ``--kv-swa-ring``) and
                llama-3-8b with ``--kv-cache-dtype int8`` servers; the
                llama-3-8b checkpoint directory served with the chart's
@@ -1079,6 +1090,61 @@ class GraphWatch:
                 "replay_vs_eager": self.compared}
 
 
+def check_overlap(eng) -> dict:
+    """Under async stepping the host schedules and stages step N+1 and
+    assembles step N's outputs while the device runs: run those calls
+    (``scheduler.schedule``, the runner's ``stage_unified`` and
+    ``stage_decode``, the engine's ``_assemble_outputs`` and
+    ``_finish_step``) under ``torch.cuda.set_sync_debug_mode("error")``,
+    so that a hidden device sync there (a read of a device value, a
+    blocking copy) fails the run. Returns the calls by name, counted as
+    they run."""
+    calls: dict[str, int] = {}
+
+    def checked(owner, name):
+        fn = getattr(owner, name)
+
+        def call(*args, **kwargs):
+            calls[name] = calls.get(name, 0) + 1
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                return fn(*args, **kwargs)
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+        setattr(owner, name, call)
+
+    checked(eng.scheduler, "schedule")
+    checked(eng.runner, "stage_unified")
+    checked(eng.runner, "stage_decode")
+    checked(eng, "_assemble_outputs")
+    checked(eng, "_finish_step")
+    return calls
+
+
+def check_async_end(info: dict, eng, calls: dict) -> None:
+    """An async engine's end state: nothing in flight, every main-pool
+    page back, staged rows rolled back (every request ended on
+    ``max_tokens``, so each rolled back the row its next step had staged),
+    and the overlapped calls run under the sync check."""
+    info.update(async_rollbacks=eng.stats.async_rollbacks_total,
+                overlap_calls_sync_checked=dict(calls), pool_usage_end=eng.allocator.usage(),
+                step_host_gap_ms_mean=eng.stats.step_host_gap_ms_total / eng.stats.engine_steps_total)
+    if eng.has_work() or eng.allocator.usage() != 0.0 or eng.scheduler.protected:
+        raise AssertionError(f"the async engine ended with work or pages: usage "
+                             f"{eng.allocator.usage()}, protected {eng.scheduler.protected}")
+    if eng.stats.async_rollbacks_total <= 0:
+        raise AssertionError("no staged row was rolled back although every request hit max_tokens")
+    if not (calls.get("schedule") and calls.get("_assemble_outputs")):
+        raise AssertionError(f"the overlapped calls did not run: {calls}")
+
+
+def compare_sync_async(info: dict, got: list, want: list) -> None:
+    """An async phase's greedy streams beside the same phase's sync
+    streams: ``compare_greedy`` (gated), and whether they are equal."""
+    info["tokens_equal_sync"] = got == want
+    compare_greedy(info, got, want, gate=True)
+
+
 def warm_engine(eng, info: dict, watch: GraphWatch, seed: int) -> None:
     """``eng.warmup()`` on a pool of seeded random values: the pool must
     keep every byte. Records the graphs it captured, its seconds, the
@@ -1191,7 +1257,7 @@ def ring_prompts(cfg) -> list[list[int]]:
 def engine_phase(info: dict, params: dict, model: str = MODEL, kv_dtype: str = "bfloat16",
                  prompts: list | None = None, swa_ring: bool = False,
                  num_blocks: int = 2048, quantization: str | None = None,
-                 ) -> tuple[dict, dict, list, list]:
+                 async_scheduling: bool = False) -> tuple[dict, dict, list, list]:
     """``LLMEngine`` at full width serving 8 greedy requests in the step
     layout ``info["layout"]`` names: on the flat step; as the split engine
     with fused decode windows of 8; or on the flat step with windows of 8
@@ -1211,8 +1277,11 @@ def engine_phase(info: dict, params: dict, model: str = MODEL, kv_dtype: str = "
     ring pool (``CacheConfig.swa_ring``); ``num_blocks`` is the pool's
     pages; ``quantization="int8"`` runs int8 weights (``params`` their
     tree), whose products must launch the int8 kernels as ``q8_launches``
-    counts them and K6''s bf16 calls never. Returns (launch counts, branch
-    launch counts, the requests' tokens, their logprobs)."""
+    counts them and K6''s bf16 calls never. ``async_scheduling`` runs the
+    engine's two-slot pipeline: the overlapped calls under the sync check
+    (``check_overlap``), and at the end nothing in flight, the pool empty
+    and staged rows rolled back (``check_async_end``). Returns (launch
+    counts, branch launch counts, the requests' tokens, their logprobs)."""
     from llmd_tpu_torch import ops
     from llmd_tpu_torch.config import CacheConfig, EngineConfig, SchedulerConfig
     from llmd_tpu_torch.engine import LLMEngine, SamplingParams
@@ -1225,11 +1294,13 @@ def engine_phase(info: dict, params: dict, model: str = MODEL, kv_dtype: str = "
     config = EngineConfig(
         model=cfg,
         cache=CacheConfig(page_size=16, num_blocks=num_blocks, dtype=kv_dtype, swa_ring=swa_ring),
-        scheduler=SchedulerConfig(max_num_seqs=64, max_num_batched_tokens=1024, **layout),
+        scheduler=SchedulerConfig(max_num_seqs=64, max_num_batched_tokens=1024,
+                                  async_scheduling=async_scheduling, **layout),
         seed=0,
     )
     eng = LLMEngine(config, params=params, device="cuda")
     info["pool_pages"] = num_blocks
+    info["async_scheduling"] = async_scheduling
     if swa_ring != (eng.runner.kv_swa is not None):
         raise AssertionError(f"swa_ring={swa_ring}, but the runner's ring pool is {eng.runner.kv_swa}")
     watch = GraphWatch(eng.runner)
@@ -1238,7 +1309,7 @@ def engine_phase(info: dict, params: dict, model: str = MODEL, kv_dtype: str = "
     forwards: list[str] = []  # "flat", "q1" or "prefill" for every eager forward
     decode_only_flat = [0]  # flat steps with no prefill
     dispatch = eng.runner.dispatch_staged_decode
-    dispatch_flat = eng.runner.dispatch_unified
+    dispatch_flat = eng.runner.dispatch_staged_unified
     forward = runner_mod.llama.forward_hidden
 
     def logged_forward(p, kv_cache, inp, c, *swa):
@@ -1251,13 +1322,14 @@ def engine_phase(info: dict, params: dict, model: str = MODEL, kv_dtype: str = "
         k_steps.append(staged.k)
         return dispatch(staged)
 
-    def logged_flat(prefills, decodes):
-        decode_only_flat[0] += not prefills
-        return dispatch_flat(prefills, decodes)
+    def logged_flat(staged):
+        decode_only_flat[0] += not staged.prefills
+        return dispatch_flat(staged)
 
     eng.runner.dispatch_staged_decode = logged_dispatch
-    eng.runner.dispatch_unified = logged_flat
+    eng.runner.dispatch_staged_unified = logged_flat
     runner_mod.llama.forward_hidden = logged_forward
+    overlap = check_overlap(eng) if async_scheduling else None
     prompts = prompts or engine_prompts(cfg)
     sp = SamplingParams(temperature=0.0, max_tokens=32, ignore_eos=True, logprobs=True)
     ops.reset_launch_counts()
@@ -1386,6 +1458,8 @@ def engine_phase(info: dict, params: dict, model: str = MODEL, kv_dtype: str = "
     want_b = expected_branches(cfg, flat_fw, q1_fw, kv_dtype == "int8")
     if branches != want_b:
         raise AssertionError(f"branch launch counts {branches}, want {want_b}")
+    if async_scheduling:
+        check_async_end(info, eng, overlap)
     del eng, watch
     return counts, branches, [tokens[r] for r in rids], [requests[r].output_logprobs for r in rids]
 
@@ -3112,7 +3186,8 @@ DS_LAYOUTS = {
 }
 
 
-def ds_engine_phase(info: dict, params: dict, quantization: str | None = None) -> dict:
+def ds_engine_phase(info: dict, params: dict, quantization: str | None = None,
+                    async_scheduling: bool = False) -> tuple[dict, list]:
     """``LLMEngine`` serving deepseek-v2-lite (8 greedy requests, chunked
     prefill and a prefix-cache hit) in the layout ``info["layout"]`` names.
     MLA has no flat step, so the default engine runs the bucketed unified
@@ -3126,7 +3201,9 @@ def ds_engine_phase(info: dict, params: dict, quantization: str | None = None) -
     sync fails the run; the first replay held to its eager body);
     ``warmup`` must leave the pool as it was. ``quantization="int8"``
     runs int8 weights: the int8 kernels launch as ``q8_launches`` counts
-    them, K6''s bf16 calls never. Returns the launch counts."""
+    them, K6''s bf16 calls never. ``async_scheduling`` runs the two-slot
+    pipeline, checked as ``engine_phase`` checks it. Returns the launch
+    counts and the requests' tokens."""
     from llmd_tpu_torch import ops
     from llmd_tpu_torch.config import CacheConfig, EngineConfig, SchedulerConfig
     from llmd_tpu_torch.engine import LLMEngine, SamplingParams
@@ -3138,10 +3215,12 @@ def ds_engine_phase(info: dict, params: dict, quantization: str | None = None) -
     config = EngineConfig(
         model=cfg,
         cache=CacheConfig(page_size=16, num_blocks=2048, dtype="bfloat16"),
-        scheduler=SchedulerConfig(max_num_seqs=64, max_num_batched_tokens=1024, **layout),
+        scheduler=SchedulerConfig(max_num_seqs=64, max_num_batched_tokens=1024,
+                                  async_scheduling=async_scheduling, **layout),
         seed=0,
     )
     eng = LLMEngine(config, params=params, device="cuda")
+    info["async_scheduling"] = async_scheduling
     if eng.runner.flat:
         raise AssertionError("an MLA engine took the flat step")
     watch = GraphWatch(eng.runner)
@@ -3162,6 +3241,7 @@ def ds_engine_phase(info: dict, params: dict, quantization: str | None = None) -
 
     runner_mod.llama.forward_hidden = logged_forward
     eng.runner.dispatch_staged_decode = logged_dispatch
+    overlap = check_overlap(eng) if async_scheduling else None
     gen = torch.Generator().manual_seed(11)
     lengths = [16, 100, 300, 700, 1500, 64, 900]
     prompts = [torch.randint(3, cfg.vocab_size, (n,), generator=gen).tolist() for n in lengths]
@@ -3242,8 +3322,10 @@ def ds_engine_phase(info: dict, params: dict, quantization: str | None = None) -
         raise AssertionError(f"no decode window ran 8 iterations: {k_steps}")
     if not layout and st.unified_steps_total == 0:
         raise AssertionError("the default MLA engine ran no bucketed unified step")
+    if async_scheduling:
+        check_async_end(info, eng, overlap)
     del eng, watch
-    return counts
+    return counts, [tokens[r] for r in rids]
 
 
 def compare_greedy(info: dict, got: list, want: list, gate: bool) -> None:
@@ -3734,13 +3816,14 @@ def ring_kernels_phase(info: dict) -> None:
     torch.cuda.empty_cache()
 
 
-def ring_engine_phases(params: dict, layout: str, kv_dtype: str) -> None:
+def ring_engine_phases(params: dict, layout: str, kv_dtype: str) -> list:
     """gpt-oss-20b's engine in ``layout`` on ``ring_prompts`` (the engine
     phases' 8 requests and one of 8,192 tokens), without the ring and then
     with it, each an ``engine_phase`` (warmup, graph replays held to their
     eager bodies, launches a kernel branch). The ring run's tokens and
     logprobs must equal the no-ring run's: both schedule alike (the chunk
-    cap is the budget) and the kernels read the same logical pages."""
+    cap is the budget) and the kernels read the same logical pages.
+    Returns the ring run's tokens."""
     from llmd_tpu_torch.models.registry import get_model_config
 
     prompts = ring_prompts(get_model_config(OSS_MODEL))
@@ -3761,6 +3844,7 @@ def ring_engine_phases(params: dict, layout: str, kv_dtype: str) -> None:
                                          f"{info['agreeing_leading_tokens']}")
         gc.collect()
         torch.cuda.empty_cache()
+    return runs[True][0]
 
 
 def hybrid_prefix_phase(info: dict, params: dict) -> None:
@@ -4585,6 +4669,16 @@ def q8_serve_check(info: dict, base: str) -> None:
         raise AssertionError(f"chat gave {info['chat_completion_tokens']} tokens, /metrics {len(metrics)} series")
 
 
+def async_serve_check(info: dict, base: str) -> None:
+    """The async server's /metrics: ``llmd:async_rollbacks_total`` counts
+    the staged rows its finished requests rolled back."""
+    metrics, _ = _scrape(base)
+    info["async_rollbacks_total"] = metrics.get("llmd:async_rollbacks_total")
+    info["step_host_gap_ms_total"] = metrics.get("llmd:step_host_gap_ms_total")
+    if not info["async_rollbacks_total"]:
+        raise AssertionError(f"llmd:async_rollbacks_total is {info['async_rollbacks_total']}")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false", file=sys.stderr)
@@ -4649,11 +4743,17 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     with phase("engine", {"layout": "flat step"}) as info:
-        flat_counts, flat_branches, _, _ = engine_phase(info, params)
+        flat_counts, flat_branches, flat_tokens, _ = engine_phase(info, params)
+    with phase("engine", {"layout": "flat step", "async_scheduling": True}) as info:
+        _, _, tokens, _ = engine_phase(info, params, async_scheduling=True)
+        compare_sync_async(info, tokens, flat_tokens)
     with phase("engine", {"layout": "split engine, decode_window 8"}) as info:
         window_counts, window_branches, _, _ = engine_phase(info, params)
     with phase("engine", {"layout": "flat step, decode_window 8"}) as info:
         _, _, bf16_tokens, _ = engine_phase(info, params)
+    with phase("engine", {"layout": "flat step, decode_window 8", "async_scheduling": True}) as info:
+        _, _, tokens, _ = engine_phase(info, params, async_scheduling=True)
+        compare_sync_async(info, tokens, bf16_tokens)
     with phase("engine", {"layout": "flat step, decode_window 8", "kv_cache_dtype": "int8"}) as info:
         _, int8_branches, int8_tokens, _ = engine_phase(info, params, kv_dtype="int8")
         compare_greedy(info, int8_tokens, bf16_tokens, gate=True)
@@ -4664,6 +4764,9 @@ def main() -> int:
     with phase("engine", {"layout": "flat step", "quantization": "int8"}) as info:
         q8_counts[MODEL], _, q8_tokens, _ = engine_phase(info, params8, quantization="int8")
         compare_greedy(info, q8_tokens, bf16_tokens, gate=False)
+    with phase("engine", {"layout": "flat step", "quantization": "int8", "async_scheduling": True}) as info:
+        _, _, tokens, _ = engine_phase(info, params8, quantization="int8", async_scheduling=True)
+        compare_sync_async(info, tokens, q8_tokens)
     with phase("engine", {"layout": "flat step, decode_window 8", "quantization": "int8"}) as info:
         engine_phase(info, params8, quantization="int8")
     del params8
@@ -4693,7 +4796,7 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     with phase("engine", {"model": DS_MODEL, "layout": "default (bucketed unified step)"}) as info:
-        ds_counts = ds_engine_phase(info, params)
+        ds_counts, _ = ds_engine_phase(info, params)
     with phase("engine", {"model": DS_MODEL, "layout": "split engine, decode_window 8"}) as info:
         ds_engine_phase(info, params)
     params8 = llama.init_params(get_model_config(DS_MODEL, quantization="int8"),
@@ -4702,7 +4805,11 @@ def main() -> int:
         q8_forward_phase(info, DS_MODEL, params, params8)
     with phase("engine", {"model": DS_MODEL, "layout": "default (bucketed unified step)",
                           "quantization": "int8"}) as info:
-        q8_counts[DS_MODEL] = ds_engine_phase(info, params8, quantization="int8")
+        q8_counts[DS_MODEL], ds_q8_tokens = ds_engine_phase(info, params8, quantization="int8")
+    with phase("engine", {"model": DS_MODEL, "layout": "default (bucketed unified step)",
+                          "quantization": "int8", "async_scheduling": True}) as info:
+        _, tokens = ds_engine_phase(info, params8, quantization="int8", async_scheduling=True)
+        compare_sync_async(info, tokens, ds_q8_tokens)
     del params, params8
     gc.collect()
     torch.cuda.empty_cache()
@@ -4737,8 +4844,17 @@ def main() -> int:
     torch.cuda.empty_cache()
     with phase("ring_kernels", {"model": OSS_MODEL}) as info:
         ring_kernels_phase(info)
+    ring_tokens = {}
     for layout, kv_dtype in OSS_LAYOUTS:
-        ring_engine_phases(params, layout, kv_dtype)
+        ring_tokens[layout] = ring_engine_phases(params, layout, kv_dtype)
+    with phase("engine", {"model": OSS_MODEL, "layout": "flat step", "kv_cache_dtype": "bfloat16",
+                          "kv_swa_ring": True, "async_scheduling": True}) as info:
+        prompts = ring_prompts(get_model_config(OSS_MODEL))
+        _, _, tokens, _ = engine_phase(info, params, OSS_MODEL, prompts=prompts, swa_ring=True,
+                                       async_scheduling=True)
+        compare_sync_async(info, tokens, ring_tokens["flat step"])
+    gc.collect()
+    torch.cuda.empty_cache()
     with phase("hybrid_prefix", {"model": OSS_MODEL, "layout": "flat step"}) as info:
         hybrid_prefix_phase(info, params)
     with phase("capacity", {"model": OSS_MODEL, "layout": "flat step"}) as info:
@@ -4777,6 +4893,13 @@ def main() -> int:
         serve_phase(info, [], QWEN_MODEL)
     with phase("serve", {"layout": "split engine, decode_window 4"}) as info:
         serve_phase(info, ["--no-unified-step", "--decode-window", "4"])
+    with phase("serve", {"layout": "flat step", "async_scheduling": True}) as info:
+        # The registry server's first completion is the same request.
+        texts = serve_phase(info, ["--async-scheduling"], check=async_serve_check)
+        info["texts_equal_sync_server"] = texts == [registry_texts[0], registry_texts[-1]]
+        if not info["texts_equal_sync_server"]:
+            raise AssertionError(f"the async server answered {texts}, the sync server "
+                                 f"{[registry_texts[0], registry_texts[-1]]}")
     with phase("serve", {"model": DS_MODEL, "layout": "default (bucketed unified step)"}) as info:
         serve_phase(info, [], DS_MODEL)
     with phase("serve", {"model": OSS_MODEL, "layout": "flat step"}) as info:

@@ -244,6 +244,13 @@ class SchedulerConfig:
     # The unified step runs over the packed token stream (the flat step).
     # Off: the bucketed [B, Q] unified program.
     ragged_qlens: bool = True
+    # Async stepping: while step N runs on the device, the engine schedules
+    # step N+1 against the dispatched token counts and stages its host
+    # arrays, then blocks on N's readback, rolls back the staged rows of
+    # sequences that finished in N, and dispatches N+1. What the engine
+    # emits is unchanged; outputs arrive one step later
+    # (``LLMEngine._step_async``).
+    async_scheduling: bool = False
 
 
 @dataclasses.dataclass

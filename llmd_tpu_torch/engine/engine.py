@@ -1,8 +1,15 @@
-"""LLMEngine: scheduler + page allocator + model runner, stepped in sync.
+"""LLMEngine: scheduler + page allocator + model runner.
 
 Keeps the JAX engine's public API (``add_request``, ``step``,
-``generate``, ``abort_request``, ``has_work``) and its synchronous step
-(``llmd_tpu/engine/engine.py:_step_sync``). A step that is eligible runs as
+``generate``, ``abort_request``, ``has_work``), its synchronous step
+(``llmd_tpu/engine/engine.py:_step_sync``) and, with
+``SchedulerConfig.async_scheduling``, its two-slot pipeline
+(``_step_async``): while step N runs on the device, step N+1 is scheduled
+against the dispatched positions and staged; then the engine blocks on
+N's readback, commits it, rolls back the staged rows of sequences that
+finished in N, dispatches N+1, and assembles N's outputs while N+1 runs.
+The pipeline changes when host work happens, never what the engine emits;
+outputs arrive one step later. A step that is eligible runs as
 one unified program (the flat step over the packed token stream, or the
 bucketed ``[B, Q]`` program without ``ragged_qlens``); otherwise its
 prefill chunks go out as Q-bucket groups and its decode rows as one fused
@@ -38,10 +45,19 @@ from llmd_tpu_torch.engine.kv_cache import (
     PageAllocator,
     page_hashes_for_tokens,
 )
-from llmd_tpu_torch.engine.request import Request, RequestOutput, SamplingParams
+from llmd_tpu_torch.engine.request import (
+    Request,
+    RequestOutput,
+    RequestStatus,
+    SamplingParams,
+)
 from llmd_tpu_torch.engine.runner import (
     ModelRunner,
     PendingDecode,
+    PendingPrefill,
+    PendingUnified,
+    StagedDecode,
+    StagedUnified,
     StepResult,
     resolve_device,
 )
@@ -189,6 +205,9 @@ class EngineStats:
     padded_tokens_total: int = 0
     # Step watchdog trips (``serve/async_engine.py``).
     engine_watchdog_stalls_total: int = 0
+    # Async stepping: staged rows dropped because their sequence finished
+    # (or was aborted) in the step that was in flight when they were staged.
+    async_rollbacks_total: int = 0
     # Features the port does not have yet: always 0 or empty here.
     offload_pages: int = 0
     offload_fs_pages: int = 0
@@ -214,7 +233,6 @@ class EngineStats:
     kv_paged_out_bytes: int = 0
     kv_pager_prefetch_late_total: int = 0
     cp_ring_steps_total: int = 0
-    async_rollbacks_total: int = 0
     stream_resumes_total: int = 0
     resume_replayed_tokens_total: int = 0
     stream_resume_failures_total: int = 0
@@ -243,6 +261,17 @@ class EngineStats:
     moe_peak_demand: float = 0.0
     moe_capacity_factor: float = 0.0
     moe_rebalances_total: int = 0
+
+
+@dataclasses.dataclass
+class _InflightStep:
+    """One dispatched step whose readback is not read yet (async stepping)."""
+
+    batch: ScheduledBatch
+    pending_prefill: PendingPrefill | None
+    pending_decode: PendingDecode | None
+    pending_unified: PendingUnified | None
+    dispatch_time: float
 
 
 class LLMEngine:
@@ -296,6 +325,14 @@ class LLMEngine:
             self.scheduler.ring_pressure_hook = self._swa_sections.evict_one
         self.stats = EngineStats(num_pages=cache.num_blocks, page_size=cache.page_size)
         self._counter = itertools.count()
+        # Async stepping (the JAX engine turns it off for P/D producers and
+        # multi-host followers; the port has neither yet).
+        self._async = bool(config.scheduler.async_scheduling)
+        self._inflight: _InflightStep | None = None
+        # Aborts of in-flight requests: freeing their pages while the step
+        # that writes them runs, and committing that step for a request
+        # that is gone, are both wrong, so they wait for the commit.
+        self._deferred_aborts: set[str] = set()
 
     def add_request(
         self,
@@ -414,7 +451,28 @@ class LLMEngine:
             return
 
     def abort_request(self, request_id: str) -> bool:
+        if self._inflight is not None and any(
+                s.request.request_id == request_id for s in self._inflight.batch.seqs):
+            self._deferred_aborts.add(request_id)
+            return True
         return self.scheduler.abort_request(request_id) is not None
+
+    def drop_inflight(self) -> None:
+        """Forget the step in flight after a step raised (the serving loop
+        calls it before it aborts the failed step's requests): its tokens
+        will never be committed, so its sequences are no longer protected,
+        and the deferred aborts are applied now, freeing their pages. A
+        later step is ordered after the dropped one on the device's one
+        stream, so no later write races the dropped step's."""
+        inflight, self._inflight = self._inflight, None
+        if inflight is not None:
+            self.scheduler.forget_pending(inflight.batch.seqs)
+        self._apply_deferred_aborts()
+
+    def _apply_deferred_aborts(self) -> None:
+        aborts, self._deferred_aborts = self._deferred_aborts, set()
+        for rid in sorted(aborts):
+            self.scheduler.abort_request(rid)
 
     def cached_prefix_pages(self, prompt_token_ids: list[int]) -> int:
         """Leading full pages of this prompt that the device prefix cache
@@ -432,7 +490,7 @@ class LLMEngine:
         return n
 
     def has_work(self) -> bool:
-        return self.scheduler.has_work()
+        return self.scheduler.has_work() or self._inflight is not None
 
     def warmup(self) -> int:
         """Build the kernels and prepare the decode steps' programs (CUDA
@@ -444,25 +502,15 @@ class LLMEngine:
         # Fault site: a wedged device program stalls the whole step (the
         # step watchdog's case). Unarmed, one global read.
         faults.delay("engine.step.stall")
+        return self._step_async() if self._async else self._step_sync()
+
+    def _step_sync(self) -> list[RequestOutput]:
         t0 = time.perf_counter()
         batch: ScheduledBatch = self.scheduler.schedule()
         if batch.is_empty:
             return []
         now = time.monotonic()
-        pend_p = pend_d = pend_u = None
-        if self._unified_eligible(batch):
-            pend_u = self.runner.dispatch_unified(batch.prefills, batch.decodes)
-            self.stats.unified_steps_total += 1
-            self.stats.step_dispatches_total += 1
-            if batch.decodes:
-                self.stats.decode_dispatches_total += 1
-        else:
-            if batch.prefills:
-                pend_p = self.runner.dispatch_prefill(batch.prefills)
-                self.stats.step_dispatches_total += len(pend_p.entries)
-            if batch.decodes:
-                pend_d = self._dispatch_decodes(batch.decodes)
-        self.stats.prompt_tokens += sum(s.num_tokens for s in batch.prefills)
+        pend_p, pend_d, pend_u = self._dispatch(batch)
         t_dispatched = time.perf_counter()
         # One readback for the whole step, whatever it dispatched.
         pres, dres = self.runner.wait_step(pend_p, pend_d, pend_u)
@@ -472,6 +520,103 @@ class LLMEngine:
         outputs = self._assemble_outputs(batch, accepted, logprobs, now)
         self._finish_step((t_dispatched - t0) + (time.perf_counter() - t_read))
         return outputs
+
+    def _step_async(self) -> list[RequestOutput]:
+        """The two-slot pipeline (JAX ``_step_async``). While step N runs,
+        schedule step N+1 against the dispatched positions (each in-flight
+        row assumed to land its tokens) and stage its host arrays; only
+        then block on N's one readback. Commit N; apply the aborts that
+        waited for it; drop the staged rows of sequences that finished in
+        N (their pages, the ones claimed for N+1 included, went back when
+        they finished) and count them; dispatch the rest at once. N's
+        outputs are assembled while N+1 runs, so they come one call
+        late; the first call only dispatches."""
+        inflight = self._inflight
+        if inflight is None:
+            batch = self.scheduler.schedule()
+            if not batch.is_empty:
+                self._dispatch_async(batch)
+            return []
+        # ---- overlapped: the device runs N ----
+        staged = self.scheduler.schedule()
+        staged_arrays: StagedUnified | StagedDecode | None = None
+        if not staged.is_empty and self._unified_eligible(staged):
+            # Tables and knobs now; tokens, positions and seeds at dispatch.
+            staged_arrays = self.runner.stage_unified(staged.prefills, staged.decodes)
+        elif staged.decodes:
+            staged_arrays = self.runner.stage_decode(
+                staged.decodes, k_steps=staged.decodes[0].num_tokens)
+        # ---- N's one readback ----
+        pres, dres = self.runner.wait_step(
+            inflight.pending_prefill, inflight.pending_decode, inflight.pending_unified)
+        t_read = time.perf_counter()
+        sampled, logprobs = self._collect(inflight.batch, pres, dres)
+        accepted = self.scheduler.update_after_step(inflight.batch, sampled)
+        self._inflight = None
+        self._apply_deferred_aborts()
+        # ---- reconcile the staged step with the finishes N brought ----
+        live_p = [s for s in staged.prefills if s.request.status is RequestStatus.RUNNING]
+        live_d = [s for s in staged.decodes if s.request.status is RequestStatus.RUNNING]
+        rolled = len(staged.prefills) - len(live_p) + len(staged.decodes) - len(live_d)
+        if rolled:
+            self.stats.async_rollbacks_total += rolled
+            # Survivors keep their planned widths: a batch of windows stays
+            # a batch of windows of the same K.
+            reconciled = ScheduledBatch(prefills=live_p, decodes=live_d)
+            if isinstance(staged_arrays, StagedUnified):
+                if not reconciled.is_empty and self._unified_eligible(reconciled):
+                    staged_arrays = self.runner.subset_staged_unified(
+                        staged_arrays, live_p, live_d)
+                else:
+                    staged_arrays = None
+            elif len(live_d) != len(staged.decodes):
+                staged_arrays = None  # another row set: staged again at dispatch
+            staged = reconciled
+        if staged.is_empty and rolled and self.scheduler.has_work():
+            # The whole staged step went; what it held may admit other work.
+            staged = self.scheduler.schedule()
+            staged_arrays = None
+        if not staged.is_empty:
+            self._dispatch_async(staged, staged_arrays)
+        # The device waits on the host from the readback to this point;
+        # the output assembly and the gauges below overlap N+1.
+        host_gap = time.perf_counter() - t_read
+        outputs = self._assemble_outputs(inflight.batch, accepted, logprobs, inflight.dispatch_time)
+        self._finish_step(host_gap)
+        return outputs
+
+    def _dispatch_async(self, batch: ScheduledBatch,
+                        staged: StagedUnified | StagedDecode | None = None) -> None:
+        now = time.monotonic()
+        pend_p, pend_d, pend_u = self._dispatch(batch, staged)
+        self._inflight = _InflightStep(batch, pend_p, pend_d, pend_u, now)
+
+    def _dispatch(
+        self, batch: ScheduledBatch, staged: StagedUnified | StagedDecode | None = None
+    ) -> tuple[PendingPrefill | None, PendingDecode | None, PendingUnified | None]:
+        """Enqueue a scheduled step and mark its tokens in flight: one
+        unified program, or the prefill groups and one decode window.
+        ``staged`` is the step's staging when it was staged ahead
+        (async stepping); otherwise it is staged here."""
+        pend_p = pend_d = pend_u = None
+        if self._unified_eligible(batch):
+            if not isinstance(staged, StagedUnified):
+                staged = self.runner.stage_unified(batch.prefills, batch.decodes)
+            pend_u = self.runner.dispatch_staged_unified(staged)
+            self.stats.unified_steps_total += 1
+            self.stats.step_dispatches_total += 1
+            if batch.decodes:
+                self.stats.decode_dispatches_total += 1
+        else:
+            if batch.prefills:
+                pend_p = self.runner.dispatch_prefill(batch.prefills)
+                self.stats.step_dispatches_total += len(pend_p.entries)
+            if batch.decodes:
+                pend_d = self._dispatch_decodes(
+                    batch.decodes, staged if isinstance(staged, StagedDecode) else None)
+        self.stats.prompt_tokens += sum(s.num_tokens for s in batch.prefills)
+        self.scheduler.note_dispatch(batch)
+        return pend_p, pend_d, pend_u
 
     def _finish_step(self, host_gap_s: float) -> None:
         """Count the step and its host gap (JAX ``engine.py:1891``), then
@@ -521,10 +666,13 @@ class LLMEngine:
             return True
         return self.runner.prefill_group_count(batch.prefills) > 1
 
-    def _dispatch_decodes(self, decodes: list[ScheduledSeq]) -> PendingDecode:
+    def _dispatch_decodes(self, decodes: list[ScheduledSeq],
+                          staged: StagedDecode | None = None) -> PendingDecode:
         """The step's decode rows as one fused window; K is uniform across
-        the batch (the scheduler's choice)."""
-        staged = self.runner.stage_decode(decodes, k_steps=decodes[0].num_tokens)
+        the batch (the scheduler's choice). ``staged`` is their staging if
+        it was staged ahead."""
+        if staged is None:
+            staged = self.runner.stage_decode(decodes, k_steps=decodes[0].num_tokens)
         pend = self.runner.dispatch_staged_decode(staged)
         self.stats.decode_dispatches_total += 1
         self.stats.step_dispatches_total += 1

@@ -26,9 +26,13 @@ back, and the counts of the capture are added at every replay, so a count
 stays the launches that ran.
 
 A graph's output is a static tensor, and the staging buffers are reused:
-the runner reads every step's output (``ModelRunner.wait_step``, one
-blocking copy) before it stages and dispatches the next step. A failed
-capture or replay raises; there is no eager retry.
+step N's output is read (``ModelRunner.wait_step``, one blocking copy)
+before step N+1 writes a key's host buffer and copies it to the device.
+That holds under async stepping too: step N+1 is staged while N runs, but
+only into numpy arrays (``ModelRunner.stage_unified``, ``stage_decode``);
+its static inputs are written at its dispatch, after N's readback, when
+N's copy from the host buffer has landed and N's output has been read.
+A failed capture or replay raises; there is no eager retry.
 """
 
 from __future__ import annotations

@@ -67,6 +67,12 @@ class Request:
     # _swa_table``), dropped with the ring.
     swa_block_ids: list[int] = dataclasses.field(default_factory=list)
     swa_table_row: object = None
+    # Tokens dispatched to the device that no readback has committed yet
+    # (async stepping, ``SchedulerConfig.async_scheduling``): the next
+    # step is scheduled against the dispatched positions while the
+    # in-flight step runs. Always 0 in the synchronous engine, and
+    # between a step's commit and the next dispatch.
+    num_pending_tokens: int = 0
     # Number of prompt tokens satisfied from the prefix cache.
     num_cached_tokens: int = 0
     # Outputs generated before a recompute-preemption folded them into the
@@ -93,9 +99,32 @@ class Request:
     def all_token_ids(self) -> list[int]:
         return self.prompt_token_ids + self.output_token_ids
 
+    def token_slice(self, start: int, n: int) -> list[int]:
+        """``all_token_ids[start:start + n]`` without building the whole
+        list: a step's dispatch reads one token of each decode row."""
+        p = len(self.prompt_token_ids)
+        if start >= p:
+            return self.output_token_ids[start - p : start - p + n]
+        if start + n <= p:
+            return self.prompt_token_ids[start : start + n]
+        return self.prompt_token_ids[start:] + self.output_token_ids[: start + n - p]
+
     @property
     def in_decode(self) -> bool:
         return self.num_computed_tokens >= self.num_prompt_tokens
+
+    @property
+    def num_dispatched_tokens(self) -> int:
+        """The position once the in-flight step lands: what the scheduler
+        plans against (``num_computed_tokens`` when nothing is in flight)."""
+        return self.num_computed_tokens + self.num_pending_tokens
+
+    @property
+    def in_decode_dispatched(self) -> bool:
+        """``in_decode`` once the in-flight step lands: a prompt chunk in
+        flight that completes the prompt makes the sequence a decode row
+        of the next staged step."""
+        return self.num_dispatched_tokens >= self.num_prompt_tokens
 
     @property
     def is_finished(self) -> bool:

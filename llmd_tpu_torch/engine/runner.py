@@ -34,6 +34,17 @@ token themselves.
   writes the whole step's KV before attention reads it, so a later sub-row
   attends its earlier sub-rows' fresh KV.
 
+**Staging and dispatch** (JAX ``stage_unified`` / ``dispatch_staged_unified``,
+``stage_decode`` / ``dispatch_staged_decode``). A step is staged from its
+schedule first: the row structure, the page tables and the sampling knobs.
+What depends on the tokens (the token stream or ``[B, Q]`` tokens, the
+rows' positions, a window's first tokens) and the seed block are filled at
+dispatch, from the requests' committed state. So the async engine can
+stage step N+1 while step N runs and dispatch it once N's readback is
+committed; a rollback of rows that finished late keeps the survivors'
+staging (``subset_staged_unified``). Staging fills numpy arrays only; a
+program's static inputs are written at dispatch.
+
 **Decode steps as CUDA graphs** (``engine/graphs.py``; JAX ``warmup``).
 Every decode-only step is one program per key, captured as a CUDA graph on
 the card and replayed: the decode window per (batch bucket, K,
@@ -134,14 +145,26 @@ class StepResult:
 
 @dataclass
 class StagedUnified:
-    """Host arrays of one flat step: the packed token stream and the
-    per-row metadata, built from the schedule."""
+    """One step's rows staged ahead of their tokens: the row structure,
+    fixed by the schedule, and the arrays that do not depend on the tokens
+    (the page tables and the sampling knobs, one row each). ``program``
+    is "flat" (the flat step), "unified" (the bucketed unified step) or
+    "prefill" (one prefill Q-bucket group). A row is (scheduled sequence,
+    offset in its chunk, tokens); ``prefill_rows`` and ``decode_rows``
+    are the rows that carry each prefill's and each decode's sample."""
 
     prefills: list[ScheduledSeq]
     decodes: list[ScheduledSeq]
+    rows: list[tuple[ScheduledSeq, int, int]]
+    prefill_rows: list[int]
+    decode_rows: list[int]
     arrays: dict
-    num_live: int
     all_greedy: bool
+    program: str
+
+    @property
+    def num_live(self) -> int:
+        return sum(w for _, _, w in self.rows)
 
 
 @dataclass
@@ -324,10 +347,14 @@ class ModelRunner:
 
     def _host_table(self, name: str, B: int) -> np.ndarray:
         """A zeroed [B, max_pages] int32 host table, rows of one buffer a
-        table name that every step reuses. Each step copies its tables to
-        the device before the next builds them (the static inputs' staging
-        copy; an eager step's transfer reads its source before it
-        returns). A fresh table a step costs the host more: on an H100
+        name (a table of one program kind) that every step reuses. A step
+        copies its tables to the device at its dispatch (the static
+        inputs' staging copy; an eager step's transfer reads its source
+        before it returns), before the next step of its kind is staged;
+        under async stepping the next step is staged while this one runs,
+        which is after its dispatch. Kinds keep separate buffers because
+        one step may hold a staged decode window while its prefill groups
+        stage theirs. A fresh table a step costs the host more: on an H100
         host, building a 64 x 8,192 ring table took 1.2-1.9 ms fresh and
         0.6-0.7 ms reused (``profile_step.py``'s ``host_staging``)."""
         buf = self._table_bufs.get(name)
@@ -338,19 +365,19 @@ class ModelRunner:
         buf.fill(0)
         return buf
 
-    def _page_table(self, requests: list[Request], B: int) -> np.ndarray:
-        pt = self._host_table("page_table", B)
+    def _page_table(self, requests: list[Request], B: int, kind: str = "step") -> np.ndarray:
+        pt = self._host_table(f"{kind}.page_table", B)
         for i, req in enumerate(requests):
             pt[i, : len(req.block_ids)] = req.block_ids
         return pt
 
-    def _swa_table(self, requests: list[Request], B: int) -> np.ndarray:
+    def _swa_table(self, requests: list[Request], B: int, kind: str = "step") -> np.ndarray:
         """The sliding layers' ring-view table: logical page l of row i is
         ``ring[l % R]``. The main table's shape, so every kernel path is
         unchanged; the repeats past the window are the pages the window
         never reads. A row is fixed once its ring is allocated, so it is
         memoized on the request (the scheduler drops it with the ring)."""
-        pt = self._host_table("swa_table", B)
+        pt = self._host_table(f"{kind}.swa_table", B)
         for i, req in enumerate(requests):
             ring = req.swa_block_ids
             if not ring:
@@ -362,12 +389,28 @@ class ModelRunner:
             pt[i] = req.swa_table_row
         return pt
 
-    def _tables(self, requests: list[Request], B: int) -> dict[str, np.ndarray]:
+    def _tables(self, requests: list[Request], B: int, kind: str = "step") -> dict[str, np.ndarray]:
         """The step's page tables by input name: ``page_table``, and under
-        the ring ``swa_table``."""
-        out = {"page_table": self._page_table(requests, B)}
+        the ring ``swa_table``; ``kind`` names the program kind whose
+        buffers they fill (``_host_table``)."""
+        out = {"page_table": self._page_table(requests, B, kind)}
         if self.swa is not None:
-            out["swa_table"] = self._swa_table(requests, B)
+            out["swa_table"] = self._swa_table(requests, B, kind)
+        return out
+
+    @staticmethod
+    def _slice_staged_rows(arrays: dict, idxs: list[int], B: int) -> dict:
+        """Staged row arrays (tables, knobs) of rows ``idxs`` only, padded to
+        B rows as staging pads them: one gather an array, not another walk
+        over the requests' pages (JAX ``_slice_staged_rows``)."""
+        rows = np.asarray(idxs, np.int64)
+        out = {}
+        for name, src in arrays.items():
+            dst = np.zeros((B, *src.shape[1:]), src.dtype)
+            if name == "top_p":
+                dst[:] = 1.0  # pad rows keep the neutral knob
+            dst[: len(rows)] = src[rows]
+            out[name] = dst
         return out
 
     def _forward(self, inp: StepInput) -> torch.Tensor:
@@ -407,58 +450,121 @@ class ModelRunner:
     def stage_unified(
         self, prefills: list[ScheduledSeq], decodes: list[ScheduledSeq]
     ) -> StagedUnified:
-        """Pack the step's rows (prefill chunks, then one-token decodes)
-        into the token stream and per-row metadata. Pad rows carry
-        ``row_start = total`` so the boundary array stays monotonic."""
-        seqs = [*prefills, *decodes]
-        B = max(self.flat_rows, len(seqs))
-        total = sum(s.num_tokens for s in seqs)
-        T = -(-total // _T_GRANULE) * _T_GRANULE
-        requests = [s.request for s in seqs]
+        """Stage a window-1 step as one program, ahead of its tokens (JAX
+        ``stage_unified``). The schedule fixes the rows: on the flat step
+        one a sequence (prefill chunks, then one-token decodes); on the
+        bucketed unified step prefill chunks cut into sub-rows of at most
+        64 tokens, then the decodes. The page tables and sampling knobs
+        are built here; the token stream, the rows' positions and the
+        seeds are filled at dispatch (``dispatch_staged_unified``), after
+        the previous step's readback has been committed: under async
+        stepping a step is staged while the one before it still runs."""
+        if self.flat:
+            rows = [(s, 0, s.num_tokens) for s in (*prefills, *decodes)]
+            n_p = len(prefills)
+            return self._stage_rows(rows, "flat", prefills, decodes,
+                                    list(range(n_p)), list(range(n_p, len(rows))))
+        rows, prefill_rows = [], []
+        for s in prefills:
+            for off in range(0, s.num_tokens, _UNIFIED_ROW_TOKENS):
+                rows.append((s, off, min(_UNIFIED_ROW_TOKENS, s.num_tokens - off)))
+            # The chunk's sample is its last sub-row's.
+            prefill_rows.append(len(rows) - 1)
+        decode_rows = list(range(len(rows), len(rows) + len(decodes)))
+        rows += [(s, 0, 1) for s in decodes]
+        return self._stage_rows(rows, "unified", prefills, decodes, prefill_rows, decode_rows)
+
+    def _stage_rows(self, rows: list[tuple[ScheduledSeq, int, int]], program: str,
+                    prefills: list[ScheduledSeq], decodes: list[ScheduledSeq],
+                    prefill_rows: list[int], decode_rows: list[int]) -> StagedUnified:
+        """Tables and knobs of ``rows``: as wide as the flat step's row
+        metadata on the flat step, one per row on a bucketed program."""
+        requests = [s.request for s, _, _ in rows]
+        B = max(self.flat_rows, len(rows)) if program == "flat" else len(rows)
         temp, top_k, top_p = self._sampling_knobs(requests, B)
-        a = {
-            "stream": np.zeros(T, np.int64),
-            "row_start": np.full(B, total, np.int64),
-            "pos0": np.zeros(B, np.int64),
-            "qlens": np.zeros(B, np.int64),
-            **self._tables(requests, B),
-            "temp": temp, "top_k": top_k, "top_p": top_p,
-            "seeds": self._draw_seeds(requests, self._seed_rows("flat", B), 1)[:B, 0],
-        }
-        t = 0
-        for r, seq in enumerate(seqs):
-            req = seq.request
-            start = seq.start_pos
-            w = seq.num_tokens
-            a["stream"][t : t + w] = req.all_token_ids[start : start + w]
-            a["row_start"][r] = t
-            a["pos0"][r] = start
-            a["qlens"][r] = w
-            t += w
+        arrays = {**self._tables(requests, B, program), "temp": temp, "top_k": top_k, "top_p": top_p}
         all_greedy = all(req.sampling.greedy for req in requests)
-        return StagedUnified(list(prefills), list(decodes), a, total, all_greedy)
+        return StagedUnified(list(prefills), list(decodes), rows, prefill_rows, decode_rows,
+                             arrays, all_greedy, program)
+
+    def subset_staged_unified(
+        self, staged: StagedUnified, live_p: list[ScheduledSeq], live_d: list[ScheduledSeq]
+    ) -> StagedUnified:
+        """The staged step of the rows that survive a rollback (JAX
+        ``subset_staged_unified``): their tables and knobs sliced out of the
+        full staging (``_slice_staged_rows``)."""
+        rows_of: dict[int, list[int]] = {}
+        for r, (s, _, _) in enumerate(staged.rows):
+            rows_of.setdefault(id(s), []).append(r)
+        keep: list[int] = []
+        prefill_rows: list[int] = []
+        for s in live_p:
+            keep += rows_of[id(s)]
+            prefill_rows.append(len(keep) - 1)
+        decode_rows = list(range(len(keep), len(keep) + len(live_d)))
+        for s in live_d:
+            keep += rows_of[id(s)]
+        rows = [staged.rows[r] for r in keep]
+        B = max(self.flat_rows, len(rows)) if staged.program == "flat" else len(rows)
+        all_greedy = all(s.request.sampling.greedy for s, _, _ in rows)
+        return StagedUnified(list(live_p), list(live_d), rows, prefill_rows, decode_rows,
+                             self._slice_staged_rows(staged.arrays, keep, B), all_greedy,
+                             staged.program)
 
     def dispatch_unified(
         self, prefills: list[ScheduledSeq], decodes: list[ScheduledSeq]
     ) -> PendingUnified:
         """Stage and enqueue the whole window-1 step as one program: the
         flat step, or the bucketed unified step without ``ragged_qlens``."""
-        if not self.flat:
-            return self._dispatch_unified_bucketed(prefills, decodes)
-        staged = self.stage_unified(prefills, decodes)
-        a = staged.arrays
-        T = len(a["stream"])
-        self.live_tokens_total += staged.num_live
-        self.padded_tokens_total += T - staged.num_live
-        if prefills:
-            x = {name: self._on_device(arr) for name, arr in a.items()}
-            packed = self._flat_step(x, staged.all_greedy)
+        return self.dispatch_staged_unified(self.stage_unified(prefills, decodes))
+
+    def dispatch_staged_unified(self, staged: StagedUnified) -> PendingUnified:
+        """Fill a staged unified step's token-dependent arrays from the
+        requests' committed state and enqueue it. A flat step with no
+        prefill is its program's graph replay; one with a prefill chunk
+        runs eagerly."""
+        if staged.program != "flat":
+            packed = self._run_rows(staged)
         else:
-            packed = self.programs.run(("flat", T, staged.all_greedy), a)
-        n_p, n_d = len(prefills), len(decodes)
-        return PendingUnified(
-            packed, list(range(n_p)), list(range(n_p, n_p + n_d))
-        )
+            a = self.fill_flat(staged)
+            T = len(a["stream"])
+            self.live_tokens_total += staged.num_live
+            self.padded_tokens_total += T - staged.num_live
+            if staged.prefills:
+                x = {name: self._on_device(arr) for name, arr in a.items()}
+                packed = self._flat_step(x, staged.all_greedy)
+            else:
+                packed = self.programs.run(("flat", T, staged.all_greedy), a)
+        return PendingUnified(packed, list(staged.prefill_rows), list(staged.decode_rows))
+
+    def fill_flat(self, staged: StagedUnified) -> dict:
+        """A staged flat step's arrays with the token-dependent ones filled:
+        the packed stream, padded to the 16-token granule, the per-row
+        ``(row_start, pos0, qlens)`` and the seeds. Pad rows carry
+        ``row_start = total`` so the boundary array stays monotonic. The
+        seed block is drawn here, so the engine's seed stream advances in
+        dispatch order."""
+        B = len(staged.arrays["temp"])
+        total = staged.num_live
+        T = -(-total // _T_GRANULE) * _T_GRANULE
+        requests = [s.request for s, _, _ in staged.rows]
+        a = {
+            "stream": np.zeros(T, np.int64),
+            "row_start": np.full(B, total, np.int64),
+            "pos0": np.zeros(B, np.int64),
+            "qlens": np.zeros(B, np.int64),
+            **staged.arrays,
+            "seeds": self._draw_seeds(requests, self._seed_rows("flat", B), 1)[:B, 0],
+        }
+        t = 0
+        for r, (seq, off, w) in enumerate(staged.rows):
+            start = seq.start_pos + off
+            a["stream"][t : t + w] = seq.request.token_slice(start, w)
+            a["row_start"][r] = t
+            a["pos0"][r] = start
+            a["qlens"][r] = w
+            t += w
+        return a
 
     def _flat_spec(self, T: int) -> Spec:
         """The static inputs of the flat step at stream length T (the
@@ -520,47 +626,48 @@ class ModelRunner:
     # bucketed [B, Q] programs: prefill groups and the unified step
 
     @torch.inference_mode()
-    def _rows_step(
-        self, rows: list[tuple[Request, int, int]], program: str
-    ) -> torch.Tensor:
-        """One bucketed forward over ``rows`` of (request, start position,
-        token count), each row's last valid position sampled; returns the
-        packed [n, 2] (token, logprob). ``program`` ("prefill" or
+    def _run_rows(self, staged: StagedUnified) -> torch.Tensor:
+        """One bucketed forward over a staged bucketed program's rows, each
+        row's last valid position sampled; returns the packed [n, 2]
+        (token, logprob). The tokens and positions come from the
+        requests' committed state now; ``staged.program`` ("prefill" or
         "unified") sizes the draw from the seed stream (``_seed_rows``)."""
+        rows = staged.rows
         n = len(rows)
         Q = max(w for _, _, w in rows)
         tokens = np.zeros((n, Q), np.int64)
         positions = np.zeros((n, Q), np.int32)
         qlens = np.zeros(n, np.int32)
         kvlens = np.zeros(n, np.int32)
-        for i, (req, start, w) in enumerate(rows):
-            tokens[i, :w] = req.all_token_ids[start : start + w]
+        for i, (seq, off, w) in enumerate(rows):
+            start = seq.start_pos + off
+            tokens[i, :w] = seq.request.token_slice(start, w)
             positions[i, :w] = np.arange(start, start + w)
             positions[i, w:] = start + w - 1  # pad slots repeat the last
             qlens[i] = w
             kvlens[i] = start + w
-        requests = [req for req, _, _ in rows]
-        temp, top_k, top_p = self._sampling_knobs(requests, n)
-        seeds = self._draw_seeds(requests, self._seed_rows(program, n), 1)[:n, 0]
+        requests = [s.request for s, _, _ in rows]
+        seeds = self._draw_seeds(requests, self._seed_rows(staged.program, n), 1)[:n, 0]
         live = int(qlens.sum())
         self.live_tokens_total += live
         self.padded_tokens_total += n * Q - live
-        tables = {name: self._on_device(t) for name, t in self._tables(requests, n).items()}
+        a = staged.arrays
+        swa = a.get("swa_table")
         inp = StepInput(
             token_ids=self._on_device(tokens),
             positions=self._on_device(positions),
             kv_lens=self._on_device(kvlens),
-            page_table=tables["page_table"],
+            page_table=self._on_device(a["page_table"]),
             query_lens=self._on_device(qlens),
             live_pages=-(-int(kvlens.max()) // self.page),
-            swa_page_table=tables.get("swa_table"),
+            swa_page_table=None if swa is None else self._on_device(swa),
         )
         hidden = self._forward(inp)
         last = self._on_device(qlens - 1).long()
         h_last = hidden[torch.arange(n, device=self.device), last]
         logits = llama.compute_logits(self.params, h_last, self.cfg)
-        all_greedy = all(req.sampling.greedy for req in requests)
-        tok, logp = sample_tokens(logits, temp, top_k, top_p, seeds, all_greedy)
+        tok, logp = sample_tokens(logits, a["temp"], a["top_k"], a["top_p"], seeds,
+                                  staged.all_greedy)
         return torch.stack([tok.float(), logp], dim=1)
 
     def prefill_group_count(self, seqs: list[ScheduledSeq]) -> int:
@@ -570,8 +677,9 @@ class ModelRunner:
         return len({pad_to_bucket(s.num_tokens, self.prefill_buckets) for s in seqs})
 
     def dispatch_prefill(self, seqs: list[ScheduledSeq]) -> PendingPrefill:
-        """Enqueue all scheduled prompt chunks, one forward per Q bucket,
-        so a long chunk does not pad every short chunk up to its width."""
+        """Stage and enqueue all scheduled prompt chunks, one forward per Q
+        bucket, so a long chunk does not pad every short chunk up to its
+        width."""
         groups: dict[int, list[int]] = {}
         for i, s in enumerate(seqs):
             groups.setdefault(
@@ -579,29 +687,11 @@ class ModelRunner:
             ).append(i)
         entries = []
         for _, idxs in sorted(groups.items()):
-            rows = [
-                (seqs[i].request, seqs[i].start_pos, seqs[i].num_tokens)
-                for i in idxs
-            ]
-            entries.append((self._rows_step(rows, "prefill"), idxs))
+            group = [seqs[i] for i in idxs]
+            rows = [(s, 0, s.num_tokens) for s in group]
+            staged = self._stage_rows(rows, "prefill", group, [], list(range(len(rows))), [])
+            entries.append((self._run_rows(staged), idxs))
         return PendingPrefill(entries, len(seqs))
-
-    def _dispatch_unified_bucketed(
-        self, prefills: list[ScheduledSeq], decodes: list[ScheduledSeq]
-    ) -> PendingUnified:
-        rows: list[tuple[Request, int, int]] = []
-        prefill_rows: list[int] = []
-        for s in prefills:
-            for off in range(0, s.num_tokens, _UNIFIED_ROW_TOKENS):
-                w = min(_UNIFIED_ROW_TOKENS, s.num_tokens - off)
-                rows.append((s.request, s.start_pos + off, w))
-            # The chunk's sample is its last sub-row's.
-            prefill_rows.append(len(rows) - 1)
-        decode_rows = list(range(len(rows), len(rows) + len(decodes)))
-        rows += [(s.request, s.start_pos, 1) for s in decodes]
-        return PendingUnified(
-            self._rows_step(rows, "unified"), prefill_rows, decode_rows
-        )
 
     # ------------------------------------------------------------------ #
     # the fused decode window
@@ -618,7 +708,7 @@ class ModelRunner:
         temp, top_k, top_p = self._sampling_knobs(requests, B)
         arrays = {
             "first": np.zeros(B, np.int64), "start": np.zeros(B, np.int32),
-            **self._tables(requests, B), "active": active,
+            **self._tables(requests, B, "window"), "active": active,
             "temp": temp, "top_k": top_k, "top_p": top_p,
         }
         all_greedy = all(req.sampling.greedy for req in requests)
@@ -633,7 +723,7 @@ class ModelRunner:
         requests = [s.request for s in staged.seqs]
         a["seeds"] = self._draw_seeds(requests, staged.B, staged.k)
         for i, req in enumerate(requests):
-            a["first"][i] = req.all_token_ids[req.num_computed_tokens]
+            a["first"][i] = req.token_slice(req.num_computed_tokens, 1)[0]
             a["start"][i] = req.num_computed_tokens
         n = len(requests)
         self.live_tokens_total += n * staged.k

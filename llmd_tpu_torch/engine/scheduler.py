@@ -1,7 +1,7 @@
 """Continuous-batching scheduler with chunked prefill and prefix caching.
 
-The port of ``llmd_tpu/engine/scheduler.py:EngineScheduler.schedule`` for
-the synchronous step: every engine step selects a token budget's worth of
+The port of ``llmd_tpu/engine/scheduler.py:EngineScheduler.schedule``:
+every engine step selects a token budget's worth of
 work — one token per running decode sequence, then prompt chunks for
 sequences mid-prefill, then admissions from the waiting queue (chunked
 prefill, so long prompts never starve decodes; with
@@ -15,6 +15,15 @@ admissible waiting request, no prompt chunk in flight) schedules every
 decode row for a fused window of K tokens: pages for all K are claimed
 before dispatch, and ``update_after_step`` appends the window's tokens one
 by one, ending the row at the first stop condition.
+
+All position math plans against ``Request.num_dispatched_tokens`` (the
+committed tokens plus those in flight), so one code path serves both
+engines. The synchronous engine marks a step dispatched (``note_dispatch``)
+and commits it (``update_after_step``) back to back, so nothing is ever
+pending there. Under async stepping the next step is scheduled while the
+dispatched one runs: each in-flight row is assumed to land its tokens, and
+the in-flight sequences (``protected``) are never preempted, since the
+device still writes their pages.
 
 Under the sliding-window ring (``CacheConfig.swa_ring``) an admitted
 sequence also holds a ring of ``swa_ring_pages`` pages in the ring pool
@@ -100,6 +109,10 @@ class EngineScheduler:
         self.num_preemptions = 0
         # request_id -> (committed page hash chain tail, committed pages)
         self._chain: dict[str, tuple[bytes, int]] = {}
+        # Async stepping: the request ids of the in-flight step. Their pages
+        # are still being written on the device, so no preemption picks
+        # them. Empty in the synchronous engine between steps.
+        self.protected: set[str] = set()
 
     # ------------------------------------------------------------------ #
     # queue management
@@ -139,9 +152,11 @@ class EngineScheduler:
         taken by a failed admission, hybrid hits) or other running
         prefills hold. Then the waiting requests' pages and rings are
         released (they prefill later), and if that is not enough, the
-        youngest running sequences are preempted one at a time."""
+        youngest running sequences are preempted one at a time. Not while
+        a step is in flight: its commit changes what the next step can
+        take, and the engine schedules again once nothing is in flight."""
         batch = self._schedule()
-        if batch.is_empty and self.has_work():
+        if batch.is_empty and self.has_work() and not self.protected:
             held = [r for r in self.waiting if r.block_ids or r.swa_block_ids]
             for r in held:
                 self._drop_hold(r)
@@ -159,8 +174,8 @@ class EngineScheduler:
         prefills: list[ScheduledSeq] = []
         scheduled: set[str] = set()
 
-        decoding = [r for r in self.running if r.in_decode]
-        mid_prefill = [r for r in self.running if not r.in_decode]
+        decoding = [r for r in self.running if r.in_decode_dispatched]
+        mid_prefill = [r for r in self.running if not r.in_decode_dispatched]
 
         # Fused K-step decode windows apply whenever this step cannot make
         # admission progress anyway (nothing admissible waiting, no prompt
@@ -171,7 +186,7 @@ class EngineScheduler:
         can_admit = bool(self.waiting) and len(self.running) < self.config.max_num_seqs
         k = 1
         if self.config.decode_window > 1 and decoding and not mid_prefill and not can_admit:
-            room = min(self.max_model_len - r.num_computed_tokens for r in decoding)
+            room = min(self.max_model_len - r.num_dispatched_tokens for r in decoding)
             k = max(1, min(self.config.decode_window, room))
 
         # 1. Decodes claim pages FIRST: a running decode must never be
@@ -214,7 +229,7 @@ class EngineScheduler:
             if chunk <= 0:
                 break
             if (not self.config.enable_chunked_prefill
-                    and chunk < req.num_prompt_tokens - req.num_computed_tokens):
+                    and chunk < req.num_prompt_tokens - req.num_dispatched_tokens):
                 break  # whole-prompt admission only
             if not self._ensure_ring(req):
                 # Out of ring pages; retry next step. (The JAX scheduler
@@ -241,7 +256,7 @@ class EngineScheduler:
     def _chunk(self, req: Request, budget: int) -> int:
         """The prompt tokens ``req`` computes this step: what is left, at
         most the budget and, under the ring, ``swa_chunk_tokens``."""
-        chunk = min(req.num_prompt_tokens - req.num_computed_tokens, budget)
+        chunk = min(req.num_prompt_tokens - req.num_dispatched_tokens, budget)
         if self.swa_chunk_tokens:
             chunk = min(chunk, self.swa_chunk_tokens)
         return chunk
@@ -297,7 +312,8 @@ class EngineScheduler:
         req.swa_table_row = None
 
     def _ensure_pages(self, req: Request, new_tokens: int) -> bool:
-        need_slots = req.num_computed_tokens + new_tokens
+        # From the dispatched position: in-flight tokens own their slots.
+        need_slots = req.num_dispatched_tokens + new_tokens
         missing = -(-need_slots // self.allocator.page_size) - len(req.block_ids)
         if missing <= 0:
             return True
@@ -309,10 +325,13 @@ class EngineScheduler:
 
     def _preempt_for(self, req: Request | None, exclude: set[str] = frozenset()) -> bool:
         """Evict the youngest running sequence other than ``req`` (lowest
-        priority first) to recompute later."""
+        priority first) to recompute later. In-flight sequences
+        (``protected``) are never victims: the device still writes their
+        pages, and a preemption frees them at once."""
         victims = [
             r for r in self.running
             if r is not req and r.request_id not in exclude
+            and r.request_id not in self.protected
         ]
         if not victims:
             return False
@@ -333,6 +352,8 @@ class EngineScheduler:
         return True
 
     def _release(self, req: Request) -> None:
+        req.num_pending_tokens = 0
+        self.protected.discard(req.request_id)
         if req.block_ids:
             self.allocator.free(req.block_ids)
             req.block_ids = []
@@ -349,6 +370,27 @@ class EngineScheduler:
     # ------------------------------------------------------------------ #
     # post-step bookkeeping
 
+    def note_dispatch(self, batch: ScheduledBatch) -> None:
+        """Mark a dispatched batch's tokens as in flight: until the readback
+        commits them (``update_after_step``), scheduling plans against the
+        dispatched positions and the sequences are protected from
+        preemption. The synchronous engine calls both back to back."""
+        for seq in batch.seqs:
+            seq.request.num_pending_tokens += seq.num_tokens
+            self.protected.add(seq.request.request_id)
+
+    def _commit_pending(self, seq: ScheduledSeq) -> None:
+        req = seq.request
+        req.num_pending_tokens = max(0, req.num_pending_tokens - seq.num_tokens)
+        self.protected.discard(req.request_id)
+
+    def forget_pending(self, seqs: list[ScheduledSeq]) -> None:
+        """Drop a dispatched step whose readback will never be committed
+        (the step failed): its tokens are no longer pending and its
+        sequences no longer protected."""
+        for seq in seqs:
+            self._commit_pending(seq)
+
     def update_after_step(
         self, batch: ScheduledBatch, sampled: dict[str, list[int]]
     ) -> dict[str, list[int]]:
@@ -361,6 +403,7 @@ class EngineScheduler:
         accepted: dict[str, list[int]] = {}
         for seq in batch.prefills:
             req = seq.request
+            self._commit_pending(seq)
             req.num_computed_tokens += seq.num_tokens
             if req.in_decode:  # this chunk completed the prompt -> 1st token
                 if self.prefill_complete_hook is not None:
@@ -376,6 +419,7 @@ class EngineScheduler:
             self._commit_full_pages(req)
         for seq in batch.decodes:
             req = seq.request
+            self._commit_pending(seq)
             acc: list[int] = []
             reason = None
             for token in sampled[req.request_id]:
@@ -419,6 +463,8 @@ class EngineScheduler:
         # Only KV already computed counts; the just-sampled token's KV is
         # written when it is fed as input next step.
         full = req.num_computed_tokens // page
+        if committed >= full:
+            return
         tokens = req.all_token_ids
         while committed < full:
             h = hash_page(parent, tokens[committed * page : (committed + 1) * page])

@@ -4,6 +4,7 @@
         [--prompt-len 1000] [--decode-steps 16] [--decode-window 8]
         [--kv-cache-dtype int8] [--kv-swa-ring] [--quantization int8]
         [--windows prefill]
+    python -m llmd_tpu_torch.profile_step --engine [--async-scheduling | --ab] [...]
 
 Serves ``--batch`` greedy requests of ``--prompt-len`` random tokens
 through ``LLMEngine`` (random weights from ``--seed``) and traces three
@@ -51,6 +52,24 @@ functions of as many more prefill steps by own time (``cProfile``: a
 second set, so the timed steps stay unprofiled). ``--windows`` keeps only
 the named windows (``prefill``, ``decode``, the decode window). Runs on a
 GPU only.
+
+``--engine`` times the ``LLMEngine.step`` loop itself rather than the
+runner's programs: the same ``--batch`` requests through the default
+engine, synchronous, with ``--async-scheduling`` the two-slot pipeline
+(``SchedulerConfig.async_scheduling``), with ``--ab`` both in turns (sync,
+async, async, sync) on the shared weights. Each run times ``PREFILL_STEPS``
+steps of the prefill phase (after the first step) and ``--decode-steps``
+steps once every request decodes: host ms a step, the engine's host gap a
+step (``EngineStats.step_host_gap_ms``: under async stepping, from the
+readback to the next dispatch), live tokens a step and generated tokens a
+second; ``async_rollbacks_total`` too; an untraced run's prefill phase
+also carries the costliest Python functions of ``PREFILL_STEPS`` more
+steps (``host_profile``). Then, after every untraced run,
+each mode runs once more under the profiler for the device's busy ms a
+step and its idle share (1 - busy / the untraced host ms a step). A window
+of n ``step()`` calls spans n readbacks; under async stepping the step in
+flight when it starts is read back inside it and the last one it
+dispatches is waited for at its end.
 """
 
 from __future__ import annotations
@@ -330,6 +349,81 @@ def staging_us(eng: LLMEngine, n: int = 200) -> dict:
             "static_input_bytes": inputs.host.numel()}
 
 
+def engine_window(eng: LLMEngine, n: int, traced: bool) -> dict:
+    """``n`` calls of ``eng.step()``: host ms a step, the engine's host gap
+    a step, live tokens a step, generated tokens a second and rollbacks;
+    ``traced``: under the profiler, with the device's busy ms a step and
+    kernels a step."""
+    st, runner = eng.stats, eng.runner
+    live0, gen0, gap0 = runner.live_tokens_total, st.generation_tokens, st.step_host_gap_ms_total
+    steps0, rolled0 = st.engine_steps_total, st.async_rollbacks_total
+    torch.cuda.synchronize()
+    with (profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) if traced
+          else contextlib.nullcontext()) as prof:
+        t0 = time.perf_counter()
+        for _ in range(n):
+            eng.step()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    out = {"steps": n, "host_ms_per_step": wall * 1e3 / n,
+           "host_gap_ms_per_step": (st.step_host_gap_ms_total - gap0)
+           / max(1, st.engine_steps_total - steps0),
+           "live_tokens_per_step": (runner.live_tokens_total - live0) / n,
+           "generated_tok_per_s": (st.generation_tokens - gen0) / wall,
+           "async_rollbacks": st.async_rollbacks_total - rolled0}
+    if traced:
+        busy, launches = 0.0, 0
+        for e in prof.events():
+            if e.device_type == DeviceType.CUDA:
+                busy += e.time_range.elapsed_us() / 1e3
+                launches += 1
+        if not launches:
+            raise RuntimeError("the profiler recorded no CUDA kernel: no device time to report")
+        out.update(device_busy_ms_per_step=busy / n, kernels_per_step=launches / n,
+                   idle_share=1.0 - busy / n / out["host_ms_per_step"])
+    return out
+
+
+def engine_runs(args, modes: list[bool], loaded_engine, n_prefill: int, card: str,
+                warmups: dict) -> None:
+    """``--engine``: the step loop of each mode in ``modes`` (False: sync,
+    True: async), untraced in that order, then traced once a mode; one
+    JSON line a run."""
+
+    def run(async_scheduling: bool, traced: bool) -> dict:
+        name = "async" if async_scheduling else "sync"
+        eng = loaded_engine(name, async_scheduling=async_scheduling)
+        eng.step()  # allocates the working memory the captures handed back
+        prefill = engine_window(eng, n_prefill, traced)
+        if not traced:
+            prefill["host_profile"] = host_profile(eng, n_prefill)
+        sched = eng.scheduler
+        while sched.waiting or not all(r.in_decode for r in sched.running):
+            eng.step()
+        eng.step()
+        decode = engine_window(eng, args.decode_steps, traced)
+        rec = {"mode": name, "traced": traced, "prefill": prefill, "decode": decode,
+               **warmups[name]}
+        del eng
+        gc.collect()
+        return rec
+
+    untraced = [run(m, False) for m in modes]
+    traced = {m: run(m, True) for m in dict.fromkeys(modes)}
+    for rec, mode in [*zip(untraced, modes), *((r, m) for m, r in traced.items())]:
+        if not rec["traced"]:
+            # Idle share at the untraced step time, from the traced run's busy ms.
+            for window in ("prefill", "decode"):
+                busy = traced[mode][window]["device_busy_ms_per_step"]
+                rec[window]["device_busy_ms_per_step_traced"] = busy
+                rec[window]["idle_share"] = 1.0 - busy / rec[window]["host_ms_per_step"]
+        print(json.dumps({"window": "engine", "model": args.model, "batch": args.batch,
+                          "prompt_len": args.prompt_len,
+                          "kv_cache_dtype": args.kv_cache_dtype or "model",
+                          "kv_swa_ring": args.kv_swa_ring, "quantization": args.quantization,
+                          "card": card, **rec}), flush=True)
+
+
 def main(argv=None) -> None:
     p = argparse.ArgumentParser(prog="python -m llmd_tpu_torch.profile_step")
     p.add_argument("--model", default="llama-3-8b")
@@ -347,6 +441,12 @@ def main(argv=None) -> None:
                    help="int8 weights (ModelConfig.quantization)")
     p.add_argument("--windows", nargs="+", default=None,
                    help="only these windows: prefill, decode, decode_window_<K>")
+    p.add_argument("--engine", action="store_true",
+                   help="time the LLMEngine.step loop, sync (default) or async")
+    p.add_argument("--async-scheduling", action="store_true",
+                   help="with --engine: the engine's two-slot pipeline")
+    p.add_argument("--ab", action="store_true",
+                   help="with --engine: sync and async in turns (sync, async, async, sync)")
     args = p.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("profile_step needs a CUDA device")
@@ -405,6 +505,11 @@ def main(argv=None) -> None:
         for _ in range(args.batch):
             eng.add_request(rng.integers(3, cfg.vocab_size, size=args.prompt_len).tolist(), sp)
         return eng
+
+    if args.engine:
+        modes = [False, True, True, False] if args.ab else [args.async_scheduling]
+        engine_runs(args, modes, loaded_engine, n_prefill, card, warmups)
+        return
 
     def prefilling(eng: LLMEngine) -> LLMEngine:
         """After one untimed step: the first step after warmup allocates

@@ -5,8 +5,9 @@ its default (``--model``, ``--served-model-name``, ``--tokenizer``,
 ``--weights-path``, ``--host``, ``--port``, ``--max-model-len``,
 ``--block-size``, ``--num-gpu-blocks-override``,
 ``--no-enable-prefix-caching``, ``--kv-swa-ring``, ``--max-num-seqs``,
-``--max-num-batched-tokens``, ``--decode-window``, ``--unified-step``,
-``--ragged-qlens``, ``--seed``, ``--skip-warmup``, ``--quantization int8``
+``--max-num-batched-tokens``, ``--decode-window``, ``--async-scheduling``,
+``--unified-step``, ``--ragged-qlens``, ``--seed``, ``--skip-warmup``,
+``--quantization int8``
 (int8 weights, ``ops/quant.py``), and the tracing flags
 ``--otlp-traces-endpoint``, ``--trace-file`` and ``--trace-sample-ratio``,
 which the chart passes when tracing is on). ``--model`` is a
@@ -102,6 +103,12 @@ def build_parser() -> argparse.ArgumentParser:
              "token)",
     )
     p.add_argument(
+        "--async-scheduling", action="store_true",
+        help="overlap host scheduling with device execution: the next step "
+             "is scheduled and staged while the current one runs; tokens "
+             "stream one step late",
+    )
+    p.add_argument(
         "--unified-step", action=argparse.BooleanOptionalAction, default=True,
         help="run each window-1 engine step as one program with one "
              "readback; --no-unified-step selects the split engine (prefill "
@@ -168,6 +175,7 @@ def make_engine_config(args):
             max_num_seqs=args.max_num_seqs,
             max_num_batched_tokens=args.max_num_batched_tokens,
             decode_window=args.decode_window,
+            async_scheduling=args.async_scheduling,
             unified_step=args.unified_step,
             ragged_qlens=args.ragged_qlens,
         ),

@@ -309,6 +309,10 @@ class AsyncEngine:
             # dropped, so the step is not retried forever.
             except Exception:
                 log.exception("engine step failed")
+                # The failed step's tokens never commit: the engine forgets
+                # its step in flight first, so the aborts below free the
+                # pages of its requests instead of waiting for a commit.
+                self.engine.drop_inflight()
                 with self._lock:
                     subs = list(self._subs)
                 for rid in subs:

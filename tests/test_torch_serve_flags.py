@@ -98,8 +98,9 @@ def assert_same_fields(port, ref, where=""):
     ["--model", "HF_DIR", "--tokenizer", "/tok", *GEOMETRY[:-2]],
     ["--model", "llama-3-8b", *CHART, "--quantization=int8"],
     ["--model", "HF_DIR", "--quantization", "int8"],
+    ["--model", "llama-3-8b", *CHART, "--async-scheduling"],
 ], ids=["registry-defaults", "chart", "chart-geometry", "ring", "layout", "hf-dir-chart",
-        "hf-dir-tokenizer", "int8", "hf-dir-int8"])
+        "hf-dir-tokenizer", "int8", "hf-dir-int8", "async"])
 def test_same_argv_same_engine_config(tmp_path, argv):
     """Both parsers take the argv, and both ``make_engine_config``s give the
     same model, cache, scheduler, seed, weights and tokenizer; the port's

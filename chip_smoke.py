@@ -30,7 +30,11 @@ through an HF checkpoint):
                ("spans") and share of the bound ("bound_share"). Every
                kernel row's "ms" is device time (``device_ms``: 20 calls in
                a CUDA graph), beside the single-call event time
-               ("event_ms") and the wrapper's host cost ("host_us").
+               ("event_ms") and the wrapper's host cost ("host_us"). The
+               speculative path's shapes: K1' on a decode-only flat step
+               (64 rows of one token, "@decode64") and K1' and K2' on a
+               verify-shaped one (64 rows of 1 + 4 tokens, "@verify64x5"),
+               whose launches come from the ``spec`` runs below.
 4. ``forward`` one mixed flat step and one bucketed decode step (Q = 1, 64
                rows) of the 32-layer model through the kernels and through
                the plain versions on the card, both held to an f32 run.
@@ -228,6 +232,30 @@ through an HF checkpoint):
                the chat route's) and /vllm.Generation/Generate (streamed and
                not: the completion route's annotated token ids).
 
+    ``spec`` speculative decoding (``SchedulerConfig.speculative_ngram``,
+               ``spec_phase``): llama-3-8b on bf16 and on int8 weights (the
+               flat step, sync and async, and a fused verify window of 4,
+               sync and async), deepseek-v2-lite on int8 weights (its
+               bucketed unified step with one-shot verify steps, sync and
+               async, and the split engine) and gpt-oss-20b in its ring
+               (the flat step and a verify window of 4; the ring's pages
+               with the chunk term), each beside the same engine without
+               it, on 8 prompts of a 16-token block repeated 8 times, 48
+               greedy tokens each: llama-3-8b's widths cut to 4 layers in
+               f32 first, and gpt-oss-20b's cut to 6 layers in f32 in its
+               ring, whose streams must equal token for token; on bf16
+               and int8 a step that batches other positions rounds them
+               otherwise, so a stream may part at a tie; every run's every
+               token is held to the model in one teacher-forced prefill of
+               its stream (``spec_rescore``): within ``SPEC_TOP_GAP_TOL``
+               of the top logprob at its position; every token in the vocabulary;
+               drafts accepted, one readback a step (a fused verify window
+               is one step), every verify step, verify window, decode
+               window and decode-only flat step a CUDA graph replay (one a
+               dispatch, the first held to its eager body), the pool empty
+               at the end. A ``--speculative-ngram`` server answers as the
+               plain server did and counts accepted drafts on /metrics.
+
 Each phase prints one JSON line. Any failure raises and exits non-zero
 without printing a result. On success the line before the last is the
 kernel table, one row per kernel and branch with its launches on its main
@@ -240,6 +268,7 @@ from __future__ import annotations
 import contextlib
 import gc
 import json
+import math
 import os
 import shutil
 import socket
@@ -619,6 +648,22 @@ def kernels_phase(info: dict) -> dict:
     # K2' fused on the same prefill step: 1,024 tokens, bound by bytes.
     out.append(rope_write_case("flat_kv_write[rope]@prefill", "flat", cfg, pool, None, layer,
                                pre, False, g))
+    del pool
+    torch.cuda.empty_cache()
+    # The speculative path's shapes: a decode-only flat step (64 rows of
+    # one token) and a verify-shaped one (64 rows of 1 + 4 draft tokens,
+    # a stream of 320), at contexts 1k-4k.
+    for label, width in (("decode64", 1), ("verify64x5", 5)):
+        ctx = torch.randint(1024, 4097, (64,), generator=gen).tolist()
+        st = mixed_step(cfg, page, max_pages, [(c - width, width) for c in ctx], [], gen, dev)
+        pool = torch.randn((L, st["num_pages"], K, page, 2 * D), generator=g, device=dev, dtype=dt)
+        qs = torch.randn((st["T"], 1, H, D), generator=g, device=dev, dtype=dt)
+        out.append(flat_attention_row(f"flat_paged_attention@{label}", qs, pool, layer, st, page))
+        if width > 1:
+            out.append(rope_write_case(f"flat_kv_write[rope]@{label}", "flat", cfg, pool, None,
+                                       layer, st, False, g))
+        del pool, qs
+        torch.cuda.empty_cache()
     for e in out:
         info[e["name"]] = {key: e[key] for key in WRITE_KEYS + (
             "items", "spans", "items_ms") if key in e}
@@ -1462,6 +1507,312 @@ def engine_phase(info: dict, params: dict, model: str = MODEL, kv_dtype: str = "
         check_async_end(info, eng, overlap)
     del eng, watch
     return counts, branches, [tokens[r] for r in rids], [requests[r].output_logprobs for r in rids]
+
+
+# The speculative phases' runs: (label, scheduler options); the first runs
+# without speculative decoding and is the others' reference.
+SPEC_RUNS = {
+    MODEL: [("off", {}), ("spec", dict(speculative_ngram=True)),
+            ("spec async", dict(speculative_ngram=True, async_scheduling=True)),
+            ("spec, decode_window 4", dict(speculative_ngram=True, decode_window=4)),
+            ("spec async, decode_window 4",
+             dict(speculative_ngram=True, decode_window=4, async_scheduling=True))],
+    "deepseek-v2-lite": [("off", {}), ("spec", dict(speculative_ngram=True)),
+                         ("spec async", dict(speculative_ngram=True, async_scheduling=True)),
+                         ("spec, split engine", dict(speculative_ngram=True, unified_step=False))],
+    "gpt-oss-20b": [("off", {}), ("spec", dict(speculative_ngram=True)),
+                    ("spec, decode_window 4", dict(speculative_ngram=True, decode_window=4))],
+}
+
+
+def spec_prompts(cfg) -> list[list[int]]:
+    """8 prompts, each a random block of 16 tokens repeated 8 times (128
+    tokens), so that the n-gram proposer drafts from the first step."""
+    gen = torch.Generator().manual_seed(21)
+    return [torch.randint(3, cfg.vocab_size, (16,), generator=gen).tolist() * 8 for _ in range(8)]
+
+
+def spec_engine_run(info: dict, params: dict, cfg, sched: dict, swa_ring: bool = False,
+                    need_accepted: bool = True) -> tuple[list, list, dict]:
+    """``LLMEngine`` of the model ``cfg`` on ``spec_prompts``, 48 greedy
+    tokens a request, with the scheduler options ``sched``. Warmup first (the pool
+    unchanged); every verify step, fused verify window, decode window and
+    decode-only flat step a CUDA graph replay (``GraphWatch``: staging and
+    replay under ``set_sync_debug_mode("error")``, the first replay held
+    to its eager body), one replay a dispatch of its kind; one device->host
+    copy a step (a fused verify window is one step); the pool empty at the
+    end; drafts accepted (or, without ``need_accepted``, proposed).
+    Returns (tokens, their logprobs, launch counts)."""
+    from llmd_tpu_torch import ops
+    from llmd_tpu_torch.config import CacheConfig, EngineConfig, SchedulerConfig
+    from llmd_tpu_torch.engine import LLMEngine, SamplingParams
+
+    eng = LLMEngine(EngineConfig(
+        model=cfg, cache=CacheConfig(page_size=16, num_blocks=1024, dtype=cfg.dtype, swa_ring=swa_ring),
+        scheduler=SchedulerConfig(max_num_seqs=64, max_num_batched_tokens=1024, **sched), seed=0,
+    ), params=params, device="cuda")
+    runner = eng.runner
+    watch = GraphWatch(runner)
+    warm_engine(eng, info, watch, seed=17)
+    dispatched: dict[str, int] = {}
+
+    def counted(kind: str, fn, decode_only=lambda staged: True):
+        def call(staged):
+            if decode_only(staged):
+                dispatched[kind] = dispatched.get(kind, 0) + 1
+            return fn(staged)
+        return call
+
+    runner.dispatch_staged_verify = counted("verify", runner.dispatch_staged_verify)
+    runner.dispatch_staged_verify_window = counted("vwindow", runner.dispatch_staged_verify_window)
+    runner.dispatch_staged_decode = counted("window", runner.dispatch_staged_decode)
+    if runner.flat:
+        runner.dispatch_staged_unified = counted("flat", runner.dispatch_staged_unified,
+                                                 lambda staged: not staged.prefills)
+    prompts = spec_prompts(cfg)
+    sp = SamplingParams(temperature=0.0, max_tokens=48, ignore_eos=True, logprobs=True)
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    with counting_readbacks() as readbacks:
+        rids = [eng.add_request(p, sp) for p in prompts]
+        requests = [next(r for r in eng.scheduler.waiting if r.request_id == rid) for rid in rids]
+        while eng.has_work():
+            eng.step()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    tokens = [r.output_token_ids for r in requests]
+    logprobs = [r.output_logprobs for r in requests]
+    st, sch = eng.stats, eng.scheduler
+    replays: dict[str, int] = {}
+    for key, n in watch.replays.items():
+        replays[key[0]] = replays.get(key[0], 0) + n
+    counts = ops.launch_counts()
+    info.update(
+        model=cfg.name, layers=cfg.num_layers, dtype=cfg.dtype, quantization=cfg.quantization,
+        kv_swa_ring=swa_ring, scheduler=sched,
+        steps=st.engine_steps_total, wall_s=wall,
+        output_tok_per_s=sum(map(len, tokens)) / wall, readbacks=len(readbacks),
+        step_dispatches=st.step_dispatches_total, decode_dispatches=st.decode_dispatches_total,
+        dispatches_per_emitted_token=st.dispatches_per_emitted_token,
+        spec_proposed=st.spec_proposed_tokens_total, spec_accepted=st.spec_accepted_tokens_total,
+        spec_accepted_len_hist=list(st.spec_accepted_len_hist),
+        spec_window_iters=st.spec_window_iters_total, spec_row_depth_hist=list(st.spec_row_depth_hist),
+        async_rollbacks=st.async_rollbacks_total, dispatched=dispatched, replays_by_kind=replays,
+        graphs=watch.summary(), launches=counts, kv_bytes=runner.kv_bytes(),
+        pool_usage_end=eng.allocator.usage(),
+    )
+    if swa_ring:
+        spec = runner.swa
+        info.update(ring_pages_per_seq=spec.ring_pages, ring_chunk_tokens=spec.chunk_tokens,
+                    swa_ring_pages=st.swa_ring_pages)
+    if eng.has_work() or eng.allocator.usage() != 0.0:
+        raise AssertionError(f"the engine ended with work or pages: {eng.allocator.usage()}")
+    if len(readbacks) != st.engine_steps_total:
+        raise AssertionError(f"{len(readbacks)} device->host copies in {st.engine_steps_total} steps")
+    if replays != dispatched or watch.compared is None:
+        raise AssertionError(f"graph replays {replays} for the decode-only dispatches {dispatched}, "
+                             "or no replay was held to its eager body")
+    if any(len(t) != 48 for t in tokens):
+        raise AssertionError(f"not every request produced 48 tokens: {list(map(len, tokens))}")
+    if not all(0 <= t < cfg.vocab_size for row in tokens for t in row) or not all(
+            math.isfinite(x) and x < 0 for row in logprobs for x in row):
+        raise AssertionError("a token outside the vocabulary, or a logprob that is not a finite "
+                             "negative number")
+    if sched.get("speculative_ngram"):
+        if st.spec_accepted_tokens_total <= 0 and (need_accepted
+                                                   or st.spec_proposed_tokens_total <= 0):
+            raise AssertionError(f"no draft token was accepted: {st.spec_proposed_tokens_total} proposed")
+        if sched.get("decode_window", 1) > 1 and (st.spec_window_iters_total <= 0
+                                                  or not dispatched.get("vwindow")):
+            raise AssertionError(f"no fused verify window ran: {dispatched}")
+    del eng, watch, runner
+    return tokens, logprobs, counts
+
+
+# Two greedy bf16 runs of one model whose steps batch the same positions
+# differently round them differently (K1' cuts a row's pages into as many
+# spans as the step's size gives; a verify row's positions are scored
+# together, a decode row's one at a time), so a stream may part from
+# another at a near-tie. Every emitted token is therefore held to the
+# model itself: ``spec_rescore`` feeds each stream back in one
+# teacher-forced prefill and takes, at every output position, the gap
+# between the top logprob there and the emitted token's. A sound run's
+# tokens are the top, or tied with it up to rounding: in this script's
+# runs on an H100 80GB HBM3 two runs' chosen-token logprobs differed by at
+# most 0.37 where a rounding flips an int8 activation or an expert choice
+# (deepseek-v2-lite, gpt-oss-20b). A token from a wrong context is not
+# the top of the right one (the ``shifted`` witness: the next emitted
+# token scored at this position). gpt-oss-20b's bf16 runs are the
+# exception: random router weights leave experts nearly tied, so the
+# teacher-forced prefill picks other experts than the engine's steps at
+# some positions and the run without speculative decoding itself shows
+# gaps near 2 nats (on an H100 80GB HBM3), about a wrong token's. Where
+# the run without it exceeds the tolerance, a speculative run may exceed
+# it at no more than ``SPEC_ABOVE_TOL_FACTOR`` times its share of
+# positions (a wrong context exceeds it at most positions), and the
+# model's f32 cut holds it token for token (``spec_exact_phase``). In f32
+# the runs are equal token for token.
+SPEC_TOP_GAP_TOL = 0.5
+SPEC_ABOVE_TOL_FACTOR = 2.0
+
+
+def spec_rescore(params: dict, cfg, prompts: list, streams: list) -> dict:
+    """Each greedy stream held to the model, token by token: prompt + the
+    stream but its last token in one teacher-forced prefill on a fresh
+    pool (the bucketed ``[B, Q]`` layout: plain attention and writes, the
+    products as the engines run them; a sliding layer attends within its
+    window without the ring), and at every output position the gap of
+    the emitted token's logprob below the top logprob there. ``shifted``
+    is the same gap for the token emitted one position later: what a
+    verify step that read its context one slot off would emit."""
+    from llmd_tpu_torch.models import llama
+    from llmd_tpu_torch.models.common import StepInput
+
+    dev, page = torch.device("cuda"), 16
+    seqs = [list(p) + list(s[:-1]) for p, s in zip(prompts, streams)]
+    B, Q, P, N = len(seqs), len(seqs[0]), len(prompts[0]), len(streams[0])
+    if any(len(q) != Q for q in seqs) or any(len(p) != P for p in prompts):
+        raise AssertionError("spec_rescore takes prompts and streams of one length each")
+    n_pages = -(-Q // page)
+    table = 1 + torch.arange(B * n_pages, dtype=torch.int32, device=dev).reshape(B, n_pages)
+    pool = torch.zeros((cfg.num_layers, B * n_pages + 1, cfg.kv_cache_heads, page,
+                        cfg.kv_cache_entry_dim), dtype=getattr(torch, cfg.dtype), device=dev)
+    inp = StepInput(
+        token_ids=torch.tensor(seqs, device=dev),
+        positions=torch.arange(Q, dtype=torch.int32, device=dev).expand(B, Q).contiguous(),
+        kv_lens=torch.full((B,), Q, dtype=torch.int32, device=dev), page_table=table,
+        query_lens=torch.full((B,), Q, dtype=torch.int32, device=dev), live_pages=n_pages,
+    )
+    with torch.inference_mode():
+        h, _ = llama.forward_hidden(params, pool, inp, cfg)
+        h = h[:, P - 1 : P - 1 + N].reshape(B * N, -1)
+        logp = torch.log_softmax(llama.compute_logits(params, h, cfg).float(), dim=-1)
+        emitted = torch.tensor(streams, device=dev).reshape(B * N, 1)
+        top = logp.max(dim=-1).values
+        gap = (top - logp.gather(1, emitted)[:, 0]).reshape(B, N)
+        nxt = torch.tensor([s[1:] + s[-1:] for s in streams], device=dev).reshape(B * N, 1)
+        shifted = (top - logp.gather(1, nxt)[:, 0]).reshape(B, N)[:, :-1]
+    del pool, h, logp
+    return {"top_gap_max": gap.max().item(), "top_gap_per_request": gap.amax(1).tolist(),
+            "positions_above_tol": int((gap > SPEC_TOP_GAP_TOL).sum()),
+            "positions": B * N, "shifted_gap_median": shifted.median().item(),
+            "shifted_share_above_tol": (shifted > SPEC_TOP_GAP_TOL).float().mean().item()}
+
+
+def spec_agreement(tokens: list, logprobs: list, ref: list, ref_logprobs: list) -> dict:
+    """A speculative run's greedy streams beside the run without it, request
+    by request: the leading tokens they agree on; over those, the largest
+    difference of the chosen tokens' logprobs (the two runs computed the
+    same distributions up to rounding); where they part, the two chosen
+    tokens' logprobs (each the top logprob of its run: equal up to rounding
+    where the two tokens were tied)."""
+    lead, prefix_diff, part = [], 0.0, []
+    for t, lp, rt, rlp in zip(tokens, logprobs, ref, ref_logprobs):
+        n = next((i for i, (a, b) in enumerate(zip(t, rt)) if a != b), min(len(t), len(rt)))
+        lead.append(n)
+        if n:
+            prefix_diff = max(prefix_diff, max(abs(a - b) for a, b in zip(lp[:n], rlp[:n])))
+        if n < len(rt):
+            part.append({"index": n, "tokens": [t[n], rt[n]], "logprobs": [lp[n], rlp[n]]})
+    return {"tokens_equal_off": tokens == ref, "agreeing_leading_tokens": lead,
+            "agreeing_share": sum(lead) / sum(map(len, ref)),
+            "prefix_max_logprob_diff": prefix_diff, "parting": part,
+            "parting_max_logprob_diff": max((abs(p["logprobs"][0] - p["logprobs"][1])
+                                             for p in part), default=0.0)}
+
+
+def spec_phase(params: dict, model: str, quantization: str | None = None,
+               swa_ring: bool = False, cfg=None, need_accepted: bool = True) -> dict:
+    """Every run of ``SPEC_RUNS[model]`` as a phase of its own
+    (``spec_engine_run``), each speculative run beside the run without
+    speculative decoding (``spec_agreement``), and every run's every
+    emitted token held to the model (``spec_rescore``): within
+    ``SPEC_TOP_GAP_TOL`` of the top logprob at its position, or, where
+    the run without speculative decoding is not, beyond it at no more than
+    ``SPEC_ABOVE_TOL_FACTOR`` times that run's share of positions. ``cfg``
+    replaces the registry's model (an f32 cut: ``spec_exact_phase``); an
+    f32 run's streams must also equal the reference's token for token.
+    Returns the launch counts by run label."""
+    from llmd_tpu_torch.models.registry import get_model_config
+
+    cfg = cfg or get_model_config(model, **({"quantization": quantization} if quantization else {}))
+    exact = cfg.dtype == "float32"
+    runs = {}
+    ref = None
+    for label, sched in SPEC_RUNS[model]:
+        with phase("spec", {"model": model, "run": label, "exact": exact}) as info:
+            tokens, logprobs, runs[label] = spec_engine_run(info, params, cfg, sched, swa_ring,
+                                                            need_accepted)
+            rescore = spec_rescore(params, cfg, spec_prompts(cfg), tokens)
+            info["rescore"] = rescore
+            if ref is None:
+                ref, ref_rescore = (tokens, logprobs), rescore
+                if exact and rescore["top_gap_max"] > SPEC_TOP_GAP_TOL:
+                    raise AssertionError(f"{label}: an f32 token is not the model's top: {rescore}")
+                continue
+            if ref_rescore["top_gap_max"] <= SPEC_TOP_GAP_TOL:
+                if rescore["top_gap_max"] > SPEC_TOP_GAP_TOL:
+                    raise AssertionError(f"{label}: an emitted token is not the model's top at "
+                                         f"its position, beyond rounding: {rescore}")
+            elif rescore["positions_above_tol"] > (SPEC_ABOVE_TOL_FACTOR
+                                                   * ref_rescore["positions_above_tol"]):
+                raise AssertionError(f"{label}: tokens beyond the top at more positions than "
+                                     f"{SPEC_ABOVE_TOL_FACTOR}x the run without speculative "
+                                     f"decoding: {rescore}, without: {ref_rescore}")
+            agree = spec_agreement(tokens, logprobs, *ref)
+            info.update(agree)
+            if exact and tokens != ref[0]:
+                raise AssertionError(f"{label}: the f32 streams part from the run without "
+                                     f"speculative decoding: {agree}")
+        gc.collect()
+        torch.cuda.empty_cache()
+    return runs
+
+
+def spec_exact_phase(model: str = MODEL, layers: int = 4, swa_ring: bool = False,
+                     need_accepted: bool = True) -> None:
+    """``spec_phase`` on ``model``'s widths cut to ``layers`` layers in f32
+    (seeded random weights; gpt-oss-20b with its biases filled, in its
+    ring): the flat step's speculative runs must give the greedy streams of
+    the run without speculative decoding token for token (K1' and K2' take
+    their f32 path, K6' its f32 branch, the dense products cuBLAS's f32
+    GEMMs with TF32 off). Random gpt-oss weights at a cut depth seldom
+    repeat themselves: their drafts are proposed and verified, and mostly
+    rejected (``need_accepted=False``; 1 accepted of 8 and 0 of 9 at 6
+    layers on an H100 80GB HBM3), so its acceptance is held at full depth
+    in bf16."""
+    import dataclasses
+
+    from llmd_tpu_torch.models import llama
+    from llmd_tpu_torch.models.registry import get_model_config
+
+    base = get_model_config(model)
+    cut = {"layer_types": base.layer_types[:layers]} if base.layer_types else {}
+    cfg = dataclasses.replace(base, num_layers=layers, dtype="float32", **cut)
+    params = llama.init_params(cfg, torch.Generator(device="cuda").manual_seed(0), "cuda",
+                               fused=True)
+    if model == OSS_MODEL:
+        fill_biases(params, seed=3)
+    spec_phase(params, model, swa_ring=swa_ring, cfg=cfg, need_accepted=need_accepted)
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def spec_serve_check(info: dict, base: str) -> None:
+    """The speculative server: a greedy completion of a repeated-block
+    prompt, then ``llmd:spec_accepted_tokens_total`` > 0 on /metrics."""
+    gen = torch.Generator().manual_seed(22)
+    prompt = torch.randint(3, 32000, (16,), generator=gen).tolist() * 8
+    status, raw = _post(base + "/v1/completions", {"prompt": prompt, "max_tokens": 48,
+                                                    "temperature": 0.0, "ignore_eos": True})
+    if status != 200:
+        raise AssertionError(f"/v1/completions returned {status}")
+    metrics, _ = _scrape(base)
+    info.update({k: metrics.get(f"llmd:{k}") for k in (
+        "spec_proposed_tokens_total", "spec_accepted_tokens_total", "spec_acceptance_rate")})
+    if not metrics.get("llmd:spec_accepted_tokens_total"):
+        raise AssertionError(f"llmd:spec_accepted_tokens_total is {info['spec_accepted_tokens_total']}")
 
 
 def stats_update_cost(params: dict) -> dict:
@@ -4769,6 +5120,9 @@ def main() -> int:
         compare_sync_async(info, tokens, q8_tokens)
     with phase("engine", {"layout": "flat step, decode_window 8", "quantization": "int8"}) as info:
         engine_phase(info, params8, quantization="int8")
+    spec_exact_phase()
+    spec_counts = spec_phase(params, MODEL)
+    spec_phase(params8, MODEL, quantization="int8")
     del params8
     gc.collect()
     torch.cuda.empty_cache()
@@ -4810,9 +5164,14 @@ def main() -> int:
                           "quantization": "int8", "async_scheduling": True}) as info:
         _, tokens = ds_engine_phase(info, params8, quantization="int8", async_scheduling=True)
         compare_sync_async(info, tokens, ds_q8_tokens)
-    del params, params8
+    del params
     gc.collect()
     torch.cuda.empty_cache()
+    spec_phase(params8, DS_MODEL, quantization="int8")
+    del params8
+    gc.collect()
+    torch.cuda.empty_cache()
+    spec_exact_phase(OSS_MODEL, layers=6, swa_ring=True, need_accepted=False)
     with phase("forward", {"model": OSS_MODEL}) as info:
         oss_cfg = get_model_config(OSS_MODEL)
         gen = torch.Generator(device="cuda").manual_seed(0)
@@ -4855,6 +5214,7 @@ def main() -> int:
         compare_sync_async(info, tokens, ring_tokens["flat step"])
     gc.collect()
     torch.cuda.empty_cache()
+    spec_phase(params, OSS_MODEL, swa_ring=True)
     with phase("hybrid_prefix", {"model": OSS_MODEL, "layout": "flat step"}) as info:
         hybrid_prefix_phase(info, params)
     with phase("capacity", {"model": OSS_MODEL, "layout": "flat step"}) as info:
@@ -4900,6 +5260,12 @@ def main() -> int:
         if not info["texts_equal_sync_server"]:
             raise AssertionError(f"the async server answered {texts}, the sync server "
                                  f"{[registry_texts[0], registry_texts[-1]]}")
+    with phase("serve", {"layout": "flat step", "speculative_ngram": True}) as info:
+        texts = serve_phase(info, ["--speculative-ngram"], check=spec_serve_check)
+        info["texts_equal_plain_server"] = texts == [registry_texts[0], registry_texts[-1]]
+        if not info["texts_equal_plain_server"]:
+            raise AssertionError(f"the speculative server answered {texts}, the plain server "
+                                 f"{[registry_texts[0], registry_texts[-1]]}")
     with phase("serve", {"model": DS_MODEL, "layout": "default (bucketed unified step)"}) as info:
         serve_phase(info, [], DS_MODEL)
     with phase("serve", {"model": OSS_MODEL, "layout": "flat step"}) as info:
@@ -4924,6 +5290,10 @@ def main() -> int:
     main_path = {
         "flat_paged_attention": ("flat_paged_attention_full", flat_counts),
         "flat_paged_attention@prefill": ("flat_paged_attention_full", flat_counts),
+        "flat_paged_attention@decode64": ("flat_paged_attention_full", flat_counts),
+        # The verify-shaped rows: llama-3-8b's speculative flat engine.
+        "flat_paged_attention@verify64x5": ("flat_paged_attention_full", spec_counts["spec"]),
+        "flat_kv_write[rope]@verify64x5": ("write_kv_pages_flat_full", spec_counts["spec"]),
         "decode_paged_attention": ("decode_paged_attention_full", window_counts),
     }
     model_counts = {DS_MODEL: ds_counts, OSS_MODEL: oss_counts["flat step"],

@@ -251,6 +251,82 @@ class SchedulerConfig:
     # emits is unchanged; outputs arrive one step later
     # (``LLMEngine._step_async``).
     async_scheduling: bool = False
+    # Speculative decoding with n-gram drafts (``engine/spec.py``): each
+    # decode row drafts up to ``spec_ngram_k`` tokens by matching the tail
+    # of its own history, and one forward scores all 1 + k positions.
+    # Acceptance is exact (greedy: the argmax; seeded: the per-(seed,
+    # output index) draw), so the streams are those of the engine without
+    # it. Rejected drafts' KV is truncated before any page commit.
+    speculative_ngram: bool = False
+    # Most draft tokens a row a step (the k of the [B, 1 + k] verify rows).
+    spec_ngram_k: int = 4
+    # Shortest n-gram match that proposes a draft.
+    spec_ngram_min_match: int = 2
+    # Fused verify window: up to this many [B, 1 + k] verify iterations in
+    # one dispatch, acceptance on the device, one readback. 0 inherits
+    # ``decode_window``; 1 keeps one-shot verify steps.
+    spec_verify_window: int = 0
+
+    def __post_init__(self) -> None:
+        if self.spec_verify_window < 0:
+            raise ValueError(
+                f"spec_verify_window={self.spec_verify_window} must be >= 0 "
+                "(0 inherits decode_window)"
+            )
+        if self.spec_verify_window > 1 and not self.speculative_ngram:
+            raise ValueError(
+                "spec_verify_window > 1 without speculative_ngram configures "
+                "nothing: the fused verify window only exists for the "
+                "speculative engine"
+            )
+        if self.speculative_ngram:
+            if self.spec_ngram_k < 1:
+                raise ValueError(
+                    f"spec_ngram_k={self.spec_ngram_k} must be >= 1 when "
+                    "speculative_ngram is enabled"
+                )
+            if self.spec_ngram_min_match < 1:
+                raise ValueError(
+                    f"spec_ngram_min_match={self.spec_ngram_min_match} "
+                    "must be >= 1"
+                )
+            if (
+                self.spec_window > 1
+                and 2 * (1 + self.spec_ngram_k) > self.max_num_batched_tokens
+            ):
+                # A windowed row plans window x (1 + k) budget tokens: if
+                # the smallest window (2) cannot fit one row, the window
+                # never engages.
+                raise ValueError(
+                    "speculative_ngram with a fused verify window needs "
+                    f"max_num_batched_tokens >= {2 * (1 + self.spec_ngram_k)} "
+                    f"(2 verify iterations x (1 + spec_ngram_k)); got "
+                    f"{self.max_num_batched_tokens}"
+                )
+
+    @property
+    def spec_window(self) -> int:
+        """The fused verify window's cap (1: one-shot verify steps):
+        ``spec_verify_window``, or ``decode_window`` where that is 0."""
+        if not self.speculative_ngram:
+            return 1
+        return max(1, self.spec_verify_window or self.decode_window)
+
+    @property
+    def spec_window_set(self) -> tuple[int, ...]:
+        """The window sizes the scheduler picks from, ascending: powers of
+        two below the cap, and the cap. The scheduler takes the largest
+        whose window x (1 + k) x rows fits the step's budget; warmup
+        prepares exactly these."""
+        cap = self.spec_window
+        if cap <= 1:
+            return ()
+        out, w = [], 2
+        while w < cap:
+            out.append(w)
+            w *= 2
+        out.append(cap)
+        return tuple(out)
 
 
 @dataclasses.dataclass
@@ -317,10 +393,10 @@ def swa_ring_spec(
     model: ModelConfig, cache: CacheConfig, sched: SchedulerConfig
 ) -> SwaRingSpec | None:
     """The ring's geometry, or None where ``swa_ring`` changes nothing: off,
-    no sliding layer, MLA, or a ring as long as the full page table. The
-    chunk term is the JAX package's without its speculative-decoding term:
-    the port has no speculative decoding, so a step writes at most the
-    budget's chunk or a decode window a row."""
+    no sliding layer, MLA, or a ring as long as the full page table. A
+    step writes at most the budget's chunk, a decode window, or under
+    speculative decoding ``1 + k`` provisional positions a verify
+    iteration for up to ``spec_window`` iterations a row."""
     if not cache.swa_ring or model.sliding_window <= 0 or model.is_mla:
         return None
     windows = model.layer_windows
@@ -329,7 +405,11 @@ def swa_ring_spec(
         return None
     full = tuple(i for i, w in enumerate(windows) if w == 0)
     wmax = max(windows[i] for i in swa)
-    chunk = max(min(_SWA_RING_CHUNK, sched.max_num_batched_tokens), sched.decode_window)
+    chunk = max(
+        min(_SWA_RING_CHUNK, sched.max_num_batched_tokens),
+        sched.decode_window,
+        (1 + sched.spec_ngram_k) * sched.spec_window if sched.speculative_ngram else 1,
+    )
     ring = math.ceil((wmax + chunk) / cache.page_size) + 1
     if ring >= cache.max_pages_per_seq(model.max_model_len):
         return None

@@ -25,6 +25,17 @@ taken at arrival and only where a retained section can seed the fresh
 ring (``_try_hybrid_ring_hit``). The JAX engine refuses the ring beside
 tiered offload and without chunked prefill; the port has no offload, and
 refuses the ring without chunked prefill as JAX does.
+
+Under speculative decoding (``SchedulerConfig.speculative_ngram``; JAX
+``engine.py:1600-1850``) the engine proposes every decode row's draft at
+dispatch, from committed tokens only (``_propose_drafts``), so async
+staging plans widths and the drafts come after the previous step's
+commit. A window-1 step with drafts rides the flat step or the bucketed
+unified step as verify rows; a decode-only step of the split or bucketed
+engine runs the one-shot verify program, the plain one-token program (no
+row drafted) or both (``dispatch_spec_split``); a step the scheduler gave
+a verify window runs the fused verify window, or the plain decode window
+at its depth where no row drafted.
 """
 
 from __future__ import annotations
@@ -58,6 +69,8 @@ from llmd_tpu_torch.engine.runner import (
     PendingUnified,
     StagedDecode,
     StagedUnified,
+    StagedVerify,
+    StagedVerifyWindow,
     StepResult,
     resolve_device,
 )
@@ -66,6 +79,10 @@ from llmd_tpu_torch.engine.scheduler import (
     ScheduledBatch,
     ScheduledSeq,
 )
+from llmd_tpu_torch.engine.spec import NgramProposer
+
+# What the async pipeline stages ahead of a dispatch.
+Staged = StagedUnified | StagedDecode | StagedVerify | StagedVerifyWindow
 
 
 class SwaSectionCache:
@@ -164,8 +181,8 @@ class EngineStats:
     these plain ints and floats; a scrape on the event loop reads each
     atomically, with no lock on the step path. Fields of features the port
     does not have yet (offload, KV store and federation, P/D transfer, the
-    decode pager, the batch tier, LoRA, speculative decoding, wide EP)
-    stay at 0 or empty, so the page carries the JAX engine's names."""
+    decode pager, the batch tier, LoRA, wide EP) stay at 0 or empty, so
+    the page carries the JAX engine's names."""
 
     # Gauges, refreshed once a step (``_refresh_gauges``).
     num_waiting: int = 0
@@ -208,6 +225,18 @@ class EngineStats:
     # Async stepping: staged rows dropped because their sequence finished
     # (or was aborted) in the step that was in flight when they were staged.
     async_rollbacks_total: int = 0
+    # Speculative decoding: draft tokens proposed and accepted, their
+    # ratio, the accepted-length histogram (index j: row-steps that
+    # accepted j draft tokens), the fused verify windows' row-iterations
+    # and rows that stopped before their window's last iteration, and the
+    # dispatched rows by 1 + draft width.
+    spec_proposed_tokens_total: int = 0
+    spec_accepted_tokens_total: int = 0
+    spec_acceptance_rate: float = 0.0
+    spec_accepted_len_hist: tuple = ()
+    spec_window_iters_total: int = 0
+    spec_window_early_exit_total: int = 0
+    spec_row_depth_hist: tuple = ()
     # Features the port does not have yet: always 0 or empty here.
     offload_pages: int = 0
     offload_fs_pages: int = 0
@@ -249,13 +278,6 @@ class EngineStats:
     lora_pool_evictions_total: int = 0
     lora_cold_loads_total: int = 0
     lora_load_failures_total: int = 0
-    spec_proposed_tokens_total: int = 0
-    spec_accepted_tokens_total: int = 0
-    spec_acceptance_rate: float = 0.0
-    spec_accepted_len_hist: tuple = ()
-    spec_window_iters_total: int = 0
-    spec_window_early_exit_total: int = 0
-    spec_row_depth_hist: tuple = ()
     moe_expert_tokens: tuple = ()
     moe_dropped_slots_total: int = 0
     moe_peak_demand: float = 0.0
@@ -333,6 +355,12 @@ class LLMEngine:
         # that writes them runs, and committing that step for a request
         # that is gone, are both wrong, so they wait for the commit.
         self._deferred_aborts: set[str] = set()
+        # Speculative decoding: the host-only proposer, and the dispatched
+        # decode rows by 1 + draft width (the last bucket takes wider).
+        sched = config.scheduler
+        self._spec_proposer = (NgramProposer(min_match=sched.spec_ngram_min_match)
+                               if sched.speculative_ngram else None)
+        self._spec_row_depth = [0] * (2 + sched.spec_ngram_k)
 
     def add_request(
         self,
@@ -539,10 +567,17 @@ class LLMEngine:
             return []
         # ---- overlapped: the device runs N ----
         staged = self.scheduler.schedule()
-        staged_arrays: StagedUnified | StagedDecode | None = None
+        staged_arrays: Staged | None = None
         if not staged.is_empty and self._unified_eligible(staged):
-            # Tables and knobs now; tokens, positions and seeds at dispatch.
+            # Tables and knobs now; tokens, drafts, positions and seeds at
+            # dispatch.
             staged_arrays = self.runner.stage_unified(staged.prefills, staged.decodes)
+        elif staged.decodes and self._spec_proposer is not None:
+            # The verify shapes; the drafts come at dispatch, after N's
+            # commit.
+            staged_arrays = (
+                self.runner.stage_spec_verify_window(staged.decodes, staged.spec_window)
+                if staged.spec_window > 1 else self.runner.stage_spec_verify(staged.decodes))
         elif staged.decodes:
             staged_arrays = self.runner.stage_decode(
                 staged.decodes, k_steps=staged.decodes[0].num_tokens)
@@ -560,9 +595,11 @@ class LLMEngine:
         rolled = len(staged.prefills) - len(live_p) + len(staged.decodes) - len(live_d)
         if rolled:
             self.stats.async_rollbacks_total += rolled
-            # Survivors keep their planned widths: a batch of windows stays
-            # a batch of windows of the same K.
-            reconciled = ScheduledBatch(prefills=live_p, decodes=live_d)
+            # Survivors keep their planned widths and draft caps: a batch of
+            # windows stays a batch of windows of the same K, and verify
+            # windows keep their size.
+            reconciled = ScheduledBatch(prefills=live_p, decodes=live_d,
+                                        spec_window=staged.spec_window)
             if isinstance(staged_arrays, StagedUnified):
                 if not reconciled.is_empty and self._unified_eligible(reconciled):
                     staged_arrays = self.runner.subset_staged_unified(
@@ -585,21 +622,22 @@ class LLMEngine:
         self._finish_step(host_gap)
         return outputs
 
-    def _dispatch_async(self, batch: ScheduledBatch,
-                        staged: StagedUnified | StagedDecode | None = None) -> None:
+    def _dispatch_async(self, batch: ScheduledBatch, staged: Staged | None = None) -> None:
         now = time.monotonic()
         pend_p, pend_d, pend_u = self._dispatch(batch, staged)
         self._inflight = _InflightStep(batch, pend_p, pend_d, pend_u, now)
 
     def _dispatch(
-        self, batch: ScheduledBatch, staged: StagedUnified | StagedDecode | None = None
+        self, batch: ScheduledBatch, staged: Staged | None = None
     ) -> tuple[PendingPrefill | None, PendingDecode | None, PendingUnified | None]:
         """Enqueue a scheduled step and mark its tokens in flight: one
-        unified program, or the prefill groups and one decode window.
-        ``staged`` is the step's staging when it was staged ahead
-        (async stepping); otherwise it is staged here."""
+        unified program (drafts proposed first), or the prefill groups and
+        the decode programs. ``staged`` is the step's staging when it was
+        staged ahead (async stepping); otherwise it is staged here."""
         pend_p = pend_d = pend_u = None
         if self._unified_eligible(batch):
+            if self._spec_proposer is not None and batch.decodes:
+                self._propose_drafts(batch.decodes)
             if not isinstance(staged, StagedUnified):
                 staged = self.runner.stage_unified(batch.prefills, batch.decodes)
             pend_u = self.runner.dispatch_staged_unified(staged)
@@ -613,7 +651,8 @@ class LLMEngine:
                 self.stats.step_dispatches_total += len(pend_p.entries)
             if batch.decodes:
                 pend_d = self._dispatch_decodes(
-                    batch.decodes, staged if isinstance(staged, StagedDecode) else None)
+                    batch.decodes, batch.spec_window,
+                    None if isinstance(staged, StagedUnified) else staged)
         self.stats.prompt_tokens += sum(s.num_tokens for s in batch.prefills)
         self.scheduler.note_dispatch(batch)
         return pend_p, pend_d, pend_u
@@ -644,6 +683,16 @@ class LLMEngine:
                 st.swa_section_captures = sec.captures
         st.prefix_hit_ratio = self.allocator.hit_ratio()
         st.preemptions = self.scheduler.num_preemptions
+        sch = self.scheduler
+        if sch.spec_k:
+            st.spec_proposed_tokens_total = sch.spec_proposed_tokens
+            st.spec_accepted_tokens_total = sch.spec_accepted_tokens
+            st.spec_acceptance_rate = round(
+                sch.spec_accepted_tokens / max(1, sch.spec_proposed_tokens), 6)
+            st.spec_accepted_len_hist = tuple(sch.spec_accept_len_hist)
+            st.spec_window_iters_total = sch.spec_window_iters
+            st.spec_window_early_exit_total = sch.spec_window_early_exit
+            st.spec_row_depth_hist = tuple(self._spec_row_depth)
         st.live_tokens_total = self.runner.live_tokens_total
         st.padded_tokens_total = self.runner.padded_tokens_total
         st.dispatches_per_emitted_token = round(
@@ -651,12 +700,15 @@ class LLMEngine:
 
     def _unified_eligible(self, batch: ScheduledBatch) -> bool:
         """Does this batch ride the unified single-dispatch program?
-        Window-1 steps only: a fused decode window keeps its own dispatch.
-        The flat step takes every such step. The bucketed unified program
-        takes only steps for which the split engine would launch more than
-        one program: mixed prefill + decode steps, and prefill-only steps
-        that span several Q buckets."""
-        if any(s.num_tokens != 1 for s in batch.decodes):
+        Window-1 steps only: a fused decode or verify window keeps its own
+        dispatch (one-shot verify rows, planned at 1 + k, are window-1
+        rows). The flat step takes every such step. The bucketed unified
+        program takes only steps for which the split engine would launch
+        more than one program: mixed prefill + decode steps, and
+        prefill-only steps that span several Q buckets."""
+        if batch.spec_window != 1:
+            return False
+        if self._spec_proposer is None and any(s.num_tokens != 1 for s in batch.decodes):
             return False
         if self.runner.flat:
             return True
@@ -666,29 +718,106 @@ class LLMEngine:
             return True
         return self.runner.prefill_group_count(batch.prefills) > 1
 
-    def _dispatch_decodes(self, decodes: list[ScheduledSeq],
-                          staged: StagedDecode | None = None) -> PendingDecode:
-        """The step's decode rows as one fused window; K is uniform across
-        the batch (the scheduler's choice). ``staged`` is their staging if
-        it was staged ahead."""
-        if staged is None:
-            staged = self.runner.stage_decode(decodes, k_steps=decodes[0].num_tokens)
-        pend = self.runner.dispatch_staged_decode(staged)
-        self.stats.decode_dispatches_total += 1
-        self.stats.step_dispatches_total += 1
+    def _dispatch_decodes(self, decodes: list[ScheduledSeq], spec_window: int = 1,
+                          staged: Staged | None = None) -> PendingDecode:
+        """The step's decode rows: one fused decode window (K uniform
+        across the batch, the scheduler's choice), or under speculative
+        decoding the programs ``_dispatch_decode_programs`` picks.
+        ``staged`` is their staging if it was staged ahead."""
+        pend = self._dispatch_decode_programs(decodes, spec_window, staged)
+        self.stats.decode_dispatches_total += len(pend.entries)
+        self.stats.step_dispatches_total += len(pend.entries)
         return pend
+
+    def _dispatch_decode_programs(self, decodes: list[ScheduledSeq], spec_window: int,
+                                  staged: Staged | None) -> PendingDecode:
+        """JAX ``_dispatch_decode_programs``. Under speculative decoding:
+        the fused verify window where the scheduler gave one and a row
+        drafted, else the plain decode window at the window's depth (capped
+        by the narrowest planned row, down to a decode window the engine
+        dispatches); one-shot, the verify program where every row drafted,
+        the plain one-token program where none did, both where some did."""
+        runner = self.runner
+        if self._spec_proposer is None:
+            if not isinstance(staged, StagedDecode):
+                staged = runner.stage_decode(decodes, k_steps=decodes[0].num_tokens)
+            return runner.dispatch_staged_decode(staged)
+        self._propose_drafts(decodes)
+        if spec_window > 1:
+            window_staged = (isinstance(staged, StagedVerifyWindow)
+                             and staged.window == spec_window
+                             and len(staged.seqs) == len(decodes)
+                             and all(a is b for a, b in zip(staged.seqs, decodes)))
+            if any(s.draft_tokens for s in decodes):
+                if not window_staged:
+                    staged = runner.stage_spec_verify_window(decodes, spec_window)
+                return runner.dispatch_staged_verify_window(staged)
+            k = min(spec_window, min(s.num_tokens for s in decodes))
+            k = max(w for w in runner.decode_windows if w <= k)
+            staged = (runner.degrade_staged_window(staged, k) if window_staged
+                      else runner.stage_decode(decodes, k_steps=k))
+            return runner.dispatch_staged_decode(staged)
+        drafted = sum(1 for s in decodes if s.draft_tokens)
+        if drafted == len(decodes):
+            if not isinstance(staged, StagedVerify):
+                staged = runner.stage_spec_verify(decodes)
+            return runner.dispatch_staged_verify(staged)
+        if drafted == 0:
+            # No row drafted: the plain one-token program, no idle verify
+            # columns. The rows stay speculative (empty drafts), so the
+            # accounting and the truncation still run.
+            return runner.dispatch_staged_decode(runner.stage_decode(decodes, k_steps=1))
+        return runner.dispatch_spec_split(
+            decodes, staged if isinstance(staged, StagedVerify) else None)
+
+    def _propose_drafts(self, decodes: list[ScheduledSeq]) -> None:
+        """Each speculative decode row's draft from its committed tokens,
+        at dispatch (async staging runs a step early, before the tail
+        token is known). The cap (``spec_draft_cap``, or the one-shot
+        width ``num_tokens - 1``; 0 for a backed-off row) keeps the draft
+        inside the slots the scheduler planned, even where a short
+        acceptance left the row behind its planned position."""
+        max_len = self.config.model.max_model_len
+        for seq in decodes:
+            req = seq.request
+            cap = seq.num_tokens - 1 if seq.spec_draft_cap is None else seq.spec_draft_cap
+            cap = min(cap, max_len - req.num_computed_tokens - 1)
+            if cap <= 0:
+                seq.draft_tokens = []
+                continue
+            if req.spec_gram_state is None:
+                req.spec_gram_state = self._spec_proposer.new_state()
+            seq.draft_tokens = self._spec_proposer.propose(
+                req.all_token_ids, cap, req.spec_gram_state)
+        for seq in decodes:
+            depth = 1 + len(seq.draft_tokens or ())
+            self._spec_row_depth[min(depth, len(self._spec_row_depth) - 1)] += 1
 
     @staticmethod
     def _collect(
         batch: ScheduledBatch, pres: StepResult | None, dres: StepResult | None
     ) -> tuple[dict[str, list[int]], dict[str, list[float]]]:
-        """Per request id: the window of sampled tokens and their logprobs."""
+        """Per request id: the window of sampled tokens and their logprobs.
+        A fused verify window's row keeps its emitted columns and carries
+        its device meta to the scheduler (``device_accept``); a one-shot
+        speculative row keeps 1 + its draft's columns (a window that fell
+        back to plain decode keeps every column)."""
         sampled: dict[str, list[int]] = {}
         logprobs: dict[str, list[float]] = {}
-        for res, seqs in ((pres, batch.prefills), (dres, batch.decodes)):
-            for i, seq in enumerate(seqs):
-                sampled[seq.request.request_id] = res.tokens[i].tolist()
-                logprobs[seq.request.request_id] = res.logprobs[i].tolist()
+        for i, seq in enumerate(batch.prefills):
+            sampled[seq.request.request_id] = pres.tokens[i].tolist()
+            logprobs[seq.request.request_id] = pres.logprobs[i].tolist()
+        for i, seq in enumerate(batch.decodes):
+            toks, lps = dres.tokens[i], dres.logprobs[i]
+            if dres.meta is not None:
+                seq.device_accept = tuple(int(v) for v in dres.meta[i])
+                m = seq.device_accept[0]
+                toks, lps = toks[:m], lps[:m]
+            elif seq.draft_tokens is not None and batch.spec_window == 1:
+                m = 1 + len(seq.draft_tokens)
+                toks, lps = toks[:m], lps[:m]
+            sampled[seq.request.request_id] = toks.tolist()
+            logprobs[seq.request.request_id] = lps.tolist()
         return sampled, logprobs
 
     def _assemble_outputs(

@@ -32,6 +32,12 @@ That holds under async stepping too: step N+1 is staged while N runs, but
 only into numpy arrays (``ModelRunner.stage_unified``, ``stage_decode``);
 its static inputs are written at its dispatch, after N's readback, when
 N's copy from the host buffer has landed and N's output has been read.
+The programs share one memory pool for their scratch, where a program
+captured earlier may reuse a later-captured program's memory when it
+replays. Each program's output is therefore a buffer of its own outside
+the pool, which its graph's last kernel fills: a step may replay two
+programs before its one readback (a split verify step,
+``ModelRunner.dispatch_spec_split``).
 A failed capture or replay raises; there is no eager retry.
 """
 
@@ -96,7 +102,7 @@ class StaticInputs:
 @dataclasses.dataclass
 class Program:
     """One key's static inputs, body and, on the card, graph; ``out`` is
-    the graph's static output and ``launches`` the kernel launches of one
+    the graph's static output (outside the graph pool) and ``launches`` the kernel launches of one
     replay (``ops.launch_delta``)."""
 
     inputs: StaticInputs
@@ -139,8 +145,10 @@ class StepPrograms:
         side = torch.cuda.Stream(self.device)
         side.wait_stream(stream)
         with torch.cuda.stream(side):
-            prog.body(x)
+            out = prog.body(x)
         stream.wait_stream(side)
+        prog.out = torch.empty_like(out)
+        del out
         warm = ops.launch_state()
         graph = torch.cuda.CUDAGraph()
         # A graph destroyed while another is captured (an engine dropped in
@@ -151,7 +159,7 @@ class StepPrograms:
         gc.disable()
         try:
             with torch.cuda.graph(graph, pool=self.pool):
-                prog.out = prog.body(x)
+                prog.out.copy_(prog.body(x))
         finally:
             gc.enable()
         prog.launches = ops.launch_delta(ops.launch_state(), warm)

@@ -82,6 +82,14 @@ class Request:
     first_token_time: float | None = None
     # Per-step sampled logprob of each output token (if requested).
     output_logprobs: list[float] = dataclasses.field(default_factory=list)
+    # Speculative decoding: the proposer's incremental gram index
+    # (``NgramProposer.new_state``), the run of fully rejected drafts
+    # (the scheduler's backoff), and the row's drafted and accepted
+    # token counts.
+    spec_gram_state: dict | None = None
+    spec_consec_rejected: int = 0
+    spec_drafted_tokens: int = 0
+    spec_accepted_tokens: int = 0
 
     @property
     def num_prompt_tokens(self) -> int:

@@ -71,6 +71,29 @@ those programs survive in one place, ``_seed_rows``: the engine's seed
 stream advances by them, so unseeded sampling draws what the JAX engine
 draws.
 
+**Speculative decoding** (``SchedulerConfig.speculative_ngram``; JAX
+``_build_flat``, ``_build_unified``, ``_build_verify``,
+``_build_verify_window``). A decode row that drafted feeds ``[next token,
+draft...]`` and is sampled at every position: the flat step and the
+bucketed unified step carry an ``[B, S]`` sample plane (S = 1 + k on a
+speculative engine, 1 otherwise) and a ``verify_row`` flag, and return
+``[B, 2S]``. Decode-only steps of the split and bucketed engines run the
+one-shot verify program (``[B, 1 + k]`` rows, every position sampled), a
+step where only some rows drafted runs it beside the plain one-token
+program (``dispatch_spec_split``), and in the saturated regime the fused
+verify window runs ``window`` verify iterations in one program, with
+acceptance, the seeded rows' seeds (``sampler.spec_seed``) and the
+position advance on the device, and one readback of 4 meta columns and
+``window x (1 + k)`` token and logprob columns. The verify and window
+programs are graph replays keyed by their batch bucket (and the window's
+size). Their ``[B, 1 + k]`` rows run on the kernels (``_verify_hidden``):
+a GQA model packs the rows' live tokens into the flat step's stream on
+the device (K1', K2'), an MLA model scores each position as a decode row
+of its own over its row's pages (K4''s latent store, K5'). The JAX
+package sends these ``Q > 1`` rows to XLA (``_geometry_ok``); the plain
+``[B, Q]`` attention here is the bucketed unified step's and the prefill
+groups' only.
+
 **The sliding-window ring** (``CacheConfig.swa_ring``, ``SwaRingSpec``;
 JAX ``_alloc_swa``, ``_swa_table``). The sliding layers live in a second
 pool, ``kv_swa`` (``len(swa_layers)`` planes of ``num_swa_blocks`` pages),
@@ -92,7 +115,7 @@ from llmd_tpu_torch import ops
 from llmd_tpu_torch.config import EngineConfig, SwaRingSpec, swa_ring_spec
 from llmd_tpu_torch.engine.graphs import Spec, StepPrograms
 from llmd_tpu_torch.engine.request import Request
-from llmd_tpu_torch.engine.sampler import sample_tokens, spec_seed
+from llmd_tpu_torch.engine.sampler import accept_counts, sample_tokens, spec_seed
 from llmd_tpu_torch.engine.scheduler import ScheduledSeq
 from llmd_tpu_torch.models import llama
 from llmd_tpu_torch.models.common import StepInput
@@ -137,10 +160,13 @@ def resolve_device(device: str | torch.device) -> torch.device:
 @dataclass
 class StepResult:
     """Sampled tokens and their logprobs for each row; [n, K] (K = 1
-    except for a fused decode window)."""
+    except for a fused decode window, a verify step's 1 + k or a fused
+    verify window's window x (1 + k)); ``meta`` [n, 4] the fused verify
+    window's (emitted, drafted, accepted, iterations active) a row."""
 
     tokens: np.ndarray
     logprobs: np.ndarray
+    meta: np.ndarray | None = None
 
 
 @dataclass
@@ -162,20 +188,25 @@ class StagedUnified:
     all_greedy: bool
     program: str
 
-    @property
-    def num_live(self) -> int:
-        return sum(w for _, _, w in self.rows)
+    def widths(self) -> list[int]:
+        """Each row's tokens at dispatch: a prefill row its chunk, a
+        decode row 1 + its draft (proposed at dispatch; a row is planned
+        at its max-acceptance width)."""
+        first_decode = self.decode_rows[0] if self.decode_rows else len(self.rows)
+        return [w if r < first_decode else 1 + len(s.draft_tokens or ())
+                for r, (s, _, w) in enumerate(self.rows)]
 
 
 @dataclass
 class PendingUnified:
-    """One dispatched-but-unread unified step: the packed [rows, 2] device
-    output and which of its rows carry each prefill's and each decode's
-    sample."""
+    """One dispatched-but-unread unified step: the packed [rows, 2S] device
+    output (S sample columns, then S logprobs) and which of its rows carry
+    each prefill's and each decode's sample."""
 
     packed: torch.Tensor
     prefill_rows: list[int]
     decode_rows: list[int]
+    S: int = 1
 
 
 @dataclass
@@ -200,11 +231,38 @@ class StagedDecode:
 
 
 @dataclass
-class PendingDecode:
-    """One dispatched decode window: packed [B, 2K] (K tokens, then K
-    logprobs, per row); rows [0, n) are live."""
+class StagedVerify:
+    """Host arrays of one one-shot verify step ([B, Q] rows, Q = 1 + k);
+    tokens, first positions, lengths and seeds are filled at dispatch."""
 
-    packed: torch.Tensor
+    seqs: list[ScheduledSeq]
+    arrays: dict
+    B: int
+    q: int
+    all_greedy: bool
+
+
+@dataclass
+class StagedVerifyWindow:
+    """Host arrays of one fused verify window; the first tokens, the
+    pre-drafts, the seeds and the output offsets are filled at dispatch."""
+
+    seqs: list[ScheduledSeq]
+    arrays: dict
+    B: int
+    window: int
+    q: int
+    all_greedy: bool
+
+
+@dataclass
+class PendingDecode:
+    """The dispatched decode programs of one step: entries of (packed
+    [B, meta + 2k], the step's decode rows it holds, k, meta columns);
+    one entry, or two for a split verify step (the verify rows and the
+    plain rows). ``k`` is the widest entry's."""
+
+    entries: list[tuple[torch.Tensor, list[int], int, int]]
     n: int
     k: int
 
@@ -271,8 +329,20 @@ class ModelRunner:
         # Padding accounting: live tokens and the pads the shapes added.
         self.live_tokens_total = 0
         self.padded_tokens_total = 0
+        # Speculative decoding: the verify width Q = 1 + k (0: off), the
+        # unified steps' sample columns S, the fused verify windows, and the
+        # decode windows the engine may dispatch (JAX ``decode_windows``:
+        # the plain window a windowed step falls back to when no row
+        # drafted is the largest of these at or below its depth).
+        self.spec_q = 1 + sched.spec_ngram_k if sched.speculative_ngram else 0
+        self.unified_s = max(self.spec_q, 1)
+        self.spec_windows = sched.spec_window_set
+        self.decode_windows = tuple(sorted({
+            1, sched.spec_window if sched.speculative_ngram else sched.decode_window,
+            *self.spec_windows}))
         # The decode steps' programs (CUDA graphs on the card), by key:
-        # ("window", B, K, all_greedy) or ("flat", T, all_greedy).
+        # ("window", B, K, all_greedy), ("flat", T, all_greedy),
+        # ("verify", B, all_greedy) or ("vwindow", B, window, all_greedy).
         self.programs = StepPrograms(self.device, self._program)
 
     def _alloc_pool(self, num_layers: int, num_blocks: int):
@@ -471,7 +541,7 @@ class ModelRunner:
             # The chunk's sample is its last sub-row's.
             prefill_rows.append(len(rows) - 1)
         decode_rows = list(range(len(rows), len(rows) + len(decodes)))
-        rows += [(s, 0, 1) for s in decodes]
+        rows += [(s, 0, s.num_tokens) for s in decodes]
         return self._stage_rows(rows, "unified", prefills, decodes, prefill_rows, decode_rows)
 
     def _stage_rows(self, rows: list[tuple[ScheduledSeq, int, int]], program: str,
@@ -527,44 +597,59 @@ class ModelRunner:
             packed = self._run_rows(staged)
         else:
             a = self.fill_flat(staged)
-            T = len(a["stream"])
-            self.live_tokens_total += staged.num_live
-            self.padded_tokens_total += T - staged.num_live
+            T, live = len(a["stream"]), int(a["qlens"].sum())
+            self.live_tokens_total += live
+            self.padded_tokens_total += T - live
             if staged.prefills:
                 x = {name: self._on_device(arr) for name, arr in a.items()}
                 packed = self._flat_step(x, staged.all_greedy)
             else:
                 packed = self.programs.run(("flat", T, staged.all_greedy), a)
-        return PendingUnified(packed, list(staged.prefill_rows), list(staged.decode_rows))
+        return PendingUnified(packed, list(staged.prefill_rows), list(staged.decode_rows),
+                              self.unified_s)
 
     def fill_flat(self, staged: StagedUnified) -> dict:
         """A staged flat step's arrays with the token-dependent ones filled:
-        the packed stream, padded to the 16-token granule, the per-row
-        ``(row_start, pos0, qlens)`` and the seeds. Pad rows carry
-        ``row_start = total`` so the boundary array stays monotonic. The
-        seed block is drawn here, so the engine's seed stream advances in
-        dispatch order."""
+        the packed stream, the per-row ``(row_start, pos0, qlens,
+        verify_row)`` and the ``[B, S]`` seeds. A decode row that drafted
+        feeds ``[next token, draft...]`` and is a verify row. The stream's
+        length is the rows' planned widths (a speculative row's 1 + k)
+        padded to the 16-token granule, as the JAX step buckets it, so a
+        schedule fixes its program. Pad rows carry ``row_start = total`` so
+        the boundary array stays monotonic. The seed block is drawn here,
+        so the engine's seed stream advances in dispatch order."""
         B = len(staged.arrays["temp"])
-        total = staged.num_live
-        T = -(-total // _T_GRANULE) * _T_GRANULE
+        widths = staged.widths()
+        total = sum(widths)
+        T = -(-sum(w for _, _, w in staged.rows) // _T_GRANULE) * _T_GRANULE
         requests = [s.request for s, _, _ in staged.rows]
         a = {
             "stream": np.zeros(T, np.int64),
             "row_start": np.full(B, total, np.int64),
             "pos0": np.zeros(B, np.int64),
             "qlens": np.zeros(B, np.int64),
+            "verify_row": np.zeros(B, np.bool_),
             **staged.arrays,
-            "seeds": self._draw_seeds(requests, self._seed_rows("flat", B), 1)[:B, 0],
+            "seeds": self._draw_seeds(requests, self._seed_rows("flat", B), self.unified_s)[:B],
         }
         t = 0
-        for r, (seq, off, w) in enumerate(staged.rows):
+        for r, ((seq, off, _), w) in enumerate(zip(staged.rows, widths)):
             start = seq.start_pos + off
-            a["stream"][t : t + w] = seq.request.token_slice(start, w)
+            a["stream"][t : t + w] = self._row_tokens(seq, start, w)
             a["row_start"][r] = t
             a["pos0"][r] = start
             a["qlens"][r] = w
+            a["verify_row"][r] = bool(seq.draft_tokens)
             t += w
         return a
+
+    @staticmethod
+    def _row_tokens(seq: ScheduledSeq, start: int, w: int) -> list[int]:
+        """A row's w input tokens from ``start``: the committed tokens, and
+        past them a decode row's draft."""
+        if seq.draft_tokens:
+            return [*seq.request.token_slice(start, 1), *seq.draft_tokens]
+        return seq.request.token_slice(start, w)
 
     def _flat_spec(self, T: int) -> Spec:
         """The static inputs of the flat step at stream length T (the
@@ -572,9 +657,9 @@ class ModelRunner:
         R, i64, i32, f32 = self.flat_rows, torch.int64, torch.int32, torch.float32
         return {
             "stream": ((T,), i64), "row_start": ((R,), i64), "pos0": ((R,), i64),
-            "qlens": ((R,), i64), **self._table_spec(R),
+            "qlens": ((R,), i64), "verify_row": ((R,), torch.bool), **self._table_spec(R),
             "temp": ((R,), f32), "top_k": ((R,), i32), "top_p": ((R,), f32),
-            "seeds": ((R,), i64),
+            "seeds": ((R, self.unified_s), i64),
         }
 
     def _table_spec(self, B: int) -> Spec:
@@ -585,69 +670,102 @@ class ModelRunner:
     @torch.inference_mode()
     def _flat_step(self, x: dict[str, torch.Tensor], all_greedy: bool) -> torch.Tensor:
         """The flat step's body on the device arrays ``x`` (the names of
-        ``_flat_spec``); returns the packed [B, 2]. Nothing it computes
+        ``_flat_spec``); returns the packed [B, 2S]. Nothing it computes
         depends on a host value but the arrays' shapes."""
-        dev = self.device
-        stream, row_start, pos0, qlens, page_table = (
-            x[name] for name in ("stream", "row_start", "pos0", "qlens", "page_table")
-        )
+        stream, row_start, qlens = x["stream"], x["row_start"], x["qlens"]
         T, B = stream.shape[0], row_start.shape[0]
-        # Per-token view derived on device from the cu_q_lens metadata:
-        # token t belongs to the row whose [row_start, row_start + qlen)
-        # span holds it, its position is pos0 + its offset in the row,
-        # and its causal horizon is position + 1.
-        t = torch.arange(T, device=dev)
-        ends = row_start + qlens  # non-decreasing (pad rows = total)
+        hidden = self._forward(self._flat_input(stream, row_start, x["pos0"], qlens, x))
+        # The [B, S] sample plane: a verify row's every position, any
+        # other row's last (its S columns repeat one sample).
+        samp = self._sample_plane(qlens, x["verify_row"])
+        idx = (row_start[:, None] + samp).clamp(0, T - 1).reshape(-1)
+        return self._sample_packed(hidden[idx, 0], x, B, all_greedy)
+
+    def _flat_input(self, stream: torch.Tensor, row_start: torch.Tensor, pos0: torch.Tensor,
+                    qlens: torch.Tensor, x: dict[str, torch.Tensor]) -> StepInput:
+        """The flat layout's per-token view, derived on the device from the
+        cu_q_lens metadata: token t belongs to the row whose [row_start,
+        row_start + qlen) span holds it, its position is pos0 + its offset
+        in the row, and its causal horizon is position + 1. ``row_start +
+        qlens`` is non-decreasing (pad rows start at the live total)."""
+        T, B = stream.shape[0], row_start.shape[0]
+        t = torch.arange(T, device=self.device)
+        ends = row_start + qlens
         row_of = torch.searchsorted(ends, t, right=True).clamp_(0, B - 1)
         live = t < ends[-1]
         positions = torch.where(live, pos0[row_of] + (t - row_start[row_of]), 0)
         kv_lens = torch.where(live, positions + 1, 0).int()
         group = self.cfg.num_heads // self.cfg.num_kv_heads
-        inp = StepInput(
+        return StepInput(
             token_ids=torch.where(live, stream, 0)[:, None],
             positions=positions.int()[:, None],
             kv_lens=kv_lens,
-            page_table=page_table,
+            page_table=x["page_table"],
             token_rows=row_of.int(),
             num_live=ends[-1:].int(),
             # The attention kernel's query tiles, once for every layer.
             flat_items=ops.flat_work_items(row_of, kv_lens, group),
             swa_page_table=x.get("swa_table"),
         )
-        hidden = self._forward(inp)
-        last = (row_start + (qlens - 1).clamp(min=0)).clamp(0, T - 1)
-        logits = llama.compute_logits(self.params, hidden[last, 0], self.cfg)
-        tok, logp = sample_tokens(
-            logits, x["temp"], x["top_k"], x["top_p"], x["seeds"], all_greedy
-        )
-        return torch.stack([tok.float(), logp], dim=1)  # [B, 2]
+
+    def _sample_plane(self, qlens: torch.Tensor, verify_row: torch.Tensor) -> torch.Tensor:
+        """[B, S] offsets in each row of the positions sampled (JAX
+        ``samp_local``)."""
+        last = (qlens - 1).clamp(min=0)
+        cols = torch.arange(self.unified_s, device=qlens.device)
+        return torch.where(verify_row[:, None], torch.minimum(cols[None, :], last[:, None]),
+                           last[:, None])
+
+    def _sample_packed(self, h: torch.Tensor, x: dict, B: int, all_greedy: bool,
+                       seeds: torch.Tensor | None = None) -> torch.Tensor:
+        """Logits of the hidden rows ``h`` [B * S, H] (S per row), sampled
+        with each row's knobs and the seeds ``x["seeds"]`` [B, S] (or
+        ``seeds``); returns the packed [B, 2S]: S tokens, then S logprobs."""
+        S = h.shape[0] // B
+        logits = llama.compute_logits(self.params, h, self.cfg)
+
+        def rep(name):
+            v = x[name]
+            return torch.as_tensor(np.repeat(v, S) if isinstance(v, np.ndarray) else
+                                   v.repeat_interleave(S), device=logits.device)
+
+        tok, logp = sample_tokens(logits, rep("temp"), rep("top_k"), rep("top_p"),
+                                  (x["seeds"] if seeds is None else seeds).reshape(-1),
+                                  all_greedy)
+        return torch.cat([tok.reshape(B, S).float(), logp.reshape(B, S)], dim=1)
 
     # ------------------------------------------------------------------ #
     # bucketed [B, Q] programs: prefill groups and the unified step
 
     @torch.inference_mode()
     def _run_rows(self, staged: StagedUnified) -> torch.Tensor:
-        """One bucketed forward over a staged bucketed program's rows, each
-        row's last valid position sampled; returns the packed [n, 2]
-        (token, logprob). The tokens and positions come from the
-        requests' committed state now; ``staged.program`` ("prefill" or
-        "unified") sizes the draw from the seed stream (``_seed_rows``)."""
+        """One bucketed forward over a staged bucketed program's rows;
+        returns the packed [n, 2S]. A prefill group samples each row's last
+        position (S = 1); the unified step samples S = 1 + k positions of a
+        verify row (a decode row that drafted) and the last of any other.
+        The tokens and positions come from the requests' committed state
+        now; ``staged.program`` ("prefill" or "unified") sizes the draw
+        from the seed stream (``_seed_rows``)."""
         rows = staged.rows
         n = len(rows)
-        Q = max(w for _, _, w in rows)
+        widths = staged.widths()
+        Q = max(widths)
+        S = self.unified_s if staged.program == "unified" else 1
         tokens = np.zeros((n, Q), np.int64)
         positions = np.zeros((n, Q), np.int32)
         qlens = np.zeros(n, np.int32)
         kvlens = np.zeros(n, np.int32)
-        for i, (seq, off, w) in enumerate(rows):
+        verify = np.zeros(n, np.bool_)
+        for i, ((seq, off, _), w) in enumerate(zip(rows, widths)):
             start = seq.start_pos + off
-            tokens[i, :w] = seq.request.token_slice(start, w)
+            tokens[i, :w] = self._row_tokens(seq, start, w)
             positions[i, :w] = np.arange(start, start + w)
             positions[i, w:] = start + w - 1  # pad slots repeat the last
             qlens[i] = w
             kvlens[i] = start + w
+            verify[i] = bool(seq.draft_tokens)
         requests = [s.request for s, _, _ in rows]
-        seeds = self._draw_seeds(requests, self._seed_rows(staged.program, n), 1)[:n, 0]
+        seeds = self._draw_seeds(requests, self._seed_rows(staged.program, n), S)[:n]
         live = int(qlens.sum())
         self.live_tokens_total += live
         self.padded_tokens_total += n * Q - live
@@ -663,12 +781,9 @@ class ModelRunner:
             swa_page_table=None if swa is None else self._on_device(swa),
         )
         hidden = self._forward(inp)
-        last = self._on_device(qlens - 1).long()
-        h_last = hidden[torch.arange(n, device=self.device), last]
-        logits = llama.compute_logits(self.params, h_last, self.cfg)
-        tok, logp = sample_tokens(logits, a["temp"], a["top_k"], a["top_p"], seeds,
-                                  staged.all_greedy)
-        return torch.stack([tok.float(), logp], dim=1)
+        samp = self._sample_plane(self._on_device(qlens).long(), self._on_device(verify))[:, :S]
+        h = hidden[torch.arange(n, device=self.device)[:, None], samp].reshape(n * S, -1)
+        return self._sample_packed(h, {**a, "seeds": seeds}, n, staged.all_greedy)
 
     def prefill_group_count(self, seqs: list[ScheduledSeq]) -> int:
         """How many Q-bucket programs ``dispatch_prefill`` would enqueue
@@ -729,7 +844,7 @@ class ModelRunner:
         self.live_tokens_total += n * staged.k
         self.padded_tokens_total += (staged.B - n) * staged.k
         packed = self.programs.run(("window", staged.B, staged.k, staged.all_greedy), a)
-        return PendingDecode(packed, n, staged.k)
+        return PendingDecode([(packed, list(range(n)), staged.k, 0)], n, staged.k)
 
     def _window_spec(self, B: int, K: int) -> Spec:
         """The static inputs of a decode window of K iterations over the
@@ -778,6 +893,301 @@ class ModelRunner:
         return torch.cat([out_t, out_l], dim=1)
 
     # ------------------------------------------------------------------ #
+    # speculative decoding: the one-shot verify and the fused verify window
+
+    def _verify_hidden(self, tokens: torch.Tensor, pos0: torch.Tensor, qlen: torch.Tensor,
+                       x: dict[str, torch.Tensor]) -> torch.Tensor:
+        """The hidden states [B, Q, H] of ``[B, Q]`` verify rows: row b's
+        first ``qlen[b]`` tokens at positions ``pos0[b] + j`` (a column past
+        the row's length takes its last live column's state). A GQA model
+        packs the live tokens into a flat stream of B x Q slots on the
+        device and runs the flat step's kernels (K1', K2'); an MLA model,
+        which has no flat step, runs each column as a decode row of its own
+        over its row's pages (K4''s latent store, K5'), causal because every
+        layer stores the step's rows before any attends. Nothing here reads
+        the device."""
+        B, Q = tokens.shape
+        cols = torch.arange(Q, device=self.device)
+        live = cols[None, :] < qlen[:, None]
+        last = torch.minimum(cols[None, :], (qlen - 1).clamp(min=0)[:, None])
+        if self.cfg.is_mla:
+            # Positions past the table (a stopped row's) stay inside it.
+            positions = (pos0[:, None] + cols[None, :]).clamp(max=self.max_pages * self.page - 1)
+            inp = StepInput(
+                token_ids=torch.where(live, tokens, 0).reshape(B * Q, 1),
+                positions=positions.int().reshape(B * Q, 1),
+                kv_lens=torch.where(live, positions + 1, 0).int().reshape(B * Q),
+                page_table=x["page_table"].repeat_interleave(Q, dim=0),
+                query_lens=live.int().reshape(B * Q),
+            )
+            hidden = self._forward(inp).reshape(B, Q, -1)
+            return torch.gather(hidden, 1, last[:, :, None].expand(-1, -1, hidden.shape[-1]))
+        T = B * Q
+        row_start = torch.cumsum(qlen, 0) - qlen
+        # Dead slots scatter to a spare slot past the stream.
+        slot = torch.where(live, row_start[:, None] + cols[None, :], T).reshape(-1)
+        stream = torch.zeros(T + 1, dtype=torch.int64, device=self.device)
+        stream = stream.scatter(0, slot, tokens.reshape(-1))[:T]
+        hidden = self._forward(self._flat_input(stream, row_start, pos0, qlen, x))
+        return hidden[(row_start[:, None] + last).clamp(max=T - 1).reshape(-1), 0].reshape(B, Q, -1)
+
+    def stage_spec_verify(self, seqs: list[ScheduledSeq]) -> StagedVerify:
+        """Stage a one-shot verify step (JAX ``stage_spec_verify``): the
+        tables and knobs now; tokens, positions, lengths and seeds at
+        dispatch. Rows pad to the prefill row buckets, as in JAX: a step
+        where few rows drafted verifies only those."""
+        B = pad_to_bucket(len(seqs), self._seed_buckets["prefill"])
+        requests = [s.request for s in seqs]
+        temp, top_k, top_p = self._sampling_knobs(requests, B)
+        Q = self.spec_q
+        arrays = {
+            **self._verify_rows(B), **self._tables(requests, B, "verify"),
+            "temp": temp, "top_k": top_k, "top_p": top_p,
+        }
+        return StagedVerify(list(seqs), arrays, B, Q, all(r.sampling.greedy for r in requests))
+
+    def _verify_rows(self, B: int) -> dict[str, np.ndarray]:
+        """A verify step's token arrays, filled at dispatch."""
+        return {"tokens": np.zeros((B, self.spec_q), np.int64), "pos0": np.zeros(B, np.int64),
+                "qlens": np.zeros(B, np.int64)}
+
+    def dispatch_staged_verify(self, staged: StagedVerify) -> PendingDecode:
+        """Fill a staged verify step and enqueue it (JAX
+        ``dispatch_staged_verify``): each row feeds ``[next token,
+        draft...]``. One [B, Q] block of the seed stream is drawn here, in
+        dispatch order; seeded rows overwrite theirs per (request seed,
+        output index)."""
+        a = staged.arrays
+        requests = [s.request for s in staged.seqs]
+        a["seeds"] = self._draw_seeds(requests, staged.B, staged.q)
+        for i, seq in enumerate(staged.seqs):
+            nc = seq.request.num_computed_tokens
+            m = 1 + len(seq.draft_tokens or ())
+            a["tokens"][i, :m] = self._row_tokens(seq, nc, m)
+            a["pos0"][i] = nc
+            a["qlens"][i] = m
+        live = int(a["qlens"].sum())
+        self.live_tokens_total += live
+        self.padded_tokens_total += staged.B * staged.q - live
+        packed = self.programs.run(("verify", staged.B, staged.all_greedy), a)
+        n = len(staged.seqs)
+        return PendingDecode([(packed, list(range(n)), staged.q, 0)], n, staged.q)
+
+    def _verify_spec(self, B: int) -> Spec:
+        """The static inputs of a one-shot verify step over B rows."""
+        Q, i64, i32, f32 = self.spec_q, torch.int64, torch.int32, torch.float32
+        return {
+            "tokens": ((B, Q), i64), "pos0": ((B,), i64), "qlens": ((B,), i64),
+            **self._table_spec(B),
+            "temp": ((B,), f32), "top_k": ((B,), i32), "top_p": ((B,), f32),
+            "seeds": ((B, Q), i64),
+        }
+
+    @torch.inference_mode()
+    def _verify(self, x: dict[str, torch.Tensor], all_greedy: bool) -> torch.Tensor:
+        """The one-shot verify body (JAX ``_build_verify``): the ``[B, Q]``
+        forward, every position sampled; returns the packed [B, 2Q]."""
+        B = x["tokens"].shape[0]
+        hidden = self._verify_hidden(x["tokens"], x["pos0"], x["qlens"], x)
+        return self._sample_packed(hidden.reshape(B * self.spec_q, -1), x, B, all_greedy)
+
+    @staticmethod
+    def _slice_rows(arrays: dict, idxs: list[int], B: int) -> dict:
+        """The tables and knobs of rows ``idxs`` out of a staged verify
+        step or window, padded to B rows (JAX ``_ROW_SLICE_NAMES``)."""
+        names = ("page_table", "swa_table", "temp", "top_k", "top_p")
+        return ModelRunner._slice_staged_rows(
+            {k: v for k, v in arrays.items() if k in names}, idxs, B)
+
+    def _subset_staged_verify(self, staged: StagedVerify, idxs: list[int]) -> StagedVerify:
+        """The verify staging of rows ``idxs`` of a staged verify step (JAX
+        ``_subset_staged_verify``): tables and knobs sliced, the dispatch's
+        arrays fresh."""
+        B = pad_to_bucket(len(idxs), self._seed_buckets["prefill"])
+        Q = self.spec_q
+        arrays = self._slice_rows(staged.arrays, idxs, B)
+        arrays.update(self._verify_rows(B))
+        sub = [staged.seqs[i] for i in idxs]
+        return StagedVerify(sub, arrays, B, Q, all(s.request.sampling.greedy for s in sub))
+
+    def _subset_staged_decode(self, staged: StagedVerify | StagedVerifyWindow,
+                              idxs: list[int], k_steps: int) -> StagedDecode:
+        """A plain decode window's staging of rows ``idxs`` out of a staged
+        verify step or window (JAX ``_subset_staged_decode``): where the
+        staged rows turn out not to draft at dispatch."""
+        B = pad_to_bucket(len(idxs), self.batch_buckets)
+        arrays = self._slice_rows(staged.arrays, idxs, B)
+        active = np.zeros(B, np.bool_)
+        active[: len(idxs)] = True
+        arrays.update({"first": np.zeros(B, np.int64), "start": np.zeros(B, np.int32),
+                       "active": active})
+        sub = [staged.seqs[i] for i in idxs]
+        return StagedDecode(sub, arrays, B, k_steps, all(s.request.sampling.greedy for s in sub))
+
+    def degrade_staged_window(self, staged: StagedVerifyWindow, k_steps: int) -> StagedDecode:
+        """A staged verify window as a plain decode window of ``k_steps``
+        (JAX ``degrade_staged_window``): no row drafted at dispatch."""
+        return self._subset_staged_decode(staged, list(range(len(staged.seqs))), k_steps)
+
+    def dispatch_spec_split(self, seqs: list[ScheduledSeq],
+                            staged: StagedVerify | None = None) -> PendingDecode:
+        """A decode step where only some rows drafted (JAX
+        ``dispatch_spec_split``): those verify, the others run the plain
+        one-token program; two enqueues, one readback (``wait_step``).
+        ``staged`` is the whole batch's verify staging, sliced for both."""
+        drafted = [i for i, s in enumerate(seqs) if s.draft_tokens]
+        plain = [i for i, s in enumerate(seqs) if not s.draft_tokens]
+        reuse = staged is not None and len(staged.seqs) == len(seqs) and all(
+            a is b for a, b in zip(staged.seqs, seqs))
+        sub_v = (self._subset_staged_verify(staged, drafted) if reuse
+                 else self.stage_spec_verify([seqs[i] for i in drafted]))
+        packed = self.dispatch_staged_verify(sub_v).entries[0][0]
+        entries = [(packed, drafted, self.spec_q, 0)]
+        if plain:
+            sub_d = (self._subset_staged_decode(staged, plain, 1) if reuse
+                     else self.stage_decode([seqs[i] for i in plain], 1))
+            entries.append((self.dispatch_staged_decode(sub_d).entries[0][0], plain, 1, 0))
+        return PendingDecode(entries, len(seqs), self.spec_q)
+
+    def stage_spec_verify_window(self, seqs: list[ScheduledSeq], window: int) -> StagedVerifyWindow:
+        """Stage a fused verify window (JAX ``stage_spec_verify_window``):
+        rows pad to the decode batch buckets; tables, knobs, the active mask
+        and each row's emission limit (its planned width) now; the first
+        tokens, pre-drafts, seeds and output offsets at dispatch."""
+        n = len(seqs)
+        B = pad_to_bucket(n, self.batch_buckets)
+        Q = self.spec_q
+        requests = [s.request for s in seqs]
+        temp, top_k, top_p = self._sampling_knobs(requests, B)
+        active = np.zeros(B, np.bool_)
+        active[:n] = True
+        limit = np.ones(B, np.int64)
+        limit[:n] = [s.num_tokens for s in seqs]
+        arrays = {
+            "first": np.zeros(B, np.int64), "start": np.zeros(B, np.int64),
+            "predraft": np.zeros((B, window * Q - 1), np.int64), "dlen": np.zeros(B, np.int64),
+            "limit": limit, **self._tables(requests, B, "vwindow"), "active": active,
+            "temp": temp, "top_k": top_k, "top_p": top_p,
+            "seed_base": np.zeros(B, np.int64), "seeded": np.zeros(B, np.bool_),
+            "out0": np.zeros(B, np.int64),
+        }
+        return StagedVerifyWindow(list(seqs), arrays, B, window, Q,
+                                  all(r.sampling.greedy for r in requests))
+
+    def dispatch_staged_verify_window(self, staged: StagedVerifyWindow) -> PendingDecode:
+        """Fill a staged verify window and enqueue it (JAX
+        ``dispatch_staged_verify_window``): one [B, window, Q] block of the
+        seed stream, in dispatch order; a seeded row's seeds are derived
+        on the device, since its output index after the first iteration
+        depends on its own acceptance."""
+        a = staged.arrays
+        W, Q = staged.window, staged.q
+        a["seeds"] = self._np_rng.integers(0, 2**32, size=(staged.B, W, Q),
+                                           dtype=np.uint32).astype(np.int64)
+        for i, seq in enumerate(staged.seqs):
+            req = seq.request
+            nc = req.num_computed_tokens
+            draft = seq.draft_tokens or []
+            a["first"][i] = req.token_slice(nc, 1)[0]
+            a["start"][i] = nc
+            a["predraft"][i, : len(draft)] = draft
+            a["dlen"][i] = len(draft)
+            a["out0"][i] = req.total_output_tokens
+            if req.sampling.seed is not None:
+                a["seed_base"][i] = req.sampling.seed & 0xFFFFFFFF
+                a["seeded"][i] = True
+        n = len(staged.seqs)
+        # Planned widths: what is emitted is decided on the device, so the
+        # padding counts pad rows only.
+        self.live_tokens_total += n * W * Q
+        self.padded_tokens_total += (staged.B - n) * W * Q
+        key = ("vwindow", staged.B, W, staged.all_greedy)
+        packed = self.programs.run(key, a)
+        return PendingDecode([(packed, list(range(n)), W * Q, 4)], n, W * Q)
+
+    def _vwindow_spec(self, B: int, W: int) -> Spec:
+        """The static inputs of a fused verify window of W iterations over
+        B rows."""
+        Q, i64, i32, f32 = self.spec_q, torch.int64, torch.int32, torch.float32
+        return {
+            "first": ((B,), i64), "start": ((B,), i64), "predraft": ((B, W * Q - 1), i64),
+            "dlen": ((B,), i64), "limit": ((B,), i64), **self._table_spec(B),
+            "active": ((B,), torch.bool), "temp": ((B,), f32), "top_k": ((B,), i32),
+            "top_p": ((B,), f32), "seed_base": ((B,), i64), "seeded": ((B,), torch.bool),
+            "out0": ((B,), i64), "seeds": ((B, W, Q), i64),
+        }
+
+    @torch.inference_mode()
+    def _verify_window(self, x: dict[str, torch.Tensor], window: int,
+                       all_greedy: bool) -> torch.Tensor:
+        """The fused verify window's body (JAX ``_build_verify_window``):
+        ``window`` iterations, each reading a row's next k pre-drafted
+        tokens at its own pointer, running the ``[B, 1 + k]`` forward,
+        sampling (seeded rows with ``spec_seed`` of their output index),
+        applying ``accept_counts``, advancing the row by what it emitted
+        and feeding its last sample back. A row whose draft diverged or ran
+        out continues with one-token iterations; a row at its emission
+        limit stops (query length 0). Returns the packed [B, 4 + 2 window
+        Q]: (emitted, drafted, accepted, iterations active), the emitted
+        tokens at their output offsets, their logprobs. Nothing reads the
+        device."""
+        dev = self.device
+        Q = self.spec_q
+        k = Q - 1
+        Wmax = window * Q
+        first, start, predraft, dlen, limit, active = (
+            x[name] for name in ("first", "start", "predraft", "dlen", "limit", "active"))
+        B = first.shape[0]
+        qcols = torch.arange(Q, device=dev)
+        dcols = torch.arange(k, device=dev)
+        last_col = predraft.shape[1] - 1
+        tok, pos = first, start
+        zeros = torch.zeros(B, dtype=torch.int64, device=dev)
+        emitted, dptr, drafted, accepted, iters = zeros, zeros, zeros, zeros, zeros
+        alive = torch.ones(B, dtype=torch.bool, device=dev)
+        # One column past the window takes the dropped (rejected) samples.
+        out_t = torch.zeros((B, Wmax + 1), dtype=torch.float32, device=dev)
+        out_l = torch.zeros((B, Wmax + 1), dtype=torch.float32, device=dev)
+        for t in range(window):
+            rem = limit - emitted
+            row_on = active & (rem > 0)
+            avail = torch.where(alive & row_on, (dlen - dptr).clamp(0, k), 0)
+            qlen = torch.where(row_on, torch.minimum(1 + avail, rem.clamp(min=1)), 0)
+            dl = (qlen - 1).clamp(min=0)  # draft columns scored
+            draft = torch.gather(predraft, 1, (dptr[:, None] + dcols[None, :]).clamp(0, last_col))
+            tokens = torch.cat([tok[:, None], draft], dim=1)
+            hidden = self._verify_hidden(tokens, pos, qlen, x)
+            out_idx = (x["out0"] + emitted)[:, None] + qcols[None, :]
+            seeds = torch.where(x["seeded"][:, None], spec_seed(x["seed_base"][:, None], out_idx),
+                                x["seeds"][:, t])
+            packed = self._sample_packed(hidden.reshape(B * Q, -1), x, B, all_greedy, seeds)
+            tgt, logp = packed[:, :Q].long(), packed[:, Q:]
+            n_emit, n_acc = accept_counts(draft, tgt, dl)
+            n_emit = torch.where(row_on, torch.minimum(n_emit, qlen), 0)
+            col = torch.where(qcols[None, :] < n_emit[:, None], emitted[:, None] + qcols[None, :],
+                              Wmax)
+            out_t = out_t.scatter(1, col, tgt.float())
+            out_l = out_l.scatter(1, col, logp)
+            last = torch.gather(tgt, 1, (n_emit - 1).clamp(min=0)[:, None])[:, 0]
+            tok = torch.where(row_on, last, tok)
+            pos = pos + n_emit
+            # The iteration consumed n_emit slots of the pre-draft: n_acc
+            # scored columns and the correction or bonus sample, whose slot
+            # had no input column. The rest of the pre-draft holds only if
+            # nothing mismatched and the bonus equals its slot.
+            bonus_idx = dptr + n_acc
+            bonus_pred = torch.gather(predraft, 1, bonus_idx.clamp(0, last_col)[:, None])[:, 0]
+            bonus_ok = (bonus_idx >= dlen) | (bonus_pred == last)
+            alive = alive & torch.where(row_on, (n_acc >= dl) & bonus_ok, True)
+            dptr = dptr + n_emit
+            emitted = emitted + n_emit
+            drafted = drafted + dl
+            accepted = accepted + n_acc
+            iters = iters + row_on.long()
+        meta = torch.stack([emitted, drafted, accepted, iters], dim=1).float()
+        return torch.cat([meta, out_t[:, :Wmax], out_l[:, :Wmax]], dim=1)
+
+    # ------------------------------------------------------------------ #
     # the programs of the decode steps
 
     def _program(self, key: tuple) -> tuple[Spec, object]:
@@ -786,6 +1196,13 @@ class ModelRunner:
             _, B, K, greedy = key
             return self._window_spec(B, K), functools.partial(
                 self._multi, k_steps=K, all_greedy=greedy)
+        if key[0] == "verify":
+            _, B, greedy = key
+            return self._verify_spec(B), functools.partial(self._verify, all_greedy=greedy)
+        if key[0] == "vwindow":
+            _, B, W, greedy = key
+            return self._vwindow_spec(B, W), functools.partial(
+                self._verify_window, window=W, all_greedy=greedy)
         _, T, greedy = key
         return self._flat_spec(T), functools.partial(self._flat_step, all_greedy=greedy)
 
@@ -793,15 +1210,27 @@ class ModelRunner:
         """The programs ``warmup`` prepares, as the JAX runner's default
         warm set: both ``all_greedy`` values of every decode window the
         scheduler dispatches (K = 1 where window-1 decode steps are not
-        flat, and ``decode_window``) at the largest batch bucket, and of
-        the flat step at the largest decode-only stream length."""
+        flat, and ``decode_window``, or under speculative decoding the
+        verify windows' sizes) at the largest batch bucket, and of the flat
+        step at the largest decode-only stream length. A speculative
+        engine adds its verify programs (not on the flat step, which
+        verifies inside its own program: the one-row and the largest
+        prefill row bucket) and every fused verify window at the largest
+        batch bucket."""
         sched = self.config.scheduler
-        windows = sorted({k for k in (1, sched.decode_window) if k > 1 or not self.flat})
-        keys = [("window", self.batch_buckets[-1], k, g)
-                for k in windows for g in (True, False)]
+        windows = sorted({k for k in self.decode_windows if k > 1 or not self.flat})
+        B = self.batch_buckets[-1]
+        keys = [("window", B, k, g) for k in windows for g in (True, False)]
         if self.flat:
-            T = -(-sched.max_num_seqs // _T_GRANULE) * _T_GRANULE
+            T = sched.max_num_seqs
+            if self.spec_q:
+                T = min(T * self.spec_q, sched.max_num_batched_tokens)
+            T = -(-T // _T_GRANULE) * _T_GRANULE
             keys += [("flat", T, g) for g in (True, False)]
+        if self.spec_q and not self.flat:
+            rows = sorted({1, self._seed_buckets["prefill"][-1]})
+            keys += [("verify", b, g) for b in rows for g in (True, False)]
+        keys += [("vwindow", B, w, g) for w in self.spec_windows for g in (True, False)]
         return keys
 
     def warmup(self) -> int:
@@ -823,14 +1252,16 @@ class ModelRunner:
         unified: PendingUnified | None = None,
     ) -> tuple[StepResult | None, StepResult | None]:
         """Block on one engine step's token readback: every program the
-        step dispatched (prefill groups, the decode window, or the one
+        step dispatched (prefill groups, the decode programs, or the one
         unified program) comes back in ONE device->host copy, and is split
-        into the prefill and decode results."""
+        into the prefill and decode results. A fused verify window's meta
+        columns go to ``StepResult.meta``; a split verify step's two
+        programs fill their rows of one result."""
         packs: list[torch.Tensor] = []
         if prefill is not None:
             packs.extend(p for p, _ in prefill.entries)
         if decode is not None:
-            packs.append(decode.packed)
+            packs.extend(p for p, _, _, _ in decode.entries)
         if unified is not None:
             packs.append(unified.packed)
         if not packs:
@@ -852,16 +1283,28 @@ class ModelRunner:
                 logprobs[idxs, 0] = arr[:, 1]
             pres = StepResult(tokens, logprobs)
         if decode is not None:
-            arr, n, K = hosts[-1], decode.n, decode.k
-            dres = StepResult(arr[:n, :K].astype(np.int32), arr[:n, K : 2 * K])
+            base = len(prefill.entries) if prefill is not None else 0
+            n, K = decode.n, decode.k
+            tokens = np.zeros((n, K), np.int32)
+            logprobs = np.zeros((n, K), np.float32)
+            meta = None
+            for arr, (_, idxs, k, mc) in zip(hosts[base:], decode.entries):
+                rows, m = np.asarray(idxs, np.int64), len(idxs)
+                if mc:
+                    if meta is None:
+                        meta = np.zeros((n, mc), np.int64)
+                    meta[rows] = arr[:m, :mc].astype(np.int64)
+                tokens[rows, :k] = arr[:m, mc : mc + k].astype(np.int32)
+                logprobs[rows, :k] = arr[:m, mc + k : mc + 2 * k]
+            dres = StepResult(tokens, logprobs, meta)
         if unified is not None:
-            arr = hosts[-1]
+            arr, S = hosts[-1], unified.S
             if unified.prefill_rows:
                 rows = unified.prefill_rows
-                pres = StepResult(arr[rows, :1].astype(np.int32), arr[rows, 1:2])
+                pres = StepResult(arr[rows, :1].astype(np.int32), arr[rows, S : S + 1])
             if unified.decode_rows:
                 rows = unified.decode_rows
-                dres = StepResult(arr[rows, :1].astype(np.int32), arr[rows, 1:2])
+                dres = StepResult(arr[rows, :S].astype(np.int32), arr[rows, S : 2 * S])
         return pres, dres
 
 

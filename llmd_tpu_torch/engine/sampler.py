@@ -122,7 +122,46 @@ def sample_tokens(
     return tokens.int(), chosen
 
 
-def spec_seed(seed: int, out_index: int) -> int:
-    """The per-(request seed, output index) sampling seed (the JAX
-    derivation, ``sampler.spec_seed``)."""
-    return (seed * 1000003 + out_index) & 0xFFFFFFFF
+def spec_seed(seed, out_index):
+    """The per-(request seed, output index) sampling seed (JAX
+    ``sampler.spec_seed``): ``seed * 1000003 + out_index`` mod 2**32.
+    Python ints on the host (prefill, decode windows, one-shot verify);
+    int64 tensors holding uint32 values on the device, where the fused
+    verify window derives a row's seeds from its own acceptance. The
+    product of two values below 2**32 and 2**20 fits in int64, so the
+    masked tensor form is bit-equal to the Python form."""
+    if isinstance(seed, torch.Tensor):
+        return (seed.long() * 1000003 + out_index) & _MASK32
+    return (seed * 1000003 + out_index) & _MASK32
+
+
+def accept_counts(draft: torch.Tensor, target: torch.Tensor, draft_len: torch.Tensor):
+    """The acceptance rule (JAX ``sampler.accept_counts``) on tensors, with
+    no host read, so that the fused verify window applies it on the
+    device. ``draft [..., k]`` against the target's samples ``[..., >= k]``,
+    ``draft_len [...]`` masking each row's real width. Returns ``(n_emit,
+    n_acc)``: ``n_acc`` the leading run of ``draft[j] == target[j]`` with
+    ``j < draft_len``, and ``n_emit = n_acc + 1`` (the correction or bonus
+    sample always lands)."""
+    k = draft.shape[-1]
+    idx = torch.arange(k, device=draft.device)
+    matches = (draft == target[..., :k]) & (idx < draft_len[..., None])
+    n_acc = torch.cumprod(matches.long(), dim=-1).sum(dim=-1)
+    return n_acc + 1, n_acc
+
+
+def accept_draft_tokens(draft: list[int], sampled: list[int]) -> tuple[list[int], int]:
+    """One row's acceptance on the host (JAX ``accept_draft_tokens``):
+    ``sampled[j]`` is the target's sample at drafted position j, whose
+    context is ``draft[:j]``; that context holds while every earlier
+    draft token matched, so the emitted window is ``sampled[0 .. m]`` with
+    m the first mismatch (or the bonus sample when the whole draft
+    holds). Returns (emitted window, draft tokens accepted): the rule of
+    ``accept_counts`` on one row, in plain Python."""
+    if not sampled:
+        return [], 0
+    k = min(len(draft), len(sampled))
+    n_acc = 0
+    while n_acc < k and draft[n_acc] == sampled[n_acc]:
+        n_acc += 1
+    return [int(t) for t in sampled[: min(n_acc + 1, len(sampled))]], n_acc

@@ -31,6 +31,19 @@ sequence also holds a ring of ``swa_ring_pages`` pages in the ring pool
 (the span the ring is sized for), and a bare prefix-cache hit is never
 taken: the engine takes hybrid hits at arrival instead
 (``LLMEngine._try_hybrid_ring_hit``).
+
+Under speculative decoding (``SchedulerConfig.speculative_ngram``; JAX
+``scheduler.py:266-363, 792-946``) a decode row is planned at its
+max-acceptance width: ``1 + k`` tokens for a one-shot verify row, ``window
+x (1 + k)`` in a fused verify window, whose size is the largest of
+``spec_window_set`` that fits the budget. Budget, pages and the pending
+count follow that width; the engine proposes the draft at dispatch from
+committed tokens. ``update_after_step`` resolves the accepted prefix
+(``accept_draft_tokens``, or the device's meta for a window), counts it,
+and frees the pages past the accepted span before any page is committed
+(``_truncate_spec_pages``), so rejected drafts never reach the prefix
+index. Rows whose drafts were fully rejected back off
+(``_spec_eligible``). The port has no batch tier, so every row may draft.
 """
 
 from __future__ import annotations
@@ -46,12 +59,25 @@ from llmd_tpu_torch.engine.kv_cache import (
     hash_page,
 )
 from llmd_tpu_torch.engine.request import FinishReason, Request, RequestStatus
+from llmd_tpu_torch.engine.sampler import accept_draft_tokens
 
 
 @dataclasses.dataclass
 class ScheduledSeq:
     request: Request
     num_tokens: int  # tokens to compute for this seq in this step
+    # Speculative decoding: None for a row of an engine without it; the
+    # draft (maybe empty) of a decode row, proposed at dispatch. The row
+    # is planned at its max-acceptance width (``num_tokens``).
+    draft_tokens: list[int] | None = None
+    # Fused verify windows: the most draft tokens the row may propose
+    # (None: ``num_tokens - 1``, the one-shot width; 0: a backed-off row
+    # that rides the window one token an iteration).
+    spec_draft_cap: int | None = None
+    # Fused verify windows: the device's (emitted, drafted, accepted,
+    # iterations active) of the row, set from the readback before
+    # ``update_after_step``; the host does not apply the rule again.
+    device_accept: tuple | None = None
 
     @property
     def start_pos(self) -> int:
@@ -62,6 +88,9 @@ class ScheduledSeq:
 class ScheduledBatch:
     prefills: list[ScheduledSeq]
     decodes: list[ScheduledSeq]
+    # The fused verify window of the decode rows (1: one-shot verify or
+    # plain decode).
+    spec_window: int = 1
 
     @property
     def seqs(self) -> list[ScheduledSeq]:
@@ -113,6 +142,19 @@ class EngineScheduler:
         # are still being written on the device, so no preemption picks
         # them. Empty in the synchronous engine between steps.
         self.protected: set[str] = set()
+        # Speculative decoding: the draft width k (0: off), the window
+        # sizes, the widest planned row (the async truncation's bound), the
+        # counters and the accepted-length histogram (index j: row-steps
+        # that accepted j draft tokens), and the backoff clock.
+        self.spec_k = scheduler_config.spec_ngram_k if scheduler_config.speculative_ngram else 0
+        self.spec_windows = scheduler_config.spec_window_set
+        self.spec_plan_max = (1 + self.spec_k) * scheduler_config.spec_window if self.spec_k else 0
+        self.spec_proposed_tokens = 0
+        self.spec_accepted_tokens = 0
+        self.spec_window_iters = 0
+        self.spec_window_early_exit = 0
+        self.spec_accept_len_hist = [0] * (self.spec_k + 1)
+        self.spec_step = 0
 
     # ------------------------------------------------------------------ #
     # queue management
@@ -185,9 +227,23 @@ class EngineScheduler:
         # batch and capped so no sequence runs past max_model_len.
         can_admit = bool(self.waiting) and len(self.running) < self.config.max_num_seqs
         k = 1
-        if self.config.decode_window > 1 and decoding and not mid_prefill and not can_admit:
+        spec_w = 1
+        if self.spec_k:
+            # The fused verify window under the same gate: the largest
+            # candidate whose max-acceptance width, window x (1 + k) a
+            # row, fits the whole decode batch in the budget; none fitting
+            # means one-shot verify steps.
+            if self.spec_windows and decoding and not mid_prefill and not can_admit:
+                per_batch = (1 + self.spec_k) * len(decoding)
+                for w in reversed(self.spec_windows):
+                    if w * per_batch <= budget:
+                        spec_w = w
+                        break
+        elif self.config.decode_window > 1 and decoding and not mid_prefill and not can_admit:
             room = min(self.max_model_len - r.num_dispatched_tokens for r in decoding)
             k = max(1, min(self.config.decode_window, room))
+        if self.spec_k and decoding:
+            self.spec_step += 1
 
         # 1. Decodes claim pages FIRST: a running decode must never be
         #    starved by prefill admission taking the last free pages.
@@ -196,16 +252,20 @@ class EngineScheduler:
                 continue  # reset by a preemption earlier in this loop
             if budget <= 0:
                 break
-            if not self._ensure_pages(req, k):
+            k_row, draft_cap = self._plan_width(req, k, spec_w)
+            if not self._ensure_pages(req, k_row):
                 # Never evict a sequence already placed in this step's
                 # batch: the runner still writes its pages.
                 if not self._preempt_for(req, exclude=scheduled):
                     continue
-                if not self._ensure_pages(req, k):
+                if not self._ensure_pages(req, k_row):
                     continue
-            decodes.append(ScheduledSeq(req, k))
+            decodes.append(ScheduledSeq(
+                req, k_row, draft_tokens=[] if self.spec_k else None, spec_draft_cap=draft_cap))
             scheduled.add(req.request_id)
-            budget -= 1
+            # Drafted positions are compute of the step: speculative rows
+            # charge their planned width.
+            budget -= k_row if self.spec_k else 1
 
         # 2. Continue chunked prefills of already-running sequences.
         for req in mid_prefill:
@@ -251,7 +311,28 @@ class EngineScheduler:
             scheduled.add(req.request_id)
             budget -= chunk
 
-        return ScheduledBatch(prefills=prefills, decodes=decodes)
+        return ScheduledBatch(prefills=prefills, decodes=decodes, spec_window=spec_w)
+
+    def _plan_width(self, req: Request, k: int, spec_w: int) -> tuple[int, int | None]:
+        """A decode row's planned width and draft cap. Without speculative
+        decoding: the decode window K. A one-shot verify row plans 1 + k
+        (1 when backed off); in a fused verify window an eligible row plans
+        window x (1 + k) and may pre-draft one less (a fully accepted
+        iteration consumes k scored columns and the bonus slot), and a
+        backed-off row rides the window one token an iteration, without a
+        draft. Every width stops at ``max_model_len``."""
+        if not self.spec_k:
+            return k, None
+        cap = self.max_model_len - req.num_dispatched_tokens
+        if spec_w > 1:
+            if self._spec_eligible(req):
+                k_row = max(1, min(spec_w * (1 + self.spec_k), cap))
+                return k_row, k_row - 1
+            return max(1, min(spec_w, cap)), 0
+        k_row = 1
+        if self._spec_eligible(req):
+            k_row += max(0, min(self.spec_k, cap - 1))
+        return k_row, None
 
     def _chunk(self, req: Request, budget: int) -> int:
         """The prompt tokens ``req`` computes this step: what is left, at
@@ -420,9 +501,27 @@ class EngineScheduler:
         for seq in batch.decodes:
             req = seq.request
             self._commit_pending(seq)
+            window = sampled[req.request_id]
+            if seq.device_accept is not None:
+                self._count_window(req, seq.device_accept, batch.spec_window)
+            elif seq.draft_tokens:
+                # One-shot verify: the accepted prefix and the correction
+                # or bonus sample, then the stop checks below.
+                window, n_acc = accept_draft_tokens(seq.draft_tokens, window)
+                self.spec_proposed_tokens += len(seq.draft_tokens)
+                self.spec_accepted_tokens += n_acc
+                self.spec_accept_len_hist[n_acc] += 1
+                req.spec_drafted_tokens += len(seq.draft_tokens)
+                req.spec_accepted_tokens += n_acc
+                # A fully rejected draft backs the row off (``_spec_eligible``).
+                req.spec_consec_rejected = req.spec_consec_rejected + 1 if n_acc == 0 else 0
+            elif seq.draft_tokens is not None:
+                # A speculative row that drafted nothing: plain samples, one
+                # an iteration of a window that fell back to plain decode.
+                self.spec_accept_len_hist[0] += len(window) if batch.spec_window > 1 else 1
             acc: list[int] = []
             reason = None
-            for token in sampled[req.request_id]:
+            for token in window:
                 req.num_computed_tokens += 1
                 req.output_token_ids.append(token)
                 acc.append(token)
@@ -434,7 +533,67 @@ class EngineScheduler:
                 self._finish(req, reason)
             else:
                 self._commit_full_pages(req)
+                if seq.draft_tokens or (batch.spec_window > 1 and seq.draft_tokens is not None):
+                    # Drafting rows wrote provisional KV, and windowed rows
+                    # planned pages for a width they may not have emitted.
+                    # A draft-less one-shot row holds at most one page of
+                    # headroom, which its next step reuses.
+                    self._truncate_spec_pages(req)
         return accepted
+
+    def _count_window(self, req: Request, meta: tuple, window: int) -> None:
+        """Fold a fused verify window's device-resolved meta (emitted,
+        drafted, accepted, iterations active) into the counters the
+        one-shot path feeds. The per-iteration accepted lengths stay on the
+        device: the histogram gets ``iters`` entries summing to the
+        accepted count (full-k entries, one remainder, zeros), so its mean
+        is exact."""
+        _emitted, drafted, n_acc, iters = meta
+        self.spec_proposed_tokens += drafted
+        self.spec_accepted_tokens += n_acc
+        req.spec_drafted_tokens += drafted
+        req.spec_accepted_tokens += n_acc
+        self.spec_window_iters += iters
+        if iters < window:
+            self.spec_window_early_exit += 1
+        if iters > 0:
+            full, part = divmod(n_acc, self.spec_k)
+            self.spec_accept_len_hist[self.spec_k] += full
+            used = full
+            if part:
+                self.spec_accept_len_hist[part] += 1
+                used += 1
+            self.spec_accept_len_hist[0] += max(0, iters - used)
+        if drafted and n_acc == 0:
+            req.spec_consec_rejected += 1
+        elif n_acc > 0:
+            req.spec_consec_rejected = 0
+
+    def _spec_eligible(self, req: Request) -> bool:
+        """Draft backoff: after c fully rejected drafts in a row a request
+        drafts only on steps where the shared clock is a multiple of
+        2**min(c + 1, 8), so retries of many rows fall on the same steps.
+        One accepted token resets it."""
+        c = req.spec_consec_rejected
+        return c == 0 or self.spec_step % (1 << min(c + 1, 8)) == 0
+
+    def _truncate_spec_pages(self, req: Request) -> None:
+        """Free the pages a speculative row holds past its accepted span.
+        Rejected drafts' KV sits in slots >= ``num_computed_tokens``, which
+        ``_commit_full_pages`` never commits; freeing the trailing pages
+        before any commit keeps rejected content out of the prefix index.
+        Under async stepping the slots a staged next step may be planned
+        against stay: up to ``num_dispatched_tokens + spec_plan_max``. The
+        synchronous engine keeps the computed span; the next schedule's
+        ``_ensure_pages`` extends it again."""
+        page = self.allocator.page_size
+        slots = req.num_computed_tokens
+        if self.config.async_scheduling:
+            slots = req.num_dispatched_tokens + self.spec_plan_max
+        keep = -(-slots // page)
+        if keep < len(req.block_ids):
+            self.allocator.free(req.block_ids[keep:])
+            del req.block_ids[keep:]
 
     def _finish(self, req: Request, reason: FinishReason) -> None:
         # Commit computed full pages before release: the KV is valid, so

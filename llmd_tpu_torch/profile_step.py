@@ -4,7 +4,8 @@
         [--prompt-len 1000] [--decode-steps 16] [--decode-window 8]
         [--kv-cache-dtype int8] [--kv-swa-ring] [--quantization int8]
         [--windows prefill]
-    python -m llmd_tpu_torch.profile_step --engine [--async-scheduling | --ab] [...]
+    python -m llmd_tpu_torch.profile_step --engine [--async-scheduling | --ab]
+        [--speculative-ngram] [--prompt-kind repeat] [...]
 
 Serves ``--batch`` greedy requests of ``--prompt-len`` random tokens
 through ``LLMEngine`` (random weights from ``--seed``) and traces three
@@ -70,6 +71,24 @@ step and its idle share (1 - busy / the untraced host ms a step). A window
 of n ``step()`` calls spans n readbacks; under async stepping the step in
 flight when it starts is read back inside it and the last one it
 dispatches is waited for at its end.
+
+``--engine --ab --speculative-ngram`` sets speculative decoding against
+its absence instead (off, on, on, off; ``--async-scheduling`` picks the
+pipeline of all four) and ``--spec-verify-window`` the fused verify
+window (default 1: one-shot verify steps; the engine without speculative
+decoding runs window-1 steps). The decode window is timed after untimed
+windows of as many steps, until one prepares no new program (a
+speculative step's shape follows its drafts, and a new one is captured
+at its first use; each timed window reports the programs prepared inside
+it, and those prepared in the untimed windows before it with the
+seconds those took: what a server pays on its first steps of each
+shape), on requests long enough for 1 + k tokens a step.
+Each run's windows then carry the speculative counters of their steps
+(drafts proposed and accepted, their mean accepted length a verify
+row-step) and, traced, the device ms a step by kernel group (K1' is
+``flat_paged_attention``, K6' ``grouped_gemm``). ``--prompt-kind repeat``
+builds each prompt from one random block of 64 tokens repeated, so drafts
+fire (the default, ``random``, draws every token).
 """
 
 from __future__ import annotations
@@ -354,9 +373,10 @@ def engine_window(eng: LLMEngine, n: int, traced: bool) -> dict:
     a step, live tokens a step, generated tokens a second and rollbacks;
     ``traced``: under the profiler, with the device's busy ms a step and
     kernels a step."""
-    st, runner = eng.stats, eng.runner
+    st, runner, sched = eng.stats, eng.runner, eng.scheduler
     live0, gen0, gap0 = runner.live_tokens_total, st.generation_tokens, st.step_host_gap_ms_total
     steps0, rolled0 = st.engine_steps_total, st.async_rollbacks_total
+    spec0 = (sched.spec_proposed_tokens, sched.spec_accepted_tokens, sum(sched.spec_accept_len_hist))
     torch.cuda.synchronize()
     with (profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) if traced
           else contextlib.nullcontext()) as prof:
@@ -371,28 +391,47 @@ def engine_window(eng: LLMEngine, n: int, traced: bool) -> dict:
            "live_tokens_per_step": (runner.live_tokens_total - live0) / n,
            "generated_tok_per_s": (st.generation_tokens - gen0) / wall,
            "async_rollbacks": st.async_rollbacks_total - rolled0}
+    if sched.spec_k:
+        proposed, accepted, rows = (
+            now - then for now, then in zip(
+                (sched.spec_proposed_tokens, sched.spec_accepted_tokens,
+                 sum(sched.spec_accept_len_hist)), spec0))
+        out.update(spec_proposed=proposed, spec_accepted=accepted,
+                   spec_mean_accepted_len=accepted / max(1, rows))
     if traced:
         busy, launches = 0.0, 0
+        by_group: dict[str, float] = collections.defaultdict(float)
         for e in prof.events():
             if e.device_type == DeviceType.CUDA:
-                busy += e.time_range.elapsed_us() / 1e3
+                ms = e.time_range.elapsed_us() / 1e3
+                busy += ms
+                by_group[_group(e.name)] += ms / n
                 launches += 1
         if not launches:
             raise RuntimeError("the profiler recorded no CUDA kernel: no device time to report")
         out.update(device_busy_ms_per_step=busy / n, kernels_per_step=launches / n,
-                   idle_share=1.0 - busy / n / out["host_ms_per_step"])
+                   idle_share=1.0 - busy / n / out["host_ms_per_step"],
+                   device_ms_per_step=dict(sorted(by_group.items())))
     return out
 
 
 def engine_runs(args, modes: list[bool], loaded_engine, n_prefill: int, card: str,
                 warmups: dict) -> None:
     """``--engine``: the step loop of each mode in ``modes`` (False: sync,
-    True: async), untraced in that order, then traced once a mode; one
+    True: async; with ``--speculative-ngram``, False: speculative decoding
+    off, True: on), untraced in that order, then traced once a mode; one
     JSON line a run."""
 
-    def run(async_scheduling: bool, traced: bool) -> dict:
-        name = "async" if async_scheduling else "sync"
-        eng = loaded_engine(name, async_scheduling=async_scheduling)
+    def run(mode: bool, traced: bool) -> dict:
+        if args.speculative_ngram:
+            name = "spec" if mode else "plain"
+            sched = dict(async_scheduling=args.async_scheduling, speculative_ngram=mode)
+            if mode:
+                sched.update(spec_verify_window=args.spec_verify_window)
+        else:
+            name = "async" if mode else "sync"
+            sched = dict(async_scheduling=mode)
+        eng = loaded_engine(name, **sched)
         eng.step()  # allocates the working memory the captures handed back
         prefill = engine_window(eng, n_prefill, traced)
         if not traced:
@@ -401,7 +440,27 @@ def engine_runs(args, modes: list[bool], loaded_engine, n_prefill: int, card: st
         while sched.waiting or not all(r.in_decode for r in sched.running):
             eng.step()
         eng.step()
+        programs, untimed = len(eng.runner.programs.programs), 0.0
+        if args.speculative_ngram:
+            # A speculative step's shape (a flat step's stream length, a
+            # verify program's rows) follows its drafts, and a decode step
+            # of a new shape is captured at its first use: untimed windows
+            # first, until one prepares no new program (at most four), so
+            # that the timed one replays. A server pays those captures on
+            # its first steps of each shape.
+            for _ in range(4):
+                before = len(eng.runner.programs.programs)
+                t0 = time.perf_counter()
+                for _ in range(args.decode_steps):
+                    eng.step()
+                untimed += time.perf_counter() - t0
+                if len(eng.runner.programs.programs) == before:
+                    break
+        captured = len(eng.runner.programs.programs) - programs
+        programs = len(eng.runner.programs.programs)
         decode = engine_window(eng, args.decode_steps, traced)
+        decode["programs_prepared_in_window"] = len(eng.runner.programs.programs) - programs
+        decode.update(programs_prepared_before_window=captured, untimed_windows_s=untimed)
         rec = {"mode": name, "traced": traced, "prefill": prefill, "decode": decode,
                **warmups[name]}
         del eng
@@ -418,7 +477,7 @@ def engine_runs(args, modes: list[bool], loaded_engine, n_prefill: int, card: st
                 rec[window]["device_busy_ms_per_step_traced"] = busy
                 rec[window]["idle_share"] = 1.0 - busy / rec[window]["host_ms_per_step"]
         print(json.dumps({"window": "engine", "model": args.model, "batch": args.batch,
-                          "prompt_len": args.prompt_len,
+                          "prompt_len": args.prompt_len, "prompt_kind": args.prompt_kind,
                           "kv_cache_dtype": args.kv_cache_dtype or "model",
                           "kv_swa_ring": args.kv_swa_ring, "quantization": args.quantization,
                           "card": card, **rec}), flush=True)
@@ -447,6 +506,12 @@ def main(argv=None) -> None:
                    help="with --engine: the engine's two-slot pipeline")
     p.add_argument("--ab", action="store_true",
                    help="with --engine: sync and async in turns (sync, async, async, sync)")
+    p.add_argument("--speculative-ngram", action="store_true",
+                   help="with --engine --ab: speculative decoding off and on in turns")
+    p.add_argument("--spec-verify-window", type=int, default=1,
+                   help="with --speculative-ngram: the fused verify window (1: one-shot)")
+    p.add_argument("--prompt-kind", default="random", choices=["random", "repeat"],
+                   help="random tokens, or one random 64-token block repeated")
     args = p.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("profile_step needs a CUDA device")
@@ -460,6 +525,10 @@ def main(argv=None) -> None:
     # Timed and profiled steps after the untimed first, and one to spare.
     n_prefill = max(1, min(PREFILL_STEPS, (prefill_steps - 3) // 2))
     max_tokens = prefill_steps + 2 * args.decode_steps + 2 * args.decode_window + 8
+    if args.speculative_ngram:
+        # A step emits up to 1 + k = 5 tokens a row (k at its default, 4);
+        # the rows must still decode through the untimed and timed windows.
+        max_tokens = 5 * (prefill_steps + 5 * args.decode_steps) + 8
     per_seq = -(-(args.prompt_len + max_tokens) // page)
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -503,7 +572,12 @@ def main(argv=None) -> None:
         eng.generate([[5] * 64, [7] * 16], warm)  # warm-up: cuBLAS, kernels
         rng = np.random.default_rng(args.seed)
         for _ in range(args.batch):
-            eng.add_request(rng.integers(3, cfg.vocab_size, size=args.prompt_len).tolist(), sp)
+            if args.prompt_kind == "repeat":
+                block = rng.integers(3, cfg.vocab_size, size=64)
+                prompt = np.resize(block, args.prompt_len)
+            else:
+                prompt = rng.integers(3, cfg.vocab_size, size=args.prompt_len)
+            eng.add_request(prompt.tolist(), sp)
         return eng
 
     if args.engine:

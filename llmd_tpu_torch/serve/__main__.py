@@ -6,7 +6,9 @@ its default (``--model``, ``--served-model-name``, ``--tokenizer``,
 ``--block-size``, ``--num-gpu-blocks-override``,
 ``--no-enable-prefix-caching``, ``--kv-swa-ring``, ``--max-num-seqs``,
 ``--max-num-batched-tokens``, ``--decode-window``, ``--async-scheduling``,
-``--unified-step``, ``--ragged-qlens``, ``--seed``, ``--skip-warmup``,
+``--unified-step``, ``--ragged-qlens``, ``--speculative-ngram``,
+``--spec-ngram-k``, ``--spec-ngram-min-match``, ``--spec-verify-window``,
+``--seed``, ``--skip-warmup``,
 ``--quantization int8``
 (int8 weights, ``ops/quant.py``), and the tracing flags
 ``--otlp-traces-endpoint``, ``--trace-file`` and ``--trace-sample-ratio``,
@@ -109,6 +111,28 @@ def build_parser() -> argparse.ArgumentParser:
              "stream one step late",
     )
     p.add_argument(
+        "--speculative-ngram", action="store_true",
+        help="speculative decoding with n-gram drafts from each sequence's "
+             "own history, verified in one [B, 1+k] pass; greedy and seeded "
+             "streams are those of the engine without it",
+    )
+    p.add_argument(
+        "--spec-ngram-k", type=int, default=4,
+        help="most draft tokens a sequence a verify iteration (the k of "
+             "the [B, 1+k] verify rows)",
+    )
+    p.add_argument(
+        "--spec-ngram-min-match", type=int, default=2,
+        help="shortest trailing n-gram that must recur in the sequence's "
+             "history before a draft is proposed",
+    )
+    p.add_argument(
+        "--spec-verify-window", type=int, default=0,
+        help="most verify iterations fused into one dispatch, acceptance "
+             "on the device and one readback (0 inherits --decode-window; "
+             "1 keeps one-shot verify steps)",
+    )
+    p.add_argument(
         "--unified-step", action=argparse.BooleanOptionalAction, default=True,
         help="run each window-1 engine step as one program with one "
              "readback; --no-unified-step selects the split engine (prefill "
@@ -178,6 +202,10 @@ def make_engine_config(args):
             async_scheduling=args.async_scheduling,
             unified_step=args.unified_step,
             ragged_qlens=args.ragged_qlens,
+            speculative_ngram=args.speculative_ngram,
+            spec_ngram_k=args.spec_ngram_k,
+            spec_ngram_min_match=args.spec_ngram_min_match,
+            spec_verify_window=args.spec_verify_window,
         ),
         seed=args.seed,
         weights_path=weights_path,

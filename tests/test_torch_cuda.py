@@ -1861,3 +1861,80 @@ def test_loader_round_trip_on_the_card(dev, tmp_path, overrides):
     got = load_params(hf_cfg, str(tmp_path / "ckpt"), device="cuda")
     assert smoke.trees_equal(smoke._tree_map(got, lambda t: t.cpu()), llama.fuse_projections(params))
     assert all(t.is_cuda for t in got["layers"].values())
+
+
+# --------------------------------------------------------------------- #
+# speculative decoding: the device forms the fused verify window runs
+
+
+def test_accept_counts_and_spec_seed_on_the_card_equal_the_host_forms(dev):
+    """``accept_counts`` on CUDA tensors (what the fused verify window
+    applies inside its graph) equals the host rule (``accept_draft_tokens``)
+    row for row, ragged draft lengths included; the tensor ``spec_seed``
+    on the card is bit-equal to the Python-int form at the uint32 edges."""
+    from llmd_tpu_torch.engine.sampler import accept_counts, accept_draft_tokens, spec_seed
+
+    rng = np.random.default_rng(3)
+    B, k = 256, 5
+    draft = rng.integers(0, 3, size=(B, k))
+    target = np.where(rng.random((B, k + 1)) < 0.8, np.pad(draft, ((0, 0), (0, 1))),
+                      rng.integers(0, 3, size=(B, k + 1)))
+    dlen = rng.integers(0, k + 1, size=B)
+    n_emit, n_acc = accept_counts(*(torch.from_numpy(a).to(dev) for a in (draft, target, dlen)))
+    assert n_emit.device.type == "cuda"
+    for i in range(B):
+        window, acc = accept_draft_tokens(draft[i, : dlen[i]].tolist(), target[i].tolist())
+        assert (n_acc[i].item(), n_emit[i].item()) == (acc, len(window))
+    seeds = [0, 1, 77, 2**31, 2**32 - 1]
+    idx = [0, 63, 2**20, 2**32 - 1]
+    S = torch.tensor([[s] * len(idx) for s in seeds], device=dev)
+    I = torch.tensor([idx] * len(seeds), device=dev)
+    got = spec_seed(S, I).cpu().tolist()
+    assert got == [[spec_seed(s, i) for i in idx] for s in seeds]
+
+
+SPEC_CASES = [("tiny", "flat", 1), ("tiny", "flat", 4), ("tiny", "split", 1),
+              ("tiny-mla", "default", 1), ("tiny-mla", "default", 4), ("tiny-mla", "split", 1)]
+
+
+@pytest.mark.parametrize("model,layout,window", SPEC_CASES,
+                         ids=[f"{m}-{lay}-w{w}" for m, lay, w in SPEC_CASES])
+@pytest.mark.parametrize("async_scheduling", [False, True], ids=["sync", "async"])
+def test_spec_engine_on_the_card_matches_the_cpu_engine(dev, model, layout, window,
+                                                        async_scheduling):
+    """Speculative engines (f32; tiny at head_dim 64 for the GQA kernels)
+    on the card against the same engine on the CPU: the streams and the
+    speculative counters equal, drafts accepted, the pool empty. The
+    split layouts run steps that replay the verify program and the plain
+    one-token program back to back, so the first program's output must
+    survive the second's replay."""
+    from llmd_tpu_torch.models.registry import get_model_config
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    mcfg = get_model_config(model, **({} if model == "tiny-mla" else {"head_dim": 64}))
+    sched = {"flat": {}, "default": {}, "split": {"unified_step": False}}[layout]
+    cfg = EngineConfig(
+        model=mcfg,
+        cache=CacheConfig(page_size=8, num_blocks=96, dtype="float32"),
+        scheduler=SchedulerConfig(max_num_seqs=8, max_num_batched_tokens=64, decode_window=window,
+                                  speculative_ngram=True, async_scheduling=async_scheduling,
+                                  **sched),
+    )
+    params = llama.init_params(mcfg, torch.Generator().manual_seed(0), "cpu")
+    prompts = [[1, 5, 9, 13] * 3, [3, 3, 7, 1, 3, 3, 7, 1], [7, 8, 9] * 6, [2, 4] * 9]
+    sp = SamplingParams(temperature=0.0, max_tokens=40, ignore_eos=True)
+
+    def counters(eng):
+        s = eng.scheduler
+        return (s.spec_proposed_tokens, s.spec_accepted_tokens, list(s.spec_accept_len_hist),
+                s.spec_window_iters)
+
+    cpu = LLMEngine(cfg, params=params, device="cpu")
+    want = cpu.generate(prompts, sp)
+    gpu = LLMEngine(cfg, params=params, device="cuda")
+    got = gpu.generate(prompts, sp)
+    assert list(got.values()) == list(want.values())
+    assert counters(gpu) == counters(cpu) and gpu.scheduler.spec_accepted_tokens > 0
+    assert gpu.allocator.usage() == 0.0
+    if window > 1:
+        assert any(k[0] == "vwindow" for k in gpu.runner.programs.runs)

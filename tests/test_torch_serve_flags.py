@@ -99,8 +99,11 @@ def assert_same_fields(port, ref, where=""):
     ["--model", "llama-3-8b", *CHART, "--quantization=int8"],
     ["--model", "HF_DIR", "--quantization", "int8"],
     ["--model", "llama-3-8b", *CHART, "--async-scheduling"],
+    ["--model", "llama-3-8b", *CHART, "--speculative-ngram", "--spec-ngram-k", "3",
+     "--spec-ngram-min-match", "3", "--spec-verify-window", "2"],
+    ["--model", "gpt-oss-20b", "--kv-swa-ring", "--speculative-ngram"],
 ], ids=["registry-defaults", "chart", "chart-geometry", "ring", "layout", "hf-dir-chart",
-        "hf-dir-tokenizer", "int8", "hf-dir-int8", "async"])
+        "hf-dir-tokenizer", "int8", "hf-dir-int8", "async", "spec", "spec-ring"])
 def test_same_argv_same_engine_config(tmp_path, argv):
     """Both parsers take the argv, and both ``make_engine_config``s give the
     same model, cache, scheduler, seed, weights and tokenizer; the port's

@@ -256,6 +256,45 @@ through an HF checkpoint):
                at the end. A ``--speculative-ngram`` server answers as the
                plain server did and counts accepted drafts on /metrics.
 
+    ``batch`` the batch tier (``PriorityClass.BATCH``,
+               ``batch_phase``) on llama-3-8b's flat step: 8 interactive
+               requests (256 prompt tokens, 32 greedy tokens) alone, and
+               again arriving when 16 batch requests (512 and 24) hold
+               every one of 16 slots, so their admission preempts batch
+               rows; every batch row finishes; TTFT and TPOT of the
+               interactive requests both ways, the batch counters and the
+               ``batch_backfill_utilization`` gauge each step; first on
+               llama-3-8b's widths cut to 4 layers in f32, whose
+               interactive streams must equal the run without the backlog
+               token for token, then at full depth in bf16, where the
+               backlog's rows change the flat step's size and so K1''s
+               spans (streams may part at a tie): every token is held to
+               the model (``spec_rescore``), as in ``spec``.
+    ``offload`` the tiered KV offload (``offload_phase``): a 160-page
+               device pool, a host tier of 256 pages and a file tier in a
+               temporary directory; one 1,000-token prompt P computed cold
+               (a recompute), then again (a device hit), 3 other prompts
+               that push it out of the device pool, a prompt Q twice, 3
+               more that push Q out of the device and P out of host DRAM
+               into files; then Q (restored from host DRAM) and P (from
+               files): TTFT of each, every restore counted (62 pages a
+               prompt, P's from files), each restored stream equal to its
+               device-hit run's token for token (the same page bytes and
+               the same step), the cold run's reported; Q's restored pages
+               on the device equal the plain arithmetic of
+               ``scatter_pages`` on its host pages (a float pool's cast,
+               the int8 pool's ``quantize_pages``); on llama-3-8b's bf16
+               pool (sync, then async: streams and host tiers equal the
+               sync run's) and int8 pool, and deepseek-v2-lite's latent
+               pool; the host RSS before and after. The async server runs
+               with the tiered-prefix-cache guide's
+               ``--kv-offload-chunks=25000`` (its start's seconds and
+               resident set beside the plain server's),
+               ``--kv-offload-fs-dir`` and a 160-page pool: a prompt
+               restored after eviction answers as its device hit did, and
+               ``x-llmd-priority: batch`` requests count on
+               ``llmd:batch_tokens_total``.
+
 Each phase prints one JSON line. Any failure raises and exits non-zero
 without printing a result. On success the line before the last is the
 kernel table, one row per kernel and branch with its launches on its main
@@ -276,6 +315,7 @@ import statistics
 import struct
 import subprocess
 import sys
+import tempfile
 import threading
 import time
 import urllib.error
@@ -2107,9 +2147,9 @@ def write_hf_checkpoint(cfg, params: dict, out_dir: str) -> dict:
     return {"shards": len(shards), "file_bytes": total}
 
 
-def host_rss() -> int:
-    """This process's resident set (``VmRSS``), in bytes."""
-    with open("/proc/self/status") as f:
+def host_rss(pid: int | str = "self") -> int:
+    """A process's resident set (``VmRSS``; default this one's), in bytes."""
+    with open(f"/proc/{pid}/status") as f:
         for line in f:
             if line.startswith("VmRSS:"):
                 return int(line.split()[1]) * 1024
@@ -2862,6 +2902,7 @@ def serve_phase(info: dict, layout_args: list[str], model: str = MODEL,
                     raise TimeoutError("server did not become healthy in 600 s")
                 time.sleep(1.0)
             info["startup_s"] = time.perf_counter() - t0
+            info["server_rss_gb"] = host_rss(proc.pid) / 1e9
             with urllib.request.urlopen(base + "/v1/models", timeout=30) as r:
                 (entry,) = json.loads(r.read())["data"]
             info["served"] = [entry["id"], entry["max_model_len"]]
@@ -5030,6 +5071,383 @@ def async_serve_check(info: dict, base: str) -> None:
         raise AssertionError(f"llmd:async_rollbacks_total is {info['async_rollbacks_total']}")
 
 
+def fixed_prompts(cfg, n: int, length: int, seed: int) -> list[list[int]]:
+    gen = torch.Generator().manual_seed(seed)
+    return [torch.randint(3, cfg.vocab_size, (length,), generator=gen).tolist() for _ in range(n)]
+
+
+def path_launches(info: dict, counts: dict, wrappers: tuple) -> None:
+    """A phase's own main-path run, read just after the counts were set to
+    0: each of ``wrappers`` launched."""
+    info["launches"] = counts
+    missing = [w for w in wrappers if not counts.get(w)]
+    if missing:
+        raise AssertionError(f"{missing} never launched in this phase's run: {counts}")
+
+
+FLAT_WRAPPERS = ("flat_paged_attention_full", "write_kv_pages_flat_full")
+MLA_WRAPPERS = ("mla_decode_paged_attention_full", "write_kv_pages_decode_full",
+                "grouped_matmul_pair", "grouped_matmul")
+BATCH_INTERACTIVE, BATCH_JOBS, BATCH_SLOTS = 8, 16, 16
+
+
+def batch_run(params: dict, cfg, backlog: bool) -> dict:
+    """One engine on the flat step (warmed up: decode-only steps are graph
+    replays), 16 slots: the interactive requests alone, or arriving once
+    the batch backlog holds every slot (or 12 steps passed). Returns their
+    streams and logprobs, TTFT and TPOT, the batch rows' streams, the
+    batch counters and the gauge each step, and the kernels' launches."""
+    from llmd_tpu_torch import ops
+    from llmd_tpu_torch.config import CacheConfig, EngineConfig, SchedulerConfig
+    from llmd_tpu_torch.engine import LLMEngine, PriorityClass, SamplingParams
+
+    eng = LLMEngine(EngineConfig(
+        model=cfg, cache=CacheConfig(page_size=16, num_blocks=2048, dtype=cfg.dtype),
+        scheduler=SchedulerConfig(max_num_seqs=BATCH_SLOTS, max_num_batched_tokens=1024), seed=0,
+    ), params=params, device="cuda")
+    eng.warmup()
+    # Warm-up requests (cuBLAS, kernels, the allocations of a full
+    # 1,024-token step), so that both runs time warm steps.
+    eng.generate([[5] * 900, [7] * 300], SamplingParams(temperature=0.0, max_tokens=4, ignore_eos=True))
+    interactive = fixed_prompts(cfg, BATCH_INTERACTIVE, 256, 31)
+    jobs = fixed_prompts(cfg, BATCH_JOBS, 512, 32)
+    sp = SamplingParams(temperature=0.0, max_tokens=32, ignore_eos=True, logprobs=True)
+    sp_b = SamplingParams(temperature=0.0, max_tokens=24, ignore_eos=True)
+    ops.reset_launch_counts()
+    runs0 = sum(eng.runner.programs.runs.values())
+    programs0 = len(eng.runner.programs.programs)
+    tokens: dict[str, list[int]] = {}
+    times: dict[str, list[float]] = {}
+    reqs = {}
+    util, steps_before = [], 0
+    if backlog:
+        for p in jobs:
+            rid = eng.add_request(p, sp_b, priority=int(PriorityClass.BATCH))
+            tokens[rid] = []
+        while eng.scheduler.num_running < BATCH_SLOTS and steps_before < 12:
+            for out in eng.step():
+                tokens[out.request_id] += out.new_token_ids
+            steps_before += 1
+    arrival = time.perf_counter()
+    rids = []
+    for p in interactive:
+        rid = eng.add_request(p, sp)
+        rids.append(rid)
+        tokens[rid], times[rid] = [], []
+        reqs[rid] = next(r for r in eng.scheduler.waiting if r.request_id == rid)
+    running_batch_at_arrival = sum(1 for r in eng.scheduler.running if r.is_batch)
+    steps = 0
+    while eng.has_work():
+        outs = eng.step()
+        now = time.perf_counter()
+        steps += 1
+        util.append(eng.stats.batch_backfill_utilization)
+        for out in outs:
+            tokens[out.request_id] += out.new_token_ids
+            if out.request_id in times:
+                times[out.request_id] += [now] * len(out.new_token_ids)
+    torch.cuda.synchronize()
+    st = eng.stats
+    ttft = [(times[r][0] - arrival) * 1e3 for r in rids]
+    tpot = [(times[r][-1] - times[r][0]) * 1e3 / (len(times[r]) - 1) for r in rids]
+    rec = {
+        "tokens": [tokens[r] for r in rids], "logprobs": [reqs[r].output_logprobs for r in rids],
+        "batch_streams": [t for r, t in tokens.items() if r not in times],
+        "ttft_ms_median": statistics.median(ttft), "ttft_ms_max": max(ttft),
+        "tpot_ms_median": statistics.median(tpot), "tpot_ms_max": max(tpot),
+        "steps_before_arrival": steps_before, "running_batch_rows_at_arrival": running_batch_at_arrival,
+        "steps": steps, "batch_tokens": st.batch_tokens, "batch_preemptions": st.batch_preemptions,
+        "preemptions": st.preemptions, "batch_backlog_jobs_end": st.batch_backlog_jobs,
+        "batch_backfill_utilization_mean": sum(util) / len(util),
+        "batch_backfill_utilization_max": max(util),
+        "graph_replays": sum(eng.runner.programs.runs.values()) - runs0,
+        "graphs_captured_in_run": len(eng.runner.programs.programs) - programs0,
+        "launches": ops.launch_counts(),
+    }
+    if eng.has_work() or eng.allocator.usage() != 0.0:
+        raise AssertionError("the batch engine ended with work or pages held")
+    del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    return rec
+
+
+def batch_phase(params: dict, cfg) -> None:
+    """``batch_run`` without and with the backlog on ``cfg`` (llama-3-8b's
+    widths; f32 at a cut depth, where the interactive streams must be
+    equal, or bf16, where they are held to the model by ``spec_rescore``)."""
+    exact = cfg.dtype == "float32"
+    with phase("batch", {"model": MODEL, "layout": "flat step", "dtype": cfg.dtype,
+                         "layers": cfg.num_layers, "slots": BATCH_SLOTS,
+                         "interactive": BATCH_INTERACTIVE, "batch_jobs": BATCH_JOBS}) as info:
+        off = batch_run(params, cfg, backlog=False)
+        on = batch_run(params, cfg, backlog=True)
+        keep = ("ttft_ms_median", "ttft_ms_max", "tpot_ms_median", "tpot_ms_max", "steps",
+                "graph_replays", "graphs_captured_in_run")
+        info["without_backlog"] = {k: off[k] for k in keep}
+        info["with_backlog"] = {k: v for k, v in on.items()
+                                if k not in ("tokens", "logprobs", "batch_streams", "launches")}
+        info["batch_streams"] = [len(t) for t in on["batch_streams"]]
+        agree = spec_agreement(on["tokens"], on["logprobs"], off["tokens"], off["logprobs"])
+        info.update(agree)
+        path_launches(info, on["launches"], FLAT_WRAPPERS)
+        if len(on["batch_streams"]) != BATCH_JOBS or any(len(t) != 24 for t in on["batch_streams"]):
+            raise AssertionError(f"not every batch row finished: {info['batch_streams']}")
+        if on["running_batch_rows_at_arrival"] != BATCH_SLOTS or on["batch_preemptions"] <= 0:
+            raise AssertionError("the interactive requests did not take slots from running batch "
+                                 f"rows: {info['with_backlog']}")
+        if on["graph_replays"] <= 0 or off["graph_replays"] <= 0:
+            raise AssertionError("no decode step was a graph replay")
+        if exact:
+            if on["tokens"] != off["tokens"]:
+                raise AssertionError(f"the f32 interactive streams changed with the backlog: {agree}")
+        else:
+            prompts = fixed_prompts(cfg, BATCH_INTERACTIVE, 256, 31)
+            ref = spec_rescore(params, cfg, prompts, off["tokens"])
+            got = spec_rescore(params, cfg, prompts, on["tokens"])
+            info["rescore"], info["rescore_without_backlog"] = got, ref
+            if ref["top_gap_max"] <= SPEC_TOP_GAP_TOL < got["top_gap_max"] or (
+                    ref["top_gap_max"] > SPEC_TOP_GAP_TOL
+                    and got["positions_above_tol"] > SPEC_ABOVE_TOL_FACTOR * ref["positions_above_tol"]):
+                raise AssertionError(f"an interactive token with the backlog is not the model's "
+                                     f"top at its position: {got}, without: {ref}")
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def batch_exact_phase(layers: int = 4) -> None:
+    """``batch_phase`` on llama-3-8b's widths cut to ``layers`` layers in f32."""
+    import dataclasses
+
+    from llmd_tpu_torch.models import llama
+    from llmd_tpu_torch.models.registry import get_model_config
+
+    cfg = dataclasses.replace(get_model_config(MODEL), num_layers=layers, dtype="float32")
+    params = llama.init_params(cfg, torch.Generator(device="cuda").manual_seed(0), "cuda",
+                               fused=True)
+    batch_phase(params, cfg)
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+OFFLOAD_BLOCKS, OFFLOAD_HOST_PAGES, OFFLOAD_PROMPT = 160, 256, 1000
+# The tiered-prefix-cache guide's host budget (``--kv-offload-chunks=25000``,
+# deploy/guides/tiered-prefix-cache): the offload server runs with it, the
+# whole budget pinned when it starts (``HostPagePool``).
+GUIDE_OFFLOAD_CHUNKS = 25_000
+
+
+def offload_run(params: dict, cfg, kv_dtype: str, fs_dir: str,
+                async_scheduling: bool = False) -> dict:
+    """The offload sequence of ``offload_phase`` on one engine (warmed up;
+    max_num_seqs 16, budget 1024). Returns each request's stream and TTFT
+    by label, the host tiers' counters after each restore, Q's restored
+    pages against ``scatter_pages``' plain arithmetic, the kernels'
+    launches and the host RSS."""
+    from llmd_tpu_torch import ops
+    from llmd_tpu_torch.config import CacheConfig, EngineConfig, OffloadConfig, SchedulerConfig
+    from llmd_tpu_torch.engine import LLMEngine, SamplingParams
+    from llmd_tpu_torch.engine.kv_cache import page_hashes_for_tokens
+    from llmd_tpu_torch.ops.quant_kv import quantize_pages
+
+    rss0 = host_rss()
+    eng = LLMEngine(EngineConfig(
+        model=cfg, cache=CacheConfig(page_size=16, num_blocks=OFFLOAD_BLOCKS, dtype=kv_dtype),
+        scheduler=SchedulerConfig(max_num_seqs=16, max_num_batched_tokens=1024,
+                                  async_scheduling=async_scheduling),
+        seed=0, offload=OffloadConfig(cpu_chunks=OFFLOAD_HOST_PAGES, fs_dir=fs_dir),
+    ), params=params, device="cuda")
+    eng.warmup()
+    P, Q, *junk = fixed_prompts(cfg, 8, OFFLOAD_PROMPT, 41)
+    sp = SamplingParams(temperature=0.0, max_tokens=16, ignore_eos=True)
+    host = eng._host_cache
+    rec: dict = {"tokens": {}, "ttft_ms": {}, "host": {}}
+    ops.reset_launch_counts()
+
+    def one(label: str, prompt: list[int]) -> None:
+        t0 = time.perf_counter()
+        rid = eng.add_request(prompt, sp)
+        out, first = [], None
+        while eng.has_work():
+            for o in eng.step():
+                if o.request_id == rid:
+                    out += o.new_token_ids
+                    if first is None:
+                        first = time.perf_counter()
+        rec["tokens"][label], rec["ttft_ms"][label] = out, (first - t0) * 1e3
+        rec["host"][label] = host.stats()
+
+    one("P recompute", P)
+    one("P device hit", P)
+    for i, p in enumerate(junk[:3]):
+        one(f"junk {i}", p)
+    one("Q recompute", Q)
+    one("Q device hit", Q)
+    for i, p in enumerate(junk[3:]):
+        one(f"junk {i + 3}", p)
+    hp, hq = (page_hashes_for_tokens(x, 16) for x in (P, Q))
+    where = {"P on device": sum(map(eng.allocator.has_cached, hp)),
+             "Q on device": sum(map(eng.allocator.has_cached, hq)),
+             "P in host DRAM": sum(h in host._pages for h in hp),
+             "Q in host DRAM": sum(h in host._pages for h in hq),
+             "P in files": sum(h in host._fs_lru for h in hp)}
+    rec["before_restores"] = where
+    if where != {"P on device": 0, "Q on device": 0, "P in host DRAM": 0,
+                 "Q in host DRAM": len(hq), "P in files": len(hp)}:
+        raise AssertionError(f"the tiers before the restores are not as planned: {where}")
+    one("Q host DRAM restore", Q)
+    # Q's restored pages on the device: the plain arithmetic of
+    # scatter_pages on its host pages, on the CPU.
+    pool = eng.runner.kv_cache
+    ids = torch.tensor([eng.allocator._cached[h] for h in hq], device="cuda")
+    bundle = torch.stack([host._pages[h] for h in hq], dim=1)  # host tensors, [L, n, ...]
+    def equal_plain(b) -> bool:
+        if isinstance(pool, tuple):
+            data, scales = quantize_pages(b)
+            return (torch.equal(pool[0][:, ids].to(b.device), data)
+                    and torch.equal(pool[1][:, ids].to(b.device), scales))
+        return torch.equal(pool[:, ids].to(b.device), b.to(pool.dtype))
+
+    # The CPU's arithmetic is independent of the restore's (an int8 pool's
+    # requantization ran on the card); the card's is reported beside it.
+    rec["restored_pages_equal_plain"] = equal_plain(bundle.to(pool_parts(pool)[0].device))
+    rec["restored_pages_equal_plain_on_cpu"] = equal_plain(bundle)
+    one("P file restore", P)
+    torch.cuda.synchronize()
+    rec["launches"] = ops.launch_counts()
+    rec["host_rss_gb"] = [rss0 / 1e9, host_rss() / 1e9]
+    rec["page_bytes"] = int(host._pages[hq[0]].nbytes)
+    rec["host_slab_bytes"] = eng.offloader.pool.bytes
+    rec["stats"] = {k: getattr(eng.stats, k) for k in (
+        "offload_pages", "offload_fs_pages", "offload_saves", "offload_restores",
+        "prefix_hit_ratio")}
+    rec["save_host_ms"] = eng.offloader.save_host_s * 1e3
+    rec["restore_host_ms"] = eng.offloader.restore_host_s * 1e3
+    if eng.has_work() or eng.allocator.usage() != 0.0:
+        raise AssertionError("the offload engine ended with work or pages held")
+    del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    return rec
+
+
+def offload_phase(params: dict, model: str, kv_dtype: str, async_too: bool = False) -> None:
+    """``offload_run`` on ``model``'s ``kv_dtype`` pool (and with
+    ``async_too`` again under async stepping), each in a temporary file
+    tier of its own: the restores counted, Q's restored pages equal to the
+    plain arithmetic, and the restored streams equal to the device hits'
+    on a float pool, whose restored pages are the saved ones byte for byte.
+    An int8 pool's host pages are dequantized to the model's dtype, and
+    requantizing them rounds a row now and then otherwise (as in JAX): its
+    restored streams are held to the model (``spec_rescore``) within the
+    device hits' gaps, as ``spec_phase`` holds a run."""
+    import tempfile
+
+    from llmd_tpu_torch.models.registry import get_model_config
+
+    cfg = get_model_config(model)
+    wrappers = MLA_WRAPPERS if cfg.is_mla else FLAT_WRAPPERS
+    runs = {}
+    for mode in (False, True) if async_too else (False,):
+        with phase("offload", {"model": model, "kv_cache_dtype": kv_dtype,
+                               "async_scheduling": mode, "device_pages": OFFLOAD_BLOCKS,
+                               "host_pages": OFFLOAD_HOST_PAGES,
+                               "prompt_tokens": OFFLOAD_PROMPT}) as info, \
+                tempfile.TemporaryDirectory(prefix="kv-fs-") as fs_dir:
+            rec = runs[mode] = offload_run(params, cfg, kv_dtype, fs_dir, mode)
+            t, h = rec["tokens"], rec["host"]
+            full = OFFLOAD_PROMPT // 16
+            dram = h["Q host DRAM restore"]["restores"] - h["junk 5"]["restores"]
+            files = h["P file restore"]["fs_loads"] - h["Q host DRAM restore"]["fs_loads"]
+            info.update(ttft_ms=rec["ttft_ms"], before_restores=rec["before_restores"],
+                        pages_restored_from_dram=dram, pages_restored_from_files=files,
+                        restored_pages_equal_plain=rec["restored_pages_equal_plain"],
+                        restored_pages_equal_plain_on_cpu=rec["restored_pages_equal_plain_on_cpu"],
+                        host_page_bytes=rec["page_bytes"], host_slab_bytes=rec["host_slab_bytes"],
+                        host_rss_gb=rec["host_rss_gb"],
+                        stats=rec["stats"], save_host_ms=rec["save_host_ms"],
+                        restore_host_ms=rec["restore_host_ms"], host_tiers_end=h["P file restore"],
+                        restored_equal_recompute={"Q": t["Q host DRAM restore"] == t["Q recompute"],
+                                                  "P": t["P file restore"] == t["P recompute"]})
+            path_launches(info, rec["launches"], wrappers)
+            if (dram, files) != (full, full):
+                raise AssertionError(f"{dram} pages restored from host DRAM, {files} from files; "
+                                     f"want {full} each")
+            hit = [t["Q device hit"], t["P device hit"]]
+            restored = [t["Q host DRAM restore"], t["P file restore"]]
+            info["restored_equal_device_hit"] = restored == hit
+            if kv_dtype == "int8":
+                prompts = fixed_prompts(cfg, 2, OFFLOAD_PROMPT, 41)[::-1]  # Q, P
+                ref = spec_rescore(params, cfg, prompts, hit)
+                got = spec_rescore(params, cfg, prompts, restored)
+                info["rescore"], info["rescore_device_hit"] = got, ref
+                if ref["top_gap_max"] <= SPEC_TOP_GAP_TOL < got["top_gap_max"] or (
+                        ref["top_gap_max"] > SPEC_TOP_GAP_TOL and got["positions_above_tol"]
+                        > SPEC_ABOVE_TOL_FACTOR * ref["positions_above_tol"]):
+                    raise AssertionError(f"a restored token is not the model's top at its "
+                                         f"position: {got}, device hits: {ref}")
+            elif restored != hit:
+                raise AssertionError("a restored stream differs from its device hit's")
+            if not rec["restored_pages_equal_plain_on_cpu"]:
+                raise AssertionError("Q's restored pages differ from scatter_pages' plain "
+                                     "arithmetic on the CPU")
+            if any(len(x) != 16 for x in t.values()):
+                raise AssertionError("not every request produced 16 tokens")
+            if mode:
+                sync = runs[False]
+                info["tokens_equal_sync"] = t == sync["tokens"]
+                info["host_tiers_equal_sync"] = h == sync["host"]
+                if t != sync["tokens"] or h != sync["host"]:
+                    raise AssertionError("the async offload run's streams or host tiers differ "
+                                         "from the sync run's")
+        gc.collect()
+        torch.cuda.empty_cache()
+
+
+def offload_batch_serve_check(info: dict, base: str) -> None:
+    """The async offload server (``--kv-offload-chunks``,
+    ``--kv-offload-fs-dir``, a 160-page pool): a 1,000-token prompt twice
+    (the second a device hit), four others (two with ``x-llmd-priority:
+    batch``) that push it out of the device pool, then again: restored from
+    the host tier, it answers as its device hit did (Generate's token ids);
+    /metrics counts the saves, the restores and the batch tokens."""
+    from llmd_tpu_torch.models.registry import get_model_config
+
+    async_serve_check(info, base)
+    prompts = fixed_prompts(get_model_config(MODEL), 5, OFFLOAD_PROMPT, 51)
+
+    sampling = {"max_tokens": 16, "temperature": 0.0, "ignore_eos": True}
+
+    def generate(prompt, headers=None) -> list[int]:
+        """Generate's token ids (random weights' tokens mostly decode to
+        no text with the byte tokenizer)."""
+        req = urllib.request.Request(
+            base + "/vllm.Generation/Generate", data=json.dumps({
+                "prompt_token_ids": prompt, "sampling_params": sampling}).encode(),
+            headers={"Content-Type": "application/json", **(headers or {})})
+        with urllib.request.urlopen(req, timeout=300) as r:
+            return json.loads(r.read())["token_ids"]
+
+    P = prompts[0]
+    texts = [generate(P), generate(P)]
+    for i, junk in enumerate(prompts[1:]):
+        generate(junk, {"x-llmd-priority": "batch"} if i % 2 else None)
+    texts.append(generate(P))
+    metrics, _ = _scrape(base)
+    info.update({k: metrics.get(f"llmd:{k}") for k in (
+        "kv_offload_saves_total", "kv_offload_restores_total", "batch_tokens_total")})
+    info["kv_offload_cpu_pages"] = metrics.get("vllm:kv_offload_cpu_pages",
+                                               metrics.get("llmd:kv_offload_cpu_pages"))
+    info["restored_tokens_equal_device_hit"] = texts[2] == texts[1]
+    info["restored_tokens_equal_recompute"] = texts[2] == texts[0]
+    if not (info["kv_offload_saves_total"] and info["kv_offload_restores_total"]
+            and info["batch_tokens_total"]):
+        raise AssertionError(f"offload or batch series not counted: {info}")
+    if texts[2] != texts[1] or len(texts[2]) != 16:
+        raise AssertionError(f"the restored prompt answered {texts[2]}, its device hit {texts[1]}")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false", file=sys.stderr)
@@ -5126,6 +5544,10 @@ def main() -> int:
     del params8
     gc.collect()
     torch.cuda.empty_cache()
+    batch_exact_phase()
+    batch_phase(params, get_model_config(MODEL))
+    offload_phase(params, MODEL, "bfloat16", async_too=True)
+    offload_phase(params, MODEL, "int8")
     t_stats = time.perf_counter()
     surface = stats_update_cost(params)
     surface["stats_update_s"] = time.perf_counter() - t_stats
@@ -5153,6 +5575,7 @@ def main() -> int:
         ds_counts, _ = ds_engine_phase(info, params)
     with phase("engine", {"model": DS_MODEL, "layout": "split engine, decode_window 8"}) as info:
         ds_engine_phase(info, params)
+    offload_phase(params, DS_MODEL, "bfloat16")
     params8 = llama.init_params(get_model_config(DS_MODEL, quantization="int8"),
                                 torch.Generator(device="cuda").manual_seed(0), "cuda")
     with phase("forward", {"model": DS_MODEL, "quantization": "int8"}) as info:
@@ -5229,6 +5652,7 @@ def main() -> int:
     try:
         with phase("serve", {"layout": "flat step"}) as info:
             registry_texts = serve_phase(info, [], surface=surface, sink=sink)
+            plain_startup_s = info["startup_s"]
     finally:
         sink.close()
     chart = ("--served-model-name", MODEL, "--max-model-len", "8192", "--block-size", "16",
@@ -5253,9 +5677,21 @@ def main() -> int:
         serve_phase(info, [], QWEN_MODEL)
     with phase("serve", {"layout": "split engine, decode_window 4"}) as info:
         serve_phase(info, ["--no-unified-step", "--decode-window", "4"])
-    with phase("serve", {"layout": "flat step", "async_scheduling": True}) as info:
-        # The registry server's first completion is the same request.
-        texts = serve_phase(info, ["--async-scheduling"], check=async_serve_check)
+    with phase("serve", {"layout": "flat step", "async_scheduling": True,
+                         "kv_offload_chunks": GUIDE_OFFLOAD_CHUNKS, "device_pages": OFFLOAD_BLOCKS,
+                         "batch_header": True}) as info, \
+            tempfile.TemporaryDirectory(prefix="kv-fs-") as fs_dir:
+        # The registry server's first completion is the same request; the
+        # tiered offload with the guide's flags and the batch header ride
+        # along (``offload_batch_serve_check``). Its start pins the guide's
+        # host budget: its seconds and resident set beside the plain
+        # server's start.
+        texts = serve_phase(info, ["--async-scheduling",
+                                   f"--kv-offload-chunks={GUIDE_OFFLOAD_CHUNKS}",
+                                   f"--kv-offload-fs-dir={fs_dir}",
+                                   "--num-gpu-blocks-override", str(OFFLOAD_BLOCKS)],
+                            check=offload_batch_serve_check)
+        info["startup_s_plain_server"] = plain_startup_s
         info["texts_equal_sync_server"] = texts == [registry_texts[0], registry_texts[-1]]
         if not info["texts_equal_sync_server"]:
             raise AssertionError(f"the async server answered {texts}, the sync server "

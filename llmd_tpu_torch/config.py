@@ -266,8 +266,33 @@ class SchedulerConfig:
     # one dispatch, acceptance on the device, one readback. 0 inherits
     # ``decode_window``; 1 keeps one-shot verify steps.
     spec_verify_window: int = 0
+    # The batch tier: requests at or below ``PriorityClass.BATCH`` ride the
+    # same continuous batch, but only backfill the token budget and pages
+    # the interactive rows left this step. They never displace an
+    # interactive admission, run one token a step (no draft, no window),
+    # and are the first recompute-preemption victims when interactive load
+    # returns, so interactive streams are the same with and without them.
+    # Off: batch-priority rows are plain low-priority rows.
+    batch_backfill: bool = True
+    # Most batch rows running at once (0: no cap of their own; they take
+    # the ``max_num_seqs`` slots interactive rows leave idle).
+    batch_max_seqs: int = 0
+    # New batch rows are admitted only while the main pool's used share is
+    # at or below this fraction, so backfill never pushes the pool into
+    # the preemption regime interactive rows would pay for.
+    batch_kv_watermark: float = 0.85
 
     def __post_init__(self) -> None:
+        if not (0.0 < self.batch_kv_watermark <= 1.0):
+            raise ValueError(
+                f"batch_kv_watermark={self.batch_kv_watermark} must be in "
+                "(0, 1] (fraction of KV pool utilization)"
+            )
+        if self.batch_max_seqs < 0:
+            raise ValueError(
+                f"batch_max_seqs={self.batch_max_seqs} must be >= 0 "
+                "(0 = no dedicated cap)"
+            )
         if self.spec_verify_window < 0:
             raise ValueError(
                 f"spec_verify_window={self.spec_verify_window} must be >= 0 "
@@ -330,6 +355,41 @@ class SchedulerConfig:
 
 
 @dataclasses.dataclass
+class OffloadConfig:
+    """Tiered KV offload: HBM -> host DRAM -> files (``kvtransfer/
+    offload.py``). ``cpu_chunks`` caps the host page cache (pages);
+    ``fs_dir`` turns on the file tier, where pages the host cache evicts
+    go and from where they load back, across restarts; ``fs_max_pages``
+    caps it.
+
+    ``store_master_url`` and ``decode_paging`` are the JAX package's
+    switches for tiers the port does not have yet (later parts of
+    ROADMAP.md queue 1 item 7): a configuration that sets one is refused
+    with the item named. Their other knobs are not fields here, so a
+    configuration that sets one fails as an unknown argument."""
+
+    enabled: bool = True
+    cpu_chunks: int = 25_000
+    fs_dir: str | None = None
+    fs_max_pages: int = 100_000
+    store_master_url: str | None = None
+    decode_paging: bool = False
+
+    def __post_init__(self) -> None:
+        if self.store_master_url:
+            raise ValueError(
+                "OffloadConfig.store_master_url: the cross-slice KV store and "
+                "federation are not ported yet (ROADMAP.md queue 1 item 7, "
+                "kvstore and federation)"
+            )
+        if self.decode_paging:
+            raise ValueError(
+                "OffloadConfig.decode_paging: the decode pager is not ported "
+                "yet (ROADMAP.md queue 1 item 7, the pager)"
+            )
+
+
+@dataclasses.dataclass
 class EngineConfig:
     model: ModelConfig = dataclasses.field(default_factory=ModelConfig)
     cache: CacheConfig = dataclasses.field(default_factory=CacheConfig)
@@ -343,6 +403,8 @@ class EngineConfig:
     # The server's tokenizer: an HF tokenizer directory or name, or None /
     # "byte" for the byte tokenizer (``serve/tokenizer.py``).
     tokenizer_path: str | None = None
+    # Tiered KV offload; None turns it off.
+    offload: OffloadConfig | None = None
 
 
 @dataclasses.dataclass(frozen=True)

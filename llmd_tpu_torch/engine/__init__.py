@@ -3,6 +3,7 @@
 from llmd_tpu_torch.engine.engine import LLMEngine
 from llmd_tpu_torch.engine.request import (
     FinishReason,
+    PriorityClass,
     Request,
     RequestOutput,
     RequestStatus,
@@ -12,6 +13,7 @@ from llmd_tpu_torch.engine.request import (
 __all__ = [
     "FinishReason",
     "LLMEngine",
+    "PriorityClass",
     "Request",
     "RequestOutput",
     "RequestStatus",

@@ -22,9 +22,21 @@ Under the sliding-window ring (``CacheConfig.swa_ring``; JAX
 ring pool and, with prefix caching on, the retained sliding-window
 sections of ``SwaSectionCache``: prefix caching becomes hybrid, a hit is
 taken at arrival and only where a retained section can seed the fresh
-ring (``_try_hybrid_ring_hit``). The JAX engine refuses the ring beside
-tiered offload and without chunked prefill; the port has no offload, and
-refuses the ring without chunked prefill as JAX does.
+ring (``_try_hybrid_ring_hit``). The ring is refused without chunked
+prefill and beside tiered offload, as in JAX.
+
+Tiered offload (``EngineConfig.offload``; JAX ``engine.py:432-470,
+562-571, 878-883``): ``kvtransfer/offload.py``'s host cache and
+connector. Every page committed to the prefix cache is saved to the host
+tier after its step (the synchronous engine gathers and copies it after
+the commit; the async engine enqueues the gather before it dispatches the
+next step and puts the pages in the host cache while that step runs, so a
+page reused by the next step is gathered before it is overwritten), and
+``add_request`` restores the host pages that extend a prompt's device
+prefix run before the request is queued.
+
+The batch tier (``SchedulerConfig.batch_backfill``, ``Request.is_batch``)
+is the scheduler's; the engine reports its counters (``batch_*``).
 
 Under speculative decoding (``SchedulerConfig.speculative_ngram``; JAX
 ``engine.py:1600-1850``) the engine proposes every decode row's draft at
@@ -180,9 +192,9 @@ class EngineStats:
     contract (JAX ``engine.py:170 EngineStats``). The engine thread writes
     these plain ints and floats; a scrape on the event loop reads each
     atomically, with no lock on the step path. Fields of features the port
-    does not have yet (offload, KV store and federation, P/D transfer, the
-    decode pager, the batch tier, LoRA, wide EP) stay at 0 or empty, so
-    the page carries the JAX engine's names."""
+    does not have yet (KV store and federation, P/D transfer, the decode
+    pager, LoRA, wide EP) stay at 0 or empty, so the page carries the JAX
+    engine's names."""
 
     # Gauges, refreshed once a step (``_refresh_gauges``).
     num_waiting: int = 0
@@ -237,11 +249,19 @@ class EngineStats:
     spec_window_iters_total: int = 0
     spec_window_early_exit_total: int = 0
     spec_row_depth_hist: tuple = ()
-    # Features the port does not have yet: always 0 or empty here.
+    # Tiered offload: host-DRAM pages, file-tier pages, pages saved and
+    # restored (``HostKVCache.stats``).
     offload_pages: int = 0
     offload_fs_pages: int = 0
     offload_saves: int = 0
     offload_restores: int = 0
+    # The batch tier: batch requests waiting, batch tokens computed, batch
+    # rows preempted, and the last step's batch tokens over its budget.
+    batch_backlog_jobs: int = 0
+    batch_tokens: int = 0
+    batch_preemptions: int = 0
+    batch_backfill_utilization: float = 0.0
+    # Features the port does not have yet: always 0 or empty here.
     kvstore_pulls: int = 0
     kvstore_pull_failures: int = 0
     kvstore_misses: int = 0
@@ -265,10 +285,6 @@ class EngineStats:
     stream_resumes_total: int = 0
     resume_replayed_tokens_total: int = 0
     stream_resume_failures_total: int = 0
-    batch_backlog_jobs: int = 0
-    batch_tokens: int = 0
-    batch_preemptions: int = 0
-    batch_backfill_utilization: float = 0.0
     max_lora: int = 0
     running_lora_adapters: tuple = ()
     waiting_lora_adapters: tuple = ()
@@ -313,6 +329,13 @@ class LLMEngine:
                 "can exceed the span the ring is sized for "
                 "(SwaRingSpec.chunk_tokens)"
             )
+        offload = config.offload if config.offload is not None and config.offload.enabled else None
+        if spec is not None and offload is not None:
+            raise ValueError(
+                "kv_swa_ring does not compose with tiered KV offload: "
+                "host-cached pages would lack the sliding layers' KV "
+                "— disable one of the two"
+            )
         prefix_caching = cache.enable_prefix_caching
         if spec is not None and cache.swa_section_cache <= 0:
             # No retained section, so no usable hit: hash nothing.
@@ -345,6 +368,17 @@ class LLMEngine:
                 self.swa_allocator, self.runner, cache.swa_section_cache, retention)
             self.scheduler.prefill_complete_hook = self._capture_swa_section
             self.scheduler.ring_pressure_hook = self._swa_sections.evict_one
+        # Tiered offload: the host tiers and the save/restore pump.
+        self._host_cache = self.offloader = None
+        if offload is not None:
+            # Imported here: the tiers' module imports the engine package.
+            from llmd_tpu_torch.kvtransfer.offload import HostKVCache, OffloadConnector
+
+            self._host_cache = HostKVCache(
+                max_pages=offload.cpu_chunks, fs_dir=offload.fs_dir,
+                fs_max_pages=offload.fs_max_pages)
+            self.offloader = OffloadConnector(self.runner, self.allocator, self._host_cache)
+            self.allocator.commit_hook = self.offloader.on_commit
         self.stats = EngineStats(num_pages=cache.num_blocks, page_size=cache.page_size)
         self._counter = itertools.count()
         # Async stepping (the JAX engine turns it off for P/D producers and
@@ -398,6 +432,10 @@ class LLMEngine:
                 f"{sched.max_num_batched_tokens} and chunked prefill is disabled"
             )
         rid = request_id or f"req-{next(self._counter)}-{uuid.uuid4().hex[:8]}"
+        if self.offloader is not None:
+            # Host pages extending the prompt's device prefix run go back
+            # to the device now; the prefix-cache hit at admission takes them.
+            self.offloader.restore_for_prompt(list(prompt_token_ids))
         req = Request(
             request_id=rid,
             prompt_token_ids=list(prompt_token_ids),
@@ -504,21 +542,29 @@ class LLMEngine:
 
     def cached_prefix_pages(self, prompt_token_ids: list[int]) -> int:
         """Leading full pages of this prompt that the device prefix cache
-        holds (JAX ``engine.py:1033``): the P/D sidecar's probe before a
-        transfer. The port has no host tier yet, so only the device cache
-        counts. Called off the engine thread: each lookup is one dict
-        membership test, which takes no reference and moves nothing, and
-        a probe racing a step sees the cache before or after it."""
+        or a host tier holds (JAX ``engine.py:1033``): the P/D sidecar's
+        probe before a transfer. Called off the engine thread: each lookup
+        is one dict membership test (the host cache's under its lock),
+        which takes no reference and moves nothing, and a probe racing a
+        step sees the cache before or after it."""
         hashes = page_hashes_for_tokens(list(prompt_token_ids), self.allocator.page_size)
         n = 0
         for h in hashes:
-            if not self.allocator.has_cached(h):
+            if not (self.allocator.has_cached(h)
+                    or (self._host_cache is not None and self._host_cache.has(h))):
                 break
             n += 1
         return n
 
     def has_work(self) -> bool:
         return self.scheduler.has_work() or self._inflight is not None
+
+    def close(self) -> None:
+        """Release what outlives a step (JAX ``close``): the host tiers'
+        file writer finishes its spills, so that a process started over
+        the same directory finds every page the cache spilled."""
+        if self._host_cache is not None:
+            self._host_cache.close()
 
     def warmup(self) -> int:
         """Build the kernels and prepare the decode steps' programs (CUDA
@@ -546,6 +592,8 @@ class LLMEngine:
         sampled, logprobs = self._collect(batch, pres, dres)
         accepted = self.scheduler.update_after_step(batch, sampled)
         outputs = self._assemble_outputs(batch, accepted, logprobs, now)
+        if self.offloader is not None:
+            self.offloader.flush()  # the pages this step committed
         self._finish_step((t_dispatched - t0) + (time.perf_counter() - t_read))
         return outputs
 
@@ -613,12 +661,18 @@ class LLMEngine:
             # The whole staged step went; what it held may admit other work.
             staged = self.scheduler.schedule()
             staged_arrays = None
+        if self.offloader is not None:
+            # N's committed pages: gathered before N+1 is enqueued, which
+            # may write pages freed since (the host insert waits below).
+            self.offloader.launch()
         if not staged.is_empty:
             self._dispatch_async(staged, staged_arrays)
         # The device waits on the host from the readback to this point;
         # the output assembly and the gauges below overlap N+1.
         host_gap = time.perf_counter() - t_read
         outputs = self._assemble_outputs(inflight.batch, accepted, logprobs, inflight.dispatch_time)
+        if self.offloader is not None:
+            self.offloader.finish()
         self._finish_step(host_gap)
         return outputs
 
@@ -684,6 +738,17 @@ class LLMEngine:
         st.prefix_hit_ratio = self.allocator.hit_ratio()
         st.preemptions = self.scheduler.num_preemptions
         sch = self.scheduler
+        st.batch_backlog_jobs = sum(1 for r in sch.waiting if r.is_batch)
+        st.batch_tokens = sch.batch_tokens
+        st.batch_preemptions = sch.num_batch_preemptions
+        st.batch_backfill_utilization = round(
+            sch.last_batch_backfill_tokens / max(1, self.config.scheduler.max_num_batched_tokens), 6)
+        if self._host_cache is not None:
+            hs = self._host_cache.stats()
+            st.offload_pages = hs["pages"]
+            st.offload_fs_pages = hs["fs_pages"]
+            st.offload_saves = hs["saves"]
+            st.offload_restores = hs["restores"]
         if sch.spec_k:
             st.spec_proposed_tokens_total = sch.spec_proposed_tokens
             st.spec_accepted_tokens_total = sch.spec_accepted_tokens

@@ -65,6 +65,9 @@ class PageAllocator:
         self._cached: dict[bytes, int] = {}
         self.metrics_hits = 0
         self.metrics_queries = 0
+        # Called with (page id, content hash) on every commit that
+        # registers content (the tiered offload's save path).
+        self.commit_hook = None
 
     @property
     def num_free_pages(self) -> int:
@@ -142,11 +145,17 @@ class PageAllocator:
 
     def commit_page(self, page_id: int, content_hash: bytes) -> None:
         """Register a now-full page's content for reuse, unless another
-        page already holds that content."""
-        if not self.enable_prefix_caching or content_hash in self._cached:
+        page already holds that content; ``commit_hook`` sees each
+        registration."""
+        if not self.enable_prefix_caching:
+            return
+        existing = self._cached.get(content_hash)
+        if existing is not None and existing != page_id:
             return
         self._cached[content_hash] = page_id
         self._meta[page_id].content_hash = content_hash
+        if self.commit_hook is not None:
+            self.commit_hook(page_id, content_hash)
 
     def free(self, page_ids: Iterable[int]) -> None:
         for pid in page_ids:

@@ -41,6 +41,18 @@ class RequestStatus(enum.Enum):
     FINISHED = enum.auto()
 
 
+class PriorityClass(enum.IntEnum):
+    """Serving bands on the one continuous batch. ``priority`` stays a free
+    integer (higher schedules first, FCFS within a value); a request at or
+    below ``BATCH`` rides the batch tier's backfill band
+    (``SchedulerConfig.batch_backfill``). The server maps the
+    ``x-llmd-priority: batch`` header here; the value is the JAX
+    package's, which its router's batch filter keys on too."""
+
+    INTERACTIVE = 0
+    BATCH = -100
+
+
 @dataclasses.dataclass
 class Request:
     """One inflight sequence.
@@ -90,6 +102,11 @@ class Request:
     spec_consec_rejected: int = 0
     spec_drafted_tokens: int = 0
     spec_accepted_tokens: int = 0
+
+    @property
+    def is_batch(self) -> bool:
+        """Whether the request rides the batch tier's backfill band."""
+        return self.priority <= PriorityClass.BATCH
 
     @property
     def num_prompt_tokens(self) -> int:

@@ -121,6 +121,7 @@ from llmd_tpu_torch.models import llama
 from llmd_tpu_torch.models.common import StepInput
 from llmd_tpu_torch.models.loader import load_params
 from llmd_tpu_torch.ops import _build
+from llmd_tpu_torch.ops.quant_kv import dequantize_pages, quantize_pages
 
 # Packed-stream length granule: T pads up to a multiple of 16 tokens.
 _T_GRANULE = 16
@@ -267,6 +268,26 @@ class PendingDecode:
     k: int
 
 
+def pages_to_numpy(t: torch.Tensor) -> np.ndarray:
+    """A host bundle as numpy, sharing its memory. numpy has no bfloat16
+    and the port does not import ``ml_dtypes``: a bf16 bundle comes out
+    as its bits, ``uint16``."""
+    if t.dtype == torch.bfloat16:
+        return t.view(torch.int16).numpy().view(np.uint16)
+    return t.numpy()
+
+
+def pages_from_numpy(a: np.ndarray, dtype: torch.dtype) -> torch.Tensor:
+    """A host bundle as a CPU tensor of ``dtype``: ``uint16`` (or an
+    ``ml_dtypes`` bfloat16 array) read as bf16 bits, anything else cast."""
+    a = np.ascontiguousarray(a)
+    if not a.flags.writeable:  # torch.from_numpy wants writable memory
+        a = a.copy()
+    if a.dtype.name == "bfloat16" or (a.dtype == np.uint16 and dtype == torch.bfloat16):
+        return torch.from_numpy(a.view(np.int16)).view(torch.bfloat16).to(dtype)
+    return torch.from_numpy(a).to(dtype)
+
+
 class ModelRunner:
     def __init__(
         self,
@@ -344,6 +365,8 @@ class ModelRunner:
         # ("window", B, K, all_greedy), ("flat", T, all_greedy),
         # ("verify", B, all_greedy) or ("vwindow", B, window, all_greedy).
         self.programs = StepPrograms(self.device, self._program)
+        # The page copies to the host (``launch_page_copies``).
+        self._copy_stream = None
 
     def _alloc_pool(self, num_layers: int, num_blocks: int):
         """A KV pool: [L, pages, K, page, 2D], the K|V halves side by side
@@ -508,6 +531,114 @@ class ModelRunner:
         pools = (self.kv_cache,) if self.kv_swa is None else (self.kv_cache, self.kv_swa)
         return sum(t.numel() * t.element_size() for pool in pools
                    for t in (pool if isinstance(pool, tuple) else (pool,)))
+
+    # ------------------------------------------------------------------ #
+    # page I/O (the tiered offload's legs; JAX ``gather_pages``,
+    # ``scatter_pages``)
+
+    @property
+    def staging_dtype(self) -> torch.dtype:
+        """The dtype of host pages: the model's for an int8 pool (its pages
+        dequantized), the pool's otherwise."""
+        if isinstance(self.kv_cache, tuple):
+            return getattr(torch, self.cfg.dtype)
+        return self.kv_cache.dtype
+
+    @property
+    def page_shape(self) -> tuple[int, ...]:
+        """One host page: ``[L, K, page, 2D]`` (MLA: ``[L, 1, page, Dl]``)."""
+        pool = self.kv_cache[0] if isinstance(self.kv_cache, tuple) else self.kv_cache
+        return (pool.shape[0], *pool.shape[2:])
+
+    def _gathered(self, page_ids: list[int]) -> torch.Tensor:
+        """The main pool's pages ``page_ids``, every layer, page by page in a
+        row, ``[n, L, K, page, 2D]`` on the device; an int8 pool's
+        dequantized to ``staging_dtype`` as JAX's ``dequantize_pages`` does."""
+        ids = self._on_device(np.asarray(page_ids, np.int64))
+        if isinstance(self.kv_cache, tuple):
+            data, scales = self.kv_cache
+            return dequantize_pages(data.transpose(0, 1)[ids], scales.transpose(0, 1)[ids],
+                                    self.staging_dtype)
+        return self.kv_cache.transpose(0, 1)[ids]
+
+    def launch_page_copies(self, page_ids: list[int], dests: list[torch.Tensor]):
+        """Enqueue copies of the main pool's pages ``page_ids`` into the host
+        pages ``dests`` (each ``page_shape`` in ``staging_dtype``; pinned on
+        the card, so the copy engine writes them directly): the gather, page
+        by page in a row, on the current stream, where it follows the writes
+        of the steps before it; the copies to the host on a stream of their
+        own, so that a step dispatched after this call runs beside them.
+        Returns the event that ``wait_copies`` waits for (None on the CPU,
+        where the copies are done on return)."""
+        dev = self._gathered(page_ids)
+        if self.device.type != "cuda":
+            for d, src in zip(dests, dev):
+                d.copy_(src)
+            return None
+        gathered = torch.cuda.Event()
+        gathered.record()
+        if self._copy_stream is None:
+            self._copy_stream = torch.cuda.Stream(self.device)
+        stream = self._copy_stream
+        stream.wait_event(gathered)
+        with torch.cuda.stream(stream):
+            for d, src in zip(dests, dev):
+                d.copy_(src, non_blocking=True)
+            done = torch.cuda.Event()
+            done.record(stream)
+        dev.record_stream(stream)  # the allocator keeps it until the copies ran
+        return done
+
+    @staticmethod
+    def wait_copies(done) -> None:
+        """Wait for ``launch_page_copies``' copies (not for anything enqueued
+        after them)."""
+        if done is not None:
+            done.synchronize()
+
+    def gather_pages(self, page_ids: list[int]) -> np.ndarray:
+        """Stage pages HBM -> host in JAX's canonical form: the bundle ``[L,
+        n, K, page, 2D]`` of ``page_ids`` (MLA: ``[L, n, 1, page, Dl]``;
+        ``pages_to_numpy``: bf16 as ``uint16`` bits). Unlike JAX nothing is
+        padded to a bucket (XLA compiles one program a shape; the port does
+        not). The tiered offload keeps pages apart instead
+        (``launch_page_copies``)."""
+        pin = self.device.type == "cuda"
+        dests = [torch.empty(self.page_shape, dtype=self.staging_dtype, pin_memory=pin)
+                 for _ in page_ids]
+        self.wait_copies(self.launch_page_copies(page_ids, dests))
+        return np.stack([pages_to_numpy(d) for d in dests], axis=1)
+
+    def scatter_pages(self, page_ids: list[int], pages: np.ndarray) -> None:
+        """Stage a canonical bundle ``[L, n, K, page, 2D]`` host -> HBM into
+        the main pool's pages ``page_ids`` (``scatter_page_list``)."""
+        self.scatter_page_list(page_ids, [pages[:, i] for i in range(len(page_ids))])
+
+    def scatter_page_list(self, page_ids: list[int], pages: list) -> None:
+        """Copy one host page a page id into the main pool: each a host
+        tensor (``launch_page_copies``' pinned pages, copied straight to the
+        device) or a numpy array (``pages_from_numpy``: a page loaded from a
+        file, a slice of a bundle). The pages land in the pool in place
+        (``index_copy_``: a captured CUDA graph keeps reading the same
+        pool), on the current stream, so the steps dispatched after it read
+        them. An int8 pool requantizes the rows on the f16 grid as JAX's
+        ``quantize_pages`` does; a float pool casts to its dtype (JAX
+        ``_scatter_canonical``)."""
+        if not page_ids:
+            return
+        staging = torch.empty((len(pages), *self.page_shape), dtype=self.staging_dtype,
+                              device=self.device)
+        for d, p in zip(staging, pages):
+            src = p if isinstance(p, torch.Tensor) else pages_from_numpy(p, self.staging_dtype)
+            d.copy_(src, non_blocking=True)
+        vals = staging.transpose(0, 1)  # [L, n, K, page, 2D]
+        ids = self._on_device(np.asarray(page_ids, np.int64))
+        if isinstance(self.kv_cache, tuple):
+            data, scales = quantize_pages(vals)
+            self.kv_cache[0].index_copy_(1, ids, data)
+            self.kv_cache[1].index_copy_(1, ids, scales)
+        else:
+            self.kv_cache.index_copy_(1, ids, vals.to(self.kv_cache.dtype))
 
     def _on_device(self, a: np.ndarray) -> torch.Tensor:
         # Not blocking: a blocking host->device copy synchronises the

@@ -43,7 +43,23 @@ committed tokens. ``update_after_step`` resolves the accepted prefix
 and frees the pages past the accepted span before any page is committed
 (``_truncate_spec_pages``), so rejected drafts never reach the prefix
 index. Rows whose drafts were fully rejected back off
-(``_spec_eligible``). The port has no batch tier, so every row may draft.
+(``_spec_eligible``).
+
+The batch tier (``SchedulerConfig.batch_backfill``; JAX
+``scheduler.py:236-260, 397-560``): rows at or below
+``PriorityClass.BATCH`` are split out of the interactive phases, which
+never see them, and backfill the budget and pages those phases leave:
+running batch decodes at one token a step (draft-less under speculative
+decoding, never in a window; a step that carries batch rows pins K to 1),
+then their prefill chunks, then new batch admissions while no interactive
+request waits at the queue head, the main pool's used share is at or below
+``batch_kv_watermark`` and ``batch_max_seqs`` has room. An interactive
+admission blocked on a slot or on pages takes them from running batch rows
+first (recompute preemption, youngest first); page pressure inside the band
+preempts batch rows only. So interactive rows are scheduled as in an
+engine without the batch rows: in f32 their streams are the same token for
+token; in bf16 on the card a step's size moves the attention kernel's
+spans, and a stream may part at a tie.
 """
 
 from __future__ import annotations
@@ -155,6 +171,12 @@ class EngineScheduler:
         self.spec_window_early_exit = 0
         self.spec_accept_len_hist = [0] * (self.spec_k + 1)
         self.spec_step = 0
+        # The batch tier's counters: batch tokens computed, batch rows
+        # preempted, and the batch tokens the last ``schedule`` planned
+        # (the backfill-utilization gauge's numerator).
+        self.batch_tokens = 0
+        self.num_batch_preemptions = 0
+        self.last_batch_backfill_tokens = 0
 
     # ------------------------------------------------------------------ #
     # queue management
@@ -218,14 +240,29 @@ class EngineScheduler:
 
         decoding = [r for r in self.running if r.in_decode_dispatched]
         mid_prefill = [r for r in self.running if not r.in_decode_dispatched]
+        # The batch band's rows leave the interactive phases, which never
+        # see them, and backfill what those phases leave (phase 4).
+        batch_decoding: list[Request] = []
+        batch_prefill: list[Request] = []
+        if self._batch_band:
+            batch_decoding = [r for r in decoding if r.is_batch]
+            batch_prefill = [r for r in mid_prefill if r.is_batch]
+            if batch_decoding:
+                decoding = [r for r in decoding if not r.is_batch]
+            if batch_prefill:
+                mid_prefill = [r for r in mid_prefill if not r.is_batch]
+        in_backfill = bool(batch_decoding or batch_prefill)
 
         # Fused K-step decode windows apply whenever this step cannot make
         # admission progress anyway (nothing admissible waiting, no prompt
         # chunks in flight), in particular in the saturated regime, where
         # spreading the dispatch over K tokens pays most. Otherwise K = 1
         # keeps admission latency at one step. K is uniform across the
-        # batch and capped so no sequence runs past max_model_len.
+        # batch and capped so no sequence runs past max_model_len. A step
+        # that carries batch rows pins K to 1: they ride at one token, and
+        # one dispatch cannot mix widths.
         can_admit = bool(self.waiting) and len(self.running) < self.config.max_num_seqs
+        gate = bool(decoding) and not mid_prefill and not can_admit and not in_backfill
         k = 1
         spec_w = 1
         if self.spec_k:
@@ -233,13 +270,13 @@ class EngineScheduler:
             # candidate whose max-acceptance width, window x (1 + k) a
             # row, fits the whole decode batch in the budget; none fitting
             # means one-shot verify steps.
-            if self.spec_windows and decoding and not mid_prefill and not can_admit:
+            if self.spec_windows and gate:
                 per_batch = (1 + self.spec_k) * len(decoding)
                 for w in reversed(self.spec_windows):
                     if w * per_batch <= budget:
                         spec_w = w
                         break
-        elif self.config.decode_window > 1 and decoding and not mid_prefill and not can_admit:
+        elif self.config.decode_window > 1 and gate:
             room = min(self.max_model_len - r.num_dispatched_tokens for r in decoding)
             k = max(1, min(self.config.decode_window, room))
         if self.spec_k and decoding:
@@ -279,10 +316,18 @@ class EngineScheduler:
             budget -= chunk
 
         # 3. Admit waiting sequences (priority order, FCFS within class).
+        #    Interactive only: a batch head waits for phase 4, and an
+        #    interactive head short of a slot or of pages takes them from
+        #    running batch rows first.
         while self.waiting and budget > 0:
             req = self.waiting[0]
-            if len(self.running) >= self.config.max_num_seqs:
+            if self._batch_band and req.is_batch:
                 break
+            if len(self.running) >= self.config.max_num_seqs:
+                if not (self._batch_band
+                        and self._preempt_for(req, exclude=scheduled, batch_only=True)):
+                    break
+                continue
             if req.num_computed_tokens == 0:
                 self._apply_prefix_cache(req)
             chunk = self._chunk(req, budget)
@@ -297,21 +342,110 @@ class EngineScheduler:
                 # preloads, and the rings of waiting hybrid hits go back
                 # when a step would schedule nothing: ``schedule``.)
                 break
-            if not self._ensure_pages(req, chunk):
+            if not self._ensure_pages_reclaiming_batch(req, chunk, scheduled):
                 # A waiting request keeps no ring it has computed nothing
                 # into: held, it could stall an earlier arrival's
                 # admission. A ring seeded by a hybrid hit stays.
                 if req.swa_block_ids and req.num_computed_tokens == 0:
                     self._free_ring(req)
                 break  # out of pages; retry next step
-            self.waiting.pop(0)
-            req.status = RequestStatus.RUNNING
-            self.running.append(req)
+            self._admit(req, chunk, prefills, scheduled)
+            budget -= chunk
+
+        # 4. The batch band backfills what the interactive phases left.
+        if self._batch_band and budget > 0:
+            budget = self._schedule_batch_backfill(
+                batch_decoding, batch_prefill, decodes, prefills, scheduled, budget)
+        self.last_batch_backfill_tokens = sum(
+            s.num_tokens for s in (*prefills, *decodes) if s.request.is_batch)
+        return ScheduledBatch(prefills=prefills, decodes=decodes, spec_window=spec_w)
+
+    @property
+    def _batch_band(self) -> bool:
+        return self.config.batch_backfill
+
+    def _admit(self, req: Request, chunk: int, prefills: list[ScheduledSeq],
+               scheduled: set[str]) -> None:
+        """Move the waiting head ``req`` to running with its first chunk."""
+        self.waiting.pop(0)
+        req.status = RequestStatus.RUNNING
+        self.running.append(req)
+        prefills.append(ScheduledSeq(req, chunk))
+        scheduled.add(req.request_id)
+
+    def _ensure_pages_reclaiming_batch(self, req: Request, new_tokens: int,
+                                       exclude: set[str]) -> bool:
+        """``_ensure_pages`` for an interactive request, preempting running
+        batch rows (youngest first) until the pages fit or no batch row is
+        left to take them from."""
+        while not self._ensure_pages(req, new_tokens):
+            if not (self._batch_band
+                    and self._preempt_for(req, exclude=exclude, batch_only=True)):
+                return False
+        return True
+
+    def _schedule_batch_backfill(self, batch_decoding: list[Request],
+                                 batch_prefill: list[Request], decodes: list[ScheduledSeq],
+                                 prefills: list[ScheduledSeq], scheduled: set[str],
+                                 budget: int) -> int:
+        """The batch band's step, after the interactive phases (JAX
+        ``_schedule_batch_backfill``): running batch decodes at one token
+        (draft-less under speculative decoding: cap 0, so no verify column
+        is planned for them), then their prefill chunks, then new batch
+        rows while the queue head is a batch request, a slot is free, the
+        pool's used share is at or below ``batch_kv_watermark`` and
+        ``batch_max_seqs`` has room. Page pressure here preempts batch rows
+        only. Returns the budget left."""
+        for req in batch_decoding:
+            if req.status is not RequestStatus.RUNNING or not req.in_decode_dispatched:
+                continue  # reset by a preemption earlier in this pass
+            if budget <= 0:
+                break
+            if not self._ensure_pages(req, 1):
+                if not self._preempt_for(req, exclude=scheduled, batch_only=True):
+                    continue
+                if not self._ensure_pages(req, 1):
+                    continue
+            decodes.append(ScheduledSeq(
+                req, 1, draft_tokens=[] if self.spec_k else None,
+                spec_draft_cap=0 if self.spec_k else None))
+            scheduled.add(req.request_id)
+            budget -= 1
+        for req in batch_prefill:
+            if req.status is not RequestStatus.RUNNING or budget <= 0:
+                continue
+            chunk = self._chunk(req, budget)
+            if chunk <= 0 or not self._ensure_pages(req, chunk):
+                continue  # waits for room: batch never preempts upward
             prefills.append(ScheduledSeq(req, chunk))
             scheduled.add(req.request_id)
             budget -= chunk
-
-        return ScheduledBatch(prefills=prefills, decodes=decodes, spec_window=spec_w)
+        while (self.waiting and budget > 0
+               and len(self.running) < self.config.max_num_seqs
+               and self.waiting[0].is_batch):
+            if (self.config.batch_max_seqs
+                    and sum(1 for r in self.running if r.is_batch) >= self.config.batch_max_seqs):
+                break
+            if self.allocator.usage() > self.config.batch_kv_watermark:
+                break  # the pool is too full to take more batch rows
+            req = self.waiting[0]
+            if req.num_computed_tokens == 0:
+                self._apply_prefix_cache(req)
+            chunk = self._chunk(req, budget)
+            if chunk <= 0:
+                break
+            if (not self.config.enable_chunked_prefill
+                    and chunk < req.num_prompt_tokens - req.num_dispatched_tokens):
+                break  # whole-prompt admission only
+            if not self._ensure_ring(req):
+                break  # rings are interactive capacity: never reclaimed
+            if not self._ensure_pages(req, chunk):
+                if req.swa_block_ids and req.num_computed_tokens == 0:
+                    self._free_ring(req)
+                break  # out of pages; retry next step
+            self._admit(req, chunk, prefills, scheduled)
+            budget -= chunk
+        return budget
 
     def _plan_width(self, req: Request, k: int, spec_w: int) -> tuple[int, int | None]:
         """A decode row's planned width and draft cap. Without speculative
@@ -404,19 +538,24 @@ class EngineScheduler:
         except NoFreePagesError:
             return False
 
-    def _preempt_for(self, req: Request | None, exclude: set[str] = frozenset()) -> bool:
+    def _preempt_for(self, req: Request | None, exclude: set[str] = frozenset(),
+                     batch_only: bool = False) -> bool:
         """Evict the youngest running sequence other than ``req`` (lowest
-        priority first) to recompute later. In-flight sequences
-        (``protected``) are never victims: the device still writes their
-        pages, and a preemption frees them at once."""
+        priority first, so batch rows before any interactive row) to
+        recompute later; ``batch_only`` takes batch rows only. In-flight
+        sequences (``protected``) are never victims: the device still
+        writes their pages, and a preemption frees them at once."""
         victims = [
             r for r in self.running
             if r is not req and r.request_id not in exclude
             and r.request_id not in self.protected
+            and (not batch_only or r.is_batch)
         ]
         if not victims:
             return False
         victim = max(victims, key=lambda r: (-r.priority, r.arrival_time))
+        if victim.is_batch:
+            self.num_batch_preemptions += 1
         self._release(victim)
         self.running.remove(victim)
         # Fold generated tokens into the prompt and restart from scratch.
@@ -486,6 +625,8 @@ class EngineScheduler:
             req = seq.request
             self._commit_pending(seq)
             req.num_computed_tokens += seq.num_tokens
+            if req.is_batch:
+                self.batch_tokens += seq.num_tokens
             if req.in_decode:  # this chunk completed the prompt -> 1st token
                 if self.prefill_complete_hook is not None:
                     # The ring still holds the prompt's last window now.
@@ -529,6 +670,8 @@ class EngineScheduler:
                 if reason is not None:
                     break
             accepted[req.request_id] = acc
+            if req.is_batch:
+                self.batch_tokens += len(acc)
             if reason is not None:
                 self._finish(req, reason)
             else:

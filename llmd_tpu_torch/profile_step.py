@@ -5,7 +5,9 @@
         [--kv-cache-dtype int8] [--kv-swa-ring] [--quantization int8]
         [--windows prefill]
     python -m llmd_tpu_torch.profile_step --engine [--async-scheduling | --ab]
-        [--speculative-ngram] [--prompt-kind repeat] [...]
+        [--speculative-ngram | --kv-offload-chunks N [--kv-offload-fs-dir DIR]]
+        [--prompt-kind repeat] [...]
+    python -m llmd_tpu_torch.profile_step --engine --batch-load [--batch-jobs 64]
 
 Serves ``--batch`` greedy requests of ``--prompt-len`` random tokens
 through ``LLMEngine`` (random weights from ``--seed``) and traces three
@@ -89,6 +91,33 @@ row-step) and, traced, the device ms a step by kernel group (K1' is
 ``flat_paged_attention``, K6' ``grouped_gemm``). ``--prompt-kind repeat``
 builds each prompt from one random block of 64 tokens repeated, so drafts
 fire (the default, ``random``, draws every token).
+
+``--engine --ab --kv-offload-chunks N`` sets the tiered offload (a host
+cache of N pages, ``EngineConfig.offload``) against its absence (off, on,
+on, off; prefix caching on in all four, so that pages are committed;
+``--async-scheduling`` picks the pipeline): each window also carries the
+offload's host ms a step (the save path's enqueue, its wait and the host
+inserts, ``OffloadConnector.save_host_s``) and the bytes it saved, and each
+run with offload on a line of the page legs' rates (``page_legs``: the
+save's copies into pinned host slots and the restore's copies back, 64 of
+its pages, GB/s over each call's wall time, median of 5).
+``--kv-offload-fs-dir DIR`` adds the file tier (each run with offload on
+in a fresh directory under DIR, removed after it): with a host cache
+smaller than the run's commits, the saved pages spill to files, and each
+window also carries the spill writer's ms a step (its own thread,
+``HostKVCache.fs_write_s``) and the pages it spilled.
+
+``--engine --batch-load`` measures the batch tier: ``--batch``
+interactive requests arrive at an engine whose slots a backlog of
+``--batch-jobs`` batch requests (``PriorityClass.BATCH``, prompts of a
+quarter of ``--prompt-len``, as many decode steps as the interactive
+requests' times 4) fills (stepped until every slot holds a batch row, at
+most 64 steps), so that their admission preempts batch rows, and at an
+idle engine, in turns (without, with, with, without), untraced; each run
+reports the interactive requests' TTFT (from their arrival) and TPOT,
+median and p99, the steps until they all finished, the batch tokens
+computed and batch rows preempted meanwhile, and the mean
+``batch_backfill_utilization`` of those steps.
 """
 
 from __future__ import annotations
@@ -102,7 +131,9 @@ import gc
 import importlib
 import pstats
 import json
+import shutil
 import subprocess
+import tempfile
 import time
 
 import numpy as np
@@ -110,7 +141,7 @@ import torch
 from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile, record_function
 
-from llmd_tpu_torch.config import CacheConfig, EngineConfig, SchedulerConfig
+from llmd_tpu_torch.config import CacheConfig, EngineConfig, OffloadConfig, SchedulerConfig
 from llmd_tpu_torch.engine import LLMEngine, SamplingParams
 from llmd_tpu_torch.engine.scheduler import ScheduledSeq
 from llmd_tpu_torch.models import llama
@@ -370,12 +401,17 @@ def staging_us(eng: LLMEngine, n: int = 200) -> dict:
 
 def engine_window(eng: LLMEngine, n: int, traced: bool) -> dict:
     """``n`` calls of ``eng.step()``: host ms a step, the engine's host gap
-    a step, live tokens a step, generated tokens a second and rollbacks;
-    ``traced``: under the profiler, with the device's busy ms a step and
-    kernels a step."""
+    a step, live tokens a step, generated tokens a second and rollbacks
+    (with offload, its save path's host ms a step and bytes); ``traced``:
+    under the profiler, with the device's busy ms a step and kernels a
+    step."""
     st, runner, sched = eng.stats, eng.runner, eng.scheduler
     live0, gen0, gap0 = runner.live_tokens_total, st.generation_tokens, st.step_host_gap_ms_total
     steps0, rolled0 = st.engine_steps_total, st.async_rollbacks_total
+    off = eng.offloader
+    host = eng._host_cache
+    save0 = ((off.save_host_s, off.saved_bytes, host.fs_write_s, host.fs_spills)
+             if off is not None else None)
     spec0 = (sched.spec_proposed_tokens, sched.spec_accepted_tokens, sum(sched.spec_accept_len_hist))
     torch.cuda.synchronize()
     with (profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) if traced
@@ -391,6 +427,11 @@ def engine_window(eng: LLMEngine, n: int, traced: bool) -> dict:
            "live_tokens_per_step": (runner.live_tokens_total - live0) / n,
            "generated_tok_per_s": (st.generation_tokens - gen0) / wall,
            "async_rollbacks": st.async_rollbacks_total - rolled0}
+    if off is not None:
+        out.update(offload_save_host_ms_per_step=(off.save_host_s - save0[0]) * 1e3 / n,
+                   offload_saved_bytes=off.saved_bytes - save0[1],
+                   offload_fs_write_ms_per_step=(host.fs_write_s - save0[2]) * 1e3 / n,
+                   offload_fs_spills=host.fs_spills - save0[3])
     if sched.spec_k:
         proposed, accepted, rows = (
             now - then for now, then in zip(
@@ -415,15 +456,113 @@ def engine_window(eng: LLMEngine, n: int, traced: bool) -> dict:
     return out
 
 
+def page_legs(eng: LLMEngine, n: int = 64, reps: int = 5) -> dict:
+    """GB/s of the offload's two legs on ``n`` pages of the engine's pool:
+    the save's copies to the host (``launch_page_copies`` into pinned slots
+    of a ``HostPagePool``, then ``wait_copies``) and the restore's copies
+    back (``scatter_page_list`` from those slots, synchronized at its end);
+    the pages' bytes over each call's wall time, median of ``reps``."""
+    from llmd_tpu_torch.kvtransfer.offload import HostPagePool
+
+    runner = eng.runner
+    pool = HostPagePool(runner.page_shape, runner.staging_dtype, pin=runner.device.type == "cuda")
+    slots = [pool.take() for _ in range(n)]
+    ids = list(range(1, n + 1))
+    nbytes = sum(t.nbytes for t in slots)
+    saves, restores = [], []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        runner.wait_copies(runner.launch_page_copies(ids, slots))
+        saves.append(time.perf_counter() - t0)
+        t0 = time.perf_counter()
+        runner.scatter_page_list(ids, slots)
+        torch.cuda.synchronize()
+        restores.append(time.perf_counter() - t0)
+    med = lambda xs: sorted(xs)[len(xs) // 2]  # noqa: E731
+    return {"pages": n, "bytes": nbytes, "save_ms": med(saves) * 1e3,
+            "restore_ms": med(restores) * 1e3, "d2h_gb_per_s": nbytes / med(saves) / 1e9,
+            "h2d_gb_per_s": nbytes / med(restores) / 1e9}
+
+
+def pcts(xs: list[float]) -> dict:
+    xs = sorted(xs)
+    return {"median": xs[len(xs) // 2], "p99": xs[min(len(xs) - 1, int(0.99 * len(xs)))],
+            "n": len(xs)}
+
+
+def batch_load_runs(args, loaded_engine, card: str, warmups: dict, sp_interactive,
+                    interactive: list, jobs: list) -> None:
+    """``--engine --batch-load``: the interactive requests at an engine
+    running the batch backlog and at one without it, in turns (without,
+    with, with, without); one JSON line a run."""
+    from llmd_tpu_torch.engine import PriorityClass
+
+    def run(backlog: bool) -> dict:
+        eng = loaded_engine("batch" if backlog else "plain", queue=False)
+        eng.step()  # allocates the working memory the captures handed back
+        sp_batch = SamplingParams(temperature=0.0, max_tokens=args.decode_steps * 4, ignore_eos=True)
+        if backlog:
+            for p in jobs:
+                eng.add_request(p, sp_batch, priority=int(PriorityClass.BATCH))
+            slots = eng.config.scheduler.max_num_seqs
+            for _ in range(64):
+                if eng.scheduler.num_running >= slots:
+                    break
+                eng.step()
+        st = eng.stats
+        tok0, pre0 = st.batch_tokens, st.batch_preemptions
+        running_batch = sum(1 for r in eng.scheduler.running if r.is_batch)
+        arrive: dict[str, float] = {}
+        times: dict[str, list[float]] = {}
+        t0 = time.perf_counter()
+        for p in interactive:
+            rid = eng.add_request(p, sp_interactive)
+            arrive[rid] = time.perf_counter()
+            times[rid] = []
+        steps, util = 0, []
+        while any(len(times[r]) < sp_interactive.max_tokens for r in times):
+            outs = eng.step()
+            now = time.perf_counter()
+            steps += 1
+            util.append(st.batch_backfill_utilization)
+            for o in outs:
+                if o.request_id in times:
+                    times[o.request_id] += [now] * len(o.new_token_ids)
+        wall = time.perf_counter() - t0
+        ttft = [(t[0] - arrive[r]) * 1e3 for r, t in times.items()]
+        tpot = [(t[-1] - t[0]) * 1e3 / (len(t) - 1) for t in times.values()]
+        rec = {"mode": "batch backlog" if backlog else "no backlog", "batch_jobs": len(jobs) if backlog else 0,
+               "batch_rows_running_at_arrival": running_batch,
+               "interactive": len(interactive), "ttft_ms": pcts(ttft), "tpot_ms": pcts(tpot),
+               "steps": steps, "wall_s": wall, "batch_tokens_meanwhile": st.batch_tokens - tok0,
+               "batch_preemptions_meanwhile": st.batch_preemptions - pre0,
+               "batch_backfill_utilization_mean": sum(util) / len(util),
+               **warmups["batch" if backlog else "plain"]}
+        del eng
+        gc.collect()
+        return rec
+
+    for backlog in (False, True, True, False):
+        print(json.dumps({"window": "batch_load", "model": args.model, "prompt_len": args.prompt_len,
+                          "quantization": args.quantization, "card": card, **run(backlog)}),
+              flush=True)
+
+
 def engine_runs(args, modes: list[bool], loaded_engine, n_prefill: int, card: str,
                 warmups: dict) -> None:
     """``--engine``: the step loop of each mode in ``modes`` (False: sync,
     True: async; with ``--speculative-ngram``, False: speculative decoding
-    off, True: on), untraced in that order, then traced once a mode; one
-    JSON line a run."""
+    off, True: on; with ``--kv-offload-chunks``, False: offload off, True:
+    on), untraced in that order, then traced once a mode; one JSON line a
+    run, and with offload on a line of the page legs' rates."""
+    legs = []
 
     def run(mode: bool, traced: bool) -> dict:
-        if args.speculative_ngram:
+        if args.kv_offload_chunks:
+            name = "offload" if mode else "no offload"
+            sched = dict(async_scheduling=args.async_scheduling, offload=mode)
+        elif args.speculative_ngram:
             name = "spec" if mode else "plain"
             sched = dict(async_scheduling=args.async_scheduling, speculative_ngram=mode)
             if mode:
@@ -463,6 +602,13 @@ def engine_runs(args, modes: list[bool], loaded_engine, n_prefill: int, card: st
         decode.update(programs_prepared_before_window=captured, untimed_windows_s=untimed)
         rec = {"mode": name, "traced": traced, "prefill": prefill, "decode": decode,
                **warmups[name]}
+        if eng.offloader is not None:
+            rec["offload_host_stats"] = eng._host_cache.stats()
+            if not traced:
+                legs.append(page_legs(eng))
+            eng.close()
+            if args.kv_offload_fs_dir:
+                shutil.rmtree(eng._host_cache.fs_dir, ignore_errors=True)
         del eng
         gc.collect()
         return rec
@@ -480,7 +626,12 @@ def engine_runs(args, modes: list[bool], loaded_engine, n_prefill: int, card: st
                           "prompt_len": args.prompt_len, "prompt_kind": args.prompt_kind,
                           "kv_cache_dtype": args.kv_cache_dtype or "model",
                           "kv_swa_ring": args.kv_swa_ring, "quantization": args.quantization,
+                          "kv_offload_chunks": args.kv_offload_chunks,
                           "card": card, **rec}), flush=True)
+    for rec in legs:
+        print(json.dumps({"window": "page_legs", "model": args.model,
+                          "kv_cache_dtype": args.kv_cache_dtype or "model", "card": card, **rec}),
+              flush=True)
 
 
 def main(argv=None) -> None:
@@ -512,6 +663,17 @@ def main(argv=None) -> None:
                    help="with --speculative-ngram: the fused verify window (1: one-shot)")
     p.add_argument("--prompt-kind", default="random", choices=["random", "repeat"],
                    help="random tokens, or one random 64-token block repeated")
+    p.add_argument("--kv-offload-chunks", type=int, default=0,
+                   help="with --engine --ab: the tiered offload (a host cache of N pages) "
+                        "off and on in turns")
+    p.add_argument("--kv-offload-fs-dir", default=None,
+                   help="with --kv-offload-chunks: the file tier, each run in a fresh "
+                        "directory under this one")
+    p.add_argument("--batch-load", action="store_true",
+                   help="with --engine: interactive TTFT and TPOT with and without a "
+                        "batch backlog, in turns")
+    p.add_argument("--batch-jobs", type=int, default=64,
+                   help="with --batch-load: the backlog's batch requests")
     args = p.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("profile_step needs a CUDA device")
@@ -540,19 +702,29 @@ def main(argv=None) -> None:
 
     warmups: dict[str, dict] = {}
 
-    def loaded_engine(name: str, **sched) -> LLMEngine:
+    def loaded_engine(name: str, offload: bool = False, queue: bool = True,
+                      **sched) -> LLMEngine:
         """An engine on the shared weights, warmed up (its seconds, graphs
         and kept device memory recorded under ``name``), with ``--batch``
-        requests queued."""
+        requests queued unless ``queue`` is false; ``offload``: a host cache
+        of ``--kv-offload-chunks`` pages."""
+        blocks = args.batch * per_seq + 64
+        if args.batch_load:
+            blocks += args.batch_jobs * per_seq
         config = EngineConfig(
             model=cfg,
-            cache=CacheConfig(page_size=page, num_blocks=args.batch * per_seq + 64,
+            cache=CacheConfig(page_size=page, num_blocks=blocks,
                               dtype=args.kv_cache_dtype or cfg.dtype,
-                              enable_prefix_caching=False, swa_ring=args.kv_swa_ring),
+                              enable_prefix_caching=bool(args.kv_offload_chunks),
+                              swa_ring=args.kv_swa_ring),
             scheduler=SchedulerConfig(max_num_seqs=max(64, args.batch),
                                       max_num_batched_tokens=args.max_num_batched_tokens,
                                       **sched),
             seed=args.seed,
+            offload=OffloadConfig(
+                cpu_chunks=args.kv_offload_chunks,
+                fs_dir=(tempfile.mkdtemp(prefix="kv-fs-", dir=args.kv_offload_fs_dir)
+                        if args.kv_offload_fs_dir else None)) if offload else None,
         )
         eng = LLMEngine(config, params=params, device="cuda")
         gc.collect()  # an engine dropped earlier holds its pool until collected
@@ -570,16 +742,28 @@ def main(argv=None) -> None:
         warm = SamplingParams(temperature=0.0, max_tokens=2 + sched.get("decode_window", 1),
                               ignore_eos=True)
         eng.generate([[5] * 64, [7] * 16], warm)  # warm-up: cuBLAS, kernels
-        rng = np.random.default_rng(args.seed)
-        for _ in range(args.batch):
-            if args.prompt_kind == "repeat":
-                block = rng.integers(3, cfg.vocab_size, size=64)
-                prompt = np.resize(block, args.prompt_len)
-            else:
-                prompt = rng.integers(3, cfg.vocab_size, size=args.prompt_len)
-            eng.add_request(prompt.tolist(), sp)
+        if queue:
+            for prompt in prompts(args.batch, args.seed):
+                eng.add_request(prompt, sp)
         return eng
 
+    def prompts(n: int, seed: int) -> list[list[int]]:
+        rng = np.random.default_rng(seed)
+        out = []
+        for _ in range(n):
+            if args.prompt_kind == "repeat":
+                block = rng.integers(3, cfg.vocab_size, size=64)
+                out.append(np.resize(block, args.prompt_len).tolist())
+            else:
+                out.append(rng.integers(3, cfg.vocab_size, size=args.prompt_len).tolist())
+        return out
+
+    if args.engine and args.batch_load:
+        sp_i = SamplingParams(temperature=0.0, max_tokens=args.decode_steps, ignore_eos=True)
+        jobs = [p[: max(1, args.prompt_len // 4)] for p in prompts(args.batch_jobs, args.seed + 1)]
+        batch_load_runs(args, loaded_engine, card, warmups, sp_i, prompts(args.batch, args.seed),
+                        jobs)
+        return
     if args.engine:
         modes = [False, True, True, False] if args.ab else [args.async_scheduling]
         engine_runs(args, modes, loaded_engine, n_prefill, card, warmups)

@@ -8,7 +8,11 @@ its default (``--model``, ``--served-model-name``, ``--tokenizer``,
 ``--max-num-batched-tokens``, ``--decode-window``, ``--async-scheduling``,
 ``--unified-step``, ``--ragged-qlens``, ``--speculative-ngram``,
 ``--spec-ngram-k``, ``--spec-ngram-min-match``, ``--spec-verify-window``,
-``--seed``, ``--skip-warmup``,
+the batch tier's ``--batch-backfill`` / ``--no-batch-backfill``,
+``--batch-max-seqs`` and ``--batch-kv-watermark``, the tiered offload's
+``--kv-offload-chunks`` (host-DRAM pages; 0, the default, turns offload
+off) and ``--kv-offload-fs-dir`` (the file tier), ``--seed``,
+``--skip-warmup``,
 ``--quantization int8``
 (int8 weights, ``ops/quant.py``), and the tracing flags
 ``--otlp-traces-endpoint``, ``--trace-file`` and ``--trace-sample-ratio``,
@@ -30,7 +34,8 @@ at its first use. Runs on the GPU unless ``--device cpu`` is given.
 With ``--otlp-traces-endpoint`` (a collector's base URL) or ``--trace-file``
 (a JSONL span log) every generate request continues its caller's
 ``traceparent`` in an ``engine.generate`` span, sampled parent-first, else
-at ``--trace-sample-ratio``. ``LLMD_FAULT_PLAN`` (a fault plan's JSON, read
+at ``--trace-sample-ratio``. A request with the ``x-llmd-priority: batch``
+header rides the batch tier. ``LLMD_FAULT_PLAN`` (a fault plan's JSON, read
 at import of ``llmd_tpu_torch.faults``) arms the fault sites, and
 ``LLMD_REQUEST_DEADLINE_S`` bounds a request that carries no
 ``x-request-deadline-s`` header.
@@ -133,6 +138,35 @@ def build_parser() -> argparse.ArgumentParser:
              "1 keeps one-shot verify steps)",
     )
     p.add_argument(
+        "--batch-backfill", action=argparse.BooleanOptionalAction, default=True,
+        help="batch tier: requests at or below PriorityClass.BATCH (the "
+             "x-llmd-priority: batch header) ride the same continuous batch "
+             "but only backfill the budget and pages interactive rows left, "
+             "never displace an interactive admission, and are preempted "
+             "first when interactive load returns; --no-batch-backfill makes "
+             "them plain low-priority rows",
+    )
+    p.add_argument(
+        "--batch-max-seqs", type=int, default=0,
+        help="most batch rows running at once (0: no cap of their own)",
+    )
+    p.add_argument(
+        "--batch-kv-watermark", type=float, default=0.85,
+        help="admit new batch rows only while the KV pool's used share is "
+             "at or below this fraction",
+    )
+    p.add_argument(
+        "--kv-offload-chunks", type=int, default=0,
+        help="host-DRAM KV page budget of the tiered offload (0 turns it "
+             "off): committed pages are saved to host memory and restored "
+             "for a prompt whose prefix the device cache lost",
+    )
+    p.add_argument(
+        "--kv-offload-fs-dir", default=None,
+        help="directory of the offload's file tier: pages the host tier "
+             "evicts go there and load back from there, across restarts",
+    )
+    p.add_argument(
         "--unified-step", action=argparse.BooleanOptionalAction, default=True,
         help="run each window-1 engine step as one program with one "
              "readback; --no-unified-step selects the split engine (prefill "
@@ -167,7 +201,7 @@ def build_parser() -> argparse.ArgumentParser:
 
 
 def make_engine_config(args):
-    from llmd_tpu_torch.config import CacheConfig, EngineConfig, SchedulerConfig
+    from llmd_tpu_torch.config import CacheConfig, EngineConfig, OffloadConfig, SchedulerConfig
     from llmd_tpu_torch.models.loader import config_from_hf, is_model_dir
     from llmd_tpu_torch.models.registry import get_model_config
 
@@ -206,10 +240,15 @@ def make_engine_config(args):
             spec_ngram_k=args.spec_ngram_k,
             spec_ngram_min_match=args.spec_ngram_min_match,
             spec_verify_window=args.spec_verify_window,
+            batch_backfill=args.batch_backfill,
+            batch_max_seqs=args.batch_max_seqs,
+            batch_kv_watermark=args.batch_kv_watermark,
         ),
         seed=args.seed,
         weights_path=weights_path,
         tokenizer_path=tokenizer_path,
+        offload=(OffloadConfig(cpu_chunks=args.kv_offload_chunks, fs_dir=args.kv_offload_fs_dir)
+                 if args.kv_offload_chunks else None),
     )
 
 
@@ -244,6 +283,12 @@ def main(argv=None) -> None:
         AsyncEngine(engine, watchdog_s=args.step_watchdog_s), tokenizer,
         args.served_model_name or args.model, config.model.max_model_len,
     )
+
+    async def _close_engine(app):
+        # After the engine thread stops (the app's cleanup context).
+        engine.close()
+
+    app.on_cleanup.append(_close_engine)
     web.run_app(app, host=args.host, port=args.port)
 
 

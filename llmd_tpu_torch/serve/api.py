@@ -16,12 +16,13 @@ package's ``llmd_tpu/serve/api.py``):
 
 The generate routes take the router's failover resume (``resume_token_ids``
 with ``x-llmd-stream-tokens`` and ``x-llmd-resume``), the request deadline
-(``x-request-deadline-s``, else ``LLMD_REQUEST_DEADLINE_S``), and continue
-the caller's ``traceparent`` in an ``engine.generate`` span.
+(``x-request-deadline-s``, else ``LLMD_REQUEST_DEADLINE_S``), the batch
+tier's ``x-llmd-priority: batch`` header (``_effective_priority``), and
+continue the caller's ``traceparent`` in an ``engine.generate`` span.
 
 Not ported yet: ``/v1/embeddings`` and ``/vllm.Generation/Embed``, the LoRA
-load routes and adapter model ids, ``kv_transfer_params``, the
-``x-llmd-priority`` batch clamp, and the multimodal encoder parts.
+load routes and adapter model ids, ``kv_transfer_params``, and the
+multimodal encoder parts.
 """
 
 from __future__ import annotations
@@ -37,7 +38,7 @@ import pydantic
 from aiohttp import web
 
 from llmd_tpu_torch import faults
-from llmd_tpu_torch.engine.request import RequestOutput, SamplingParams
+from llmd_tpu_torch.engine.request import PriorityClass, RequestOutput, SamplingParams
 from llmd_tpu_torch.obs.tracing import get_tracer
 from llmd_tpu_torch.serve import protocol as P
 from llmd_tpu_torch.serve.async_engine import (
@@ -61,6 +62,8 @@ MAXLEN_KEY = web.AppKey("max_model_len", int)
 # replay leg, which continues an open client stream (no role preamble).
 HDR_STREAM_TOKENS = "x-llmd-stream-tokens"
 HDR_RESUME = "x-llmd-resume"
+# The batch processor's header: "batch" puts a request in the batch tier.
+HDR_PRIORITY = "x-llmd-priority"
 
 
 class Detokenizer:
@@ -160,6 +163,17 @@ def _request_deadline_s(request: web.Request) -> float | None:
     except ValueError:
         return None
     return v if v > 0 else None
+
+
+def _effective_priority(request: web.Request, body_priority: int) -> int:
+    """The request's priority with the batch header folded in (JAX
+    ``serve/api.py:264``): ``x-llmd-priority: batch`` clamps it to
+    ``PriorityClass.BATCH`` at most, whatever the body says, so a batch
+    job cannot enter the interactive band by leaving the body field out;
+    another header value leaves the body's integer."""
+    if request.headers.get(HDR_PRIORITY, "").strip().lower() == "batch":
+        return min(int(body_priority), int(PriorityClass.BATCH))
+    return int(body_priority)
 
 
 def _sse(data: dict) -> bytes:
@@ -558,6 +572,7 @@ async def _handle_generate(request: web.Request, chat: bool) -> web.StreamRespon
     budget = max_len - len(prompt_ids)
     max_tokens = min(req_max if req_max is not None else budget, budget)
     sampling = P.to_sampling(req, getattr(tokenizer, "eos_token_id", None), max_tokens)
+    priority = _effective_priority(request, req.priority)
     rid = request.headers.get("x-request-id") or P.request_id("chatcmpl" if chat else "cmpl")
     stops = P.stop_strings(req.stop)
     # Failover resume: the delivered history becomes committed prefix, and
@@ -606,11 +621,11 @@ async def _handle_generate(request: web.Request, chat: bool) -> web.StreamRespon
             if req.n > 1:
                 return await _stream_response_multi(
                     request, engine, rid, model, prompt_ids, sampling, tokenizer,
-                    stops, req.n, req.priority, chat, span, deadline_s,
+                    stops, req.n, priority, chat, span, deadline_s,
                 )
             return await _stream_response(
                 request, engine, rid, model, engine_prompt_ids, sampling, detok,
-                req.priority, chat, span, deadline_s, len(resume_ids),
+                priority, chat, span, deadline_s, len(resume_ids),
                 stream_token_ids, resume_leg,
             )
         except BaseException as e:
@@ -621,13 +636,13 @@ async def _handle_generate(request: web.Request, chat: bool) -> web.StreamRespon
     try:
         if req.n == 1:
             choices = [await _collect(engine, rid, engine_prompt_ids, sampling, detok,
-                                      req.priority, deadline_s, len(resume_ids))]
+                                      priority, deadline_s, len(resume_ids))]
         else:
             # n samples share the prompt (and its cached prefix).
             tasks = [
                 asyncio.ensure_future(_collect(
                     engine, f"{rid}-{i}", prompt_ids, _choice_sampling(sampling, i),
-                    Detokenizer(tokenizer, stops), req.priority, deadline_s,
+                    Detokenizer(tokenizer, stops), priority, deadline_s,
                 ))
                 for i in range(req.n)
             ]
@@ -741,6 +756,7 @@ async def handle_grpc_generate(request: web.Request) -> web.StreamResponse:
         return _error(400, f"invalid sampling_params: {e}")
     if sampling.max_tokens < 0:
         return _error(400, "max_tokens must be >= 0")
+    priority = _effective_priority(request, priority)
     rid = request.headers.get("x-request-id") or P.request_id("grpcgen")
     deadline_s = _request_deadline_s(request)
     stream = bool(body.get("stream", False))

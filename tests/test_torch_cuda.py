@@ -1938,3 +1938,65 @@ def test_spec_engine_on_the_card_matches_the_cpu_engine(dev, model, layout, wind
     assert gpu.allocator.usage() == 0.0
     if window > 1:
         assert any(k[0] == "vwindow" for k in gpu.runner.programs.runs)
+
+
+@pytest.mark.parametrize("kv_dtype", ["float32", "int8"])
+def test_graph_replays_after_a_restore_read_the_restored_pages(dev, kv_dtype, tmp_path):
+    """Tiered offload on the card: the decode steps' CUDA graphs are
+    captured before any restore; a prompt pushed out of a small device
+    pool and restored from the host tier (``scatter_pages`` writes the
+    pool in place) then decodes through graph replays of those graphs,
+    which read the restored pages: its stream equals its device-hit run's
+    and the CPU engine's, the pool tensors never moved, and no graph was
+    captured again. The restored pages hold ``scatter_pages``' plain
+    arithmetic of the host pages, run on the CPU."""
+    from llmd_tpu_torch.config import OffloadConfig
+    from llmd_tpu_torch.engine.kv_cache import page_hashes_for_tokens
+    from llmd_tpu_torch.ops.quant_kv import quantize_pages
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = EngineConfig(
+        model=tiny_model_config(head_dim=64, num_layers=3),
+        cache=CacheConfig(page_size=8, num_blocks=24, dtype=kv_dtype),
+        scheduler=SchedulerConfig(max_num_seqs=4, max_num_batched_tokens=64),
+        offload=OffloadConfig(cpu_chunks=64, fs_dir=str(tmp_path)),
+    )
+    params = llama.init_params(cfg.model, torch.Generator().manual_seed(0), "cpu")
+    rng = np.random.default_rng(4)
+    prompt = rng.integers(0, 256, size=41).tolist()
+    junk = [rng.integers(0, 256, size=60).tolist() for _ in range(4)]
+    sp = SamplingParams(temperature=0.0, max_tokens=12, ignore_eos=True)
+    eng = LLMEngine(cfg, params=params, device="cuda")
+    eng.warmup()
+    pool = eng.runner.kv_cache
+    ptrs = [t.data_ptr() for t in (pool if isinstance(pool, tuple) else (pool,))]
+
+    def run(p):
+        return next(iter(eng.generate([p], sp).values()))
+
+    run(prompt)
+    hit = run(prompt)
+    captured = set(eng.runner.programs.programs)  # one row's keys are captured by now
+    for p in junk:
+        run(p)
+    hashes = page_hashes_for_tokens(prompt, 8)
+    assert not any(eng.allocator.has_cached(h) for h in hashes)
+    restores0, replays0 = eng.stats.offload_restores, sum(eng.runner.programs.runs.values())
+    assert run(prompt) == hit
+    assert eng.stats.offload_restores - restores0 == len(hashes)
+    assert sum(eng.runner.programs.runs.values()) - replays0 >= sp.max_tokens - 1
+    pool = eng.runner.kv_cache
+    assert ptrs == [t.data_ptr() for t in (pool if isinstance(pool, tuple) else (pool,))]
+    assert set(eng.runner.programs.programs) == captured  # nothing captured again
+    # The restored pages: the plain arithmetic of scatter_pages on the CPU.
+    ids = torch.tensor([eng.allocator._cached[h] for h in hashes], device="cuda")
+    host = eng._host_cache
+    bundle = torch.stack([host._pages[h] for h in hashes], dim=1)  # pinned host pages
+    if isinstance(pool, tuple):
+        data, scales = quantize_pages(bundle)
+        assert torch.equal(pool[0][:, ids].cpu(), data) and torch.equal(pool[1][:, ids].cpu(), scales)
+    else:
+        assert torch.equal(pool[:, ids].cpu(), bundle)
+    cpu = LLMEngine(cfg.__class__(model=cfg.model, cache=cfg.cache, scheduler=cfg.scheduler),
+                    params=params, device="cpu")
+    assert next(iter(cpu.generate([prompt], sp).values())) == hit

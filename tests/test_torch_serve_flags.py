@@ -102,8 +102,18 @@ def assert_same_fields(port, ref, where=""):
     ["--model", "llama-3-8b", *CHART, "--speculative-ngram", "--spec-ngram-k", "3",
      "--spec-ngram-min-match", "3", "--spec-verify-window", "2"],
     ["--model", "gpt-oss-20b", "--kv-swa-ring", "--speculative-ngram"],
+    ["--model", "llama-3-8b", *CHART, "--no-batch-backfill", "--batch-max-seqs", "3",
+     "--batch-kv-watermark", "0.5"],
+    ["--model", "llama-3-8b", *CHART, "--batch-backfill", "--batch-max-seqs=0"],
+    # The tiered-prefix-cache guide's flags
+    # (deploy/guides/tiered-prefix-cache/kustomization.yaml).
+    ["--model", "llama-3-8b", *CHART, "--kv-offload-chunks=25000",
+     "--kv-offload-fs-dir=/cache/kv-fs"],
+    ["--model", "llama-3-8b", "--kv-offload-chunks", "64"],
+    ["--model", "llama-3-8b", "--kv-offload-chunks", "0", "--kv-offload-fs-dir", "/x"],
 ], ids=["registry-defaults", "chart", "chart-geometry", "ring", "layout", "hf-dir-chart",
-        "hf-dir-tokenizer", "int8", "hf-dir-int8", "async", "spec", "spec-ring"])
+        "hf-dir-tokenizer", "int8", "hf-dir-int8", "async", "spec", "spec-ring",
+        "batch-flags", "batch-defaults", "offload-guide", "offload-dram", "offload-off"])
 def test_same_argv_same_engine_config(tmp_path, argv):
     """Both parsers take the argv, and both ``make_engine_config``s give the
     same model, cache, scheduler, seed, weights and tokenizer; the port's
@@ -118,6 +128,29 @@ def test_same_argv_same_engine_config(tmp_path, argv):
     assert port.model.max_model_len == (4096 if "--max-model-len" in argv or hf_dir else 8192)
     assert (port_args.served_model_name or port_args.model) == (
         jax_args.served_model_name or jax_args.model)
+
+
+def test_batch_and_offload_defaults():
+    """JAX's defaults: the batch tier on, no cap, watermark 0.85; offload
+    off until ``--kv-offload-chunks`` names a page budget."""
+    cfg = serve.make_engine_config(serve.build_parser().parse_args([]))
+    s = cfg.scheduler
+    assert (s.batch_backfill, s.batch_max_seqs, s.batch_kv_watermark) == (True, 0, 0.85)
+    assert cfg.offload is None
+    cfg = serve.make_engine_config(serve.build_parser().parse_args(
+        ["--kv-offload-chunks=25000", "--kv-offload-fs-dir=/cache/kv-fs"]))
+    assert (cfg.offload.enabled, cfg.offload.cpu_chunks, cfg.offload.fs_dir) == (
+        True, 25000, "/cache/kv-fs")
+
+
+def test_server_refuses_offload_beside_the_ring(monkeypatch):
+    """``--kv-swa-ring`` with ``--kv-offload-chunks`` on a sliding model is
+    refused at engine build, as the JAX server refuses it."""
+    monkeypatch.setattr(web, "run_app", lambda app, **kw: None)
+    with pytest.raises(ValueError, match="kv_swa_ring does not compose with tiered KV offload"):
+        serve.main(["--model", "tiny-swa", "--device", "cpu", "--num-blocks", "64",
+                    "--skip-warmup", "--kv-swa-ring", "--max-num-batched-tokens", "32",
+                    "--kv-offload-chunks", "16"])
 
 
 def test_defaults_and_aliases():

@@ -294,6 +294,32 @@ through an HF checkpoint):
                restored after eviction answers as its device hit did, and
                ``x-llmd-priority: batch`` requests count on
                ``llmd:batch_tokens_total``.
+    ``pd_exact``, ``pd``, ``pd_serve`` P/D disaggregation
+               (``kvtransfer/connector.py``): a producer engine exports a
+               finished one-token prefill's KV (answering once the
+               prefill is dispatched), a consumer imports it and decodes. ``pd_exact``: llama-3-8b's
+               widths cut to 4 layers in f32, the in-process fast path on
+               and off, 1 and 4 layer groups: streams equal the aggregated
+               engine's token for token, imported pages equal the
+               producer's bit for bit. ``pd``: llama-3-8b bf16 full size,
+               the consumer with windows of 8, 8 prompts of 1,000 tokens
+               and 32 greedy tokens one at a time, over TCP on the v3 wire,
+               exact and int8: TTFT against the aggregated engine's and its
+               split (the producer's answer and whether the card was
+               still busy then, ``last_stage_ms``, ``last_fetch_ms``,
+               ``last_apply_ms``), the staging legs' GB/s, exported and imported bytes equal to their
+               arithmetic, the q8 codec's device ms against its bound,
+               each engine's launches; streams held to the model
+               (``spec_rescore``), int8 wire pages within rel 0.01 of the
+               producer's; then deepseek-v2-lite's latent pool and
+               gpt-oss-20b in its ring (sections exported, pages and ring
+               preloaded), each cut to 4 layers. ``pd_serve``: two servers
+               in the chart's roles (bound to every interface, each
+               advertising 127.0.0.1), this script as the routing sidecar:
+               both phases, the streamed decodes held to the model against
+               the producer's own answers, the transfer series on both
+               /metrics pages, and with the producer stopped the decoder
+               answers alone.
 
 Each phase prints one JSON line. Any failure raises and exits non-zero
 without printing a result. On success the line before the last is the
@@ -304,6 +330,7 @@ Imports nothing of JAX or of ``llmd_tpu``.
 
 from __future__ import annotations
 
+import collections
 import contextlib
 import gc
 import json
@@ -5448,6 +5475,575 @@ def offload_batch_serve_check(info: dict, base: str) -> None:
         raise AssertionError(f"the restored prompt answered {texts[2]}, its device hit {texts[1]}")
 
 
+# --------------------------------------------------------------------- #
+# P/D disaggregation (``kvtransfer/connector.py``): a producer engine
+# exports a finished prefill's KV, a consumer engine imports it.
+
+PD_PROMPT, PD_TOKENS, PD_PROMPTS = 1000, 32, 8
+
+
+def pd_engine(cfg, params: dict, role: str | None, window: int = 1, fast: bool = False,
+              swa_ring: bool = False, warm: bool = False):
+    """An engine of the P/D pair (or, ``role`` None, the aggregated one):
+    page 16, 2,048 pages, 16 slots, budget 1,024, the shipper on a free
+    port; ``window`` its decode window (the chart's decode tier: 8)."""
+    from llmd_tpu_torch.config import CacheConfig, EngineConfig, SchedulerConfig
+    from llmd_tpu_torch.engine import LLMEngine
+
+    eng = LLMEngine(EngineConfig(
+        model=cfg, cache=CacheConfig(page_size=16, num_blocks=2048, dtype=cfg.dtype,
+                                     swa_ring=swa_ring),
+        scheduler=SchedulerConfig(max_num_seqs=16, max_num_batched_tokens=1024,
+                                  decode_window=window),
+        seed=0, kv_role=role, kv_transfer_port=0, kv_local_fastpath=fast,
+    ), params=params, device="cuda")
+    if warm:
+        eng.warmup()
+    return eng
+
+
+class LaunchLog:
+    """Kernel launches by engine: the counts' moves around each call made
+    for that engine (one thread drives both; the transfer's threads launch
+    no kernel)."""
+
+    def __init__(self) -> None:
+        from llmd_tpu_torch import ops
+
+        self.ops = ops
+        self.by: dict[str, collections.Counter] = {}
+
+    def __call__(self, who: str, fn, *a, **k):
+        before = self.ops.launch_counts()
+        out = fn(*a, **k)
+        after = self.ops.launch_counts()
+        self.by.setdefault(who, collections.Counter()).update(
+            {n: after[n] - before[n] for n in after if after[n] != before[n]})
+        return out
+
+
+def aggregated_request(eng, prompt: list[int], sp, log: LaunchLog | None = None) -> dict:
+    """One request alone on an engine: its tokens and its TTFT."""
+    t0 = time.perf_counter()
+    rid = eng.add_request(list(prompt), sp)
+    toks, first = [], None
+    while eng.has_work():
+        outs = log("aggregated", eng.step) if log else eng.step()
+        for o in outs:
+            if o.request_id == rid:
+                if first is None and o.new_token_ids:
+                    torch.cuda.synchronize()
+                    first = time.perf_counter()
+                toks += o.new_token_ids
+    return {"tokens": toks, "ttft_ms": (first - t0) * 1e3}
+
+
+def settle(eng) -> None:
+    """Wait for a producer's staging threads to end."""
+    deadline = time.perf_counter() + 120
+    while eng.kv_connector._staging_active:
+        if time.perf_counter() > deadline:
+            raise TimeoutError("a producer's staging thread did not end in 120 s")
+        time.sleep(0.002)
+
+
+def pd_request(producer, consumer, prompt: list[int], sp, log: LaunchLog) -> dict:
+    """The sidecar's two phases in one process: the producer's one-token
+    prefill with ``do_remote_decode`` (eager-ACK: its token is not read
+    back), then the consumer's request with its params (the import runs
+    in ``add_request``). Returns the stream, TTFT and its split (the
+    producer's answer: its step's host ms and the export's share of it,
+    whether the compute stream was still busy then and how long it ran
+    on, waited for before the import; the consumer's fetch and apply, the
+    rest to the first token), the legs' seconds and bytes, and the
+    params."""
+    from llmd_tpu_torch.engine import SamplingParams
+
+    t0 = time.perf_counter()
+    producer.add_request(list(prompt), SamplingParams(temperature=0.0, max_tokens=1),
+                         kv_transfer_params={"do_remote_decode": True})
+    params = None
+    while producer.has_work():
+        for o in log("producer", producer.step):
+            params = o.kv_transfer_params if o.finished else params
+    t_answer = time.perf_counter()
+    # Eager-ACK: is the prefill (and the export's gathers after it) still
+    # on the compute stream when the answer is out, and for how long.
+    stream = torch.cuda.current_stream()
+    busy = not stream.query()
+    stream.synchronize()
+    device_after_answer_ms = (time.perf_counter() - t_answer) * 1e3
+    t_answer_done = time.perf_counter()
+    rid = log("consumer", consumer.add_request, list(prompt), sp, kv_transfer_params=params)
+    t_added = time.perf_counter()
+    import_ms = (t_added - t_answer_done) * 1e3
+    toks, first = [], None
+    while consumer.has_work():
+        for o in log("consumer", consumer.step):
+            if o.request_id == rid:
+                if first is None and o.new_token_ids:
+                    first = time.perf_counter()
+                toks += o.new_token_ids
+    settle(producer)
+    pc, cc = producer.kv_connector, consumer.kv_connector
+    return {"tokens": toks, "params": params,
+            "ttft_ms": (first - t0) * 1e3, "answer_ms": (t_answer - t0) * 1e3,
+            "device_busy_at_answer": busy, "device_after_answer_ms": device_after_answer_ms,
+            "producer_step_host_ms": producer.stats.step_host_gap_ms,
+            "export_ms": producer.kv_connector.last_export_ms,
+            "import_ms": import_ms, "to_first_token_ms": (first - t_added) * 1e3,
+            "last_stage_ms": pc.last_stage_ms, "last_fetch_ms": cc.last_fetch_ms,
+            "last_apply_ms": cc.last_apply_ms, "staged_bytes": pc.last_staged_bytes,
+            "download_s": pc.last_download_s, "register_s": pc.last_register_s,
+            "pull_s": cc.last_pull_s, "pulled_bytes": cc.last_pulled_bytes}
+
+
+def transfer_bytes(cfg, n_full: int, cp: int, groups: list, wire: str, dtype_name: str) -> int:
+    """The wire bytes of one export by arithmetic: layers x pages x page
+    bytes a cell (chunks padded to ``cp`` pages), its header (27 bytes, the
+    dtype's name, the group extension when grouped, the CRC), and in the q8
+    form int8 rows and two f16 scales a row."""
+    chunks = -(-n_full // cp)
+    name = ("int8q:" + dtype_name) if wire == "int8" else dtype_name
+    header = 27 + len(name) + (6 if len(groups) > 1 else 0) + 4
+    rows_per_layer = cp * cfg.kv_cache_heads * 16
+    item = 1 if wire == "int8" else torch.empty((), dtype=getattr(torch, dtype_name)).element_size()
+    total = 0
+    for _, lg in groups:
+        payload = lg * rows_per_layer * cfg.kv_cache_entry_dim * item
+        if wire == "int8":
+            payload += lg * rows_per_layer * 4
+        total += chunks * (header + payload)
+    return total
+
+
+def prompt_pages(eng, prompt: list[int]) -> list[int]:
+    """The pool pages holding a prompt's full pages in an engine's prefix
+    cache."""
+    from llmd_tpu_torch.engine.kv_cache import page_hashes_for_tokens
+
+    return [eng.allocator._cached[h] for h in page_hashes_for_tokens(prompt, 16)]
+
+
+def held_to_model(info: dict, params: dict, cfg, prompts: list, got: list, ref: list,
+                  what: str) -> None:
+    """``got``'s every greedy token held to the model (``spec_rescore``)
+    within the reference streams' gaps, as ``batch_phase`` holds a run."""
+    want = spec_rescore(params, cfg, prompts, ref)
+    have = spec_rescore(params, cfg, prompts, got)
+    info[f"rescore_{what}"], info["rescore_aggregated"] = have, want
+    info[f"streams_equal_aggregated_{what}"] = sum(a == b for a, b in zip(got, ref))
+    if want["top_gap_max"] <= SPEC_TOP_GAP_TOL < have["top_gap_max"] or (
+            want["top_gap_max"] > SPEC_TOP_GAP_TOL
+            and have["positions_above_tol"] > SPEC_ABOVE_TOL_FACTOR * want["positions_above_tol"]):
+        raise AssertionError(f"a {what} token is not the model's top at its position: {have}, "
+                             f"aggregated: {want}")
+
+
+def pd_exact_phase(layers: int = 4) -> None:
+    """llama-3-8b's widths cut to ``layers`` layers in f32: P/D pairs with
+    the in-process fast path on and off and 1 and 4 layer groups give the
+    aggregated engine's streams token for token, and the pages imported
+    through the exact wire (or claimed on the device) equal the
+    producer's pool pages bit for bit."""
+    import dataclasses
+
+    from llmd_tpu_torch.engine import SamplingParams
+    from llmd_tpu_torch.models import llama
+    from llmd_tpu_torch.models.registry import get_model_config
+
+    cfg = dataclasses.replace(get_model_config(MODEL), num_layers=layers, dtype="float32")
+    params = llama.init_params(cfg, torch.Generator(device="cuda").manual_seed(0), "cuda",
+                               fused=True)
+    sp = SamplingParams(temperature=0.0, max_tokens=16, ignore_eos=True)
+    prompts = fixed_prompts(cfg, 8, 300, 61)
+    agg = pd_engine(cfg, params, None)
+    want = [aggregated_request(agg, p, sp)["tokens"] for p in prompts]
+    del agg
+    producer = pd_engine(cfg, params, "kv_producer", fast=True)
+    consumer = pd_engine(cfg, params, "kv_consumer", fast=True)
+    try:
+        for v, (fast, groups) in enumerate([(False, 1), (False, 4), (True, 1), (True, 4)]):
+            with phase("pd_exact", {"model": MODEL, "layers": layers, "dtype": "float32",
+                                    "local_fastpath": fast, "stream_groups": groups}) as info:
+                producer.kv_connector.cfg.stream_groups = groups
+                consumer.kv_connector.cfg.local_fastpath = fast
+                log = LaunchLog()
+                ps = prompts[2 * v : 2 * v + 2]
+                local0 = consumer.kv_connector.local_imports
+                runs = [pd_request(producer, consumer, p, sp, log) for p in ps]
+                tokens = [r["tokens"] for r in runs]
+                equal_pages = [
+                    all(torch.equal(producer.runner.kv_cache[:, a], consumer.runner.kv_cache[:, b])
+                        for a, b in zip(prompt_pages(producer, p), prompt_pages(consumer, p)))
+                    for p in ps]
+                info.update(streams_equal_aggregated=tokens == want[2 * v : 2 * v + 2],
+                            pages_bit_equal=equal_pages,
+                            num_groups=runs[0]["params"].get("num_groups", 1),
+                            local_imports=consumer.kv_connector.local_imports - local0,
+                            ttft_ms=[r["ttft_ms"] for r in runs],
+                            launches={k: dict(c) for k, c in log.by.items()})
+                path_launches(info, dict(log.by["producer"]), FLAT_WRAPPERS)
+                path_launches(info, dict(log.by["consumer"]), FLAT_WRAPPERS)
+                info["launches"] = {k: dict(c) for k, c in log.by.items()}
+                if tokens != want[2 * v : 2 * v + 2]:
+                    raise AssertionError("a P/D stream differs from the aggregated engine's")
+                if not all(equal_pages):
+                    raise AssertionError("imported pages differ from the producer's")
+                if info["local_imports"] != (len(ps) if fast else 0):
+                    raise AssertionError(f"{info['local_imports']} in-process claims")
+                if consumer.kv_connector.import_failures:
+                    raise AssertionError("an import failed")
+    finally:
+        producer.close()
+        consumer.close()
+    del producer, consumer, params
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def q8_codec_times(snap: torch.Tensor) -> dict:
+    """The q8 codec (plain PyTorch) on one export cell on the card: device
+    ms of the quantization and the dequantization beside their byte
+    bounds (the cell read once, int8 rows and f16 scales written once)."""
+    from llmd_tpu_torch.ops.quant_kv import dequantize_rows_q8, quantize_rows_q8
+
+    rows = snap.numel() // snap.shape[-1]
+    in_b = snap.numel() * snap.element_size()
+    out_b = snap.numel() + rows * 4
+    q, s = quantize_rows_q8(snap)
+    q_ms = cuda_ms(lambda: quantize_rows_q8(snap))
+    d_ms = cuda_ms(lambda: dequantize_rows_q8(q, s, snap.dtype))
+    bound_ms = (in_b + out_b) / HBM_BYTES_PER_S * 1e3
+    return {"cell_shape": list(snap.shape), "cell_bytes": in_b, "wire_bytes": out_b,
+            "quantize_ms": q_ms, "dequantize_ms": d_ms, "bound_ms": bound_ms,
+            "quantize_over_bound": q_ms / bound_ms, "dequantize_over_bound": d_ms / bound_ms}
+
+
+def pd_phase(params: dict, cfg) -> None:
+    """llama-3-8b in bf16 at full width and depth: 8 prompts of 1,000
+    tokens, 32 greedy tokens, one at a time, on the aggregated engine
+    (windows of 8) and through a P/D pair (producer on the flat step,
+    consumer the chart's decode tier: windows of 8), over TCP on the v3
+    wire, exact and int8. Reports TTFT both ways and its split, the
+    staging legs' GB/s, the bytes against their arithmetic, the q8 codec
+    against its bound and each engine's launches; streams are held to the
+    model (``held_to_model``), int8 wire pages to JAX's per-row bound."""
+    from llmd_tpu_torch.engine import SamplingParams
+    from llmd_tpu_torch.kvtransfer.connector import layer_groups
+
+    sp = SamplingParams(temperature=0.0, max_tokens=PD_TOKENS, ignore_eos=True)
+    sets = {"auto": fixed_prompts(cfg, PD_PROMPTS, PD_PROMPT, 71),
+            "int8": fixed_prompts(cfg, PD_PROMPTS, PD_PROMPT, 72)}
+    agg = pd_engine(cfg, params, None, window=8, warm=True)
+    aggregated_request(agg, [5] * PD_PROMPT, sp)  # warm steps
+    alog = LaunchLog()
+    ref = {w: [aggregated_request(agg, p, sp, alog) for p in ps] for w, ps in sets.items()}
+    del agg
+    gc.collect()
+    torch.cuda.empty_cache()
+    producer = pd_engine(cfg, params, "kv_producer")
+    consumer = pd_engine(cfg, params, "kv_consumer", window=8, warm=True)
+    try:
+        pd_request(producer, consumer, [7] * PD_PROMPT, sp, LaunchLog())  # warm steps
+        for wire, prompts in sets.items():
+            with phase("pd", {"model": MODEL, "dtype": cfg.dtype, "wire": wire,
+                              "prompts": PD_PROMPTS, "prompt_tokens": PD_PROMPT,
+                              "max_tokens": PD_TOKENS, "consumer_decode_window": 8}) as info:
+                producer.kv_connector.cfg.transfer_dtype = wire
+                log = LaunchLog()
+                pc, cc = producer.kv_connector, consumer.kv_connector
+                exported0, imported0 = pc.stats()["exported_bytes"], cc.imported_bytes
+                runs = [pd_request(producer, consumer, p, sp, log) for p in prompts]
+                n_full, groups = PD_PROMPT // 16, layer_groups(cfg.num_layers, 4)
+                want_bytes = PD_PROMPTS * transfer_bytes(cfg, n_full, 8, groups, wire, cfg.dtype)
+                med = lambda k: statistics.median(r[k] for r in runs)  # noqa: E731
+                info.update(
+                    ttft_ms_aggregated=[r["ttft_ms"] for r in ref[wire]],
+                    ttft_ms_pd=[r["ttft_ms"] for r in runs],
+                    ttft_ms_median={"aggregated": statistics.median(r["ttft_ms"] for r in ref[wire]),
+                                    "pd": med("ttft_ms")},
+                    split_ms_median={k: med(k) for k in (
+                        "answer_ms", "producer_step_host_ms", "export_ms",
+                        "device_after_answer_ms", "import_ms", "to_first_token_ms",
+                        "last_stage_ms", "last_fetch_ms", "last_apply_ms")},
+                    answers_before_prefill_end=sum(r["device_busy_at_answer"] for r in runs),
+                    answer_ms=[r["answer_ms"] for r in runs],
+                    device_after_answer_ms=[r["device_after_answer_ms"] for r in runs],
+                    legs_gb_s={"d2h": statistics.median(r["staged_bytes"] / r["download_s"] / 1e9
+                                                        for r in runs),
+                               "register": statistics.median(r["staged_bytes"] / r["register_s"] / 1e9
+                                                             for r in runs),
+                               "pull": statistics.median(r["pulled_bytes"] / r["pull_s"] / 1e9
+                                                         for r in runs),
+                               "land": statistics.median(
+                                   r["pulled_bytes"] / (r["last_fetch_ms"] / 1e3 - r["pull_s"]) / 1e9
+                                   for r in runs)},
+                    staged_bytes_per_export=runs[0]["staged_bytes"],
+                    exported_bytes=pc.stats()["exported_bytes"] - exported0,
+                    imported_bytes=cc.imported_bytes - imported0, bytes_by_arithmetic=want_bytes,
+                    num_groups=runs[0]["params"].get("num_groups", 1),
+                    launches={k: dict(c) for k, c in log.by.items()},
+                    launches_aggregated=dict(alog.by.get("aggregated", {})))
+                if info["exported_bytes"] != want_bytes or info["imported_bytes"] != want_bytes:
+                    raise AssertionError(f"bytes exported {info['exported_bytes']}, imported "
+                                         f"{info['imported_bytes']}, by arithmetic {want_bytes}")
+                path_launches(info, dict(log.by["producer"]), FLAT_WRAPPERS)
+                path_launches(info, dict(log.by["consumer"]),
+                              ("decode_paged_attention_full", "write_kv_pages_decode_full",
+                               *FLAT_WRAPPERS))
+                info["launches"] = {k: dict(c) for k, c in log.by.items()}
+                if cc.import_failures:
+                    raise AssertionError(f"{cc.import_failures} imports failed")
+                held_to_model(info, params, cfg, prompts, [r["tokens"] for r in runs],
+                              [r["tokens"] for r in ref[wire]], "pd")
+                if wire == "int8":
+                    rels = []
+                    for p in prompts:
+                        a = producer.runner.kv_cache[:, prompt_pages(producer, p)].float()
+                        b = consumer.runner.kv_cache[:, prompt_pages(consumer, p)].float()
+                        D = a.shape[-1] // 2
+                        rels.append([((b[..., h] - a[..., h]).norm() / a[..., h].norm()).item()
+                                     for h in (slice(None), slice(0, D), slice(D, None))])
+                    info["q8_page_rel_err_max"] = max(max(r) for r in rels)
+                    if info["q8_page_rel_err_max"] >= 0.01:
+                        raise AssertionError(f"q8 pages beyond rel 0.01: {rels}")
+                    ids = prompt_pages(producer, prompts[0])[:8]
+                    info["q8_codec"] = q8_codec_times(
+                        producer.runner.snapshot_pages_device(ids, 8, layers=groups[0]))
+    finally:
+        producer.close()
+        consumer.close()
+    del producer, consumer
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def pd_cut_phase(model: str, layers: int, swa_ring: bool = False) -> None:
+    """A P/D pair of ``model`` cut to ``layers`` layers in bf16 (exact
+    wire, TCP), 4 prompts of 1,000 tokens, 16 greedy tokens, beside the
+    aggregated engine: deepseek-v2-lite's latent pool, gpt-oss-20b in its
+    ring (the export carries the sliding section; the consumer preloads
+    the pages and a fresh ring). Streams held to the model; launches
+    checked on both engines."""
+    import dataclasses
+
+    from llmd_tpu_torch.engine import SamplingParams
+    from llmd_tpu_torch.models import llama
+    from llmd_tpu_torch.models.registry import get_model_config
+
+    base = get_model_config(model)
+    cut = {"layer_types": base.layer_types[:layers]} if base.layer_types else {}
+    cfg = dataclasses.replace(base, num_layers=layers, **cut)
+    params = llama.init_params(cfg, torch.Generator(device="cuda").manual_seed(0), "cuda",
+                               fused=not cfg.is_mla)
+    if model == OSS_MODEL:
+        fill_biases(params, seed=3)
+    wrappers = MLA_WRAPPERS if cfg.is_mla else FLAT_WRAPPERS
+    sp = SamplingParams(temperature=0.0, max_tokens=16, ignore_eos=True)
+    prompts = fixed_prompts(cfg, 4, PD_PROMPT, 81)
+    with phase("pd", {"model": model, "layers": layers, "dtype": cfg.dtype, "wire": "auto",
+                      "kv_swa_ring": swa_ring}) as info:
+        agg = pd_engine(cfg, params, None, swa_ring=swa_ring)
+        ref = [aggregated_request(agg, p, sp) for p in prompts]
+        del agg
+        producer = pd_engine(cfg, params, "kv_producer", swa_ring=swa_ring)
+        consumer = pd_engine(cfg, params, "kv_consumer", swa_ring=swa_ring)
+        try:
+            log = LaunchLog()
+            runs = [pd_request(producer, consumer, p, sp, log) for p in prompts]
+            cc = consumer.kv_connector
+            info.update(ttft_ms_aggregated=[r["ttft_ms"] for r in ref],
+                        ttft_ms_pd=[r["ttft_ms"] for r in runs],
+                        swa_pages=[r["params"]["swa_pages"] for r in runs],
+                        num_groups=runs[0]["params"].get("num_groups", 1),
+                        imported_requests=cc.imported_requests,
+                        imported_bytes=cc.imported_bytes, import_failures=cc.import_failures)
+            # The producer only prefills: an MLA prefill's latent attention
+            # is the plain Q > 1 form (K5' is the decode kernel).
+            path_launches(info, dict(log.by["producer"]),
+                          tuple(w for w in wrappers if w != "mla_decode_paged_attention_full"))
+            path_launches(info, dict(log.by["consumer"]), wrappers)
+            info["launches"] = {k: dict(c) for k, c in log.by.items()}
+            if cc.imported_requests != len(prompts) or cc.import_failures:
+                raise AssertionError(f"imports {cc.imported_requests}, failures "
+                                     f"{cc.import_failures}")
+            if swa_ring and not all(info["swa_pages"]):
+                raise AssertionError("a ring export carried no sliding section")
+            held_to_model(info, params, cfg, prompts, [r["tokens"] for r in runs],
+                          [r["tokens"] for r in ref], "pd")
+        finally:
+            producer.close()
+            consumer.close()
+    del producer, consumer, params
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def free_port() -> int:
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def start_server(args: list[str], log_name: str, port: int | None = None):
+    """A server process on ``port`` (default: a free one) with ``args``;
+    (process, base URL, port, log path). The caller waits for its health
+    and stops it."""
+    port = port or free_port()
+    os.makedirs(os.path.join(REPO, "build"), exist_ok=True)
+    log_path = os.path.join(REPO, "build", log_name)
+    with open(log_path, "w") as log:
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "llmd_tpu_torch.serve", "--host", "127.0.0.1",
+             "--port", str(port), *args], cwd=REPO, stdout=log, stderr=subprocess.STDOUT)
+    return proc, f"http://127.0.0.1:{port}", port, log_path
+
+
+def wait_healthy(servers: list, limit_s: float = 600) -> float:
+    t0 = time.perf_counter()
+    pending = list(servers)
+    while pending:
+        for s in list(pending):
+            proc, base, _, log_path = s
+            if proc.poll() is not None:
+                raise RuntimeError(f"server exited with {proc.returncode}; see {log_path}")
+            try:
+                with urllib.request.urlopen(base + "/health", timeout=5) as r:
+                    if r.status == 200:
+                        pending.remove(s)
+            except OSError:
+                pass
+        if time.perf_counter() - t0 > limit_s:
+            raise TimeoutError(f"servers not healthy in {limit_s} s")
+        time.sleep(0.5)
+    return time.perf_counter() - t0
+
+
+def stop_server(proc) -> None:
+    proc.terminate()
+    try:
+        proc.wait(timeout=60)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.wait()
+
+
+def pd_serve_phase(info: dict) -> None:
+    """Two port servers on the card in llm-d's P/D roles (the chart's
+    ``--kv-transfer-config`` and ``--advertised-address``, 1,024 pages
+    each, the decode tier's windows of 8): this script plays the routing
+    sidecar. Both bind every interface, as the chart's pods do, so the
+    producer's ``remote_host`` comes from ``--advertised-address`` alone.
+    Each prompt's prefill goes to the producer (``max_tokens`` 1,
+    ``do_remote_decode``), its decode to the consumer with the returned
+    params (streamed, token ids annotated; the group-streamed import, whose
+    fetch thread scatters while the consumer steps): 16 tokens, TTFT of
+    both phases; /metrics counts the exports and imports on both. Each
+    stream is held to the model (``held_to_model``) against the producer's
+    own aggregated answer (Generate) for its prompt. Then the producer
+    exports one more prompt and is stopped: the consumer answers it alone
+    with the producer's aggregated tokens, and counts the failed import."""
+    from llmd_tpu_torch.models import llama
+    from llmd_tpu_torch.models.registry import get_model_config
+
+    ship = free_port()
+    common = ["--model", MODEL, "--num-gpu-blocks-override", "1024", "--decode-window", "8",
+              "--host", "0.0.0.0"]
+    kv = '{"kv_connector":"TPUConnector","kv_role":"%s"%s}'
+    servers = []
+    try:
+        ports = free_port(), free_port()
+        prod = start_server([*common, "--skip-warmup", "--advertised-address",
+                             f"127.0.0.1:{ports[0]}", "--kv-transfer-config",
+                             kv % ("kv_producer", f',"transfer_port":{ship}')],
+                            "chip_smoke_pd_producer.log", port=ports[0])
+        servers.append(prod)
+        cons = start_server([*common, "--advertised-address", f"127.0.0.1:{ports[1]}",
+                             "--kv-transfer-config", kv % ("kv_consumer", "")],
+                            "chip_smoke_pd_consumer.log", port=ports[1])
+        servers.append(cons)
+        info["startup_s"] = wait_healthy(servers)
+        cfg = get_model_config(MODEL)
+        prompts = fixed_prompts(cfg, 5, PD_PROMPT, 91)
+        decode = {"max_tokens": 16, "temperature": 0.0, "ignore_eos": True}
+        phase1_ms, ttft_ms, streams, refs = [], [], [], []
+        for p in prompts[:4]:
+            t0 = time.perf_counter()
+            status, raw = _post(prod[1] + "/v1/completions", {
+                "prompt": p, "max_tokens": 1, "temperature": 0.0,
+                "kv_transfer_params": {"do_remote_decode": True}})
+            phase1_ms.append((time.perf_counter() - t0) * 1e3)
+            params = json.loads(raw)["kv_transfer_params"]
+            if status != 200 or params["remote_port"] != ship or params["remote_host"] != "127.0.0.1":
+                raise AssertionError(f"the prefill answered {status}, {params}")
+            got = _stream(cons[1], "/v1/completions",
+                          {"prompt": p, **decode, "stream": True, "kv_transfer_params": params},
+                          {"x-llmd-stream-tokens": "1"})
+            ttft_ms.append(phase1_ms[-1] + got["first_ms"])
+            streams.append([t for f in got["frames"] for t in f.get("token_ids") or []])
+            status, raw = _post(prod[1] + "/vllm.Generation/Generate",
+                                {"prompt_token_ids": p, "sampling_params": decode})
+            if status != 200:
+                raise AssertionError(f"the producer's Generate answered {status}")
+            refs.append(json.loads(raw)["token_ids"])
+        info.update(phase1_ms=phase1_ms, two_phase_ttft_ms=ttft_ms,
+                    tokens=[len(s) for s in streams])
+        if any(len(s) != 16 for s in streams + refs):
+            raise AssertionError(f"decode streams of {info['tokens']} tokens, references of "
+                                 f"{[len(r) for r in refs]}")
+        pm, _ = _scrape(prod[1])
+        cm, _ = _scrape(cons[1])
+        keys = ("kv_transfer_exported_requests_total", "kv_transfer_exported_bytes_total",
+                "kv_transfer_imported_requests_total", "kv_transfer_imported_bytes_total",
+                "kv_transfer_import_failures_total", "kv_stream_groups_total")
+        info["producer_metrics"] = {k: pm.get(f"llmd:{k}") for k in keys}
+        info["consumer_metrics"] = {k: cm.get(f"llmd:{k}") for k in keys}
+        if (pm["llmd:kv_transfer_exported_requests_total"] < 4
+                or cm["llmd:kv_transfer_imported_requests_total"] != 4
+                or cm["llmd:kv_transfer_import_failures_total"] != 0
+                or cm["llmd:kv_transfer_imported_bytes_total"] <= 0
+                or cm["llmd:kv_stream_groups_total"] <= 0):
+            raise AssertionError(f"transfer counters: {info}")
+        # The decoder-only fallback: the producer's own aggregated answer
+        # (a full prefill, the consumer's layout) is the reference.
+        p = prompts[4]
+        gen = {"prompt_token_ids": p, "sampling_params": decode}
+        status, raw = _post(prod[1] + "/vllm.Generation/Generate", gen)
+        reference = json.loads(raw)["token_ids"]
+        status, raw = _post(prod[1] + "/v1/completions", {
+            "prompt": p, "max_tokens": 1, "temperature": 0.0,
+            "kv_transfer_params": {"do_remote_decode": True}})
+        params = json.loads(raw)["kv_transfer_params"]
+        stop_server(prod[0])
+        servers.remove(prod)
+        status, raw = _post(cons[1] + "/vllm.Generation/Generate",
+                            {**gen, "kv_transfer_params": params})
+        fallback = json.loads(raw)["token_ids"]
+        cm2, _ = _scrape(cons[1])
+        info["fallback_equals_reference"] = fallback == reference
+        info["fallback_import_failures"] = cm2["llmd:kv_transfer_import_failures_total"]
+        if status != 200 or fallback != reference:
+            raise AssertionError(f"the decoder alone answered {fallback} ({status}), the "
+                                 f"producer {reference}")
+        if cm2["llmd:kv_transfer_import_failures_total"] != 1:
+            raise AssertionError("the failed import is not counted")
+    finally:
+        for s in servers:
+            stop_server(s[0])
+    for _, _, _, log_path in (prod, cons):
+        with open(log_path) as f:
+            if "binds all interfaces" in f.read():
+                raise AssertionError(f"{log_path}: the advertised address was not taken")
+    # The servers draw their weights as this script does (seed 0).
+    params = llama.init_params(cfg, torch.Generator(device="cuda").manual_seed(0), "cuda",
+                               fused=True)
+    held_to_model(info, params, cfg, prompts[:4], streams, refs, "pd_serve")
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false", file=sys.stderr)
@@ -5548,6 +6144,8 @@ def main() -> int:
     batch_phase(params, get_model_config(MODEL))
     offload_phase(params, MODEL, "bfloat16", async_too=True)
     offload_phase(params, MODEL, "int8")
+    pd_exact_phase()
+    pd_phase(params, get_model_config(MODEL))
     t_stats = time.perf_counter()
     surface = stats_update_cost(params)
     surface["stats_update_s"] = time.perf_counter() - t_stats
@@ -5576,6 +6174,7 @@ def main() -> int:
     with phase("engine", {"model": DS_MODEL, "layout": "split engine, decode_window 8"}) as info:
         ds_engine_phase(info, params)
     offload_phase(params, DS_MODEL, "bfloat16")
+    pd_cut_phase(DS_MODEL, 4)
     params8 = llama.init_params(get_model_config(DS_MODEL, quantization="int8"),
                                 torch.Generator(device="cuda").manual_seed(0), "cuda")
     with phase("forward", {"model": DS_MODEL, "quantization": "int8"}) as info:
@@ -5642,6 +6241,7 @@ def main() -> int:
         hybrid_prefix_phase(info, params)
     with phase("capacity", {"model": OSS_MODEL, "layout": "flat step"}) as info:
         capacity_phase(info, params)
+    pd_cut_phase(OSS_MODEL, 4, swa_ring=True)
     del params
     gc.collect()
     torch.cuda.empty_cache()
@@ -5710,6 +6310,9 @@ def main() -> int:
         serve_phase(info, ["--kv-swa-ring"], OSS_MODEL)
     with phase("serve", {"layout": "flat step", "kv_cache_dtype": "int8"}) as info:
         serve_phase(info, ["--kv-cache-dtype", "int8"])
+    with phase("pd_serve", {"model": MODEL, "roles": ["kv_producer", "kv_consumer"],
+                            "device_pages": 1024, "decode_window": 8}) as info:
+        pd_serve_phase(info)
     # Each kernel's launches come from the engine run that is its main path:
     # the unbranched K1'/K3' rows from llama-3-8b's flat and split-window
     # runs; a branched row (the fused writes, the window, sink and int8

@@ -403,6 +403,21 @@ class EngineConfig:
     # The server's tokenizer: an HF tokenizer directory or name, or None /
     # "byte" for the byte tokenizer (``serve/tokenizer.py``).
     tokenizer_path: str | None = None
+    # P/D disaggregation (``kvtransfer/connector.py``): None, kv_producer,
+    # kv_consumer or kv_both; the address consumers are told (the
+    # server's --advertised-address); the shipper's port (0: any free
+    # one); the lease of an export; what a failed import does (recompute
+    # or fail); the wire form (auto: the pool's dtype, int8: q8 rows,
+    # adaptive: the faster on this link); the in-process fast path; the
+    # v3 wire's layer groups (1: the v2 chunk framing).
+    kv_role: str | None = None
+    kv_host: str = "127.0.0.1"
+    kv_transfer_port: int = 9100
+    kv_lease_ms: int = 30_000
+    kv_load_failure_policy: str = "recompute"
+    kv_transfer_dtype: str = "auto"
+    kv_local_fastpath: bool = True
+    kv_stream_groups: int = 4
     # Tiered KV offload; None turns it off.
     offload: OffloadConfig | None = None
 

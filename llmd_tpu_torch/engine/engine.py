@@ -38,6 +38,17 @@ prefix run before the request is queued.
 The batch tier (``SchedulerConfig.batch_backfill``, ``Request.is_batch``)
 is the scheduler's; the engine reports its counters (``batch_*``).
 
+P/D disaggregation (``EngineConfig.kv_role``; JAX ``engine.py:604-702,
+842-925, 1314-1425``): ``kvtransfer/connector.py``'s connector. A
+producer exports a finished request's prompt pages in the scheduler's
+finish hook, before the pages are released, and its answer carries the
+transfer params; a step whose prefills are all export-only (one token,
+``do_remote_decode``) answers without reading their tokens back
+(eager-ACK), and async stepping is off for a producer. A consumer imports
+at ``add_request``: the bundle seeds the prefix cache, or under the ring
+the pages and a fresh ring go to the request; a group-streamed import
+parks the request until the stream resolves (``_admit_kv_streams``).
+
 Under speculative decoding (``SchedulerConfig.speculative_ngram``; JAX
 ``engine.py:1600-1850``) the engine proposes every decode row's draft at
 dispatch, from committed tokens only (``_propose_drafts``), so async
@@ -59,6 +70,7 @@ import logging
 import time
 import uuid
 
+import numpy as np
 import torch
 
 from llmd_tpu_torch import faults
@@ -192,8 +204,8 @@ class EngineStats:
     contract (JAX ``engine.py:170 EngineStats``). The engine thread writes
     these plain ints and floats; a scrape on the event loop reads each
     atomically, with no lock on the step path. Fields of features the port
-    does not have yet (KV store and federation, P/D transfer, the decode
-    pager, LoRA, wide EP) stay at 0 or empty, so the page carries the JAX
+    does not have yet (KV store and federation, the decode pager, LoRA,
+    wide EP) stay at 0 or empty, so the page carries the JAX
     engine's names."""
 
     # Gauges, refreshed once a step (``_refresh_gauges``).
@@ -261,13 +273,10 @@ class EngineStats:
     batch_tokens: int = 0
     batch_preemptions: int = 0
     batch_backfill_utilization: float = 0.0
-    # Features the port does not have yet: always 0 or empty here.
-    kvstore_pulls: int = 0
-    kvstore_pull_failures: int = 0
-    kvstore_misses: int = 0
-    kv_federation_published: int = 0
-    kv_federation_hits: int = 0
-    recompute_avoided_tokens: int = 0
+    # P/D transfer (``KVConnector.stats``): requests and bytes exported
+    # and imported, failed imports, v3 cells landed and the last import's
+    # first-group ms, CRC rejections, recomputes after a failed import,
+    # and failures by (stage, policy).
     kv_exported_requests: int = 0
     kv_exported_bytes: int = 0
     kv_imported_requests: int = 0
@@ -275,10 +284,17 @@ class EngineStats:
     kv_import_failures: int = 0
     kv_stream_groups_total: int = 0
     kv_stream_first_group_ms: float = 0.0
-    kv_publish_paced_bytes_total: int = 0
     kv_transfer_failures: tuple = ()
     kv_bundle_crc_failures_total: int = 0
     kv_recompute_fallbacks_total: int = 0
+    # Features the port does not have yet: always 0 or empty here.
+    kvstore_pulls: int = 0
+    kvstore_pull_failures: int = 0
+    kvstore_misses: int = 0
+    kv_federation_published: int = 0
+    kv_federation_hits: int = 0
+    recompute_avoided_tokens: int = 0
+    kv_publish_paced_bytes_total: int = 0
     kv_paged_out_bytes: int = 0
     kv_pager_prefetch_late_total: int = 0
     cp_ring_steps_total: int = 0
@@ -381,9 +397,32 @@ class LLMEngine:
             self.allocator.commit_hook = self.offloader.on_commit
         self.stats = EngineStats(num_pages=cache.num_blocks, page_size=cache.page_size)
         self._counter = itertools.count()
-        # Async stepping (the JAX engine turns it off for P/D producers and
-        # multi-host followers; the port has neither yet).
+        # P/D disaggregation (JAX ``engine.py:604-620``): the KV connector;
+        # a producer exports in the scheduler's finish hook, while the
+        # request's pages are live.
+        self.kv_connector = None
+        if config.kv_role:
+            from llmd_tpu_torch.kvtransfer.connector import KVConnector, KVTransferConfig
+
+            self.kv_connector = KVConnector(KVTransferConfig(
+                role=config.kv_role, host=config.kv_host, port=config.kv_transfer_port,
+                lease_ms=config.kv_lease_ms,
+                load_failure_policy=config.kv_load_failure_policy,
+                transfer_dtype=config.kv_transfer_dtype,
+                local_fastpath=config.kv_local_fastpath,
+                stream_groups=config.kv_stream_groups,
+            ), self.runner, self.allocator)
+            self.scheduler.finish_hook = self._on_finish
+        # Requests parked on a group-streamed import: (request, handle).
+        self._kv_parked: list = []
+        # Async stepping; off for a P/D producer, whose eager answers rely
+        # on the synchronous step order (JAX ``engine.py:631-643``).
         self._async = bool(config.scheduler.async_scheduling)
+        if self._async and config.kv_role in ("kv_producer", "kv_both"):
+            logging.getLogger(__name__).info(
+                "async_scheduling disabled: P/D eager-ACK producers rely on synchronous "
+                "step ordering")
+            self._async = False
         self._inflight: _InflightStep | None = None
         # Aborts of in-flight requests: freeing their pages while the step
         # that writes them runs, and committing that step for a request
@@ -403,11 +442,18 @@ class LLMEngine:
         request_id: str | None = None,
         priority: int = 0,
         resume_output_tokens: int = 0,
+        kv_transfer_params: dict | None = None,
     ) -> str:
         """Queue a request; returns its id. ``resume_output_tokens`` > 0
         marks the prompt's last that many tokens as output a replica that
         died mid-stream already delivered (failover resume): generation
-        continues at that output position."""
+        continues at that output position. ``kv_transfer_params``: a
+        producer's ``do_remote_decode``, or on a consumer the producer's
+        answer, whose KV is imported before the request is queued (JAX
+        ``engine.py:842-915``); the serving layer may have fetched it
+        already (``"__pulled__"``), or hands in the handle of a
+        group-streamed import (``"__stream__"``), and the request parks
+        until it resolves."""
         if not prompt_token_ids:
             raise ValueError("empty prompt")
         if resume_output_tokens and not 0 < resume_output_tokens < len(prompt_token_ids):
@@ -432,7 +478,22 @@ class LLMEngine:
                 f"{sched.max_num_batched_tokens} and chunked prefill is disabled"
             )
         rid = request_id or f"req-{next(self._counter)}-{uuid.uuid4().hex[:8]}"
-        if self.offloader is not None:
+        preload = kv_stream = None
+        conn = self.kv_connector
+        if conn is not None and conn.wants_import(kv_transfer_params):
+            kv_transfer_params = dict(kv_transfer_params)
+            kv_stream = kv_transfer_params.pop("__stream__", None)
+            if kv_stream is None:
+                bundle = (kv_transfer_params.pop("__pulled__") if "__pulled__" in kv_transfer_params
+                          else conn.fetch_remote_policy(list(prompt_token_ids), kv_transfer_params))
+                if bundle is not None and self._swa is not None:
+                    # A ring engine has no prefix cache: the pages and a
+                    # fresh ring go straight to the request.
+                    preload = conn.apply_preload(list(prompt_token_ids), bundle,
+                                                 self.swa_allocator, self._swa.ring_pages)
+                elif bundle is not None:
+                    conn.apply_bundle(list(prompt_token_ids), bundle)
+        if self.offloader is not None and kv_stream is None:
             # Host pages extending the prompt's device prefix run go back
             # to the device now; the prefix-cache hit at admission takes them.
             self.offloader.restore_for_prompt(list(prompt_token_ids))
@@ -441,6 +502,7 @@ class LLMEngine:
             prompt_token_ids=list(prompt_token_ids),
             sampling=sampling or SamplingParams(),
             priority=priority,
+            kv_transfer_params=kv_transfer_params,
         )
         if resume_output_tokens:
             # Admitted through the recompute-preemption seam: the history is
@@ -449,10 +511,48 @@ class LLMEngine:
             req.num_prior_output_tokens = resume_output_tokens
             self.stats.stream_resumes_total += 1
             self.stats.resume_replayed_tokens_total += resume_output_tokens
-        if self._swa_sections is not None:
+        if preload is not None:
+            req.block_ids = list(preload["block_ids"])
+            req.swa_block_ids = list(preload["swa_block_ids"])
+            req.num_computed_tokens = req.num_cached_tokens = preload["tokens"]
+        elif self._swa_sections is not None and kv_stream is None:
             self._try_hybrid_ring_hit(req)
+        if kv_stream is not None:
+            # Schedulable once the import resolves (``_admit_kv_streams``).
+            self._kv_parked.append((req, kv_stream))
+            return rid
         self.scheduler.add_request(req)
         return rid
+
+    def _on_finish(self, req: Request) -> None:
+        if self.kv_connector.wants_export(req):
+            req.export_params = self.kv_connector.export_finished(req)
+
+    def _admit_kv_streams(self) -> None:
+        """At a step boundary, queue the parked requests whose streamed
+        import resolved (JAX ``engine.py:1314-1360``): a landed bundle is
+        applied (its pages are written: the hash chain is committed) and
+        the prefill becomes a prefix-cache hit; a failed one is a local
+        recompute. With nothing else to do, wait up to 50 ms on the oldest
+        stream rather than spin."""
+        while True:
+            still, admitted = [], False
+            for req, handle in self._kv_parked:
+                if not handle.done.is_set():
+                    still.append((req, handle))
+                    continue
+                bundle = handle.take()
+                if bundle is not None:
+                    self.kv_connector.apply_bundle(list(req.prompt_token_ids), bundle)
+                elif self.offloader is not None:
+                    self.offloader.restore_for_prompt(list(req.prompt_token_ids))
+                self.scheduler.add_request(req)
+                admitted = True
+            self._kv_parked = still
+            if admitted or not still or self._inflight is not None or self.scheduler.has_work():
+                return
+            if not still[0][1].done.wait(0.05):
+                return
 
     def _section_key(self, prompt_token_ids: list[int]) -> tuple[bytes | None, int, int]:
         """(key, n_pre, s0) of a prompt's section: the hash of its page
@@ -517,6 +617,13 @@ class LLMEngine:
             return
 
     def abort_request(self, request_id: str) -> bool:
+        for i, (req, handle) in enumerate(self._kv_parked):
+            if req.request_id == request_id:
+                # Parked on a stream: abandon() frees the fetched bundle's
+                # pages on whichever side holds it.
+                del self._kv_parked[i]
+                handle.abandon()
+                return True
         if self._inflight is not None and any(
                 s.request.request_id == request_id for s in self._inflight.batch.seqs):
             self._deferred_aborts.add(request_id)
@@ -557,14 +664,17 @@ class LLMEngine:
         return n
 
     def has_work(self) -> bool:
-        return self.scheduler.has_work() or self._inflight is not None
+        return self.scheduler.has_work() or self._inflight is not None or bool(self._kv_parked)
 
     def close(self) -> None:
         """Release what outlives a step (JAX ``close``): the host tiers'
         file writer finishes its spills, so that a process started over
-        the same directory finds every page the cache spilled."""
+        the same directory finds every page the cache spilled; the KV
+        connector's shipper stops."""
         if self._host_cache is not None:
             self._host_cache.close()
+        if self.kv_connector is not None:
+            self.kv_connector.close()
 
     def warmup(self) -> int:
         """Build the kernels and prepare the decode steps' programs (CUDA
@@ -576,6 +686,8 @@ class LLMEngine:
         # Fault site: a wedged device program stalls the whole step (the
         # step watchdog's case). Unarmed, one global read.
         faults.delay("engine.step.stall")
+        if self._kv_parked:
+            self._admit_kv_streams()
         return self._step_async() if self._async else self._step_sync()
 
     def _step_sync(self) -> list[RequestOutput]:
@@ -586,8 +698,21 @@ class LLMEngine:
         now = time.monotonic()
         pend_p, pend_d, pend_u = self._dispatch(batch)
         t_dispatched = time.perf_counter()
-        # One readback for the whole step, whatever it dispatched.
-        pres, dres = self.runner.wait_step(pend_p, pend_d, pend_u)
+        # One readback for the whole step, whatever it dispatched. Under
+        # eager-ACK (JAX ``engine.py:1396-1425``) the step's prefill rows
+        # are all a producer's export-only prefills: their sampled token
+        # is thrown away by the routing sidecar, so it is not read back
+        # (it is 0) and the answer leaves once the step is dispatched,
+        # without waiting for the device. The device's program order puts
+        # the export's snapshots after it. A step with decode rows still
+        # reads them back.
+        if self._eager_ack(batch):
+            if pend_u is not None and not batch.decodes:
+                pend_u = None
+            pres, dres = self.runner.wait_step(None, pend_d, pend_u)
+            pres = None
+        else:
+            pres, dres = self.runner.wait_step(pend_p, pend_d, pend_u)
         t_read = time.perf_counter()
         sampled, logprobs = self._collect(batch, pres, dres)
         accepted = self.scheduler.update_after_step(batch, sampled)
@@ -596,6 +721,14 @@ class LLMEngine:
             self.offloader.flush()  # the pages this step committed
         self._finish_step((t_dispatched - t0) + (time.perf_counter() - t_read))
         return outputs
+
+    def _eager_ack(self, batch: ScheduledBatch) -> bool:
+        conn = self.kv_connector
+        return bool(batch.prefills) and conn is not None and conn.cfg.is_producer and all(
+            s.request.kv_transfer_params is not None
+            and s.request.kv_transfer_params.get("do_remote_decode")
+            and s.request.sampling.max_tokens == 1
+            for s in batch.prefills)
 
     def _step_async(self) -> list[RequestOutput]:
         """The two-slot pipeline (JAX ``_step_async``). While step N runs,
@@ -758,6 +891,18 @@ class LLMEngine:
             st.spec_window_iters_total = sch.spec_window_iters
             st.spec_window_early_exit_total = sch.spec_window_early_exit
             st.spec_row_depth_hist = tuple(self._spec_row_depth)
+        if self.kv_connector is not None:
+            cs = self.kv_connector.stats()
+            st.kv_exported_requests = cs["exported_requests"]
+            st.kv_exported_bytes = cs["exported_bytes"]
+            st.kv_imported_requests = cs["imported_requests"]
+            st.kv_imported_bytes = cs["imported_bytes"]
+            st.kv_import_failures = cs["import_failures"]
+            st.kv_stream_groups_total = cs["stream_groups_total"]
+            st.kv_stream_first_group_ms = cs["last_first_group_ms"]
+            st.kv_bundle_crc_failures_total = cs["crc_failures"]
+            st.kv_recompute_fallbacks_total = cs["recompute_fallbacks"]
+            st.kv_transfer_failures = tuple(sorted(cs["transfer_failures"].items()))
         st.live_tokens_total = self.runner.live_tokens_total
         st.padded_tokens_total = self.runner.padded_tokens_total
         st.dispatches_per_emitted_token = round(
@@ -869,6 +1014,10 @@ class LLMEngine:
         back to plain decode keeps every column)."""
         sampled: dict[str, list[int]] = {}
         logprobs: dict[str, list[float]] = {}
+        if batch.prefills and pres is None:
+            # Eager-ACK: the prefills' tokens were not read back.
+            n = len(batch.prefills)
+            pres = StepResult(np.zeros((n, 1), np.int32), np.zeros((n, 1), np.float32))
         for i, seq in enumerate(batch.prefills):
             sampled[seq.request.request_id] = pres.tokens[i].tolist()
             logprobs[seq.request.request_id] = pres.logprobs[i].tolist()
@@ -916,6 +1065,7 @@ class LLMEngine:
                     num_prompt_tokens=req.num_prompt_tokens - req.num_prior_output_tokens,
                     num_output_tokens=req.total_output_tokens,
                     num_cached_tokens=req.num_cached_tokens,
+                    kv_transfer_params=req.export_params,
                 )
             )
         self.stats.requests_finished += finished

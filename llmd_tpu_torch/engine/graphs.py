@@ -46,6 +46,7 @@ from __future__ import annotations
 import dataclasses
 import gc
 import math
+import threading
 from collections import Counter
 from typing import Callable
 
@@ -123,6 +124,11 @@ class StepPrograms:
         self.programs: dict[tuple, Program] = {}
         self.runs: Counter = Counter()
         self.pool = torch.cuda.graph_pool_handle() if device.type == "cuda" else None
+        # Held while a graph is captured. A capture forbids CUDA calls
+        # from other threads that could touch it (allocations, copies,
+        # waits); the P/D transfer's staging and fetch threads take this
+        # lock around their device work (``ModelRunner.device_lock``).
+        self.capture_lock = threading.RLock()
 
     def prepare(self, key: tuple) -> bool:
         """Make ``key``'s program ready on zero inputs (on the card:
@@ -139,6 +145,10 @@ class StepPrograms:
         return True
 
     def _capture(self, prog: Program) -> None:
+        with self.capture_lock:
+            self._capture_locked(prog)
+
+    def _capture_locked(self, prog: Program) -> None:
         before = ops.launch_state()
         x = prog.inputs.views
         stream = torch.cuda.current_stream(self.device)

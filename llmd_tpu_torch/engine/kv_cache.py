@@ -11,7 +11,9 @@ from __future__ import annotations
 
 import collections
 import dataclasses
+import functools
 import hashlib
+import threading
 from collections.abc import Iterable, Sequence
 
 # Sentinel parent hash for the first page of a sequence.
@@ -38,6 +40,17 @@ def page_hashes_for_tokens(token_ids: Sequence[int], page_size: int) -> list[byt
     return hashes
 
 
+def _locked(fn):
+    """Run an allocator method under the instance's lock."""
+
+    @functools.wraps(fn)
+    def inner(self, *a, **k):
+        with self._lock:
+            return fn(self, *a, **k)
+
+    return inner
+
+
 @dataclasses.dataclass
 class PageMeta:
     ref_count: int = 0
@@ -47,7 +60,8 @@ class PageMeta:
 class PageAllocator:
     """Refcounted page allocator with a content-addressed reuse index.
 
-    Not thread-safe: the engine thread owns it."""
+    The engine thread owns it; a P/D fetch thread allocates and frees a
+    streamed import's pages, so the methods that change it hold a lock."""
 
     def __init__(
         self, num_pages: int, page_size: int, enable_prefix_caching: bool = True
@@ -55,6 +69,7 @@ class PageAllocator:
         self.num_pages = num_pages
         self.page_size = page_size
         self.enable_prefix_caching = enable_prefix_caching
+        self._lock = threading.RLock()
         self._meta = [PageMeta() for _ in range(num_pages)]
         # Pages with ref_count == 0, LRU-ordered: left = oldest = evict first.
         # Freed cached pages are appended right so hot content survives longest.
@@ -103,6 +118,7 @@ class PageAllocator:
         reference, counts no query and moves nothing in the LRU."""
         return content_hash in self._cached
 
+    @_locked
     def lookup_and_touch_hashes(self, hashes: Sequence[bytes]) -> list[int]:
         """The leading run of cached pages of a hash chain the caller
         already holds, referenced."""
@@ -120,6 +136,7 @@ class PageAllocator:
             self.touch(pages)
         return pages
 
+    @_locked
     def touch(self, page_ids: Iterable[int]) -> None:
         """Take a reference on cached pages (prefix-cache hit path)."""
         for pid in page_ids:
@@ -128,6 +145,7 @@ class PageAllocator:
                 del self._free[pid]  # resurrect from the free LRU
             meta.ref_count += 1
 
+    @_locked
     def allocate(self, n: int) -> list[int]:
         """Allocate n fresh pages (ref=1), evicting cached content LRU-first."""
         if n > len(self._free):
@@ -143,6 +161,16 @@ class PageAllocator:
             out.append(pid)
         return out
 
+    @_locked
+    def allocate_with_floor(self, n: int, floor: int) -> list[int]:
+        """``allocate(n)`` only if at least ``floor`` free pages remain after
+        it, in one locked call (a streamed import's reservation must leave
+        the decode headroom); NoFreePagesError otherwise."""
+        if len(self._free) - n < floor:
+            raise NoFreePagesError(n + floor, len(self._free))
+        return self.allocate(n)
+
+    @_locked
     def commit_page(self, page_id: int, content_hash: bytes) -> None:
         """Register a now-full page's content for reuse, unless another
         page already holds that content; ``commit_hook`` sees each
@@ -157,6 +185,7 @@ class PageAllocator:
         if self.commit_hook is not None:
             self.commit_hook(page_id, content_hash)
 
+    @_locked
     def free(self, page_ids: Iterable[int]) -> None:
         for pid in page_ids:
             meta = self._meta[pid]

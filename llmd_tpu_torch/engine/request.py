@@ -67,6 +67,9 @@ class Request:
     sampling: SamplingParams = dataclasses.field(default_factory=SamplingParams)
     arrival_time: float = dataclasses.field(default_factory=time.monotonic)
     priority: int = 0
+    # P/D transfer params (``do_remote_decode`` on a producer; the
+    # producer's answer on a consumer), read by the KV connector.
+    kv_transfer_params: dict | None = None
 
     # --- mutable state ---
     status: RequestStatus = RequestStatus.WAITING
@@ -102,6 +105,9 @@ class Request:
     spec_consec_rejected: int = 0
     spec_drafted_tokens: int = 0
     spec_accepted_tokens: int = 0
+    # What a kv_producer engine's export returned at finish (the
+    # connector's finish hook), echoed on the request's last output.
+    export_params: dict | None = None
 
     @property
     def is_batch(self) -> bool:
@@ -171,3 +177,4 @@ class RequestOutput:
     num_prompt_tokens: int
     num_output_tokens: int
     num_cached_tokens: int = 0
+    kv_transfer_params: dict | None = None

@@ -121,7 +121,14 @@ from llmd_tpu_torch.models import llama
 from llmd_tpu_torch.models.common import StepInput
 from llmd_tpu_torch.models.loader import load_params
 from llmd_tpu_torch.ops import _build
-from llmd_tpu_torch.ops.quant_kv import dequantize_pages, quantize_pages
+from llmd_tpu_torch.ops.quant_kv import (
+    dequantize_pages,
+    dequantize_rows_q8,
+    pool_scales_to_wire,
+    quantize_pages,
+    quantize_rows_q8,
+    wire_scales_to_pool,
+)
 
 # Packed-stream length granule: T pads up to a multiple of 16 tokens.
 _T_GRANULE = 16
@@ -365,8 +372,10 @@ class ModelRunner:
         # ("window", B, K, all_greedy), ("flat", T, all_greedy),
         # ("verify", B, all_greedy) or ("vwindow", B, window, all_greedy).
         self.programs = StepPrograms(self.device, self._program)
-        # The page copies to the host (``launch_page_copies``).
+        # The page copies to the host (``launch_page_copies``,
+        # ``download_pages``) and the P/D uploads (``upload_pages_device``).
         self._copy_stream = None
+        self._upload_stream = None
 
     def _alloc_pool(self, num_layers: int, num_blocks: int):
         """A KV pool: [L, pages, K, page, 2D], the K|V halves side by side
@@ -533,8 +542,30 @@ class ModelRunner:
                    for t in (pool if isinstance(pool, tuple) else (pool,)))
 
     # ------------------------------------------------------------------ #
-    # page I/O (the tiered offload's legs; JAX ``gather_pages``,
-    # ``scatter_pages``)
+    # Page I/O: one set of legs for the tiered offload (JAX
+    # ``gather_pages``, ``scatter_pages``) and the P/D transfer (JAX
+    # ``runner.py:2400-2702``). The canonical transfer form is ``[L, n, K,
+    # page, 2D]`` (MLA: ``[L, n, 1, page, Dl]``; the port keeps no
+    # replicated heads) in the staging dtype, or its q8 wire form ``(int8
+    # [L, n, K, page, 2D], f16 [L, n, K, page, 2])``.
+    # - The gather (``_gather``): independent copies of pages, on the
+    #   compute stream at the call, so program order puts them before any
+    #   later write to the pool; on the card each carries the event
+    #   recorded after it (``ready``).
+    # - Down (``launch_host_copies``): on a copy stream after that event,
+    #   into host memory the caller holds (on the card pinned slots of a
+    #   ``HostPagePool``, which the copy engine writes directly), so the
+    #   steps dispatched after it run beside it.
+    # - Up (``upload_pages_device``): host pages (pinned slots, or the
+    #   pageable arrays of the wire or a file, which the driver stages: no
+    #   host copy here) on an upload stream, marked ready.
+    # - The scatter (``scatter_pages_from_device``): ``index_copy_`` in
+    #   place (captured graphs keep the pool's address) on the compute
+    #   stream after the upload's event, so a step dispatched after it
+    #   reads the pages.
+    # Staging and fetch threads call these legs too: every one holds
+    # ``device_lock`` (a graph capture holds it) around its device calls,
+    # and none waits for the device while it holds it.
 
     @property
     def staging_dtype(self) -> torch.dtype:
@@ -545,100 +576,252 @@ class ModelRunner:
         return self.kv_cache.dtype
 
     @property
+    def staging_dtype_name(self) -> str:
+        return str(self.staging_dtype).removeprefix("torch.")
+
+    @property
     def page_shape(self) -> tuple[int, ...]:
         """One host page: ``[L, K, page, 2D]`` (MLA: ``[L, 1, page, Dl]``)."""
         pool = self.kv_cache[0] if isinstance(self.kv_cache, tuple) else self.kv_cache
         return (pool.shape[0], *pool.shape[2:])
 
-    def _gathered(self, page_ids: list[int]) -> torch.Tensor:
-        """The main pool's pages ``page_ids``, every layer, page by page in a
-        row, ``[n, L, K, page, 2D]`` on the device; an int8 pool's
-        dequantized to ``staging_dtype`` as JAX's ``dequantize_pages`` does."""
-        ids = self._on_device(np.asarray(page_ids, np.int64))
-        if isinstance(self.kv_cache, tuple):
-            data, scales = self.kv_cache
-            return dequantize_pages(data.transpose(0, 1)[ids], scales.transpose(0, 1)[ids],
-                                    self.staging_dtype)
-        return self.kv_cache.transpose(0, 1)[ids]
+    @property
+    def kv_quantized(self) -> bool:
+        return isinstance(self.kv_cache, tuple)
 
-    def launch_page_copies(self, page_ids: list[int], dests: list[torch.Tensor]):
-        """Enqueue copies of the main pool's pages ``page_ids`` into the host
-        pages ``dests`` (each ``page_shape`` in ``staging_dtype``; pinned on
-        the card, so the copy engine writes them directly): the gather, page
-        by page in a row, on the current stream, where it follows the writes
-        of the steps before it; the copies to the host on a stream of their
-        own, so that a step dispatched after this call runs beside them.
-        Returns the event that ``wait_copies`` waits for (None on the CPU,
-        where the copies are done on return)."""
-        dev = self._gathered(page_ids)
+    @property
+    def device_lock(self):
+        return self.programs.capture_lock
+
+    def _mark_ready(self, *tensors: torch.Tensor) -> None:
+        """Record, on the current stream, the event that a use of these
+        tensors on another stream waits for."""
         if self.device.type != "cuda":
-            for d, src in zip(dests, dev):
-                d.copy_(src)
+            return
+        ev = torch.cuda.Event()
+        ev.record()
+        for t in tensors:
+            t.ready = ev
+
+    @staticmethod
+    def _wait_ready(*tensors: torch.Tensor) -> None:
+        """Make the current stream wait for each tensor's ``ready`` event,
+        and keep the tensor's memory until the current stream used it."""
+        for t in tensors:
+            ev = getattr(t, "ready", None)
+            if ev is not None:
+                torch.cuda.current_stream(t.device).wait_event(ev)
+                t.record_stream(torch.cuda.current_stream(t.device))
+
+    def _gather(self, pool, page_ids: list[int], pad_to: int = 0,
+                layers: tuple[int, int] | None = None,
+                page_major: bool = False) -> tuple[torch.Tensor, ...]:
+        """Independent copies of ``pool``'s pages (its data and, an int8
+        pool, its scales): ``page_ids`` padded to ``pad_to`` by repeating
+        the last id (a duplicate page of the same values), every layer or
+        ``layers = (l0, Lg)``; ``[Lg, n, ...]``, or with ``page_major``
+        ``[n, Lg, ...]`` (each page contiguous)."""
+        ids = list(page_ids) + [page_ids[-1]] * max(pad_to - len(page_ids), 0)
+        idx = self._on_device(np.asarray(ids, np.int64))
+        parts = pool if isinstance(pool, tuple) else (pool,)
+        if layers is not None:
+            parts = tuple(t.narrow(0, layers[0], layers[1]) for t in parts)
+        if page_major:
+            return tuple(t.transpose(0, 1).index_select(0, idx) for t in parts)
+        return tuple(t.index_select(1, idx) for t in parts)
+
+    def _float_pages(self, parts: tuple[torch.Tensor, ...]) -> torch.Tensor:
+        """Gathered pages in the staging dtype: an int8 pool's dequantized
+        as JAX's ``dequantize_pages`` does."""
+        return dequantize_pages(*parts, self.staging_dtype) if len(parts) == 2 else parts[0]
+
+    def snapshot_pages_device(self, page_ids: list[int], pad_to: int = 0,
+                              layers: tuple[int, int] | None = None) -> torch.Tensor:
+        """The main pool's pages ``page_ids`` (padded to ``pad_to``) on the
+        device, ``[L, pad_to, K, page, 2D]`` (``layers=(l0, Lg)``: that
+        slice, ``[Lg, ...]``) in the staging dtype, an int8 pool's
+        dequantized; an independent buffer, gathered now (JAX
+        ``snapshot_pages_device``)."""
+        snap = self._float_pages(self._gather(self.kv_cache, page_ids, pad_to, layers))
+        self._mark_ready(snap)
+        return snap
+
+    def snapshot_swa_pages_device(self, page_ids: list[int], pad_to: int) -> torch.Tensor:
+        """The ring pool's pages ``page_ids``, ``[L_swa, pad_to, ...]``, as
+        ``snapshot_pages_device`` (JAX ``snapshot_swa_pages_device``)."""
+        if self.kv_swa is None:
+            raise RuntimeError("no sliding-window ring pool on this runner")
+        snap = self._float_pages(self._gather(self.kv_swa, page_ids, pad_to))
+        self._mark_ready(snap)
+        return snap
+
+    def snapshot_pages_device_q8(self, page_ids: list[int], pad_to: int,
+                                 layers: tuple[int, int] | None = None):
+        """The q8 wire form of the main pool's pages: a float pool's rows
+        quantized on the device (``quantize_rows_q8``), an int8 pool's
+        bytes and scales as they are (JAX ``snapshot_pages_device_q8``)."""
+        parts = self._gather(self.kv_cache, page_ids, pad_to, layers)
+        if len(parts) == 2:
+            q8, scales = parts[0], pool_scales_to_wire(parts[1])
+        else:
+            q8, scales = quantize_rows_q8(parts[0])
+        self._mark_ready(q8, scales)
+        return q8, scales
+
+    def launch_host_copies(self, src: torch.Tensor, dests):
+        """Enqueue the copy of gathered pages (``src``, marked ready) into
+        host memory: into ``dests``, a host tensor of ``src``'s shape, or,
+        ``dests`` a list, row ``i`` of ``src`` into ``dests[i]``. On the
+        card the copies run on a copy stream after the gather's event, so
+        a step dispatched after this call runs beside them; returns the
+        event ``wait_copies`` waits for (None on the CPU, where the copies
+        are done on return). The caller keeps ``dests`` until then."""
+        pairs = list(zip(dests, src)) if isinstance(dests, list) else [(dests, src)]
+        if src.device.type != "cuda":
+            for d, s in pairs:
+                d.copy_(s)
             return None
-        gathered = torch.cuda.Event()
-        gathered.record()
-        if self._copy_stream is None:
-            self._copy_stream = torch.cuda.Stream(self.device)
-        stream = self._copy_stream
-        stream.wait_event(gathered)
-        with torch.cuda.stream(stream):
-            for d, src in zip(dests, dev):
-                d.copy_(src, non_blocking=True)
-            done = torch.cuda.Event()
-            done.record(stream)
-        dev.record_stream(stream)  # the allocator keeps it until the copies ran
+        with self.device_lock:
+            if self._copy_stream is None:
+                self._copy_stream = torch.cuda.Stream(self.device)
+            stream = self._copy_stream
+            with torch.cuda.stream(stream):
+                self._wait_ready(src)  # after the gather; the allocator keeps src
+                for d, s in pairs:
+                    d.copy_(s, non_blocking=True)
+                done = torch.cuda.Event()
+                done.record(stream)
         return done
 
     @staticmethod
     def wait_copies(done) -> None:
-        """Wait for ``launch_page_copies``' copies (not for anything enqueued
-        after them)."""
+        """Wait for ``launch_host_copies``' copies (not for anything
+        enqueued after them)."""
         if done is not None:
             done.synchronize()
+
+    def launch_page_copies(self, page_ids: list[int], dests: list[torch.Tensor]):
+        """The tiered offload's save: the main pool's pages ``page_ids``,
+        gathered page by page in a row, into the host pages ``dests`` (each
+        ``page_shape`` in ``staging_dtype``: ``HostPagePool``'s pinned
+        slots) by ``launch_host_copies``; returns its event."""
+        dev = self._float_pages(self._gather(self.kv_cache, page_ids, page_major=True))
+        self._mark_ready(dev)
+        return self.launch_host_copies(dev, dests)
+
+    def download_pages(self, snap: torch.Tensor, host: torch.Tensor | None = None) -> np.ndarray:
+        """A snapshot on the host as numpy (bf16 as ``uint16`` bits),
+        sharing the memory of ``host`` (a host tensor of its shape and
+        dtype: the transfer's pinned staging slot) or of a buffer of its
+        own; waits for the copy."""
+        if host is None:
+            host = torch.empty(snap.shape, dtype=snap.dtype,
+                               pin_memory=snap.device.type == "cuda")
+        self.wait_copies(self.launch_host_copies(snap, host))
+        return pages_to_numpy(host)
 
     def gather_pages(self, page_ids: list[int]) -> np.ndarray:
         """Stage pages HBM -> host in JAX's canonical form: the bundle ``[L,
         n, K, page, 2D]`` of ``page_ids`` (MLA: ``[L, n, 1, page, Dl]``;
         ``pages_to_numpy``: bf16 as ``uint16`` bits). Unlike JAX nothing is
         padded to a bucket (XLA compiles one program a shape; the port does
-        not). The tiered offload keeps pages apart instead
-        (``launch_page_copies``)."""
-        pin = self.device.type == "cuda"
-        dests = [torch.empty(self.page_shape, dtype=self.staging_dtype, pin_memory=pin)
-                 for _ in page_ids]
-        self.wait_copies(self.launch_page_copies(page_ids, dests))
-        return np.stack([pages_to_numpy(d) for d in dests], axis=1)
+        not)."""
+        return self.download_pages(self.snapshot_pages_device(page_ids))
 
-    def scatter_pages(self, page_ids: list[int], pages: np.ndarray) -> None:
-        """Stage a canonical bundle ``[L, n, K, page, 2D]`` host -> HBM into
-        the main pool's pages ``page_ids`` (``scatter_page_list``)."""
-        self.scatter_page_list(page_ids, [pages[:, i] for i in range(len(page_ids))])
+    def _upload(self, srcs: list[torch.Tensor], pages: bool = False) -> torch.Tensor:
+        """Host tensors on the device: ``srcs[0]``, or with ``pages`` the
+        host pages ``srcs`` (each ``[L, ...]``) as the bundle ``[L, n,
+        ...]``; on the card copied on the upload stream and marked ready."""
+        if self.device.type != "cuda":
+            return torch.stack(srcs, 1) if pages else srcs[0].clone()
+        shape = (len(srcs), *srcs[0].shape) if pages else srcs[0].shape
+        with self.device_lock:
+            if self._upload_stream is None:
+                self._upload_stream = torch.cuda.Stream(self.device)
+            with torch.cuda.stream(self._upload_stream):
+                dev = torch.empty(shape, dtype=srcs[0].dtype, device=self.device)
+                for d, s in zip(dev if pages else (dev,), srcs):
+                    d.copy_(s, non_blocking=True)
+                out = dev.transpose(0, 1) if pages else dev
+                self._mark_ready(out)
+        return out
 
-    def scatter_page_list(self, page_ids: list[int], pages: list) -> None:
-        """Copy one host page a page id into the main pool: each a host
-        tensor (``launch_page_copies``' pinned pages, copied straight to the
-        device) or a numpy array (``pages_from_numpy``: a page loaded from a
-        file, a slice of a bundle). The pages land in the pool in place
-        (``index_copy_``: a captured CUDA graph keeps reading the same
-        pool), on the current stream, so the steps dispatched after it read
-        them. An int8 pool requantizes the rows on the f16 grid as JAX's
-        ``quantize_pages`` does; a float pool casts to its dtype (JAX
-        ``_scatter_canonical``)."""
-        if not page_ids:
-            return
-        staging = torch.empty((len(pages), *self.page_shape), dtype=self.staging_dtype,
-                              device=self.device)
-        for d, p in zip(staging, pages):
-            src = p if isinstance(p, torch.Tensor) else pages_from_numpy(p, self.staging_dtype)
-            d.copy_(src, non_blocking=True)
-        vals = staging.transpose(0, 1)  # [L, n, K, page, 2D]
-        ids = self._on_device(np.asarray(page_ids, np.int64))
-        if isinstance(self.kv_cache, tuple):
-            data, scales = quantize_pages(vals)
-            self.kv_cache[0].index_copy_(1, ids, data)
-            self.kv_cache[1].index_copy_(1, ids, scales)
-        else:
-            self.kv_cache.index_copy_(1, ids, vals.to(self.kv_cache.dtype))
+    def _host_pages(self, a) -> torch.Tensor:
+        if isinstance(a, np.ndarray):
+            return pages_from_numpy(a, self.staging_dtype)
+        return a.to(self.staging_dtype)
+
+    def upload_pages_device(self, pages) -> torch.Tensor:
+        """Host pages on the device in the staging dtype (JAX
+        ``upload_pages_device``): a canonical bundle (numpy as
+        ``pages_from_numpy`` reads it, or a CPU tensor), or a list of host
+        pages (each ``page_shape``: ``HostPagePool``'s slots, pages loaded
+        from a file) as the bundle ``[L, n, ...]``."""
+        if isinstance(pages, list):
+            return self._upload([self._host_pages(p) for p in pages], pages=True)
+        return self._upload([self._host_pages(pages)])
+
+    def upload_pages_device_q8(self, q8, scales):
+        """A q8 wire bundle on the device: an int8 pool keeps the pair
+        (written as it is); a float pool's is dequantized there into the
+        staging dtype (JAX ``upload_pages_device_q8``)."""
+        q = self._upload([torch.from_numpy(np.require(q8, requirements=["C", "W"]))])
+        s = self._upload([torch.from_numpy(np.require(scales, requirements=["C", "W"]))])
+        if self.kv_quantized:
+            return q, s
+        with self.device_lock:
+            self._wait_ready(q, s)
+            return dequantize_rows_q8(q, s, self.staging_dtype)
+
+    def scatter_pages_from_device(self, page_ids: list[int], vals, swa: bool = False,
+                                  layers: tuple[int, int] | None = None) -> None:
+        """Write a bundle on the device into the pool's pages ``page_ids``
+        in place (JAX ``scatter_pages_from_device``): ``vals`` a float
+        bundle (an int8 pool requantizes it on the f16 grid as JAX's
+        ``quantize_pages`` does; a float pool casts it, JAX
+        ``_scatter_canonical``) or a q8 pair (an int8 pool takes its bytes
+        and scales as they are, with no round trip; a float pool
+        dequantizes it); ``swa`` the ring pool; ``layers=(l0, Lg)`` that
+        layer slice."""
+        pool = self.kv_swa if swa else self.kv_cache
+        parts = pool if isinstance(pool, tuple) else (pool,)
+        if layers is not None:
+            parts = tuple(t.narrow(0, layers[0], layers[1]) for t in parts)
+        with self.device_lock:
+            ids = self._on_device(np.asarray(page_ids, np.int64))
+            pair = vals if isinstance(vals, tuple) else (vals,)
+            self._wait_ready(*pair)
+            if isinstance(vals, tuple):
+                if len(parts) == 2:
+                    rows = (vals[0], wire_scales_to_pool(vals[1]))
+                else:
+                    rows = (dequantize_rows_q8(*vals, parts[0].dtype),)
+            elif len(parts) == 2:
+                rows = quantize_pages(vals.to(self.staging_dtype))
+            else:
+                rows = (vals.to(parts[0].dtype),)
+            for dst, src in zip(parts, rows):
+                dst.index_copy_(1, ids, src)
+
+    def scatter_pages(self, page_ids: list[int], pages, swa: bool = False,
+                      layers: tuple[int, int] | None = None) -> None:
+        """Host pages -> the pool's pages ``page_ids`` (JAX
+        ``scatter_pages``): a canonical bundle ``[L, n, K, page, 2D]`` or a
+        list of host pages (``upload_pages_device``), into the main pool,
+        with ``swa`` the ring pool, with ``layers=(l0, Lg)`` that layer
+        slice (``scatter_pages_from_device``). The tiered offload's restore
+        passes its pinned slots or the pages of its files."""
+        if page_ids:
+            self.scatter_pages_from_device(page_ids, self.upload_pages_device(pages),
+                                           swa=swa, layers=layers)
+
+    def scatter_pages_q8(self, page_ids: list[int], q8: np.ndarray, scales: np.ndarray,
+                         swa: bool = False) -> None:
+        """Host q8 wire bundle -> the pool's pages (JAX
+        ``scatter_pages_q8``)."""
+        if page_ids:
+            self.scatter_pages_from_device(page_ids, self.upload_pages_device_q8(q8, scales),
+                                           swa=swa)
 
     def _on_device(self, a: np.ndarray) -> torch.Tensor:
         # Not blocking: a blocking host->device copy synchronises the

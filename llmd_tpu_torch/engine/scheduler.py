@@ -145,6 +145,9 @@ class EngineScheduler:
         # prompt completes (its ring still holds the prompt's last window:
         # the section capture), and when a ring allocation fails (frees
         # one retained section; returns whether it freed one).
+        # Called with a finishing request while its pages are live (the P/D
+        # producer's export).
+        self.finish_hook = None
         self.prefill_complete_hook = None
         self.ring_pressure_hook = None
         # Ordered by (-priority, arrival_time): higher priority first, FCFS
@@ -740,8 +743,10 @@ class EngineScheduler:
 
     def _finish(self, req: Request, reason: FinishReason) -> None:
         # Commit computed full pages before release: the KV is valid, so
-        # future identical prompts can reuse it.
+        # future identical prompts (and P/D exports) can reuse it.
         self._commit_full_pages(req)
+        if self.finish_hook is not None:
+            self.finish_hook(req)
         self._release(req)
         self.running.remove(req)
         req.finish(reason)

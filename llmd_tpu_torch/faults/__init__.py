@@ -6,7 +6,7 @@ of scoped :class:`FaultSpec` entries, armed with ``arm(plan)`` or from the
 plan's JSON is valid for both packages: ``SITES`` is the reference's whole
 catalog, and a plan fires the same hits over the same call sequence.
 
-The port consults two sites:
+The port consults these sites:
 
 ==========================  =================================================
 site                        effect at the injection point
@@ -16,10 +16,14 @@ site                        effect at the injection point
                             mid-stream looks to the router
 ``engine.step.stall``       ``LLMEngine.step`` sleeps ``delay_ms`` (a wedged
                             device program, for the step watchdog)
+``kv.pull.delay_ms``        a P/D consumer's pull sleeps ``delay_ms`` first
+``kv.pull.drop``            a P/D consumer's pull fails (``PullError``)
+``kv.bundle.corrupt``       a pulled bundle's middle byte is flipped
+                            (``corrupt``), which its CRC must catch
 ==========================  =================================================
 
-The KV-transfer, LoRA and fleet sites wait for the port's items that run
-those paths. Unarmed, every helper is one module-global ``None`` check.
+Keys: a request id, or a KV bundle's shipper key. The LoRA and fleet
+sites wait for the port's items that run those paths. Unarmed, every helper is one module-global ``None`` check.
 
 Determinism: a spec fires on its matching hits ``after < n <= after +
 times``; with ``p < 1`` each firing is drawn from a ``random.Random`` seeded
@@ -176,6 +180,17 @@ def delay(site: str, key: str = "") -> None:
     dt = delay_s(site, key)
     if dt > 0:
         time.sleep(dt)
+
+
+def corrupt(site: str, data: bytes, key: str = "") -> bytes:
+    """``data`` with its middle byte flipped when the spec fires (a KV
+    bundle's header survives: what the payload's CRC must catch)."""
+    plan = _PLAN
+    if plan is None or not data or plan.should_fire(site, key) is None:
+        return data
+    b = bytearray(data)
+    b[len(b) // 2] ^= 0xFF
+    return bytes(b)
 
 
 _env_plan = os.environ.get("LLMD_FAULT_PLAN")

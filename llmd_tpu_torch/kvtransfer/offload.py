@@ -61,8 +61,9 @@ class HostPagePool:
     runs out. ``take`` hands out a slot (a view of its slab), ``give``
     takes it back once the tier has let the page go. A slot taken back is
     only written again by a later save, whose copy follows on the device
-    whatever read it before (the restore's copy to the device is enqueued
-    earlier on the stream the save's gather waits for). ``give`` may come
+    whatever read it before (the compute stream waits for a restore's
+    copy to the device before its scatter, and a later save's copy waits
+    for a gather enqueued there after it). ``give`` may come
     from the file tier's writer thread."""
 
     def __init__(self, shape: tuple[int, ...], dtype: torch.dtype, pin: bool,
@@ -421,7 +422,7 @@ class OffloadConnector:
         except NoFreePagesError:
             return 0
         try:
-            self.runner.scatter_page_list(page_ids, [d for _, _, d in restore])
+            self.runner.scatter_pages(page_ids, [d for _, _, d in restore])
             for pid, (_, h, _) in zip(page_ids, restore):
                 self.allocator.commit_page(pid, h)
         finally:

@@ -74,3 +74,44 @@ def dequantize_pages(
     k = data[..., :D].float() * s[..., 0:1]
     v = data[..., D:].float() * s[..., 1:2]
     return torch.cat([k, v], dim=-1).to(dtype)
+
+
+# --------------------------------------------------------------------- #
+# the P/D transfer's q8 wire form (JAX ``runner.py:145-171``,
+# ``quant_kv.py:100-107``)
+
+
+def quantize_rows_q8(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Float pages ``[..., 2D]`` -> the q8 wire form: (int8 ``[..., 2D]``,
+    f16 scales ``[..., 2]``), one symmetric scale for each row's K half
+    and one for its V half. Bit for bit the JAX package's
+    ``_quantize_rows_q8``: the scale is rounded to f16 before the rows are
+    divided by it (the value the consumer multiplies with), and a NaN
+    quotient (0 / 0 in an all-zero half) becomes 0, as XLA converts it."""
+    *lead, d2 = x.shape
+    xf = x.float().reshape(*lead, 2, d2 // 2)
+    amax = xf.abs().amax(dim=-1, keepdim=True)
+    scale = (amax.clamp(min=1e-30) / 127.0).to(torch.float16).float()
+    q = torch.round(xf / scale).clamp(-127, 127)
+    q = torch.where(torch.isnan(q), 0.0, q)
+    return q.to(torch.int8).reshape(*lead, d2), scale[..., 0].to(torch.float16)
+
+
+def dequantize_rows_q8(q: torch.Tensor, scales: torch.Tensor,
+                       dtype: torch.dtype) -> torch.Tensor:
+    """The q8 wire form -> float pages in ``dtype`` (JAX
+    ``_dequantize_rows_q8``)."""
+    *lead, d2 = q.shape
+    out = q.float().reshape(*lead, 2, d2 // 2) * scales.float()[..., None]
+    return out.reshape(*lead, d2).to(dtype)
+
+
+def pool_scales_to_wire(scales: torch.Tensor) -> torch.Tensor:
+    """An int8 pool's scales (f32 on the f16 grid, ``[..., K, page, 2]``)
+    as the wire's f16 scales: the same layout, a lossless narrowing."""
+    return scales.to(torch.float16)
+
+
+def wire_scales_to_pool(scales: torch.Tensor) -> torch.Tensor:
+    """The wire's f16 scales as an int8 pool's (f32, the same layout)."""
+    return scales.to(KV_SCALES_DTYPE)

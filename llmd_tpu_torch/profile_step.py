@@ -460,7 +460,7 @@ def page_legs(eng: LLMEngine, n: int = 64, reps: int = 5) -> dict:
     """GB/s of the offload's two legs on ``n`` pages of the engine's pool:
     the save's copies to the host (``launch_page_copies`` into pinned slots
     of a ``HostPagePool``, then ``wait_copies``) and the restore's copies
-    back (``scatter_page_list`` from those slots, synchronized at its end);
+    back (``scatter_pages`` from those slots, synchronized at its end);
     the pages' bytes over each call's wall time, median of ``reps``."""
     from llmd_tpu_torch.kvtransfer.offload import HostPagePool
 
@@ -476,7 +476,7 @@ def page_legs(eng: LLMEngine, n: int = 64, reps: int = 5) -> dict:
         runner.wait_copies(runner.launch_page_copies(ids, slots))
         saves.append(time.perf_counter() - t0)
         t0 = time.perf_counter()
-        runner.scatter_page_list(ids, slots)
+        runner.scatter_pages(ids, slots)
         torch.cuda.synchronize()
         restores.append(time.perf_counter() - t0)
     med = lambda xs: sorted(xs)[len(xs) // 2]  # noqa: E731

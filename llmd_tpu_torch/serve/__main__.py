@@ -16,7 +16,14 @@ off) and ``--kv-offload-fs-dir`` (the file tier), ``--seed``,
 ``--quantization int8``
 (int8 weights, ``ops/quant.py``), and the tracing flags
 ``--otlp-traces-endpoint``, ``--trace-file`` and ``--trace-sample-ratio``,
-which the chart passes when tracing is on). ``--model`` is a
+which the chart passes when tracing is on, and P/D's
+``--kv-transfer-config`` (vLLM-style JSON: ``kv_role`` kv_producer,
+kv_consumer or kv_both, ``transfer_port`` (default 9100; 0 any free port),
+``transfer_dtype`` auto, int8 or adaptive, ``stream_groups`` (default 4);
+other keys, such as ``kv_connector``, are ignored) and
+``--advertised-address`` (host:port this server is reached at; its host
+is what a producer tells consumers, and it defaults to ``--host``:``--port``,
+which is wrong when binding 0.0.0.0). ``--model`` is a
 registry name, whose weights are random, drawn on the device from
 ``--seed``, and whose tokenizer is the byte tokenizer unless
 ``--tokenizer`` names one; or an HF model directory (``config.json`` and
@@ -196,11 +203,20 @@ def build_parser() -> argparse.ArgumentParser:
     )
     p.add_argument("--trace-file", default=None, help="JSONL span log path")
     p.add_argument("--trace-sample-ratio", type=float, default=0.1)
+    p.add_argument("--kv-transfer-config", default=None, help="JSON, vLLM-style")
+    p.add_argument(
+        "--advertised-address", default=None,
+        help="host:port this pod is reachable at (pod IP in-cluster); used "
+             "to attribute kv-transfer params. Defaults to host:port, which "
+             "is wrong when binding 0.0.0.0.",
+    )
     p.add_argument("--device", default="cuda")
     return p
 
 
 def make_engine_config(args):
+    import json
+
     from llmd_tpu_torch.config import CacheConfig, EngineConfig, OffloadConfig, SchedulerConfig
     from llmd_tpu_torch.models.loader import config_from_hf, is_model_dir
     from llmd_tpu_torch.models.registry import get_model_config
@@ -220,6 +236,7 @@ def make_engine_config(args):
     else:
         overrides.setdefault("max_model_len", 8192)
         model = get_model_config(args.model, **overrides)
+    kv_cfg = json.loads(args.kv_transfer_config) if args.kv_transfer_config else {}
     return EngineConfig(
         model=model,
         cache=CacheConfig(
@@ -249,6 +266,10 @@ def make_engine_config(args):
         tokenizer_path=tokenizer_path,
         offload=(OffloadConfig(cpu_chunks=args.kv_offload_chunks, fs_dir=args.kv_offload_fs_dir)
                  if args.kv_offload_chunks else None),
+        kv_role=kv_cfg.get("kv_role"),
+        kv_transfer_port=int(kv_cfg.get("transfer_port", 9100)),
+        kv_transfer_dtype=str(kv_cfg.get("transfer_dtype", "auto")),
+        kv_stream_groups=int(kv_cfg.get("stream_groups", 4)),
     )
 
 
@@ -273,6 +294,12 @@ def main(argv=None) -> None:
             sample_ratio=args.trace_sample_ratio,
         )
     config = make_engine_config(args)
+    advertised = args.advertised_address or f"{args.host}:{args.port}"
+    if advertised.startswith("0.0.0.0"):
+        logging.warning(
+            "advertised address %s binds all interfaces; set --advertised-address to the "
+            "pod IP or P/D transfers will not resolve", advertised)
+    config.kv_host = advertised.rsplit(":", 1)[0]
     # The tokenizer first: a bad path fails before the weights load.
     tokenizer = load_tokenizer(config.tokenizer_path)
     engine = LLMEngine(config, device=args.device)

@@ -17,12 +17,14 @@ package's ``llmd_tpu/serve/api.py``):
 The generate routes take the router's failover resume (``resume_token_ids``
 with ``x-llmd-stream-tokens`` and ``x-llmd-resume``), the request deadline
 (``x-request-deadline-s``, else ``LLMD_REQUEST_DEADLINE_S``), the batch
-tier's ``x-llmd-priority: batch`` header (``_effective_priority``), and
-continue the caller's ``traceparent`` in an ``engine.generate`` span.
+tier's ``x-llmd-priority: batch`` header (``_effective_priority``) and
+P/D's ``kv_transfer_params`` (completions, chat and Generate: read from
+the body, handed to the engine, and a producer's returned on the
+unstreamed answer), and continue the caller's ``traceparent`` in an
+``engine.generate`` span.
 
 Not ported yet: ``/v1/embeddings`` and ``/vllm.Generation/Embed``, the LoRA
-load routes and adapter model ids, ``kv_transfer_params``, and the
-multimodal encoder parts.
+load routes and adapter model ids, and the multimodal encoder parts.
 """
 
 from __future__ import annotations
@@ -327,7 +329,8 @@ async def _open_stream(request: web.Request, rid: str) -> web.StreamResponse:
 
 async def _token_deltas(engine: AsyncEngine, rid: str, prompt_ids: list[int],
                         sampling: SamplingParams, detok: Detokenizer, priority: int,
-                        deadline_s: float | None = None, resume_output_tokens: int = 0):
+                        deadline_s: float | None = None, resume_output_tokens: int = 0,
+                        kv_transfer_params: dict | None = None):
     """Yields (token, text delta, finish reason or None, last output) per
     token.
 
@@ -336,7 +339,7 @@ async def _token_deltas(engine: AsyncEngine, rid: str, prompt_ids: list[int],
     still tells a streaming client that a token exists. A stop string
     aborts the request and finishes the stream with "stop"."""
     async for out in engine.generate(rid, prompt_ids, sampling, priority, deadline_s,
-                                     resume_output_tokens):
+                                     resume_output_tokens, kv_transfer_params):
         for i, token in enumerate(out.new_token_ids):
             last = out.finished and i == len(out.new_token_ids) - 1
             delta = detok.feed([token], final=last)
@@ -368,7 +371,7 @@ async def _stream_response(
     prompt_ids: list[int], sampling: SamplingParams, detok: Detokenizer,
     priority: int, chat: bool, span, deadline_s: float | None = None,
     resume_output_tokens: int = 0, stream_token_ids: bool = False,
-    resume_leg: bool = False,
+    resume_leg: bool = False, kv_transfer_params: dict | None = None,
 ) -> web.StreamResponse:
     resp = await _open_stream(request, rid)
     if chat and not resume_leg:
@@ -381,7 +384,7 @@ async def _stream_response(
     try:
         async for token, delta, finish, out in _token_deltas(
             engine, rid, prompt_ids, sampling, detok, priority, deadline_s,
-            resume_output_tokens,
+            resume_output_tokens, kv_transfer_params,
         ):
             n_out, cached = out.num_output_tokens, out.num_cached_tokens
             chunk = _delta_chunk(chat, rid, model, delta)
@@ -415,9 +418,11 @@ async def _stream_response_multi(
     request: web.Request, engine: AsyncEngine, rid: str, model: str,
     prompt_ids: list[int], sampling: SamplingParams, tokenizer, stops: list[str],
     n: int, priority: int, chat: bool, span, deadline_s: float | None = None,
+    kv_transfer_params: dict | None = None,
 ) -> web.StreamResponse:
     """SSE with n > 1: one engine stream per choice, their chunks
-    interleaved on the response with their choice index."""
+    interleaved on the response with their choice index; only choice 0
+    carries the P/D transfer."""
     resp = await _open_stream(request, rid)
     if chat:
         for i in range(n):
@@ -431,7 +436,7 @@ async def _stream_response_multi(
             finish = out = None
             async for _, delta, finish, out in _token_deltas(
                 engine, f"{rid}-{i}", prompt_ids, _choice_sampling(sampling, i),
-                detok, priority, deadline_s,
+                detok, priority, deadline_s, 0, kv_transfer_params if i == 0 else None,
             ):
                 await queue.put(("delta", i, delta))
             if out is not None:
@@ -485,12 +490,13 @@ async def _stream_response_multi(
 
 async def _collect(engine: AsyncEngine, rid: str, prompt_ids: list[int],
                    sampling: SamplingParams, detok: Detokenizer, priority: int,
-                   deadline_s: float | None = None, resume_output_tokens: int = 0):
+                   deadline_s: float | None = None, resume_output_tokens: int = 0,
+                   kv_transfer_params: dict | None = None):
     """Run to completion; returns (text, finish reason, last output)."""
     finish = None
     final: RequestOutput | None = None
     async for out in engine.generate(rid, prompt_ids, sampling, priority, deadline_s,
-                                     resume_output_tokens):
+                                     resume_output_tokens, kv_transfer_params):
         detok.feed(out.new_token_ids, final=out.finished)
         final = out
         if detok.stopped:
@@ -594,6 +600,7 @@ async def _handle_generate(request: web.Request, chat: bool) -> web.StreamRespon
     span.set("gen_ai.usage.prompt_tokens", len(prompt_ids))
     span.set("llm_d.request.streaming", bool(req.stream))
     deadline_s = _request_deadline_s(request)
+    kvp = req.kv_transfer_params
     stream_token_ids = request.headers.get(HDR_STREAM_TOKENS, "") == "1"
     resume_leg = bool(resume_ids) or request.headers.get(HDR_RESUME, "") == "1"
     engine_prompt_ids = prompt_ids
@@ -621,12 +628,12 @@ async def _handle_generate(request: web.Request, chat: bool) -> web.StreamRespon
             if req.n > 1:
                 return await _stream_response_multi(
                     request, engine, rid, model, prompt_ids, sampling, tokenizer,
-                    stops, req.n, priority, chat, span, deadline_s,
+                    stops, req.n, priority, chat, span, deadline_s, kvp,
                 )
             return await _stream_response(
                 request, engine, rid, model, engine_prompt_ids, sampling, detok,
                 priority, chat, span, deadline_s, len(resume_ids),
-                stream_token_ids, resume_leg,
+                stream_token_ids, resume_leg, kvp,
             )
         except BaseException as e:
             span.error(str(e))
@@ -636,13 +643,15 @@ async def _handle_generate(request: web.Request, chat: bool) -> web.StreamRespon
     try:
         if req.n == 1:
             choices = [await _collect(engine, rid, engine_prompt_ids, sampling, detok,
-                                      priority, deadline_s, len(resume_ids))]
+                                      priority, deadline_s, len(resume_ids), kvp)]
         else:
-            # n samples share the prompt (and its cached prefix).
+            # n samples share the prompt (and its cached prefix); only
+            # choice 0 carries the P/D transfer.
             tasks = [
                 asyncio.ensure_future(_collect(
                     engine, f"{rid}-{i}", prompt_ids, _choice_sampling(sampling, i),
-                    Detokenizer(tokenizer, stops), priority, deadline_s,
+                    Detokenizer(tokenizer, stops), priority, deadline_s, 0,
+                    kvp if i == 0 else None,
                 ))
                 for i in range(req.n)
             ]
@@ -679,7 +688,8 @@ async def _handle_generate(request: web.Request, chat: bool) -> web.StreamRespon
     span.end()
     usage = P.usage_dict(len(prompt_ids), completion_tokens, cached)
     make_response = P.chat_response if chat else P.completion_response
-    resp = make_response(rid, model, text, finish, usage)
+    resp = make_response(rid, model, text, finish, usage,
+                         final.kv_transfer_params if final else None)
     if req.n > 1:
         tmpl = resp["choices"][0]
         resp["choices"] = [
@@ -758,6 +768,7 @@ async def handle_grpc_generate(request: web.Request) -> web.StreamResponse:
         return _error(400, "max_tokens must be >= 0")
     priority = _effective_priority(request, priority)
     rid = request.headers.get("x-request-id") or P.request_id("grpcgen")
+    kvp = body.get("kv_transfer_params")
     deadline_s = _request_deadline_s(request)
     stream = bool(body.get("stream", False))
     resume_ids = body.get("resume_token_ids") or []
@@ -785,7 +796,7 @@ async def handle_grpc_generate(request: web.Request) -> web.StreamResponse:
     if stream:
         resp = await _open_stream(request, rid)
         try:
-            async for out in engine.generate(rid, ids, sampling, priority, deadline_s, n_resume):
+            async for out in engine.generate(rid, ids, sampling, priority, deadline_s, n_resume, kvp):
                 final = out
                 if out.new_token_ids:
                     await resp.write(_sse({"token_ids": list(out.new_token_ids)}))
@@ -805,7 +816,7 @@ async def handle_grpc_generate(request: web.Request) -> web.StreamResponse:
         return resp
     out_ids: list[int] = []
     try:
-        async for out in engine.generate(rid, ids, sampling, priority, deadline_s, n_resume):
+        async for out in engine.generate(rid, ids, sampling, priority, deadline_s, n_resume, kvp):
             final = out
             out_ids.extend(out.new_token_ids)
     except RequestFailed as e:
@@ -819,8 +830,7 @@ async def handle_grpc_generate(request: web.Request) -> web.StreamResponse:
             "token_ids": out_ids,
             "finish_reason": _finish_reason(final) if final else None,
             "usage": _grpc_usage(ids, n_resume, final),
-            # P/D transfer is not ported: nothing to hand on.
-            "kv_transfer_params": None,
+            "kv_transfer_params": final.kv_transfer_params if final else None,
         },
         headers={"x-request-id": rid})
 

@@ -10,13 +10,22 @@ package's ``AsyncEngine``: pause, resume and drain (the resilience
 operator's), readiness, and the step watchdog, which fails in-flight
 streams and turns ``/health`` 503 when a step outlives its budget; and the
 request deadline (``generate(deadline_s=...)``), which ends a stream with
-:class:`DeadlineExceeded` and aborts its engine request. The reference's
-deadline also bounds a P/D KV fetch, which the port does not run yet.
+:class:`DeadlineExceeded` and aborts its engine request.
+
+A P/D consumer's KV fetch runs on a fetch thread, never on the engine
+thread or the event loop (JAX ``async_engine.py:320-447``): the pulled
+bundle rides to the engine in ``kv_transfer_params["__pulled__"]``; a
+group-streamed import is submitted once its first layer group is resident,
+with its handle in ``"__stream__"``. The request deadline bounds either
+fetch; a bundle that never reaches the engine's apply is released
+(``_release_pulled``), so no streamed page leaks.
 """
 
 from __future__ import annotations
 
 import asyncio
+import concurrent.futures
+import functools
 import logging
 import os
 import threading
@@ -39,6 +48,22 @@ class _Pending:
     # Failover resume: the prompt's last N tokens are output a dead
     # replica already delivered; generation continues at output position N.
     resume_output_tokens: int = 0
+    kv_transfer_params: dict | None = None
+
+
+def _release_pulled(engine, kv_transfer_params) -> None:
+    """Release a fetched bundle that will not be applied
+    (``"__pulled__"``), or abandon a stream's handle (``"__stream__"``):
+    a streamed import holds pool pages until one of them runs."""
+    conn = getattr(engine, "kv_connector", None)
+    if conn is None or not kv_transfer_params:
+        return
+    bundle = kv_transfer_params.get("__pulled__")
+    if bundle is not None:
+        conn.release_bundle(bundle)
+    handle = kv_transfer_params.get("__stream__")
+    if handle is not None:
+        handle.abandon()
 
 
 class RequestFailed(Exception):
@@ -92,6 +117,9 @@ class AsyncEngine:
         self._subs: dict[str, asyncio.Queue] = {}  # guarded by _lock
         self._loop: asyncio.AbstractEventLoop | None = None
         self._thread: threading.Thread | None = None
+        # P/D consumer fetches, off the engine thread and the event loop.
+        self._fetch_pool = concurrent.futures.ThreadPoolExecutor(
+            max_workers=8, thread_name_prefix="llmd-torch-kv-fetch")
 
     def start(self, loop: asyncio.AbstractEventLoop) -> None:
         self._loop = loop
@@ -111,6 +139,7 @@ class AsyncEngine:
             self._lock.notify_all()
         if self._thread is not None:
             self._thread.join(timeout=30)
+        self._fetch_pool.shutdown(wait=False, cancel_futures=True)
 
     @property
     def stats(self):
@@ -203,6 +232,7 @@ class AsyncEngine:
         sampling: SamplingParams,
         priority: int = 0,
         resume_output_tokens: int = 0,
+        kv_transfer_params: dict | None = None,
     ) -> asyncio.Queue:
         """Queue a request for the engine thread; returns its output queue."""
         q: asyncio.Queue = asyncio.Queue()
@@ -211,7 +241,8 @@ class AsyncEngine:
                 raise RequestFailed(f"duplicate request id {request_id}")
             self._subs[request_id] = q
             self._inbox.append(_Pending(
-                request_id, prompt_token_ids, sampling, priority, resume_output_tokens))
+                request_id, prompt_token_ids, sampling, priority, resume_output_tokens,
+                kv_transfer_params))
             self._lock.notify_all()
         return q
 
@@ -229,16 +260,24 @@ class AsyncEngine:
         priority: int = 0,
         deadline_s: float | None = None,
         resume_output_tokens: int = 0,
+        kv_transfer_params: dict | None = None,
     ) -> AsyncIterator[RequestOutput]:
         """Async stream of incremental outputs until the request finishes.
 
-        ``deadline_s`` bounds the whole stream: once it passes, the stream
-        raises :class:`DeadlineExceeded` and the engine request is aborted
-        (the ``finally`` below), so a starved or wedged engine slows a
-        request down but never holds its caller past its budget."""
+        ``deadline_s`` bounds the whole stream, a P/D fetch included: once
+        it passes, the stream raises :class:`DeadlineExceeded` and the
+        engine request is aborted (the ``finally`` below), so a starved or
+        wedged engine, or a slow producer, slows a request down but never
+        holds its caller past its budget."""
         deadline = None if deadline_s is None else time.monotonic() + deadline_s
-        q = self.submit(request_id, prompt_token_ids, sampling, priority,
-                        resume_output_tokens)
+        kv_transfer_params = await self._fetch_kv(
+            prompt_token_ids, kv_transfer_params, deadline, deadline_s)
+        try:
+            q = self.submit(request_id, prompt_token_ids, sampling, priority,
+                            resume_output_tokens, kv_transfer_params)
+        except Exception:
+            _release_pulled(self.engine, kv_transfer_params)
+            raise
         try:
             while True:
                 if deadline is None:
@@ -266,6 +305,68 @@ class AsyncEngine:
                     self._aborts.append(request_id)
                     self._lock.notify_all()
 
+    async def _fetch_kv(self, prompt_token_ids: list[int], params: dict | None,
+                        deadline: float | None, deadline_s: float | None) -> dict | None:
+        """A P/D consumer's fetch, on the fetch pool: the params to submit
+        (with ``"__stream__"`` or ``"__pulled__"``), or ``params`` as they
+        are when the engine imports nothing."""
+        conn = getattr(self.engine, "kv_connector", None)
+        if conn is None or not conn.wants_import(params):
+            return params
+        remaining = None if deadline is None else max(deadline - time.monotonic(), 0.001)
+        if conn.streaming_import(params):
+            # Submitted once group 0 is resident; the engine parks the
+            # request until the stream resolves.
+            handle = conn.make_stream_handle(params)
+            loop = asyncio.get_running_loop()
+            admittable = asyncio.Event()
+            handle.on_first_group = functools.partial(loop.call_soon_threadsafe, admittable.set)
+
+            def fetch_streamed() -> None:
+                try:
+                    conn.fetch_remote_policy(list(prompt_token_ids), params, handle)
+                finally:
+                    if not handle.done.is_set():
+                        handle.fail("streamed fetch died unresolved")
+
+            self._fetch_pool.submit(fetch_streamed)
+            try:
+                await asyncio.wait_for(admittable.wait(), remaining)
+            except asyncio.TimeoutError:
+                pass
+            except asyncio.CancelledError:
+                handle.abandon()
+                raise
+            if not handle.first_group.is_set():
+                # The fetch runs on; abandon() frees its pages when it ends.
+                handle.abandon()
+                raise DeadlineExceeded(
+                    f"request deadline of {deadline_s}s exceeded during remote KV stream")
+            return {**params, "__stream__": handle}
+        # The concurrent future in hand: cancelling the awaiting task drops
+        # only the asyncio wrapper, so the release hangs on the future.
+        cfut = self._fetch_pool.submit(conn.fetch_remote_policy, list(prompt_token_ids), params)
+
+        def release(f) -> None:
+            try:
+                bundle = f.result()
+            except BaseException:
+                return  # a failed fetch holds nothing
+            _release_pulled(self.engine, {"__pulled__": bundle})
+
+        try:
+            bundle = await asyncio.wait_for(asyncio.wrap_future(cfut), remaining)
+        except asyncio.TimeoutError:
+            cfut.add_done_callback(release)
+            raise DeadlineExceeded(
+                f"request deadline of {deadline_s}s exceeded during remote KV fetch") from None
+        except asyncio.CancelledError:
+            cfut.add_done_callback(release)
+            raise
+        except Exception as e:  # KVLoadError under policy 'fail'
+            raise EngineError(f"remote KV load failed: {e}") from e
+        return {**params, "__pulled__": bundle}
+
     def _deliver(self, request_id: str, item) -> None:
         with self._lock:
             q = self._subs.get(request_id)
@@ -284,6 +385,11 @@ class AsyncEngine:
                 ):
                     self._lock.wait()
                 if self._stop:
+                    # Queued requests die with the loop; their fetched
+                    # bundles must not hold pages.
+                    for p in self._inbox:
+                        _release_pulled(self.engine, p.kv_transfer_params)
+                    self._inbox = []
                     return
                 pending, self._inbox = self._inbox, []
                 aborts, self._aborts = self._aborts, []
@@ -295,8 +401,10 @@ class AsyncEngine:
                         p.prompt_token_ids, p.sampling,
                         request_id=p.request_id, priority=p.priority,
                         resume_output_tokens=p.resume_output_tokens,
+                        kv_transfer_params=p.kv_transfer_params,
                     )
                 except ValueError as e:  # validation errors -> caller
+                    _release_pulled(self.engine, p.kv_transfer_params)
                     self._deliver(p.request_id, RequestFailed(str(e)))
             if not self.engine.has_work():
                 continue

@@ -1,17 +1,18 @@
 """OpenAI-compatible API schema: completions and chat completions.
 
 The JAX package's schema (``llmd_tpu/serve/protocol.py``) with its
-failover-resume field ``resume_token_ids`` and its error bodies (``type``
-and ``code``: ``invalid_request_error`` 400, ``timeout_error`` 504,
-``internal_error`` 500); without ``kv_transfer_params``, which waits for
-P/D transfer.
+failover-resume field ``resume_token_ids``, the P/D extension
+``kv_transfer_params`` (``do_remote_decode`` on a prefill request, the
+producer's answer on a decode request, returned on a producer's response)
+and its error bodies (``type`` and ``code``: ``invalid_request_error``
+400, ``timeout_error`` 504, ``internal_error`` 500).
 """
 
 from __future__ import annotations
 
 import time
 import uuid
-from typing import Union
+from typing import Any, Union
 
 import pydantic
 
@@ -42,6 +43,8 @@ class CompletionRequest(_Base):
     # generation continues at the next output position, and the response
     # carries only the continuation.
     resume_token_ids: list[int] | None = None
+    # P/D disaggregation (``kvtransfer/connector.py``).
+    kv_transfer_params: dict[str, Any] | None = None
 
 
 class ChatMessage(_Base):
@@ -67,6 +70,7 @@ class ChatCompletionRequest(_Base):
     stop_token_ids: list[int] | None = None
     # Failover resume: see CompletionRequest.resume_token_ids.
     resume_token_ids: list[int] | None = None
+    kv_transfer_params: dict[str, Any] | None = None
 
 
 def stop_strings(stop: Union[str, list[str], None]) -> list[str]:
@@ -113,9 +117,10 @@ def usage_dict(prompt_tokens: int, completion_tokens: int, cached: int = 0) -> d
 
 
 def completion_response(
-    rid: str, model: str, text: str, finish_reason: str | None, usage: dict
+    rid: str, model: str, text: str, finish_reason: str | None, usage: dict,
+    kv_transfer_params: dict | None = None,
 ) -> dict:
-    return {
+    out = {
         "id": rid,
         "object": "text_completion",
         "created": int(time.time()),
@@ -126,12 +131,16 @@ def completion_response(
         ],
         "usage": usage,
     }
+    if kv_transfer_params is not None:
+        out["kv_transfer_params"] = kv_transfer_params
+    return out
 
 
 def chat_response(
-    rid: str, model: str, text: str, finish_reason: str | None, usage: dict
+    rid: str, model: str, text: str, finish_reason: str | None, usage: dict,
+    kv_transfer_params: dict | None = None,
 ) -> dict:
-    return {
+    out = {
         "id": rid,
         "object": "chat.completion",
         "created": int(time.time()),
@@ -145,6 +154,9 @@ def chat_response(
         ],
         "usage": usage,
     }
+    if kv_transfer_params is not None:
+        out["kv_transfer_params"] = kv_transfer_params
+    return out
 
 
 def completion_chunk(

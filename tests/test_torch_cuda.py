@@ -2000,3 +2000,112 @@ def test_graph_replays_after_a_restore_read_the_restored_pages(dev, kv_dtype, tm
     cpu = LLMEngine(cfg.__class__(model=cfg.model, cache=cfg.cache, scheduler=cfg.scheduler),
                     params=params, device="cpu")
     assert next(iter(cpu.generate([prompt], sp).values())) == hit
+
+
+@pytest.mark.parametrize("kv_dtype", ["float32", "bfloat16", "int8"])
+def test_pd_page_functions_equal_the_cpu_arithmetic(dev, kv_dtype):
+    """The P/D page functions on the card against the same calls on the
+    CPU, on equal pools: snapshots (whole and a layer slice; the q8 form
+    quantized on the card) downloaded through the copy stream, and
+    scatters of a float bundle, of a q8 pair and of a device snapshot into
+    a layer slice, all bit for bit; the pool tensors do not move."""
+    cfg = EngineConfig(model=tiny_model_config(num_layers=4, head_dim=64),
+                       cache=CacheConfig(page_size=8, num_blocks=24, dtype=kv_dtype))
+    params = llama.init_params(cfg.model, torch.Generator().manual_seed(0), "cpu")
+    gpu, cpu = (LLMEngine(cfg, params=params, device=d).runner for d in ("cuda", "cpu"))
+    rng = np.random.default_rng(3)
+    parts = gpu.kv_cache if gpu.kv_quantized else (gpu.kv_cache,)
+    for g, c in zip(parts, cpu.kv_cache if cpu.kv_quantized else (cpu.kv_cache,)):
+        if g.dtype == torch.int8:
+            v = torch.from_numpy(rng.integers(-127, 128, size=g.shape).astype(np.int8))
+        elif g.dtype == torch.float32 and kv_dtype == "int8":  # scales on the f16 grid
+            v = torch.from_numpy(rng.uniform(0.004, 0.02, size=g.shape).astype(np.float16)).float()
+        else:
+            v = torch.from_numpy(rng.standard_normal(g.shape).astype(np.float32)).to(g.dtype)
+        g.copy_(v)
+        c.copy_(v)
+    ptrs = [t.data_ptr() for t in parts]
+    for layers in (None, (1, 3)):
+        for fn in ("snapshot_pages_device", "snapshot_pages_device_q8"):
+            got = getattr(gpu, fn)([9, 2, 17], 4, layers=layers)
+            want = getattr(cpu, fn)([9, 2, 17], 4, layers=layers)
+            for a, b in zip(got if isinstance(got, tuple) else (got,),
+                            want if isinstance(want, tuple) else (want,)):
+                np.testing.assert_array_equal(gpu.download_pages(a), cpu.download_pages(b))
+    bundle = rng.standard_normal((4, 2, *gpu.page_shape[1:])).astype(np.float32)
+    q8 = cpu.snapshot_pages_device_q8([5, 6], 2)
+    q8 = tuple(t.numpy() for t in q8)
+    for r in (gpu, cpu):
+        r.scatter_pages([1, 20], bundle)
+        r.scatter_pages([3, 4], bundle[1:], layers=(1, 3))
+        r.scatter_pages_q8([7, 11], *q8)
+        r.scatter_pages_from_device([12, 13], r.snapshot_pages_device_q8([7, 11], 2, layers=(0, 2)),
+                                    layers=(2, 2))
+        r.scatter_pages_from_device([14, 15], r.snapshot_pages_device([1, 20], 2))
+    for g, c in zip(parts, cpu.kv_cache if cpu.kv_quantized else (cpu.kv_cache,)):
+        assert torch.equal(g.cpu(), c)
+    assert ptrs == [t.data_ptr() for t in (gpu.kv_cache if gpu.kv_quantized else (gpu.kv_cache,))]
+
+
+@pytest.mark.parametrize("fast", [False, True], ids=["tcp", "claim"])
+def test_graph_replays_after_a_fetch_thread_scatter_read_the_pages(dev, fast):
+    """P/D on the card: the consumer's decode graphs are captured first;
+    the import then lands from a fetch thread (over TCP: pulled cells
+    uploaded and scattered in place there; or the producer's device
+    snapshots claimed and scattered there), the request parked until the
+    stream resolves; its decode runs as replays of those graphs and reads
+    the imported pages: the stream equals the aggregated engine's on the
+    card and the consumer's on the CPU, the pool never moved and no graph
+    was captured again."""
+    import threading
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    base = dict(model=tiny_model_config(head_dim=64, num_layers=4),
+                cache=CacheConfig(page_size=8, num_blocks=64, dtype="float32"),
+                scheduler=SchedulerConfig(max_num_seqs=4, max_num_batched_tokens=64),
+                kv_transfer_port=0, kv_local_fastpath=fast)
+    params = llama.init_params(base["model"], torch.Generator().manual_seed(0), "cpu")
+    prompt = np.random.default_rng(6).integers(0, 256, size=75).tolist()
+    sp = SamplingParams(temperature=0.0, max_tokens=12, ignore_eos=True)
+    agg = LLMEngine(EngineConfig(**base), params=params, device="cuda")
+    want = next(iter(agg.generate([prompt], sp).values()))
+    producer = LLMEngine(EngineConfig(**base, kv_role="kv_producer"), params=params, device="cuda")
+    consumer = LLMEngine(EngineConfig(**base, kv_role="kv_consumer"), params=params, device="cuda")
+    consumer.warmup()
+    captured = set(consumer.runner.programs.programs)
+    ptr = consumer.runner.kv_cache.data_ptr()
+    try:
+        params_out = None
+        producer.add_request(list(prompt), SamplingParams(temperature=0.0, max_tokens=1),
+                                   kv_transfer_params={"do_remote_decode": True})
+        while producer.has_work():
+            for o in producer.step():
+                if o.finished:
+                    params_out = o.kv_transfer_params
+        conn = consumer.kv_connector
+        handle = conn.make_stream_handle(params_out)
+        fetcher = threading.Thread(target=conn.fetch_remote_policy,
+                                   args=(list(prompt), params_out, handle))
+        fetcher.start()
+        assert handle.wait_admittable(60)
+        crid = consumer.add_request(list(prompt), sp,
+                                    kv_transfer_params={**params_out, "__stream__": handle})
+        runs0 = sum(consumer.runner.programs.runs.values())
+        got, cached = [], None
+        while consumer.has_work():
+            for o in consumer.step():
+                if o.request_id == crid:
+                    got += o.new_token_ids
+                    cached = o.num_cached_tokens
+        fetcher.join(60)
+        assert got == want and cached == 72
+        assert conn.local_imports == int(fast) and conn.import_failures == 0
+        assert sum(consumer.runner.programs.runs.values()) - runs0 >= sp.max_tokens - 2
+        assert set(consumer.runner.programs.programs) == captured
+        assert consumer.runner.kv_cache.data_ptr() == ptr
+        cpu = LLMEngine(EngineConfig(**{**base, "kv_local_fastpath": False}), params=params,
+                        device="cpu")
+        assert next(iter(cpu.generate([prompt], sp).values())) == want
+    finally:
+        producer.close()
+        consumer.close()

@@ -82,5 +82,7 @@ print(json.dumps({{"imported": names, "modules": sorted(sys.modules)}}))
     assert "llmd_tpu_torch.ops.paged_attention" in report["imported"]
     assert "llmd_tpu_torch.profile_step" in report["imported"]
     assert "llmd_tpu_torch.models.loader" in report["imported"]
+    assert "llmd_tpu_torch.kvtransfer.shipper" in report["imported"]
+    assert "llmd_tpu_torch.kvtransfer.connector" in report["imported"]
     assert [m for m in report["modules"] if forbidden(m)] == []
     assert [m for m in report["modules"] if forbidden(m, NOT_AT_IMPORT)] == []

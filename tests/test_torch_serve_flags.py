@@ -111,9 +111,22 @@ def assert_same_fields(port, ref, where=""):
      "--kv-offload-fs-dir=/cache/kv-fs"],
     ["--model", "llama-3-8b", "--kv-offload-chunks", "64"],
     ["--model", "llama-3-8b", "--kv-offload-chunks", "0", "--kv-offload-fs-dir", "/x"],
+    # The P/D guide's tiers (deploy/charts/llmd-tpu/templates/modelserver.yaml).
+    ["--model", "llama-3-8b", *CHART,
+     '--kv-transfer-config={"kv_connector":"TPUConnector","kv_role":"kv_consumer"}',
+     "--advertised-address=10.0.0.7:8200", "--decode-window", "8"],
+    ["--model", "llama-3-8b", *CHART,
+     '--kv-transfer-config={"kv_connector":"TPUConnector","kv_role":"kv_producer"}',
+     "--advertised-address", "10.0.0.8:8200"],
+    ["--model", "deepseek-v2-lite", "--kv-transfer-config",
+     '{"kv_role": "kv_both", "transfer_port": 0, "transfer_dtype": "adaptive", '
+     '"stream_groups": 1}'],
+    ["--model", "llama-3-8b", "--kv-transfer-config", '{"kv_role": "kv_producer", '
+     '"transfer_dtype": "int8", "stream_groups": 8, "transfer_port": 9200}'],
 ], ids=["registry-defaults", "chart", "chart-geometry", "ring", "layout", "hf-dir-chart",
         "hf-dir-tokenizer", "int8", "hf-dir-int8", "async", "spec", "spec-ring",
-        "batch-flags", "batch-defaults", "offload-guide", "offload-dram", "offload-off"])
+        "batch-flags", "batch-defaults", "offload-guide", "offload-dram", "offload-off",
+        "pd-decode", "pd-prefill", "pd-both", "pd-wire"])
 def test_same_argv_same_engine_config(tmp_path, argv):
     """Both parsers take the argv, and both ``make_engine_config``s give the
     same model, cache, scheduler, seed, weights and tokenizer; the port's
@@ -325,7 +338,6 @@ def test_server_configures_tracing_from_its_flags(monkeypatch, tmp_path, flags, 
 
 
 def test_chart_flags_of_later_items_are_still_refused():
-    for flag in ("--tensor-parallel-size=1", "--kv-events-endpoint=tcp://x:1",
-                 "--kv-transfer-config={}", "--advertised-address=10.0.0.1:8000"):
+    for flag in ("--tensor-parallel-size=1", "--kv-events-endpoint=tcp://x:1"):
         with pytest.raises(SystemExit):
             serve.build_parser().parse_args(["--model", "tiny", flag])

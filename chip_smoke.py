@@ -320,6 +320,40 @@ through an HF checkpoint):
                the producer's own answers, the transfer series on both
                /metrics pages, and with the producer stopped the decoder
                answers alone.
+    ``events_store`` the KV events and the cross-slice store
+               (``events_store_phase``): the port's master
+               (``python -m llmd_tpu_torch.kvstore``) as a process; two
+               llama-3-8b bf16 engines with 160 device pages, a host tier
+               and the store: A (128 host pages, policy ``save``, its
+               events on a ``ZMQEventSink`` at ``tcp://127.0.0.1:0``) serves
+               4 prompts of 1,000 tokens (16 greedy tokens each), each
+               twice (a recompute, then a device hit), the later ones
+               evicting the earlier ones' pages from the device and its
+               host tier; B (512 host pages, policy ``off``, its tiers
+               empty) serves the same prompts from the store, then the
+               first again from host DRAM. B's tokens must equal A's
+               device hits' (the same steps on the same page bytes), and
+               each must be the model's top within the gaps of A's
+               recompute (``held_to_model``: a hit's stream may part from
+               a recompute's at a bf16 tie);
+               ``recompute_avoided_tokens`` the pages B restored from the
+               store times 16, as many as its store hits and pulls. A SUB
+               reader in this script (``ZmtpSubReader``, on
+               ``events/zmtp.py``'s framing) must see every batch of A's,
+               numbered with no gap: ``BlockStored`` of media gpu, cpu and
+               store, and ``BlockRemoved``. TTFT of a recompute, a store
+               hit and a host-DRAM hit, the store pull's GB/s, events a
+               second and publish-to-receive ms. Then ``python -m
+               llmd_tpu_torch.serve`` with the chart's whole decode-tier
+               argv (``--tensor-parallel-size=1``, ``--kv-events-endpoint``,
+               ``--moe-backend=grouped``, the consumer's
+               ``--kv-transfer-config``, windows of 8) and the store guide's
+               flags on the same master (``--skip-warmup``): it answers one
+               prompt A published from the store, and ``/metrics`` counts
+               the pulls, hits and avoided tokens; its events reach a
+               reader under its advertised address. The phase reports the
+               host ms of framing and decoding pages, of the publisher's
+               puts and of A's saves.
 
 Each phase prints one JSON line. Any failure raises and exits non-zero
 without printing a result. On success the line before the last is the
@@ -5929,6 +5963,340 @@ def stop_server(proc) -> None:
         proc.wait()
 
 
+class ZmtpSubReader:
+    """A SUB side of the KV events: a TCP peer speaking ZMTP 3.1 with
+    ``events/zmtp.py``'s framing, subscribed to ``topic``; a thread keeps
+    each message as (arrival ``perf_counter``, seq, payload)."""
+
+    def __init__(self, host: str, port: int, topic: bytes = b"kv-events") -> None:
+        from llmd_tpu_torch.events import zmtp
+
+        self._zmtp = zmtp
+        self.sock = socket.create_connection((host, port), timeout=30)
+        self.sock.sendall(zmtp.GREETING + zmtp.ready("SUB") + zmtp.command(b"SUBSCRIBE", topic))
+        self.sock.settimeout(0.2)
+        self.greeted = threading.Event()
+        self.messages: list[tuple[float, int, dict]] = []
+        self._stop = threading.Event()
+        self._thread = threading.Thread(target=self._run, daemon=True)
+        self._thread.start()
+
+    def _run(self) -> None:
+        zmtp, head, parser, parts = self._zmtp, b"", self._zmtp.FrameParser(), []
+        while not self._stop.is_set():
+            try:
+                data = self.sock.recv(1 << 20)
+            except socket.timeout:
+                continue
+            except OSError:
+                return
+            if not data:
+                return
+            t = time.perf_counter()
+            if not self.greeted.is_set():
+                head += data
+                if len(head) < zmtp.GREETING_SIZE:
+                    continue
+                zmtp.check_greeting(head[: zmtp.GREETING_SIZE])
+                data = head[zmtp.GREETING_SIZE:]
+                self.greeted.set()
+            for flags, body in parser.feed(data):
+                if flags & zmtp.FLAG_COMMAND:
+                    continue
+                parts.append(body)
+                if not flags & zmtp.FLAG_MORE:
+                    if len(parts) == 3:
+                        self.messages.append((t, struct.unpack(">Q", parts[1])[0],
+                                              json.loads(parts[2])))
+                    parts = []
+
+    def wait_seq(self, seq: int, limit_s: float = 60) -> None:
+        t0 = time.perf_counter()
+        while not any(m[1] >= seq for m in list(self.messages)):
+            if time.perf_counter() - t0 > limit_s:
+                raise TimeoutError(f"no KV-event batch {seq} in {limit_s} s")
+            time.sleep(0.01)
+
+    def events(self) -> list[dict]:
+        return [e for _, _, payload in self.messages for e in payload["events"]]
+
+    def close(self) -> None:
+        self._stop.set()
+        self._thread.join(timeout=5)
+        self.sock.close()
+
+
+ES_BLOCKS, ES_HOST_A, ES_HOST_B, ES_PROMPTS, ES_TOKENS = 160, 128, 512, 4, 16
+
+
+def start_master(log_name: str):
+    """``python -m llmd_tpu_torch.kvstore`` on a free port; (process, URL)."""
+    port = free_port()
+    os.makedirs(os.path.join(REPO, "build"), exist_ok=True)
+    with open(os.path.join(REPO, "build", log_name), "w") as log:
+        proc = subprocess.Popen([sys.executable, "-m", "llmd_tpu_torch.kvstore", "--host",
+                                 "127.0.0.1", "--port", str(port)], cwd=REPO, stdout=log,
+                                stderr=subprocess.STDOUT)
+    url = f"http://127.0.0.1:{port}"
+    t0 = time.perf_counter()
+    while True:
+        if proc.poll() is not None:
+            raise RuntimeError(f"the kvstore master exited with {proc.returncode}")
+        try:
+            with urllib.request.urlopen(url + "/healthz", timeout=5) as r:
+                if r.status == 200:
+                    return proc, url
+        except OSError:
+            pass
+        if time.perf_counter() - t0 > 60:
+            stop_server(proc)
+            raise TimeoutError("the kvstore master did not start in 60 s")
+        time.sleep(0.1)
+
+
+def events_store_phase(params: dict, cfg) -> None:
+    """The KV events and the cross-slice store on llama-3-8b (the module
+    docstring's ``events_store``): two engines on one master, A publishing
+    and B fetching, A's events read by ``ZmtpSubReader``; then the chart's
+    decode-tier server on the same master."""
+    from llmd_tpu_torch import ops
+    from llmd_tpu_torch.config import CacheConfig, EngineConfig, OffloadConfig, SchedulerConfig
+    from llmd_tpu_torch.engine import LLMEngine, SamplingParams
+    from llmd_tpu_torch.events import ZMQEventSink
+    from llmd_tpu_torch.federation import core as fcore
+
+    # Host seconds of the store's parts, by the thread that spends them.
+    split: dict[str, float] = collections.defaultdict(float)
+    calls: collections.Counter = collections.Counter()
+    split_lock = threading.Lock()
+
+    def timed(fn, key: str):
+        def wrap(*args, **kw):
+            t = time.perf_counter()
+            try:
+                return fn(*args, **kw)
+            finally:
+                with split_lock:
+                    split[key] += time.perf_counter() - t
+                    calls[key] += 1
+        return wrap
+
+    encode_page, decode_page = fcore.encode_page, fcore.decode_page
+    fcore.encode_page = timed(encode_page, "encode_page (publisher thread)")
+    fcore.decode_page = timed(decode_page, "decode_page (engine thread)")
+    master, url = start_master("chip_smoke_kvstore_master.log")
+    sink = reader = a = b = None
+    try:
+        with phase("events_store", {"model": MODEL, "dtype": cfg.dtype, "device_pages": ES_BLOCKS,
+                                    "host_pages": [ES_HOST_A, ES_HOST_B], "prompts": ES_PROMPTS,
+                                    "prompt_tokens": OFFLOAD_PROMPT,
+                                    "max_tokens": ES_TOKENS}) as info:
+            sink = ZMQEventSink("tcp://127.0.0.1:0", pod="engine-a")
+            sent: dict[int, float] = {}
+            send = sink._sock.send_multipart
+
+            def timed_send(frames):
+                sent[struct.unpack(">Q", frames[1])[0]] = time.perf_counter()
+                return send(frames)
+
+            sink._sock.send_multipart = timed_send
+            reader = ZmtpSubReader("127.0.0.1", int(sink.endpoint.rsplit(":", 1)[1]))
+            t0 = time.perf_counter()
+            while sink.subscriber_count() != 1:
+                if time.perf_counter() - t0 > 30:
+                    raise TimeoutError("the SUB reader never subscribed")
+                time.sleep(0.01)
+
+            def engine(host_pages: int, policy: str, event_sink=None):
+                return LLMEngine(EngineConfig(
+                    model=cfg, cache=CacheConfig(page_size=16, num_blocks=ES_BLOCKS),
+                    scheduler=SchedulerConfig(max_num_seqs=16, max_num_batched_tokens=1024),
+                    seed=0, offload=OffloadConfig(
+                        cpu_chunks=host_pages, store_master_url=url, store_segment_bytes=1 << 30,
+                        publish_policy=policy)), params=params, device="cuda", event_sink=event_sink)
+
+            a = engine(ES_HOST_A, "save", sink)
+            b = engine(ES_HOST_B, "off")
+            a._kvstore_client.put = timed(a._kvstore_client.put, "put (publisher thread)")
+            a.offloader.flush = timed(a.offloader.flush, "save flush (engine thread)")
+            prompts = fixed_prompts(cfg, ES_PROMPTS, OFFLOAD_PROMPT, 51)
+            sp = SamplingParams(temperature=0.0, max_tokens=ES_TOKENS, ignore_eos=True)
+
+            def one(eng, prompt: list[int]) -> tuple[list[int], float]:
+                t = time.perf_counter()
+                rid = eng.add_request(prompt, sp)
+                out, first = [], None
+                while eng.has_work():
+                    for o in eng.step():
+                        if o.request_id == rid:
+                            out += o.new_token_ids
+                            if first is None:
+                                first = time.perf_counter()
+                return out, (first - t) * 1e3
+
+            ops.reset_launch_counts()
+            t0 = time.perf_counter()
+            ran_a, hit_a = [], []
+            for p in prompts:
+                ran_a.append(one(a, p))  # a recompute
+                hit_a.append(one(a, p))  # a device hit: a store hit's step shapes
+            a._kvstore_client.flush_publishes(120)
+            sink.flush()
+            a_s = time.perf_counter() - t0
+            pulls: list[tuple[int, float]] = []
+            get_many = b._kvstore_client.get_many
+
+            def timed_get_many(keys):
+                t = time.perf_counter()
+                got = get_many(keys)
+                pulls.append((sum(len(v) for v in got.values()), time.perf_counter() - t))
+                return got
+
+            b._kvstore_client.get_many = timed_get_many
+            ran_b = [one(b, p) for p in prompts]
+            dram0 = b._host_cache.stats()["restores"]
+            hit_tokens, hit_ms = one(b, prompts[0])
+            torch.cuda.synchronize()
+            counts = ops.launch_counts()
+            b._refresh_gauges()
+            a._refresh_gauges()
+            full = OFFLOAD_PROMPT // 16
+            st = b.stats
+            info.update(
+                ttft_ms={"recompute (A)": [r[1] for r in ran_a], "device hit (A)": [r[1] for r in hit_a],
+                         "store hit (B)": [r[1] for r in ran_b], "host DRAM hit (B)": hit_ms},
+                ttft_median_ms={"recompute": statistics.median(r[1] for r in ran_a),
+                                "device hit": statistics.median(r[1] for r in hit_a),
+                                "store hit": statistics.median(r[1] for r in ran_b),
+                                "host DRAM hit": hit_ms},
+                store_pulls=len(pulls), store_pull_bytes=sum(n for n, _ in pulls),
+                store_pull_gb_s=sum(n for n, _ in pulls) / max(1e-9, sum(t for _, t in pulls)) / 1e9,
+                store_pull_ms=[t * 1e3 for _, t in pulls],
+                host_dram_pages_restored=b._host_cache.stats()["restores"] - dram0,
+                b_stats={k: getattr(st, k) for k in (
+                    "kvstore_pulls", "kvstore_pull_failures", "kvstore_misses",
+                    "kv_federation_hits", "recompute_avoided_tokens", "offload_restores")},
+                a_stats={k: getattr(a.stats, k) for k in (
+                    "kv_federation_published", "offload_saves", "offload_pages",
+                    "kv_publish_paced_bytes_total")},
+                a_client=a._kvstore_client.stats(),
+                split_ms={k: v * 1e3 for k, v in split.items()}, split_calls=dict(calls),
+                # A hit computes the prompt's tail over restored pages: B
+                # is held byte for byte to A's device hits, whose steps are
+                # B's, on the same page bytes, and each of its tokens to the
+                # model within the recompute's gaps (``held_to_model``):
+                # in bf16 a hit's stream may part from the recompute's
+                # where the top two logprobs tie.
+                tokens_equal={"store hit": [r[0] for r in ran_b] == [h[0] for h in hit_a],
+                              "host DRAM hit": hit_tokens == hit_a[0][0]},
+                store_hit_equals_recompute=[r[0] == q[0] for r, q in zip(ran_b, ran_a)])
+            path_launches(info, counts, FLAT_WRAPPERS)
+            if not all(info["tokens_equal"].values()):
+                raise AssertionError(f"B's streams differ from A's device hits: "
+                                     f"{info['tokens_equal']}")
+            if any(len(r[0]) != ES_TOKENS for r in ran_a + hit_a):
+                raise AssertionError("not every request produced its tokens")
+            held_to_model(info, params, cfg, prompts, [r[0] for r in ran_b],
+                          [r[0] for r in ran_a], "events_store")
+            store_pages = ES_PROMPTS * full
+            if not (st.kv_federation_hits == st.kvstore_pulls == b.offloader.store_pages_committed
+                    == store_pages and st.recompute_avoided_tokens == store_pages * 16):
+                raise AssertionError(f"store counters: {info['b_stats']}, committed "
+                                     f"{b.offloader.store_pages_committed}, want {store_pages}")
+            if info["host_dram_pages_restored"] <= 0:
+                raise AssertionError("B's repeat restored nothing from host DRAM")
+            # A's events: every batch, numbered from 0 with no gap.
+            last = sink._seq - 1
+            reader.wait_seq(last)
+            seqs = [m[1] for m in reader.messages]
+            events = reader.events()
+            stored = collections.Counter(e["medium"] for e in events if e["type"] == "BlockStored")
+            removed = sum(1 for e in events if e["type"] == "BlockRemoved")
+            lat = [(t - sent[q]) * 1e3 for t, q, _ in reader.messages]
+            info.update(events=len(events), batches=len(seqs), stored_by_medium=dict(stored),
+                        removed=removed, events_per_s=len(events) / a_s, a_seconds=a_s,
+                        publish_to_receive_ms={"median": statistics.median(lat),
+                                               "max": max(lat)},
+                        publish_failures=sink.publish_failures, dropped=sink.dropped)
+            if seqs != list(range(last + 1)):
+                raise AssertionError(f"KV-event batches {seqs[:8]}... are not 0..{last} with no gap")
+            if {"gpu", "cpu", "store"} - set(stored) or not removed:
+                raise AssertionError(f"events: stored {dict(stored)}, removed {removed}")
+            if stored["store"] != a._federation.stats()["published"]:
+                raise AssertionError(f"{stored['store']} store events for "
+                                     f"{a._federation.stats()['published']} publications")
+            b.close()
+            b = None
+            gc.collect()
+            torch.cuda.empty_cache()
+            serve_store_check(info, url, prompts[0], hit_a[0][0])
+    finally:
+        fcore.encode_page, fcore.decode_page = encode_page, decode_page
+        for x in (reader, sink, b, a):
+            if x is not None:
+                x.close()
+        stop_server(master)
+        gc.collect()
+        torch.cuda.empty_cache()
+
+
+def serve_store_check(info: dict, url: str, prompt: list[int], engine_tokens: list[int]) -> None:
+    """The chart's decode-tier server with the store guide's flags on the
+    master at ``url``: a prompt engine A published is answered from the
+    store (Generate: 16 tokens), ``/metrics`` counts the pulls, hits and
+    avoided tokens, and its KV events reach a reader under its advertised
+    address."""
+    port, events_port = free_port(), free_port()
+    argv = ["--model", MODEL, f"--served-model-name={MODEL}", "--max-model-len=8192",
+            f"--port={port}", "--tensor-parallel-size=1",
+            f"--advertised-address=127.0.0.1:{port}",
+            f"--kv-events-endpoint=tcp://0.0.0.0:{events_port}",
+            '--kv-transfer-config={"kv_connector":"TPUConnector","kv_role":"kv_consumer"}',
+            "--max-num-seqs=64", "--max-num-batched-tokens=8192", "--decode-window=8",
+            "--moe-backend=grouped", "--kv-offload-chunks=512", f"--kv-store-master-url={url}",
+            "--kv-store-segment-bytes=1073741824", f"--kv-store-data-port={free_port()}",
+            "--skip-warmup"]
+    server = start_server(argv, "chip_smoke_events_store_server.log", port=port)
+    reader = None
+    try:
+        info["server_startup_s"] = wait_healthy([server])
+        reader = ZmtpSubReader("127.0.0.1", events_port)
+        if not reader.greeted.wait(30):
+            raise TimeoutError("the server's event socket never greeted")
+        time.sleep(0.2)  # the subscription reaches the server's socket
+        t0 = time.perf_counter()
+        status, raw = _post(server[1] + "/vllm.Generation/Generate", {
+            "prompt_token_ids": prompt,
+            "sampling_params": {"max_tokens": ES_TOKENS, "temperature": 0.0, "ignore_eos": True}})
+        info["server_request_ms"] = (time.perf_counter() - t0) * 1e3
+        tokens = json.loads(raw)["token_ids"]
+        m, _ = _scrape(server[1])
+        keys = ("kvstore_pulls_total", "kv_federation_hits_total", "recompute_avoided_tokens_total",
+                "kv_offload_restores_total", "kvstore_misses_total")
+        info["server_metrics"] = {k: m.get(f"llmd:{k}") for k in keys}
+        info["server_tokens_equal_engine_a"] = tokens == engine_tokens
+        full = OFFLOAD_PROMPT // 16
+        if status != 200 or len(tokens) != ES_TOKENS:
+            raise AssertionError(f"the server answered {status} with {len(tokens)} tokens")
+        if (m["llmd:kvstore_pulls_total"] != full or m["llmd:kv_federation_hits_total"] != full
+                or m["llmd:recompute_avoided_tokens_total"] != full * 16):
+            raise AssertionError(f"the server's store counters: {info['server_metrics']}")
+        t0 = time.perf_counter()
+        while not any(e["type"] == "BlockStored" for e in reader.events()):
+            if time.perf_counter() - t0 > 30:
+                raise TimeoutError("no BlockStored event from the server")
+            time.sleep(0.05)
+        pods = {payload["pod"] for _, _, payload in reader.messages}
+        info["server_events"] = len(reader.events())
+        info["server_event_pods"] = sorted(pods)
+        if pods != {f"127.0.0.1:{port}"}:
+            raise AssertionError(f"the server's events name {pods}")
+    finally:
+        if reader is not None:
+            reader.close()
+        stop_server(server[0])
+
+
 def pd_serve_phase(info: dict) -> None:
     """Two port servers on the card in llm-d's P/D roles (the chart's
     ``--kv-transfer-config`` and ``--advertised-address``, 1,024 pages
@@ -6146,6 +6514,7 @@ def main() -> int:
     offload_phase(params, MODEL, "int8")
     pd_exact_phase()
     pd_phase(params, get_model_config(MODEL))
+    events_store_phase(params, get_model_config(MODEL))
     t_stats = time.perf_counter()
     surface = stats_update_cost(params)
     surface["stats_update_s"] = time.perf_counter() - t_stats

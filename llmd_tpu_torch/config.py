@@ -355,37 +355,81 @@ class SchedulerConfig:
 
 
 @dataclasses.dataclass
-class OffloadConfig:
-    """Tiered KV offload: HBM -> host DRAM -> files (``kvtransfer/
-    offload.py``). ``cpu_chunks`` caps the host page cache (pages);
-    ``fs_dir`` turns on the file tier, where pages the host cache evicts
-    go and from where they load back, across restarts; ``fs_max_pages``
-    caps it.
+class ParallelConfig:
+    """The JAX package's ``ParallelConfig`` (``llmd_tpu/config.py:548``)
+    trimmed to the two fields the chart passes: ``tensor_parallel_size``
+    and ``moe_backend``, with JAX's defaults. The port runs one card and
+    the grouped expert path; any other value is refused with the
+    ROADMAP.md queue 1 item that would bring it (a sharded model is item
+    10; the dense one-hot oracle and the all-to-all expert dispatch are
+    item 9, the latter with item 10)."""
 
-    ``store_master_url`` and ``decode_paging`` are the JAX package's
-    switches for tiers the port does not have yet (later parts of
-    ROADMAP.md queue 1 item 7): a configuration that sets one is refused
-    with the item named. Their other knobs are not fields here, so a
-    configuration that sets one fails as an unknown argument."""
+    tensor_parallel_size: int = 1
+    moe_backend: str = "grouped"
+
+    def __post_init__(self) -> None:
+        if self.tensor_parallel_size != 1:
+            raise ValueError(
+                f"tensor_parallel_size={self.tensor_parallel_size}: the port "
+                "serves a model from one card; tensor parallelism is not "
+                "ported yet (ROADMAP.md queue 1 item 10)"
+            )
+        if self.moe_backend == "dense":
+            raise ValueError(
+                "moe_backend='dense': the port runs the grouped expert path "
+                "only; the dense one-hot combine is not ported (ROADMAP.md "
+                "queue 1 item 9)"
+            )
+        if self.moe_backend == "ep":
+            raise ValueError(
+                "moe_backend='ep': the all-to-all expert dispatch needs "
+                "expert parallelism across cards, which is not ported yet "
+                "(ROADMAP.md queue 1 items 9 and 10)"
+            )
+        if self.moe_backend != "grouped":
+            raise ValueError(
+                f"moe_backend={self.moe_backend!r} is not one of 'grouped', "
+                "'dense', 'ep'"
+            )
+
+
+@dataclasses.dataclass
+class OffloadConfig:
+    """Tiered KV offload: HBM -> host DRAM -> files -> the cross-slice
+    store (``kvtransfer/offload.py``). ``cpu_chunks`` caps the host page
+    cache (pages); ``fs_dir`` turns on the file tier, where pages the host
+    cache evicts go and from where they load back, across restarts;
+    ``fs_max_pages`` caps it. ``store_master_url`` turns on the store tier
+    behind them (``kvstore/``, ``federation/``): this host contributes a
+    segment of ``store_segment_bytes`` served on ``store_data_port`` (0:
+    any free port); ``publish_policy`` is ``save`` (publish every host
+    save), ``evict-hot`` (publish a page the device evicts once its hash
+    was used ``publish_min_hits`` times) or ``off`` (fetch only). Defaults
+    are JAX's; an unknown policy is refused when the engine builds its
+    federation, as in JAX.
+
+    ``decode_paging`` is the JAX package's switch for the decode pager,
+    which the port does not have yet (ROADMAP.md queue 1 item 7.6): a
+    configuration that sets it is refused with the item named, and the
+    pager's own knob is not a field here, so a configuration that sets it
+    fails as an unknown argument."""
 
     enabled: bool = True
     cpu_chunks: int = 25_000
     fs_dir: str | None = None
     fs_max_pages: int = 100_000
     store_master_url: str | None = None
+    store_segment_bytes: int = 8 << 30
+    store_data_port: int = 0
+    publish_policy: str = "save"
+    publish_min_hits: int = 2
     decode_paging: bool = False
 
     def __post_init__(self) -> None:
-        if self.store_master_url:
-            raise ValueError(
-                "OffloadConfig.store_master_url: the cross-slice KV store and "
-                "federation are not ported yet (ROADMAP.md queue 1 item 7, "
-                "kvstore and federation)"
-            )
         if self.decode_paging:
             raise ValueError(
                 "OffloadConfig.decode_paging: the decode pager is not ported "
-                "yet (ROADMAP.md queue 1 item 7, the pager)"
+                "yet (ROADMAP.md queue 1 item 7.6, the pager)"
             )
 
 
@@ -394,6 +438,7 @@ class EngineConfig:
     model: ModelConfig = dataclasses.field(default_factory=ModelConfig)
     cache: CacheConfig = dataclasses.field(default_factory=CacheConfig)
     scheduler: SchedulerConfig = dataclasses.field(default_factory=SchedulerConfig)
+    parallel: ParallelConfig = dataclasses.field(default_factory=ParallelConfig)
     # Seed of the random weights and of the engine's sampling stream.
     seed: int = 0
     # An HF model directory (config.json + *.safetensors) whose weights the
@@ -418,6 +463,10 @@ class EngineConfig:
     kv_transfer_dtype: str = "auto"
     kv_local_fastpath: bool = True
     kv_stream_groups: int = 4
+    # The KV events' publisher endpoint (``events/publisher.py``: a ZMTP
+    # PUB socket, ``tcp://HOST:PORT``; the server builds the publisher);
+    # None publishes nothing.
+    kv_events_endpoint: str | None = None
     # Tiered KV offload; None turns it off.
     offload: OffloadConfig | None = None
 

@@ -33,7 +33,17 @@ the commit; the async engine enqueues the gather before it dispatches the
 next step and puts the pages in the host cache while that step runs, so a
 page reused by the next step is gathered before it is overwritten), and
 ``add_request`` restores the host pages that extend a prompt's device
-prefix run before the request is queued.
+prefix run before the request is queued. With ``offload.store_master_url``
+the cross-slice store is the tier behind them: the engine's store client
+(``kvstore/``) and ``KVFederation`` (``federation/``) publish pages and
+fetch the ones no local tier holds.
+
+KV events (JAX ``engine.py:461-470``): the allocator tells ``event_sink``
+(the server's ``events.ZMQEventSink``, or one that drops them) of each page
+stored, each cached page evicted and each clear; with offload the sink is
+wrapped in ``TieredEventSink`` (a device eviction of a page a host tier
+holds is a ``cpu`` store), and the federation announces its accepted
+publications and withdrawals to the sink it wraps (medium ``store``).
 
 The batch tier (``SchedulerConfig.batch_backfill``, ``Request.is_batch``)
 is the scheduler's; the engine reports its counters (``batch_*``).
@@ -76,6 +86,7 @@ import torch
 from llmd_tpu_torch import faults
 from llmd_tpu_torch.config import EngineConfig, swa_ring_spec
 from llmd_tpu_torch.engine.kv_cache import (
+    KVEventSink,
     NoFreePagesError,
     PageAllocator,
     page_hashes_for_tokens,
@@ -204,9 +215,9 @@ class EngineStats:
     contract (JAX ``engine.py:170 EngineStats``). The engine thread writes
     these plain ints and floats; a scrape on the event loop reads each
     atomically, with no lock on the step path. Fields of features the port
-    does not have yet (KV store and federation, the decode pager, LoRA,
-    wide EP) stay at 0 or empty, so the page carries the JAX
-    engine's names."""
+    does not have yet (the decode pager, context-parallel prefill, LoRA,
+    wide EP) stay at 0 or empty, so the page carries the JAX engine's
+    names."""
 
     # Gauges, refreshed once a step (``_refresh_gauges``).
     num_waiting: int = 0
@@ -287,7 +298,10 @@ class EngineStats:
     kv_transfer_failures: tuple = ()
     kv_bundle_crc_failures_total: int = 0
     kv_recompute_fallbacks_total: int = 0
-    # Features the port does not have yet: always 0 or empty here.
+    # The store tier (``kvstore/``, ``federation/``): pages pulled, failed
+    # pulls and misses of the store client, this replica's publications
+    # the master accepted, pages fetched from the store, the prompt tokens
+    # those pages spared, and the publish bytes the pacer delayed.
     kvstore_pulls: int = 0
     kvstore_pull_failures: int = 0
     kvstore_misses: int = 0
@@ -295,12 +309,15 @@ class EngineStats:
     kv_federation_hits: int = 0
     recompute_avoided_tokens: int = 0
     kv_publish_paced_bytes_total: int = 0
-    kv_paged_out_bytes: int = 0
-    kv_pager_prefetch_late_total: int = 0
-    cp_ring_steps_total: int = 0
+    # Failover resume (``serve/api.py``): resumed streams, the output
+    # tokens they replayed as prompt, and resumes refused.
     stream_resumes_total: int = 0
     resume_replayed_tokens_total: int = 0
     stream_resume_failures_total: int = 0
+    # Features the port does not have yet: always 0 or empty here.
+    kv_paged_out_bytes: int = 0
+    kv_pager_prefetch_late_total: int = 0
+    cp_ring_steps_total: int = 0
     max_lora: int = 0
     running_lora_adapters: tuple = ()
     waiting_lora_adapters: tuple = ()
@@ -334,6 +351,7 @@ class LLMEngine:
         config: EngineConfig,
         params: dict | None = None,
         device: str | torch.device = "cuda",
+        event_sink: KVEventSink | None = None,
     ) -> None:
         self.config = config
         self.device = resolve_device(device)
@@ -362,10 +380,40 @@ class LLMEngine:
             retention = cache.swa_section_cache * spec.max_section_pages(cache.page_size)
             spec = dataclasses.replace(spec, num_swa_blocks=spec.num_swa_blocks + retention)
         self._swa = spec
+        # Tiered offload: the store tier's client and federation first, then
+        # the host tiers, then the tier-honest sink around the given one.
+        self._host_cache = self.offloader = None
+        self._kvstore_client = self._federation = None
+        if offload is not None:
+            # Imported here: the tiers' module imports the engine package.
+            from llmd_tpu_torch.kvtransfer.offload import HostKVCache, TieredEventSink
+
+            if offload.store_master_url:
+                from llmd_tpu_torch.federation import KVFederation
+                from llmd_tpu_torch.kvstore import CrossSliceStoreClient
+
+                self._kvstore_client = CrossSliceStoreClient(
+                    master_url=offload.store_master_url, advertised_host=config.kv_host,
+                    data_port=offload.store_data_port,
+                    segment_bytes=offload.store_segment_bytes)
+                try:
+                    self._federation = KVFederation(
+                        self._kvstore_client, publish_policy=offload.publish_policy,
+                        publish_min_hits=offload.publish_min_hits)
+                except ValueError:
+                    self._kvstore_client.close()
+                    raise
+            self._host_cache = HostKVCache(
+                max_pages=offload.cpu_chunks, fs_dir=offload.fs_dir,
+                fs_max_pages=offload.fs_max_pages, federation=self._federation)
+            event_sink = TieredEventSink(event_sink or KVEventSink(), self._host_cache)
+            if self._federation is not None:
+                self._federation.event_sink = event_sink.inner
         self.allocator = PageAllocator(
             num_pages=cache.num_blocks,
             page_size=cache.page_size,
             enable_prefix_caching=prefix_caching,
+            event_sink=event_sink,
         )
         self.swa_allocator = None if spec is None else PageAllocator(
             num_pages=spec.num_swa_blocks, page_size=cache.page_size,
@@ -384,17 +432,15 @@ class LLMEngine:
                 self.swa_allocator, self.runner, cache.swa_section_cache, retention)
             self.scheduler.prefill_complete_hook = self._capture_swa_section
             self.scheduler.ring_pressure_hook = self._swa_sections.evict_one
-        # Tiered offload: the host tiers and the save/restore pump.
-        self._host_cache = self.offloader = None
+        # The tiered offload's save/restore pump; a page fetched from the
+        # store comes back in the runner's staging dtype.
         if offload is not None:
-            # Imported here: the tiers' module imports the engine package.
-            from llmd_tpu_torch.kvtransfer.offload import HostKVCache, OffloadConnector
+            from llmd_tpu_torch.kvtransfer.offload import OffloadConnector
 
-            self._host_cache = HostKVCache(
-                max_pages=offload.cpu_chunks, fs_dir=offload.fs_dir,
-                fs_max_pages=offload.fs_max_pages)
             self.offloader = OffloadConnector(self.runner, self.allocator, self._host_cache)
             self.allocator.commit_hook = self.offloader.on_commit
+            if self._federation is not None:
+                self._federation.page_dtype = self.runner.staging_dtype
         self.stats = EngineStats(num_pages=cache.num_blocks, page_size=cache.page_size)
         self._counter = itertools.count()
         # P/D disaggregation (JAX ``engine.py:604-620``): the KV connector;
@@ -670,11 +716,14 @@ class LLMEngine:
         """Release what outlives a step (JAX ``close``): the host tiers'
         file writer finishes its spills, so that a process started over
         the same directory finds every page the cache spilled; the KV
-        connector's shipper stops."""
+        connector's shipper stops; the store client finishes its queued
+        publications, withdraws its segment and stops its threads."""
         if self._host_cache is not None:
             self._host_cache.close()
         if self.kv_connector is not None:
             self.kv_connector.close()
+        if self._kvstore_client is not None:
+            self._kvstore_client.close()
 
     def warmup(self) -> int:
         """Build the kernels and prepare the decode steps' programs (CUDA
@@ -882,6 +931,16 @@ class LLMEngine:
             st.offload_fs_pages = hs["fs_pages"]
             st.offload_saves = hs["saves"]
             st.offload_restores = hs["restores"]
+            st.recompute_avoided_tokens = self.offloader.recompute_avoided_tokens
+        if self._kvstore_client is not None:
+            ks = self._kvstore_client.stats()
+            st.kvstore_pulls = ks["pulls"]
+            st.kvstore_pull_failures = ks["pull_failures"]
+            st.kvstore_misses = ks["misses"]
+            st.kv_publish_paced_bytes_total = ks["paced_publish_bytes"]
+            fs = self._federation.stats()
+            st.kv_federation_published = fs["published"]
+            st.kv_federation_hits = fs["hits"]
         if sch.spec_k:
             st.spec_proposed_tokens_total = sch.spec_proposed_tokens
             st.spec_accepted_tokens_total = sch.spec_accepted_tokens

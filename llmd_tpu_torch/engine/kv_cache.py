@@ -51,6 +51,28 @@ def _locked(fn):
     return inner
 
 
+class KVEventSink:
+    """Where the allocator's KV events go (JAX ``engine/kv_cache.py:64``):
+    ``blocks_stored`` when a page's content is registered for reuse,
+    ``blocks_removed`` when a cached page is reused for new content,
+    ``all_cleared`` when the whole cache is dropped. The router's precise
+    prefix scorer indexes them. This one drops them; the server installs
+    ``events.ZMQEventSink`` when ``--kv-events-endpoint`` is given.
+    ``medium`` names the tier an event is about (the allocator leaves it
+    None: the sink's own, the device; the tiered sink passes ``cpu`` and
+    ``store``)."""
+
+    def blocks_stored(self, hashes: list[bytes], parent: bytes | None,
+                      token_ids: list[int], medium: str | None = None) -> None:
+        pass
+
+    def blocks_removed(self, hashes: list[bytes], medium: str | None = None) -> None:
+        pass
+
+    def all_cleared(self) -> None:
+        pass
+
+
 @dataclasses.dataclass
 class PageMeta:
     ref_count: int = 0
@@ -61,14 +83,18 @@ class PageAllocator:
     """Refcounted page allocator with a content-addressed reuse index.
 
     The engine thread owns it; a P/D fetch thread allocates and frees a
-    streamed import's pages, so the methods that change it hold a lock."""
+    streamed import's pages, so the methods that change it hold a lock.
+    ``event_sink`` sees each page stored, each cached page evicted and each
+    clear, at JAX's three sites."""
 
     def __init__(
-        self, num_pages: int, page_size: int, enable_prefix_caching: bool = True
+        self, num_pages: int, page_size: int, enable_prefix_caching: bool = True,
+        event_sink: KVEventSink | None = None,
     ) -> None:
         self.num_pages = num_pages
         self.page_size = page_size
         self.enable_prefix_caching = enable_prefix_caching
+        self.event_sink = event_sink or KVEventSink()
         self._lock = threading.RLock()
         self._meta = [PageMeta() for _ in range(num_pages)]
         # Pages with ref_count == 0, LRU-ordered: left = oldest = evict first.
@@ -155,7 +181,9 @@ class PageAllocator:
             pid, _ = self._free.popitem(last=False)
             meta = self._meta[pid]
             if meta.content_hash is not None:
+                # Evicted: the page is reused for new content.
                 self._cached.pop(meta.content_hash, None)
+                self.event_sink.blocks_removed([meta.content_hash])
                 meta.content_hash = None
             meta.ref_count = 1
             out.append(pid)
@@ -171,9 +199,11 @@ class PageAllocator:
         return self.allocate(n)
 
     @_locked
-    def commit_page(self, page_id: int, content_hash: bytes) -> None:
-        """Register a now-full page's content for reuse, unless another
-        page already holds that content; ``commit_hook`` sees each
+    def commit_page(self, page_id: int, content_hash: bytes, token_ids: Sequence[int],
+                    parent: bytes | None) -> None:
+        """Register a now-full page's content (its ``token_ids``, chained on
+        ``parent``) for reuse, unless another page already holds that
+        content; the event sink and ``commit_hook`` see each
         registration."""
         if not self.enable_prefix_caching:
             return
@@ -182,6 +212,7 @@ class PageAllocator:
             return
         self._cached[content_hash] = page_id
         self._meta[page_id].content_hash = content_hash
+        self.event_sink.blocks_stored([content_hash], parent, token_ids)
         if self.commit_hook is not None:
             self.commit_hook(page_id, content_hash)
 
@@ -198,6 +229,15 @@ class PageAllocator:
                 self._free[pid] = None
                 if meta.content_hash is None:
                     self._free.move_to_end(pid, last=False)
+
+    @_locked
+    def clear(self) -> None:
+        """Forget every page's content (new weights: the cached KV no
+        longer matches); the references stay."""
+        self._cached.clear()
+        for meta in self._meta:
+            meta.content_hash = None
+        self.event_sink.all_cleared()
 
     def hit_ratio(self) -> float:
         if not self.metrics_queries:

@@ -774,8 +774,9 @@ class EngineScheduler:
             return
         tokens = req.all_token_ids
         while committed < full:
-            h = hash_page(parent, tokens[committed * page : (committed + 1) * page])
-            self.allocator.commit_page(req.block_ids[committed], h)
+            chunk = tokens[committed * page : (committed + 1) * page]
+            h = hash_page(parent, chunk)
+            self.allocator.commit_page(req.block_ids[committed], h, chunk, parent)
             parent = h
             committed += 1
         self._chain[req.request_id] = (parent, committed)

@@ -1121,12 +1121,15 @@ class KVConnector:
             skip += 1
         skip = max(skip, bundle.start_page)
         if bundle.stream_ids is not None:
+            parent = None if skip == 0 else hashes[skip - 1]
             adopted = 0
             for i, pid in enumerate(bundle.stream_ids):
                 idx = bundle.start_page + i
                 if idx >= n_full or idx < skip:
                     continue
-                self.allocator.commit_page(pid, hashes[idx])
+                self.allocator.commit_page(pid, hashes[idx],
+                                           prompt_token_ids[idx * page : (idx + 1) * page], parent)
+                parent = hashes[idx]
                 adopted += 1
             self.allocator.free(bundle.stream_ids)
             bundle.stream_ids = None
@@ -1169,8 +1172,13 @@ class KVConnector:
                 elif bundle.pages is not None or bundle.np_chunks:
                     want = bundle.host_pages(n_full)[:, skip - bundle.start_page :]
                     self.runner.scatter_pages(page_ids, host_tensor(want))
+                parent = None if skip == 0 else hashes[skip - 1]
                 for i, pid in enumerate(page_ids):
-                    self.allocator.commit_page(pid, hashes[skip + i])
+                    idx = skip + i
+                    self.allocator.commit_page(pid, hashes[idx],
+                                               prompt_token_ids[idx * page : (idx + 1) * page],
+                                               parent)
+                    parent = hashes[idx]
             finally:
                 # The pages stay cached (ref 0) for the request's hit; a
                 # failed scatter refunds them.

@@ -1,9 +1,7 @@
-"""Tiered KV offload: HBM -> host DRAM -> files.
+"""Tiered KV offload: HBM -> host DRAM -> files -> the cross-slice store.
 
 The port's own copy of ``llmd_tpu/kvtransfer/offload.py`` (``HostKVCache``,
-``OffloadConnector``), without the cross-slice store and federation tiers
-and without the KV-event sink, which wait for later parts of ROADMAP.md
-queue 1 item 7:
+``TieredEventSink``, ``OffloadConnector``):
 
   * save on commit: every page committed to the device prefix cache is
     also copied HBM -> host (one gather an engine step) and put in a
@@ -15,7 +13,16 @@ queue 1 item 7:
     ``<fs_dir>/<hash hex>.npy`` by a writer thread (off the engine
     thread, where a step's spills stalled every running row, PERF.md §5)
     and loaded back on a miss; a new cache over the same directory indexes
-    the files already there, so the tier outlives the process.
+    the files already there, so the tier outlives the process;
+  * the store tier (``federation/``, ``kvstore/``): behind DRAM and files,
+    the fleet-wide store. ``KVFederation`` publishes saved pages (policy
+    ``save``) or hot pages the device evicts (``evict-hot``), and the
+    restore walk fetches, in one round trip, the pages of the prompt's
+    chain that no local tier holds; the tokens those pages spare are
+    ``recompute_avoided_tokens``;
+  * tier-honest events (``TieredEventSink``): a device eviction of a page a
+    host tier still holds is announced as ``BlockStored(medium="cpu")``,
+    not as a removal, so the router's index scores the pod's host tier.
 
 A host page is one page of the runner's canonical bundle, ``[L, K, page,
 2D]`` (MLA: ``[L, 1, page, Dl]``) in ``ModelRunner.staging_dtype`` (an int8
@@ -24,7 +31,10 @@ slabs of pinned memory, into which the save's copies from the device land
 and from which a restore's copies to the device read: no page is copied on
 the host, where one thread copies a page slower than the link moves it
 (PERF.md §6). A file-tier page is a ``.npy`` of its bits (bf16 as
-``uint16``, ``runner.pages_to_numpy``).
+``uint16``, ``runner.pages_to_numpy``). A page fetched from the store is
+restored to the device from the CPU tensor it was decoded into, and comes
+into host DRAM as every committed page does: the save copies it from the
+device into a slot.
 """
 
 from __future__ import annotations
@@ -40,7 +50,11 @@ import time
 import numpy as np
 import torch
 
-from llmd_tpu_torch.engine.kv_cache import NoFreePagesError, page_hashes_for_tokens
+from llmd_tpu_torch.engine.kv_cache import (
+    KVEventSink,
+    NoFreePagesError,
+    page_hashes_for_tokens,
+)
 from llmd_tpu_torch.engine.runner import pages_to_numpy
 
 log = logging.getLogger(__name__)
@@ -59,17 +73,20 @@ class HostPagePool:
     inside its step (PERF.md §6), so the engine reserves its whole budget
     when it starts; past the reserve a slab is added when the free list
     runs out. ``take`` hands out a slot (a view of its slab), ``give``
-    takes it back once the tier has let the page go. A slot taken back is
-    only written again by a later save, whose copy follows on the device
+    takes it back once the tier has let the page go (it ignores an
+    ndarray, a file-tier page, and refuses a tensor of no slab, so the
+    free list holds the slabs' slots only). A slot taken back is only
+    written again by a later save, whose copy follows on the device
     whatever read it before (the compute stream waits for a restore's
     copy to the device before its scatter, and a later save's copy waits
-    for a gather enqueued there after it). ``give`` may come
-    from the file tier's writer thread."""
+    for a gather enqueued there after it); no host copy writes a slot.
+    ``give`` may come from the file tier's writer thread."""
 
     def __init__(self, shape: tuple[int, ...], dtype: torch.dtype, pin: bool,
                  slab_pages: int = 64, reserve: int = 0) -> None:
         self.shape, self.dtype, self.pin, self.slab_pages = shape, dtype, pin, slab_pages
         self._slabs: list[torch.Tensor] = []
+        self._slab_ptrs: set[int] = set()
         self._free: list[torch.Tensor] = []
         self._lock = threading.Lock()
         while len(self._free) < reserve:
@@ -78,6 +95,7 @@ class HostPagePool:
     def _grow(self) -> None:
         slab = torch.empty((self.slab_pages, *self.shape), dtype=self.dtype, pin_memory=self.pin)
         self._slabs.append(slab)
+        self._slab_ptrs.add(slab.untyped_storage().data_ptr())
         self._free[:0] = reversed(slab.unbind(0))
 
     def take(self) -> torch.Tensor:
@@ -87,9 +105,12 @@ class HostPagePool:
             return self._free.pop()
 
     def give(self, page) -> None:
-        if isinstance(page, torch.Tensor):
-            with self._lock:
-                self._free.append(page)
+        if not isinstance(page, torch.Tensor):
+            return
+        with self._lock:
+            if page.untyped_storage().data_ptr() not in self._slab_ptrs:
+                raise ValueError("HostPagePool.give: not a slot of this pool")
+            self._free.append(page)
 
     @property
     def bytes(self) -> int:
@@ -112,13 +133,20 @@ class HostKVCache:
     releases the page. Until then a load reads the page from memory, as
     the file will hold it. ``drain`` waits for the writes, ``close`` also
     stops the thread (a process that restarts over the directory closes
-    its cache first)."""
+    its cache first).
+
+    ``federation`` (a ``KVFederation``) is the store tier behind DRAM and
+    files: a page saved for the first time goes to its publish policy, a
+    page saved again or served from DRAM or files counts as a use in its
+    hotness book, and the pages no local tier holds may be fetched from
+    the store in one batch (``fetch_store_many``)."""
 
     def __init__(self, max_pages: int = 25_000, fs_dir: str | None = None,
-                 fs_max_pages: int = 100_000) -> None:
+                 fs_max_pages: int = 100_000, federation=None) -> None:
         self.max_pages = max_pages
         self.fs_dir = pathlib.Path(fs_dir) if fs_dir else None
         self.fs_max_pages = fs_max_pages
+        self.federation = federation
         self.release = None
         self._lock = threading.Lock()
         self._pages: collections.OrderedDict[bytes, object] = collections.OrderedDict()
@@ -150,8 +178,11 @@ class HostKVCache:
         with self._lock:
             return h in self._pages or h in self._fs_lru
 
-    def put(self, h: bytes, page) -> bool:
-        """Insert (or refresh) a page; whether ``page`` was stored."""
+    def put(self, h: bytes, page, publish: bool = True) -> bool:
+        """Insert (or refresh) a page; whether ``page`` was stored. A new
+        page goes to the federation's publish policy unless ``publish`` is
+        false (a page the store itself served); a refreshed one counts as
+        a use."""
         with self._lock:
             stored = h not in self._pages
             if stored:
@@ -165,6 +196,11 @@ class HostKVCache:
         for old_h, old_p in spill:
             if not self._spill_fs(old_h, old_p):
                 self._release(old_p)
+        if self.federation is not None:
+            if not stored:
+                self.federation.touch(h)
+            elif publish:
+                self.federation.on_save(h, page)
         return stored
 
     def _release(self, page) -> None:
@@ -176,20 +212,72 @@ class HostKVCache:
         return page
 
     def get_tagged(self, h: bytes) -> tuple[object, str | None]:
-        """A page and the tier that served it (``"dram"``, ``"fs"``), or
-        (None, None)."""
+        """A page and the local tier that served it (``"dram"``, ``"fs"``),
+        or (None, None). The restore walk fetches the store's pages in one
+        batch (``fetch_store_many``)."""
         with self._lock:
             page = self._pages.get(h)
             if page is not None:
                 self._pages.move_to_end(h)
                 self.restores += 1
+                if self.federation is not None:
+                    self.federation.touch(h)
                 return page, "dram"
         page = self._load_fs(h)
         if page is not None:
             with self._lock:
                 self.restores += 1
+            if self.federation is not None:
+                self.federation.touch(h)
             return page, "fs"
         return None, None
+
+    # ------------------------------------------------------------------ #
+    # the store tier
+
+    def fetch_store_many(self, hs: list[bytes]) -> dict:
+        """The restore walk's store leg: every candidate hash in one
+        federation round trip, as CPU tensors. JAX puts them in DRAM here;
+        the port's DRAM holds only the pool's slots, which a host copy may
+        not write while an upload from a recycled slot is still pending, so
+        a fetched page comes into DRAM through the save of its restored
+        device page (``OffloadConnector``, without a publication, as JAX's
+        promotion). ``restores`` counts only the pages the walk takes
+        (``note_store_restore``)."""
+        if self.federation is None or not hs:
+            return {}
+        return self.federation.fetch_many(list(hs))
+
+    def note_store_restore(self) -> None:
+        """Count one page of a batched store fetch restored to the device."""
+        with self._lock:
+            self.restores += 1
+
+    def note_use(self, h: bytes) -> None:
+        """A device prefix hit the restore walk saw: a use for the hotness
+        book (the device tier never calls ``get``)."""
+        if self.federation is not None:
+            self.federation.touch(h)
+
+    def publish_evicted(self, h: bytes) -> None:
+        """Publish on evict (``TieredEventSink.blocks_removed``): the device
+        evicted a page this host still holds. The hotness gate runs here
+        on the engine thread; the page is read (from DRAM, copied, or from
+        its file) and framed on the store's publisher thread."""
+        fed = self.federation
+        if fed is None or not fed.wants_publish_on_evict(h):
+            return
+
+        def loader():
+            with self._lock:
+                page = self._pages.get(h)
+                # A pinned slot goes back to the pool when the page leaves
+                # DRAM, and a later save writes it: copy it while it is ours.
+                if isinstance(page, torch.Tensor):
+                    page = page.clone()
+            return page if page is not None else self._load_fs(h)
+
+        fed.publish_deferred(h, loader)
 
     # ------------------------------------------------------------------ #
     # the file tier
@@ -299,7 +387,8 @@ class HostKVCache:
             self._unlink(h)
 
     def clear(self) -> None:
-        """Drop every tier (new weights: the cached KV no longer matches)."""
+        """Drop every tier (new weights: the cached KV no longer matches);
+        the store keeps other hosts' pages, this host withdraws its own."""
         self.drain()
         with self._lock:
             pages = list(self._pages.values())
@@ -310,6 +399,8 @@ class HostKVCache:
             self._release(page)
         for h in fs:
             self._unlink(h)
+        if self.federation is not None:
+            self.federation.clear_local()
 
     def stats(self) -> dict[str, int]:
         with self._lock:
@@ -321,6 +412,41 @@ class HostKVCache:
                 "fs_spills": self.fs_spills,
                 "fs_loads": self.fs_loads,
             }
+
+
+class TieredEventSink(KVEventSink):
+    """The engine's event sink with tier-honest events (JAX
+    ``offload.py:285``): a device eviction of a page a host tier still
+    holds is announced as ``BlockStored(medium="cpu")`` (the pod can still
+    serve it, from host memory) and is the publish-on-evict trigger. Each
+    event names its medium as an argument, so the store client's threads
+    (``KVFederation``'s publications and withdrawals, medium ``store``,
+    sent to ``inner`` directly) and the engine thread share no state
+    here."""
+
+    def __init__(self, inner: KVEventSink, host: HostKVCache) -> None:
+        self.inner = inner
+        self.host = host
+
+    def blocks_stored(self, hashes, parent, token_ids, medium=None) -> None:
+        self.inner.blocks_stored(hashes, parent, token_ids, medium)
+
+    def blocks_removed(self, hashes, medium=None) -> None:
+        gone, kept = [], []
+        for h in hashes:
+            (kept if self.host.has(h) else gone).append(h)
+        if gone:
+            self.inner.blocks_removed(gone, medium)
+        if kept:
+            for h in kept:
+                self.host.publish_evicted(h)
+            self.inner.blocks_stored(kept, None, [], "cpu")
+
+    def all_cleared(self) -> None:
+        # The device is cleared, the host tiers may not be: announce a clear
+        # only when they hold nothing.
+        if len(self.host) == 0:
+            self.inner.all_cleared()
 
 
 class OffloadConnector:
@@ -349,23 +475,30 @@ class OffloadConnector:
                                  pin=runner.device.type == "cuda",
                                  reserve=host.max_pages + allocator.num_pages // 8 + backlog)
         host.release = self.pool.give
-        # (content hash, page id) committed since the last launch.
-        self._pending: list[tuple[bytes, int]] = []
+        # (content hash, page id, whether to publish) committed since the
+        # last launch, and the store pages a restore is committing (saved
+        # without a publication: the store has them).
+        self._pending: list[tuple[bytes, int, bool]] = []
+        self._fetched: set[bytes] = set()
         # Copies launched and not finished: (their pending list, their host
         # pages, the copies' event).
-        self._launched: list[tuple[list[tuple[bytes, int]], list[torch.Tensor], object]] = []
+        self._launched: list[tuple[list[tuple[bytes, int, bool]], list[torch.Tensor], object]] = []
         # Host seconds in launch + finish and in restores, and the bytes
         # saved (``profile_step.py``, ``chip_smoke.py``).
         self.save_host_s = 0.0
         self.restore_host_s = 0.0
         self.saved_bytes = 0
+        # Prompt tokens whose prefill pages fetched from the store served
+        # (committed), and those pages.
+        self.recompute_avoided_tokens = 0
+        self.store_pages_committed = 0
 
     # -- save ------------------------------------------------------------ #
 
     def on_commit(self, page_id: int, content_hash: bytes) -> None:
         """``PageAllocator.commit_hook``."""
         if not self.host.has(content_hash):
-            self._pending.append((content_hash, page_id))
+            self._pending.append((content_hash, page_id, content_hash not in self._fetched))
 
     def launch(self) -> None:
         if not self._pending:
@@ -373,7 +506,7 @@ class OffloadConnector:
         t0 = time.perf_counter()
         pending, self._pending = self._pending, []
         slots = [self.pool.take() for _ in pending]
-        done = self.runner.launch_page_copies([pid for _, pid in pending], slots)
+        done = self.runner.launch_page_copies([pid for _, pid, _ in pending], slots)
         self._launched.append((pending, slots, done))
         self.save_host_s += time.perf_counter() - t0
 
@@ -384,9 +517,9 @@ class OffloadConnector:
         launched, self._launched = self._launched, []
         for pending, slots, done in launched:
             self.runner.wait_copies(done)
-            for (h, _), slot in zip(pending, slots):
+            for (h, _, publish), slot in zip(pending, slots):
                 self.saved_bytes += slot.numel() * slot.element_size()
-                if not self.host.put(h, slot):
+                if not self.host.put(h, slot, publish):
                     self.pool.give(slot)  # the same content saved twice in one step
         self.save_host_s += time.perf_counter() - t0
 
@@ -399,35 +532,73 @@ class OffloadConnector:
 
     def restore_for_prompt(self, prompt_token_ids: list[int]) -> int:
         """Seed the device prefix cache from the host tiers: the leading
-        full pages of the prompt that the device misses and a host tier
-        holds, up to the first page neither holds, are copied into fresh
-        pages, committed, and their references dropped (the prefix-cache
-        hit takes them). Under page pressure nothing is restored (the
-        prompt is computed instead). Returns the pages restored."""
+        full pages of the prompt that the device misses and a tier holds,
+        up to the first page none holds, are copied into fresh pages,
+        committed, and their references dropped (the prefix-cache hit
+        takes them). At the first page no local tier holds, the rest of
+        the chain that no tier holds is fetched from the store in one
+        round trip (JAX ``offload.py:415-474``). Under page pressure
+        nothing is restored (the prompt is computed instead). Returns the
+        pages restored."""
         t0 = time.perf_counter()
         page = self.allocator.page_size
         hashes = page_hashes_for_tokens(prompt_token_ids, page)
         restore: list[tuple[int, bytes, object]] = []
+        store_batch: dict = {}
+        store_batched = False
         for idx, h in enumerate(hashes):
             if self.allocator.has_cached(h):
+                self.host.note_use(h)  # a use for the hotness book
                 continue
-            data = self.host.get(h)
+            if store_batched and h in store_batch:
+                # Fetched by this walk.
+                data, tier = store_batch[h], "store"
+                self.host.note_store_restore()
+            else:
+                data, tier = self.host.get_tagged(h)
             if data is None:
-                break  # the chain breaks: nothing past here is usable
+                if not store_batched:
+                    # Only pages no local tier holds go to the store.
+                    store_batched = True
+                    store_batch = self.host.fetch_store_many([
+                        h2 for h2 in hashes[idx:]
+                        if not self.allocator.has_cached(h2) and not self.host.has(h2)])
+                    data = store_batch.get(h)
+                    if data is not None:
+                        tier = "store"
+                        self.host.note_store_restore()
+                if data is None:
+                    break  # the chain breaks: nothing past here is usable
+            if tier == "store":
+                self._fetched.add(h)
             restore.append((idx, h, data))
+        store_pages = len(self._fetched)
         if not restore:
+            self._fetched.clear()
             return 0
         try:
             page_ids = self.allocator.allocate(len(restore))
         except NoFreePagesError:
+            self._fetched.clear()
             return 0
         try:
             self.runner.scatter_pages(page_ids, [d for _, _, d in restore])
-            for pid, (_, h, _) in zip(page_ids, restore):
-                self.allocator.commit_page(pid, h)
+            for pid, (idx, h, _) in zip(page_ids, restore):
+                self.allocator.commit_page(pid, h, prompt_token_ids[idx * page : (idx + 1) * page],
+                                           hashes[idx - 1] if idx > 0 else None)
         finally:
             # A failed restore falls back to computing the prompt; it must
             # not keep the pages it took.
+            self._fetched.clear()
             self.allocator.free(page_ids)
+        if store_pages:
+            # The store pages' saves into host DRAM start now, while their
+            # device pages hold what was restored (free and cached, a later
+            # step could evict them before its own save).
+            self.launch()
+            # Counted once the commit landed: these tokens' prefill now
+            # rides the prefix cache.
+            self.store_pages_committed += store_pages
+            self.recompute_avoided_tokens += store_pages * page
         self.restore_host_s += time.perf_counter() - t0
         return len(page_ids)

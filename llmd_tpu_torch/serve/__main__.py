@@ -23,7 +23,15 @@ kv_consumer or kv_both, ``transfer_port`` (default 9100; 0 any free port),
 other keys, such as ``kv_connector``, are ignored) and
 ``--advertised-address`` (host:port this server is reached at; its host
 is what a producer tells consumers, and it defaults to ``--host``:``--port``,
-which is wrong when binding 0.0.0.0). ``--model`` is a
+which is wrong when binding 0.0.0.0), the chart's ``--tensor-parallel-size``
+(1 only: the port serves from one card) and ``--moe-backend`` (grouped
+only), the KV events' ``--kv-events-endpoint`` (the publisher's
+``tcp://HOST:PORT``; the events carry the advertised address as their
+pod), and the store tier's ``--kv-store-master-url`` (with
+``--kv-offload-chunks``: the cross-slice store behind host DRAM and files),
+``--kv-store-segment-bytes``, ``--kv-store-data-port``,
+``--kv-publish-policy`` (save, evict-hot or off) and
+``--kv-publish-min-hits``. ``--model`` is a
 registry name, whose weights are random, drawn on the device from
 ``--seed``, and whose tokenizer is the byte tokenizer unless
 ``--tokenizer`` names one; or an HF model directory (``config.json`` and
@@ -204,11 +212,44 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--trace-file", default=None, help="JSONL span log path")
     p.add_argument("--trace-sample-ratio", type=float, default=0.1)
     p.add_argument("--kv-transfer-config", default=None, help="JSON, vLLM-style")
+    p.add_argument("--kv-events-endpoint", default=None, help="ZMQ pub endpoint")
     p.add_argument(
         "--advertised-address", default=None,
         help="host:port this pod is reachable at (pod IP in-cluster); used "
-             "to attribute kv-transfer params. Defaults to host:port, which "
-             "is wrong when binding 0.0.0.0.",
+             "to attribute KV events and kv-transfer params. Defaults to "
+             "host:port, which is wrong when binding 0.0.0.0.",
+    )
+    p.add_argument(
+        "--tensor-parallel-size", type=int, default=1,
+        help="cards a model is sharded over; the port serves from one card (1)",
+    )
+    p.add_argument(
+        "--moe-backend", default="grouped", choices=["grouped", "dense", "ep"],
+        help="MoE path: grouped GEMM (DeepGEMM role, default), dense "
+             "combine (oracle), or shard_map all-to-all (wide-EP); the port "
+             "runs grouped",
+    )
+    p.add_argument(
+        "--kv-store-master-url", default=None,
+        help="cross-slice KV store master URL (Mooncake-Store role); "
+             "enables the shared tier behind host-DRAM/FS",
+    )
+    p.add_argument(
+        "--kv-store-segment-bytes", type=int, default=8 << 30,
+        help="DRAM this host contributes to the shared pool",
+    )
+    p.add_argument("--kv-store-data-port", type=int, default=9200)
+    p.add_argument(
+        "--kv-publish-policy", default="save", choices=["save", "evict-hot", "off"],
+        help="federation publish policy: save = publish every host-tier "
+             "save (eager); evict-hot = publish only device-evicted pages "
+             "used >= --kv-publish-min-hits times; off = read-only store "
+             "participation",
+    )
+    p.add_argument(
+        "--kv-publish-min-hits", type=int, default=2,
+        help="hotness gate for --kv-publish-policy evict-hot: distinct uses "
+             "of a page's hash chain before eviction earns a store copy",
     )
     p.add_argument("--device", default="cuda")
     return p
@@ -217,7 +258,13 @@ def build_parser() -> argparse.ArgumentParser:
 def make_engine_config(args):
     import json
 
-    from llmd_tpu_torch.config import CacheConfig, EngineConfig, OffloadConfig, SchedulerConfig
+    from llmd_tpu_torch.config import (
+        CacheConfig,
+        EngineConfig,
+        OffloadConfig,
+        ParallelConfig,
+        SchedulerConfig,
+    )
     from llmd_tpu_torch.models.loader import config_from_hf, is_model_dir
     from llmd_tpu_torch.models.registry import get_model_config
 
@@ -261,11 +308,20 @@ def make_engine_config(args):
             batch_max_seqs=args.batch_max_seqs,
             batch_kv_watermark=args.batch_kv_watermark,
         ),
+        parallel=ParallelConfig(
+            tensor_parallel_size=args.tensor_parallel_size, moe_backend=args.moe_backend),
         seed=args.seed,
         weights_path=weights_path,
         tokenizer_path=tokenizer_path,
-        offload=(OffloadConfig(cpu_chunks=args.kv_offload_chunks, fs_dir=args.kv_offload_fs_dir)
-                 if args.kv_offload_chunks else None),
+        kv_events_endpoint=args.kv_events_endpoint,
+        offload=(OffloadConfig(
+            cpu_chunks=args.kv_offload_chunks, fs_dir=args.kv_offload_fs_dir,
+            store_master_url=args.kv_store_master_url,
+            store_segment_bytes=args.kv_store_segment_bytes,
+            store_data_port=args.kv_store_data_port,
+            publish_policy=args.kv_publish_policy,
+            publish_min_hits=args.kv_publish_min_hits,
+        ) if args.kv_offload_chunks else None),
         kv_role=kv_cfg.get("kv_role"),
         kv_transfer_port=int(kv_cfg.get("transfer_port", 9100)),
         kv_transfer_dtype=str(kv_cfg.get("transfer_dtype", "auto")),
@@ -298,11 +354,21 @@ def main(argv=None) -> None:
     if advertised.startswith("0.0.0.0"):
         logging.warning(
             "advertised address %s binds all interfaces; set --advertised-address to the "
-            "pod IP or P/D transfers will not resolve", advertised)
+            "pod IP or KV-event attribution and P/D transfers will not resolve", advertised)
     config.kv_host = advertised.rsplit(":", 1)[0]
     # The tokenizer first: a bad path fails before the weights load.
     tokenizer = load_tokenizer(config.tokenizer_path)
-    engine = LLMEngine(config, device=args.device)
+    event_sink = None
+    if config.kv_events_endpoint:
+        from llmd_tpu_torch.events import ZMQEventSink
+
+        event_sink = ZMQEventSink(endpoint=config.kv_events_endpoint, pod=advertised)
+    try:
+        engine = LLMEngine(config, device=args.device, event_sink=event_sink)
+    except BaseException:
+        if event_sink is not None:
+            event_sink.close()
+        raise
     if not args.skip_warmup:
         n = engine.warmup()
         logging.info("warmup prepared %d decode programs (CUDA graphs on the card)", n)
@@ -314,6 +380,8 @@ def main(argv=None) -> None:
     async def _close_engine(app):
         # After the engine thread stops (the app's cleanup context).
         engine.close()
+        if event_sink is not None:
+            event_sink.close()
 
     app.on_cleanup.append(_close_engine)
     web.run_app(app, host=args.host, port=args.port)

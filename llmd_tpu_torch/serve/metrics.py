@@ -24,8 +24,8 @@ def render_metrics(stats: EngineStats, model_name: str) -> str:
     ring, the larger of the main pool's and the ring pool's (a scorer
     reading only the main pool would keep sending work to an engine whose
     rings are full). The series of features the port does not have yet
-    (KV store and federation, P/D transfer, the pager) print 0, as on a
-    JAX page where they are idle; the labelled and
+    (the decode pager, context-parallel prefill) print 0, as on a JAX page
+    where they are idle; the labelled and
     histogram series (LoRA, speculative decoding, wide EP, transfer
     failures) print only when their stats are set, and
     ``faults_injected_total`` only while a fault plan is armed, as in

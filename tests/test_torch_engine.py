@@ -31,6 +31,8 @@ from llmd_tpu_torch.models import registry
 from llmd_tpu_torch.models.llama import params_from_jax
 from llmd_tpu_torch.models.registry import get_model_config
 
+from test_torch_spec import jax_compile_cache, one_thread  # noqa: F401 (module fixtures)
+
 PROMPTS = [
     [1, 5, 9, 13, 2, 8],
     [3, 3, 7, 1],

@@ -1,6 +1,7 @@
 """Import hygiene of the port: ``llmd_tpu_torch`` and ``chip_smoke.py``
 import neither JAX nor the JAX package ``llmd_tpu``, nor ``safetensors`` or
-``ml_dtypes`` (the loader reads safetensors files itself), and importing
+``ml_dtypes`` (the loader reads safetensors files itself), nor ``zmq`` (the
+KV events' publisher speaks ZMTP itself, ``events/zmtp.py``), and importing
 them loads no ``transformers`` or ``tokenizers`` (only ``load_tokenizer`` of
 an HF tokenizer imports transformers, when it is called).
 
@@ -19,7 +20,7 @@ import pytest
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 PACKAGE = ROOT / "llmd_tpu_torch"
-FORBIDDEN = ("jax", "jaxlib", "llmd_tpu", "safetensors", "ml_dtypes")
+FORBIDDEN = ("jax", "jaxlib", "llmd_tpu", "safetensors", "ml_dtypes", "zmq")
 # Imported lazily where needed, never by importing a module.
 NOT_AT_IMPORT = ("transformers", "tokenizers")
 
@@ -51,6 +52,7 @@ def test_forbidden_matches_by_dotted_prefix_only():
     assert not forbidden("llmd_tpu_torch") and not forbidden("llmd_tpu_torch.ops")
     assert not forbidden("jaxtyping_like") and not forbidden("numpy")
     assert forbidden("safetensors.torch") and forbidden("ml_dtypes")
+    assert forbidden("zmq") and forbidden("zmq.asyncio") and not forbidden("zmqlike")
     assert forbidden("transformers.models", NOT_AT_IMPORT) and not forbidden("transformers")
 
 
@@ -84,5 +86,8 @@ print(json.dumps({{"imported": names, "modules": sorted(sys.modules)}}))
     assert "llmd_tpu_torch.models.loader" in report["imported"]
     assert "llmd_tpu_torch.kvtransfer.shipper" in report["imported"]
     assert "llmd_tpu_torch.kvtransfer.connector" in report["imported"]
+    for name in ("events.zmtp", "events.publisher", "federation.core", "federation.wire",
+                 "kvstore.client", "kvstore.master", "kvstore.__main__"):
+        assert f"llmd_tpu_torch.{name}" in report["imported"]
     assert [m for m in report["modules"] if forbidden(m)] == []
     assert [m for m in report["modules"] if forbidden(m, NOT_AT_IMPORT)] == []

@@ -227,10 +227,7 @@ def test_commit_hook_fires_where_jax_fires():
         ids = a.allocate(4)
         for pid, h in ((ids[0], b"a"), (ids[1], b"b"), (ids[0], b"a"), (ids[2], b"a"),
                        (ids[3], b"c")):
-            if name == "jax":
-                a.commit_page(pid, h, [1, 2], None)
-            else:
-                a.commit_page(pid, h)
+            a.commit_page(pid, h, [1, 2], None)
         a.free(ids)
         a.allocate(6)  # evicts everything
         ids = a.allocate(0)
@@ -502,7 +499,6 @@ def test_offload_refused_beside_the_ring():
 
 
 @pytest.mark.parametrize("kw,later", [
-    (dict(store_master_url="http://store:1"), "kvstore and federation"),
     (dict(decode_paging=True), "the pager"),
 ])
 def test_later_tiers_are_refused_by_name(kw, later):
@@ -511,8 +507,21 @@ def test_later_tiers_are_refused_by_name(kw, later):
     jcfg.OffloadConfig(**kw)  # JAX has them
 
 
-@pytest.mark.parametrize("name", ["store_segment_bytes", "store_data_port", "publish_policy",
-                                  "publish_min_hits", "pager_horizon_tokens"])
+@pytest.mark.parametrize("name,value", [
+    ("store_master_url", "http://store:1"), ("store_segment_bytes", 1 << 22),
+    ("store_data_port", 9200), ("publish_policy", "evict-hot"), ("publish_min_hits", 3),
+])
+def test_store_tier_knobs_are_jax_knobs(name, value):
+    """The store tier's fields (ported since the cross-slice store) have
+    JAX's defaults and take JAX's values; as in JAX, the configuration
+    checks none of them (an unknown publish policy fails where the engine
+    builds its federation, ``test_torch_kvstore.py``)."""
+    assert getattr(tcfg.OffloadConfig(), name) == getattr(jcfg.OffloadConfig(), name)
+    assert getattr(tcfg.OffloadConfig(**{name: value}), name) == value
+    assert getattr(jcfg.OffloadConfig(**{name: value}), name) == value
+
+
+@pytest.mark.parametrize("name", ["pager_horizon_tokens"])
 def test_later_tier_knobs_are_unknown(name):
     """The later tiers' knobs are no fields of the port's config: setting
     one fails, where a field nothing read would take it silently."""

@@ -10,8 +10,10 @@ answers transformers' greedy text under ``--served-model-name``; the port's
 template, special ids, vocabulary), with and without a chat template; and
 ``LLMD_STEP_WATCHDOG_S`` arms both servers' watchdogs alike. The chart's
 argv with tracing on parses as the JAX server parses it, ``main`` installs
-the tracer its flags name, and the chart's flags of later items are still
-refused. About 12 s serial.
+the tracer its flags name; the chart's decode tier with the KV events and
+the store tier's flags give JAX's configuration, and the chart's values of
+later items (a TP size above 1, the dense and ep MoE backends) are refused
+by name. About 12 s serial.
 """
 
 import dataclasses
@@ -123,10 +125,24 @@ def assert_same_fields(port, ref, where=""):
      '"stream_groups": 1}'],
     ["--model", "llama-3-8b", "--kv-transfer-config", '{"kv_role": "kv_producer", '
      '"transfer_dtype": "int8", "stream_groups": 8, "transfer_port": 9200}'],
+    # The chart's whole decode tier (deploy/charts/llmd-tpu/values.yaml),
+    # with the events and the store guide's flags
+    # (deploy/guides/tiered-prefix-cache-store/kustomization.yaml).
+    ["--model", "llama-3-8b", *CHART, "--tensor-parallel-size=1",
+     "--advertised-address=10.0.0.7:8200", "--kv-events-endpoint=tcp://0.0.0.0:5556",
+     '--kv-transfer-config={"kv_connector":"TPUConnector","kv_role":"kv_consumer"}',
+     "--max-num-seqs=64", "--max-num-batched-tokens=8192", "--decode-window=8",
+     "--moe-backend=grouped", "--kv-offload-chunks=25000",
+     "--kv-store-master-url=http://llmd-kvstore-master:50051",
+     "--kv-store-segment-bytes=8589934592", "--kv-store-data-port=9200"],
+    ["--model", "deepseek-v2-lite", "--kv-events-endpoint", "tcp://*:0", "--kv-offload-chunks",
+     "64", "--kv-store-master-url", "http://store:1", "--kv-publish-policy", "evict-hot",
+     "--kv-publish-min-hits", "3", "--kv-store-data-port", "0"],
 ], ids=["registry-defaults", "chart", "chart-geometry", "ring", "layout", "hf-dir-chart",
         "hf-dir-tokenizer", "int8", "hf-dir-int8", "async", "spec", "spec-ring",
         "batch-flags", "batch-defaults", "offload-guide", "offload-dram", "offload-off",
-        "pd-decode", "pd-prefill", "pd-both", "pd-wire"])
+        "pd-decode", "pd-prefill", "pd-both", "pd-wire", "chart-decode-tier-store",
+        "store-evict-hot"])
 def test_same_argv_same_engine_config(tmp_path, argv):
     """Both parsers take the argv, and both ``make_engine_config``s give the
     same model, cache, scheduler, seed, weights and tokenizer; the port's
@@ -182,10 +198,16 @@ def test_defaults_and_aliases():
     # weights; the two differ only for f32 models such as tiny.
     jcfg = jserve.make_engine_config(jserve.build_parser().parse_args(["--model", "tiny"]))
     assert (cfg.cache.dtype, jcfg.cache.dtype) == ("float32", "bfloat16")
-    # The chart's flags that wait for their own items are still refused.
-    for flag in ("--tensor-parallel-size=1", "--kv-events-endpoint=tcp://x:1"):
-        with pytest.raises(SystemExit):
-            serve.build_parser().parse_args([flag])
+    # The chart's default render parses (one card, the grouped experts);
+    # every other TP size and MoE backend is refused by name.
+    cfg = serve.make_engine_config(serve.build_parser().parse_args(
+        ["--tensor-parallel-size=1", "--moe-backend=grouped", "--kv-events-endpoint=tcp://x:1"]))
+    assert (cfg.parallel.tensor_parallel_size, cfg.parallel.moe_backend) == (1, "grouped")
+    assert cfg.kv_events_endpoint == "tcp://x:1"
+    for flag, item in (("--tensor-parallel-size=2", "item 10"), ("--moe-backend=dense", "item 9"),
+                       ("--moe-backend=ep", "items 9 and 10")):
+        with pytest.raises(ValueError, match=item):
+            serve.make_engine_config(serve.build_parser().parse_args([flag]))
 
 
 def make_tokenizer(d, template: bool):
@@ -338,6 +360,14 @@ def test_server_configures_tracing_from_its_flags(monkeypatch, tmp_path, flags, 
 
 
 def test_chart_flags_of_later_items_are_still_refused():
-    for flag in ("--tensor-parallel-size=1", "--kv-events-endpoint=tcp://x:1"):
-        with pytest.raises(SystemExit):
-            serve.build_parser().parse_args(["--model", "tiny", flag])
+    """The chart's values of later items parse as JAX's parser takes them
+    and are refused by name when the configuration is built; JAX's
+    builds them."""
+    for flag, item in (("--tensor-parallel-size=2", "tensor parallelism"),
+                       ("--moe-backend=dense", "dense one-hot combine"),
+                       ("--moe-backend=ep", "all-to-all expert dispatch")):
+        argv = ["--model", "tiny", flag]
+        with pytest.raises(ValueError, match=item):
+            serve.make_engine_config(serve.build_parser().parse_args(argv))
+        jax_args = jserve.build_parser().parse_args(argv)
+        assert jserve.make_engine_config(jax_args).parallel.moe_backend == jax_args.moe_backend

@@ -331,13 +331,21 @@ PAGE_STATS = {
                      spec_accepted_len_hist=(3, 2, 1), spec_acceptance_rate=0.4,
                      spec_row_depth_hist=(1, 2), moe_expert_tokens=(5, 6),
                      kv_transfer_failures=((("pull", "recompute"), 2),)),
+    # The store tier's and failover resume's counters, which the port fills
+    # (``test_torch_kvstore.py`` holds an engine's to JAX's).
+    "store": dict(offload_pages=12, offload_saves=20, offload_restores=8, kvstore_pulls=8,
+                  kvstore_pull_failures=1, kvstore_misses=3, kv_federation_published=5,
+                  kv_federation_hits=8, recompute_avoided_tokens=32,
+                  kv_publish_paced_bytes_total=4096, stream_resumes_total=2,
+                  resume_replayed_tokens_total=17, stream_resume_failures_total=1),
 }
 
 
 @pytest.mark.parametrize("case", PAGE_STATS)
 def test_render_metrics_is_the_jax_page_for_the_same_stats(case):
     """render_metrics on equal stats gives the JAX page line for line: the
-    ring's series and the binding-pool gauge, and the labelled series."""
+    ring's series and the binding-pool gauge, the labelled series, and the
+    store tier's and failover resume's counters."""
     from llmd_tpu.engine.engine import EngineStats as JaxStats
     from llmd_tpu_torch.engine.engine import EngineStats
 
@@ -346,6 +354,14 @@ def test_render_metrics_is_the_jax_page_for_the_same_stats(case):
     assert ttext == japi.render_metrics(JaxStats(**values), "m")
     if case == "ring":
         assert parse_prometheus(ttext)["vllm:gpu_cache_usage_perc"] == 0.5
+    elif case == "store":
+        page = parse_prometheus(ttext)
+        for name, field in (("kvstore_pulls_total", "kvstore_pulls"),
+                            ("kv_federation_hits_total", "kv_federation_hits"),
+                            ("recompute_avoided_tokens_total", "recompute_avoided_tokens"),
+                            ("kv_publish_paced_bytes_total", "kv_publish_paced_bytes_total"),
+                            ("stream_resumes_total", "stream_resumes_total")):
+            assert page[f"llmd:{name}"] == page[f"vllm:{name}"] == values[field]
     else:
         assert "vllm:lora_requests_info{" in ttext and "llmd:spec_accepted_len_bucket" in ttext
 

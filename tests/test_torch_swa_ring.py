@@ -39,6 +39,7 @@ from llmd_tpu_torch.models.llama import params_from_jax
 from llmd_tpu_torch.models.registry import get_model_config
 
 from test_torch_engine import LAYOUTS
+from test_torch_spec import jax_compile_cache, one_thread  # noqa: F401 (module fixtures)
 from test_torch_model import TINY_OSS
 
 # tests/test_swa_ring.py's alternating pattern (gpt-oss's, in 4 layers).

@@ -354,6 +354,28 @@ through an HF checkpoint):
                reader under its advertised address. The phase reports the
                host ms of framing and decoding pages, of the publisher's
                puts and of A's saves.
+    ``lora``  LoRA on llama-3-8b, bf16 and int8 weights (``lora_phase``):
+               four rank-16 PEFT directories written here (one with B all
+               zero) loaded into 4 slots after warmup; one batch of the
+               base model and the adapters through the flat step and the
+               decode windows' graphs: the zero-B row equals the base row
+               bit for bit, each adapter's stream is held to its model
+               (the adapter merged into q|k|v in f32, ``spec_rescore``),
+               a slot written again after capture serves the next replays,
+               and the decode step's ms with and without adapters. Then
+               ``lora_serve``: a server with ``--lora-pool-slots 2`` over
+               the four adapters (cold loads and evictions on /metrics,
+               ``vllm:lora_requests_info``, the load and unload routes).
+    ``pager`` the decode pager on Mistral-7B-v0.1's shape
+               (``pager_phase``: its ``config.json`` written here, random
+               weights): ``pager_kernels`` (K1' and K3' with the window
+               branch at a 12,288-token context), ``pager`` (4 x 12,288 +
+               128 tokens: the pager off, on 4,096 pages and on 1,024
+               pages; resident pages within the bound, spill-only streams
+               bit-equal, the 1,024-page run held to the model),
+               ``pager_park`` (8 x 2,560 + 256: victims park and are
+               restored, held to the model) and ``pager_serve`` (a server
+               with ``--kv-decode-paging`` on a 2-layer cut).
 
 Each phase prints one JSON line. Any failure raises and exits non-zero
 without printing a result. On success the line before the last is the
@@ -2152,14 +2174,32 @@ def hf_tensor(cfg, params: dict, entry) -> torch.Tensor:
     return w.T if transposed else w
 
 
+def write_safetensors(path: str, tensors: dict) -> int:
+    """A safetensors file of ``tensors`` (name -> tensor or view, on any
+    device, copied to the host one at a time): a little-endian u64 header
+    length, the JSON header (dtype, shape, data offsets per tensor; padded
+    to 8 bytes), the raw bytes. Returns the bytes written."""
+    header, offset = {"__metadata__": {"format": "pt"}}, 0
+    for name, t in tensors.items():
+        n = t.numel() * t.element_size()
+        header[name] = {"dtype": _ST_DTYPES[t.dtype], "shape": list(t.shape),
+                        "data_offsets": [offset, offset + n]}
+        offset += n
+    raw = json.dumps(header).encode()
+    raw += b" " * (-len(raw) % 8)
+    with open(path, "wb") as f:
+        f.write(struct.pack("<Q", len(raw)) + raw)
+        for t in tensors.values():
+            f.write(t.contiguous().cpu().reshape(-1).view(torch.uint8).numpy())
+    return 8 + len(raw) + offset
+
+
 def write_hf_checkpoint(cfg, params: dict, out_dir: str) -> dict:
     """Write a dense model's tree (fused or not) as an HF directory:
     ``config.json`` for the architecture the config names (Qwen3 for QK
     norm, Qwen2 for q|k|v biases, else Llama), safetensors shards of at
-    most ``SHARD_BYTES`` in transformers' names, and their index. The
-    safetensors format: a little-endian u64 header length, the JSON header
-    (dtype, shape, data offsets per tensor; padded to 8 bytes), the raw
-    bytes. Returns the shard count and the bytes written."""
+    most ``SHARD_BYTES`` in transformers' names (``write_safetensors``),
+    and their index. Returns the shard count and the bytes written."""
     shutil.rmtree(out_dir, ignore_errors=True)
     os.makedirs(out_dir)
     entries = hf_entries(cfg, params)
@@ -2175,22 +2215,9 @@ def write_hf_checkpoint(cfg, params: dict, out_dir: str) -> dict:
     weight_map, total = {}, 0
     for k, shard in enumerate(shards):
         fname = f"model-{k + 1:05d}-of-{len(shards):05d}.safetensors"
-        header, offset = {"__metadata__": {"format": "pt"}}, 0
-        for e in shard:
-            t = hf_tensor(cfg, params, e)
-            n = t.numel() * t.element_size()
-            header[e[0]] = {"dtype": _ST_DTYPES[t.dtype], "shape": list(t.shape),
-                            "data_offsets": [offset, offset + n]}
-            offset += n
-            weight_map[e[0]] = fname
-        raw = json.dumps(header).encode()
-        raw += b" " * (-len(raw) % 8)
-        with open(os.path.join(out_dir, fname), "wb") as f:
-            f.write(struct.pack("<Q", len(raw)) + raw)
-            for e in shard:
-                t = hf_tensor(cfg, params, e).contiguous().cpu()
-                f.write(t.reshape(-1).view(torch.uint8).numpy())
-        total += 8 + len(raw) + offset
+        total += write_safetensors(os.path.join(out_dir, fname),
+                                   {e[0]: hf_tensor(cfg, params, e) for e in shard})
+        weight_map.update((e[0], fname) for e in shard)
     arch = ("Qwen3ForCausalLM" if cfg.qk_norm else
             "Qwen2ForCausalLM" if cfg.attention_bias else "LlamaForCausalLM")
     hf = {"architectures": [arch], "vocab_size": cfg.vocab_size,
@@ -5660,11 +5687,13 @@ def prompt_pages(eng, prompt: list[int]) -> list[int]:
 
 
 def held_to_model(info: dict, params: dict, cfg, prompts: list, got: list, ref: list,
-                  what: str) -> None:
-    """``got``'s every greedy token held to the model (``spec_rescore``)
-    within the reference streams' gaps, as ``batch_phase`` holds a run."""
-    want = spec_rescore(params, cfg, prompts, ref)
-    have = spec_rescore(params, cfg, prompts, got)
+                  what: str, rescore=None) -> None:
+    """``got``'s every greedy token held to the model (``rescore``, by
+    default ``spec_rescore``) within the reference streams' gaps, as
+    ``batch_phase`` holds a run."""
+    rescore = rescore or spec_rescore
+    want = rescore(params, cfg, prompts, ref)
+    have = rescore(params, cfg, prompts, got)
     info[f"rescore_{what}"], info["rescore_aggregated"] = have, want
     info[f"streams_equal_aggregated_{what}"] = sum(a == b for a, b in zip(got, ref))
     if want["top_gap_max"] <= SPEC_TOP_GAP_TOL < have["top_gap_max"] or (
@@ -6412,6 +6441,618 @@ def pd_serve_phase(info: dict) -> None:
     torch.cuda.empty_cache()
 
 
+# --------------------------------------------------------------------- #
+# the decode pager on a Mistral-7B-v0.1-shaped model
+
+PAGER_DIR = os.path.join(REPO, "build", "mistral-7b-v0.1")
+# Mistral-7B-v0.1's published geometry (HF mistralai/Mistral-7B-v0.1,
+# config.json): every layer slides (a uniform window, no layer_types).
+MISTRAL_HF = {
+    "architectures": ["MistralForCausalLM"], "vocab_size": 32000, "hidden_size": 4096,
+    "intermediate_size": 14336, "num_hidden_layers": 32, "num_attention_heads": 32,
+    "num_key_value_heads": 8, "head_dim": 128, "rope_theta": 10000.0, "sliding_window": 4096,
+    "rms_norm_eps": 1e-5, "max_position_embeddings": 32768, "tie_word_embeddings": False,
+    "torch_dtype": "bfloat16",
+}
+PAGER_SEQS, PAGER_PROMPT, PAGER_TOKENS = 4, 12_288, 128
+PAGER_BLOCKS, PAGER_REF_BLOCKS, PAGER_HOST_PAGES = 1024, 4096, 4096
+PAGER_HORIZON, PAGER_BUDGET, PAGER_WINDOW_K = 256, 1024, 8
+# The park run: sequences inside their window while they decode, whose
+# pages grow past the pool (a sequence past its window frees a page at the
+# step before it claims one, and a stalled prefill chunk preempts nobody,
+# so the long requests never park).
+PARK_SEQS, PARK_PROMPT, PARK_TOKENS = 8, 2560, 256
+
+
+def mistral_config(out_dir: str = PAGER_DIR, layers: int | None = None):
+    """Mistral-7B-v0.1's ``config.json`` (``layers`` cuts the depth),
+    written to ``out_dir`` and read by the port's loader."""
+    from llmd_tpu_torch.models.loader import config_from_hf
+
+    os.makedirs(out_dir, exist_ok=True)
+    hf = dict(MISTRAL_HF, **({"num_hidden_layers": layers} if layers else {}))
+    with open(os.path.join(out_dir, "config.json"), "w") as f:
+        json.dump(hf, f, indent=1)
+    return config_from_hf(out_dir)
+
+
+def pager_resident_bound(cfg) -> int:
+    """A sequence's resident pages with the pager on: the window and the
+    horizon, one step's budget of new pages, the partial frontier and a
+    decode window's page."""
+    return -(-(cfg.sliding_window + PAGER_HORIZON) // 16) + PAGER_BUDGET // 16 + 2
+
+
+def pager_run(params: dict, cfg, prompts: list, blocks: int, paging: bool,
+              max_tokens: int = PAGER_TOKENS) -> dict:
+    """``prompts`` (greedy, ``max_tokens`` each) on one engine of as many
+    slots (flat step, decode windows of ``PAGER_WINDOW_K``, budget
+    ``PAGER_BUDGET``; warmed up, so decode windows are graph replays), with
+    the pager on (a host tier of ``PAGER_HOST_PAGES``) or off. Returns the
+    streams, each request's TTFT,
+    the decode rate, each sequence's peak resident pages after a step, the
+    pager's counters and host ms, and the kernels' launches."""
+    from llmd_tpu_torch import ops
+    from llmd_tpu_torch.config import CacheConfig, EngineConfig, OffloadConfig, SchedulerConfig
+    from llmd_tpu_torch.engine import LLMEngine, SamplingParams
+
+    eng = LLMEngine(EngineConfig(
+        model=cfg, cache=CacheConfig(page_size=16, num_blocks=blocks),
+        scheduler=SchedulerConfig(max_num_seqs=len(prompts), max_num_batched_tokens=PAGER_BUDGET,
+                                  decode_window=PAGER_WINDOW_K),
+        offload=(OffloadConfig(cpu_chunks=PAGER_HOST_PAGES, decode_paging=True,
+                               pager_horizon_tokens=PAGER_HORIZON) if paging else None),
+        seed=0), params=params, device="cuda")
+    t_warm = time.perf_counter()
+    eng.warmup()
+    torch.cuda.synchronize()
+    rec: dict = {"warmup_s": time.perf_counter() - t_warm}
+    sp = SamplingParams(temperature=0.0, max_tokens=max_tokens, ignore_eos=True)
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    rids = [eng.add_request(p, sp) for p in prompts]
+    out = {r: [] for r in rids}
+    first: dict = {}
+    peak = {r: 0 for r in rids}
+    steps = 0
+    emitted = []  # (time, tokens) a step
+    while eng.has_work():
+        n = 0
+        for o in eng.step():
+            out[o.request_id] += o.new_token_ids
+            first.setdefault(o.request_id, time.perf_counter())
+            n += len(o.new_token_ids)
+        emitted.append((time.perf_counter(), n))
+        steps += 1
+        for req in eng.scheduler.running:
+            peak[req.request_id] = max(peak[req.request_id],
+                                       len(req.block_ids) - len(req.paged_out))
+    torch.cuda.synchronize()
+    t_end = time.perf_counter()
+    # Decode alone: the tokens after the last request's first token, over
+    # the time from it to the end.
+    t_all = max(first.values())
+    rec.update(
+        tokens=[out[r] for r in rids], steps=steps, seconds=t_end - t0,
+        ttft_ms=[(first[r] - t0) * 1e3 for r in rids],
+        decode_tok_s=sum(n for t, n in emitted if t > t_all) / (t_end - t_all),
+        peak_resident_pages=[peak[r] for r in rids],
+        launches=ops.launch_counts(), branches=ops.branch_launch_counts(),
+        preemptions=eng.scheduler.num_preemptions,
+    )
+    if eng.pager is not None:
+        pg = eng.pager
+        rec["pager"] = {k: getattr(pg, k) for k in (
+            "pages_spilled_total", "pages_restored_total", "parks_total", "refunds_total",
+            "prefetch_late_total", "paged_out_bytes")}
+        rec["tick_host_ms_per_step"] = pg.tick_host_s * 1e3 / steps
+        rec["restore_host_ms"] = pg.restore_host_s * 1e3
+        eng._refresh_gauges()
+        rec["kv_paged_out_bytes_gauge"] = eng.stats.kv_paged_out_bytes
+    if eng.has_work() or any(len(v) != max_tokens for v in out.values()):
+        raise AssertionError("the pager engine left work or short streams")
+    eng.close()
+    del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    return rec
+
+
+def rescore_long(params: dict, cfg, prompts: list, streams: list) -> dict:
+    """``spec_rescore`` for long prompts: each sequence (prompt + stream but
+    its last token) teacher-forced through the flat step in chunks of 1,024
+    tokens on a pool of its own (K1' and K2', the window applied), and at
+    every output position the gap of the emitted token's logprob below the
+    top logprob. The bucketed plain forward of ``spec_rescore`` would hold
+    a 12k x 12k score matrix a head."""
+    from llmd_tpu_torch.models import llama
+    from llmd_tpu_torch.models.common import StepInput
+
+    dev, page, chunk = torch.device("cuda"), 16, 1024
+    max_pages = -(-cfg.max_model_len // page)
+    gaps = []
+    for prompt, stream in zip(prompts, streams):
+        seq = list(prompt) + list(stream[:-1])
+        P, N = len(prompt), len(stream)
+        n_pages = -(-len(seq) // page)
+        pool = torch.zeros((cfg.num_layers, n_pages + 1, cfg.kv_cache_heads, page,
+                            cfg.kv_cache_entry_dim), dtype=getattr(torch, cfg.dtype), device=dev)
+        table = torch.zeros((1, max_pages), dtype=torch.int32, device=dev)
+        table[0, :n_pages] = 1 + torch.arange(n_pages, dtype=torch.int32, device=dev)
+        hs = []
+        with torch.inference_mode():
+            for s in range(0, len(seq), chunk):
+                ids = seq[s : s + chunk]
+                n = len(ids)
+                T = -(-n // 16) * 16  # pads after the live tokens, as the flat step has them
+                live = torch.arange(T, device=dev) < n
+                pos = torch.where(live, torch.arange(s, s + T, device=dev), 0).int()
+                inp = StepInput(
+                    token_ids=torch.tensor(ids + [0] * (T - n), device=dev)[:, None],
+                    positions=pos[:, None], kv_lens=torch.where(live, pos + 1, 0).int(),
+                    page_table=table, token_rows=torch.zeros(T, dtype=torch.int32, device=dev),
+                    num_live=torch.tensor([n], dtype=torch.int32, device=dev))
+                h, pool = llama.forward_hidden(params, pool, inp, cfg)
+                lo = max(P - 1 - s, 0)
+                if lo < n:
+                    hs.append(h[lo:n, 0])
+            logp = torch.log_softmax(llama.compute_logits(params, torch.cat(hs), cfg).float(), -1)
+            emitted = torch.tensor(stream, device=dev)[:, None]
+            gaps.append(logp.max(dim=-1).values - logp.gather(1, emitted)[:, 0])
+        del pool, hs, logp
+    gap = torch.stack(gaps)
+    return {"top_gap_max": gap.max().item(), "top_gap_per_request": gap.amax(1).tolist(),
+            "positions_above_tol": int((gap > SPEC_TOP_GAP_TOL).sum()),
+            "positions": gap.numel()}
+
+
+def pager_kernels_phase(info: dict, cfg) -> dict:
+    """K1' and K3' with the window branch at Mistral-7B-v0.1's shapes (H 32,
+    K 8, D 128, window 4,096) over a 12,288-token context, the pager's
+    shapes: K1' on a flat step of one 1,024-token prefill chunk ending at
+    12,288 and three decode rows at 12,288-12,416, K3' on a decode step of
+    the four rows (bucket 4). Each held to its plain version and timed
+    beside its bound (the in-window positions), the plain version and SDPA
+    (``attention_branch_case``); a 2-layer pool (one layer is read)."""
+    dev, dt, page = torch.device("cuda"), torch.bfloat16, 16
+    gen = torch.Generator().manual_seed(5151)
+    g = torch.Generator(device=dev).manual_seed(52)
+    K, H, D, window = cfg.num_kv_heads, cfg.num_heads, cfg.head_dim, cfg.sliding_window
+    max_pages = -(-cfg.max_model_len // page)
+    ctx = [PAGER_PROMPT + 1, PAGER_PROMPT + 64, PAGER_PROMPT + PAGER_TOKENS]
+    flat = mixed_step(cfg, page, max_pages, [(PAGER_PROMPT - PAGER_BUDGET, PAGER_BUDGET)],
+                      ctx, gen, dev)
+    need = [-(-c // page) for c in (*ctx, PAGER_PROMPT + 32)]
+    perm = torch.randperm(sum(need) + 8, generator=gen).to(torch.int32)
+    table = torch.zeros((PAGER_SEQS, max_pages), dtype=torch.int32)
+    off = 0
+    for r, n in enumerate(need):
+        table[r, :n] = perm[off : off + n]
+        off += n
+    lens = torch.tensor([*ctx, PAGER_PROMPT + 32], dtype=torch.int32)
+    dec = {"B": PAGER_SEQS, "n_live": PAGER_SEQS, "ctx": lens.tolist(),
+           "num_pages": sum(need) + 8, "live_pages": max(need),
+           "page_table": table.to(dev), "kv_lens": lens.to(dev)}
+    out = {}
+    for kind, step in (("flat", flat), ("decode", dec)):
+        data = torch.randn((2, step["num_pages"], K, page, 2 * D), generator=g, device=dev, dtype=dt)
+        rows = step["T"] if kind == "flat" else step["B"]
+        q = torch.randn((rows, 1, H, D), generator=g, device=dev, dtype=dt)
+        e = attention_branch_case(kind, q, data, None, 1, step, page, window, None)
+        e["name"] += f"@mistral-7b-v0.1-ctx{PAGER_PROMPT}"
+        e["model"] = "mistral-7b-v0.1"
+        out[e["name"]] = e
+        del data, q
+        torch.cuda.empty_cache()
+    for name, e in out.items():
+        info[name] = {k: e[k] for k in ("bound_by", "items", "spans") + WRITE_KEYS if k in e}
+    return out
+
+
+def pager_phase() -> tuple[dict, dict]:
+    """The decode pager on Mistral-7B-v0.1's shape (32 layers, bf16, page
+    16, random weights from seed 0; ``pager_run`` for each run).
+
+    ``pager`` four requests of 12,288 prompt + 128 greedy tokens, about 3x
+    what a 1,024-page pool holds: the pager off on 4,096 pages (the
+    reference), the pager on 4,096 pages (it spills and parks nothing: its
+    streams must be the reference's bit for bit) and the pager on 1,024
+    pages (it spills; every token is held to the model within the
+    reference's gaps, ``held_to_model`` with ``rescore_long``). Every
+    sequence's peak resident pages stay within ``pager_resident_bound``.
+    ``pager_park`` eight requests of 2,560 + 256 tokens, inside the window
+    while they decode, whose pages outgrow the 1,024-page pool: victims
+    park and are restored, and every token is held to the model within
+    the gaps of the pager-off run on 4,096 pages. Then the kernel rows at
+    these shapes and a server with ``--kv-decode-paging`` on a 2-layer cut
+    of the model (its HF directory written here) answering a 6,000-token
+    request that spills. Returns the kernel rows and the branch launches of
+    the runs that are their main path: the 1,024-page run's for K1' and
+    K2', the spill-only run's for K3' and K4' (it decodes in windows; a run
+    with a request waiting decodes on the flat step)."""
+    from llmd_tpu_torch.models import llama
+
+    with phase("pager_kernels", {"model": "mistral-7b-v0.1"}) as info:
+        cfg = mistral_config()
+        rows = pager_kernels_phase(info, cfg)
+    gc.collect()
+    torch.cuda.empty_cache()
+    bound_pages = pager_resident_bound(cfg)
+
+    def report(info: dict, runs: dict) -> None:
+        for name, rec in runs.items():
+            info[name] = {k: v for k, v in rec.items() if k not in ("tokens", "branches")}
+            if rec.get("pager") and max(rec["peak_resident_pages"]) > bound_pages:
+                raise AssertionError(f"{name}: resident pages {rec['peak_resident_pages']} "
+                                     f"over {bound_pages}")
+
+    with phase("pager", {"model": "mistral-7b-v0.1", "prompt": PAGER_PROMPT,
+                         "tokens": PAGER_TOKENS, "requests": PAGER_SEQS,
+                         "device_pages": PAGER_BLOCKS, "host_pages": PAGER_HOST_PAGES,
+                         "horizon": PAGER_HORIZON, "budget": PAGER_BUDGET,
+                         "resident_bound_pages": bound_pages}) as info:
+        info["layer_windows"] = sorted(set(cfg.layer_windows))
+        info["context_pages"] = -(-(PAGER_PROMPT + PAGER_TOKENS) // 16)
+        gen = torch.Generator(device="cuda").manual_seed(0)
+        params = llama.init_params(cfg, gen, "cuda", fused=True)
+        prompts = fixed_prompts(cfg, PAGER_SEQS, PAGER_PROMPT, 61)
+        ref = pager_run(params, cfg, prompts, PAGER_REF_BLOCKS, paging=False)
+        spill = pager_run(params, cfg, prompts, PAGER_REF_BLOCKS, paging=True)
+        small = pager_run(params, cfg, prompts, PAGER_BLOCKS, paging=True)
+        report(info, {"off": ref, "on_4096_pages": spill, "on_1024_pages": small})
+        info["spill_only_streams_equal_off"] = spill["tokens"] == ref["tokens"]
+        if not info["spill_only_streams_equal_off"]:
+            raise AssertionError("the spill-only run's streams are not the pager-off run's")
+        for name, rec in (("4,096", spill), ("1,024", small)):
+            if rec["pager"]["parks_total"] or not rec["pager"]["pages_spilled_total"]:
+                raise AssertionError(f"the {name}-page run: {rec['pager']}")
+        info["streams_equal_off_1024_pages"] = sum(a == b for a, b in zip(small["tokens"], ref["tokens"]))
+        held_to_model(info, params, cfg, prompts, small["tokens"], ref["tokens"], "1024_pages",
+                      rescore=rescore_long)
+        path_launches(info, small["launches"], FLAT_WRAPPERS)
+        path_launches(info, spill["launches"], (*FLAT_WRAPPERS, "decode_paged_attention_full",
+                                                "write_kv_pages_decode_full"))
+        info["launches"] = {"on_1024_pages": small["launches"], "on_4096_pages": spill["launches"]}
+        info["ttft_ms_median_on_1024_vs_off"] = [statistics.median(small["ttft_ms"]),
+                                                 statistics.median(ref["ttft_ms"])]
+        info["decode_tok_s_on_1024_vs_off"] = [small["decode_tok_s"], ref["decode_tok_s"]]
+        branches = {"flat": small["branches"], "decode": spill["branches"]}
+    with phase("pager_park", {"model": "mistral-7b-v0.1", "prompt": PARK_PROMPT,
+                              "tokens": PARK_TOKENS, "requests": PARK_SEQS,
+                              "device_pages": PAGER_BLOCKS, "host_pages": PAGER_HOST_PAGES}) as info:
+        prompts = fixed_prompts(cfg, PARK_SEQS, PARK_PROMPT, 62)
+        ref = pager_run(params, cfg, prompts, PAGER_REF_BLOCKS, paging=False, max_tokens=PARK_TOKENS)
+        park = pager_run(params, cfg, prompts, PAGER_BLOCKS, paging=True, max_tokens=PARK_TOKENS)
+        report(info, {"off": ref, "on_1024_pages": park})
+        pg = park["pager"]
+        if not (pg["parks_total"] and pg["pages_restored_total"]) or pg["refunds_total"]:
+            raise AssertionError(f"the park run did not park and restore: {pg}")
+        info["streams_equal_off"] = sum(a == b for a, b in zip(park["tokens"], ref["tokens"]))
+        held_to_model(info, params, cfg, prompts, park["tokens"], ref["tokens"], "park",
+                      rescore=rescore_long)
+        path_launches(info, park["launches"], FLAT_WRAPPERS)
+        info["ttft_ms_median_on_vs_off"] = [statistics.median(park["ttft_ms"]),
+                                            statistics.median(ref["ttft_ms"])]
+        info["decode_tok_s_on_vs_off"] = [park["decode_tok_s"], ref["decode_tok_s"]]
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    with phase("pager_serve", {"model": "mistral-7b-v0.1", "layers": 2}) as info:
+        pager_serve_check(info)
+    return rows, branches
+
+
+def pager_serve_check(info: dict) -> None:
+    """``python -m llmd_tpu_torch.serve`` on Mistral-7B-v0.1's shape cut to
+    2 layers (an HF directory of random weights written here) with
+    ``--kv-decode-paging``: a 6,000-token Generate request is answered,
+    and ``/metrics`` shows the pages it spilled."""
+    from llmd_tpu_torch.models import llama
+
+    out_dir = PAGER_DIR + "-2l"
+    cfg = mistral_config(out_dir, layers=2)
+    params = llama.init_params(cfg, torch.Generator(device="cuda").manual_seed(0), "cuda",
+                               fused=True)
+    write_hf_checkpoint(cfg, params, out_dir)
+    mistral_config(out_dir, layers=2)  # the Mistral config over the writer's Llama one
+    del params
+    torch.cuda.empty_cache()
+    argv = ["--model", out_dir, "--tokenizer", "byte", "--max-model-len", "8192",
+            "--num-gpu-blocks-override", "512", "--max-num-seqs", "4",
+            "--max-num-batched-tokens", "1024", "--kv-offload-chunks", "1024",
+            "--kv-decode-paging", "--kv-pager-horizon-tokens", str(PAGER_HORIZON),
+            "--skip-warmup"]
+    server = start_server(argv, "chip_smoke_pager_server.log")
+    try:
+        info["startup_s"] = wait_healthy([server])
+        prompt = fixed_prompts(cfg, 1, 6000, 71)[0]
+        t0 = time.perf_counter()
+        status, raw = _post(server[1] + "/vllm.Generation/Generate", {
+            "prompt_token_ids": prompt,
+            "sampling_params": {"max_tokens": 16, "temperature": 0.0, "ignore_eos": True}})
+        info["request_ms"] = (time.perf_counter() - t0) * 1e3
+        tokens = json.loads(raw)["token_ids"]
+        m, _ = _scrape(server[1])
+        info["kv_paged_out_bytes"] = m.get("llmd:kv_paged_out_bytes")
+        if status != 200 or len(tokens) != 16 or not info["kv_paged_out_bytes"]:
+            raise AssertionError(f"the pager server answered {status} with {len(tokens)} "
+                                 f"tokens, {info['kv_paged_out_bytes']} bytes paged out")
+    finally:
+        stop_server(server[0])
+        shutil.rmtree(out_dir, ignore_errors=True)
+
+
+# --------------------------------------------------------------------- #
+# LoRA adapters and the paged adapter pool on llama-3-8b
+
+LORA_RANK, LORA_ALPHA = 16, 32.0
+LORA_PROMPT, LORA_TOKENS, LORA_WINDOW_K = 192, 32, 8
+LORA_DIR = os.path.join(REPO, "build", "lora-adapters")
+
+
+def write_peft_adapter(cfg, out_dir: str, seed: int, zero_b: bool = False) -> str:
+    """An HF PEFT adapter directory for ``cfg`` (rank ``LORA_RANK`` on
+    q_proj and v_proj, alpha ``LORA_ALPHA``): seeded random A and B (B all
+    zero with ``zero_b``), bf16, in PEFT's tensor names."""
+    os.makedirs(out_dir, exist_ok=True)
+    with open(os.path.join(out_dir, "adapter_config.json"), "w") as f:
+        json.dump({"r": LORA_RANK, "lora_alpha": LORA_ALPHA, "target_modules": ["q_proj", "v_proj"],
+                   "bias": "none", "peft_type": "LORA"}, f)
+    g = torch.Generator().manual_seed(seed)
+    H, D = cfg.hidden_size, cfg.head_dim
+    tensors = {}
+    for i in range(cfg.num_layers):
+        for proj, width in (("q_proj", cfg.num_heads * D), ("v_proj", cfg.num_kv_heads * D)):
+            pre = f"base_model.model.model.layers.{i}.self_attn.{proj}"
+            tensors[f"{pre}.lora_A.weight"] = (
+                torch.randn((LORA_RANK, H), generator=g) * H**-0.5).bfloat16()
+            b = torch.randn((width, LORA_RANK), generator=g) * 0.05
+            tensors[f"{pre}.lora_B.weight"] = (b * 0 if zero_b else b).bfloat16()
+    write_safetensors(os.path.join(out_dir, "adapter_model.safetensors"), tensors)
+    return out_dir
+
+
+def with_lora_slots(params: dict, cfg) -> dict:
+    """``params`` (shared, not copied) with ``cfg``'s adapter slots added
+    (zeros: every slot the base model until an install)."""
+    from llmd_tpu_torch.models import llama
+
+    slots = llama.lora_slots(cfg, cfg.num_layers, "cuda", getattr(torch, cfg.dtype))
+    return {**params, "layers": {**params["layers"], **slots}}
+
+
+def merged_params(params: dict, cfg, w: dict) -> dict:
+    """``params`` with adapter ``w`` merged into q|k|v in f32 (``W + A B``
+    on the q and v columns; an int8 tree's q|k|v dequantized first), then
+    rounded to the model's dtype: the adapter's model, for the rescore."""
+    layers = params["layers"]
+    Nq, K, D = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    if "wqkv_scale" in layers:  # int8, K-major [L, out, in]
+        wf = (layers["wqkv"].float() * layers["wqkv_scale"][:, :, None]).transpose(1, 2)
+    else:
+        wf = layers["wqkv"].to(torch.float32, copy=True)  # the tree is not written
+    dev = wf.device
+    wf[..., : Nq * D] += torch.bmm(w["la_q"].to(dev).float(), w["lb_q"].to(dev).float())
+    wf[..., (Nq + K) * D :] += torch.bmm(w["la_v"].to(dev).float(), w["lb_v"].to(dev).float())
+    out = {k: v for k, v in layers.items() if k not in ("wqkv_scale", "la_q", "la_v", "lb_q", "lb_v")}
+    out["wqkv"] = wf.to(getattr(torch, cfg.dtype))
+    del wf
+    return {**params, "layers": out}
+
+
+def decode_step_ms(eng, prompts: list, sp, slots: list) -> float:
+    """``prompts`` on adapter ``slots``, to the end: the median CUDA-event
+    time of the decode-only steps (a window's graph replay and its
+    readback) over the window's tokens."""
+    for p, slot in zip(prompts, slots):
+        eng.add_request(p, sp, lora_id=slot)
+    times = []
+    while eng.has_work():
+        decoding = all(r.in_decode for r in eng.scheduler.running) and not eng.scheduler.waiting
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        eng.step()
+        end.record()
+        end.synchronize()
+        if decoding:
+            times.append(start.elapsed_time(end) / LORA_WINDOW_K)
+    return statistics.median(times)
+
+
+def lora_engine(params: dict, cfg):
+    """The LoRA phase's engine (flat step, decode windows, warmed up)."""
+    from llmd_tpu_torch.config import CacheConfig, EngineConfig, SchedulerConfig
+    from llmd_tpu_torch.engine import LLMEngine
+
+    eng = LLMEngine(EngineConfig(
+        model=cfg, cache=CacheConfig(page_size=16, num_blocks=1024),
+        scheduler=SchedulerConfig(max_num_seqs=8, max_num_batched_tokens=2048,
+                                  decode_window=LORA_WINDOW_K),
+        seed=0), params=params, device="cuda")
+    eng.warmup()
+    return eng
+
+
+def lora_engine_run(params: dict, cfg, adapters: list, quantization: str | None) -> dict:
+    """llama-3-8b with 4 adapter slots of rank 16 (flat step, decode windows
+    of 8, warmed up): the PEFT directories ``adapters`` loaded into slots 1-4
+    (slot 4's B is zero), then one mixed batch: prompt 0 on the base model
+    and on slot 4, prompts 1-3 on slots 1-3. Then slot 1 is written again,
+    after the graphs were captured, with slot 2's adapter, and prompt 2
+    runs on slots 1 and 2 together. Returns the streams, the graphs
+    captured, the launches and the decode steps' ms with and without
+    adapters in the batch (every row of an engine with slots computes its
+    slot's terms, slot 0's zeros included) and on an engine without
+    slots."""
+    from llmd_tpu_torch import ops
+    from llmd_tpu_torch.engine import SamplingParams
+    from llmd_tpu_torch.models.loader import load_lora_adapter
+    from llmd_tpu_torch.models.registry import get_model_config
+
+    eng = lora_engine(with_lora_slots(params, cfg), cfg)
+    captured = set(eng.runner.programs.programs)
+    weights = [load_lora_adapter(cfg, d) for d in adapters]
+    for slot, w in enumerate(weights, start=1):
+        eng.set_lora_weights(slot, w)
+    prompts = fixed_prompts(cfg, 4, LORA_PROMPT, 81)
+    sp = SamplingParams(temperature=0.0, max_tokens=LORA_TOKENS, ignore_eos=True)
+
+    def drive(rows) -> list:
+        rids = [eng.add_request(prompts[p], sp, lora_id=slot) for p, slot in rows]
+        out = {r: [] for r in rids}
+        while eng.has_work():
+            for o in eng.step():
+                out[o.request_id] += o.new_token_ids
+        return [out[r] for r in rids]
+
+    ops.reset_launch_counts()
+    replays0 = sum(eng.runner.programs.runs.values())
+    mixed = drive([(0, 0), (0, 4), (1, 1), (2, 2), (3, 3)])
+    rec = {"streams": mixed, "launches": ops.launch_counts(),
+           "replays": sum(eng.runner.programs.runs.values()) - replays0}
+    eng.set_lora_weights(1, weights[1])  # after capture: the next replays read it
+    rec["reinstalled"] = drive([(2, 1), (2, 2)])
+    rec["graphs_captured_after_warmup"] = sorted(map(str, set(eng.runner.programs.programs) - captured))
+
+    rec["decode_ms_per_token_base"] = decode_step_ms(eng, prompts, sp, [0] * 4)
+    rec["decode_ms_per_token_adapters"] = decode_step_ms(eng, prompts, sp, [1, 2, 3, 1])
+    rec["prompts"] = prompts
+    rec["weights"] = weights
+    eng.close()
+    del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    plain = lora_engine(params, get_model_config(MODEL, quantization=quantization))
+    rec["decode_ms_per_token_no_slots"] = decode_step_ms(plain, prompts, sp, [0] * 4)
+    del plain
+    gc.collect()
+    torch.cuda.empty_cache()
+    return rec
+
+
+
+def lora_phase(params: dict, params8: dict) -> None:
+    """LoRA on llama-3-8b, bf16 and int8 weights (``lora_engine_run``): the
+    zero-B adapter's stream is the base stream bit for bit, each adapter's
+    stream is held to that adapter's model (``merged_params``, teacher-
+    forced by ``spec_rescore``) within the base stream's gaps under the
+    base model, the reinstalled slot gives slot 2's stream in the same
+    batch, and no graph is captured after warmup. The yardstick of the
+    rescore is the base stream under the base model with q|k|v merged the
+    same way (the zero-B adapter: for int8 weights, q|k|v dequantized, so
+    that the gate counts what the adapters add, not what the
+    dequantization does). Then a server with
+    ``--lora-pool-slots 2`` over the four adapters: requests for each, the
+    load and unload routes, and the cold loads, evictions and
+    ``vllm:lora_requests_info`` on ``/metrics``."""
+    from llmd_tpu_torch.models.registry import get_model_config
+
+    shutil.rmtree(LORA_DIR, ignore_errors=True)
+    for quantization, tree in ((None, params), ("int8", params8)):
+        with phase("lora", {"model": MODEL, "quantization": quantization, "slots": 4,
+                            "rank": LORA_RANK}) as info:
+            cfg = get_model_config(MODEL, num_lora_adapters=4, lora_rank=LORA_RANK,
+                                   quantization=quantization)
+            base_cfg = get_model_config(MODEL, quantization=quantization)
+            adapters = [write_peft_adapter(cfg, os.path.join(LORA_DIR, f"a{i}"), 90 + i,
+                                           zero_b=i == 3) for i in range(4)]
+            rec = lora_engine_run(tree, cfg, adapters, quantization)
+            s = rec["streams"]
+            info["zero_b_equals_base"] = s[1] == s[0]
+            info["reinstalled_slot_equals_slot2"] = rec["reinstalled"][0] == rec["reinstalled"][1]
+            info["adapter_streams_differ_from_base_prompt"] = [s[i + 2] != s[0] for i in range(3)]
+            info["graphs_captured_after_warmup"] = rec["graphs_captured_after_warmup"]
+            info["replays"] = rec["replays"]
+            info["launches"] = rec["launches"]
+            info["decode_ms_per_token"] = {"base": rec["decode_ms_per_token_base"],
+                                           "adapters": rec["decode_ms_per_token_adapters"],
+                                           "engine_without_slots": rec["decode_ms_per_token_no_slots"]}
+            if not info["zero_b_equals_base"]:
+                raise AssertionError("the zero-B adapter's stream is not the base stream")
+            if not info["reinstalled_slot_equals_slot2"]:
+                raise AssertionError("slot 1 reinstalled with slot 2's adapter streams otherwise")
+            if rec["graphs_captured_after_warmup"] or not rec["replays"]:
+                raise AssertionError(f"graphs after warmup {rec['graphs_captured_after_warmup']}, "
+                                     f"replays {rec['replays']}")
+            # The yardstick: the base stream under the base model with q|k|v
+            # as the merge leaves it (the zero-B adapter merged: exact for
+            # bf16, dequantized for int8).
+            same = merged_params(tree, cfg, rec["weights"][3])
+            base = spec_rescore(same, base_cfg, rec["prompts"][:1], s[:1])
+            del same
+            info["rescore_base"] = base
+            for i in range(3):
+                merged = merged_params(tree, cfg, rec["weights"][i])
+                have = spec_rescore(merged, base_cfg, rec["prompts"][i + 1 : i + 2], s[i + 2 : i + 3])
+                off = spec_rescore(tree, base_cfg, rec["prompts"][i + 1 : i + 2], s[i + 2 : i + 3])
+                del merged
+                torch.cuda.empty_cache()
+                info[f"rescore_adapter{i + 1}"] = have
+                info[f"rescore_adapter{i + 1}_under_base_model"] = off
+                if have["top_gap_max"] > SPEC_TOP_GAP_TOL and have["positions_above_tol"] > max(
+                        1, SPEC_ABOVE_TOL_FACTOR * base["positions_above_tol"]):
+                    raise AssertionError(f"adapter {i + 1}'s stream is not its model's: {have}")
+            path_launches(info, rec["launches"], (*FLAT_WRAPPERS, "decode_paged_attention_full",
+                                                  "write_kv_pages_decode_full"))
+        gc.collect()
+        torch.cuda.empty_cache()
+    with phase("lora_serve", {"model": MODEL, "pool_slots": 2, "adapters": 4}) as info:
+        lora_serve_check(info, adapters)
+    shutil.rmtree(LORA_DIR, ignore_errors=True)
+
+
+def lora_serve_check(info: dict, adapters: list) -> None:
+    """A llama-3-8b server with ``--lora-pool-slots 2`` over four adapters
+    (``--lora-adapters`` name=PEFT dir): a completion for each adapter in
+    turn (two cold loads and two evictions at least), then the load route
+    with a ``LORA1`` file and the unload route, and ``/metrics``."""
+    from llmd_tpu_torch.lora import encode_adapter
+    from llmd_tpu_torch.models.loader import load_lora_adapter
+    from llmd_tpu_torch.models.registry import get_model_config
+
+    spec = ",".join(f"ad{i}={d}" for i, d in enumerate(adapters))
+    server = start_server(["--model", MODEL, "--max-model-len", "8192", "--tokenizer", "byte",
+                           "--lora-adapters", spec, "--lora-pool-slots", "2",
+                           "--lora-rank", str(LORA_RANK), "--skip-warmup"],
+                          "chip_smoke_lora_server.log")
+    blob = os.path.join(LORA_DIR, "extra.lora")
+    cfg = get_model_config(MODEL, num_lora_adapters=2, lora_rank=LORA_RANK)
+    with open(blob, "wb") as f:
+        f.write(encode_adapter(load_lora_adapter(cfg, adapters[0])))
+    try:
+        info["startup_s"] = wait_healthy([server])
+        base = server[1]
+        statuses = []
+        for name in ("ad0", "ad1", "ad2", "ad3", "ad0", "ad2", MODEL, "ad-typo"):
+            status, _ = _call(base + "/v1/completions", {"model": name, "prompt": "hello there",
+                                                         "max_tokens": 8, "temperature": 0.0})
+            statuses.append(status)
+        for path, body in (("/v1/load_lora_adapter", {"lora_name": "extra", "lora_path": blob}),
+                           ("/v1/completions", {"model": "extra", "prompt": "hi", "max_tokens": 4}),
+                           ("/v1/unload_lora_adapter", {"lora_name": "extra"}),
+                           ("/v1/unload_lora_adapter", {"lora_name": "extra"})):
+            statuses.append(_call(base + path, body)[0])
+        info["statuses"] = statuses
+        _, raw = _call(base + "/v1/models")
+        info["model_ids"] = [m["id"] for m in json.loads(raw)["data"]]
+        _, raw = _call(base + "/metrics")
+        text = raw.decode()
+        m, _ = _scrape(base)
+        keys = ("lora_cold_loads_total", "lora_pool_evictions_total", "lora_pool_resident_adapters",
+                "lora_load_failures_total")
+        info["metrics"] = {k: m.get(f"llmd:{k}") for k in keys}
+        info["lora_requests_info"] = [ln for ln in text.splitlines()
+                                      if ln.startswith("vllm:lora_requests_info")]
+        if statuses != [200] * 7 + [404, 200, 200, 200, 404]:
+            raise AssertionError(f"the LoRA server answered {statuses}")
+        if (info["metrics"]["lora_cold_loads_total"] or 0) < 2 or (
+                info["metrics"]["lora_pool_evictions_total"] or 0) < 2 or not info["lora_requests_info"]:
+            raise AssertionError(f"the LoRA server's metrics: {info['metrics']}, "
+                                 f"{info['lora_requests_info']}")
+    finally:
+        stop_server(server[0])
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false", file=sys.stderr)
@@ -6505,6 +7146,7 @@ def main() -> int:
     spec_exact_phase()
     spec_counts = spec_phase(params, MODEL)
     spec_phase(params8, MODEL, quantization="int8")
+    lora_phase(params, params8)
     del params8
     gc.collect()
     torch.cuda.empty_cache()
@@ -6515,6 +7157,8 @@ def main() -> int:
     pd_exact_phase()
     pd_phase(params, get_model_config(MODEL))
     events_store_phase(params, get_model_config(MODEL))
+    pager_rows, pager_branches = pager_phase()
+    table.update(pager_rows)
     t_stats = time.perf_counter()
     surface = stats_update_cost(params)
     surface["stats_update_s"] = time.perf_counter() - t_stats
@@ -6703,6 +7347,10 @@ def main() -> int:
         "flat_paged_attention@verify64x5": ("flat_paged_attention_full", spec_counts["spec"]),
         "flat_kv_write[rope]@verify64x5": ("write_kv_pages_flat_full", spec_counts["spec"]),
         "decode_paged_attention": ("decode_paged_attention_full", window_counts),
+        # The window branch at Mistral-7B-v0.1's shapes: the pager's runs.
+        **{name: (f"{e['wrapper']}[{e['branch']}]",
+                  pager_branches["flat" if e["wrapper"].startswith("flat") else "decode"])
+           for name, e in pager_rows.items()},
     }
     model_counts = {DS_MODEL: ds_counts, OSS_MODEL: oss_counts["flat step"],
                     **{f"{m} int8": c for m, c in q8_counts.items()}}

@@ -56,6 +56,14 @@ class ModelConfig:
     sliding_window: int = 0
     layer_types: tuple | None = None
     max_window_layers: int | None = None
+    # LoRA: num_lora_adapters > 0 allocates that many adapter slots of rank
+    # lora_rank on the q and v projections; slot 0 is the base model (zero
+    # factors). Names live in the serving layer; the model sees slot ids a
+    # row. lora_dynamic makes the slots a paged adapter pool over an
+    # unbounded registry (``lora/``): the slot count bounds residency only.
+    num_lora_adapters: int = 0
+    lora_rank: int = 16
+    lora_dynamic: bool = False
     # --- MoE (0 experts => dense MLP) ---
     num_experts: int = 0
     num_experts_per_tok: int = 2
@@ -122,6 +130,14 @@ class ModelConfig:
             raise ValueError(
                 "attention_bias is not supported with MLA (kv_lora_rank > 0): "
                 "no known MLA architecture uses QKV biases"
+            )
+        if self.lora_dynamic and self.num_lora_adapters <= 0:
+            raise ValueError("lora_dynamic needs num_lora_adapters > 0 pool slots")
+        if self.kv_lora_rank > 0 and self.num_lora_adapters > 0:
+            raise ValueError(
+                "LoRA adapters are not supported on MLA models yet: the MLA "
+                "attention path would silently serve base-model outputs for "
+                "adapter requests"
             )
 
     def window_for_layer(self, i: int) -> int:
@@ -408,11 +424,12 @@ class OffloadConfig:
     are JAX's; an unknown policy is refused when the engine builds its
     federation, as in JAX.
 
-    ``decode_paging`` is the JAX package's switch for the decode pager,
-    which the port does not have yet (ROADMAP.md queue 1 item 7.6): a
-    configuration that sets it is refused with the item named, and the
-    pager's own knob is not a field here, so a configuration that sets it
-    fails as an unknown argument."""
+    ``decode_paging`` turns on the decode pager (``engine/pager.py``):
+    pages of a running sequence wholly below its attention window plus
+    ``pager_horizon_tokens`` go to the host tier and leave the device, a
+    preemption victim parks its computed KV there, and a parked sequence
+    gets its window back before it runs again. The engine refuses it
+    unless every layer slides."""
 
     enabled: bool = True
     cpu_chunks: int = 25_000
@@ -424,13 +441,7 @@ class OffloadConfig:
     publish_policy: str = "save"
     publish_min_hits: int = 2
     decode_paging: bool = False
-
-    def __post_init__(self) -> None:
-        if self.decode_paging:
-            raise ValueError(
-                "OffloadConfig.decode_paging: the decode pager is not ported "
-                "yet (ROADMAP.md queue 1 item 7.6, the pager)"
-            )
+    pager_horizon_tokens: int = 256
 
 
 @dataclasses.dataclass

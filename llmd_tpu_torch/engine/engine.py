@@ -38,6 +38,20 @@ the cross-slice store is the tier behind them: the engine's store client
 (``kvstore/``) and ``KVFederation`` (``federation/``) publish pages and
 fetch the ones no local tier holds.
 
+The decode pager (``OffloadConfig.decode_paging``; JAX ``engine.py:572-602,
+1382-1386, 1442-1444``): ``engine/pager.py`` on the offload's host tier. It
+is built only where every layer slides, restores parked windows before
+each schedule, parks preemption victims (the scheduler's ``park_hook``)
+and spills cold pages after each step's offload save.
+
+LoRA (``ModelConfig.num_lora_adapters``; JAX ``engine.py:524-560,
+749-1312``): a request carries its adapter slot (``lora_id``) and name, and
+the name salts its page hashes. With ``lora_dynamic`` the slots are a
+paged adapter pool (``lora/``) over a registry filled by ``load_adapter``:
+``add_request`` resolves a name to its resident slot, or parks the request
+in the loading queue until ``_admit_cold_loads`` installs the adapter at a
+step boundary.
+
 KV events (JAX ``engine.py:461-470``): the allocator tells ``event_sink``
 (the server's ``events.ZMQEventSink``, or one that drops them) of each page
 stored, each cached page evicted and each clear; with offload the sink is
@@ -92,6 +106,7 @@ from llmd_tpu_torch.engine.kv_cache import (
     page_hashes_for_tokens,
 )
 from llmd_tpu_torch.engine.request import (
+    FinishReason,
     Request,
     RequestOutput,
     RequestStatus,
@@ -215,9 +230,8 @@ class EngineStats:
     contract (JAX ``engine.py:170 EngineStats``). The engine thread writes
     these plain ints and floats; a scrape on the event loop reads each
     atomically, with no lock on the step path. Fields of features the port
-    does not have yet (the decode pager, context-parallel prefill, LoRA,
-    wide EP) stay at 0 or empty, so the page carries the JAX engine's
-    names."""
+    does not have yet (context-parallel prefill, wide EP) stay at 0 or
+    empty, so the page carries the JAX engine's names."""
 
     # Gauges, refreshed once a step (``_refresh_gauges``).
     num_waiting: int = 0
@@ -314,10 +328,14 @@ class EngineStats:
     stream_resumes_total: int = 0
     resume_replayed_tokens_total: int = 0
     stream_resume_failures_total: int = 0
-    # Features the port does not have yet: always 0 or empty here.
+    # The decode pager: bytes spilled to the host tier, and restores of
+    # pages host DRAM did not hold (the file tier served them late).
     kv_paged_out_bytes: int = 0
     kv_pager_prefetch_late_total: int = 0
-    cp_ring_steps_total: int = 0
+    # LoRA: the slot count, the adapters of running and waiting rows (the
+    # waiting ones with the loading queue's), the resident and the
+    # registered adapters, and the paged pool's residents, evictions, cold
+    # loads and failed loads.
     max_lora: int = 0
     running_lora_adapters: tuple = ()
     waiting_lora_adapters: tuple = ()
@@ -327,6 +345,8 @@ class EngineStats:
     lora_pool_evictions_total: int = 0
     lora_cold_loads_total: int = 0
     lora_load_failures_total: int = 0
+    # Features the port does not have yet: always 0 or empty here.
+    cp_ring_steps_total: int = 0
     moe_expert_tokens: tuple = ()
     moe_dropped_slots_total: int = 0
     moe_peak_demand: float = 0.0
@@ -442,7 +462,44 @@ class LLMEngine:
             if self._federation is not None:
                 self._federation.page_dtype = self.runner.staging_dtype
         self.stats = EngineStats(num_pages=cache.num_blocks, page_size=cache.page_size)
+        # The adapter slots are on the page from the first scrape: a failed
+        # load can come before any step.
+        self.stats.max_lora = config.model.num_lora_adapters
         self._counter = itertools.count()
+        # LoRA's paged adapter pool (JAX ``engine.py:528-560``): requests
+        # naming an adapter that is registered but not resident wait in
+        # ``_lora_parked`` until a step boundary installs it; the rows of
+        # an adapter that vanished meanwhile end with an ABORT output in
+        # the next step's return.
+        self.adapter_registry = self.adapter_pool = None
+        self._lora_parked: list[Request] = []
+        self._lora_failed_outputs: list[RequestOutput] = []
+        if config.model.lora_dynamic:
+            from llmd_tpu_torch.lora import AdapterPool, AdapterRegistry
+
+            self.adapter_registry = AdapterRegistry()
+            self.adapter_pool = AdapterPool(
+                self.adapter_registry, install=self.runner.set_lora_weights,
+                num_slots=config.model.num_lora_adapters, pinned=self._adapter_pinned)
+        # The decode pager (JAX ``engine.py:572-602``), on the offload's
+        # host tier: every layer must slide. The port runs on one host.
+        self.pager = None
+        if self.offloader is not None and config.offload.decode_paging:
+            windows = config.model.layer_windows
+            if not windows or min(windows) <= 0:
+                raise ValueError(
+                    "offload.decode_paging requires every layer to be "
+                    "sliding-window: a full-attention layer reads "
+                    "arbitrarily far back, so no page is ever cold"
+                )
+            from llmd_tpu_torch.engine.pager import KVPager
+
+            self.pager = KVPager(
+                self.runner, self.scheduler, self.allocator, self._host_cache,
+                self.offloader.pool, window=max(windows),
+                horizon=config.offload.pager_horizon_tokens,
+                stream_groups=config.kv_stream_groups)
+            self.scheduler.park_hook = self.pager.park
         # P/D disaggregation (JAX ``engine.py:604-620``): the KV connector;
         # a producer exports in the scheduler's finish hook, while the
         # request's pages are live.
@@ -489,8 +546,15 @@ class LLMEngine:
         priority: int = 0,
         resume_output_tokens: int = 0,
         kv_transfer_params: dict | None = None,
+        lora_id: int = 0,
+        lora_name: str = "",
     ) -> str:
-        """Queue a request; returns its id. ``resume_output_tokens`` > 0
+        """Queue a request; returns its id. ``lora_id`` is the adapter slot
+        (0: the base model) and ``lora_name`` its name; on a paged adapter
+        pool the name alone is given, and resolves here to its resident
+        slot, or parks the request in the loading queue when the adapter
+        is registered but not resident (JAX ``engine.py:749-811``).
+        ``resume_output_tokens`` > 0
         marks the prompt's last that many tokens as output a replica that
         died mid-stream already delivered (failover resume): generation
         continues at that output position. ``kv_transfer_params``: a
@@ -508,6 +572,46 @@ class LLMEngine:
                 f"non-empty prompt head (prompt carries "
                 f"{len(prompt_token_ids)} tokens)"
             )
+        park_adapter = False
+        lease = ""
+        if lora_name and self.adapter_pool is not None:
+            # The pool resolves names here. ``acquire`` holds an admission
+            # lease, so that a concurrent install cannot evict the slot
+            # before the row is where the pinned scan sees it.
+            slot = self.adapter_pool.acquire(lora_name)
+            if slot is not None:
+                lora_id, lease = slot, lora_name
+            elif self.adapter_registry.has(lora_name):
+                lora_id, park_adapter = 0, True  # its slot comes with the cold load
+            else:
+                raise ValueError(f"unknown lora_name {lora_name!r} (loaded adapters: "
+                                 f"{self.adapter_registry.names()})")
+        elif lora_name and not lora_id:
+            # Fixed slots: the server maps names to slots; a name without a
+            # slot would silently serve the base model.
+            raise ValueError(
+                f"unknown lora_name {lora_name!r} (this engine serves "
+                f"{self.config.model.num_lora_adapters} fixed adapter "
+                "slot(s); map the name to its slot id, or enable the "
+                "dynamic pool with lora_dynamic)"
+            )
+        try:
+            return self._admit_request(prompt_token_ids, sampling, request_id, priority,
+                                       resume_output_tokens, kv_transfer_params, lora_id,
+                                       lora_name, park_adapter)
+        finally:
+            # The lease bridges resolution and admission only; from here the
+            # scheduler's lists (or the loading queue) pin the adapter.
+            if lease:
+                self.adapter_pool.release_acquire(lease)
+
+    def _admit_request(self, prompt_token_ids: list[int], sampling: SamplingParams | None,
+                       request_id: str | None, priority: int, resume_output_tokens: int,
+                       kv_transfer_params: dict | None, lora_id: int, lora_name: str,
+                       park_adapter: bool) -> str:
+        if lora_id and not 0 < lora_id <= self.config.model.num_lora_adapters:
+            raise ValueError(f"lora_id {lora_id} out of range "
+                             f"(model has {self.config.model.num_lora_adapters} adapters)")
         vocab = self.config.model.vocab_size
         if not all(0 <= t < vocab for t in prompt_token_ids):
             raise ValueError(f"prompt token ids must lie in [0, {vocab})")
@@ -549,6 +653,8 @@ class LLMEngine:
             sampling=sampling or SamplingParams(),
             priority=priority,
             kv_transfer_params=kv_transfer_params,
+            lora_id=lora_id,
+            lora_name=lora_name,
         )
         if resume_output_tokens:
             # Admitted through the recompute-preemption seam: the history is
@@ -561,11 +667,18 @@ class LLMEngine:
             req.block_ids = list(preload["block_ids"])
             req.swa_block_ids = list(preload["swa_block_ids"])
             req.num_computed_tokens = req.num_cached_tokens = preload["tokens"]
-        elif self._swa_sections is not None and kv_stream is None:
+        elif self._swa_sections is not None and kv_stream is None and not park_adapter:
+            # (A request waiting for its adapter takes no hybrid hit: its
+            # salt needs the slot the cold load has not given it yet.)
             self._try_hybrid_ring_hit(req)
         if kv_stream is not None:
             # Schedulable once the import resolves (``_admit_kv_streams``).
-            self._kv_parked.append((req, kv_stream))
+            self._kv_parked.append((req, kv_stream, park_adapter))
+            return rid
+        if park_adapter:
+            # The loading queue: admitted with its slot once the adapter is
+            # installed (``_admit_cold_loads``); resident tenants go on.
+            self._lora_parked.append(req)
             return rid
         self.scheduler.add_request(req)
         return rid
@@ -583,38 +696,44 @@ class LLMEngine:
         stream rather than spin."""
         while True:
             still, admitted = [], False
-            for req, handle in self._kv_parked:
+            for req, handle, park_adapter in self._kv_parked:
                 if not handle.done.is_set():
-                    still.append((req, handle))
+                    still.append((req, handle, park_adapter))
                     continue
                 bundle = handle.take()
                 if bundle is not None:
                     self.kv_connector.apply_bundle(list(req.prompt_token_ids), bundle)
                 elif self.offloader is not None:
                     self.offloader.restore_for_prompt(list(req.prompt_token_ids))
-                self.scheduler.add_request(req)
+                if park_adapter:
+                    self._lora_parked.append(req)
+                else:
+                    self.scheduler.add_request(req)
                 admitted = True
             self._kv_parked = still
-            if admitted or not still or self._inflight is not None or self.scheduler.has_work():
+            if (admitted or not still or self._inflight is not None or self.scheduler.has_work()
+                    or self._lora_parked):
                 return
             if not still[0][1].done.wait(0.05):
                 return
 
-    def _section_key(self, prompt_token_ids: list[int]) -> tuple[bytes | None, int, int]:
+    def _section_key(self, prompt_token_ids: list[int],
+                     extra: bytes) -> tuple[bytes | None, int, int]:
         """(key, n_pre, s0) of a prompt's section: the hash of its page
-        ``n_pre - 1``; the same derivation at capture and at a hit."""
+        ``n_pre - 1``, salted as the request's pages are; the same
+        derivation at capture and at a hit."""
         page = self.config.cache.page_size
         n_pre, s0, _ = self._swa.section(len(prompt_token_ids), page)
         if n_pre <= s0:
             return None, 0, 0
-        hashes = page_hashes_for_tokens(prompt_token_ids[: n_pre * page], page)
+        hashes = page_hashes_for_tokens(prompt_token_ids[: n_pre * page], page, extra)
         return hashes[n_pre - 1], n_pre, s0
 
     def _capture_swa_section(self, req: Request) -> None:
         """The scheduler's hook when a prompt completes: its ring still
         holds the prompt's last window, so retain a copy for later hits
         (at finish the ring has moved past the prompt)."""
-        key, n_pre, s0 = self._section_key(req.prompt_token_ids)
+        key, n_pre, s0 = self._section_key(req.prompt_token_ids, self.scheduler.hash_extra(req))
         if key is None or not req.swa_block_ids:
             return
         try:
@@ -635,7 +754,8 @@ class LLMEngine:
         if not lengths:
             return
         # One hash walk serves the section keys and the main-pool lookup.
-        hashes = page_hashes_for_tokens(req.prompt_token_ids[: n_pre * page], page)
+        hashes = page_hashes_for_tokens(req.prompt_token_ids[: n_pre * page], page,
+                                        self.scheduler.hash_extra(req))
         for k in lengths:
             key = hashes[k - 1]
             # A probe that touches nothing: a candidate left unused must
@@ -663,7 +783,12 @@ class LLMEngine:
             return
 
     def abort_request(self, request_id: str) -> bool:
-        for i, (req, handle) in enumerate(self._kv_parked):
+        for i, req in enumerate(self._lora_parked):
+            if req.request_id == request_id:
+                # In the loading queue: never scheduled, nothing on the device.
+                del self._lora_parked[i]
+                return True
+        for i, (req, handle, _) in enumerate(self._kv_parked):
             if req.request_id == request_id:
                 # Parked on a stream: abandon() frees the fetched bundle's
                 # pages on whichever side holds it.
@@ -710,7 +835,8 @@ class LLMEngine:
         return n
 
     def has_work(self) -> bool:
-        return self.scheduler.has_work() or self._inflight is not None or bool(self._kv_parked)
+        return (self.scheduler.has_work() or self._inflight is not None
+                or bool(self._kv_parked) or bool(self._lora_parked))
 
     def close(self) -> None:
         """Release what outlives a step (JAX ``close``): the host tiers'
@@ -718,6 +844,8 @@ class LLMEngine:
         the same directory finds every page the cache spilled; the KV
         connector's shipper stops; the store client finishes its queued
         publications, withdraws its segment and stops its threads."""
+        if self.pager is not None:
+            self.pager.finish()
         if self._host_cache is not None:
             self._host_cache.close()
         if self.kv_connector is not None:
@@ -737,7 +865,17 @@ class LLMEngine:
         faults.delay("engine.step.stall")
         if self._kv_parked:
             self._admit_kv_streams()
-        return self._step_async() if self._async else self._step_sync()
+        if self._lora_parked:
+            self._admit_cold_loads()
+        if self.pager is not None:
+            # Parked windows come back before the schedule; a restore that
+            # must wait leaves its request fetch-pending.
+            self.pager.pump(self.scheduler.waiting)
+        outputs = self._step_async() if self._async else self._step_sync()
+        if self._lora_failed_outputs:
+            outputs = [*self._lora_failed_outputs, *outputs]
+            self._lora_failed_outputs = []
+        return outputs
 
     def _step_sync(self) -> list[RequestOutput]:
         t0 = time.perf_counter()
@@ -768,6 +906,11 @@ class LLMEngine:
         outputs = self._assemble_outputs(batch, accepted, logprobs, now)
         if self.offloader is not None:
             self.offloader.flush()  # the pages this step committed
+        if self.pager is not None:
+            # Pages below window + horizon go to the host tier; nothing
+            # else is queued on the device now, so the copies are awaited.
+            self.pager.tick(self.scheduler.running)
+            self.pager.finish()
         self._finish_step((t_dispatched - t0) + (time.perf_counter() - t_read))
         return outputs
 
@@ -855,6 +998,11 @@ class LLMEngine:
         outputs = self._assemble_outputs(inflight.batch, accepted, logprobs, inflight.dispatch_time)
         if self.offloader is not None:
             self.offloader.finish()
+        if self.pager is not None:
+            # In-flight rows are skipped (N+1 holds their tables); the
+            # spills' gathers follow N+1, and their pages reach the host
+            # tier at the next tick or restore.
+            self.pager.tick(self.scheduler.running)
         self._finish_step(host_gap)
         return outputs
 
@@ -962,10 +1110,160 @@ class LLMEngine:
             st.kv_bundle_crc_failures_total = cs["crc_failures"]
             st.kv_recompute_fallbacks_total = cs["recompute_fallbacks"]
             st.kv_transfer_failures = tuple(sorted(cs["transfer_failures"].items()))
+        if self.config.model.num_lora_adapters:
+            st.max_lora = self.config.model.num_lora_adapters
+            st.running_lora_adapters = tuple(sorted(
+                {r.lora_name for r in sch.running if r.lora_name}))
+            # The loading queue is demand the router must see too.
+            st.waiting_lora_adapters = tuple(sorted(
+                {r.lora_name for r in (*sch.waiting, *self._lora_parked) if r.lora_name}))
+            self._refresh_lora_stats()
+        if self.pager is not None:
+            st.kv_paged_out_bytes = self.pager.paged_out_bytes
+            st.kv_pager_prefetch_late_total = self.pager.prefetch_late_total
         st.live_tokens_total = self.runner.live_tokens_total
         st.padded_tokens_total = self.runner.padded_tokens_total
         st.dispatches_per_emitted_token = round(
             st.decode_dispatches_total / max(1, st.generation_tokens), 6)
+
+    # ------------------------------------------------------------------ #
+    # LoRA adapters (JAX ``engine.py:1110-1312``)
+
+    def set_lora_weights(self, lora_id: int, weights: dict) -> None:
+        """Install adapter weights into slot ``lora_id``; until then a slot
+        serves the base model (B is zero). Refused while requests on the
+        slot are in flight: their KV was computed under the old weights.
+        The device's and the host tiers' cached pages are cleared (the
+        event is ``AllBlocksCleared``)."""
+        in_flight = [r.request_id for r in (*self.scheduler.running, *self.scheduler.waiting)
+                     if r.lora_id == lora_id]
+        if in_flight:
+            raise RuntimeError(
+                f"cannot swap lora slot {lora_id} weights with "
+                f"{len(in_flight)} request(s) in flight (pause/drain first)"
+            )
+        self.runner.set_lora_weights(lora_id, weights)
+        self.allocator.clear()
+        if self._host_cache is not None:
+            self._host_cache.clear()
+
+    def _adapter_pinned(self, name: str) -> bool:
+        """Pin while referenced: an adapter a running or queued row names
+        keeps its slot (every step reads it)."""
+        return any(r.lora_name == name
+                   for r in (*self.scheduler.running, *self.scheduler.waiting))
+
+    def _lora_rows_inflight(self, name: str) -> int:
+        return sum(1 for r in (*self.scheduler.running, *self.scheduler.waiting,
+                               *self._lora_parked) if r.lora_name == name)
+
+    def _normalize_adapter_weights(self, weights: dict) -> dict:
+        """Slot-form float32 factors, an absent pair zero-filled: an install
+        overwrites the evicted tenant's slot whole, or a q-only adapter
+        would compose with the previous resident's v factors."""
+        from llmd_tpu_torch.lora.source import FACTOR_KEYS, as_f32
+
+        layers = self.runner.params["layers"]
+        out = {}
+        for k in FACTOR_KEYS:
+            shape = (layers[k].shape[0], *layers[k].shape[2:])
+            out[k] = (np.ascontiguousarray(as_f32(weights[k])).reshape(shape) if k in weights
+                      else np.zeros(shape, np.float32))
+        return out
+
+    def load_adapter(self, name: str, source: str = "", weights: dict | None = None) -> None:
+        """Register ``name`` (``/v1/load_lora_adapter``): fetch and decode its
+        weights (``lora.fetch_adapter``; framed sources are CRC-checked),
+        then install them into a free slot if there is one; otherwise the
+        adapter is one cold load away. A failure raises and leaves the
+        registry as it was; a failed fetch is counted."""
+        if self.adapter_pool is None:
+            raise RuntimeError("dynamic adapter serving is disabled "
+                               "(ModelConfig.lora_dynamic / --lora-pool-slots)")
+        if weights is None:
+            from llmd_tpu_torch.lora import AdapterFetchError, fetch_adapter
+
+            try:
+                weights = fetch_adapter(
+                    source, name=name, model_cfg=self.config.model,
+                    kvstore_get=self._kvstore_client.get if self._kvstore_client else None)
+            except (AdapterFetchError, ValueError):
+                self.stats.lora_load_failures_total += 1
+                raise
+        weights = self._normalize_adapter_weights(weights)
+        _, stale_cache = self.adapter_registry.register(name, weights, source)
+        if stale_cache:
+            # The name served other weights before: its salted pages are
+            # stale.
+            self.allocator.clear()
+            if self._host_cache is not None:
+                self._host_cache.clear()
+        self.adapter_pool.install_prefetch(name)
+        self._refresh_lora_stats()
+
+    def _refresh_lora_stats(self) -> None:
+        """The pool's stats, also outside the step loop: an idle engine that
+        just loaded adapters shows them at the next scrape."""
+        if self.adapter_pool is None:
+            return
+        pc = self.adapter_pool.counters()
+        st = self.stats
+        st.lora_pool_resident_adapters = pc["resident"]
+        st.lora_pool_evictions_total = pc["evictions"]
+        st.lora_cold_loads_total = pc["cold_loads"]
+        st.resident_lora_adapters = tuple(self.adapter_pool.resident_names())
+        st.available_lora_adapters = tuple(self.adapter_registry.names())
+
+    def unload_adapter(self, name: str) -> None:
+        """Unregister ``name`` and free its slot (``/v1/unload_lora_adapter``);
+        refused while a row references it."""
+        if self.adapter_pool is None:
+            raise RuntimeError("dynamic adapter serving is disabled")
+        if not self.adapter_registry.has(name):
+            raise KeyError(f"adapter {name!r} is not loaded "
+                           f"(loaded: {self.adapter_registry.names()})")
+        n = self._lora_rows_inflight(name)
+        if n:
+            raise RuntimeError(f"cannot unload adapter {name!r} with {n} request(s) in "
+                               "flight (drain first)")
+        # ``remove`` checks the references again under the pool's lock.
+        self.adapter_pool.remove(name)
+        self.adapter_registry.unregister(name)
+        self._refresh_lora_stats()
+
+    def _admit_cold_loads(self) -> None:
+        """Drain the loading queue at a step boundary: install the head's
+        adapter (evicting an idle resident if no slot is free) and admit
+        every waiting row of it. Stops when every slot is pinned: the rows
+        wait for a slot."""
+        while self._lora_parked:
+            name = self._lora_parked[0].lora_name
+            slot = self.adapter_pool.slot_of(name)
+            if slot is None:
+                if self.adapter_registry.get(name) is None:
+                    # Unloaded while rows waited (unload refuses that): end
+                    # them rather than leave them waiting forever.
+                    failed = [r for r in self._lora_parked if r.lora_name == name]
+                    self._lora_parked = [r for r in self._lora_parked if r.lora_name != name]
+                    for r in failed:
+                        self._lora_failed_outputs.append(RequestOutput(
+                            request_id=r.request_id, new_token_ids=[], finished=True,
+                            finish_reason=FinishReason.ABORT,
+                            num_prompt_tokens=len(r.prompt_token_ids), num_output_tokens=0))
+                    logging.getLogger(__name__).error(
+                        "adapter %r vanished with %d parked request(s); aborted", name, len(failed))
+                    continue
+                slot = self.adapter_pool.install_cold(name)
+                if slot is None:
+                    return  # every slot pinned: wait
+            still = []
+            for req in self._lora_parked:
+                if req.lora_name == name:
+                    req.lora_id = slot
+                    self.scheduler.add_request(req)
+                else:
+                    still.append(req)
+            self._lora_parked = still
 
     def _unified_eligible(self, batch: ScheduledBatch) -> bool:
         """Does this batch ride the unified single-dispatch program?

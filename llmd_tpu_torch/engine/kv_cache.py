@@ -20,22 +20,28 @@ from collections.abc import Iterable, Sequence
 _ROOT_HASH = b"llmd-root"
 
 
-def hash_page(parent_hash: bytes, token_ids: Sequence[int]) -> bytes:
-    """Chained content hash of one full page (the JAX package's with no
-    ``extra``: the port's requests carry no LoRA or other cache salt)."""
+def hash_page(parent_hash: bytes, token_ids: Sequence[int], extra: bytes = b"") -> bytes:
+    """Chained content hash of one full page. ``extra`` folds in the
+    request's cache identity (a LoRA adapter's ``lora:<name>``, from
+    ``EngineScheduler.hash_extra``), so one adapter's pages never serve
+    the base model or another adapter."""
     h = hashlib.blake2b(digest_size=16)
     h.update(parent_hash)
     h.update(b"|")
     h.update(b",".join(str(t).encode() for t in token_ids))
+    if extra:
+        h.update(b"#")
+        h.update(extra)
     return h.digest()
 
 
-def page_hashes_for_tokens(token_ids: Sequence[int], page_size: int) -> list[bytes]:
+def page_hashes_for_tokens(token_ids: Sequence[int], page_size: int,
+                           extra: bytes = b"") -> list[bytes]:
     """Hashes of all *full* pages covering a token prefix."""
     hashes: list[bytes] = []
     parent = _ROOT_HASH
     for start in range(0, len(token_ids) - page_size + 1, page_size):
-        parent = hash_page(parent, token_ids[start : start + page_size])
+        parent = hash_page(parent, token_ids[start : start + page_size], extra)
         hashes.append(parent)
     return hashes
 
@@ -118,13 +124,14 @@ class PageAllocator:
         return 1.0 - len(self._free) / self.num_pages
 
     def lookup_and_touch_prefix(
-        self, token_ids: Sequence[int], max_pages: int | None = None
+        self, token_ids: Sequence[int], max_pages: int | None = None, extra: bytes = b""
     ) -> list[int]:
         """The leading run of cached full pages for this prompt (up to
-        ``max_pages``), referenced atomically."""
+        ``max_pages``), its hashes salted by ``extra``, referenced
+        atomically."""
         if not self.enable_prefix_caching:
             return []
-        hashes = page_hashes_for_tokens(token_ids, self.page_size)
+        hashes = page_hashes_for_tokens(token_ids, self.page_size, extra)
         if max_pages is not None:
             hashes = hashes[:max_pages]
         return self.lookup_and_touch_hashes(hashes)

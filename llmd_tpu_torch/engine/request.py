@@ -70,6 +70,11 @@ class Request:
     # P/D transfer params (``do_remote_decode`` on a producer; the
     # producer's answer on a consumer), read by the KV connector.
     kv_transfer_params: dict | None = None
+    # LoRA: the adapter slot (0: the base model), set from the requested
+    # model id, and the adapter's name (the cache salt and the
+    # ``lora_requests_info`` labels).
+    lora_id: int = 0
+    lora_name: str = ""
 
     # --- mutable state ---
     status: RequestStatus = RequestStatus.WAITING
@@ -90,6 +95,14 @@ class Request:
     num_pending_tokens: int = 0
     # Number of prompt tokens satisfied from the prefix cache.
     num_cached_tokens: int = 0
+    # The decode pager (``engine/pager.py``): logical page index -> content
+    # hash of the pages whose device copy went to the host tier. A stale
+    # physical id may stay in ``block_ids`` at those indexes: every read of
+    # them is masked by the window, and the scheduler frees none of them.
+    # A parked request is fetch-pending until the pager brings its window
+    # back; the scheduler admits it only then.
+    paged_out: dict[int, bytes] = dataclasses.field(default_factory=dict)
+    kv_fetch_pending: bool = False
     # Outputs generated before a recompute-preemption folded them into the
     # prompt; counts toward max_tokens and reported output length.
     num_prior_output_tokens: int = 0

@@ -494,10 +494,17 @@ class ModelRunner:
     def _tables(self, requests: list[Request], B: int, kind: str = "step") -> dict[str, np.ndarray]:
         """The step's page tables by input name: ``page_table``, and under
         the ring ``swa_table``; ``kind`` names the program kind whose
-        buffers they fill (``_host_table``)."""
+        buffers they fill (``_host_table``). With LoRA slots, ``lora``:
+        each row's adapter slot (pad rows 0, the base model; JAX
+        ``_lora_array``), which every program reads as it reads the
+        tables."""
         out = {"page_table": self._page_table(requests, B, kind)}
         if self.swa is not None:
             out["swa_table"] = self._swa_table(requests, B, kind)
+        if self.cfg.num_lora_adapters:
+            ids = np.zeros(B, np.int32)
+            ids[: len(requests)] = [req.lora_id for req in requests]
+            out["lora"] = ids
         return out
 
     @staticmethod
@@ -525,6 +532,35 @@ class ModelRunner:
             hidden, self.kv_cache, self.kv_swa = llama.forward_hidden(
                 self.params, self.kv_cache, inp, self.cfg, self.kv_swa)
         return hidden
+
+    def set_lora_weights(self, lora_id: int, weights: dict) -> None:
+        """Install an adapter into slot ``lora_id`` (1-based; JAX
+        ``set_lora_weights``): ``weights`` maps ``la_q``/``lb_q``/``la_v``/
+        ``lb_v`` to ``[num_layers, ...]`` arrays or tensors of the slot's
+        shape. A and B of a projection go in together: B alone would
+        compose with whatever A the slot holds. The slot is written in
+        place (``copy_``, under ``device_lock``, which a graph capture
+        holds), so a captured decode graph's next replay reads the new
+        weights."""
+        if not (0 < lora_id <= self.cfg.num_lora_adapters):
+            raise ValueError(f"lora_id {lora_id} out of range")
+        for a, b in (("la_q", "lb_q"), ("la_v", "lb_v")):
+            if (a in weights) != (b in weights):
+                raise ValueError(
+                    f"LoRA install must pair {a} with {b}: partial updates "
+                    "compose with stale/zero factors and silently serve the "
+                    "wrong adapter"
+                )
+        for k in weights:
+            if k not in ("la_q", "lb_q", "la_v", "lb_v"):
+                raise KeyError(f"unknown LoRA tensor {k!r}")
+        layers = self.params["layers"]
+        with self.device_lock:
+            for k, v in weights.items():
+                dst = layers[k][:, lora_id]
+                src = v if isinstance(v, torch.Tensor) else torch.from_numpy(
+                    np.ascontiguousarray(np.asarray(v, np.float32)))
+                dst.copy_(src.reshape(dst.shape).to(dst.dtype), non_blocking=False)
 
     def copy_ring_pages(self, src: list[int], dst: list[int]) -> None:
         """Copy ring-pool pages ``src`` -> ``dst`` on the device, every plane
@@ -977,9 +1013,13 @@ class ModelRunner:
         }
 
     def _table_spec(self, B: int) -> Spec:
-        """The page tables' static inputs (``_tables``) at B rows."""
+        """The page tables' static inputs (``_tables``) at B rows, and the
+        rows' adapter slots with LoRA."""
         names = ("page_table",) if self.swa is None else ("page_table", "swa_table")
-        return {name: ((B, self.max_pages), torch.int32) for name in names}
+        spec = {name: ((B, self.max_pages), torch.int32) for name in names}
+        if self.cfg.num_lora_adapters:
+            spec["lora"] = ((B,), torch.int32)
+        return spec
 
     @torch.inference_mode()
     def _flat_step(self, x: dict[str, torch.Tensor], all_greedy: bool) -> torch.Tensor:
@@ -1020,6 +1060,7 @@ class ModelRunner:
             # The attention kernel's query tiles, once for every layer.
             flat_items=ops.flat_work_items(row_of, kv_lens, group),
             swa_page_table=x.get("swa_table"),
+            lora_ids=x["lora"][row_of] if "lora" in x else None,
         )
 
     def _sample_plane(self, qlens: torch.Tensor, verify_row: torch.Tensor) -> torch.Tensor:
@@ -1093,6 +1134,7 @@ class ModelRunner:
             query_lens=self._on_device(qlens),
             live_pages=-(-int(kvlens.max()) // self.page),
             swa_page_table=None if swa is None else self._on_device(swa),
+            lora_ids=self._on_device(a["lora"]) if "lora" in a else None,
         )
         hidden = self._forward(inp)
         samp = self._sample_plane(self._on_device(qlens).long(), self._on_device(verify))[:, :S]
@@ -1195,6 +1237,7 @@ class ModelRunner:
                 page_table=page_table,
                 query_lens=qlens,
                 swa_page_table=x.get("swa_table"),
+                lora_ids=x.get("lora"),
             )
             hidden = self._forward(inp)
             logits = llama.compute_logits(self.params, hidden[:, 0], self.cfg)
@@ -1309,7 +1352,7 @@ class ModelRunner:
     def _slice_rows(arrays: dict, idxs: list[int], B: int) -> dict:
         """The tables and knobs of rows ``idxs`` out of a staged verify
         step or window, padded to B rows (JAX ``_ROW_SLICE_NAMES``)."""
-        names = ("page_table", "swa_table", "temp", "top_k", "top_p")
+        names = ("page_table", "swa_table", "lora", "temp", "top_k", "top_p")
         return ModelRunner._slice_staged_rows(
             {k: v for k, v in arrays.items() if k in names}, idxs, B)
 

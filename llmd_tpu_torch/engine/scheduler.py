@@ -150,6 +150,11 @@ class EngineScheduler:
         self.finish_hook = None
         self.prefill_complete_hook = None
         self.ring_pressure_hook = None
+        # The decode pager (``engine/pager.py``): called with a preemption
+        # victim before its pages are released; returns the tokens it kept
+        # in the host tier (the victim resumes from there), or 0 for a
+        # plain recompute preemption.
+        self.park_hook = None
         # Ordered by (-priority, arrival_time): higher priority first, FCFS
         # within a priority class.
         self.waiting: list[Request] = []
@@ -216,10 +221,12 @@ class EngineScheduler:
         """Select the next batch. A step that schedules nothing while work
         remains changes nothing, so the engine would spin: every running
         sequence waits for pages that waiting requests hold (prefix hits
-        taken by a failed admission, hybrid hits) or other running
-        prefills hold. Then the waiting requests' pages and rings are
-        released (they prefill later), and if that is not enough, the
-        youngest running sequences are preempted one at a time. Not while
+        taken by a failed admission, hybrid hits, a parked request's
+        restored window) or other running prefills hold. Then the waiting
+        requests' pages and rings are released (they prefill later; a
+        parked one recomputes), and if that is not enough, the youngest
+        running sequences are preempted one at a time (parked, where the
+        pager is on: ``_preempt_for``). Not while
         a step is in flight: its commit changes what the next step can
         take, and the engine schedules again once nothing is in flight."""
         batch = self._schedule()
@@ -324,6 +331,11 @@ class EngineScheduler:
         #    running batch rows first.
         while self.waiting and budget > 0:
             req = self.waiting[0]
+            if req.kv_fetch_pending:
+                # Parked by the pager, its window not back on the device
+                # yet: a wait, not a fault. The pager retries the restore
+                # each step; admission stays FCFS behind it.
+                break
             if self._batch_band and req.is_batch:
                 break
             if len(self.running) >= self.config.max_num_seqs:
@@ -425,7 +437,7 @@ class EngineScheduler:
             budget -= chunk
         while (self.waiting and budget > 0
                and len(self.running) < self.config.max_num_seqs
-               and self.waiting[0].is_batch):
+               and self.waiting[0].is_batch and not self.waiting[0].kv_fetch_pending):
             if (self.config.batch_max_seqs
                     and sum(1 for r in self.running if r.is_batch) >= self.config.batch_max_seqs):
                 break
@@ -489,8 +501,9 @@ class EngineScheduler:
         # Never satisfy the *entire* prompt from cache: the last token must
         # be computed so the step emits logits for sampling.
         page = self.allocator.page_size
+        extra = self.hash_extra(req)
         cached = self.allocator.lookup_and_touch_prefix(
-            req.prompt_token_ids, max_pages=(req.num_prompt_tokens - 1) // page
+            req.prompt_token_ids, max_pages=(req.num_prompt_tokens - 1) // page, extra=extra
         )
         if not cached:
             return
@@ -500,7 +513,7 @@ class EngineScheduler:
         req.num_computed_tokens = req.num_cached_tokens
         parent = _ROOT_HASH
         for i in range(n):
-            parent = hash_page(parent, req.prompt_token_ids[i * page : (i + 1) * page])
+            parent = hash_page(parent, req.prompt_token_ids[i * page : (i + 1) * page], extra)
         self._chain[req.request_id] = (parent, n)
 
     def _ensure_ring(self, req: Request) -> bool:
@@ -559,15 +572,23 @@ class EngineScheduler:
         victim = max(victims, key=lambda r: (-r.priority, r.arrival_time))
         if victim.is_batch:
             self.num_batch_preemptions += 1
-        self._release(victim)
+        kept = self.park_hook(victim) if self.park_hook is not None else 0
+        if kept:
+            # Parked: the pager put the computed KV in the host tier and
+            # freed the pages; the victim resumes from there.
+            victim.num_pending_tokens = 0
+            self.protected.discard(victim.request_id)
+        else:
+            self._release(victim)
         self.running.remove(victim)
-        # Fold generated tokens into the prompt and restart from scratch.
+        # Fold generated tokens into the prompt and restart from scratch
+        # (or, parked, from the pager's kept prefix).
         victim.num_prior_output_tokens += len(victim.output_token_ids)
         victim.prompt_token_ids = victim.all_token_ids
         victim.output_token_ids = []
         self.num_preemptions += 1
-        victim.num_computed_tokens = 0
-        victim.num_cached_tokens = 0
+        victim.num_computed_tokens = kept
+        victim.num_cached_tokens = kept
         victim.status = RequestStatus.PREEMPTED
         # insort keeps the victim FCFS-ordered by its original arrival time
         # within its priority class, so it resumes ahead of newer arrivals.
@@ -578,17 +599,43 @@ class EngineScheduler:
         req.num_pending_tokens = 0
         self.protected.discard(req.request_id)
         if req.block_ids:
-            self.allocator.free(req.block_ids)
+            # A paged-out index holds a stale id: the pager freed that page
+            # when it spilled it, and another sequence may own it now.
+            ids = [b for i, b in enumerate(req.block_ids) if i not in req.paged_out]
+            if ids:
+                self.allocator.free(ids)
             req.block_ids = []
+        req.paged_out.clear()
+        req.kv_fetch_pending = False
         if req.swa_block_ids:
             self._free_ring(req)
         self._chain.pop(req.request_id, None)
 
     def seed_commit_chain(self, req: Request, parent: bytes, committed: int) -> None:
         """Mark ``req``'s first ``committed`` pages as already in the prefix
-        index, ``parent`` the chain's tail (a hybrid hit's): they are not
-        hashed and committed again."""
+        index, ``parent`` the chain's tail (a hybrid hit's, or the last page
+        the pager spilled or parked): they are not hashed and committed
+        again."""
         self._chain[req.request_id] = (parent, committed)
+
+    def commit_chain_state(self, req: Request) -> tuple[bytes, int]:
+        """(chain tail, committed pages) of ``req``: the pager seeds the
+        chain past a spilled range only where it is not already further."""
+        return self._chain.get(req.request_id, (_ROOT_HASH, 0))
+
+    @staticmethod
+    def hash_extra(req: Request) -> bytes:
+        """The page-hash salt of ``req`` (JAX ``_hash_extra``): an adapter
+        row's KV (v carries the adapter) is never shared with the base
+        model or another adapter. By name (stable across processes, and
+        the router folds ``lora:<model>``); a row with a slot and no name
+        in a namespace of its own, so that a digit-only name never meets
+        a slot id."""
+        if not req.lora_id:
+            return b""
+        if req.lora_name:
+            return f"lora:{req.lora_name}".encode()
+        return f"lora-slot:{req.lora_id}".encode()
 
     # ------------------------------------------------------------------ #
     # post-step bookkeeping
@@ -773,9 +820,10 @@ class EngineScheduler:
         if committed >= full:
             return
         tokens = req.all_token_ids
+        extra = self.hash_extra(req)
         while committed < full:
             chunk = tokens[committed * page : (committed + 1) * page]
-            h = hash_page(parent, chunk)
+            h = hash_page(parent, chunk, extra)
             self.allocator.commit_page(req.block_ids[committed], h, chunk, parent)
             parent = h
             committed += 1

@@ -20,10 +20,15 @@ site                        effect at the injection point
 ``kv.pull.drop``            a P/D consumer's pull fails (``PullError``)
 ``kv.bundle.corrupt``       a pulled bundle's middle byte is flipped
                             (``corrupt``), which its CRC must catch
+``lora.fetch.delay_ms``     an adapter fetch sleeps ``delay_ms`` first
+                            (``lora/source.py``: a slow adapter store)
+``lora.load.fail``          an adapter fetch fails (``AdapterFetchError``);
+                            the load is retried once, then fails and counts
 ==========================  =================================================
 
-Keys: a request id, or a KV bundle's shipper key. The LoRA and fleet
-sites wait for the port's items that run those paths. Unarmed, every helper is one module-global ``None`` check.
+Keys: a request id, a KV bundle's shipper key, or an adapter fetch's
+``name|source``. The fleet sites wait for the port's items that run those
+paths. Unarmed, every helper is one module-global ``None`` check.
 
 Determinism: a spec fires on its matching hits ``after < n <= after +
 times``; with ``p < 1`` each firing is drawn from a ``random.Random`` seeded
@@ -63,8 +68,8 @@ SITES = frozenset({
 class FaultSpec:
     """One scoped fault: site, selector and trigger window.
 
-    ``match`` is a substring of the site's key (a request id at both of the
-    port's sites); empty matches every call. The spec fires on matching
+    ``match`` is a substring of the site's key (a request id, or an adapter
+    fetch's ``name|source``); empty matches every call. The spec fires on matching
     hits ``after < n <= after + times`` (``times=None``: unbounded), each
     firing gated by ``p`` (seeded)."""
 

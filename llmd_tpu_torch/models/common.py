@@ -45,6 +45,11 @@ class StepInput:
     swa_page_table: the ring-view table of the sliding layers, the shape
                  of ``page_table``: logical page l of a row maps to
                  ``ring[l % R]`` in the ring pool; None without the ring
+
+    Either layout, with LoRA slots (``ModelConfig.num_lora_adapters``):
+
+    lora_ids:    [B] int32 adapter slot of each row (0: the base model);
+                 in the flat layout [T], each token's row's
     """
 
     token_ids: torch.Tensor
@@ -57,6 +62,7 @@ class StepInput:
     live_pages: int | None = None
     flat_items: torch.Tensor | None = None
     swa_page_table: torch.Tensor | None = None
+    lora_ids: torch.Tensor | None = None
 
     @property
     def valid(self) -> torch.Tensor:  # [B, Q] bool, bucketed layout

@@ -168,6 +168,8 @@ def init_params(
         if cfg.qk_norm:
             layers["attn_q_norm"] = const((D,), 1.0)
             layers["attn_k_norm"] = const((D,), 1.0)
+        if cfg.num_lora_adapters and not cfg.is_mla:
+            layers.update(lora_slots(cfg, n, device, dt, draw=lambda shape: stacked(shape, H**-0.5)))
         if moe:
             E, Fm = cfg.num_experts, cfg.moe_intermediate_size
             layers["router"] = stacked((H, E), H**-0.5)
@@ -211,6 +213,46 @@ def init_params(
         else:
             params["lm_head"] = head
     return params
+
+
+def lora_slots(cfg: ModelConfig, n: int, device, dtype, draw=None) -> dict:
+    """The adapter slots of n layers (JAX ``llama.py:92-103``): ``la_q``,
+    ``la_v`` [n, A + 1, H, r] and ``lb_q`` [n, A + 1, r, Nq * D], ``lb_v``
+    [n, A + 1, r, K * D] on the q and v projections. Slot 0 is the base
+    model (zeros); B starts at zero, so every slot serves the base model
+    until ``set_lora_weights`` installs an adapter. ``draw(shape)`` draws
+    A (random init); without it A is zero too (a loaded checkpoint's
+    slots, as the JAX loader makes them). Float leaves: int8 trees leave
+    them in the model's dtype."""
+    A1, r = cfg.num_lora_adapters + 1, cfg.lora_rank
+    H, D, Nq, K = cfg.hidden_size, cfg.head_dim, cfg.num_heads, cfg.num_kv_heads
+    out = {}
+    for name in ("la_q", "la_v"):
+        a = draw((A1, H, r)) if draw is not None else torch.zeros(
+            (n, A1, H, r), dtype=dtype, device=device)
+        a[:, 0] = 0
+        out[name] = a
+    out["lb_q"] = torch.zeros((n, A1, r, Nq * D), dtype=dtype, device=device)
+    out["lb_v"] = torch.zeros((n, A1, r, K * D), dtype=dtype, device=device)
+    return out
+
+
+def lora_delta(h: torch.Tensor, lp: dict, ids: torch.Tensor, which: str) -> torch.Tensor:
+    """The adapter term ``(h @ A) @ B`` of the q or v projection (``which``)
+    for each row's slot ``ids`` (JAX's gathered ``einsum``s). Computed as
+    two products over every slot at once, a row's A and B picked by a
+    one-hot of its slot: ``[M, H] @ [H, S r]`` and ``[M, S r] @ [S r,
+    N]``, with no per-row copy of a slot's weights; the other slots add
+    exact zeros. Plain PyTorch, as JAX leaves it to XLA. ``h`` [..., H],
+    ``ids`` the slot of each of h's rows (h's leading shape); returns
+    [..., N]."""
+    a, b = lp["la_" + which], lp["lb_" + which]  # [S, H, r], [S, r, N]
+    S, H, r = a.shape
+    lead = h.shape[:-1]
+    xa = (h.reshape(-1, H) @ a.permute(1, 0, 2).reshape(H, S * r)).reshape(-1, S, r)
+    onehot = ids.reshape(-1, 1) == torch.arange(S, device=ids.device)
+    xa = torch.where(onehot[:, :, None], xa, torch.zeros((), dtype=xa.dtype, device=xa.device))
+    return (xa.reshape(-1, S * r) @ b.reshape(S * r, -1)).reshape(*lead, -1)
 
 
 def fuse_projections(params: dict) -> dict:
@@ -377,6 +419,11 @@ def forward_hidden(params: dict, kv_cache, inp: StepInput, cfg: ModelConfig, kv_
         pairs = {g: _write_attend(inp, tables[g], page, cos, sin) for g in set(kinds)}
 
     eps = cfg.rms_norm_eps
+    # LoRA rows: each row's adapter terms need the float h, which an int8
+    # tree's fused norm then writes beside its quantized rows.
+    lora = bool(cfg.num_lora_adapters) and not cfg.is_mla and inp.lora_ids is not None
+    if lora:
+        lora_rows = inp.lora_ids.reshape(-1, 1).expand(B, Q)  # the slot of each token
 
     def norm(x, delta, bias, weight, lp, first: str, want_h: bool = False):
         """The residual add pending before a norm (``x + (delta + bias)``;
@@ -402,7 +449,7 @@ def forward_hidden(params: dict, kv_cache, inp: StepInput, cfg: ModelConfig, kv_
             first = "wq_a" if cfg.q_lora_rank > 0 else "wq"
         else:
             first = "wqkv" if "wqkv" in lp else "wq"
-        x, h, hq = norm(x, delta, None, lp["input_norm"], lp, first)
+        x, h, hq = norm(x, delta, None, lp["input_norm"], lp, first, want_h=lora)
         bo = None
         if cfg.is_mla:
             attn_out, _ = mla_attention(h, lp, kv, plane, inp, cfg, cos, sin, valid, hq)
@@ -422,6 +469,14 @@ def forward_hidden(params: dict, kv_cache, inp: StepInput, cfg: ModelConfig, kv_
             k = k.reshape(B, Q, K, D)
             v = v.reshape(B, Q, K, D)
             bias = (lp["bq"], lp["bk"], lp["bv"]) if cfg.attention_bias else None
+            if lora:
+                # The adapters' terms after the bias and before the QK norm
+                # and the rope, in JAX's order of additions: the bias is
+                # added here, not inside the fused write.
+                q, k, v = ops.add_qkv_bias(q, k, v, bias)
+                bias = None
+                q = q + lora_delta(h, lp, lora_rows, "q").reshape(q.shape)
+                v = v + lora_delta(h, lp, lora_rows, "v").reshape(v.shape)
             if cfg.qk_norm:  # Qwen3: per-head RMS norm (after any bias) before RoPE
                 q, k, v = ops.add_qkv_bias(q, k, v, bias)
                 bias = None

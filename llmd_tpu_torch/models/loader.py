@@ -46,6 +46,7 @@ import torch
 
 from llmd_tpu_torch.config import ModelConfig
 from llmd_tpu_torch.models.common import SUPPORTED_ROPE_TYPES, rope_type
+from llmd_tpu_torch.models.llama import lora_slots
 from llmd_tpu_torch.ops.quant import QUANT_NAMES, quantize_weight_into
 
 log = logging.getLogger(__name__)
@@ -60,15 +61,6 @@ _MOE_ARCHS = {"MixtralForCausalLM", "Qwen3MoeForCausalLM", "GptOssForCausalLM"}
 _MLA_ARCHS = {"DeepseekV2ForCausalLM", "DeepseekV3ForCausalLM"}
 SUPPORTED_ARCHS = _DENSE_ARCHS | _MOE_ARCHS | _MLA_ARCHS
 
-# ModelConfig fields of the JAX package that the port does not have yet,
-# and the ROADMAP.md queue 1 item that brings each.
-_NOT_PORTED = {
-    "num_lora_adapters": "LoRA, ROADMAP.md queue 1 item 8",
-    "lora_rank": "LoRA, ROADMAP.md queue 1 item 8",
-    "lora_dynamic": "LoRA, ROADMAP.md queue 1 item 8",
-}
-
-
 def is_model_dir(path: str) -> bool:
     p = pathlib.Path(path)
     return p.is_dir() and (p / "config.json").is_file()
@@ -77,9 +69,6 @@ def is_model_dir(path: str) -> bool:
 def config_from_hf(model_dir: str, **overrides) -> ModelConfig:
     """A ModelConfig from an HF model directory's ``config.json``, field
     for field as the JAX package builds it."""
-    for name in overrides:
-        if name in _NOT_PORTED:
-            raise ValueError(f"{name} is not ported yet ({_NOT_PORTED[name]})")
     p = pathlib.Path(model_dir)
     with open(p / "config.json") as f:
         hf = json.load(f)
@@ -433,6 +422,10 @@ def load_params(
             if cfg.qk_norm:
                 layers["attn_q_norm"] = stack(names("self_attn.q_norm.weight"))
                 layers["attn_k_norm"] = stack(names("self_attn.k_norm.weight"))
+            if cfg.num_lora_adapters:
+                # Serving slots, not checkpoint weights: zeros, so every
+                # slot is the base model until an adapter is installed.
+                layers.update(lora_slots(cfg, len(layer_ids), device, dt))
         if moe and ckpt.has(proj(layer_ids[0], "mlp.router.weight")):
             # gpt-oss: the router is mlp.router (weight [E, H] and a bias);
             # the experts are fused per-layer tensors: gate_up_proj [E, H,
@@ -517,3 +510,69 @@ def load_params(
     # ModelConfig.quantization is "int8" (llmd_tpu/models/loader.py:472-479);
     # this one quantized each leaf as it was mapped (``leaf``).
     return params
+
+
+def load_lora_adapter(cfg: ModelConfig, adapter_dir: str) -> dict[str, torch.Tensor]:
+    """An HF PEFT LoRA adapter directory (``adapter_config.json`` and
+    ``adapter_model.safetensors``) in ``set_lora_weights``' form (JAX
+    ``load_lora_adapter``): ``la_q``, ``lb_q``, ``la_v``, ``lb_v`` stacked
+    ``[num_layers, ...]`` on the CPU in the model's dtype, the PEFT scaling
+    (``lora_alpha / r``, rsLoRA ``lora_alpha / sqrt(r)``) folded into B and
+    the rank zero-padded to the slot's (zero columns add nothing). Only
+    ``q_proj`` and ``v_proj`` targets fit the slots; an adapter with other
+    targets, biases or anything else that changes the arithmetic is
+    refused, rather than served as something it is not."""
+    p = pathlib.Path(adapter_dir)
+    with open(p / "adapter_config.json") as f:
+        acfg = json.load(f)
+    raw_targets = acfg.get("target_modules") or []
+    if isinstance(raw_targets, str):  # PEFT takes a bare string too
+        raw_targets = [raw_targets]
+    targets = set(raw_targets)
+    unsupported = targets - {"q_proj", "v_proj"}
+    if unsupported:
+        raise ValueError(
+            f"adapter targets unsupported modules {sorted(unsupported)}; "
+            "servable slots cover q_proj and v_proj"
+        )
+    if acfg.get("bias", "none") != "none":
+        raise ValueError(
+            f"adapter bias={acfg['bias']!r} is not servable (slots carry "
+            "A/B factors only); trained biases would silently drop"
+        )
+    for feature in ("use_dora", "modules_to_save", "alpha_pattern", "rank_pattern"):
+        if acfg.get(feature):
+            raise ValueError(
+                f"adapter uses {feature}={acfg[feature]!r}, which the slot "
+                "layout cannot represent; the adapter would serve wrong"
+            )
+    r = int(acfg["r"])
+    if r > cfg.lora_rank:
+        raise ValueError(f"adapter rank {r} > slot rank {cfg.lora_rank}; raise --lora-rank")
+    alpha = float(acfg.get("lora_alpha", r))
+    scale = alpha / math.sqrt(r) if acfg.get("use_rslora") else alpha / r
+    ckpt = _Checkpoint(str(p))
+    names = ckpt.names()
+
+    def find(layer: int, proj: str, half: str) -> str | None:
+        # PEFT's names vary with the wrapper's depth: match the suffix.
+        suffix = f"layers.{layer}.self_attn.{proj}.{half}.weight"
+        return next((n for n in sorted(names) if n.endswith(suffix)), None)
+
+    H, D = cfg.hidden_size, cfg.head_dim
+    Nq, K, L, R = cfg.num_heads, cfg.num_kv_heads, cfg.num_layers, cfg.lora_rank
+    dt = getattr(torch, cfg.dtype)
+    shapes = {"la_q": (H, R), "lb_q": (R, Nq * D), "la_v": (H, R), "lb_v": (R, K * D)}
+    out = {k: torch.zeros((L, *shape), dtype=dt) for k, shape in shapes.items()}
+    for layer in range(L):
+        for proj, a_key, b_key in (("q_proj", "la_q", "lb_q"), ("v_proj", "la_v", "lb_v")):
+            if proj not in targets:
+                continue
+            a_name, b_name = find(layer, proj, "lora_A"), find(layer, proj, "lora_B")
+            if a_name is None or b_name is None:
+                raise KeyError(f"adapter missing lora_A/lora_B for layer {layer} {proj}")
+            a = ckpt.get(a_name)  # [r, H]
+            b = ckpt.get(b_name)  # [out, r]
+            out[a_key][layer, :, :r] = a.T.to(dt)
+            out[b_key][layer, :r, :] = (b.T * scale).to(dt)
+    return out

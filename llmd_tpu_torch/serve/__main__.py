@@ -31,7 +31,14 @@ pod), and the store tier's ``--kv-store-master-url`` (with
 ``--kv-offload-chunks``: the cross-slice store behind host DRAM and files),
 ``--kv-store-segment-bytes``, ``--kv-store-data-port``,
 ``--kv-publish-policy`` (save, evict-hot or off) and
-``--kv-publish-min-hits``. ``--model`` is a
+``--kv-publish-min-hits``, the decode pager's ``--kv-decode-paging`` (with
+``--kv-offload-chunks``, on a model whose every layer slides) and
+``--kv-pager-horizon-tokens``, and LoRA's ``--lora-adapters`` (``name`` or
+``name=PEFT dir`` entries, comma-separated, each served under its name as
+a model id), ``--lora-rank`` and ``--lora-pool-slots`` (N > 0: a paged
+adapter pool of N slots, whose registry ``/v1/load_lora_adapter`` and
+``/v1/unload_lora_adapter`` change at run time; ``--lora-adapters`` then
+seeds it). ``--model`` is a
 registry name, whose weights are random, drawn on the device from
 ``--seed``, and whose tokenizer is the byte tokenizer unless
 ``--tokenizer`` names one; or an HF model directory (``config.json`` and
@@ -60,6 +67,35 @@ from __future__ import annotations
 
 import argparse
 import logging
+import re
+
+
+def parse_lora_adapters(spec: str | None) -> dict[str, tuple[int, str | None]]:
+    """``'a,b=/path'`` -> ``{'a': (1, None), 'b': (2, '/path')}`` (JAX
+    ``parse_lora_adapters``): names in order, without repeats, each with
+    its slot and an optional PEFT directory loaded into it at start (a
+    bare name's slot serves the base model until weights are installed).
+    A name takes only characters that are safe in a Prometheus label
+    value: it goes into ``lora_requests_info``'s labels."""
+    if not spec:
+        return {}
+    entries: dict[str, str | None] = {}
+    for part in spec.split(","):
+        part = part.strip()
+        if not part:
+            continue
+        name, _, path = part.partition("=")
+        name = name.strip()
+        if not re.fullmatch(r"[A-Za-z0-9._:/-]+", name):
+            raise ValueError(f"invalid adapter name {name!r}: use letters, digits, ._:/-")
+        path = path.strip() or None
+        if name in entries:
+            if entries[name] != path:
+                raise ValueError(f"adapter {name!r} listed twice with conflicting paths "
+                                 f"({entries[name]!r} vs {path!r})")
+            continue
+        entries[name] = path
+    return {name: (i + 1, path) for i, (name, path) in enumerate(entries.items())}
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -251,11 +287,42 @@ def build_parser() -> argparse.ArgumentParser:
         help="hotness gate for --kv-publish-policy evict-hot: distinct uses "
              "of a page's hash chain before eviction earns a store copy",
     )
+    p.add_argument(
+        "--kv-decode-paging", action="store_true",
+        help="decode-time KV pager (long-context.md): spill live-"
+        "sequence pages below the attention window to the offload tier "
+        "and stream them back ahead of the window; requires "
+        "--kv-offload-chunks and a sliding-window model",
+    )
+    p.add_argument(
+        "--kv-pager-horizon-tokens", type=int, default=256,
+        help="prefetch horizon the pager keeps resident beyond the "
+        "attention window",
+    )
+    p.add_argument(
+        "--lora-adapters", default=None,
+        help="comma-separated adapter names to serve, each as a model id "
+        "(name=DIR loads an HF PEFT adapter directory into its slot at "
+        "start; a bare name's slot serves the base model until weights "
+        "are installed)",
+    )
+    p.add_argument("--lora-rank", type=int, default=16)
+    p.add_argument(
+        "--lora-pool-slots", type=int, default=0,
+        help="paged adapter pool: N device slots of rank --lora-rank over "
+        "an unbounded adapter registry (/v1/load_lora_adapter, "
+        "/v1/unload_lora_adapter); idle residents are evicted LRU, slots "
+        "of rows in flight are pinned, and a request naming a cold "
+        "adapter waits in a loading queue. 0 (default) keeps the fixed "
+        "--lora-adapters slots",
+    )
     p.add_argument("--device", default="cuda")
     return p
 
 
-def make_engine_config(args):
+def make_engine_config(args, lora_adapters=None):
+    """The engine's config from the flags; ``lora_adapters`` is the fixed
+    adapter map (name -> slot), which sizes the slots without a pool."""
     import json
 
     from llmd_tpu_torch.config import (
@@ -275,6 +342,13 @@ def make_engine_config(args):
         overrides["dtype"] = args.dtype
     if args.quantization:
         overrides["quantization"] = args.quantization
+    if getattr(args, "lora_pool_slots", 0):
+        # The slot count bounds residency only; the registry is filled at
+        # run time, seeded by --lora-adapters.
+        overrides.update(num_lora_adapters=args.lora_pool_slots, lora_rank=args.lora_rank,
+                         lora_dynamic=True)
+    elif lora_adapters:
+        overrides.update(num_lora_adapters=len(lora_adapters), lora_rank=args.lora_rank)
     weights_path, tokenizer_path = args.weights_path, args.tokenizer
     if is_model_dir(args.model):
         model = config_from_hf(args.model, **overrides)
@@ -321,6 +395,8 @@ def make_engine_config(args):
             store_data_port=args.kv_store_data_port,
             publish_policy=args.kv_publish_policy,
             publish_min_hits=args.kv_publish_min_hits,
+            decode_paging=args.kv_decode_paging,
+            pager_horizon_tokens=args.kv_pager_horizon_tokens,
         ) if args.kv_offload_chunks else None),
         kv_role=kv_cfg.get("kv_role"),
         kv_transfer_port=int(kv_cfg.get("transfer_port", 9100)),
@@ -349,7 +425,9 @@ def main(argv=None) -> None:
             trace_file=args.trace_file,
             sample_ratio=args.trace_sample_ratio,
         )
-    config = make_engine_config(args)
+    adapter_specs = parse_lora_adapters(args.lora_adapters)
+    lora_adapters = {name: slot for name, (slot, _) in adapter_specs.items()} or None
+    config = make_engine_config(args, lora_adapters)
     advertised = args.advertised_address or f"{args.host}:{args.port}"
     if advertised.startswith("0.0.0.0"):
         logging.warning(
@@ -369,12 +447,27 @@ def main(argv=None) -> None:
         if event_sink is not None:
             event_sink.close()
         raise
+    if args.lora_pool_slots:
+        # The pool: --lora-adapters seeds the registry (a bare name with
+        # zero factors, the base model until weights come by the API).
+        for name, (_, path) in adapter_specs.items():
+            engine.load_adapter(name, path) if path else engine.load_adapter(name, weights={})
+            logging.info("registered LoRA adapter %r (source=%s)", name, path or "<identity>")
+        lora_adapters = None
+    else:
+        for name, (slot, path) in adapter_specs.items():
+            if path:
+                from llmd_tpu_torch.models.loader import load_lora_adapter
+
+                engine.set_lora_weights(slot, load_lora_adapter(config.model, path))
+                logging.info("loaded LoRA adapter %r from %s into slot %d", name, path, slot)
     if not args.skip_warmup:
         n = engine.warmup()
         logging.info("warmup prepared %d decode programs (CUDA graphs on the card)", n)
     app = build_app(
         AsyncEngine(engine, watchdog_s=args.step_watchdog_s), tokenizer,
         args.served_model_name or args.model, config.model.max_model_len,
+        lora_adapters=lora_adapters,
     )
 
     async def _close_engine(app):

@@ -12,6 +12,7 @@ package's ``llmd_tpu/serve/api.py``):
   GET  /metrics                                 (the router's scrape)
   POST /tokenize, /v1/completions/render, /v1/chat/completions/render
   POST /v1/cache/probe                          (the P/D sidecar's question)
+  POST /v1/load_lora_adapter, /v1/unload_lora_adapter  (the paged adapter pool)
   POST /admin/pause, /admin/resume, /admin/drain; GET /admin/status
 
 The generate routes take the router's failover resume (``resume_token_ids``
@@ -21,10 +22,14 @@ tier's ``x-llmd-priority: batch`` header (``_effective_priority``) and
 P/D's ``kv_transfer_params`` (completions, chat and Generate: read from
 the body, handed to the engine, and a producer's returned on the
 unstreamed answer), and continue the caller's ``traceparent`` in an
-``engine.generate`` span.
+``engine.generate`` span. A LoRA adapter serves under its own model id
+(``_resolve_lora``): the server's fixed name -> slot map
+(``--lora-adapters``), or the engine's registry on a paged adapter pool
+(``--lora-pool-slots``); with adapters, any other id but the base model's
+is a 404.
 
-Not ported yet: ``/v1/embeddings`` and ``/vllm.Generation/Embed``, the LoRA
-load routes and adapter model ids, and the multimodal encoder parts.
+Not ported yet: ``/v1/embeddings`` and ``/vllm.Generation/Embed``, and the
+multimodal encoder parts.
 """
 
 from __future__ import annotations
@@ -34,6 +39,7 @@ import dataclasses
 import hmac
 import json
 import os
+import re
 import time
 
 import pydantic
@@ -56,6 +62,7 @@ ENGINE_KEY = web.AppKey("engine", AsyncEngine)
 TOK_KEY = web.AppKey("tokenizer", object)
 MODEL_KEY = web.AppKey("model", str)
 MAXLEN_KEY = web.AppKey("max_model_len", int)
+LORA_KEY = web.AppKey("lora_adapters", dict)
 
 # The router's failover headers (the JAX package's ``llmd_tpu/epp/types.py``
 # names): with HDR_STREAM_TOKENS set, every streamed delta frame carries
@@ -214,22 +221,50 @@ async def handle_ready(request: web.Request) -> web.Response:
     )
 
 
+class UnknownModelError(Exception):
+    pass
+
+
+def _adapter_registry(request: web.Request):
+    """The engine's adapter registry on a paged adapter pool, else None."""
+    engine = request.app.get(ENGINE_KEY)
+    return getattr(getattr(engine, "engine", None), "adapter_registry", None)
+
+
+def _resolve_lora(request: web.Request, model: str) -> tuple[int, str]:
+    """A model id as (adapter slot, adapter name) (JAX ``_resolve_lora``).
+    With adapters, an id that is neither the base model nor an adapter
+    raises ``UnknownModelError`` (a misspelt adapter must not be served as
+    the base model). On a paged pool the engine owns the name -> slot map,
+    so the slot is 0 and the name alone goes to ``add_request``."""
+    adapters = request.app.get(LORA_KEY) or {}
+    if model in adapters:
+        return adapters[model], model
+    registry = _adapter_registry(request)
+    if registry is not None and model and registry.has(model):
+        return 0, model
+    known = bool(adapters) or (registry is not None and len(registry))
+    if known and model and model != request.app[MODEL_KEY]:
+        raise UnknownModelError(model)
+    return 0, ""
+
+
 async def handle_models(request: web.Request) -> web.Response:
-    return web.json_response({
-        "object": "list",
-        "data": [{
-            "id": request.app[MODEL_KEY],
-            "object": "model",
-            "created": int(time.time()),
-            "owned_by": "llmd-tpu-torch",
-            "max_model_len": request.app[MAXLEN_KEY],
-        }],
-    })
+    entry = {"object": "model", "created": int(time.time()), "owned_by": "llmd-tpu-torch",
+             "max_model_len": request.app[MAXLEN_KEY]}
+    data = [{"id": request.app[MODEL_KEY], **entry}]
+    # Adapters serve under their own ids (vLLM's convention): a paged
+    # pool's registry, or the fixed map.
+    registry = _adapter_registry(request)
+    names = registry.names() if registry is not None else list(request.app.get(LORA_KEY) or {})
+    data += [{"id": name, **entry, "parent": request.app[MODEL_KEY]} for name in names]
+    return web.json_response({"object": "list", "data": data})
 
 
 async def handle_metrics(request: web.Request) -> web.Response:
     return web.Response(
-        text=render_metrics(request.app[ENGINE_KEY].stats, request.app[MODEL_KEY]),
+        text=render_metrics(request.app[ENGINE_KEY].stats, request.app[MODEL_KEY],
+                            request.app.get(LORA_KEY)),
         content_type="text/plain",
     )
 
@@ -330,16 +365,17 @@ async def _open_stream(request: web.Request, rid: str) -> web.StreamResponse:
 async def _token_deltas(engine: AsyncEngine, rid: str, prompt_ids: list[int],
                         sampling: SamplingParams, detok: Detokenizer, priority: int,
                         deadline_s: float | None = None, resume_output_tokens: int = 0,
-                        kv_transfer_params: dict | None = None):
+                        kv_transfer_params: dict | None = None,
+                        lora: tuple[int, str] = (0, "")):
     """Yields (token, text delta, finish reason or None, last output) per
-    token.
+    token; ``lora`` is the request's (adapter slot, adapter name).
 
     A fused decode window delivers up to K tokens at once: each is its own
     delta, in order. An empty delta (held back for UTF-8 or a stop string)
     still tells a streaming client that a token exists. A stop string
     aborts the request and finishes the stream with "stop"."""
     async for out in engine.generate(rid, prompt_ids, sampling, priority, deadline_s,
-                                     resume_output_tokens, kv_transfer_params):
+                                     resume_output_tokens, kv_transfer_params, *lora):
         for i, token in enumerate(out.new_token_ids):
             last = out.finished and i == len(out.new_token_ids) - 1
             delta = detok.feed([token], final=last)
@@ -372,6 +408,7 @@ async def _stream_response(
     priority: int, chat: bool, span, deadline_s: float | None = None,
     resume_output_tokens: int = 0, stream_token_ids: bool = False,
     resume_leg: bool = False, kv_transfer_params: dict | None = None,
+    lora: tuple[int, str] = (0, ""),
 ) -> web.StreamResponse:
     resp = await _open_stream(request, rid)
     if chat and not resume_leg:
@@ -384,7 +421,7 @@ async def _stream_response(
     try:
         async for token, delta, finish, out in _token_deltas(
             engine, rid, prompt_ids, sampling, detok, priority, deadline_s,
-            resume_output_tokens, kv_transfer_params,
+            resume_output_tokens, kv_transfer_params, lora,
         ):
             n_out, cached = out.num_output_tokens, out.num_cached_tokens
             chunk = _delta_chunk(chat, rid, model, delta)
@@ -418,7 +455,7 @@ async def _stream_response_multi(
     request: web.Request, engine: AsyncEngine, rid: str, model: str,
     prompt_ids: list[int], sampling: SamplingParams, tokenizer, stops: list[str],
     n: int, priority: int, chat: bool, span, deadline_s: float | None = None,
-    kv_transfer_params: dict | None = None,
+    kv_transfer_params: dict | None = None, lora: tuple[int, str] = (0, ""),
 ) -> web.StreamResponse:
     """SSE with n > 1: one engine stream per choice, their chunks
     interleaved on the response with their choice index; only choice 0
@@ -436,7 +473,7 @@ async def _stream_response_multi(
             finish = out = None
             async for _, delta, finish, out in _token_deltas(
                 engine, f"{rid}-{i}", prompt_ids, _choice_sampling(sampling, i),
-                detok, priority, deadline_s, 0, kv_transfer_params if i == 0 else None,
+                detok, priority, deadline_s, 0, kv_transfer_params if i == 0 else None, lora,
             ):
                 await queue.put(("delta", i, delta))
             if out is not None:
@@ -491,12 +528,12 @@ async def _stream_response_multi(
 async def _collect(engine: AsyncEngine, rid: str, prompt_ids: list[int],
                    sampling: SamplingParams, detok: Detokenizer, priority: int,
                    deadline_s: float | None = None, resume_output_tokens: int = 0,
-                   kv_transfer_params: dict | None = None):
+                   kv_transfer_params: dict | None = None, lora: tuple[int, str] = (0, "")):
     """Run to completion; returns (text, finish reason, last output)."""
     finish = None
     final: RequestOutput | None = None
     async for out in engine.generate(rid, prompt_ids, sampling, priority, deadline_s,
-                                     resume_output_tokens, kv_transfer_params):
+                                     resume_output_tokens, kv_transfer_params, *lora):
         detok.feed(out.new_token_ids, final=out.finished)
         final = out
         if detok.stopped:
@@ -590,6 +627,12 @@ async def _handle_generate(request: web.Request, chat: bool) -> web.StreamRespon
         if reject is not None:
             engine.stats.stream_resume_failures_total += 1
             return _error(400, reject)
+    try:
+        lora = _resolve_lora(request, req.model)
+    except UnknownModelError:
+        return _error(404, f"model {req.model!r} not found")
+    if lora[1]:
+        model = lora[1]  # the answer names the adapter asked for
     detok = Detokenizer(tokenizer, stops)
     # The server's span continues the caller's (the router's) traceparent.
     span = get_tracer().start_span(
@@ -628,12 +671,12 @@ async def _handle_generate(request: web.Request, chat: bool) -> web.StreamRespon
             if req.n > 1:
                 return await _stream_response_multi(
                     request, engine, rid, model, prompt_ids, sampling, tokenizer,
-                    stops, req.n, priority, chat, span, deadline_s, kvp,
+                    stops, req.n, priority, chat, span, deadline_s, kvp, lora,
                 )
             return await _stream_response(
                 request, engine, rid, model, engine_prompt_ids, sampling, detok,
                 priority, chat, span, deadline_s, len(resume_ids),
-                stream_token_ids, resume_leg, kvp,
+                stream_token_ids, resume_leg, kvp, lora,
             )
         except BaseException as e:
             span.error(str(e))
@@ -643,7 +686,7 @@ async def _handle_generate(request: web.Request, chat: bool) -> web.StreamRespon
     try:
         if req.n == 1:
             choices = [await _collect(engine, rid, engine_prompt_ids, sampling, detok,
-                                      priority, deadline_s, len(resume_ids), kvp)]
+                                      priority, deadline_s, len(resume_ids), kvp, lora)]
         else:
             # n samples share the prompt (and its cached prefix); only
             # choice 0 carries the P/D transfer.
@@ -651,7 +694,7 @@ async def _handle_generate(request: web.Request, chat: bool) -> web.StreamRespon
                 asyncio.ensure_future(_collect(
                     engine, f"{rid}-{i}", prompt_ids, _choice_sampling(sampling, i),
                     Detokenizer(tokenizer, stops), priority, deadline_s, 0,
-                    kvp if i == 0 else None,
+                    kvp if i == 0 else None, lora,
                 ))
                 for i in range(req.n)
             ]
@@ -738,8 +781,9 @@ async def handle_grpc_generate(request: web.Request) -> web.StreamResponse:
     """vLLM gRPC Generate, JSON-transcoded: token ids in and out, never
     detokenized (clients own the tokenizer). Streamed, one SSE frame of
     ``{"token_ids": [...]}`` an engine output, then a frame with
-    ``finish_reason`` and ``usage``. ``model`` is not checked: with no
-    adapters the base model serves any name, as on the JAX server."""
+    ``finish_reason`` and ``usage``. ``model`` names an adapter or the base
+    model (``_resolve_lora``); with no adapters the base model serves any
+    name, as on the JAX server."""
     engine = request.app[ENGINE_KEY]
     max_len = request.app[MAXLEN_KEY]
     model = request.app[MODEL_KEY]
@@ -771,6 +815,10 @@ async def handle_grpc_generate(request: web.Request) -> web.StreamResponse:
     kvp = body.get("kv_transfer_params")
     deadline_s = _request_deadline_s(request)
     stream = bool(body.get("stream", False))
+    try:
+        lora = _resolve_lora(request, str(body.get("model") or ""))
+    except UnknownModelError as e:
+        return _error(404, f"model {e.args[0]!r} not found")
     resume_ids = body.get("resume_token_ids") or []
     if resume_ids:
         reject = _validate_resume(resume_ids, sampling.max_tokens)
@@ -796,7 +844,8 @@ async def handle_grpc_generate(request: web.Request) -> web.StreamResponse:
     if stream:
         resp = await _open_stream(request, rid)
         try:
-            async for out in engine.generate(rid, ids, sampling, priority, deadline_s, n_resume, kvp):
+            async for out in engine.generate(rid, ids, sampling, priority, deadline_s, n_resume, kvp,
+                                         *lora):
                 final = out
                 if out.new_token_ids:
                     await resp.write(_sse({"token_ids": list(out.new_token_ids)}))
@@ -816,7 +865,8 @@ async def handle_grpc_generate(request: web.Request) -> web.StreamResponse:
         return resp
     out_ids: list[int] = []
     try:
-        async for out in engine.generate(rid, ids, sampling, priority, deadline_s, n_resume, kvp):
+        async for out in engine.generate(rid, ids, sampling, priority, deadline_s, n_resume, kvp,
+                                         *lora):
             final = out
             out_ids.extend(out.new_token_ids)
     except RequestFailed as e:
@@ -833,6 +883,69 @@ async def handle_grpc_generate(request: web.Request) -> web.StreamResponse:
             "kv_transfer_params": final.kv_transfer_params if final else None,
         },
         headers={"x-request-id": rid})
+
+
+# The vLLM dynamic-LoRA routes (JAX ``api.py:1342-1420``): registration is
+# unbounded, the paged pool bounds residency; a failed fetch is a counted
+# 400, never a wedged batch.
+_LORA_NAME_RE = re.compile(r"[A-Za-z0-9._:/-]+")
+
+
+async def handle_load_lora_adapter(request: web.Request) -> web.Response:
+    engine: AsyncEngine = request.app[ENGINE_KEY]
+    if _adapter_registry(request) is None:
+        return _error(400, "dynamic adapter serving is disabled (start the server with "
+                           "--lora-pool-slots)")
+    try:
+        body = await request.json()
+    except json.JSONDecodeError as e:
+        return _error(400, f"invalid JSON: {e}")
+    if not isinstance(body, dict):
+        return _error(400, "request body must be a JSON object")
+    name = str(body.get("lora_name") or "")
+    source = str(body.get("lora_path") or body.get("lora_url") or body.get("source") or "")
+    if not name or not _LORA_NAME_RE.fullmatch(name):
+        # Names go into Prometheus label values and model ids.
+        return _error(400, f"invalid lora_name {name!r}: use letters, digits, ._:/-")
+    if name == request.app[MODEL_KEY]:
+        return _error(400, f"lora_name {name!r} shadows the base model id")
+    if not source:
+        return _error(400, "lora_path (or lora_url / source) is required")
+    from llmd_tpu_torch.lora import AdapterFetchError
+
+    try:
+        await engine.load_adapter(name, source)
+    except (AdapterFetchError, ValueError, RuntimeError) as e:
+        return _error(400, str(e))
+    return web.json_response({
+        "status": "ok", "message": f"Success: LoRA adapter '{name}' added successfully",
+        "lora_name": name,
+    })
+
+
+async def handle_unload_lora_adapter(request: web.Request) -> web.Response:
+    engine: AsyncEngine = request.app[ENGINE_KEY]
+    if _adapter_registry(request) is None:
+        return _error(400, "dynamic adapter serving is disabled")
+    try:
+        body = await request.json()
+    except json.JSONDecodeError as e:
+        return _error(400, f"invalid JSON: {e}")
+    if not isinstance(body, dict):
+        return _error(400, "request body must be a JSON object")
+    name = str(body.get("lora_name") or "")
+    if not name:
+        return _error(400, "lora_name is required")
+    try:
+        await engine.unload_adapter(name)
+    except KeyError as e:
+        return _error(404, str(e.args[0]) if e.args else name)
+    except RuntimeError as e:  # rows in flight reference it: retry later
+        return _error(409, str(e))
+    return web.json_response({
+        "status": "ok", "message": f"Success: LoRA adapter '{name}' removed successfully",
+        "lora_name": name,
+    })
 
 
 async def handle_completions(request: web.Request) -> web.StreamResponse:
@@ -910,13 +1023,17 @@ async def handle_admin_status(request: web.Request) -> web.Response:
 
 
 def build_app(
-    engine: AsyncEngine, tokenizer, model_name: str, max_model_len: int
+    engine: AsyncEngine, tokenizer, model_name: str, max_model_len: int,
+    lora_adapters: dict[str, int] | None = None,
 ) -> web.Application:
+    """The server's app; ``lora_adapters`` is the fixed adapter name ->
+    slot map (``--lora-adapters`` without a pool)."""
     app = web.Application()
     app[ENGINE_KEY] = engine
     app[TOK_KEY] = tokenizer
     app[MODEL_KEY] = model_name
     app[MAXLEN_KEY] = max_model_len
+    app[LORA_KEY] = dict(lora_adapters or {})
     app[STORE_KEY] = ResponsesStore()
     app.add_routes([
         web.get("/health", handle_health),
@@ -930,6 +1047,8 @@ def build_app(
         web.post("/v1/completions/render", handle_completions_render),
         web.post("/v1/chat/completions/render", handle_chat_render),
         web.post("/v1/cache/probe", handle_cache_probe),
+        web.post("/v1/load_lora_adapter", handle_load_lora_adapter),
+        web.post("/v1/unload_lora_adapter", handle_unload_lora_adapter),
         *make_handlers(ENGINE_KEY, TOK_KEY, MODEL_KEY, MAXLEN_KEY),
         web.post("/admin/pause", handle_admin_pause),
         web.post("/admin/resume", handle_admin_resume),

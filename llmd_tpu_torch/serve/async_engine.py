@@ -49,6 +49,10 @@ class _Pending:
     # replica already delivered; generation continues at output position N.
     resume_output_tokens: int = 0
     kv_transfer_params: dict | None = None
+    # The LoRA adapter: its slot (0 on a paged pool, which resolves the
+    # name) and name.
+    lora_id: int = 0
+    lora_name: str = ""
 
 
 def _release_pulled(engine, kv_transfer_params) -> None:
@@ -233,6 +237,8 @@ class AsyncEngine:
         priority: int = 0,
         resume_output_tokens: int = 0,
         kv_transfer_params: dict | None = None,
+        lora_id: int = 0,
+        lora_name: str = "",
     ) -> asyncio.Queue:
         """Queue a request for the engine thread; returns its output queue."""
         q: asyncio.Queue = asyncio.Queue()
@@ -242,9 +248,20 @@ class AsyncEngine:
             self._subs[request_id] = q
             self._inbox.append(_Pending(
                 request_id, prompt_token_ids, sampling, priority, resume_output_tokens,
-                kv_transfer_params))
+                kv_transfer_params, lora_id, lora_name))
             self._lock.notify_all()
         return q
+
+    async def load_adapter(self, name: str, source: str = "") -> None:
+        """``/v1/load_lora_adapter``: the fetch and the slot install run on
+        an executor thread, so neither the event loop nor the step thread
+        waits for the weights."""
+        await asyncio.get_running_loop().run_in_executor(
+            None, functools.partial(self.engine.load_adapter, name, source))
+
+    async def unload_adapter(self, name: str) -> None:
+        await asyncio.get_running_loop().run_in_executor(
+            None, functools.partial(self.engine.unload_adapter, name))
 
     def abort(self, request_id: str) -> None:
         with self._lock:
@@ -261,6 +278,8 @@ class AsyncEngine:
         deadline_s: float | None = None,
         resume_output_tokens: int = 0,
         kv_transfer_params: dict | None = None,
+        lora_id: int = 0,
+        lora_name: str = "",
     ) -> AsyncIterator[RequestOutput]:
         """Async stream of incremental outputs until the request finishes.
 
@@ -274,7 +293,7 @@ class AsyncEngine:
             prompt_token_ids, kv_transfer_params, deadline, deadline_s)
         try:
             q = self.submit(request_id, prompt_token_ids, sampling, priority,
-                            resume_output_tokens, kv_transfer_params)
+                            resume_output_tokens, kv_transfer_params, lora_id, lora_name)
         except Exception:
             _release_pulled(self.engine, kv_transfer_params)
             raise
@@ -402,6 +421,7 @@ class AsyncEngine:
                         request_id=p.request_id, priority=p.priority,
                         resume_output_tokens=p.resume_output_tokens,
                         kv_transfer_params=p.kv_transfer_params,
+                        lora_id=p.lora_id, lora_name=p.lora_name,
                     )
                 except ValueError as e:  # validation errors -> caller
                     _release_pulled(self.engine, p.kv_transfer_params)

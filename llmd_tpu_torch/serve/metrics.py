@@ -17,15 +17,16 @@ if TYPE_CHECKING:
     from llmd_tpu_torch.engine.engine import EngineStats
 
 
-def render_metrics(stats: EngineStats, model_name: str) -> str:
+def render_metrics(stats: EngineStats, model_name: str, lora_adapters: dict | None = None) -> str:
     """The Prometheus page of ``stats``: every gauge and counter under the
     ``vllm:`` and the ``llmd:`` family, and ``cache_config_info``.
     ``gpu_cache_usage_perc`` is the binding pool's usage: with the SWA
     ring, the larger of the main pool's and the ring pool's (a scorer
     reading only the main pool would keep sending work to an engine whose
     rings are full). The series of features the port does not have yet
-    (the decode pager, context-parallel prefill) print 0, as on a JAX page
-    where they are idle; the labelled and
+    (context-parallel prefill) print 0, as on a JAX page where they are
+    idle; ``available_lora_adapters`` is the engine's registry, or else
+    the server's fixed adapter map (``lora_adapters``); the labelled and
     histogram series (LoRA, speculative decoding, wide EP, transfer
     failures) print only when their stats are set, and
     ``faults_injected_total`` only while a fault plan is armed, as in
@@ -132,7 +133,7 @@ def render_metrics(stats: EngineStats, model_name: str) -> str:
     if stats.max_lora:
         running = ",".join(stats.running_lora_adapters)
         waiting = ",".join(stats.waiting_lora_adapters)
-        available = ",".join(stats.available_lora_adapters)
+        available = ",".join(stats.available_lora_adapters or sorted(lora_adapters or ()))
         resident = ",".join(stats.resident_lora_adapters) or available
         lines.append("# TYPE vllm:lora_requests_info gauge")
         lines.append(

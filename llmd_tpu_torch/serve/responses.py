@@ -196,8 +196,20 @@ def make_handlers(engine_key, tok_key, model_key, maxlen_key):
         ) + context
 
         # Imported here: api.py imports this module for its routes.
-        from llmd_tpu_torch.serve.api import Detokenizer, _chat_prompt_ids
+        from llmd_tpu_torch.serve.api import (
+            Detokenizer,
+            UnknownModelError,
+            _chat_prompt_ids,
+            _resolve_lora,
+        )
 
+        # An adapter's model id serves the adapter, as on completions and
+        # chat (the JAX server's Responses route serves the base model).
+        try:
+            lora_id, lora_name = _resolve_lora(request, str(body.get("model") or ""))
+        except UnknownModelError as e:
+            return _err(404, f"model {e.args[0]!r} not found")
+        model = lora_name or model
         prompt_ids = _chat_prompt_ids(tokenizer, messages)
         if len(prompt_ids) >= max_len:
             return _err(
@@ -242,7 +254,8 @@ def make_handlers(engine_key, tok_key, model_key, maxlen_key):
             text = ""
             n_out = 0
             try:
-                async for out in engine.generate(rid, prompt_ids, sampling):
+                async for out in engine.generate(rid, prompt_ids, sampling,
+                                                 lora_id=lora_id, lora_name=lora_name):
                     text += detok.feed(out.new_token_ids, final=out.finished)
                     n_out = out.num_output_tokens
             except RequestFailed as e:
@@ -279,7 +292,8 @@ def make_handlers(engine_key, tok_key, model_key, maxlen_key):
         text = ""
         n_out = 0
         try:
-            async for out in engine.generate(rid, prompt_ids, sampling):
+            async for out in engine.generate(rid, prompt_ids, sampling,
+                                             lora_id=lora_id, lora_name=lora_name):
                 delta = detok.feed(out.new_token_ids, final=out.finished)
                 n_out = out.num_output_tokens
                 if delta:

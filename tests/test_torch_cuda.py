@@ -2109,3 +2109,97 @@ def test_graph_replays_after_a_fetch_thread_scatter_read_the_pages(dev, fast):
     finally:
         producer.close()
         consumer.close()
+
+
+def pager_config(blocks: int, paging: bool, kv_dtype: str = "float32"):
+    from llmd_tpu_torch.config import OffloadConfig
+
+    return EngineConfig(
+        model=tiny_model_config(head_dim=64, num_layers=3, sliding_window=32, max_model_len=512),
+        cache=CacheConfig(page_size=8, num_blocks=blocks, dtype=kv_dtype),
+        scheduler=SchedulerConfig(max_num_seqs=4, max_num_batched_tokens=64, decode_window=4),
+        offload=OffloadConfig(cpu_chunks=256, decode_paging=paging, pager_horizon_tokens=8),
+    )
+
+
+@pytest.mark.parametrize("kv_dtype", ["float32", "int8"])
+def test_pager_spills_and_restores_on_the_card_as_the_pager_off(dev, kv_dtype):
+    """The decode pager on the card: a large pool where pages only spill,
+    and a small one where victims park and their windows are restored (the
+    copies to pinned slots on the copy stream, the restore's upload and
+    scatter in layer groups), both give the pager-off engine's streams and
+    the CPU pager engine's counters; the decode graphs were captured before
+    any restore and nothing is captured again."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg0 = pager_config(512, False, kv_dtype)
+    params = llama.init_params(cfg0.model, torch.Generator().manual_seed(0), "cpu")
+    rng = np.random.default_rng(5)
+    long = [rng.integers(0, 256, size=120).tolist() for _ in range(2)]
+    short = [rng.integers(0, 256, size=20).tolist() for _ in range(4)]
+    sp = SamplingParams(temperature=0.0, max_tokens=40, ignore_eos=True)
+    want = {}
+    for name, prompts in (("long", long), ("short", short)):
+        want[name] = list(LLMEngine(cfg0, params=params, device="cuda").generate(prompts, sp).values())
+    for name, prompts, blocks in (("long", long, 512), ("short", short, 14)):
+        cfg = pager_config(blocks, True, kv_dtype)
+        eng = LLMEngine(cfg, params=params, device="cuda")
+        eng.warmup()
+        captured = set(eng.runner.programs.programs)
+        got = list(eng.generate(prompts, sp).values())
+        cpu = LLMEngine(cfg, params=params, device="cpu")
+        assert got == want[name] == list(cpu.generate(prompts, sp).values())
+        counters = ("pages_spilled_total", "pages_restored_total", "parks_total", "refunds_total")
+        assert [getattr(eng.pager, k) for k in counters] == [getattr(cpu.pager, k) for k in counters]
+        assert eng.pager.pages_spilled_total > 0 or eng.pager.parks_total > 0
+        if name == "short":
+            assert eng.pager.parks_total > 0 and eng.pager.pages_restored_total > 0
+        assert set(eng.runner.programs.programs) == captured
+        assert sum(eng.runner.programs.runs.values()) > 0
+        eng.close()
+
+
+def test_lora_delta_in_a_captured_decode_graph_equals_its_eager_body(dev):
+    """Adapter rows through decode graphs captured before the adapters were
+    installed: the card engine's streams equal the CPU engine's (eager)
+    with mixed slots; an install after capture writes the slots in place,
+    and the next replays serve it."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = EngineConfig(
+        model=tiny_model_config(head_dim=64, num_layers=3, num_lora_adapters=3, lora_rank=4),
+        cache=CacheConfig(page_size=8, num_blocks=64, dtype="float32"),
+        scheduler=SchedulerConfig(max_num_seqs=4, max_num_batched_tokens=64, decode_window=4),
+    )
+    params = llama.init_params(cfg.model, torch.Generator().manual_seed(0), "cpu")
+    rng = np.random.default_rng(6)
+    prompts = [rng.integers(0, 256, size=n).tolist() for n in (9, 17, 30, 12)]
+    layers = params["layers"]
+
+    def adapter(seed):
+        g = np.random.default_rng(seed)
+        return {k: g.normal(0, 0.5, (layers[k].shape[0], *layers[k].shape[2:])).astype(np.float32)
+                for k in ("la_q", "lb_q", "la_v", "lb_v")}
+
+    eng = LLMEngine(cfg, params=params, device="cuda")
+    eng.warmup()
+    captured = set(eng.runner.programs.programs)
+    cpu = LLMEngine(cfg, params=params, device="cpu")
+    sp = SamplingParams(temperature=0.0, max_tokens=12, ignore_eos=True)
+
+    def run(e):
+        rids = [e.add_request(p, sp, lora_id=i) for i, p in enumerate(prompts)]
+        out = {r: [] for r in rids}
+        while e.has_work():
+            for o in e.step():
+                out[o.request_id] += o.new_token_ids
+        return [out[r] for r in rids]
+
+    for seed in (1, 2):
+        for e in (eng, cpu):
+            for slot in (1, 2, 3):
+                e.set_lora_weights(slot, adapter(10 * seed + slot))
+        runs0 = sum(eng.runner.programs.runs.values())
+        got = run(eng)
+        assert got == run(cpu)
+        assert sum(eng.runner.programs.runs.values()) > runs0
+        assert set(eng.runner.programs.programs) == captured
+    assert len({tuple(s) for s in got}) == len(prompts)

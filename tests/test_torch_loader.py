@@ -299,8 +299,11 @@ def test_missing_tensor_and_unported_fields_raise(tmp_path):
         jloader.load_params(jloader.config_from_hf(d, num_layers=2), d)
     with pytest.raises(KeyError, match="model.layers.1"):
         loader.load_params(loader.config_from_hf(d, num_layers=2), d, device="cpu")
-    with pytest.raises(ValueError, match="queue 1 item 8"):
-        loader.config_from_hf(d, num_lora_adapters=2)
+    # The LoRA fields (refused until the adapters were ported) are taken
+    # as the JAX loader takes them.
+    for key, value in (("num_lora_adapters", 2), ("lora_rank", 8)):
+        assert (getattr(loader.config_from_hf(d, **{key: value}), key)
+                == getattr(jloader.config_from_hf(d, **{key: value}), key) == value)
     with pytest.raises(FileNotFoundError):
         loader.load_params(loader.config_from_hf(d), str(tmp_path), device="cpu")
 

@@ -569,7 +569,8 @@ def test_cached_prefix_pages_touches_nothing():
 def test_surface_routes_are_the_jax_routes_but_the_deferred():
     """Every route the port serves, the JAX server serves under the same
     method and path, and the port serves all of the JAX server's but the
-    four that wait for embeddings and LoRA."""
+    two that wait for embeddings (LoRA's load and unload routes came with
+    the adapters)."""
     def routes(app):
         return {(r.method, r.resource.canonical) for r in app.router.routes()
                 if r.method != "HEAD"}
@@ -577,9 +578,8 @@ def test_surface_routes_are_the_jax_routes_but_the_deferred():
     port = routes(tapi.build_app(AsyncEngine(None), ByteTokenizer(), "m", 8))
     ref = routes(japi.build_app(JaxAsyncEngine.__new__(JaxAsyncEngine), JaxByteTokenizer(), "m", 8))
     assert port <= ref
-    # What waits for its item: embeddings and the LoRA routes.
-    assert ref - port == {("POST", "/v1/embeddings"), ("POST", "/vllm.Generation/Embed"),
-                          ("POST", "/v1/load_lora_adapter"), ("POST", "/v1/unload_lora_adapter")}
+    # What waits for its item: embeddings.
+    assert ref - port == {("POST", "/v1/embeddings"), ("POST", "/vllm.Generation/Embed")}
 
 
 def strip_response(obj):
